@@ -1,0 +1,47 @@
+"""Convert the JAX package's generator parameters into the port's.
+
+The JAX tree (``probgan_tpu/models/pro_gan.init_generator``, or a loaded
+image checkpoint's ``g_params``) holds numpy-convertible arrays:
+
+- conv weights HWIO ``[kh, kw, Cin, Cout]`` -> OIHW ``[Cout, Cin, kh, kw]``
+  via ``transpose(3, 2, 0, 1)`` (the 1x1 toRGB ``[1, 1, C, 3]`` becomes
+  ``[3, C, 1, 1]``). The He fan-in ``kh*kw*Cin`` then lives on axes 1-3,
+  which is where the port's ``eq_conv`` reads it;
+- dense weights stay ``[in, out]``. The base dense output is reshaped to
+  (4, 4, nf0) HWC and permuted to NCHW inside ``_g_base``, so its columns
+  keep the JAX order.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32))).to(device)
+
+
+def _conv(p: dict, device) -> dict:
+    w = np.asarray(p["w"], np.float32)
+    if w.ndim != 4:
+        raise ValueError(f"conv weight must be HWIO 4-d, got shape {w.shape}")
+    return {"w": _tensor(w.transpose(3, 2, 0, 1), device), "b": _tensor(p["b"], device)}
+
+
+def _dense(p: dict, device) -> dict:
+    return {"w": _tensor(p["w"], device), "b": _tensor(p["b"], device)}
+
+
+def convert_generator_params(jax_params: dict, device="cpu") -> dict:
+    """JAX generator params (HWIO convs, [in, out] dense, numpy or jax
+    arrays) -> the port's tree of fp32 tensors on ``device``."""
+    return {
+        "base_dense": _dense(jax_params["base_dense"], device),
+        "base_conv": _conv(jax_params["base_conv"], device),
+        "blocks": [
+            {"conv1": _conv(b["conv1"], device), "conv2": _conv(b["conv2"], device)}
+            for b in jax_params["blocks"]
+        ],
+        "to_rgb": [_conv(t, device) for t in jax_params["to_rgb"]],
+    }

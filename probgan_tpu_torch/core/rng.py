@@ -1,0 +1,40 @@
+"""Explicit RNG policy over ``torch.Generator``.
+
+Same per-task counter semantics as the JAX package's ``RngStream``: the i-th
+draw for task "t" comes from a generator seeded by (seed, crc32(t), i), so it
+is the same no matter which other tasks drew before it. The bits differ from
+``jax.random``'s (threefry): a test that compares the two packages makes its
+inputs with numpy and hands the same arrays to both.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import zlib
+
+import torch
+
+
+class RngStream:
+    """A task-keyed counter stream: ``generator(task, i)`` is seeded from a
+    hash of (seed, crc32(task), i)."""
+
+    def __init__(self, seed: int = 0):
+        self._seed = int(seed)
+        self._counters: dict[str, int] = {}
+
+    def next_generator(self, task: str = "") -> torch.Generator:
+        """A fresh CPU generator for the next draw of ``task`` (draw on the
+        CPU, then move: the bits do not depend on the target device)."""
+        i = self._counters.get(task, 0)
+        self._counters[task] = i + 1
+        tag = zlib.crc32(task.encode()) & 0x7FFFFFFF if task else 0
+        digest = hashlib.blake2b(
+            f"{self._seed}:{tag}:{i}".encode(), digest_size=8
+        ).digest()
+        gen = torch.Generator()
+        gen.manual_seed(int.from_bytes(digest, "little") & 0x7FFFFFFFFFFFFFFF)
+        return gen
+
+    def counter(self, task: str = "") -> int:
+        return self._counters.get(task, 0)

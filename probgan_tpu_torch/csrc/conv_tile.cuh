@@ -1,0 +1,176 @@
+// Shared pieces of the late-stage generator kernels (packed_upconv.cu,
+// packed_conv.cu, packed_conv_rgb.cu): tile geometry, the per-thread channel
+// map, the fused bias -> LeakyReLU(0.2) -> PixelNorm epilogue and the 3x3
+// SAME conv main loop.
+//
+// Every kernel is an implicit GEMM on the CUDA cores in fp32: M = output
+// pixels, N = output channels (32 or 64), K = taps x input channels. A block
+// of 256 threads owns a tile of output pixels and ALL output channels, so
+// PixelNorm (a mean over channels) never leaves the block: a thread holds
+// 8 pixels x 8 channels in registers, and the COUT/8 lanes that share a
+// pixel group are neighbours in one warp and reduce sum(x^2) with xor
+// shuffles. Input channels stream through shared memory 8 at a time, with
+// the matching weight slab beside them (the full weights, up to 512 KB, do
+// not fit in a block's 227 KB).
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace probgan {
+
+constexpr int kThreads = 256;  // threads per block
+constexpr int kCC = 8;         // input channels staged per shared-memory step
+constexpr int kTM = 8;         // output pixels per thread, contiguous in a row
+constexpr int kTN = 8;         // output channels per thread
+constexpr float kSlope = 0.2f;
+constexpr float kEps = 1e-8f;
+
+template <int COUT>
+struct Tile {
+  static_assert(COUT == 32 || COUT == 64, "kernels are built for 32 or 64 output channels");
+  static constexpr int NCG = COUT / kTN;      // lanes sharing one pixel group: 4 or 8
+  static constexpr int NPG = kThreads / NCG;  // pixel groups per block: 64 or 32
+  static constexpr int TW = 4 * kTM;          // output columns per block (4 groups across)
+  static constexpr int TH = NPG / 4;          // output rows per block: 16 or 8
+};
+
+// Output channel of a lane's n-th accumulator: two runs of 4, at 4*cg and
+// 4*NCG + 4*cg, so the lanes of a quarter warp read one contiguous 128-byte
+// span of a weight row (no bank conflicts) with two float4 loads each.
+template <int COUT>
+__device__ __forceinline__ int channel_of(int cg, int n) {
+  constexpr int NCG = Tile<COUT>::NCG;
+  return n < 4 ? 4 * cg + n : 4 * NCG + 4 * cg + (n - 4);
+}
+
+__device__ __forceinline__ void fma8(float (&a)[kTN], float v, const float4& w0,
+                                     const float4& w1) {
+  a[0] = fmaf(v, w0.x, a[0]);
+  a[1] = fmaf(v, w0.y, a[1]);
+  a[2] = fmaf(v, w0.z, a[2]);
+  a[3] = fmaf(v, w0.w, a[3]);
+  a[4] = fmaf(v, w1.x, a[4]);
+  a[5] = fmaf(v, w1.y, a[5]);
+  a[6] = fmaf(v, w1.z, a[6]);
+  a[7] = fmaf(v, w1.w, a[7]);
+}
+
+// Sum over the NCG lanes of a pixel group. Every lane adds the same two
+// operands at every level (a + b == b + a in IEEE), so all lanes get the
+// same bits.
+template <int COUT>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int off = Tile<COUT>::NCG / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// bias -> lrelu(0.2) -> x * 1/sqrt(mean_c(x^2) + 1e-8), in place.
+template <int COUT>
+__device__ __forceinline__ void bias_lrelu_norm(float (&acc)[kTM][kTN],
+                                                const float* __restrict__ bias, int cg) {
+  float bch[kTN];
+#pragma unroll
+  for (int n = 0; n < kTN; ++n) bch[n] = __ldg(bias + channel_of<COUT>(cg, n));
+#pragma unroll
+  for (int m = 0; m < kTM; ++m) {
+    float ss = 0.f;
+#pragma unroll
+    for (int n = 0; n < kTN; ++n) {
+      float v = acc[m][n] + bch[n];
+      v = v >= 0.f ? v : kSlope * v;
+      acc[m][n] = v;
+      ss += v * v;
+    }
+    ss = group_sum<COUT>(ss);
+    const float s = 1.0f / sqrtf(ss / static_cast<float>(COUT) + kEps);
+#pragma unroll
+    for (int n = 0; n < kTN; ++n) acc[m][n] *= s;
+  }
+}
+
+// Store a thread's 8 pixels x 8 channels into NCHW; `y` points at channel 0
+// of the thread's first pixel, `plane` = H*W. Rows are 32-byte aligned
+// because the tile's columns start at multiples of 8.
+template <int COUT>
+__device__ __forceinline__ void store_rows(float* __restrict__ y,
+                                           const float (&acc)[kTM][kTN], int cg,
+                                           size_t plane) {
+#pragma unroll
+  for (int n = 0; n < kTN; ++n) {
+    float* p = y + static_cast<size_t>(channel_of<COUT>(cg, n)) * plane;
+    reinterpret_cast<float4*>(p)[0] = make_float4(acc[0][n], acc[1][n], acc[2][n], acc[3][n]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(acc[4][n], acc[5][n], acc[6][n], acc[7][n]);
+  }
+}
+
+// 3x3 SAME conv of one image `xb` [C][H][W] with weights `w` [C][9][COUT]
+// (tap = ky*3 + kx), accumulated into the thread's registers for the block's
+// tile: rows y0..y0+TH-1, columns x0..x0+TW-1. The thread's pixels are
+// row y0 + pg/4, columns x0 + 8*(pg%4) + 0..7. Each step stages kCC input
+// channels of the (TH+2) x (TW+2) halo patch, zero outside the image, and
+// their weights.
+template <int COUT>
+__device__ __forceinline__ void conv3x3_accumulate(const float* __restrict__ xb,
+                                                   const float* __restrict__ w, int C,
+                                                   int H, int W, int y0, int x0,
+                                                   float (&acc)[kTM][kTN]) {
+  using T = Tile<COUT>;
+  constexpr int SH = T::TH + 2;  // patch rows
+  constexpr int PW = T::TW + 2;  // patch columns
+  constexpr int SW = T::TW + 4;  // row stride: keeps every row 16-byte aligned
+  __shared__ __align__(16) float xs[kCC][SH][SW];
+  __shared__ __align__(16) float ws[kCC][9][COUT];
+
+  const int tid = threadIdx.x;
+  const int cg = tid % T::NCG;
+  const int pg = tid / T::NCG;
+  const int pgx = pg % 4;
+  const int ty = pg / 4;
+
+  for (int c0 = 0; c0 < C; c0 += kCC) {
+    for (int e = tid; e < kCC * SH * PW; e += kThreads) {
+      const int col = e % PW;
+      const int t = e / PW;
+      const int r = t % SH;
+      const int c = t / SH;
+      const int gy = y0 - 1 + r;
+      const int gx = x0 - 1 + col;
+      xs[c][r][col] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
+                          ? __ldg(xb + (static_cast<size_t>(c0 + c) * H + gy) * W + gx)
+                          : 0.f;
+    }
+    const float4* wsrc = reinterpret_cast<const float4*>(w + static_cast<size_t>(c0) * 9 * COUT);
+    float4* wdst = reinterpret_cast<float4*>(&ws[0][0][0]);
+    for (int e = tid; e < kCC * 9 * COUT / 4; e += kThreads) wdst[e] = __ldg(wsrc + e);
+    __syncthreads();
+
+#pragma unroll 2
+    for (int c = 0; c < kCC; ++c) {
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+        const float* src = &xs[c][ty + ky][pgx * kTM];
+        const float4 a = reinterpret_cast<const float4*>(src)[0];
+        const float4 b = reinterpret_cast<const float4*>(src)[1];
+        const float2 d = reinterpret_cast<const float2*>(src)[4];
+        const float xin[kTM + 2] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, d.x, d.y};
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          const float* wrow = &ws[c][ky * 3 + kx][0];
+          const float4 w0 = reinterpret_cast<const float4*>(wrow)[cg];
+          const float4 w1 = reinterpret_cast<const float4*>(wrow)[T::NCG + cg];
+#pragma unroll
+          for (int m = 0; m < kTM; ++m) fma8(acc[m], xin[m + kx], w0, w1);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace probgan
+
+extern "C" const char* probgan_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,275 @@
+"""Progressive image-synthesis GAN, generator half, in PyTorch.
+
+The port of ``probgan_tpu/models/pro_gan.py``: latent -> PixelNorm ->
+equalized-LR conv blocks -> progressive upsample + toRGB alpha blend ->
+tanh/denorm to uint8. Parameters are plain dicts of tensors with the JAX
+package's tree structure; conv weights are OIHW ``[Cout, Cin, kh, kw]``
+(``core/convert.py`` turns the JAX package's HWIO trees into this), dense
+weights ``[in, out]``.
+
+Internally activations are NCHW. The public functions keep the JAX shapes:
+latents ``[B, L]`` in, ``generator_rgb`` -> ``[B, R, R, 3]`` fp32 and
+``generator_apply`` -> ``[B, R, R, 3]`` uint8, both NHWC.
+
+Precision grades: "high" and "highest" both mean fp32 with TF32 off
+(``_require_fp32_grade``). The bf16 grades (None, "default", "fast") need a
+bf16 kernel grade the port does not have yet and raise NotImplementedError.
+
+Resolution of stage s is ``4 * 2**s``; channels ``nf(s) = min(fmap_base //
+2**s, fmap_max)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from probgan_tpu_torch.ops.fused_upconv import upsample2x_conv3x3
+
+LRELU_SLOPE = 0.2
+_PIXELNORM_EPS = 1e-8
+_FP32_GRADES = ("high", "highest")
+
+
+@dataclasses.dataclass(frozen=True)
+class ProGANConfig:
+    resolution: int = 1024
+    latent_dim: int = 512
+    fmap_base: int = 8192
+    fmap_max: int = 512
+    num_channels: int = 3
+
+    @property
+    def num_stages(self) -> int:
+        return int(math.log2(self.resolution // 4)) + 1
+
+    def nf(self, stage: int) -> int:
+        return min(self.fmap_base // (2**stage), self.fmap_max)
+
+
+def stage_resolution(stage: int) -> int:
+    return 4 * 2**stage
+
+
+def _require_fp32_grade(precision) -> None:
+    """Accept the fp32 grades and pin both TF32 switches off, process-wide.
+    cuDNN convolutions default to TF32 (``torch.backends.cudnn.allow_tf32``
+    is True), which keeps ~3 decimal digits and would silently drop parity
+    with the fp32 reference; matmuls default to fp32 but are pinned too."""
+    if precision not in _FP32_GRADES:
+        raise NotImplementedError(
+            f"precision grade {precision!r} needs a bf16 kernel grade, which "
+            f"the port does not have yet; use one of {_FP32_GRADES}"
+        )
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# ---------------------------------------------------------------------------
+# equalized-LR primitives
+# ---------------------------------------------------------------------------
+
+def _he_scale(fan_in: int, gain: float = math.sqrt(2.0)) -> float:
+    return gain / math.sqrt(fan_in)
+
+
+def eq_scaled_conv_w(pr: dict) -> torch.Tensor:
+    """Equalized-LR conv weights with the He scale baked in — the weight
+    operand of the late-stage kernels. OIHW: fan-in is Cin*kh*kw, axes 1-3."""
+    w = pr["w"]
+    return w * _he_scale(w.shape[1] * w.shape[2] * w.shape[3])
+
+
+def eq_conv(params: dict, x: torch.Tensor,
+            gain: float = math.sqrt(2.0)) -> torch.Tensor:
+    """3x3/1x1 SAME conv with runtime He scaling (equalized LR), NCHW."""
+    w = params["w"]
+    scale = _he_scale(w.shape[1] * w.shape[2] * w.shape[3], gain)
+    out = F.conv2d(x, w * scale, padding=w.shape[2] // 2)
+    return out + params["b"][:, None, None]
+
+
+def eq_dense(params: dict, x: torch.Tensor,
+             gain: float = math.sqrt(2.0)) -> torch.Tensor:
+    w = params["w"]
+    return x @ (w * _he_scale(w.shape[0], gain)) + params["b"]
+
+
+def lrelu(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, negative_slope=LRELU_SLOPE)
+
+
+def pixel_norm(x: torch.Tensor) -> torch.Tensor:
+    """Normalize each pixel's feature vector over dim 1 (channels of NCHW,
+    features of [B, L]): x / sqrt(mean(x^2) + eps)."""
+    return x * torch.rsqrt(torch.mean(x * x, dim=1, keepdim=True) + _PIXELNORM_EPS)
+
+
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """[B, C, H, W] -> [B, C, 2H, 2W] nearest-neighbor."""
+    return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+
+
+def to_uint8(rgb: torch.Tensor) -> torch.Tensor:
+    """tanh -> [0,255] denorm -> round (half to even, as jnp.round) -> clip
+    -> uint8. Elementwise, so any layout."""
+    x = (torch.tanh(rgb.float()) + 1.0) * 127.5
+    return torch.clamp(torch.round(x), 0.0, 255.0).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Generator
+# ---------------------------------------------------------------------------
+
+def init_generator(config: ProGANConfig,
+                   generator: torch.Generator | int = 0) -> dict:
+    """Params: base dense + per-stage double-conv blocks + per-stage toRGB,
+    weights ~N(0,1) from ``generator`` (or a seed), biases 0, on the CPU.
+    The bits differ from the JAX package's ``jax.random`` init."""
+    if isinstance(generator, int):
+        generator = torch.Generator().manual_seed(generator)
+
+    def conv(kh, kw, cin, cout):
+        return {"w": torch.randn((cout, cin, kh, kw), generator=generator),
+                "b": torch.zeros(cout)}
+
+    n = config.num_stages
+    nf = config.nf
+    return {
+        "base_dense": {
+            "w": torch.randn((config.latent_dim, nf(0) * 16), generator=generator),
+            "b": torch.zeros(nf(0) * 16),
+        },
+        "base_conv": conv(3, 3, nf(0), nf(0)),
+        "blocks": [
+            {"conv1": conv(3, 3, nf(s - 1), nf(s)), "conv2": conv(3, 3, nf(s), nf(s))}
+            for s in range(1, n)
+        ],
+        "to_rgb": [conv(1, 1, nf(s), config.num_channels) for s in range(n)],
+    }
+
+
+def _g_base(params: dict, z: torch.Tensor, config: ProGANConfig) -> torch.Tensor:
+    z = pixel_norm(z.float())
+    x = eq_dense(params["base_dense"], z)
+    # The dense output is (4, 4, nf0) HWC in the JAX layout: reshape the same
+    # way, then move channels first.
+    x = x.reshape(z.shape[0], 4, 4, config.nf(0)).permute(0, 3, 1, 2).contiguous()
+    x = pixel_norm(lrelu(x))
+    return pixel_norm(lrelu(eq_conv(params["base_conv"], x)))
+
+
+def _g_block(block: dict, x: torch.Tensor) -> torch.Tensor:
+    # Fused upsample-into-conv (ops/fused_upconv.py): four parity convs with
+    # pre-summed taps; exact up to float reassociation.
+    c1 = block["conv1"]
+    x = upsample2x_conv3x3(eq_scaled_conv_w(c1), c1["b"], x)
+    x = pixel_norm(lrelu(x))
+    return pixel_norm(lrelu(eq_conv(block["conv2"], x)))
+
+
+def generator_features(params: dict, z: torch.Tensor, config: ProGANConfig,
+                       stage: int) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Run the trunk to ``stage``; returns (x_stage, x_prev_or_None), NCHW."""
+    x = _g_base(params, z, config)
+    prev = None
+    for s in range(1, stage + 1):
+        prev = x
+        x = _g_block(params["blocks"][s - 1], x)
+    return x, prev
+
+
+def packed_start_stage(config: ProGANConfig, stage: int) -> int | None:
+    """First stage the late-stage kernels (ops/packed.py) take over, or None:
+    the trailing run of stages with nf <= 64, entered no earlier than stage 6.
+    The same gate as the JAX package, so at 1024² exactly stages 7-8 run on
+    the kernels."""
+    s_min = stage
+    while s_min >= 1 and config.nf(s_min) <= 64:
+        s_min -= 1
+    s_min += 1
+    s0 = max(s_min, 6)
+    if s0 > stage:
+        return None
+    return s0
+
+
+def _rgb_w(p: dict) -> torch.Tensor:
+    """toRGB 1x1 conv (gain 1) as a [3, C] matrix, eq-LR scaled."""
+    w = p["w"]
+    return (w * _he_scale(w.shape[1], gain=1.0)).reshape(w.shape[0], w.shape[1])
+
+
+def _g_late_packed(params: dict, x_entry: torch.Tensor, config: ProGANConfig,
+                   s0: int, stage: int, alpha, emit: str = "rgb") -> torch.Tensor:
+    """Run stages [s0, stage] on the late-stage kernels and return the
+    blended RGB in NHWC: fp32 pre-tanh (emit="rgb") or uint8 (emit="uint8").
+    The final stage's conv1 also emits toRGB of its input, and its conv2
+    fuses toRGB, the blend and the denorm, so its features never reach
+    device memory."""
+    from probgan_tpu_torch.ops import packed as pk
+
+    x = x_entry.float().contiguous()
+    for s in range(s0, stage + 1):
+        block = params["blocks"][s - 1]
+        c1, c2 = block["conv1"], block["conv2"]
+        if s == stage:
+            prev_rgb = params["to_rgb"][s - 1]
+            feats, rgb_prev = pk.packed_upconv(
+                x, eq_scaled_conv_w(c1), c1["b"],
+                rgb_w=_rgb_w(prev_rgb), rgb_b=prev_rgb["b"],
+            )
+            to_rgb = params["to_rgb"][s]
+            return pk.packed_conv_rgb(
+                feats, eq_scaled_conv_w(c2), c2["b"], _rgb_w(to_rgb),
+                to_rgb["b"], rgb_prev, alpha, emit_uint8=emit == "uint8",
+            )
+        feats = pk.packed_upconv(x, eq_scaled_conv_w(c1), c1["b"])
+        x = pk.packed_conv(feats, eq_scaled_conv_w(c2), c2["b"])
+    raise AssertionError("unreachable")
+
+
+def generator_rgb(params: dict, z: torch.Tensor, config: ProGANConfig,
+                  stage: int, alpha: float = 1.0, precision="high",
+                  packed: bool = False) -> torch.Tensor:
+    """Latent [B, L] -> pre-tanh RGB [B, R, R, 3] (NHWC) at resolution
+    ``4 * 2**stage`` with progressive alpha blend:
+    lerp(upsample(toRGB_{s-1}(x_{s-1})), toRGB_s(x_s), alpha).
+
+    ``packed=True`` routes the eligible late stages (packed_start_stage)
+    through ops/packed.py: the kernels for CUDA tensors, their plain twins for
+    CPU tensors. ``precision`` defaults to "high" (the JAX package's default
+    None is a bf16 grade the port does not have)."""
+    _require_fp32_grade(precision)
+    s0 = packed_start_stage(config, stage) if packed else None
+    if s0 is not None:
+        x = _g_base(params, z, config)
+        for s in range(1, s0):
+            x = _g_block(params["blocks"][s - 1], x)
+        return _g_late_packed(params, x, config, s0, stage, alpha)
+    x, prev = generator_features(params, z, config, stage)
+    rgb = eq_conv(params["to_rgb"][stage], x, gain=1.0)
+    if stage > 0:
+        rgb_prev = upsample_nearest_2x(
+            eq_conv(params["to_rgb"][stage - 1], prev, gain=1.0)
+        )
+        rgb = rgb_prev + alpha * (rgb - rgb_prev)
+    return rgb.permute(0, 2, 3, 1).contiguous()
+
+
+def generator_apply(params: dict, z: torch.Tensor, config: ProGANConfig,
+                    stage: int, alpha: float = 1.0, precision="high",
+                    packed: bool = False) -> torch.Tensor:
+    """Full image path: latent [B, L] -> uint8 image [B, R, R, 3] (NHWC). On
+    the packed path the denorm is fused into the final kernel."""
+    _require_fp32_grade(precision)
+    s0 = packed_start_stage(config, stage) if packed else None
+    if s0 is not None:
+        x = _g_base(params, z, config)
+        for s in range(1, s0):
+            x = _g_block(params["blocks"][s - 1], x)
+        return _g_late_packed(params, x, config, s0, stage, alpha, emit="uint8")
+    return to_uint8(generator_rgb(params, z, config, stage, alpha, precision))

@@ -1,0 +1,252 @@
+"""The generator's late-stage kernels: Python side.
+
+Three kernels carry stages 7-8 of the 1024² generator, each written by hand
+in CUDA C++ for Hopper (``csrc/*.cu``) and keeping the JAX names of the Pallas
+kernels they replace (``probgan_tpu/ops/pallas_packed.py``):
+
+- ``packed_upconv``:   nearest-2x upsample -> conv3x3 + bias -> LeakyReLU ->
+  PixelNorm, optionally with the toRGB of its input;
+- ``packed_conv``:     conv3x3 + bias -> LeakyReLU -> PixelNorm;
+- ``packed_conv_rgb``: conv3x3 + bias -> LeakyReLU -> PixelNorm -> toRGB ->
+  alpha blend with the upsampled previous RGB -> (tanh -> uint8), NHWC out.
+
+The TPU kernels' phase-blocked layout, revolving DMAs and bf16 K-stacking are
+not ported: these take plain dense NCHW fp32 tensors and OIHW weights with the
+equalized-LR scale already applied.
+
+Each kernel has a wrapper (checks device, dtype, shape and contiguity,
+allocates outputs with ``torch.empty`` and launches on the current stream), a
+plain PyTorch twin of the same function (``*_plain``), and a launch count in
+``launches``. A wrapper takes its twin only for CPU tensors; for a CUDA tensor
+it launches the kernel or raises, and for any other device it raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from probgan_tpu_torch.models.pro_gan import (
+    lrelu,
+    pixel_norm,
+    to_uint8,
+    upsample_nearest_2x,
+)
+from probgan_tpu_torch.ops import _build
+from probgan_tpu_torch.ops.fused_upconv import parity_weights, upsample2x_conv3x3
+
+# Launches of each kernel since the last reset_launches(); a wrapper adds one
+# where it launches its kernel and nowhere else.
+launches = {name: 0 for name in _build.KERNELS}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = {
+    "packed_upconv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "packed_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "packed_conv_rgb": [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _I,
+                        _I, _I, _I, _I, _I, _P],
+}
+# Output channel counts the kernels are instantiated for (csrc/conv_tile.cuh).
+SUPPORTED_COUT = (32, 64)
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _kernel(name: str):
+    lib = _build.load(name)
+    fn = getattr(lib, f"probgan_{name}")
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(name: str, x: torch.Tensor, *args) -> None:
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _kernel(name)(*args, stream)
+    if err != 0:
+        msg = _build.load(name).probgan_error_string(err).decode()
+        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err} ({msg})")
+    launches[name] += 1
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _check(name: str, x: torch.Tensor, cin: int, h_mult: int,
+           w_mult: int, **params: torch.Tensor | None) -> None:
+    """Raise unless ``x`` is a contiguous fp32 NCHW CUDA tensor the kernel
+    takes and every parameter lies on its device in fp32."""
+    if x.device.type != "cuda":
+        raise RuntimeError(
+            f"{name}: tensors on {x.device.type!r} are not supported; the "
+            "kernel runs on CUDA and its plain twin on the CPU"
+        )
+    if x.dtype != torch.float32 or x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(
+            f"{name}: x must be a contiguous float32 NCHW tensor, got "
+            f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}"
+        )
+    _, c, h, w = x.shape
+    if c != cin or c % 8 or h % h_mult or w % w_mult:
+        raise ValueError(
+            f"{name}: x {tuple(x.shape)} needs C == {cin} and a "
+            f"multiple of 8, H % {h_mult} == 0, W % {w_mult} == 0"
+        )
+    for pname, p in params.items():
+        if p is not None and (p.device != x.device or p.dtype != torch.float32):
+            raise ValueError(f"{name}: {pname} must be float32 on {x.device}")
+
+
+def _tile_rows(cout: int) -> int:
+    """Output rows of one kernel block (csrc/conv_tile.cuh Tile::TH)."""
+    return 16 if cout == 32 else 8
+
+
+def _check_cout(name: str, cout: int) -> None:
+    if cout not in SUPPORTED_COUT:
+        raise ValueError(f"{name}: Cout={cout} not in {SUPPORTED_COUT}")
+
+
+def _lrelu_norm(x: torch.Tensor) -> torch.Tensor:
+    return pixel_norm(lrelu(x))
+
+
+def upconv_kernel_weights(w: torch.Tensor) -> torch.Tensor:
+    """OIHW [Cout, C, 3, 3] -> packed_upconv's wk [2 py][C][2 px][2 dy]
+    [2 dx][Cout]: each output parity's pre-summed 2x2 taps, one input
+    channel's slab contiguous per row parity."""
+    return parity_weights(w).permute(0, 3, 1, 4, 5, 2).contiguous()
+
+
+def conv_kernel_weights(w: torch.Tensor) -> torch.Tensor:
+    """OIHW [Cout, C, 3, 3] -> packed_conv's [C][3 ky][3 kx][Cout]."""
+    return w.permute(1, 2, 3, 0).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# packed_upconv
+# ---------------------------------------------------------------------------
+
+def packed_upconv_plain(x, w, b, *, rgb_w=None, rgb_b=None):
+    """Plain twin of ``packed_upconv``: the four parity convs of
+    ops/fused_upconv.py + LeakyReLU + PixelNorm; toRGB of ``x`` as a 1x1
+    conv."""
+    y = _lrelu_norm(upsample2x_conv3x3(w, b, x))
+    if rgb_w is None:
+        return y
+    return y, F.conv2d(x, rgb_w[:, :, None, None]) + rgb_b[:, None, None]
+
+
+def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None):
+    """Nearest-2x upsample -> conv3x3 + bias -> LeakyReLU -> PixelNorm.
+
+    x [B, C, H, W] fp32, w [Cout, C, 3, 3] eq-LR scaled, b [Cout]
+    -> [B, Cout, 2H, 2W]. With ``rgb_w`` [3, C] and ``rgb_b`` [3], also
+    returns toRGB(x) [B, 3, H, W] (the ``rgb_prev`` of packed_conv_rgb)."""
+    if x.device.type == "cpu":
+        return packed_upconv_plain(x, w, b, rgb_w=rgb_w, rgb_b=rgb_b)
+    name = "packed_upconv"
+    cout = w.shape[0]
+    _check_cout(name, cout)
+    if (rgb_w is None) != (rgb_b is None):
+        raise ValueError(f"{name}: rgb_w and rgb_b go together")
+    _check(name, x, w.shape[1], _tile_rows(cout), 16, w=w, b=b, rgb_w=rgb_w,
+           rgb_b=rgb_b)
+    bsz, c, h, wd = x.shape
+    wk = upconv_kernel_weights(w)
+    b = b.contiguous()
+    y = torch.empty((bsz, cout, 2 * h, 2 * wd), device=x.device, dtype=x.dtype)
+    rgb = None
+    if rgb_w is not None:
+        rgb_w, rgb_b = rgb_w.reshape(3, c).contiguous(), rgb_b.contiguous()
+        rgb = torch.empty((bsz, 3, h, wd), device=x.device, dtype=x.dtype)
+    _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),
+            _ptr(y), _ptr(rgb), bsz, c, h, wd, cout)
+    return y if rgb is None else (y, rgb)
+
+
+# ---------------------------------------------------------------------------
+# packed_conv
+# ---------------------------------------------------------------------------
+
+def packed_conv_plain(x, w, b):
+    """Plain twin of ``packed_conv``."""
+    return _lrelu_norm(F.conv2d(x, w, padding=1) + b[:, None, None])
+
+
+def packed_conv(x, w, b):
+    """conv3x3 SAME + bias -> LeakyReLU -> PixelNorm: x [B, C, H, W] fp32,
+    w [Cout, C, 3, 3] eq-LR scaled, b [Cout] -> [B, Cout, H, W]."""
+    if x.device.type == "cpu":
+        return packed_conv_plain(x, w, b)
+    name = "packed_conv"
+    cout = w.shape[0]
+    _check_cout(name, cout)
+    _check(name, x, w.shape[1], _tile_rows(cout), 32, w=w, b=b)
+    bsz, c, h, wd = x.shape
+    wk = conv_kernel_weights(w)
+    b = b.contiguous()
+    y = torch.empty((bsz, cout, h, wd), device=x.device, dtype=x.dtype)
+    _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# packed_conv_rgb
+# ---------------------------------------------------------------------------
+
+def packed_conv_rgb_plain(x, w, b, rgb_w, rgb_b, rgb_prev, alpha, *,
+                          emit_uint8=False):
+    """Plain twin of ``packed_conv_rgb``."""
+    feat = _lrelu_norm(F.conv2d(x, w, padding=1) + b[:, None, None])
+    rgb = F.conv2d(feat, rgb_w[:, :, None, None]) + rgb_b[:, None, None]
+    prev = upsample_nearest_2x(rgb_prev)
+    out = (prev + alpha * (rgb - prev)).permute(0, 2, 3, 1)
+    return to_uint8(out) if emit_uint8 else out.contiguous()
+
+
+def packed_conv_rgb(x, w, b, rgb_w, rgb_b, rgb_prev, alpha, *,
+                    emit_uint8=False):
+    """The final stage's tail: conv3x3 + bias -> LeakyReLU -> PixelNorm ->
+    toRGB -> ``prev + alpha * (rgb - prev)`` with prev the nearest-2x of
+    ``rgb_prev`` -> (tanh -> round half to even((t+1)*127.5) -> clip ->
+    uint8 when ``emit_uint8``).
+
+    x [B, C, H, W] fp32, w [Cout, C, 3, 3], b [Cout], rgb_w [3, Cout],
+    rgb_b [3], rgb_prev [B, 3, H/2, W/2], alpha a runtime scalar
+    -> NHWC [B, H, W, 3], uint8 or fp32 pre-tanh RGB."""
+    alpha = float(alpha)
+    if x.device.type == "cpu":
+        return packed_conv_rgb_plain(x, w, b, rgb_w, rgb_b, rgb_prev, alpha,
+                                     emit_uint8=emit_uint8)
+    name = "packed_conv_rgb"
+    cout = w.shape[0]
+    _check_cout(name, cout)
+    _check(name, x, w.shape[1], _tile_rows(cout), 32, w=w, b=b, rgb_w=rgb_w,
+           rgb_b=rgb_b, rgb_prev=rgb_prev)
+    bsz, c, h, wd = x.shape
+    if tuple(rgb_prev.shape) != (bsz, 3, h // 2, wd // 2):
+        raise ValueError(
+            f"{name}: rgb_prev {tuple(rgb_prev.shape)} must be "
+            f"{(bsz, 3, h // 2, wd // 2)}"
+        )
+    wk = conv_kernel_weights(w)
+    b = b.contiguous()
+    rgb_w = rgb_w.reshape(3, cout).contiguous()
+    rgb_b = rgb_b.contiguous()
+    rgb_prev = rgb_prev.contiguous()
+    out = torch.empty((bsz, h, wd, 3), device=x.device,
+                      dtype=torch.uint8 if emit_uint8 else torch.float32)
+    _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),
+            _ptr(rgb_prev), alpha, _ptr(out), int(emit_uint8), bsz, c, h, wd,
+            cout)
+    return out
