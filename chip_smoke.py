@@ -10,13 +10,13 @@ Phases (any failure exits non-zero and prints no result line):
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the build of every kernel from ``probgan_tpu_torch/csrc`` with nvcc
    (one process per source, all at once), with ptxas's register report;
-2. each late-stage kernel at the shapes the 1024² generator gives it
-   (batch 2), held against its plain PyTorch twin on the card with TF32 off:
-   fp32 outputs to atol = rtol = 1e-4, uint8 outputs within +-1 on at most
-   0.5% of bytes. Times (CUDA events, after warm-up) of the kernel's
+2. each late-stage generator kernel at the shapes the 1024² generator gives
+   it (batch 2), held against its plain PyTorch twin on the card with TF32
+   off: fp32 outputs to atol = rtol = 1e-4, uint8 outputs within +-1 on at
+   most 0.5% of bytes. Times (CUDA events, after warm-up) of the kernel's
    wrapper, the plain twin and a cuDNN-based yardstick the port never calls,
    beside the kernel's bound on an H100 (67 TFLOP/s fp32, 3.35 TB/s);
-3. the main path: ``ImageGANEngine(ProGANConfig(), device="cuda",
+3. the image main path: ``ImageGANEngine(ProGANConfig(), device="cuda",
    precision="high").generate`` on batches of 8 latents at 1024². The launch
    counts must move 2/1/1 per call; the output must be uint8 [8,1024,1024,3]
    and agree (PSNR >= 50 dB, +-1 on at most 0.5% of bytes) with the same
@@ -25,16 +25,42 @@ Phases (any failure exits non-zero and prints no result line):
    (alpha 0.5) and stage 8 (alpha 0.3); for one image, the output must agree
    with the plain path on the CPU (PSNR >= 50 dB). Prints img/s and p50
    ms/img;
-4. the last lines: the card's name and power limit, one JSON line with each
+4. the two fused rank kernels at the KG path's shapes (N = 1,000,000
+   entities, D = 128): ``rank_topk`` at B = 64 and B = 8 with k = 10, with
+   ``nvalid`` below the row count, with planted duplicate rows, and as
+   ``rank_topk_local``; ``rank_scores`` at B = 64. Values must agree with
+   the plain twin to atol 2e-6 (the kernel sums a dot's 128 terms in another
+   order than ``torch.matmul``: about 1 ulp); every returned id's plain
+   score must equal the returned value within 2e-6, no entity left out may
+   score more than 2e-6 above the k-th value, and bit-equal scores
+   (duplicate rows) must come in ascending id. The yardstick is
+   ``F.normalize`` -> ``torch.matmul`` (-> ``torch.topk``);
+5. the KG main path: a seeded C17 checkpoint (1,000,000 entities, 1,000
+   relations, embed 128, noise 64, hidden 1024) written as ``.pt`` into a
+   temporary directory, then ``InferenceEngine(path, device="cuda")``:
+   ``predict_tails`` on 64 pairs with top_k 10 (``rank_topk`` must launch
+   exactly once per call; results must agree with the same engine run with
+   the kernels' plain twins in their place under the same noise), once with
+   top_k 32 (``rank_scores`` must launch once), ``find_similar_entities``
+   (``rank_topk`` with k = 11, the query itself excluded),
+   ``score_triplets`` and ``analyze_relations`` against the engine on the
+   CPU (atol 1e-5, relation ids equal), the CLI's ``predict_tails`` and
+   ``model_info`` tasks in process, and the REPL fed from stdin. Prints
+   queries/s and p50 ms per call;
+6. the last lines: the card's name and power limit, one JSON line with each
    kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -48,6 +74,15 @@ BATCH_MAIN = 8
 MAIN_BATCHES = 6  # timed generate calls on the main path
 UINT8_MAX_FLIP_SHARE = 0.005
 PSNR_FLOOR_DB = 50.0
+KG_ENTITIES = 1_000_000  # the JAX package's own "production scale" rank size
+KG_RELATIONS = 1_000
+KG_DIM, KG_NOISE, KG_HIDDEN = 128, 64, 1024
+KG_BATCH = 64
+KG_CALLS = 6  # timed predict_tails calls
+KG_TOP_K = 10
+# fp32 dots summed in another order than torch.matmul differ by about 1 ulp
+# of a cosine near 1: the JAX package's own tolerance for its rank kernels.
+RANK_ATOL = 2e-6
 
 
 def card_line() -> str:
@@ -233,6 +268,133 @@ def phase_kernels(pk, pro_gan) -> list[dict]:
     return out
 
 
+def check_topk(label: str, values, ids, plain_scores, planted=None) -> float:
+    """Hold one fused top-k result against the plain scores [B, nvalid] of
+    the same inputs, by the rule in the module docstring. Returns the max
+    |value - plain top-k value|."""
+    k = ids.shape[1]
+    want_v = torch.sort(plain_scores, dim=1, descending=True, stable=True)[0][:, :k]
+    err = (values - want_v).abs().max().item()
+    if err > RANK_ATOL:
+        raise AssertionError(f"{label}: top-k values differ from the plain twin by {err:.3g}")
+    if (values[:, 1:] > values[:, :-1]).any():
+        raise AssertionError(f"{label}: values are not in descending order")
+    if ids.min() < 0 or ids.max() >= plain_scores.shape[1]:
+        raise AssertionError(f"{label}: an id lies outside [0, nvalid)")
+    if (torch.sort(ids, dim=1)[0].diff(dim=1) == 0).any():
+        raise AssertionError(f"{label}: an id is returned twice")
+    own = torch.gather(plain_scores, 1, ids)
+    if (own - values).abs().max().item() > RANK_ATOL:
+        raise AssertionError(f"{label}: a returned id's plain score is not its value")
+    rest = plain_scores.clone().scatter_(1, ids, float("-inf")).max(dim=1)[0]
+    if (rest > values[:, -1] + RANK_ATOL).any():
+        raise AssertionError(f"{label}: an entity left out beats the k-th value")
+    if planted is not None and ids[0, :len(planted)].tolist() != planted:
+        raise AssertionError(f"{label}: tied rows {planted} came as "
+                             f"{ids[0, :len(planted)].tolist()}, not in ascending id")
+    return err
+
+
+def phase_rank_kernels(rf, rank_ops) -> list[dict]:
+    """The fused rank kernels at the KG path's shapes against their plain
+    twins: N = 1,000,000 rows, D = 128."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    n, d, k = KG_ENTITIES, KG_DIM, KG_TOP_K
+    table = rank_ops.l2_normalize(torch.randn((n, d), device="cuda", generator=gen))
+    # bit-equal rows, across tile and block boundaries: their scores tie
+    planted = [5, 2047, 2048, 300_000, n - 1]
+    for row in planted[1:]:
+        table[row] = table[5]
+    preds = {b: torch.randn((b, d), device="cuda", generator=gen) for b in (KG_BATCH, 8)}
+    for pred in preds.values():
+        pred[0] = 3.0 * table[5]  # query 0 ties on the planted rows
+    plain_scores = {b: rf.rank_scores_fused_plain(pred, table) for b, pred in preds.items()}
+
+    def topk_call(label, b, nvalid, local=False, planted_rows=None):
+        pred = preds[b]
+        if local:
+            pred = rank_ops.l2_normalize(pred)
+            fn, twin = rf.rank_topk_local, rf.rank_topk_local_plain
+        else:
+            fn, twin = rf.rank_topk_fused, rf.rank_topk_fused_plain
+        values, ids = fn(pred, table, k, nvalid)
+        torch.cuda.synchronize()
+        err = check_topk(f"rank_topk[{label}]", values, ids,
+                         plain_scores[b][:, :nvalid], planted_rows)
+        twin_v, twin_i = twin(pred, table, k, nvalid)
+        flops = 2.0 * b * nvalid * d
+        nbytes = 4.0 * (b * d + nvalid * d) + b * k * (4 + 8)
+        return {
+            "call": label, "shape_in": [b, d], "rows": n, "nvalid": nvalid, "k": k,
+            "max_abs_err": err,
+            "ids_equal_to_plain": (ids == twin_i).float().mean().item(),
+            "ms": cuda_ms(lambda: fn(pred, table, k, nvalid)),
+            "kernel_only_ms": cuda_ms(
+                lambda: rf.topk_candidates(pred, table, k, nvalid, not local)),
+            "plain_ms": cuda_ms(lambda: twin(pred, table, k, nvalid), iters=3, warmup=1),
+            "library_ms": cuda_ms(lambda: torch.topk(
+                torch.matmul(F.normalize(pred), table[:nvalid].T), k)),
+            "flops": flops, "bytes": nbytes,
+        }
+
+    topk_calls = [
+        topk_call(f"B{KG_BATCH}", KG_BATCH, n, planted_rows=planted),
+        topk_call("B8", 8, n, planted_rows=planted),
+        # rows at or past nvalid never win, the last planted row among them
+        topk_call(f"B{KG_BATCH},nvalid<rows", KG_BATCH, n - 1000, planted_rows=planted[:-1]),
+        topk_call(f"local,B{KG_BATCH}", KG_BATCH, n, local=True, planted_rows=planted),
+    ]
+    # what the k compare-and-insert passes cost: the kernel alone at k = 1 / 16
+    pred = preds[KG_BATCH]
+    k_sweep = {str(kk): cuda_ms(lambda kk=kk: rf.topk_candidates(pred, table, kk, n, True))
+               for kk in (1, KG_TOP_K, 16)}
+
+    b = KG_BATCH
+    got = rf.rank_scores_fused(pred, table)
+    torch.cuda.synchronize()
+    err = (got - plain_scores[b]).abs().max().item()
+    if err > RANK_ATOL or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"rank_scores: differs from the plain twin by {err:.3g}")
+    zero = rf.rank_scores_fused(torch.zeros((8, d), device="cuda"), table)
+    if zero.abs().max().item() != 0.0:
+        raise AssertionError("rank_scores: a zero query row must give zeros")
+    del got, zero
+    scores_calls = [{
+        "call": f"B{b}", "shape_in": [b, d], "rows": n, "max_abs_err": err,
+        "ms": cuda_ms(lambda: rf.rank_scores_fused(pred, table)),
+        "plain_ms": cuda_ms(lambda: rf.rank_scores_fused_plain(pred, table)),
+        "library_ms": cuda_ms(lambda: torch.matmul(F.normalize(pred), table.T)),
+        "flops": 2.0 * b * n * d, "bytes": 4.0 * (b * d + n * d + b * n),
+    }]
+
+    out = []
+    for name, replaces, calls in (
+            ("rank_topk", "probgan_tpu/ops/pallas_rank.py:261", topk_calls),
+            ("rank_scores", "probgan_tpu/ops/pallas_rank.py:52", scores_calls)):
+        for c in calls:
+            c["bound_ms"], c["bound_by"] = bound(c["flops"], c["bytes"])
+            print(f"  {name}[{c['call']}] x{c['shape_in']} vs {c['rows']} rows: max_abs_err "
+                  f"{c['max_abs_err']:.3g}  kernel {c['ms']:.3f} ms  plain "
+                  f"{c['plain_ms']:.3f} ms  library {c['library_ms']:.3f} ms  bound "
+                  f"{c['bound_ms']:.3f} ms ({c['bound_by']}, {c['flops'] / 1e9:.1f} GFLOP, "
+                  f"{c['bytes'] / 1e6:.1f} MB)")
+        # the entry's own numbers are those of the main path's shape: calls[0]
+        head = calls[0]
+        entry = {
+            "name": name, "route": "cuda",
+            "source": f"probgan_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+            "launches": 0, "max_abs_err": max(c["max_abs_err"] for c in calls),
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "batch": head["shape_in"][0], "calls": calls,
+        }
+        if name == "rank_topk":
+            entry["kernel_only_ms_by_k"] = k_sweep
+            print(f"  rank_topk kernel alone (no merge) at B{KG_BATCH} by k: {k_sweep}")
+        out.append(entry)
+    return out
+
+
 def phase_main_path(pk, pro_gan, engine_mod) -> tuple[dict, dict]:
     cfg = pro_gan.ProGANConfig()
     stage = cfg.num_stages - 1
@@ -311,14 +473,247 @@ def phase_main_path(pk, pro_gan, engine_mod) -> tuple[dict, dict]:
     return counts, main
 
 
+def check_same_topk(label: str, got_ids, got_vals, want_ids, want_vals) -> int:
+    """Two top-k results of the same queries (lists, descending): values
+    within RANK_ATOL position by position; where the ids differ, the id must
+    be one the other side also returned, or sit within RANK_ATOL of the k-th
+    value (two entities that close may swap). Returns the differing
+    positions."""
+    got_vals, want_vals = np.asarray(got_vals, np.float32), np.asarray(want_vals, np.float32)
+    got_ids, want_ids = np.asarray(got_ids), np.asarray(want_ids)
+    if got_ids.shape != want_ids.shape or got_vals.shape != want_vals.shape:
+        raise AssertionError(f"{label}: shapes differ: {got_ids.shape} vs {want_ids.shape}")
+    err = float(np.abs(got_vals - want_vals).max())
+    if not np.isfinite(got_vals).all() or err > RANK_ATOL:
+        raise AssertionError(f"{label}: scores differ by {err:.3g}")
+    swapped = 0
+    for q, j in zip(*np.nonzero(got_ids != want_ids)):
+        swapped += 1
+        for ids, vals, other in ((got_ids, got_vals, want_ids), (want_ids, want_vals, got_ids)):
+            if ids[q, j] not in other[q] and vals[q, j] - vals[q, -1] > RANK_ATOL:
+                raise AssertionError(f"{label}: query {q} position {j}: id {ids[q, j]} "
+                                     "is missing from the other result")
+    print(f"  {label}: max |score diff| {err:.3g}, {swapped} of {got_ids.size} "
+          "positions hold another id (near-ties)")
+    return swapped
+
+
+def assert_close_tree(label: str, got, want, atol: float) -> None:
+    """Equal keys, ints and strings; floats within atol."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or list(got) != list(want):
+            raise AssertionError(f"{label}: keys differ")
+        for key in want:
+            assert_close_tree(f"{label}[{key!r}]", got[key], want[key], atol)
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"{label}: lengths differ")
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_close_tree(f"{label}[{i}]", g, w, atol)
+    elif isinstance(want, float):
+        if not (isinstance(got, float) and math.isfinite(got) and abs(got - want) <= atol):
+            raise AssertionError(f"{label}: {got} vs {want}")
+    elif got != want:
+        raise AssertionError(f"{label}: {got!r} vs {want!r}")
+
+
+def json_blob(text: str) -> dict:
+    """The CLI prints banners, then one indented JSON object."""
+    return json.loads(text[text.index("{\n"):])
+
+
+def phase_kg_path(rf, inference_mod, checkpoint_mod, cli_infer,
+                  make_kg_checkpoint) -> tuple[dict, dict]:
+    rng = np.random.default_rng(1)
+    pairs = [(int(h), int(r)) for h, r in zip(rng.integers(0, KG_ENTITIES, KG_BATCH),
+                                              rng.integers(0, KG_RELATIONS, KG_BATCH))]
+    quiet = io.StringIO()  # the engine's banners
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "best_checkpoint.pt")
+        t0 = time.perf_counter()
+        checkpoint_mod.save_checkpoint(path, make_kg_checkpoint(
+            KG_ENTITIES, KG_RELATIONS, KG_DIM, KG_NOISE, KG_HIDDEN, seed=0))
+        print(f"  wrote {os.path.getsize(path) / 1e6:.0f} MB checkpoint in "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(quiet):
+            engine = inference_mod.InferenceEngine(path, device="cuda", seed=0)
+        load_s = time.perf_counter() - t0
+        if engine.num_entities != KG_ENTITIES or engine.entity_norm.device.type != "cuda":
+            raise AssertionError("the engine did not load the table onto the card")
+
+        def predict(eng, top_k=KG_TOP_K):
+            with contextlib.redirect_stdout(quiet):
+                return eng.predict_tails(pairs, top_k=top_k, return_scores=True)
+
+        first = predict(engine)  # warm-up; also noise draw 0, compared below
+        torch.cuda.synchronize()
+
+        rf.reset_launches()
+        times = []
+        for i in range(KG_CALLS):
+            t0 = time.perf_counter()
+            res = predict(engine)  # returns host lists: the call has finished
+            times.append(time.perf_counter() - t0)
+            if rf.launches != {"rank_topk": i + 1, "rank_scores": 0}:
+                raise AssertionError(f"predict_tails call {i}: launches {rf.launches}, "
+                                     "expected one rank_topk per call")
+            ids, vals = np.asarray(res["predictions"]), np.asarray(res["scores"])
+            if ids.shape != (KG_BATCH, KG_TOP_K) or vals.shape != (KG_BATCH, KG_TOP_K):
+                raise AssertionError(f"predict_tails returned {ids.shape} / {vals.shape}")
+            if ids.min() < 0 or ids.max() >= KG_ENTITIES or not np.isfinite(vals).all():
+                raise AssertionError("predict_tails: ids out of range or scores not finite")
+
+        t0 = time.perf_counter()
+        res32 = predict(engine, top_k=32)
+        top32_s = time.perf_counter() - t0
+        if rf.launches != {"rank_topk": KG_CALLS, "rank_scores": 1}:
+            raise AssertionError(f"top_k 32: launches {rf.launches}, expected one rank_scores")
+        vals32 = np.asarray(res32["scores"], np.float32)
+        if vals32.shape != (KG_BATCH, 32) or (np.diff(vals32, axis=1) > 0).any():
+            raise AssertionError("top_k 32: wrong shape or scores not descending")
+
+        seen_k = []
+        launch_topk = rf.topk_candidates
+
+        def spy(pred, table, k, nvalid, normalize):
+            seen_k.append(k)
+            return launch_topk(pred, table, k, nvalid, normalize)
+
+        rf.topk_candidates = spy
+        try:
+            with contextlib.redirect_stdout(quiet):
+                sim = engine.find_similar_entities([0, 7, 123456], top_k=10)
+        finally:
+            rf.topk_candidates = launch_topk
+        if seen_k != [11] or rf.launches["rank_topk"] != KG_CALLS + 1:
+            raise AssertionError(f"find_similar_entities: rank_topk k {seen_k}, "
+                                 f"launches {rf.launches}")
+        for entry in sim["similar_entities"]:
+            if (len(entry["similar_entities"]) != 10
+                    or entry["query_entity"] in entry["similar_entities"]):
+                raise AssertionError("find_similar_entities: the query was not excluded")
+        counts = dict(rf.launches)  # the KG path's run ends here
+        print(f"  launch counts over {KG_CALLS} predict_tails calls, one with top_k 32 "
+              f"and one find_similar_entities: {counts}")
+
+        # the same engine code with each kernel's plain twin in its place, on
+        # the card, under the same noise (a fresh engine's draw 0)
+        kernels = {name: getattr(rf, name) for name in
+                   ("rank_topk_fused", "rank_topk_local", "rank_scores_fused")}
+        try:
+            for name in kernels:
+                setattr(rf, name, getattr(rf, f"{name}_plain"))
+            with contextlib.redirect_stdout(quiet):
+                twin_engine = inference_mod.InferenceEngine(path, device="cuda", seed=0)
+            twins = predict(twin_engine)
+            with contextlib.redirect_stdout(quiet):
+                twin_sim = twin_engine.find_similar_entities([0, 7, 123456], top_k=10)
+        finally:
+            for name, fn in kernels.items():
+                setattr(rf, name, fn)
+        if rf.launches != counts:
+            raise AssertionError("the plain twins launched a kernel")
+        swapped = check_same_topk("predict_tails vs its plain twins on the card",
+                                  first["predictions"], first["scores"],
+                                  twins["predictions"], twins["scores"])
+        for a, b in zip(sim["similar_entities"], twin_sim["similar_entities"]):
+            check_same_topk(f"find_similar_entities({a['query_entity']}) vs plain twins",
+                            [a["similar_entities"]], [a["similarity_scores"]],
+                            [b["similar_entities"]], [b["similarity_scores"]])
+        del twin_engine
+        torch.cuda.empty_cache()
+
+        # tasks without a rank kernel, and the rank tasks again, against the
+        # engine on the CPU built from the same file
+        with contextlib.redirect_stdout(quiet):
+            cpu_engine = inference_mod.InferenceEngine(path, device="cpu", seed=0)
+            triplets = [(0, 1, 2), (123456, 999, 7), (999_999, 0, 500_000)]
+            # each task has its own noise counter: both engines make draw 0
+            got_scores = engine.score_triplets(triplets, method="both")
+            want_scores = cpu_engine.score_triplets(triplets, method="both")
+            got_rel = engine.analyze_relations([0, 123456], [7, 999_999], top_k=5)
+            want_rel = cpu_engine.analyze_relations([0, 123456], [7, 999_999], top_k=5)
+            cpu_sim = cpu_engine.find_similar_entities([0, 7, 123456], top_k=10)
+        assert_close_tree("score_triplets vs the CPU engine", got_scores, want_scores, 1e-5)
+        assert_close_tree("analyze_relations vs the CPU engine", got_rel, want_rel, 1e-5)
+        if len(got_rel["relation_analysis"]) != 4 or any(
+                len(e["top_relations"]) != 5
+                or any(not 0 <= r["relation_id"] < KG_RELATIONS for r in e["top_relations"])
+                for e in got_rel["relation_analysis"]):
+            raise AssertionError("analyze_relations: wrong shape or a padded relation id")
+        for a, b in zip(sim["similar_entities"], cpu_sim["similar_entities"]):
+            check_same_topk(f"find_similar_entities({a['query_entity']}) vs the CPU engine",
+                            [a["similar_entities"]], [a["similarity_scores"]],
+                            [b["similar_entities"]], [b["similarity_scores"]])
+        print("  score_triplets and analyze_relations agree with the CPU engine "
+              "(atol 1e-5, relation ids equal)")
+        del cpu_engine, engine
+        torch.cuda.empty_cache()
+
+        # the CLI in process, and the REPL fed from stdin
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli_infer.main(["--checkpoint_path", path, "--task", "predict_tails",
+                            "--input_pairs", "[[0,1],[2,3]]", "--top_k", "5",
+                            "--device", "cuda"])
+        cli_pred = json_blob(out.getvalue())
+        if (np.asarray(cli_pred["predictions"]).shape != (2, 5)
+                or cli_pred["metadata"]["num_queries"] != 2):
+            raise AssertionError(f"CLI predict_tails printed {cli_pred}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli_infer.main(["--checkpoint_path", path, "--task", "model_info",
+                            "--device", "cuda"])
+        info = json_blob(out.getvalue())
+        if info["device"] != "cuda:0" or info["model_architecture"] != {
+                "embedding_dim": KG_DIM, "noise_dim": KG_NOISE, "hidden_dim": KG_HIDDEN,
+                "num_entities": KG_ENTITIES, "num_relations": KG_RELATIONS}:
+            raise AssertionError(f"CLI model_info printed {info}")
+        out, stdin = io.StringIO(), sys.stdin
+        sys.stdin = io.StringIO("predict 0 1 3\ninfo\nquit\n")
+        try:
+            with contextlib.redirect_stdout(out):
+                cli_infer.main(["--checkpoint_path", path, "--task", "interactive",
+                                "--device", "cuda"])
+        finally:
+            sys.stdin = stdin
+        repl_out = out.getvalue()
+        for needle in ("Top 3 predictions for (0, 1):", "   3. Entity ", "Model Information:",
+                       "Entities: 1,000,000", "Device: cuda:0", "done!"):
+            if needle not in repl_out:
+                raise AssertionError(f"REPL output lacks {needle!r}:\n{repl_out[-2000:]}")
+        print("  CLI predict_tails and model_info (device cuda:0) and the piped REPL ran")
+
+    per_call_ms = sorted(t * 1e3 for t in times)
+    kg = {
+        "entities": KG_ENTITIES, "relations": KG_RELATIONS, "embed_dim": KG_DIM,
+        "batch": KG_BATCH, "top_k": KG_TOP_K, "calls": KG_CALLS,
+        "queries_per_s": KG_BATCH * KG_CALLS / sum(times),
+        "p50_ms_per_call": float(np.median(per_call_ms)), "call_s": times,
+        "top_k_32_call_ms": top32_s * 1e3, "engine_load_s": load_s,
+        "positions_with_another_id_vs_plain_twins": swapped,
+    }
+    print(f"  {kg['queries_per_s']:.1f} queries/s, p50 {kg['p50_ms_per_call']:.3f} ms per "
+          f"call (predict_tails, {KG_BATCH} pairs, top_k {KG_TOP_K}, {KG_CALLS} calls, host "
+          f"clock incl. copy to host); top_k 32: {kg['top_k_32_call_ms']:.1f} ms per call")
+    return counts, kg
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    from probgan_tpu_torch.cli import infer as cli_infer
+    from probgan_tpu_torch.core import checkpoint as checkpoint_mod
     from probgan_tpu_torch.engine import image as engine_mod
+    from probgan_tpu_torch.engine import inference as inference_mod
     from probgan_tpu_torch.models import pro_gan
     from probgan_tpu_torch.ops import _build
     from probgan_tpu_torch.ops import packed as pk
+    from probgan_tpu_torch.ops import rank as rank_ops
+    from probgan_tpu_torch.ops import rank_fused as rf
+    from probgan_tpu_torch.utils.demo_checkpoint import make_kg_checkpoint
 
     card = card_line()
     print(f"card: {card}")
@@ -336,17 +731,29 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  [{name}] {line.strip()}")
 
-    print("phase 2: kernels vs plain twins (batch 2, main-path shapes)")
+    print("phase 2: generator kernels vs plain twins (batch 2, main-path shapes)")
     kernels = phase_kernels(pk, pro_gan)
     torch.cuda.empty_cache()
 
     print("phase 3: main path, ImageGANEngine.generate at 1024²")
     counts, main = phase_main_path(pk, pro_gan, engine_mod)
+    torch.cuda.empty_cache()
+
+    print(f"phase 4: rank kernels vs plain twins (N = {KG_ENTITIES:,}, D = {KG_DIM})")
+    kernels += phase_rank_kernels(rf, rank_ops)
+    torch.cuda.empty_cache()
+
+    print(f"phase 5: KG path, InferenceEngine at N = {KG_ENTITIES:,}")
+    kg_counts, kg = phase_kg_path(rf, inference_mod, checkpoint_mod, cli_infer,
+                                  make_kg_checkpoint)
+    counts.update(kg_counts)
     for k in kernels:
         k["launches"] = counts[k["name"]]
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']} was not launched on its main path")
 
     print(card_line())
-    print(json.dumps({"kernels": kernels, "main_path": main, "card": card},
+    print(json.dumps({"kernels": kernels, "main_path": main, "kg_path": kg, "card": card},
                      allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,218 @@
+"""CLI entry / task dispatch with the reference's argparse surface.
+
+The port of ``probgan_tpu/cli/infer.py``: the same flags and defaults, the
+same task dispatch and prints. Run it as
+
+    python -m probgan_tpu_torch.cli.infer --checkpoint_path CKPT --task ...
+
+``--device`` takes ``auto|cuda|gpu|cpu``; ``auto`` means the first CUDA card
+and raises without one (pass ``cpu`` for the plain CPU path).
+``--task generate_images`` needs an image checkpoint reader that is not
+ported yet and raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+from probgan_tpu_torch.cli.repl import interactive_mode
+from probgan_tpu_torch.engine import InferenceEngine
+from probgan_tpu_torch.utils.profiling import maybe_profile
+
+TASKS = (
+    "predict_tails",
+    "score_triplets",
+    "similar_entities",
+    "analyze_relations",
+    "interactive",
+    "model_info",
+    "generate_images",
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="Prot-B-GAN Inference System")
+    parser.add_argument(
+        "--checkpoint_path",
+        type=str,
+        required=True,
+        help="Path to trained model checkpoint",
+    )
+    parser.add_argument(
+        "--task",
+        type=str,
+        default="interactive",
+        choices=list(TASKS),
+        help="Inference task to perform",
+    )
+    parser.add_argument(
+        "--input_triplets",
+        type=str,
+        default="",
+        help='Input triplets as JSON string (e.g., "[[0,1,2],[3,4,5]]")',
+    )
+    parser.add_argument(
+        "--input_pairs",
+        type=str,
+        default="",
+        help='Input head-relation pairs as JSON string (e.g., "[[0,1],[2,3]]")',
+    )
+    parser.add_argument(
+        "--input_entities",
+        type=str,
+        default="",
+        help='Input entity IDs as JSON string (e.g., "[0,1,2,3]")',
+    )
+    parser.add_argument(
+        "--input_heads",
+        type=str,
+        default="",
+        help='Head entity IDs for analyze_relations as JSON string (e.g., "[0,1]")',
+    )
+    parser.add_argument(
+        "--input_tails",
+        type=str,
+        default="",
+        help='Tail entity IDs for analyze_relations as JSON string (e.g., "[2,3]")',
+    )
+    parser.add_argument(
+        "--top_k", type=int, default=10, help="Number of top results to return"
+    )
+    parser.add_argument(
+        "--output_file",
+        type=str,
+        default="",
+        help="Output file to save results (JSON format)",
+    )
+    parser.add_argument(
+        "--device",
+        type=str,
+        default="auto",
+        choices=["auto", "cuda", "gpu", "cpu"],
+        help="Device to use for inference ('auto', 'cuda' and 'gpu' mean the "
+        "first CUDA card and fail without one; 'cpu' runs the plain CPU path)",
+    )
+    parser.add_argument(
+        "--seed", type=int, default=0, help="Seed for generator noise"
+    )
+    parser.add_argument(
+        "--num_images", type=int, default=1,
+        help="Number of images for the generate_images task",
+    )
+    parser.add_argument(
+        "--stage", type=int, default=-1,
+        help="Progressive stage for generate_images (-1 = final resolution)",
+    )
+    parser.add_argument(
+        "--alpha", type=float, default=1.0,
+        help="Progressive fade-in alpha for generate_images",
+    )
+    parser.add_argument(
+        "--raw_generator", action="store_true",
+        help="generate_images: use the raw adversarial iterate even when "
+        "the checkpoint stores EMA generator weights (default prefers EMA)",
+    )
+    parser.add_argument(
+        "--precision", type=str, default="high",
+        choices=["default", "fast", "high", "highest"],
+        help="Image-task serving grade (generate_images): 'high' and "
+        "'highest' are fp32 with TF32 off; the bf16 grades 'default' and "
+        "'fast' are not ported yet",
+    )
+    parser.add_argument(
+        "--profile_dir",
+        type=str,
+        default="",
+        help="If set, capture a torch.profiler trace of the task into this dir",
+    )
+    parser.add_argument(
+        "--mesh",
+        type=str,
+        default="",
+        help="Multi-device mesh. Only the one-device values ('' or '1') are "
+        "ported; anything else raises NotImplementedError",
+    )
+    return parser
+
+
+def run_generate_images(args: argparse.Namespace):
+    """Image synthesis from an image-GAN checkpoint. The checkpoint reader
+    (``core/image_checkpoint.py``) is not ported yet."""
+    raise NotImplementedError(
+        "--task generate_images loads an image checkpoint through "
+        "core/image_checkpoint.py, which is not ported yet (ROADMAP A2); "
+        "ImageGANEngine.generate serves seeded weights meanwhile"
+    )
+
+
+def run_task(engine: InferenceEngine, args: argparse.Namespace):
+    """Dispatch a non-interactive task. Returns the result dict or None (the
+    caller prints nothing when results are None)."""
+    if args.task == "model_info":
+        return engine.get_model_info()
+
+    if args.task == "predict_tails":
+        if not args.input_pairs:
+            print("Error: --input_pairs required for predict_tails task")
+            return None
+        pairs = json.loads(args.input_pairs)
+        return engine.predict_tails(pairs, args.top_k, return_scores=True)
+
+    if args.task == "score_triplets":
+        if not args.input_triplets:
+            print("Error: --input_triplets required for score_triplets task")
+            return None
+        triplets = json.loads(args.input_triplets)
+        return engine.score_triplets(triplets, method="both")
+
+    if args.task == "similar_entities":
+        if not args.input_entities:
+            print("Error: --input_entities required for similar_entities task")
+            return None
+        entities = json.loads(args.input_entities)
+        return engine.find_similar_entities(entities, args.top_k)
+
+    if args.task == "analyze_relations":
+        if not args.input_heads or not args.input_tails:
+            print(
+                "Error: --input_heads and --input_tails required for "
+                "analyze_relations task"
+            )
+            return None
+        heads = json.loads(args.input_heads)
+        tails = json.loads(args.input_tails)
+        return engine.analyze_relations(heads, tails, args.top_k)
+
+    return None
+
+
+def main(argv: list[str] | None = None) -> None:
+    args = build_parser().parse_args(argv)
+
+    if args.task == "generate_images":
+        run_generate_images(args)
+        return
+
+    engine = InferenceEngine(
+        args.checkpoint_path, args.device, seed=args.seed, mesh=args.mesh
+    )
+
+    if args.task == "interactive":
+        interactive_mode(engine)
+        return
+
+    with maybe_profile(args.profile_dir):
+        results = run_task(engine, args)
+
+    if results:
+        if args.output_file:
+            with open(args.output_file, "w") as f:
+                json.dump(results, f, indent=2)
+            print(f"Results saved to: {args.output_file}")
+        else:
+            print(json.dumps(results, indent=2))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,7 @@
-"""Convert the JAX package's generator parameters into the port's.
+"""Convert the JAX package's parameters into the port's.
+
+Image generator
+---------------
 
 The JAX tree (``probgan_tpu/models/pro_gan.init_generator``, or a loaded
 image checkpoint's ``g_params``) holds numpy-convertible arrays:
@@ -10,6 +13,12 @@ image checkpoint's ``g_params``) holds numpy-convertible arrays:
 - dense weights stay ``[in, out]``. The base dense output is reshaped to
   (4, 4, nf0) HWC and permuted to NCHW inside ``_g_base``, so its columns
   keep the JAX order.
+
+KG models
+---------
+The KG MLPs (``probgan_tpu/models/kg_gan.py``) and the C17 checkpoint dict
+keep their layout: ``{'fc1': {'w' [in, out], 'b' [out]}, ...}`` and the raw
+``node_emb`` / ``rel_emb.weight`` tables become fp32 tensors as they are.
 """
 
 from __future__ import annotations
@@ -19,7 +28,8 @@ import torch
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32))).to(device)
+    # a copy: the source may be read-only (a jax array's buffer)
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C")).to(device)
 
 
 def _conv(p: dict, device) -> dict:
@@ -45,3 +55,22 @@ def convert_generator_params(jax_params: dict, device="cpu") -> dict:
         ],
         "to_rgb": [_conv(t, device) for t in jax_params["to_rgb"]],
     }
+
+
+def convert_kg_params(jax_params: dict, device="cpu") -> dict:
+    """A KG MLP's numpy tree ``{'fc1': {'w', 'b'}, ...}`` -> fp32 tensors on
+    ``device`` (dense weights stay ``[in, out]``)."""
+    return {name: _dense(layer, device) for name, layer in jax_params.items()}
+
+
+def convert_kg_checkpoint(ckpt: dict, device="cpu") -> dict:
+    """A whole C17 checkpoint dict (numpy or jax arrays, JAX-layout params)
+    -> the same dict with ``node_emb``, ``rel_emb.weight`` and both MLPs as
+    fp32 tensors on ``device``; scalars, ``args`` and ``training_history``
+    pass through."""
+    out = dict(ckpt)
+    out["node_emb"] = _tensor(ckpt["node_emb"], device)
+    out["rel_emb"] = {"weight": _tensor(ckpt["rel_emb"]["weight"], device)}
+    out["generator"] = convert_kg_params(ckpt["generator"], device)
+    out["discriminator"] = convert_kg_params(ckpt["discriminator"], device)
+    return out

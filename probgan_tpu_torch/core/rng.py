@@ -5,6 +5,13 @@ draw for task "t" comes from a generator seeded by (seed, crc32(t), i), so it
 is the same no matter which other tasks drew before it. The bits differ from
 ``jax.random``'s (threefry): a test that compares the two packages makes its
 inputs with numpy and hands the same arrays to both.
+
+RNG decision: the port does not reproduce threefry bits. The reference's
+noise-dependent goldens (``predict_tails.json`` and the generator half of
+``score_triplets.json``) are therefore met only when a test feeds the port
+the JAX package's noise as a numpy array. With its own stream the port is
+deterministic per (seed, task, draw index) and independent of the order in
+which tasks are called, and differs from those goldens by the noise only.
 """
 
 from __future__ import annotations
@@ -35,6 +42,10 @@ class RngStream:
         gen = torch.Generator()
         gen.manual_seed(int.from_bytes(digest, "little") & 0x7FFFFFFFFFFFFFFF)
         return gen
+
+    def normal(self, task: str, shape) -> torch.Tensor:
+        """The next standard-normal fp32 draw of ``task``, on the CPU."""
+        return torch.randn(tuple(shape), generator=self.next_generator(task))
 
     def counter(self, task: str = "") -> int:
         return self._counters.get(task, 0)

@@ -18,10 +18,13 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-KERNELS = ("packed_upconv", "packed_conv", "packed_conv_rgb")
+KERNELS = ("packed_upconv", "packed_conv", "packed_conv_rgb", "rank_topk",
+           "rank_scores")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -91,3 +94,19 @@ def load(name: str) -> ctypes.CDLL:
         lib.probgan_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return lib
+
+
+def launch(name: str, argtypes: list, device: torch.device, *args) -> None:
+    """Call kernel ``name``'s C entry point ``probgan_<name>(*args, stream)``
+    on ``device``'s current stream. Raises RuntimeError when the launch is
+    refused (the entry point returns the launch's cudaError_t)."""
+    lib = load(name)
+    fn = getattr(lib, f"probgan_{name}")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        msg = lib.probgan_error_string(err).decode()
+        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err} ({msg})")

@@ -39,7 +39,7 @@ from probgan_tpu_torch.ops.fused_upconv import parity_weights, upsample2x_conv3x
 
 # Launches of each kernel since the last reset_launches(); a wrapper adds one
 # where it launches its kernel and nowhere else.
-launches = {name: 0 for name in _build.KERNELS}
+launches = {"packed_upconv": 0, "packed_conv": 0, "packed_conv_rgb": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,22 +58,8 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _kernel(name: str):
-    lib = _build.load(name)
-    fn = getattr(lib, f"probgan_{name}")
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(name: str, x: torch.Tensor, *args) -> None:
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel(name)(*args, stream)
-    if err != 0:
-        msg = _build.load(name).probgan_error_string(err).decode()
-        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err} ({msg})")
+    _build.launch(name, _ARGTYPES[name], x.device, *args)
     launches[name] += 1
 
 

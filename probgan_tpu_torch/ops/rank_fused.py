@@ -1,0 +1,226 @@
+"""The fused rank kernels: Python side.
+
+The counterpart of ``probgan_tpu/ops/pallas_rank.py``. Two kernels written
+by hand in CUDA C++ for Hopper (``csrc/rank_topk.cu``, ``csrc/rank_scores.cu``
+over ``csrc/rank_tile.cuh``) keep the JAX names of the functions that reach
+the Pallas kernels they replace:
+
+- ``rank_topk_fused(pred, table_norm, k, num_entities)``: L2-normalize the
+  raw predictions, score them against the pre-normalized entity table in
+  full fp32 and return each query's top-k ``(values, ids)``. The [B, N]
+  score matrix never reaches device memory: the kernel writes k candidates
+  per query and block of table rows, and the merge over
+  ``[B, n_blocks * k]`` is a stable sort here;
+- ``rank_topk_local(pred_norm, table_norm_shard, k, nvalid)``: the same for
+  queries that are already normalized, with local row ids (the per-shard
+  form of a row-sharded table);
+- ``rank_scores_fused(pred, table_norm)``: normalize + all cosine scores
+  [B, N], the path for k > 16.
+
+Results are what ``lax.top_k(scores[:, :nvalid], k)`` returns: descending
+values and, among equal values, ascending ids. The kernel sums the D terms
+of a dot in another order than ``torch.matmul``, so values differ from the
+plain twins by about 1 ulp (compare at atol 2e-6) and two distinct rows
+within that of each other may swap; bit-equal scores (duplicate rows)
+always come in ascending id.
+
+Each wrapper checks dtype, shape, contiguity and alignment and raises
+``ValueError`` on what the kernels do not take (any B >= 1, any number of
+rows below 2**31 - 128, D a multiple of 4 up to ``MAX_D``, k in 1..16; the
+bf16 table stream of the JAX package is not ported yet). It takes its plain
+twin (``*_plain``) only for CPU tensors; for a CUDA tensor it launches the
+kernel or raises. ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from probgan_tpu_torch.ops import _build
+from probgan_tpu_torch.ops.rank import (
+    cosine_scores,
+    l2_normalize,
+    top_k_lowest_index,
+)
+
+# Launches of each kernel since the last reset_launches(); a wrapper adds one
+# where it launches its kernel and nowhere else.
+launches = {"rank_topk": 0, "rank_scores": 0}
+
+MAX_K = 16          # csrc/rank_topk.cu kMaxK: a query's top-k lives in one warp
+MAX_D = 256         # a 64-query chunk + a 128-row tile fit 227 KB of shared memory
+TILE_ROWS = 128     # csrc/rank_tile.cuh kTileRows
+BLOCKS_PER_SM = 2   # the kernels' __launch_bounds__: one wave fills the card
+_MAX_ROWS = 2**31 - TILE_ROWS  # row ids and tile starts are int32 in the kernel
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = {
+    "rank_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "rank_scores": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def supports(pred_shape: tuple[int, int], n: int) -> bool:
+    """Shapes the kernels take: any batch, any table below 2**31 - 128 rows,
+    a feature dim that is a multiple of 4 (16-byte loads) up to ``MAX_D``."""
+    b, d = pred_shape
+    return b >= 1 and 1 <= n < _MAX_ROWS and d % 4 == 0 and 4 <= d <= MAX_D
+
+
+def supports_topk(pred_shape: tuple[int, int], n: int, k: int) -> bool:
+    """``supports`` plus the fused top-k's bound on k."""
+    return supports(pred_shape, n) and 1 <= k <= MAX_K
+
+
+def _check(name: str, pred: torch.Tensor, table: torch.Tensor) -> None:
+    for label, t in (("pred", pred), ("table", table)):
+        if t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: {label} must be a contiguous 2-d float32 tensor, got "
+                f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
+            )
+        if t.is_cuda and t.data_ptr() % 16:  # the kernels load 16 bytes at a time
+            raise ValueError(f"{name}: {label} must be 16-byte aligned")
+    if pred.device != table.device:
+        raise ValueError(f"{name}: pred on {pred.device}, table on {table.device}")
+    if pred.shape[1] != table.shape[1]:
+        raise ValueError(
+            f"{name}: feature dims differ: pred {tuple(pred.shape)}, table "
+            f"{tuple(table.shape)}"
+        )
+    if not supports(tuple(pred.shape), table.shape[0]):
+        raise ValueError(
+            f"{name}: pred {tuple(pred.shape)} x table {tuple(table.shape)} "
+            f"needs B >= 1, 1 <= N < 2**31 - {TILE_ROWS}, D % 4 == 0 and "
+            f"D <= {MAX_D}"
+        )
+    if pred.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(
+            f"{name}: tensors on {pred.device.type!r} are not supported; the "
+            "kernel runs on CUDA and its plain twin on the CPU"
+        )
+
+
+def _check_k(name: str, k: int, nvalid: int, n_rows: int) -> None:
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"{name}: k={k} must be in 1..{MAX_K}")
+    if not k <= nvalid <= n_rows:
+        raise ValueError(
+            f"{name}: need k <= nvalid <= table rows, got k={k}, "
+            f"nvalid={nvalid}, rows={n_rows}"
+        )
+
+
+def _geometry(n_rows: int, device: torch.device) -> tuple[int, int]:
+    """(tiles per block, blocks) that cover ``n_rows`` in contiguous runs of
+    128-row tiles, about ``BLOCKS_PER_SM`` blocks per SM and none empty."""
+    n_tiles = -(-n_rows // TILE_ROWS)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles_per_block = -(-n_tiles // min(n_tiles, BLOCKS_PER_SM * sms))
+    return tiles_per_block, -(-n_tiles // tiles_per_block)
+
+
+def _launch(name: str, x: torch.Tensor, *args) -> None:
+    _build.launch(name, _ARGTYPES[name], x.device, *args)
+    launches[name] += 1
+
+
+def topk_candidates(pred: torch.Tensor, table: torch.Tensor, k: int, nvalid: int,
+                    normalize: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the rank_topk kernel: (values fp32, ids int32), each
+    [B, n_blocks * k]. A query's candidates come block by block in ascending
+    row ranges, each block's in descending value / ascending id, padded with
+    (-inf, INT32_MAX) where a block has fewer than k valid rows."""
+    b, d = pred.shape
+    tiles_per_block, n_blocks = _geometry(nvalid, pred.device)
+    cand_v = torch.empty((b, n_blocks * k), device=pred.device, dtype=torch.float32)
+    cand_i = torch.empty((b, n_blocks * k), device=pred.device, dtype=torch.int32)
+    _launch("rank_topk", pred, pred.data_ptr(), table.data_ptr(), cand_v.data_ptr(),
+            cand_i.data_ptr(), b, d, nvalid, k, int(normalize), tiles_per_block,
+            n_blocks)
+    return cand_v, cand_i
+
+
+def _topk_cuda(pred, table, k, nvalid, normalize):
+    cand_v, cand_i = topk_candidates(pred, table, k, nvalid, normalize)
+    # Equal values keep their position order under the stable sort, and
+    # position order is id order: the lowest id wins, as in the kernel.
+    values, pos = top_k_lowest_index(cand_v, k)
+    return values, torch.gather(cand_i, 1, pos).to(torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# rank_topk
+# ---------------------------------------------------------------------------
+
+def rank_topk_fused_plain(pred, table_norm, k, num_entities):
+    """Plain twin of ``rank_topk_fused``: normalize, product, slice, top-k."""
+    scores = cosine_scores(l2_normalize(pred), table_norm)[:, :num_entities]
+    return top_k_lowest_index(scores, k)
+
+
+def rank_topk_fused(pred: torch.Tensor, table_norm: torch.Tensor, k: int,
+                    num_entities: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B, D] raw predictions x [N_rows, D] pre-normalized table -> (top-k
+    values [B, k] fp32, top-k entity ids [B, k] int64) over rows below
+    ``num_entities`` (rows at or past it, such as zero padding, never win)."""
+    name = "rank_topk_fused"
+    num_entities = int(num_entities)
+    _check(name, pred, table_norm)
+    _check_k(name, k, num_entities, table_norm.shape[0])
+    if pred.device.type == "cpu":
+        return rank_topk_fused_plain(pred, table_norm, k, num_entities)
+    return _topk_cuda(pred, table_norm, k, num_entities, normalize=True)
+
+
+def rank_topk_local_plain(pred_norm, table_norm_shard, k, nvalid):
+    """Plain twin of ``rank_topk_local``."""
+    return top_k_lowest_index(cosine_scores(pred_norm, table_norm_shard)[:, :nvalid], k)
+
+
+def rank_topk_local(pred_norm: torch.Tensor, table_norm_shard: torch.Tensor, k: int,
+                    nvalid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-shard fused rank + top-k: queries arrive already normalized (every
+    shard must consume identical query bits) and are not normalized again;
+    ``nvalid`` is the shard's count of real rows. Returns (values [B, k],
+    local row ids [B, k] int64)."""
+    name = "rank_topk_local"
+    nvalid = int(nvalid)
+    _check(name, pred_norm, table_norm_shard)
+    _check_k(name, k, nvalid, table_norm_shard.shape[0])
+    if pred_norm.device.type == "cpu":
+        return rank_topk_local_plain(pred_norm, table_norm_shard, k, nvalid)
+    return _topk_cuda(pred_norm, table_norm_shard, k, nvalid, normalize=False)
+
+
+# ---------------------------------------------------------------------------
+# rank_scores
+# ---------------------------------------------------------------------------
+
+def rank_scores_fused_plain(pred, table_norm):
+    """Plain twin of ``rank_scores_fused``."""
+    return cosine_scores(l2_normalize(pred), table_norm)
+
+
+def rank_scores_fused(pred: torch.Tensor, table_norm: torch.Tensor) -> torch.Tensor:
+    """[B, D] raw predictions x [N, D] pre-normalized table -> [B, N] cosine
+    scores, fp32 (a zero prediction row gives zeros, not NaN)."""
+    name = "rank_scores_fused"
+    _check(name, pred, table_norm)
+    if pred.device.type == "cpu":
+        return rank_scores_fused_plain(pred, table_norm)
+    b, d = pred.shape
+    n = table_norm.shape[0]
+    tiles_per_block, n_blocks = _geometry(n, pred.device)
+    out = torch.empty((b, n), device=pred.device, dtype=torch.float32)
+    _launch("rank_scores", pred, pred.data_ptr(), table_norm.data_ptr(), out.data_ptr(),
+            b, d, n, tiles_per_block, n_blocks)
+    return out

@@ -1,0 +1,143 @@
+"""What the parts of the ``rank_topk`` kernel cost on the card.
+
+Builds variants of ``csrc/rank_topk.cu`` in a temporary directory, each with
+one part of the kernel taken out by a source substitution, and times them at
+the KG path's shape (N = 1,000,000 rows, D = 128, B = 64) for k = 1 and 10:
+
+    python -m probgan_tpu_torch.utils.rank_ablation
+
+- ``base``: the kernel as shipped;
+- ``no_reload``: only a block's first table tile is staged, so every other
+  tile's load from device memory and its wait are gone;
+- ``no_select``: no score ever beats the threshold, so the top-k insertions
+  are gone (the compare and ballot per 32 scores stay);
+- ``no_product``: the fp32 product is replaced by one multiply per score, so
+  what is left is streaming the table through shared memory;
+- ``one_block_per_sm``: ``__launch_bounds__(256, 1)`` and half the blocks.
+
+The variants compute wrong results on purpose: this script measures, it
+checks nothing. Prints one line per variant and one JSON line. Needs a CUDA
+card and nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from probgan_tpu_torch.ops import _build, rank_fused
+from probgan_tpu_torch.ops.rank import l2_normalize
+
+N, D, B = 1_000_000, 128, 64
+KS = (1, 10)
+SOURCES = ("rank_tile.cuh", "rank_topk.cu")
+# name -> (blocks per SM, [(source text, replacement), ...])
+VARIANTS = {
+    "base": (2, []),
+    "no_reload": (2, [(
+        "    load_table_tile(table, nvalid, D, row0, ts);",
+        "    if (tile == tile0) load_table_tile(table, nvalid, D, row0, ts);")]),
+    "no_select": (2, [(
+        "unsigned m = __ballot_sync(kFullMask, s > thr[i]);",
+        "unsigned m = __ballot_sync(kFullMask, s > 1e30f);")]),
+    "no_product": (2, [(
+        "    score_tile<QT>(qs, ts, D, acc);",
+        "    for (int i = 0; i < QT; ++i)\n"
+        "      for (int j = 0; j < kRowsPerLane; ++j)\n"
+        "        acc[i][j] = ts[(j * 32 + lane) * (D + kRowPad) + i] * qs[i];")]),
+    "one_block_per_sm": (1, [(
+        "__launch_bounds__(kRankThreads, 2)", "__launch_bounds__(kRankThreads, 1)")]),
+}
+
+
+def build_variant(name: str, subs: list, workdir: Path):
+    """Compile a variant of rank_topk.cu; returns (library, registers of the
+    QT = 8 kernel as ptxas reports them)."""
+    src_dir = workdir / name
+    src_dir.mkdir()
+    left = {old for old, _ in subs}
+    for fname in SOURCES:
+        text = (_build.CSRC / fname).read_text()
+        for old, new in subs:
+            if old in text:
+                text = text.replace(old, new)
+                left.discard(old)
+        (src_dir / fname).write_text(text)
+    if left:
+        raise RuntimeError(f"{name}: source text not found: {sorted(left)}")
+    lib_path = src_dir / f"{name}.so"
+    proc = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(src_dir),
+         "-o", str(lib_path), str(src_dir / "rank_topk.cu")],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{name}: nvcc failed:\n{proc.stdout}{proc.stderr}")
+    registers = [line.split("Used")[1].split(",")[0].strip()
+                 for line in proc.stderr.splitlines() if "Used" in line]
+    lib = ctypes.CDLL(str(lib_path))
+    lib.probgan_rank_topk.argtypes = rank_fused._ARGTYPES["rank_topk"]
+    lib.probgan_rank_topk.restype = ctypes.c_int
+    return lib, registers[-1] if registers else "?"
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("rank_ablation: torch.cuda.is_available() is False")
+        return 1
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(0)
+    table = l2_normalize(torch.randn((N, D), device=device, generator=gen))
+    pred = torch.randn((B, D), device=device, generator=gen)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    n_tiles = -(-N // rank_fused.TILE_ROWS)
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (blocks_per_sm, subs) in VARIANTS.items():
+            lib, registers = build_variant(name, subs, Path(tmp))
+            tiles_per_block = -(-n_tiles // min(n_tiles, blocks_per_sm * sms))
+            n_blocks = -(-n_tiles // tiles_per_block)
+            row = {"registers": registers, "blocks": n_blocks}
+            for k in KS:
+                cand_v = torch.empty((B, n_blocks * k), device=device)
+                cand_i = torch.empty((B, n_blocks * k), device=device, dtype=torch.int32)
+
+                def launch():
+                    err = lib.probgan_rank_topk(
+                        pred.data_ptr(), table.data_ptr(), cand_v.data_ptr(),
+                        cand_i.data_ptr(), B, D, N, k, 1, tiles_per_block, n_blocks,
+                        stream)
+                    if err != 0:
+                        raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
+
+                row[f"k{k}_ms"] = cuda_ms(launch)
+            results[name] = row
+            print(f"{name:18s} {registers:14s} {n_blocks:4d} blocks  " + "  ".join(
+                f"k={k}: {row[f'k{k}_ms']:.3f} ms" for k in KS), flush=True)
+    print(json.dumps({"shape": {"B": B, "N": N, "D": D}, "variants": results,
+                      "device": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

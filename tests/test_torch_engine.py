@@ -76,8 +76,9 @@ def test_rng_stream_is_per_task():
 
 
 def test_import_leaves_jax_out():
-    """Importing the port and every module in it loads no jax (a subprocess:
-    the test process itself has jax loaded by conftest)."""
+    """Importing the port and every module in it loads no jax, flax, msgpack
+    or orbax (a subprocess: the test process itself has jax loaded by
+    conftest)."""
     modules = sorted(
         ".".join(p.relative_to(PORT.parent).with_suffix("").parts)
         for p in PORT.rglob("*.py")
@@ -87,19 +88,21 @@ def test_import_leaves_jax_out():
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m.removesuffix('.__init__'))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'probgan_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'msgpack', 'orbax', 'probgan_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=PORT.parent,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert len(modules) >= 15
+    assert len(modules) >= 30
+    assert "probgan_tpu_torch.engine.inference" in modules
 
 
 def test_sources_import_no_jax_and_no_jax_package():
     forbidden = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|flax|probgan_tpu(?!_torch))\b", re.MULTILINE
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|msgpack|orbax|probgan_tpu(?!_torch))\b",
+        re.MULTILINE
     )
     files = list(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]
     hits = [f"{f}: {m.group(0).strip()}" for f in files
@@ -108,3 +111,5 @@ def test_sources_import_no_jax_and_no_jax_package():
     # the regex itself: the port's own name passes, the JAX package does not
     assert forbidden.search("from probgan_tpu.ops import x")
     assert not forbidden.search("from probgan_tpu_torch.ops import x")
+    assert forbidden.search("import msgpack")
+    assert not forbidden.search("from probgan_tpu_torch.core import _msgpack")

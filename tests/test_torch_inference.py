@@ -1,0 +1,284 @@
+"""The port's InferenceEngine against the JAX package's on the fixture
+checkpoint, on the CPU.
+
+Both engines get the same generator noise: the JAX engine's draws are
+captured as numpy arrays and replayed into the port through a test-only
+override of its ``_noise``. Ids, relation ids and dict keys must be equal;
+floats agree to atol 1e-5 (fp32 sums taken in another order).
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from probgan_tpu.engine import InferenceEngine as JaxEngine
+from probgan_tpu_torch.engine import InferenceEngine
+from probgan_tpu_torch.engine import inference as port_inference
+from probgan_tpu_torch.ops import rank_fused
+from tests.conftest import NUM_ENTITIES, NUM_RELATIONS
+
+ATOL = 1e-5
+GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
+
+
+def _golden(name):
+    with open(os.path.join(GOLDEN_DIR, name)) as f:
+        return json.load(f)
+
+
+def _assert_same(got, want, path="result"):
+    """Equal structure, keys, ints and strings; floats within ATOL."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and list(got) == list(want), path
+        for k in want:
+            _assert_same(got[k], want[k], f"{path}[{k!r}]")
+    elif isinstance(want, (list, tuple)):
+        assert isinstance(got, (list, tuple)) and len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_same(g, w, f"{path}[{i}]")
+    elif isinstance(want, float):
+        assert isinstance(got, float), path
+        assert got == pytest.approx(want, abs=ATOL), path
+    else:
+        assert type(got) is type(want) and got == want, path
+
+
+def _share_noise(monkeypatch, jax_engine, port_engine):
+    """Record the JAX engine's noise draws and replay them, in order, as the
+    port engine's."""
+    drawn = []
+    jax_noise = jax_engine._noise
+
+    def record(batch, task):
+        z = jax_noise(batch, task)
+        drawn.append((task, np.array(z)))
+        return z
+
+    def replay(batch, task):
+        drawn_task, z = drawn.pop(0)
+        assert drawn_task == task and z.shape[0] == batch
+        return torch.from_numpy(z)
+
+    monkeypatch.setattr(jax_engine, "_noise", record)
+    monkeypatch.setattr(port_engine, "_noise", replay)
+
+
+@pytest.fixture
+def engines(native_ckpt_path, monkeypatch):
+    jax_engine = JaxEngine(native_ckpt_path, device="cpu", seed=0)
+    port_engine = InferenceEngine(native_ckpt_path, device="cpu", seed=0)
+    _share_noise(monkeypatch, jax_engine, port_engine)
+    return jax_engine, port_engine
+
+
+@pytest.fixture(scope="module")
+def engine(native_ckpt_path):
+    return InferenceEngine(native_ckpt_path, device="cpu", seed=0)
+
+
+def test_banners_match_the_jax_engine(native_ckpt_path, capsys):
+    JaxEngine(native_ckpt_path, device="cpu", seed=0)
+    want = capsys.readouterr().out
+    InferenceEngine(native_ckpt_path, device="cpu", seed=0)
+    assert capsys.readouterr().out == want
+    assert "Inference ready!" in want and "Device: cpu:0" in want
+
+
+@pytest.mark.parametrize("pairs,top_k", [([(0, 1), (2, 3)], 5), ([(7, 6)], 1),
+                                          ([(i, i % NUM_RELATIONS) for i in range(11)], 10),
+                                          ([(3, 2), (49, 0)], 20)])
+def test_predict_tails_matches_jax(engines, pairs, top_k):
+    jax_engine, port = engines
+    want = jax_engine.predict_tails(pairs, top_k=top_k, return_scores=True)
+    got = port.predict_tails(pairs, top_k=top_k, return_scores=True)
+    _assert_same(got, want)
+    assert "scores" not in port.predict_tails([], top_k=top_k)
+
+
+def test_predict_tails_golden_under_jax_noise(engines):
+    """The noise-dependent golden is met when the port is fed the JAX
+    package's noise (its own stream has other bits: the allowed RNG gap)."""
+    jax_engine, port = engines
+    jax_engine.predict_tails([(0, 1), (2, 3)], top_k=5, return_scores=True)
+    got = port.predict_tails([(0, 1), (2, 3)], top_k=5, return_scores=True)
+    _assert_same(json.loads(json.dumps(got)), _golden("predict_tails.json"))
+
+
+@pytest.mark.parametrize("method", ["both", "generator", "discriminator"])
+def test_score_triplets_matches_jax(engines, method):
+    jax_engine, port = engines
+    trips = [(0, 1, 2), (3, 4, 5), (49, 6, 0)]
+    want = jax_engine.score_triplets(trips, method=method)
+    got = port.score_triplets(trips, method=method)
+    _assert_same(got, want)
+    if method == "both":  # the second draw of the same task
+        want = jax_engine.score_triplets(trips[:2])
+        _assert_same(port.score_triplets(trips[:2]), want)
+
+
+def test_score_triplets_golden_under_jax_noise(engines):
+    jax_engine, port = engines
+    jax_engine.score_triplets([(0, 1, 2), (3, 4, 5)], method="both")
+    got = port.score_triplets([(0, 1, 2), (3, 4, 5)], method="both")
+    _assert_same(json.loads(json.dumps(got)), _golden("score_triplets.json"))
+
+
+@pytest.mark.parametrize("ids,top_k", [([0, 7], 4), ([5], 1), (list(range(9)), 10),
+                                        ([1, 2], 30)])
+def test_find_similar_entities_matches_jax(engines, ids, top_k):
+    jax_engine, port = engines
+    want = jax_engine.find_similar_entities(ids, top_k=top_k)
+    got = port.find_similar_entities(ids, top_k=top_k)
+    _assert_same(got, want)
+    for entry in got["similar_entities"]:
+        assert entry["query_entity"] not in entry["similar_entities"]
+
+
+@pytest.mark.parametrize("heads,tails,top_k", [([1], [2], 3), ([0, 4, 9], [1, 2, 3], 5),
+                                                ([3], [3], 7)])
+def test_analyze_relations_matches_jax(engines, heads, tails, top_k):
+    jax_engine, port = engines
+    want = jax_engine.analyze_relations(heads, tails, top_k=top_k)
+    got = port.analyze_relations(heads, tails, top_k=top_k)
+    _assert_same(got, want)
+
+
+def test_golden_similar_entities(engine):
+    got = engine.find_similar_entities([0, 7], top_k=4)
+    _assert_same(json.loads(json.dumps(got)), _golden("similar_entities.json"))
+
+
+def test_golden_analyze_relations(engine):
+    got = engine.analyze_relations([1], [2], top_k=3)
+    _assert_same(json.loads(json.dumps(got)), _golden("analyze_relations.json"))
+
+
+def test_golden_model_info(engine, native_ckpt_path):
+    golden = _golden("model_info.json")
+    golden["checkpoint_path"] = native_ckpt_path  # tmp path varies per run
+    assert json.loads(json.dumps(engine.get_model_info())) == golden
+    assert golden["device"] == "cpu:0"
+
+
+def test_pt_and_msgpack_checkpoints_give_the_same_results(native_ckpt_path, torch_ckpt_path):
+    a = InferenceEngine(native_ckpt_path, device="cpu", seed=0)
+    b = InferenceEngine(torch_ckpt_path, device="cpu", seed=0)
+    assert a.predict_tails([(0, 1), (2, 3)], 5, True) == b.predict_tails([(0, 1), (2, 3)], 5, True)
+
+
+def test_empty_inputs_match_jax(engines):
+    jax_engine, port = engines
+    assert port.predict_tails([], 5, return_scores=True) == jax_engine.predict_tails(
+        [], 5, return_scores=True)
+    assert port.score_triplets([]) == jax_engine.score_triplets([])
+    assert port.score_triplets([], "generator") == jax_engine.score_triplets([], "generator")
+    assert port.find_similar_entities([]) == jax_engine.find_similar_entities([])
+    assert port.analyze_relations([], [1]) == jax_engine.analyze_relations([], [1])
+    assert port.analyze_relations([1], []) == jax_engine.analyze_relations([1], [])
+
+
+@pytest.mark.parametrize("call", [
+    lambda e: e.predict_tails([(0, 1), (NUM_ENTITIES, 0)]),
+    lambda e: e.predict_tails([(0, NUM_RELATIONS)]),
+    lambda e: e.predict_tails([(-1, 0)]),
+    lambda e: e.score_triplets([(0, 0, NUM_ENTITIES + 3)]),
+    lambda e: e.score_triplets([(0, -2, 0)]),
+    lambda e: e.find_similar_entities([0, 99]),
+    lambda e: e.analyze_relations([0], [NUM_ENTITIES]),
+    lambda e: e.analyze_relations([-5], [0]),
+])
+def test_out_of_range_ids_raise_the_same_index_error(engines, call):
+    jax_engine, port = engines
+    with pytest.raises(IndexError) as want:
+        call(jax_engine)
+    with pytest.raises(IndexError) as got:
+        call(port)
+    assert str(got.value) == str(want.value)
+    assert "out of range [0, " in str(got.value)
+
+
+def test_bucket_padding_does_not_leak(native_ckpt_path, monkeypatch):
+    """3 queries ride in a bucket of 8: rows 3..7 never show, and the first
+    three rows do not depend on what the padding rows hold."""
+    port = InferenceEngine(native_ckpt_path, device="cpu", seed=0)
+    z = torch.from_numpy(np.random.default_rng(0).standard_normal((8, 8)).astype(np.float32))
+    pairs = [(4, 1), (5, 2), (6, 3)]
+    monkeypatch.setattr(port, "_noise", lambda batch, task: z.clone())
+    a = port.predict_tails(pairs, top_k=5, return_scores=True)
+    assert len(a["predictions"]) == 3 and len(a["scores"]) == 3
+    z2 = z.clone()
+    z2[3:] = 100.0  # other noise in the padding rows only
+    monkeypatch.setattr(port, "_noise", lambda batch, task: z2.clone())
+    assert port.predict_tails(pairs, top_k=5, return_scores=True) == a
+    assert port_inference._bucket(1) == 8 and port_inference._bucket(9) == 16
+    assert port_inference._bucket(64) == 64 and port_inference._bucket(65) == 128
+    np.testing.assert_array_equal(port_inference._pad_ids([3, 4], 4), [3, 4, 0, 0])
+
+
+def test_top_k_is_clamped_to_entities_and_relations(engines):
+    jax_engine, port = engines
+    want = jax_engine.find_similar_entities([3], top_k=NUM_ENTITIES + 10)
+    got = port.find_similar_entities([3], top_k=NUM_ENTITIES + 10)
+    _assert_same(got, want)
+    assert len(got["similar_entities"][0]["similar_entities"]) == NUM_ENTITIES - 1
+    want = jax_engine.analyze_relations([0], [1], top_k=NUM_RELATIONS + 5)
+    got = port.analyze_relations([0], [1], top_k=NUM_RELATIONS + 5)
+    _assert_same(got, want)
+    rels = [r["relation_id"] for r in got["relation_analysis"][0]["top_relations"]]
+    assert sorted(rels) == list(range(NUM_RELATIONS))  # padded relations never show
+
+
+def test_own_stream_is_deterministic_and_task_order_independent(native_ckpt_path):
+    """With its own noise stream a fresh engine repeats itself, and a task's
+    i-th draw does not depend on which other tasks ran before it."""
+    a = InferenceEngine(native_ckpt_path, device="cpu", seed=0)
+    b = InferenceEngine(native_ckpt_path, device="cpu", seed=0)
+    pairs, trips = [(0, 1), (2, 3)], [(0, 1, 2), (3, 4, 5)]
+    pred_a = a.predict_tails(pairs, top_k=5, return_scores=True)
+    score_a = a.score_triplets(trips)
+    score_b = b.score_triplets(trips)  # inverted order
+    pred_b = b.predict_tails(pairs, top_k=5, return_scores=True)
+    assert pred_a == pred_b and score_a == score_b
+    assert a.predict_tails(pairs, top_k=5, return_scores=True) != pred_a  # next draw
+    other = InferenceEngine(native_ckpt_path, device="cpu", seed=1)
+    assert other.score_triplets(trips)["generator_scores"] != score_a["generator_scores"]
+
+
+def test_results_are_json_ready_python_types(engine):
+    res = engine.predict_tails([(0, 1)], top_k=3, return_scores=True)
+    assert all(type(i) is int for i in res["predictions"][0])
+    assert all(type(s) is float for s in res["scores"][0])
+    sim = engine.find_similar_entities([2], top_k=3)["similar_entities"][0]
+    assert all(type(i) is int for i in sim["similar_entities"])
+    json.dumps([res, sim, engine.analyze_relations([0], [1], 2), engine.score_triplets([(0, 1, 2)])])
+
+
+def test_cpu_engine_launches_no_kernel(engine):
+    before = dict(rank_fused.launches)
+    engine.predict_tails([(0, 1)], top_k=3)
+    engine.predict_tails([(0, 1)], top_k=20)
+    engine.find_similar_entities([1], top_k=3)
+    assert rank_fused.launches == before
+
+
+@pytest.mark.parametrize("mesh", [4, "auto", "2"])
+def test_mesh_is_not_ported(native_ckpt_path, mesh):
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        InferenceEngine(native_ckpt_path, device="cpu", mesh=mesh)
+
+
+@pytest.mark.parametrize("mesh", [None, "", 1])
+def test_one_device_mesh_values_are_accepted(native_ckpt_path, mesh):
+    engine = InferenceEngine(native_ckpt_path, device="cpu", mesh=mesh)
+    assert engine.get_model_info()["device"] == "cpu:0"
+
+
+def test_auto_device_raises_without_a_card(native_ckpt_path):
+    if torch.cuda.is_available():
+        assert InferenceEngine(native_ckpt_path, device="auto").device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="is_available"):
+            InferenceEngine(native_ckpt_path, device="auto")

@@ -1,0 +1,199 @@
+"""The port's rank ops and the plain twins of its fused rank kernels against
+the JAX package, on the CPU (the Pallas kernels run in interpret mode).
+
+Inputs come from numpy seeds and go to both packages. Ids must be equal;
+values agree to atol 2e-6 (fp32 dots summed in another order, the JAX
+tests' own tolerance).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from probgan_tpu.ops import pallas_rank
+from probgan_tpu.ops import rank as jax_rank
+from probgan_tpu_torch.engine import inference as port_inference
+from probgan_tpu_torch.ops import rank, rank_fused
+
+ATOL = 2e-6
+
+
+def _table(seed, n, d, n_valid=None):
+    """A normalized [n, d] table (rows at or past n_valid zeroed) and its raw
+    form, as numpy."""
+    raw = np.random.default_rng(seed).standard_normal((n, d)).astype(np.float32)
+    norm = raw / np.maximum(np.linalg.norm(raw, axis=1, keepdims=True), 1e-12)
+    if n_valid is not None:
+        norm[n_valid:] = 0.0
+    return norm.astype(np.float32)
+
+
+def _pred(seed, b, d):
+    return np.random.default_rng(seed).standard_normal((b, d)).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def test_l2_normalize_matches_jax_and_keeps_zero_rows():
+    x = _pred(0, 6, 16) * 3.0
+    x[2] = 0.0
+    got = rank.l2_normalize(_t(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jax_rank.l2_normalize(jnp.asarray(x))),
+                               atol=1e-6)
+    assert np.all(got[2] == 0.0)
+
+
+def test_cosine_similarity_matches_jax_with_clamped_norms():
+    a, b = _pred(1, 5, 16), _pred(2, 5, 16)
+    a[0] = 0.0  # both norms are clamped at 1e-8: a zero row gives 0, not NaN
+    got = rank.cosine_similarity(_t(a), _t(b)).numpy()
+    want = np.asarray(jax_rank.cosine_similarity(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    assert got[0] == 0.0
+
+
+def test_rank_topk_matches_jax():
+    q = rank.l2_normalize(_t(_pred(3, 4, 16)))
+    table = _table(4, 50, 16)
+    v, i = rank.rank_topk(q, _t(table), 5)
+    wv, wi = jax_rank.rank_topk(jnp.asarray(q.numpy()), jnp.asarray(table), 5)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(v.numpy(), np.asarray(wv), atol=ATOL)
+
+
+def test_top_k_lowest_index_breaks_ties_like_lax_top_k():
+    scores = np.array([[1.0, 3.0, 3.0, 2.0, 3.0, -np.inf],
+                       [0.5, 0.5, 0.5, 0.5, 0.5, 0.5]], np.float32)
+    v, i = rank.top_k_lowest_index(_t(scores), 4)
+    wv, wi = jax.lax.top_k(jnp.asarray(scores), 4)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(wv))
+    with pytest.raises(ValueError):
+        rank.top_k_lowest_index(_t(scores), 7)
+
+
+@pytest.mark.parametrize("k", [1, 10, 16])
+def test_rank_topk_fused_matches_pallas(k):
+    """N = 4000 real rows zero-padded to 4096: two Pallas tiles."""
+    pred, table = _pred(10, 16, 128), _table(11, 4096, 128, n_valid=4000)
+    wv, wi = pallas_rank.rank_topk_fused(jnp.asarray(pred), jnp.asarray(table), k, 4000,
+                                         interpret=True)
+    for fn in (rank_fused.rank_topk_fused, rank_fused.rank_topk_fused_plain):
+        v, i = fn(_t(pred), _t(table), k, 4000)
+        assert v.dtype == torch.float32 and i.dtype == torch.int64
+        np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+        np.testing.assert_allclose(v.numpy(), np.asarray(wv), atol=ATOL)
+
+
+def test_rank_topk_fused_tie_break_across_tile_boundary():
+    """Duplicate table rows give bit-equal scores; ties go to the lowest
+    entity id, across the Pallas kernel's 2048-row tile boundary too."""
+    raw = np.random.default_rng(12).standard_normal((4096, 128)).astype(np.float32)
+    for dup in (2047, 2048, 3000):
+        raw[dup] = raw[5]
+    table = (raw / np.maximum(np.linalg.norm(raw, axis=1, keepdims=True), 1e-12)
+             ).astype(np.float32)
+    pred = np.tile(raw[5:6], (8, 1))
+    wv, wi = pallas_rank.rank_topk_fused(jnp.asarray(pred), jnp.asarray(table), 6, 4096,
+                                         interpret=True)
+    v, i = rank_fused.rank_topk_fused(_t(pred), _t(table), 6, 4096)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+    assert i[0, :4].tolist() == [5, 2047, 2048, 3000]
+
+
+def test_rank_topk_nvalid_masks_zero_rows_under_negative_scores():
+    """A zero padding row scores exactly 0 and would beat every negative
+    cosine: rows at or past nvalid must never win."""
+    table = _table(13, 4096, 128, n_valid=4000)
+    pred = np.tile(-table[:4000].mean(axis=0, keepdims=True) * 50.0, (8, 1))
+    pred = pred.astype(np.float32)
+    wv, wi = pallas_rank.rank_topk_fused(jnp.asarray(pred), jnp.asarray(table), 10, 4000,
+                                         interpret=True)
+    v, i = rank_fused.rank_topk_fused(_t(pred), _t(table), 10, 4000)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(v.numpy(), np.asarray(wv), atol=ATOL)
+    assert int(i.max()) < 4000
+
+
+def test_rank_topk_local_matches_pallas():
+    """Pre-normalized queries, local ids, nvalid below the shard's rows."""
+    pred = rank.l2_normalize(_t(_pred(14, 8, 128))).numpy()
+    shard = _table(15, 2048, 128, n_valid=1500)
+    wv, wi = pallas_rank.rank_topk_local(jnp.asarray(pred), jnp.asarray(shard), 7, 1500,
+                                         interpret=True)
+    for fn in (rank_fused.rank_topk_local, rank_fused.rank_topk_local_plain):
+        v, i = fn(_t(pred), _t(shard), 7, 1500)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+        np.testing.assert_allclose(v.numpy(), np.asarray(wv), atol=ATOL)
+
+
+def test_rank_scores_fused_matches_pallas():
+    pred, table = _pred(16, 16, 128), _table(17, 2048, 128)
+    want = pallas_rank.rank_scores_fused(jnp.asarray(pred), jnp.asarray(table),
+                                         interpret=True)
+    for fn in (rank_fused.rank_scores_fused, rank_fused.rank_scores_fused_plain):
+        got = fn(_t(pred), _t(table))
+        assert tuple(got.shape) == (16, 2048)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_rank_scores_fused_zero_query_row_gives_zeros():
+    pred = np.zeros((8, 128), np.float32)
+    got = rank_fused.rank_scores_fused(_t(pred), _t(_table(18, 512, 128)))
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), 0.0, atol=1e-6)
+
+
+def test_engine_rank_topk_above_16_takes_the_two_step_path():
+    """k = 17 is off the fused kernel's gate: the engine scores then ranks,
+    and matches the JAX package's own off-gate path."""
+    pred, table = _pred(19, 8, 128), _table(20, 4096, 128, n_valid=4000)
+    assert rank_fused.supports_topk((8, 128), 4096, 16)
+    assert not rank_fused.supports_topk((8, 128), 4096, 17)
+    before = dict(rank_fused.launches)
+    v, i = port_inference._rank_topk(_t(pred), _t(table), 17, 4000)
+    assert rank_fused.launches == before  # CPU: plain twins, no kernel launches
+    wv, wi = pallas_rank.rank_topk_fused(jnp.asarray(pred), jnp.asarray(table), 17, 4000)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(v.numpy(), np.asarray(wv), atol=ATOL)
+
+
+def test_supports_gates():
+    assert rank_fused.supports((1, 4), 1)
+    assert rank_fused.supports((1000, 128), 1_000_003)  # no tiling gates
+    assert not rank_fused.supports((8, 50), 100)        # D % 4
+    assert not rank_fused.supports((8, 512), 100)       # D above MAX_D
+    assert not rank_fused.supports((8, 128), 0)
+    assert not rank_fused.supports_topk((8, 128), 100, 0)
+
+
+@pytest.mark.parametrize("case", ["dtype", "non_contiguous", "d_mod_4", "k_17",
+                                  "k_above_nvalid", "nvalid_above_rows", "dims_differ"])
+def test_wrappers_raise_on_what_the_kernels_do_not_take(case):
+    pred, table = _t(_pred(21, 8, 128)), _t(_table(22, 256, 128))
+    k, nvalid = 5, 256
+    if case == "dtype":
+        pred = pred.double()
+    elif case == "non_contiguous":
+        table = _t(_table(22, 128, 256)).T
+    elif case == "d_mod_4":
+        pred, table = _t(_pred(21, 8, 50)), _t(_table(22, 256, 50))
+    elif case == "k_17":
+        k = 17
+    elif case == "k_above_nvalid":
+        nvalid = 3
+    elif case == "nvalid_above_rows":
+        nvalid = 257
+    elif case == "dims_differ":
+        pred = _t(_pred(21, 8, 64))
+    with pytest.raises(ValueError):
+        rank_fused.rank_topk_fused(pred, table, k, nvalid)
+    if case not in ("k_17", "k_above_nvalid", "nvalid_above_rows"):
+        with pytest.raises(ValueError):
+            rank_fused.rank_scores_fused(pred, table)
+        with pytest.raises(ValueError):
+            rank_fused.rank_topk_local(pred, table, k, nvalid)
