@@ -25,17 +25,43 @@ Phases (any failure exits non-zero and prints no result line):
    (alpha 0.5) and stage 8 (alpha 0.3); for one image, the output must agree
    with the plain path on the CPU (PSNR >= 50 dB). Prints img/s and p50
    ms/img;
-4. the two fused rank kernels at the KG path's shapes (N = 1,000,000
+4. the discriminator's kernels at path I's shapes (batch 2): ``packed_conv``
+   with the "lrelu" epilogue at 32 channels / 1024² and 64 / 512²,
+   ``packed_convpool`` 32 -> 64 at 1024² and 64 -> 128 at 512², each against
+   its plain twin (atol = rtol = 1e-4) with the "none" epilogues checked
+   once; ``to_uint8_fused`` at [8, 1024, 1024, 3] (equal bytes, or +-1 only
+   where the denorm value lies within 1e-3 of a half) and at element counts
+   that are no multiple of 4. Yardsticks: ``F.conv2d`` + ``F.leaky_relu``
+   (+ ``F.avg_pool2d``); ``tanh``/``round``/``clamp``;
+5. path I at the default config: ``ImageGANEngine.score`` of 8 images the
+   engine generated (uint8 -> [-1, 1]) at alpha 1.0 and 0.5: 2
+   ``packed_conv`` and 2 ``packed_convpool`` launches per call, logits
+   within 1e-4 (atol = rtol) of the same engine on the plain twins, of the
+   unpacked path on the card and, for 2 images, of the engine on the CPU;
+   scores/s, p50 and peak device memory. ``latent_walk`` of 64 frames at
+   stage 7 (512²): 8 chunks' launches, first and last frame within +-1 of
+   ``generate`` of the end points. ``use_pallas=True``: one
+   ``to_uint8_fused`` launch per ``generate`` call, bytes within +-1 on at
+   most 0.5% of the default path's. A seeded image checkpoint written with
+   ``save_image_checkpoint`` into a temporary directory and served by the
+   CLI's ``generate_images`` task in process: its checksum must equal
+   ``engine.generate``'s on the same weights and seed (EMA weights; raw
+   weights at stage 7, alpha 0.5);
+6. the fused rank kernels at the KG path's shapes (N = 1,000,000
    entities, D = 128): ``rank_topk`` at B = 64 and B = 8 with k = 10, with
-   ``nvalid`` below the row count, with planted duplicate rows, and as
-   ``rank_topk_local``; ``rank_scores`` at B = 64. Values must agree with
-   the plain twin to atol 2e-6 (the kernel sums a dot's 128 terms in another
-   order than ``torch.matmul``: about 1 ulp); every returned id's plain
-   score must equal the returned value within 2e-6, no entity left out may
-   score more than 2e-6 above the k-th value, and bit-equal scores
-   (duplicate rows) must come in ascending id. The yardstick is
-   ``F.normalize`` -> ``torch.matmul`` (-> ``torch.topk``);
-5. the KG main path: a seeded C17 checkpoint (1,000,000 entities, 1,000
+   ``nvalid`` below the row count, with planted duplicate rows, with twelve
+   planted rows whose cosines with query 1 lie 1e-4 apart, and as
+   ``rank_topk_local``; ``rank_scores`` at B = 64; ``rank_topk_bf16``
+   (``rank_topk_fused(table_bf16=...)``) on the same cases. Values must
+   agree with the plain twin to atol 2e-6 (the kernel sums a dot's 128 terms
+   in another order than ``torch.matmul``: about 1 ulp); every returned id's
+   plain fp32 score must equal the returned value within 2e-6, no entity
+   left out may score more than 2e-6 above the k-th value, bit-equal scores
+   (duplicate rows) must come in ascending id, and the rows 1e-4 apart, which
+   bf16 cannot tell apart, in their fp32 order. The yardstick is
+   ``F.normalize`` -> ``torch.matmul`` (-> ``torch.topk``), on bf16 operands
+   for the bf16 kernel;
+7. the KG main path: a seeded C17 checkpoint (1,000,000 entities, 1,000
    relations, embed 128, noise 64, hidden 1024) written as ``.pt`` into a
    temporary directory, then ``InferenceEngine(path, device="cuda")``:
    ``predict_tails`` on 64 pairs with top_k 10 (``rank_topk`` must launch
@@ -44,10 +70,14 @@ Phases (any failure exits non-zero and prints no result line):
    top_k 32 (``rank_scores`` must launch once), ``find_similar_entities``
    (``rank_topk`` with k = 11, the query itself excluded),
    ``score_triplets`` and ``analyze_relations`` against the engine on the
-   CPU (atol 1e-5, relation ids equal), the CLI's ``predict_tails`` and
-   ``model_info`` tasks in process, and the REPL fed from stdin. Prints
-   queries/s and p50 ms per call;
-6. the last lines: the card's name and power limit, one JSON line with each
+   CPU (atol 1e-5, relation ids equal). Then path II: the same file served
+   by an engine built with ``PROBGAN_BF16_RANK=1``: ``predict_tails`` and
+   ``find_similar_entities`` must launch ``rank_topk_bf16`` once per call
+   and ``rank_topk`` not at all and return the fp32 engine's ids (scores to
+   2e-6); queries/s and p50 of both engines, called in turns. Last the CLI's
+   ``predict_tails`` and ``model_info`` tasks in process, and the REPL fed
+   from stdin;
+8. the last lines: the card's name and power limit, one JSON line with each
    kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -68,6 +98,7 @@ import torch
 import torch.nn.functional as F
 
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, CUDA cores, no tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, tensor cores, dense bf16
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 BATCH_KERNELS = 2
 BATCH_MAIN = 8
@@ -80,6 +111,11 @@ KG_DIM, KG_NOISE, KG_HIDDEN = 128, 64, 1024
 KG_BATCH = 64
 KG_CALLS = 6  # timed predict_tails calls
 KG_TOP_K = 10
+SCORE_CALLS = 6  # timed score calls on path I
+WALK_FRAMES, WALK_STAGE = 64, 7  # the 512² 64-frame walk
+# Logits of the 1024² discriminator (18 fp32 conv layers and two dense ones,
+# summed in another order by the kernels, cuDNN and the CPU) agree to this.
+LOGIT_TOL = 1e-4
 # fp32 dots summed in another order than torch.matmul differ by about 1 ulp
 # of a cosine near 1: the JAX package's own tolerance for its rank kernels.
 RANK_ATOL = 2e-6
@@ -106,8 +142,8 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -187,14 +223,15 @@ def phase_kernels(pk, pro_gan) -> list[dict]:
             "library_ms": cuda_ms(library), "flops": flops, "bytes": nbytes,
         })
         del x, got, want
-    rows.append(("packed_upconv", "probgan_tpu/ops/pallas_packed.py:832", up_calls))
+    rows.append(("packed_upconv", "packed_upconv", "probgan_tpu/ops/pallas_packed.py:832",
+                 up_calls))
 
     # -- packed_conv: stage 7 conv2 (64 -> 64 at 512²)
     c, cout, h = 64, 64, 512
     x, w, b = feats(B, c, h, h), conv_w(cout, c), bias(cout)
     got, want = pk.packed_conv(x, w, b), pk.packed_conv_plain(x, w, b)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
-    rows.append(("packed_conv", "probgan_tpu/ops/pallas_packed.py:382", [{
+    rows.append(("packed_conv", "packed_conv", "probgan_tpu/ops/pallas_packed.py:382", [{
         "call": "stage7", "shape_in": [B, c, h, h],
         "max_abs_err": (got - want).abs().max().item(),
         "ms": cuda_ms(lambda: pk.packed_conv(x, w, b)),
@@ -229,7 +266,7 @@ def phase_kernels(pk, pro_gan) -> list[dict]:
         up = F.interpolate(prev, scale_factor=2.0, mode="nearest")
         return pro_gan.to_uint8((up + 1.0 * (rgb - up)).permute(0, 2, 3, 1))
 
-    rows.append(("packed_conv_rgb", "probgan_tpu/ops/pallas_packed.py:678", [{
+    rows.append(("packed_conv_rgb", "packed_conv_rgb", "probgan_tpu/ops/pallas_packed.py:678", [{
         "call": "stage8", "shape_in": [B, c, h, h], "max_abs_err": float(worst),
         "max_abs_err_fp32": err_fp32,
         "ms": cuda_ms(lambda: pk.packed_conv_rgb(*args, 1.0, emit_uint8=True)),
@@ -241,21 +278,27 @@ def phase_kernels(pk, pro_gan) -> list[dict]:
     }]))
     del x, got, want, args, prev
 
+    return assemble_conv_rows(rows, B)
+
+
+def assemble_conv_rows(rows, batch: int) -> list[dict]:
+    """Kernel entries of the ``kernels`` line from per-call measurements:
+    an entry's times and bound are the sums over its calls."""
     out = []
-    for name, replaces, calls in rows:
+    for name, source, replaces, calls in rows:
         flops = sum(k["flops"] for k in calls)
         nbytes = sum(k["bytes"] for k in calls)
         bound_ms, bound_by = bound(flops, nbytes)
         entry = {
             "name": name, "route": "cuda",
-            "source": f"probgan_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+            "source": f"probgan_tpu_torch/csrc/{source}.cu", "replaces": replaces,
             "launches": 0,
             "max_abs_err": max(k["max_abs_err"] for k in calls),
             "ms": sum(k["ms"] for k in calls),
             "plain_ms": sum(k["plain_ms"] for k in calls),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": sum(k["library_ms"] for k in calls),
-            "batch": B, "calls": calls,
+            "batch": batch, "calls": calls,
         }
         for k in calls:
             k["bound_ms"], k["bound_by"] = bound(k["flops"], k["bytes"])
@@ -266,6 +309,116 @@ def phase_kernels(pk, pro_gan) -> list[dict]:
                   f"{k['flops'] / 1e9:.1f} GFLOP, {k['bytes'] / 1e6:.1f} MB)")
         out.append(entry)
     return out
+
+
+def phase_d_kernels(pk, image_ops, pro_gan) -> list[dict]:
+    """The discriminator's kernels and the denorm kernel at path I's shapes
+    (the convs at batch 2, the denorm at batch 8) against their plain twins."""
+    gen = torch.Generator(device="cuda").manual_seed(2345)
+    dev = "cuda"
+    B = BATCH_KERNELS
+
+    def feats(*shape):  # post-LeakyReLU features, like the discriminator's
+        return pro_gan.lrelu(torch.randn(shape, device=dev, generator=gen))
+
+    def conv_w(cout, cin):
+        w = torch.randn((cout, cin, 3, 3), device=dev, generator=gen)
+        return w * (math.sqrt(2.0) / math.sqrt(cin * 9))
+
+    def bias(n):
+        return 0.1 * torch.randn(n, device=dev, generator=gen)
+
+    conv_calls, pool_calls = [], []
+    for label, c, h in (("stage8", 32, 1024), ("stage7", 64, 512)):
+        x = feats(B, c, h, h)
+        # conv1: C -> C, "lrelu"
+        w, b = conv_w(c, c), bias(c)
+        got = pk.packed_conv(x, w, b, epilogue="lrelu")
+        want = pk.packed_conv_plain(x, w, b, epilogue="lrelu")
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        conv_calls.append({
+            "call": label, "shape_in": [B, c, h, h],
+            "max_abs_err": (got - want).abs().max().item(),
+            "ms": cuda_ms(lambda: pk.packed_conv(x, w, b, epilogue="lrelu")),
+            "plain_ms": cuda_ms(lambda: pk.packed_conv_plain(x, w, b, epilogue="lrelu")),
+            "library_ms": cuda_ms(lambda: F.leaky_relu(F.conv2d(x, w, b, padding=1), 0.2)),
+            "flops": 2 * 9 * c * c * B * h * h,
+            "bytes": 4 * (2 * B * c * h * h + 9 * c * c + c),
+        })
+        del got, want
+        # conv2 + pool: C -> 2C, "lrelu" before the 2x2 mean
+        cout = 2 * c
+        w, b = conv_w(cout, c), bias(cout)
+        got = pk.packed_convpool(x, w, b, epilogue="lrelu")
+        want = pk.packed_convpool_plain(x, w, b, epilogue="lrelu")
+        if tuple(got.shape) != (B, cout, h // 2, h // 2):
+            raise AssertionError(f"packed_convpool returned {tuple(got.shape)}")
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        pool_calls.append({
+            "call": label, "shape_in": [B, c, h, h],
+            "max_abs_err": (got - want).abs().max().item(),
+            "ms": cuda_ms(lambda: pk.packed_convpool(x, w, b, epilogue="lrelu")),
+            "plain_ms": cuda_ms(lambda: pk.packed_convpool_plain(x, w, b, epilogue="lrelu")),
+            "library_ms": cuda_ms(lambda: F.avg_pool2d(
+                F.leaky_relu(F.conv2d(x, w, b, padding=1), 0.2), 2)),
+            "flops": 2 * 9 * c * cout * B * h * h + 4 * cout * B * h * h,
+            "bytes": 4 * (B * c * h * h + B * cout * (h // 2) ** 2 + 9 * c * cout + cout),
+        })
+        del got, want
+        if label == "stage7":  # the "none" epilogues (no path runs them yet), untimed
+            for fn, twin, ww, bb in ((pk.packed_conv, pk.packed_conv_plain, conv_w(c, c), bias(c)),
+                                     (pk.packed_convpool, pk.packed_convpool_plain, w, b)):
+                torch.testing.assert_close(fn(x, ww, bb, epilogue="none"),
+                                           twin(x, ww, bb, epilogue="none"),
+                                           atol=1e-4, rtol=1e-4)
+        del x
+    rows = assemble_conv_rows([
+        ("packed_conv[lrelu]", "packed_conv", "probgan_tpu/ops/pallas_packed.py:382", conv_calls),
+        ("packed_convpool", "packed_convpool", "probgan_tpu/ops/pallas_packed.py:452",
+         pool_calls)], B)
+
+    # -- to_uint8_fused at the 1024² batch-8 image
+    shape = (BATCH_MAIN, 1024, 1024, 3)
+    x = 1.5 * torch.randn(shape, device=dev, generator=gen)
+    got, want = image_ops.to_uint8_fused(x), image_ops.to_uint8_fused_plain(x)
+    torch.cuda.synchronize()
+    if got.dtype != torch.uint8 or tuple(got.shape) != shape:
+        raise AssertionError(f"to_uint8_fused returned {got.dtype} {tuple(got.shape)}")
+    diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
+    flipped = diff != 0
+    # +-1 only where tanh lands on a rounding boundary: the denorm value,
+    # recomputed in float64, lies within 1e-3 of a half there
+    pre = (torch.tanh(x[flipped].double()) + 1.0) * 127.5
+    off_half = (pre - torch.floor(pre) - 0.5).abs()
+    worst = int(diff.max().item())
+    print(f"  to_uint8_fused x{list(shape)}: max |diff| {worst}, differing bytes "
+          f"{flipped.float().mean().item():.6%}")
+    if worst > 1 or (off_half.numel() and off_half.max().item() > 1e-3):
+        raise AssertionError("to_uint8_fused: differs from its twin away from a "
+                             "rounding boundary")
+    for odd in ((3, 5, 7), (1,), (1027,)):  # counts that are no multiple of 4
+        y = 2.0 * torch.randn(odd, device=dev, generator=gen)
+        if (image_ops.to_uint8_fused(y).to(torch.int16)
+                - image_ops.to_uint8_fused_plain(y).to(torch.int16)).abs().max().item() > 1:
+            raise AssertionError(f"to_uint8_fused: wrong at shape {odd}")
+    n = x.numel()
+    entry = {
+        "name": "to_uint8_fused", "route": "cuda",
+        "source": "probgan_tpu_torch/csrc/denorm_uint8.cu",
+        "replaces": "probgan_tpu/ops/pallas_image.py:53", "launches": 0,
+        "max_abs_err": float(worst),
+        "differing_bytes": flipped.float().mean().item(),
+        "ms": cuda_ms(lambda: image_ops.to_uint8_fused(x)),
+        "plain_ms": cuda_ms(lambda: image_ops.to_uint8_fused_plain(x)),
+        "library_ms": cuda_ms(lambda: torch.clamp(
+            torch.round((torch.tanh(x) + 1.0) * 127.5), 0.0, 255.0).to(torch.uint8)),
+        "batch": BATCH_MAIN, "shape_in": list(shape),
+    }
+    entry["bound_ms"], entry["bound_by"] = bound(6.0 * n, 5.0 * n)
+    print(f"  to_uint8_fused: kernel {entry['ms']:.3f} ms  plain {entry['plain_ms']:.3f} ms  "
+          f"library {entry['library_ms']:.3f} ms  bound {entry['bound_ms']:.3f} ms "
+          f"({entry['bound_by']}, {5.0 * n / 1e6:.1f} MB)")
+    return rows + [entry]
 
 
 def check_topk(label: str, values, ids, plain_scores, planted=None) -> float:
@@ -306,36 +459,82 @@ def phase_rank_kernels(rf, rank_ops) -> list[dict]:
     for row in planted[1:]:
         table[row] = table[5]
     preds = {b: torch.randn((b, d), device="cuda", generator=gen) for b in (KG_BATCH, 8)}
+    # rows whose cosines with query 1 differ by 1e-4: distinct in fp32, ties
+    # or reversed in bf16 (steps of 2**-8); the top k of them are the answer
+    near = [900_000 - 7919 * j for j in range(12)]
+    q1 = rank_ops.l2_normalize(preds[KG_BATCH][1:2].clone())[0]
+    for j, row in enumerate(near):
+        r = table[row] - (table[row] @ q1) * q1
+        c = 0.9 + 1e-4 * j
+        table[row] = rank_ops.l2_normalize((c * q1 + math.sqrt(1.0 - c * c)
+                                            * rank_ops.l2_normalize(r[None])[0])[None])[0]
+    near_order = near[::-1][:k]
     for pred in preds.values():
         pred[0] = 3.0 * table[5]  # query 0 ties on the planted rows
+        pred[1] = 2.0 * q1
+    table_bf16 = table.to(torch.bfloat16)
     plain_scores = {b: rf.rank_scores_fused_plain(pred, table) for b, pred in preds.items()}
 
-    def topk_call(label, b, nvalid, local=False, planted_rows=None):
+    fp32_ids = {}
+
+    def topk_call(label, b, nvalid, local=False, planted_rows=None, bf16=False):
         pred = preds[b]
-        if local:
+        name = "rank_topk_bf16" if bf16 else "rank_topk"
+        if bf16:
+            def fn(p, t, kk, nv):
+                return rf.rank_topk_fused(p, t, kk, nv, table_bf16=table_bf16)
+
+            def twin(p, t, kk, nv):
+                return rf.rank_topk_fused_plain(p, t, kk, nv, table_bf16=table_bf16)
+        elif local:
             pred = rank_ops.l2_normalize(pred)
             fn, twin = rf.rank_topk_local, rf.rank_topk_local_plain
         else:
             fn, twin = rf.rank_topk_fused, rf.rank_topk_fused_plain
         values, ids = fn(pred, table, k, nvalid)
         torch.cuda.synchronize()
-        err = check_topk(f"rank_topk[{label}]", values, ids,
+        err = check_topk(f"{name}[{label}]", values, ids,
                          plain_scores[b][:, :nvalid], planted_rows)
+        if ids[1].tolist() != near_order:
+            raise AssertionError(f"{name}[{label}]: query 1's rows 1e-4 apart came as "
+                                 f"{ids[1].tolist()}, not {near_order}")
         twin_v, twin_i = twin(pred, table, k, nvalid)
-        flops = 2.0 * b * nvalid * d
-        nbytes = 4.0 * (b * d + nvalid * d) + b * k * (4 + 8)
-        return {
+        call = {
             "call": label, "shape_in": [b, d], "rows": n, "nvalid": nvalid, "k": k,
             "max_abs_err": err,
             "ids_equal_to_plain": (ids == twin_i).float().mean().item(),
             "ms": cuda_ms(lambda: fn(pred, table, k, nvalid)),
-            "kernel_only_ms": cuda_ms(
-                lambda: rf.topk_candidates(pred, table, k, nvalid, not local)),
             "plain_ms": cuda_ms(lambda: twin(pred, table, k, nvalid), iters=3, warmup=1),
-            "library_ms": cuda_ms(lambda: torch.topk(
-                torch.matmul(F.normalize(pred), table[:nvalid].T), k)),
-            "flops": flops, "bytes": nbytes,
         }
+        if bf16:
+            # ids equal to B4's except between entities within RANK_ATOL
+            # (check_topk above holds both to the plain fp32 scores)
+            call["ids_equal_to_fp32_kernel"] = (ids == fp32_ids[label]).float().mean().item()
+            m = min(k + rf.BF16_RESCORE_POOL, nvalid)
+            pred_bf16 = F.normalize(pred).to(torch.bfloat16)
+            call.update({
+                "kernel_only_ms": cuda_ms(
+                    lambda: rf.pool_candidates_bf16(pred, table_bf16, m, nvalid, True)),
+                "library_ms": cuda_ms(lambda: torch.topk(
+                    torch.matmul(pred_bf16, table_bf16[:nvalid].T), k)),
+                "flops": 2.0 * b * nvalid * d,
+                # the bf16 table once, the queries, the m fp32 rows per query
+                # that the rescore gathers, the result
+                "bytes": 2.0 * nvalid * d + 4.0 * b * d + 4.0 * b * m * d + b * k * (4 + 8),
+                "peak_flops": PEAK_BF16_FLOPS,
+            })
+        else:
+            fp32_ids[label] = ids
+            call.update({
+                "kernel_only_ms": cuda_ms(
+                    lambda: rf.topk_candidates(pred, table, k, nvalid, not local)),
+                "library_ms": cuda_ms(lambda: torch.topk(
+                    torch.matmul(F.normalize(pred), table[:nvalid].T), k)),
+                "flops": 2.0 * b * nvalid * d,
+                "bytes": 4.0 * (b * d + nvalid * d) + b * k * (4 + 8),
+                "peak_flops": PEAK_FP32_FLOPS,
+            })
+        return call
 
     topk_calls = [
         topk_call(f"B{KG_BATCH}", KG_BATCH, n, planted_rows=planted),
@@ -343,6 +542,12 @@ def phase_rank_kernels(rf, rank_ops) -> list[dict]:
         # rows at or past nvalid never win, the last planted row among them
         topk_call(f"B{KG_BATCH},nvalid<rows", KG_BATCH, n - 1000, planted_rows=planted[:-1]),
         topk_call(f"local,B{KG_BATCH}", KG_BATCH, n, local=True, planted_rows=planted),
+    ]
+    bf16_calls = [
+        topk_call(f"B{KG_BATCH}", KG_BATCH, n, planted_rows=planted, bf16=True),
+        topk_call("B8", 8, n, planted_rows=planted, bf16=True),
+        topk_call(f"B{KG_BATCH},nvalid<rows", KG_BATCH, n - 1000, planted_rows=planted[:-1],
+                  bf16=True),
     ]
     # what the k compare-and-insert passes cost: the kernel alone at k = 1 / 16
     pred = preds[KG_BATCH]
@@ -365,14 +570,16 @@ def phase_rank_kernels(rf, rank_ops) -> list[dict]:
         "plain_ms": cuda_ms(lambda: rf.rank_scores_fused_plain(pred, table)),
         "library_ms": cuda_ms(lambda: torch.matmul(F.normalize(pred), table.T)),
         "flops": 2.0 * b * n * d, "bytes": 4.0 * (b * d + n * d + b * n),
+        "peak_flops": PEAK_FP32_FLOPS,
     }]
 
     out = []
     for name, replaces, calls in (
             ("rank_topk", "probgan_tpu/ops/pallas_rank.py:261", topk_calls),
-            ("rank_scores", "probgan_tpu/ops/pallas_rank.py:52", scores_calls)):
+            ("rank_scores", "probgan_tpu/ops/pallas_rank.py:52", scores_calls),
+            ("rank_topk_bf16", "probgan_tpu/ops/pallas_rank.py:211", bf16_calls)):
         for c in calls:
-            c["bound_ms"], c["bound_by"] = bound(c["flops"], c["bytes"])
+            c["bound_ms"], c["bound_by"] = bound(c["flops"], c["bytes"], c.pop("peak_flops"))
             print(f"  {name}[{c['call']}] x{c['shape_in']} vs {c['rows']} rows: max_abs_err "
                   f"{c['max_abs_err']:.3g}  kernel {c['ms']:.3f} ms  plain "
                   f"{c['plain_ms']:.3f} ms  library {c['library_ms']:.3f} ms  bound "
@@ -423,14 +630,8 @@ def phase_main_path(pk, pro_gan, engine_mod) -> tuple[dict, dict]:
 
     z = latents[-1]
     # The same engine with each kernel's plain twin in its place, on the card.
-    kernels = {name: getattr(pk, name) for name in per_call}
-    try:
-        for name in per_call:
-            setattr(pk, name, getattr(pk, f"{name}_plain"))
+    with swap_in_plain_twins(pk, list(per_call)):
         twins = engine.generate(z)
-    finally:
-        for name, fn in kernels.items():
-            setattr(pk, name, fn)
     worst, share, psnr = check_uint8("main path vs its plain twins on the card", img, twins)
     # and the unpacked path (all stages through ops/fused_upconv.py + cuDNN)
     ref = pro_gan.generator_apply(engine.g_params, z, cfg, stage, 1.0, "high",
@@ -471,6 +672,196 @@ def phase_main_path(pk, pro_gan, engine_mod) -> tuple[dict, dict]:
     print(f"  {main['img_per_s']:.3f} img/s, p50 {main['p50_ms_per_img']:.3f} ms/img "
           f"(batch {BATCH_MAIN}, {MAIN_BATCHES} calls, host clock incl. copy to host)")
     return counts, main
+
+
+@contextlib.contextmanager
+def swap_in_plain_twins(module, names):
+    """Inside, ``module.<name>`` is its plain twin ``module.<name>_plain``."""
+    kernels = {name: getattr(module, name) for name in names}
+    try:
+        for name in names:
+            setattr(module, name, getattr(module, f"{name}_plain"))
+        yield
+    finally:
+        for name, fn in kernels.items():
+            setattr(module, name, fn)
+
+
+def check_logits(label: str, got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.abs(got - want).max())
+    print(f"  {label}: max |logit diff| {err:.3g} (logits {np.abs(want).max():.3g} at most)")
+    if (got.shape != want.shape or not np.isfinite(got).all()
+            or not np.allclose(got, want, rtol=LOGIT_TOL, atol=LOGIT_TOL)):
+        raise AssertionError(f"{label}: logits differ by {err:.3g}: {got} vs {want}")
+    return err
+
+
+def phase_score_path(pk, image_ops, pro_gan, engine_mod, image_checkpoint_mod, cli_infer,
+                     make_image_checkpoint) -> tuple[dict, dict]:
+    """Path I: score, latent_walk, the separate denorm and generate_images
+    from a checkpoint, at the default 1024² config."""
+    cfg = pro_gan.ProGANConfig()
+    stage = cfg.num_stages - 1
+    if pro_gan.packed_d_stage_count(cfg, stage, "high") != 2:
+        raise AssertionError("the packed discriminator gate does not take stages 8 and 7")
+    engine = engine_mod.ImageGANEngine(cfg, device="cuda", precision="high", seed=0)
+    z = engine.sample_latents(BATCH_MAIN)
+    u8 = engine.generate(z)
+    images = u8.astype(np.float32) / 127.5 - 1.0  # [8, 1024, 1024, 3] in [-1, 1]
+    engine.score(images)  # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+
+    # -- score: the counted run
+    d_per_call = {"packed_conv": 2, "packed_convpool": 2}
+    pk.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    times, logits = [], None
+    for i in range(SCORE_CALLS):
+        t0 = time.perf_counter()
+        logits = engine.score(images)  # returns host numpy: the call has finished
+        times.append(time.perf_counter() - t0)
+        for name, n in d_per_call.items():
+            if pk.launches[name] != n * (i + 1):
+                raise AssertionError(f"score call {i}: {name} launched {pk.launches[name]} "
+                                     f"times, expected {n} per call")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    faded = engine.score(images, alpha=0.5)
+    score_counts = dict(pk.launches)
+    if any(score_counts[k] for k in ("packed_upconv", "packed_conv_rgb")):
+        raise AssertionError(f"score launched a generator kernel: {score_counts}")
+    print(f"  launch counts over {SCORE_CALLS} + 1 score calls: {score_counts}")
+    if logits.shape != (BATCH_MAIN,) or logits.dtype != np.float32:
+        raise AssertionError(f"score returned {logits.dtype} {logits.shape}")
+
+    # the same engine on the plain twins, and the unpacked path, on the card
+    errs = {}
+    x_dev = torch.from_numpy(images).cuda()
+    for alpha, got in ((1.0, logits), (0.5, faded)):
+        with swap_in_plain_twins(pk, list(d_per_call)):
+            twins = engine.score(images, alpha=alpha)
+        errs[f"twins_a{alpha}"] = check_logits(
+            f"score alpha {alpha} vs its plain twins on the card", got, twins)
+        with torch.inference_mode():
+            ref = pro_gan.discriminator_apply(engine.d_params, x_dev, cfg, stage, alpha, "high",
+                                              packed=False).cpu().numpy()
+        errs[f"unpacked_a{alpha}"] = check_logits(
+            f"score alpha {alpha} vs the unpacked path on the card", got, ref)
+    if pk.launches != score_counts:
+        raise AssertionError("the plain twins launched a kernel")
+    if np.allclose(logits, faded, atol=1e-3):
+        raise AssertionError("score: alpha 0.5 gave the logits of alpha 1.0")
+    del x_dev
+    # a batch of 2 against the engine on the CPU (a batch statistic: the same
+    # 2 images on both sides)
+    cpu_engine = engine_mod.ImageGANEngine(cfg, g_params=engine.g_params,
+                                           d_params=engine.d_params, device="cpu")
+    errs["cpu"] = check_logits("score of 2 images vs the CPU engine",
+                               engine.score(images[:2]), cpu_engine.score(images[:2]))
+    del cpu_engine
+
+    # -- latent_walk: 64 frames at 512², 8 chunks of 8
+    z0, z1 = z[0], z[1]
+    engine.latent_walk(z0, z1, frames=WALK_FRAMES, stage=WALK_STAGE)  # warm-up
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    frames = engine.latent_walk(z0, z1, frames=WALK_FRAMES, stage=WALK_STAGE)
+    walk_s = time.perf_counter() - t0
+    chunks = -(-WALK_FRAMES // engine_mod.WALK_CHUNK)
+    want_counts = {"packed_upconv": chunks, "packed_conv": 0, "packed_conv_rgb": chunks,
+                   "packed_convpool": 0}
+    if pk.launches != want_counts:
+        raise AssertionError(f"latent_walk: launches {pk.launches}, expected {want_counts}")
+    res = pro_gan.stage_resolution(WALK_STAGE)
+    if frames.dtype != np.uint8 or frames.shape != (WALK_FRAMES, res, res, 3):
+        raise AssertionError(f"latent_walk returned {frames.dtype} {frames.shape}")
+    check_uint8("latent_walk frame 0 vs generate(z0)", frames[:1],
+                engine.generate(z0[None], stage=WALK_STAGE))
+    check_uint8("latent_walk last frame vs generate(z1)", frames[-1:],
+                engine.generate(z1[None], stage=WALK_STAGE))
+    print(f"  latent_walk: {WALK_FRAMES} frames at {res}² in {walk_s * 1e3:.1f} ms, "
+          f"{WALK_FRAMES / walk_s:.1f} frames/s, launches {dict(pk.launches)}")
+
+    # -- use_pallas: fp32 RGB out of the generator, then the denorm kernel
+    fused = engine_mod.ImageGANEngine(cfg, g_params=engine.g_params, d_params=engine.d_params,
+                                      device="cuda", use_pallas=True)
+    fused.generate(z)  # warm-up of both: the first call after another workload
+    engine.generate(z)  # pays cudaMalloc again (the allocator's pool has changed)
+    image_ops.reset_launches()
+    pk.reset_launches()
+    t_default, t_fused = [], []
+    for _ in range(3):  # in turns on the same latents
+        t0 = time.perf_counter()
+        got = fused.generate(z)
+        t_fused.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        engine.generate(z)
+        t_default.append(time.perf_counter() - t0)
+    denorm_counts = dict(image_ops.launches)
+    if denorm_counts != {"to_uint8_fused": 3} or pk.launches["packed_conv_rgb"] != 6:
+        raise AssertionError(f"use_pallas: launches {denorm_counts}, {pk.launches}: expected "
+                             "one to_uint8_fused per use_pallas call and none otherwise")
+    _, flip_share, _ = check_uint8("generate(use_pallas=True) vs the default path", got, u8)
+
+    # -- an image checkpoint written by the port, served by the CLI in process
+    quiet = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "image_checkpoint.msgpack")
+        trees = make_image_checkpoint(cfg, seed=1, ema=True)
+        t0 = time.perf_counter()
+        image_checkpoint_mod.save_image_checkpoint(path, cfg, **trees)
+        print(f"  wrote {os.path.getsize(path) / 1e6:.0f} MB image checkpoint in "
+              f"{time.perf_counter() - t0:.1f} s")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli_infer.main(["--checkpoint_path", path, "--task", "generate_images",
+                            "--num_images", str(BATCH_MAIN), "--seed", "3", "--device", "cuda"])
+        cli = json_blob(out.getvalue())
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli_infer.main(["--checkpoint_path", path, "--task", "generate_images",
+                            "--num_images", "2", "--seed", "3", "--device", "cuda",
+                            "--raw_generator", "--stage", "7", "--alpha", "0.5"])
+        cli_raw = json_blob(out.getvalue())
+    want = {}
+    for key, n, kw in (("g_ema", BATCH_MAIN, {}), ("g_params", 2, {"stage": 7, "alpha": 0.5})):
+        ref = engine_mod.ImageGANEngine(cfg, g_params=trees[key], d_params=trees["d_params"],
+                                        device="cuda", seed=3)
+        img = ref.generate(ref.sample_latents(n), **kw)
+        want[key] = (list(img.shape), int(img.astype(np.int64).sum()))
+        del ref
+    for label, res_, (shape, checksum) in (("EMA", cli, want["g_ema"]),
+                                           ("raw, stage 7", cli_raw, want["g_params"])):
+        if res_["images_shape"] != shape or res_["checksum"] != checksum:
+            raise AssertionError(f"CLI generate_images ({label}): {res_['images_shape']} "
+                                 f"checksum {res_['checksum']}, engine.generate on the same "
+                                 f"weights and seed: {shape} checksum {checksum}")
+    if cli["metadata"] != {"num_images": BATCH_MAIN, "stage": stage, "alpha": 1.0,
+                           "resolution": cfg.resolution, "seed": 3}:
+        raise AssertionError(f"CLI generate_images metadata: {cli['metadata']}")
+    print(f"  CLI generate_images from the checkpoint: checksum {cli['checksum']} equals "
+          "engine.generate's (EMA weights; raw weights at stage 7, alpha 0.5 too)")
+
+    per_call_ms = sorted(t * 1e3 for t in times)
+    path = {
+        "batch": BATCH_MAIN, "calls": SCORE_CALLS,
+        "scores_per_s": BATCH_MAIN * SCORE_CALLS / sum(times),
+        "p50_ms_per_call": float(np.median(per_call_ms)), "call_s": times,
+        "peak_device_memory_gb": peak_gb, "max_logit_diff": errs,
+        "walk_frames": WALK_FRAMES, "walk_resolution": res, "walk_s": walk_s,
+        "walk_frames_per_s": WALK_FRAMES / walk_s,
+        "use_pallas_img_per_s": BATCH_MAIN * 3 / sum(t_fused),
+        "default_img_per_s_same_loop": BATCH_MAIN * 3 / sum(t_default),
+        "use_pallas_differing_bytes": flip_share,
+    }
+    print(f"  {path['scores_per_s']:.3f} scores/s, p50 {path['p50_ms_per_call']:.3f} ms per call "
+          f"(batch {BATCH_MAIN}, {SCORE_CALLS} calls, host clock incl. copy of the images to "
+          f"the card), peak device memory {peak_gb:.2f} GB; generate with use_pallas "
+          f"{path['use_pallas_img_per_s']:.2f} img/s against {path['default_img_per_s_same_loop']:.2f} "
+          "in the same loop")
+    counts = {"packed_conv[lrelu]": score_counts["packed_conv"],
+              "packed_convpool": score_counts["packed_convpool"], **denorm_counts}
+    return counts, path
 
 
 def check_same_topk(label: str, got_ids, got_vals, want_ids, want_vals) -> int:
@@ -555,7 +946,7 @@ def phase_kg_path(rf, inference_mod, checkpoint_mod, cli_infer,
             t0 = time.perf_counter()
             res = predict(engine)  # returns host lists: the call has finished
             times.append(time.perf_counter() - t0)
-            if rf.launches != {"rank_topk": i + 1, "rank_scores": 0}:
+            if rf.launches != {"rank_topk": i + 1, "rank_scores": 0, "rank_topk_bf16": 0}:
                 raise AssertionError(f"predict_tails call {i}: launches {rf.launches}, "
                                      "expected one rank_topk per call")
             ids, vals = np.asarray(res["predictions"]), np.asarray(res["scores"])
@@ -567,7 +958,7 @@ def phase_kg_path(rf, inference_mod, checkpoint_mod, cli_infer,
         t0 = time.perf_counter()
         res32 = predict(engine, top_k=32)
         top32_s = time.perf_counter() - t0
-        if rf.launches != {"rank_topk": KG_CALLS, "rank_scores": 1}:
+        if rf.launches != {"rank_topk": KG_CALLS, "rank_scores": 1, "rank_topk_bf16": 0}:
             raise AssertionError(f"top_k 32: launches {rf.launches}, expected one rank_scores")
         vals32 = np.asarray(res32["scores"], np.float32)
         if vals32.shape != (KG_BATCH, 32) or (np.diff(vals32, axis=1) > 0).any():
@@ -593,26 +984,21 @@ def phase_kg_path(rf, inference_mod, checkpoint_mod, cli_infer,
             if (len(entry["similar_entities"]) != 10
                     or entry["query_entity"] in entry["similar_entities"]):
                 raise AssertionError("find_similar_entities: the query was not excluded")
-        counts = dict(rf.launches)  # the KG path's run ends here
+        counts = {name: rf.launches[name] for name in ("rank_topk", "rank_scores")}
+        # the fp32 KG path's run ends here
         print(f"  launch counts over {KG_CALLS} predict_tails calls, one with top_k 32 "
               f"and one find_similar_entities: {counts}")
 
         # the same engine code with each kernel's plain twin in its place, on
         # the card, under the same noise (a fresh engine's draw 0)
-        kernels = {name: getattr(rf, name) for name in
-                   ("rank_topk_fused", "rank_topk_local", "rank_scores_fused")}
-        try:
-            for name in kernels:
-                setattr(rf, name, getattr(rf, f"{name}_plain"))
+        with swap_in_plain_twins(rf, ("rank_topk_fused", "rank_topk_local",
+                                      "rank_scores_fused")):
             with contextlib.redirect_stdout(quiet):
                 twin_engine = inference_mod.InferenceEngine(path, device="cuda", seed=0)
             twins = predict(twin_engine)
             with contextlib.redirect_stdout(quiet):
                 twin_sim = twin_engine.find_similar_entities([0, 7, 123456], top_k=10)
-        finally:
-            for name, fn in kernels.items():
-                setattr(rf, name, fn)
-        if rf.launches != counts:
+        if {**rf.launches, **counts} != rf.launches:
             raise AssertionError("the plain twins launched a kernel")
         swapped = check_same_topk("predict_tails vs its plain twins on the card",
                                   first["predictions"], first["scores"],
@@ -648,7 +1034,47 @@ def phase_kg_path(rf, inference_mod, checkpoint_mod, cli_infer,
                             [b["similar_entities"]], [b["similarity_scores"]])
         print("  score_triplets and analyze_relations agree with the CPU engine "
               "(atol 1e-5, relation ids equal)")
-        del cpu_engine, engine
+        del cpu_engine
+
+        # path II: the same file served with the bf16 table stream switched on
+        os.environ["PROBGAN_BF16_RANK"] = "1"
+        try:
+            with contextlib.redirect_stdout(quiet):
+                bf16_engine = inference_mod.InferenceEngine(path, device="cuda", seed=0)
+        finally:
+            del os.environ["PROBGAN_BF16_RANK"]
+        if engine.entity_norm_bf16 is not None or bf16_engine.entity_norm_bf16 is None:
+            raise AssertionError("PROBGAN_BF16_RANK did not switch the bf16 table copy")
+        bf16_first = predict(bf16_engine)  # warm-up; noise draw 0, as `first`
+        torch.cuda.synchronize()
+        rf.reset_launches()
+        times_bf16, times_fp32 = [], []
+        for i in range(KG_CALLS):  # in turns with the fp32 engine
+            t0 = time.perf_counter()
+            predict(bf16_engine)
+            times_bf16.append(time.perf_counter() - t0)
+            if rf.launches != {"rank_topk": i, "rank_scores": 0, "rank_topk_bf16": i + 1}:
+                raise AssertionError(f"bf16 predict_tails call {i}: launches {rf.launches}, "
+                                     "expected one rank_topk_bf16 and no rank_topk")
+            t0 = time.perf_counter()
+            predict(engine)
+            times_fp32.append(time.perf_counter() - t0)
+        rf.reset_launches()  # the counted run of path II: the bf16 engine alone
+        predict(bf16_engine)
+        with contextlib.redirect_stdout(quiet):
+            bf16_sim = bf16_engine.find_similar_entities([0, 7, 123456], top_k=10)
+        if rf.launches != {"rank_topk": 0, "rank_scores": 0, "rank_topk_bf16": 2}:
+            raise AssertionError(f"bf16 engine: launches {rf.launches}, expected one "
+                                 "rank_topk_bf16 per call and no rank_topk")
+        counts["rank_topk_bf16"] = rf.launches["rank_topk_bf16"]
+        bf16_swapped = check_same_topk("bf16 predict_tails vs the fp32 engine",
+                                       bf16_first["predictions"], bf16_first["scores"],
+                                       first["predictions"], first["scores"])
+        for a, b in zip(bf16_sim["similar_entities"], sim["similar_entities"]):
+            check_same_topk(f"bf16 find_similar_entities({a['query_entity']}) vs fp32",
+                            [a["similar_entities"]], [a["similarity_scores"]],
+                            [b["similar_entities"]], [b["similarity_scores"]])
+        del bf16_engine, engine
         torch.cuda.empty_cache()
 
         # the CLI in process, and the REPL fed from stdin
@@ -693,10 +1119,19 @@ def phase_kg_path(rf, inference_mod, checkpoint_mod, cli_infer,
         "p50_ms_per_call": float(np.median(per_call_ms)), "call_s": times,
         "top_k_32_call_ms": top32_s * 1e3, "engine_load_s": load_s,
         "positions_with_another_id_vs_plain_twins": swapped,
+        "bf16_queries_per_s": KG_BATCH * KG_CALLS / sum(times_bf16),
+        "bf16_p50_ms_per_call": float(np.median(sorted(t * 1e3 for t in times_bf16))),
+        "fp32_queries_per_s_same_loop": KG_BATCH * KG_CALLS / sum(times_fp32),
+        "fp32_p50_ms_per_call_same_loop": float(np.median(sorted(t * 1e3 for t in times_fp32))),
+        "bf16_positions_with_another_id_vs_fp32": bf16_swapped,
     }
     print(f"  {kg['queries_per_s']:.1f} queries/s, p50 {kg['p50_ms_per_call']:.3f} ms per "
           f"call (predict_tails, {KG_BATCH} pairs, top_k {KG_TOP_K}, {KG_CALLS} calls, host "
           f"clock incl. copy to host); top_k 32: {kg['top_k_32_call_ms']:.1f} ms per call")
+    print(f"  with PROBGAN_BF16_RANK=1: {kg['bf16_queries_per_s']:.1f} queries/s, p50 "
+          f"{kg['bf16_p50_ms_per_call']:.3f} ms per call, against "
+          f"{kg['fp32_queries_per_s_same_loop']:.1f} queries/s, p50 "
+          f"{kg['fp32_p50_ms_per_call_same_loop']:.3f} ms for the fp32 engine in the same loop")
     return counts, kg
 
 
@@ -706,14 +1141,16 @@ def main() -> int:
         return 1
     from probgan_tpu_torch.cli import infer as cli_infer
     from probgan_tpu_torch.core import checkpoint as checkpoint_mod
+    from probgan_tpu_torch.core import image_checkpoint as image_checkpoint_mod
     from probgan_tpu_torch.engine import image as engine_mod
     from probgan_tpu_torch.engine import inference as inference_mod
     from probgan_tpu_torch.models import pro_gan
     from probgan_tpu_torch.ops import _build
+    from probgan_tpu_torch.ops import image as image_ops
     from probgan_tpu_torch.ops import packed as pk
     from probgan_tpu_torch.ops import rank as rank_ops
     from probgan_tpu_torch.ops import rank_fused as rf
-    from probgan_tpu_torch.utils.demo_checkpoint import make_kg_checkpoint
+    from probgan_tpu_torch.utils.demo_checkpoint import make_image_checkpoint, make_kg_checkpoint
 
     card = card_line()
     print(f"card: {card}")
@@ -739,11 +1176,24 @@ def main() -> int:
     counts, main = phase_main_path(pk, pro_gan, engine_mod)
     torch.cuda.empty_cache()
 
-    print(f"phase 4: rank kernels vs plain twins (N = {KG_ENTITIES:,}, D = {KG_DIM})")
+    print("phase 4: discriminator and denorm kernels vs plain twins (path I's shapes)")
+    kernels += phase_d_kernels(pk, image_ops, pro_gan)
+    torch.cuda.empty_cache()
+
+    print("phase 5: path I, ImageGANEngine.score / latent_walk / use_pallas / "
+          "generate_images from a checkpoint at 1024²")
+    score_counts, score_path = phase_score_path(
+        pk, image_ops, pro_gan, engine_mod, image_checkpoint_mod, cli_infer,
+        make_image_checkpoint)
+    counts.update(score_counts)
+    torch.cuda.empty_cache()
+
+    print(f"phase 6: rank kernels vs plain twins (N = {KG_ENTITIES:,}, D = {KG_DIM})")
     kernels += phase_rank_kernels(rf, rank_ops)
     torch.cuda.empty_cache()
 
-    print(f"phase 5: KG path, InferenceEngine at N = {KG_ENTITIES:,}")
+    print(f"phase 7: KG path and path II (PROBGAN_BF16_RANK=1), InferenceEngine at "
+          f"N = {KG_ENTITIES:,}")
     kg_counts, kg = phase_kg_path(rf, inference_mod, checkpoint_mod, cli_infer,
                                   make_kg_checkpoint)
     counts.update(kg_counts)
@@ -753,7 +1203,8 @@ def main() -> int:
             raise AssertionError(f"{k['name']} was not launched on its main path")
 
     print(card_line())
-    print(json.dumps({"kernels": kernels, "main_path": main, "kg_path": kg, "card": card},
+    print(json.dumps({"kernels": kernels, "main_path": main, "score_path": score_path,
+                      "kg_path": kg, "card": card},
                      allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,9 @@ same task dispatch and prints. Run it as
 
 ``--device`` takes ``auto|cuda|gpu|cpu``; ``auto`` means the first CUDA card
 and raises without one (pass ``cpu`` for the plain CPU path).
-``--task generate_images`` needs an image checkpoint reader that is not
-ported yet and raises NotImplementedError.
+``--task generate_images`` serves an image-GAN checkpoint
+(``core/image_checkpoint.py``; ``utils/demo_checkpoint.py --image`` writes a
+seeded one).
 """
 
 from __future__ import annotations
@@ -137,13 +138,48 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def run_generate_images(args: argparse.Namespace):
-    """Image synthesis from an image-GAN checkpoint. The checkpoint reader
-    (``core/image_checkpoint.py``) is not ported yet."""
-    raise NotImplementedError(
-        "--task generate_images loads an image checkpoint through "
-        "core/image_checkpoint.py, which is not ported yet (ROADMAP A2); "
-        "ImageGANEngine.generate serves seeded weights meanwhile"
+    """Image-synthesis task on an image-GAN checkpoint. The JSON result
+    carries shape/checksum metadata; pass an ``--output_file`` ending in .npz
+    to also save the raw uint8 images."""
+    import numpy as np
+
+    from probgan_tpu_torch.core.image_checkpoint import load_image_checkpoint
+    from probgan_tpu_torch.engine.image import ImageGANEngine
+
+    config, g_params, d_params = load_image_checkpoint(
+        args.checkpoint_path, prefer_ema=not args.raw_generator
     )
+    engine = ImageGANEngine(
+        config, g_params=g_params, d_params=d_params or None,
+        device=args.device, seed=args.seed, mesh=args.mesh,
+        precision=None if args.precision == "default" else args.precision,
+    )
+    stage = engine.final_stage if args.stage < 0 else args.stage
+    print(
+        f"Generating {args.num_images} images at "
+        f"{4 * 2 ** stage}x{4 * 2 ** stage} (alpha={args.alpha})..."
+    )
+    z = engine.sample_latents(args.num_images)
+    images = engine.generate(z, stage=stage, alpha=args.alpha)
+
+    npz_path = ""
+    if args.output_file.endswith(".npz"):
+        np.savez_compressed(args.output_file, images=images)
+        npz_path = args.output_file
+
+    return {
+        "images_shape": list(images.shape),
+        "dtype": "uint8",
+        "checksum": int(images.astype(np.int64).sum()),
+        "images_file": npz_path,
+        "metadata": {
+            "num_images": args.num_images,
+            "stage": stage,
+            "alpha": args.alpha,
+            "resolution": int(4 * 2 ** stage),
+            "seed": args.seed,
+        },
+    }
 
 
 def run_task(engine: InferenceEngine, args: argparse.Namespace):
@@ -191,7 +227,17 @@ def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
 
     if args.task == "generate_images":
-        run_generate_images(args)
+        with maybe_profile(args.profile_dir):
+            results = run_generate_images(args)
+        if results.get("images_file"):
+            print(f"Images saved to: {results['images_file']}")
+            print(json.dumps(results, indent=2))
+        elif args.output_file:
+            with open(args.output_file, "w") as f:
+                json.dump(results, f, indent=2)
+            print(f"Results saved to: {args.output_file}")
+        else:
+            print(json.dumps(results, indent=2))
         return
 
     engine = InferenceEngine(

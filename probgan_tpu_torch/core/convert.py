@@ -14,6 +14,18 @@ image checkpoint's ``g_params``) holds numpy-convertible arrays:
   (4, 4, nf0) HWC and permuted to NCHW inside ``_g_base``, so its columns
   keep the JAX order.
 
+Image discriminator
+-------------------
+``from_rgb`` (a list of 1x1 convs), ``blocks`` and ``final_conv`` convert
+like the generator's convs; ``final_dense`` and ``out_dense`` stay
+``[in, out]``. ``final_dense`` reads the 4x4 map flattened in HWC order, and
+``discriminator_apply`` permutes to that order before the flatten, so its
+rows keep the JAX order too.
+
+``generator_params_to_jax`` / ``discriminator_params_to_jax`` go the other
+way (OIHW tensors -> HWIO numpy arrays): image checkpoints hold the JAX
+layout on disk, so that either package loads what the other wrote.
+
 KG models
 ---------
 The KG MLPs (``probgan_tpu/models/kg_gan.py``) and the C17 checkpoint dict
@@ -54,6 +66,64 @@ def convert_generator_params(jax_params: dict, device="cpu") -> dict:
             for b in jax_params["blocks"]
         ],
         "to_rgb": [_conv(t, device) for t in jax_params["to_rgb"]],
+    }
+
+
+def convert_discriminator_params(jax_params: dict, device="cpu") -> dict:
+    """JAX discriminator params (HWIO convs, [in, out] dense) -> the port's
+    tree of fp32 tensors on ``device``."""
+    return {
+        "from_rgb": [_conv(t, device) for t in jax_params["from_rgb"]],
+        "blocks": [
+            {"conv1": _conv(b["conv1"], device), "conv2": _conv(b["conv2"], device)}
+            for b in jax_params["blocks"]
+        ],
+        "final_conv": _conv(jax_params["final_conv"], device),
+        "final_dense": _dense(jax_params["final_dense"], device),
+        "out_dense": _dense(jax_params["out_dense"], device),
+    }
+
+
+def _numpy(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, np.float32)
+
+
+def _conv_to_jax(p: dict) -> dict:
+    return {"w": np.ascontiguousarray(_numpy(p["w"]).transpose(2, 3, 1, 0)),
+            "b": _numpy(p["b"]).copy()}
+
+
+def _dense_to_jax(p: dict) -> dict:
+    return {"w": _numpy(p["w"]).copy(), "b": _numpy(p["b"]).copy()}
+
+
+def generator_params_to_jax(params: dict) -> dict:
+    """The port's generator tree (OIHW) -> the JAX layout (HWIO) as fp32
+    numpy arrays: the inverse of ``convert_generator_params``."""
+    return {
+        "base_dense": _dense_to_jax(params["base_dense"]),
+        "base_conv": _conv_to_jax(params["base_conv"]),
+        "blocks": [
+            {"conv1": _conv_to_jax(b["conv1"]), "conv2": _conv_to_jax(b["conv2"])}
+            for b in params["blocks"]
+        ],
+        "to_rgb": [_conv_to_jax(t) for t in params["to_rgb"]],
+    }
+
+
+def discriminator_params_to_jax(params: dict) -> dict:
+    """The inverse of ``convert_discriminator_params``."""
+    return {
+        "from_rgb": [_conv_to_jax(t) for t in params["from_rgb"]],
+        "blocks": [
+            {"conv1": _conv_to_jax(b["conv1"]), "conv2": _conv_to_jax(b["conv2"])}
+            for b in params["blocks"]
+        ],
+        "final_conv": _conv_to_jax(params["final_conv"]),
+        "final_dense": _dense_to_jax(params["final_dense"]),
+        "out_dense": _dense_to_jax(params["out_dense"]),
     }
 
 

@@ -1,7 +1,8 @@
-// Shared pieces of the late-stage generator kernels (packed_upconv.cu,
-// packed_conv.cu, packed_conv_rgb.cu): tile geometry, the per-thread channel
-// map, the fused bias -> LeakyReLU(0.2) -> PixelNorm epilogue and the 3x3
-// SAME conv main loop.
+// Shared pieces of the late-stage conv kernels (packed_upconv.cu,
+// packed_conv.cu, packed_conv_rgb.cu, packed_convpool.cu): tile geometry, the
+// per-thread channel map, the fused bias -> LeakyReLU(0.2) -> PixelNorm
+// epilogue, its PixelNorm-free forms for the discriminator, and the 3x3 SAME
+// conv main loop.
 //
 // Every kernel is an implicit GEMM on the CUDA cores in fp32: M = output
 // pixels, N = output channels (32 or 64), K = taps x input channels. A block
@@ -90,6 +91,22 @@ __device__ __forceinline__ void bias_lrelu_norm(float (&acc)[kTM][kTN],
   }
 }
 
+// The discriminator's epilogues: bias -> lrelu(0.2) (ACT) or bias alone, in
+// place. No PixelNorm, so nothing crosses lanes.
+template <int COUT, bool ACT>
+__device__ __forceinline__ void bias_act(float (&acc)[kTM][kTN], const float* __restrict__ bias,
+                                         int cg) {
+#pragma unroll
+  for (int n = 0; n < kTN; ++n) {
+    const float bch = __ldg(bias + channel_of<COUT>(cg, n));
+#pragma unroll
+    for (int m = 0; m < kTM; ++m) {
+      const float v = acc[m][n] + bch;
+      acc[m][n] = (!ACT || v >= 0.f) ? v : kSlope * v;
+    }
+  }
+}
+
 // Store a thread's 8 pixels x 8 channels into NCHW; `y` points at channel 0
 // of the thread's first pixel, `plane` = H*W. Rows are 32-byte aligned
 // because the tile's columns start at multiples of 8.
@@ -111,7 +128,13 @@ __device__ __forceinline__ void store_rows(float* __restrict__ y,
 // row y0 + pg/4, columns x0 + 8*(pg%4) + 0..7. Each step stages kCC input
 // channels of the (TH+2) x (TW+2) halo patch, zero outside the image, and
 // their weights.
-template <int COUT>
+//
+// With POOL the thread's 8 pixels are a 2 x 4 patch instead, so that whole
+// 2x2 pooling windows stay in one thread's registers: rows y0 + 2*(pg/8) + r,
+// columns x0 + 4*(pg%8) + j, held as acc[4*r + j]. A weight row is loaded
+// once and used for both output rows, so the FMAs per shared-memory load are
+// the same as in the row form.
+template <int COUT, bool POOL = false>
 __device__ __forceinline__ void conv3x3_accumulate(const float* __restrict__ xb,
                                                    const float* __restrict__ w, int C,
                                                    int H, int W, int y0, int x0,
@@ -126,8 +149,6 @@ __device__ __forceinline__ void conv3x3_accumulate(const float* __restrict__ xb,
   const int tid = threadIdx.x;
   const int cg = tid % T::NCG;
   const int pg = tid / T::NCG;
-  const int pgx = pg % 4;
-  const int ty = pg / 4;
 
   for (int c0 = 0; c0 < C; c0 += kCC) {
     for (int e = tid; e < kCC * SH * PW; e += kThreads) {
@@ -146,22 +167,54 @@ __device__ __forceinline__ void conv3x3_accumulate(const float* __restrict__ xb,
     for (int e = tid; e < kCC * 9 * COUT / 4; e += kThreads) wdst[e] = __ldg(wsrc + e);
     __syncthreads();
 
+    if constexpr (POOL) {
+      const int px = (pg % 8) * 4;
+      const int py = (pg / 8) * 2;
 #pragma unroll 2
-    for (int c = 0; c < kCC; ++c) {
+      for (int c = 0; c < kCC; ++c) {
+        float xin[4][6];  // input rows py..py+3 of the patch, columns px..px+5
 #pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
-        const float* src = &xs[c][ty + ky][pgx * kTM];
-        const float4 a = reinterpret_cast<const float4*>(src)[0];
-        const float4 b = reinterpret_cast<const float4*>(src)[1];
-        const float2 d = reinterpret_cast<const float2*>(src)[4];
-        const float xin[kTM + 2] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, d.x, d.y};
+        for (int r = 0; r < 4; ++r) {
+          const float* src = &xs[c][py + r][px];
+          const float4 a = reinterpret_cast<const float4*>(src)[0];
+          const float2 d = reinterpret_cast<const float2*>(src)[2];
+          xin[r][0] = a.x, xin[r][1] = a.y, xin[r][2] = a.z, xin[r][3] = a.w;
+          xin[r][4] = d.x, xin[r][5] = d.y;
+        }
 #pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const float* wrow = &ws[c][ky * 3 + kx][0];
-          const float4 w0 = reinterpret_cast<const float4*>(wrow)[cg];
-          const float4 w1 = reinterpret_cast<const float4*>(wrow)[T::NCG + cg];
+        for (int ky = 0; ky < 3; ++ky) {
 #pragma unroll
-          for (int m = 0; m < kTM; ++m) fma8(acc[m], xin[m + kx], w0, w1);
+          for (int kx = 0; kx < 3; ++kx) {
+            const float* wrow = &ws[c][ky * 3 + kx][0];
+            const float4 w0 = reinterpret_cast<const float4*>(wrow)[cg];
+            const float4 w1 = reinterpret_cast<const float4*>(wrow)[T::NCG + cg];
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) fma8(acc[4 * r + j], xin[r + ky][j + kx], w0, w1);
+          }
+        }
+      }
+    } else {
+      const int pgx = pg % 4;
+      const int ty = pg / 4;
+#pragma unroll 2
+      for (int c = 0; c < kCC; ++c) {
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky) {
+          const float* src = &xs[c][ty + ky][pgx * kTM];
+          const float4 a = reinterpret_cast<const float4*>(src)[0];
+          const float4 b = reinterpret_cast<const float4*>(src)[1];
+          const float2 d = reinterpret_cast<const float2*>(src)[4];
+          const float xin[kTM + 2] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, d.x, d.y};
+#pragma unroll
+          for (int kx = 0; kx < 3; ++kx) {
+            const float* wrow = &ws[c][ky * 3 + kx][0];
+            const float4 w0 = reinterpret_cast<const float4*>(wrow)[cg];
+            const float4 w1 = reinterpret_cast<const float4*>(wrow)[T::NCG + cg];
+#pragma unroll
+            for (int m = 0; m < kTM; ++m) fma8(acc[m], xin[m + kx], w0, w1);
+          }
         }
       }
     }

@@ -1,13 +1,19 @@
-"""Image-synthesis engine: batched latent -> uint8 image generation.
+"""Image-synthesis engine: batched latent -> uint8 image generation,
+discriminator scoring and latent-space walks.
 
-The port of ``probgan_tpu/engine/image.py``'s generation surface. The
-late-stage kernels run whenever the tensors are on CUDA: the engine always
-takes the packed path, whose wrappers launch the CUDA kernels for CUDA
-tensors and use their plain twins for CPU tensors; nothing switches them off
-on the card. There is no mesh (one card).
+The port of ``probgan_tpu/engine/image.py``. The late-stage kernels run
+whenever the tensors are on CUDA: the engine always takes the packed paths of
+G and D, whose wrappers launch the CUDA kernels for CUDA tensors and use
+their plain twins for CPU tensors; nothing switches them off on the card.
+The final tanh -> uint8 denorm is fused into the generator's last kernel by
+default; ``use_pallas=True`` (or ``PROBGAN_PALLAS_UINT8=1``, the JAX
+package's names for the switch) renders fp32 RGB instead and runs the
+separate denorm kernel of ops/image.py over it. There is no mesh (one card).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -15,19 +21,57 @@ import torch
 from probgan_tpu_torch.core.device import resolve_device
 from probgan_tpu_torch.core.rng import RngStream
 from probgan_tpu_torch.models import pro_gan
+from probgan_tpu_torch.ops import image as image_ops
 from probgan_tpu_torch.utils.profiling import task_trace
+
+WALK_CHUNK = 8  # frames rendered per generator batch in a latent walk
 
 
 def generate_fn(g_params: dict, z: torch.Tensor, alpha,
                 config: pro_gan.ProGANConfig, stage: int,
-                precision="high") -> torch.Tensor:
+                precision="high", use_pallas: bool = False) -> torch.Tensor:
     """Latent [B, L] -> uint8 images [B, R, R, 3], on z's device, through
     the packed path: the eligible late stages run on ops/packed.py, where
-    the tanh->uint8 denorm is fused into the final kernel. ``precision``:
+    the tanh->uint8 denorm is fused into the final kernel. With
+    ``use_pallas`` the generator emits fp32 RGB and ``to_uint8_fused``
+    (ops/image.py) denormalizes it in a pass of its own. ``precision``:
     "high" (the serving default) or "highest", both fp32 with TF32 off."""
     with torch.inference_mode():
+        if use_pallas:
+            rgb = pro_gan.generator_rgb(g_params, z, config, stage, alpha,
+                                        precision, packed=True)
+            return image_ops.to_uint8_fused(rgb)
         return pro_gan.generator_apply(g_params, z, config, stage, alpha,
                                        precision, packed=True)
+
+
+def score_fn(d_params: dict, images: torch.Tensor, alpha,
+             config: pro_gan.ProGANConfig, stage: int,
+             precision="high") -> torch.Tensor:
+    """Float images [B, R, R, 3] (~[-1, 1]) -> realness logits [B], on the
+    images' device, with the leading discriminator stages on ops/packed.py."""
+    with torch.inference_mode():
+        return pro_gan.discriminator_apply(d_params, images, config, stage,
+                                           alpha, precision, packed=True)
+
+
+def latent_walk_fn(g_params: dict, z0: torch.Tensor, z1: torch.Tensor, alpha,
+                   config: pro_gan.ProGANConfig, stage: int, frames: int,
+                   precision="high", use_pallas: bool = False,
+                   chunk: int = WALK_CHUNK) -> torch.Tensor:
+    """Interpolate z0 -> z1 (each [L]) linearly in ``frames`` steps and
+    render each: uint8 [frames, R, R, 3]. Frames render in generator batches
+    of ``chunk``, which bounds peak memory at the chunk's; the last chunk is
+    zero-padded to full size and cut, so every batch has one shape."""
+    t = torch.linspace(0.0, 1.0, frames, dtype=z0.dtype, device=z0.device)[:, None]
+    z = z0[None, :] * (1.0 - t) + z1[None, :] * t
+    if frames <= chunk:
+        return generate_fn(g_params, z, alpha, config, stage, precision, use_pallas)
+    pad = (-frames) % chunk
+    z = torch.nn.functional.pad(z, (0, 0, 0, pad))
+    imgs = [generate_fn(g_params, zc, alpha, config, stage, precision, use_pallas)
+            for zc in z.split(chunk)]
+    return torch.cat(imgs)[:frames]
 
 
 def to_device(tree, device: torch.device):
@@ -41,26 +85,46 @@ def to_device(tree, device: torch.device):
 
 
 class ImageGANEngine:
-    """Stateful wrapper: owns the generator params, an RNG stream and the
-    device."""
+    """Stateful wrapper: owns the generator and discriminator params, an RNG
+    stream and the device."""
 
     def __init__(self, config: pro_gan.ProGANConfig, g_params: dict | None = None,
-                 device: str = "auto", seed: int = 0, precision: str = "high"):
+                 d_params: dict | None = None, device: str = "auto", seed: int = 0,
+                 use_pallas: bool | None = None, mesh=None,
+                 precision: str = "high"):
         """``device``: "auto"/"cuda"/"gpu" (the first card; raise without
         one) or "cpu" (plain twins). ``precision``: "high" (default) or
         "highest"; the bf16 grades raise NotImplementedError.
-        ``g_params``: the port's param tree (see core/convert.py for JAX
-        trees); None initializes from ``seed``."""
+        ``g_params`` / ``d_params``: the port's param trees (see
+        core/convert.py for JAX trees); None initializes from ``seed``.
+        ``use_pallas``: run the separate denorm kernel instead of the fused
+        uint8 epilogue; None reads ``PROBGAN_PALLAS_UINT8`` ("1" = on).
+        ``mesh``: None, "" or 1 for the one device; data-parallel generation
+        and scoring over several cards are not ported yet (ROADMAP A11) and
+        raise NotImplementedError."""
+        if mesh not in (None, "", 1, "1"):
+            raise NotImplementedError(
+                f"mesh={mesh!r}: data-parallel generate/score over several "
+                "cards is not ported yet (ROADMAP A11)"
+            )
         pro_gan._require_fp32_grade(precision)
         self.config = config
         self.device = resolve_device(device)
         self.precision = precision
+        if use_pallas is None:
+            use_pallas = os.environ.get("PROBGAN_PALLAS_UINT8", "0") == "1"
+        self.use_pallas = bool(use_pallas)
         self._rng = RngStream(seed)
         if g_params is None:
             g_params = pro_gan.init_generator(
                 config, self._rng.next_generator("init_generator")
             )
+        if d_params is None:
+            d_params = pro_gan.init_discriminator(
+                config, self._rng.next_generator("init_discriminator")
+            )
         self.g_params = to_device(g_params, self.device)
+        self.d_params = to_device(d_params, self.device)
 
     @property
     def final_stage(self) -> int:
@@ -71,13 +135,41 @@ class ImageGANEngine:
         z = torch.randn((n, self.config.latent_dim), generator=gen)
         return z.to(self.device)
 
+    def _place(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32).to(self.device)
+
     def generate(self, latents, stage: int | None = None,
                  alpha: float = 1.0) -> np.ndarray:
         """Latents [B, L] (numpy or tensor) -> uint8 images [B, R, R, 3]."""
         if stage is None:
             stage = self.final_stage
-        z = torch.as_tensor(latents, dtype=torch.float32).to(self.device)
+        z = self._place(latents)
         with task_trace("generate_images"):
             img = generate_fn(self.g_params, z, alpha, self.config, stage,
+                              self.precision, self.use_pallas)
+            return img.cpu().numpy()
+
+    def score(self, images, stage: int | None = None,
+              alpha: float = 1.0) -> np.ndarray:
+        """Float images [B, R, R, 3] (~[-1, 1], numpy or tensor) at the
+        stage's resolution -> realness logits [B]. The minibatch stddev makes
+        the logits a function of the whole batch."""
+        if stage is None:
+            stage = self.final_stage
+        x = self._place(images)
+        with task_trace("score_images"):
+            logits = score_fn(self.d_params, x, alpha, self.config, stage,
                               self.precision)
+            return logits.cpu().numpy()
+
+    def latent_walk(self, z0, z1, frames: int = 64, stage: int | None = None,
+                    alpha: float = 1.0) -> np.ndarray:
+        """Latents z0, z1 [L] -> uint8 frames [frames, R, R, 3] of the linear
+        walk between them, rendered 8 at a time."""
+        if stage is None:
+            stage = self.final_stage
+        z0, z1 = self._place(z0), self._place(z1)
+        with task_trace("latent_walk"):
+            img = latent_walk_fn(self.g_params, z0, z1, alpha, self.config,
+                                 stage, frames, self.precision, self.use_pallas)
             return img.cpu().numpy()

@@ -14,12 +14,18 @@ progress banners. As in the JAX package:
 
 On a CUDA device the ranking always goes through the fused kernels of
 ``ops/rank_fused.py`` (top_k <= 16: ``rank_topk``; above: ``rank_scores``
-and a stable sort); on the CPU their wrappers take the plain twins. There
-is one device: a ``mesh`` is not ported yet.
+and a stable sort); on the CPU their wrappers take the plain twins. With
+``PROBGAN_BF16_RANK=1`` in the environment when the engine is built, and a
+table of at least ``rank_fused.BF16_MIN_N`` entities, the engine also caches
+a bf16 copy of the normalized table and the top_k <= 16 path streams that
+copy (``rank_topk_bf16``, then an exact fp32 rescore of k + 16 candidates);
+opt-in, as in the JAX package. There is one device: a ``mesh`` is not ported
+yet.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -45,12 +51,16 @@ def _rank_scores(pred: torch.Tensor, entity_norm: torch.Tensor,
 
 
 def _rank_topk(pred: torch.Tensor, entity_norm: torch.Tensor, k: int,
-               num_entities: int) -> tuple[torch.Tensor, torch.Tensor]:
+               num_entities: int, table_bf16: torch.Tensor | None = None,
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused rank + top-k where the kernel's bound on k allows (the [B, N]
     scores never reach device memory); otherwise the two-step score + top-k
-    path. The same (values, ids) either way, lowest id first among ties."""
+    path. The same (values, ids) either way, lowest id first among ties.
+    ``table_bf16``: the engine's cached bf16 copy of the table; the fused
+    path then streams it and rescores its candidates in fp32."""
     if rank_fused.supports_topk(tuple(pred.shape), entity_norm.shape[0], k):
-        return rank_fused.rank_topk_fused(pred, entity_norm, k, num_entities)
+        return rank_fused.rank_topk_fused(pred, entity_norm, k, num_entities,
+                                          table_bf16=table_bf16)
     scores = _rank_scores(pred, entity_norm, num_entities)
     return rank_ops.top_k_lowest_index(scores, k)
 
@@ -86,10 +96,10 @@ def _check_ids(ids, bound: int, kind: str) -> None:
 # ---------------------------------------------------------------------------
 
 def _predict_tails_fn(g_params, node_emb, entity_norm, rel_table, heads, rels, z,
-                      top_k, num_entities):
+                      top_k, num_entities, table_bf16=None):
     """gather -> G fwd -> fused rank -> top-k."""
     pred = kg_gan.generator_apply(g_params, node_emb[heads], rel_table[rels], z)
-    return _rank_topk(pred, entity_norm, top_k, num_entities)
+    return _rank_topk(pred, entity_norm, top_k, num_entities, table_bf16)
 
 
 def _generator_scores_fn(g_params, node_emb, rel_table, triplets, z):
@@ -105,12 +115,14 @@ def _discriminator_scores_fn(d_params, node_emb, rel_table, triplets):
     return kg_gan.discriminator_score_triplets(d_params, node_emb, rel_table, triplets)
 
 
-def _similar_entities_fn(entity_norm, queries, k_query, num_entities):
+def _similar_entities_fn(entity_norm, queries, k_query, num_entities,
+                         table_bf16=None):
     """Rows of the cached normalized table vs the whole table; k_query =
     min(top_k + 1, N) candidates so the caller can drop the query itself.
     The rows are normalized once more inside the rank kernel, as in the JAX
     package: its scores contain that second normalization."""
-    return _rank_topk(entity_norm[queries], entity_norm, k_query, num_entities)
+    return _rank_topk(entity_norm[queries], entity_norm, k_query, num_entities,
+                      table_bf16)
 
 
 def _analyze_relations_fn(d_params, node_emb, rel_table_padded, pairs, top_k,
@@ -206,6 +218,19 @@ class InferenceEngine:
         with torch.inference_mode():
             self.entity_norm = rank_ops.l2_normalize(self.node_emb).contiguous()
 
+            # A bf16 copy for the streamed rank kernel (half the bytes of the
+            # dominant table scan; its candidates are rescored exactly in
+            # fp32). Cast once at load, cached like the normalization.
+            # Opt-in, and only for tables where the read is worth halving.
+            self.entity_norm_bf16 = None
+            if (
+                os.environ.get("PROBGAN_BF16_RANK", "0") == "1"
+                and self.num_entities >= rank_fused.BF16_MIN_N
+                and rank_fused.supports_topk_bf16(
+                    (1, self.entity_norm.shape[1]), self.num_entities, 1)
+            ):
+                self.entity_norm_bf16 = self.entity_norm.to(torch.bfloat16)
+
             # Pre-pad the relation table for the chunked analyze loop.
             r_pad = -(-self.num_relations // _REL_CHUNK) * _REL_CHUNK
             self._rel_table_padded = torch.zeros(
@@ -267,6 +292,7 @@ class InferenceEngine:
                 self._noise(bucket, "predict_tails"),
                 top_k,
                 self.num_entities,
+                self.entity_norm_bf16,
             )
             top_scores = top_scores.cpu().numpy()
             top_indices = top_indices.cpu().numpy()
@@ -377,6 +403,7 @@ class InferenceEngine:
                 self._place(queries),
                 k_query,
                 self.num_entities,
+                self.entity_norm_bf16,
             )
             top_scores = top_scores.cpu().numpy()
             top_indices = top_indices.cpu().numpy()

@@ -1,15 +1,18 @@
-"""Progressive image-synthesis GAN, generator half, in PyTorch.
+"""Progressive image-synthesis GAN, generator and discriminator, in PyTorch.
 
 The port of ``probgan_tpu/models/pro_gan.py``: latent -> PixelNorm ->
 equalized-LR conv blocks -> progressive upsample + toRGB alpha blend ->
-tanh/denorm to uint8. Parameters are plain dicts of tensors with the JAX
-package's tree structure; conv weights are OIHW ``[Cout, Cin, kh, kw]``
-(``core/convert.py`` turns the JAX package's HWIO trees into this), dense
-weights ``[in, out]``.
+tanh/denorm to uint8, and the mirrored downsample/conv discriminator for
+scoring. Parameters are plain dicts of tensors with the JAX package's tree
+structure; conv weights are OIHW ``[Cout, Cin, kh, kw]`` (``core/convert.py``
+turns the JAX package's HWIO trees into this), dense weights ``[in, out]``.
 
 Internally activations are NCHW. The public functions keep the JAX shapes:
 latents ``[B, L]`` in, ``generator_rgb`` -> ``[B, R, R, 3]`` fp32 and
-``generator_apply`` -> ``[B, R, R, 3]`` uint8, both NHWC.
+``generator_apply`` -> ``[B, R, R, 3]`` uint8, both NHWC;
+``discriminator_apply`` takes ``[B, R, R, 3]`` float images and returns
+logits ``[B]``. The training-only arguments of the JAX functions (``remat``,
+``stddev_axis``, ``packed_mode``) are not ported.
 
 Precision grades: "high" and "highest" both mean fp32 with TF32 off
 (``_require_fp32_grade``). The bf16 grades (None, "default", "fast") need a
@@ -111,6 +114,11 @@ def pixel_norm(x: torch.Tensor) -> torch.Tensor:
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """[B, C, H, W] -> [B, C, 2H, 2W] nearest-neighbor."""
     return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+
+
+def downsample_avg_2x(x: torch.Tensor) -> torch.Tensor:
+    """[B, C, H, W] -> [B, C, H/2, W/2] 2x2 mean pool."""
+    return F.avg_pool2d(x, 2)
 
 
 def to_uint8(rgb: torch.Tensor) -> torch.Tensor:
@@ -273,3 +281,143 @@ def generator_apply(params: dict, z: torch.Tensor, config: ProGANConfig,
             x = _g_block(params["blocks"][s - 1], x)
         return _g_late_packed(params, x, config, s0, stage, alpha, emit="uint8")
     return to_uint8(generator_rgb(params, z, config, stage, alpha, precision))
+
+
+# ---------------------------------------------------------------------------
+# Discriminator
+# ---------------------------------------------------------------------------
+
+def init_discriminator(config: ProGANConfig,
+                       generator: torch.Generator | int = 0) -> dict:
+    """Params: per-stage fromRGB + per-stage double-conv blocks + the final
+    4x4 block (its conv takes one more channel, the minibatch stddev) + two
+    dense layers; weights ~N(0,1) from ``generator`` (or a seed), biases 0, on
+    the CPU. The bits differ from the JAX package's ``jax.random`` init."""
+    if isinstance(generator, int):
+        generator = torch.Generator().manual_seed(generator)
+
+    def conv(kh, kw, cin, cout):
+        return {"w": torch.randn((cout, cin, kh, kw), generator=generator),
+                "b": torch.zeros(cout)}
+
+    def dense(fin, fout):
+        return {"w": torch.randn((fin, fout), generator=generator),
+                "b": torch.zeros(fout)}
+
+    n = config.num_stages
+    nf = config.nf
+    return {
+        "from_rgb": [conv(1, 1, config.num_channels, nf(s)) for s in range(n)],
+        "blocks": [
+            {"conv1": conv(3, 3, nf(s), nf(s)), "conv2": conv(3, 3, nf(s), nf(s - 1))}
+            for s in range(1, n)
+        ],
+        "final_conv": conv(3, 3, nf(0) + 1, nf(0)),
+        "final_dense": dense(nf(0) * 16, nf(0)),
+        "out_dense": dense(nf(0), 1),
+    }
+
+
+def minibatch_stddev(x: torch.Tensor) -> torch.Tensor:
+    """Append one channel (NCHW: at dim 1) holding the batch-wide mean
+    feature stddev. A batch statistic: the logits of a batch are not those of
+    its images scored one by one."""
+    mean = x.mean(dim=0, keepdim=True)
+    var = torch.square(x - mean).mean(dim=0, keepdim=True)
+    stddev = torch.sqrt(var + 1e-8).mean()
+    feat = stddev.expand(x.shape[0], 1, x.shape[2], x.shape[3])
+    return torch.cat([x, feat], dim=1)
+
+
+def _d_block(block: dict, x: torch.Tensor) -> torch.Tensor:
+    x = lrelu(eq_conv(block["conv1"], x))
+    x = lrelu(eq_conv(block["conv2"], x))
+    return downsample_avg_2x(x)
+
+
+# Precisions for which the packed discriminator path exists in the JAX
+# package (its ladder maps them to kernel grades). The port's kernels have
+# one grade, fp32, which serves "high" and "highest"; "fast" stays in the gate
+# so that it answers as the JAX package's does.
+_PACKED_MODES_D = ("fast", "high", "highest")
+
+
+def packed_d_stage_count(config: ProGANConfig, stage: int,
+                         precision="highest") -> int:
+    """Number of leading discriminator stages (from ``stage`` down) the
+    kernels of ops/packed.py take: consecutive stages with nf <= 64 and
+    8-aligned channel counts at resolutions >= 256. 0 = none (always 0 for a
+    precision outside ``_PACKED_MODES_D``). The same gate as the JAX package,
+    so at 1024² exactly stages 8 and 7 run on the kernels."""
+    if precision not in _PACKED_MODES_D:
+        return 0
+    n = 0
+    s = stage
+    while (
+        s >= 1
+        and config.nf(s) <= 64
+        and config.nf(s) % 8 == 0
+        and config.nf(s - 1) % 8 == 0
+        and stage_resolution(s) >= 256
+    ):
+        n += 1
+        s -= 1
+    return n
+
+
+def _from_rgb(params: dict, image: torch.Tensor, stage: int) -> torch.Tensor:
+    return lrelu(eq_conv(params["from_rgb"][stage], image))
+
+
+def _d_early_packed(params: dict, image: torch.Tensor, stage: int, alpha,
+                    n: int) -> torch.Tensor:
+    """fromRGB + the first ``n`` discriminator blocks on the kernels of
+    ops/packed.py (conv1: ``packed_conv`` with the "lrelu" epilogue; conv2
+    and the pool: ``packed_convpool``, whose full-resolution output never
+    reaches device memory). ``image`` is NCHW; returns NCHW features at stage
+    ``stage - n``. The progressive blend sits after the first block, as in
+    the unpacked loop."""
+    from probgan_tpu_torch.ops import packed as pk
+
+    x = _from_rgb(params, image, stage).float().contiguous()
+    for s in range(stage, stage - n, -1):
+        block = params["blocks"][s - 1]
+        c1, c2 = block["conv1"], block["conv2"]
+        x = pk.packed_conv(x, eq_scaled_conv_w(c1), c1["b"], epilogue="lrelu")
+        x = pk.packed_convpool(x, eq_scaled_conv_w(c2), c2["b"], epilogue="lrelu")
+        if s == stage and stage > 0:
+            skip = _from_rgb(params, downsample_avg_2x(image), stage - 1)
+            x = skip + alpha * (x - skip)
+    return x
+
+
+def discriminator_apply(params: dict, image: torch.Tensor, config: ProGANConfig,
+                        stage: int, alpha: float = 1.0, precision="high",
+                        packed: bool = False) -> torch.Tensor:
+    """Image [B, R, R, 3] (NHWC float, roughly [-1, 1]) -> realness logit
+    [B]. Mirrors the generator's progressive blend: after the first down
+    block, lerp with fromRGB of the downsampled image.
+
+    ``packed=True`` routes the leading stages (packed_d_stage_count) through
+    ops/packed.py: the kernels for CUDA tensors, their plain twins for CPU
+    tensors. ``precision``: "high" or "highest", both fp32 with TF32 off (the
+    JAX package's "high" is a 3-term bf16 split on this path, so the port's
+    "high" is the closer of the two to the fp32 reference)."""
+    _require_fp32_grade(precision)
+    image = image.float().permute(0, 3, 1, 2).contiguous()
+    n = packed_d_stage_count(config, stage, precision) if packed else 0
+    if n > 0:
+        x = _d_early_packed(params, image, stage, alpha, n)
+    else:
+        x = _from_rgb(params, image, stage)
+    for s in range(stage - n, 0, -1):
+        x = _d_block(params["blocks"][s - 1], x)
+        if s == stage and stage > 0:
+            skip = _from_rgb(params, downsample_avg_2x(image), stage - 1)
+            x = skip + alpha * (x - skip)
+    x = minibatch_stddev(x)
+    x = lrelu(eq_conv(params["final_conv"], x))
+    # final_dense's rows are in the JAX layout: the 4x4 map flattened as HWC
+    x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+    x = lrelu(eq_dense(params["final_dense"], x))
+    return eq_dense(params["out_dense"], x, gain=1.0)[..., 0]

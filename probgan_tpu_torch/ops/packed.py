@@ -1,14 +1,20 @@
-"""The generator's late-stage kernels: Python side.
+"""The late-stage conv kernels of the image G and D: Python side.
 
-Three kernels carry stages 7-8 of the 1024² generator, each written by hand
-in CUDA C++ for Hopper (``csrc/*.cu``) and keeping the JAX names of the Pallas
-kernels they replace (``probgan_tpu/ops/pallas_packed.py``):
+Four kernels carry stages 7-8 of the 1024² generator and the first two
+blocks of its discriminator, each written by hand in CUDA C++ for Hopper
+(``csrc/*.cu``) and keeping the JAX names of the Pallas kernels they replace
+(``probgan_tpu/ops/pallas_packed.py``):
 
 - ``packed_upconv``:   nearest-2x upsample -> conv3x3 + bias -> LeakyReLU ->
   PixelNorm, optionally with the toRGB of its input;
-- ``packed_conv``:     conv3x3 + bias -> LeakyReLU -> PixelNorm;
+- ``packed_conv``:     conv3x3 + bias -> epilogue: ``"lrelu_norm"``
+  (LeakyReLU -> PixelNorm, the generator), ``"lrelu"`` (the discriminator's
+  conv1) or ``"none"``;
 - ``packed_conv_rgb``: conv3x3 + bias -> LeakyReLU -> PixelNorm -> toRGB ->
-  alpha blend with the upsampled previous RGB -> (tanh -> uint8), NHWC out.
+  alpha blend with the upsampled previous RGB -> (tanh -> uint8), NHWC out;
+- ``packed_convpool``: conv3x3 + bias -> LeakyReLU (``"lrelu"``, the
+  discriminator's conv2) or nothing (``"none"``) -> 2x2 mean pool; only the
+  pooled tensor is written.
 
 The TPU kernels' phase-blocked layout, revolving DMAs and bf16 K-stacking are
 not ported: these take plain dense NCHW fp32 tensors and OIHW weights with the
@@ -39,18 +45,24 @@ from probgan_tpu_torch.ops.fused_upconv import parity_weights, upsample2x_conv3x
 
 # Launches of each kernel since the last reset_launches(); a wrapper adds one
 # where it launches its kernel and nowhere else.
-launches = {"packed_upconv": 0, "packed_conv": 0, "packed_conv_rgb": 0}
+launches = {"packed_upconv": 0, "packed_conv": 0, "packed_conv_rgb": 0,
+            "packed_convpool": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     "packed_upconv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "packed_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "packed_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "packed_convpool": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv_rgb": [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _I,
                         _I, _I, _I, _I, _I, _P],
 }
 # Output channel counts the kernels are instantiated for (csrc/conv_tile.cuh).
+# packed_convpool tiles Cout in slabs of 64 (or 32) and takes any multiple.
 SUPPORTED_COUT = (32, 64)
+# packed_conv's epilogues, by their code in csrc/packed_conv.cu.
+CONV_EPILOGUES = {"lrelu_norm": 0, "lrelu": 1, "none": 2}
+POOL_EPILOGUES = ("lrelu", "none")
 
 
 def reset_launches() -> None:
@@ -164,17 +176,28 @@ def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None):
 # packed_conv
 # ---------------------------------------------------------------------------
 
-def packed_conv_plain(x, w, b):
+def _epilogue(y: torch.Tensor, epilogue: str) -> torch.Tensor:
+    if epilogue == "lrelu_norm":
+        return _lrelu_norm(y)
+    return lrelu(y) if epilogue == "lrelu" else y
+
+
+def packed_conv_plain(x, w, b, epilogue="lrelu_norm"):
     """Plain twin of ``packed_conv``."""
-    return _lrelu_norm(F.conv2d(x, w, padding=1) + b[:, None, None])
+    if epilogue not in CONV_EPILOGUES:
+        raise ValueError(f"packed_conv: epilogue {epilogue!r} not in {tuple(CONV_EPILOGUES)}")
+    return _epilogue(F.conv2d(x, w, padding=1) + b[:, None, None], epilogue)
 
 
-def packed_conv(x, w, b):
-    """conv3x3 SAME + bias -> LeakyReLU -> PixelNorm: x [B, C, H, W] fp32,
-    w [Cout, C, 3, 3] eq-LR scaled, b [Cout] -> [B, Cout, H, W]."""
+def packed_conv(x, w, b, epilogue="lrelu_norm"):
+    """conv3x3 SAME + bias -> epilogue ("lrelu_norm": LeakyReLU -> PixelNorm;
+    "lrelu": LeakyReLU; "none"): x [B, C, H, W] fp32, w [Cout, C, 3, 3] eq-LR
+    scaled, b [Cout] -> [B, Cout, H, W]."""
     if x.device.type == "cpu":
-        return packed_conv_plain(x, w, b)
+        return packed_conv_plain(x, w, b, epilogue)
     name = "packed_conv"
+    if epilogue not in CONV_EPILOGUES:
+        raise ValueError(f"{name}: epilogue {epilogue!r} not in {tuple(CONV_EPILOGUES)}")
     cout = w.shape[0]
     _check_cout(name, cout)
     _check(name, x, w.shape[1], _tile_rows(cout), 32, w=w, b=b)
@@ -182,7 +205,54 @@ def packed_conv(x, w, b):
     wk = conv_kernel_weights(w)
     b = b.contiguous()
     y = torch.empty((bsz, cout, h, wd), device=x.device, dtype=x.dtype)
-    _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout)
+    _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
+            CONV_EPILOGUES[epilogue])
+    return y
+
+
+# ---------------------------------------------------------------------------
+# packed_convpool
+# ---------------------------------------------------------------------------
+
+def _pool_slab(cout: int) -> int:
+    """Output channels one kernel block owns (csrc/packed_convpool.cu CT)."""
+    return 64 if cout % 64 == 0 else 32
+
+
+def convpool_kernel_weights(w: torch.Tensor) -> torch.Tensor:
+    """OIHW [Cout, C, 3, 3] -> packed_convpool's [Cout/CT][C][3 ky][3 kx][CT]:
+    packed_conv's layout, one slab of CT output channels after the other."""
+    cout, c = w.shape[:2]
+    ct = _pool_slab(cout)
+    return w.reshape(cout // ct, ct, c, 3, 3).permute(0, 2, 3, 4, 1).contiguous()
+
+
+def packed_convpool_plain(x, w, b, epilogue="lrelu"):
+    """Plain twin of ``packed_convpool``."""
+    if epilogue not in POOL_EPILOGUES:
+        raise ValueError(f"packed_convpool: epilogue {epilogue!r} not in {POOL_EPILOGUES}")
+    return F.avg_pool2d(_epilogue(F.conv2d(x, w, padding=1) + b[:, None, None], epilogue), 2)
+
+
+def packed_convpool(x, w, b, epilogue="lrelu"):
+    """conv3x3 SAME + bias -> LeakyReLU ("lrelu") or nothing ("none") -> 2x2
+    mean pool; the activation comes before the pool. x [B, C, H, W] fp32,
+    w [Cout, C, 3, 3] eq-LR scaled, b [Cout] -> [B, Cout, H/2, W/2]."""
+    if x.device.type == "cpu":
+        return packed_convpool_plain(x, w, b, epilogue)
+    name = "packed_convpool"
+    if epilogue not in POOL_EPILOGUES:
+        raise ValueError(f"{name}: epilogue {epilogue!r} not in {POOL_EPILOGUES}")
+    cout = w.shape[0]
+    if cout % 32:
+        raise ValueError(f"{name}: Cout={cout} must be a multiple of 32")
+    _check(name, x, w.shape[1], _tile_rows(_pool_slab(cout)), 32, w=w, b=b)
+    bsz, c, h, wd = x.shape
+    wk = convpool_kernel_weights(w)
+    b = b.contiguous()
+    y = torch.empty((bsz, cout, h // 2, wd // 2), device=x.device, dtype=x.dtype)
+    _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
+            int(epilogue == "lrelu"))
     return y
 
 

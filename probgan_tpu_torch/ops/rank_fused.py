@@ -1,16 +1,20 @@
 """The fused rank kernels: Python side.
 
-The counterpart of ``probgan_tpu/ops/pallas_rank.py``. Two kernels written
+The counterpart of ``probgan_tpu/ops/pallas_rank.py``. Three kernels written
 by hand in CUDA C++ for Hopper (``csrc/rank_topk.cu``, ``csrc/rank_scores.cu``
-over ``csrc/rank_tile.cuh``) keep the JAX names of the functions that reach
-the Pallas kernels they replace:
+and ``csrc/rank_topk_bf16.cu`` over ``csrc/rank_tile.cuh``) keep the JAX names
+of the functions that reach the Pallas kernels they replace:
 
 - ``rank_topk_fused(pred, table_norm, k, num_entities)``: L2-normalize the
   raw predictions, score them against the pre-normalized entity table in
   full fp32 and return each query's top-k ``(values, ids)``. The [B, N]
   score matrix never reaches device memory: the kernel writes k candidates
   per query and block of table rows, and the merge over
-  ``[B, n_blocks * k]`` is a stable sort here;
+  ``[B, n_blocks * k]`` is a stable sort here. With ``table_bf16`` (a bf16
+  copy of the table) the kernel streams that copy instead, half the bytes,
+  multiplies in bf16 on the tensor cores and keeps an approximate pool of
+  ``k + 16`` rows per query, which is then rescored exactly against the fp32
+  table here, so ids and values are those of the fp32 path;
 - ``rank_topk_local(pred_norm, table_norm_shard, k, nvalid)``: the same for
   queries that are already normalized, with local row ids (the per-shard
   form of a row-sharded table);
@@ -27,7 +31,7 @@ always come in ascending id.
 Each wrapper checks dtype, shape, contiguity and alignment and raises
 ``ValueError`` on what the kernels do not take (any B >= 1, any number of
 rows below 2**31 - 128, D a multiple of 4 up to ``MAX_D``, k in 1..16; the
-bf16 table stream of the JAX package is not ported yet). It takes its plain
+bf16 stream needs D a multiple of 16). It takes its plain
 twin (``*_plain``) only for CPU tensors; for a CUDA tensor it launches the
 kernel or raises. ``launches`` counts kernel launches.
 """
@@ -47,19 +51,25 @@ from probgan_tpu_torch.ops.rank import (
 
 # Launches of each kernel since the last reset_launches(); a wrapper adds one
 # where it launches its kernel and nowhere else.
-launches = {"rank_topk": 0, "rank_scores": 0}
+launches = {"rank_topk": 0, "rank_scores": 0, "rank_topk_bf16": 0}
 
 MAX_K = 16          # csrc/rank_topk.cu kMaxK: a query's top-k lives in one warp
 MAX_D = 256         # a 64-query chunk + a 128-row tile fit 227 KB of shared memory
 TILE_ROWS = 128     # csrc/rank_tile.cuh kTileRows
 BLOCKS_PER_SM = 2   # the kernels' __launch_bounds__: one wave fills the card
 _MAX_ROWS = 2**31 - TILE_ROWS  # row ids and tile starts are int32 in the kernel
+# The bf16 stream: rows kept beyond k for the exact rescore, and the table
+# size from which an engine streams bf16 at all (below it the table read is
+# cheap and the approximate pool has less room for near-ties).
+BF16_RESCORE_POOL = 16
+BF16_MIN_N = 200_000
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     "rank_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "rank_scores": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rank_topk_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -78,6 +88,12 @@ def supports(pred_shape: tuple[int, int], n: int) -> bool:
 def supports_topk(pred_shape: tuple[int, int], n: int, k: int) -> bool:
     """``supports`` plus the fused top-k's bound on k."""
     return supports(pred_shape, n) and 1 <= k <= MAX_K
+
+
+def supports_topk_bf16(pred_shape: tuple[int, int], n: int, k: int) -> bool:
+    """``supports_topk`` plus the bf16 stream's feature dim: whole k16 steps
+    of the tensor-core product."""
+    return supports_topk(pred_shape, n, k) and pred_shape[1] % 16 == 0
 
 
 def _check(name: str, pred: torch.Tensor, table: torch.Tensor) -> None:
@@ -149,6 +165,65 @@ def topk_candidates(pred: torch.Tensor, table: torch.Tensor, k: int, nvalid: int
     return cand_v, cand_i
 
 
+def _check_bf16(name: str, pred: torch.Tensor, table_norm: torch.Tensor,
+                table_bf16: torch.Tensor, k: int) -> None:
+    if table_bf16.dtype != torch.bfloat16 or not table_bf16.is_contiguous():
+        raise ValueError(
+            f"{name}: table_bf16 must be a contiguous bfloat16 tensor, got "
+            f"{table_bf16.dtype} contiguous={table_bf16.is_contiguous()}"
+        )
+    if table_bf16.shape != table_norm.shape or table_bf16.device != table_norm.device:
+        raise ValueError(
+            f"{name}: table_bf16 {tuple(table_bf16.shape)} on {table_bf16.device} "
+            f"must mirror table_norm {tuple(table_norm.shape)} on {table_norm.device}"
+        )
+    if table_bf16.is_cuda and table_bf16.data_ptr() % 16:
+        raise ValueError(f"{name}: table_bf16 must be 16-byte aligned")
+    if not supports_topk_bf16(tuple(pred.shape), table_norm.shape[0], k):
+        raise ValueError(
+            f"{name}: the bf16 stream needs D % 16 == 0, got D={pred.shape[1]}"
+        )
+
+
+def pool_candidates_bf16(pred: torch.Tensor, table_bf16: torch.Tensor, m: int,
+                         nvalid: int, normalize: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the rank_topk_bf16 kernel: (approximate scores fp32, ids
+    int32), each [B, n_blocks * m], laid out as ``topk_candidates``' result."""
+    b, d = pred.shape
+    tiles_per_block, n_blocks = _geometry(nvalid, pred.device)
+    cand_v = torch.empty((b, n_blocks * m), device=pred.device, dtype=torch.float32)
+    cand_i = torch.empty((b, n_blocks * m), device=pred.device, dtype=torch.int32)
+    _launch("rank_topk_bf16", pred, pred.data_ptr(), table_bf16.data_ptr(),
+            cand_v.data_ptr(), cand_i.data_ptr(), b, d, nvalid, m, int(normalize),
+            tiles_per_block, n_blocks)
+    return cand_v, cand_i
+
+
+def rescore_pool(pred_norm: torch.Tensor, table_norm: torch.Tensor,
+                 pool_v: torch.Tensor, pool_ids: torch.Tensor,
+                 k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The exact half of the bf16 path: score each query's pool of row ids
+    [B, m] against the fp32 table and return the top-k by (-score, id), so
+    exact duplicates resolve to the lowest id. A slot whose approximate score
+    ``pool_v`` is -inf (a masked filler) stays at -inf."""
+    valid = pool_v > float("-inf")
+    ids = torch.where(valid, pool_ids.to(torch.int64), 0)
+    rows = table_norm[ids]  # [B, m, D]: m rows per query, not the N-row stream
+    exact = (rows * pred_norm[:, None, :]).sum(dim=-1)
+    exact = torch.where(valid, exact, float("-inf"))
+    ids, by_id = torch.sort(ids, dim=1, stable=True)
+    values, pos = top_k_lowest_index(torch.gather(exact, 1, by_id), k)
+    return values, torch.gather(ids, 1, pos)
+
+
+def _topk_bf16_cuda(pred, table_norm, table_bf16, k, nvalid):
+    m = min(k + BF16_RESCORE_POOL, nvalid)
+    cand_v, cand_i = pool_candidates_bf16(pred, table_bf16, m, nvalid, normalize=True)
+    pool_v, pos = top_k_lowest_index(cand_v, m)
+    return rescore_pool(l2_normalize(pred), table_norm, pool_v,
+                        torch.gather(cand_i, 1, pos), k)
+
+
 def _topk_cuda(pred, table, k, nvalid, normalize):
     cand_v, cand_i = topk_candidates(pred, table, k, nvalid, normalize)
     # Equal values keep their position order under the stable sort, and
@@ -161,23 +236,48 @@ def _topk_cuda(pred, table, k, nvalid, normalize):
 # rank_topk
 # ---------------------------------------------------------------------------
 
-def rank_topk_fused_plain(pred, table_norm, k, num_entities):
-    """Plain twin of ``rank_topk_fused``: normalize, product, slice, top-k."""
-    scores = cosine_scores(l2_normalize(pred), table_norm)[:, :num_entities]
-    return top_k_lowest_index(scores, k)
+def rank_topk_fused_plain(pred, table_norm, k, num_entities, *, table_bf16=None):
+    """Plain twin of ``rank_topk_fused``: normalize, product, slice, top-k.
+    With ``table_bf16``: fp32 normalize, queries rounded to bf16, the
+    bf16 x bf16 products summed in fp32 (a product of two bf16 values is
+    exact in fp32), the top k + 16 by that approximate score, then the
+    exact rescore the kernel path shares."""
+    pred_norm = l2_normalize(pred)
+    if table_bf16 is None:
+        return top_k_lowest_index(cosine_scores(pred_norm, table_norm)[:, :num_entities], k)
+    approx = cosine_scores(pred_norm.to(torch.bfloat16).float(),
+                           table_bf16[:num_entities].float())
+    pool_v, pool_ids = top_k_lowest_index(approx, min(k + BF16_RESCORE_POOL, num_entities))
+    return rescore_pool(pred_norm, table_norm, pool_v, pool_ids, k)
 
 
 def rank_topk_fused(pred: torch.Tensor, table_norm: torch.Tensor, k: int,
-                    num_entities: int) -> tuple[torch.Tensor, torch.Tensor]:
+                    num_entities: int, *,
+                    table_bf16: torch.Tensor | None = None,
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """[B, D] raw predictions x [N_rows, D] pre-normalized table -> (top-k
     values [B, k] fp32, top-k entity ids [B, k] int64) over rows below
-    ``num_entities`` (rows at or past it, such as zero padding, never win)."""
+    ``num_entities`` (rows at or past it, such as zero padding, never win).
+
+    ``table_bf16``: a cached bfloat16 copy of ``table_norm``. When given, the
+    bf16 kernel streams it (half the bytes, one tensor-core product) and
+    keeps each query's best ``k + 16`` rows by approximate score; that pool
+    is rescored exactly against ``table_norm``, so the result matches the
+    fp32 path's. A true top-k row is lost only if more than 16 rows outside
+    the top k beat it in bf16 (each within ~2**-7 of it in exact score). Two
+    distinct rows within 1 ulp of each other may come in either order; exact
+    duplicates come in ascending id."""
     name = "rank_topk_fused"
     num_entities = int(num_entities)
     _check(name, pred, table_norm)
     _check_k(name, k, num_entities, table_norm.shape[0])
+    if table_bf16 is not None:
+        _check_bf16(name, pred, table_norm, table_bf16, k)
     if pred.device.type == "cpu":
-        return rank_topk_fused_plain(pred, table_norm, k, num_entities)
+        return rank_topk_fused_plain(pred, table_norm, k, num_entities,
+                                     table_bf16=table_bf16)
+    if table_bf16 is not None:
+        return _topk_bf16_cuda(pred, table_norm, table_bf16, k, num_entities)
     return _topk_cuda(pred, table_norm, k, num_entities, normalize=True)
 
 

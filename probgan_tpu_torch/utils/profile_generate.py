@@ -7,6 +7,12 @@ wall time, and one JSON line:
 
     python -m probgan_tpu_torch.utils.profile_generate [--trace PATH.json]
 
+With ``--first-call`` it instead times single calls (host clock) in the
+steady state, right after ``torch.cuda.empty_cache()`` and right after one
+``score`` call of the same engine, with the count of ``cudaMalloc`` calls
+each took: what a call costs when the caching allocator's pool has changed
+since the last one.
+
 Parts: the three late-stage kernels by name, the cuDNN convolutions of
 stages 0-6, the copy of the images to the host, other copies, and the
 elementwise rest (parity-conv interleave, epilogues, weight prep). Needs a
@@ -43,9 +49,38 @@ def _part(name: str) -> str:
     return "elementwise_and_other"
 
 
+def first_call(engine: ImageGANEngine, z: torch.Tensor) -> int:
+    """Single generate calls after the allocator's pool has changed."""
+    def timed(label: str, calls: int) -> list[dict]:
+        out = []
+        for _ in range(calls):
+            mallocs = torch.cuda.memory_stats()["num_device_alloc"]
+            t0 = time.perf_counter()
+            engine.generate(z)
+            ms = (time.perf_counter() - t0) * 1e3
+            out.append({"ms": ms, "cuda_mallocs":
+                        torch.cuda.memory_stats()["num_device_alloc"] - mallocs})
+        print(f"{label:28s} " + "  ".join(
+            f"{c['ms']:.1f} ms ({c['cuda_mallocs']} cudaMalloc)" for c in out))
+        return out
+
+    result = {"steady": timed("steady state", 4)}
+    torch.cuda.empty_cache()
+    result["after_empty_cache"] = timed("after empty_cache()", 4)
+    images = engine.generate(z).astype("float32") / 127.5 - 1.0
+    engine.score(images)
+    engine.score(images)
+    result["after_score"] = timed("after two score calls", 4)
+    print(json.dumps({"batch": BATCH, "first_call": result,
+                      "device": torch.cuda.get_device_name(0)}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
+    ap.add_argument("--first-call", action="store_true",
+                    help="time single calls after the allocator's pool changed instead")
     args = ap.parse_args(argv)
 
     engine = ImageGANEngine(ProGANConfig(), device="cuda", precision="high")
@@ -53,6 +88,8 @@ def main(argv=None) -> int:
     for _ in range(2):  # warm-up: kernel build, cuDNN plans
         engine.generate(z)
     torch.cuda.synchronize()
+    if args.first_call:
+        return first_call(engine, z)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:

@@ -16,7 +16,11 @@ the KG path's shape (N = 1,000,000 rows, D = 128, B = 64) for k = 1 and 10:
 - ``one_block_per_sm``: ``__launch_bounds__(256, 1)`` and half the blocks.
 
 The variants compute wrong results on purpose: this script measures, it
-checks nothing. Prints one line per variant and one JSON line. Needs a CUDA
+checks nothing. Then, for the bf16 stream (``rank_topk_fused(table_bf16=...)``)
+as shipped, at B = 64 and B = 8 with k = 10: the ``rank_topk_bf16`` kernel
+alone, the merge of the blocks' pools (a stable sort over [B, n_blocks * 26]),
+the exact rescore of the 26 survivors, and the whole call beside the fp32
+call. Prints one line per variant and part and one JSON line. Needs a CUDA
 card and nvcc.
 """
 
@@ -99,6 +103,37 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bf16_parts(table: torch.Tensor, gen: torch.Generator, k: int = 10) -> dict:
+    """Times (ms) of the parts of the bf16 path, by batch size."""
+    from probgan_tpu_torch.ops.rank import top_k_lowest_index
+
+    table_bf16 = table.to(torch.bfloat16)
+    m = k + rank_fused.BF16_RESCORE_POOL
+    out = {}
+    for b in (B, 8):
+        pred = torch.randn((b, D), device=table.device, generator=gen)
+        cand_v, cand_i = rank_fused.pool_candidates_bf16(pred, table_bf16, m, N, True)
+        pool_v, pos = top_k_lowest_index(cand_v, m)
+        pool_ids = torch.gather(cand_i, 1, pos)
+        pred_norm = l2_normalize(pred)
+        row = {
+            "candidates_per_query": cand_v.shape[1],
+            "kernel_ms": cuda_ms(
+                lambda: rank_fused.pool_candidates_bf16(pred, table_bf16, m, N, True)),
+            "merge_sort_ms": cuda_ms(lambda: top_k_lowest_index(cand_v, m)),
+            "rescore_ms": cuda_ms(
+                lambda: rank_fused.rescore_pool(pred_norm, table, pool_v, pool_ids, k)),
+            "whole_bf16_call_ms": cuda_ms(
+                lambda: rank_fused.rank_topk_fused(pred, table, k, N, table_bf16=table_bf16)),
+            "whole_fp32_call_ms": cuda_ms(lambda: rank_fused.rank_topk_fused(pred, table, k, N)),
+        }
+        out[f"B{b}"] = row
+        print(f"bf16 stream B={b:2d}: " + "  ".join(
+            f"{name} {value:.3f}" if isinstance(value, float) else f"{name} {value}"
+            for name, value in row.items()), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("rank_ablation: torch.cuda.is_available() is False")
@@ -134,8 +169,9 @@ def main() -> int:
             results[name] = row
             print(f"{name:18s} {registers:14s} {n_blocks:4d} blocks  " + "  ".join(
                 f"k={k}: {row[f'k{k}_ms']:.3f} ms" for k in KS), flush=True)
+    bf16 = bf16_parts(table, gen)
     print(json.dumps({"shape": {"B": B, "N": N, "D": D}, "variants": results,
-                      "device": torch.cuda.get_device_name(0)}))
+                      "bf16_parts_ms": bf16, "device": torch.cuda.get_device_name(0)}))
     return 0
 
 

@@ -97,9 +97,16 @@ def test_missing_checkpoint_errors():
 
 
 def test_generate_images_is_not_ported(native_ckpt_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        main(["--checkpoint_path", native_ckpt_path, "--task", "generate_images",
-              "--device", "cpu"])
+    """The task is ported now (tests/test_torch_image_checkpoint.py drives it
+    on an image checkpoint); what still raises is a KG checkpoint, with the
+    JAX CLI's error, and a mesh, which names its ROADMAP item."""
+    argv = ["--checkpoint_path", native_ckpt_path, "--task", "generate_images",
+            "--device", "cpu"]
+    with pytest.raises(ValueError) as theirs:
+        jax_infer.main(argv)
+    with pytest.raises(ValueError, match="Not an image-GAN checkpoint") as mine:
+        main(argv)
+    assert str(mine.value) == str(theirs.value)
 
 
 def test_device_choices_reject_tpu(native_ckpt_path):

@@ -95,8 +95,11 @@ def test_import_leaves_jax_out():
     out = subprocess.run([sys.executable, "-c", code], cwd=PORT.parent,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert len(modules) >= 30
-    assert "probgan_tpu_torch.engine.inference" in modules
+    assert len(modules) >= 32
+    for name in ("engine.inference", "engine.image", "core.image_checkpoint", "ops.image",
+                 "ops.packed", "ops.rank_fused", "cli.infer", "utils.demo_checkpoint",
+                 "utils.profile_score"):
+        assert f"probgan_tpu_torch.{name}" in modules
 
 
 def test_sources_import_no_jax_and_no_jax_package():

@@ -282,3 +282,59 @@ def test_auto_device_raises_without_a_card(native_ckpt_path):
     else:
         with pytest.raises(RuntimeError, match="is_available"):
             InferenceEngine(native_ckpt_path, device="auto")
+
+
+# -- the bf16 rank stream (PROBGAN_BF16_RANK) -----------------------------------
+
+def test_bf16_rank_gate_needs_the_switch_and_a_large_table(native_ckpt_path, monkeypatch):
+    """No bf16 copy without the switch, and none below BF16_MIN_N entities
+    even with it (the fixture has 50)."""
+    monkeypatch.delenv("PROBGAN_BF16_RANK", raising=False)
+    assert InferenceEngine(native_ckpt_path, device="cpu").entity_norm_bf16 is None
+    monkeypatch.setenv("PROBGAN_BF16_RANK", "1")
+    assert NUM_ENTITIES < rank_fused.BF16_MIN_N
+    assert InferenceEngine(native_ckpt_path, device="cpu").entity_norm_bf16 is None
+
+
+def test_bf16_rank_engine_serves_the_fp32_ids(tmp_path, monkeypatch):
+    """At BF16_MIN_N entities the switch, read when the engine is built,
+    caches a bf16 copy of the normalized table; predict_tails and
+    find_similar_entities then go through rank_topk_fused(table_bf16=...) and
+    return the fp32 engine's ids (scores to 2e-6). Above k = 16 the two-step
+    path is taken as before."""
+    from probgan_tpu_torch.core.checkpoint import save_checkpoint
+    from probgan_tpu_torch.utils.demo_checkpoint import make_kg_checkpoint
+
+    path = str(tmp_path / "big.msgpack")
+    n = rank_fused.BF16_MIN_N
+    save_checkpoint(path, make_kg_checkpoint(n, 5, embed_dim=16, noise_dim=8,
+                                             hidden_dim=32, seed=3))
+    monkeypatch.delenv("PROBGAN_BF16_RANK", raising=False)
+    plain = InferenceEngine(path, device="cpu", seed=0)
+    assert plain.entity_norm_bf16 is None
+    monkeypatch.setenv("PROBGAN_BF16_RANK", "1")
+    engine = InferenceEngine(path, device="cpu", seed=0)
+    monkeypatch.delenv("PROBGAN_BF16_RANK")  # read at build time only
+    bf16 = engine.entity_norm_bf16
+    assert bf16 is not None and bf16.dtype == torch.bfloat16
+    assert tuple(bf16.shape) == (n, 16)
+    assert torch.equal(bf16, engine.entity_norm.to(torch.bfloat16))
+
+    seen = []
+    fused = rank_fused.rank_topk_fused
+    monkeypatch.setattr(rank_fused, "rank_topk_fused", lambda *a, table_bf16=None: (
+        seen.append(table_bf16), fused(*a, table_bf16=table_bf16))[1])
+    pairs = [(0, 1), (n - 1, 4), (12345, 0)]
+    got = engine.predict_tails(pairs, top_k=10, return_scores=True)
+    want = plain.predict_tails(pairs, top_k=10, return_scores=True)
+    assert seen == [bf16, None]
+    assert got["predictions"] == want["predictions"]
+    np.testing.assert_allclose(got["scores"], want["scores"], atol=2e-6)
+    got = engine.find_similar_entities([7, n - 2], top_k=5)
+    want = plain.find_similar_entities([7, n - 2], top_k=5)
+    assert seen[2] is bf16 and seen[3] is None
+    for g, w in zip(got["similar_entities"], want["similar_entities"]):
+        assert g["similar_entities"] == w["similar_entities"]
+        np.testing.assert_allclose(g["similarity_scores"], w["similarity_scores"], atol=2e-6)
+    engine.predict_tails(pairs[:1], top_k=20)  # k > 16: rank_scores + sort
+    assert len(seen) == 4

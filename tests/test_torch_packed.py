@@ -94,6 +94,72 @@ def test_packed_conv_plain_matches_pallas(p):
         _nhwc(got), np.asarray(pk.packed_rgb_to_nhwc(want, p)), **TOL)
 
 
+@pytest.mark.parametrize("cout", [8, 64, 72])
+def test_packed_conv_lrelu_plain_matches_pallas(cout):
+    """The discriminator's conv1: conv + bias + LeakyReLU, no PixelNorm. Cout
+    that is and is not a multiple of the CUDA kernels' 64-channel slab."""
+    b, c, h, w = 1, 8, 16, 32
+    x = _rand((b, h, w, c), 60)
+    wgt = _rand((3, 3, c, cout), 61, 0.2)
+    bias = _rand((cout,), 62)
+    want = pk.packed_conv(_phase_blocked(x, 2), jnp.asarray(wgt), jnp.asarray(bias),
+                          2, mode="highest", epilogue="lrelu", interpret=True)
+    got = tpk.packed_conv(_nchw(x), _oihw(wgt), torch.from_numpy(bias), epilogue="lrelu")
+    np.testing.assert_allclose(
+        _nhwc(got), np.asarray(pk.packed_rgb_to_nhwc(want, 2)), **TOL)
+    # and it is not the generator's epilogue
+    normed = tpk.packed_conv(_nchw(x), _oihw(wgt), torch.from_numpy(bias))
+    assert not np.allclose(_nhwc(normed), _nhwc(got), atol=1e-3)
+
+
+def test_packed_conv_none_epilogue_is_conv_plus_bias():
+    """epilogue="none" (the training dgrad conv): against the JAX kernel."""
+    b, c, cout, h, w = 1, 8, 8, 16, 32
+    x, wgt, bias = _rand((b, h, w, c), 70), _rand((3, 3, c, cout), 71, 0.2), _rand((cout,), 72)
+    want = pk.packed_conv(_phase_blocked(x, 2), jnp.asarray(wgt), jnp.asarray(bias),
+                          2, mode="highest", epilogue="none", interpret=True)
+    got = tpk.packed_conv(_nchw(x), _oihw(wgt), torch.from_numpy(bias), epilogue="none")
+    np.testing.assert_allclose(
+        _nhwc(got), np.asarray(pk.packed_rgb_to_nhwc(want, 2)), **TOL)
+    with pytest.raises(ValueError, match="epilogue"):
+        tpk.packed_conv(_nchw(x), _oihw(wgt), torch.from_numpy(bias), epilogue="relu")
+
+
+@pytest.mark.parametrize("epilogue", ["lrelu", "none"])
+@pytest.mark.parametrize("p,cout", [(2, 8), (4, 8), (2, 64), (2, 72)])
+def test_packed_convpool_plain_matches_pallas(p, cout, epilogue):
+    """conv + bias + LeakyReLU (or nothing) + 2x2 mean pool, activation before
+    the pool; the JAX kernel's phase count halves at the pool."""
+    b, c, h, w = 2, 8, 16, 32
+    x = _rand((b, h, w, c), 63)
+    wgt = _rand((3, 3, c, cout), 64, 0.2)
+    bias = _rand((cout,), 65)
+    want = pk.packed_convpool(_phase_blocked(x, p), jnp.asarray(wgt), jnp.asarray(bias),
+                              p, mode="highest", epilogue=epilogue, rows_per_step=8,
+                              interpret=True)
+    before = dict(tpk.launches)
+    got = tpk.packed_convpool(_nchw(x), _oihw(wgt), torch.from_numpy(bias),
+                              epilogue=epilogue)
+    assert tpk.launches == before  # CPU tensors take the plain twin
+    assert tuple(got.shape) == (b, cout, h // 2, w // 2)
+    np.testing.assert_allclose(
+        _nhwc(got), np.asarray(pk.packed_rgb_to_nhwc(want, p // 2)), **TOL)
+
+
+def test_packed_convpool_activates_before_the_pool():
+    """A window of +1, +1, -1, -1 pools to 0 if pooled first, to 0.4 if
+    activated first."""
+    x = torch.zeros((1, 8, 2, 2))
+    x[0, 0] = torch.tensor([[1.0, 1.0], [-1.0, -1.0]])
+    w = torch.zeros((32, 8, 3, 3))
+    w[:, 0, 1, 1] = 1.0  # identity tap on channel 0
+    got = tpk.packed_convpool(x, w, torch.zeros(32))
+    assert tuple(got.shape) == (1, 32, 1, 1)
+    np.testing.assert_allclose(got.numpy().ravel(), np.full(32, 0.4, np.float32), atol=1e-7)
+    with pytest.raises(ValueError, match="epilogue"):
+        tpk.packed_convpool(x, w, torch.zeros(32), epilogue="lrelu_norm")
+
+
 @pytest.mark.parametrize("emit_uint8", [False, True])
 @pytest.mark.parametrize("alpha", [1.0, 0.3])
 def test_packed_conv_rgb_plain_matches_pallas(alpha, emit_uint8):
@@ -132,12 +198,15 @@ def _kernel_args(kernel, device):
     if kernel == "packed_upconv":
         return (t(1, 32, 16, 16), t(32, 32, 3, 3), t(32)), {"rgb_w": t(3, 32), "rgb_b": t(3)}
     if kernel == "packed_conv":
-        return (t(1, 32, 16, 32), t(32, 32, 3, 3), t(32)), {}
+        return (t(1, 32, 16, 32), t(32, 32, 3, 3), t(32)), {"epilogue": "lrelu"}
+    if kernel == "packed_convpool":
+        return (t(1, 32, 16, 32), t(64, 32, 3, 3), t(64)), {}
     return ((t(1, 32, 16, 32), t(32, 32, 3, 3), t(32), t(3, 32), t(3), t(1, 3, 8, 16), 1.0),
             {"emit_uint8": True})
 
 
-@pytest.mark.parametrize("kernel", ["packed_upconv", "packed_conv", "packed_conv_rgb"])
+@pytest.mark.parametrize("kernel", ["packed_upconv", "packed_conv", "packed_conv_rgb",
+                                    "packed_convpool"])
 def test_wrapper_raises_off_cpu_without_cuda(kernel):
     """A tensor on neither the CPU nor CUDA (here ``meta``) must raise, not
     fall back to the plain twin, and count no launch."""
@@ -183,3 +252,28 @@ def test_cuda_weight_layouts_match_plain_twins():
     want = tpk.packed_conv_plain(x, wgt, bias)
     got = tpk._lrelu_norm(torch.from_numpy(pre) + bias[:, None, None])
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_convpool_weight_layout_matches_plain_twin():
+    """packed_convpool's prepared weights, read with the kernel's index
+    formula: slab s = co // CT holds w[s][c][ky][kx][co % CT] against input
+    row y+ky-1, column x+kx-1; the 2x2 mean of act(conv + bias) follows."""
+    rng = np.random.RandomState(4)
+    b, c, h, w = 2, 8, 6, 10
+    x = torch.from_numpy(rng.standard_normal((b, c, h, w)).astype(np.float32))
+    xpad = np.pad(x.numpy(), ((0, 0), (0, 0), (1, 1), (1, 1)))
+    for cout, ct in ((128, 64), (96, 32), (64, 64)):
+        wgt = torch.from_numpy(rng.standard_normal((cout, c, 3, 3)).astype(np.float32))
+        bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32))
+        wk = tpk.convpool_kernel_weights(wgt).numpy()
+        assert wk.shape == (cout // ct, c, 3, 3, ct)
+        pre = np.concatenate([
+            sum(np.einsum("bchw,co->bohw", xpad[:, :, ky: ky + h, kx: kx + w],
+                          wk[s, :, ky, kx]) for ky in range(3) for kx in range(3))
+            for s in range(cout // ct)], axis=1) + bias.numpy()[:, None, None]
+        act = np.where(pre >= 0, pre, 0.2 * pre)
+        # rows first, then columns, as the kernel sums them
+        rows = 0.5 * (act[:, :, 0::2] + act[:, :, 1::2])
+        pooled = 0.5 * (rows[..., 0::2] + rows[..., 1::2])
+        want = tpk.packed_convpool_plain(x, wgt, bias)
+        np.testing.assert_allclose(pooled, want.numpy(), rtol=1e-4, atol=1e-4)

@@ -197,3 +197,128 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(case):
             rank_fused.rank_scores_fused(pred, table)
         with pytest.raises(ValueError):
             rank_fused.rank_topk_local(pred, table, k, nvalid)
+
+
+# -- the bf16 table stream ------------------------------------------------------
+
+def _bf16_both(table):
+    """The same bf16 copy of a normalized table for JAX and for the port
+    (both round to nearest even: the bits are equal)."""
+    jax_bf16 = jnp.asarray(table).astype(jnp.bfloat16)
+    port_bf16 = _t(table).to(torch.bfloat16)
+    np.testing.assert_array_equal(np.asarray(jax_bf16).view(np.uint16),
+                                  port_bf16.view(torch.int16).numpy().view(np.uint16))
+    return jax_bf16, port_bf16
+
+
+def _planted_table():
+    """The case of tests/test_pallas_kernels.py: each query's top-10 rows
+    planted at scattered ids with distinct cosines 0.98, 0.95, ..."""
+    rng = np.random.RandomState(21)
+    n, n_pad, d, b, k = 4000, 4096, 128, 16, 10
+    base = rng.standard_normal((n_pad, d)).astype(np.float32)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    spots = rng.choice(n, size=(b, k), replace=False)
+    for bi in range(b):
+        qn = q[bi] / np.linalg.norm(q[bi])
+        for pos, ent in enumerate(spots[bi]):
+            r = base[ent] - np.dot(base[ent], qn) * qn
+            r /= np.linalg.norm(r)
+            c = 0.98 - 0.03 * pos
+            base[ent] = c * qn + np.sqrt(1.0 - c * c) * r
+    table = base / np.maximum(np.linalg.norm(base, axis=1, keepdims=True), 1e-12)
+    table[n:] = 0.0
+    return q, table.astype(np.float32), n, k, spots
+
+
+def _bf16_case(name):
+    if name == "planted":
+        pred, table, n, k, _ = _planted_table()
+        return pred, table, n, k
+    if name == "duplicates":  # bit-equal rows across the JAX kernel's tile boundary
+        base = np.random.default_rng(22).standard_normal((4096, 128)).astype(np.float32)
+        for dup in (2047, 2048, 3000):
+            base[dup] = base[5]
+        table = base / np.maximum(np.linalg.norm(base, axis=1, keepdims=True), 1e-12)
+        return np.tile(base[5:6], (8, 1)), table.astype(np.float32), 4096, 6
+    # "masked": nvalid barely over one JAX tile, zero rows past it
+    table = _table(23, 4096, 128, n_valid=2050)
+    return _pred(24, 8, 128), table, 2050, 10
+
+
+@pytest.mark.parametrize("case", ["planted", "duplicates", "masked"])
+def test_rank_topk_fused_bf16_matches_pallas(case):
+    """rank_topk_fused(table_bf16=...) against the JAX function in interpret
+    mode and against both packages' fp32 paths: ids equal, values to 2e-6;
+    exact duplicates in ascending id; rows at or past nvalid never returned."""
+    pred, table, n, k = _bf16_case(case)
+    jax_bf16, port_bf16 = _bf16_both(table)
+    wv, wi = pallas_rank.rank_topk_fused(jnp.asarray(pred), jnp.asarray(table), k, n,
+                                         table_bf16=jax_bf16, interpret=True)
+    before = dict(rank_fused.launches)
+    v, i = rank_fused.rank_topk_fused(_t(pred), _t(table), k, n, table_bf16=port_bf16)
+    assert rank_fused.launches == before  # CPU tensors take the plain twin
+    assert v.dtype == torch.float32 and i.dtype == torch.int64 and tuple(i.shape) == (len(pred), k)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(v.numpy(), np.asarray(wv), atol=ATOL)
+    fv, fi = rank_fused.rank_topk_fused(_t(pred), _t(table), k, n)
+    np.testing.assert_array_equal(i.numpy(), fi.numpy())
+    np.testing.assert_allclose(v.numpy(), fv.numpy(), atol=ATOL)
+    assert int(i.max()) < n
+    for row in i.numpy():
+        assert len(set(row.tolist())) == k
+    if case == "duplicates":
+        assert i[0, :4].tolist() == [5, 2047, 2048, 3000]
+
+
+def test_rank_topk_bf16_rescore_orders_what_bf16_cannot():
+    """Rows whose cosines differ by 1e-4, far below bf16's 2**-8 steps, tie
+    or cross in the approximate score; the pool of k + 16 holds them all and
+    the fp32 rescore orders them. A pool of only k would lose true members."""
+    rng = np.random.default_rng(30)
+    d, n, k = 128, 3000, 10
+    table = _table(31, n, d)
+    q = rng.standard_normal(d).astype(np.float32)
+    qn = q / np.linalg.norm(q)
+    spots = rng.choice(n, size=20, replace=False)
+    for pos, ent in enumerate(spots):
+        r = table[ent] - np.dot(table[ent], qn) * qn
+        r /= np.linalg.norm(r)
+        c = 0.9 + 1e-4 * pos
+        table[ent] = (c * qn + np.sqrt(1.0 - c * c) * r).astype(np.float32)
+    table = (table / np.linalg.norm(table, axis=1, keepdims=True)).astype(np.float32)
+    pred = np.tile(q, (8, 1))
+    tb = _t(table).to(torch.bfloat16)
+    v, i = rank_fused.rank_topk_fused(_t(pred), _t(table), k, n, table_bf16=tb)
+    fv, fi = rank_fused.rank_topk_fused(_t(pred), _t(table), k, n)
+    np.testing.assert_array_equal(i.numpy(), fi.numpy())
+    assert i[0].tolist() == spots[::-1][:k].tolist()
+    np.testing.assert_allclose(v.numpy(), fv.numpy(), atol=ATOL)
+    # the approximate order alone is another one
+    approx = rank.cosine_scores(rank.l2_normalize(_t(pred)).to(torch.bfloat16).float(),
+                                tb.float())
+    assert rank.top_k_lowest_index(approx, k)[1][0].tolist() != i[0].tolist()
+
+
+def test_rank_topk_bf16_small_tables_and_gates():
+    table = _table(40, 20, 32)
+    pred = _pred(41, 3, 32)
+    tb = _t(table).to(torch.bfloat16)
+    # pool m = min(k + 16, nvalid) = nvalid: everything is rescored
+    v, i = rank_fused.rank_topk_fused(_t(pred), _t(table), 5, 12, table_bf16=tb)
+    fv, fi = rank_fused.rank_topk_fused(_t(pred), _t(table), 5, 12)
+    np.testing.assert_array_equal(i.numpy(), fi.numpy())
+    np.testing.assert_allclose(v.numpy(), fv.numpy(), atol=ATOL)
+    assert rank_fused.BF16_MIN_N == pallas_rank.BF16_MIN_N == 200_000
+    assert rank_fused.BF16_RESCORE_POOL == pallas_rank._BF16_RESCORE_POOL
+    assert rank_fused.supports_topk_bf16((8, 128), 1000, 10)
+    assert not rank_fused.supports_topk_bf16((8, 24), 1000, 10)   # D % 16
+    assert not rank_fused.supports_topk_bf16((8, 128), 1000, 17)  # k > 16
+    with pytest.raises(ValueError, match="bfloat16"):
+        rank_fused.rank_topk_fused(_t(pred), _t(table), 5, 12, table_bf16=_t(table))
+    with pytest.raises(ValueError, match="mirror"):
+        rank_fused.rank_topk_fused(_t(pred), _t(table), 5, 12, table_bf16=tb[:10])
+    t24 = _table(42, 20, 24)
+    with pytest.raises(ValueError, match="D % 16"):
+        rank_fused.rank_topk_fused(_t(_pred(43, 3, 24)), _t(t24), 5, 12,
+                                   table_bf16=_t(t24).to(torch.bfloat16))
