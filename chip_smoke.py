@@ -77,8 +77,36 @@ Phases (any failure exits non-zero and prints no result line):
    2e-6); queries/s and p50 of both engines, called in turns. Last the CLI's
    ``predict_tails`` and ``model_info`` tasks in process, and the REPL fed
    from stdin;
-8. the last lines: the card's name and power limit, one JSON line with each
-   kernel's numbers, and ``{"ok": true, "device": {...}}``.
+8. the training kernels at path III's shapes (batch 2) against their plain
+   twins: ``packed_conv_wgrad`` at the six distinct (C, Cout, H) of the 1024²
+   train step, each entry within 1e-4 of dW's largest (sums over 2 to 4
+   million pixels in another order) and two runs on one input bit-equal;
+   ``packed_upconv`` with the "lrelu" epilogue at both stages, ``packed_conv``
+   "none" at its dgrad and recompute shapes (64 -> 32, 128 -> 64, 64 -> 128)
+   and ``packed_convpool`` "none" at the upconv's dgrad shapes (atol = rtol =
+   1e-4). Yardsticks: ``torch.nn.grad.conv2d_weight``; ``F.conv2d`` with
+   ``F.interpolate`` / ``F.leaky_relu`` / ``F.avg_pool2d``. Each of the four
+   ``ops/packed_vjp.py`` Functions: output and (dx, dw, db) on the card
+   against autograd through the plain twins, each within 1e-4 of the
+   tensor's largest entry (dw, which autograd takes from cuDNN: 5e-4). A
+   forward wrapper given a CUDA tensor that requires grad must raise;
+9. path III, training: ``progan_init_state`` at the default config, stage 8,
+   batch 2, ``packed_d = packed_g = True``, ``remat=True``, seeded images and
+   latents. ``progan_grads`` on the kernels against the same call on the
+   plain twins and against the unpacked autograd path (losses rtol 1e-4,
+   every gradient leaf within 2e-2 of its largest entry); 2 warm-up and 4
+   timed ``progan_train_step`` calls at alpha 0.5 and 1.0 with the launch
+   counts per step checked (12 ``packed_conv_wgrad``, 6 ``packed_upconv``,
+   32 ``packed_conv``, 8 ``packed_convpool``), every loss finite; steps/s,
+   p50, peak device memory with ``remat`` on and off; one
+   ``progan_train_step_accum`` step (A = 2) and one step with R1; a train
+   state saved, loaded and stepped against the uninterrupted run. Then
+   ``kg_init_state`` at 1,000,000 entities, 1,000 relations, batch 1,024 with
+   corrupted negatives and 8,192 sampled-softmax negatives: the first step's
+   metrics against the same step on the CPU (rtol 1e-4), steps/s and peak
+   memory;
+10. the last lines: the card's name and power limit, one JSON line with each
+    kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -119,6 +147,38 @@ LOGIT_TOL = 1e-4
 # fp32 dots summed in another order than torch.matmul differ by about 1 ulp
 # of a cosine near 1: the JAX package's own tolerance for its rank kernels.
 RANK_ATOL = 2e-6
+TRAIN_BATCH, TRAIN_STAGE = 2, 8  # the 1024² G/D step of the baseline's config 5
+TRAIN_WARMUP, TRAIN_STEPS = 2, 4
+# Launches of one progan_train_step with packed_d = packed_g = True at stage
+# 8: two packed stages each in G and D; D runs forward and backward on the
+# real and the fake batch and again under the G step, where its weights take
+# no gradient (no wgrad) but its input does.
+STEP_LAUNCHES = {"packed_upconv": 6, "packed_conv": 32, "packed_conv_rgb": 0,
+                 "packed_convpool": 8, "packed_conv_wgrad": 12}
+STEP_EPILOGUE_LAUNCHES = {
+    "packed_upconv[lrelu_norm]": 4, "packed_upconv[lrelu]": 2,
+    "packed_conv[lrelu_norm]": 4, "packed_conv[lrelu]": 8, "packed_conv[none]": 20,
+    "packed_convpool[lrelu]": 6, "packed_convpool[none]": 2,
+}
+PACKED_KERNELS = ("packed_upconv", "packed_conv", "packed_conv_rgb", "packed_convpool",
+                  "packed_conv_wgrad")
+# A gradient sums up to 4 million products in another order than cuDNN or the
+# plain twin: it is held to this share of the tensor's largest entry.
+GRAD_REL = 1e-4
+# A weight gradient that autograd takes through the plain twin comes from
+# cuDNN, whose fp32 algorithm at 512² is itself about 1e-4 of the largest
+# entry away from the plain correlation (packed_conv_wgrad_plain): the bound
+# of the JAX package's own wgrad tests.
+DW_VS_CUDNN_REL = 5e-4
+# A whole step's losses: the CPU tests' bound. Its gradients, leaf by leaf, as
+# a share of the leaf's largest entry: the CPU tests hold 1e-3 at 256²; at
+# 1024² a bias gradient sums 2 million signed terms that nearly cancel, and
+# another summation order moves the worst leaf (32 entries) by 3.1e-3 and
+# others by 1.1e-3 to 1.4e-3 (measured on an H100), so the bound here is
+# 2e-2. This check is of the step's wiring: a wrong tap, sign or scale moves
+# a leaf by its own size, and each kernel alone is held to 1e-4 in phase 8.
+STEP_GRAD_REL, STEP_LOSS_RTOL = 2e-2, 1e-4
+KG_TRAIN_BATCH, KG_CE_NEGATIVES, KG_TRAIN_STEPS = 1024, 8192, 4
 
 
 def card_line() -> str:
@@ -674,6 +734,413 @@ def phase_main_path(pk, pro_gan, engine_mod) -> tuple[dict, dict]:
     return counts, main
 
 
+def scaled_err(label: str, got: torch.Tensor, want: torch.Tensor, rel: float = GRAD_REL) -> float:
+    """max |got - want| over max |want|; raises above ``rel``."""
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: shape {tuple(got.shape)} vs {tuple(want.shape)}, "
+                             "or a value that is not finite")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    if err > rel * scale:
+        raise AssertionError(f"{label}: differs by {err:.3g}, more than {rel:g} of the "
+                             f"largest entry {scale:.3g}")
+    return err
+
+
+def phase_train_kernels(pk, packed_vjp, pro_gan) -> list[dict]:
+    """The backward's kernels at the 1024² train step's shapes (batch 2)
+    against their plain twins, and the four Functions against autograd."""
+    gen = torch.Generator(device="cuda").manual_seed(3456)
+    dev = "cuda"
+    B = TRAIN_BATCH
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    def conv_w(cout, cin):
+        return randn(cout, cin, 3, 3) * (math.sqrt(2.0) / math.sqrt(cin * 9))
+
+    # -- packed_conv_wgrad at the six distinct (C, Cout, H) of the step
+    wgrad_calls = []
+    for c, cout, h in ((32, 32, 1024), (32, 64, 1024), (64, 64, 512), (64, 128, 512),
+                       (128, 64, 512), (64, 32, 1024)):
+        x, dpre = pro_gan.lrelu(randn(B, c, h, h)), randn(B, cout, h, h)
+        got, again = pk.packed_conv_wgrad(x, dpre), pk.packed_conv_wgrad(x, dpre)
+        torch.cuda.synchronize()
+        if tuple(got.shape) != (cout, c, 3, 3) or not torch.equal(got, again):
+            raise AssertionError(f"packed_conv_wgrad ({c}, {cout}, {h}): wrong shape, or two "
+                                 "runs on one input differ in their bits")
+        err = scaled_err(f"packed_conv_wgrad ({c}, {cout}, {h})", got,
+                         pk.packed_conv_wgrad_plain(x, dpre))
+
+        def library():
+            return torch.nn.grad.conv2d_weight(x, (cout, c, 3, 3), dpre, padding=1)
+
+        wgrad_calls.append({
+            "call": f"C{c}->Cout{cout}@{h}", "shape_in": [B, c, h, h], "max_abs_err": err,
+            "max_abs_err_vs_library": (got - library()).abs().max().item(),
+            "largest_entry": got.abs().max().item(), "bit_equal_runs": True,
+            "ms": cuda_ms(lambda: pk.packed_conv_wgrad(x, dpre)),
+            "plain_ms": cuda_ms(lambda: pk.packed_conv_wgrad_plain(x, dpre), iters=3, warmup=1),
+            "library_ms": cuda_ms(library),
+            "flops": 2 * 9 * c * cout * B * h * h,
+            "bytes": 4 * (B * c * h * h + B * cout * h * h + 9 * c * cout),
+        })
+        del x, dpre, got, again
+    rows = [("packed_conv_wgrad", "packed_conv_wgrad",
+             "probgan_tpu/ops/pallas_packed.py:558", wgrad_calls)]
+
+    # -- packed_upconv "lrelu": the pre-norm recompute of the upconv's backward
+    up_calls = []
+    for label, c, cout, h in (("stage7", 128, 64, 256), ("stage8", 64, 32, 512)):
+        x = pro_gan.pixel_norm(randn(B, c, h, h))
+        w, b = conv_w(cout, c), 0.1 * randn(cout)
+        got = pk.packed_upconv(x, w, b, epilogue="lrelu")
+        want = pk.packed_upconv_plain(x, w, b, epilogue="lrelu")
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        up_calls.append({
+            "call": label, "shape_in": [B, c, h, h],
+            "max_abs_err": (got - want).abs().max().item(),
+            "ms": cuda_ms(lambda: pk.packed_upconv(x, w, b, epilogue="lrelu")),
+            "plain_ms": cuda_ms(lambda: pk.packed_upconv_plain(x, w, b, epilogue="lrelu")),
+            "library_ms": cuda_ms(lambda: F.leaky_relu(F.conv2d(
+                F.interpolate(x, scale_factor=2.0, mode="nearest"), w, b, padding=1), 0.2)),
+            "flops": 2 * 4 * c * cout * B * 4 * h * h,
+            "bytes": 4 * (B * c * h * h + B * cout * 4 * h * h + 9 * c * cout + cout),
+        })
+        del x, got, want
+    rows.append(("packed_upconv[lrelu]", "packed_upconv",
+                 "probgan_tpu/ops/pallas_packed.py:832", up_calls))
+
+    # -- the "none" epilogues: dgrad convs (flipped, transposed weights) and
+    # the 64 -> 128 recompute of convpool_lrelu's backward
+    none_calls, pool_calls = [], []
+    for c, cout, h in ((64, 32, 1024), (128, 64, 512), (64, 128, 512)):
+        x, w, b = randn(B, c, h, h), conv_w(cout, c), 0.1 * randn(cout)
+        got = pk.packed_conv(x, w, b, epilogue="none")
+        want = pk.packed_conv_plain(x, w, b, epilogue="none")
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        none_calls.append({
+            "call": f"C{c}->Cout{cout}@{h}", "shape_in": [B, c, h, h],
+            "max_abs_err": (got - want).abs().max().item(),
+            "ms": cuda_ms(lambda: pk.packed_conv(x, w, b, epilogue="none")),
+            "plain_ms": cuda_ms(lambda: pk.packed_conv_plain(x, w, b, epilogue="none")),
+            "library_ms": cuda_ms(lambda: F.conv2d(x, w, b, padding=1)),
+            "flops": 2 * 9 * c * cout * B * h * h,
+            "bytes": 4 * (B * c * h * h + B * cout * h * h + 9 * c * cout + cout),
+        })
+        del x, got, want
+    for c, cout, h in ((32, 64, 1024), (64, 128, 512)):
+        x, w, b = randn(B, c, h, h), conv_w(cout, c), 0.1 * randn(cout)
+        got = pk.packed_convpool(x, w, b, epilogue="none")
+        want = pk.packed_convpool_plain(x, w, b, epilogue="none")
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        pool_calls.append({
+            "call": f"C{c}->Cout{cout}@{h}", "shape_in": [B, c, h, h],
+            "max_abs_err": (got - want).abs().max().item(),
+            "ms": cuda_ms(lambda: pk.packed_convpool(x, w, b, epilogue="none")),
+            "plain_ms": cuda_ms(lambda: pk.packed_convpool_plain(x, w, b, epilogue="none")),
+            "library_ms": cuda_ms(lambda: F.avg_pool2d(F.conv2d(x, w, b, padding=1), 2)),
+            "flops": 2 * 9 * c * cout * B * h * h + 4 * cout * B * h * h,
+            "bytes": 4 * (B * c * h * h + B * cout * (h // 2) ** 2 + 9 * c * cout + cout),
+        })
+        del x, got, want
+    rows.append(("packed_conv[none]", "packed_conv", "probgan_tpu/ops/pallas_packed.py:382",
+                 none_calls))
+    rows.append(("packed_convpool[none]", "packed_convpool",
+                 "probgan_tpu/ops/pallas_packed.py:452", pool_calls))
+
+    # -- the four Functions on the card against autograd through the twins
+    def vjp(fn, x, w, b, cot):
+        x, w, b = (t.clone().requires_grad_(True) for t in (x, w, b))
+        y = fn(x, w, b)
+        return (y.detach(), *torch.autograd.grad(y, (x, w, b), cot))
+
+    for name, twin, c, cout, h, norm_in in (
+            ("conv_lrelu", lambda x, w, b: pk.packed_conv_plain(x, w, b, "lrelu"),
+             32, 32, 1024, False),
+            ("convpool_lrelu", lambda x, w, b: pk.packed_convpool_plain(x, w, b, "lrelu"),
+             64, 128, 512, False),
+            ("conv_lrelu_norm", lambda x, w, b: pk.packed_conv_plain(x, w, b, "lrelu_norm"),
+             64, 64, 512, True),
+            ("upconv_lrelu_norm", lambda x, w, b: pk.packed_upconv_plain(x, w, b),
+             64, 32, 512, True)):
+        x = randn(B, c, h, h)
+        x = pro_gan.pixel_norm(x) if norm_in else pro_gan.lrelu(x)
+        w, b = conv_w(cout, c), 0.1 * randn(cout)
+        with torch.no_grad():
+            cot = torch.randn(twin(x, w, b).shape, device=dev, generator=gen)
+        pk.reset_launches()
+        got = vjp(getattr(packed_vjp, name), x, w, b, cot)
+        n_launched = dict(pk.launches)
+        want = vjp(twin, x, w, b, cot)
+        if pk.launches != n_launched or n_launched["packed_conv_wgrad"] != 1:
+            raise AssertionError(f"{name}: launches {n_launched}, then {pk.launches} after "
+                                 "the twins: expected one wgrad and none from the twins")
+        errs = [scaled_err(f"packed_vjp.{name} {part}", g, t,
+                           DW_VS_CUDNN_REL if part == "dw" else GRAD_REL)
+                for part, g, t in zip(("y", "dx", "dw", "db"), got, want)]
+        print(f"  packed_vjp.{name} C{c}->Cout{cout}@{h}: max |diff| y {errs[0]:.3g}  dx "
+              f"{errs[1]:.3g}  dw {errs[2]:.3g}  db {errs[3]:.3g} vs autograd through the "
+              f"plain twin (within {GRAD_REL:g} of the largest entry, dw {DW_VS_CUDNN_REL:g}); "
+              f"launches "
+              f"{ {k: v for k, v in n_launched.items() if v} }")
+        del x, cot, got, want
+    pk.reset_launches()
+
+    # -- a forward-only kernel must not swallow a gradient
+    x = randn(1, 32, 16, 32).requires_grad_(True)
+    w, b = conv_w(32, 32), torch.zeros(32, device=dev)
+    rgb_args = (x, w, b, torch.zeros(3, 32, device=dev), torch.zeros(3, device=dev),
+                torch.zeros(1, 3, 8, 16, device=dev), 1.0)
+    for fn, args in ((pk.packed_conv, (x, w, b)), (pk.packed_convpool, (x, w, b)),
+                     (pk.packed_upconv, (x, w, b)), (pk.packed_conv_rgb, rgb_args)):
+        try:
+            fn(*args)
+        except RuntimeError as e:
+            if "packed_vjp" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{fn.__name__}: launched on a tensor that requires grad")
+        with torch.no_grad():
+            fn(*args)  # and goes on where no gradient is recorded
+    print("  the four forward wrappers raise on a CUDA tensor that requires grad")
+    return assemble_conv_rows(rows, B)
+
+
+def tree_rel_errs(label: str, got, want, tree_leaves, rel: float) -> float:
+    """Leaf by leaf, max |got - want| over the leaf's largest |want|; raises
+    above ``rel``. Returns the worst share."""
+    worst = 0.0
+    got, want = tree_leaves(got), tree_leaves(want)
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} leaves vs {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        if not bool(torch.isfinite(g).all()) or err > rel * scale + 1e-30:
+            raise AssertionError(f"{label}: leaf {i} {tuple(w.shape)} differs by {err:.3g}, "
+                                 f"more than {rel:g} of its largest entry {scale:.3g}")
+        if scale > 0:
+            worst = max(worst, err / scale)
+    return worst
+
+
+def check_metrics(label: str, got: dict, want: dict, rtol: float) -> None:
+    for name, w in want.items():
+        g, w = float(got[name]), float(w)
+        if not math.isfinite(g) or abs(g - w) > rtol * abs(w) + 1e-7:
+            raise AssertionError(f"{label}: {name} {g} vs {w}")
+
+
+def phase_train_path(pk, pro_gan, train_mod, train_state_mod, tree_mod) -> tuple[dict, dict]:
+    """Path III: progan_train_step at the default config's full width, and
+    kg_train_step at 1,000,000 entities."""
+    tree_leaves = tree_mod.tree_leaves
+    cfg = pro_gan.ProGANConfig()
+    stage, B = TRAIN_STAGE, TRAIN_BATCH
+    packed = dict(packed_d=True, packed_g=True)
+    state = train_mod.progan_init_state(0, cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    real = torch.tanh(torch.randn((B, cfg.resolution, cfg.resolution, 3), device="cuda",
+                                  generator=gen))
+    z = torch.randn((B, cfg.latent_dim), device="cuda", generator=gen)
+
+    # -- the gradients the step feeds to Adam: kernels vs twins vs unpacked
+    pk.reset_launches()
+    d_k, g_k, m_k = train_mod.progan_grads(state, real, z, 0.5, cfg, stage, **packed)
+    if dict(pk.launches) != STEP_LAUNCHES:
+        raise AssertionError(f"progan_grads launched {dict(pk.launches)}, expected "
+                             f"{STEP_LAUNCHES}")
+    with swap_in_plain_twins(pk, PACKED_KERNELS):
+        d_t, g_t, m_t = train_mod.progan_grads(state, real, z, 0.5, cfg, stage, **packed)
+    if dict(pk.launches) != STEP_LAUNCHES:
+        raise AssertionError("the plain twins launched a kernel")
+    d_u, g_u, m_u = train_mod.progan_grads(state, real, z, 0.5, cfg, stage)
+    grad_errs = {}
+    for other, d_o, g_o, m_o in (("plain twins", d_t, g_t, m_t), ("unpacked path", d_u, g_u, m_u)):
+        check_metrics(f"train step vs the {other}", m_k, m_o, STEP_LOSS_RTOL)
+        grad_errs[other] = {
+            "d": tree_rel_errs(f"D gradients vs the {other}", d_k, d_o, tree_leaves, STEP_GRAD_REL),
+            "g": tree_rel_errs(f"G gradients vs the {other}", g_k, g_o, tree_leaves, STEP_GRAD_REL)}
+        print(f"  step gradients vs the {other} on the card: worst leaf differs by "
+              f"{grad_errs[other]['d']:.3g} (D) and {grad_errs[other]['g']:.3g} (G) of its "
+              f"largest entry; losses within rtol {STEP_LOSS_RTOL:g}")
+    del d_k, g_k, d_t, g_t, d_u, g_u
+    torch.cuda.empty_cache()
+
+    # -- the counted, timed run
+    def step(st, alpha, **kw):
+        return train_mod.progan_train_step(st, real, z, alpha, cfg, stage, remat=True,
+                                           **packed, **kw)
+
+    st = state
+    for i in range(TRAIN_WARMUP):
+        st, _ = step(st, 0.5)
+    torch.cuda.synchronize()
+    pk.reset_launches()
+    times, losses = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        st, m = step(st, 0.5 if i % 2 == 0 else 1.0)
+        losses.append({k: float(v) for k, v in m.items()})  # reads the card: the step is done
+        times.append(time.perf_counter() - t0)
+        want = {k: v * (i + 1) for k, v in STEP_LAUNCHES.items()}
+        if dict(pk.launches) != want:
+            raise AssertionError(f"train step {i}: launches {dict(pk.launches)}, expected "
+                                 f"{STEP_LAUNCHES} per step")
+    counts = {**pk.launches, **pk.epilogue_launches}
+    for name, n in STEP_EPILOGUE_LAUNCHES.items():
+        if pk.epilogue_launches[name] != n * TRAIN_STEPS:
+            raise AssertionError(f"{name}: {pk.epilogue_launches[name]} launches over "
+                                 f"{TRAIN_STEPS} steps, expected {n} per step")
+    print(f"  launch counts over {TRAIN_STEPS} train steps: {dict(pk.launches)}; by epilogue "
+          f"{dict(pk.epilogue_launches)}")
+    for m in losses:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"a train step's metrics are not finite: {m}")
+    if int(st.d_opt[0].count) != TRAIN_WARMUP + TRAIN_STEPS:
+        raise AssertionError("the optimizer's count did not follow the steps")
+    if losses[0] == losses[-1]:
+        raise AssertionError("the losses did not move over the steps")
+
+    # -- peak memory with remat on and off (one step each, same state)
+    peaks = {}
+    for remat in (True, False):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, m = train_mod.progan_train_step(st, real, z, 1.0, cfg, stage, remat=remat, **packed)
+        float(m["d_loss"])
+        peaks[remat] = torch.cuda.max_memory_allocated() / 1e9
+
+    # -- accumulation (A = 2) and R1
+    real2 = torch.stack([real, real.flip(2)])
+    z2 = torch.stack([z, z.flip(0)])
+    _, m_acc = train_mod.progan_train_step_accum(st, real2, z2, 1.0, cfg, stage, **packed)
+    _, m_r1 = step(st, 1.0, r1_gamma=100.0)
+    _, m_plain = step(st, 1.0)
+    for label, m in (("accumulated step", m_acc), ("step with R1", m_r1)):
+        if not all(math.isfinite(float(v)) for v in m.values()):
+            raise AssertionError(f"{label}: metrics not finite: {m}")
+    if not float(m_r1["d_loss"]) > float(m_plain["d_loss"]):
+        raise AssertionError("R1 added nothing to the D loss")
+    print(f"  accumulated step (A = 2): d_loss {float(m_acc['d_loss']):.4f}, g_loss "
+          f"{float(m_acc['g_loss']):.4f}; step with R1 (gamma 100): d_loss "
+          f"{float(m_r1['d_loss']):.4f} against {float(m_plain['d_loss']):.4f} without")
+
+    # -- save -> load -> next step, against the uninterrupted run
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train_state.msgpack")
+        t0 = time.perf_counter()
+        train_state_mod.save_train_state(path, st, {"step": TRAIN_WARMUP + TRAIN_STEPS})
+        size_mb = os.path.getsize(path) / 1e6
+        template = train_mod.progan_init_state(1, cfg, device="cuda")
+        resumed, meta = train_state_mod.load_train_state(path, template)
+        file_s = time.perf_counter() - t0
+    if meta != {"step": TRAIN_WARMUP + TRAIN_STEPS}:
+        raise AssertionError(f"train state meta came back as {meta}")
+    if not all(torch.equal(a, b) and a.device == b.device
+               for a, b in zip(tree_leaves(resumed), tree_leaves(st))):
+        raise AssertionError("the loaded train state is not the saved one bit for bit")
+    del template
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        next_a, m_a = step(st, 1.0)
+        next_b, m_b = step(resumed, 1.0)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    check_metrics("resumed step vs the uninterrupted one", m_b, m_a, 1e-6)
+    resume_diff = max((a - b).abs().max().item()
+                      for a, b in zip(tree_leaves(next_b), tree_leaves(next_a)))
+    if resume_diff > 0.6e-3:
+        raise AssertionError(f"the resumed run's next state differs by {resume_diff:.3g}")
+    print(f"  train state: {size_mb:.0f} MB written and read back in {file_s:.1f} s; the "
+          f"resumed run's next step differs from the uninterrupted one's by {resume_diff:.3g} "
+          "at most (0 = bit-equal)")
+    del resumed, next_a, next_b, st, state, real2
+    torch.cuda.empty_cache()
+
+    per_step_ms = sorted(t * 1e3 for t in times)
+    train = {
+        "config": "ProGANConfig() 1024², stage 8", "batch": B, "steps": TRAIN_STEPS,
+        "steps_per_s": TRAIN_STEPS / sum(times), "p50_ms_per_step": float(np.median(per_step_ms)),
+        "step_s": times, "losses": losses, "launches_per_step": STEP_LAUNCHES,
+        "peak_device_memory_gb_remat": peaks[True],
+        "peak_device_memory_gb_no_remat": peaks[False],
+        "grad_share_of_largest_entry": grad_errs, "resume_max_abs_diff": resume_diff,
+        "train_state_mb": size_mb,
+    }
+    print(f"  {train['steps_per_s']:.3f} steps/s, p50 {train['p50_ms_per_step']:.1f} ms per "
+          f"step (batch {B}, {TRAIN_STEPS} steps, host clock to the metrics on the host); "
+          f"peak device memory {peaks[True]:.2f} GB with remat, {peaks[False]:.2f} GB without")
+
+    # -- the KG step at 1,000,000 entities
+    t0 = time.perf_counter()
+    kg = train_mod.kg_init_state(0, KG_ENTITIES, KG_RELATIONS, KG_DIM, KG_NOISE, KG_HIDDEN,
+                                 device="cuda")
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(5)
+    n = KG_TRAIN_BATCH
+
+    def ids(high, *shape):
+        return torch.from_numpy(rng.integers(0, high, shape)).cuda()
+
+    triplets = torch.stack([ids(KG_ENTITIES, n), ids(KG_RELATIONS, n), ids(KG_ENTITIES, n)], 1)
+    negatives = torch.stack([ids(KG_ENTITIES, n), ids(KG_RELATIONS, n)], 1)
+    ce_neg = ids(KG_ENTITIES, KG_CE_NEGATIVES)
+    ce_neg[:4] = triplets[:4, 2]  # collisions with a true tail are masked
+    noise = torch.Generator(device="cuda").manual_seed(6)
+    z0 = torch.randn((n, KG_NOISE), device="cuda", generator=noise)
+    torch.cuda.reset_peak_memory_stats()
+    _, m_card = train_mod.kg_train_step(kg, triplets, z=z0, negatives=negatives,
+                                        ce_negatives=ce_neg)
+    cpu = tree_mod.tree_map(lambda t: t.cpu(), kg)
+    _, m_cpu = train_mod.kg_train_step(cpu, triplets.cpu(), z=z0.cpu(),
+                                       negatives=negatives.cpu(), ce_negatives=ce_neg.cpu())
+    check_metrics("kg_train_step vs the same step on the CPU", m_card, m_cpu, STEP_LOSS_RTOL)
+    del cpu
+    kst = kg
+    for _ in range(2):
+        kst, _ = train_mod.kg_train_step(kst, triplets, noise, negatives=negatives,
+                                         ce_negatives=ce_neg)
+    torch.cuda.synchronize()
+    kg_times, kg_losses = [], []
+    for _ in range(KG_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        kst, m = train_mod.kg_train_step(kst, triplets, noise, negatives=negatives,
+                                         ce_negatives=ce_neg)
+        kg_losses.append({k: float(v) for k, v in m.items()})
+        kg_times.append(time.perf_counter() - t0)
+    kg_peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(v) for m in kg_losses for v in m.values()):
+        raise AssertionError(f"kg_train_step: metrics not finite: {kg_losses}")
+    # the first step's batch and noise again, after the updates
+    _, m_again = train_mod.kg_train_step(kst, triplets, z=z0, negatives=negatives,
+                                         ce_negatives=ce_neg)
+    if not float(m_again["g_loss"]) < float(m_card["g_loss"]):
+        raise AssertionError("kg_train_step: the generator loss did not fall on a repeated batch")
+    hits = float(train_mod.kg_eval_hits(kst.g_params, kst.node_emb, kst.rel_emb, triplets[:64],
+                                        z0[:64]))
+    train["kg"] = {
+        "entities": KG_ENTITIES, "relations": KG_RELATIONS, "batch": n,
+        "ce_negatives": KG_CE_NEGATIVES, "steps": KG_TRAIN_STEPS,
+        "steps_per_s": KG_TRAIN_STEPS / sum(kg_times),
+        "p50_ms_per_step": float(np.median(sorted(t * 1e3 for t in kg_times))),
+        "step_s": kg_times, "peak_device_memory_gb": kg_peak, "init_s": init_s,
+        "first_step": {k: float(v) for k, v in m_card.items()},
+        "same_batch_after_updates": {k: float(v) for k, v in m_again.items()},
+        "hit10_on_64_training_triplets": hits,
+    }
+    print(f"  kg_train_step at N = {KG_ENTITIES:,}: metrics agree with the CPU step (rtol "
+          f"{STEP_LOSS_RTOL:g}); {train['kg']['steps_per_s']:.2f} steps/s, p50 "
+          f"{train['kg']['p50_ms_per_step']:.1f} ms per step (batch {n}, {KG_CE_NEGATIVES} "
+          f"sampled negatives), peak device memory {kg_peak:.2f} GB; g_loss "
+          f"{float(m_card['g_loss']):.3f} -> {float(m_again['g_loss']):.3f}, Hit@10 on 64 "
+          f"training triplets {hits:.2f}")
+    return counts, train
+
+
 @contextlib.contextmanager
 def swap_in_plain_twins(module, names):
     """Inside, ``module.<name>`` is its plain twin ``module.<name>_plain``."""
@@ -769,7 +1236,7 @@ def phase_score_path(pk, image_ops, pro_gan, engine_mod, image_checkpoint_mod, c
     walk_s = time.perf_counter() - t0
     chunks = -(-WALK_FRAMES // engine_mod.WALK_CHUNK)
     want_counts = {"packed_upconv": chunks, "packed_conv": 0, "packed_conv_rgb": chunks,
-                   "packed_convpool": 0}
+                   "packed_convpool": 0, "packed_conv_wgrad": 0}
     if pk.launches != want_counts:
         raise AssertionError(f"latent_walk: launches {pk.launches}, expected {want_counts}")
     res = pro_gan.stage_resolution(WALK_STAGE)
@@ -1142,12 +1609,16 @@ def main() -> int:
     from probgan_tpu_torch.cli import infer as cli_infer
     from probgan_tpu_torch.core import checkpoint as checkpoint_mod
     from probgan_tpu_torch.core import image_checkpoint as image_checkpoint_mod
+    from probgan_tpu_torch.core import train_state as train_state_mod
+    from probgan_tpu_torch.core import tree as tree_mod
     from probgan_tpu_torch.engine import image as engine_mod
     from probgan_tpu_torch.engine import inference as inference_mod
+    from probgan_tpu_torch.engine import train as train_mod
     from probgan_tpu_torch.models import pro_gan
     from probgan_tpu_torch.ops import _build
     from probgan_tpu_torch.ops import image as image_ops
     from probgan_tpu_torch.ops import packed as pk
+    from probgan_tpu_torch.ops import packed_vjp
     from probgan_tpu_torch.ops import rank as rank_ops
     from probgan_tpu_torch.ops import rank_fused as rf
     from probgan_tpu_torch.utils.demo_checkpoint import make_image_checkpoint, make_kg_checkpoint
@@ -1197,6 +1668,19 @@ def main() -> int:
     kg_counts, kg = phase_kg_path(rf, inference_mod, checkpoint_mod, cli_infer,
                                   make_kg_checkpoint)
     counts.update(kg_counts)
+    torch.cuda.empty_cache()
+
+    print("phase 8: training kernels vs plain twins (batch 2, the 1024² train step's shapes)")
+    kernels += phase_train_kernels(pk, packed_vjp, pro_gan)
+    torch.cuda.empty_cache()
+
+    print("phase 9: path III, progan_train_step at 1024² and kg_train_step at "
+          f"N = {KG_ENTITIES:,}")
+    train_counts, train = phase_train_path(pk, pro_gan, train_mod, train_state_mod, tree_mod)
+    # the earlier paths' entries keep the counts of their own runs
+    for name in ("packed_conv_wgrad", "packed_upconv[lrelu]", "packed_conv[none]",
+                 "packed_convpool[none]"):
+        counts[name] = train_counts[name]
     for k in kernels:
         k["launches"] = counts[k["name"]]
         if k["launches"] < 1:
@@ -1204,7 +1688,7 @@ def main() -> int:
 
     print(card_line())
     print(json.dumps({"kernels": kernels, "main_path": main, "score_path": score_path,
-                      "kg_path": kg, "card": card},
+                      "kg_path": kg, "train_path": train, "card": card},
                      allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,6 +26,16 @@ rows keep the JAX order too.
 way (OIHW tensors -> HWIO numpy arrays): image checkpoints hold the JAX
 layout on disk, so that either package loads what the other wrote.
 
+Train states
+------------
+``convert_progan_train_state`` / ``convert_kg_train_state`` take a whole JAX
+train state (``probgan_tpu/engine/train.py``'s NamedTuples, or dicts with the
+same keys, holding numpy or jax arrays) with its ``optax.adam`` states
+``(ScaleByAdamState(count, mu, nu), EmptyState())`` and give the port's state
+(``engine/train.py``); ``*_train_state_to_jax`` go the other way, to plain
+dicts, lists and tuples of numpy arrays in the JAX layout. Adam's moments have
+their parameters' layout, so the parameter converters serve them.
+
 KG models
 ---------
 The KG MLPs (``probgan_tpu/models/kg_gan.py``) and the C17 checkpoint dict
@@ -144,3 +154,92 @@ def convert_kg_checkpoint(ckpt: dict, device="cpu") -> dict:
     out["generator"] = convert_kg_params(ckpt["generator"], device)
     out["discriminator"] = convert_kg_params(ckpt["discriminator"], device)
     return out
+
+
+# ---------------------------------------------------------------------------
+# train states
+# ---------------------------------------------------------------------------
+
+def _field(obj, name: str):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def _adam_state(opt_state, convert, device) -> tuple:
+    """optax.adam's state -> the port's, moments through ``convert``. The
+    count stays on the CPU (engine/train.py reads it on the host)."""
+    from probgan_tpu_torch.engine.train import EmptyState, ScaleByAdamState
+
+    adam = opt_state[0]
+    count = torch.tensor(int(np.asarray(_field(adam, "count"))), dtype=torch.int32)
+    return (ScaleByAdamState(count, convert(_field(adam, "mu"), device),
+                             convert(_field(adam, "nu"), device)), EmptyState())
+
+
+def _adam_state_to_jax(opt_state, to_jax) -> tuple:
+    adam = opt_state[0]
+    return ({"count": np.asarray(adam.count.cpu().numpy(), np.int32),
+             "mu": to_jax(adam.mu), "nu": to_jax(adam.nu)}, {})
+
+
+def convert_progan_train_state(jax_state, device="cpu"):
+    """A JAX ``ProGANTrainState`` -> the port's, on ``device``."""
+    from probgan_tpu_torch.engine.train import ProGANTrainState
+
+    g, d = convert_generator_params, convert_discriminator_params
+    return ProGANTrainState(
+        g_params=g(_field(jax_state, "g_params"), device),
+        d_params=d(_field(jax_state, "d_params"), device),
+        g_opt=_adam_state(_field(jax_state, "g_opt"), g, device),
+        d_opt=_adam_state(_field(jax_state, "d_opt"), d, device),
+        g_ema=g(_field(jax_state, "g_ema"), device),
+    )
+
+
+def progan_train_state_to_jax(state) -> dict:
+    """The inverse of ``convert_progan_train_state``: a dict of the state's
+    fields as numpy trees in the JAX layout."""
+    g, d = generator_params_to_jax, discriminator_params_to_jax
+    return {
+        "g_params": g(state.g_params), "d_params": d(state.d_params),
+        "g_opt": _adam_state_to_jax(state.g_opt, g),
+        "d_opt": _adam_state_to_jax(state.d_opt, d),
+        "g_ema": g(state.g_ema),
+    }
+
+
+def _kg_opt_tree(tree, device):
+    """(g_params, node_emb, rel_emb): the tree the KG generator's optimizer
+    covers."""
+    return (convert_kg_params(tree[0], device), _tensor(tree[1], device),
+            _tensor(tree[2], device))
+
+
+def _kg_tree_to_jax(params: dict) -> dict:
+    return {name: _dense_to_jax(layer) for name, layer in params.items()}
+
+
+def convert_kg_train_state(jax_state, device="cpu"):
+    """A JAX ``KGTrainState`` -> the port's, on ``device``."""
+    from probgan_tpu_torch.engine.train import KGTrainState
+
+    return KGTrainState(
+        node_emb=_tensor(_field(jax_state, "node_emb"), device),
+        rel_emb=_tensor(_field(jax_state, "rel_emb"), device),
+        g_params=convert_kg_params(_field(jax_state, "g_params"), device),
+        d_params=convert_kg_params(_field(jax_state, "d_params"), device),
+        g_opt=_adam_state(_field(jax_state, "g_opt"), _kg_opt_tree, device),
+        d_opt=_adam_state(_field(jax_state, "d_opt"), convert_kg_params, device),
+    )
+
+
+def kg_train_state_to_jax(state) -> dict:
+    """The inverse of ``convert_kg_train_state``."""
+    return {
+        "node_emb": _numpy(state.node_emb).copy(), "rel_emb": _numpy(state.rel_emb).copy(),
+        "g_params": _kg_tree_to_jax(state.g_params),
+        "d_params": _kg_tree_to_jax(state.d_params),
+        "g_opt": _adam_state_to_jax(
+            state.g_opt,
+            lambda t: (_kg_tree_to_jax(t[0]), _numpy(t[1]).copy(), _numpy(t[2]).copy())),
+        "d_opt": _adam_state_to_jax(state.d_opt, _kg_tree_to_jax),
+    }

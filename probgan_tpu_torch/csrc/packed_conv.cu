@@ -19,6 +19,10 @@
 // (with the matching halo patch), so each block reads them once from L2;
 // the epilogue runs in registers and writes the features once. The PixelNorm
 // step is a template parameter: the discriminator's form compiles it out.
+// Without PixelNorm a block need not own every output channel, so the grid's
+// z dimension walks (image, slab of CT = 64 or 32 output channels) as in
+// packed_convpool.cu: any Cout that is a multiple of 32 (the training
+// backward recomputes the 64 -> 128 conv of the discriminator this way).
 #include "conv_tile.cuh"
 
 namespace probgan {
@@ -29,38 +33,46 @@ template <int COUT, int EPI>
 __global__ void __launch_bounds__(kThreads, 2)
     packed_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
                        const float* __restrict__ bias, float* __restrict__ y, int C, int H,
-                       int W) {
+                       int W, int n_slabs) {
   using T = Tile<COUT>;
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / n_slabs;
+  const int slab = blockIdx.z % n_slabs;  // always 0 with PixelNorm
   const int y0 = blockIdx.y * T::TH;
   const int x0 = blockIdx.x * T::TW;
   float acc[kTM][kTN] = {};
-  conv3x3_accumulate<COUT>(x + static_cast<size_t>(b) * C * H * W, w, C, H, W, y0, x0, acc);
+  conv3x3_accumulate<COUT>(x + static_cast<size_t>(b) * C * H * W,
+                           w + static_cast<size_t>(slab) * C * 9 * COUT, C, H, W, y0, x0, acc);
 
   const int cg = threadIdx.x % T::NCG;
   const int pg = threadIdx.x / T::NCG;
   if constexpr (EPI == kLreluNorm)
     bias_lrelu_norm<COUT>(acc, bias, cg);
   else
-    bias_act<COUT, EPI == kLrelu>(acc, bias, cg);
+    bias_act<COUT, EPI == kLrelu>(acc, bias + slab * COUT, cg);
   const size_t plane = static_cast<size_t>(H) * W;
-  store_rows<COUT>(y + static_cast<size_t>(b) * COUT * plane +
+  store_rows<COUT>(y + (static_cast<size_t>(b) * n_slabs + slab) * COUT * plane +
                        static_cast<size_t>(y0 + pg / 4) * W + x0 + (pg % 4) * kTM,
                    acc, cg, plane);
 }
 
 template <int COUT>
 int launch(const float* x, const float* w, const float* bias, float* y, int B, int C, int H,
-           int W, int epilogue, cudaStream_t stream) {
+           int W, int cout, int epilogue, cudaStream_t stream) {
   using T = Tile<COUT>;
-  if (C % kCC || W % T::TW || H % T::TH) return cudaErrorInvalidValue;
-  const dim3 grid(W / T::TW, H / T::TH, B);
+  if (C % kCC || W % T::TW || H % T::TH || cout % COUT) return cudaErrorInvalidValue;
+  const int n_slabs = cout / COUT;
+  if (epilogue == kLreluNorm && n_slabs != 1) return cudaErrorInvalidValue;
+  const dim3 grid(W / T::TW, H / T::TH, B * n_slabs);
+  if (grid.z > 65535u) return cudaErrorInvalidValue;
   if (epilogue == kLreluNorm)
-    packed_conv_kernel<COUT, kLreluNorm><<<grid, kThreads, 0, stream>>>(x, w, bias, y, C, H, W);
+    packed_conv_kernel<COUT, kLreluNorm>
+        <<<grid, kThreads, 0, stream>>>(x, w, bias, y, C, H, W, n_slabs);
   else if (epilogue == kLrelu)
-    packed_conv_kernel<COUT, kLrelu><<<grid, kThreads, 0, stream>>>(x, w, bias, y, C, H, W);
+    packed_conv_kernel<COUT, kLrelu>
+        <<<grid, kThreads, 0, stream>>>(x, w, bias, y, C, H, W, n_slabs);
   else if (epilogue == kNone)
-    packed_conv_kernel<COUT, kNone><<<grid, kThreads, 0, stream>>>(x, w, bias, y, C, H, W);
+    packed_conv_kernel<COUT, kNone>
+        <<<grid, kThreads, 0, stream>>>(x, w, bias, y, C, H, W, n_slabs);
   else
     return cudaErrorInvalidValue;
   return static_cast<int>(cudaGetLastError());
@@ -68,14 +80,18 @@ int launch(const float* x, const float* w, const float* bias, float* y, int B, i
 
 }  // namespace probgan
 
-// x [B][C][H][W], w [C][3][3][Cout] (eq-LR scaled), bias [Cout] -> y [B][Cout][H][W];
-// epilogue 0 = lrelu_norm, 1 = lrelu, 2 = none.
+// x [B][C][H][W], w [Cout/CT][C][3][3][CT] (eq-LR scaled; CT = 64 when Cout is
+// a multiple of 64, else 32: for Cout 32 or 64 that is [C][3][3][Cout]),
+// bias [Cout] -> y [B][Cout][H][W]; epilogue 0 = lrelu_norm (Cout 32 or 64
+// only), 1 = lrelu, 2 = none.
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int probgan_packed_conv(const float* x, const float* w, const float* bias, float* y,
                                    int B, int C, int H, int W, int cout, int epilogue,
                                    void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (cout == 64) return probgan::launch<64>(x, w, bias, y, B, C, H, W, epilogue, s);
-  if (cout == 32) return probgan::launch<32>(x, w, bias, y, B, C, H, W, epilogue, s);
+  if (cout > 0 && cout % 64 == 0)
+    return probgan::launch<64>(x, w, bias, y, B, C, H, W, cout, epilogue, s);
+  if (cout > 0 && cout % 32 == 0)
+    return probgan::launch<32>(x, w, bias, y, B, C, H, W, cout, epilogue, s);
   return cudaErrorInvalidValue;
 }

@@ -1,6 +1,8 @@
 // packed_upconv: nearest-2x upsample -> 3x3 SAME conv + bias -> LeakyReLU(0.2)
 // -> PixelNorm, fp32 NCHW [B][C][H][W] -> [B][Cout][2H][2W]; optionally also
 // toRGB (1x1 conv + bias) of the INPUT at input resolution [B][3][H][W].
+// The PixelNorm step is a template parameter: without it ("lrelu") the kernel
+// gives the pre-norm tensor that the training backward recomputes.
 //
 // Replaces probgan_tpu/ops/pallas_packed.py:832 `packed_upconv`, conv1 of
 // the 1024^2 generator's stages 7 (128 -> 64 channels, 256^2 -> 512^2) and
@@ -31,7 +33,7 @@
 
 namespace probgan {
 
-template <int COUT>
+template <int COUT, bool NORM>
 __global__ void __launch_bounds__(kThreads, 2)
     packed_upconv_kernel(const float* __restrict__ x, const float* __restrict__ wk,
                          const float* __restrict__ bias, const float* __restrict__ rgb_w,
@@ -117,7 +119,10 @@ __global__ void __launch_bounds__(kThreads, 2)
       rgb[((static_cast<size_t>(b) * 3 + k) * H + i0 + pr) * W + j0 + pc] =
           racc[k] + __ldg(rgb_b + k);
   }
-  bias_lrelu_norm<COUT>(acc, bias, cg);
+  if constexpr (NORM)
+    bias_lrelu_norm<COUT>(acc, bias, cg);
+  else
+    bias_act<COUT, true>(acc, bias, cg);
   const int Wo = 2 * W;
   const size_t plane = static_cast<size_t>(2 * H) * Wo;
   store_rows<COUT>(y + static_cast<size_t>(b) * COUT * plane +
@@ -127,13 +132,19 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 template <int COUT>
 int launch(const float* x, const float* wk, const float* bias, const float* rgb_w,
-           const float* rgb_b, float* y, float* rgb, int B, int C, int H, int W,
+           const float* rgb_b, float* y, float* rgb, int B, int C, int H, int W, int epilogue,
            cudaStream_t stream) {
   using T = Tile<COUT>;
   if (C % kCC || W % (T::TW / 2) || H % T::TH) return cudaErrorInvalidValue;
   const dim3 grid(W / (T::TW / 2), 2 * (H / T::TH), B);
-  packed_upconv_kernel<COUT>
-      <<<grid, kThreads, 0, stream>>>(x, wk, bias, rgb_w, rgb_b, y, rgb, C, H, W);
+  if (epilogue == 0)
+    packed_upconv_kernel<COUT, true>
+        <<<grid, kThreads, 0, stream>>>(x, wk, bias, rgb_w, rgb_b, y, rgb, C, H, W);
+  else if (epilogue == 1)
+    packed_upconv_kernel<COUT, false>
+        <<<grid, kThreads, 0, stream>>>(x, wk, bias, rgb_w, rgb_b, y, rgb, C, H, W);
+  else
+    return cudaErrorInvalidValue;
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -141,14 +152,16 @@ int launch(const float* x, const float* wk, const float* bias, const float* rgb_
 
 // x [B][C][H][W], wk [2][C][2][2][2][Cout] (pre-summed, eq-LR scaled),
 // bias [Cout], rgb_w [3][C] and rgb_b [3] or both null -> y [B][Cout][2H][2W]
-// and, when rgb_w is given, rgb [B][3][H][W]. Returns the cudaError_t of the
-// launch (0 = launched).
+// and, when rgb_w is given, rgb [B][3][H][W]; epilogue 0 = lrelu_norm,
+// 1 = lrelu. Returns the cudaError_t of the launch (0 = launched).
 extern "C" int probgan_packed_upconv(const float* x, const float* wk, const float* bias,
                                      const float* rgb_w, const float* rgb_b, float* y,
                                      float* rgb, int B, int C, int H, int W, int cout,
-                                     void* stream) {
+                                     int epilogue, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (cout == 64) return probgan::launch<64>(x, wk, bias, rgb_w, rgb_b, y, rgb, B, C, H, W, s);
-  if (cout == 32) return probgan::launch<32>(x, wk, bias, rgb_w, rgb_b, y, rgb, B, C, H, W, s);
+  if (cout == 64)
+    return probgan::launch<64>(x, wk, bias, rgb_w, rgb_b, y, rgb, B, C, H, W, epilogue, s);
+  if (cout == 32)
+    return probgan::launch<32>(x, wk, bias, rgb_w, rgb_b, y, rgb, B, C, H, W, epilogue, s);
   return cudaErrorInvalidValue;
 }

@@ -11,12 +11,21 @@ Internally activations are NCHW. The public functions keep the JAX shapes:
 latents ``[B, L]`` in, ``generator_rgb`` -> ``[B, R, R, 3]`` fp32 and
 ``generator_apply`` -> ``[B, R, R, 3]`` uint8, both NHWC;
 ``discriminator_apply`` takes ``[B, R, R, 3]`` float images and returns
-logits ``[B]``. The training-only arguments of the JAX functions (``remat``,
-``stddev_axis``, ``packed_mode``) are not ported.
+logits ``[B]``. Of the training-only arguments of the JAX functions,
+``remat`` and ``packed_mode`` are ported; ``stddev_axis`` (a batch sharded
+over a mesh) is not.
 
 Precision grades: "high" and "highest" both mean fp32 with TF32 off
 (``_require_fp32_grade``). The bf16 grades (None, "default", "fast") need a
-bf16 kernel grade the port does not have yet and raise NotImplementedError.
+bf16 kernel grade the port does not have yet and raise NotImplementedError;
+so do the bf16 kernel grades "default" and "mid" of ``packed_mode``.
+
+``remat=True`` checkpoints each unpacked stage block with
+``torch.utils.checkpoint`` (non-reentrant, so a second-order term can pass
+through it): the block's activations are dropped after the forward and the
+whole block, its convs included, runs again in the backward. The JAX package's
+policy keeps the conv outputs and recomputes only the elementwise chains
+between them; the port recomputes more and stores less. No number changes.
 
 Resolution of stage s is ``4 * 2**s``; channels ``nf(s) = min(fmap_base //
 2**s, fmap_max)``.
@@ -29,6 +38,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from probgan_tpu_torch.ops.fused_upconv import upsample2x_conv3x3
 
@@ -69,6 +79,25 @@ def _require_fp32_grade(precision) -> None:
         )
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _require_fp32_packed_mode(packed_mode) -> None:
+    """``packed_mode`` names the kernel grade of the differentiable packed
+    path. The port's kernels have one grade, fp32, which serves "high" and
+    "highest"; the JAX package's "default" and "mid" are bf16 grades."""
+    if packed_mode is not None and packed_mode not in _FP32_GRADES:
+        raise NotImplementedError(
+            f"packed_mode {packed_mode!r} needs a bf16 kernel grade, which the "
+            f"port does not have yet (ROADMAP \"Next, in order\": the bf16 / "
+            f"TF32 grades); use one of {_FP32_GRADES}"
+        )
+
+
+def _block_fn(fn, remat: bool):
+    """``fn`` or, with ``remat``, ``fn`` under activation checkpointing."""
+    if not remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -112,8 +141,12 @@ def pixel_norm(x: torch.Tensor) -> torch.Tensor:
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
-    """[B, C, H, W] -> [B, C, 2H, 2W] nearest-neighbor."""
-    return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+    """[B, C, H, W] -> [B, C, 2H, 2W] nearest-neighbor. Written as a
+    broadcast, whose backward is a plain sum: ``repeat_interleave``'s is an
+    ``index_add_`` with atomics on the card, and its bits change from run to
+    run."""
+    b, c, h, w = x.shape
+    return x[:, :, :, None, :, None].expand(b, c, h, 2, w, 2).reshape(b, c, 2 * h, 2 * w)
 
 
 def downsample_avg_2x(x: torch.Tensor) -> torch.Tensor:
@@ -180,13 +213,16 @@ def _g_block(block: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def generator_features(params: dict, z: torch.Tensor, config: ProGANConfig,
-                       stage: int) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Run the trunk to ``stage``; returns (x_stage, x_prev_or_None), NCHW."""
+                       stage: int, remat: bool = False,
+                       ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Run the trunk to ``stage``; returns (x_stage, x_prev_or_None), NCHW.
+    ``remat=True`` checkpoints each stage block (see the module docstring)."""
+    block_fn = _block_fn(_g_block, remat)
     x = _g_base(params, z, config)
     prev = None
     for s in range(1, stage + 1):
         prev = x
-        x = _g_block(params["blocks"][s - 1], x)
+        x = block_fn(params["blocks"][s - 1], x)
     return x, prev
 
 
@@ -240,25 +276,63 @@ def _g_late_packed(params: dict, x_entry: torch.Tensor, config: ProGANConfig,
     raise AssertionError("unreachable")
 
 
+def _g_rgb_packed_train(params: dict, z: torch.Tensor, config: ProGANConfig,
+                        s0: int, stage: int, alpha, remat: bool) -> torch.Tensor:
+    """Differentiable packed generator: stages [s0, stage] run on the kernels
+    through ops/packed_vjp.py (``upconv_lrelu_norm`` / ``conv_lrelu_norm``),
+    forward and backward. toRGB and the progressive blend stay torch ops (1x1
+    convs to 3 channels). The Functions save only their inputs and recompute
+    activations in the backward, so the packed stages take no checkpointing."""
+    from probgan_tpu_torch.ops import packed_vjp
+
+    block_fn = _block_fn(_g_block, remat)
+    x = _g_base(params, z, config)
+    for s in range(1, s0):
+        x = block_fn(params["blocks"][s - 1], x)
+    x = x.float()
+    prev = x  # stage s0-1 features, the blend's operand when s0 == stage
+    for s in range(s0, stage + 1):
+        if s == stage:
+            prev = x
+        block = params["blocks"][s - 1]
+        c1, c2 = block["conv1"], block["conv2"]
+        x = packed_vjp.upconv_lrelu_norm(x, eq_scaled_conv_w(c1), c1["b"])
+        x = packed_vjp.conv_lrelu_norm(x, eq_scaled_conv_w(c2), c2["b"])
+    rgb = eq_conv(params["to_rgb"][stage], x, gain=1.0)
+    rgb_prev = upsample_nearest_2x(eq_conv(params["to_rgb"][stage - 1], prev, gain=1.0))
+    rgb = rgb_prev + alpha * (rgb - rgb_prev)
+    return rgb.permute(0, 2, 3, 1).contiguous()
+
+
 def generator_rgb(params: dict, z: torch.Tensor, config: ProGANConfig,
                   stage: int, alpha: float = 1.0, precision="high",
-                  packed: bool = False) -> torch.Tensor:
+                  packed: bool = False, remat: bool = False,
+                  packed_mode: str | None = None) -> torch.Tensor:
     """Latent [B, L] -> pre-tanh RGB [B, R, R, 3] (NHWC) at resolution
     ``4 * 2**stage`` with progressive alpha blend:
     lerp(upsample(toRGB_{s-1}(x_{s-1})), toRGB_s(x_s), alpha).
 
     ``packed=True`` routes the eligible late stages (packed_start_stage)
     through ops/packed.py: the kernels for CUDA tensors, their plain twins for
-    CPU tensors. ``precision`` defaults to "high" (the JAX package's default
-    None is a bf16 grade the port does not have)."""
+    CPU tensors. That path is forward-only: on the card it raises when a
+    gradient is wanted. ``packed_mode`` ("high" or "highest") instead selects
+    the DIFFERENTIABLE packed path (``_g_rgb_packed_train``), the train step's
+    configuration. ``remat``: see ``generator_features``. ``precision``
+    defaults to "high" (the JAX package's default None is a bf16 grade the
+    port does not have)."""
     _require_fp32_grade(precision)
+    _require_fp32_packed_mode(packed_mode)
+    if packed_mode is not None and stage > 0:
+        s0 = packed_start_stage(config, stage)
+        if s0 is not None:
+            return _g_rgb_packed_train(params, z, config, s0, stage, alpha, remat)
     s0 = packed_start_stage(config, stage) if packed else None
     if s0 is not None:
         x = _g_base(params, z, config)
         for s in range(1, s0):
             x = _g_block(params["blocks"][s - 1], x)
         return _g_late_packed(params, x, config, s0, stage, alpha)
-    x, prev = generator_features(params, z, config, stage)
+    x, prev = generator_features(params, z, config, stage, remat)
     rgb = eq_conv(params["to_rgb"][stage], x, gain=1.0)
     if stage > 0:
         rgb_prev = upsample_nearest_2x(
@@ -374,17 +448,19 @@ def _d_early_packed(params: dict, image: torch.Tensor, stage: int, alpha,
     """fromRGB + the first ``n`` discriminator blocks on the kernels of
     ops/packed.py (conv1: ``packed_conv`` with the "lrelu" epilogue; conv2
     and the pool: ``packed_convpool``, whose full-resolution output never
-    reaches device memory). ``image`` is NCHW; returns NCHW features at stage
-    ``stage - n``. The progressive blend sits after the first block, as in
-    the unpacked loop."""
-    from probgan_tpu_torch.ops import packed as pk
+    reaches device memory), through their differentiable forms in
+    ops/packed_vjp.py: this path serves scoring and the train step's
+    discriminator, forward and backward. ``image`` is NCHW; returns NCHW
+    features at stage ``stage - n``. The progressive blend sits after the
+    first block, as in the unpacked loop."""
+    from probgan_tpu_torch.ops import packed_vjp
 
     x = _from_rgb(params, image, stage).float().contiguous()
     for s in range(stage, stage - n, -1):
         block = params["blocks"][s - 1]
         c1, c2 = block["conv1"], block["conv2"]
-        x = pk.packed_conv(x, eq_scaled_conv_w(c1), c1["b"], epilogue="lrelu")
-        x = pk.packed_convpool(x, eq_scaled_conv_w(c2), c2["b"], epilogue="lrelu")
+        x = packed_vjp.conv_lrelu(x, eq_scaled_conv_w(c1), c1["b"])
+        x = packed_vjp.convpool_lrelu(x, eq_scaled_conv_w(c2), c2["b"])
         if s == stage and stage > 0:
             skip = _from_rgb(params, downsample_avg_2x(image), stage - 1)
             x = skip + alpha * (x - skip)
@@ -393,25 +469,37 @@ def _d_early_packed(params: dict, image: torch.Tensor, stage: int, alpha,
 
 def discriminator_apply(params: dict, image: torch.Tensor, config: ProGANConfig,
                         stage: int, alpha: float = 1.0, precision="high",
-                        packed: bool = False) -> torch.Tensor:
+                        packed: bool = False, remat: bool = False,
+                        packed_mode: str | None = None) -> torch.Tensor:
     """Image [B, R, R, 3] (NHWC float, roughly [-1, 1]) -> realness logit
     [B]. Mirrors the generator's progressive blend: after the first down
     block, lerp with fromRGB of the downsampled image.
 
     ``packed=True`` routes the leading stages (packed_d_stage_count) through
     ops/packed.py: the kernels for CUDA tensors, their plain twins for CPU
-    tensors. ``precision``: "high" or "highest", both fp32 with TF32 off (the
-    JAX package's "high" is a 3-term bf16 split on this path, so the port's
-    "high" is the closer of the two to the fp32 reference)."""
+    tensors; the path is differentiable (ops/packed_vjp.py). ``precision``:
+    "high" or "highest", both fp32 with TF32 off (the JAX package's "high" is
+    a 3-term bf16 split on this path, so the port's "high" is the closer of
+    the two to the fp32 reference). ``packed_mode`` ("high" or "highest"; the
+    train step passes it) makes the packed gate a matter of shapes alone.
+    ``remat``: see ``generator_features``."""
     _require_fp32_grade(precision)
+    _require_fp32_packed_mode(packed_mode)
     image = image.float().permute(0, 3, 1, 2).contiguous()
-    n = packed_d_stage_count(config, stage, precision) if packed else 0
+    n = 0
+    if packed and packed_mode is not None:
+        # Structure-only gate: which stages the kernels take is a property of
+        # the shapes, not of the precision.
+        n = packed_d_stage_count(config, stage, "highest")
+    elif packed:
+        n = packed_d_stage_count(config, stage, precision)
+    block_fn = _block_fn(_d_block, remat)
     if n > 0:
         x = _d_early_packed(params, image, stage, alpha, n)
     else:
         x = _from_rgb(params, image, stage)
     for s in range(stage - n, 0, -1):
-        x = _d_block(params["blocks"][s - 1], x)
+        x = block_fn(params["blocks"][s - 1], x)
         if s == stage and stage > 0:
             skip = _from_rgb(params, downsample_avg_2x(image), stage - 1)
             x = skip + alpha * (x - skip)

@@ -1,12 +1,13 @@
 """The late-stage conv kernels of the image G and D: Python side.
 
-Four kernels carry stages 7-8 of the 1024² generator and the first two
-blocks of its discriminator, each written by hand in CUDA C++ for Hopper
-(``csrc/*.cu``) and keeping the JAX names of the Pallas kernels they replace
-(``probgan_tpu/ops/pallas_packed.py``):
+Five kernels carry stages 7-8 of the 1024² generator and the first two
+blocks of its discriminator, forward and backward, each written by hand in
+CUDA C++ for Hopper (``csrc/*.cu``) and keeping the JAX names of the Pallas
+kernels they replace (``probgan_tpu/ops/pallas_packed.py``):
 
 - ``packed_upconv``:   nearest-2x upsample -> conv3x3 + bias -> LeakyReLU ->
-  PixelNorm, optionally with the toRGB of its input;
+  PixelNorm (``"lrelu_norm"``) or LeakyReLU alone (``"lrelu"``, the pre-norm
+  tensor the backward recomputes), optionally with the toRGB of its input;
 - ``packed_conv``:     conv3x3 + bias -> epilogue: ``"lrelu_norm"``
   (LeakyReLU -> PixelNorm, the generator), ``"lrelu"`` (the discriminator's
   conv1) or ``"none"``;
@@ -14,7 +15,16 @@ blocks of its discriminator, each written by hand in CUDA C++ for Hopper
   alpha blend with the upsampled previous RGB -> (tanh -> uint8), NHWC out;
 - ``packed_convpool``: conv3x3 + bias -> LeakyReLU (``"lrelu"``, the
   discriminator's conv2) or nothing (``"none"``) -> 2x2 mean pool; only the
-  pooled tensor is written.
+  pooled tensor is written;
+- ``packed_conv_wgrad``: the weight gradient of a conv3x3 from its input and
+  the cotangent of its pre-bias output.
+
+The four forward kernels record no autograd graph. On the CPU their plain
+twins are ordinary differentiable torch code; on a CUDA tensor a wrapper
+raises when a gradient is wanted (grad mode on and an argument that
+``requires_grad``) instead of returning a tensor whose gradient would
+silently be zero. The differentiable forms are the ``torch.autograd.Function``s
+of ``ops/packed_vjp.py``, whose backward runs on these same kernels.
 
 The TPU kernels' phase-blocked layout, revolving DMAs and bf16 K-stacking are
 not ported: these take plain dense NCHW fp32 tensors and OIHW weights with the
@@ -46,37 +56,68 @@ from probgan_tpu_torch.ops.fused_upconv import parity_weights, upsample2x_conv3x
 # Launches of each kernel since the last reset_launches(); a wrapper adds one
 # where it launches its kernel and nowhere else.
 launches = {"packed_upconv": 0, "packed_conv": 0, "packed_conv_rgb": 0,
-            "packed_convpool": 0}
+            "packed_convpool": 0, "packed_conv_wgrad": 0}
+# The same launches by epilogue, "<kernel>[<epilogue>]", for the kernels that
+# have more than one.
+epilogue_launches = {
+    "packed_upconv[lrelu_norm]": 0, "packed_upconv[lrelu]": 0,
+    "packed_conv[lrelu_norm]": 0, "packed_conv[lrelu]": 0, "packed_conv[none]": 0,
+    "packed_convpool[lrelu]": 0, "packed_convpool[none]": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    "packed_upconv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "packed_upconv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "packed_conv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "packed_convpool": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv_rgb": [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _I,
                         _I, _I, _I, _I, _I, _P],
 }
 # Output channel counts the kernels are instantiated for (csrc/conv_tile.cuh).
-# packed_convpool tiles Cout in slabs of 64 (or 32) and takes any multiple.
+# PixelNorm needs every channel in one block, so "lrelu_norm" takes only
+# these; without it packed_conv and packed_convpool tile Cout in slabs of 64
+# (or 32) and take any multiple of 32.
 SUPPORTED_COUT = (32, 64)
 # packed_conv's epilogues, by their code in csrc/packed_conv.cu.
 CONV_EPILOGUES = {"lrelu_norm": 0, "lrelu": 1, "none": 2}
+UPCONV_EPILOGUES = {"lrelu_norm": 0, "lrelu": 1}
 POOL_EPILOGUES = ("lrelu", "none")
+# packed_conv_wgrad splits the pixels over about this many blocks in all: two
+# for each of an H100's 132 multiprocessors. A constant, not the card's own
+# count, so that the sums' order, and with it dW's bits, is the same anywhere.
+WGRAD_BLOCKS = 264
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, epilogue_launches):
+        for name in counts:
+            counts[name] = 0
 
 
-def _launch(name: str, x: torch.Tensor, *args) -> None:
+def _launch(name: str, x: torch.Tensor, *args, epilogue: str | None = None) -> None:
     _build.launch(name, _ARGTYPES[name], x.device, *args)
     launches[name] += 1
+    if epilogue is not None:
+        epilogue_launches[f"{name}[{epilogue}]"] += 1
 
 
 def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
+
+
+def _refuse_grad(name: str, instead: str, *tensors: torch.Tensor | None) -> None:
+    """Raise when autograd would record through a kernel launch: the output
+    of a launch has no ``grad_fn``, so a loss built on it would have zero
+    gradients without any error."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: this kernel is forward-only and records no autograd "
+            f"graph, but an argument requires grad; use ops.packed_vjp.{instead} "
+            "(or call it under torch.no_grad())"
+        )
 
 
 def _check(name: str, x: torch.Tensor, cin: int, h_mult: int,
@@ -109,8 +150,12 @@ def _tile_rows(cout: int) -> int:
     return 16 if cout == 32 else 8
 
 
-def _check_cout(name: str, cout: int) -> None:
-    if cout not in SUPPORTED_COUT:
+def _check_cout(name: str, cout: int, sliced: bool = False) -> None:
+    """``sliced``: the kernel tiles Cout in slabs and takes any multiple of 32."""
+    if sliced:
+        if cout <= 0 or cout % 32:
+            raise ValueError(f"{name}: Cout={cout} must be a multiple of 32")
+    elif cout not in SUPPORTED_COUT:
         raise ValueError(f"{name}: Cout={cout} not in {SUPPORTED_COUT}")
 
 
@@ -134,25 +179,38 @@ def conv_kernel_weights(w: torch.Tensor) -> torch.Tensor:
 # packed_upconv
 # ---------------------------------------------------------------------------
 
-def packed_upconv_plain(x, w, b, *, rgb_w=None, rgb_b=None):
+def _check_upconv_epilogue(epilogue: str, rgb_w) -> None:
+    if epilogue not in UPCONV_EPILOGUES:
+        raise ValueError(
+            f"packed_upconv: epilogue {epilogue!r} not in {tuple(UPCONV_EPILOGUES)}")
+    if epilogue != "lrelu_norm" and rgb_w is not None:
+        raise ValueError('packed_upconv: rgb_w goes with epilogue "lrelu_norm" only')
+
+
+def packed_upconv_plain(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm"):
     """Plain twin of ``packed_upconv``: the four parity convs of
-    ops/fused_upconv.py + LeakyReLU + PixelNorm; toRGB of ``x`` as a 1x1
+    ops/fused_upconv.py + LeakyReLU (+ PixelNorm); toRGB of ``x`` as a 1x1
     conv."""
-    y = _lrelu_norm(upsample2x_conv3x3(w, b, x))
+    _check_upconv_epilogue(epilogue, rgb_w)
+    y = _epilogue(upsample2x_conv3x3(w, b, x), epilogue)
     if rgb_w is None:
         return y
     return y, F.conv2d(x, rgb_w[:, :, None, None]) + rgb_b[:, None, None]
 
 
-def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None):
-    """Nearest-2x upsample -> conv3x3 + bias -> LeakyReLU -> PixelNorm.
+def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm"):
+    """Nearest-2x upsample -> conv3x3 + bias -> LeakyReLU -> PixelNorm
+    ("lrelu_norm"), or without the PixelNorm ("lrelu").
 
     x [B, C, H, W] fp32, w [Cout, C, 3, 3] eq-LR scaled, b [Cout]
-    -> [B, Cout, 2H, 2W]. With ``rgb_w`` [3, C] and ``rgb_b`` [3], also
-    returns toRGB(x) [B, 3, H, W] (the ``rgb_prev`` of packed_conv_rgb)."""
+    -> [B, Cout, 2H, 2W]. With ``rgb_w`` [3, C] and ``rgb_b`` [3]
+    ("lrelu_norm" only), also returns toRGB(x) [B, 3, H, W] (the ``rgb_prev``
+    of packed_conv_rgb)."""
     if x.device.type == "cpu":
-        return packed_upconv_plain(x, w, b, rgb_w=rgb_w, rgb_b=rgb_b)
+        return packed_upconv_plain(x, w, b, rgb_w=rgb_w, rgb_b=rgb_b, epilogue=epilogue)
     name = "packed_upconv"
+    _check_upconv_epilogue(epilogue, rgb_w)
+    _refuse_grad(name, "upconv_lrelu_norm", x, w, b, rgb_w, rgb_b)
     cout = w.shape[0]
     _check_cout(name, cout)
     if (rgb_w is None) != (rgb_b is None):
@@ -168,7 +226,8 @@ def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None):
         rgb_w, rgb_b = rgb_w.reshape(3, c).contiguous(), rgb_b.contiguous()
         rgb = torch.empty((bsz, 3, h, wd), device=x.device, dtype=x.dtype)
     _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),
-            _ptr(y), _ptr(rgb), bsz, c, h, wd, cout)
+            _ptr(y), _ptr(rgb), bsz, c, h, wd, cout, UPCONV_EPILOGUES[epilogue],
+            epilogue=epilogue)
     return y if rgb is None else (y, rgb)
 
 
@@ -192,21 +251,25 @@ def packed_conv_plain(x, w, b, epilogue="lrelu_norm"):
 def packed_conv(x, w, b, epilogue="lrelu_norm"):
     """conv3x3 SAME + bias -> epilogue ("lrelu_norm": LeakyReLU -> PixelNorm;
     "lrelu": LeakyReLU; "none"): x [B, C, H, W] fp32, w [Cout, C, 3, 3] eq-LR
-    scaled, b [Cout] -> [B, Cout, H, W]."""
+    scaled, b [Cout] -> [B, Cout, H, W]. On CUDA, Cout is 32 or 64 with
+    "lrelu_norm" and any multiple of 32 otherwise."""
     if x.device.type == "cpu":
         return packed_conv_plain(x, w, b, epilogue)
     name = "packed_conv"
     if epilogue not in CONV_EPILOGUES:
         raise ValueError(f"{name}: epilogue {epilogue!r} not in {tuple(CONV_EPILOGUES)}")
+    _refuse_grad(name, "conv_lrelu_norm" if epilogue == "lrelu_norm" else "conv_lrelu",
+                 x, w, b)
     cout = w.shape[0]
-    _check_cout(name, cout)
-    _check(name, x, w.shape[1], _tile_rows(cout), 32, w=w, b=b)
+    _check_cout(name, cout, sliced=epilogue != "lrelu_norm")
+    _check(name, x, w.shape[1], _tile_rows(_pool_slab(cout)), 32, w=w, b=b)
     bsz, c, h, wd = x.shape
-    wk = conv_kernel_weights(w)
+    # one slab for Cout 32 or 64: then this is conv_kernel_weights(w)
+    wk = convpool_kernel_weights(w)
     b = b.contiguous()
     y = torch.empty((bsz, cout, h, wd), device=x.device, dtype=x.dtype)
     _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
-            CONV_EPILOGUES[epilogue])
+            CONV_EPILOGUES[epilogue], epilogue=epilogue)
     return y
 
 
@@ -243,16 +306,16 @@ def packed_convpool(x, w, b, epilogue="lrelu"):
     name = "packed_convpool"
     if epilogue not in POOL_EPILOGUES:
         raise ValueError(f"{name}: epilogue {epilogue!r} not in {POOL_EPILOGUES}")
+    _refuse_grad(name, "convpool_lrelu", x, w, b)
     cout = w.shape[0]
-    if cout % 32:
-        raise ValueError(f"{name}: Cout={cout} must be a multiple of 32")
+    _check_cout(name, cout, sliced=True)
     _check(name, x, w.shape[1], _tile_rows(_pool_slab(cout)), 32, w=w, b=b)
     bsz, c, h, wd = x.shape
     wk = convpool_kernel_weights(w)
     b = b.contiguous()
     y = torch.empty((bsz, cout, h // 2, wd // 2), device=x.device, dtype=x.dtype)
     _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
-            int(epilogue == "lrelu"))
+            int(epilogue == "lrelu"), epilogue=epilogue)
     return y
 
 
@@ -285,6 +348,9 @@ def packed_conv_rgb(x, w, b, rgb_w, rgb_b, rgb_prev, alpha, *,
         return packed_conv_rgb_plain(x, w, b, rgb_w, rgb_b, rgb_prev, alpha,
                                      emit_uint8=emit_uint8)
     name = "packed_conv_rgb"
+    _refuse_grad(name, "conv_lrelu_norm followed by the toRGB conv and the blend as "
+                 "torch ops, as models.pro_gan.generator_rgb(packed_mode=...) does",
+                 x, w, b, rgb_w, rgb_b, rgb_prev)
     cout = w.shape[0]
     _check_cout(name, cout)
     _check(name, x, w.shape[1], _tile_rows(cout), 32, w=w, b=b, rgb_w=rgb_w,
@@ -306,3 +372,63 @@ def packed_conv_rgb(x, w, b, rgb_w, rgb_b, rgb_prev, alpha, *,
             _ptr(rgb_prev), alpha, _ptr(out), int(emit_uint8), bsz, c, h, wd,
             cout)
     return out
+
+
+# ---------------------------------------------------------------------------
+# packed_conv_wgrad
+# ---------------------------------------------------------------------------
+
+def _check_wgrad_shapes(x: torch.Tensor, dpre: torch.Tensor) -> None:
+    if x.dim() != 4 or dpre.dim() != 4 or (
+            x.shape[0], x.shape[2], x.shape[3]) != (dpre.shape[0], dpre.shape[2], dpre.shape[3]):
+        raise ValueError(
+            f"packed_conv_wgrad: x {tuple(x.shape)} and dpre {tuple(dpre.shape)} must be "
+            "[B, C, H, W] and [B, Cout, H, W]")
+
+
+def packed_conv_wgrad_plain(x, dpre):
+    """Plain twin of ``packed_conv_wgrad``: for each of the nine taps, the
+    product of the shifted zero-padded input with the cotangent, summed over
+    batch and pixels."""
+    _check_wgrad_shapes(x, dpre)
+    h, wd = x.shape[2:]
+    xp = F.pad(x, (1, 1, 1, 1))
+    taps = [torch.einsum("bchw,bohw->oc", xp[:, :, ky:ky + h, kx:kx + wd], dpre)
+            for ky in range(3) for kx in range(3)]
+    return torch.stack(taps, dim=-1).reshape(dpre.shape[1], x.shape[1], 3, 3)
+
+
+def wgrad_ksplit(bsz: int, c: int, cout: int, h: int, wd: int) -> int:
+    """Blocks that share the pixels of one (8 input, 32 output channel) slab
+    in csrc/packed_conv_wgrad.cu, so that the grid has at most WGRAD_BLOCKS
+    (one more block than the card holds at once would double the time)."""
+    slabs = (c // 8) * -(-cout // 32)
+    tiles = bsz * (h // 8) * (wd // 32)
+    return max(1, min(tiles, WGRAD_BLOCKS // slabs, 65535))
+
+
+def packed_conv_wgrad(x, dpre):
+    """Weight gradient of a conv3x3 SAME: x [B, C, H, W] fp32 the conv's
+    input, dpre [B, Cout, H, W] the cotangent of its pre-bias output
+    -> dW [Cout, C, 3, 3], dW[o, c, ky, kx] = sum over (b, y, x) of
+    x_pad[b, c, y+ky-1, x+kx-1] * dpre[b, o, y, x]. Full fp32; every sum has a
+    fixed order, so equal inputs give equal bits. On CUDA, C and Cout are
+    multiples of 8, H of 8 and W of 32."""
+    if x.device.type == "cpu":
+        return packed_conv_wgrad_plain(x, dpre)
+    name = "packed_conv_wgrad"
+    _check_wgrad_shapes(x, dpre)
+    _refuse_grad(name, "conv_lrelu and its siblings, whose backward is not "
+                 "differentiable a second time", x, dpre)
+    _check(name, x, x.shape[1], 8, 32, dpre=dpre)
+    bsz, c, h, wd = x.shape
+    cout = dpre.shape[1]
+    if cout % 8 or not dpre.is_contiguous():
+        raise ValueError(f"{name}: dpre {tuple(dpre.shape)} must be contiguous with "
+                         "Cout a multiple of 8")
+    ksplit = wgrad_ksplit(bsz, c, cout, h, wd)
+    partials = torch.empty((ksplit, 9, c, cout), device=x.device, dtype=x.dtype)
+    dw = torch.empty((cout, c, 3, 3), device=x.device, dtype=x.dtype)
+    _launch(name, x, _ptr(x), _ptr(dpre), _ptr(partials), _ptr(dw), bsz, c, h, wd, cout,
+            ksplit)
+    return dw

@@ -76,8 +76,8 @@ def test_rng_stream_is_per_task():
 
 
 def test_import_leaves_jax_out():
-    """Importing the port and every module in it loads no jax, flax, msgpack
-    or orbax (a subprocess: the test process itself has jax loaded by
+    """Importing the port and every module in it loads no jax, flax, optax,
+    msgpack or orbax (a subprocess: the test process itself has jax loaded by
     conftest)."""
     modules = sorted(
         ".".join(p.relative_to(PORT.parent).with_suffix("").parts)
@@ -88,23 +88,24 @@ def test_import_leaves_jax_out():
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m.removesuffix('.__init__'))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'msgpack', 'orbax', 'probgan_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'orbax', 'probgan_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=PORT.parent,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert len(modules) >= 32
+    assert len(modules) >= 37
     for name in ("engine.inference", "engine.image", "core.image_checkpoint", "ops.image",
                  "ops.packed", "ops.rank_fused", "cli.infer", "utils.demo_checkpoint",
-                 "utils.profile_score"):
+                 "utils.profile_score", "engine.train", "ops.packed_vjp", "core.train_state",
+                 "core.tree", "utils.profile_train"):
         assert f"probgan_tpu_torch.{name}" in modules
 
 
 def test_sources_import_no_jax_and_no_jax_package():
     forbidden = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|flax|msgpack|orbax|probgan_tpu(?!_torch))\b",
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|msgpack|orbax|probgan_tpu(?!_torch))\b",
         re.MULTILINE
     )
     files = list(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]
@@ -115,4 +116,5 @@ def test_sources_import_no_jax_and_no_jax_package():
     assert forbidden.search("from probgan_tpu.ops import x")
     assert not forbidden.search("from probgan_tpu_torch.ops import x")
     assert forbidden.search("import msgpack")
+    assert forbidden.search("import optax")
     assert not forbidden.search("from probgan_tpu_torch.core import _msgpack")
