@@ -105,7 +105,36 @@ Phases (any failure exits non-zero and prints no result line):
    corrupted negatives and 8,192 sampled-softmax negatives: the first step's
    metrics against the same step on the CPU (rtol 1e-4), steps/s and peak
    memory;
-10. the last lines: the card's name and power limit, one JSON line with each
+10. the stage-fused kernels at the 1024² generator's shapes (batch 2):
+    ``packed_upconv_conv`` at stage 7 (128 -> 64 -> 64, 256² -> 512²) and
+    ``packed_upconv_conv_rgb`` at stage 8 (64 -> 32 -> 32, 512² -> 1024²;
+    uint8 at alpha 1, fp32 at alpha 0.3) and at stage 7 (uint8, alpha 0.5),
+    each within 1e-5 of its plain twin (uint8 within +-1 on at most 0.5% of
+    bytes) and equal, value for value, to the two-kernel pair it replaces
+    (``packed_upconv`` -> ``packed_conv`` / ``packed_conv_rgb``) on the card.
+    Times of the kernel, the twin, the pair and a cuDNN yardstick
+    (``F.conv2d`` on the upsampled input with the epilogues, toRGB, blend,
+    ``to_uint8``), the bound and its roofline share;
+11. path IV, under ``PROBGAN_STAGE_FUSED=1``: ``generate`` at 1024², batch 8
+    (one launch of each stage-fused kernel a call and none of the pair;
+    images equal to the two-kernel engine's, PSNR >= 50 dB against the CPU;
+    img/s, p50), ``latent_walk`` of 64 frames at stage 7 (one
+    ``packed_upconv_conv_rgb`` a chunk, frames equal to the two-kernel run),
+    ``PROBGAN_PACKED=0`` (no late-stage kernel launched). The image trainer
+    CLI at 1024² (4 synthetic images, batch 2, 2 epochs a stage): stages
+    0-7 at ``--resolution 512`` in process; ``--resume --grow`` to 1024² in a
+    child process, killed once it reports its mid-stage save; ``--resume``
+    from that file in process to the end. The D step's fake renders in
+    process must launch ``packed_upconv_conv_rgb`` (stage 7 alone, stage 8)
+    and ``packed_upconv_conv`` (stage 8) and none of the pair; the checkpoint
+    serves ``--task generate_images``, fused and not, to one checksum;
+    seconds per stage and steps/s over stage 8's last epoch, from the CLI's
+    ``metrics.jsonl``. The KG trainer CLI at N = 1,000,000 (10,000
+    numpy-written triplets, batch 1,024, two epochs with their eval,
+    ``best_checkpoint.pt`` and ``train_state.msgpack``), its checkpoint
+    served by ``InferenceEngine``'s ``predict_tails`` on the card; steps/s
+    over the last epoch from ``metrics.jsonl``;
+12. the last lines: the card's name and power limit, one JSON line with each
     kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -119,6 +148,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -154,7 +184,8 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 4
 # real and the fake batch and again under the G step, where its weights take
 # no gradient (no wgrad) but its input does.
 STEP_LAUNCHES = {"packed_upconv": 6, "packed_conv": 32, "packed_conv_rgb": 0,
-                 "packed_convpool": 8, "packed_conv_wgrad": 12}
+                 "packed_convpool": 8, "packed_conv_wgrad": 12, "packed_upconv_conv": 0,
+                 "packed_upconv_conv_rgb": 0}
 STEP_EPILOGUE_LAUNCHES = {
     "packed_upconv[lrelu_norm]": 4, "packed_upconv[lrelu]": 2,
     "packed_conv[lrelu_norm]": 4, "packed_conv[lrelu]": 8, "packed_conv[none]": 20,
@@ -179,6 +210,17 @@ DW_VS_CUDNN_REL = 5e-4
 # a leaf by its own size, and each kernel alone is held to 1e-4 in phase 8.
 STEP_GRAD_REL, STEP_LOSS_RTOL = 2e-2, 1e-4
 KG_TRAIN_BATCH, KG_CE_NEGATIVES, KG_TRAIN_STEPS = 1024, 8192, 4
+# The stage-fused kernels against their twins: PixelNorm'd features and fp32
+# RGB to this absolute error (uint8 within +-1 on UINT8_MAX_FLIP_SHARE); they
+# must equal the two-kernel pair on the card bit for bit.
+FUSED_ATOL = 1e-5
+FUSED_KERNELS = ("packed_upconv_conv", "packed_upconv_conv_rgb")
+UNFUSED_KERNELS = ("packed_upconv", "packed_conv", "packed_conv_rgb")
+# Path IV's trainer runs: the image CLI at 1024² on 4 synthetic images, batch
+# 2, 2 epochs a stage; the KG CLI at N = 1,000,000 on ~10,000 triplets.
+TRAINER_IMAGES, TRAINER_BATCH, TRAINER_EPOCHS = 4, 2, 2
+KG_CLI_TRIPLETS, KG_CLI_EPOCHS = 10_000, 2
+CHILD_TIMEOUT_S = 300  # the trainer's child process, to its mid-stage save
 
 
 def card_line() -> str:
@@ -1236,7 +1278,8 @@ def phase_score_path(pk, image_ops, pro_gan, engine_mod, image_checkpoint_mod, c
     walk_s = time.perf_counter() - t0
     chunks = -(-WALK_FRAMES // engine_mod.WALK_CHUNK)
     want_counts = {"packed_upconv": chunks, "packed_conv": 0, "packed_conv_rgb": chunks,
-                   "packed_convpool": 0, "packed_conv_wgrad": 0}
+                   "packed_convpool": 0, "packed_conv_wgrad": 0, "packed_upconv_conv": 0,
+                   "packed_upconv_conv_rgb": 0}
     if pk.launches != want_counts:
         raise AssertionError(f"latent_walk: launches {pk.launches}, expected {want_counts}")
     res = pro_gan.stage_resolution(WALK_STAGE)
@@ -1602,11 +1645,413 @@ def phase_kg_path(rf, inference_mod, checkpoint_mod, cli_infer,
     return counts, kg
 
 
+def phase_fused_kernels(pk, pro_gan) -> list[dict]:
+    """The stage-fused kernels at the 1024² generator's shapes (batch 2)
+    against their plain twins and, bit for bit, against the two-kernel pair
+    they replace on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    dev = "cuda"
+    B = BATCH_KERNELS
+
+    def feats(*shape):
+        return pro_gan.pixel_norm(torch.randn(shape, device=dev, generator=gen))
+
+    def conv_w(cout, cin, k=3, gain=math.sqrt(2.0)):
+        return torch.randn((cout, cin, k, k), device=dev, generator=gen) * (
+            gain / math.sqrt(cin * k * k))
+
+    def bias(n):
+        return 0.1 * torch.randn(n, device=dev, generator=gen)
+
+    def lrelu_norm(t):
+        return pro_gan.pixel_norm(pro_gan.lrelu(t))
+
+    def stage_library(x, w1, b1, w2, b2):  # cuDNN on the upsampled input
+        up = F.interpolate(x, scale_factor=2.0, mode="nearest")
+        return lrelu_norm(F.conv2d(lrelu_norm(F.conv2d(up, w1, b1, padding=1)), w2, b2,
+                                   padding=1))
+
+    def differing(a, b) -> int:
+        return int((a != b).sum().item())
+
+    rows = []
+    # -- packed_upconv_conv: stage 7 (128 -> 64 -> 64, 256² -> 512²)
+    c, cout, h = 128, 64, 256
+    x, w1, b1, w2, b2 = feats(B, c, h, h), conv_w(cout, c), bias(cout), conv_w(cout, cout), bias(cout)
+    args = (x, w1, b1, w2, b2)
+    got = pk.packed_upconv_conv(*args)
+    want = pk.packed_upconv_conv_plain(*args)
+    pair = pk.packed_conv(pk.packed_upconv(x, w1, b1), w2, b2)
+    err = (got - want).abs().max().item()
+    n_diff = differing(got, pair)
+    print(f"  packed_upconv_conv[stage7]: max |err| vs twin {err:.3g}, values differing from "
+          f"the pair {n_diff}")
+    if err > FUSED_ATOL or n_diff:
+        raise AssertionError("packed_upconv_conv: off its twin or not bit-equal to the pair")
+    del got, want, pair
+    calls = [{
+        "call": "stage7", "shape_in": [B, c, h, h], "max_abs_err": err, "differing_vs_pair": n_diff,
+        "ms": cuda_ms(lambda: pk.packed_upconv_conv(*args)),
+        "plain_ms": cuda_ms(lambda: pk.packed_upconv_conv_plain(*args)),
+        "library_ms": cuda_ms(lambda: stage_library(*args)),
+        "pair_ms": cuda_ms(lambda: pk.packed_conv(pk.packed_upconv(x, w1, b1), w2, b2)),
+        # conv1 at 4 pre-summed taps per output, conv2 at 9
+        "flops": 2 * 4 * c * cout * B * (2 * h) ** 2 + 2 * 9 * cout * cout * B * (2 * h) ** 2,
+        "bytes": 4 * (B * c * h * h + B * cout * 4 * h * h + 9 * c * cout + 9 * cout * cout
+                      + 2 * cout),
+    }]
+    rows.append(("packed_upconv_conv", "packed_upconv_conv",
+                 "probgan_tpu/ops/pallas_packed.py:973", calls))
+    del args, x
+
+    # -- packed_upconv_conv_rgb: stage 8 (64 -> 32 -> 32, 512² -> 1024²), uint8
+    # and fp32 out, and stage 7 (128 -> 64 -> 64) when it is the last stage
+    calls = []
+    for label, c, cout, h, alpha, u8 in (("stage8", 64, 32, 512, 1.0, True),
+                                         ("stage8_fp32", 64, 32, 512, 0.3, False),
+                                         ("stage7", 128, 64, 256, 0.5, True)):
+        x, w1, b1, w2, b2 = (feats(B, c, h, h), conv_w(cout, c), bias(cout),
+                             conv_w(cout, cout), bias(cout))
+        rgb_w, rgb_b = conv_w(3, cout, 1, 1.0).reshape(3, cout), bias(3)
+        prev_w, prev_b = conv_w(3, c, 1, 1.0).reshape(3, c), bias(3)
+        args = (x, w1, b1, w2, b2, rgb_w, rgb_b, prev_w, prev_b, alpha)
+
+        def fused(args=args, u8=u8):
+            return pk.packed_upconv_conv_rgb(*args, emit_uint8=u8)
+
+        def two_kernels(x=x, w1=w1, b1=b1, w2=w2, b2=b2, rgb_w=rgb_w, rgb_b=rgb_b,
+                        prev_w=prev_w, prev_b=prev_b, alpha=alpha, u8=u8):
+            f, rp = pk.packed_upconv(x, w1, b1, rgb_w=prev_w, rgb_b=prev_b)
+            return pk.packed_conv_rgb(f, w2, b2, rgb_w, rgb_b, rp, alpha, emit_uint8=u8)
+
+        def library(x=x, w1=w1, b1=b1, w2=w2, b2=b2, rgb_w=rgb_w, rgb_b=rgb_b,
+                    prev_w=prev_w, prev_b=prev_b, alpha=alpha, u8=u8):
+            rgb = F.conv2d(stage_library(x, w1, b1, w2, b2), rgb_w[:, :, None, None], rgb_b)
+            prev = F.interpolate(F.conv2d(x, prev_w[:, :, None, None], prev_b),
+                                 scale_factor=2.0, mode="nearest")
+            out = (prev + alpha * (rgb - prev)).permute(0, 2, 3, 1)
+            return pro_gan.to_uint8(out) if u8 else out.contiguous()
+
+        got, want, pair = fused(), pk.packed_upconv_conv_rgb_plain(*args, emit_uint8=u8), two_kernels()
+        n_diff = differing(got, pair)
+        if u8:
+            if got.dtype != torch.uint8 or tuple(got.shape) != (B, 2 * h, 2 * h, 3):
+                raise AssertionError(f"packed_upconv_conv_rgb returned {got.dtype} {tuple(got.shape)}")
+            err, _, _ = check_uint8(f"packed_upconv_conv_rgb[{label}] uint8 vs twin",
+                                    got.cpu().numpy(), want.cpu().numpy())
+            err = float(err)
+        else:
+            err = (got - want).abs().max().item()
+            if err > FUSED_ATOL:
+                raise AssertionError(f"packed_upconv_conv_rgb[{label}]: {err:.3g} off its twin")
+        print(f"  packed_upconv_conv_rgb[{label}]: max |err| vs twin {err:.3g}, values "
+              f"differing from the pair {n_diff}")
+        if n_diff:
+            raise AssertionError(f"packed_upconv_conv_rgb[{label}]: not bit-equal to the pair")
+        del got, want, pair
+        out_bytes = B * 4 * h * h * 3 * (1 if u8 else 4)
+        calls.append({
+            "call": label, "shape_in": [B, c, h, h], "emit_uint8": u8, "alpha": alpha,
+            "max_abs_err": err, "differing_vs_pair": n_diff,
+            "ms": cuda_ms(fused), "plain_ms": cuda_ms(
+                lambda args=args, u8=u8: pk.packed_upconv_conv_rgb_plain(*args, emit_uint8=u8)),
+            "library_ms": cuda_ms(library), "pair_ms": cuda_ms(two_kernels),
+            # conv1, conv2, toRGB of conv2's output, toRGB of the input
+            "flops": (2 * 4 * c * cout * B * (2 * h) ** 2 + 2 * 9 * cout * cout * B * (2 * h) ** 2
+                      + 2 * cout * 3 * B * (2 * h) ** 2 + 2 * c * 3 * B * h * h),
+            "bytes": 4 * (B * c * h * h + 9 * c * cout + 9 * cout * cout + 2 * cout
+                          + 3 * cout + 3 * c + 6) + out_bytes,
+        })
+        del args, x, fused, two_kernels, library
+    rows.append(("packed_upconv_conv_rgb", "packed_upconv_conv_rgb",
+                 "probgan_tpu/ops/pallas_packed.py:1058", calls))
+    entries = assemble_conv_rows(rows, B)
+    for e in entries:
+        for k in e["calls"]:
+            k["roofline_share"] = k["bound_ms"] / k["ms"]
+            print(f"  {e['name']}[{k['call']}]: {k['ms']:.3f} ms against the pair's "
+                  f"{k['pair_ms']:.3f} ms ({k['ms'] / k['pair_ms']:.2f}x), "
+                  f"{k['roofline_share']:.0%} of the bound")
+    return entries
+
+
+def run_until_mid_stage_save(argv: list[str]) -> float:
+    """Runs ``python -m probgan_tpu_torch.cli.train argv`` (with --verbose) in a
+    child process and kills it as soon as it reports its first mid-stage save:
+    a run that crashed after that epoch. Returns the child's seconds."""
+    proc = subprocess.Popen([sys.executable, "-u", "-m", "probgan_tpu_torch.cli.train", *argv],
+                            cwd=os.path.dirname(os.path.abspath(__file__)), text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    watchdog = threading.Timer(CHILD_TIMEOUT_S, proc.kill)
+    watchdog.start()
+    t0, lines, saved = time.perf_counter(), [], False
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if "mid-stage train state saved" in line:
+                saved = True
+                break
+    finally:
+        proc.kill()
+        proc.wait()
+        proc.stdout.close()
+        watchdog.cancel()
+    if not saved:
+        raise AssertionError("the child trainer made no mid-stage save:\n" + "".join(lines[-40:]))
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def env(**values):
+    """Inside, the environment variables ``values`` are set (None: unset)."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def checksum_of_generate_images(cli_infer, path: str, n: int, *extra) -> dict:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli_infer.main(["--checkpoint_path", path, "--task", "generate_images",
+                        "--num_images", str(n), "--seed", "3", "--device", "cuda", *extra])
+    return json_blob(out.getvalue())
+
+
+def phase_fused_path(pk, rf, pro_gan, engine_mod, cli_infer, cli_train,
+                     inference_mod) -> tuple[dict, dict]:
+    """Path IV, under PROBGAN_STAGE_FUSED=1: serving at 1024², the image
+    trainer CLI at 1024² and the KG trainer CLI at N = 1,000,000."""
+    cfg = pro_gan.ProGANConfig()
+    stage = cfg.num_stages - 1
+    engine = engine_mod.ImageGANEngine(cfg, device="cuda", precision="high", seed=0)
+    latents = [engine.sample_latents(BATCH_MAIN) for _ in range(MAIN_BATCHES)]
+    path = {}
+
+    # -- generate: one B10 and one B11 a call, none of B1-B3
+    with env(PROBGAN_STAGE_FUSED="1"):
+        engine.generate(latents[0])  # warm-up
+        torch.cuda.synchronize()
+        pk.reset_launches()
+        times = []
+        for z in latents:
+            t0 = time.perf_counter()
+            img = engine.generate(z)
+            times.append(time.perf_counter() - t0)
+        counts = dict(pk.launches)
+    want = {"packed_upconv_conv": MAIN_BATCHES, "packed_upconv_conv_rgb": MAIN_BATCHES,
+            "packed_upconv": 0, "packed_conv": 0, "packed_conv_rgb": 0}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"generate under PROBGAN_STAGE_FUSED=1 launched {counts}, "
+                             f"expected {want}")
+    z = latents[-1]
+    with env(PROBGAN_STAGE_FUSED="0"):
+        unfused = engine.generate(z)
+    if not np.array_equal(img, unfused):
+        raise AssertionError("generate: the stage-fused images are not the two-kernel ones")
+    cpu_params = engine_mod.to_device(engine.g_params, torch.device("cpu"))
+    with torch.inference_mode():
+        cpu_img = pro_gan.generator_apply(cpu_params, z[:1].cpu(), cfg, stage, 1.0, "high",
+                                          packed=True).numpy()
+    _, _, psnr_cpu = uint8_agreement(img[:1], cpu_img)
+    if psnr_cpu < PSNR_FLOOR_DB:
+        raise AssertionError(f"fused generate vs the CPU: PSNR {psnr_cpu:.2f} dB")
+    del cpu_params
+    per_img_ms = sorted(t / BATCH_MAIN * 1e3 for t in times)
+    path.update({
+        "batch": BATCH_MAIN, "calls": MAIN_BATCHES,
+        "img_per_s": BATCH_MAIN * MAIN_BATCHES / sum(times),
+        "p50_ms_per_img": float(np.median(per_img_ms)), "batch_s": times,
+        "bit_equal_to_two_kernel_engine": True, "psnr_vs_cpu_db": finite_or_none(psnr_cpu),
+    })
+    print(f"  generate: {path['img_per_s']:.3f} img/s, p50 {path['p50_ms_per_img']:.3f} ms/img "
+          f"(batch {BATCH_MAIN}, {MAIN_BATCHES} calls), launches {counts}; images bit-equal to "
+          f"the two-kernel engine's, PSNR {psnr_cpu:.2f} dB vs the CPU")
+
+    # -- latent_walk at stage 7: B11 alone (s0 == stage), one a chunk
+    z0, z1 = z[0], z[1]
+    with env(PROBGAN_STAGE_FUSED="1"):
+        engine.latent_walk(z0, z1, frames=WALK_FRAMES, stage=WALK_STAGE)  # warm-up
+        pk.reset_launches()
+        t0 = time.perf_counter()
+        frames = engine.latent_walk(z0, z1, frames=WALK_FRAMES, stage=WALK_STAGE)
+        walk_s = time.perf_counter() - t0
+        walk_counts = dict(pk.launches)
+    chunks = -(-WALK_FRAMES // engine_mod.WALK_CHUNK)
+    if walk_counts["packed_upconv_conv_rgb"] != chunks or any(
+            walk_counts[k] for k in ("packed_upconv_conv", *UNFUSED_KERNELS)):
+        raise AssertionError(f"latent_walk under PROBGAN_STAGE_FUSED=1: launches {walk_counts}")
+    with env(PROBGAN_STAGE_FUSED="0"):
+        if not np.array_equal(frames, engine.latent_walk(z0, z1, frames=WALK_FRAMES,
+                                                          stage=WALK_STAGE)):
+            raise AssertionError("latent_walk: the stage-fused frames are not the two-kernel ones")
+    path.update({"walk_frames": WALK_FRAMES, "walk_s": walk_s,
+                 "walk_frames_per_s": WALK_FRAMES / walk_s})
+    print(f"  latent_walk: {WALK_FRAMES} frames at stage {WALK_STAGE} in {walk_s * 1e3:.1f} ms "
+          f"({WALK_FRAMES / walk_s:.1f} frames/s), {chunks} packed_upconv_conv_rgb launches, "
+          "frames bit-equal to the two-kernel run")
+
+    # -- PROBGAN_PACKED=0: no late-stage kernel at all
+    with env(PROBGAN_STAGE_FUSED="1", PROBGAN_PACKED="0"):
+        off = engine_mod.ImageGANEngine(cfg, g_params=engine.g_params, d_params=engine.d_params,
+                                        device="cuda")
+        pk.reset_launches()
+        off_img = off.generate(z[:2])
+        if any(pk.launches.values()):
+            raise AssertionError(f"PROBGAN_PACKED=0 launched {dict(pk.launches)}")
+    check_uint8("PROBGAN_PACKED=0 vs the fused engine", off_img, img[:2])
+    print("  PROBGAN_PACKED=0: no late-stage kernel launched")
+    del engine, off, img, unfused, frames
+    torch.cuda.empty_cache()
+
+    # -- the image trainer CLI at 1024²: stages 0-7 at --resolution 512 in
+    # process; --resume --grow to 1024² in a child process, killed as soon as
+    # it has saved mid-stage (a crash after stage 8's first epoch); --resume
+    # from that file in process to the end of the schedule
+    common = ["--synthetic", str(TRAINER_IMAGES), "--batch_size", str(TRAINER_BATCH),
+              "--epochs_per_stage", str(TRAINER_EPOCHS), "--device", "cuda"]
+    trainer = {}
+    with tempfile.TemporaryDirectory() as tmp, env(PROBGAN_STAGE_FUSED="1"):
+        out_dir = os.path.join(tmp, "run")
+        legs = {}
+
+        def in_process(leg, args, expect):
+            pk.reset_launches()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli_train.main(["--model", "image", *common, *args, "--output_dir", out_dir])
+            if rc != 0 or expect not in out.getvalue():
+                raise AssertionError(f"image trainer ({leg}) exited {rc}, lacks {expect!r}:\n"
+                                     f"{out.getvalue()}")
+            legs[leg] = {"s": time.perf_counter() - t0, "launches": dict(pk.launches)}
+
+        in_process("stages 0-7", ["--resolution", "512", "--checkpoint_minutes", "0"],
+                   f"Stage {stage - 1} (512²)")
+        torch.cuda.empty_cache()  # room for the child on the card
+        child_s = run_until_mid_stage_save(
+            ["--model", "image", *common, "--resolution", "1024", "--resume", "--grow",
+             "--checkpoint_minutes", "1e-9", "--verbose", "--output_dir", out_dir])
+        in_process("stage 8", ["--resolution", "1024", "--resume"],
+                   f"Resumed mid-stage {stage} (next: epoch 2/{TRAINER_EPOCHS})")
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        # the checkpoint serves generate_images, fused and not, to equal images
+        ckpt = os.path.join(out_dir, "image_checkpoint.msgpack")
+        served = checksum_of_generate_images(cli_infer, ckpt, 2)
+        with env(PROBGAN_STAGE_FUSED="0"):
+            served_unfused = checksum_of_generate_images(cli_infer, ckpt, 2)
+        if (served["images_shape"] != [2, cfg.resolution, cfg.resolution, 3]
+                or served["checksum"] != served_unfused["checksum"]):
+            raise AssertionError(f"generate_images from the trained checkpoint: {served} vs "
+                                 f"{served_unfused} unfused")
+    early, late = legs["stages 0-7"]["launches"], legs["stage 8"]["launches"]
+    if (early["packed_upconv_conv_rgb"] < 1 or early["packed_upconv_conv"] != 0
+            or late["packed_upconv_conv"] < 1 or late["packed_upconv_conv_rgb"] < 1
+            or any(early[k] or late[k] for k in UNFUSED_KERNELS)):
+        raise AssertionError(f"the trainer's fake renders launched {early} (stages 0-7) and "
+                             f"{late} (stage 8)")
+    if ([(m["stage"], m["epoch"]) for m in metrics]
+            != [(s, e) for s in range(stage + 1) for e in range(1, TRAINER_EPOCHS + 1)]):
+        raise AssertionError(f"the image trainer's metrics.jsonl: {metrics}")
+    if any(not (math.isfinite(m["d_loss"]) and math.isfinite(m["g_loss"])) for m in metrics):
+        raise AssertionError(f"the image trainer's losses are not finite: {metrics}")
+    stage_s = {}
+    for m in metrics:
+        stage_s[m["stage"]] = stage_s.get(m["stage"], 0.0) + m["seconds"]
+    steps_per_epoch = TRAINER_IMAGES // TRAINER_BATCH
+    last_epoch_s = metrics[-1]["seconds"]  # stage 8's second epoch, in process
+    trainer.update({
+        "images": TRAINER_IMAGES, "batch": TRAINER_BATCH, "epochs_per_stage": TRAINER_EPOCHS,
+        "seconds_per_stage": stage_s, "leg_s": {k: v["s"] for k, v in legs.items()},
+        "child_s_to_mid_stage_save": child_s,
+        "launches": {k: v["launches"] for k, v in legs.items()},
+        "stage8_second_epoch_s": last_epoch_s,
+        "stage8_steps_per_s": steps_per_epoch / last_epoch_s,
+        "generate_images_checksum": served["checksum"],
+    })
+    print(f"  image trainer CLI at 1024² (stages 0-7, then --resume --grow in a child killed "
+          f"after its mid-stage save, then --resume): seconds per stage "
+          f"{', '.join(f'{k}: {v:.4f}' for k, v in stage_s.items())} (metrics.jsonl; stage "
+          f"8's first epoch in the child, with --verbose); stage 8 "
+          f"{trainer['stage8_steps_per_s']:.3f} steps/s over its second epoch; fake renders "
+          f"launched B10 {late['packed_upconv_conv']} and B11 "
+          f"{early['packed_upconv_conv_rgb'] + late['packed_upconv_conv_rgb']} times in process; "
+          "the mid-stage file resumed and finished; its checkpoint serves generate_images, "
+          "fused and not, to one checksum")
+    path["image_trainer"] = trainer
+
+    # -- the KG trainer CLI at N = 1,000,000 entities, two epochs; steps/s from
+    # its own per-epoch seconds (metrics.jsonl: steps, host sampling and the
+    # eval; the files are written after the line)
+    rng = np.random.default_rng(11)
+    trip = np.stack([rng.integers(0, KG_ENTITIES, KG_CLI_TRIPLETS),
+                     rng.integers(0, KG_RELATIONS, KG_CLI_TRIPLETS),
+                     rng.integers(0, KG_ENTITIES, KG_CLI_TRIPLETS)], axis=1)
+    trip[0] = (KG_ENTITIES - 1, KG_RELATIONS - 1, 0)  # pins N and the relation count
+    n_train = KG_CLI_TRIPLETS - KG_CLI_TRIPLETS // 20  # 5% held out
+    kg_steps = n_train // KG_TRAIN_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out_dir = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+        os.makedirs(data)
+        np.savetxt(os.path.join(data, "train.txt"), trip, fmt="%d", delimiter="\t")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli_train.main(["--data_root", data, "--epochs", str(KG_CLI_EPOCHS),
+                                 "--batch_size", str(KG_TRAIN_BATCH), "--device", "cuda",
+                                 "--output_dir", out_dir])
+        run_s = time.perf_counter() - t0
+        text = out.getvalue()
+        if (rc != 0 or f"Entities: {KG_ENTITIES:,}" not in text or "Sampled-softmax" not in text
+                or f"Train triplets: {n_train:,}" not in text):
+            raise AssertionError(f"KG trainer CLI:\n{text}")
+        for name in ("best_checkpoint.pt", "train_state.msgpack", "metrics.jsonl"):
+            if not os.path.exists(os.path.join(out_dir, name)):
+                raise AssertionError(f"KG trainer CLI wrote no {name}")
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            kg_metrics = [json.loads(line) for line in f]
+        if [m["epoch"] for m in kg_metrics] != list(range(1, KG_CLI_EPOCHS + 1)) or not all(
+                math.isfinite(m[k]) for m in kg_metrics for k in ("d_loss", "g_loss")):
+            raise AssertionError(f"KG trainer CLI metrics.jsonl: {kg_metrics}")
+        rf.reset_launches()
+        kg_engine = inference_mod.InferenceEngine(os.path.join(out_dir, "best_checkpoint.pt"),
+                                                  device="cuda")
+        res = kg_engine.predict_tails([(0, 1), (5, 7)], top_k=KG_TOP_K)
+        if (kg_engine.num_entities != KG_ENTITIES or rf.launches["rank_topk"] != 1
+                or [len(p) for p in res["predictions"]] != [KG_TOP_K, KG_TOP_K]):
+            raise AssertionError(f"the KG checkpoint served {res} with launches {rf.launches}")
+        del kg_engine
+    epoch_s = [m["seconds"] for m in kg_metrics]
+    path["kg_trainer"] = {
+        "entities": KG_ENTITIES, "relations": KG_RELATIONS, "triplets": KG_CLI_TRIPLETS,
+        "batch": KG_TRAIN_BATCH, "steps_per_epoch": kg_steps, "epoch_s": epoch_s,
+        "steps_per_s_last_epoch_with_eval": kg_steps / epoch_s[-1], "run_s": run_s,
+    }
+    print(f"  KG trainer CLI at N = {KG_ENTITIES:,}: {kg_steps} steps an epoch, epochs of "
+          f"{', '.join(f'{s:.4f}' for s in epoch_s)} s with their eval (metrics.jsonl): "
+          f"{kg_steps / epoch_s[-1]:.2f} steps/s in the last; {run_s:.1f} s in all with the "
+          "files; best_checkpoint.pt serves predict_tails on the card")
+    fused_counts = {k: counts[k] for k in FUSED_KERNELS}
+    return fused_counts, path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     from probgan_tpu_torch.cli import infer as cli_infer
+    from probgan_tpu_torch.cli import train as cli_train
     from probgan_tpu_torch.core import checkpoint as checkpoint_mod
     from probgan_tpu_torch.core import image_checkpoint as image_checkpoint_mod
     from probgan_tpu_torch.core import train_state as train_state_mod
@@ -1681,6 +2126,19 @@ def main() -> int:
     for name in ("packed_conv_wgrad", "packed_upconv[lrelu]", "packed_conv[none]",
                  "packed_convpool[none]"):
         counts[name] = train_counts[name]
+    torch.cuda.empty_cache()
+
+    print("phase 10: stage-fused generator kernels vs plain twins and the two-kernel pair "
+          "(batch 2, the 1024² generator's shapes)")
+    kernels += phase_fused_kernels(pk, pro_gan)
+    torch.cuda.empty_cache()
+
+    print("phase 11: path IV under PROBGAN_STAGE_FUSED=1: generate, latent_walk and "
+          f"PROBGAN_PACKED=0 at 1024², the image trainer CLI at 1024², the KG trainer CLI at "
+          f"N = {KG_ENTITIES:,}")
+    fused_counts, fused_path = phase_fused_path(pk, rf, pro_gan, engine_mod, cli_infer,
+                                                cli_train, inference_mod)
+    counts.update(fused_counts)
     for k in kernels:
         k["launches"] = counts[k["name"]]
         if k["launches"] < 1:
@@ -1688,8 +2146,8 @@ def main() -> int:
 
     print(card_line())
     print(json.dumps({"kernels": kernels, "main_path": main, "score_path": score_path,
-                      "kg_path": kg, "train_path": train, "card": card},
-                     allow_nan=False))
+                      "kg_path": kg, "train_path": train, "fused_path": fused_path,
+                      "card": card}, allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,6 +22,15 @@ import zlib
 import torch
 
 
+def keyed_generator(seed: int, key: int) -> torch.Generator:
+    """A fresh CPU generator for draw ``key`` of ``seed``: the trainers' form
+    of the JAX package's ``fold_in(key(seed), key)``, with other bits."""
+    digest = hashlib.blake2b(f"{int(seed)}:fold:{int(key)}".encode(), digest_size=8).digest()
+    gen = torch.Generator()
+    gen.manual_seed(int.from_bytes(digest, "little") & 0x7FFFFFFFFFFFFFFF)
+    return gen
+
+
 class RngStream:
     """A task-keyed counter stream: ``generator(task, i)`` is seeded from a
     hash of (seed, crc32(task), i)."""

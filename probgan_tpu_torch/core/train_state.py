@@ -45,6 +45,10 @@ def _from_disk(leaf):
 
 
 def _pour(template_leaf, value):
+    if isinstance(value, torch.Tensor):
+        # grow: a leaf the file lacks keeps the template's own value, on
+        # whatever device the template lives
+        return value
     value = np.asarray(value)
     if not isinstance(template_leaf, torch.Tensor):
         return value

@@ -1,8 +1,9 @@
 // Shared pieces of the late-stage conv kernels (packed_upconv.cu,
-// packed_conv.cu, packed_conv_rgb.cu, packed_convpool.cu): tile geometry, the
-// per-thread channel map, the fused bias -> LeakyReLU(0.2) -> PixelNorm
-// epilogue, its PixelNorm-free forms for the discriminator, and the 3x3 SAME
-// conv main loop.
+// packed_conv.cu, packed_conv_rgb.cu, packed_convpool.cu and the stage-fused
+// pair over stage_fused.cuh): tile geometry, the per-thread channel map, the
+// fused bias -> LeakyReLU(0.2) -> PixelNorm epilogue, its PixelNorm-free forms
+// for the discriminator, the 3x3 SAME conv main loop and the final stage's
+// toRGB -> blend -> uint8 tail.
 //
 // Every kernel is an implicit GEMM on the CUDA cores in fp32: M = output
 // pixels, N = output channels (32 or 64), K = taps x input channels. A block
@@ -67,15 +68,16 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// bias -> lrelu(0.2) -> x * 1/sqrt(mean_c(x^2) + 1e-8), in place.
-template <int COUT>
-__device__ __forceinline__ void bias_lrelu_norm(float (&acc)[kTM][kTN],
+// bias -> lrelu(0.2) -> x * 1/sqrt(mean_c(x^2) + 1e-8), in place, for a
+// thread's M pixels (kTM, or the stage-fused kernels' conv1 share).
+template <int COUT, int M = kTM>
+__device__ __forceinline__ void bias_lrelu_norm(float (&acc)[M][kTN],
                                                 const float* __restrict__ bias, int cg) {
   float bch[kTN];
 #pragma unroll
   for (int n = 0; n < kTN; ++n) bch[n] = __ldg(bias + channel_of<COUT>(cg, n));
 #pragma unroll
-  for (int m = 0; m < kTM; ++m) {
+  for (int m = 0; m < M; ++m) {
     float ss = 0.f;
 #pragma unroll
     for (int n = 0; n < kTN; ++n) {
@@ -122,6 +124,49 @@ __device__ __forceinline__ void store_rows(float* __restrict__ y,
   }
 }
 
+// The (TH+2) x (TW+2) halo patch of a conv3x3 tile, one input channel per
+// plane: patch row 0 is output row y0-1, column 0 is output column x0-1; rows
+// are SW floats apart so that every row starts 16-byte aligned.
+template <int COUT>
+struct Patch {
+  static constexpr int SH = Tile<COUT>::TH + 2;  // patch rows
+  static constexpr int PW = Tile<COUT>::TW + 2;  // patch columns
+  static constexpr int SW = Tile<COUT>::TW + 4;  // row stride
+};
+
+// The FMAs of kCC input channels of a 3x3 SAME conv: `xs` [kCC][SH][SW]
+// holds the channels' patch, `ws` [kCC][9][COUT] their weights (tap = ky*3 +
+// kx). The thread's pixels are patch row pg/4 + 1, columns 8*(pg%4) + 1 .. +8,
+// and every value takes its products in the order (c, ky, kx).
+template <int COUT>
+__device__ __forceinline__ void conv3x3_rows(const float (*__restrict__ xs)[Patch<COUT>::SH]
+                                                                         [Patch<COUT>::SW],
+                                             const float (*__restrict__ ws)[9][COUT], int cg,
+                                             int pg, float (&acc)[kTM][kTN]) {
+  constexpr int NCG = Tile<COUT>::NCG;
+  const int pgx = pg % 4;
+  const int ty = pg / 4;
+#pragma unroll 2
+  for (int c = 0; c < kCC; ++c) {
+#pragma unroll
+    for (int ky = 0; ky < 3; ++ky) {
+      const float* src = &xs[c][ty + ky][pgx * kTM];
+      const float4 a = reinterpret_cast<const float4*>(src)[0];
+      const float4 b = reinterpret_cast<const float4*>(src)[1];
+      const float2 d = reinterpret_cast<const float2*>(src)[4];
+      const float xin[kTM + 2] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, d.x, d.y};
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx) {
+        const float* wrow = &ws[c][ky * 3 + kx][0];
+        const float4 w0 = reinterpret_cast<const float4*>(wrow)[cg];
+        const float4 w1 = reinterpret_cast<const float4*>(wrow)[NCG + cg];
+#pragma unroll
+        for (int m = 0; m < kTM; ++m) fma8(acc[m], xin[m + kx], w0, w1);
+      }
+    }
+  }
+}
+
 // 3x3 SAME conv of one image `xb` [C][H][W] with weights `w` [C][9][COUT]
 // (tap = ky*3 + kx), accumulated into the thread's registers for the block's
 // tile: rows y0..y0+TH-1, columns x0..x0+TW-1. The thread's pixels are
@@ -140,9 +185,9 @@ __device__ __forceinline__ void conv3x3_accumulate(const float* __restrict__ xb,
                                                    int H, int W, int y0, int x0,
                                                    float (&acc)[kTM][kTN]) {
   using T = Tile<COUT>;
-  constexpr int SH = T::TH + 2;  // patch rows
-  constexpr int PW = T::TW + 2;  // patch columns
-  constexpr int SW = T::TW + 4;  // row stride: keeps every row 16-byte aligned
+  constexpr int SH = Patch<COUT>::SH;
+  constexpr int PW = Patch<COUT>::PW;
+  constexpr int SW = Patch<COUT>::SW;
   __shared__ __align__(16) float xs[kCC][SH][SW];
   __shared__ __align__(16) float ws[kCC][9][COUT];
 
@@ -196,29 +241,57 @@ __device__ __forceinline__ void conv3x3_accumulate(const float* __restrict__ xb,
         }
       }
     } else {
-      const int pgx = pg % 4;
-      const int ty = pg / 4;
-#pragma unroll 2
-      for (int c = 0; c < kCC; ++c) {
+      conv3x3_rows<COUT>(xs, ws, cg, pg, acc);
+    }
+    __syncthreads();
+  }
+}
+
+// The final stage's tail after conv2's epilogue: 1x1 toRGB + bias -> prev +
+// alpha * (rgb - prev) -> (U8: tanh -> rint((t + 1) * 127.5) -> clip ->
+// uint8), NHWC. The thread's pixels are row gy, columns gx0 .. gx0+7 of image
+// b; `prev(k, gy, gx)` is channel k of the previous stage's RGB under output
+// pixel (gy, gx). toRGB's dot is reduced across the NCG lanes of a pixel group
+// by shuffles, and one lane of the group writes each pixel. Rounding is rintf
+// (half to even), as jnp.round: roundf would round half away from zero.
+template <int COUT, bool U8, class Prev>
+__device__ __forceinline__ void rgb_blend_store(const float (&acc)[kTM][kTN],
+                                                const float* __restrict__ rgb_w,
+                                                const float* __restrict__ rgb_b, float alpha,
+                                                void* __restrict__ out, int cg, int b, int gy,
+                                                int gx0, int H, int W, Prev prev) {
+  float rw[3][kTN];
 #pragma unroll
-        for (int ky = 0; ky < 3; ++ky) {
-          const float* src = &xs[c][ty + ky][pgx * kTM];
-          const float4 a = reinterpret_cast<const float4*>(src)[0];
-          const float4 b = reinterpret_cast<const float4*>(src)[1];
-          const float2 d = reinterpret_cast<const float2*>(src)[4];
-          const float xin[kTM + 2] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, d.x, d.y};
+  for (int k = 0; k < 3; ++k)
 #pragma unroll
-          for (int kx = 0; kx < 3; ++kx) {
-            const float* wrow = &ws[c][ky * 3 + kx][0];
-            const float4 w0 = reinterpret_cast<const float4*>(wrow)[cg];
-            const float4 w1 = reinterpret_cast<const float4*>(wrow)[T::NCG + cg];
+    for (int n = 0; n < kTN; ++n) rw[k][n] = __ldg(rgb_w + k * COUT + channel_of<COUT>(cg, n));
+  const float rb[3] = {__ldg(rgb_b), __ldg(rgb_b + 1), __ldg(rgb_b + 2)};
 #pragma unroll
-            for (int m = 0; m < kTM; ++m) fma8(acc[m], xin[m + kx], w0, w1);
-          }
+  for (int m = 0; m < kTM; ++m) {
+    float rgb[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      float p = 0.f;
+#pragma unroll
+      for (int n = 0; n < kTN; ++n) p = fmaf(acc[m][n], rw[k][n], p);
+      rgb[k] = group_sum<COUT>(p);  // all lanes take part in the shuffles
+    }
+    if (m % Tile<COUT>::NCG == cg) {  // one lane of the group writes pixel m
+      const int gx = gx0 + m;
+      const size_t o = ((static_cast<size_t>(b) * H + gy) * W + gx) * 3;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float pv = prev(k, gy, gx);
+        const float v = pv + alpha * ((rgb[k] + rb[k]) - pv);
+        if constexpr (U8) {
+          const float t = tanhf(v);
+          const float q = fminf(fmaxf(rintf((t + 1.0f) * 127.5f), 0.f), 255.f);
+          static_cast<unsigned char*>(out)[o + k] = static_cast<unsigned char>(q);
+        } else {
+          static_cast<float*>(out)[o + k] = v;
         }
       }
     }
-    __syncthreads();
   }
 }
 

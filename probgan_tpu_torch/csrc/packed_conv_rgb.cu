@@ -16,11 +16,10 @@
 //
 // Design against that bound: the conv main loop is packed_conv's (register
 // tiles of 8 pixels x 8 channels, weights streamed through shared memory);
-// the toRGB dot is reduced across the 4 lanes of a pixel group by shuffles,
-// and the blend and denorm run in registers, so the kernel adds a few
-// hundred FLOP per pixel to the conv and writes 3 bytes per pixel.
-// Rounding is rintf (half to even), as jnp.round: roundf would round
-// half away from zero.
+// the tail (conv_tile.cuh rgb_blend_store) reduces the toRGB dot across the
+// lanes of a pixel group by shuffles and runs the blend and denorm in
+// registers, so the kernel adds a few hundred FLOP per pixel to the conv and
+// writes 3 bytes per pixel.
 #include "conv_tile.cuh"
 
 namespace probgan {
@@ -41,45 +40,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int cg = threadIdx.x % T::NCG;
   const int pg = threadIdx.x / T::NCG;
   bias_lrelu_norm<COUT>(acc, bias, cg);
-
-  float rw[3][kTN];
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-#pragma unroll
-    for (int n = 0; n < kTN; ++n) rw[k][n] = __ldg(rgb_w + k * COUT + channel_of<COUT>(cg, n));
-  const float rb[3] = {__ldg(rgb_b), __ldg(rgb_b + 1), __ldg(rgb_b + 2)};
-
-  const int gy = y0 + pg / 4;
-  const int gx0 = x0 + (pg % 4) * kTM;
   const int Hp = H / 2, Wp = W / 2;
-#pragma unroll
-  for (int m = 0; m < kTM; ++m) {
-    float rgb[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      float p = 0.f;
-#pragma unroll
-      for (int n = 0; n < kTN; ++n) p = fmaf(acc[m][n], rw[k][n], p);
-      rgb[k] = group_sum<COUT>(p);  // all lanes take part in the shuffles
-    }
-    if (m % T::NCG == cg) {  // one lane of the group writes pixel m
-      const int gx = gx0 + m;
-      const size_t o = ((static_cast<size_t>(b) * H + gy) * W + gx) * 3;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float pv =
-            __ldg(prev + ((static_cast<size_t>(b) * 3 + k) * Hp + gy / 2) * Wp + gx / 2);
-        const float v = pv + alpha * ((rgb[k] + rb[k]) - pv);
-        if constexpr (U8) {
-          const float t = tanhf(v);
-          const float q = fminf(fmaxf(rintf((t + 1.0f) * 127.5f), 0.f), 255.f);
-          static_cast<unsigned char*>(out)[o + k] = static_cast<unsigned char>(q);
-        } else {
-          static_cast<float*>(out)[o + k] = v;
-        }
-      }
-    }
-  }
+  rgb_blend_store<COUT, U8>(acc, rgb_w, rgb_b, alpha, out, cg, b, y0 + pg / 4,
+                            x0 + (pg % 4) * kTM, H, W, [&](int k, int gy, int gx) {
+                              return __ldg(prev + ((static_cast<size_t>(b) * 3 + k) * Hp +
+                                                   gy / 2) * Wp + gx / 2);
+                            });
 }
 
 template <int COUT, bool U8>

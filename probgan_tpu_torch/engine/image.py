@@ -1,12 +1,14 @@
 """Image-synthesis engine: batched latent -> uint8 image generation,
 discriminator scoring and latent-space walks.
 
-The port of ``probgan_tpu/engine/image.py``. The late-stage kernels run
-whenever the tensors are on CUDA: the engine always takes the packed paths of
-G and D, whose wrappers launch the CUDA kernels for CUDA tensors and use
-their plain twins for CPU tensors; nothing switches them off on the card.
-The final tanh -> uint8 denorm is fused into the generator's last kernel by
-default; ``use_pallas=True`` (or ``PROBGAN_PALLAS_UINT8=1``, the JAX
+The port of ``probgan_tpu/engine/image.py``. On the card the engine takes
+the packed paths of G and D, whose late stages run on the CUDA kernels of
+ops/packed.py, unless ``PROBGAN_PACKED=0`` (``packed_default``, the JAX
+package's escape hatch); on the CPU it takes the unpacked paths, as the JAX
+engine does off the TPU. ``PROBGAN_STAGE_FUSED=1`` runs each packed generator
+stage as one kernel (models/pro_gan.py ``_g_late_packed``). On the packed
+path the final tanh -> uint8 denorm is fused into the generator's last kernel
+by default; ``use_pallas=True`` (or ``PROBGAN_PALLAS_UINT8=1``, the JAX
 package's names for the switch) renders fp32 RGB instead and runs the
 separate denorm kernel of ops/image.py over it. There is no mesh (one card).
 """
@@ -27,38 +29,53 @@ from probgan_tpu_torch.utils.profiling import task_trace
 WALK_CHUNK = 8  # frames rendered per generator batch in a latent walk
 
 
+def packed_default(device) -> bool:
+    """Default of the packed late-stage path: on for a CUDA device unless
+    ``PROBGAN_PACKED=0`` (the escape hatch), read at each call. The JAX
+    package's gate is the same with the TPU in the card's place."""
+    return (torch.device(device).type == "cuda"
+            and os.environ.get("PROBGAN_PACKED", "1") != "0")
+
+
 def generate_fn(g_params: dict, z: torch.Tensor, alpha,
                 config: pro_gan.ProGANConfig, stage: int,
-                precision="high", use_pallas: bool = False) -> torch.Tensor:
-    """Latent [B, L] -> uint8 images [B, R, R, 3], on z's device, through
-    the packed path: the eligible late stages run on ops/packed.py, where
-    the tanh->uint8 denorm is fused into the final kernel. With
-    ``use_pallas`` the generator emits fp32 RGB and ``to_uint8_fused``
-    (ops/image.py) denormalizes it in a pass of its own. ``precision``:
-    "high" (the serving default) or "highest", both fp32 with TF32 off."""
+                precision="high", use_pallas: bool = False,
+                packed: bool | None = None) -> torch.Tensor:
+    """Latent [B, L] -> uint8 images [B, R, R, 3], on z's device. With
+    ``packed`` (None: ``packed_default`` of z's device) the eligible late
+    stages run on ops/packed.py, where the tanh->uint8 denorm is fused into
+    the final kernel. With ``use_pallas``
+    the generator emits fp32 RGB and ``to_uint8_fused`` (ops/image.py)
+    denormalizes it in a pass of its own. ``precision``: "high" (the serving
+    default) or "highest", both fp32 with TF32 off."""
+    if packed is None:
+        packed = packed_default(z.device)
     with torch.inference_mode():
         if use_pallas:
             rgb = pro_gan.generator_rgb(g_params, z, config, stage, alpha,
-                                        precision, packed=True)
+                                        precision, packed=packed)
             return image_ops.to_uint8_fused(rgb)
         return pro_gan.generator_apply(g_params, z, config, stage, alpha,
-                                       precision, packed=True)
+                                       precision, packed=packed)
 
 
 def score_fn(d_params: dict, images: torch.Tensor, alpha,
              config: pro_gan.ProGANConfig, stage: int,
-             precision="high") -> torch.Tensor:
+             precision="high", packed: bool | None = None) -> torch.Tensor:
     """Float images [B, R, R, 3] (~[-1, 1]) -> realness logits [B], on the
-    images' device, with the leading discriminator stages on ops/packed.py."""
+    images' device; with ``packed`` (None: ``packed_default`` of that device)
+    the leading discriminator stages run on ops/packed.py."""
+    if packed is None:
+        packed = packed_default(images.device)
     with torch.inference_mode():
         return pro_gan.discriminator_apply(d_params, images, config, stage,
-                                           alpha, precision, packed=True)
+                                           alpha, precision, packed=packed)
 
 
 def latent_walk_fn(g_params: dict, z0: torch.Tensor, z1: torch.Tensor, alpha,
                    config: pro_gan.ProGANConfig, stage: int, frames: int,
                    precision="high", use_pallas: bool = False,
-                   chunk: int = WALK_CHUNK) -> torch.Tensor:
+                   chunk: int = WALK_CHUNK, packed: bool | None = None) -> torch.Tensor:
     """Interpolate z0 -> z1 (each [L]) linearly in ``frames`` steps and
     render each: uint8 [frames, R, R, 3]. Frames render in generator batches
     of ``chunk``, which bounds peak memory at the chunk's; the last chunk is
@@ -66,10 +83,10 @@ def latent_walk_fn(g_params: dict, z0: torch.Tensor, z1: torch.Tensor, alpha,
     t = torch.linspace(0.0, 1.0, frames, dtype=z0.dtype, device=z0.device)[:, None]
     z = z0[None, :] * (1.0 - t) + z1[None, :] * t
     if frames <= chunk:
-        return generate_fn(g_params, z, alpha, config, stage, precision, use_pallas)
+        return generate_fn(g_params, z, alpha, config, stage, precision, use_pallas, packed)
     pad = (-frames) % chunk
     z = torch.nn.functional.pad(z, (0, 0, 0, pad))
-    imgs = [generate_fn(g_params, zc, alpha, config, stage, precision, use_pallas)
+    imgs = [generate_fn(g_params, zc, alpha, config, stage, precision, use_pallas, packed)
             for zc in z.split(chunk)]
     return torch.cat(imgs)[:frames]
 
@@ -114,6 +131,8 @@ class ImageGANEngine:
         if use_pallas is None:
             use_pallas = os.environ.get("PROBGAN_PALLAS_UINT8", "0") == "1"
         self.use_pallas = bool(use_pallas)
+        # the packed paths on the card unless PROBGAN_PACKED=0, at construction
+        self.packed = packed_default(self.device)
         self._rng = RngStream(seed)
         if g_params is None:
             g_params = pro_gan.init_generator(
@@ -146,7 +165,7 @@ class ImageGANEngine:
         z = self._place(latents)
         with task_trace("generate_images"):
             img = generate_fn(self.g_params, z, alpha, self.config, stage,
-                              self.precision, self.use_pallas)
+                              self.precision, self.use_pallas, self.packed)
             return img.cpu().numpy()
 
     def score(self, images, stage: int | None = None,
@@ -159,7 +178,7 @@ class ImageGANEngine:
         x = self._place(images)
         with task_trace("score_images"):
             logits = score_fn(self.d_params, x, alpha, self.config, stage,
-                              self.precision)
+                              self.precision, self.packed)
             return logits.cpu().numpy()
 
     def latent_walk(self, z0, z1, frames: int = 64, stage: int | None = None,
@@ -171,5 +190,6 @@ class ImageGANEngine:
         z0, z1 = self._place(z0), self._place(z1)
         with task_trace("latent_walk"):
             img = latent_walk_fn(self.g_params, z0, z1, alpha, self.config,
-                                 stage, frames, self.precision, self.use_pallas)
+                                 stage, frames, self.precision, self.use_pallas,
+                                 packed=self.packed)
             return img.cpu().numpy()

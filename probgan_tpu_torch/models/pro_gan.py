@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -253,26 +254,36 @@ def _g_late_packed(params: dict, x_entry: torch.Tensor, config: ProGANConfig,
     blended RGB in NHWC: fp32 pre-tanh (emit="rgb") or uint8 (emit="uint8").
     The final stage's conv1 also emits toRGB of its input, and its conv2
     fuses toRGB, the blend and the denorm, so its features never reach
-    device memory."""
+    device memory. Forward-only.
+
+    ``PROBGAN_STAGE_FUSED=1`` runs ONE kernel per stage instead of two:
+    ``packed_upconv_conv`` for a non-final stage and ``packed_upconv_conv_rgb``
+    for the final one (alone when s0 == stage), so conv1's feature map never
+    reaches device memory either; the bits are the two-kernel path's. The
+    variable is read at each call (the JAX package reads it once, when the
+    function is traced). The two-kernel path stays the default, as in JAX."""
     from probgan_tpu_torch.ops import packed as pk
 
+    stage_fused = os.environ.get("PROBGAN_STAGE_FUSED", "0") == "1"
     x = x_entry.float().contiguous()
     for s in range(s0, stage + 1):
         block = params["blocks"][s - 1]
         c1, c2 = block["conv1"], block["conv2"]
+        w1, w2 = eq_scaled_conv_w(c1), eq_scaled_conv_w(c2)
         if s == stage:
-            prev_rgb = params["to_rgb"][s - 1]
-            feats, rgb_prev = pk.packed_upconv(
-                x, eq_scaled_conv_w(c1), c1["b"],
-                rgb_w=_rgb_w(prev_rgb), rgb_b=prev_rgb["b"],
-            )
-            to_rgb = params["to_rgb"][s]
-            return pk.packed_conv_rgb(
-                feats, eq_scaled_conv_w(c2), c2["b"], _rgb_w(to_rgb),
-                to_rgb["b"], rgb_prev, alpha, emit_uint8=emit == "uint8",
-            )
-        feats = pk.packed_upconv(x, eq_scaled_conv_w(c1), c1["b"])
-        x = pk.packed_conv(feats, eq_scaled_conv_w(c2), c2["b"])
+            prev_rgb, to_rgb = params["to_rgb"][s - 1], params["to_rgb"][s]
+            if stage_fused:
+                return pk.packed_upconv_conv_rgb(
+                    x, w1, c1["b"], w2, c2["b"], _rgb_w(to_rgb), to_rgb["b"],
+                    _rgb_w(prev_rgb), prev_rgb["b"], alpha, emit_uint8=emit == "uint8")
+            feats, rgb_prev = pk.packed_upconv(x, w1, c1["b"], rgb_w=_rgb_w(prev_rgb),
+                                               rgb_b=prev_rgb["b"])
+            return pk.packed_conv_rgb(feats, w2, c2["b"], _rgb_w(to_rgb), to_rgb["b"],
+                                      rgb_prev, alpha, emit_uint8=emit == "uint8")
+        if stage_fused:
+            x = pk.packed_upconv_conv(x, w1, c1["b"], w2, c2["b"])
+        else:
+            x = pk.packed_conv(pk.packed_upconv(x, w1, c1["b"]), w2, c2["b"])
     raise AssertionError("unreachable")
 
 

@@ -1,6 +1,6 @@
 """The late-stage conv kernels of the image G and D: Python side.
 
-Five kernels carry stages 7-8 of the 1024² generator and the first two
+Seven kernels carry stages 7-8 of the 1024² generator and the first two
 blocks of its discriminator, forward and backward, each written by hand in
 CUDA C++ for Hopper (``csrc/*.cu``) and keeping the JAX names of the Pallas
 kernels they replace (``probgan_tpu/ops/pallas_packed.py``):
@@ -17,9 +17,17 @@ kernels they replace (``probgan_tpu/ops/pallas_packed.py``):
   discriminator's conv2) or nothing (``"none"``) -> 2x2 mean pool; only the
   pooled tensor is written;
 - ``packed_conv_wgrad``: the weight gradient of a conv3x3 from its input and
-  the cotangent of its pre-bias output.
+  the cotangent of its pre-bias output;
+- ``packed_upconv_conv``: ``packed_upconv`` then ``packed_conv`` in one
+  kernel, a whole non-final generator stage whose conv1 map never reaches
+  device memory (opt-in, ``PROBGAN_STAGE_FUSED=1``);
+- ``packed_upconv_conv_rgb``: ``packed_upconv`` with the toRGB of its input
+  then ``packed_conv_rgb`` in one kernel, the whole final stage (opt-in).
 
-The four forward kernels record no autograd graph. On the CPU their plain
+The two stage-fused kernels give the bits of the pair they replace: their
+plain twins are the pairs' twins composed.
+
+The six forward kernels record no autograd graph. On the CPU their plain
 twins are ordinary differentiable torch code; on a CUDA tensor a wrapper
 raises when a gradient is wanted (grad mode on and an argument that
 ``requires_grad``) instead of returning a tensor whose gradient would
@@ -56,7 +64,8 @@ from probgan_tpu_torch.ops.fused_upconv import parity_weights, upsample2x_conv3x
 # Launches of each kernel since the last reset_launches(); a wrapper adds one
 # where it launches its kernel and nowhere else.
 launches = {"packed_upconv": 0, "packed_conv": 0, "packed_conv_rgb": 0,
-            "packed_convpool": 0, "packed_conv_wgrad": 0}
+            "packed_convpool": 0, "packed_conv_wgrad": 0, "packed_upconv_conv": 0,
+            "packed_upconv_conv_rgb": 0}
 # The same launches by epilogue, "<kernel>[<epilogue>]", for the kernels that
 # have more than one.
 epilogue_launches = {
@@ -74,6 +83,9 @@ _ARGTYPES = {
     "packed_convpool": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv_rgb": [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _I,
                         _I, _I, _I, _I, _I, _P],
+    "packed_upconv_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "packed_upconv_conv_rgb": [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P,
+                               _I, _I, _I, _I, _I, _I, _P],
 }
 # Output channel counts the kernels are instantiated for (csrc/conv_tile.cuh).
 # PixelNorm needs every channel in one block, so "lrelu_norm" takes only
@@ -432,3 +444,86 @@ def packed_conv_wgrad(x, dpre):
     _launch(name, x, _ptr(x), _ptr(dpre), _ptr(partials), _ptr(dw), bsz, c, h, wd, cout,
             ksplit)
     return dw
+
+
+# ---------------------------------------------------------------------------
+# packed_upconv_conv, packed_upconv_conv_rgb: one kernel per stage
+# ---------------------------------------------------------------------------
+
+def packed_upconv_conv_plain(x, w1, b1, w2, b2):
+    """Plain twin of ``packed_upconv_conv``: the pair's twins composed."""
+    return packed_conv_plain(packed_upconv_plain(x, w1, b1), w2, b2)
+
+
+def packed_upconv_conv_rgb_plain(x, w1, b1, w2, b2, rgb_w, rgb_b, prev_rgb_w, prev_rgb_b,
+                                 alpha, *, emit_uint8=False):
+    """Plain twin of ``packed_upconv_conv_rgb``: the pair's twins composed."""
+    feats, rgb_prev = packed_upconv_plain(x, w1, b1, rgb_w=prev_rgb_w, rgb_b=prev_rgb_b)
+    return packed_conv_rgb_plain(feats, w2, b2, rgb_w, rgb_b, rgb_prev, alpha,
+                                 emit_uint8=emit_uint8)
+
+
+def _stage_fused_checks(name: str, x, w1, w2, **params) -> int:
+    """The stage-fused kernels' shape rules: conv1 C -> Cout, conv2 Cout ->
+    Cout with Cout 32 or 64; input rows a multiple of half the conv2 tile's
+    rows, columns of 16. Returns Cout."""
+    cout = w1.shape[0]
+    _check_cout(name, cout)
+    if tuple(w2.shape) != (cout, cout, 3, 3):
+        raise ValueError(f"{name}: w2 {tuple(w2.shape)} must be {(cout, cout, 3, 3)}")
+    _check(name, x, w1.shape[1], _tile_rows(cout) // 2, 16, w1=w1, w2=w2, **params)
+    return cout
+
+
+def packed_upconv_conv(x, w1, b1, w2, b2):
+    """One whole non-final generator stage in one kernel: nearest-2x upsample
+    -> conv3x3 + b1 -> LeakyReLU -> PixelNorm -> conv3x3 + b2 -> LeakyReLU ->
+    PixelNorm. x [B, C, H, W] fp32, w1 [Cout, C, 3, 3] and w2 [Cout, Cout, 3,
+    3] eq-LR scaled -> [B, Cout, 2H, 2W], equal bit for bit to
+    ``packed_conv(packed_upconv(x, w1, b1), w2, b2)`` on the card. On CUDA,
+    Cout is 32 or 64."""
+    if x.device.type == "cpu":
+        return packed_upconv_conv_plain(x, w1, b1, w2, b2)
+    name = "packed_upconv_conv"
+    _refuse_grad(name, "upconv_lrelu_norm followed by conv_lrelu_norm", x, w1, b1, w2, b2)
+    cout = _stage_fused_checks(name, x, w1, w2, b1=b1, b2=b2)
+    bsz, c, h, wd = x.shape
+    wk1, wk2 = upconv_kernel_weights(w1), conv_kernel_weights(w2)
+    b1, b2 = b1.contiguous(), b2.contiguous()
+    y = torch.empty((bsz, cout, 2 * h, 2 * wd), device=x.device, dtype=x.dtype)
+    _launch(name, x, _ptr(x), _ptr(wk1), _ptr(b1), _ptr(wk2), _ptr(b2), _ptr(y), bsz, c, h,
+            wd, cout)
+    return y
+
+
+def packed_upconv_conv_rgb(x, w1, b1, w2, b2, rgb_w, rgb_b, prev_rgb_w, prev_rgb_b, alpha, *,
+                           emit_uint8=False):
+    """The whole final generator stage in one kernel: ``packed_upconv_conv``'s
+    chain -> toRGB (``rgb_w`` [3, Cout], ``rgb_b`` [3]) -> ``prev + alpha *
+    (rgb - prev)``, prev the nearest-2x of toRGB_{s-1}(x) (``prev_rgb_w``
+    [3, C], ``prev_rgb_b`` [3]) -> (tanh -> round half to even((t+1)*127.5)
+    -> clip -> uint8 when ``emit_uint8``). x [B, C, H, W] fp32 -> NHWC
+    [B, 2H, 2W, 3], uint8 or fp32 pre-tanh RGB, equal bit for bit to
+    ``packed_upconv(x, w1, b1, rgb_w=prev_rgb_w, rgb_b=prev_rgb_b)`` then
+    ``packed_conv_rgb`` of its two outputs on the card."""
+    alpha = float(alpha)
+    if x.device.type == "cpu":
+        return packed_upconv_conv_rgb_plain(x, w1, b1, w2, b2, rgb_w, rgb_b, prev_rgb_w,
+                                            prev_rgb_b, alpha, emit_uint8=emit_uint8)
+    name = "packed_upconv_conv_rgb"
+    _refuse_grad(name, "upconv_lrelu_norm and conv_lrelu_norm followed by the toRGB convs "
+                 "and the blend as torch ops, as models.pro_gan.generator_rgb(packed_mode=...) "
+                 "does", x, w1, b1, w2, b2, rgb_w, rgb_b, prev_rgb_w, prev_rgb_b)
+    cout = _stage_fused_checks(name, x, w1, w2, b1=b1, b2=b2, rgb_w=rgb_w, rgb_b=rgb_b,
+                               prev_rgb_w=prev_rgb_w, prev_rgb_b=prev_rgb_b)
+    bsz, c, h, wd = x.shape
+    wk1, wk2 = upconv_kernel_weights(w1), conv_kernel_weights(w2)
+    b1, b2 = b1.contiguous(), b2.contiguous()
+    rgb_w, rgb_b = rgb_w.reshape(3, cout).contiguous(), rgb_b.contiguous()
+    prev_rgb_w, prev_rgb_b = prev_rgb_w.reshape(3, c).contiguous(), prev_rgb_b.contiguous()
+    out = torch.empty((bsz, 2 * h, 2 * wd, 3), device=x.device,
+                      dtype=torch.uint8 if emit_uint8 else torch.float32)
+    _launch(name, x, _ptr(x), _ptr(wk1), _ptr(b1), _ptr(wk2), _ptr(b2), _ptr(rgb_w),
+            _ptr(rgb_b), _ptr(prev_rgb_w), _ptr(prev_rgb_b), alpha, _ptr(out), int(emit_uint8),
+            bsz, c, h, wd, cout)
+    return out

@@ -17,7 +17,9 @@ from probgan_tpu_torch.models.pro_gan import ProGANConfig
 from probgan_tpu_torch.ops import packed
 
 PORT = Path(__file__).resolve().parent.parent / "probgan_tpu_torch"
-# The packed gate engages (stages 6-7), so the CPU engine runs the twins.
+# A config whose packed gate engages (stages 6-7); the engine on the CPU
+# takes the unpacked path (engine/image.py packed_default), on the card the
+# kernels.
 PACKED = ProGANConfig(resolution=512, latent_dim=16, fmap_base=512, fmap_max=64)
 
 
@@ -30,7 +32,7 @@ def test_engine_generate_cpu_shape_dtype():
     img = engine.generate(z)
     assert isinstance(img, np.ndarray) and img.dtype == np.uint8
     assert img.shape == (2, 512, 512, 3)
-    assert packed.launches == before  # CPU: plain twins, no kernel launches
+    assert packed.launches == before  # CPU: no kernel launches
     # same seed -> same weights and latents -> same images
     twin = ImageGANEngine(PACKED, device="cpu", seed=3)
     zt = twin.sample_latents(2)
@@ -95,11 +97,12 @@ def test_import_leaves_jax_out():
     out = subprocess.run([sys.executable, "-c", code], cwd=PORT.parent,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert len(modules) >= 37
+    assert len(modules) >= 40
     for name in ("engine.inference", "engine.image", "core.image_checkpoint", "ops.image",
                  "ops.packed", "ops.rank_fused", "cli.infer", "utils.demo_checkpoint",
                  "utils.profile_score", "engine.train", "ops.packed_vjp", "core.train_state",
-                 "core.tree", "utils.profile_train"):
+                 "core.tree", "utils.profile_train", "cli.train", "cli.train_image",
+                 "native"):
         assert f"probgan_tpu_torch.{name}" in modules
 
 

@@ -153,6 +153,21 @@ def test_grow_restores_a_smaller_state_into_a_larger_template(tmp_path):
     np.testing.assert_allclose(float(m_big["d_loss"]), float(m_small["d_loss"]), rtol=1e-5)
 
 
+
+def test_grow_keeps_template_leaves_off_the_cpu(tmp_path):
+    """A grow restore into a template that does not live on the CPU (meta
+    stands in for the card): the file's leaves move onto the template's
+    device and the extra stage keeps the template's own leaves, which never
+    pass through numpy (a card tensor cannot)."""
+    small = _template(seed=0)
+    path = str(tmp_path / "small.msgpack")
+    tts.save_train_state(path, small, {"stage": STAGE})
+    big = tree_map(lambda t: t.to("meta"), _template(GROWN, seed=5))
+    got, _ = tts.load_train_state(path, big, grow=True)
+    assert all(t.device.type == "meta" for t in tree_leaves(got))
+    n = len(small.g_params["blocks"])
+    assert got.g_params["blocks"][n]["conv1"]["w"] is big.g_params["blocks"][n]["conv1"]["w"]
+
 def test_grow_error_cases(tmp_path):
     """_merge_subtree's three refusals: a file entry the template lacks, a
     leaf of another shape, a subtree where the template has a leaf."""
