@@ -58,9 +58,13 @@ Phases (any failure exits non-zero and prints no result line):
    plain fp32 score must equal the returned value within 2e-6, no entity
    left out may score more than 2e-6 above the k-th value, bit-equal scores
    (duplicate rows) must come in ascending id, and the rows 1e-4 apart, which
-   bf16 cannot tell apart, in their fp32 order. The yardstick is
-   ``F.normalize`` -> ``torch.matmul`` (-> ``torch.topk``), on bf16 operands
-   for the bf16 kernel;
+   bf16 cannot tell apart, in their fp32 order. The bf16 path's ids must equal
+   the fp32 kernel's; its merge kernel alone, on the stream's candidates,
+   must match ``merge_rescore_bf16_plain`` (ids equal, values to 2e-6) and
+   the one-call path its two parts launched apart, bit for bit; its times
+   are the wrapper's, the stream's alone and the merge's alone. The
+   yardstick is ``F.normalize`` -> ``torch.matmul`` (-> ``torch.topk``), on
+   bf16 operands for the bf16 kernel;
 7. the KG main path: a seeded C17 checkpoint (1,000,000 entities, 1,000
    relations, embed 128, noise 64, hidden 1024) written as ``.pt`` into a
    temporary directory, then ``InferenceEngine(path, device="cuda")``:
@@ -74,13 +78,15 @@ Phases (any failure exits non-zero and prints no result line):
    by an engine built with ``PROBGAN_BF16_RANK=1``: ``predict_tails`` and
    ``find_similar_entities`` must launch ``rank_topk_bf16`` once per call
    and ``rank_topk`` not at all and return the fp32 engine's ids (scores to
-   2e-6); queries/s and p50 of both engines, called in turns. Last the CLI's
+   2e-6); queries/s and p50 of both engines, called in turns (the bf16
+   engine against the fp32 one). Last the CLI's
    ``predict_tails`` and ``model_info`` tasks in process, and the REPL fed
    from stdin;
 8. the training kernels at path III's shapes (batch 2) against their plain
-   twins: ``packed_conv_wgrad`` at the six distinct (C, Cout, H) of the 1024²
-   train step, each entry within 1e-4 of dW's largest (sums over 2 to 4
-   million pixels in another order) and two runs on one input bit-equal;
+   twins: ``packed_conv_wgrad`` (3xTF32) at the six distinct (C, Cout, H) of
+   the 1024² train step, each entry within 1e-5 of dW's largest (sums over 2
+   to 4 million pixels in another order) and two runs on one input
+   bit-equal, with its bound at the TF32 rate beside the fp32 CUDA-core one;
    ``packed_upconv`` with the "lrelu" epilogue at both stages, ``packed_conv``
    "none" at its dgrad and recompute shapes (64 -> 32, 128 -> 64, 64 -> 128)
    and ``packed_convpool`` "none" at the upconv's dgrad shapes (atol = rtol =
@@ -99,8 +105,10 @@ Phases (any failure exits non-zero and prints no result line):
    counts per step checked (12 ``packed_conv_wgrad``, 6 ``packed_upconv``,
    32 ``packed_conv``, 8 ``packed_convpool``), every loss finite; steps/s,
    p50, peak device memory with ``remat`` on and off; one
-   ``progan_train_step_accum`` step (A = 2) and one step with R1; a train
-   state saved, loaded and stepped against the uninterrupted run. Then
+   ``progan_train_step_accum`` step (A = 2) and one step with R1; device
+   milliseconds by part over 2 steps under ``torch.profiler``
+   (``utils/profile_train.py``'s parts: ``packed_conv_wgrad``'s a step); a
+   train state saved, loaded and stepped against the uninterrupted run. Then
    ``kg_init_state`` at 1,000,000 entities, 1,000 relations, batch 1,024 with
    corrupted negatives and 8,192 sampled-softmax negatives: the first step's
    metrics against the same step on the CPU (rtol 1e-4), steps/s and peak
@@ -157,6 +165,7 @@ import torch.nn.functional as F
 
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, CUDA cores, no tensor cores
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, tensor cores, dense bf16
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, tensor cores, dense TF32
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 BATCH_KERNELS = 2
 BATCH_MAIN = 8
@@ -196,6 +205,10 @@ PACKED_KERNELS = ("packed_upconv", "packed_conv", "packed_conv_rgb", "packed_con
 # A gradient sums up to 4 million products in another order than cuDNN or the
 # plain twin: it is held to this share of the tensor's largest entry.
 GRAD_REL = 1e-4
+# packed_conv_wgrad's 3xTF32 grade against its plain twin (fp32, TF32 off):
+# the grade drops about 2^-22 of each product, so dW must stay within this
+# share of its largest entry.
+WGRAD_REL = 1e-5
 # A weight gradient that autograd takes through the plain twin comes from
 # cuDNN, whose fp32 algorithm at 512² is itself about 1e-4 of the largest
 # entry away from the plain correlation (packed_conv_wgrad_plain): the bound
@@ -388,9 +401,12 @@ def assemble_conv_rows(rows, batch: int) -> list[dict]:
     an entry's times and bound are the sums over its calls."""
     out = []
     for name, source, replaces, calls in rows:
-        flops = sum(k["flops"] for k in calls)
+        # a call may run more operations than its FLOP count ("op_flops", the
+        # three TF32 passes of packed_conv_wgrad) at another peak
+        peak = calls[0].get("peak_flops", PEAK_FP32_FLOPS)
+        op_flops = sum(k.get("op_flops", k["flops"]) for k in calls)
         nbytes = sum(k["bytes"] for k in calls)
-        bound_ms, bound_by = bound(flops, nbytes)
+        bound_ms, bound_by = bound(op_flops, nbytes, peak)
         entry = {
             "name": name, "route": "cuda",
             "source": f"probgan_tpu_torch/csrc/{source}.cu", "replaces": replaces,
@@ -403,12 +419,15 @@ def assemble_conv_rows(rows, batch: int) -> list[dict]:
             "batch": batch, "calls": calls,
         }
         for k in calls:
-            k["bound_ms"], k["bound_by"] = bound(k["flops"], k["bytes"])
+            k["bound_ms"], k["bound_by"] = bound(k.pop("op_flops", k["flops"]), k["bytes"],
+                                                 k.pop("peak_flops", PEAK_FP32_FLOPS))
+            extra = (f", fp32 CUDA-core bound {k['bound_fp32_ms']:.3f} ms"
+                     if "bound_fp32_ms" in k else "")
             print(f"  {name}[{k['call']}] x{k['shape_in']}: max_abs_err "
                   f"{k['max_abs_err']:.3g}  kernel {k['ms']:.3f} ms  plain "
                   f"{k['plain_ms']:.3f} ms  library {k['library_ms']:.3f} ms  bound "
                   f"{k['bound_ms']:.3f} ms ({k['bound_by']}, "
-                  f"{k['flops'] / 1e9:.1f} GFLOP, {k['bytes'] / 1e6:.1f} MB)")
+                  f"{k['flops'] / 1e9:.1f} GFLOP, {k['bytes'] / 1e6:.1f} MB{extra})")
         out.append(entry)
     return out
 
@@ -609,14 +628,35 @@ def phase_rank_kernels(rf, rank_ops) -> list[dict]:
             "plain_ms": cuda_ms(lambda: twin(pred, table, k, nvalid), iters=3, warmup=1),
         }
         if bf16:
-            # ids equal to B4's except between entities within RANK_ATOL
-            # (check_topk above holds both to the plain fp32 scores)
+            # the ids of B4, the fp32 kernel (check_topk above holds both to
+            # the plain fp32 scores)
             call["ids_equal_to_fp32_kernel"] = (ids == fp32_ids[label]).float().mean().item()
+            if not torch.equal(ids, fp32_ids[label]):
+                raise AssertionError(f"{name}[{label}]: ids differ from the fp32 kernel's")
             m = min(k + rf.BF16_RESCORE_POOL, nvalid)
+            # the merge kernel alone against its plain twin on the stream's
+            # candidates, and the one-call path against its two parts
+            cand_v, cand_i = rf.pool_candidates_bf16(pred, table_bf16, m, nvalid, True)
+            merge_v, merge_i = rf.merge_rescore_bf16(cand_v, cand_i, pred, table, k, m)
+            twin_mv, twin_mi = rf.merge_rescore_bf16_plain(cand_v, cand_i, pred, table, k, m)
+            torch.cuda.synchronize()
+            merge_err = (merge_v - twin_mv).abs().max().item()
+            if not torch.equal(merge_i, twin_mi) or merge_err > RANK_ATOL:
+                raise AssertionError(f"{name}[{label}]: the merge kernel differs from its "
+                                     f"plain twin (ids equal {torch.equal(merge_i, twin_mi)}, "
+                                     f"values by {merge_err:.3g})")
+            if not (torch.equal(merge_i, ids) and torch.equal(merge_v, values)):
+                raise AssertionError(f"{name}[{label}]: the one-call path differs from its "
+                                     "stream and merge launched apart")
             pred_bf16 = F.normalize(pred).to(torch.bfloat16)
             call.update({
-                "kernel_only_ms": cuda_ms(
+                "merge_max_abs_err": merge_err,
+                "stream_ms": cuda_ms(
                     lambda: rf.pool_candidates_bf16(pred, table_bf16, m, nvalid, True)),
+                "merge_ms": cuda_ms(
+                    lambda: rf.merge_rescore_bf16(cand_v, cand_i, pred, table, k, m)),
+                "merge_plain_ms": cuda_ms(
+                    lambda: rf.merge_rescore_bf16_plain(cand_v, cand_i, pred, table, k, m)),
                 "library_ms": cuda_ms(lambda: torch.topk(
                     torch.matmul(pred_bf16, table_bf16[:nvalid].T), k)),
                 "flops": 2.0 * b * nvalid * d,
@@ -682,11 +722,14 @@ def phase_rank_kernels(rf, rank_ops) -> list[dict]:
             ("rank_topk_bf16", "probgan_tpu/ops/pallas_rank.py:211", bf16_calls)):
         for c in calls:
             c["bound_ms"], c["bound_by"] = bound(c["flops"], c["bytes"], c.pop("peak_flops"))
+            parts = (f"  (stream alone {c['stream_ms']:.3f} ms, merge alone "
+                     f"{c['merge_ms']:.3f} ms, its plain twin {c['merge_plain_ms']:.3f} ms, "
+                     f"merge vs twin {c['merge_max_abs_err']:.3g})" if "stream_ms" in c else "")
             print(f"  {name}[{c['call']}] x{c['shape_in']} vs {c['rows']} rows: max_abs_err "
                   f"{c['max_abs_err']:.3g}  kernel {c['ms']:.3f} ms  plain "
                   f"{c['plain_ms']:.3f} ms  library {c['library_ms']:.3f} ms  bound "
                   f"{c['bound_ms']:.3f} ms ({c['bound_by']}, {c['flops'] / 1e9:.1f} GFLOP, "
-                  f"{c['bytes'] / 1e6:.1f} MB)")
+                  f"{c['bytes'] / 1e6:.1f} MB){parts}")
         # the entry's own numbers are those of the main path's shape: calls[0]
         head = calls[0]
         entry = {
@@ -813,21 +856,31 @@ def phase_train_kernels(pk, packed_vjp, pro_gan) -> list[dict]:
             raise AssertionError(f"packed_conv_wgrad ({c}, {cout}, {h}): wrong shape, or two "
                                  "runs on one input differ in their bits")
         err = scaled_err(f"packed_conv_wgrad ({c}, {cout}, {h})", got,
-                         pk.packed_conv_wgrad_plain(x, dpre))
+                         pk.packed_conv_wgrad_plain(x, dpre), WGRAD_REL)
 
         def library():
             return torch.nn.grad.conv2d_weight(x, (cout, c, 3, 3), dpre, padding=1)
 
+        flops = 2 * 9 * c * cout * B * h * h
+        nbytes = 4 * (B * c * h * h + B * cout * h * h + 9 * c * cout)
+        largest = got.abs().max().item()
         wgrad_calls.append({
             "call": f"C{c}->Cout{cout}@{h}", "shape_in": [B, c, h, h], "max_abs_err": err,
+            "max_abs_err_share_of_largest": err / largest,
             "max_abs_err_vs_library": (got - library()).abs().max().item(),
-            "largest_entry": got.abs().max().item(), "bit_equal_runs": True,
+            "largest_entry": largest, "bit_equal_runs": True,
             "ms": cuda_ms(lambda: pk.packed_conv_wgrad(x, dpre)),
             "plain_ms": cuda_ms(lambda: pk.packed_conv_wgrad_plain(x, dpre), iters=3, warmup=1),
             "library_ms": cuda_ms(library),
-            "flops": 2 * 9 * c * cout * B * h * h,
-            "bytes": 4 * (B * c * h * h + B * cout * h * h + 9 * c * cout),
+            "flops": flops, "bytes": nbytes,
+            # three TF32 tensor-core products per product; the fp32 CUDA-core
+            # bound of the same function beside it
+            "op_flops": 3 * flops, "peak_flops": PEAK_TF32_FLOPS,
+            "bound_fp32_ms": bound(flops, nbytes)[0],
         })
+        print(f"  packed_conv_wgrad ({c}, {cout}, {h}): max |err| vs the twin {err:.3g}, "
+              f"{err / largest:.3g} of the largest entry {largest:.4g} (bound {WGRAD_REL:g}); "
+              "two runs bit-equal")
         del x, dpre, got, again
     rows = [("packed_conv_wgrad", "packed_conv_wgrad",
              "probgan_tpu/ops/pallas_packed.py:558", wgrad_calls)]
@@ -1055,6 +1108,23 @@ def phase_train_path(pk, pro_gan, train_mod, train_state_mod, tree_mod) -> tuple
         float(m["d_loss"])
         peaks[remat] = torch.cuda.max_memory_allocated() / 1e9
 
+    # -- device time by part over 2 steps (utils/profile_train.py's parts):
+    # packed_conv_wgrad's milliseconds a step
+    from probgan_tpu_torch.utils import profile_train
+
+    def profiled_step(stt):
+        stt, m = step(stt, 1.0)
+        float(m["g_loss"])
+        return stt
+
+    st, wall_us, by_name, _ = profile_train.profile_steps(profiled_step, st, 2)
+    if not by_name:
+        raise AssertionError("torch.profiler recorded no device time in the train step")
+    step_parts = {k: v / 2e3 for k, v in profile_train.parts_of(by_name).items()}
+    print(f"  profiled (2 steps): wall {wall_us / 2e3:.1f} ms a step, device busy "
+          f"{sum(step_parts.values()):.1f} ms, packed_conv_wgrad "
+          f"{step_parts.get('packed_conv_wgrad', 0.0):.2f} ms a step (12 launches)")
+
     # -- accumulation (A = 2) and R1
     real2 = torch.stack([real, real.flip(2)])
     z2 = torch.stack([z, z.flip(0)])
@@ -1112,6 +1182,9 @@ def phase_train_path(pk, pro_gan, train_mod, train_state_mod, tree_mod) -> tuple
         "peak_device_memory_gb_no_remat": peaks[False],
         "grad_share_of_largest_entry": grad_errs, "resume_max_abs_diff": resume_diff,
         "train_state_mb": size_mb,
+        "profiled_wall_ms_per_step": wall_us / 2e3,
+        "device_ms_per_step_by_part": step_parts,
+        "wgrad_ms_per_step": step_parts.get("packed_conv_wgrad", 0.0),
     }
     print(f"  {train['steps_per_s']:.3f} steps/s, p50 {train['p50_ms_per_step']:.1f} ms per "
           f"step (batch {B}, {TRAIN_STEPS} steps, host clock to the metrics on the host); "

@@ -5,10 +5,13 @@ surface: ``--colab`` / ``--local`` / ``--check`` flags, exit codes 0/1 (no
 flag -> usage + 1), and a doctor that probes imports, reports versions and
 the accelerators.
 
-Differences: the doctor reports torch, ``torch.version.cuda``, ``nvcc`` (the
-kernels in ``csrc/`` are built with it on first use) and the CUDA cards from
-``core/device.device_report()``. The install targets print the commands
-they would run and run none of them: nothing here reaches a network.
+The install targets run their steps as the reference's do
+(``run_command``): each step runs in a shell, a failed step is reported and
+the next one runs all the same, a summary closes the run, and the exit code
+is 1 if any step failed. The steps are the port's own (PyTorch with CUDA,
+NumPy; no JAX). Differences: the doctor reports torch, ``torch.version.cuda``,
+``nvcc`` (the kernels in ``csrc/`` are built with it on first use) and the
+CUDA cards from ``core/device.device_report()``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,21 @@ import subprocess
 import sys
 
 from probgan_tpu_torch.core.device import device_report
+
+
+def run_command(cmd: str, description: str = "") -> bool:
+    """Run a shell command, print its outcome, return whether it succeeded."""
+    print(f" {description}")
+    print(f"   Running: {cmd}")
+    try:
+        subprocess.run(cmd, shell=True, check=True, capture_output=True, text=True)
+        print("   Success")
+        return True
+    except subprocess.CalledProcessError as e:
+        print(f"   Failed: {e}")
+        print(f"   Error output: {e.stderr}")
+        return False
+
 
 _COLAB_STEPS = [
     (
@@ -33,25 +51,30 @@ _LOCAL_STEPS = [
 ]
 
 
-def _print_steps(steps: list[tuple[str, str]]) -> bool:
+def _run_steps(steps: list[tuple[str, str]]) -> bool:
+    """Run every step, on past a failed one; True if all succeeded."""
+    success = True
     for cmd, desc in steps:
-        print(f" {desc}")
-        print(f"   Would run: {cmd}")
-    print("\n Nothing was installed: run the commands above yourself, then")
-    print(" check with: python -m probgan_tpu_torch.cli.install --check")
-    return True
+        if not run_command(cmd, desc):
+            success = False
+    if success:
+        print("\n Installation completed successfully!")
+        print(" Check it with: python -m probgan_tpu_torch.cli.install --check")
+    else:
+        print("\n Some installations failed. Please check the error messages above.")
+    return success
 
 
 def install_colab() -> bool:
-    """Print the install steps for a hosted GPU runtime."""
-    print(" Prot-B-GAN dependencies for Google Colab (GPU runtime):")
-    return _print_steps(_COLAB_STEPS)
+    """Install for a hosted GPU runtime."""
+    print(" Installing Prot-B-GAN dependencies for Google Colab (GPU runtime)...")
+    return _run_steps(_COLAB_STEPS)
 
 
 def install_local() -> bool:
-    """Print the install steps for a local environment."""
-    print(" Prot-B-GAN dependencies for a local environment:")
-    return _print_steps(_LOCAL_STEPS)
+    """Install for a local environment."""
+    print(" Installing Prot-B-GAN dependencies for local environment...")
+    return _run_steps(_LOCAL_STEPS)
 
 
 # ---------------------------------------------------------------------------
@@ -124,10 +147,10 @@ def check_installation() -> bool:
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description="Install Prot-B-GAN dependencies")
     parser.add_argument(
-        "--colab", action="store_true", help="Show the install steps for Google Colab"
+        "--colab", action="store_true", help="Install for Google Colab (GPU runtime)"
     )
     parser.add_argument(
-        "--local", action="store_true", help="Show the install steps for a local environment"
+        "--local", action="store_true", help="Install for local environment"
     )
     parser.add_argument("--check", action="store_true", help="Check installation")
     args = parser.parse_args(argv)

@@ -2,7 +2,7 @@
 //   dW[o][c][ky][kx] = sum over (b, y, x) of
 //                      x_pad[b][c][y + ky - 1][x + kx - 1] * dpre[b][o][y][x]
 // with x [B][C][H][W] the conv's input (zero outside the image) and dpre
-// [B][Cout][H][W] the cotangent of its pre-bias output. Full fp32 FMAs.
+// [B][Cout][H][W] the cotangent of its pre-bias output.
 //
 // Replaces probgan_tpu/ops/pallas_packed.py:558 `packed_conv_wgrad`, which
 // every backward of ops/packed_vjp.py calls: at batch 2 of the 1024^2 train
@@ -10,146 +10,260 @@
 // (64, 128, 512) in the discriminator and (128, 64, 512), (64, 32, 1024),
 // (64, 64, 512), (32, 32, 1024) in the generator.
 //
-// Bound on the H100: operations. (32, 64, 1024) at batch 2 does
-// 2*9*32*64*2*1024^2 = 77 GFLOP over 268 + 537 MB read and 74 KB written:
-// ~96 FLOP per byte against the fp32 balance point of 20 (67 TFLOP/s over
-// 3.35 TB/s; this grade is fp32 without TF32, so the CUDA cores are the
-// ceiling).
+// Grade: 3xTF32 on the tensor cores, fp32 by accuracy. Each fp32 operand v
+// is split into hi = tf32(v) (round to nearest, ties away) and lo = v - hi,
+// which the tensor cores read truncated to TF32, and every product is
+// hi*hi + hi*lo + lo*hi with fp32 accumulation: what is dropped, lo*lo and
+// the truncation of lo, is about 2^-21 of a product, so dW lies within ~1e-6
+// of its largest entry of the fp32 sum. Why not fp32
+// FMAs: (64, 128, 512) at batch 2 is 77.3 GFLOP, which cuDNN's fp32 wgrad
+// does in 1.48 ms on an H100; the CUDA cores' 67 TFLOP/s would need 78% of
+// peak to tie that. The tensor cores' 495 TFLOP/s of TF32 give 165 TFLOP/s
+// of fp32-accurate product after the three passes.
 //
-// Design. It is a GEMM with a tiny output ([9*C] x [Cout], 9,216 to 73,728
-// floats) and a huge reduction (2 to 4 million pixels): a split-K problem.
-// The TPU kernel keeps the whole sum in fast memory across a grid that runs
-// in order; blocks here run in no order, so:
-//  * grid.x walks (slab of 8 input channels) x (slab of 32 output channels),
-//    grid.y splits the pixels: block (s, k) owns pixel tiles k, k + grid.y,
-//    ... of 8 rows x 32 columns, and sums all of them in registers;
-//  * a warp owns one row of the tile; a lane owns one input channel and 8
-//    output channels, so 9 taps x 8 = 72 sums. Walking along its row it
-//    keeps the 3x3 input window in registers: per pixel 3 new inputs and 8
-//    cotangents are read from shared memory for 72 FMAs;
-//  * at the end the 8 warps' sums are added in shared memory in warp order,
-//    and the block writes its partial [9][8][32] into
-//    partials[k][9][C][Cout]; a second kernel adds the grid.y partials in
-//    ascending k and writes dW in OIHW. No atomics: every sum has one fixed
-//    order, so equal inputs give equal bits.
-// Halo: a tile stages rows y0-1 .. y0+8 and columns x0-1 .. x0+32 of its own
-// image only, zero outside [0, H) x [0, W), so no tile reads a neighbouring
-// image. Output channels past Cout (Cout % 32 != 0) are staged as zeros and
-// never written.
+// Bound on the H100: operations. 3 * 77.3 GFLOP of TF32 over 495 TFLOP/s =
+// 0.469 ms for the 77.3 GFLOP shapes (0.234 ms for the 38.7 GFLOP ones),
+// against 403-805 MB of input, 0.12-0.24 ms at 3.35 TB/s.
+//
+// Design: an implicit GEMM, M = Cout, N = 9 * C, K = B * H * W pixels.
+//  * Split-K over a fixed number of blocks (the wrapper's constant, not the
+//    card's SM count): grid.x walks (slab of 32 input channels) x (slab of
+//    O_S = 64 or 32 output channels), grid.y splits the pixel tiles (TR rows
+//    x 32 columns of one image): block (s, k) owns tiles k, k + grid.y, ...
+//    and sums them in registers; a second kernel adds the grid.y partials in
+//    ascending k. No atomics: equal inputs give equal bits.
+//  * A block streams its tiles through a ring of 3 shared-memory stages with
+//    cp.async (16 bytes, .cg): dpre [O_S][TR*32] and x [32][TR+2][40], the
+//    halo rows and a 4-column margin on each side, zero outside the tile's
+//    own image. The nine tap-shifted B operands are read from that one
+//    staged halo tile; no im2col reaches device memory.
+//  * Warp (wm, wn) owns output channels wm*32 .. +32 (two m16 tiles) and
+//    input channels wn*8 .. +8 at all nine taps (nine n8 tiles): 72 fp32
+//    sums a thread, no reduction across warps. Per k8 step of 8 pixels it
+//    loads its A fragments (dpre) and, tap by tap, the B fragment (x shifted
+//    by the tap), splits each value into hi and lo as it is loaded, and runs
+//    mma.sync.m16n8k8 TF32 three times per (m, n) tile: lo*hi, hi*lo, then
+//    hi*hi, into a part that is added into the thread's sums every 8 k
+//    steps (see `part` below). The split happens at the fragment load, not
+//    at staging, so the ring holds fp32 only and three stages fit.
+//  * Bank-conflict-free fragment loads: dpre rows are padded to TR*32 + 4
+//    floats and x channel planes to (TR+2)*40 + 4, both 4 mod 8 words apart,
+//    so the 8 row groups x 4 lanes of a fragment hit 32 distinct banks.
+// Tilings, as the caller picks them: O_S = 64, TR = 4 (8 warps, 195 KB of
+// shared memory, one block per SM) for Cout % 64 == 0; otherwise O_S = 32,
+// TR = 2 (4 warps, 89 KB, two per SM). Channels past C or Cout are staged as
+// zeros and never written.
+// `wgmma` is a later step: its shared-memory descriptors want aligned tiles,
+// and the kx shift of the taps breaks that alignment.
+#include "async_copy.cuh"
 #include "conv_tile.cuh"
 
 namespace probgan {
 
-constexpr int kWgCS = 8;                      // input channels per block
-constexpr int kWgOS = 32;                     // output channels per block
-constexpr int kWgTN = 8;                      // output channels per lane
-constexpr int kWgTR = 8;                      // tile rows: one warp each
-constexpr int kWgTW = 32;                     // tile columns
-constexpr int kWgXW = kWgTW + 2;              // staged input row, with halo
-constexpr int kWgXCS = (kWgTR + 2) * kWgXW;   // staged input channel: 340 floats
-// Row stride of the staged cotangents [o][pixel]: 8 * 257 = 8 (mod 32), so
-// the four 8-channel groups of a warp read four different banks.
-constexpr int kWgPS = kWgTR * kWgTW + 1;
-static_assert(kWgCS * (kWgOS / kWgTN) * kWgTR == kThreads, "one lane per (row, c, o-group)");
-static_assert(kWgTR * kWgCS * kWgOS <= kWgOS * kWgPS, "the reduction scratch reuses ds");
-static_assert(kWgTR * kWgTW == kThreads, "one thread per tile pixel when staging");
+constexpr int kWgCS = 32;      // input channels per block: four warps' 8-channel groups
+constexpr int kWgTW = 32;      // tile columns
+constexpr int kWgXW = 40;      // staged x row: columns x0-4 .. x0+35, in 16-byte chunks
+constexpr int kWgStages = 3;
 
-__global__ void __launch_bounds__(kThreads, 2)
+template <int TR>
+struct WgradTile {
+  static constexpr int kDs = TR * kWgTW + 4;       // dpre row stride (floats), 4 mod 32
+  static constexpr int kXs = (TR + 2) * kWgXW + 4;  // x channel stride, 4 mod 8 words
+  static constexpr int kKSteps = TR * kWgTW / 8;
+};
+
+template <int WM, int TR>
+__host__ __device__ constexpr size_t wgrad_stage_floats() {
+  return static_cast<size_t>(32 * WM) * WgradTile<TR>::kDs +
+         static_cast<size_t>(kWgCS) * WgradTile<TR>::kXs;
+}
+
+// hi = v rounded to TF32 (to nearest, ties away from zero: what
+// cvt.rna.tf32.f32 gives, in integer ops on the full-rate pipes), lo = v - hi,
+// exact in fp32; the tensor cores read lo's top 19 bits (they ignore the low
+// 13 bits of a TF32 operand, so lo enters truncated).
+__device__ __forceinline__ void split_tf32(float v, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// D (16x8, fp32) += A (16x8, tf32, row-major) * B (8x8, tf32, column-major).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int WM, int TR>
+__device__ __forceinline__ void wgrad_issue_tile(const float* __restrict__ x,
+                                                 const float* __restrict__ dpre, float* stage,
+                                                 int t, int C, int H, int W, int Cout, int c0,
+                                                 int o0) {
+  using T = WgradTile<TR>;
+  constexpr int kOS = 32 * WM;
+  constexpr int kThreadsW = 128 * WM;
+  const int tiles_x = W / kWgTW;
+  const int tiles_img = tiles_x * (H / TR);
+  const int b = t / tiles_img;
+  const int rem = t - b * tiles_img;
+  const int y0 = (rem / tiles_x) * TR;
+  const int x0 = (rem % tiles_x) * kWgTW;
+  float* ds = stage;
+  float* xs = stage + kOS * T::kDs;
+  for (int idx = threadIdx.x; idx < kOS * TR * 8; idx += kThreadsW) {
+    const int o = idx / (TR * 8);
+    const int r = (idx >> 3) % TR;
+    const int ch = idx & 7;
+    const bool valid = o0 + o < Cout;
+    const float* src =
+        valid ? dpre + (static_cast<size_t>(b) * Cout + o0 + o) * H * W +
+                    static_cast<size_t>(y0 + r) * W + x0 + ch * 4
+              : dpre;
+    cp_async16(ds + o * T::kDs + r * kWgTW + ch * 4, src, valid);
+  }
+  constexpr int kChunks = kWgXW / 4;
+  for (int idx = threadIdx.x; idx < kWgCS * (TR + 2) * kChunks; idx += kThreadsW) {
+    const int c = idx / ((TR + 2) * kChunks);
+    const int hr = (idx / kChunks) % (TR + 2);
+    const int ch = idx % kChunks;
+    const int gy = y0 - 1 + hr;
+    const int gx = x0 - 4 + ch * 4;
+    const bool valid = c0 + c < C && gy >= 0 && gy < H && gx >= 0 && gx < W;
+    const float* src =
+        valid ? x + (static_cast<size_t>(b) * C + c0 + c) * H * W + static_cast<size_t>(gy) * W + gx
+              : x;
+    cp_async16(xs + c * T::kXs + hr * kWgXW + ch * 4, src, valid);
+  }
+}
+
+template <int WM, int TR>
+__global__ void __launch_bounds__(128 * WM, 2 / WM)
     packed_conv_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dpre,
                              float* __restrict__ partials, int B, int C, int H, int W, int Cout,
                              int n_oslabs) {
-  __shared__ float xs[kWgCS * kWgXCS];
-  __shared__ float ds[kWgOS * kWgPS];
+  using T = WgradTile<TR>;
+  constexpr int kOS = 32 * WM;
+  constexpr size_t kStage = wgrad_stage_floats<WM, TR>();
+  extern __shared__ __align__(16) float wg_smem[];
 
-  const int tid = threadIdx.x;
-  const int og = tid & 3;         // group of 8 output channels
-  const int c = (tid >> 2) & 7;   // input channel of the slab
-  const int pl = tid >> 5;        // tile row = warp
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;  // the mma fragments' row group and thread in group
+  const int wm = warp >> 2, wn = warp & 3;
   const int c0 = (blockIdx.x / n_oslabs) * kWgCS;
-  const int o0 = (blockIdx.x % n_oslabs) * kWgOS;
-  const int tiles_x = W / kWgTW;
-  const int tiles_img = tiles_x * (H / kWgTR);
-  const int n_tiles = B * tiles_img;
-  const size_t plane = static_cast<size_t>(H) * W;
+  const int o0 = (blockIdx.x % n_oslabs) * kOS;
+  const int n_tiles = B * (W / kWgTW) * (H / TR);
+  const int n_mine =
+      blockIdx.y < n_tiles ? (n_tiles - blockIdx.y + gridDim.y - 1) / gridDim.y : 0;
+  // A warp whose channels lie past C or Cout sums zeros: it skips the products.
+  const bool active = c0 + wn * 8 < C && o0 + wm * 32 < Cout;
 
-  float acc[9][kWgTN] = {};
-  for (int t = blockIdx.y; t < n_tiles; t += gridDim.y) {
-    const int b = t / tiles_img;
-    const int y0 = ((t % tiles_img) / tiles_x) * kWgTR;
-    const int x0 = (t % tiles_x) * kWgTW;
-    const float* xb = x + (static_cast<size_t>(b) * C + c0) * plane;
-    const float* db = dpre + (static_cast<size_t>(b) * Cout + o0) * plane;
-    // Stage the input: the (row, column) of a halo element is decoded once
-    // and serves the slab's 8 channels.
-    for (int e = tid; e < kWgXCS; e += kThreads) {
-      const int gy = y0 - 1 + e / kWgXW;
-      const int gx = x0 - 1 + e % kWgXW;
-      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      const float* src = xb + (static_cast<ptrdiff_t>(gy) * W + gx);  // read only if inside
+  for (int s = 0; s < kWgStages - 1; ++s) {
+    if (s < n_mine)
+      wgrad_issue_tile<WM, TR>(x, dpre, wg_smem + s * kStage, blockIdx.y + s * gridDim.y, C, H,
+                               W, Cout, c0, o0);
+    cp_async_commit();
+  }
+
+  // acc: the block's sums; part: the last 8 k steps' (64 pixels'). The
+  // tensor cores round each mma's sum toward zero, a bias of up to an ulp of
+  // the accumulator per instruction that grows with the instructions summed
+  // into one accumulator: over a block's ~16,000 pixels it lies far outside
+  // the fp32 grade. Each 24-instruction part is added into acc with an fp32
+  // add that rounds to nearest, which bounds the bias by the part's own size.
+  float acc[2][9][4], part[2][9][4];
 #pragma unroll
-      for (int cc = 0; cc < kWgCS; ++cc)
-        xs[cc * kWgXCS + e] = inside ? __ldg(src + static_cast<size_t>(cc) * plane) : 0.f;
-    }
-    // Stage the cotangent: thread (row pl, column tid % 32) of the tile, one
-    // coalesced row segment per warp and output channel.
-    {
-      const float* src = db + static_cast<size_t>(y0 + pl) * W + x0 + (tid & 31);
-#pragma unroll 8
-      for (int o = 0; o < kWgOS; ++o)
-        ds[o * kWgPS + tid] = (o0 + o < Cout) ? __ldg(src + static_cast<size_t>(o) * plane) : 0.f;
-    }
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int t = 0; t < 9; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][t][e] = part[mt][t][e] = 0.f;
+
+  for (int it = 0; it < n_mine; ++it) {
+    cp_async_wait(kWgStages - 2);
+    // Tile `it` has landed for every thread, and the stage of tile it - 1
+    // has been read by every warp: it takes tile it + 2.
     __syncthreads();
-
-    // Pixel (pl, col) of the tile sees staged input rows pl..pl+2 and
-    // columns col..col+2: tap (ky, kx) is win[ky][kx].
-    const float* xrow = xs + c * kWgXCS + pl * kWgXW;
-    const float* drow = ds + og * kWgTN * kWgPS + pl * kWgTW;
-    float win[3][3];
-#pragma unroll
-    for (int ky = 0; ky < 3; ++ky) {
-      win[ky][0] = xrow[ky * kWgXW];
-      win[ky][1] = xrow[ky * kWgXW + 1];
+    {
+      const int nx = it + kWgStages - 1;
+      if (nx < n_mine)
+        wgrad_issue_tile<WM, TR>(x, dpre, wg_smem + (nx % kWgStages) * kStage,
+                                 blockIdx.y + nx * gridDim.y, C, H, W, Cout, c0, o0);
+      cp_async_commit();
     }
-#pragma unroll 4
-    for (int col = 0; col < kWgTW; ++col) {
+    if (!active) continue;
+    const float* ds = wg_smem + (it % kWgStages) * kStage;
+    const float* xs = ds + kOS * T::kDs;
+    const float* pa = ds + (wm * 32 + g) * T::kDs + tig;
+    const float* pb = xs + (wn * 8 + g) * T::kXs + 3 + tig;  // column x0 - 1 + tig
+#pragma unroll 1
+    for (int s = 0; s < T::kKSteps; ++s) {
+      const int r = s >> 2;
+      const int col = (s & 3) * 8;
+      unsigned ah[2][4], al[2][4];
 #pragma unroll
-      for (int ky = 0; ky < 3; ++ky) win[ky][2] = xrow[ky * kWgXW + col + 2];
-      float d[kWgTN];
-#pragma unroll
-      for (int n = 0; n < kWgTN; ++n) d[n] = drow[n * kWgPS + col];
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* p = pa + mt * 16 * T::kDs + r * kWgTW + col;
+        split_tf32(p[0], ah[mt][0], al[mt][0]);
+        split_tf32(p[8 * T::kDs], ah[mt][1], al[mt][1]);
+        split_tf32(p[4], ah[mt][2], al[mt][2]);
+        split_tf32(p[8 * T::kDs + 4], ah[mt][3], al[mt][3]);
+      }
 #pragma unroll
       for (int ky = 0; ky < 3; ++ky) {
 #pragma unroll
         for (int kx = 0; kx < 3; ++kx) {
-#pragma unroll
-          for (int n = 0; n < kWgTN; ++n)
-            acc[ky * 3 + kx][n] = fmaf(win[ky][kx], d[n], acc[ky * 3 + kx][n]);
+          const float* q = pb + (r + ky) * kWgXW + kx + col;
+          unsigned bh0, bl0, bh1, bl1;
+          split_tf32(q[0], bh0, bl0);
+          split_tf32(q[4], bh1, bl1);
+          // the three terms, small first, with the two m16 tiles' chains
+          // interleaved
+          float(&d0)[4] = part[0][ky * 3 + kx];
+          float(&d1)[4] = part[1][ky * 3 + kx];
+          mma_tf32(d0, al[0], bh0, bh1);
+          mma_tf32(d1, al[1], bh0, bh1);
+          mma_tf32(d0, ah[0], bl0, bl1);
+          mma_tf32(d1, ah[1], bl0, bl1);
+          mma_tf32(d0, ah[0], bh0, bh1);
+          mma_tf32(d1, ah[1], bh0, bh1);
         }
-        win[ky][0] = win[ky][1];
-        win[ky][1] = win[ky][2];
+      }
+      if ((s & 7) == 7) {  // warp-uniform
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int t = 0; t < 9; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[mt][t][e] += part[mt][t][e];
+              part[mt][t][e] = 0.f;
+            }
       }
     }
-    __syncthreads();
   }
+  cp_async_wait(0);
 
-  // Add the 8 warps' sums, tap by tap, in warp order; thread (rc, ro) owns
-  // input channel rc and output channel ro of the slab.
-  const int rc = tid >> 5;
-  const int ro = tid & 31;
-  const size_t slab_stride = static_cast<size_t>(C) * Cout;
-  float* out = partials + static_cast<size_t>(blockIdx.y) * 9 * slab_stride +
-               static_cast<size_t>(c0 + rc) * Cout + o0 + ro;
+  // partials[k][tap][c][o]: d[0] (o, c), d[1] (o, c + 1), d[2] (o + 8, c),
+  // d[3] (o + 8, c + 1), with o = o0 + wm*32 + mt*16 + g, c = c0 + wn*8 + 2*tig.
+  float* out = partials + static_cast<size_t>(blockIdx.y) * 9 * C * Cout;
+  const int c = c0 + wn * 8 + 2 * tig;
 #pragma unroll
-  for (int t = 0; t < 9; ++t) {
-    __syncthreads();
-    float* dst = ds + (pl * kWgCS + c) * kWgOS + og * kWgTN;
+  for (int mt = 0; mt < 2; ++mt) {
+    const int o = o0 + wm * 32 + mt * 16 + g;
 #pragma unroll
-    for (int n = 0; n < kWgTN; ++n) dst[n] = acc[t][n];
-    __syncthreads();
-    float s = 0.f;
-#pragma unroll
-    for (int p = 0; p < kWgTR; ++p) s += ds[(p * kWgCS + rc) * kWgOS + ro];
-    if (o0 + ro < Cout) out[t * slab_stride] = s;
+    for (int t = 0; t < 9; ++t) {
+      float* dst = out + (static_cast<size_t>(t) * C + c) * Cout + o;
+      if (c < C) {
+        if (o < Cout) dst[0] = acc[mt][t][0];
+        if (o + 8 < Cout) dst[8] = acc[mt][t][2];
+      }
+      if (c + 1 < C) {
+        if (o < Cout) dst[Cout] = acc[mt][t][1];
+        if (o + 8 < Cout) dst[Cout + 8] = acc[mt][t][3];
+      }
+    }
   }
 }
 
@@ -168,25 +282,41 @@ __global__ void packed_conv_wgrad_reduce_kernel(const float* __restrict__ partia
   dw[(static_cast<size_t>(o) * C + c) * 9 + t] = s;
 }
 
+template <int WM, int TR>
+int launch_wgrad(const float* x, const float* dpre, float* partials, int B, int C, int H, int W,
+                 int cout, int ksplit, cudaStream_t s) {
+  const size_t smem = kWgStages * wgrad_stage_floats<WM, TR>() * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(packed_conv_wgrad_kernel<WM, TR>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_oslabs = (cout + 32 * WM - 1) / (32 * WM);
+  const dim3 grid(((C + kWgCS - 1) / kWgCS) * n_oslabs, ksplit);
+  packed_conv_wgrad_kernel<WM, TR><<<grid, 128 * WM, smem, s>>>(x, dpre, partials, B, C, H, W,
+                                                                 cout, n_oslabs);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace probgan
 
 // x [B][C][H][W], dpre [B][Cout][H][W], scratch partials [ksplit][9][C][Cout]
 // -> dw [Cout][C][3][3]. C % 8 == 0, Cout % 8 == 0, H % 8 == 0, W % 32 == 0,
-// 1 <= ksplit <= 65535. Returns the cudaError_t of the launches (0 = both
-// launched).
+// x and dpre 16-byte aligned, 1 <= ksplit <= 65535. The caller picks the
+// tiling (ops/packed.py:wgrad_tiling) and sizes ksplit for it: o_slab 64 with
+// rows 4 (Cout % 64 == 0), or o_slab 32 with rows 2; any other pair is refused.
+// Returns the cudaError_t of the launches (0 = both launched).
 extern "C" int probgan_packed_conv_wgrad(const float* x, const float* dpre, float* partials,
                                          float* dw, int B, int C, int H, int W, int cout,
-                                         int ksplit, void* stream) {
+                                         int o_slab, int rows, int ksplit, void* stream) {
   using namespace probgan;
-  if (B < 1 || C < kWgCS || C % kWgCS || cout < 8 || cout % 8 || H % kWgTR || W % kWgTW ||
-      H < kWgTR || W < kWgTW || ksplit < 1 || ksplit > 65535)
+  const bool wide = o_slab == 64 && rows == 4 && cout % 64 == 0;
+  const bool narrow = o_slab == 32 && rows == 2;
+  if (B < 1 || C < 8 || C % 8 || cout < 8 || cout % 8 || H < 8 || H % 8 || W < kWgTW ||
+      W % kWgTW || ksplit < 1 || ksplit > 65535 || !(wide || narrow))
     return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  const int n_oslabs = (cout + kWgOS - 1) / kWgOS;
-  const dim3 grid((C / kWgCS) * n_oslabs, ksplit);
-  packed_conv_wgrad_kernel<<<grid, kThreads, 0, s>>>(x, dpre, partials, B, C, H, W, cout,
-                                                     n_oslabs);
-  int err = static_cast<int>(cudaGetLastError());
+  const int err = wide ? launch_wgrad<2, 4>(x, dpre, partials, B, C, H, W, cout, ksplit, s)
+                       : launch_wgrad<1, 2>(x, dpre, partials, B, C, H, W, cout, ksplit, s);
   if (err != 0) return err;
   const int n = 9 * C * cout;
   packed_conv_wgrad_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(partials, dw, C, cout, ksplit);

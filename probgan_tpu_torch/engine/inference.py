@@ -12,15 +12,18 @@ progress banners. As in the JAX package:
   the top-k on the device;
 - generator noise comes from an explicit per-task stream (core/rng.py).
 
-On a CUDA device the ranking always goes through the fused kernels of
-``ops/rank_fused.py`` (top_k <= 16: ``rank_topk``; above: ``rank_scores``
-and a stable sort); on the CPU their wrappers take the plain twins. With
-``PROBGAN_BF16_RANK=1`` in the environment when the engine is built, and a
-table of at least ``rank_fused.BF16_MIN_N`` entities, the engine also caches
-a bf16 copy of the normalized table and the top_k <= 16 path streams that
-copy (``rank_topk_bf16``, then an exact fp32 rescore of k + 16 candidates);
-opt-in, as in the JAX package. There is one device: a ``mesh`` is not ported
-yet.
+With ``use_pallas`` (the default unless ``PROBGAN_PALLAS_RANK=0``) the
+ranking goes through the fused kernels of ``ops/rank_fused.py`` (top_k <=
+16: ``rank_topk``; above: ``rank_scores`` and a stable sort); on the CPU
+their wrappers take the plain twins. ``use_pallas=False`` ranks with the
+plain ops of ``ops/rank.py`` (``cosine_scores`` then ``top_k_lowest_index``)
+on the table's device and launches no kernel. With ``PROBGAN_BF16_RANK=1`` in
+the environment when the engine is built, the kernels on, and a table of at
+least ``rank_fused.BF16_MIN_N`` entities, the engine also caches a bf16 copy
+of the normalized table and the top_k <= 16 path streams that copy
+(``rank_topk_bf16``: the stream, then an exact fp32 rescore of k + 16
+candidates); opt-in, as in the JAX package. There is one device: a ``mesh``
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -44,24 +47,31 @@ _REL_CHUNK = 256   # relations scored per step in analyze_relations
 
 
 def _rank_scores(pred: torch.Tensor, entity_norm: torch.Tensor,
-                 num_entities: int) -> torch.Tensor:
+                 num_entities: int, use_pallas: bool = True) -> torch.Tensor:
     """[B, D] raw predictions -> [B, N] cosine scores against the cached
-    normalized table (rows past ``num_entities`` sliced off)."""
-    return rank_fused.rank_scores_fused(pred, entity_norm)[:, :num_entities]
+    normalized table (rows past ``num_entities`` sliced off): the fused
+    kernel with ``use_pallas`` (its wrapper raises on a shape it does not
+    take), else the plain normalize and product."""
+    if use_pallas:
+        scores = rank_fused.rank_scores_fused(pred, entity_norm)
+    else:
+        scores = rank_ops.cosine_scores(rank_ops.l2_normalize(pred), entity_norm)
+    return scores[:, :num_entities]
 
 
 def _rank_topk(pred: torch.Tensor, entity_norm: torch.Tensor, k: int,
                num_entities: int, table_bf16: torch.Tensor | None = None,
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused rank + top-k where the kernel's bound on k allows (the [B, N]
-    scores never reach device memory); otherwise the two-step score + top-k
-    path. The same (values, ids) either way, lowest id first among ties.
-    ``table_bf16``: the engine's cached bf16 copy of the table; the fused
-    path then streams it and rescores its candidates in fp32."""
-    if rank_fused.supports_topk(tuple(pred.shape), entity_norm.shape[0], k):
+               use_pallas: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused rank + top-k where ``use_pallas`` and the kernel's bound on k
+    allow (the [B, N] scores never reach device memory); otherwise the
+    two-step score + top-k path. The same (values, ids) either way, lowest id
+    first among ties. ``table_bf16``: the engine's cached bf16 copy of the
+    table; the fused path then streams it and rescores its candidates in
+    fp32."""
+    if use_pallas and rank_fused.supports_topk(tuple(pred.shape), entity_norm.shape[0], k):
         return rank_fused.rank_topk_fused(pred, entity_norm, k, num_entities,
                                           table_bf16=table_bf16)
-    scores = _rank_scores(pred, entity_norm, num_entities)
+    scores = _rank_scores(pred, entity_norm, num_entities, use_pallas)
     return rank_ops.top_k_lowest_index(scores, k)
 
 
@@ -96,10 +106,10 @@ def _check_ids(ids, bound: int, kind: str) -> None:
 # ---------------------------------------------------------------------------
 
 def _predict_tails_fn(g_params, node_emb, entity_norm, rel_table, heads, rels, z,
-                      top_k, num_entities, table_bf16=None):
+                      top_k, num_entities, use_pallas=True, table_bf16=None):
     """gather -> G fwd -> fused rank -> top-k."""
     pred = kg_gan.generator_apply(g_params, node_emb[heads], rel_table[rels], z)
-    return _rank_topk(pred, entity_norm, top_k, num_entities, table_bf16)
+    return _rank_topk(pred, entity_norm, top_k, num_entities, table_bf16, use_pallas)
 
 
 def _generator_scores_fn(g_params, node_emb, rel_table, triplets, z):
@@ -116,13 +126,13 @@ def _discriminator_scores_fn(d_params, node_emb, rel_table, triplets):
 
 
 def _similar_entities_fn(entity_norm, queries, k_query, num_entities,
-                         table_bf16=None):
+                         use_pallas=True, table_bf16=None):
     """Rows of the cached normalized table vs the whole table; k_query =
     min(top_k + 1, N) candidates so the caller can drop the query itself.
     The rows are normalized once more inside the rank kernel, as in the JAX
     package: its scores contain that second normalization."""
     return _rank_topk(entity_norm[queries], entity_norm, k_query, num_entities,
-                      table_bf16)
+                      table_bf16, use_pallas)
 
 
 def _analyze_relations_fn(d_params, node_emb, rel_table_padded, pairs, top_k,
@@ -164,9 +174,11 @@ class InferenceEngine:
     """Loads a checkpoint and serves the five reference inference tasks."""
 
     def __init__(self, checkpoint_path: str, device: str = "auto", seed: int = 0,
-                 mesh=None):
+                 use_pallas: bool | None = None, mesh=None):
         """``device``: "auto"/"cuda"/"gpu" (the first card; raises without
-        one) or "cpu" (plain twins). ``mesh``: None, "" or 1 for the one
+        one) or "cpu" (plain twins). ``use_pallas``: rank through the fused
+        kernels (True) or the plain ops (False); None means True unless
+        ``PROBGAN_PALLAS_RANK=0``. ``mesh``: None, "" or 1 for the one
         device; the row-sharded table over several cards is not ported yet
         (ROADMAP A11) and raises NotImplementedError."""
         if mesh not in (None, "", 1, "1"):
@@ -174,6 +186,9 @@ class InferenceEngine:
                 f"mesh={mesh!r}: the sharded forms of predict_tails and "
                 "find_similar_entities are not ported yet (ROADMAP A11)"
             )
+        if use_pallas is None:
+            use_pallas = os.environ.get("PROBGAN_PALLAS_RANK", "1") != "0"
+        self._use_pallas = bool(use_pallas)
         self.device = resolve_device(device)
         self.checkpoint_path = checkpoint_path
         self._rng = RngStream(seed)
@@ -224,7 +239,8 @@ class InferenceEngine:
             # Opt-in, and only for tables where the read is worth halving.
             self.entity_norm_bf16 = None
             if (
-                os.environ.get("PROBGAN_BF16_RANK", "0") == "1"
+                self._use_pallas
+                and os.environ.get("PROBGAN_BF16_RANK", "0") == "1"
                 and self.num_entities >= rank_fused.BF16_MIN_N
                 and rank_fused.supports_topk_bf16(
                     (1, self.entity_norm.shape[1]), self.num_entities, 1)
@@ -292,6 +308,7 @@ class InferenceEngine:
                 self._noise(bucket, "predict_tails"),
                 top_k,
                 self.num_entities,
+                self._use_pallas,
                 self.entity_norm_bf16,
             )
             top_scores = top_scores.cpu().numpy()
@@ -403,6 +420,7 @@ class InferenceEngine:
                 self._place(queries),
                 k_query,
                 self.num_entities,
+                self._use_pallas,
                 self.entity_norm_bf16,
             )
             top_scores = top_scores.cpu().numpy()

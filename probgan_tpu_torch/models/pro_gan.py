@@ -204,11 +204,27 @@ def _g_base(params: dict, z: torch.Tensor, config: ProGANConfig) -> torch.Tensor
     return pixel_norm(lrelu(eq_conv(params["base_conv"], x)))
 
 
+def _fuse_upsample_enabled() -> bool:
+    """``PROBGAN_FUSE_UPCONV=0`` turns the fused upsample-into-conv of the
+    stage blocks off, as in the JAX package. Read at each call."""
+    return os.environ.get("PROBGAN_FUSE_UPCONV", "1") != "0"
+
+
+def _fused_uint8_enabled() -> bool:
+    """``PROBGAN_FUSED_UINT8=0`` makes the packed ``generator_apply`` emit
+    fp32 RGB and denorm it with ``to_uint8``, as in the JAX package; the
+    bytes are the fused epilogue's either way. Read at each call."""
+    return os.environ.get("PROBGAN_FUSED_UINT8", "1") != "0"
+
+
 def _g_block(block: dict, x: torch.Tensor) -> torch.Tensor:
-    # Fused upsample-into-conv (ops/fused_upconv.py): four parity convs with
-    # pre-summed taps; exact up to float reassociation.
     c1 = block["conv1"]
-    x = upsample2x_conv3x3(eq_scaled_conv_w(c1), c1["b"], x)
+    if _fuse_upsample_enabled():
+        # Fused upsample-into-conv (ops/fused_upconv.py): four parity convs
+        # with pre-summed taps; exact up to float reassociation.
+        x = upsample2x_conv3x3(eq_scaled_conv_w(c1), c1["b"], x)
+    else:
+        x = eq_conv(c1, upsample_nearest_2x(x))
     x = pixel_norm(lrelu(x))
     return pixel_norm(lrelu(eq_conv(block["conv2"], x)))
 
@@ -357,15 +373,17 @@ def generator_apply(params: dict, z: torch.Tensor, config: ProGANConfig,
                     stage: int, alpha: float = 1.0, precision="high",
                     packed: bool = False) -> torch.Tensor:
     """Full image path: latent [B, L] -> uint8 image [B, R, R, 3] (NHWC). On
-    the packed path the denorm is fused into the final kernel."""
+    the packed path the denorm is fused into the final kernel unless
+    ``PROBGAN_FUSED_UINT8=0``."""
     _require_fp32_grade(precision)
-    s0 = packed_start_stage(config, stage) if packed else None
+    s0 = packed_start_stage(config, stage) if packed and _fused_uint8_enabled() else None
     if s0 is not None:
         x = _g_base(params, z, config)
         for s in range(1, s0):
             x = _g_block(params["blocks"][s - 1], x)
         return _g_late_packed(params, x, config, s0, stage, alpha, emit="uint8")
-    return to_uint8(generator_rgb(params, z, config, stage, alpha, precision))
+    return to_uint8(generator_rgb(params, z, config, stage, alpha, precision,
+                                  packed=packed))
 
 
 # ---------------------------------------------------------------------------

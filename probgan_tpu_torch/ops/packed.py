@@ -17,7 +17,8 @@ kernels they replace (``probgan_tpu/ops/pallas_packed.py``):
   discriminator's conv2) or nothing (``"none"``) -> 2x2 mean pool; only the
   pooled tensor is written;
 - ``packed_conv_wgrad``: the weight gradient of a conv3x3 from its input and
-  the cotangent of its pre-bias output;
+  the cotangent of its pre-bias output, 3xTF32 on the tensor cores (fp32 by
+  accuracy);
 - ``packed_upconv_conv``: ``packed_upconv`` then ``packed_conv`` in one
   kernel, a whole non-final generator stage whose conv1 map never reaches
   device memory (opt-in, ``PROBGAN_STAGE_FUSED=1``);
@@ -79,7 +80,7 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "packed_upconv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "packed_conv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "packed_conv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_convpool": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv_rgb": [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _I,
                         _I, _I, _I, _I, _I, _P],
@@ -96,10 +97,12 @@ SUPPORTED_COUT = (32, 64)
 CONV_EPILOGUES = {"lrelu_norm": 0, "lrelu": 1, "none": 2}
 UPCONV_EPILOGUES = {"lrelu_norm": 0, "lrelu": 1}
 POOL_EPILOGUES = ("lrelu", "none")
-# packed_conv_wgrad splits the pixels over about this many blocks in all: two
-# for each of an H100's 132 multiprocessors. A constant, not the card's own
-# count, so that the sums' order, and with it dW's bits, is the same anywhere.
-WGRAD_BLOCKS = 264
+# packed_conv_wgrad splits the pixels over about this many blocks of its
+# 64-channel tiling in all: one for each of an H100's 132 multiprocessors (the
+# 32-channel tiling fits two an SM, so twice as many). A constant, not the
+# card's own count, so that the sums' order, and with it dW's bits, is the
+# same anywhere.
+WGRAD_BLOCKS = 132
 
 
 def reset_launches() -> None:
@@ -410,22 +413,36 @@ def packed_conv_wgrad_plain(x, dpre):
     return torch.stack(taps, dim=-1).reshape(dpre.shape[1], x.shape[1], 3, 3)
 
 
+def wgrad_tiling(cout: int) -> tuple[int, int, int]:
+    """(output channels per block, tile rows, blocks in one wave) for
+    csrc/packed_conv_wgrad.cu, which launches the tiling it is given: Cout %
+    64 == 0 takes 64-channel slabs with 4-row tiles, one block an SM; any
+    other Cout 32-channel slabs with 2-row tiles, two an SM. Both take input
+    channels 32 at a time."""
+    if cout % 64 == 0:
+        return 64, 4, WGRAD_BLOCKS
+    return 32, 2, 2 * WGRAD_BLOCKS
+
+
 def wgrad_ksplit(bsz: int, c: int, cout: int, h: int, wd: int) -> int:
-    """Blocks that share the pixels of one (8 input, 32 output channel) slab
-    in csrc/packed_conv_wgrad.cu, so that the grid has at most WGRAD_BLOCKS
+    """Blocks that share the pixels of one (32 input, 32 or 64 output
+    channel) slab of ``wgrad_tiling(cout)``, so that the grid is one wave
     (one more block than the card holds at once would double the time)."""
-    slabs = (c // 8) * -(-cout // 32)
-    tiles = bsz * (h // 8) * (wd // 32)
-    return max(1, min(tiles, WGRAD_BLOCKS // slabs, 65535))
+    o_slab, rows, blocks = wgrad_tiling(cout)
+    slabs = -(-c // 32) * -(-cout // o_slab)
+    tiles = bsz * (h // rows) * (wd // 32)
+    return max(1, min(tiles, blocks // slabs, 65535))
 
 
 def packed_conv_wgrad(x, dpre):
     """Weight gradient of a conv3x3 SAME: x [B, C, H, W] fp32 the conv's
     input, dpre [B, Cout, H, W] the cotangent of its pre-bias output
     -> dW [Cout, C, 3, 3], dW[o, c, ky, kx] = sum over (b, y, x) of
-    x_pad[b, c, y+ky-1, x+kx-1] * dpre[b, o, y, x]. Full fp32; every sum has a
+    x_pad[b, c, y+ky-1, x+kx-1] * dpre[b, o, y, x]. fp32 by accuracy: on the
+    card each product is three TF32 products of the operands' high and low
+    parts, within ~1e-6 of dW's largest entry of the fp32 sum. Every sum has a
     fixed order, so equal inputs give equal bits. On CUDA, C and Cout are
-    multiples of 8, H of 8 and W of 32."""
+    multiples of 8, H of 8 and W of 32, and x and dpre are 16-byte aligned."""
     if x.device.type == "cpu":
         return packed_conv_wgrad_plain(x, dpre)
     name = "packed_conv_wgrad"
@@ -438,11 +455,14 @@ def packed_conv_wgrad(x, dpre):
     if cout % 8 or not dpre.is_contiguous():
         raise ValueError(f"{name}: dpre {tuple(dpre.shape)} must be contiguous with "
                          "Cout a multiple of 8")
+    if x.data_ptr() % 16 or dpre.data_ptr() % 16:  # the kernel copies 16 bytes at a time
+        raise ValueError(f"{name}: x and dpre must be 16-byte aligned")
+    o_slab, rows, _ = wgrad_tiling(cout)
     ksplit = wgrad_ksplit(bsz, c, cout, h, wd)
     partials = torch.empty((ksplit, 9, c, cout), device=x.device, dtype=x.dtype)
     dw = torch.empty((cout, c, 3, 3), device=x.device, dtype=x.dtype)
     _launch(name, x, _ptr(x), _ptr(dpre), _ptr(partials), _ptr(dw), bsz, c, h, wd, cout,
-            ksplit)
+            o_slab, rows, ksplit)
     return dw
 
 

@@ -11,10 +11,12 @@ of the functions that reach the Pallas kernels they replace:
   score matrix never reaches device memory: the kernel writes k candidates
   per query and block of table rows, and the merge over
   ``[B, n_blocks * k]`` is a stable sort here. With ``table_bf16`` (a bf16
-  copy of the table) the kernel streams that copy instead, half the bytes,
-  multiplies in bf16 on the tensor cores and keeps an approximate pool of
-  ``k + 16`` rows per query, which is then rescored exactly against the fp32
-  table here, so ids and values are those of the fp32 path;
+  copy of the table) one call launches two kernels instead: the stream,
+  which reads that copy, half the bytes, multiplies in bf16 on the tensor
+  cores and keeps an approximate pool of ``k + 16`` rows per query and block,
+  and the merge, which picks each query's best ``k + 16`` and rescores them
+  exactly against the fp32 table, so ids and values are those of the fp32
+  path;
 - ``rank_topk_local(pred_norm, table_norm_shard, k, nvalid)``: the same for
   queries that are already normalized, with local row ids (the per-shard
   form of a row-sharded table);
@@ -57,6 +59,7 @@ MAX_K = 16          # csrc/rank_topk.cu kMaxK: a query's top-k lives in one warp
 MAX_D = 256         # a 64-query chunk + a 128-row tile fit 227 KB of shared memory
 TILE_ROWS = 128     # csrc/rank_tile.cuh kTileRows
 BLOCKS_PER_SM = 2   # the kernels' __launch_bounds__: one wave fills the card
+BF16_BLOCKS_PER_SM = 1  # the bf16 stream's ring of table tiles fills an SM's shared memory
 _MAX_ROWS = 2**31 - TILE_ROWS  # row ids and tile starts are int32 in the kernel
 # The bf16 stream: rows kept beyond k for the exact rescore, and the table
 # size from which an engine streams bf16 at all (below it the table read is
@@ -69,8 +72,11 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "rank_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "rank_scores": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "rank_topk_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "rank_topk_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _P],
 }
+# The parts of a rank_topk_bf16 launch: the stream, the merge and rescore.
+_STREAM, _MERGE = 1, 2
 
 
 def reset_launches() -> None:
@@ -135,12 +141,13 @@ def _check_k(name: str, k: int, nvalid: int, n_rows: int) -> None:
         )
 
 
-def _geometry(n_rows: int, device: torch.device) -> tuple[int, int]:
+def _geometry(n_rows: int, device: torch.device,
+              blocks_per_sm: int = BLOCKS_PER_SM) -> tuple[int, int]:
     """(tiles per block, blocks) that cover ``n_rows`` in contiguous runs of
-    128-row tiles, about ``BLOCKS_PER_SM`` blocks per SM and none empty."""
+    128-row tiles, about ``blocks_per_sm`` blocks per SM and none empty."""
     n_tiles = -(-n_rows // TILE_ROWS)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles_per_block = -(-n_tiles // min(n_tiles, BLOCKS_PER_SM * sms))
+    tiles_per_block = -(-n_tiles // min(n_tiles, blocks_per_sm * sms))
     return tiles_per_block, -(-n_tiles // tiles_per_block)
 
 
@@ -185,17 +192,30 @@ def _check_bf16(name: str, pred: torch.Tensor, table_norm: torch.Tensor,
         )
 
 
+def _launch_bf16(pred, table_bf16, table_norm, cand_v, cand_i, out_v, out_i, k, m,
+                 nvalid, normalize, n_blocks, tiles_per_block, parts):
+    _launch("rank_topk_bf16", pred, pred.data_ptr(), table_bf16.data_ptr(),
+            table_norm.data_ptr(), cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
+            out_i.data_ptr(), pred.shape[0], pred.shape[1], nvalid, m, k, int(normalize),
+            tiles_per_block, n_blocks, parts)
+
+
+def _bf16_buffers(b, k, m, n_blocks, device):
+    return (torch.empty((b, n_blocks * m), device=device, dtype=torch.float32),
+            torch.empty((b, n_blocks * m), device=device, dtype=torch.int32),
+            torch.empty((b, k), device=device, dtype=torch.float32),
+            torch.empty((b, k), device=device, dtype=torch.int64))
+
+
 def pool_candidates_bf16(pred: torch.Tensor, table_bf16: torch.Tensor, m: int,
                          nvalid: int, normalize: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the rank_topk_bf16 kernel: (approximate scores fp32, ids
-    int32), each [B, n_blocks * m], laid out as ``topk_candidates``' result."""
-    b, d = pred.shape
-    tiles_per_block, n_blocks = _geometry(nvalid, pred.device)
-    cand_v = torch.empty((b, n_blocks * m), device=pred.device, dtype=torch.float32)
-    cand_i = torch.empty((b, n_blocks * m), device=pred.device, dtype=torch.int32)
-    _launch("rank_topk_bf16", pred, pred.data_ptr(), table_bf16.data_ptr(),
-            cand_v.data_ptr(), cand_i.data_ptr(), b, d, nvalid, m, int(normalize),
-            tiles_per_block, n_blocks)
+    """Launch the rank_topk_bf16 stream alone: (approximate scores fp32, ids
+    int32), each [B, n_blocks * m], laid out as ``topk_candidates``' result
+    (one block per SM)."""
+    tiles_per_block, n_blocks = _geometry(nvalid, pred.device, BF16_BLOCKS_PER_SM)
+    cand_v, cand_i, out_v, out_i = _bf16_buffers(pred.shape[0], 1, m, n_blocks, pred.device)
+    _launch_bf16(pred, table_bf16, pred, cand_v, cand_i, out_v, out_i, 1, m, nvalid,
+                 normalize, n_blocks, tiles_per_block, _STREAM)
     return cand_v, cand_i
 
 
@@ -216,12 +236,48 @@ def rescore_pool(pred_norm: torch.Tensor, table_norm: torch.Tensor,
     return values, torch.gather(ids, 1, pos)
 
 
-def _topk_bf16_cuda(pred, table_norm, table_bf16, k, nvalid):
-    m = min(k + BF16_RESCORE_POOL, nvalid)
-    cand_v, cand_i = pool_candidates_bf16(pred, table_bf16, m, nvalid, normalize=True)
+def merge_rescore_bf16_plain(cand_v, cand_i, pred, table_norm, k, m):
+    """Plain twin of the merge kernel: the best ``m`` of each query's
+    candidates [B, n_blocks * m] by (approximate score descending, position
+    ascending), rescored exactly against ``table_norm`` with the raw ``pred``
+    normalized in fp32 -> (values [B, k] fp32, ids [B, k] int64)."""
     pool_v, pos = top_k_lowest_index(cand_v, m)
     return rescore_pool(l2_normalize(pred), table_norm, pool_v,
                         torch.gather(cand_i, 1, pos), k)
+
+
+def merge_rescore_bf16(cand_v: torch.Tensor, cand_i: torch.Tensor, pred: torch.Tensor,
+                       table_norm: torch.Tensor, k: int, m: int,
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the rank_topk_bf16 merge and rescore alone on candidates laid
+    out as ``pool_candidates_bf16``' result; its plain twin on the CPU."""
+    if pred.device.type == "cpu":
+        return merge_rescore_bf16_plain(cand_v, cand_i, pred, table_norm, k, m)
+    _check("merge_rescore_bf16", pred, table_norm)
+    b = pred.shape[0]
+    n_blocks = cand_v.shape[1] // m
+    if (cand_v.shape != (b, n_blocks * m) or cand_i.shape != cand_v.shape
+            or cand_v.dtype != torch.float32 or cand_i.dtype != torch.int32
+            or not (cand_v.is_contiguous() and cand_i.is_contiguous()) or not 1 <= k <= m):
+        raise ValueError(f"merge_rescore_bf16: candidates {tuple(cand_v.shape)} / "
+                         f"{tuple(cand_i.shape)} must be contiguous float32 / int32 "
+                         f"[B, n_blocks * m] with 1 <= k <= m")
+    out_v = torch.empty((b, k), device=pred.device, dtype=torch.float32)
+    out_i = torch.empty((b, k), device=pred.device, dtype=torch.int64)
+    _launch_bf16(pred, pred, table_norm, cand_v, cand_i, out_v, out_i, k, m,
+                 table_norm.shape[0], True, n_blocks, 1, _MERGE)
+    return out_v, out_i
+
+
+def _topk_bf16_cuda(pred, table_norm, table_bf16, k, nvalid):
+    """The stream and the merge in one call to the C entry (one launch
+    counted): the pools go from one kernel to the next on the card."""
+    m = min(k + BF16_RESCORE_POOL, nvalid)
+    tiles_per_block, n_blocks = _geometry(nvalid, pred.device, BF16_BLOCKS_PER_SM)
+    cand_v, cand_i, out_v, out_i = _bf16_buffers(pred.shape[0], k, m, n_blocks, pred.device)
+    _launch_bf16(pred, table_bf16, table_norm, cand_v, cand_i, out_v, out_i, k, m, nvalid,
+                 True, n_blocks, tiles_per_block, _STREAM | _MERGE)
+    return out_v, out_i
 
 
 def _topk_cuda(pred, table, k, nvalid, normalize):
@@ -241,7 +297,7 @@ def rank_topk_fused_plain(pred, table_norm, k, num_entities, *, table_bf16=None)
     With ``table_bf16``: fp32 normalize, queries rounded to bf16, the
     bf16 x bf16 products summed in fp32 (a product of two bf16 values is
     exact in fp32), the top k + 16 by that approximate score, then the
-    exact rescore the kernel path shares."""
+    exact rescore of ``merge_rescore_bf16_plain``."""
     pred_norm = l2_normalize(pred)
     if table_bf16 is None:
         return top_k_lowest_index(cosine_scores(pred_norm, table_norm)[:, :num_entities], k)

@@ -100,6 +100,30 @@ def _kg_step():
                          f"{KG_CE_NEGATIVES} sampled negatives")
 
 
+def profile_steps(step, state, calls: int):
+    """Run ``calls`` steps under ``torch.profiler``: (state, wall us, {device
+    kernel name: us over the calls}, the profiler)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            state = step(state)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("probgan/"):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return state, wall_us, by_name, prof
+
+
+def parts_of(by_name: dict[str, float]) -> dict[str, float]:
+    """Device time by part of the step (``_part``)."""
+    parts: dict[str, float] = {}
+    for name, us in by_name.items():
+        parts[_part(name)] = parts.get(_part(name), 0.0) + us
+    return parts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kg", action="store_true", help="profile kg_train_step instead")
@@ -114,25 +138,13 @@ def main(argv=None) -> int:
     state = step(state)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(CALLS):
-            state = step(state)
-        wall_us = (time.perf_counter() - t0) * 1e6
+    state, wall_us, by_name, prof = profile_steps(step, state, CALLS)
     if args.trace:
         prof.export_chrome_trace(args.trace)
-
-    by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("probgan/"):
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     if not by_name:
         print("profile_train: the profiler recorded no device time")
         return 1
-    parts: dict[str, float] = {}
-    for name, us in by_name.items():
-        parts[_part(name)] = parts.get(_part(name), 0.0) + us
+    parts = parts_of(by_name)
     busy_us = sum(parts.values())
 
     print(f"{CALLS} steps of {label}: wall {wall_us / CALLS / 1e3:.3f} ms/step, device busy "

@@ -17,10 +17,11 @@ the KG path's shape (N = 1,000,000 rows, D = 128, B = 64) for k = 1 and 10:
 
 The variants compute wrong results on purpose: this script measures, it
 checks nothing. Then, for the bf16 stream (``rank_topk_fused(table_bf16=...)``)
-as shipped, at B = 64 and B = 8 with k = 10: the ``rank_topk_bf16`` kernel
-alone, the merge of the blocks' pools (a stable sort over [B, n_blocks * 26]),
-the exact rescore of the 26 survivors, and the whole call beside the fp32
-call. Prints one line per variant and part and one JSON line. Needs a CUDA
+as shipped, at B = 64 and B = 8 with k = 10: the ``rank_topk_bf16`` stream
+alone, and built without its selection (no survivor inserted into a pool),
+the plain twin's merge of the blocks' pools (a stable sort over
+[B, n_blocks * 26]) and its exact rescore of the 26 survivors, the merge
+kernel that replaces both, and the whole call beside the fp32 call. Prints one line per variant and part and one JSON line. Needs a CUDA
 card and nvcc.
 """
 
@@ -59,13 +60,19 @@ VARIANTS = {
 }
 
 
-def build_variant(name: str, subs: list, workdir: Path):
-    """Compile a variant of rank_topk.cu; returns (library, registers of the
-    QT = 8 kernel as ptxas reports them)."""
+# The bf16 stream without its selection: no survivor is ever inserted into a
+# pool (thread pools at B = 64, warp pools at B = 8), the rest as shipped.
+BF16_NO_SELECT = [("          while (mask) {", "          while (false) {"),
+                  ("        while (any) {", "        while (false) {")]
+
+
+def build_variant(name: str, subs: list, workdir: Path, source: str = "rank_topk.cu"):
+    """Compile a variant of ``source`` (rank_topk.cu or rank_topk_bf16.cu);
+    returns (library, registers of its last kernel as ptxas reports them)."""
     src_dir = workdir / name
     src_dir.mkdir()
     left = {old for old, _ in subs}
-    for fname in SOURCES:
+    for fname in (*SOURCES, "async_copy.cuh", source):
         text = (_build.CSRC / fname).read_text()
         for old, new in subs:
             if old in text:
@@ -77,15 +84,17 @@ def build_variant(name: str, subs: list, workdir: Path):
     lib_path = src_dir / f"{name}.so"
     proc = subprocess.run(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(src_dir),
-         "-o", str(lib_path), str(src_dir / "rank_topk.cu")],
+         "-o", str(lib_path), str(src_dir / source)],
         capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"{name}: nvcc failed:\n{proc.stdout}{proc.stderr}")
     registers = [line.split("Used")[1].split(",")[0].strip()
                  for line in proc.stderr.splitlines() if "Used" in line]
     lib = ctypes.CDLL(str(lib_path))
-    lib.probgan_rank_topk.argtypes = rank_fused._ARGTYPES["rank_topk"]
-    lib.probgan_rank_topk.restype = ctypes.c_int
+    kernel = source.removesuffix(".cu")
+    fn = getattr(lib, f"probgan_{kernel}")
+    fn.argtypes = rank_fused._ARGTYPES[kernel]
+    fn.restype = ctypes.c_int
     return lib, registers[-1] if registers else "?"
 
 
@@ -103,16 +112,31 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bf16_parts(table: torch.Tensor, gen: torch.Generator, k: int = 10) -> dict:
+def bf16_parts(table: torch.Tensor, gen: torch.Generator, workdir: Path,
+               k: int = 10) -> dict:
     """Times (ms) of the parts of the bf16 path, by batch size."""
     from probgan_tpu_torch.ops.rank import top_k_lowest_index
 
     table_bf16 = table.to(torch.bfloat16)
     m = k + rank_fused.BF16_RESCORE_POOL
+    no_select, _ = build_variant("bf16_no_select", BF16_NO_SELECT, workdir,
+                                 "rank_topk_bf16.cu")
     out = {}
     for b in (B, 8):
         pred = torch.randn((b, D), device=table.device, generator=gen)
         cand_v, cand_i = rank_fused.pool_candidates_bf16(pred, table_bf16, m, N, True)
+        tiles_per_block, n_blocks = rank_fused._geometry(N, table.device,
+                                                         rank_fused.BF16_BLOCKS_PER_SM)
+        spare_v, spare_i = torch.empty_like(cand_v), torch.empty_like(cand_i)
+
+        def stream_without_selection():
+            err = no_select.probgan_rank_topk_bf16(
+                pred.data_ptr(), table_bf16.data_ptr(), table.data_ptr(), spare_v.data_ptr(),
+                spare_i.data_ptr(), 0, 0, b, D, N, m, 1, 1, tiles_per_block, n_blocks, 1,
+                torch.cuda.current_stream(table.device).cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"bf16_no_select: launch failed with CUDA error {err}")
+
         pool_v, pos = top_k_lowest_index(cand_v, m)
         pool_ids = torch.gather(cand_i, 1, pos)
         pred_norm = l2_normalize(pred)
@@ -120,9 +144,12 @@ def bf16_parts(table: torch.Tensor, gen: torch.Generator, k: int = 10) -> dict:
             "candidates_per_query": cand_v.shape[1],
             "kernel_ms": cuda_ms(
                 lambda: rank_fused.pool_candidates_bf16(pred, table_bf16, m, N, True)),
+            "kernel_without_selection_ms": cuda_ms(stream_without_selection),
             "merge_sort_ms": cuda_ms(lambda: top_k_lowest_index(cand_v, m)),
             "rescore_ms": cuda_ms(
                 lambda: rank_fused.rescore_pool(pred_norm, table, pool_v, pool_ids, k)),
+            "merge_kernel_ms": cuda_ms(
+                lambda: rank_fused.merge_rescore_bf16(cand_v, cand_i, pred, table, k, m)),
             "whole_bf16_call_ms": cuda_ms(
                 lambda: rank_fused.rank_topk_fused(pred, table, k, N, table_bf16=table_bf16)),
             "whole_fp32_call_ms": cuda_ms(lambda: rank_fused.rank_topk_fused(pred, table, k, N)),
@@ -169,7 +196,7 @@ def main() -> int:
             results[name] = row
             print(f"{name:18s} {registers:14s} {n_blocks:4d} blocks  " + "  ".join(
                 f"k={k}: {row[f'k{k}_ms']:.3f} ms" for k in KS), flush=True)
-    bf16 = bf16_parts(table, gen)
+        bf16 = bf16_parts(table, gen, Path(tmp))
     print(json.dumps({"shape": {"B": B, "N": N, "D": D}, "variants": results,
                       "bf16_parts_ms": bf16, "device": torch.cuda.get_device_name(0)}))
     return 0

@@ -236,13 +236,40 @@ def test_install_no_flag_prints_usage_and_exits_1(capsys):
 
 @pytest.mark.parametrize("flag", ["--colab", "--local"])
 def test_install_targets_print_and_run_nothing(monkeypatch, capsys, flag):
+    """Each target runs its steps through run_command and nothing else: with
+    run_command stubbed, no process starts. Its steps are the port's own
+    (pip installs of torch and numpy, no jax)."""
     import subprocess
 
     def refuse(*args, **kwargs):
-        raise AssertionError("the installer must not run a command")
+        raise AssertionError("the installer must start processes only through run_command")
 
     monkeypatch.setattr(subprocess, "run", refuse)
     monkeypatch.setattr(subprocess, "Popen", refuse)
+    ran = []
+    monkeypatch.setattr(install, "run_command", lambda cmd, desc="": (ran.append(cmd), True)[1])
     assert install.main([flag]) == 0
     out = capsys.readouterr().out
-    assert "Would run: pip install" in out and "Nothing was installed" in out
+    assert ran and all(cmd.startswith("pip install ") for cmd in ran)
+    assert any("torch" in cmd for cmd in ran) and not any("jax" in cmd for cmd in ran)
+    assert "Installation completed successfully!" in out
+
+
+def test_install_run_command_reports_success_and_failure(capsys):
+    assert install.run_command("true", "probe true") is True
+    assert install.run_command("false", "probe false") is False
+    out = capsys.readouterr().out
+    assert "Running: true" in out and "Success" in out and "Failed:" in out
+
+
+@pytest.mark.parametrize("flag,fn", [("--colab", "install_colab"), ("--local", "install_local")])
+def test_install_goes_on_past_a_failed_step_and_exits_1(monkeypatch, capsys, flag, fn):
+    """As tests/test_install.py holds the JAX installer: every step is tried
+    after one fails, the summary says so, and the exit code is 1."""
+    steps = getattr(install, "_COLAB_STEPS" if fn == "install_colab" else "_LOCAL_STEPS")
+    ran = []
+    monkeypatch.setattr(install, "run_command",
+                        lambda cmd, desc="": (ran.append(cmd), len(ran) != 1)[1])
+    assert install.main([flag]) == 1
+    assert ran == [cmd for cmd, _ in steps]
+    assert "Some installations failed" in capsys.readouterr().out

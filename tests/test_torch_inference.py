@@ -338,3 +338,88 @@ def test_bf16_rank_engine_serves_the_fp32_ids(tmp_path, monkeypatch):
         np.testing.assert_allclose(g["similarity_scores"], w["similarity_scores"], atol=2e-6)
     engine.predict_tails(pairs[:1], top_k=20)  # k > 16: rank_scores + sort
     assert len(seen) == 4
+
+
+# -- use_pallas / PROBGAN_PALLAS_RANK ---------------------------------------------
+
+def _refuse_rank_fused(monkeypatch):
+    """Make every entry of ops/rank_fused.py raise: the plain path must not
+    reach one."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("use_pallas=False reached ops/rank_fused.py")
+
+    for name in ("rank_topk_fused", "rank_topk_local", "rank_scores_fused"):
+        monkeypatch.setattr(rank_fused, name, refuse)
+
+
+@pytest.mark.parametrize("switch", ["argument", "environment"])
+def test_use_pallas_false_ranks_with_the_plain_ops(native_ckpt_path, monkeypatch, switch):
+    """``use_pallas=False``, or ``PROBGAN_PALLAS_RANK=0`` with the default None,
+    ranks through ops/rank.py and never reaches rank_fused; the results equal
+    the JAX engine's built with use_pallas=False (tests/test_engine.py builds
+    both kinds), top_k above and below the fused kernel's bound of 16."""
+    monkeypatch.delenv("PROBGAN_PALLAS_RANK", raising=False)
+    jax_engine = JaxEngine(native_ckpt_path, device="cpu", seed=0, use_pallas=False)
+    if switch == "argument":
+        port = InferenceEngine(native_ckpt_path, device="cpu", seed=0, use_pallas=False)
+    else:
+        monkeypatch.setenv("PROBGAN_PALLAS_RANK", "0")
+        port = InferenceEngine(native_ckpt_path, device="cpu", seed=0)
+    _share_noise(monkeypatch, jax_engine, port)
+    _refuse_rank_fused(monkeypatch)
+    pairs = [(0, 1), (2, 3), (49, 6)]
+    for top_k in (5, 20):
+        want = jax_engine.predict_tails(pairs, top_k=top_k, return_scores=True)
+        _assert_same(port.predict_tails(pairs, top_k=top_k, return_scores=True), want)
+    _assert_same(port.find_similar_entities([4, 9], top_k=5),
+                 jax_engine.find_similar_entities([4, 9], top_k=5))
+
+
+def test_use_pallas_default_takes_the_kernels_and_gates_bf16(native_ckpt_path, monkeypatch):
+    """None means the kernels unless PROBGAN_PALLAS_RANK=0 (on the CPU their
+    wrappers take the plain twins), and the bf16 table copy exists only where
+    the kernels do, as in the JAX engine."""
+    monkeypatch.delenv("PROBGAN_PALLAS_RANK", raising=False)
+    monkeypatch.setenv("PROBGAN_BF16_RANK", "1")
+    monkeypatch.setattr(rank_fused, "BF16_MIN_N", NUM_ENTITIES)
+    seen = []
+    fused = rank_fused.rank_topk_fused
+    monkeypatch.setattr(rank_fused, "rank_topk_fused", lambda *a, table_bf16=None: (
+        seen.append(table_bf16), fused(*a, table_bf16=table_bf16))[1])
+    engine = InferenceEngine(native_ckpt_path, device="cpu", seed=0)
+    assert engine.entity_norm_bf16 is not None
+    engine.predict_tails([(0, 1)], top_k=3)
+    assert len(seen) == 1 and seen[0] is engine.entity_norm_bf16
+    plain = InferenceEngine(native_ckpt_path, device="cpu", seed=0, use_pallas=False)
+    assert plain.entity_norm_bf16 is None
+    plain.predict_tails([(0, 1)], top_k=3)
+    assert len(seen) == 1
+    assert InferenceEngine(native_ckpt_path, device="cpu", seed=0,
+                           use_pallas=True).entity_norm_bf16 is not None
+
+
+@pytest.mark.parametrize("d,k", [(8, 20), (8, 3), (6, 20), (6, 3)])
+def test_use_pallas_true_never_ranks_with_the_plain_ops(monkeypatch, d, k):
+    """With the kernels on, the engine's rank functions reach the fused
+    wrappers for every shape and never ops/rank.py's ``cosine_scores``: a
+    feature dim the kernels do not take (6: not a multiple of 4) raises in the
+    wrapper instead of giving way to the plain product, on any device."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("use_pallas=True reached ops/rank.py's cosine_scores")
+
+    monkeypatch.setattr(port_inference.rank_ops, "cosine_scores", refuse)
+    rng = np.random.default_rng(0)
+    pred = torch.from_numpy(rng.standard_normal((3, d)).astype(np.float32))
+    table = torch.from_numpy(rng.standard_normal((40, d)).astype(np.float32))
+    table = table / table.norm(dim=1, keepdim=True)
+    if d % 4:
+        with pytest.raises(ValueError, match="D % 4 == 0"):
+            port_inference._rank_topk(pred, table, k, 40, use_pallas=True)
+        with pytest.raises(ValueError, match="D % 4 == 0"):
+            port_inference._rank_scores(pred, table, 40, use_pallas=True)
+        return
+    values, ids = port_inference._rank_topk(pred, table, k, 40, use_pallas=True)
+    want = rank_fused.rank_scores_fused_plain(pred, table)
+    np.testing.assert_allclose(values.numpy(), np.sort(want.numpy(), axis=1)[:, ::-1][:, :k],
+                               atol=1e-6)
+    assert port_inference._rank_scores(pred, table, 40, use_pallas=True).shape == (3, 40)

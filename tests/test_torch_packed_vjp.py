@@ -71,15 +71,54 @@ def test_wgrad_keeps_images_apart_and_pads_with_zeros():
 
 def test_wgrad_split_covers_the_grid():
     """The pixel split of csrc/packed_conv_wgrad.cu at the train step's
-    shapes: never more blocks than WGRAD_BLOCKS, never more than there are
-    tiles, at least one."""
+    shapes: one wave of its tiling's blocks at most, never more blocks than
+    there are tiles, at least one. The wrapper decides the tiling and hands
+    it to the C entry, which launches that one (the check that the pair is
+    an instantiated one runs on the card)."""
     for c, cout, h in ((32, 32, 1024), (32, 64, 1024), (64, 64, 512), (64, 128, 512),
                        (128, 64, 512), (64, 32, 1024)):
+        o_slab, rows, blocks = tpk.wgrad_tiling(cout)
         k = tpk.wgrad_ksplit(2, c, cout, h, h)
-        slabs = (c // 8) * -(-cout // 32)
-        assert 1 <= k and slabs * k <= tpk.WGRAD_BLOCKS < slabs * (k + 1)
-    assert tpk.wgrad_ksplit(1, 8, 8, 8, 32) == 1  # one tile
-    assert tpk.wgrad_ksplit(1, 512, 512, 64, 64) == 1  # more slabs than blocks
+        slabs = -(-c // 32) * -(-cout // o_slab)
+        assert 1 <= k and slabs * k <= blocks < slabs * (k + 1)
+    assert tpk.wgrad_tiling(128) == (64, 4, tpk.WGRAD_BLOCKS)
+    assert tpk.wgrad_tiling(96) == (32, 2, 2 * tpk.WGRAD_BLOCKS)
+    assert tpk.wgrad_ksplit(1, 8, 8, 2, 32) == 1  # one tile
+    assert tpk.wgrad_ksplit(1, 1024, 512, 64, 64) == 1  # more slabs than blocks
+
+
+def _tf32(v: torch.Tensor, truncate: bool = False) -> torch.Tensor:
+    """fp32 -> TF32 (10 mantissa bits): the nearest value, ties away from
+    zero, as csrc/packed_conv_wgrad.cu rounds a high part, or with
+    ``truncate`` the low 13 bits dropped, as the tensor cores read a low part.
+    A test-only emulation."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits if truncate else bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_wgrad_3xtf32_split_is_fp32_accurate():
+    """The grade of csrc/packed_conv_wgrad.cu, emulated on the CPU: each
+    operand split into hi = tf32(v) and lo = v - hi, read truncated to TF32,
+    dW summed in fp32 from lo*hi + hi*lo + hi*hi, lies within 1e-5 of dW's
+    largest entry of the float64 sum; one TF32 product (hi*hi alone) does
+    not."""
+    x = torch.from_numpy(_rand((2, 16, 16, 32), 30)).permute(0, 3, 1, 2).contiguous()
+    d = torch.from_numpy(_rand((2, 16, 16, 16), 31)).permute(0, 3, 1, 2).contiguous()
+    x = F.leaky_relu(x, 0.2)
+    # a tie goes away from zero, less than half an ulp down; truncation down
+    tie = torch.tensor([1.0 + 2**-11, 1.0 + 2**-12, -(1.0 + 2**-11)])
+    assert _tf32(tie).tolist() == [1.0 + 2**-10, 1.0, -(1.0 + 2**-10)]
+    assert _tf32(tie, truncate=True).tolist() == [1.0, 1.0, -1.0]
+    xh, dh = _tf32(x), _tf32(d)
+    xl, dl = _tf32(x - xh, truncate=True), _tf32(d - dh, truncate=True)
+    assert (xh.view(torch.int32) & 0x1FFF).eq(0).all() and (xl.view(torch.int32) & 0x1FFF).eq(0).all()
+    want = tpk.packed_conv_wgrad_plain(x.double(), d.double())
+    three = (tpk.packed_conv_wgrad_plain(xh, dl) + tpk.packed_conv_wgrad_plain(xl, dh)
+             + tpk.packed_conv_wgrad_plain(xh, dh))
+    one = tpk.packed_conv_wgrad_plain(xh, dh)
+    scale = want.abs().max().item()
+    assert (three.double() - want).abs().max().item() <= 1e-5 * scale
+    assert (one.double() - want).abs().max().item() > 1e-5 * scale
 
 
 @pytest.mark.parametrize("p_in", [1, 2])

@@ -214,3 +214,65 @@ def test_fp32_grades_turn_tf32_off():
         assert not torch.backends.cuda.matmul.allow_tf32
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+# -- the environment switches of the JAX generator ------------------------------
+
+@pytest.mark.parametrize("fuse", ["0", "1"])
+@pytest.mark.parametrize("stage", [2, 3])
+def test_fuse_upconv_switch_matches_jax(small_case, monkeypatch, fuse, stage):
+    """``PROBGAN_FUSE_UPCONV=0`` takes upsample then conv in every stage
+    block, as the JAX generator does (tests/test_pro_gan.py:168-196); 1 (the
+    default) the fused upsample-into-conv. Both against JAX with the same
+    setting, fp32 reassociation only (2e-4)."""
+    jcfg, tcfg, jparams, tparams = small_case
+    z = _rand((2, 16), 20 + stage)
+    monkeypatch.setenv("PROBGAN_FUSE_UPCONV", fuse)
+    calls = []
+    fused = tpg.upsample2x_conv3x3
+    monkeypatch.setattr(tpg, "upsample2x_conv3x3",
+                        lambda *a: (calls.append(1), fused(*a))[1])
+    want = np.asarray(jpg.generator_rgb(jparams, jnp.asarray(z), jcfg, stage, 0.7,
+                                        precision="highest"))
+    got = tpg.generator_rgb(tparams, torch.from_numpy(z), tcfg, stage, 0.7,
+                            precision="highest").numpy()
+    assert len(calls) == (stage if fuse == "1" else 0)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+# The 256² config of the packed gate test: stage 6 runs on the packed path.
+PACKED_256 = dict(resolution=256, latent_dim=16, fmap_base=1024, fmap_max=64)
+
+
+@pytest.fixture(scope="module")
+def packed_256_case():
+    jcfg, tcfg, jparams, tparams = _both(PACKED_256, seed=2)
+    stage = jcfg.num_stages - 1
+    assert jpg.packed_start_stage(jcfg, stage) == tpg.packed_start_stage(tcfg, stage) == 6
+    return jcfg, tcfg, jparams, tparams, stage, _rand((1, 16), 3)
+
+
+def test_fused_uint8_switch_matches_jax(packed_256_case, monkeypatch):
+    """``PROBGAN_FUSED_UINT8=0``: the packed generator_apply emits fp32 RGB
+    from packed_conv_rgb and denorms it with to_uint8, as the JAX package
+    does. Its bytes equal JAX's with the switch off (+-1 where tanh lands on
+    a rounding boundary, at most 0.5% of bytes) and the port's own fused
+    epilogue's, bit for bit."""
+    from probgan_tpu_torch.ops import packed as tpk
+
+    jcfg, tcfg, jparams, tparams, stage, z = packed_256_case
+    emitted = []
+    conv_rgb = tpk.packed_conv_rgb
+    monkeypatch.setattr(tpk, "packed_conv_rgb", lambda *a, emit_uint8=False: (
+        emitted.append(emit_uint8), conv_rgb(*a, emit_uint8=emit_uint8))[1])
+    zt = torch.from_numpy(z)
+    fused = tpg.generator_apply(tparams, zt, tcfg, stage, 0.5, precision="highest",
+                                packed=True).numpy()
+    monkeypatch.setenv("PROBGAN_FUSED_UINT8", "0")
+    got = tpg.generator_apply(tparams, zt, tcfg, stage, 0.5, precision="highest",
+                              packed=True).numpy()
+    assert emitted == [True, False]
+    want = np.asarray(jax.jit(lambda p, zz: jpg.generator_apply(
+        p, zz, jcfg, stage, 0.5, precision="highest", packed=True))(jparams, jnp.asarray(z)))
+    _assert_uint8_close(got, want, max_share=5e-3)
+    np.testing.assert_array_equal(got, fused)

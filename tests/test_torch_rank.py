@@ -322,3 +322,105 @@ def test_rank_topk_bf16_small_tables_and_gates():
     with pytest.raises(ValueError, match="D % 16"):
         rank_fused.rank_topk_fused(_t(_pred(43, 3, 24)), _t(t24), 5, 12,
                                    table_bf16=_t(t24).to(torch.bfloat16))
+
+
+# -- the merge and rescore of the bf16 stream's pools ---------------------------
+
+_FILL_ID = np.iinfo(np.int32).max
+
+
+def _merge(cand_v, cand_i, pred, table, k, m):
+    """merge_rescore_bf16 on CPU tensors: its plain twin, no launch."""
+    before = dict(rank_fused.launches)
+    args = (_t(np.asarray(cand_v, np.float32)), _t(np.asarray(cand_i, np.int32)), _t(pred),
+            _t(table), k, m)
+    v, i = rank_fused.merge_rescore_bf16(*args)
+    assert rank_fused.launches == before
+    pv, pi = rank_fused.merge_rescore_bf16_plain(*args)
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+    assert v.dtype == torch.float32 and i.dtype == torch.int64 and tuple(i.shape) == (len(pred), k)
+    return v.numpy(), i.numpy()
+
+
+def test_merge_rescore_plain_takes_equal_approximate_scores_by_position():
+    """Three blocks' pools of m = 2 with one approximate score everywhere:
+    the pool is the first m candidates by position (blocks in ascending row
+    order, so the lowest ids), even where a later row scores higher exactly."""
+    table = _table(50, 40, 16)
+    pred = table[[30]] * 2.0  # row 30 scores 1.0 exactly, the others less
+    cand_v = [[0.5, 0.5, 0.5, 0.5, 0.5, 0.5]]
+    cand_i = [[2, 9, 11, 17, 30, 33]]  # rows of blocks [0, 10), [10, 20), [20, 40)
+    v, i = _merge(cand_v, cand_i, pred, table, 2, 2)
+    exact = table[[2, 9]] @ table[30]
+    assert set(i[0].tolist()) == {2, 9} and 30 not in i[0]
+    np.testing.assert_allclose(v[0], np.sort(exact)[::-1], atol=ATOL)
+
+
+def test_merge_rescore_plain_keeps_fillers_at_minus_inf():
+    """Pools padded with (-inf, INT32_MAX) where a block held fewer valid rows
+    (nvalid below the table's rows): a filler slot that reaches the top k
+    comes out as (-inf, 0), after every real row, and no row at or past
+    nvalid appears."""
+    nvalid, table = 5, _table(51, 12, 16, n_valid=5)  # rows 5.. are padding
+    pred = _pred(52, 2, 16)
+    ninf = -np.inf
+    cand_v = [[0.9, 0.1, ninf, 0.3, ninf, ninf], [0.2, ninf, 0.4, 0.3, ninf, ninf]]
+    cand_i = [[0, 4, _FILL_ID, 2, _FILL_ID, _FILL_ID], [3, _FILL_ID, 1, 0, _FILL_ID, _FILL_ID]]
+    v, i = _merge(cand_v, cand_i, pred, table, 4, 6)
+    pn = pred / np.linalg.norm(pred, axis=1, keepdims=True)
+    for q, real in ((0, [0, 4, 2]), (1, [3, 1, 0])):
+        exact = table[real] @ pn[q]
+        order = np.argsort(-exact, kind="stable")
+        assert i[q, :3].tolist() == [real[j] for j in order]
+        np.testing.assert_allclose(v[q, :3], exact[order], atol=ATOL)
+        assert i[q, 3] == 0 and v[q, 3] == -np.inf
+    assert int(i.max()) < nvalid
+
+
+def test_merge_rescore_plain_resolves_exact_duplicates_to_the_lowest_id():
+    """Rows 3, 7 and 12 are bit-equal, so their exact scores tie; whatever
+    their order in the pools, they come out as 3, 7, 12."""
+    table = _table(53, 16, 16)
+    table[[7, 12]] = table[3]
+    pred = table[[3]] * 5.0
+    cand_v = [[0.99, 0.7, 0.99, 0.2, 0.98, 0.1]]
+    cand_i = [[12, 1, 7, 0, 3, 2]]
+    v, i = _merge(cand_v, cand_i, pred, table, 4, 6)
+    assert i[0, :3].tolist() == [3, 7, 12]
+    assert v[0, 0] == v[0, 1] == v[0, 2]
+
+
+def _stream_pools(pred, table_bf16, m, nvalid, rows_per_block):
+    """What the stream kernel writes, by its contract: per block of
+    ``rows_per_block`` rows below nvalid, the best m by approximate score
+    (ties by ascending id), padded with (-inf, INT32_MAX)."""
+    approx = rank.cosine_scores(rank.l2_normalize(_t(pred)).to(torch.bfloat16).float(),
+                                table_bf16[:nvalid].float())
+    vs, ids = [], []
+    for r0 in range(0, nvalid, rows_per_block):
+        block = approx[:, r0:r0 + rows_per_block]
+        n = min(m, block.shape[1])
+        v, i = rank.top_k_lowest_index(block, n)
+        pad = m - n
+        vs.append(torch.cat([v, torch.full((len(pred), pad), float("-inf"))], 1))
+        ids.append(torch.cat([(i + r0).to(torch.int32),
+                              torch.full((len(pred), pad), _FILL_ID, dtype=torch.int32)], 1))
+    return torch.cat(vs, 1).numpy(), torch.cat(ids, 1).numpy()
+
+
+@pytest.mark.parametrize("rows_per_block", [128, 1920])
+@pytest.mark.parametrize("case", ["planted", "duplicates", "masked"])
+def test_bf16_pools_by_block_then_merge_match_pallas(case, rows_per_block):
+    """The two kernels' split of the bf16 path: pools per block of rows, then
+    the merge and rescore of all of them, give JAX's
+    rank_topk_fused(table_bf16=...) in interpret mode (ids equal, values to
+    2e-6), for blocks of one 128-row tile and of fifteen."""
+    pred, table, n, k = _bf16_case(case)
+    jax_bf16, port_bf16 = _bf16_both(table)
+    wv, wi = pallas_rank.rank_topk_fused(jnp.asarray(pred), jnp.asarray(table), k, n,
+                                         table_bf16=jax_bf16, interpret=True)
+    m = min(k + rank_fused.BF16_RESCORE_POOL, n)
+    cand_v, cand_i = _stream_pools(pred, port_bf16, m, n, rows_per_block)
+    v, i = _merge(cand_v, cand_i, pred, table, k, m)
+    np.testing.assert_array_equal(i, np.asarray(wi))
+    np.testing.assert_allclose(v, np.asarray(wv), atol=ATOL)
