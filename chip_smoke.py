@@ -51,7 +51,11 @@ Phases (any failure exits non-zero and prints no result line):
    entities, D = 128): ``rank_topk`` at B = 64 and B = 8 with k = 10, with
    ``nvalid`` below the row count, with planted duplicate rows, with twelve
    planted rows whose cosines with query 1 lie 1e-4 apart, and as
-   ``rank_topk_local``; ``rank_scores`` at B = 64; ``rank_topk_bf16``
+   ``rank_topk_local``; ``rank_scores`` (3xTF32) at B = 64, 8 and 1 against
+   that table (N not a multiple of 128) and against one of 100,003 rows at
+   D = 100 (padded to 104 in the kernel): the whole [B, N] matrix within
+   2e-6 of the plain twin, planted duplicate rows in other tiles and blocks
+   bit-equal, a zero query row all zeros; ``rank_topk_bf16``
    (``rank_topk_fused(table_bf16=...)``) on the same cases. Values must
    agree with the plain twin to atol 2e-6 (the kernel sums a dot's 128 terms
    in another order than ``torch.matmul``: about 1 ulp); every returned id's
@@ -64,14 +68,17 @@ Phases (any failure exits non-zero and prints no result line):
    the one-call path its two parts launched apart, bit for bit; its times
    are the wrapper's, the stream's alone and the merge's alone. The
    yardstick is ``F.normalize`` -> ``torch.matmul`` (-> ``torch.topk``), on
-   bf16 operands for the bf16 kernel;
+   bf16 operands for the bf16 kernel; ``rank_scores``' bound is given at
+   both grades (TF32 x3 and fp32 CUDA cores);
 7. the KG main path: a seeded C17 checkpoint (1,000,000 entities, 1,000
    relations, embed 128, noise 64, hidden 1024) written as ``.pt`` into a
    temporary directory, then ``InferenceEngine(path, device="cuda")``:
    ``predict_tails`` on 64 pairs with top_k 10 (``rank_topk`` must launch
    exactly once per call; results must agree with the same engine run with
    the kernels' plain twins in their place under the same noise), once with
-   top_k 32 (``rank_scores`` must launch once), ``find_similar_entities``
+   top_k 32 (``rank_scores`` must launch once; a fresh engine's first
+   top_k 32 call, under the noise of the first top_k 10 call, must return
+   the same first 10 ids but for near-ties within 2e-6), ``find_similar_entities``
    (``rank_topk`` with k = 11, the query itself excluded),
    ``score_triplets`` and ``analyze_relations`` against the engine on the
    CPU (atol 1e-5, relation ids equal). Then path II: the same file served
@@ -88,8 +95,12 @@ Phases (any failure exits non-zero and prints no result line):
    to 4 million pixels in another order) and two runs on one input
    bit-equal, with its bound at the TF32 rate beside the fp32 CUDA-core one;
    ``packed_upconv`` with the "lrelu" epilogue at both stages, ``packed_conv``
-   "none" at its dgrad and recompute shapes (64 -> 32, 128 -> 64, 64 -> 128)
-   and ``packed_convpool`` "none" at the upconv's dgrad shapes (atol = rtol =
+   "none" (3xTF32) at the four (C, Cout, H) the step launches it with and at
+   the two where ``convpool_lrelu``'s backward recomputes its mask on the
+   fp32 "lrelu" kernel (within atol = rtol = 1e-4 and 1e-5 of the output's
+   largest entry, two runs bit-equal; at the recompute shapes the count of
+   lrelu masks its sign would flip against the fp32 kernel), and
+   ``packed_convpool`` "none" at the upconv's dgrad shapes (atol = rtol =
    1e-4). Yardsticks: ``torch.nn.grad.conv2d_weight``; ``F.conv2d`` with
    ``F.interpolate`` / ``F.leaky_relu`` / ``F.avg_pool2d``. Each of the four
    ``ops/packed_vjp.py`` Functions: output and (dx, dw, db) on the card
@@ -107,7 +118,9 @@ Phases (any failure exits non-zero and prints no result line):
    p50, peak device memory with ``remat`` on and off; one
    ``progan_train_step_accum`` step (A = 2) and one step with R1; device
    milliseconds by part over 2 steps under ``torch.profiler``
-   (``utils/profile_train.py``'s parts: ``packed_conv_wgrad``'s a step); a
+   (``utils/profile_train.py``'s parts: ``packed_conv_wgrad``'s and
+   ``packed_conv[none]``'s a step); one step's "none" launches by (C, Cout,
+   H), which must be ``NONE_LAUNCHES_PER_STEP``; a
    train state saved, loaded and stepped against the uninterrupted run. Then
    ``kg_init_state`` at 1,000,000 entities, 1,000 relations, batch 1,024 with
    corrupted negatives and 8,192 sampled-softmax negatives: the first step's
@@ -197,7 +210,7 @@ STEP_LAUNCHES = {"packed_upconv": 6, "packed_conv": 32, "packed_conv_rgb": 0,
                  "packed_upconv_conv_rgb": 0}
 STEP_EPILOGUE_LAUNCHES = {
     "packed_upconv[lrelu_norm]": 4, "packed_upconv[lrelu]": 2,
-    "packed_conv[lrelu_norm]": 4, "packed_conv[lrelu]": 8, "packed_conv[none]": 20,
+    "packed_conv[lrelu_norm]": 4, "packed_conv[lrelu]": 14, "packed_conv[none]": 14,
     "packed_convpool[lrelu]": 6, "packed_convpool[none]": 2,
 }
 PACKED_KERNELS = ("packed_upconv", "packed_conv", "packed_conv_rgb", "packed_convpool",
@@ -209,6 +222,18 @@ GRAD_REL = 1e-4
 # the grade drops about 2^-22 of each product, so dW must stay within this
 # share of its largest entry.
 WGRAD_REL = 1e-5
+# packed_conv's "none" epilogue (3xTF32) against its plain twin, as a share
+# of the output's largest entry: the grade of WGRAD_REL.
+NONE_REL = 1e-5
+# packed_conv "none" launches of one progan_train_step at stage 8, batch 2,
+# by (C, Cout, H): the input gradients of conv_lrelu and conv_lrelu_norm
+# (Cout -> C) and of convpool_lrelu (Cout -> C).
+NONE_LAUNCHES_PER_STEP = {(32, 32, 1024): 4, (64, 32, 1024): 3, (64, 64, 512): 4,
+                          (128, 64, 512): 3}
+# convpool_lrelu's backward recomputes its lrelu mask at these (C, Cout, H),
+# 3 launches each a step, on the fp32 "lrelu" kernel (the forward's own
+# sums): phase 8 runs "none" there too and counts the masks it would flip.
+RECOMPUTE_SHAPES = ((32, 64, 1024), (64, 128, 512))
 # A weight gradient that autograd takes through the plain twin comes from
 # cuDNN, whose fp32 algorithm at 512² is itself about 1e-4 of the largest
 # entry away from the plain correlation (packed_conv_wgrad_plain): the bound
@@ -696,42 +721,84 @@ def phase_rank_kernels(rf, rank_ops) -> list[dict]:
     k_sweep = {str(kk): cuda_ms(lambda kk=kk: rf.topk_candidates(pred, table, kk, n, True))
                for kk in (1, KG_TOP_K, 16)}
 
-    b = KG_BATCH
-    got = rf.rank_scores_fused(pred, table)
-    torch.cuda.synchronize()
-    err = (got - plain_scores[b]).abs().max().item()
-    if err > RANK_ATOL or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"rank_scores: differs from the plain twin by {err:.3g}")
+    # rank_scores (3xTF32): B = 64, 8 and 1 against the main table (N not a
+    # multiple of 128, duplicates across tiles and blocks), and against a
+    # table whose D = 100 is padded to 104 in the kernel; a zero query row in
+    # each batch of 3 or more
+    side_n, side_d = 100_003, 100
+    side = rank_ops.l2_normalize(torch.randn((side_n, side_d), device="cuda", generator=gen))
+    side_planted = [5, 127, 128, 50_000, side_n - 1]
+    for row in side_planted[1:]:
+        side[row] = side[5]
+    scores_calls = []
+    for tab, rows_planted, b in ((table, planted, KG_BATCH), (table, planted, 8),
+                                 (table, planted, 1), (side, side_planted, KG_BATCH),
+                                 (side, side_planted, 8), (side, side_planted, 1)):
+        nn, dd = tab.shape
+        pred = torch.randn((b, dd), device="cuda", generator=gen)
+        pred[0] = 3.0 * tab[5]  # scores of 1 on the planted rows
+        if b >= 3:
+            pred[2] = 0.0
+        got = rf.rank_scores_fused(pred, tab)
+        want = rf.rank_scores_fused_plain(pred, tab)
+        torch.cuda.synchronize()
+        label = f"B{b},N{nn},D{dd}"
+        err = (got - want).abs().max().item()  # over the whole [B, N] matrix
+        if err > RANK_ATOL or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"rank_scores[{label}]: differs from the plain twin by {err:.3g}")
+        if not all(torch.equal(got[:, rows_planted[0]], got[:, r]) for r in rows_planted[1:]):
+            raise AssertionError(f"rank_scores[{label}]: duplicate rows {rows_planted} got "
+                                 "scores that are not bit-equal")
+        if b >= 3 and got[2].abs().max().item() != 0.0:
+            raise AssertionError(f"rank_scores[{label}]: a zero query row must give zeros")
+        call = {"call": label, "shape_in": [b, dd], "rows": nn, "max_abs_err": err,
+                "duplicates_bit_equal": True}
+        if tab is table and b in (KG_BATCH, 8):
+            out = torch.empty_like(got)
+            flops, nbytes = 2.0 * b * nn * dd, 4.0 * (b * dd + nn * dd + b * nn)
+            call.update({
+                "ms": cuda_ms(lambda: rf.rank_scores_fused(pred, tab)),
+                "kernel_only_ms": cuda_ms(lambda: rf.launch_rank_scores(pred, tab, out)),
+                "plain_ms": cuda_ms(lambda: rf.rank_scores_fused_plain(pred, tab)),
+                "library_ms": cuda_ms(lambda: torch.matmul(F.normalize(pred), tab.T)),
+                "flops": flops, "bytes": nbytes,
+                # three TF32 tensor-core products per product; the fp32
+                # CUDA-core bound of the same function beside it
+                "op_flops": 3 * flops, "peak_flops": PEAK_TF32_FLOPS,
+                "bound_fp32_ms": bound(flops, nbytes)[0],
+            })
+            del out
+        scores_calls.append(call)
+        print(f"  rank_scores[{label}]: max |err| vs the twin {err:.3g} over the whole "
+              f"matrix (bound {RANK_ATOL:g}); duplicate rows bit-equal")
+        del got, want
     zero = rf.rank_scores_fused(torch.zeros((8, d), device="cuda"), table)
     if zero.abs().max().item() != 0.0:
         raise AssertionError("rank_scores: a zero query row must give zeros")
-    del got, zero
-    scores_calls = [{
-        "call": f"B{b}", "shape_in": [b, d], "rows": n, "max_abs_err": err,
-        "ms": cuda_ms(lambda: rf.rank_scores_fused(pred, table)),
-        "plain_ms": cuda_ms(lambda: rf.rank_scores_fused_plain(pred, table)),
-        "library_ms": cuda_ms(lambda: torch.matmul(F.normalize(pred), table.T)),
-        "flops": 2.0 * b * n * d, "bytes": 4.0 * (b * d + n * d + b * n),
-        "peak_flops": PEAK_FP32_FLOPS,
-    }]
+    del zero, side
 
     out = []
     for name, replaces, calls in (
             ("rank_topk", "probgan_tpu/ops/pallas_rank.py:261", topk_calls),
             ("rank_scores", "probgan_tpu/ops/pallas_rank.py:52", scores_calls),
             ("rank_topk_bf16", "probgan_tpu/ops/pallas_rank.py:211", bf16_calls)):
-        for c in calls:
-            c["bound_ms"], c["bound_by"] = bound(c["flops"], c["bytes"], c.pop("peak_flops"))
+        calls_timed = [c for c in calls if "ms" in c]
+        for c in calls_timed:
+            c["bound_ms"], c["bound_by"] = bound(c.pop("op_flops", c["flops"]), c["bytes"],
+                                                 c.pop("peak_flops"))
             parts = (f"  (stream alone {c['stream_ms']:.3f} ms, merge alone "
                      f"{c['merge_ms']:.3f} ms, its plain twin {c['merge_plain_ms']:.3f} ms, "
                      f"merge vs twin {c['merge_max_abs_err']:.3g})" if "stream_ms" in c else "")
+            if "bound_fp32_ms" in c:
+                parts += (f"  (kernel alone {c['kernel_only_ms']:.3f} ms; bound at TF32 x3 "
+                          f"beside the fp32 CUDA-core bound {c['bound_fp32_ms']:.3f} ms)")
             print(f"  {name}[{c['call']}] x{c['shape_in']} vs {c['rows']} rows: max_abs_err "
                   f"{c['max_abs_err']:.3g}  kernel {c['ms']:.3f} ms  plain "
                   f"{c['plain_ms']:.3f} ms  library {c['library_ms']:.3f} ms  bound "
                   f"{c['bound_ms']:.3f} ms ({c['bound_by']}, {c['flops'] / 1e9:.1f} GFLOP, "
                   f"{c['bytes'] / 1e6:.1f} MB){parts}")
         # the entry's own numbers are those of the main path's shape: calls[0]
-        head = calls[0]
+        head = calls_timed[0]
         entry = {
             "name": name, "route": "cuda",
             "source": f"probgan_tpu_torch/csrc/{name}.cu", "replaces": replaces,
@@ -907,24 +974,60 @@ def phase_train_kernels(pk, packed_vjp, pro_gan) -> list[dict]:
     rows.append(("packed_upconv[lrelu]", "packed_upconv",
                  "probgan_tpu/ops/pallas_packed.py:832", up_calls))
 
-    # -- the "none" epilogues: dgrad convs (flipped, transposed weights) and
-    # the 64 -> 128 recompute of convpool_lrelu's backward
+    # -- the "none" epilogue (3xTF32) at every (C, Cout, H) the step launches
+    # it with: the dgrad convs (flipped, transposed weights, zero bias) and
+    # the recompute of convpool_lrelu's pre-activation
     none_calls, pool_calls = [], []
-    for c, cout, h in ((64, 32, 1024), (128, 64, 512), (64, 128, 512)):
+    for c, cout, h in (*NONE_LAUNCHES_PER_STEP, *RECOMPUTE_SHAPES):
+        per_step = NONE_LAUNCHES_PER_STEP.get((c, cout, h), 0)
         x, w, b = randn(B, c, h, h), conv_w(cout, c), 0.1 * randn(cout)
         got = pk.packed_conv(x, w, b, epilogue="none")
+        again = pk.packed_conv(x, w, b, epilogue="none")
         want = pk.packed_conv_plain(x, w, b, epilogue="none")
+        torch.cuda.synchronize()
+        label = f"C{c}->Cout{cout}@{h}"
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
-        none_calls.append({
-            "call": f"C{c}->Cout{cout}@{h}", "shape_in": [B, c, h, h],
-            "max_abs_err": (got - want).abs().max().item(),
+        err = scaled_err(f"packed_conv[none] {label}", got, want, NONE_REL)
+        if not torch.equal(got, again):
+            raise AssertionError(f"packed_conv[none] {label}: two runs on one input differ "
+                                 "in their bits")
+        largest = want.abs().max().item()
+        call = {
+            "call": label, "shape_in": [B, c, h, h], "max_abs_err": err,
+            "max_abs_err_share_of_largest": err / largest, "bit_equal_runs": True,
+            "launches_per_step": per_step,
+        }
+        if (c, cout, h) in RECOMPUTE_SHAPES:
+            # convpool_lrelu's forward summed in fp32 on the CUDA cores in
+            # packed_conv's "lrelu" order (the same as packed_convpool's): the
+            # masks a recompute on "none" would flip against it
+            fp32_sign = pk.packed_conv(x, w, b, epilogue="lrelu") >= 0
+            call["mask_flips_vs_fp32_kernel"] = int(((got >= 0) != fp32_sign).sum().item())
+            call["mask_flips_vs_plain_twin"] = int(((got >= 0) != (want >= 0)).sum().item())
+            # what the step runs here instead: the fp32 "lrelu" kernel
+            call["lrelu_recompute_ms"] = cuda_ms(lambda: pk.packed_conv(x, w, b, epilogue="lrelu"))
+            del fp32_sign
+        flops = 2 * 9 * c * cout * B * h * h
+        nbytes = 4 * (B * c * h * h + B * cout * h * h + 9 * c * cout + cout)
+        call.update({
             "ms": cuda_ms(lambda: pk.packed_conv(x, w, b, epilogue="none")),
             "plain_ms": cuda_ms(lambda: pk.packed_conv_plain(x, w, b, epilogue="none")),
             "library_ms": cuda_ms(lambda: F.conv2d(x, w, b, padding=1)),
-            "flops": 2 * 9 * c * cout * B * h * h,
-            "bytes": 4 * (B * c * h * h + B * cout * h * h + 9 * c * cout + cout),
+            "flops": flops, "bytes": nbytes,
+            # three TF32 tensor-core products per product; the fp32 CUDA-core
+            # bound of the same function beside it
+            "op_flops": 3 * flops, "peak_flops": PEAK_TF32_FLOPS,
+            "bound_fp32_ms": bound(flops, nbytes)[0],
         })
-        del x, got, want
+        none_calls.append(call)
+        flips = (f"; lrelu mask flips vs the fp32 kernel {call['mask_flips_vs_fp32_kernel']}, "
+                 f"vs the plain twin {call['mask_flips_vs_plain_twin']} of {got.numel()}; the "
+                 f"step's fp32 \"lrelu\" recompute here {call['lrelu_recompute_ms']:.3f} ms"
+                 if "mask_flips_vs_fp32_kernel" in call else "")
+        print(f"  packed_conv[none] {label}: max |err| vs the twin {err:.3g}, "
+              f"{err / largest:.3g} of the largest entry (bound {NONE_REL:g}); two runs "
+              f"bit-equal; faster than F.conv2d: {call['ms'] < call['library_ms']}{flips}")
+        del x, got, again, want
     for c, cout, h in ((32, 64, 1024), (64, 128, 512)):
         x, w, b = randn(B, c, h, h), conv_w(cout, c), 0.1 * randn(cout)
         got = pk.packed_convpool(x, w, b, epilogue="none")
@@ -1099,6 +1202,27 @@ def phase_train_path(pk, pro_gan, train_mod, train_state_mod, tree_mod) -> tuple
     if losses[0] == losses[-1]:
         raise AssertionError("the losses did not move over the steps")
 
+    # -- one more step with packed_conv's "none" launches counted by shape
+    none_shapes: dict = {}
+    launch_conv = pk.packed_conv
+
+    def conv_spy(x, w, b, epilogue="lrelu_norm"):
+        if epilogue == "none":
+            key = (x.shape[1], w.shape[0], x.shape[2])
+            none_shapes[key] = none_shapes.get(key, 0) + 1
+        return launch_conv(x, w, b, epilogue)
+
+    pk.packed_conv = conv_spy
+    try:
+        _, m = step(st, 1.0)
+        float(m["g_loss"])
+    finally:
+        pk.packed_conv = launch_conv
+    if none_shapes != NONE_LAUNCHES_PER_STEP:
+        raise AssertionError(f"packed_conv[none] launches by (C, Cout, H) in a step: "
+                             f"{none_shapes}, expected {NONE_LAUNCHES_PER_STEP}")
+    print(f"  packed_conv[none] launches by (C, Cout, H) in a step: {none_shapes}")
+
     # -- peak memory with remat on and off (one step each, same state)
     peaks = {}
     for remat in (True, False):
@@ -1123,7 +1247,9 @@ def phase_train_path(pk, pro_gan, train_mod, train_state_mod, tree_mod) -> tuple
     step_parts = {k: v / 2e3 for k, v in profile_train.parts_of(by_name).items()}
     print(f"  profiled (2 steps): wall {wall_us / 2e3:.1f} ms a step, device busy "
           f"{sum(step_parts.values()):.1f} ms, packed_conv_wgrad "
-          f"{step_parts.get('packed_conv_wgrad', 0.0):.2f} ms a step (12 launches)")
+          f"{step_parts.get('packed_conv_wgrad', 0.0):.2f} ms a step (12 launches), "
+          f"packed_conv[none] {step_parts.get('packed_conv[none]', 0.0):.2f} ms a step "
+          f"(14 launches); by part {step_parts}")
 
     # -- accumulation (A = 2) and R1
     real2 = torch.stack([real, real.flip(2)])
@@ -1185,6 +1311,9 @@ def phase_train_path(pk, pro_gan, train_mod, train_state_mod, tree_mod) -> tuple
         "profiled_wall_ms_per_step": wall_us / 2e3,
         "device_ms_per_step_by_part": step_parts,
         "wgrad_ms_per_step": step_parts.get("packed_conv_wgrad", 0.0),
+        "none_ms_per_step": step_parts.get("packed_conv[none]", 0.0),
+        "none_launches_per_step_by_shape": {f"C{c}->Cout{o}@{h}": n
+                                            for (c, o, h), n in none_shapes.items()},
     }
     print(f"  {train['steps_per_s']:.3f} steps/s, p50 {train['p50_ms_per_step']:.1f} ms per "
           f"step (batch {B}, {TRAIN_STEPS} steps, host clock to the metrics on the host); "
@@ -1593,6 +1722,18 @@ def phase_kg_path(rf, inference_mod, checkpoint_mod, cli_infer,
         del twin_engine
         torch.cuda.empty_cache()
 
+        # top_k 32 (rank_scores and a stable sort) against top_k 10 (rank_topk)
+        # under the same noise: a fresh engine's draw 0, as `first`
+        with contextlib.redirect_stdout(quiet):
+            engine32 = inference_mod.InferenceEngine(path, device="cuda", seed=0)
+        top32 = predict(engine32, top_k=32)
+        swapped32 = check_same_topk(
+            "predict_tails top_k 32 (rank_scores), first 10, vs top_k 10 (rank_topk)",
+            [row[:KG_TOP_K] for row in top32["predictions"]],
+            [row[:KG_TOP_K] for row in top32["scores"]], first["predictions"], first["scores"])
+        del engine32, top32
+        torch.cuda.empty_cache()
+
         # tasks without a rank kernel, and the rank tasks again, against the
         # engine on the CPU built from the same file
         with contextlib.redirect_stdout(quiet):
@@ -1701,6 +1842,7 @@ def phase_kg_path(rf, inference_mod, checkpoint_mod, cli_infer,
         "queries_per_s": KG_BATCH * KG_CALLS / sum(times),
         "p50_ms_per_call": float(np.median(per_call_ms)), "call_s": times,
         "top_k_32_call_ms": top32_s * 1e3, "engine_load_s": load_s,
+        "top_k_32_positions_with_another_id_vs_top_k_10": swapped32,
         "positions_with_another_id_vs_plain_twins": swapped,
         "bf16_queries_per_s": KG_BATCH * KG_CALLS / sum(times_bf16),
         "bf16_p50_ms_per_call": float(np.median(sorted(t * 1e3 for t in times_bf16))),

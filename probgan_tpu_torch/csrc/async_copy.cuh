@@ -1,5 +1,7 @@
-// cp.async helpers shared by the kernels that stream tiles through a ring of
-// shared-memory stages (rank_topk_bf16.cu, packed_conv_wgrad.cu).
+// Copy helpers shared by the kernels that stream tiles through a ring of
+// shared-memory stages: cp.async (rank_topk_bf16.cu, packed_conv_wgrad.cu,
+// packed_conv.cu's "none" kernel) and the Tensor Memory Accelerator's bulk
+// copies with their mbarriers (rank_scores.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,6 +38,62 @@ __device__ __forceinline__ void cp_async_wait(int n) {
       asm volatile("cp.async.wait_group 3;\n" ::: "memory");
       break;
   }
+}
+
+// One-dimensional bulk copies (cp.async.bulk, the Tensor Memory Accelerator):
+// one thread starts a copy of any multiple of 16 bytes between 16-byte
+// aligned addresses, and its completion is counted in bytes on an mbarrier
+// in shared memory. A phase of the barrier ends when its one expected
+// arrival (arrive_expect_tx, which also adds the bytes to wait for) has come
+// and every one of those bytes has landed.
+__device__ __forceinline__ unsigned smem_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_address(bar)),
+               "r"(arrivals)
+               : "memory");
+}
+
+// Makes the initialized barriers visible to the copy engine; a
+// __syncthreads() must follow before any thread uses them.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_address(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has ended.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n\t.reg .pred P1;\n\tWAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n\t"
+      "@!P1 bra WAIT;\n\t}\n" ::"r"(smem_address(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Orders this thread's earlier generic-proxy accesses to shared memory
+// before later bulk copies into it (a __syncthreads() then hands the order to
+// the thread that issues them).
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// `bytes` from global to shared memory, counted on `bar`.
+__device__ __forceinline__ void bulk_copy_g2s(void* smem_dst, const void* gmem_src,
+                                              unsigned bytes, unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_address(smem_dst)),
+      "l"(gmem_src), "r"(bytes), "r"(smem_address(bar))
+      : "memory");
 }
 
 }  // namespace probgan

@@ -1,33 +1,74 @@
 // packed_conv: 3x3 SAME conv + bias -> epilogue, fp32 NCHW. The epilogue is
 // LeakyReLU(0.2) -> PixelNorm ("lrelu_norm", the generator), LeakyReLU(0.2)
-// alone ("lrelu", the discriminator's conv1) or nothing ("none").
+// alone ("lrelu", the discriminator's conv1) or nothing ("none", the training
+// backward's input-gradient convs and its pre-activation recompute).
 //
 // Replaces probgan_tpu/ops/pallas_packed.py:382 `packed_conv`: the stage-7
-// conv2 of the 1024^2 generator (64 -> 64 channels at 512^2, "lrelu_norm")
-// and the conv1 of the discriminator's two first blocks (32 -> 32 at 1024^2,
-// 64 -> 64 at 512^2, "lrelu").
+// conv2 of the 1024^2 generator (64 -> 64 channels at 512^2, "lrelu_norm"),
+// the conv1 of the discriminator's two first blocks (32 -> 32 at 1024^2,
+// 64 -> 64 at 512^2, "lrelu") and, with "none", the 20 launches of a train
+// step at batch 2: (C, Cout, H) = (32, 32, 1024) x4, (32, 64, 1024) x3,
+// (64, 32, 1024) x3, (64, 64, 512) x4, (64, 128, 512) x3, (128, 64, 512) x3.
 //
-// Bound on the H100: operations. Per image the conv does 2*9*64*64*512^2 =
-// 19.3 GFLOP and moves 2 * 64 MB (input read once, output written once):
-// ~300 FLOP per byte, far above the card's fp32 balance point of 67 TFLOP/s
-// over 3.35 TB/s = 20 FLOP/byte. The parity grade is fp32 without TF32, so
-// the tensor cores do not apply and the ceiling is the CUDA cores' 67 TFLOP/s.
+// Two kernels behind one entry.
 //
-// Design against that bound: register tiling (8 pixels x 8 channels a
-// thread) gives 192 FMAs per 9 shared-memory loads in the inner loop; the
-// 147 KB of weights stream through shared memory 8 input channels at a time
-// (with the matching halo patch), so each block reads them once from L2;
-// the epilogue runs in registers and writes the features once. The PixelNorm
-// step is a template parameter: the discriminator's form compiles it out.
-// Without PixelNorm a block need not own every output channel, so the grid's
-// z dimension walks (image, slab of CT = 64 or 32 output channels) as in
-// packed_convpool.cu: any Cout that is a multiple of 32 (the training
-// backward recomputes the 64 -> 128 conv of the discriminator this way).
+// "lrelu_norm" and "lrelu": fp32 FMAs on the CUDA cores (conv_tile.cuh).
+// Bound on the H100: operations. Per image the 64 -> 64 conv at 512^2 does
+// 19.3 GFLOP and moves 2 * 64 MB, ~300 FLOP per byte, far above the fp32
+// balance point of 67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte. Register tiling
+// (8 pixels x 8 channels a thread) gives 192 FMAs per 9 shared-memory loads;
+// the weights stream through shared memory 8 input channels at a time (with
+// the matching halo patch); the epilogue runs in registers and writes the
+// features once. Without PixelNorm the grid's z dimension walks (image, slab
+// of 64 or 32 output channels), so "lrelu" takes any Cout % 32 == 0. These
+// keep their bits: the stage-fused kernels (stage_fused.cuh) are bit-equal
+// to them.
+//
+// "none": 3xTF32 on the tensor cores (tf32x3.cuh), fp32 by accuracy. Bound
+// on the H100: operations, 3 x 77.3 GFLOP of TF32 over 495 TFLOP/s = 0.469
+// ms for the 77.3 GFLOP shapes above (0.234 for the 38.7 GFLOP ones; as fp32
+// FMAs on the CUDA cores 1.154 / 0.577 ms), against 0.12-0.24 ms of bytes.
+// An implicit GEMM: M = the pixels of a tile of TR rows x 32 columns of one
+// image, N = a slab of NS output channels, K = 9 x C; no im2col reaches
+// device memory.
+//  * Tilings, as the caller picks them (ops/packed.py:none_tiling): NS = 64,
+//    TR = 8 for Cout % 64 == 0, else NS = 32, TR = 16. Either way 8 warps,
+//    each owning 4 tile rows x 16 columns (one m16 tile a row) x 32 output
+//    channels (four n8 tiles): 64 fp32 sums a thread.
+//  * A persistent block walks tiles blockIdx.x, + gridDim.x, ..., and each
+//    tile's input channels 16 at a time, through one ring of 3 shared-memory
+//    stages filled by cp.async (16 bytes, .cg): x [16][TR+2][40] (the halo
+//    rows and 4 columns of margin each side, zero outside the image) and the
+//    slab's weights [16][9][NS]. So the next tile's first loads overlap this
+//    tile's last products, and the nine tap-shifted A operands come from the
+//    one staged halo tile.
+//  * Per 8 input channels and tap column kx, a warp loads the A fragments of
+//    its 6 halo rows once and uses each for up to three taps ky (output row
+//    r reads halo row r + ky); per tap it loads one weight fragment per n8
+//    tile. Both split into hi and lo as they are loaded, so the ring holds
+//    fp32 only. Three mma per (row, n8 tile, tap): lo*hi, hi*lo, hi*hi, each
+//    term over all 16 of the warp's sums before the next.
+//  * The tensor cores round each mma's sum toward zero: a part of one group
+//    of 8 input channels (27 mma per sum) is added into the fp32 sums with a
+//    rounded add, which bounds the bias by the part's size.
+//  * Bank-conflict-free fragment loads: x channel planes are (TR+2)*40 + 8
+//    floats apart and weight rows 9*NS + 8, 24 and 8 mod 32 words.
+//  * The epilogue adds the bias and stores NCHW straight from the fragments:
+//    each store of a warp fills four whole 32-byte sectors.
+//  * Every output is summed in one fixed order (input channels ascending,
+//    taps kx-major within a group of 8), with no split over K: equal inputs
+//    give equal bits.
+#include "async_copy.cuh"
 #include "conv_tile.cuh"
+#include "tf32x3.cuh"
 
 namespace probgan {
 
 enum Epilogue { kLreluNorm = 0, kLrelu = 1, kNone = 2 };
+
+// ---------------------------------------------------------------------------
+// "lrelu_norm" and "lrelu": fp32 on the CUDA cores
+// ---------------------------------------------------------------------------
 
 template <int COUT, int EPI>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -70,11 +111,231 @@ int launch(const float* x, const float* w, const float* bias, float* y, int B, i
   else if (epilogue == kLrelu)
     packed_conv_kernel<COUT, kLrelu>
         <<<grid, kThreads, 0, stream>>>(x, w, bias, y, C, H, W, n_slabs);
-  else if (epilogue == kNone)
-    packed_conv_kernel<COUT, kNone>
-        <<<grid, kThreads, 0, stream>>>(x, w, bias, y, C, H, W, n_slabs);
   else
     return cudaErrorInvalidValue;
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// ---------------------------------------------------------------------------
+// "none": 3xTF32 implicit GEMM on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kNoneThreads = 256;
+constexpr int kNoneCS = 16;  // input channels per ring stage: two k8 groups
+constexpr int kNoneTW = 32;  // tile columns
+constexpr int kNoneXW = 40;  // staged x row: columns x0-4 .. x0+35, in 16-byte chunks
+constexpr int kNoneStages = 3;
+
+template <int NS>
+struct NoneTile {
+  static_assert(NS == 32 || NS == 64, "the none kernel is built for slabs of 32 or 64");
+  static constexpr int WN = NS / 32;                   // warps across the slab's channels
+  static constexpr int WR = 4 / WN;                    // warps down the tile's rows
+  static constexpr int TR = 4 * WR;                    // tile rows: 8 or 16
+  static constexpr int kXs = (TR + 2) * kNoneXW + 8;   // x channel stride, 24 mod 32
+  static constexpr int kWs = 9 * NS + 8;               // weight row stride, 8 mod 32
+  static constexpr int kStage = kNoneCS * (kXs + kWs);  // floats
+};
+
+struct NoneGeom {
+  int tiles_x, tiles_y, n_slabs;
+};
+
+// Tile t of the grid walk: the slab fastest (the tiles that share one x
+// tile run together), then columns, rows and images.
+__device__ __forceinline__ void none_tile(int t, const NoneGeom& gm, int tr, int& b,
+                                          int& y0, int& x0, int& slab) {
+  slab = t % gm.n_slabs;
+  t /= gm.n_slabs;
+  x0 = (t % gm.tiles_x) * kNoneTW;
+  t /= gm.tiles_x;
+  y0 = (t % gm.tiles_y) * tr;
+  b = t / gm.tiles_y;
+}
+
+// Start the copies of one stage: input channels c0 .. c0 + 15 of tile
+// (b, y0, x0) with their halo, and the slab's weights for those channels.
+// Channels past C, and halo outside the image, are zero-filled.
+template <int NS>
+__device__ __forceinline__ void none_issue(const float* __restrict__ x,
+                                           const float* __restrict__ wk, float* stage, int b,
+                                           int y0, int x0, int slab, int c0, int C, int H,
+                                           int W) {
+  using T = NoneTile<NS>;
+  float* xs = stage;
+  float* ws = stage + kNoneCS * T::kXs;
+  constexpr int kXChunks = kNoneXW / 4;
+  constexpr int kPlane = (T::TR + 2) * kXChunks;
+  for (int idx = threadIdx.x; idx < kNoneCS * kPlane; idx += kNoneThreads) {
+    const int c = idx / kPlane;
+    const int rem = idx - c * kPlane;
+    const int hr = rem / kXChunks;
+    const int ch = rem - hr * kXChunks;
+    const int gy = y0 - 1 + hr;
+    const int gx = x0 - 4 + ch * 4;
+    const bool valid = c0 + c < C && gy >= 0 && gy < H && gx >= 0 && gx < W;
+    const float* src =
+        valid ? x + (static_cast<size_t>(b) * C + c0 + c) * H * W + static_cast<size_t>(gy) * W + gx
+              : x;
+    cp_async16(xs + c * T::kXs + hr * kNoneXW + ch * 4, src, valid);
+  }
+  constexpr int kWChunks = 9 * NS / 4;
+  const float* wslab = wk + static_cast<size_t>(slab) * C * 9 * NS;
+  for (int idx = threadIdx.x; idx < kNoneCS * kWChunks; idx += kNoneThreads) {
+    const int c = idx / kWChunks;
+    const int ch = idx - c * kWChunks;
+    const bool valid = c0 + c < C;
+    const float* src = valid ? wslab + static_cast<size_t>(c0 + c) * 9 * NS + ch * 4 : wk;
+    cp_async16(ws + c * T::kWs + ch * 4, src, valid);
+  }
+}
+
+template <int NS>
+__global__ void __launch_bounds__(kNoneThreads, 1)
+    packed_conv_none_kernel(const float* __restrict__ x, const float* __restrict__ wk,
+                            const float* __restrict__ bias, float* __restrict__ y, int B, int C,
+                            int H, int W, int cout) {
+  using T = NoneTile<NS>;
+  extern __shared__ __align__(16) float none_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;  // the mma fragments' row group and thread in group
+  const int wc = warp & 1;                  // tile columns 16*wc .. +16
+  const int wn = (warp >> 1) % T::WN;       // slab channels 32*wn .. +32
+  const int wr = warp / (2 * T::WN);        // tile rows 4*wr .. +4
+  const NoneGeom gm{W / kNoneTW, H / T::TR, cout / NS};
+  const int n_tiles = B * gm.tiles_y * gm.tiles_x * gm.n_slabs;
+  const int n_chunks = (C + kNoneCS - 1) / kNoneCS;
+  const int my_tiles =
+      static_cast<int>(blockIdx.x) < n_tiles ? (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x
+                                             : 0;
+  const int n_steps = my_tiles * n_chunks;
+
+  // step s of the block's walk: chunk s % n_chunks of its tile s / n_chunks
+  auto issue = [&](int s) {
+    int b, y0, x0, slab;
+    none_tile(blockIdx.x + (s / n_chunks) * gridDim.x, gm, T::TR, b, y0, x0, slab);
+    none_issue<NS>(x, wk, none_smem + (s % kNoneStages) * T::kStage, b, y0, x0, slab,
+                   (s % n_chunks) * kNoneCS, C, H, W);
+  };
+  for (int s = 0; s < kNoneStages - 1; ++s) {
+    if (s < n_steps) issue(s);
+    cp_async_commit();
+  }
+
+  // acc: the tile's sums; part: the last group of 8 input channels' (see
+  // tf32x3.cuh: the tensor cores round each mma's sum toward zero).
+  float acc[4][4][4], part[4][4][4];
+  for (int it = 0; it < n_steps; ++it) {
+    cp_async_wait(kNoneStages - 2);
+    // Step `it` has landed for every thread, and the stage of step it - 1
+    // has been read by every warp: it takes step it + 2.
+    __syncthreads();
+    if (it + kNoneStages - 1 < n_steps) issue(it + kNoneStages - 1);
+    cp_async_commit();
+
+    const int chunk = it % n_chunks;
+    if (chunk == 0) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][nt][e] = part[r][nt][e] = 0.f;
+    }
+    const float* xs = none_smem + (it % kNoneStages) * T::kStage;
+    const float* ws = xs + kNoneCS * T::kXs;
+    // A (16 pixels x 8 channels): pixel g is staged column 16*wc + kx + 3 + g
+    // (input column x0 + 16*wc + g + kx - 1), channel tig; B (8 channels x 8
+    // outputs): channel tig, slab channel 32*wn + 8*nt + g.
+    const float* pa = xs + tig * T::kXs + 4 * wr * kNoneXW + 16 * wc + 3 + g;
+    const float* pb = ws + tig * T::kWs + 32 * wn + g;
+#pragma unroll 1
+    for (int kg = 0; kg < kNoneCS / 8; ++kg) {
+      if (chunk * kNoneCS + kg * 8 >= C) break;  // block-uniform: only zeros remain
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx) {
+        unsigned ah[6][4], al[6][4];
+#pragma unroll
+        for (int hr = 0; hr < 6; ++hr) {
+          const float* p = pa + kg * 8 * T::kXs + hr * kNoneXW + kx;
+          split_tf32(p[0], ah[hr][0], al[hr][0]);
+          split_tf32(p[8], ah[hr][1], al[hr][1]);
+          split_tf32(p[4 * T::kXs], ah[hr][2], al[hr][2]);
+          split_tf32(p[4 * T::kXs + 8], ah[hr][3], al[hr][3]);
+        }
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky) {
+          unsigned bh[4][2], bl[4][2];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const float* q = pb + kg * 8 * T::kWs + (ky * 3 + kx) * NS + nt * 8;
+            split_tf32(q[0], bh[nt][0], bl[nt][0]);
+            split_tf32(q[4 * T::kWs], bh[nt][1], bl[nt][1]);
+          }
+          // the three terms, small first, each over the warp's 16 sums
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) mma_tf32(part[r][nt], al[r + ky], bh[nt][0], bh[nt][1]);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) mma_tf32(part[r][nt], ah[r + ky], bl[nt][0], bl[nt][1]);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) mma_tf32(part[r][nt], ah[r + ky], bh[nt][0], bh[nt][1]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[r][nt][e] += part[r][nt][e];
+            part[r][nt][e] = 0.f;
+          }
+    }
+
+    if (chunk == n_chunks - 1) {
+      // d[0] (pixel g, channel 2*tig), d[1] (g, 2*tig + 1), d[2] (g + 8,
+      // 2*tig), d[3] (g + 8, 2*tig + 1), + bias, into NCHW
+      int b, y0, x0, slab;
+      none_tile(blockIdx.x + (it / n_chunks) * gridDim.x, gm, T::TR, b, y0, x0, slab);
+      const size_t plane = static_cast<size_t>(H) * W;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int o = slab * NS + 32 * wn + 8 * nt + 2 * tig;
+        const float b0 = __ldg(bias + o), b1 = __ldg(bias + o + 1);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float* p = y + (static_cast<size_t>(b) * cout + o) * plane +
+                     static_cast<size_t>(y0 + 4 * wr + r) * W + x0 + 16 * wc + g;
+          p[0] = acc[r][nt][0] + b0;
+          p[plane] = acc[r][nt][1] + b1;
+          p[8] = acc[r][nt][2] + b0;
+          p[plane + 8] = acc[r][nt][3] + b1;
+        }
+      }
+    }
+  }
+  cp_async_wait(0);
+}
+
+template <int NS>
+int launch_none(const float* x, const float* wk, const float* bias, float* y, int B, int C,
+                int H, int W, int cout, int n_blocks, cudaStream_t stream) {
+  using T = NoneTile<NS>;
+  if (H % T::TR || cout % NS) return cudaErrorInvalidValue;
+  const size_t smem = kNoneStages * T::kStage * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(packed_conv_none_kernel<NS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  packed_conv_none_kernel<NS>
+      <<<n_blocks, kNoneThreads, smem, stream>>>(x, wk, bias, y, B, C, H, W, cout);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -83,12 +344,24 @@ int launch(const float* x, const float* w, const float* bias, float* y, int B, i
 // x [B][C][H][W], w [Cout/CT][C][3][3][CT] (eq-LR scaled; CT = 64 when Cout is
 // a multiple of 64, else 32: for Cout 32 or 64 that is [C][3][3][Cout]),
 // bias [Cout] -> y [B][Cout][H][W]; epilogue 0 = lrelu_norm (Cout 32 or 64
-// only), 1 = lrelu, 2 = none.
+// only), 1 = lrelu, 2 = none. "none" also takes the tiling the caller picked
+// (ops/packed.py:none_tiling): o_slab 64 with rows 8 (Cout % 64 == 0) or
+// o_slab 32 with rows 16, CT == o_slab, and n_blocks persistent blocks; x and
+// w 16-byte aligned. The other epilogues ignore those three.
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int probgan_packed_conv(const float* x, const float* w, const float* bias, float* y,
                                    int B, int C, int H, int W, int cout, int epilogue,
-                                   void* stream) {
+                                   int o_slab, int rows, int n_blocks, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+  if (epilogue == probgan::kNone) {
+    const bool wide = o_slab == 64 && rows == 8 && cout % 64 == 0;
+    const bool narrow = o_slab == 32 && rows == 16 && cout % 64 != 0;
+    if (B < 1 || C < 8 || C % 8 || cout < 32 || cout % 32 || W < probgan::kNoneTW ||
+        W % probgan::kNoneTW || H < rows || n_blocks < 1 || !(wide || narrow))
+      return cudaErrorInvalidValue;
+    return wide ? probgan::launch_none<64>(x, w, bias, y, B, C, H, W, cout, n_blocks, s)
+                : probgan::launch_none<32>(x, w, bias, y, B, C, H, W, cout, n_blocks, s);
+  }
   if (cout > 0 && cout % 64 == 0)
     return probgan::launch<64>(x, w, bias, y, B, C, H, W, cout, epilogue, s);
   if (cout > 0 && cout % 32 == 0)

@@ -57,6 +57,7 @@
 // and the kx shift of the taps breaks that alignment.
 #include "async_copy.cuh"
 #include "conv_tile.cuh"
+#include "tf32x3.cuh"
 
 namespace probgan {
 
@@ -76,24 +77,6 @@ template <int WM, int TR>
 __host__ __device__ constexpr size_t wgrad_stage_floats() {
   return static_cast<size_t>(32 * WM) * WgradTile<TR>::kDs +
          static_cast<size_t>(kWgCS) * WgradTile<TR>::kXs;
-}
-
-// hi = v rounded to TF32 (to nearest, ties away from zero: what
-// cvt.rna.tf32.f32 gives, in integer ops on the full-rate pipes), lo = v - hi,
-// exact in fp32; the tensor cores read lo's top 19 bits (they ignore the low
-// 13 bits of a TF32 operand, so lo enters truncated).
-__device__ __forceinline__ void split_tf32(float v, unsigned& hi, unsigned& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
-// D (16x8, fp32) += A (16x8, tf32, row-major) * B (8x8, tf32, column-major).
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 template <int WM, int TR>

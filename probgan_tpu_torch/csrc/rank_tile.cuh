@@ -1,6 +1,7 @@
-// Shared pieces of the fused rank kernels (rank_topk.cu, rank_scores.cu):
-// a block's query chunk and one tile of table rows in shared memory, and the
-// fp32 product of the two on the CUDA cores.
+// Shared pieces of the fused rank kernels (rank_topk.cu; rank_scores.cu and
+// rank_topk_bf16.cu take its constants): a block's query chunk and one tile
+// of table rows in shared memory, and the fp32 product of the two on the
+// CUDA cores.
 //
 // A block has 8 warps. Warp w owns QT queries of the block's chunk of 8*QT
 // (QT in 1, 2, 4, 8, chosen from the batch size); lane l owns rows l, l+32,

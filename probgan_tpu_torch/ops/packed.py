@@ -10,7 +10,9 @@ kernels they replace (``probgan_tpu/ops/pallas_packed.py``):
   tensor the backward recomputes), optionally with the toRGB of its input;
 - ``packed_conv``:     conv3x3 + bias -> epilogue: ``"lrelu_norm"``
   (LeakyReLU -> PixelNorm, the generator), ``"lrelu"`` (the discriminator's
-  conv1) or ``"none"``;
+  conv1) or ``"none"`` (the training backward's input gradients and
+  pre-activation recompute), this one 3xTF32 on the tensor cores (fp32 by
+  accuracy) and the other two fp32 FMAs;
 - ``packed_conv_rgb``: conv3x3 + bias -> LeakyReLU -> PixelNorm -> toRGB ->
   alpha blend with the upsampled previous RGB -> (tanh -> uint8), NHWC out;
 - ``packed_convpool``: conv3x3 + bias -> LeakyReLU (``"lrelu"``, the
@@ -79,7 +81,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     "packed_upconv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "packed_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "packed_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_convpool": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv_rgb": [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _I,
@@ -263,11 +265,36 @@ def packed_conv_plain(x, w, b, epilogue="lrelu_norm"):
     return _epilogue(F.conv2d(x, w, padding=1) + b[:, None, None], epilogue)
 
 
+def none_tiling(cout: int) -> tuple[int, int]:
+    """(output channels per tile, tile rows) of csrc/packed_conv.cu's "none"
+    kernel, which launches the tiling it is given: Cout % 64 == 0 takes
+    64-channel slabs with 8-row tiles, any other Cout 32-channel slabs with
+    16-row tiles; both tiles are 32 columns wide. The slab is
+    ``_pool_slab(cout)``, the layout of ``convpool_kernel_weights``."""
+    return (64, 8) if cout % 64 == 0 else (32, 16)
+
+
+def none_tile_count(bsz: int, cout: int, h: int, wd: int) -> int:
+    """Tiles of the "none" kernel's grid walk: (image, tile row, tile
+    column, slab)."""
+    o_slab, rows = none_tiling(cout)
+    return bsz * (h // rows) * (wd // 32) * (cout // o_slab)
+
+
+def none_blocks(n_tiles: int, sms: int) -> int:
+    """Persistent blocks of the "none" kernel: one an SM (its shared-memory
+    ring takes ~190 KB), block k walking tiles k, k + blocks, ..."""
+    return max(1, min(n_tiles, sms))
+
+
 def packed_conv(x, w, b, epilogue="lrelu_norm"):
     """conv3x3 SAME + bias -> epilogue ("lrelu_norm": LeakyReLU -> PixelNorm;
     "lrelu": LeakyReLU; "none"): x [B, C, H, W] fp32, w [Cout, C, 3, 3] eq-LR
     scaled, b [Cout] -> [B, Cout, H, W]. On CUDA, Cout is 32 or 64 with
-    "lrelu_norm" and any multiple of 32 otherwise."""
+    "lrelu_norm" and any multiple of 32 otherwise. "none" is 3xTF32 on the
+    card (each product three TF32 products of the operands' high and low
+    parts, within ~1e-6 of the output's largest entry of the fp32 sum) and
+    sums every output in a fixed order, so equal inputs give equal bits."""
     if x.device.type == "cpu":
         return packed_conv_plain(x, w, b, epilogue)
     name = "packed_conv"
@@ -283,8 +310,14 @@ def packed_conv(x, w, b, epilogue="lrelu_norm"):
     wk = convpool_kernel_weights(w)
     b = b.contiguous()
     y = torch.empty((bsz, cout, h, wd), device=x.device, dtype=x.dtype)
+    tiling = (0, 0, 0)
+    if epilogue == "none":
+        if x.data_ptr() % 16:  # the kernel copies 16 bytes at a time
+            x = x.clone()
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        tiling = (*none_tiling(cout), none_blocks(none_tile_count(bsz, cout, h, wd), sms))
     _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
-            CONV_EPILOGUES[epilogue], epilogue=epilogue)
+            CONV_EPILOGUES[epilogue], *tiling, epilogue=epilogue)
     return y
 
 

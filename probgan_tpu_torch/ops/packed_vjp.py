@@ -14,7 +14,11 @@ conv are 3x3 SAME convs:
   so ``conv_lrelu`` stores no pre-activation;
 - the 2x2 mean pool's transpose is a nearest-2x upsample times 1/4;
 - ``convpool_lrelu`` never wrote its full-resolution pre-activation, so its
-  backward recomputes it with one ``epilogue="none"`` forward;
+  backward recomputes the mask with one ``epilogue="lrelu"`` forward: the
+  fp32 kernel whose sums equal the forward's bit for bit (the 3xTF32
+  "none" kernel differs from them by ~1e-6 and would flip the mask of
+  pre-activations that close to zero: 7 to 15 a call at the 1024² train
+  step's shapes, each moving dx by ~0.8 |g w|);
 - PixelNorm's backward needs its INPUT: ``conv_lrelu_norm`` and
   ``upconv_lrelu_norm`` save only (x, w, b) and recompute the post-lrelu,
   pre-norm tensor with one norm-free forward. Recovering it from the normed
@@ -127,9 +131,9 @@ class _ConvPoolLrelu(torch.autograd.Function):
     def backward(ctx, g):
         x, w, b = ctx.saved_tensors
         # The fused kernel never wrote the full-resolution pre-activation:
-        # recompute it for the lrelu mask (one epilogue-free forward).
-        pre = pk.packed_conv(x, w, b, epilogue="none")
-        return _conv_grads(ctx, x, w, _lrelu_bwd(pre, _unpool_quarter(g)))
+        # recompute its lrelu (the same sign) in the forward's own fp32 sums.
+        u = pk.packed_conv(x, w, b, epilogue="lrelu")
+        return _conv_grads(ctx, x, w, _lrelu_bwd(u, _unpool_quarter(g)))
 
 
 class _ConvLreluNorm(torch.autograd.Function):

@@ -21,7 +21,9 @@ of the functions that reach the Pallas kernels they replace:
   queries that are already normalized, with local row ids (the per-shard
   form of a row-sharded table);
 - ``rank_scores_fused(pred, table_norm)``: normalize + all cosine scores
-  [B, N], the path for k > 16.
+  [B, N], the path for k > 16; its products are 3xTF32 on the tensor cores
+  (three TF32 products of the operands' high and low parts, fp32 by
+  accuracy: within 2e-6 of the plain twin).
 
 Results are what ``lax.top_k(scores[:, :nvalid], k)`` returns: descending
 values and, among equal values, ascending ids. The kernel sums the D terms
@@ -71,7 +73,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     "rank_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "rank_scores": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rank_scores": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "rank_topk_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P],
 }
@@ -141,14 +143,36 @@ def _check_k(name: str, k: int, nvalid: int, n_rows: int) -> None:
         )
 
 
-def _geometry(n_rows: int, device: torch.device,
-              blocks_per_sm: int = BLOCKS_PER_SM) -> tuple[int, int]:
+def tile_runs(n_rows: int, tile_rows: int, max_blocks: int) -> tuple[int, int]:
     """(tiles per block, blocks) that cover ``n_rows`` in contiguous runs of
-    128-row tiles, about ``blocks_per_sm`` blocks per SM and none empty."""
-    n_tiles = -(-n_rows // TILE_ROWS)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles_per_block = -(-n_tiles // min(n_tiles, blocks_per_sm * sms))
+    ``tile_rows``-row tiles, at most ``max_blocks`` blocks and none empty."""
+    n_tiles = -(-n_rows // tile_rows)
+    tiles_per_block = -(-n_tiles // min(n_tiles, max_blocks))
     return tiles_per_block, -(-n_tiles // tiles_per_block)
+
+
+def _geometry(n_rows: int, device: torch.device, blocks_per_sm: int = BLOCKS_PER_SM,
+              tile_rows: int = TILE_ROWS) -> tuple[int, int]:
+    """``tile_runs`` with about ``blocks_per_sm`` blocks per SM."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return tile_runs(n_rows, tile_rows, blocks_per_sm * sms)
+
+
+def scores_k(d: int) -> int:
+    """rank_scores' K: the feature dim padded with zeros to whole k8 steps of
+    the tensor-core product."""
+    return -(-d // 8) * 8
+
+
+def scores_tiling(b: int, d: int) -> tuple[int, int]:
+    """(table rows per tile, blocks per SM) of csrc/rank_scores.cu, which
+    launches the tiling it is given: 128-row tiles in a ring of 3, one block
+    an SM, for more than 32 queries with a padded D up to 128; else 64-row
+    tiles in a ring of 2, two blocks an SM while D allows (one block's
+    product overlaps the other's loads), one above."""
+    if scores_k(d) > 128:
+        return 64, 1
+    return (128, 1) if b > 32 else (64, 2)
 
 
 def _launch(name: str, x: torch.Tensor, *args) -> None:
@@ -368,15 +392,32 @@ def rank_scores_fused_plain(pred, table_norm):
 
 def rank_scores_fused(pred: torch.Tensor, table_norm: torch.Tensor) -> torch.Tensor:
     """[B, D] raw predictions x [N, D] pre-normalized table -> [B, N] cosine
-    scores, fp32 (a zero prediction row gives zeros, not NaN)."""
+    scores, fp32 (a zero prediction row gives zeros, not NaN). On the card
+    the products are 3xTF32, summed in one fixed order: bit-equal table rows
+    get bit-equal scores."""
     name = "rank_scores_fused"
     _check(name, pred, table_norm)
     if pred.device.type == "cpu":
         return rank_scores_fused_plain(pred, table_norm)
+    out = torch.empty((pred.shape[0], table_norm.shape[0]), device=pred.device,
+                      dtype=torch.float32)
+    launch_rank_scores(pred, table_norm, out)
+    return out
+
+
+def launch_rank_scores(pred: torch.Tensor, table_norm: torch.Tensor, out: torch.Tensor) -> None:
+    """Launch the rank_scores kernel into ``out`` [B, N] fp32 (contiguous, on
+    the card): ``rank_scores_fused`` without its allocation."""
+    _check("rank_scores", pred, table_norm)
+    if pred.device.type != "cuda":
+        raise RuntimeError("rank_scores: the kernel runs on CUDA tensors only")
     b, d = pred.shape
     n = table_norm.shape[0]
-    tiles_per_block, n_blocks = _geometry(n, pred.device)
-    out = torch.empty((b, n), device=pred.device, dtype=torch.float32)
+    if (out.shape != (b, n) or out.dtype != torch.float32 or not out.is_contiguous()
+            or out.device != pred.device):
+        raise ValueError(f"rank_scores: out must be a contiguous float32 {(b, n)} tensor "
+                         f"on {pred.device}")
+    tile_rows, blocks_per_sm = scores_tiling(b, d)
+    tiles_per_block, n_blocks = _geometry(n, pred.device, blocks_per_sm, tile_rows)
     _launch("rank_scores", pred, pred.data_ptr(), table_norm.data_ptr(), out.data_ptr(),
-            b, d, n, tiles_per_block, n_blocks)
-    return out
+            b, d, n, tile_rows, tiles_per_block, n_blocks)

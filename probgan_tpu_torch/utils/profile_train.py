@@ -11,10 +11,11 @@ line:
 
     python -m probgan_tpu_torch.utils.profile_train [--kg] [--trace PATH.json]
 
-Parts of the image step: the five conv kernels by name (``packed_conv_wgrad``
-with its reduction pass, ``packed_conv``, ``packed_convpool``,
-``packed_upconv``), the cuDNN convolutions and dense products of the unpacked
-stages (forward, backward and the recompute of ``remat``), copies, and the
+Parts of the image step: the conv kernels by name (``packed_conv_wgrad``
+with its reduction pass, ``packed_conv`` and its 3xTF32 "none" kernel
+``packed_conv[none]``, ``packed_convpool``, ``packed_upconv``), the cuDNN
+convolutions and dense products of the unpacked stages (forward, backward
+and the recompute of ``remat``), copies, and the
 elementwise rest (LeakyReLU and PixelNorm and their backward, the masks and
 bias gradients of ops/packed_vjp.py, pools, weight prep, Adam). Parts of the
 KG step: the dense products, Adam over the tables, gathers and scatters,
@@ -33,9 +34,10 @@ import torch
 from probgan_tpu_torch.engine import train
 from probgan_tpu_torch.models.pro_gan import ProGANConfig
 
-# packed_conv_wgrad and packed_convpool before their prefix packed_conv
-_KERNELS = ("packed_conv_wgrad", "packed_convpool", "packed_conv_rgb", "packed_conv",
-            "packed_upconv")
+# packed_conv_wgrad and packed_convpool before their prefix packed_conv;
+# packed_conv's "none" epilogue is a kernel of its own (3xTF32)
+_KERNELS = ("packed_conv_wgrad", "packed_convpool", "packed_conv_rgb", "packed_conv_none",
+            "packed_conv", "packed_upconv")
 CALLS = 3
 BATCH, STAGE = 2, 8
 KG = dict(num_entities=1_000_000, num_relations=1_000, embed_dim=128, noise_dim=64,
@@ -46,7 +48,7 @@ KG_BATCH, KG_CE_NEGATIVES = 1024, 8192
 def _part(name: str) -> str:
     for k in _KERNELS:
         if f"{k}_kernel" in name or f"{k}_reduce_kernel" in name:
-            return k
+            return "packed_conv[none]" if k == "packed_conv_none" else k
     low = name.lower().replace(" ", "")
     if "memcpy" in low or "memset" in low:
         return "copies"

@@ -224,11 +224,17 @@ def test_backward_launches_only_what_is_asked(name, monkeypatch):
     assert ("packed_conv_wgrad", None) not in only_x and dgrad in only_x
     only_w = backward_calls(False, True)
     assert ("packed_conv_wgrad", None) in only_w
-    # convpool_lrelu recomputes its pre-activation with the same "none" conv
-    assert only_w.count(dgrad) == (1 if name == "convpool_lrelu" else 0)
+    assert only_w.count(dgrad) == 0
+    # convpool_lrelu recomputes its lrelu mask and conv_lrelu_norm its
+    # pre-norm tensor with the forward's fp32 sums: one "lrelu" conv whatever
+    # the gradients asked for
+    recompute = ("packed_conv", "lrelu")
+    recomputes = 1 if name in ("convpool_lrelu", "conv_lrelu_norm") else 0
+    assert only_w.count(recompute) == recomputes
     both = backward_calls(True, True)
     assert both.count(("packed_conv_wgrad", None)) == 1
-    assert both.count(dgrad) == (2 if name == "convpool_lrelu" else 1)
+    assert both.count(dgrad) == 1
+    assert both.count(recompute) == recomputes
 
 
 def test_backward_is_not_differentiable_twice():
