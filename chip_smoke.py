@@ -13,7 +13,9 @@ Phases (any failure exits non-zero and prints no result line):
 2. each late-stage generator kernel at the shapes the 1024² generator gives
    it (batch 2), held against its plain PyTorch twin on the card with TF32
    off: fp32 outputs to atol = rtol = 1e-4, uint8 outputs within +-1 on at
-   most 0.5% of bytes. Times (CUDA events, after warm-up) of the kernel's
+   most 0.5% of bytes; ``packed_upconv`` and ``packed_conv`` (the fp32 ring
+   kernels, one fixed order of sums) bit-equal over two runs on one input.
+   Times (CUDA events, after warm-up) of the kernel's
    wrapper, the plain twin and a cuDNN-based yardstick the port never calls,
    beside the kernel's bound on an H100 (67 TFLOP/s fp32, 3.35 TB/s);
 3. the image main path: ``ImageGANEngine(ProGANConfig(), device="cuda",
@@ -29,7 +31,13 @@ Phases (any failure exits non-zero and prints no result line):
    with the "lrelu" epilogue at 32 channels / 1024² and 64 / 512²,
    ``packed_convpool`` 32 -> 64 at 1024² and 64 -> 128 at 512², each against
    its plain twin (atol = rtol = 1e-4) with the "none" epilogues checked
-   once; ``to_uint8_fused`` at [8, 1024, 1024, 3] (equal bytes, or +-1 only
+   once. ``packed_conv`` "lrelu" bit-equal over two runs, and pooled 2x2 as
+   ``packed_convpool`` pools (0.5 * (0.5 * (a00 + a10) + 0.5 * (a01 +
+   a11)), torch ops) equal, bit for bit, to ``packed_convpool`` "lrelu" on
+   the same x, w, b (0 differing values): at the conv1 shapes (Cout = C) and
+   at the conv2 shapes, which are ``convpool_lrelu``'s mask recompute
+   (``RECOMPUTE_SHAPES``, timed as calls of the "lrelu" entry);
+   ``to_uint8_fused`` at [8, 1024, 1024, 3] (equal bytes, or +-1 only
    where the denorm value lies within 1e-3 of a half) and at element counts
    that are no multiple of 4. Yardsticks: ``F.conv2d`` + ``F.leaky_relu``
    (+ ``F.avg_pool2d``); ``tanh``/``round``/``clamp``;
@@ -94,7 +102,8 @@ Phases (any failure exits non-zero and prints no result line):
    the 1024² train step, each entry within 1e-5 of dW's largest (sums over 2
    to 4 million pixels in another order) and two runs on one input
    bit-equal, with its bound at the TF32 rate beside the fp32 CUDA-core one;
-   ``packed_upconv`` with the "lrelu" epilogue at both stages, ``packed_conv``
+   ``packed_upconv`` with the "lrelu" epilogue at both stages (two runs
+   bit-equal), ``packed_conv``
    "none" (3xTF32) at the four (C, Cout, H) the step launches it with and at
    the two where ``convpool_lrelu``'s backward recomputes its mask on the
    fp32 "lrelu" kernel (within atol = rtol = 1e-4 and 1e-5 of the output's
@@ -309,6 +318,29 @@ def check_uint8(label: str, got: np.ndarray, want: np.ndarray) -> tuple[int, flo
     return worst, share, psnr
 
 
+def differing_bits(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Values of two fp32 tensors whose bits differ."""
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum().item())
+
+
+def check_two_runs(label: str, first, again) -> None:
+    """B1's and B2's fp32 kernels sum every output in one fixed order: two
+    runs on one input must give the same bits."""
+    torch.cuda.synchronize()
+    for a, b in zip(first if isinstance(first, tuple) else (first,),
+                    again if isinstance(again, tuple) else (again,)):
+        if differing_bits(a, b):
+            raise AssertionError(f"{label}: two runs on one input differ in their bits")
+
+
+def pool_in_b5_order(y: torch.Tensor) -> torch.Tensor:
+    """packed_convpool.cu's 2x2 mean as torch ops, rows first, then columns:
+    0.5 * (0.5 * (a00 + a10) + 0.5 * (a01 + a11))."""
+    a00, a01 = y[..., 0::2, 0::2], y[..., 0::2, 1::2]
+    a10, a11 = y[..., 1::2, 0::2], y[..., 1::2, 1::2]
+    return 0.5 * (0.5 * (a00 + a10) + 0.5 * (a01 + a11))
+
+
 def phase_kernels(pk, pro_gan) -> list[dict]:
     """Each kernel at its main-path shapes against its plain twin."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -339,6 +371,7 @@ def phase_kernels(pk, pro_gan) -> list[dict]:
         if rgb:
             kw = {"rgb_w": conv_w(3, c, 1, 1.0).reshape(3, c), "rgb_b": bias(3)}
         got = pk.packed_upconv(x, w, b, **kw)
+        check_two_runs(f"packed_upconv[{label}]", got, pk.packed_upconv(x, w, b, **kw))
         want = pk.packed_upconv_plain(x, w, b, **kw)
         got, want = (got, want) if rgb else ((got,), (want,))
         err = 0.0
@@ -357,7 +390,7 @@ def phase_kernels(pk, pro_gan) -> list[dict]:
         nbytes = 4 * (B * c * h * h + B * cout * 4 * h * h + 9 * c * cout + cout
                       + ((3 * c + 3 + B * 3 * h * h) if rgb else 0))
         up_calls.append({
-            "call": label, "shape_in": [B, c, h, h], "max_abs_err": err,
+            "call": label, "shape_in": [B, c, h, h], "max_abs_err": err, "bit_equal_runs": True,
             "ms": cuda_ms(lambda: pk.packed_upconv(x, w, b, **kw)),
             "plain_ms": cuda_ms(lambda: pk.packed_upconv_plain(x, w, b, **kw)),
             "library_ms": cuda_ms(library), "flops": flops, "bytes": nbytes,
@@ -370,9 +403,10 @@ def phase_kernels(pk, pro_gan) -> list[dict]:
     c, cout, h = 64, 64, 512
     x, w, b = feats(B, c, h, h), conv_w(cout, c), bias(cout)
     got, want = pk.packed_conv(x, w, b), pk.packed_conv_plain(x, w, b)
+    check_two_runs("packed_conv[lrelu_norm]", got, pk.packed_conv(x, w, b))
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     rows.append(("packed_conv", "packed_conv", "probgan_tpu/ops/pallas_packed.py:382", [{
-        "call": "stage7", "shape_in": [B, c, h, h],
+        "call": "stage7", "shape_in": [B, c, h, h], "bit_equal_runs": True,
         "max_abs_err": (got - want).abs().max().item(),
         "ms": cuda_ms(lambda: pk.packed_conv(x, w, b)),
         "plain_ms": cuda_ms(lambda: pk.packed_conv_plain(x, w, b)),
@@ -446,12 +480,13 @@ def assemble_conv_rows(rows, batch: int) -> list[dict]:
         for k in calls:
             k["bound_ms"], k["bound_by"] = bound(k.pop("op_flops", k["flops"]), k["bytes"],
                                                  k.pop("peak_flops", PEAK_FP32_FLOPS))
+            k["roofline_share"] = k["bound_ms"] / k["ms"]
             extra = (f", fp32 CUDA-core bound {k['bound_fp32_ms']:.3f} ms"
                      if "bound_fp32_ms" in k else "")
             print(f"  {name}[{k['call']}] x{k['shape_in']}: max_abs_err "
                   f"{k['max_abs_err']:.3g}  kernel {k['ms']:.3f} ms  plain "
                   f"{k['plain_ms']:.3f} ms  library {k['library_ms']:.3f} ms  bound "
-                  f"{k['bound_ms']:.3f} ms ({k['bound_by']}, "
+                  f"{k['bound_ms']:.3f} ms ({k['roofline_share']:.0%}, {k['bound_by']}, "
                   f"{k['flops'] / 1e9:.1f} GFLOP, {k['bytes'] / 1e6:.1f} MB{extra})")
         out.append(entry)
     return out
@@ -480,10 +515,21 @@ def phase_d_kernels(pk, image_ops, pro_gan) -> list[dict]:
         # conv1: C -> C, "lrelu"
         w, b = conv_w(c, c), bias(c)
         got = pk.packed_conv(x, w, b, epilogue="lrelu")
+        check_two_runs(f"packed_conv[lrelu] {label}", got,
+                       pk.packed_conv(x, w, b, epilogue="lrelu"))
         want = pk.packed_conv_plain(x, w, b, epilogue="lrelu")
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        # B2 "lrelu" pooled in B5's order against B5 "lrelu" at the same
+        # (C, Cout = C): the same sums, bit for bit
+        n_b5 = differing_bits(pool_in_b5_order(got),
+                              pk.packed_convpool(x, w, b, epilogue="lrelu"))
+        print(f"  packed_conv[lrelu] {label} C{c}->Cout{c}: pooled in B5's order, values "
+              f"differing from packed_convpool[lrelu] {n_b5}; two runs bit-equal")
+        if n_b5:
+            raise AssertionError(f"packed_conv[lrelu] {label}: not B5's sums")
         conv_calls.append({
-            "call": label, "shape_in": [B, c, h, h],
+            "call": label, "shape_in": [B, c, h, h], "bit_equal_runs": True,
+            "differing_vs_b5_pooled": n_b5,
             "max_abs_err": (got - want).abs().max().item(),
             "ms": cuda_ms(lambda: pk.packed_conv(x, w, b, epilogue="lrelu")),
             "plain_ms": cuda_ms(lambda: pk.packed_conv_plain(x, w, b, epilogue="lrelu")),
@@ -500,6 +546,31 @@ def phase_d_kernels(pk, image_ops, pro_gan) -> list[dict]:
         if tuple(got.shape) != (B, cout, h // 2, h // 2):
             raise AssertionError(f"packed_convpool returned {tuple(got.shape)}")
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        # convpool_lrelu's backward recomputes this conv's lrelu with B2
+        # "lrelu" (RECOMPUTE_SHAPES): pooled in B5's order it must be B5's
+        # output, bit for bit
+        assert (c, cout, h) in RECOMPUTE_SHAPES
+        u = pk.packed_conv(x, w, b, epilogue="lrelu")
+        check_two_runs(f"packed_conv[lrelu] recompute C{c}->Cout{cout}@{h}", u,
+                       pk.packed_conv(x, w, b, epilogue="lrelu"))
+        n_b5 = differing_bits(pool_in_b5_order(u), got)
+        print(f"  packed_conv[lrelu] recompute C{c}->Cout{cout}@{h}: pooled in B5's order, "
+              f"values differing from packed_convpool[lrelu] {n_b5}; two runs bit-equal")
+        if n_b5:
+            raise AssertionError(f"packed_conv[lrelu] C{c}->Cout{cout}@{h}: the recompute "
+                                 "does not give packed_convpool's sums")
+        u_plain = pk.packed_conv_plain(x, w, b, epilogue="lrelu")
+        conv_calls.append({
+            "call": f"recompute C{c}->Cout{cout}@{h}", "shape_in": [B, c, h, h],
+            "bit_equal_runs": True, "differing_vs_b5_pooled": n_b5,
+            "max_abs_err": (u - u_plain).abs().max().item(),
+            "ms": cuda_ms(lambda: pk.packed_conv(x, w, b, epilogue="lrelu")),
+            "plain_ms": cuda_ms(lambda: pk.packed_conv_plain(x, w, b, epilogue="lrelu")),
+            "library_ms": cuda_ms(lambda: F.leaky_relu(F.conv2d(x, w, b, padding=1), 0.2)),
+            "flops": 2 * 9 * c * cout * B * h * h,
+            "bytes": 4 * (B * c * h * h + B * cout * h * h + 9 * c * cout + cout),
+        })
+        del u, u_plain
         pool_calls.append({
             "call": label, "shape_in": [B, c, h, h],
             "max_abs_err": (got - want).abs().max().item(),
@@ -958,10 +1029,12 @@ def phase_train_kernels(pk, packed_vjp, pro_gan) -> list[dict]:
         x = pro_gan.pixel_norm(randn(B, c, h, h))
         w, b = conv_w(cout, c), 0.1 * randn(cout)
         got = pk.packed_upconv(x, w, b, epilogue="lrelu")
+        check_two_runs(f"packed_upconv[lrelu] {label}", got,
+                       pk.packed_upconv(x, w, b, epilogue="lrelu"))
         want = pk.packed_upconv_plain(x, w, b, epilogue="lrelu")
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
         up_calls.append({
-            "call": label, "shape_in": [B, c, h, h],
+            "call": label, "shape_in": [B, c, h, h], "bit_equal_runs": True,
             "max_abs_err": (got - want).abs().max().item(),
             "ms": cuda_ms(lambda: pk.packed_upconv(x, w, b, epilogue="lrelu")),
             "plain_ms": cuda_ms(lambda: pk.packed_upconv_plain(x, w, b, epilogue="lrelu")),
@@ -1983,7 +2056,6 @@ def phase_fused_kernels(pk, pro_gan) -> list[dict]:
     entries = assemble_conv_rows(rows, B)
     for e in entries:
         for k in e["calls"]:
-            k["roofline_share"] = k["bound_ms"] / k["ms"]
             print(f"  {e['name']}[{k['call']}]: {k['ms']:.3f} ms against the pair's "
                   f"{k['pair_ms']:.3f} ms ({k['ms'] / k['pair_ms']:.2f}x), "
                   f"{k['roofline_share']:.0%} of the bound")

@@ -1,0 +1,447 @@
+// The pipelined fp32 main loop of packed_conv.cu's "lrelu" / "lrelu_norm"
+// kernel (B2) and of packed_upconv.cu (B1): a persistent block walks output
+// tiles, and its input channels stream through a ring of shared-memory
+// stages filled by cp.async while the FMAs of an earlier stage run.
+//
+// What it keeps from conv_tile.cuh, so that every output has the bits of the
+// loop it replaces (conv3x3_accumulate, and B1's own loop before it): the
+// block of 256 threads owns a tile of output pixels and ALL output channels
+// of its slab; a thread holds 8 pixels x 8 channels (Tile<COUT>, channel_of),
+// the COUT/8 lanes of a pixel group are neighbours in one warp, and every
+// value takes its products in one fp32 accumulator fed by fmaf in the order
+// (input channel, ky, kx) (B1: input channel, dy, dx of its parity's
+// pre-summed taps). The epilogues are conv_tile.cuh's bias_lrelu_norm /
+// bias_act and store_rows, unchanged.
+//
+// What it changes, all around the FMAs:
+//  * Each ring stage holds 16 input channels (the old loop: 8) of the
+//    tile's halo patch and their weights, copied by cp.async in 16-byte
+//    pieces only (.cg, L2 -> shared): a staged patch row spans the columns
+//    x0-4 .. x0+35 (B1: j0-4 .. j0+19), whole aligned 16-byte chunks, so the
+//    +-1 halo columns come inside the chunks at the patch's ends, which are
+//    zero-filled (src-size 0) outside the image, as are rows above or below
+//    it. The 6 extra floats a row cost nothing the L2 notices; every copy is
+//    one instruction with one zero-fill rule.
+//  * Each thread works out its copies' places in the patch once, at the
+//    start (RingCopies); a step adds the tile's corner and tests a row.
+//  * One __syncthreads per stage: the copies of steps s+1 and s+2 are in
+//    flight while the FMAs of step s run (3 stages), and a block's walk
+//    runs through its tiles without a break, so the next tile's first
+//    copies overlap the current tile's last FMAs, its epilogue and stores.
+//  * Persistent blocks, one an SM (the wrapper launches min(tiles, SMs)):
+//    a ring of 3 stages of 16 channels is 195,072 B (B2, Cout 64) to
+//    207,360 B (B2, Cout 32), too large for two blocks in an SM's 228 KB;
+//    one block of 256 threads may then take up to 255 registers a thread
+//    (the old loop: 128, with spills in B1).
+//
+// Shared memory a block (floats; rows padded so that the lanes of a warp hit
+// distinct banks in the thread's aligned float4 read of the patch):
+//   B2 Cout 64: x 16 ch x 10 rows x 44 + w 16 x 9 x 64  = 16,256 a stage
+//   B2 Cout 32: x 16 ch x 18 rows x 44 + w 16 x 9 x 32  = 17,280 a stage
+//   B1 Cout 64: x 16 ch x  9 rows x 24 + w 16 x 8 x 64  = 11,648 a stage
+//   B1 Cout 32: x 16 ch x 17 rows x 48 + w 16 x 8 x 32  = 17,152 a stage
+// times 3 stages x 4 B: 195,072 / 207,360 / 139,776 / 205,824 B, each under
+// the 232,448 B a block may have; a second block (plus the 1 KB the card
+// reserves for each) would not fit, so the design is one block an SM.
+//
+// The walk is generic over the tile (ring_walk takes the tile's copies,
+// FMAs and epilogue from a struct), so tiles of Cout 8 or 16 can use it
+// later with their own struct.
+#pragma once
+
+#include "async_copy.cuh"
+#include "conv_tile.cuh"
+
+namespace probgan {
+
+// One thread's share of a stage's patch copies: N 16-byte chunks of the
+// [CC][SH][XW] patch, chunk idx = threadIdx.x + k * kThreads in
+// (channel, row, chunk) order. meta packs the chunk's shared-memory offset
+// (bits 0-15), its patch row (16-21), its chunk in the row (22-25) and its
+// channel (26-30), worked out once; -1 marks no copy. A step adds the
+// chunk's global offset, channel * H * W + row * W + 4 * chunk, to the
+// patch's corner.
+template <int CC, int N>
+struct RingCopies {
+  int meta[N];
+
+  template <int SH, int XW, int SW>
+  __device__ __forceinline__ void init() {
+    constexpr int kChunks = XW / 4;
+    static_assert(CC * SH * SW <= 0x10000 && SH <= 64 && kChunks <= 16 && CC <= 32,
+                  "the fields of meta");
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int idx = threadIdx.x + k * kThreads;
+      const int ch = idx % kChunks;
+      const int rc = idx / kChunks;
+      const int r = rc % SH;
+      const int c = rc / SH;
+      meta[k] = idx >= CC * SH * kChunks
+                    ? -1
+                    : ((c * SH + r) * SW + 4 * ch) | r << 16 | ch << 22 | c << 26;
+    }
+  }
+
+  // Start the copies of one stage: patch row 0, column 0 is element
+  // `corner` of x (channel c0, input row `row`). Rows outside 0..H-1, the
+  // first chunk of a row when first_ok is false, its last (chunk
+  // kChunks - 1) when last_ok is false, and channels at or past
+  // c0 + c_left are zero-filled.
+  template <int kChunks>
+  __device__ __forceinline__ void issue(float* xs, const float* __restrict__ x, long long corner,
+                                        int row, int H, int W, bool first_ok, bool last_ok,
+                                        int c_left) const {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int m = meta[k];
+      if (m < 0) continue;
+      const int r = (m >> 16) & 63;
+      const int ch = (m >> 22) & 15;
+      const int c = (m >> 26) & 31;
+      const bool valid = c < c_left &&
+                         static_cast<unsigned>(row + r) < static_cast<unsigned>(H) &&
+                         (ch != 0 || first_ok) && (ch != kChunks - 1 || last_ok);
+      const long long off = corner + (static_cast<long long>(c) * H + r) * W + 4 * ch;
+      cp_async16(xs + (m & 0xFFFF), valid ? x + off : x, valid);
+    }
+  }
+};
+
+// 4 * N4 floats of weights, contiguous in global and in shared memory, 16
+// bytes a copy; the first `valid_n` floats are copied, the rest zeroed.
+template <int N4>
+__device__ __forceinline__ void ring_copy_weights(float* ws, const float* __restrict__ src,
+                                                  const float* __restrict__ any, int valid_n) {
+#pragma unroll
+  for (int k = 0; k < (N4 + kThreads - 1) / kThreads; ++k) {
+    const int e = threadIdx.x + k * kThreads;
+    if (e < N4) {
+      const bool valid = 4 * e < valid_n;
+      cp_async16(ws + 4 * e, valid ? src + 4 * e : any, valid);
+    }
+  }
+}
+
+// The walk of a persistent block: tiles blockIdx.x, + gridDim.x, ... of
+// n_tiles, each in cv.n_chunks steps of Conv::kCC input channels, through
+// a ring of Conv::kStages stages. Conv provides kStage (floats a stage),
+// n_chunks, issue(stage, tile, chunk), compute(stage, tile, chunk, acc) and
+// finish(tile, acc).
+template <class Conv, class Clock>
+__device__ __forceinline__ void ring_walk(Conv& cv, float* smem, int n_tiles, Clock& clk) {
+  const int n_chunks = cv.n_chunks;
+  const int my_tiles = static_cast<int>(blockIdx.x) < n_tiles
+                           ? (n_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x
+                           : 0;
+  const int n_steps = my_tiles * n_chunks;
+  int next_tile = blockIdx.x, next_chunk = 0;  // the next step to issue
+  auto issue_next = [&](int stage) {
+    cv.issue(smem + stage * Conv::kStage, next_tile, next_chunk);
+    if (++next_chunk == n_chunks) {
+      next_chunk = 0;
+      next_tile += gridDim.x;
+    }
+  };
+  constexpr int kStages = Conv::kStages;
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_steps) issue_next(s);
+    cp_async_commit();
+  }
+
+  float acc[kTM][kTN];
+  int tile = blockIdx.x, chunk = 0;
+  for (int it = 0; it < n_steps; ++it) {
+    cp_async_wait(kStages - 2);
+    // Step `it` has landed for every thread, and every warp is done with the
+    // stage of step it - 1: it takes step it + kStages - 1.
+    __syncthreads();
+    if (it + kStages - 1 < n_steps) issue_next((it + kStages - 1) % kStages);
+    cp_async_commit();
+    clk.lap(kLapWait);
+    if (chunk == 0) {
+#pragma unroll
+      for (int m = 0; m < kTM; ++m)
+#pragma unroll
+        for (int n = 0; n < kTN; ++n) acc[m][n] = 0.f;
+    }
+    cv.compute(smem + (it % kStages) * Conv::kStage, tile, chunk, acc);
+    clk.lap(kLapFma);
+    if (++chunk == n_chunks) {
+      cv.finish(tile, acc);
+      chunk = 0;
+      tile += gridDim.x;
+      clk.lap(kLapEpilogue);
+    }
+  }
+  cp_async_wait(0);
+}
+
+// ---------------------------------------------------------------------------
+// B2: 3x3 SAME conv + bias -> "lrelu_norm" / "lrelu", over slabs of COUT
+// ---------------------------------------------------------------------------
+
+// The tile: TH x 32 output pixels (Tile<COUT>) x one slab of COUT output
+// channels. A thread's pixels are row y0 + pg/4, columns x0 + 8*(pg%4) + 0..7
+// (conv3x3_accumulate's row map). Patch column q holds input column x0-4+q,
+// so the thread's 10 input columns sit at 8*(pg%4) + 3 .. + 12: one scalar,
+// two aligned float4 and one scalar read. Rows 44 floats apart (12 mod 32):
+// at Cout 32 a warp spans two rows, whose float4 reads then fall on disjoint
+// banks.
+template <int COUT, bool NORM>
+struct ConvRing {
+  using T = Tile<COUT>;
+  static constexpr int SH = T::TH + 2;
+  static constexpr int XW = T::TW + 8;
+  static constexpr int SW = 44;
+  static constexpr int XC = SH * SW;          // floats of one channel's patch
+  static constexpr int kCC = 16;              // input channels a stage
+  static constexpr int kStages = 3;
+  static constexpr int kX = kCC * XC;
+  static constexpr int kWc = 9 * COUT;        // weights of one input channel
+  static constexpr int kStage = kX + kCC * kWc;
+  static constexpr int kBytes = static_cast<int>(sizeof(float)) * kStages * kStage;
+  static constexpr int kXPer = (kCC * SH * (XW / 4) + kThreads - 1) / kThreads;
+  static_assert(kX % 4 == 0 && kStage % 4 == 0, "16-byte aligned stage parts");
+
+  const float* x;
+  const float* w;
+  const float* bias;
+  float* y;
+  int C, H, W, n_slabs, tiles_x, tiles_y, n_chunks, cg, pg;
+  RingCopies<kCC, kXPer> copies;
+
+  __device__ __forceinline__ ConvRing(const float* x_, const float* w_, const float* b_,
+                                      float* y_, int C_, int H_, int W_, int n_slabs_)
+      : x(x_), w(w_), bias(b_), y(y_), C(C_), H(H_), W(W_), n_slabs(n_slabs_),
+        tiles_x(W_ / T::TW), tiles_y(H_ / T::TH), n_chunks((C_ + kCC - 1) / kCC),
+        cg(threadIdx.x % T::NCG), pg(threadIdx.x / T::NCG) {
+    copies.template init<SH, XW, SW>();
+  }
+
+  // Tile t of the walk: the slab fastest (the tiles that share one patch run
+  // together), then columns, rows and images (ops/packed.py conv_tile_origin).
+  __device__ __forceinline__ void tile_of(int t, int& b, int& y0, int& x0, int& slab) const {
+    slab = t % n_slabs;
+    t /= n_slabs;
+    x0 = (t % tiles_x) * T::TW;
+    t /= tiles_x;
+    y0 = (t % tiles_y) * T::TH;
+    b = t / tiles_y;
+  }
+
+  __device__ __forceinline__ void issue(float* stage, int t, int chunk) const {
+    int b, y0, x0, slab;
+    tile_of(t, b, y0, x0, slab);
+    const int c0 = chunk * kCC;
+    const long long corner =
+        (static_cast<long long>(b) * C + c0) * H * W + static_cast<long long>(y0 - 1) * W + x0 - 4;
+    copies.template issue<XW / 4>(stage, x, corner, y0 - 1, H, W, x0 > 0, x0 + T::TW < W,
+                                 C - c0);
+    ring_copy_weights<kCC * kWc / 4>(stage + kX, w + (static_cast<size_t>(slab) * C + c0) * kWc,
+                                     w, (C - c0) * kWc);
+  }
+
+  // Channels [c_begin, c_begin + 8) of the stage, in conv3x3_rows' order.
+  __device__ __forceinline__ void channels8(const float* __restrict__ xs,
+                                            const float* __restrict__ ws, int c_begin,
+                                            float (&acc)[kTM][kTN]) const {
+    const int pgx = pg % 4;
+    const int ty = pg / 4;
+#pragma unroll 2
+    for (int c = c_begin; c < c_begin + 8; ++c) {
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+        const float* src = xs + c * XC + (ty + ky) * SW + pgx * kTM + 3;
+        const float4 a = *reinterpret_cast<const float4*>(src + 1);
+        const float4 b = *reinterpret_cast<const float4*>(src + 5);
+        const float xin[kTM + 2] = {src[0], a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, src[9]};
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          const float* wrow = ws + (c * 9 + ky * 3 + kx) * COUT;
+          const float4 w0 = reinterpret_cast<const float4*>(wrow)[cg];
+          const float4 w1 = reinterpret_cast<const float4*>(wrow)[T::NCG + cg];
+#pragma unroll
+          for (int m = 0; m < kTM; ++m) fma8(acc[m], xin[m + kx], w0, w1);
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void compute(const float* stage, int, int chunk,
+                                          float (&acc)[kTM][kTN]) const {
+#pragma unroll
+    for (int g = 0; g < kCC; g += 8)  // block-uniform: channels past C are zero
+      if (g == 0 || C - chunk * kCC > g) channels8(stage, stage + kX, g, acc);
+  }
+
+  __device__ __forceinline__ void finish(int t, float (&acc)[kTM][kTN]) const {
+    int b, y0, x0, slab;
+    tile_of(t, b, y0, x0, slab);
+    if constexpr (NORM)
+      bias_lrelu_norm<COUT>(acc, bias, cg);
+    else
+      bias_act<COUT, true>(acc, bias + slab * COUT, cg);
+    const size_t plane = static_cast<size_t>(H) * W;
+    store_rows<COUT>(y + (static_cast<size_t>(b) * n_slabs + slab) * COUT * plane +
+                         static_cast<size_t>(y0 + pg / 4) * W + x0 + (pg % 4) * kTM,
+                     acc, cg, plane);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// B1: nearest-2x upsample -> 3x3 SAME conv + bias -> "lrelu_norm" / "lrelu",
+// from the pre-summed parity taps, optionally with the toRGB of the input
+// ---------------------------------------------------------------------------
+
+// The tile: output rows of ONE parity py under TH input rows, 16 input
+// columns (32 output columns), all COUT channels. A thread's pixels: input
+// row i0 + pg/4, input columns j0 + 4*(pg%4) + 0..3, both column parities:
+// output columns 2*j0 + 8*(pg%4) + 0..7 (acc[2q + px]). Staged rows i0+py-1
+// .. i0+py+TH-1; patch column q holds input column j0-4+q, so the thread's 6
+// input columns sit at 4*(pg%4) + 3 .. + 8: one scalar, one aligned float4
+// and one scalar read. Rows 24 floats apart at Cout 64, 48 at Cout 32 (16 mod
+// 32: the warp's two rows on disjoint banks).
+//
+// A 128-bit weight read from shared memory feeds 32 FMAs here (B2: 64), and
+// such a read keeps the shared-memory pipe 4 cycles a warp: per channel and
+// input row a warp's 8 weight and 3 input reads take ~38 cycles of that pipe
+// against 32 of FMA issue, which is why B1 stays further from its bound
+// than B2. Two input rows a thread (64 FMAs a weight read) needed more than
+// 255 registers, spilled, and ran slower at Cout 32 (PERF.md).
+template <int COUT, bool NORM>
+struct UpconvRing {
+  using T = Tile<COUT>;
+  static constexpr int TH = T::TH;        // input rows a tile
+  static constexpr int TJ = T::TW / 2;    // input columns a tile: 16
+  static constexpr int SH = TH + 1;
+  static constexpr int XW = TJ + 8;
+  static constexpr int SW = COUT == 32 ? 48 : 24;
+  static constexpr int XC = SH * SW;
+  static constexpr int kCC = 16;          // input channels a stage
+  static constexpr int kStages = 3;
+  static constexpr int kX = kCC * XC;
+  static constexpr int kWc = 8 * COUT;    // one parity's pre-summed taps of a channel
+  static constexpr int kStage = kX + kCC * kWc;
+  static constexpr int kBytes = static_cast<int>(sizeof(float)) * kStages * kStage;
+  static constexpr int kXPer = (kCC * SH * (XW / 4) + kThreads - 1) / kThreads;
+  static_assert(kX % 4 == 0 && kStage % 4 == 0, "16-byte aligned stage parts");
+
+  const float* x;
+  const float* wk;
+  const float* bias;
+  const float* rgb_w;
+  const float* rgb_b;
+  float* y;
+  float* rgb;
+  int C, H, W, tiles_x, tiles_y, n_chunks, cg, pg;
+  float racc[3];
+  RingCopies<kCC, kXPer> copies;
+
+  __device__ __forceinline__ UpconvRing(const float* x_, const float* wk_, const float* b_,
+                                        const float* rgb_w_, const float* rgb_b_, float* y_,
+                                        float* rgb_, int C_, int H_, int W_)
+      : x(x_), wk(wk_), bias(b_), rgb_w(rgb_w_), rgb_b(rgb_b_), y(y_), rgb(rgb_), C(C_), H(H_),
+        W(W_), tiles_x(W_ / TJ), tiles_y(H_ / TH), n_chunks((C_ + kCC - 1) / kCC),
+        cg(threadIdx.x % T::NCG), pg(threadIdx.x / T::NCG) {
+    copies.template init<SH, XW, SW>();
+  }
+
+  // Tile t of the walk: the parity fastest (both parities read one patch),
+  // then columns, rows and images (ops/packed.py upconv_tile_origin).
+  __device__ __forceinline__ void tile_of(int t, int& b, int& i0, int& j0, int& py) const {
+    py = t & 1;
+    t >>= 1;
+    j0 = (t % tiles_x) * TJ;
+    t /= tiles_x;
+    i0 = (t % tiles_y) * TH;
+    b = t / tiles_y;
+  }
+
+  // toRGB of the input: the py = 0 tiles own input rows i0..i0+TH-1 (staged
+  // rows 1..TH), one input pixel per thread.
+  __device__ __forceinline__ bool rgb_lane(int py) const {
+    return rgb_w != nullptr && py == 0 && static_cast<int>(threadIdx.x) < TH * TJ;
+  }
+
+  __device__ __forceinline__ void issue(float* stage, int t, int chunk) const {
+    int b, i0, j0, py;
+    tile_of(t, b, i0, j0, py);
+    const int c0 = chunk * kCC;
+    const int row = i0 + py - 1;
+    const long long corner =
+        (static_cast<long long>(b) * C + c0) * H * W + static_cast<long long>(row) * W + j0 - 4;
+    copies.template issue<XW / 4>(stage, x, corner, row, H, W, j0 > 0, j0 + TJ < W, C - c0);
+    ring_copy_weights<kCC * kWc / 4>(stage + kX, wk + (static_cast<size_t>(py) * C + c0) * kWc,
+                                     wk, (C - c0) * kWc);
+  }
+
+  // Channels [c_begin, c_begin + 8) of the stage, in packed_upconv's order:
+  // per channel the toRGB product, then (dy, px, dx, q).
+  __device__ __forceinline__ void channels8(const float* __restrict__ xs,
+                                            const float* __restrict__ ws, int c_begin, int c0,
+                                            bool with_rgb, float (&acc)[kTM][kTN]) {
+    const int pgx = pg % 4;
+    const int r = pg / 4;
+    const int pr = threadIdx.x / TJ, pc = threadIdx.x % TJ;
+#pragma unroll 2
+    for (int c = c_begin; c < c_begin + 8; ++c) {
+      if (with_rgb) {
+        const float v = xs[c * XC + (pr + 1) * SW + pc + 4];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) racc[k] = fmaf(v, __ldg(rgb_w + k * C + c0 + c), racc[k]);
+      }
+#pragma unroll
+      for (int dy = 0; dy < 2; ++dy) {
+        const float* src = xs + c * XC + (r + dy) * SW + 4 * pgx + 3;
+        const float4 a = *reinterpret_cast<const float4*>(src + 1);
+        const float xin[6] = {src[0], a.x, a.y, a.z, a.w, src[5]};
+#pragma unroll
+        for (int px = 0; px < 2; ++px) {
+#pragma unroll
+          for (int dx = 0; dx < 2; ++dx) {
+            const float* wrow = ws + (((c * 2 + px) * 2 + dy) * 2 + dx) * COUT;
+            const float4 w0 = reinterpret_cast<const float4*>(wrow)[cg];
+            const float4 w1 = reinterpret_cast<const float4*>(wrow)[T::NCG + cg];
+            // input column j0 + 4*pgx + q feeds output column 2*(4*pgx + q) + px
+#pragma unroll
+            for (int q = 0; q < 4; ++q) fma8(acc[2 * q + px], xin[q + px + dx], w0, w1);
+          }
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void compute(const float* stage, int t, int chunk,
+                                          float (&acc)[kTM][kTN]) {
+    if (chunk == 0) racc[0] = racc[1] = racc[2] = 0.f;
+    const bool with_rgb = rgb_lane(t & 1);
+    const int c0 = chunk * kCC;
+#pragma unroll
+    for (int g = 0; g < kCC; g += 8)  // block-uniform: channels past C are zero
+      if (g == 0 || C - c0 > g) channels8(stage, stage + kX, g, c0, with_rgb, acc);
+  }
+
+  __device__ __forceinline__ void finish(int t, float (&acc)[kTM][kTN]) {
+    int b, i0, j0, py;
+    tile_of(t, b, i0, j0, py);
+    if (rgb_lane(py)) {
+      const int pr = threadIdx.x / TJ, pc = threadIdx.x % TJ;
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        rgb[((static_cast<size_t>(b) * 3 + k) * H + i0 + pr) * W + j0 + pc] =
+            racc[k] + __ldg(rgb_b + k);
+    }
+    if constexpr (NORM)
+      bias_lrelu_norm<COUT>(acc, bias, cg);
+    else
+      bias_act<COUT, true>(acc, bias, cg);
+    const int Wo = 2 * W;
+    const size_t plane = static_cast<size_t>(2 * H) * Wo;
+    store_rows<COUT>(y + static_cast<size_t>(b) * COUT * plane +
+                         static_cast<size_t>(2 * (i0 + pg / 4) + py) * Wo + 2 * j0 + (pg % 4) * kTM,
+                     acc, cg, plane);
+  }
+};
+
+}  // namespace probgan

@@ -1,9 +1,10 @@
-// Shared pieces of the late-stage conv kernels (packed_upconv.cu,
-// packed_conv.cu, packed_conv_rgb.cu, packed_convpool.cu and the stage-fused
-// pair over stage_fused.cuh): tile geometry, the per-thread channel map, the
-// fused bias -> LeakyReLU(0.2) -> PixelNorm epilogue, its PixelNorm-free forms
-// for the discriminator, the 3x3 SAME conv main loop and the final stage's
-// toRGB -> blend -> uint8 tail.
+// Shared pieces of the late-stage conv kernels (packed_conv_rgb.cu,
+// packed_convpool.cu, the stage-fused pair over stage_fused.cuh, and through
+// conv_ring.cuh packed_conv.cu's fp32 epilogues and packed_upconv.cu): tile
+// geometry, the per-thread channel map, the fused bias -> LeakyReLU(0.2) ->
+// PixelNorm epilogue, its PixelNorm-free forms for the discriminator, the
+// synchronous 3x3 SAME conv main loop and the final stage's toRGB -> blend ->
+// uint8 tail.
 //
 // Every kernel is an implicit GEMM on the CUDA cores in fp32: M = output
 // pixels, N = output channels (32 or 64), K = taps x input channels. A block
@@ -11,9 +12,10 @@
 // PixelNorm (a mean over channels) never leaves the block: a thread holds
 // 8 pixels x 8 channels in registers, and the COUT/8 lanes that share a
 // pixel group are neighbours in one warp and reduce sum(x^2) with xor
-// shuffles. Input channels stream through shared memory 8 at a time, with
-// the matching weight slab beside them (the full weights, up to 512 KB, do
-// not fit in a block's 227 KB).
+// shuffles. In conv3x3_accumulate input channels stream through shared
+// memory 8 at a time, with the matching weight slab beside them (the full
+// weights, up to 512 KB, do not fit in a block's 227 KB); conv_ring.cuh is
+// the pipelined form of the same loop, with the same bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -26,6 +28,25 @@ constexpr int kTM = 8;         // output pixels per thread, contiguous in a row
 constexpr int kTN = 8;         // output channels per thread
 constexpr float kSlope = 0.2f;
 constexpr float kEps = 1e-8f;
+
+// A clock that a main loop reads at the boundaries of a step's parts:
+// NoClock in the kernels (no code), SplitClock in utils/conv_clock_split.py's
+// probe (csrc/conv_clock_split.cu), which sums a block's cycles by part.
+enum Lap { kLapWait = 0, kLapFma = 1, kLapEpilogue = 2 };
+
+struct NoClock {
+  __device__ __forceinline__ void lap(int) {}
+};
+
+struct SplitClock {
+  long long t = 0, part[3] = {0, 0, 0};
+  __device__ __forceinline__ void start() { t = clock64(); }
+  __device__ __forceinline__ void lap(int p) {
+    const long long now = clock64();
+    part[p] += now - t;
+    t = now;
+  }
+};
 
 template <int COUT>
 struct Tile {
@@ -179,11 +200,14 @@ __device__ __forceinline__ void conv3x3_rows(const float (*__restrict__ xs)[Patc
 // columns x0 + 4*(pg%8) + j, held as acc[4*r + j]. A weight row is loaded
 // once and used for both output rows, so the FMAs per shared-memory load are
 // the same as in the row form.
-template <int COUT, bool POOL = false>
+//
+// `clk` (the probe's) is read after each step's staging and after its FMAs.
+template <int COUT, bool POOL = false, class Clock = NoClock>
 __device__ __forceinline__ void conv3x3_accumulate(const float* __restrict__ xb,
                                                    const float* __restrict__ w, int C,
                                                    int H, int W, int y0, int x0,
-                                                   float (&acc)[kTM][kTN]) {
+                                                   float (&acc)[kTM][kTN],
+                                                   Clock* clk = nullptr) {
   using T = Tile<COUT>;
   constexpr int SH = Patch<COUT>::SH;
   constexpr int PW = Patch<COUT>::PW;
@@ -211,6 +235,7 @@ __device__ __forceinline__ void conv3x3_accumulate(const float* __restrict__ xb,
     float4* wdst = reinterpret_cast<float4*>(&ws[0][0][0]);
     for (int e = tid; e < kCC * 9 * COUT / 4; e += kThreads) wdst[e] = __ldg(wsrc + e);
     __syncthreads();
+    if (clk) clk->lap(kLapWait);
 
     if constexpr (POOL) {
       const int px = (pg % 8) * 4;
@@ -244,6 +269,7 @@ __device__ __forceinline__ void conv3x3_accumulate(const float* __restrict__ xb,
       conv3x3_rows<COUT>(xs, ws, cg, pg, acc);
     }
     __syncthreads();
+    if (clk) clk->lap(kLapFma);
   }
 }
 

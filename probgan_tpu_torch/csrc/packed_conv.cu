@@ -12,17 +12,33 @@
 //
 // Two kernels behind one entry.
 //
-// "lrelu_norm" and "lrelu": fp32 FMAs on the CUDA cores (conv_tile.cuh).
-// Bound on the H100: operations. Per image the 64 -> 64 conv at 512^2 does
-// 19.3 GFLOP and moves 2 * 64 MB, ~300 FLOP per byte, far above the fp32
-// balance point of 67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte. Register tiling
-// (8 pixels x 8 channels a thread) gives 192 FMAs per 9 shared-memory loads;
-// the weights stream through shared memory 8 input channels at a time (with
-// the matching halo patch); the epilogue runs in registers and writes the
-// features once. Without PixelNorm the grid's z dimension walks (image, slab
-// of 64 or 32 output channels), so "lrelu" takes any Cout % 32 == 0. These
-// keep their bits: the stage-fused kernels (stage_fused.cuh) are bit-equal
-// to them.
+// "lrelu_norm" and "lrelu": fp32 FMAs on the CUDA cores, one fp32
+// accumulator a value fed by fmaf in the order (input channel, ky, kx): the
+// bits of conv_tile.cuh's conv3x3_accumulate, which packed_convpool (B5) and
+// the stage-fused kernels still run, so B2 "lrelu" pooled in B5's order
+// equals B5 "lrelu" and B10/B11 equal the pair (chip_smoke.py holds both bit
+// for bit). Bound on the H100: operations, 2 * 9 * C * Cout FLOP a pixel:
+// 0.577 ms for the 38.7 GFLOP shapes at batch 2 (32 -> 32 at 1024^2,
+// 64 -> 64 at 512^2), 1.154 ms for the 77.3 GFLOP ones (the recompute's
+// 32 -> 64 at 1024^2, 64 -> 128 at 512^2) at 67 TFLOP/s, against 0.08-0.24
+// ms of bytes. Without PixelNorm the walk takes slabs of 64 or 32 output
+// channels, so "lrelu" takes any Cout % 32 == 0.
+//
+// What held the old loop (conv3x3_accumulate, which this kernel ran
+// before the ring) at 41-54% of that
+// bound, measured by utils/conv_clock_split.py (a clock64 split of each
+// block's cycles; NVIDIA H100 80GB HBM3, 700 W, PERF.md): its blocks spent
+// 53-66% of their cycles staging and 32-45% in FMAs. Each step stages 8
+// input channels with scalar, bounds-checked loads (a div/mod an element)
+// into registers, then shared memory, between two barriers; nothing is in
+// flight while the FMAs run, and two blocks an SM hide only part of that.
+// The design here (conv_ring.cuh): a ring of 3 stages of 16 channels
+// filled by cp.async, one barrier a stage, persistent blocks walking the
+// tiles, one block an SM. Its blocks spend 80-85% of their cycles in FMAs,
+// 10-12% at the stage barrier with the copies issued, 5-9% in epilogues:
+// 59-66% of the bound. What is left: one block an SM has nothing to run
+// beside its barriers and epilogues, and two warps a scheduler issue the
+// FMAs at ~77% of the rate.
 //
 // "none": 3xTF32 on the tensor cores (tf32x3.cuh), fp32 by accuracy. Bound
 // on the H100: operations, 3 x 77.3 GFLOP of TF32 over 495 TFLOP/s = 0.469
@@ -31,7 +47,7 @@
 // An implicit GEMM: M = the pixels of a tile of TR rows x 32 columns of one
 // image, N = a slab of NS output channels, K = 9 x C; no im2col reaches
 // device memory.
-//  * Tilings, as the caller picks them (ops/packed.py:none_tiling): NS = 64,
+//  * Tilings, as the caller picks them (ops/packed.py:conv_tiling): NS = 64,
 //    TR = 8 for Cout % 64 == 0, else NS = 32, TR = 16. Either way 8 warps,
 //    each owning 4 tile rows x 16 columns (one m16 tile a row) x 32 output
 //    channels (four n8 tiles): 64 fp32 sums a thread.
@@ -59,7 +75,7 @@
 //    taps kx-major within a group of 8), with no split over K: equal inputs
 //    give equal bits.
 #include "async_copy.cuh"
-#include "conv_tile.cuh"
+#include "conv_ring.cuh"
 #include "tf32x3.cuh"
 
 namespace probgan {
@@ -67,55 +83,39 @@ namespace probgan {
 enum Epilogue { kLreluNorm = 0, kLrelu = 1, kNone = 2 };
 
 // ---------------------------------------------------------------------------
-// "lrelu_norm" and "lrelu": fp32 on the CUDA cores
+// "lrelu_norm" and "lrelu": fp32 on the CUDA cores (conv_ring.cuh)
 // ---------------------------------------------------------------------------
 
-template <int COUT, int EPI>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int COUT, bool NORM>
+__global__ void __launch_bounds__(kThreads, 1)
     packed_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
                        const float* __restrict__ bias, float* __restrict__ y, int C, int H,
-                       int W, int n_slabs) {
-  using T = Tile<COUT>;
-  const int b = blockIdx.z / n_slabs;
-  const int slab = blockIdx.z % n_slabs;  // always 0 with PixelNorm
-  const int y0 = blockIdx.y * T::TH;
-  const int x0 = blockIdx.x * T::TW;
-  float acc[kTM][kTN] = {};
-  conv3x3_accumulate<COUT>(x + static_cast<size_t>(b) * C * H * W,
-                           w + static_cast<size_t>(slab) * C * 9 * COUT, C, H, W, y0, x0, acc);
-
-  const int cg = threadIdx.x % T::NCG;
-  const int pg = threadIdx.x / T::NCG;
-  if constexpr (EPI == kLreluNorm)
-    bias_lrelu_norm<COUT>(acc, bias, cg);
-  else
-    bias_act<COUT, EPI == kLrelu>(acc, bias + slab * COUT, cg);
-  const size_t plane = static_cast<size_t>(H) * W;
-  store_rows<COUT>(y + (static_cast<size_t>(b) * n_slabs + slab) * COUT * plane +
-                       static_cast<size_t>(y0 + pg / 4) * W + x0 + (pg % 4) * kTM,
-                   acc, cg, plane);
+                       int W, int n_slabs, int n_tiles) {
+  extern __shared__ __align__(16) float ring_smem[];
+  ConvRing<COUT, NORM> cv(x, w, bias, y, C, H, W, n_slabs);
+  NoClock clk;
+  ring_walk(cv, ring_smem, n_tiles, clk);
 }
 
 template <int COUT>
-int launch(const float* x, const float* w, const float* bias, float* y, int B, int C, int H,
-           int W, int cout, int epilogue, cudaStream_t stream) {
-  using T = Tile<COUT>;
-  if (C % kCC || W % T::TW || H % T::TH || cout % COUT) return cudaErrorInvalidValue;
+int launch_ring(const float* x, const float* w, const float* bias, float* y, int B, int C, int H,
+                int W, int cout, int epilogue, int n_blocks, int smem, cudaStream_t stream) {
+  using Ring = ConvRing<COUT, true>;
   const int n_slabs = cout / COUT;
-  if (epilogue == kLreluNorm && n_slabs != 1) return cudaErrorInvalidValue;
-  const dim3 grid(W / T::TW, H / T::TH, B * n_slabs);
-  if (grid.z > 65535u) return cudaErrorInvalidValue;
-  if (epilogue == kLreluNorm)
-    packed_conv_kernel<COUT, kLreluNorm>
-        <<<grid, kThreads, 0, stream>>>(x, w, bias, y, C, H, W, n_slabs);
-  else if (epilogue == kLrelu)
-    packed_conv_kernel<COUT, kLrelu>
-        <<<grid, kThreads, 0, stream>>>(x, w, bias, y, C, H, W, n_slabs);
-  else
+  const long long n_tiles = static_cast<long long>(B) * (H / Tile<COUT>::TH) *
+                            (W / Tile<COUT>::TW) * n_slabs;
+  if (H % Tile<COUT>::TH || n_tiles > 0x7fffffff || smem != Ring::kBytes ||
+      (epilogue == kLreluNorm && n_slabs != 1))
     return cudaErrorInvalidValue;
+  const auto kernel = epilogue == kLreluNorm ? packed_conv_kernel<COUT, true>
+                                             : packed_conv_kernel<COUT, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<n_blocks, kThreads, smem, stream>>>(x, w, bias, y, C, H, W, n_slabs,
+                                               static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
-
 
 // ---------------------------------------------------------------------------
 // "none": 3xTF32 implicit GEMM on the tensor cores
@@ -344,27 +344,28 @@ int launch_none(const float* x, const float* wk, const float* bias, float* y, in
 // x [B][C][H][W], w [Cout/CT][C][3][3][CT] (eq-LR scaled; CT = 64 when Cout is
 // a multiple of 64, else 32: for Cout 32 or 64 that is [C][3][3][Cout]),
 // bias [Cout] -> y [B][Cout][H][W]; epilogue 0 = lrelu_norm (Cout 32 or 64
-// only), 1 = lrelu, 2 = none. "none" also takes the tiling the caller picked
-// (ops/packed.py:none_tiling): o_slab 64 with rows 8 (Cout % 64 == 0) or
-// o_slab 32 with rows 16, CT == o_slab, and n_blocks persistent blocks; x and
-// w 16-byte aligned. The other epilogues ignore those three.
-// Returns the cudaError_t of the launch (0 = launched).
+// only), 1 = lrelu, 2 = none. Every epilogue takes the tiling the caller
+// picked (ops/packed.py:conv_tiling): o_slab 64 with rows 8 (Cout % 64 == 0)
+// or o_slab 32 with rows 16, CT == o_slab, and n_blocks persistent blocks;
+// "lrelu_norm" and "lrelu" also the ring's dynamic shared memory in bytes
+// (ops/packed.py:conv_ring_bytes, checked against the kernel's); x and w
+// 16-byte aligned. Returns the cudaError_t of the launch (0 = launched).
 extern "C" int probgan_packed_conv(const float* x, const float* w, const float* bias, float* y,
                                    int B, int C, int H, int W, int cout, int epilogue,
-                                   int o_slab, int rows, int n_blocks, void* stream) {
+                                   int o_slab, int rows, int n_blocks, int smem, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (epilogue == probgan::kNone) {
-    const bool wide = o_slab == 64 && rows == 8 && cout % 64 == 0;
-    const bool narrow = o_slab == 32 && rows == 16 && cout % 64 != 0;
-    if (B < 1 || C < 8 || C % 8 || cout < 32 || cout % 32 || W < probgan::kNoneTW ||
-        W % probgan::kNoneTW || H < rows || n_blocks < 1 || !(wide || narrow))
-      return cudaErrorInvalidValue;
+  const bool wide = o_slab == 64 && rows == 8 && cout % 64 == 0;
+  const bool narrow = o_slab == 32 && rows == 16 && cout % 64 != 0;
+  if (B < 1 || C < 8 || C % 8 || cout < 32 || cout % 32 || W < probgan::kNoneTW ||
+      W % probgan::kNoneTW || H < rows || n_blocks < 1 || !(wide || narrow))
+    return cudaErrorInvalidValue;
+  if (epilogue == probgan::kNone)
     return wide ? probgan::launch_none<64>(x, w, bias, y, B, C, H, W, cout, n_blocks, s)
                 : probgan::launch_none<32>(x, w, bias, y, B, C, H, W, cout, n_blocks, s);
-  }
-  if (cout > 0 && cout % 64 == 0)
-    return probgan::launch<64>(x, w, bias, y, B, C, H, W, cout, epilogue, s);
-  if (cout > 0 && cout % 32 == 0)
-    return probgan::launch<32>(x, w, bias, y, B, C, H, W, cout, epilogue, s);
-  return cudaErrorInvalidValue;
+  if (epilogue != probgan::kLreluNorm && epilogue != probgan::kLrelu)
+    return cudaErrorInvalidValue;
+  return wide ? probgan::launch_ring<64>(x, w, bias, y, B, C, H, W, cout, epilogue, n_blocks,
+                                         smem, s)
+              : probgan::launch_ring<32>(x, w, bias, y, B, C, H, W, cout, epilogue, n_blocks,
+                                         smem, s);
 }

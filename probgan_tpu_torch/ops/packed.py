@@ -80,8 +80,8 @@ epilogue_launches = {
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    "packed_upconv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "packed_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "packed_upconv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "packed_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_convpool": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv_rgb": [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _I,
@@ -105,6 +105,13 @@ POOL_EPILOGUES = ("lrelu", "none")
 # card's own count, so that the sums' order, and with it dW's bits, is the
 # same anywhere.
 WGRAD_BLOCKS = 132
+# The pipelined fp32 main loop of packed_conv's "lrelu"/"lrelu_norm" and of
+# packed_upconv (csrc/conv_ring.cuh): input channels a ring stage, stages,
+# and the persistent blocks an SM that its shared memory allows.
+RING_CC, RING_STAGES, RING_BLOCKS_PER_SM = 16, 3, 1
+# A block's share of an H100 multiprocessor's shared memory, and what the
+# card reserves for each resident block.
+SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED = 232_448, 233_472, 1_024
 
 
 def reset_launches() -> None:
@@ -242,9 +249,11 @@ def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm"):
     if rgb_w is not None:
         rgb_w, rgb_b = rgb_w.reshape(3, c).contiguous(), rgb_b.contiguous()
         rgb = torch.empty((bsz, 3, h, wd), device=x.device, dtype=x.dtype)
+    x = _aligned16(x)
+    blocks = persistent_blocks(upconv_tile_count(bsz, cout, h, wd), _sms(x.device))
     _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),
             _ptr(y), _ptr(rgb), bsz, c, h, wd, cout, UPCONV_EPILOGUES[epilogue],
-            epilogue=epilogue)
+            blocks, upconv_ring_bytes(cout), epilogue=epilogue)
     return y if rgb is None else (y, rgb)
 
 
@@ -265,26 +274,92 @@ def packed_conv_plain(x, w, b, epilogue="lrelu_norm"):
     return _epilogue(F.conv2d(x, w, padding=1) + b[:, None, None], epilogue)
 
 
-def none_tiling(cout: int) -> tuple[int, int]:
-    """(output channels per tile, tile rows) of csrc/packed_conv.cu's "none"
-    kernel, which launches the tiling it is given: Cout % 64 == 0 takes
+def conv_tiling(cout: int) -> tuple[int, int]:
+    """(output channels per tile, tile rows) of both csrc/packed_conv.cu
+    kernels, which launch the tiling they are given: Cout % 64 == 0 takes
     64-channel slabs with 8-row tiles, any other Cout 32-channel slabs with
-    16-row tiles; both tiles are 32 columns wide. The slab is
+    16-row tiles; the tiles are 32 columns wide. The slab is
     ``_pool_slab(cout)``, the layout of ``convpool_kernel_weights``."""
     return (64, 8) if cout % 64 == 0 else (32, 16)
 
 
-def none_tile_count(bsz: int, cout: int, h: int, wd: int) -> int:
-    """Tiles of the "none" kernel's grid walk: (image, tile row, tile
-    column, slab)."""
-    o_slab, rows = none_tiling(cout)
+def conv_tile_count(bsz: int, cout: int, h: int, wd: int) -> int:
+    """Tiles of packed_conv's walk: (image, tile row, tile column, slab)."""
+    o_slab, rows = conv_tiling(cout)
     return bsz * (h // rows) * (wd // 32) * (cout // o_slab)
 
 
-def none_blocks(n_tiles: int, sms: int) -> int:
-    """Persistent blocks of the "none" kernel: one an SM (its shared-memory
-    ring takes ~190 KB), block k walking tiles k, k + blocks, ..."""
-    return max(1, min(n_tiles, sms))
+def conv_tile_origin(t: int, cout: int, h: int, wd: int) -> tuple[int, int, int, int]:
+    """(image, first row, first column, first output channel) of tile ``t``
+    of packed_conv's walk (``ConvRing::tile_of`` in csrc/conv_ring.cuh and
+    ``none_tile`` in csrc/packed_conv.cu): the slab fastest, then columns,
+    rows and images."""
+    o_slab, rows = conv_tiling(cout)
+    t, slab = divmod(t, cout // o_slab)
+    t, tx = divmod(t, wd // 32)
+    b, ty = divmod(t, h // rows)
+    return b, ty * rows, tx * 32, slab * o_slab
+
+
+def persistent_blocks(n_tiles: int, sms: int) -> int:
+    """Persistent blocks of a walk over ``n_tiles``: one an SM (the "none"
+    kernel's ring takes ~190 KB, the fp32 ring ~200 KB), block k walking
+    tiles k, k + blocks, ..."""
+    return max(1, min(n_tiles, RING_BLOCKS_PER_SM * sms))
+
+
+def conv_ring_bytes(cout: int) -> int:
+    """Dynamic shared memory of packed_conv's fp32 ring (csrc/conv_ring.cuh
+    ConvRing::kBytes): RING_STAGES stages of RING_CC input channels, each the
+    channel's halo patch (tile rows + 2, 40 columns in rows of 44 floats) and
+    its 9 x slab weights."""
+    o_slab, rows = conv_tiling(cout)
+    return 4 * RING_STAGES * RING_CC * ((rows + 2) * 44 + 9 * o_slab)
+
+
+def upconv_tiling(cout: int) -> tuple[int, int]:
+    """(input rows, input columns) under one tile of packed_upconv: one
+    output row parity of them, all Cout channels (csrc/conv_ring.cuh
+    UpconvRing): 8 x 16 at Cout 64, 16 x 16 at 32."""
+    return _tile_rows(cout), 16
+
+
+def upconv_tile_count(bsz: int, cout: int, h: int, wd: int) -> int:
+    """Tiles of packed_upconv's walk over an input of h x wd: (image, tile
+    row, tile column, parity)."""
+    rows, cols = upconv_tiling(cout)
+    return bsz * (h // rows) * (wd // cols) * 2
+
+
+def upconv_tile_origin(t: int, cout: int, h: int, wd: int) -> tuple[int, int, int, int]:
+    """(image, first input row, first input column, output row parity) of
+    tile ``t`` of packed_upconv's walk (``UpconvRing::tile_of``): the parity
+    fastest, then columns, rows and images. The tile's outputs are rows
+    2 * (i0 + r) + py for r < rows, columns 2 * j0 .. 2 * j0 + 31."""
+    rows, cols = upconv_tiling(cout)
+    t, py = divmod(t, 2)
+    t, tx = divmod(t, wd // cols)
+    b, ty = divmod(t, h // rows)
+    return b, ty * rows, tx * cols, py
+
+
+def upconv_ring_bytes(cout: int) -> int:
+    """Dynamic shared memory of packed_upconv's ring (UpconvRing::kBytes):
+    RING_STAGES stages of RING_CC input channels, each the channel's staged
+    rows (tile rows + 1, 24 columns in rows of 24 floats at Cout 64, 48 at
+    Cout 32) and one parity's 8 x Cout pre-summed taps."""
+    rows, _ = upconv_tiling(cout)
+    return 4 * RING_STAGES * RING_CC * ((rows + 1) * (24 if cout == 64 else 48) + 8 * cout)
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _aligned16(x: torch.Tensor) -> torch.Tensor:
+    """``x``, copied when its data is not 16-byte aligned: the ring kernels
+    copy 16 bytes at a time."""
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def packed_conv(x, w, b, epilogue="lrelu_norm"):
@@ -310,14 +385,11 @@ def packed_conv(x, w, b, epilogue="lrelu_norm"):
     wk = convpool_kernel_weights(w)
     b = b.contiguous()
     y = torch.empty((bsz, cout, h, wd), device=x.device, dtype=x.dtype)
-    tiling = (0, 0, 0)
-    if epilogue == "none":
-        if x.data_ptr() % 16:  # the kernel copies 16 bytes at a time
-            x = x.clone()
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        tiling = (*none_tiling(cout), none_blocks(none_tile_count(bsz, cout, h, wd), sms))
+    x = _aligned16(x)
+    blocks = persistent_blocks(conv_tile_count(bsz, cout, h, wd), _sms(x.device))
+    smem = 0 if epilogue == "none" else conv_ring_bytes(cout)  # "none" sizes its own
     _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
-            CONV_EPILOGUES[epilogue], *tiling, epilogue=epilogue)
+            CONV_EPILOGUES[epilogue], *conv_tiling(cout), blocks, smem, epilogue=epilogue)
     return y
 
 

@@ -1,38 +1,66 @@
-"""Times the two kernels that carry the fp32 ranking above top_k 16 and the
-train step's input gradients, and the train step itself, on one CUDA card:
+"""Times the port's conv and rank kernels, the train step and ``generate`` on
+one CUDA card, in parts (``--parts``, all by default):
 
-- ``rank_scores_fused`` at N = 1,000,000, D = 128, B = 64 and 8;
-- ``packed_conv(..., epilogue="none")`` at the (C, Cout, H) the 1024² train
-  step gives it, batch 2;
-- ``progan_train_step`` at 1024², stage 8, batch 2, packed, ``remat``:
-  steps/s and p50 over timed steps (host clock to the metrics on the host).
+- ``rank``: ``rank_scores_fused`` at N = 1,000,000, D = 128, B = 64 and 8;
+- ``none``: ``packed_conv(..., epilogue="none")`` at the (C, Cout, H) the
+  1024² train step gives it, batch 2;
+- ``fp32``: ``packed_upconv`` "lrelu_norm" / "lrelu" at stages 7 and 8
+  (batch 2, and "lrelu_norm" with the toRGB of stage 8 at batch 8 as
+  ``generate`` runs it) and ``packed_conv`` "lrelu" / "lrelu_norm" at the
+  score (batch 8), train-step and recompute (batch 2) shapes;
+- ``train``: ``progan_train_step`` at 1024², stage 8, batch 2, packed,
+  ``remat``: steps/s and p50 over timed steps (host clock to the metrics on
+  the host);
+- ``generate``: ``ImageGANEngine.generate`` at 1024², batch 8: img/s and
+  p50 ms per image (host clock to the uint8 images on the host).
+
+``--dump DIR`` saves each ``fp32`` output, made from fixed seeds, to
+``DIR/<shape>.pt``; ``--compare A B`` counts the values whose bits differ
+between two such directories (0 everywhere: the same bits).
 
 It calls only public entry points, so the same file times an older tree of
 the package: put that tree first on ``PYTHONPATH`` and run this file by its
 path. Prints the card's name and power limit and one JSON line::
 
-    python3 probgan_tpu_torch/utils/bench_kernels.py [--steps 6]
+    python3 -m probgan_tpu_torch.utils.bench_kernels [--parts fp32,generate] [--dump DIR]
+    PYTHONPATH=OLD_TREE python3 probgan_tpu_torch/utils/bench_kernels.py --dump DIR_OLD
+    python3 -m probgan_tpu_torch.utils.bench_kernels --compare DIR_OLD DIR
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from probgan_tpu_torch.engine import train
-from probgan_tpu_torch.models.pro_gan import ProGANConfig
-from probgan_tpu_torch.ops import packed as pk
-from probgan_tpu_torch.ops import rank as rank_ops
-from probgan_tpu_torch.ops import rank_fused as rf
-
+PARTS = ("rank", "none", "fp32", "train", "generate")
 CONV_SHAPES = ((32, 32, 1024), (64, 32, 1024), (64, 64, 512), (128, 64, 512),
                (32, 64, 1024), (64, 128, 512))
+# (label, kernel, epilogue, batch, C, Cout, H, toRGB): the fp32 launches
+FP32_SHAPES = (
+    ("upconv_s7_lrelu_norm_b2", "packed_upconv", "lrelu_norm", 2, 128, 64, 256, False),
+    ("upconv_s8_lrelu_norm_b2", "packed_upconv", "lrelu_norm", 2, 64, 32, 512, False),
+    ("upconv_s7_lrelu_b2", "packed_upconv", "lrelu", 2, 128, 64, 256, False),
+    ("upconv_s8_lrelu_b2", "packed_upconv", "lrelu", 2, 64, 32, 512, False),
+    ("upconv_s7_lrelu_norm_b8", "packed_upconv", "lrelu_norm", 8, 128, 64, 256, False),
+    ("upconv_s8_rgb_lrelu_norm_b8", "packed_upconv", "lrelu_norm", 8, 64, 32, 512, True),
+    ("conv_C32_Cout32_1024_lrelu_b2", "packed_conv", "lrelu", 2, 32, 32, 1024, False),
+    ("conv_C64_Cout64_512_lrelu_b2", "packed_conv", "lrelu", 2, 64, 64, 512, False),
+    ("conv_C32_Cout32_1024_lrelu_b8", "packed_conv", "lrelu", 8, 32, 32, 1024, False),
+    ("conv_C64_Cout64_512_lrelu_b8", "packed_conv", "lrelu", 8, 64, 64, 512, False),
+    ("conv_C32_Cout64_1024_lrelu_b2", "packed_conv", "lrelu", 2, 32, 64, 1024, False),
+    ("conv_C64_Cout128_512_lrelu_b2", "packed_conv", "lrelu", 2, 64, 128, 512, False),
+    ("conv_C64_Cout64_512_lrelu_norm_b2", "packed_conv", "lrelu_norm", 2, 64, 64, 512, False),
+    ("conv_C64_Cout64_512_lrelu_norm_b8", "packed_conv", "lrelu_norm", 8, 64, 64, 512, False),
+)
+PEAK_FP32_FLOPS = 67e12  # H100 SXM, CUDA cores
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -48,51 +76,146 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bench_fp32(pk, dump: Path | None) -> dict:
+    """The fp32 kernels at FP32_SHAPES: ms, bound (fp32 CUDA cores; upconv
+    at its 4 pre-summed taps an output) and share, sha256 of the output's
+    bytes; the outputs saved under ``dump``."""
+    out = {}
+    for i, (label, kernel, epi, bsz, c, cout, h, rgb) in enumerate(FP32_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(100 + i)
+        x = torch.randn((bsz, c, h, h), device="cuda", generator=gen)
+        w = torch.randn((cout, c, 3, 3), device="cuda", generator=gen) * math.sqrt(2 / (9 * c))
+        b = 0.1 * torch.randn(cout, device="cuda", generator=gen)
+        if kernel == "packed_upconv":
+            kw = {"epilogue": epi}
+            if rgb:
+                kw["rgb_w"] = torch.randn((3, c), device="cuda", generator=gen) / math.sqrt(c)
+                kw["rgb_b"] = 0.1 * torch.randn(3, device="cuda", generator=gen)
+
+            def call(x=x, w=w, b=b, kw=kw):
+                return pk.packed_upconv(x, w, b, **kw)
+            flops = 2 * 4 * c * cout * bsz * 4 * h * h
+        else:
+            def call(x=x, w=w, b=b, epi=epi):
+                return pk.packed_conv(x, w, b, epilogue=epi)
+            flops = 2 * 9 * c * cout * bsz * h * h
+        with torch.no_grad():
+            y = call()
+            torch.cuda.synchronize()
+            ys = y if isinstance(y, tuple) else (y,)
+            digest = hashlib.sha256()
+            for t in ys:
+                digest.update(t.cpu().numpy().tobytes())
+            if dump is not None:
+                torch.save([t.cpu() for t in ys], dump / f"{label}.pt")
+            ms = cuda_ms(call, iters=10)
+        bound_ms = flops / PEAK_FP32_FLOPS * 1e3
+        out[label] = {"ms": ms, "bound_ms": bound_ms, "roofline_share": bound_ms / ms,
+                      "sha256": digest.hexdigest()}
+        del x, y, ys
+    return out
+
+
+def compare(dir_a: Path, dir_b: Path) -> dict:
+    """{file: values whose bits differ} over the .pt files of ``dir_a``."""
+    diffs = {}
+    for f in sorted(dir_a.glob("*.pt")):
+        a, b = torch.load(f), torch.load(dir_b / f.name)
+        diffs[f.stem] = sum(int((ta.view(torch.int32) != tb.view(torch.int32)).sum())
+                            if ta.shape == tb.shape else ta.numel() for ta, tb in zip(a, b))
+    return diffs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=6, help="timed train steps (after 2 warm-up)")
+    ap.add_argument("--parts", default=",".join(PARTS), help=f"comma list of {PARTS}")
+    ap.add_argument("--dump", type=Path, help="save the fp32 kernels' outputs here")
+    ap.add_argument("--compare", type=Path, nargs=2, metavar=("A", "B"),
+                    help="count differing values between two --dump directories")
     args = ap.parse_args(argv)
+    if args.compare:
+        diffs = compare(*args.compare)
+        print(json.dumps({"differing_values": diffs, "files": len(diffs)}))
+        return 0 if diffs and not any(diffs.values()) else 1
     if not torch.cuda.is_available():
         print("bench_kernels: no CUDA card")
         return 1
+    parts = args.parts.split(",")
+    if not set(parts) <= set(PARTS):
+        ap.error(f"--parts takes {PARTS}")
+    from probgan_tpu_torch.engine import train
+    from probgan_tpu_torch.engine.image import ImageGANEngine
+    from probgan_tpu_torch.models.pro_gan import ProGANConfig
+    from probgan_tpu_torch.ops import packed as pk
+    from probgan_tpu_torch.ops import rank as rank_ops
+    from probgan_tpu_torch.ops import rank_fused as rf
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(7)
-    out = {"card": card, "package": pk.__file__, "rank_scores_ms": {}, "none_ms": {}}
+    out = {"card": card, "package": pk.__file__}
 
-    table = rank_ops.l2_normalize(torch.randn((1_000_000, 128), device="cuda", generator=gen))
-    for b in (64, 8):
-        pred = torch.randn((b, 128), device="cuda", generator=gen)
-        out["rank_scores_ms"][f"B{b}"] = cuda_ms(lambda: rf.rank_scores_fused(pred, table))
-    del table
+    if "rank" in parts:
+        out["rank_scores_ms"] = {}
+        table = rank_ops.l2_normalize(torch.randn((1_000_000, 128), device="cuda",
+                                                  generator=gen))
+        for b in (64, 8):
+            pred = torch.randn((b, 128), device="cuda", generator=gen)
+            out["rank_scores_ms"][f"B{b}"] = cuda_ms(lambda: rf.rank_scores_fused(pred, table))
+        del table
 
-    with torch.no_grad():
-        for c, cout, h in CONV_SHAPES:
-            x = torch.randn((2, c, h, h), device="cuda", generator=gen)
-            w = torch.randn((cout, c, 3, 3), device="cuda", generator=gen) * math.sqrt(2 / (9 * c))
-            b = 0.1 * torch.randn(cout, device="cuda", generator=gen)
-            out["none_ms"][f"C{c}->Cout{cout}@{h}"] = cuda_ms(
-                lambda: pk.packed_conv(x, w, b, epilogue="none"), iters=10)
-            del x
+    if "none" in parts:
+        out["none_ms"] = {}
+        with torch.no_grad():
+            for c, cout, h in CONV_SHAPES:
+                x = torch.randn((2, c, h, h), device="cuda", generator=gen)
+                w = torch.randn((cout, c, 3, 3), device="cuda", generator=gen) * math.sqrt(
+                    2 / (9 * c))
+                b = 0.1 * torch.randn(cout, device="cuda", generator=gen)
+                out["none_ms"][f"C{c}->Cout{cout}@{h}"] = cuda_ms(
+                    lambda: pk.packed_conv(x, w, b, epilogue="none"), iters=10)
+                del x
 
-    cfg = ProGANConfig()
-    state = train.progan_init_state(0, cfg, device="cuda")
-    real = torch.tanh(torch.randn((2, cfg.resolution, cfg.resolution, 3), device="cuda",
-                                  generator=gen))
-    z = torch.randn((2, cfg.latent_dim), device="cuda", generator=gen)
-    times = []
-    for i in range(2 + args.steps):
-        t0 = time.perf_counter()
-        state, m = train.progan_train_step(state, real, z, 1.0, cfg, cfg.num_stages - 1,
-                                           packed_d=True, packed_g=True, remat=True)
-        float(m["g_loss"])  # reads the card: the step has finished
-        if i >= 2:
+    if "fp32" in parts:
+        if args.dump is not None:
+            args.dump.mkdir(parents=True, exist_ok=True)
+        out["fp32"] = bench_fp32(pk, args.dump)
+
+    if "generate" in parts:
+        engine = ImageGANEngine(ProGANConfig(), device="cuda", precision="high", seed=0)
+        engine.generate(engine.sample_latents(8))  # warm-up (cuDNN plans)
+        latents = [engine.sample_latents(8) for _ in range(8)]
+        torch.cuda.synchronize()
+        times = []
+        for z in latents:
+            t0 = time.perf_counter()
+            engine.generate(z)  # returns host numpy: the call has finished
             times.append(time.perf_counter() - t0)
-    out["train_steps_per_s"] = len(times) / sum(times)
-    out["train_p50_ms"] = float(np.median(times)) * 1e3
-    out["train_step_s"] = times
+        out["generate_img_per_s"] = 8 * len(times) / sum(times)
+        out["generate_p50_ms_per_img"] = float(np.median(times)) * 1e3 / 8
+        out["generate_call_s"] = times
+        del engine
+
+    if "train" in parts:
+        cfg = ProGANConfig()
+        state = train.progan_init_state(0, cfg, device="cuda")
+        real = torch.tanh(torch.randn((2, cfg.resolution, cfg.resolution, 3), device="cuda",
+                                      generator=gen))
+        z = torch.randn((2, cfg.latent_dim), device="cuda", generator=gen)
+        times = []
+        for i in range(2 + args.steps):
+            t0 = time.perf_counter()
+            state, m = train.progan_train_step(state, real, z, 1.0, cfg, cfg.num_stages - 1,
+                                               packed_d=True, packed_g=True, remat=True)
+            float(m["g_loss"])  # reads the card: the step has finished
+            if i >= 2:
+                times.append(time.perf_counter() - t0)
+        out["train_steps_per_s"] = len(times) / sum(times)
+        out["train_p50_ms"] = float(np.median(times)) * 1e3
+        out["train_step_s"] = times
     print(card)
     print(json.dumps(out))
     return 0

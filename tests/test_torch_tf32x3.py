@@ -92,12 +92,12 @@ def test_none_tiling_takes_the_kernels_slabs():
     of 32 take 32-channel slabs of 16-row tiles: the slab of the weights'
     layout (convpool_kernel_weights) and the rows the wrapper's checks ask
     H to be a multiple of."""
-    assert tpk.none_tiling(32) == (32, 16)
-    assert tpk.none_tiling(64) == (64, 8)
-    assert tpk.none_tiling(128) == (64, 8)
-    assert tpk.none_tiling(96) == (32, 16)
+    assert tpk.conv_tiling(32) == (32, 16)
+    assert tpk.conv_tiling(64) == (64, 8)
+    assert tpk.conv_tiling(128) == (64, 8)
+    assert tpk.conv_tiling(96) == (32, 16)
     for cout in (32, 64, 96, 128):
-        o_slab, rows = tpk.none_tiling(cout)
+        o_slab, rows = tpk.conv_tiling(cout)
         assert o_slab == tpk._pool_slab(cout) and rows == tpk._tile_rows(o_slab)
 
 
@@ -105,7 +105,7 @@ def _none_tile_origin(t, cout, h, wd):
     """(image, first row, first column, first output channel) of tile ``t``
     in the "none" kernel's walk (``none_tile`` in csrc/packed_conv.cu): the
     slab fastest, then columns, rows and images."""
-    o_slab, rows = tpk.none_tiling(cout)
+    o_slab, rows = tpk.conv_tiling(cout)
     t, slab = divmod(t, cout // o_slab)
     t, tx = divmod(t, wd // 32)
     b, ty = divmod(t, h // rows)
@@ -118,15 +118,15 @@ def test_none_grid_covers_every_pixel_and_channel_once(bsz, cout, h, wd):
     """The tiles of the kernel's walk cover every (image, row, column, output
     channel) exactly once, and the persistent blocks' strides cover every
     tile once, with as many blocks as SMs or as tiles."""
-    o_slab, rows = tpk.none_tiling(cout)
-    n_tiles = tpk.none_tile_count(bsz, cout, h, wd)
+    o_slab, rows = tpk.conv_tiling(cout)
+    n_tiles = tpk.conv_tile_count(bsz, cout, h, wd)
     seen = np.zeros((bsz, cout, h, wd), np.int32)
     for t in range(n_tiles):
         b, y0, x0, o0 = _none_tile_origin(t, cout, h, wd)
         seen[b, o0:o0 + o_slab, y0:y0 + rows, x0:x0 + 32] += 1
     assert (seen == 1).all()
     for sms in (1, 5, 132, 10_000):
-        blocks = tpk.none_blocks(n_tiles, sms)
+        blocks = tpk.persistent_blocks(n_tiles, sms)
         assert blocks == min(n_tiles, sms)
         walked = sorted(t for k in range(blocks) for t in range(k, n_tiles, blocks))
         assert walked == list(range(n_tiles))
@@ -136,9 +136,9 @@ def test_none_grid_at_the_train_steps_shapes():
     """The six (C, Cout, H) of the 1024² train step's "none" launches at
     batch 2: whole tiles, each tile's 32 x rows pixels in the image."""
     for cout, h in ((32, 1024), (64, 1024), (32, 1024), (64, 512), (128, 512), (64, 512)):
-        o_slab, rows = tpk.none_tiling(cout)
+        o_slab, rows = tpk.conv_tiling(cout)
         assert h % rows == 0
-        n = tpk.none_tile_count(2, cout, h, h)
+        n = tpk.conv_tile_count(2, cout, h, h)
         assert n == 2 * (h // rows) * (h // 32) * (cout // o_slab)
         assert _none_tile_origin(n - 1, cout, h, h) == (1, h - rows, h - 32, cout - o_slab)
 
