@@ -13,8 +13,10 @@ Phases (any failure exits non-zero and prints no result line):
 2. each late-stage generator kernel at the shapes the 1024² generator gives
    it (batch 2), held against its plain PyTorch twin on the card with TF32
    off: fp32 outputs to atol = rtol = 1e-4, uint8 outputs within +-1 on at
-   most 0.5% of bytes; ``packed_upconv`` and ``packed_conv`` (the fp32 ring
-   kernels, one fixed order of sums) bit-equal over two runs on one input.
+   most 0.5% of bytes; ``packed_upconv``, ``packed_conv`` and
+   ``packed_conv_rgb`` (the fp32 ring kernels, one fixed order of sums)
+   bit-equal over two runs on one input; ``packed_conv_rgb`` at stage 8 (32
+   channels, 1024²) and stage 7 (64, 512²), uint8 and fp32 each.
    Times (CUDA events, after warm-up) of the kernel's
    wrapper, the plain twin and a cuDNN-based yardstick the port never calls,
    beside the kernel's bound on an H100 (67 TFLOP/s fp32, 3.35 TB/s);
@@ -59,7 +61,13 @@ Phases (any failure exits non-zero and prints no result line):
    entities, D = 128): ``rank_topk`` at B = 64 and B = 8 with k = 10, with
    ``nvalid`` below the row count, with planted duplicate rows, with twelve
    planted rows whose cosines with query 1 lie 1e-4 apart, and as
-   ``rank_topk_local``; ``rank_scores`` (3xTF32) at B = 64, 8 and 1 against
+   ``rank_topk_local``; ``rank_topk``'s (values, ids) bit-equal to
+   ``rank_scores`` followed by ``top_k_lowest_index`` (the same 3xTF32
+   product and order of sums) at B = 64 and 8, k = 1, 10 and 16, with
+   ``nvalid`` at and below the row count, fused and through
+   ``rank_topk_local`` (``rank_scores`` launched with ``normalize=False``
+   there); the kernel alone at k = 1, 10, 16 for both batches;
+   ``rank_scores`` (3xTF32) at B = 64, 8 and 1 against
    that table (N not a multiple of 128) and against one of 100,003 rows at
    D = 100 (padded to 104 in the kernel): the whole [B, N] matrix within
    2e-6 of the plain twin, planted duplicate rows in other tiles and blocks
@@ -76,8 +84,9 @@ Phases (any failure exits non-zero and prints no result line):
    the one-call path its two parts launched apart, bit for bit; its times
    are the wrapper's, the stream's alone and the merge's alone. The
    yardstick is ``F.normalize`` -> ``torch.matmul`` (-> ``torch.topk``), on
-   bf16 operands for the bf16 kernel; ``rank_scores``' bound is given at
-   both grades (TF32 x3 and fp32 CUDA cores);
+   bf16 operands for the bf16 kernel; ``rank_scores``' and ``rank_topk``'s
+   bounds are given at both grades (TF32 x3 and fp32 CUDA cores) beside the
+   bytes;
 7. the KG main path: a seeded C17 checkpoint (1,000,000 entities, 1,000
    relations, embed 128, noise 64, hidden 1024) written as ``.pt`` into a
    temporary directory, then ``InferenceEngine(path, device="cuda")``:
@@ -86,7 +95,7 @@ Phases (any failure exits non-zero and prints no result line):
    the kernels' plain twins in their place under the same noise), once with
    top_k 32 (``rank_scores`` must launch once; a fresh engine's first
    top_k 32 call, under the noise of the first top_k 10 call, must return
-   the same first 10 ids but for near-ties within 2e-6), ``find_similar_entities``
+   the same first 10 ids and scores, bit for bit), ``find_similar_entities``
    (``rank_topk`` with k = 11, the query itself excluded),
    ``score_triplets`` and ``analyze_relations`` against the engine on the
    CPU (atol 1e-5, relation ids equal). Then path II: the same file served
@@ -416,43 +425,68 @@ def phase_kernels(pk, pro_gan) -> list[dict]:
     }]))
     del x, got, want
 
-    # -- packed_conv_rgb: stage 8 conv2 (32 -> 32 at 1024²) -> uint8 NHWC
-    c, cout, h = 32, 32, 1024
-    x, w, b = feats(B, c, h, h), conv_w(cout, c), bias(cout)
-    rgb_w, rgb_b = conv_w(3, cout, 1, 1.0).reshape(3, cout), bias(3)
-    prev = 0.5 * torch.randn((B, 3, h // 2, h // 2), device=dev, generator=gen)
-    args = (x, w, b, rgb_w, rgb_b, prev)
-    # fp32 emission at a fade-in alpha: the blend itself to fp32 tolerance
-    got = pk.packed_conv_rgb(*args, 0.3)
-    want = pk.packed_conv_rgb_plain(*args, 0.3)
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
-    err_fp32 = (got - want).abs().max().item()
-    # uint8 emission at the main path's alpha = 1
-    got = pk.packed_conv_rgb(*args, 1.0, emit_uint8=True)
-    want = pk.packed_conv_rgb_plain(*args, 1.0, emit_uint8=True)
-    assert got.dtype == torch.uint8 and tuple(got.shape) == (B, h, h, 3)
-    worst, _, _ = check_uint8("packed_conv_rgb uint8 vs plain", got.cpu().numpy(),
-                              want.cpu().numpy())
+    # -- packed_conv_rgb (the fp32 ring with the toRGB tail): stage 8 conv2
+    # (32 -> 32 at 1024²) -> uint8 NHWC at the main path's alpha = 1, timed;
+    # then fp32 at a fade-in alpha, and both at stage 7 (64 -> 64 at 512²),
+    # where a generator of 512² ends: each two runs bit-equal
+    rgb_calls = []
+    for label, c, cout, h in (("stage8", 32, 32, 1024), ("stage7", 64, 64, 512)):
+        x, w, b = feats(B, c, h, h), conv_w(cout, c), bias(cout)
+        rgb_w, rgb_b = conv_w(3, cout, 1, 1.0).reshape(3, cout), bias(3)
+        prev = 0.5 * torch.randn((B, 3, h // 2, h // 2), device=dev, generator=gen)
+        args = (x, w, b, rgb_w, rgb_b, prev)
+        # fp32 emission at a fade-in alpha: the blend itself to fp32 tolerance
+        got = pk.packed_conv_rgb(*args, 0.3)
+        check_two_runs(f"packed_conv_rgb[{label},fp32]", got, pk.packed_conv_rgb(*args, 0.3))
+        want = pk.packed_conv_rgb_plain(*args, 0.3)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        err_fp32 = (got - want).abs().max().item()
+        # uint8 emission at alpha = 1
+        got = pk.packed_conv_rgb(*args, 1.0, emit_uint8=True)
+        again = pk.packed_conv_rgb(*args, 1.0, emit_uint8=True)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"packed_conv_rgb[{label},uint8]: two runs on one input differ")
+        want = pk.packed_conv_rgb_plain(*args, 1.0, emit_uint8=True)
+        assert got.dtype == torch.uint8 and tuple(got.shape) == (B, h, h, 3)
+        worst, _, psnr = check_uint8(f"packed_conv_rgb[{label}] uint8 vs plain",
+                                     got.cpu().numpy(), want.cpu().numpy())
 
-    def library():
-        feat = lrelu_norm(F.conv2d(x, w, b, padding=1))
-        rgb = F.conv2d(feat, rgb_w[:, :, None, None], rgb_b)
-        up = F.interpolate(prev, scale_factor=2.0, mode="nearest")
-        return pro_gan.to_uint8((up + 1.0 * (rgb - up)).permute(0, 2, 3, 1))
+        def library(x=x, w=w, b=b, rgb_w=rgb_w, rgb_b=rgb_b, prev=prev):
+            feat = lrelu_norm(F.conv2d(x, w, b, padding=1))
+            rgb = F.conv2d(feat, rgb_w[:, :, None, None], rgb_b)
+            up = F.interpolate(prev, scale_factor=2.0, mode="nearest")
+            return pro_gan.to_uint8((up + 1.0 * (rgb - up)).permute(0, 2, 3, 1))
 
-    rows.append(("packed_conv_rgb", "packed_conv_rgb", "probgan_tpu/ops/pallas_packed.py:678", [{
-        "call": "stage8", "shape_in": [B, c, h, h], "max_abs_err": float(worst),
-        "max_abs_err_fp32": err_fp32,
-        "ms": cuda_ms(lambda: pk.packed_conv_rgb(*args, 1.0, emit_uint8=True)),
-        "plain_ms": cuda_ms(lambda: pk.packed_conv_rgb_plain(*args, 1.0, emit_uint8=True)),
-        "library_ms": cuda_ms(library),
-        "flops": 2 * 9 * c * cout * B * h * h + 2 * cout * 3 * B * h * h,
-        "bytes": 4 * (B * c * h * h + 9 * c * cout + cout + 3 * cout + 3
-                      + B * 3 * (h // 2) ** 2) + B * h * h * 3,
-    }]))
-    del x, got, want, args, prev
-
-    return assemble_conv_rows(rows, B)
+        call = {
+            "call": label, "shape_in": [B, c, h, h], "max_abs_err": float(worst),
+            "max_abs_err_fp32": err_fp32, "psnr_db": finite_or_none(psnr),
+            "bit_equal_runs": True,
+            "ms": cuda_ms(lambda: pk.packed_conv_rgb(*args, 1.0, emit_uint8=True)),
+            "fp32_ms": cuda_ms(lambda: pk.packed_conv_rgb(*args, 0.3)),
+            "plain_ms": cuda_ms(lambda: pk.packed_conv_rgb_plain(*args, 1.0, emit_uint8=True)),
+            "library_ms": cuda_ms(library),
+            "flops": 2 * 9 * c * cout * B * h * h + 2 * cout * 3 * B * h * h,
+            "bytes": 4 * (B * c * h * h + 9 * c * cout + cout + 3 * cout + 3
+                          + B * 3 * (h // 2) ** 2) + B * h * h * 3,
+        }
+        rgb_calls.append(call)
+        del x, got, again, want, args, prev
+    # the entry's own numbers are the main path's call (stage 8, uint8); the
+    # stage-7 call stays beside it, checked and timed
+    entries = assemble_conv_rows(
+        rows + [("packed_conv_rgb", "packed_conv_rgb", "probgan_tpu/ops/pallas_packed.py:678",
+                 rgb_calls[:1])], B)
+    stage7 = rgb_calls[1]
+    stage7["bound_ms"], stage7["bound_by"] = bound(stage7["flops"], stage7["bytes"])
+    stage7["roofline_share"] = stage7["bound_ms"] / stage7["ms"]
+    print(f"  packed_conv_rgb[stage7] x{stage7['shape_in']}: max_abs_err "
+          f"{stage7['max_abs_err']:.3g} (fp32 {stage7['max_abs_err_fp32']:.3g})  kernel "
+          f"{stage7['ms']:.3f} ms (fp32 {stage7['fp32_ms']:.3f})  plain {stage7['plain_ms']:.3f} "
+          f"ms  library {stage7['library_ms']:.3f} ms  bound {stage7['bound_ms']:.3f} ms "
+          f"({stage7['roofline_share']:.0%}, {stage7['bound_by']})")
+    entries[-1]["calls"].append(stage7)
+    return entries
 
 
 def assemble_conv_rows(rows, batch: int) -> list[dict]:
@@ -763,14 +797,17 @@ def phase_rank_kernels(rf, rank_ops) -> list[dict]:
             })
         else:
             fp32_ids[label] = ids
+            flops, nbytes = 2.0 * b * nvalid * d, 4.0 * (b * d + nvalid * d) + b * k * (4 + 8)
             call.update({
                 "kernel_only_ms": cuda_ms(
                     lambda: rf.topk_candidates(pred, table, k, nvalid, not local)),
                 "library_ms": cuda_ms(lambda: torch.topk(
                     torch.matmul(F.normalize(pred), table[:nvalid].T), k)),
-                "flops": 2.0 * b * nvalid * d,
-                "bytes": 4.0 * (b * d + nvalid * d) + b * k * (4 + 8),
-                "peak_flops": PEAK_FP32_FLOPS,
+                "flops": flops, "bytes": nbytes,
+                # B7's product: three TF32 tensor-core products per product;
+                # the fp32 CUDA-core bound of the same function beside it
+                "op_flops": 3 * flops, "peak_flops": PEAK_TF32_FLOPS,
+                "bound_fp32_ms": bound(flops, nbytes)[0],
             })
         return call
 
@@ -788,9 +825,37 @@ def phase_rank_kernels(rf, rank_ops) -> list[dict]:
                   bf16=True),
     ]
     # what the k compare-and-insert passes cost: the kernel alone at k = 1 / 16
-    pred = preds[KG_BATCH]
-    k_sweep = {str(kk): cuda_ms(lambda kk=kk: rf.topk_candidates(pred, table, kk, n, True))
-               for kk in (1, KG_TOP_K, 16)}
+    k_sweep = {f"B{b}": {str(kk): cuda_ms(
+        lambda kk=kk, pred=pred: rf.topk_candidates(pred, table, kk, n, True))
+        for kk in (1, KG_TOP_K, 16)} for b, pred in preds.items()}
+
+    # rank_topk's scores are rank_scores' (one 3xTF32 product, one order of
+    # sums): its (values, ids) must equal rank_scores followed by the stable
+    # top-k bit for bit, at every k, batch and nvalid, and through
+    # rank_topk_local (queries normalized outside, normalize = 0 in both)
+    bit_equal_cases = 0
+    for b, pred in preds.items():
+        pred_norm = rank_ops.l2_normalize(pred)
+        scores = rf.rank_scores_fused(pred, table)
+        scores_local = torch.empty_like(scores)
+        rf.launch_rank_scores(pred_norm, table, scores_local, normalize=False)
+        for nvalid in (n, n - 1000):
+            for kk in (1, KG_TOP_K, 16):
+                for how, (got_v, got_i), full in (
+                        ("fused", rf.rank_topk_fused(pred, table, kk, nvalid), scores),
+                        ("local", rf.rank_topk_local(pred_norm, table, kk, nvalid),
+                         scores_local)):
+                    want_v, want_i = rank_ops.top_k_lowest_index(full[:, :nvalid], kk)
+                    torch.cuda.synchronize()
+                    if differing_bits(got_v, want_v) or not torch.equal(got_i, want_i):
+                        raise AssertionError(
+                            f"rank_topk[{how},B{b},nvalid={nvalid},k={kk}]: not bit-equal to "
+                            "rank_scores followed by top_k_lowest_index")
+                    bit_equal_cases += 1
+        del scores, scores_local
+    print(f"  rank_topk: (values, ids) bit-equal to rank_scores + top_k_lowest_index in "
+          f"{bit_equal_cases} cases (B {sorted(preds)}, nvalid {n} and {n - 1000}, "
+          "k 1/10/16, fused and local)")
 
     # rank_scores (3xTF32): B = 64, 8 and 1 against the main table (N not a
     # multiple of 128, duplicates across tiles and blocks), and against a
@@ -880,7 +945,8 @@ def phase_rank_kernels(rf, rank_ops) -> list[dict]:
         }
         if name == "rank_topk":
             entry["kernel_only_ms_by_k"] = k_sweep
-            print(f"  rank_topk kernel alone (no merge) at B{KG_BATCH} by k: {k_sweep}")
+            entry["bit_equal_to_rank_scores_topk_cases"] = bit_equal_cases
+            print(f"  rank_topk kernel alone (no merge) by batch and k: {k_sweep}")
         out.append(entry)
     return out
 
@@ -1804,6 +1870,10 @@ def phase_kg_path(rf, inference_mod, checkpoint_mod, cli_infer,
             "predict_tails top_k 32 (rank_scores), first 10, vs top_k 10 (rank_topk)",
             [row[:KG_TOP_K] for row in top32["predictions"]],
             [row[:KG_TOP_K] for row in top32["scores"]], first["predictions"], first["scores"])
+        # rank_topk's scores are rank_scores' bit for bit: no near-tie may swap
+        if swapped32 or [row[:KG_TOP_K] for row in top32["scores"]] != first["scores"]:
+            raise AssertionError("predict_tails: top_k 10 (rank_topk) is not the first 10 of "
+                                 "top_k 32 (rank_scores and the stable sort) bit for bit")
         del engine32, top32
         torch.cuda.empty_cache()
 

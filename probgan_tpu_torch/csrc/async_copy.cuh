@@ -1,7 +1,7 @@
 // Copy helpers shared by the kernels that stream tiles through a ring of
 // shared-memory stages: cp.async (rank_topk_bf16.cu, packed_conv_wgrad.cu,
 // packed_conv.cu's "none" kernel) and the Tensor Memory Accelerator's bulk
-// copies with their mbarriers (rank_scores.cu).
+// copies with their mbarriers (rank_ring.cuh: rank_scores.cu, rank_topk.cu).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,7 +1,9 @@
 // The pipelined fp32 main loop of packed_conv.cu's "lrelu" / "lrelu_norm"
-// kernel (B2) and of packed_upconv.cu (B1): a persistent block walks output
-// tiles, and its input channels stream through a ring of shared-memory
-// stages filled by cp.async while the FMAs of an earlier stage run.
+// kernel (B2), of packed_conv_rgb.cu (B3, B2 "lrelu_norm" with the final
+// stage's toRGB tail) and of packed_upconv.cu (B1): a persistent block walks
+// output tiles, and its input channels stream through a ring of
+// shared-memory stages filled by cp.async while the FMAs of an earlier stage
+// run.
 //
 // What it keeps from conv_tile.cuh, so that every output has the bits of the
 // loop it replaces (conv3x3_accumulate, and B1's own loop before it): the
@@ -36,8 +38,8 @@
 //
 // Shared memory a block (floats; rows padded so that the lanes of a warp hit
 // distinct banks in the thread's aligned float4 read of the patch):
-//   B2 Cout 64: x 16 ch x 10 rows x 44 + w 16 x 9 x 64  = 16,256 a stage
-//   B2 Cout 32: x 16 ch x 18 rows x 44 + w 16 x 9 x 32  = 17,280 a stage
+//   B2, B3 Cout 64: x 16 ch x 10 rows x 44 + w 16 x 9 x 64  = 16,256 a stage
+//   B2, B3 Cout 32: x 16 ch x 18 rows x 44 + w 16 x 9 x 32  = 17,280 a stage
 //   B1 Cout 64: x 16 ch x  9 rows x 24 + w 16 x 8 x 64  = 11,648 a stage
 //   B1 Cout 32: x 16 ch x 17 rows x 48 + w 16 x 8 x 32  = 17,152 a stage
 // times 3 stages x 4 B: 195,072 / 207,360 / 139,776 / 205,824 B, each under
@@ -286,6 +288,46 @@ struct ConvRing {
     store_rows<COUT>(y + (static_cast<size_t>(b) * n_slabs + slab) * COUT * plane +
                          static_cast<size_t>(y0 + pg / 4) * W + x0 + (pg % 4) * kTM,
                      acc, cg, plane);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// B3: B2 "lrelu_norm" -> toRGB -> blend with the upsampled previous RGB
+// (-> uint8), NHWC
+// ---------------------------------------------------------------------------
+
+// ConvRing<COUT, true>'s tiles, copies and FMAs (one slab: Cout 32 or 64);
+// only the epilogue differs: bias_lrelu_norm, then conv_tile.cuh's
+// rgb_blend_store, which reduces the toRGB dot across the lanes of a pixel
+// group by shuffles and writes 3 values a pixel. `prev` [B][3][H/2][W/2] is
+// read through the read-only cache, one value a pixel and channel.
+template <int COUT, bool U8>
+struct ConvRgbRing : ConvRing<COUT, true> {
+  using Base = ConvRing<COUT, true>;
+  const float* rgb_w;
+  const float* rgb_b;
+  const float* prev;
+  float alpha;
+  void* out;
+
+  __device__ __forceinline__ ConvRgbRing(const float* x_, const float* w_, const float* b_,
+                                         const float* rgb_w_, const float* rgb_b_,
+                                         const float* prev_, float alpha_, void* out_, int C_,
+                                         int H_, int W_)
+      : Base(x_, w_, b_, nullptr, C_, H_, W_, 1), rgb_w(rgb_w_), rgb_b(rgb_b_), prev(prev_),
+        alpha(alpha_), out(out_) {}
+
+  __device__ __forceinline__ void finish(int t, float (&acc)[kTM][kTN]) const {
+    int b, y0, x0, slab;
+    this->tile_of(t, b, y0, x0, slab);
+    bias_lrelu_norm<COUT>(acc, this->bias, this->cg);
+    const int H = this->H, W = this->W, Hp = H / 2, Wp = W / 2;
+    const float* pv = prev + static_cast<size_t>(b) * 3 * Hp * Wp;
+    rgb_blend_store<COUT, U8>(acc, rgb_w, rgb_b, alpha, out, this->cg, b, y0 + this->pg / 4,
+                              x0 + (this->pg % 4) * kTM, H, W, [&](int k, int gy, int gx) {
+                                return __ldg(pv + (static_cast<size_t>(k) * Hp + gy / 2) * Wp +
+                                             gx / 2);
+                              });
   }
 };
 

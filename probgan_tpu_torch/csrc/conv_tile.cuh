@@ -1,6 +1,6 @@
-// Shared pieces of the late-stage conv kernels (packed_conv_rgb.cu,
-// packed_convpool.cu, the stage-fused pair over stage_fused.cuh, and through
-// conv_ring.cuh packed_conv.cu's fp32 epilogues and packed_upconv.cu): tile
+// Shared pieces of the late-stage conv kernels (packed_convpool.cu, the
+// stage-fused pair over stage_fused.cuh, and through conv_ring.cuh
+// packed_conv.cu's fp32 epilogues, packed_conv_rgb.cu and packed_upconv.cu): tile
 // geometry, the per-thread channel map, the fused bias -> LeakyReLU(0.2) ->
 // PixelNorm epilogue, its PixelNorm-free forms for the discriminator, the
 // synchronous 3x3 SAME conv main loop and the final stage's toRGB -> blend ->

@@ -7,76 +7,85 @@
 //
 // Replaces probgan_tpu/ops/pallas_packed.py:678 `packed_conv_rgb`
 // (emit_uint8=True on the serving path), the stage-8 conv2 of the 1024^2
-// generator: 32 -> 32 channels at 1024^2, then RGB.
+// generator: 32 -> 32 channels at 1024^2, then RGB (64 -> 64 at 512^2 when
+// the generator ends at stage 7).
 //
 // Bound on the H100: operations. Per image the conv does 2*9*32*32*1024^2 =
 // 19.3 GFLOP (+0.2 for toRGB) and moves 128 MB in, 3 MB of uint8 out:
 // ~150 FLOP per byte, above the fp32 balance point of 20 FLOP/byte, so the
-// ceiling is the CUDA cores' 67 TFLOP/s (no TF32 at the parity grade).
+// ceiling is the CUDA cores' 67 TFLOP/s (no TF32 at the parity grade): 0.583
+// ms at batch 2.
 //
-// Design against that bound: the conv main loop is packed_conv's (register
-// tiles of 8 pixels x 8 channels, weights streamed through shared memory);
-// the tail (conv_tile.cuh rgb_blend_store) reduces the toRGB dot across the
-// lanes of a pixel group by shuffles and runs the blend and denorm in
-// registers, so the kernel adds a few hundred FLOP per pixel to the conv and
-// writes 3 bytes per pixel.
-#include "conv_tile.cuh"
+// Design against that bound: the main loop is packed_conv's pipelined ring
+// (conv_ring.cuh ConvRgbRing: ConvRing<COUT, true>'s tiles, cp.async stages
+// of 16 input channels, 3 stages, one persistent block an SM), so the next
+// tile's copies are in flight while this tile's tail runs. The tail
+// (conv_tile.cuh rgb_blend_store) reduces the toRGB dot across the lanes of
+// a pixel group by shuffles and runs the blend and denorm in registers, so
+// the kernel adds a few hundred FLOP per pixel to the conv and writes 3
+// values per pixel. Every value keeps its fmaf chain in (input channel, ky,
+// kx) order and the lane -> channel map, so the outputs have the bits of the
+// synchronous loop (conv_tile.cuh conv3x3_accumulate) this kernel ran before.
+#include "conv_ring.cuh"
 
 namespace probgan {
 
 template <int COUT, bool U8>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, 1)
     packed_conv_rgb_kernel(const float* __restrict__ x, const float* __restrict__ w,
                            const float* __restrict__ bias, const float* __restrict__ rgb_w,
                            const float* __restrict__ rgb_b, const float* __restrict__ prev,
-                           float alpha, void* __restrict__ out, int C, int H, int W) {
-  using T = Tile<COUT>;
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * T::TH;
-  const int x0 = blockIdx.x * T::TW;
-  float acc[kTM][kTN] = {};
-  conv3x3_accumulate<COUT>(x + static_cast<size_t>(b) * C * H * W, w, C, H, W, y0, x0, acc);
-
-  const int cg = threadIdx.x % T::NCG;
-  const int pg = threadIdx.x / T::NCG;
-  bias_lrelu_norm<COUT>(acc, bias, cg);
-  const int Hp = H / 2, Wp = W / 2;
-  rgb_blend_store<COUT, U8>(acc, rgb_w, rgb_b, alpha, out, cg, b, y0 + pg / 4,
-                            x0 + (pg % 4) * kTM, H, W, [&](int k, int gy, int gx) {
-                              return __ldg(prev + ((static_cast<size_t>(b) * 3 + k) * Hp +
-                                                   gy / 2) * Wp + gx / 2);
-                            });
+                           float alpha, void* __restrict__ out, int C, int H, int W,
+                           int n_tiles) {
+  extern __shared__ __align__(16) float ring_smem[];
+  ConvRgbRing<COUT, U8> cv(x, w, bias, rgb_w, rgb_b, prev, alpha, out, C, H, W);
+  NoClock clk;
+  ring_walk(cv, ring_smem, n_tiles, clk);
 }
 
 template <int COUT, bool U8>
 int launch(const float* x, const float* w, const float* bias, const float* rgb_w,
            const float* rgb_b, const float* prev, float alpha, void* out, int B, int C, int H,
-           int W, cudaStream_t stream) {
+           int W, int n_blocks, int smem, cudaStream_t stream) {
   using T = Tile<COUT>;
-  if (C % kCC || W % T::TW || H % T::TH) return cudaErrorInvalidValue;
-  const dim3 grid(W / T::TW, H / T::TH, B);
-  packed_conv_rgb_kernel<COUT, U8>
-      <<<grid, kThreads, 0, stream>>>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, C, H, W);
+  using Ring = ConvRgbRing<COUT, U8>;
+  const long long n_tiles = static_cast<long long>(B) * (H / T::TH) * (W / T::TW);
+  if (B < 1 || C < 8 || C % 8 || W % T::TW || H % T::TH || n_tiles < 1 ||
+      n_tiles > 0x7fffffff || n_blocks < 1 || smem != Ring::kBytes)
+    return cudaErrorInvalidValue;
+  const auto kernel = packed_conv_rgb_kernel<COUT, U8>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<n_blocks, kThreads, smem, stream>>>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, C,
+                                               H, W, static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace probgan
 
-// x [B][C][H][W], w [C][3][3][Cout], bias [Cout], rgb_w [3][Cout], rgb_b [3],
-// prev [B][3][H/2][W/2] -> out [B][H][W][3], uint8 if emit_uint8 else fp32
-// pre-tanh RGB. Returns the cudaError_t of the launch (0 = launched).
+// x [B][C][H][W] (16-byte aligned), w [C][3][3][Cout], bias [Cout],
+// rgb_w [3][Cout], rgb_b [3], prev [B][3][H/2][W/2] -> out [B][H][W][3],
+// uint8 if emit_uint8 else fp32 pre-tanh RGB; n_blocks persistent blocks
+// (ops/packed.py:persistent_blocks) and the ring's dynamic shared memory in
+// bytes (ops/packed.py:conv_ring_bytes, checked against the kernel's).
+// Returns the cudaError_t of the launch (0 = launched).
 extern "C" int probgan_packed_conv_rgb(const float* x, const float* w, const float* bias,
                                        const float* rgb_w, const float* rgb_b,
                                        const float* prev, float alpha, void* out,
                                        int emit_uint8, int B, int C, int H, int W, int cout,
-                                       void* stream) {
+                                       int n_blocks, int smem, void* stream) {
   using namespace probgan;
   const auto s = static_cast<cudaStream_t>(stream);
   if (cout == 32)
-    return emit_uint8 ? launch<32, true>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W, s)
-                      : launch<32, false>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W, s);
+    return emit_uint8 ? launch<32, true>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W,
+                                         n_blocks, smem, s)
+                      : launch<32, false>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H,
+                                          W, n_blocks, smem, s);
   if (cout == 64)
-    return emit_uint8 ? launch<64, true>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W, s)
-                      : launch<64, false>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W, s);
+    return emit_uint8 ? launch<64, true>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W,
+                                         n_blocks, smem, s)
+                      : launch<64, false>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H,
+                                          W, n_blocks, smem, s);
   return cudaErrorInvalidValue;
 }

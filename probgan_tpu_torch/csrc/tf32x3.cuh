@@ -1,5 +1,6 @@
 // The 3xTF32 grade on the tensor cores, shared by the kernels that use it
-// (packed_conv_wgrad.cu, packed_conv.cu's "none" epilogue, rank_scores.cu).
+// (packed_conv_wgrad.cu, packed_conv.cu's "none" epilogue, and through
+// rank_ring.cuh rank_scores.cu and rank_topk.cu).
 //
 // Each fp32 operand v is split into hi = tf32(v) and lo = v - hi, and every
 // product is taken as lo*hi + hi*lo + hi*hi with mma.sync.m16n8k8 TF32: what

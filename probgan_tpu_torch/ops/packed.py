@@ -85,7 +85,7 @@ _ARGTYPES = {
     "packed_conv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_convpool": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv_rgb": [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _I,
-                        _I, _I, _I, _I, _I, _P],
+                        _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_upconv_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "packed_upconv_conv_rgb": [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P,
                                _I, _I, _I, _I, _I, _I, _P],
@@ -105,9 +105,10 @@ POOL_EPILOGUES = ("lrelu", "none")
 # card's own count, so that the sums' order, and with it dW's bits, is the
 # same anywhere.
 WGRAD_BLOCKS = 132
-# The pipelined fp32 main loop of packed_conv's "lrelu"/"lrelu_norm" and of
-# packed_upconv (csrc/conv_ring.cuh): input channels a ring stage, stages,
-# and the persistent blocks an SM that its shared memory allows.
+# The pipelined fp32 main loop of packed_conv's "lrelu"/"lrelu_norm", of
+# packed_conv_rgb and of packed_upconv (csrc/conv_ring.cuh): input channels a
+# ring stage, stages, and the persistent blocks an SM that its shared memory
+# allows.
 RING_CC, RING_STAGES, RING_BLOCKS_PER_SM = 16, 3, 1
 # A block's share of an H100 multiprocessor's shared memory, and what the
 # card reserves for each resident block.
@@ -309,10 +310,11 @@ def persistent_blocks(n_tiles: int, sms: int) -> int:
 
 
 def conv_ring_bytes(cout: int) -> int:
-    """Dynamic shared memory of packed_conv's fp32 ring (csrc/conv_ring.cuh
-    ConvRing::kBytes): RING_STAGES stages of RING_CC input channels, each the
-    channel's halo patch (tile rows + 2, 40 columns in rows of 44 floats) and
-    its 9 x slab weights."""
+    """Dynamic shared memory of packed_conv's fp32 ring and of packed_conv_rgb
+    (csrc/conv_ring.cuh ConvRing::kBytes, which ConvRgbRing keeps):
+    RING_STAGES stages of RING_CC input channels, each the channel's halo
+    patch (tile rows + 2, 40 columns in rows of 44 floats) and its 9 x slab
+    weights."""
     o_slab, rows = conv_tiling(cout)
     return 4 * RING_STAGES * RING_CC * ((rows + 2) * 44 + 9 * o_slab)
 
@@ -462,7 +464,9 @@ def packed_conv_rgb(x, w, b, rgb_w, rgb_b, rgb_prev, alpha, *,
 
     x [B, C, H, W] fp32, w [Cout, C, 3, 3], b [Cout], rgb_w [3, Cout],
     rgb_b [3], rgb_prev [B, 3, H/2, W/2], alpha a runtime scalar
-    -> NHWC [B, H, W, 3], uint8 or fp32 pre-tanh RGB."""
+    -> NHWC [B, H, W, 3], uint8 or fp32 pre-tanh RGB. On CUDA, Cout is 32 or
+    64 and the kernel runs packed_conv's fp32 ring ("lrelu_norm"'s tiles and
+    sums, so the same bits) with the toRGB tail as its epilogue."""
     alpha = float(alpha)
     if x.device.type == "cpu":
         return packed_conv_rgb_plain(x, w, b, rgb_w, rgb_b, rgb_prev, alpha,
@@ -488,9 +492,11 @@ def packed_conv_rgb(x, w, b, rgb_w, rgb_b, rgb_prev, alpha, *,
     rgb_prev = rgb_prev.contiguous()
     out = torch.empty((bsz, h, wd, 3), device=x.device,
                       dtype=torch.uint8 if emit_uint8 else torch.float32)
+    x = _aligned16(x)
+    blocks = persistent_blocks(conv_tile_count(bsz, cout, h, wd), _sms(x.device))
     _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),
             _ptr(rgb_prev), alpha, _ptr(out), int(emit_uint8), bsz, c, h, wd,
-            cout)
+            cout, blocks, conv_ring_bytes(cout))
     return out
 
 

@@ -1,16 +1,21 @@
 """The fused rank kernels: Python side.
 
 The counterpart of ``probgan_tpu/ops/pallas_rank.py``. Three kernels written
-by hand in CUDA C++ for Hopper (``csrc/rank_topk.cu``, ``csrc/rank_scores.cu``
-and ``csrc/rank_topk_bf16.cu`` over ``csrc/rank_tile.cuh``) keep the JAX names
-of the functions that reach the Pallas kernels they replace:
+by hand in CUDA C++ for Hopper (``csrc/rank_topk.cu`` and
+``csrc/rank_scores.cu`` over one main loop, ``csrc/rank_ring.cuh``, and
+``csrc/rank_topk_bf16.cu``) keep the JAX names of the functions that reach
+the Pallas kernels they replace:
 
 - ``rank_topk_fused(pred, table_norm, k, num_entities)``: L2-normalize the
-  raw predictions, score them against the pre-normalized entity table in
-  full fp32 and return each query's top-k ``(values, ids)``. The [B, N]
-  score matrix never reaches device memory: the kernel writes k candidates
-  per query and block of table rows, and the merge over
-  ``[B, n_blocks * k]`` is a stable sort here. With ``table_bf16`` (a bf16
+  raw predictions, score them against the pre-normalized entity table at
+  the fp32 grade (3xTF32 on the tensor cores: three TF32 products of the
+  operands' high and low parts, within 2e-6 of the plain twin) and return
+  each query's top-k ``(values, ids)``. The [B, N] score matrix never
+  reaches device memory: the kernel writes k candidates per query and block
+  of table rows, and the merge over ``[B, n_blocks * k]`` is a stable sort
+  here. Its scores are ``rank_scores_fused``'s bit for bit, so its result
+  is ``top_k_lowest_index(rank_scores_fused(pred, table_norm)[:, :n], k)``.
+  With ``table_bf16`` (a bf16
   copy of the table) one call launches two kernels instead: the stream,
   which reads that copy, half the bytes, multiplies in bf16 on the tensor
   cores and keeps an approximate pool of ``k + 16`` rows per query and block,
@@ -21,9 +26,7 @@ of the functions that reach the Pallas kernels they replace:
   queries that are already normalized, with local row ids (the per-shard
   form of a row-sharded table);
 - ``rank_scores_fused(pred, table_norm)``: normalize + all cosine scores
-  [B, N], the path for k > 16; its products are 3xTF32 on the tensor cores
-  (three TF32 products of the operands' high and low parts, fp32 by
-  accuracy: within 2e-6 of the plain twin).
+  [B, N], the path for k > 16, with the same 3xTF32 products.
 
 Results are what ``lax.top_k(scores[:, :nvalid], k)`` returns: descending
 values and, among equal values, ascending ids. The kernel sums the D terms
@@ -58,9 +61,8 @@ from probgan_tpu_torch.ops.rank import (
 launches = {"rank_topk": 0, "rank_scores": 0, "rank_topk_bf16": 0}
 
 MAX_K = 16          # csrc/rank_topk.cu kMaxK: a query's top-k lives in one warp
-MAX_D = 256         # a 64-query chunk + a 128-row tile fit 227 KB of shared memory
-TILE_ROWS = 128     # csrc/rank_tile.cuh kTileRows
-BLOCKS_PER_SM = 2   # the kernels' __launch_bounds__: one wave fills the card
+MAX_D = 256         # a 64-query chunk + the ring's stages fit 227 KB of shared memory
+TILE_ROWS = 128     # the largest table tile of the kernels (csrc/rank_tile.cuh kTileRows)
 BF16_BLOCKS_PER_SM = 1  # the bf16 stream's ring of table tiles fills an SM's shared memory
 _MAX_ROWS = 2**31 - TILE_ROWS  # row ids and tile starts are int32 in the kernel
 # The bf16 stream: rows kept beyond k for the exact rescore, and the table
@@ -72,8 +74,8 @@ BF16_MIN_N = 200_000
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    "rank_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "rank_scores": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "rank_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "rank_scores": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "rank_topk_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P],
 }
@@ -151,7 +153,7 @@ def tile_runs(n_rows: int, tile_rows: int, max_blocks: int) -> tuple[int, int]:
     return tiles_per_block, -(-n_tiles // tiles_per_block)
 
 
-def _geometry(n_rows: int, device: torch.device, blocks_per_sm: int = BLOCKS_PER_SM,
+def _geometry(n_rows: int, device: torch.device, blocks_per_sm: int,
               tile_rows: int = TILE_ROWS) -> tuple[int, int]:
     """``tile_runs`` with about ``blocks_per_sm`` blocks per SM."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -165,11 +167,13 @@ def scores_k(d: int) -> int:
 
 
 def scores_tiling(b: int, d: int) -> tuple[int, int]:
-    """(table rows per tile, blocks per SM) of csrc/rank_scores.cu, which
-    launches the tiling it is given: 128-row tiles in a ring of 3, one block
-    an SM, for more than 32 queries with a padded D up to 128; else 64-row
-    tiles in a ring of 2, two blocks an SM while D allows (one block's
-    product overlaps the other's loads), one above."""
+    """(table rows per tile, blocks per SM) of csrc/rank_scores.cu and
+    csrc/rank_topk.cu, which launch the tiling they are given on one walk
+    (csrc/rank_ring.cuh; the tiling changes the launch, never a score's
+    bits): 128-row tiles in a ring of 3, one block an SM, for more than 32
+    queries with a padded D up to 128; else 64-row tiles in a ring of 2, two
+    blocks an SM while D allows (one block's product overlaps the other's
+    loads), one above."""
     if scores_k(d) > 128:
         return 64, 1
     return (128, 1) if b > 32 else (64, 2)
@@ -187,12 +191,13 @@ def topk_candidates(pred: torch.Tensor, table: torch.Tensor, k: int, nvalid: int
     row ranges, each block's in descending value / ascending id, padded with
     (-inf, INT32_MAX) where a block has fewer than k valid rows."""
     b, d = pred.shape
-    tiles_per_block, n_blocks = _geometry(nvalid, pred.device)
+    tile_rows, blocks_per_sm = scores_tiling(b, d)
+    tiles_per_block, n_blocks = _geometry(nvalid, pred.device, blocks_per_sm, tile_rows)
     cand_v = torch.empty((b, n_blocks * k), device=pred.device, dtype=torch.float32)
     cand_i = torch.empty((b, n_blocks * k), device=pred.device, dtype=torch.int32)
     _launch("rank_topk", pred, pred.data_ptr(), table.data_ptr(), cand_v.data_ptr(),
-            cand_i.data_ptr(), b, d, nvalid, k, int(normalize), tiles_per_block,
-            n_blocks)
+            cand_i.data_ptr(), b, d, nvalid, k, int(normalize), tile_rows,
+            tiles_per_block, n_blocks)
     return cand_v, cand_i
 
 
@@ -304,12 +309,17 @@ def _topk_bf16_cuda(pred, table_norm, table_bf16, k, nvalid):
     return out_v, out_i
 
 
-def _topk_cuda(pred, table, k, nvalid, normalize):
-    cand_v, cand_i = topk_candidates(pred, table, k, nvalid, normalize)
-    # Equal values keep their position order under the stable sort, and
-    # position order is id order: the lowest id wins, as in the kernel.
+def merge_candidates(cand_v: torch.Tensor, cand_i: torch.Tensor,
+                     k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The top k of ``topk_candidates``' result: (values [B, k], ids [B, k]
+    int64). Equal values keep their position order under the stable sort,
+    and position order is id order: the lowest id wins, as in the kernel."""
     values, pos = top_k_lowest_index(cand_v, k)
     return values, torch.gather(cand_i, 1, pos).to(torch.int64)
+
+
+def _topk_cuda(pred, table, k, nvalid, normalize):
+    return merge_candidates(*topk_candidates(pred, table, k, nvalid, normalize), k)
 
 
 # ---------------------------------------------------------------------------
@@ -405,9 +415,12 @@ def rank_scores_fused(pred: torch.Tensor, table_norm: torch.Tensor) -> torch.Ten
     return out
 
 
-def launch_rank_scores(pred: torch.Tensor, table_norm: torch.Tensor, out: torch.Tensor) -> None:
+def launch_rank_scores(pred: torch.Tensor, table_norm: torch.Tensor, out: torch.Tensor, *,
+                       normalize: bool = True) -> None:
     """Launch the rank_scores kernel into ``out`` [B, N] fp32 (contiguous, on
-    the card): ``rank_scores_fused`` without its allocation."""
+    the card): ``rank_scores_fused`` without its allocation. With
+    ``normalize=False`` the queries are taken as they are (already
+    normalized, as ``rank_topk_local`` takes them)."""
     _check("rank_scores", pred, table_norm)
     if pred.device.type != "cuda":
         raise RuntimeError("rank_scores: the kernel runs on CUDA tensors only")
@@ -420,4 +433,4 @@ def launch_rank_scores(pred: torch.Tensor, table_norm: torch.Tensor, out: torch.
     tile_rows, blocks_per_sm = scores_tiling(b, d)
     tiles_per_block, n_blocks = _geometry(n, pred.device, blocks_per_sm, tile_rows)
     _launch("rank_scores", pred, pred.data_ptr(), table_norm.data_ptr(), out.data_ptr(),
-            b, d, n, tile_rows, tiles_per_block, n_blocks)
+            b, d, n, int(normalize), tile_rows, tiles_per_block, n_blocks)

@@ -1,13 +1,16 @@
 """Times the port's conv and rank kernels, the train step and ``generate`` on
 one CUDA card, in parts (``--parts``, all by default):
 
-- ``rank``: ``rank_scores_fused`` at N = 1,000,000, D = 128, B = 64 and 8;
+- ``rank``: ``rank_scores_fused`` and ``rank_topk_fused`` (k = 10) at
+  N = 1,000,000, D = 128, B = 64 and 8;
 - ``none``: ``packed_conv(..., epilogue="none")`` at the (C, Cout, H) the
   1024² train step gives it, batch 2;
 - ``fp32``: ``packed_upconv`` "lrelu_norm" / "lrelu" at stages 7 and 8
   (batch 2, and "lrelu_norm" with the toRGB of stage 8 at batch 8 as
-  ``generate`` runs it) and ``packed_conv`` "lrelu" / "lrelu_norm" at the
-  score (batch 8), train-step and recompute (batch 2) shapes;
+  ``generate`` runs it), ``packed_conv`` "lrelu" / "lrelu_norm" at the
+  score (batch 8), train-step and recompute (batch 2) shapes, and
+  ``packed_conv_rgb`` (uint8 at alpha 1, fp32 at alpha 0.3) at stage 8
+  (32 -> 32 at 1024²) and stage 7 (64 -> 64 at 512²), batch 2 and 8;
 - ``train``: ``progan_train_step`` at 1024², stage 8, batch 2, packed,
   ``remat``: steps/s and p50 over timed steps (host clock to the metrics on
   the host);
@@ -15,8 +18,10 @@ one CUDA card, in parts (``--parts``, all by default):
   p50 ms per image (host clock to the uint8 images on the host).
 
 ``--dump DIR`` saves each ``fp32`` output, made from fixed seeds, to
-``DIR/<shape>.pt``; ``--compare A B`` counts the values whose bits differ
-between two such directories (0 everywhere: the same bits).
+``DIR/<shape>.pt`` (and with ``rank`` the ``rank_scores_fused`` matrices,
+with ``generate`` the first call's images); ``--compare A B`` counts the
+values whose bits differ between two such directories (0 everywhere: the
+same bits).
 
 It calls only public entry points, so the same file times an older tree of
 the package: put that tree first on ``PYTHONPATH`` and run this file by its
@@ -59,6 +64,14 @@ FP32_SHAPES = (
     ("conv_C64_Cout128_512_lrelu_b2", "packed_conv", "lrelu", 2, 64, 128, 512, False),
     ("conv_C64_Cout64_512_lrelu_norm_b2", "packed_conv", "lrelu_norm", 2, 64, 64, 512, False),
     ("conv_C64_Cout64_512_lrelu_norm_b8", "packed_conv", "lrelu_norm", 8, 64, 64, 512, False),
+    ("conv_rgb_s8_uint8_b2", "packed_conv_rgb", "uint8", 2, 32, 32, 1024, True),
+    ("conv_rgb_s8_fp32_b2", "packed_conv_rgb", "fp32", 2, 32, 32, 1024, True),
+    ("conv_rgb_s7_uint8_b2", "packed_conv_rgb", "uint8", 2, 64, 64, 512, True),
+    ("conv_rgb_s7_fp32_b2", "packed_conv_rgb", "fp32", 2, 64, 64, 512, True),
+    ("conv_rgb_s8_uint8_b8", "packed_conv_rgb", "uint8", 8, 32, 32, 1024, True),
+    ("conv_rgb_s8_fp32_b8", "packed_conv_rgb", "fp32", 8, 32, 32, 1024, True),
+    ("conv_rgb_s7_uint8_b8", "packed_conv_rgb", "uint8", 8, 64, 64, 512, True),
+    ("conv_rgb_s7_fp32_b8", "packed_conv_rgb", "fp32", 8, 64, 64, 512, True),
 )
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, CUDA cores
 
@@ -95,6 +108,16 @@ def bench_fp32(pk, dump: Path | None) -> dict:
             def call(x=x, w=w, b=b, kw=kw):
                 return pk.packed_upconv(x, w, b, **kw)
             flops = 2 * 4 * c * cout * bsz * 4 * h * h
+        elif kernel == "packed_conv_rgb":
+            rgb_w = torch.randn((3, cout), device="cuda", generator=gen) / math.sqrt(cout)
+            rgb_b = 0.1 * torch.randn(3, device="cuda", generator=gen)
+            prev = 0.5 * torch.randn((bsz, 3, h // 2, h // 2), device="cuda", generator=gen)
+            u8 = epi == "uint8"
+
+            def call(x=x, w=w, b=b, rgb_w=rgb_w, rgb_b=rgb_b, prev=prev, u8=u8):
+                return pk.packed_conv_rgb(x, w, b, rgb_w, rgb_b, prev, 1.0 if u8 else 0.3,
+                                          emit_uint8=u8)
+            flops = 2 * 9 * c * cout * bsz * h * h + 2 * cout * 3 * bsz * h * h
         else:
             def call(x=x, w=w, b=b, epi=epi):
                 return pk.packed_conv(x, w, b, epilogue=epi)
@@ -116,13 +139,22 @@ def bench_fp32(pk, dump: Path | None) -> dict:
     return out
 
 
+def differing(ta: torch.Tensor, tb: torch.Tensor) -> int:
+    """Values of ``ta`` whose bits differ from ``tb``'s (all of them when the
+    shapes or types differ)."""
+    if ta.shape != tb.shape or ta.dtype != tb.dtype:
+        return ta.numel()
+    if ta.dtype == torch.float32:
+        ta, tb = ta.view(torch.int32), tb.view(torch.int32)
+    return int((ta != tb).sum())
+
+
 def compare(dir_a: Path, dir_b: Path) -> dict:
     """{file: values whose bits differ} over the .pt files of ``dir_a``."""
     diffs = {}
     for f in sorted(dir_a.glob("*.pt")):
         a, b = torch.load(f), torch.load(dir_b / f.name)
-        diffs[f.stem] = sum(int((ta.view(torch.int32) != tb.view(torch.int32)).sum())
-                            if ta.shape == tb.shape else ta.numel() for ta, tb in zip(a, b))
+        diffs[f.stem] = sum(differing(ta, tb) for ta, tb in zip(a, b))
     return diffs
 
 
@@ -157,14 +189,21 @@ def main(argv=None) -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(7)
     out = {"card": card, "package": pk.__file__}
+    if args.dump is not None:
+        args.dump.mkdir(parents=True, exist_ok=True)
 
     if "rank" in parts:
-        out["rank_scores_ms"] = {}
-        table = rank_ops.l2_normalize(torch.randn((1_000_000, 128), device="cuda",
-                                                  generator=gen))
+        out["rank_scores_ms"], out["rank_topk_ms"] = {}, {}
+        n = 1_000_000
+        table = rank_ops.l2_normalize(torch.randn((n, 128), device="cuda", generator=gen))
         for b in (64, 8):
             pred = torch.randn((b, 128), device="cuda", generator=gen)
+            if args.dump is not None:
+                torch.save([rf.rank_scores_fused(pred, table).cpu()],
+                           args.dump / f"rank_scores_B{b}.pt")
             out["rank_scores_ms"][f"B{b}"] = cuda_ms(lambda: rf.rank_scores_fused(pred, table))
+            out["rank_topk_ms"][f"B{b}"] = cuda_ms(
+                lambda: rf.rank_topk_fused(pred, table, 10, n))
         del table
 
     if "none" in parts:
@@ -180,13 +219,13 @@ def main(argv=None) -> int:
                 del x
 
     if "fp32" in parts:
-        if args.dump is not None:
-            args.dump.mkdir(parents=True, exist_ok=True)
         out["fp32"] = bench_fp32(pk, args.dump)
 
     if "generate" in parts:
         engine = ImageGANEngine(ProGANConfig(), device="cuda", precision="high", seed=0)
-        engine.generate(engine.sample_latents(8))  # warm-up (cuDNN plans)
+        images = engine.generate(engine.sample_latents(8))  # warm-up (cuDNN plans)
+        if args.dump is not None:
+            torch.save([torch.from_numpy(images)], args.dump / "generate_b8.pt")
         latents = [engine.sample_latents(8) for _ in range(8)]
         torch.cuda.synchronize()
         times = []

@@ -1,19 +1,25 @@
 """What the parts of the ``rank_topk`` kernel cost on the card.
 
-Builds variants of ``csrc/rank_topk.cu`` in a temporary directory, each with
-one part of the kernel taken out by a source substitution, and times them at
-the KG path's shape (N = 1,000,000 rows, D = 128, B = 64) for k = 1 and 10:
+Builds variants of ``csrc/rank_topk.cu`` (over ``csrc/rank_ring.cuh``) in a
+temporary directory, each with one part of the kernel taken out by a source
+substitution, and times them at the KG path's shape (N = 1,000,000 rows,
+D = 128, B = 64 and 8) for k = 1, 10 and 16, beside ``rank_scores`` (B7, the
+same walk storing its scores) launched alone:
 
     python -m probgan_tpu_torch.utils.rank_ablation
 
-- ``base``: the kernel as shipped;
-- ``no_reload``: only a block's first table tile is staged, so every other
-  tile's load from device memory and its wait are gone;
-- ``no_select``: no score ever beats the threshold, so the top-k insertions
-  are gone (the compare and ballot per 32 scores stay);
-- ``no_product``: the fp32 product is replaced by one multiply per score, so
-  what is left is streaming the table through shared memory;
-- ``one_block_per_sm``: ``__launch_bounds__(256, 1)`` and half the blocks.
+- ``base``: the kernel as shipped, at ``scores_tiling``'s tiling;
+- ``tiles64x2`` / ``tiles128x1``: the same kernel at the other tiling
+  (64-row tiles in 2 stages, two blocks an SM; 128-row tiles in 3 stages,
+  one block an SM);
+- ``no_filter``: every query of the warp takes the exact pass on every tile
+  (one shared load, compare and ballot per 32 scores), as if the filter had
+  found a candidate for each;
+- ``no_select``: the filter finds no candidate, so the exact pass and the
+  top-k insertions are gone (the filter's loads, maxima and one OR a tile
+  stay);
+- ``no_product``: the tensor-core product is gone (every score 0), so what
+  is left is streaming the table through the ring and the selection.
 
 The variants compute wrong results on purpose: this script measures, it
 checks nothing. Then, for the bf16 stream (``rank_topk_fused(table_bf16=...)``)
@@ -21,8 +27,8 @@ as shipped, at B = 64 and B = 8 with k = 10: the ``rank_topk_bf16`` stream
 alone, and built without its selection (no survivor inserted into a pool),
 the plain twin's merge of the blocks' pools (a stable sort over
 [B, n_blocks * 26]) and its exact rescore of the 26 survivors, the merge
-kernel that replaces both, and the whole call beside the fp32 call. Prints one line per variant and part and one JSON line. Needs a CUDA
-card and nvcc.
+kernel that replaces both, and the whole call beside the fp32 call. Prints
+one line per variant and part and one JSON line. Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -39,24 +45,22 @@ from probgan_tpu_torch.ops import _build, rank_fused
 from probgan_tpu_torch.ops.rank import l2_normalize
 
 N, D, B = 1_000_000, 128, 64
-KS = (1, 10)
-SOURCES = ("rank_tile.cuh", "rank_topk.cu")
-# name -> (blocks per SM, [(source text, replacement), ...])
+BATCHES = (64, 8)
+KS = (1, 10, 16)
+SOURCES = ("rank_tile.cuh", "rank_ring.cuh", "tf32x3.cuh", "rank_topk.cu")
+# name -> (tiling (rows a tile, blocks per SM) or None for scores_tiling's,
+# [(source text, replacement), ...])
 VARIANTS = {
-    "base": (2, []),
-    "no_reload": (2, [(
-        "    load_table_tile(table, nvalid, D, row0, ts);",
-        "    if (tile == tile0) load_table_tile(table, nvalid, D, row0, ts);")]),
-    "no_select": (2, [(
-        "unsigned m = __ballot_sync(kFullMask, s > thr[i]);",
-        "unsigned m = __ballot_sync(kFullMask, s > 1e30f);")]),
-    "no_product": (2, [(
-        "    score_tile<QT>(qs, ts, D, acc);",
-        "    for (int i = 0; i < QT; ++i)\n"
-        "      for (int j = 0; j < kRowsPerLane; ++j)\n"
-        "        acc[i][j] = ts[(j * 32 + lane) * (D + kRowPad) + i] * qs[i];")]),
-    "one_block_per_sm": (1, [(
-        "__launch_bounds__(kRankThreads, 2)", "__launch_bounds__(kRankThreads, 1)")]),
+    "base": (None, []),
+    "tiles64x2": ((64, 2), []),
+    "tiles128x1": ((128, 1), []),
+    "no_filter": (None, [(
+        "if (best > thr[i]) hits |= 1u << i;", "hits |= 1u << i;")]),
+    "no_select": (None, [(
+        "if (best > thr[i]) hits |= 1u << i;", "if (best > 1e30f) hits |= 1u << i;")]),
+    "no_product": (None, [(
+        "for (int ks = 0; ks < nk && n_nt > 0; ks += 2) {",
+        "for (int ks = 0; ks < 0; ks += 2) {")]),
 }
 
 
@@ -168,37 +172,47 @@ def main() -> int:
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(0)
     table = l2_normalize(torch.randn((N, D), device=device, generator=gen))
-    pred = torch.randn((B, D), device=device, generator=gen)
+    preds = {b: torch.randn((b, D), device=device, generator=gen) for b in BATCHES}
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    n_tiles = -(-N // rank_fused.TILE_ROWS)
     stream = torch.cuda.current_stream(device).cuda_stream
 
     results = {}
+    scores_alone = {}
+    for b, pred in preds.items():
+        out = torch.empty((b, N), device=device)
+        scores_alone[f"B{b}"] = cuda_ms(lambda: rank_fused.launch_rank_scores(pred, table, out))
+        del out
+    print(f"rank_scores alone: {scores_alone}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (blocks_per_sm, subs) in VARIANTS.items():
+        for name, (tiling, subs) in VARIANTS.items():
             lib, registers = build_variant(name, subs, Path(tmp))
-            tiles_per_block = -(-n_tiles // min(n_tiles, blocks_per_sm * sms))
-            n_blocks = -(-n_tiles // tiles_per_block)
-            row = {"registers": registers, "blocks": n_blocks}
-            for k in KS:
-                cand_v = torch.empty((B, n_blocks * k), device=device)
-                cand_i = torch.empty((B, n_blocks * k), device=device, dtype=torch.int32)
+            row = {"registers": registers}
+            for b, pred in preds.items():
+                tile_rows, blocks_per_sm = tiling or rank_fused.scores_tiling(b, D)
+                tiles_per_block, n_blocks = rank_fused.tile_runs(N, tile_rows,
+                                                                 blocks_per_sm * sms)
+                row[f"B{b}_tiling"] = [tile_rows, blocks_per_sm, n_blocks]
+                for k in KS:
+                    cand_v = torch.empty((b, n_blocks * k), device=device)
+                    cand_i = torch.empty((b, n_blocks * k), device=device, dtype=torch.int32)
 
-                def launch():
-                    err = lib.probgan_rank_topk(
-                        pred.data_ptr(), table.data_ptr(), cand_v.data_ptr(),
-                        cand_i.data_ptr(), B, D, N, k, 1, tiles_per_block, n_blocks,
-                        stream)
-                    if err != 0:
-                        raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
+                    def launch():
+                        err = lib.probgan_rank_topk(
+                            pred.data_ptr(), table.data_ptr(), cand_v.data_ptr(),
+                            cand_i.data_ptr(), b, D, N, k, 1, tile_rows, tiles_per_block,
+                            n_blocks, stream)
+                        if err != 0:
+                            raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
 
-                row[f"k{k}_ms"] = cuda_ms(launch)
+                    row[f"B{b}_k{k}_ms"] = cuda_ms(launch)
             results[name] = row
-            print(f"{name:18s} {registers:14s} {n_blocks:4d} blocks  " + "  ".join(
-                f"k={k}: {row[f'k{k}_ms']:.3f} ms" for k in KS), flush=True)
+            print(f"{name:12s} {registers:14s} " + "  ".join(
+                f"{key} {value:.3f}" if isinstance(value, float) else f"{key} {value}"
+                for key, value in row.items() if key != "registers"), flush=True)
         bf16 = bf16_parts(table, gen, Path(tmp))
-    print(json.dumps({"shape": {"B": B, "N": N, "D": D}, "variants": results,
-                      "bf16_parts_ms": bf16, "device": torch.cuda.get_device_name(0)}))
+    print(json.dumps({"shape": {"N": N, "D": D, "B": list(BATCHES)}, "variants": results,
+                      "rank_scores_alone_ms": scores_alone, "bf16_parts_ms": bf16,
+                      "device": torch.cuda.get_device_name(0)}))
     return 0
 
 

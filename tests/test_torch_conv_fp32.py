@@ -1,7 +1,7 @@
 """The schedule and shared memory of the pipelined fp32 main loop that
-packed_conv's "lrelu" / "lrelu_norm" epilogues and packed_upconv run on the
-card (csrc/conv_ring.cuh), and the call that convpool_lrelu's backward makes
-for its mask.
+packed_conv's "lrelu" / "lrelu_norm" epilogues, packed_conv_rgb and
+packed_upconv run on the card (csrc/conv_ring.cuh), and the call that
+convpool_lrelu's backward makes for its mask.
 
 The kernels run only on the card; what their wrappers hand them is plain
 Python: the tiling, the tile walk of the persistent blocks and the ring's
@@ -31,6 +31,10 @@ CONV_SHAPES = {
     "generate lrelu_norm": [(8, 64, 64, 512)],
     "score lrelu": [(8, 32, 32, 1024), (8, 64, 64, 512)],
 }
+# (batch, C, Cout, H): packed_conv_rgb's, the final stage of a generator that
+# ends at 1024² (stage 8) or 512² (stage 7), in generate and at the kernels'
+# test batch
+CONV_RGB_SHAPES = [(8, 32, 32, 1024), (8, 64, 64, 512), (2, 32, 32, 1024), (2, 64, 64, 512)]
 # (batch, C, Cout, input H): packed_upconv's, stages 7 and 8
 UPCONV_SHAPES = {
     "train step": [(2, 128, 64, 256), (2, 64, 32, 512)],
@@ -92,6 +96,26 @@ def test_conv_walk_covers_the_paths_shapes(path):
         _walk_covers_tiles_once(n)
 
 
+@pytest.mark.parametrize("bsz,cout,h,wd", [*((b, co, h, h) for b, _, co, h in CONV_RGB_SHAPES),
+                                           (1, 32, 48, 96), (3, 64, 24, 64), (2, 32, 16, 32)])
+def test_conv_rgb_walk_writes_every_pixel_once(bsz, cout, h, wd):
+    """packed_conv_rgb walks packed_conv's tiles with one slab (Cout 32 or
+    64): a tile writes rows y0 .. y0 + rows - 1, columns x0 .. x0 + 31 of the
+    NHWC output, all three channels. Every pixel once, at the generator's
+    final-stage shapes and at ragged tile counts, and every tile once in the
+    persistent blocks' walk."""
+    o_slab, rows = tpk.conv_tiling(cout)
+    assert o_slab == cout and rows == tpk._tile_rows(cout)
+    n, origins = _conv_origins(bsz, cout, h, wd)
+    assert n == bsz * (h // rows) * (wd // 32)
+    seen = np.zeros((bsz, h, wd), np.int32)
+    for b, y0, x0, o0 in origins:
+        assert o0 == 0
+        seen[b, y0:y0 + rows, x0:x0 + 32] += 1
+    assert (seen == 1).all()
+    _walk_covers_tiles_once(n)
+
+
 @pytest.mark.parametrize("bsz,cout,h,wd", [(1, 32, 32, 16), (3, 64, 32, 48), (2, 32, 64, 64)])
 def test_upconv_walk_covers_every_output_once_ragged(bsz, cout, h, wd):
     """Each tile writes output rows 2 * (i0 + r) + py, columns 2 * j0 ..
@@ -123,14 +147,18 @@ def test_upconv_walk_covers_the_paths_shapes(path):
 
 @pytest.mark.parametrize("kind,cout,want", [("conv", 32, 207_360), ("conv", 64, 195_072),
                                             ("conv", 128, 195_072), ("upconv", 32, 205_824),
-                                            ("upconv", 64, 139_776)])
+                                            ("upconv", 64, 139_776), ("conv_rgb", 32, 207_360),
+                                            ("conv_rgb", 64, 195_072)])
 def test_ring_fits_one_block_an_sm(kind, cout, want):
     """The bytes the wrappers pass (and the kernels check against their own
     kBytes): under a block's 232,448, room for the RING_BLOCKS_PER_SM the
     source note states and not for one more; the note's arithmetic names
     the same figure. Cout 128 is the recompute's walk over two 64-channel
-    slabs."""
-    got = tpk.conv_ring_bytes(cout) if kind == "conv" else tpk.upconv_ring_bytes(cout)
+    slabs; packed_conv_rgb's ring (ConvRgbRing) keeps packed_conv's stages."""
+    if kind == "conv_rgb":
+        src = (CSRC / "packed_conv_rgb.cu").read_text()
+        assert "using Ring = ConvRgbRing<COUT, U8>;" in src and "smem != Ring::kBytes" in src
+    got = tpk.upconv_ring_bytes(cout) if kind == "upconv" else tpk.conv_ring_bytes(cout)
     assert got == want
     assert got <= tpk.SMEM_PER_BLOCK
     per_block = got + tpk.SMEM_RESERVED

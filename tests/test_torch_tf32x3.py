@@ -1,6 +1,6 @@
-"""The 3xTF32 grade of the port's B7 ``rank_scores`` and B2 ``packed_conv``
-"none" kernels (csrc/tf32x3.cuh), emulated on the CPU, and the geometry their
-wrappers hand to the kernels.
+"""The 3xTF32 grade of the port's B7 ``rank_scores``, B4 ``rank_topk`` and B2
+``packed_conv`` "none" kernels (csrc/tf32x3.cuh), emulated on the CPU, and
+the geometry their wrappers hand to the kernels.
 
 The kernels run only on the card; here their arithmetic is emulated: each
 fp32 operand v split into hi = tf32(v) (to nearest, ties away from zero) and
@@ -10,6 +10,9 @@ sum and of the JAX package's kernels (interpret mode, "highest"): 2e-6
 absolute for cosine scores, 1e-5 of the largest entry for a conv. One TF32
 product (hi*hi alone) must not.
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -167,3 +170,129 @@ def test_rank_scores_tiles_cover_every_row(n, d, b):
     stage = max(tile_rows * d + 32, 64 * (tile_rows + 20))
     block = 4 * (64 * (k + 4) + stages * stage) + 8 * stages
     assert block <= 232_448 and per_sm * (block + 1024) <= 233_472
+
+
+# ---------------------------------------------------------------------------
+# rank_topk (B4): B7's product, then a top-k per block and a stable merge
+# ---------------------------------------------------------------------------
+
+def _scores_3xtf32(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Emulated 3xTF32 cosine scores of normalized queries [B, D] against
+    table rows [N, D], each summed row by row in one order (an elementwise
+    product and a sum over D), so bit-equal rows get bit-equal scores, as
+    on the card."""
+    k = rank_fused.scores_k(q.shape[1])
+    qp, tp = (torch.nn.functional.pad(a, (0, k - a.shape[1])) for a in (q, t))
+    (qh, ql), (th, tl) = _split(qp), _split(tp)
+
+    def dot(a, b):
+        return (a[:, None, :] * b[None, :, :]).sum(-1)
+
+    return dot(ql, th) + dot(qh, tl) + dot(qh, th)
+
+
+def _topk_by_blocks(scores: torch.Tensor, k: int, nvalid: int, tile_rows: int,
+                    blocks: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """rank_topk's selection as csrc/rank_topk.cu makes it: each block's top
+    k of its contiguous run of tiles below nvalid (descending value,
+    ascending id, padded with (-inf, INT32_MAX)), laid out [B, n_blocks * k]
+    in block order, then the wrapper's merge."""
+    per_block, n_blocks = rank_fused.tile_runs(nvalid, tile_rows, blocks)
+    run = per_block * tile_rows
+    cand_v, cand_i = [], []
+    for blk in range(n_blocks):
+        lo, hi = blk * run, min((blk + 1) * run, nvalid)
+        kk = min(k, hi - lo)
+        v, i = rank_fused.top_k_lowest_index(scores[:, lo:hi], kk)
+        cand_v.append(torch.nn.functional.pad(v, (0, k - kk), value=float("-inf")))
+        cand_i.append(torch.nn.functional.pad((i + lo).to(torch.int32), (0, k - kk),
+                                              value=2**31 - 1))
+    return rank_fused.merge_candidates(torch.cat(cand_v, 1), torch.cat(cand_i, 1), k)
+
+
+def _dup_table():
+    """4096 rows, with row 5 repeated at 2047, 2048 and 3000 (across the
+    Pallas kernel's 2048-row tiles and the port's 64- and 128-row tiles)."""
+    raw = np.random.default_rng(12).standard_normal((4096, 128)).astype(np.float32)
+    for dup in (2047, 2048, 3000):
+        raw[dup] = raw[5]
+    return (raw / np.maximum(np.linalg.norm(raw, axis=1, keepdims=True), 1e-12)
+            ).astype(np.float32), raw
+
+
+def _masked_case():
+    """Zero padding rows past nvalid = 4000 score exactly 0 and would beat
+    every negative cosine."""
+    table = _table(13, 4096, 128, n_valid=4000)
+    pred = np.tile(-table[:4000].mean(axis=0, keepdims=True) * 50.0, (8, 1))
+    return pred.astype(np.float32), table, 4000
+
+
+@pytest.mark.parametrize("case,k", [("planted", 1), ("planted", 10), ("planted", 16),
+                                    ("duplicates", 6), ("masked", 10), ("local", 10)])
+def test_rank_topk_blocks_of_3xtf32_scores_match_pallas(case, k):
+    """The emulated 3xTF32 scores through a per-block top-k over the
+    wrapper's tile runs (its tiling at this batch on 132 SMs, and the same
+    runs on 3 SMs, many tiles a block) and the stable merge: the ids of
+    JAX's rank_topk_fused (and rank_topk_local) in interpret mode, values
+    within 2e-6; duplicate rows in ascending id."""
+    if case == "planted":
+        pred, table, nvalid = _pred(10, 33, 128), _table(11, 4096, 128, n_valid=4000), 4000
+    elif case == "duplicates":
+        table, raw = _dup_table()
+        pred, nvalid = np.tile(raw[5:6], (8, 1)), 4096
+    elif case == "masked":
+        pred, table, nvalid = _masked_case()
+    else:
+        pred, table, nvalid = _pred(14, 16, 128), _table(15, 4096, 128), 3000
+    q = rank_fused.l2_normalize(_t(pred))
+    if case == "local":
+        want_v, want_i = pallas_rank.rank_topk_local(jnp.asarray(q.numpy()), jnp.asarray(table),
+                                                     k, nvalid, interpret=True)
+    else:
+        want_v, want_i = pallas_rank.rank_topk_fused(jnp.asarray(pred), jnp.asarray(table), k,
+                                                     nvalid, interpret=True)
+    scores = _scores_3xtf32(q, _t(table))
+    tile_rows, per_sm = rank_fused.scores_tiling(*pred.shape)
+    for sms in (132, 3):
+        v, i = _topk_by_blocks(scores, k, nvalid, tile_rows, per_sm * sms)
+        assert i.dtype == torch.int64
+        np.testing.assert_array_equal(i.numpy(), np.asarray(want_i))
+        np.testing.assert_allclose(v.numpy(), np.asarray(want_v), atol=RANK_ATOL)
+        if case == "duplicates":
+            assert i[0, :4].tolist() == [5, 2047, 2048, 3000]
+        if case == "masked":
+            assert int(i.max()) < nvalid
+
+
+@pytest.mark.parametrize("n", [1, 129, 1_000_003])
+@pytest.mark.parametrize("b", [8, 33])
+def test_rank_topk_tiles_cover_every_row_below_nvalid_once(n, b):
+    """rank_topk's tiling (rank_scores') at D = 128 and its contiguous runs
+    on 132 SMs, at nvalid = n and below it: every row below nvalid in exactly
+    one block's run, no block empty, none past the blocks the SMs hold; the
+    block's shared memory (rank_ring.cuh: queries and stages, each the tile's
+    copies or its staged scores) fits the blocks an SM."""
+    tile_rows, per_sm = rank_fused.scores_tiling(b, 128)
+    for nvalid in sorted({n, max(1, n - 100)}):
+        per_block, blocks = rank_fused.tile_runs(nvalid, tile_rows, per_sm * 132)
+        run = per_block * tile_rows
+        assert 1 <= blocks <= per_sm * 132
+        starts = np.arange(blocks) * run
+        ends = np.minimum(starts + run, nvalid)
+        assert starts[0] == 0 and ends[-1] == nvalid and (ends > starts).all()
+        assert (starts[1:] == ends[:-1]).all()
+    stages = 3 if tile_rows == 128 else 2
+    block = 4 * (64 * (128 + 4) + stages * max(tile_rows * 128 + 32, 64 * (tile_rows + 20)))
+    assert block + 8 * stages <= 232_448 and per_sm * (block + 8 * stages + 1024) <= 233_472
+
+
+def test_rank_argtypes_match_the_c_entry_points():
+    """Each rank wrapper's ctypes argument list has as many entries as its
+    kernel's extern "C" function (the stream last)."""
+    csrc = Path(rank_fused.__file__).resolve().parent.parent / "csrc"
+    for name, argtypes in rank_fused._ARGTYPES.items():
+        m = re.search(rf'extern "C" int probgan_{name}\(([^)]*)\)',
+                      (csrc / f"{name}.cu").read_text())
+        assert m is not None, name
+        assert len(m.group(1).split(",")) == len(argtypes), name
