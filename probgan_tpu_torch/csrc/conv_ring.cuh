@@ -47,8 +47,8 @@
 // reserves for each) would not fit, so the design is one block an SM.
 //
 // The walk is generic over the tile (ring_walk takes the tile's copies,
-// FMAs and epilogue from a struct), so tiles of Cout 8 or 16 can use it
-// later with their own struct.
+// FMAs and epilogue from a struct): fused_ring.cuh's stage-fused tiles walk
+// it in two phases.
 #pragma once
 
 #include "async_copy.cuh"
@@ -128,8 +128,12 @@ __device__ __forceinline__ void ring_copy_weights(float* ws, const float* __rest
 // The walk of a persistent block: tiles blockIdx.x, + gridDim.x, ... of
 // n_tiles, each in cv.n_chunks steps of Conv::kCC input channels, through
 // a ring of Conv::kStages stages. Conv provides kStage (floats a stage),
-// n_chunks, issue(stage, tile, chunk), compute(stage, tile, chunk, acc) and
-// finish(tile, acc).
+// kAcc (accumulator rows a thread), kPhases, n_chunks, issue(stage, tile,
+// chunk), compute(stage, tile, chunk, acc) and finish(tile, acc). With
+// kPhases == 2 a tile's steps are two phases, chunks [0, cv.n_chunks1) and
+// the rest (fused_ring.cuh: conv1, then conv2 over conv1's map in shared
+// memory): acc is zeroed at the start of each, and cv.finish1(tile, acc)
+// runs after the first phase's last step.
 template <class Conv, class Clock>
 __device__ __forceinline__ void ring_walk(Conv& cv, float* smem, int n_tiles, Clock& clk) {
   const int n_chunks = cv.n_chunks;
@@ -151,7 +155,10 @@ __device__ __forceinline__ void ring_walk(Conv& cv, float* smem, int n_tiles, Cl
     cp_async_commit();
   }
 
-  float acc[kTM][kTN];
+  constexpr bool kTwo = Conv::kPhases == 2;
+  int n1 = n_chunks;  // the first phase's steps
+  if constexpr (kTwo) n1 = cv.n_chunks1;
+  float acc[Conv::kAcc][kTN];
   int tile = blockIdx.x, chunk = 0;
   for (int it = 0; it < n_steps; ++it) {
     cp_async_wait(kStages - 2);
@@ -161,14 +168,21 @@ __device__ __forceinline__ void ring_walk(Conv& cv, float* smem, int n_tiles, Cl
     if (it + kStages - 1 < n_steps) issue_next((it + kStages - 1) % kStages);
     cp_async_commit();
     clk.lap(kLapWait);
-    if (chunk == 0) {
+    const bool second = chunk >= n1;
+    if (chunk == 0 || chunk == n1) {
 #pragma unroll
-      for (int m = 0; m < kTM; ++m)
+      for (int m = 0; m < Conv::kAcc; ++m)
 #pragma unroll
         for (int n = 0; n < kTN; ++n) acc[m][n] = 0.f;
     }
     cv.compute(smem + (it % kStages) * Conv::kStage, tile, chunk, acc);
-    clk.lap(kLapFma);
+    clk.lap(second ? kLapFma2 : kLapFma);
+    if constexpr (kTwo) {
+      if (chunk == n1 - 1) {
+        cv.finish1(tile, acc);
+        clk.lap(kLapEpilogue);
+      }
+    }
     if (++chunk == n_chunks) {
       cv.finish(tile, acc);
       chunk = 0;
@@ -199,6 +213,7 @@ struct ConvRing {
   static constexpr int XC = SH * SW;          // floats of one channel's patch
   static constexpr int kCC = 16;              // input channels a stage
   static constexpr int kStages = 3;
+  static constexpr int kAcc = kTM, kPhases = 1;
   static constexpr int kX = kCC * XC;
   static constexpr int kWc = 9 * COUT;        // weights of one input channel
   static constexpr int kStage = kX + kCC * kWc;
@@ -362,6 +377,7 @@ struct UpconvRing {
   static constexpr int XC = SH * SW;
   static constexpr int kCC = 16;          // input channels a stage
   static constexpr int kStages = 3;
+  static constexpr int kAcc = kTM, kPhases = 1;
   static constexpr int kX = kCC * XC;
   static constexpr int kWc = 8 * COUT;    // one parity's pre-summed taps of a channel
   static constexpr int kStage = kX + kCC * kWc;

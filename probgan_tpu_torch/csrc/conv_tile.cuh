@@ -1,10 +1,11 @@
-// Shared pieces of the late-stage conv kernels (packed_convpool.cu, the
-// stage-fused pair over stage_fused.cuh, and through conv_ring.cuh
-// packed_conv.cu's fp32 epilogues, packed_conv_rgb.cu and packed_upconv.cu): tile
+// Shared pieces of the late-stage conv kernels (packed_convpool.cu, and
+// through conv_ring.cuh packed_conv.cu's fp32 epilogues, packed_conv_rgb.cu,
+// packed_upconv.cu and the stage-fused pair over fused_ring.cuh): tile
 // geometry, the per-thread channel map, the fused bias -> LeakyReLU(0.2) ->
 // PixelNorm epilogue, its PixelNorm-free forms for the discriminator, the
-// synchronous 3x3 SAME conv main loop and the final stage's toRGB -> blend ->
-// uint8 tail.
+// synchronous 3x3 SAME conv main loop (packed_convpool and the clock-split
+// probe; conv3x3_rows also serves the stage-fused kernels' conv2) and the
+// final stage's toRGB -> blend -> uint8 tail.
 //
 // Every kernel is an implicit GEMM on the CUDA cores in fp32: M = output
 // pixels, N = output channels (32 or 64), K = taps x input channels. A block
@@ -31,15 +32,16 @@ constexpr float kEps = 1e-8f;
 
 // A clock that a main loop reads at the boundaries of a step's parts:
 // NoClock in the kernels (no code), SplitClock in utils/conv_clock_split.py's
-// probe (csrc/conv_clock_split.cu), which sums a block's cycles by part.
-enum Lap { kLapWait = 0, kLapFma = 1, kLapEpilogue = 2 };
+// probe (csrc/conv_clock_split.cu), which sums a block's cycles by part
+// (kLapFma2: the FMAs of a two-phase walk's second phase, fused_ring.cuh).
+enum Lap { kLapWait = 0, kLapFma = 1, kLapEpilogue = 2, kLapFma2 = 3 };
 
 struct NoClock {
   __device__ __forceinline__ void lap(int) {}
 };
 
 struct SplitClock {
-  long long t = 0, part[3] = {0, 0, 0};
+  long long t = 0, part[4] = {0, 0, 0, 0};
   __device__ __forceinline__ void start() { t = clock64(); }
   __device__ __forceinline__ void lap(int p) {
     const long long now = clock64();
@@ -89,16 +91,18 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// bias -> lrelu(0.2) -> x * 1/sqrt(mean_c(x^2) + 1e-8), in place, for a
-// thread's M pixels (kTM, or the stage-fused kernels' conv1 share).
-template <int COUT, int M = kTM>
+// bias -> lrelu(0.2) -> x * 1/sqrt(mean_c(x^2) + 1e-8), in place, for the
+// first N of a thread's M pixel rows (the stage-fused kernels hold more rows
+// than the kTM of a conv tile: their conv1 share).
+template <int COUT, int M = kTM, int N = M>
 __device__ __forceinline__ void bias_lrelu_norm(float (&acc)[M][kTN],
                                                 const float* __restrict__ bias, int cg) {
+  static_assert(N <= M, "rows held");
   float bch[kTN];
 #pragma unroll
   for (int n = 0; n < kTN; ++n) bch[n] = __ldg(bias + channel_of<COUT>(cg, n));
 #pragma unroll
-  for (int m = 0; m < M; ++m) {
+  for (int m = 0; m < N; ++m) {
     float ss = 0.f;
 #pragma unroll
     for (int n = 0; n < kTN; ++n) {
@@ -130,13 +134,12 @@ __device__ __forceinline__ void bias_act(float (&acc)[kTM][kTN], const float* __
   }
 }
 
-// Store a thread's 8 pixels x 8 channels into NCHW; `y` points at channel 0
-// of the thread's first pixel, `plane` = H*W. Rows are 32-byte aligned
-// because the tile's columns start at multiples of 8.
-template <int COUT>
-__device__ __forceinline__ void store_rows(float* __restrict__ y,
-                                           const float (&acc)[kTM][kTN], int cg,
-                                           size_t plane) {
+// Store a thread's 8 pixels x 8 channels (the first kTM rows of acc) into
+// NCHW; `y` points at channel 0 of the thread's first pixel, `plane` = H*W.
+// Rows are 32-byte aligned because the tile's columns start at multiples of 8.
+template <int COUT, int M>
+__device__ __forceinline__ void store_rows(float* __restrict__ y, const float (&acc)[M][kTN],
+                                           int cg, size_t plane) {
 #pragma unroll
   for (int n = 0; n < kTN; ++n) {
     float* p = y + static_cast<size_t>(channel_of<COUT>(cg, n)) * plane;
@@ -158,12 +161,13 @@ struct Patch {
 // The FMAs of kCC input channels of a 3x3 SAME conv: `xs` [kCC][SH][SW]
 // holds the channels' patch, `ws` [kCC][9][COUT] their weights (tap = ky*3 +
 // kx). The thread's pixels are patch row pg/4 + 1, columns 8*(pg%4) + 1 .. +8,
-// and every value takes its products in the order (c, ky, kx).
-template <int COUT>
+// accumulated into the first kTM rows of acc, and every value takes its
+// products in the order (c, ky, kx).
+template <int COUT, int M>
 __device__ __forceinline__ void conv3x3_rows(const float (*__restrict__ xs)[Patch<COUT>::SH]
                                                                          [Patch<COUT>::SW],
                                              const float (*__restrict__ ws)[9][COUT], int cg,
-                                             int pg, float (&acc)[kTM][kTN]) {
+                                             int pg, float (&acc)[M][kTN]) {
   constexpr int NCG = Tile<COUT>::NCG;
   const int pgx = pg % 4;
   const int ty = pg / 4;
@@ -276,12 +280,13 @@ __device__ __forceinline__ void conv3x3_accumulate(const float* __restrict__ xb,
 // The final stage's tail after conv2's epilogue: 1x1 toRGB + bias -> prev +
 // alpha * (rgb - prev) -> (U8: tanh -> rint((t + 1) * 127.5) -> clip ->
 // uint8), NHWC. The thread's pixels are row gy, columns gx0 .. gx0+7 of image
-// b; `prev(k, gy, gx)` is channel k of the previous stage's RGB under output
-// pixel (gy, gx). toRGB's dot is reduced across the NCG lanes of a pixel group
-// by shuffles, and one lane of the group writes each pixel. Rounding is rintf
-// (half to even), as jnp.round: roundf would round half away from zero.
-template <int COUT, bool U8, class Prev>
-__device__ __forceinline__ void rgb_blend_store(const float (&acc)[kTM][kTN],
+// b (the first kTM rows of acc); `prev(k, gy, gx)` is channel k of the
+// previous stage's RGB under output pixel (gy, gx). toRGB's dot is reduced
+// across the NCG lanes of a pixel group by shuffles, and one lane of the group
+// writes each pixel. Rounding is rintf (half to even), as jnp.round: roundf
+// would round half away from zero.
+template <int COUT, bool U8, class Prev, int M>
+__device__ __forceinline__ void rgb_blend_store(const float (&acc)[M][kTN],
                                                 const float* __restrict__ rgb_w,
                                                 const float* __restrict__ rgb_b, float alpha,
                                                 void* __restrict__ out, int cg, int b, int gy,

@@ -41,7 +41,7 @@
 //
 // Every output value keeps its one fp32 accumulator fed by fmaf in the order
 // (input channel, dy, dx) and the epilogues of conv_tile.cuh: the bits of
-// the previous loop, which the stage-fused kernels (stage_fused.cuh) equal.
+// the previous loop, which the stage-fused kernels (fused_ring.cuh) equal.
 #include "conv_ring.cuh"
 
 namespace probgan {

@@ -6,7 +6,8 @@
 // from fp32 NCHW [B][C][H][W] straight to NHWC [B][2H][2W][3], uint8 or fp32
 // pre-tanh. Only the RGB reaches device memory. Bit-equal to packed_upconv.cu
 // (with its toRGB of the input) followed by packed_conv_rgb.cu (the design is
-// in stage_fused.cuh).
+// in fused_ring.cuh; each tile sums the previous RGB of the input pixels under
+// it, once).
 //
 // Replaces probgan_tpu/ops/pallas_packed.py:1058 `packed_upconv_conv_rgb`,
 // the final stage of the generator under PROBGAN_STAGE_FUSED=1: stage 8 of
@@ -15,30 +16,37 @@
 //
 // Bound on the H100: operations. Per image at stage 8 conv1 does
 // 2*4*64*32*1024^2 = 17.2 GFLOP, conv2 2*9*32*32*1024^2 = 19.3 GFLOP and the
-// two toRGBs 0.2 GFLOP; it moves 64 MB in and 3 MB (uint8) or 12 MB out.
-#include "stage_fused.cuh"
+// two toRGBs 0.2 GFLOP; it moves 64 MB in and 3 MB (uint8) or 12 MB out:
+// 1.099 ms at batch 2 at the CUDA cores' 67 TFLOP/s.
+#include "fused_ring.cuh"
 
-// x [B][C][H][W], wk1 [2][C][2][2][2][Cout], b1 [Cout], w2 [Cout][3][3][Cout],
-// b2 [Cout], rgb_w [3][Cout], rgb_b [3], prev_w [3][C], prev_b [3]
-// -> out [B][2H][2W][3], uint8 if emit_uint8 else fp32 pre-tanh RGB.
-// Returns the cudaError_t of the launch (0 = launched).
+// x [B][C][H][W] (16-byte aligned), wk1 [2][C][2][2][2][Cout], b1 [Cout],
+// w2 [Cout][3][3][Cout], b2 [Cout], rgb_w [3][Cout], rgb_b [3], prev_w [3][C],
+// prev_b [3] -> out [B][2H][2W][3], uint8 if emit_uint8 else fp32 pre-tanh
+// RGB; n_blocks, per_block, extra and smem as probgan_packed_upconv_conv
+// takes them. Returns the cudaError_t of the launch (0 = launched).
 extern "C" int probgan_packed_upconv_conv_rgb(const float* x, const float* wk1, const float* b1,
                                               const float* w2, const float* b2,
                                               const float* rgb_w, const float* rgb_b,
                                               const float* prev_w, const float* prev_b,
                                               float alpha, void* out, int emit_uint8, int B,
-                                              int C, int H, int W, int cout, void* stream) {
+                                              int C, int H, int W, int cout, int n_blocks,
+                                              int per_block, int extra, int smem, void* stream) {
   using namespace probgan;
   const auto s = static_cast<cudaStream_t>(stream);
   if (cout == 64)
-    return emit_uint8 ? launch_stage_fused<64, kRgbU8>(x, wk1, b1, w2, b2, rgb_w, rgb_b, prev_w,
-                                                       prev_b, alpha, out, B, C, H, W, s)
-                      : launch_stage_fused<64, kRgbF32>(x, wk1, b1, w2, b2, rgb_w, rgb_b, prev_w,
-                                                        prev_b, alpha, out, B, C, H, W, s);
+    return emit_uint8 ? launch_fused<64, kRgbU8>(x, wk1, b1, w2, b2, rgb_w, rgb_b, prev_w,
+                                                 prev_b, alpha, out, B, C, H, W, n_blocks,
+                                                 per_block, extra, smem, s)
+                      : launch_fused<64, kRgbF32>(x, wk1, b1, w2, b2, rgb_w, rgb_b, prev_w,
+                                                  prev_b, alpha, out, B, C, H, W, n_blocks,
+                                                  per_block, extra, smem, s);
   if (cout == 32)
-    return emit_uint8 ? launch_stage_fused<32, kRgbU8>(x, wk1, b1, w2, b2, rgb_w, rgb_b, prev_w,
-                                                       prev_b, alpha, out, B, C, H, W, s)
-                      : launch_stage_fused<32, kRgbF32>(x, wk1, b1, w2, b2, rgb_w, rgb_b, prev_w,
-                                                        prev_b, alpha, out, B, C, H, W, s);
+    return emit_uint8 ? launch_fused<32, kRgbU8>(x, wk1, b1, w2, b2, rgb_w, rgb_b, prev_w,
+                                                 prev_b, alpha, out, B, C, H, W, n_blocks,
+                                                 per_block, extra, smem, s)
+                      : launch_fused<32, kRgbF32>(x, wk1, b1, w2, b2, rgb_w, rgb_b, prev_w,
+                                                  prev_b, alpha, out, B, C, H, W, n_blocks,
+                                                  per_block, extra, smem, s);
   return cudaErrorInvalidValue;
 }

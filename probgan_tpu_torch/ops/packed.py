@@ -86,9 +86,9 @@ _ARGTYPES = {
     "packed_convpool": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv_rgb": [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _I,
                         _I, _I, _I, _I, _I, _I, _I, _P],
-    "packed_upconv_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "packed_upconv_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_upconv_conv_rgb": [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P,
-                               _I, _I, _I, _I, _I, _I, _P],
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 # Output channel counts the kernels are instantiated for (csrc/conv_tile.cuh).
 # PixelNorm needs every channel in one block, so "lrelu_norm" takes only
@@ -113,6 +113,9 @@ RING_CC, RING_STAGES, RING_BLOCKS_PER_SM = 16, 3, 1
 # A block's share of an H100 multiprocessor's shared memory, and what the
 # card reserves for each resident block.
 SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED = 232_448, 233_472, 1_024
+# The stage-fused kernels' ring (csrc/fused_ring.cuh): input channels a conv1
+# step, conv2 input channels a conv2 step, and stages by Cout.
+FUSED_C1, FUSED_C2, FUSED_STAGES = 8, 16, {64: 3, 32: 4}
 
 
 def reset_launches() -> None:
@@ -594,6 +597,86 @@ def packed_upconv_conv_rgb_plain(x, w1, b1, w2, b2, rgb_w, rgb_b, prev_rgb_w, pr
                                  emit_uint8=emit_uint8)
 
 
+def fused_tiling(cout: int) -> tuple[int, int]:
+    """(output rows, output columns) of one conv2 tile of the stage-fused
+    kernels, all Cout channels (csrc/conv_tile.cuh Tile): 8 x 32 at Cout 64,
+    16 x 32 at 32."""
+    return _tile_rows(cout), 32
+
+
+def fused_tile_count(bsz: int, cout: int, h: int, wd: int) -> int:
+    """conv2 tiles of the stage-fused walk over an input of h x wd."""
+    rows, cols = fused_tiling(cout)
+    return bsz * (2 * h // rows) * (2 * wd // cols)
+
+
+def fused_split(bsz: int, cout: int, h: int, wd: int, sms: int) -> tuple[int, int, int]:
+    """(blocks, per_block, extra): the split of the stage-fused walk that the
+    wrappers pass to the kernels, whose C entries check it
+    (csrc/fused_ring.cuh fused_checked_tiles). One persistent block an SM;
+    the walk's order (images, 32-column strips, tile rows down a strip) cut
+    into the blocks' contiguous ranges, per_block tiles each and one more for
+    the first ``extra`` blocks. A run, whose first tile computes conv1's
+    whole halo and whose later tiles carry its two top rows from the tile
+    above, is the part of a range inside one strip of one image."""
+    n = fused_tile_count(bsz, cout, h, wd)
+    blocks = persistent_blocks(n, sms)
+    return (blocks, *divmod(n, blocks))
+
+
+def fused_tile_origin(t: int, split: tuple[int, int, int], cout: int, h: int,
+                      wd: int) -> tuple[int, int, int, bool]:
+    """(image, first output row, first output column, starts a run) of tile
+    ``t`` = block + k * blocks of the stage-fused walk under ``split``
+    (``fused_split``), as ``FusedRing::tile_of`` in csrc/fused_ring.cuh
+    walks it: block k's tiles are the k-th range."""
+    rows, cols = fused_tiling(cout)
+    blocks, per, extra = split
+    blk, k = t % blocks, t // blocks
+    g, row = divmod(blk * per + min(blk, extra) + k, 2 * h // rows)
+    b, strip = divmod(g, 2 * wd // cols)
+    return b, row * rows, strip * cols, k == 0 or row == 0
+
+
+def fused_runs(bsz: int, cout: int, h: int, wd: int, sms: int) -> list[list[tuple]]:
+    """Each block's runs of the stage-fused walk on ``sms`` SMs, each a list
+    of its tiles' (image, first row, first column), in the order the block
+    walks them."""
+    split = fused_split(bsz, cout, h, wd, sms)
+    runs = [[] for _ in range(split[0])]
+    for t in range(fused_tile_count(bsz, cout, h, wd)):
+        b, y0, x0, first = fused_tile_origin(t, split, cout, h, wd)
+        if first:
+            runs[t % split[0]].append([])
+        runs[t % split[0]][-1].append((b, y0, x0))
+    return runs
+
+
+def fused_conv1_per_output(bsz: int, cout: int, h: int, wd: int, sms: int) -> float:
+    """conv1 pixels the stage-fused walk computes per conv2 output, from the
+    tiling: 34 columns of each tile's rows, TH + 2 rows for a run's first
+    tile and TH for the others (the clock-split probe counts what the kernel
+    stores, utils/conv_clock_split.py)."""
+    rows, cols = fused_tiling(cout)
+    runs = [r for block in fused_runs(bsz, cout, h, wd, sms) for r in block]
+    n = sum(len(r) for r in runs)
+    return (cols + 2) * (rows * n + 2 * len(runs)) / (rows * cols * n)
+
+
+def fused_ring_bytes(cout: int, rgb: bool) -> int:
+    """Dynamic shared memory of a stage-fused block (FusedRing::kBytes):
+    FUSED_STAGES stages, each the larger of a conv1 step (FUSED_C1 channels of
+    tile rows / 2 + 2 input rows in rows of 28 floats, and both row parities'
+    8 x Cout pre-summed taps) and a conv2 step (FUSED_C2 x 9 x Cout taps);
+    conv1's map, Cout x (tile rows + 2) x 36; the previous stage's RGB under
+    the tile, 3 x tile rows / 2 x 16 (``rgb``)."""
+    rows, cols = fused_tiling(cout)
+    stage = max(FUSED_C1 * (rows // 2 + 2) * 28 + 2 * FUSED_C1 * 8 * cout,
+                FUSED_C2 * 9 * cout)
+    prev = 3 * (rows // 2) * (cols // 2) if rgb else 0
+    return 4 * (FUSED_STAGES[cout] * stage + cout * (rows + 2) * (cols + 4) + prev)
+
+
 def _stage_fused_checks(name: str, x, w1, w2, **params) -> int:
     """The stage-fused kernels' shape rules: conv1 C -> Cout, conv2 Cout ->
     Cout with Cout 32 or 64; input rows a multiple of half the conv2 tile's
@@ -622,8 +705,10 @@ def packed_upconv_conv(x, w1, b1, w2, b2):
     wk1, wk2 = upconv_kernel_weights(w1), conv_kernel_weights(w2)
     b1, b2 = b1.contiguous(), b2.contiguous()
     y = torch.empty((bsz, cout, 2 * h, 2 * wd), device=x.device, dtype=x.dtype)
+    x = _aligned16(x)
+    split = fused_split(bsz, cout, h, wd, _sms(x.device))
     _launch(name, x, _ptr(x), _ptr(wk1), _ptr(b1), _ptr(wk2), _ptr(b2), _ptr(y), bsz, c, h,
-            wd, cout)
+            wd, cout, *split, fused_ring_bytes(cout, rgb=False))
     return y
 
 
@@ -654,7 +739,9 @@ def packed_upconv_conv_rgb(x, w1, b1, w2, b2, rgb_w, rgb_b, prev_rgb_w, prev_rgb
     prev_rgb_w, prev_rgb_b = prev_rgb_w.reshape(3, c).contiguous(), prev_rgb_b.contiguous()
     out = torch.empty((bsz, 2 * h, 2 * wd, 3), device=x.device,
                       dtype=torch.uint8 if emit_uint8 else torch.float32)
+    x = _aligned16(x)
+    split = fused_split(bsz, cout, h, wd, _sms(x.device))
     _launch(name, x, _ptr(x), _ptr(wk1), _ptr(b1), _ptr(wk2), _ptr(b2), _ptr(rgb_w),
             _ptr(rgb_b), _ptr(prev_rgb_w), _ptr(prev_rgb_b), alpha, _ptr(out), int(emit_uint8),
-            bsz, c, h, wd, cout)
+            bsz, c, h, wd, cout, *split, fused_ring_bytes(cout, rgb=True))
     return out

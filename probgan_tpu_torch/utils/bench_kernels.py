@@ -15,11 +15,17 @@ one CUDA card, in parts (``--parts``, all by default):
   ``remat``: steps/s and p50 over timed steps (host clock to the metrics on
   the host);
 - ``generate``: ``ImageGANEngine.generate`` at 1024², batch 8: img/s and
-  p50 ms per image (host clock to the uint8 images on the host).
+  p50 ms per image (host clock to the uint8 images on the host);
+- ``fused``: the stage-fused kernels B10 ``packed_upconv_conv`` (stage 7)
+  and B11 ``packed_upconv_conv_rgb`` (stage 8 uint8 and fp32, stage 7
+  uint8) at batch 2 and 8, each beside the two-kernel pair it replaces;
+  then ``generate`` (batch 8) and the image trainer CLI's step
+  (``progan_train_step`` with ``packed_fake``, stage 8, batch 2) with
+  ``PROBGAN_STAGE_FUSED`` 1 and 0 in turns in one process.
 
-``--dump DIR`` saves each ``fp32`` output, made from fixed seeds, to
-``DIR/<shape>.pt`` (and with ``rank`` the ``rank_scores_fused`` matrices,
-with ``generate`` the first call's images); ``--compare A B`` counts the
+``--dump DIR`` saves each ``fp32`` and ``fused`` output, made from fixed
+seeds, to ``DIR/<shape>.pt`` (and with ``rank`` the ``rank_scores_fused``
+matrices, with ``generate`` the first call's images); ``--compare A B`` counts the
 values whose bits differ between two such directories (0 everywhere: the
 same bits).
 
@@ -38,6 +44,7 @@ import argparse
 import hashlib
 import json
 import math
+import os
 import subprocess
 import time
 from pathlib import Path
@@ -45,7 +52,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-PARTS = ("rank", "none", "fp32", "train", "generate")
+PARTS = ("rank", "none", "fp32", "train", "generate", "fused")
 CONV_SHAPES = ((32, 32, 1024), (64, 32, 1024), (64, 64, 512), (128, 64, 512),
                (32, 64, 1024), (64, 128, 512))
 # (label, kernel, epilogue, batch, C, Cout, H, toRGB): the fp32 launches
@@ -73,6 +80,16 @@ FP32_SHAPES = (
     ("conv_rgb_s7_uint8_b8", "packed_conv_rgb", "uint8", 8, 64, 64, 512, True),
     ("conv_rgb_s7_fp32_b8", "packed_conv_rgb", "fp32", 8, 64, 64, 512, True),
 )
+# (label, kernel, batch, C, Cout, input H, emit): the stage-fused launches
+# at 1024² ("features": B10; "uint8" / "fp32": B11 at alpha 1 / 0.3)
+FUSED_SHAPES = tuple(
+    (f"{kind}_{stage}_{emit}_b{bsz}", kind, bsz, c, cout, h, emit)
+    for bsz in (2, 8)
+    for kind, stage, c, cout, h, emit in (
+        ("upconv_conv", "s7", 128, 64, 256, "features"),
+        ("upconv_conv_rgb", "s8", 64, 32, 512, "uint8"),
+        ("upconv_conv_rgb", "s8", 64, 32, 512, "fp32"),
+        ("upconv_conv_rgb", "s7", 128, 64, 256, "uint8")))
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, CUDA cores
 
 
@@ -137,6 +154,105 @@ def bench_fp32(pk, dump: Path | None) -> dict:
                       "sha256": digest.hexdigest()}
         del x, y, ys
     return out
+
+
+def bench_fused(pk, dump: Path | None) -> dict:
+    """The stage-fused kernels at FUSED_SHAPES beside the pair they replace:
+    ms of each, the fp32 bound (conv1 at its 4 pre-summed taps an output,
+    conv2 at 9, the toRGBs), shares, the kernel's time over the pair's, and
+    the conv1 pixels a conv2 output where the tree's tiling helper gives
+    them; the kernel's output saved under ``dump``."""
+    out = {}
+    for i, (label, kind, bsz, c, cout, h, emit) in enumerate(FUSED_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(200 + i)
+        x = torch.randn((bsz, c, h, h), device="cuda", generator=gen)
+        w1 = torch.randn((cout, c, 3, 3), device="cuda", generator=gen) * math.sqrt(2 / (9 * c))
+        w2 = torch.randn((cout, cout, 3, 3), device="cuda", generator=gen) * math.sqrt(
+            2 / (9 * cout))
+        b1 = 0.1 * torch.randn(cout, device="cuda", generator=gen)
+        b2 = 0.1 * torch.randn(cout, device="cuda", generator=gen)
+        pixels = bsz * 4 * h * h
+        flops = 2 * 4 * c * cout * pixels + 2 * 9 * cout * cout * pixels
+        if kind == "upconv_conv":
+            def call(x=x, w1=w1, b1=b1, w2=w2, b2=b2):
+                return pk.packed_upconv_conv(x, w1, b1, w2, b2)
+
+            def pair(x=x, w1=w1, b1=b1, w2=w2, b2=b2):
+                return pk.packed_conv(pk.packed_upconv(x, w1, b1), w2, b2)
+        else:
+            rgb_w = torch.randn((3, cout), device="cuda", generator=gen) / math.sqrt(cout)
+            prev_w = torch.randn((3, c), device="cuda", generator=gen) / math.sqrt(c)
+            rgb_b = 0.1 * torch.randn(3, device="cuda", generator=gen)
+            prev_b = 0.1 * torch.randn(3, device="cuda", generator=gen)
+            u8, alpha = emit == "uint8", 1.0 if emit == "uint8" else 0.3
+            flops += 2 * cout * 3 * pixels + 2 * c * 3 * pixels // 4
+
+            def call(x=x, w1=w1, b1=b1, w2=w2, b2=b2, rgb_w=rgb_w, rgb_b=rgb_b, prev_w=prev_w,
+                     prev_b=prev_b, u8=u8, alpha=alpha):
+                return pk.packed_upconv_conv_rgb(x, w1, b1, w2, b2, rgb_w, rgb_b, prev_w, prev_b,
+                                                 alpha, emit_uint8=u8)
+
+            def pair(x=x, w1=w1, b1=b1, w2=w2, b2=b2, rgb_w=rgb_w, rgb_b=rgb_b, prev_w=prev_w,
+                     prev_b=prev_b, u8=u8, alpha=alpha):
+                f, rp = pk.packed_upconv(x, w1, b1, rgb_w=prev_w, rgb_b=prev_b)
+                return pk.packed_conv_rgb(f, w2, b2, rgb_w, rgb_b, rp, alpha, emit_uint8=u8)
+        with torch.no_grad():
+            y = call()
+            torch.cuda.synchronize()
+            digest = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()
+            if dump is not None:
+                torch.save([y.cpu()], dump / f"fused_{label}.pt")
+            del y
+            ms, pair_ms = cuda_ms(call, iters=10), cuda_ms(pair, iters=10)
+        bound_ms = flops / PEAK_FP32_FLOPS * 1e3
+        row = {"ms": ms, "pair_ms": pair_ms, "over_pair": ms / pair_ms, "bound_ms": bound_ms,
+               "roofline_share": bound_ms / ms, "pair_roofline_share": bound_ms / pair_ms,
+               "sha256": digest}
+        if hasattr(pk, "fused_split"):  # from the tiling; not measured
+            sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+            row["conv1_per_output_tiling"] = pk.fused_conv1_per_output(bsz, cout, h, h, sms)
+        out[label] = row
+        del x
+    return out
+
+
+def stage_fused_turns(engine_mod, train, cfg, gen, rounds: int = 4) -> dict:
+    """``generate`` (batch 8) and the image trainer's step (stage 8, batch 2,
+    ``packed_fake`` as the CLI passes it) with PROBGAN_STAGE_FUSED 1 and 0 in
+    turns: img/s and steps/s of each (host clock to a result on the host)."""
+    engine = engine_mod.ImageGANEngine(cfg, device="cuda", precision="high", seed=0)
+    z = engine.sample_latents(8)
+    state = train.progan_init_state(0, cfg, device="cuda")
+    real = torch.tanh(torch.randn((2, cfg.resolution, cfg.resolution, 3), device="cuda",
+                                  generator=gen))
+    zt = torch.randn((2, cfg.latent_dim), device="cuda", generator=gen)
+    stage = cfg.num_stages - 1
+    times = {"1": {"generate": [], "step": []}, "0": {"generate": [], "step": []}}
+    before = os.environ.get("PROBGAN_STAGE_FUSED")
+    try:
+        for r in range(rounds + 1):  # round 0 warms both up
+            for flag in ("1", "0") if r % 2 else ("0", "1"):
+                os.environ["PROBGAN_STAGE_FUSED"] = flag
+                t0 = time.perf_counter()
+                engine.generate(z)
+                t1 = time.perf_counter()
+                state, m = train.progan_train_step(state, real, zt, 1.0, cfg, stage,
+                                                   packed_fake=True)
+                float(m["g_loss"])
+                t2 = time.perf_counter()
+                if r:
+                    times[flag]["generate"].append(t1 - t0)
+                    times[flag]["step"].append(t2 - t1)
+    finally:
+        if before is None:
+            os.environ.pop("PROBGAN_STAGE_FUSED", None)
+        else:
+            os.environ["PROBGAN_STAGE_FUSED"] = before
+    return {("stage_fused" if flag == "1" else "two_kernel"): {
+        "generate_img_per_s": 8 * len(t["generate"]) / sum(t["generate"]),
+        "train_steps_per_s": len(t["step"]) / sum(t["step"]),
+        "generate_call_s": t["generate"], "train_step_s": t["step"]}
+        for flag, t in times.items()}
 
 
 def differing(ta: torch.Tensor, tb: torch.Tensor) -> int:
@@ -220,6 +336,12 @@ def main(argv=None) -> int:
 
     if "fp32" in parts:
         out["fp32"] = bench_fp32(pk, args.dump)
+
+    if "fused" in parts:
+        from probgan_tpu_torch.engine import image as engine_mod
+
+        out["fused"] = bench_fused(pk, args.dump)
+        out["fused_turns"] = stage_fused_turns(engine_mod, train, ProGANConfig(), gen)
 
     if "generate" in parts:
         engine = ImageGANEngine(ProGANConfig(), device="cuda", precision="high", seed=0)

@@ -13,16 +13,19 @@ steady state, right after ``torch.cuda.empty_cache()`` and right after one
 each took: what a call costs when the caching allocator's pool has changed
 since the last one.
 
-Parts: the three late-stage kernels by name, the cuDNN convolutions of
-stages 0-6, the copy of the images to the host, other copies, and the
-elementwise rest (parity-conv interleave, epilogues, weight prep). Needs a
-CUDA card.
+Parts: the late-stage kernels by name (under ``PROBGAN_STAGE_FUSED=1``, read
+at each call, the two stage-fused kernels in place of the three), the cuDNN
+convolutions of stages 0-6, the copy of the images to the host, other copies,
+and the elementwise rest (parity-conv interleave, epilogues, weight prep).
+Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
 import time
 
 import torch
@@ -36,6 +39,9 @@ CALLS = 3
 
 
 def _part(name: str) -> str:
+    fused = re.search(r"fused_kernel<\d+, ?(\d)>", name)  # csrc/fused_ring.cuh: <COUT, TAIL>
+    if fused:
+        return "packed_upconv_conv" if fused.group(1) == "0" else "packed_upconv_conv_rgb"
     for k in _KERNELS:  # packed_conv_rgb before its prefix packed_conv
         if f"{k}_kernel" in name:
             return k
@@ -124,6 +130,7 @@ def main(argv=None) -> int:
         print(f"  {us / CALLS / 1e3:9.3f} ms/call  {name[:110]}")
     print(json.dumps({
         "batch": BATCH, "calls": CALLS,
+        "stage_fused": os.environ.get("PROBGAN_STAGE_FUSED", "0") == "1",
         "wall_ms_per_call": wall_us / CALLS / 1e3,
         "device_busy_ms_per_call": busy_us / CALLS / 1e3,
         "idle_share": 1 - busy_us / wall_us,
