@@ -177,7 +177,21 @@ Phases (any failure exits non-zero and prints no result line):
     ``best_checkpoint.pt`` and ``train_state.msgpack``), its checkpoint
     served by ``InferenceEngine``'s ``predict_tails`` on the card; steps/s
     over the last epoch from ``metrics.jsonl``;
-12. the last lines: the card's name and power limit, one JSON line with each
+12. the grades: kernel mode "default" (one bf16 pass, ``csrc/*_bf16.cu``) of
+    ``packed_upconv`` (stage 7, and stage 8 with toRGB), ``packed_conv``
+    "lrelu_norm" (stage 7) and ``packed_conv_rgb`` (stage 8, uint8 and fp32)
+    at batch 2 against their bf16 twins (fp32 outputs within 1e-5 of the
+    largest entry, B3's fp32 RGB on all but 1% of values, where a feature on
+    a bf16 rounding boundary rounds the other way; uint8 within +-1 on at most
+    0.5% of bytes), two runs bit-equal, timed beside the bound at the bf16
+    peak (989 TFLOP/s) and cuDNN on bf16 tensors with the epilogues. Then
+    ``generate`` at 1024², batch 8, at "high", "fast", None and dtype bf16 on
+    one set of seeded weights and latents: img/s, p50 ms/img and PSNR against
+    "high" each; "fast" must reach 50 dB and launch the three bf16 kernels
+    (2/1/1 a call) and none of the fp32 ones; "high" run after the others must
+    equal the first "high" run bit for bit. ``score`` at None against "high":
+    the largest logit difference;
+13. the last lines: the card's name and power limit, one JSON line with each
     kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -229,7 +243,8 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 4
 # no gradient (no wgrad) but its input does.
 STEP_LAUNCHES = {"packed_upconv": 6, "packed_conv": 32, "packed_conv_rgb": 0,
                  "packed_convpool": 8, "packed_conv_wgrad": 12, "packed_upconv_conv": 0,
-                 "packed_upconv_conv_rgb": 0}
+                 "packed_upconv_conv_rgb": 0, "packed_upconv_bf16": 0, "packed_conv_bf16": 0,
+                 "packed_conv_rgb_bf16": 0}
 STEP_EPILOGUE_LAUNCHES = {
     "packed_upconv[lrelu_norm]": 4, "packed_upconv[lrelu]": 2,
     "packed_conv[lrelu_norm]": 4, "packed_conv[lrelu]": 14, "packed_conv[none]": 14,
@@ -987,7 +1002,7 @@ def phase_main_path(pk, pro_gan, engine_mod) -> tuple[dict, dict]:
         twins = engine.generate(z)
     worst, share, psnr = check_uint8("main path vs its plain twins on the card", img, twins)
     # and the unpacked path (all stages through ops/fused_upconv.py + cuDNN)
-    ref = pro_gan.generator_apply(engine.g_params, z, cfg, stage, 1.0, "high",
+    ref = pro_gan.generator_apply(engine.g_params, z, cfg, stage, 1.0, precision="high",
                                   packed=False).cpu().numpy()
     _, _, psnr_unpacked = check_uint8("main path vs the unpacked path on the card", img, ref)
     if min(psnr, psnr_unpacked) < PSNR_FLOOR_DB:
@@ -997,7 +1012,7 @@ def phase_main_path(pk, pro_gan, engine_mod) -> tuple[dict, dict]:
     # the fused tail) and stage 8 at alpha 0.3, against the unpacked path
     for st, alpha in ((7, 0.5), (8, 0.3)):
         got = engine.generate(z[:2], stage=st, alpha=alpha)
-        want = pro_gan.generator_apply(engine.g_params, z[:2], cfg, st, alpha, "high",
+        want = pro_gan.generator_apply(engine.g_params, z[:2], cfg, st, alpha, precision="high",
                                        packed=False).cpu().numpy()
         _, _, p = check_uint8(f"stage {st} alpha {alpha} vs the unpacked path", got, want)
         if p < PSNR_FLOOR_DB:
@@ -1006,7 +1021,7 @@ def phase_main_path(pk, pro_gan, engine_mod) -> tuple[dict, dict]:
     cpu_params = engine_mod.to_device(engine.g_params, torch.device("cpu"))
     with torch.inference_mode():
         cpu_img = pro_gan.generator_apply(cpu_params, z[:1].cpu(), cfg, stage, 1.0,
-                                          "high", packed=True).numpy()
+                                          precision="high", packed=True).numpy()
     _, _, psnr_cpu = uint8_agreement(img[:1], cpu_img)
     print(f"  main path image 0 vs the plain path on the CPU: PSNR {psnr_cpu:.2f} dB")
     if psnr_cpu < PSNR_FLOOR_DB:
@@ -1597,8 +1612,8 @@ def phase_score_path(pk, image_ops, pro_gan, engine_mod, image_checkpoint_mod, c
         errs[f"twins_a{alpha}"] = check_logits(
             f"score alpha {alpha} vs its plain twins on the card", got, twins)
         with torch.inference_mode():
-            ref = pro_gan.discriminator_apply(engine.d_params, x_dev, cfg, stage, alpha, "high",
-                                              packed=False).cpu().numpy()
+            ref = pro_gan.discriminator_apply(engine.d_params, x_dev, cfg, stage, alpha,
+                                              precision="high", packed=False).cpu().numpy()
         errs[f"unpacked_a{alpha}"] = check_logits(
             f"score alpha {alpha} vs the unpacked path on the card", got, ref)
     if pk.launches != score_counts:
@@ -1622,9 +1637,8 @@ def phase_score_path(pk, image_ops, pro_gan, engine_mod, image_checkpoint_mod, c
     frames = engine.latent_walk(z0, z1, frames=WALK_FRAMES, stage=WALK_STAGE)
     walk_s = time.perf_counter() - t0
     chunks = -(-WALK_FRAMES // engine_mod.WALK_CHUNK)
-    want_counts = {"packed_upconv": chunks, "packed_conv": 0, "packed_conv_rgb": chunks,
-                   "packed_convpool": 0, "packed_conv_wgrad": 0, "packed_upconv_conv": 0,
-                   "packed_upconv_conv_rgb": 0}
+    want_counts = {**{k: 0 for k in pk.launches}, "packed_upconv": chunks,
+                   "packed_conv_rgb": chunks}
     if pk.launches != want_counts:
         raise AssertionError(f"latent_walk: launches {pk.launches}, expected {want_counts}")
     res = pro_gan.stage_resolution(WALK_STAGE)
@@ -2251,8 +2265,8 @@ def phase_fused_path(pk, rf, pro_gan, engine_mod, cli_infer, cli_train,
         raise AssertionError("generate: the stage-fused images are not the two-kernel ones")
     cpu_params = engine_mod.to_device(engine.g_params, torch.device("cpu"))
     with torch.inference_mode():
-        cpu_img = pro_gan.generator_apply(cpu_params, z[:1].cpu(), cfg, stage, 1.0, "high",
-                                          packed=True).numpy()
+        cpu_img = pro_gan.generator_apply(cpu_params, z[:1].cpu(), cfg, stage, 1.0,
+                                          precision="high", packed=True).numpy()
     _, _, psnr_cpu = uint8_agreement(img[:1], cpu_img)
     if psnr_cpu < PSNR_FLOOR_DB:
         raise AssertionError(f"fused generate vs the CPU: PSNR {psnr_cpu:.2f} dB")
@@ -2436,6 +2450,228 @@ def phase_fused_path(pk, rf, pro_gan, engine_mod, cli_infer, cli_train,
     return fused_counts, path
 
 
+# Phase 12: the grades. Kernel mode "default" (one bf16 pass) of B1, B2
+# "lrelu_norm" and B3 against their bf16 twins; a twin rounds the same operands
+# and sums in fp32 in another order, so fp32 outputs agree to GRADE_REL of the
+# largest entry. B3's toRGB also rounds the PixelNorm'd features, which kernel
+# and twin compute in another order: a feature that lies on a bf16 rounding
+# boundary rounds the other way in one of them, and its pixel's RGB moves by
+# one bf16 step of the feature times |rgb_w|. So B3's fp32 RGB is held to
+# GRADE_REL on all but GRADE_FLIP_SHARE of its values and to GRADE_FLIP_REL
+# of the largest entry on those.
+GRADE_REL, GRADE_FLIP_SHARE, GRADE_FLIP_REL = 1e-5, 1e-2, 2e-2
+GRADE_CALLS = 3  # timed generate calls a grade
+BF16_KERNELS = {"packed_upconv": "packed_upconv_bf16", "packed_conv": "packed_conv_bf16",
+                "packed_conv_rgb": "packed_conv_rgb_bf16"}
+
+
+def check_rel(label: str, got: torch.Tensor, want: torch.Tensor, flips: bool = False) -> float:
+    """Max |got - want| over the largest |want|; with ``flips``, a share of
+    GRADE_FLIP_SHARE of the values may reach GRADE_FLIP_REL."""
+    scale = want.abs().max().item()
+    d = (got - want).abs() / scale
+    err = d.max().item()
+    beyond = (d > GRADE_REL).float().mean().item()
+    if (err > GRADE_REL and not flips) or beyond > GRADE_FLIP_SHARE or err > GRADE_FLIP_REL:
+        raise AssertionError(f"{label}: {err:.3g} of the largest entry off its twin, "
+                             f"{beyond:.4%} of values beyond {GRADE_REL}")
+    return err
+
+
+def phase_grades_kernels(pk, pro_gan) -> list[dict]:
+    """B1, B2 "lrelu_norm" and B3 in kernel mode "default" at the main path's
+    shapes (batch 2) against their bf16 twins, two runs bit-equal, timed beside
+    the bf16 bound and cuDNN on bf16 tensors with the epilogues."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    dev = "cuda"
+
+    def feats(*shape):
+        return pro_gan.pixel_norm(torch.randn(shape, device=dev, generator=gen))
+
+    def conv_w(cout, cin, k=3, gain=math.sqrt(2.0)):
+        w = torch.randn((cout, cin, k, k), device=dev, generator=gen)
+        return w * (gain / math.sqrt(cin * k * k))
+
+    def bias(n):
+        return 0.1 * torch.randn(n, device=dev, generator=gen)
+
+    def lrelu_norm(t):
+        return pro_gan.pixel_norm(pro_gan.lrelu(t.float()))
+
+    bf = torch.bfloat16
+    B = BATCH_KERNELS
+    rows = []
+
+    up_calls = []
+    for label, c, cout, h, rgb in (("stage7", 128, 64, 256, False),
+                                   ("stage8+rgb", 64, 32, 512, True)):
+        x, w, b = feats(B, c, h, h), conv_w(cout, c), bias(cout)
+        kw = {"rgb_w": conv_w(3, c, 1, 1.0).reshape(3, c), "rgb_b": bias(3)} if rgb else {}
+        got = pk.packed_upconv(x, w, b, mode="default", **kw)
+        check_two_runs(f"packed_upconv[default,{label}]", got,
+                       pk.packed_upconv(x, w, b, mode="default", **kw))
+        want = pk.packed_upconv_plain(x, w, b, mode="default", **kw)
+        got, want = (got, want) if rgb else ((got,), (want,))
+        err = max(check_rel(f"packed_upconv[default,{label}]", g, t) for g, t in zip(got, want))
+
+        def library(x=x, w=w, b=b, kw=kw):
+            xb = x.to(bf)
+            y = lrelu_norm(F.conv2d(F.interpolate(xb, scale_factor=2.0, mode="nearest"),
+                                    w.to(bf), b.to(bf), padding=1))
+            if kw:
+                return y, F.conv2d(xb, kw["rgb_w"].to(bf)[:, :, None, None], kw["rgb_b"].to(bf))
+            return y
+
+        up_calls.append({
+            "call": label, "shape_in": [B, c, h, h], "max_abs_err": err, "bit_equal_runs": True,
+            "ms": cuda_ms(lambda: pk.packed_upconv(x, w, b, mode="default", **kw)),
+            "plain_ms": cuda_ms(lambda: pk.packed_upconv_plain(x, w, b, mode="default", **kw)),
+            "library_ms": cuda_ms(library),
+            "flops": 2 * 4 * c * cout * B * 4 * h * h + (2 * c * 3 * B * h * h if rgb else 0),
+            "bytes": 4 * (B * c * h * h + B * cout * 4 * h * h + cout
+                          + ((3 * c + 3 + B * 3 * h * h) if rgb else 0)) + 2 * 16 * c * cout,
+            "peak_flops": PEAK_BF16_FLOPS,
+        })
+        del x, got, want
+    rows.append(("packed_upconv[default]", "packed_upconv_bf16",
+                 "probgan_tpu/ops/pallas_packed.py:832", up_calls))
+
+    c, cout, h = 64, 64, 512
+    x, w, b = feats(B, c, h, h), conv_w(cout, c), bias(cout)
+    got = pk.packed_conv(x, w, b, mode="default")
+    check_two_runs("packed_conv[default]", got, pk.packed_conv(x, w, b, mode="default"))
+    err = check_rel("packed_conv[default]", got, pk.packed_conv_plain(x, w, b, mode="default"))
+    rows.append(("packed_conv[default]", "packed_conv_bf16",
+                 "probgan_tpu/ops/pallas_packed.py:382", [{
+                     "call": "stage7", "shape_in": [B, c, h, h], "bit_equal_runs": True,
+                     "max_abs_err": err,
+                     "ms": cuda_ms(lambda: pk.packed_conv(x, w, b, mode="default")),
+                     "plain_ms": cuda_ms(lambda: pk.packed_conv_plain(x, w, b, mode="default")),
+                     "library_ms": cuda_ms(lambda: lrelu_norm(F.conv2d(
+                         x.to(bf), w.to(bf), b.to(bf), padding=1))),
+                     "flops": 2 * 9 * c * cout * B * h * h,
+                     "bytes": 4 * (2 * B * c * h * h + cout) + 2 * 9 * c * cout,
+                     "peak_flops": PEAK_BF16_FLOPS}]))
+    del x, got
+
+    # B3 at stage 8 (32 -> 32 at 1024²): uint8 at alpha 1 (the main path's,
+    # timed), fp32 at a fade-in alpha
+    c, h = 32, 1024
+    x, w, b = feats(B, c, h, h), conv_w(c, c), bias(c)
+    rgb_w, rgb_b = conv_w(3, c, 1, 1.0).reshape(3, c), bias(3)
+    prev = 0.5 * torch.randn((B, 3, h // 2, h // 2), device=dev, generator=gen)
+    args = (x, w, b, rgb_w, rgb_b, prev)
+    got = pk.packed_conv_rgb(*args, 0.3, mode="default")
+    check_two_runs("packed_conv_rgb[default,fp32]", got,
+                   pk.packed_conv_rgb(*args, 0.3, mode="default"))
+    err_fp32 = check_rel("packed_conv_rgb[default,fp32]", got,
+                         pk.packed_conv_rgb_plain(*args, 0.3, mode="default"), flips=True)
+    got = pk.packed_conv_rgb(*args, 1.0, emit_uint8=True, mode="default")
+    again = pk.packed_conv_rgb(*args, 1.0, emit_uint8=True, mode="default")
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("packed_conv_rgb[default,uint8]: two runs on one input differ")
+    worst, _, psnr = check_uint8(
+        "packed_conv_rgb[default] uint8 vs plain", got.cpu().numpy(),
+        pk.packed_conv_rgb_plain(*args, 1.0, emit_uint8=True, mode="default").cpu().numpy())
+
+    def library():
+        feat = lrelu_norm(F.conv2d(x.to(bf), w.to(bf), b.to(bf), padding=1))
+        rgb = F.conv2d(feat.to(bf), rgb_w.to(bf)[:, :, None, None], rgb_b.to(bf)).float()
+        up = F.interpolate(prev, scale_factor=2.0, mode="nearest")
+        return pro_gan.to_uint8((up + 1.0 * (rgb - up)).permute(0, 2, 3, 1))
+
+    rows.append(("packed_conv_rgb[default]", "packed_conv_rgb_bf16",
+                 "probgan_tpu/ops/pallas_packed.py:678", [{
+                     "call": "stage8", "shape_in": [B, c, h, h], "max_abs_err": float(worst),
+                     "max_abs_err_fp32": err_fp32, "psnr_db": finite_or_none(psnr),
+                     "bit_equal_runs": True,
+                     "ms": cuda_ms(lambda: pk.packed_conv_rgb(*args, 1.0, emit_uint8=True,
+                                                              mode="default")),
+                     "fp32_ms": cuda_ms(lambda: pk.packed_conv_rgb(*args, 0.3, mode="default")),
+                     "plain_ms": cuda_ms(lambda: pk.packed_conv_rgb_plain(
+                         *args, 1.0, emit_uint8=True, mode="default")),
+                     "library_ms": cuda_ms(library),
+                     "flops": 2 * 9 * c * c * B * h * h + 2 * c * 3 * B * h * h,
+                     "bytes": 4 * (B * c * h * h + c + 3 * c + 3 + B * 3 * (h // 2) ** 2)
+                     + 2 * 9 * c * c + B * h * h * 3,
+                     "peak_flops": PEAK_BF16_FLOPS}]))
+    return assemble_conv_rows(rows, B)
+
+
+def phase_grades_path(pk, pro_gan, engine_mod) -> tuple[dict, dict]:
+    """``generate`` at 1024², batch 8, at "high", "fast", None and dtype bf16
+    on one set of seeded weights and latents; "high" again at the end, which
+    must give the first "high" images bit for bit; "fast" must reach the 50 dB
+    bar against "high" and launch the "default" kernels only. ``score`` at
+    None against "high"."""
+    cfg = pro_gan.ProGANConfig()
+    stage = cfg.num_stages - 1
+    first = engine_mod.ImageGANEngine(cfg, device="cuda", precision="high", seed=0)
+    latents = [first.sample_latents(BATCH_MAIN) for _ in range(GRADE_CALLS)]
+    runs = [("high", torch.float32), ("fast", torch.float32), (None, torch.float32),
+            ("high", torch.bfloat16), ("high", torch.float32)]
+    path, images, counts = {"batch": BATCH_MAIN, "calls": GRADE_CALLS}, [], {}
+    for grade, dtype in runs:
+        engine = engine_mod.ImageGANEngine(cfg, g_params=first.g_params, d_params=first.d_params,
+                                           device="cuda", precision=grade, dtype=dtype)
+        engine.generate(latents[0])  # warm-up (cuDNN plans)
+        torch.cuda.synchronize()
+        pk.reset_launches()
+        times = []
+        for z in latents:
+            t0 = time.perf_counter()
+            img = engine.generate(z)
+            times.append(time.perf_counter() - t0)
+        launched = dict(pk.launches)
+        label = f"{grade}" + ("" if dtype == torch.float32 else " bf16")
+        if grade == "fast":
+            counts = launched
+        images.append(img)
+        _, share, psnr = uint8_agreement(img, images[0])
+        per_img_ms = sorted(t / BATCH_MAIN * 1e3 for t in times)
+        path[label if label not in path else f"{label} (last)"] = {
+            "img_per_s": BATCH_MAIN * GRADE_CALLS / sum(times),
+            "p50_ms_per_img": float(np.median(per_img_ms)), "batch_s": times,
+            "psnr_vs_high_db": finite_or_none(psnr), "differing_bytes_vs_high": share,
+            "launches": launched,
+        }
+        print(f"  generate at {label}: {BATCH_MAIN * GRADE_CALLS / sum(times):.3f} img/s, p50 "
+              f"{float(np.median(per_img_ms)):.3f} ms/img, PSNR {psnr:.2f} dB vs \"high\" "
+              f"({share:.4%} of bytes differ), launches {launched}")
+        del engine
+    fast = path["fast"]["psnr_vs_high_db"]
+    if fast is not None and fast < PSNR_FLOOR_DB:
+        raise AssertionError(f"\"fast\" generate: PSNR {fast:.2f} dB < {PSNR_FLOOR_DB} dB")
+    want = {**{k: 0 for k in BF16_KERNELS},
+            **{v: n * GRADE_CALLS for v, n in
+               (("packed_upconv_bf16", 2), ("packed_conv_bf16", 1),
+                ("packed_conv_rgb_bf16", 1))}}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"\"fast\" generate launched {counts}, expected {want}")
+    if not np.array_equal(images[-1], images[0]):
+        raise AssertionError("\"high\" after \"fast\", None and bf16 is not \"high\" alone, "
+                             "bit for bit")
+    print("  \"high\" after \"fast\", None and bf16: bit-equal to the first \"high\" run")
+
+    # score at None (D unpacked: the gate declines None, TF32 convs) against
+    # "high" (D's two packed stages on the fp32 kernels)
+    reals = torch.as_tensor(images[0], device="cuda").float() / 127.5 - 1.0
+    logits = {}
+    for grade in ("high", None):
+        engine = engine_mod.ImageGANEngine(cfg, g_params=first.g_params, d_params=first.d_params,
+                                           device="cuda", precision=grade)
+        logits[grade] = engine.score(reals)
+    diff = float(np.abs(logits[None] - logits["high"]).max())
+    path["score_none_vs_high_max_abs_diff"] = diff
+    path["score_logits_high"] = logits["high"].tolist()
+    print(f"  score at None vs \"high\": largest |logit difference| {diff:.3g} "
+          f"(logits up to {float(np.abs(logits['high']).max()):.3g})")
+    del first
+    # the kernel entries' launches are those of the "fast" generate calls
+    return {f"{k}[default]": counts[v] for k, v in BF16_KERNELS.items()}, path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2529,6 +2765,14 @@ def main() -> int:
     fused_counts, fused_path = phase_fused_path(pk, rf, pro_gan, engine_mod, cli_infer,
                                                 cli_train, inference_mod)
     counts.update(fused_counts)
+    torch.cuda.empty_cache()
+
+    print("phase 12: the grades: kernel mode \"default\" of B1, B2 and B3 vs their bf16 twins "
+          "(batch 2); generate at 1024² at \"high\", \"fast\", None and bf16; score at None")
+    kernels += phase_grades_kernels(pk, pro_gan)
+    torch.cuda.empty_cache()
+    grade_counts, grades = phase_grades_path(pk, pro_gan, engine_mod)
+    counts.update(grade_counts)
     for k in kernels:
         k["launches"] = counts[k["name"]]
         if k["launches"] < 1:
@@ -2537,7 +2781,7 @@ def main() -> int:
     print(card_line())
     print(json.dumps({"kernels": kernels, "main_path": main, "score_path": score_path,
                       "kg_path": kg, "train_path": train, "fused_path": fused_path,
-                      "card": card}, allow_nan=False))
+                      "grades": grades, "card": card}, allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

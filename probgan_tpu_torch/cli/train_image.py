@@ -19,10 +19,12 @@ On the card (``--device auto``, the default, or ``cuda``) the D step renders
 its fake batch through the forward-only packed kernels unless
 ``PROBGAN_PACKED=0`` (``engine/image.py:packed_default``); under
 ``PROBGAN_STAGE_FUSED=1`` each packed stage is one kernel. ``--device cpu``
-runs the plain path. Flags that need a piece the port does not have yet exit
-1 before the first step, naming the ROADMAP item: ``--bf16``, ``--fast`` and
-``--packed_mode default|mid`` with ``--packed_d``/``--packed_g`` (the bf16
-grades), ``--mesh`` (A11) and ``--device tpu``. ``--debug`` raises
+runs the plain path. ``--bf16`` trains the unpacked path in bf16 (params,
+Adam and the loss math stay fp32), as the JAX trainer does. Flags that need a
+piece the port does not have yet exit 1 before the first step, naming the
+ROADMAP item: ``--packed_d``/``--packed_g`` with ``--bf16`` or with
+``--packed_mode default|mid``, and ``--fast`` (which implies all three: the
+bf16 backward kernels), ``--mesh`` (A11) and ``--device tpu``. ``--debug`` raises
 FloatingPointError at the first loss that is not finite, naming the stage,
 epoch and step (the JAX package turns on ``jax_debug_nans`` instead).
 
@@ -41,7 +43,7 @@ import time
 import numpy as np
 import torch
 
-_BF16_ITEM = 'ROADMAP "Next, in order": the bf16 / TF32 grades'
+_BF16_ITEM = "ROADMAP B.a.1: the bf16 backward, B6 'default', B2 'none', B5 'none'"
 _DEVICE_DATA_LIMIT = 4 * 1024**3  # bytes of uint8 images kept on the card
 
 
@@ -141,7 +143,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Generator EMA decay (0 disables; EMA weights "
                         "are what generate_images serves by default)")
     parser.add_argument("--bf16", action="store_true",
-                        help=f"bf16 training: not ported yet, exits 1 ({_BF16_ITEM})")
+                        help="Mixed-precision training: the unpacked convs run bfloat16 "
+                        "(params, EMA, optimizer state and loss math stay fp32); with "
+                        f"--packed_d/--packed_g it exits 1 ({_BF16_ITEM})")
     parser.add_argument("--packed_d", action="store_true",
                         help="Run the leading D stages on the packed kernels "
                         "for forward AND backward (ops/packed_vjp.py); only "
@@ -154,10 +158,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Grade of the packed training kernels when "
                         "--packed_d/--packed_g engage: 'high' is fp32; the "
                         "bf16 grades 'default' and 'mid' exit 1 until "
-                        f"ported ({_BF16_ITEM})")
+                        f"ported ({_BF16_ITEM}). Without them the step runs fp32")
     parser.add_argument("--fast", action="store_true",
                         help="The JAX package's fast preset (--bf16 --packed_d "
-                        f"--packed_g): exits 1 until the bf16 grades land ({_BF16_ITEM})")
+                        f"--packed_g): exits 1 until the bf16 backward lands ({_BF16_ITEM})")
     parser.add_argument("--r1_gamma", type=float, default=0.0,
                         help="R1 zero-centered gradient penalty on reals "
                         "(gamma/2 * E[||grad_x D||^2]). 0 disables. Applied "
@@ -200,9 +204,11 @@ def _unported(args) -> str | None:
     if args.device == "tpu":
         return ("--device tpu: the port runs on a CUDA card (auto, cuda) or on "
                 "the CPU (cpu)")
-    if args.fast or args.bf16:
-        flag = "--fast" if args.fast else "--bf16"
-        return f"{flag} needs the bf16 training grade, not ported yet ({_BF16_ITEM})"
+    if args.fast:
+        return f"--fast needs the packed bf16 training grade, not ported yet ({_BF16_ITEM})"
+    if args.bf16 and (args.packed_d or args.packed_g):
+        return ("--bf16 with --packed_d/--packed_g: the packed training paths take fp32 "
+                f"only, not ported yet ({_BF16_ITEM})")
     if (args.packed_d or args.packed_g) and args.packed_mode != "high":
         return (f"--packed_mode {args.packed_mode} is a bf16 grade of the packed "
                 f"kernels, not ported yet ({_BF16_ITEM}); use --packed_mode high")
@@ -345,6 +351,7 @@ def main(argv: list[str] | None = None) -> int:
     opt_steps = (start_stage * args.epochs_per_stage + start_epoch) * steps_per_epoch
     last_save = time.time()
     step_kwargs = dict(
+        dtype=torch.bfloat16 if args.bf16 else torch.float32,
         ema_beta=args.ema_beta,
         packed_fake=packed_fake,
         packed_d=args.packed_d,

@@ -38,43 +38,48 @@ def packed_default(device) -> bool:
 
 
 def generate_fn(g_params: dict, z: torch.Tensor, alpha,
-                config: pro_gan.ProGANConfig, stage: int,
-                precision="high", use_pallas: bool = False,
+                config: pro_gan.ProGANConfig, stage: int, dtype=torch.float32,
+                use_pallas: bool = False, precision=None,
                 packed: bool | None = None) -> torch.Tensor:
     """Latent [B, L] -> uint8 images [B, R, R, 3], on z's device. With
     ``packed`` (None: ``packed_default`` of z's device) the eligible late
     stages run on ops/packed.py, where the tanh->uint8 denorm is fused into
-    the final kernel. With ``use_pallas``
-    the generator emits fp32 RGB and ``to_uint8_fused`` (ops/image.py)
-    denormalizes it in a pass of its own. ``precision``: "high" (the serving
-    default) or "highest", both fp32 with TF32 off."""
+    the final kernel; fp32 ``dtype`` only (bf16 runs unpacked). With
+    ``use_pallas`` the generator emits fp32 RGB and ``to_uint8_fused``
+    (ops/image.py) denormalizes it in a pass of its own. ``precision``: the
+    grade (models/pro_gan.py ``_PRECISIONS``): None/"default" (TF32 convs,
+    the packed stages in one bf16 pass), "fast" (fp32 convs, the packed stages
+    in one bf16 pass: the serving grade above the 50 dB bar), "high" and
+    "highest" (fp32 throughout)."""
     if packed is None:
         packed = packed_default(z.device)
     with torch.inference_mode():
         if use_pallas:
-            rgb = pro_gan.generator_rgb(g_params, z, config, stage, alpha,
+            rgb = pro_gan.generator_rgb(g_params, z, config, stage, alpha, dtype,
                                         precision, packed=packed)
-            return image_ops.to_uint8_fused(rgb)
-        return pro_gan.generator_apply(g_params, z, config, stage, alpha,
+            return image_ops.to_uint8_fused(rgb.float())
+        return pro_gan.generator_apply(g_params, z, config, stage, alpha, dtype,
                                        precision, packed=packed)
 
 
 def score_fn(d_params: dict, images: torch.Tensor, alpha,
-             config: pro_gan.ProGANConfig, stage: int,
-             precision="high", packed: bool | None = None) -> torch.Tensor:
-    """Float images [B, R, R, 3] (~[-1, 1]) -> realness logits [B], on the
-    images' device; with ``packed`` (None: ``packed_default`` of that device)
-    the leading discriminator stages run on ops/packed.py."""
+             config: pro_gan.ProGANConfig, stage: int, dtype=torch.float32,
+             precision=None, packed: bool | None = None) -> torch.Tensor:
+    """Float images [B, R, R, 3] (~[-1, 1]) -> realness logits [B] in
+    ``dtype``, on the images' device; with ``packed`` (None:
+    ``packed_default`` of that device) the leading discriminator stages run
+    on ops/packed.py at "high" and "highest" (the gate declines None and
+    "default"; "fast" needs D's kernel mode "mid", which raises)."""
     if packed is None:
         packed = packed_default(images.device)
     with torch.inference_mode():
         return pro_gan.discriminator_apply(d_params, images, config, stage,
-                                           alpha, precision, packed=packed)
+                                           alpha, dtype, precision, packed=packed)
 
 
 def latent_walk_fn(g_params: dict, z0: torch.Tensor, z1: torch.Tensor, alpha,
                    config: pro_gan.ProGANConfig, stage: int, frames: int,
-                   precision="high", use_pallas: bool = False,
+                   dtype=torch.float32, use_pallas: bool = False, precision=None,
                    chunk: int = WALK_CHUNK, packed: bool | None = None) -> torch.Tensor:
     """Interpolate z0 -> z1 (each [L]) linearly in ``frames`` steps and
     render each: uint8 [frames, R, R, 3]. Frames render in generator batches
@@ -82,13 +87,16 @@ def latent_walk_fn(g_params: dict, z0: torch.Tensor, z1: torch.Tensor, alpha,
     zero-padded to full size and cut, so every batch has one shape."""
     t = torch.linspace(0.0, 1.0, frames, dtype=z0.dtype, device=z0.device)[:, None]
     z = z0[None, :] * (1.0 - t) + z1[None, :] * t
+
+    def render(zc):
+        return generate_fn(g_params, zc, alpha, config, stage, dtype, use_pallas,
+                           precision, packed)
+
     if frames <= chunk:
-        return generate_fn(g_params, z, alpha, config, stage, precision, use_pallas, packed)
+        return render(z)
     pad = (-frames) % chunk
     z = torch.nn.functional.pad(z, (0, 0, 0, pad))
-    imgs = [generate_fn(g_params, zc, alpha, config, stage, precision, use_pallas, packed)
-            for zc in z.split(chunk)]
-    return torch.cat(imgs)[:frames]
+    return torch.cat([render(zc) for zc in z.split(chunk)])[:frames]
 
 
 def to_device(tree, device: torch.device):
@@ -107,11 +115,13 @@ class ImageGANEngine:
 
     def __init__(self, config: pro_gan.ProGANConfig, g_params: dict | None = None,
                  d_params: dict | None = None, device: str = "auto", seed: int = 0,
-                 use_pallas: bool | None = None, mesh=None,
-                 precision: str = "high"):
+                 dtype=torch.float32, use_pallas: bool | None = None, mesh=None,
+                 precision: str | None = "high"):
         """``device``: "auto"/"cuda"/"gpu" (the first card; raise without
-        one) or "cpu" (plain twins). ``precision``: "high" (default) or
-        "highest"; the bf16 grades raise NotImplementedError.
+        one) or "cpu" (plain twins). ``precision``: the serving grade, "high"
+        (default), "highest", "fast", or None/"default" (see ``generate_fn``).
+        ``dtype``: float32, or bfloat16 for the unpacked path in bf16 (the
+        packed paths take fp32 only, so with bf16 the engine is unpacked).
         ``g_params`` / ``d_params``: the port's param trees (see
         core/convert.py for JAX trees); None initializes from ``seed``.
         ``use_pallas``: run the separate denorm kernel instead of the fused
@@ -124,15 +134,16 @@ class ImageGANEngine:
                 f"mesh={mesh!r}: data-parallel generate/score over several "
                 "cards is not ported yet (ROADMAP A11)"
             )
-        pro_gan._require_fp32_grade(precision)
+        pro_gan.resolve_precision(precision)  # an unknown grade raises here
         self.config = config
         self.device = resolve_device(device)
+        self.dtype = dtype
         self.precision = precision
         if use_pallas is None:
             use_pallas = os.environ.get("PROBGAN_PALLAS_UINT8", "0") == "1"
         self.use_pallas = bool(use_pallas)
         # the packed paths on the card unless PROBGAN_PACKED=0, at construction
-        self.packed = packed_default(self.device)
+        self.packed = packed_default(self.device) and dtype == torch.float32
         self._rng = RngStream(seed)
         if g_params is None:
             g_params = pro_gan.init_generator(
@@ -164,8 +175,8 @@ class ImageGANEngine:
             stage = self.final_stage
         z = self._place(latents)
         with task_trace("generate_images"):
-            img = generate_fn(self.g_params, z, alpha, self.config, stage,
-                              self.precision, self.use_pallas, self.packed)
+            img = generate_fn(self.g_params, z, alpha, self.config, stage, self.dtype,
+                              self.use_pallas, self.precision, self.packed)
             return img.cpu().numpy()
 
     def score(self, images, stage: int | None = None,
@@ -177,9 +188,9 @@ class ImageGANEngine:
             stage = self.final_stage
         x = self._place(images)
         with task_trace("score_images"):
-            logits = score_fn(self.d_params, x, alpha, self.config, stage,
+            logits = score_fn(self.d_params, x, alpha, self.config, stage, self.dtype,
                               self.precision, self.packed)
-            return logits.cpu().numpy()
+            return logits.float().cpu().numpy()
 
     def latent_walk(self, z0, z1, frames: int = 64, stage: int | None = None,
                     alpha: float = 1.0) -> np.ndarray:
@@ -189,7 +200,7 @@ class ImageGANEngine:
             stage = self.final_stage
         z0, z1 = self._place(z0), self._place(z1)
         with task_trace("latent_walk"):
-            img = latent_walk_fn(self.g_params, z0, z1, alpha, self.config,
-                                 stage, frames, self.precision, self.use_pallas,
+            img = latent_walk_fn(self.g_params, z0, z1, alpha, self.config, stage,
+                                 frames, self.dtype, self.use_pallas, self.precision,
                                  packed=self.packed)
             return img.cpu().numpy()

@@ -139,8 +139,16 @@ def progan_init_state(generator: torch.Generator | int, config: pro_gan.ProGANCo
                             g_params)
 
 
-def _progan_loss_fns(g_ref_params, config, stage, alpha, packed_fake, remat, packed_d,
-                     packed_g, packed_train_mode, r1_gamma=0.0):
+# The grade of a step's unpacked convs and of its forward-only fake render,
+# named by ``packed_train_mode``: "default" (one bf16 pass in the kernels)
+# goes with TF32 (models/pro_gan.py _PRECISIONS: the JAX step runs its XLA
+# convs at that class, Precision.DEFAULT, whatever the mode), the others with
+# fp32. The port's default mode is "highest", so a step is fp32 unless asked.
+_STEP_PRECISION = {"default": "default", "mid": "high", "high": "high", "highest": "highest"}
+
+
+def _progan_loss_fns(g_ref_params, config, stage, alpha, dtype, packed_fake, remat,
+                     packed_d, packed_g, packed_train_mode, r1_gamma=0.0):
     """The two loss closures both step variants differentiate.
 
     ``d_loss_fn(d_params, real, z)``: non-saturating D loss; the fake batch
@@ -156,23 +164,26 @@ def _progan_loss_fns(g_ref_params, config, stage, alpha, packed_fake, remat, pac
     whatever path was configured."""
     d_mode = packed_train_mode if packed_d else None
     g_mode = packed_train_mode if packed_g else None
+    prec = _STEP_PRECISION[packed_train_mode]
 
     def r1_penalty(d_params, real_images):
         imgs = real_images.detach().float().requires_grad_(True)
-        logits = pro_gan.discriminator_apply(d_params, imgs, config, stage, alpha,
-                                             remat=remat)
+        logits = pro_gan.discriminator_apply(d_params, imgs, config, stage, alpha, dtype,
+                                             prec, remat=remat)
         (g,) = torch.autograd.grad(logits.float().sum(), imgs, create_graph=True)
         return g.square().sum(dim=(1, 2, 3)).mean()
 
     def d_loss_fn(d_params, real_images, z):
         with torch.no_grad():
-            fake = pro_gan.generator_rgb(g_ref_params, z, config, stage, alpha,
+            fake = pro_gan.generator_rgb(g_ref_params, z, config, stage, alpha, dtype, prec,
                                          packed=packed_fake, packed_mode=g_mode)
+        # Logits go to fp32 before the loss: with dtype bfloat16 the convs run
+        # in bf16 and the loss math in fp32, as in the JAX step.
         real_logits = pro_gan.discriminator_apply(
-            d_params, real_images, config, stage, alpha, remat=remat, packed=packed_d,
-            packed_mode=d_mode).float()
+            d_params, real_images, config, stage, alpha, dtype, prec, remat=remat,
+            packed=packed_d, packed_mode=d_mode).float()
         fake_logits = pro_gan.discriminator_apply(
-            d_params, fake, config, stage, alpha, remat=remat, packed=packed_d,
+            d_params, fake, config, stage, alpha, dtype, prec, remat=remat, packed=packed_d,
             packed_mode=d_mode).float()
         loss = F.softplus(-real_logits).mean() + F.softplus(fake_logits).mean()
         if r1_gamma > 0.0:
@@ -180,27 +191,30 @@ def _progan_loss_fns(g_ref_params, config, stage, alpha, packed_fake, remat, pac
         return loss, (real_logits.mean().detach(), fake_logits.mean().detach())
 
     def g_loss_fn(g_params, d_params, z):
-        fake = pro_gan.generator_rgb(g_params, z, config, stage, alpha, remat=remat,
-                                     packed_mode=g_mode)
+        fake = pro_gan.generator_rgb(g_params, z, config, stage, alpha, dtype, prec,
+                                     remat=remat, packed_mode=g_mode)
         fake_logits = pro_gan.discriminator_apply(
-            d_params, fake, config, stage, alpha, remat=remat, packed=packed_d,
+            d_params, fake, config, stage, alpha, dtype, prec, remat=remat, packed=packed_d,
             packed_mode=d_mode).float()
         return F.softplus(-fake_logits).mean()
 
     return d_loss_fn, g_loss_fn
 
 
-def _check_step_args(dtype, packed_train_mode, axis_names) -> None:
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"dtype {dtype} needs a bf16 kernel grade, which the port does not have "
-            'yet (ROADMAP "Next, in order": the bf16 / TF32 grades); use '
-            "torch.float32")
-    pro_gan._require_fp32_packed_mode(packed_train_mode)
+def _check_step_args(dtype, packed_train_mode, axis_names, packed_d, packed_g) -> str:
+    """The step's grade (``_STEP_PRECISION``); raises for what the port does
+    not have yet: the packed training paths below fp32, and ``axis_names``."""
+    if packed_train_mode not in _STEP_PRECISION:
+        raise ValueError(f"packed_train_mode {packed_train_mode!r} is not one of "
+                         f"{tuple(_STEP_PRECISION)}")
+    if packed_d or packed_g:
+        pro_gan.require_fp32_train_mode(packed_train_mode)
+        pro_gan.require_fp32_train_dtype(dtype)
     if axis_names is not None:
         raise NotImplementedError(
             "axis_names (a step inside a data-parallel mesh) waits for the "
-            'multi-device forms (ROADMAP "Next, in order": torch.distributed)')
+            "multi-device forms (ROADMAP A2)")
+    return _STEP_PRECISION[packed_train_mode]
 
 
 def _ema(g_ema, g_params, ema_beta: float):
@@ -224,19 +238,21 @@ def _g_grads(g_loss_fn, g_params, d_params, z):
 
 
 def progan_grads(state: ProGANTrainState, real_images, z, alpha, config, stage, *,
-                 packed_fake=False, remat=True, packed_d=False, packed_g=False,
-                 packed_train_mode="highest", r1_gamma=0.0):
+                 dtype=torch.float32, packed_fake=False, remat=True, packed_d=False,
+                 packed_g=False, packed_train_mode="highest", r1_gamma=0.0):
     """The raw gradients of the two losses ``progan_train_step`` feeds to
     Adam, both at the state's own parameters, as trees: (d_grads, g_grads,
     metrics). For comparing paths (kernels, plain twins, unpacked) where the
     parameters after Adam are the wrong observable: a first Adam update is
     sign-like."""
+    prec = _check_step_args(dtype, packed_train_mode, None, packed_d, packed_g)
     d_loss_fn, g_loss_fn = _progan_loss_fns(
-        state.g_params, config, stage, alpha, packed_fake, remat, packed_d, packed_g,
+        state.g_params, config, stage, alpha, dtype, packed_fake, remat, packed_d, packed_g,
         packed_train_mode, r1_gamma)
-    d_grads, (d_loss, real_mean, fake_mean) = _d_grads(
-        d_loss_fn, state.d_params, real_images, z)
-    g_grads, g_loss = _g_grads(g_loss_fn, state.g_params, state.d_params, z)
+    with pro_gan.precision_scope(prec):  # the backward's convs too
+        d_grads, (d_loss, real_mean, fake_mean) = _d_grads(
+            d_loss_fn, state.d_params, real_images, z)
+        g_grads, g_loss = _g_grads(g_loss_fn, state.g_params, state.d_params, z)
     metrics = {"d_loss": d_loss, "g_loss": g_loss, "real_logit": real_mean,
                "fake_logit": fake_mean}
     return (tree_unflatten(state.d_params, d_grads),
@@ -271,22 +287,27 @@ def progan_train_step(
     kernels (legal: it runs under ``no_grad``). ``packed_d`` / ``packed_g``:
     run the late stages of D / G on the kernels, forward AND backward
     (ops/packed_vjp.py); ``packed_g`` supersedes ``packed_fake``.
-    ``packed_train_mode``: the kernels' grade; the port has the fp32 one
-    ("high", "highest"), the bf16 grades "default" and "mid" raise
-    NotImplementedError, as does a ``dtype`` other than float32.
+    ``packed_train_mode``: the step's grade. With ``packed_d``/``packed_g``
+    it is the kernels' grade, of which the port has the fp32 ones ("high",
+    "highest"; "default" and "mid" raise NotImplementedError there). It also
+    sets the grade of the unpacked convs and of the fake render
+    (``_STEP_PRECISION``): "default" takes TF32, the others fp32.
+    ``dtype``: float32, or bfloat16 for the unpacked path (params, Adam and
+    the loss math stay fp32); bf16 with ``packed_d``/``packed_g`` raises.
     ``remat``: checkpoint each unpacked stage block (models/pro_gan.py); it
     changes no number. ``axis_names`` is not ported and raises if given."""
-    _check_step_args(dtype, packed_train_mode, axis_names)
+    prec = _check_step_args(dtype, packed_train_mode, axis_names, packed_d, packed_g)
     opt = progan_optimizer(lr)
     d_loss_fn, g_loss_fn = _progan_loss_fns(
-        state.g_params, config, stage, alpha, packed_fake, remat, packed_d, packed_g,
+        state.g_params, config, stage, alpha, dtype, packed_fake, remat, packed_d, packed_g,
         packed_train_mode, r1_gamma)
 
-    d_grads, (d_loss, real_mean, fake_mean) = _d_grads(
-        d_loss_fn, state.d_params, real_images, z)
-    d_params, d_opt = adam_update(opt, state.d_params, d_grads, state.d_opt)
-    g_grads, g_loss = _g_grads(g_loss_fn, state.g_params, d_params, z)
-    g_params, g_opt = adam_update(opt, state.g_params, g_grads, state.g_opt)
+    with pro_gan.precision_scope(prec):  # the backward's convs too
+        d_grads, (d_loss, real_mean, fake_mean) = _d_grads(
+            d_loss_fn, state.d_params, real_images, z)
+        d_params, d_opt = adam_update(opt, state.d_params, d_grads, state.d_opt)
+        g_grads, g_loss = _g_grads(g_loss_fn, state.g_params, d_params, z)
+        g_params, g_opt = adam_update(opt, state.g_params, g_grads, state.g_opt)
 
     metrics = {"d_loss": d_loss, "g_loss": g_loss, "real_logit": real_mean,
                "fake_logit": fake_mean}
@@ -319,10 +340,10 @@ def progan_train_step_accum(
     statistics are per MICROBATCH. Both G and D see every microbatch before
     their one update, and the D update still lands before the G gradients are
     taken."""
-    _check_step_args(dtype, packed_train_mode, None)
+    prec = _check_step_args(dtype, packed_train_mode, None, packed_d, packed_g)
     opt = progan_optimizer(lr)
     d_loss_fn, g_loss_fn = _progan_loss_fns(
-        state.g_params, config, stage, alpha, packed_fake, remat, packed_d, packed_g,
+        state.g_params, config, stage, alpha, dtype, packed_fake, remat, packed_d, packed_g,
         packed_train_mode, r1_gamma)
     n_accum = real_images.shape[0]
     inv = 1.0 / n_accum
@@ -335,16 +356,17 @@ def progan_train_step_accum(
             sums = vals if sums is None else tuple(s + v for s, v in zip(sums, vals))
         return torch._foreach_mul(total, inv), tuple(s * inv for s in sums)
 
-    d_grads, (d_loss, real_mean, fake_mean) = mean_over_microbatches(
-        lambda i: _d_grads(d_loss_fn, state.d_params, real_images[i], z[i]))
-    d_params, d_opt = adam_update(opt, state.d_params, d_grads, state.d_opt)
+    with pro_gan.precision_scope(prec):  # the backward's convs too
+        d_grads, (d_loss, real_mean, fake_mean) = mean_over_microbatches(
+            lambda i: _d_grads(d_loss_fn, state.d_params, real_images[i], z[i]))
+        d_params, d_opt = adam_update(opt, state.d_params, d_grads, state.d_opt)
 
-    def g_micro(i):
-        grads, loss = _g_grads(g_loss_fn, state.g_params, d_params, z[i])
-        return grads, (loss,)
+        def g_micro(i):
+            grads, loss = _g_grads(g_loss_fn, state.g_params, d_params, z[i])
+            return grads, (loss,)
 
-    g_grads, (g_loss,) = mean_over_microbatches(g_micro)
-    g_params, g_opt = adam_update(opt, state.g_params, g_grads, state.g_opt)
+        g_grads, (g_loss,) = mean_over_microbatches(g_micro)
+        g_params, g_opt = adam_update(opt, state.g_params, g_grads, state.g_opt)
 
     metrics = {"d_loss": d_loss, "g_loss": g_loss, "real_logit": real_mean,
                "fake_logit": fake_mean}

@@ -11,14 +11,17 @@ Internally activations are NCHW. The public functions keep the JAX shapes:
 latents ``[B, L]`` in, ``generator_rgb`` -> ``[B, R, R, 3]`` fp32 and
 ``generator_apply`` -> ``[B, R, R, 3]`` uint8, both NHWC;
 ``discriminator_apply`` takes ``[B, R, R, 3]`` float images and returns
-logits ``[B]``. Of the training-only arguments of the JAX functions,
-``remat`` and ``packed_mode`` are ported; ``stddev_axis`` (a batch sharded
-over a mesh) is not.
+logits ``[B]``. The public functions take the JAX functions' parameters,
+in their order and with their defaults; ``stddev_axis`` (a batch sharded over
+a mesh) raises NotImplementedError when given.
 
-Precision grades: "high" and "highest" both mean fp32 with TF32 off
-(``_require_fp32_grade``). The bf16 grades (None, "default", "fast") need a
-bf16 kernel grade the port does not have yet and raise NotImplementedError;
-so do the bf16 kernel grades "default" and "mid" of ``packed_mode``.
+Precision grades: ``precision`` is one of None, "default", "fast", "high",
+"highest" (``_PRECISIONS``, ``resolve_precision``); what each means on the
+card is set out in one place, above ``_PRECISIONS``. Every public function
+runs inside ``precision_scope``, which sets PyTorch's two TF32 switches for
+its grade and restores them on exit. ``dtype=torch.bfloat16`` runs the
+unpacked path in bf16 (weights cast to the activations' dtype) and never
+takes the packed path, as in the JAX package.
 
 ``remat=True`` checkpoints each unpacked stage block with
 ``torch.utils.checkpoint`` (non-reentrant, so a second-order term can pass
@@ -33,7 +36,9 @@ Resolution of stage s is ``4 * 2**s``; channels ``nf(s) = min(fmap_base //
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import enum
 import math
 import os
 
@@ -45,7 +50,6 @@ from probgan_tpu_torch.ops.fused_upconv import upsample2x_conv3x3
 
 LRELU_SLOPE = 0.2
 _PIXELNORM_EPS = 1e-8
-_FP32_GRADES = ("high", "highest")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,30 +72,132 @@ def stage_resolution(stage: int) -> int:
     return 4 * 2**stage
 
 
-def _require_fp32_grade(precision) -> None:
-    """Accept the fp32 grades and pin both TF32 switches off, process-wide.
-    cuDNN convolutions default to TF32 (``torch.backends.cudnn.allow_tf32``
-    is True), which keeps ~3 decimal digits and would silently drop parity
-    with the fp32 reference; matmuls default to fp32 but are pinned too."""
-    if precision not in _FP32_GRADES:
-        raise NotImplementedError(
-            f"precision grade {precision!r} needs a bf16 kernel grade, which "
-            f"the port does not have yet; use one of {_FP32_GRADES}"
-        )
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+class Precision(enum.Enum):
+    """The port's ``jax.lax.Precision``: what ``resolve_precision`` returns
+    for a grade's name."""
+    DEFAULT = 0
+    HIGH = 1
+    HIGHEST = 2
 
 
-def _require_fp32_packed_mode(packed_mode) -> None:
-    """``packed_mode`` names the kernel grade of the differentiable packed
-    path. The port's kernels have one grade, fp32, which serves "high" and
-    "highest"; the JAX package's "default" and "mid" are bf16 grades."""
-    if packed_mode is not None and packed_mode not in _FP32_GRADES:
+# The grades, and what each means on the card (Hopper). This is the one place
+# that says so:
+#
+#   grade             unpacked convs and matmuls   G's packed stages    D's packed stages
+#   None, "default"   TF32 (cuDNN, cuBLAS)         kernel mode          none: the gate
+#                                                  "default"            declines (0)
+#   "fast"            fp32, TF32 off               "default"            "mid": raises
+#   "high","highest"  fp32, TF32 off               fp32 kernels         fp32 kernels
+#
+# TF32 (operands rounded to 10 mantissa bits, fp32 sums) is the card's
+# counterpart of the TPU's one-pass bf16 Precision.DEFAULT for cuDNN's and
+# cuBLAS's own ops; HIGH and HIGHEST keep fp32 (TF32 off, today's bits).
+# Kernel mode "default" is the Pallas kernels' one bf16 pass: both operands
+# rounded to bf16 (to nearest even), products summed in fp32, on the tensor
+# cores (ops/packed.py). "fast" is the serving grade above the 50 dB bar: the
+# early stages at HIGH and only G's packed late stages in one bf16 pass.
+_PRECISIONS = {
+    None: None,
+    "default": Precision.DEFAULT,
+    "fast": Precision.HIGH,
+    "high": Precision.HIGH,
+    "highest": Precision.HIGHEST,
+}
+
+# Kernel modes of the packed GENERATOR stages by grade: "high" takes the fp32
+# kernels (the JAX package's fp32-exact "highest"), and "fast" one bf16 pass.
+# A "base+final" mode would run the non-final packed stages in ``base`` and
+# the final one in ``final`` (``_g_late_packed``); no grade maps to one.
+_PACKED_MODES = {
+    None: "default",
+    "default": "default",
+    Precision.DEFAULT: "default",
+    "fast": "default",
+    "high": "highest",
+    Precision.HIGH: "highest",
+    "highest": "highest",
+    Precision.HIGHEST: "highest",
+}
+
+# Kernel modes of the packed DISCRIMINATOR stages by grade. The gate declines
+# every other grade (packed_d_stage_count is 0), so None and "default" run D
+# unpacked, as in the JAX package. The port's "high" is its fp32 kernels (the
+# JAX package's is a 3-term bf16 split there): the closer of the two to fp32.
+_PACKED_MODES_D = {
+    "fast": "mid",
+    "high": "high",
+    Precision.HIGH: "high",
+    "highest": "highest",
+    Precision.HIGHEST: "highest",
+}
+
+# The fp32 kernel modes (one set of kernels and bits for both).
+FP32_MODES = ("high", "highest")
+
+
+def resolve_precision(precision):
+    """A grade's name (or None) -> its ``Precision`` (or None); a
+    ``Precision`` passes through."""
+    if isinstance(precision, Precision):
+        return precision
+    if precision not in _PRECISIONS:
+        raise ValueError(f"precision {precision!r} is not one of {tuple(_PRECISIONS)}")
+    return _PRECISIONS[precision]
+
+
+def tf32_allowed(precision) -> bool:
+    """Whether cuDNN's convs and cuBLAS's matmuls may take TF32 at this grade:
+    at None and "default" (see ``_PRECISIONS``)."""
+    return resolve_precision(precision) in (None, Precision.DEFAULT)
+
+
+@contextlib.contextmanager
+def precision_scope(precision):
+    """Inside, ``torch.backends.cudnn.allow_tf32`` and
+    ``torch.backends.cuda.matmul.allow_tf32`` are set for the grade
+    ``precision`` (``tf32_allowed``); on exit both are restored, so a grade
+    holds for one call and no longer. A backward that autograd runs after the
+    forward has returned must run inside the same scope (the train steps do)."""
+    allow = tf32_allowed(precision)
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = allow
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def require_fp32_train_mode(packed_mode) -> None:
+    """``packed_mode`` (the differentiable packed path's kernel grade, the
+    train step's ``packed_train_mode``): None or an fp32 mode. The bf16 modes
+    need the backward kernels in bf16, which the port does not have yet."""
+    if packed_mode is None or packed_mode in FP32_MODES:
+        return
+    if packed_mode in ("default", "mid"):
         raise NotImplementedError(
-            f"packed_mode {packed_mode!r} needs a bf16 kernel grade, which the "
-            f"port does not have yet (ROADMAP \"Next, in order\": the bf16 / "
-            f"TF32 grades); use one of {_FP32_GRADES}"
-        )
+            f"packed_mode {packed_mode!r}: the packed training paths run the fp32 "
+            "kernels only; their bf16 grades need the backward kernels in bf16 "
+            "(ROADMAP B.a.1: B6 'default', B2 'none', B5 'none'); use one of "
+            f"{FP32_MODES}")
+    raise ValueError(f"packed_mode {packed_mode!r} is not one of "
+                     f"{('default', 'mid', *FP32_MODES)}")
+
+
+def require_fp32_train_dtype(dtype) -> None:
+    """The packed training paths take fp32 activations only."""
+    if dtype != torch.float32:
+        raise NotImplementedError(
+            f"dtype {dtype} with the packed training paths: they take fp32 only until "
+            "the bf16 backward kernels land (ROADMAP B.a.1: B6 'default', B2 'none', "
+            "B5 'none'); use torch.float32 or the unpacked path")
+
+
+def _require_no_stddev_axis(stddev_axis) -> None:
+    if stddev_axis is not None:
+        raise NotImplementedError(
+            "stddev_axis (a batch sharded over a mesh) waits for the multi-device "
+            "forms (ROADMAP A2)")
 
 
 def _block_fn(fn, remat: bool):
@@ -121,14 +227,14 @@ def eq_conv(params: dict, x: torch.Tensor,
     """3x3/1x1 SAME conv with runtime He scaling (equalized LR), NCHW."""
     w = params["w"]
     scale = _he_scale(w.shape[1] * w.shape[2] * w.shape[3], gain)
-    out = F.conv2d(x, w * scale, padding=w.shape[2] // 2)
-    return out + params["b"][:, None, None]
+    out = F.conv2d(x, (w * scale).to(x.dtype), padding=w.shape[2] // 2)
+    return out + params["b"].to(x.dtype)[:, None, None]
 
 
 def eq_dense(params: dict, x: torch.Tensor,
              gain: float = math.sqrt(2.0)) -> torch.Tensor:
     w = params["w"]
-    return x @ (w * _he_scale(w.shape[0], gain)) + params["b"]
+    return x @ (w * _he_scale(w.shape[0], gain)).to(x.dtype) + params["b"].to(x.dtype)
 
 
 def lrelu(x: torch.Tensor) -> torch.Tensor:
@@ -194,8 +300,9 @@ def init_generator(config: ProGANConfig,
     }
 
 
-def _g_base(params: dict, z: torch.Tensor, config: ProGANConfig) -> torch.Tensor:
-    z = pixel_norm(z.float())
+def _g_base(params: dict, z: torch.Tensor, config: ProGANConfig,
+            dtype=torch.float32) -> torch.Tensor:
+    z = pixel_norm(z.to(dtype))
     x = eq_dense(params["base_dense"], z)
     # The dense output is (4, 4, nf0) HWC in the JAX layout: reshape the same
     # way, then move channels first.
@@ -221,7 +328,8 @@ def _g_block(block: dict, x: torch.Tensor) -> torch.Tensor:
     c1 = block["conv1"]
     if _fuse_upsample_enabled():
         # Fused upsample-into-conv (ops/fused_upconv.py): four parity convs
-        # with pre-summed taps; exact up to float reassociation.
+        # with pre-summed taps (summed in fp32, then cast to x's dtype); exact
+        # up to float reassociation.
         x = upsample2x_conv3x3(eq_scaled_conv_w(c1), c1["b"], x)
     else:
         x = eq_conv(c1, upsample_nearest_2x(x))
@@ -230,17 +338,20 @@ def _g_block(block: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def generator_features(params: dict, z: torch.Tensor, config: ProGANConfig,
-                       stage: int, remat: bool = False,
+                       stage: int, dtype=torch.float32, precision=None,
+                       remat: bool = False,
                        ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Run the trunk to ``stage``; returns (x_stage, x_prev_or_None), NCHW.
-    ``remat=True`` checkpoints each stage block (see the module docstring)."""
-    block_fn = _block_fn(_g_block, remat)
-    x = _g_base(params, z, config)
-    prev = None
-    for s in range(1, stage + 1):
-        prev = x
-        x = block_fn(params["blocks"][s - 1], x)
-    return x, prev
+    """Run the trunk to ``stage``; returns (x_stage, x_prev_or_None), NCHW,
+    in ``dtype``. ``remat=True`` checkpoints each stage block (see the module
+    docstring)."""
+    with precision_scope(precision):
+        block_fn = _block_fn(_g_block, remat)
+        x = _g_base(params, z, config, dtype)
+        prev = None
+        for s in range(1, stage + 1):
+            prev = x
+            x = block_fn(params["blocks"][s - 1], x)
+        return x, prev
 
 
 def packed_start_stage(config: ProGANConfig, stage: int) -> int | None:
@@ -265,24 +376,37 @@ def _rgb_w(p: dict) -> torch.Tensor:
 
 
 def _g_late_packed(params: dict, x_entry: torch.Tensor, config: ProGANConfig,
-                   s0: int, stage: int, alpha, emit: str = "rgb") -> torch.Tensor:
+                   s0: int, stage: int, alpha, precision,
+                   emit: str = "rgb") -> torch.Tensor:
     """Run stages [s0, stage] on the late-stage kernels and return the
     blended RGB in NHWC: fp32 pre-tanh (emit="rgb") or uint8 (emit="uint8").
     The final stage's conv1 also emits toRGB of its input, and its conv2
     fuses toRGB, the blend and the denorm, so its features never reach
     device memory. Forward-only.
 
+    The kernels' mode is ``_PACKED_MODES[precision]``; a "base+final" mode
+    runs the non-final stages in ``base`` and the final one in ``final``.
+
     ``PROBGAN_STAGE_FUSED=1`` runs ONE kernel per stage instead of two:
     ``packed_upconv_conv`` for a non-final stage and ``packed_upconv_conv_rgb``
     for the final one (alone when s0 == stage), so conv1's feature map never
     reaches device memory either; the bits are the two-kernel path's. The
     variable is read at each call (the JAX package reads it once, when the
-    function is traced). The two-kernel path stays the default, as in JAX."""
+    function is traced). The two-kernel path stays the default, as in JAX.
+    The stage-fused kernels have the fp32 modes only: a bf16 mode raises."""
     from probgan_tpu_torch.ops import packed as pk
 
+    mode = _PACKED_MODES[precision]
+    base_mode, final_mode = mode.split("+") if "+" in mode else (mode, mode)
     stage_fused = os.environ.get("PROBGAN_STAGE_FUSED", "0") == "1"
+    if stage_fused and not {base_mode, final_mode} <= set(FP32_MODES):
+        raise NotImplementedError(
+            f"PROBGAN_STAGE_FUSED=1 at kernel mode {mode!r} (precision {precision!r}): "
+            "the stage-fused kernels run the fp32 modes only (ROADMAP B.a.1: B10/B11 "
+            "in 'default'); unset PROBGAN_STAGE_FUSED or use precision 'high'")
     x = x_entry.float().contiguous()
     for s in range(s0, stage + 1):
+        m = final_mode if s == stage else base_mode
         block = params["blocks"][s - 1]
         c1, c2 = block["conv1"], block["conv2"]
         w1, w2 = eq_scaled_conv_w(c1), eq_scaled_conv_w(c2)
@@ -293,13 +417,14 @@ def _g_late_packed(params: dict, x_entry: torch.Tensor, config: ProGANConfig,
                     x, w1, c1["b"], w2, c2["b"], _rgb_w(to_rgb), to_rgb["b"],
                     _rgb_w(prev_rgb), prev_rgb["b"], alpha, emit_uint8=emit == "uint8")
             feats, rgb_prev = pk.packed_upconv(x, w1, c1["b"], rgb_w=_rgb_w(prev_rgb),
-                                               rgb_b=prev_rgb["b"])
+                                               rgb_b=prev_rgb["b"], mode=m)
             return pk.packed_conv_rgb(feats, w2, c2["b"], _rgb_w(to_rgb), to_rgb["b"],
-                                      rgb_prev, alpha, emit_uint8=emit == "uint8")
+                                      rgb_prev, alpha, emit_uint8=emit == "uint8", mode=m)
         if stage_fused:
             x = pk.packed_upconv_conv(x, w1, c1["b"], w2, c2["b"])
         else:
-            x = pk.packed_conv(pk.packed_upconv(x, w1, c1["b"]), w2, c2["b"])
+            x = pk.packed_conv(pk.packed_upconv(x, w1, c1["b"], mode=m), w2, c2["b"],
+                               mode=m)
     raise AssertionError("unreachable")
 
 
@@ -332,58 +457,67 @@ def _g_rgb_packed_train(params: dict, z: torch.Tensor, config: ProGANConfig,
 
 
 def generator_rgb(params: dict, z: torch.Tensor, config: ProGANConfig,
-                  stage: int, alpha: float = 1.0, precision="high",
-                  packed: bool = False, remat: bool = False,
+                  stage: int, alpha: float = 1.0, dtype=torch.float32,
+                  precision=None, remat: bool = False, packed: bool = False,
                   packed_mode: str | None = None) -> torch.Tensor:
     """Latent [B, L] -> pre-tanh RGB [B, R, R, 3] (NHWC) at resolution
     ``4 * 2**stage`` with progressive alpha blend:
     lerp(upsample(toRGB_{s-1}(x_{s-1})), toRGB_s(x_s), alpha).
 
     ``packed=True`` routes the eligible late stages (packed_start_stage)
-    through ops/packed.py: the kernels for CUDA tensors, their plain twins for
-    CPU tensors. That path is forward-only: on the card it raises when a
-    gradient is wanted. ``packed_mode`` ("high" or "highest") instead selects
-    the DIFFERENTIABLE packed path (``_g_rgb_packed_train``), the train step's
-    configuration. ``remat``: see ``generator_features``. ``precision``
-    defaults to "high" (the JAX package's default None is a bf16 grade the
-    port does not have)."""
-    _require_fp32_grade(precision)
-    _require_fp32_packed_mode(packed_mode)
-    if packed_mode is not None and stage > 0:
-        s0 = packed_start_stage(config, stage)
+    through ops/packed.py at the kernel mode of ``_PACKED_MODES[precision]``:
+    the kernels for CUDA tensors, their plain twins for CPU tensors; fp32
+    ``dtype`` only (bf16 takes the unpacked path). That path is forward-only:
+    on the card it raises when a gradient is wanted. ``packed_mode`` ("high"
+    or "highest"; the bf16 modes raise) instead selects the DIFFERENTIABLE
+    packed path (``_g_rgb_packed_train``), the train step's configuration.
+    ``precision``: the grade (see ``_PRECISIONS``). ``remat``: see
+    ``generator_features``."""
+    require_fp32_train_mode(packed_mode)
+    with precision_scope(precision):
+        if packed_mode is not None and stage > 0:
+            s0 = packed_start_stage(config, stage)
+            if s0 is not None:
+                require_fp32_train_dtype(dtype)
+                return _g_rgb_packed_train(params, z, config, s0, stage, alpha, remat)
+        s0 = packed_start_stage(config, stage) if packed and dtype == torch.float32 else None
         if s0 is not None:
-            return _g_rgb_packed_train(params, z, config, s0, stage, alpha, remat)
-    s0 = packed_start_stage(config, stage) if packed else None
-    if s0 is not None:
-        x = _g_base(params, z, config)
-        for s in range(1, s0):
-            x = _g_block(params["blocks"][s - 1], x)
-        return _g_late_packed(params, x, config, s0, stage, alpha)
-    x, prev = generator_features(params, z, config, stage, remat)
-    rgb = eq_conv(params["to_rgb"][stage], x, gain=1.0)
-    if stage > 0:
-        rgb_prev = upsample_nearest_2x(
-            eq_conv(params["to_rgb"][stage - 1], prev, gain=1.0)
-        )
-        rgb = rgb_prev + alpha * (rgb - rgb_prev)
-    return rgb.permute(0, 2, 3, 1).contiguous()
+            x = _g_trunk(params, z, config, s0)
+            return _g_late_packed(params, x, config, s0, stage, alpha, precision)
+        x, prev = generator_features(params, z, config, stage, dtype, precision, remat)
+        rgb = eq_conv(params["to_rgb"][stage], x, gain=1.0)
+        if stage > 0:
+            rgb_prev = upsample_nearest_2x(
+                eq_conv(params["to_rgb"][stage - 1], prev, gain=1.0)
+            )
+            rgb = rgb_prev + alpha * (rgb - rgb_prev)
+        return rgb.permute(0, 2, 3, 1).contiguous()
+
+
+def _g_trunk(params: dict, z: torch.Tensor, config: ProGANConfig, s0: int) -> torch.Tensor:
+    """fp32 features of stage s0 - 1, the packed path's entry."""
+    x = _g_base(params, z, config)
+    for s in range(1, s0):
+        x = _g_block(params["blocks"][s - 1], x)
+    return x
 
 
 def generator_apply(params: dict, z: torch.Tensor, config: ProGANConfig,
-                    stage: int, alpha: float = 1.0, precision="high",
-                    packed: bool = False) -> torch.Tensor:
+                    stage: int, alpha: float = 1.0, dtype=torch.float32,
+                    precision=None, packed: bool = False) -> torch.Tensor:
     """Full image path: latent [B, L] -> uint8 image [B, R, R, 3] (NHWC). On
-    the packed path the denorm is fused into the final kernel unless
-    ``PROBGAN_FUSED_UINT8=0``."""
-    _require_fp32_grade(precision)
-    s0 = packed_start_stage(config, stage) if packed and _fused_uint8_enabled() else None
-    if s0 is not None:
-        x = _g_base(params, z, config)
-        for s in range(1, s0):
-            x = _g_block(params["blocks"][s - 1], x)
-        return _g_late_packed(params, x, config, s0, stage, alpha, emit="uint8")
-    return to_uint8(generator_rgb(params, z, config, stage, alpha, precision,
-                                  packed=packed))
+    the packed path (fp32 ``dtype`` only) the denorm is fused into the final
+    kernel unless ``PROBGAN_FUSED_UINT8=0``."""
+    with precision_scope(precision):
+        s0 = None
+        if packed and dtype == torch.float32 and _fused_uint8_enabled():
+            s0 = packed_start_stage(config, stage)
+        if s0 is not None:
+            x = _g_trunk(params, z, config, s0)
+            return _g_late_packed(params, x, config, s0, stage, alpha, precision,
+                                  emit="uint8")
+        return to_uint8(generator_rgb(params, z, config, stage, alpha, dtype, precision,
+                                      packed=packed))
 
 
 # ---------------------------------------------------------------------------
@@ -438,20 +572,14 @@ def _d_block(block: dict, x: torch.Tensor) -> torch.Tensor:
     return downsample_avg_2x(x)
 
 
-# Precisions for which the packed discriminator path exists in the JAX
-# package (its ladder maps them to kernel grades). The port's kernels have
-# one grade, fp32, which serves "high" and "highest"; "fast" stays in the gate
-# so that it answers as the JAX package's does.
-_PACKED_MODES_D = ("fast", "high", "highest")
-
-
 def packed_d_stage_count(config: ProGANConfig, stage: int,
                          precision="highest") -> int:
     """Number of leading discriminator stages (from ``stage`` down) the
     kernels of ops/packed.py take: consecutive stages with nf <= 64 and
     8-aligned channel counts at resolutions >= 256. 0 = none (always 0 for a
-    precision outside ``_PACKED_MODES_D``). The same gate as the JAX package,
-    so at 1024² exactly stages 8 and 7 run on the kernels."""
+    precision outside ``_PACKED_MODES_D``: None and "default"). The same gate
+    as the JAX package, so at 1024² exactly stages 8 and 7 run on the
+    kernels."""
     if precision not in _PACKED_MODES_D:
         return 0
     n = 0
@@ -473,7 +601,7 @@ def _from_rgb(params: dict, image: torch.Tensor, stage: int) -> torch.Tensor:
 
 
 def _d_early_packed(params: dict, image: torch.Tensor, stage: int, alpha,
-                    n: int) -> torch.Tensor:
+                    n: int, mode: str) -> torch.Tensor:
     """fromRGB + the first ``n`` discriminator blocks on the kernels of
     ops/packed.py (conv1: ``packed_conv`` with the "lrelu" epilogue; conv2
     and the pool: ``packed_convpool``, whose full-resolution output never
@@ -481,9 +609,12 @@ def _d_early_packed(params: dict, image: torch.Tensor, stage: int, alpha,
     ops/packed_vjp.py: this path serves scoring and the train step's
     discriminator, forward and backward. ``image`` is NCHW; returns NCHW
     features at stage ``stage - n``. The progressive blend sits after the
-    first block, as in the unpacked loop."""
-    from probgan_tpu_torch.ops import packed_vjp
+    first block, as in the unpacked loop. ``mode``: the kernels' grade; the
+    port's D kernels have the fp32 modes ("high" and "highest" run the same
+    kernels), and "mid" raises."""
+    from probgan_tpu_torch.ops import packed as pk, packed_vjp
 
+    pk.check_mode("packed discriminator", mode, FP32_MODES)
     x = _from_rgb(params, image, stage).float().contiguous()
     for s in range(stage, stage - n, -1):
         block = params["blocks"][s - 1]
@@ -497,44 +628,50 @@ def _d_early_packed(params: dict, image: torch.Tensor, stage: int, alpha,
 
 
 def discriminator_apply(params: dict, image: torch.Tensor, config: ProGANConfig,
-                        stage: int, alpha: float = 1.0, precision="high",
-                        packed: bool = False, remat: bool = False,
+                        stage: int, alpha: float = 1.0, dtype=torch.float32,
+                        precision=None, remat: bool = False, packed: bool = False,
+                        stddev_axis: str | None = None,
                         packed_mode: str | None = None) -> torch.Tensor:
     """Image [B, R, R, 3] (NHWC float, roughly [-1, 1]) -> realness logit
-    [B]. Mirrors the generator's progressive blend: after the first down
-    block, lerp with fromRGB of the downsampled image.
+    [B], in ``dtype``. Mirrors the generator's progressive blend: after the
+    first down block, lerp with fromRGB of the downsampled image.
 
-    ``packed=True`` routes the leading stages (packed_d_stage_count) through
-    ops/packed.py: the kernels for CUDA tensors, their plain twins for CPU
-    tensors; the path is differentiable (ops/packed_vjp.py). ``precision``:
-    "high" or "highest", both fp32 with TF32 off (the JAX package's "high" is
-    a 3-term bf16 split on this path, so the port's "high" is the closer of
-    the two to the fp32 reference). ``packed_mode`` ("high" or "highest"; the
-    train step passes it) makes the packed gate a matter of shapes alone.
-    ``remat``: see ``generator_features``."""
-    _require_fp32_grade(precision)
-    _require_fp32_packed_mode(packed_mode)
-    image = image.float().permute(0, 3, 1, 2).contiguous()
-    n = 0
-    if packed and packed_mode is not None:
-        # Structure-only gate: which stages the kernels take is a property of
-        # the shapes, not of the precision.
-        n = packed_d_stage_count(config, stage, "highest")
-    elif packed:
-        n = packed_d_stage_count(config, stage, precision)
-    block_fn = _block_fn(_d_block, remat)
-    if n > 0:
-        x = _d_early_packed(params, image, stage, alpha, n)
-    else:
-        x = _from_rgb(params, image, stage)
-    for s in range(stage - n, 0, -1):
-        x = block_fn(params["blocks"][s - 1], x)
-        if s == stage and stage > 0:
-            skip = _from_rgb(params, downsample_avg_2x(image), stage - 1)
-            x = skip + alpha * (x - skip)
-    x = minibatch_stddev(x)
-    x = lrelu(eq_conv(params["final_conv"], x))
-    # final_dense's rows are in the JAX layout: the 4x4 map flattened as HWC
-    x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-    x = lrelu(eq_dense(params["final_dense"], x))
-    return eq_dense(params["out_dense"], x, gain=1.0)[..., 0]
+    ``packed=True`` (fp32 ``dtype``) routes the leading stages
+    (packed_d_stage_count) through ops/packed.py at the kernel mode of
+    ``_PACKED_MODES_D[precision]``: the kernels for CUDA tensors, their plain
+    twins for CPU tensors; the path is differentiable (ops/packed_vjp.py). The
+    gate declines None and "default" (D runs unpacked, as in the JAX
+    package); "fast" maps to mode "mid", which raises. ``packed_mode`` ("high"
+    or "highest"; the train step passes it) makes the packed gate a matter of
+    shapes alone. ``remat``: see ``generator_features``. ``stddev_axis`` is
+    not ported and raises if given."""
+    require_fp32_train_mode(packed_mode)
+    _require_no_stddev_axis(stddev_axis)
+    with precision_scope(precision):
+        image = image.to(dtype).permute(0, 3, 1, 2).contiguous()
+        n, mode = 0, packed_mode
+        if packed and packed_mode is not None:
+            # Structure-only gate: which stages the kernels take is a property
+            # of the shapes, not of the precision.
+            n = packed_d_stage_count(config, stage, "highest")
+        elif packed and dtype == torch.float32:
+            n = packed_d_stage_count(config, stage, precision)
+            mode = _PACKED_MODES_D.get(precision)
+        if n > 0:
+            require_fp32_train_dtype(dtype)
+        block_fn = _block_fn(_d_block, remat)
+        if n > 0:
+            x = _d_early_packed(params, image, stage, alpha, n, mode)
+        else:
+            x = _from_rgb(params, image, stage)
+        for s in range(stage - n, 0, -1):
+            x = block_fn(params["blocks"][s - 1], x)
+            if s == stage and stage > 0:
+                skip = _from_rgb(params, downsample_avg_2x(image), stage - 1)
+                x = skip + alpha * (x - skip)
+        x = minibatch_stddev(x)
+        x = lrelu(eq_conv(params["final_conv"], x))
+        # final_dense's rows are in the JAX layout: the 4x4 map flattened as HWC
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        x = lrelu(eq_dense(params["final_dense"], x))
+        return eq_dense(params["out_dense"], x, gain=1.0)[..., 0]

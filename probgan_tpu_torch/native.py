@@ -15,6 +15,12 @@ from __future__ import annotations
 import numpy as np
 
 
+def native_available() -> bool:
+    """Whether the C triplet loader is in use: never in the port, which is
+    the JAX package's ``PROBGAN_NO_NATIVE=1`` path."""
+    return False
+
+
 def parse_triplets(path: str) -> np.ndarray:
     """Parse a triplet text file ('h r t' per line, integer ids) into an
     int32 [n, 3] array. Raises ValueError on a token that is not an int."""

@@ -50,8 +50,14 @@ def upsample2x_conv3x3(w: torch.Tensor, b: torch.Tensor,
                        x: torch.Tensor) -> torch.Tensor:
     """Equivalent to ``conv3x3_same(nearest_upsample_2x(x), w) + b``:
     w OIHW [Cout, Cin, 3, 3] (already equalized-LR scaled), b [Cout],
-    x NCHW [B, Cin, H, W] -> [B, Cout, 2H, 2W]."""
-    wp = parity_weights(w)
+    x NCHW [B, Cin, H, W] -> [B, Cout, 2H, 2W], in x's dtype (the taps are
+    pre-summed in w's dtype, then cast)."""
+    return parity_conv(parity_weights(w).to(x.dtype), b.to(x.dtype), x)
+
+
+def parity_conv(wp: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The four parity convs of ``upsample2x_conv3x3`` from ready parity
+    weights ``wp`` [2, 2, Cout, Cin, 2, 2] (``parity_weights``)."""
     y = [[F.conv2d(F.pad(x, _PADS[py, px]), wp[py, px]) for px in (0, 1)]
          for py in (0, 1)]
     bsz, cout, h, wd = y[0][0].shape

@@ -30,6 +30,17 @@ kernels they replace (``probgan_tpu/ops/pallas_packed.py``):
 The two stage-fused kernels give the bits of the pair they replace: their
 plain twins are the pairs' twins composed.
 
+Kernel modes (``mode``, the JAX kernels' name): "high" and "highest" run the
+fp32 kernels above, with one set of bits. ``packed_upconv``,
+``packed_conv`` ("lrelu_norm") and ``packed_conv_rgb`` also take "default",
+the JAX kernels' one bf16 pass: both operands of every dot rounded to bf16
+(to nearest even), the products summed in fp32, bias and epilogues in fp32.
+On the card that is a kernel of its own for each (``csrc/*_bf16.cu`` over
+``csrc/bf16_conv.cuh``, bf16 tensor-core products); the twins round the same
+operands and run fp32 convs. "mid" (the 2-term split of D's fast grade)
+raises NotImplementedError; "exact6" and "emulate_bf16" are the TPU kernels'
+test aids and raise ValueError.
+
 The six forward kernels record no autograd graph. On the CPU their plain
 twins are ordinary differentiable torch code; on a CUDA tensor a wrapper
 raises when a gradient is wanted (grad mode on and an argument that
@@ -56,19 +67,21 @@ import torch
 import torch.nn.functional as F
 
 from probgan_tpu_torch.models.pro_gan import (
+    FP32_MODES,
     lrelu,
     pixel_norm,
     to_uint8,
     upsample_nearest_2x,
 )
 from probgan_tpu_torch.ops import _build
-from probgan_tpu_torch.ops.fused_upconv import parity_weights, upsample2x_conv3x3
+from probgan_tpu_torch.ops.fused_upconv import parity_conv, parity_weights, upsample2x_conv3x3
 
 # Launches of each kernel since the last reset_launches(); a wrapper adds one
 # where it launches its kernel and nowhere else.
 launches = {"packed_upconv": 0, "packed_conv": 0, "packed_conv_rgb": 0,
             "packed_convpool": 0, "packed_conv_wgrad": 0, "packed_upconv_conv": 0,
-            "packed_upconv_conv_rgb": 0}
+            "packed_upconv_conv_rgb": 0, "packed_upconv_bf16": 0, "packed_conv_bf16": 0,
+            "packed_conv_rgb_bf16": 0}
 # The same launches by epilogue, "<kernel>[<epilogue>]", for the kernels that
 # have more than one.
 epilogue_launches = {
@@ -89,7 +102,17 @@ _ARGTYPES = {
     "packed_upconv_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_upconv_conv_rgb": [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "packed_upconv_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "packed_conv_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "packed_conv_rgb_bf16": [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _I,
+                             _I, _I, _I, _I, _I, _I, _P],
 }
+# Kernel modes: the fp32 kernels serve FP32_MODES; "default" is one bf16 pass
+# (the *_bf16 kernels).
+MODES = ("default", *FP32_MODES)
+# The bf16 kernels (csrc/bf16_conv.cuh): input channels a shared-memory chunk,
+# and bf16 a staged pixel or weight row (the chunk's channels, then 8 zeros).
+BF16_CK, BF16_ROW = 32, 40
 # Output channel counts the kernels are instantiated for (csrc/conv_tile.cuh).
 # PixelNorm needs every channel in one block, so "lrelu_norm" takes only
 # these; without it packed_conv and packed_convpool tile Cout in slabs of 64
@@ -116,6 +139,32 @@ SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED = 232_448, 233_472, 1_024
 # The stage-fused kernels' ring (csrc/fused_ring.cuh): input channels a conv1
 # step, conv2 input channels a conv2 step, and stages by Cout.
 FUSED_C1, FUSED_C2, FUSED_STAGES = 8, 16, {64: 3, 32: 4}
+
+
+def check_mode(name: str, mode: str, modes: tuple = MODES) -> bool:
+    """True for a bf16 ``mode`` ("default"), False for an fp32 one; raise
+    for a mode ``name`` does not have: "mid" is not ported yet, "exact6" and
+    "emulate_bf16" are the TPU kernels' test aids."""
+    if mode in modes:
+        return mode == "default"
+    if mode == "mid":
+        raise NotImplementedError(
+            f"{name}: kernel mode 'mid' (the fast grade's discriminator) is not ported "
+            "yet (ROADMAP B.a.1: D's 'mid', B2 'lrelu' and B5)")
+    if mode == "default":
+        raise NotImplementedError(
+            f"{name}: kernel mode 'default' here is the bf16 backward, not ported yet "
+            "(ROADMAP B.a.1: B6 'default', B2 'none', B5 'none')")
+    if mode in ("exact6", "emulate_bf16"):
+        raise ValueError(f"{name}: mode {mode!r} is a test aid of the TPU kernels, not a "
+                         f"mode of the port's; use one of {modes}")
+    raise ValueError(f"{name}: mode {mode!r} not in {modes}")
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (to nearest even), back in fp32: the operand
+    rounding of kernel mode "default"."""
+    return t.to(torch.bfloat16).float()
 
 
 def reset_launches() -> None:
@@ -191,6 +240,57 @@ def _lrelu_norm(x: torch.Tensor) -> torch.Tensor:
     return pixel_norm(lrelu(x))
 
 
+def _modes(epilogue: str) -> tuple:
+    """The kernel modes of an epilogue: "default" is the forward's
+    ("lrelu_norm") alone; the others serve the training backward, fp32."""
+    return MODES if epilogue == "lrelu_norm" else FP32_MODES
+
+
+def conv_bf16_weights(w: torch.Tensor) -> torch.Tensor:
+    """OIHW [Cout, C, 3, 3] -> the bf16 kernels' [C/32][9 taps][Cout][40]
+    bf16 (csrc/packed_conv_bf16.cu): rounded to bf16, tap ky * 3 + kx, each
+    run of 32 input channels followed by 8 zeros."""
+    cout, c = w.shape[:2]
+    wt = w.permute(2, 3, 0, 1).reshape(9, cout, c // BF16_CK, BF16_CK).permute(2, 0, 1, 3)
+    out = torch.zeros((c // BF16_CK, 9, cout, BF16_ROW), dtype=torch.bfloat16, device=w.device)
+    out[..., :BF16_CK] = wt
+    return out
+
+
+def upconv_bf16_weights(w: torch.Tensor) -> torch.Tensor:
+    """OIHW [Cout, C, 3, 3] -> packed_upconv_bf16's [2 py][C/32][2 px]
+    [4 taps (dy, dx)][Cout][40] bf16: the pre-summed parity taps of
+    ``parity_weights`` (summed in fp32, then rounded to bf16), each run of 32
+    input channels followed by 8 zeros."""
+    cout, c = w.shape[:2]
+    wp = parity_weights(w).permute(0, 1, 4, 5, 2, 3)  # [py, px, dy, dx, Cout, C]
+    wp = wp.reshape(2, 2, 4, cout, c // BF16_CK, BF16_CK).permute(0, 4, 1, 2, 3, 5)
+    out = torch.zeros((2, c // BF16_CK, 2, 4, cout, BF16_ROW), dtype=torch.bfloat16,
+                      device=w.device)
+    out[..., :BF16_CK] = wp
+    return out
+
+
+def bf16_conv_bytes(cout: int) -> int:
+    """Dynamic shared memory of a packed_conv_bf16 / packed_conv_rgb_bf16
+    block (ConvBf16::kBytes): the bf16 patch, tile rows + 2 x 40 columns x 40,
+    and one chunk's weights, 9 x Cout x 40."""
+    return 2 * BF16_ROW * ((_tile_rows(cout) + 2) * 40 + 9 * cout)
+
+
+def bf16_upconv_bytes(cout: int) -> int:
+    """Dynamic shared memory of a packed_upconv_bf16 block (UpconvBf16::
+    kBytes): the bf16 patch, tile rows + 1 x 24 columns x 40, and one
+    parity's chunk of taps, 2 x 4 x Cout x 40."""
+    return 2 * BF16_ROW * ((_tile_rows(cout) + 1) * 24 + 8 * cout)
+
+
+def _check_bf16_channels(name: str, x: torch.Tensor) -> None:
+    if x.shape[1] % BF16_CK:
+        raise ValueError(f"{name}: mode 'default' takes C % {BF16_CK} == 0, got "
+                         f"x {tuple(x.shape)}")
+
+
 def upconv_kernel_weights(w: torch.Tensor) -> torch.Tensor:
     """OIHW [Cout, C, 3, 3] -> packed_upconv's wk [2 py][C][2 px][2 dy]
     [2 dx][Cout]: each output parity's pre-summed 2x2 taps, one input
@@ -215,29 +315,40 @@ def _check_upconv_epilogue(epilogue: str, rgb_w) -> None:
         raise ValueError('packed_upconv: rgb_w goes with epilogue "lrelu_norm" only')
 
 
-def packed_upconv_plain(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm"):
+def packed_upconv_plain(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm",
+                        mode="high"):
     """Plain twin of ``packed_upconv``: the four parity convs of
     ops/fused_upconv.py + LeakyReLU (+ PixelNorm); toRGB of ``x`` as a 1x1
-    conv."""
+    conv. Mode "default" rounds x, the pre-summed parity taps and ``rgb_w``
+    to bf16 first."""
     _check_upconv_epilogue(epilogue, rgb_w)
-    y = _epilogue(upsample2x_conv3x3(w, b, x), epilogue)
+    if check_mode("packed_upconv", mode, _modes(epilogue)):
+        x = _bf16(x)
+        y = _epilogue(parity_conv(_bf16(parity_weights(w)), b, x), epilogue)
+        rgb_w = None if rgb_w is None else _bf16(rgb_w)
+    else:
+        y = _epilogue(upsample2x_conv3x3(w, b, x), epilogue)
     if rgb_w is None:
         return y
     return y, F.conv2d(x, rgb_w[:, :, None, None]) + rgb_b[:, None, None]
 
 
-def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm"):
+def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm", mode="high"):
     """Nearest-2x upsample -> conv3x3 + bias -> LeakyReLU -> PixelNorm
     ("lrelu_norm"), or without the PixelNorm ("lrelu").
 
     x [B, C, H, W] fp32, w [Cout, C, 3, 3] eq-LR scaled, b [Cout]
     -> [B, Cout, 2H, 2W]. With ``rgb_w`` [3, C] and ``rgb_b`` [3]
     ("lrelu_norm" only), also returns toRGB(x) [B, 3, H, W] (the ``rgb_prev``
-    of packed_conv_rgb)."""
+    of packed_conv_rgb). ``mode``: "high"/"highest" (fp32) or, with
+    "lrelu_norm", "default" (one bf16 pass, ``packed_upconv_bf16`` on the
+    card: C % 32 == 0)."""
     if x.device.type == "cpu":
-        return packed_upconv_plain(x, w, b, rgb_w=rgb_w, rgb_b=rgb_b, epilogue=epilogue)
+        return packed_upconv_plain(x, w, b, rgb_w=rgb_w, rgb_b=rgb_b, epilogue=epilogue,
+                                   mode=mode)
     name = "packed_upconv"
     _check_upconv_epilogue(epilogue, rgb_w)
+    bf16 = check_mode(name, mode, _modes(epilogue))
     _refuse_grad(name, "upconv_lrelu_norm", x, w, b, rgb_w, rgb_b)
     cout = w.shape[0]
     _check_cout(name, cout)
@@ -246,6 +357,18 @@ def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm"):
     _check(name, x, w.shape[1], _tile_rows(cout), 16, w=w, b=b, rgb_w=rgb_w,
            rgb_b=rgb_b)
     bsz, c, h, wd = x.shape
+    if bf16:
+        _check_bf16_channels(name, x)
+        y = torch.empty((bsz, cout, 2 * h, 2 * wd), device=x.device, dtype=x.dtype)
+        rgb = None
+        if rgb_w is not None:
+            rgb_w, rgb_b = _bf16(rgb_w.reshape(3, c)).contiguous(), rgb_b.contiguous()
+            rgb = torch.empty((bsz, 3, h, wd), device=x.device, dtype=x.dtype)
+        # named, so that nothing the kernel reads is freed before it runs
+        wk, b = upconv_bf16_weights(w), b.contiguous()
+        _launch("packed_upconv_bf16", x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),
+                _ptr(y), _ptr(rgb), bsz, c, h, wd, cout, bf16_upconv_bytes(cout))
+        return y if rgb is None else (y, rgb)
     wk = upconv_kernel_weights(w)
     b = b.contiguous()
     y = torch.empty((bsz, cout, 2 * h, 2 * wd), device=x.device, dtype=x.dtype)
@@ -271,10 +394,13 @@ def _epilogue(y: torch.Tensor, epilogue: str) -> torch.Tensor:
     return lrelu(y) if epilogue == "lrelu" else y
 
 
-def packed_conv_plain(x, w, b, epilogue="lrelu_norm"):
-    """Plain twin of ``packed_conv``."""
+def packed_conv_plain(x, w, b, epilogue="lrelu_norm", mode="high"):
+    """Plain twin of ``packed_conv``; mode "default" rounds x and w to bf16
+    first."""
     if epilogue not in CONV_EPILOGUES:
         raise ValueError(f"packed_conv: epilogue {epilogue!r} not in {tuple(CONV_EPILOGUES)}")
+    if check_mode("packed_conv", mode, _modes(epilogue)):
+        x, w = _bf16(x), _bf16(w)
     return _epilogue(F.conv2d(x, w, padding=1) + b[:, None, None], epilogue)
 
 
@@ -367,25 +493,35 @@ def _aligned16(x: torch.Tensor) -> torch.Tensor:
     return x.clone() if x.data_ptr() % 16 else x
 
 
-def packed_conv(x, w, b, epilogue="lrelu_norm"):
+def packed_conv(x, w, b, epilogue="lrelu_norm", mode="high"):
     """conv3x3 SAME + bias -> epilogue ("lrelu_norm": LeakyReLU -> PixelNorm;
     "lrelu": LeakyReLU; "none"): x [B, C, H, W] fp32, w [Cout, C, 3, 3] eq-LR
     scaled, b [Cout] -> [B, Cout, H, W]. On CUDA, Cout is 32 or 64 with
     "lrelu_norm" and any multiple of 32 otherwise. "none" is 3xTF32 on the
     card (each product three TF32 products of the operands' high and low
     parts, within ~1e-6 of the output's largest entry of the fp32 sum) and
-    sums every output in a fixed order, so equal inputs give equal bits."""
+    sums every output in a fixed order, so equal inputs give equal bits.
+    ``mode``: "high"/"highest" (fp32) or, with "lrelu_norm", "default" (one
+    bf16 pass, ``packed_conv_bf16`` on the card: C % 32 == 0)."""
     if x.device.type == "cpu":
-        return packed_conv_plain(x, w, b, epilogue)
+        return packed_conv_plain(x, w, b, epilogue, mode)
     name = "packed_conv"
     if epilogue not in CONV_EPILOGUES:
         raise ValueError(f"{name}: epilogue {epilogue!r} not in {tuple(CONV_EPILOGUES)}")
+    bf16 = check_mode(name, mode, _modes(epilogue))
     _refuse_grad(name, "conv_lrelu_norm" if epilogue == "lrelu_norm" else "conv_lrelu",
                  x, w, b)
     cout = w.shape[0]
     _check_cout(name, cout, sliced=epilogue != "lrelu_norm")
     _check(name, x, w.shape[1], _tile_rows(_pool_slab(cout)), 32, w=w, b=b)
     bsz, c, h, wd = x.shape
+    if bf16:
+        _check_bf16_channels(name, x)
+        y = torch.empty((bsz, cout, h, wd), device=x.device, dtype=x.dtype)
+        wk, b = conv_bf16_weights(w), b.contiguous()
+        _launch("packed_conv_bf16", x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
+                bf16_conv_bytes(cout))
+        return y
     # one slab for Cout 32 or 64: then this is conv_kernel_weights(w)
     wk = convpool_kernel_weights(w)
     b = b.contiguous()
@@ -449,17 +585,21 @@ def packed_convpool(x, w, b, epilogue="lrelu"):
 # ---------------------------------------------------------------------------
 
 def packed_conv_rgb_plain(x, w, b, rgb_w, rgb_b, rgb_prev, alpha, *,
-                          emit_uint8=False):
-    """Plain twin of ``packed_conv_rgb``."""
+                          emit_uint8=False, mode="high"):
+    """Plain twin of ``packed_conv_rgb``; mode "default" rounds x, w, the
+    PixelNorm'd features and ``rgb_w`` to bf16 before their convs."""
+    bf16 = check_mode("packed_conv_rgb", mode)
+    if bf16:
+        x, w, rgb_w = _bf16(x), _bf16(w), _bf16(rgb_w)
     feat = _lrelu_norm(F.conv2d(x, w, padding=1) + b[:, None, None])
-    rgb = F.conv2d(feat, rgb_w[:, :, None, None]) + rgb_b[:, None, None]
+    rgb = F.conv2d(_bf16(feat) if bf16 else feat, rgb_w[:, :, None, None]) + rgb_b[:, None, None]
     prev = upsample_nearest_2x(rgb_prev)
     out = (prev + alpha * (rgb - prev)).permute(0, 2, 3, 1)
     return to_uint8(out) if emit_uint8 else out.contiguous()
 
 
 def packed_conv_rgb(x, w, b, rgb_w, rgb_b, rgb_prev, alpha, *,
-                    emit_uint8=False):
+                    emit_uint8=False, mode="high"):
     """The final stage's tail: conv3x3 + bias -> LeakyReLU -> PixelNorm ->
     toRGB -> ``prev + alpha * (rgb - prev)`` with prev the nearest-2x of
     ``rgb_prev`` -> (tanh -> round half to even((t+1)*127.5) -> clip ->
@@ -469,12 +609,15 @@ def packed_conv_rgb(x, w, b, rgb_w, rgb_b, rgb_prev, alpha, *,
     rgb_b [3], rgb_prev [B, 3, H/2, W/2], alpha a runtime scalar
     -> NHWC [B, H, W, 3], uint8 or fp32 pre-tanh RGB. On CUDA, Cout is 32 or
     64 and the kernel runs packed_conv's fp32 ring ("lrelu_norm"'s tiles and
-    sums, so the same bits) with the toRGB tail as its epilogue."""
+    sums, so the same bits) with the toRGB tail as its epilogue. ``mode``:
+    "high"/"highest" (fp32) or "default" (one bf16 pass, toRGB's dot too;
+    ``packed_conv_rgb_bf16`` on the card: C % 32 == 0)."""
     alpha = float(alpha)
     if x.device.type == "cpu":
         return packed_conv_rgb_plain(x, w, b, rgb_w, rgb_b, rgb_prev, alpha,
-                                     emit_uint8=emit_uint8)
+                                     emit_uint8=emit_uint8, mode=mode)
     name = "packed_conv_rgb"
+    bf16 = check_mode(name, mode)
     _refuse_grad(name, "conv_lrelu_norm followed by the toRGB conv and the blend as "
                  "torch ops, as models.pro_gan.generator_rgb(packed_mode=...) does",
                  x, w, b, rgb_w, rgb_b, rgb_prev)
@@ -488,13 +631,20 @@ def packed_conv_rgb(x, w, b, rgb_w, rgb_b, rgb_prev, alpha, *,
             f"{name}: rgb_prev {tuple(rgb_prev.shape)} must be "
             f"{(bsz, 3, h // 2, wd // 2)}"
         )
-    wk = conv_kernel_weights(w)
     b = b.contiguous()
-    rgb_w = rgb_w.reshape(3, cout).contiguous()
     rgb_b = rgb_b.contiguous()
     rgb_prev = rgb_prev.contiguous()
     out = torch.empty((bsz, h, wd, 3), device=x.device,
                       dtype=torch.uint8 if emit_uint8 else torch.float32)
+    if bf16:
+        _check_bf16_channels(name, x)
+        wk, rgb_w = conv_bf16_weights(w), _bf16(rgb_w.reshape(3, cout)).contiguous()
+        _launch("packed_conv_rgb_bf16", x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),
+                _ptr(rgb_prev), alpha, _ptr(out), int(emit_uint8), bsz, c, h, wd, cout,
+                bf16_conv_bytes(cout))
+        return out
+    wk = conv_kernel_weights(w)
+    rgb_w = rgb_w.reshape(3, cout).contiguous()
     x = _aligned16(x)
     blocks = persistent_blocks(conv_tile_count(bsz, cout, h, wd), _sms(x.device))
     _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),

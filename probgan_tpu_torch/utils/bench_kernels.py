@@ -14,8 +14,13 @@ one CUDA card, in parts (``--parts``, all by default):
 - ``train``: ``progan_train_step`` at 1024², stage 8, batch 2, packed,
   ``remat``: steps/s and p50 over timed steps (host clock to the metrics on
   the host);
-- ``generate``: ``ImageGANEngine.generate`` at 1024², batch 8: img/s and
-  p50 ms per image (host clock to the uint8 images on the host);
+- ``generate``: ``ImageGANEngine.generate`` at 1024², batch 8, at the grade
+  ``--precision`` ("high" by default): img/s and p50 ms per image (host clock
+  to the uint8 images on the host);
+- ``bf16``: kernel mode "default" (one bf16 pass) of ``packed_upconv``
+  (stage 7, stage 8 with toRGB), ``packed_conv`` "lrelu_norm" (stage 7) and
+  ``packed_conv_rgb`` (stage 8, uint8 and fp32) at batch 2 and 8, the bound
+  at the bf16 tensor-core peak;
 - ``fused``: the stage-fused kernels B10 ``packed_upconv_conv`` (stage 7)
   and B11 ``packed_upconv_conv_rgb`` (stage 8 uint8 and fp32, stage 7
   uint8) at batch 2 and 8, each beside the two-kernel pair it replaces;
@@ -52,7 +57,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-PARTS = ("rank", "none", "fp32", "train", "generate", "fused")
+PARTS = ("rank", "none", "fp32", "train", "generate", "fused", "bf16")
 CONV_SHAPES = ((32, 32, 1024), (64, 32, 1024), (64, 64, 512), (128, 64, 512),
                (32, 64, 1024), (64, 128, 512))
 # (label, kernel, epilogue, batch, C, Cout, H, toRGB): the fp32 launches
@@ -90,7 +95,19 @@ FUSED_SHAPES = tuple(
         ("upconv_conv_rgb", "s8", 64, 32, 512, "uint8"),
         ("upconv_conv_rgb", "s8", 64, 32, 512, "fp32"),
         ("upconv_conv_rgb", "s7", 128, 64, 256, "uint8")))
+# (label, kernel, batch, C, Cout, H, emit): the bf16 launches of "fast" generate
+BF16_SHAPES = tuple(
+    (f"{kernel}_{stage}_{emit}_b{bsz}", kernel, bsz, c, cout, h, emit)
+    for bsz in (2, 8)
+    for kernel, stage, c, cout, h, emit in (
+        ("packed_upconv", "s7", 128, 64, 256, "features"),
+        ("packed_upconv", "s8", 64, 32, 512, "rgb"),
+        ("packed_conv", "s7", 64, 64, 512, "features"),
+        ("packed_conv_rgb", "s8", 32, 32, 1024, "uint8"),
+        ("packed_conv_rgb", "s8", 32, 32, 1024, "fp32")))
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, CUDA cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, tensor cores, dense bf16
+PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -150,6 +167,60 @@ def bench_fp32(pk, dump: Path | None) -> dict:
                 torch.save([t.cpu() for t in ys], dump / f"{label}.pt")
             ms = cuda_ms(call, iters=10)
         bound_ms = flops / PEAK_FP32_FLOPS * 1e3
+        out[label] = {"ms": ms, "bound_ms": bound_ms, "roofline_share": bound_ms / ms,
+                      "sha256": digest.hexdigest()}
+        del x, y, ys
+    return out
+
+
+def bench_bf16(pk, dump: Path | None) -> dict:
+    """Kernel mode "default" at BF16_SHAPES: ms, the bound (the larger of the
+    bf16 FLOP at the tensor cores' peak and the fp32 bytes in and out at the
+    HBM rate) and its share, sha256 of the output's bytes; the outputs saved
+    under ``dump``."""
+    out = {}
+    for i, (label, kernel, bsz, c, cout, h, emit) in enumerate(BF16_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(300 + i)
+        x = torch.randn((bsz, c, h, h), device="cuda", generator=gen)
+        w = torch.randn((cout, c, 3, 3), device="cuda", generator=gen) * math.sqrt(2 / (9 * c))
+        b = 0.1 * torch.randn(cout, device="cuda", generator=gen)
+        if kernel == "packed_upconv":
+            kw = {}
+            if emit == "rgb":
+                kw = {"rgb_w": torch.randn((3, c), device="cuda", generator=gen) / math.sqrt(c),
+                      "rgb_b": 0.1 * torch.randn(3, device="cuda", generator=gen)}
+
+            def call(x=x, w=w, b=b, kw=kw):
+                return pk.packed_upconv(x, w, b, mode="default", **kw)
+            flops = 2 * 4 * c * cout * bsz * 4 * h * h
+            nbytes = 4 * bsz * h * h * (c + 4 * cout + (3 if kw else 0))
+        elif kernel == "packed_conv_rgb":
+            rgb_w = torch.randn((3, cout), device="cuda", generator=gen) / math.sqrt(cout)
+            rgb_b = 0.1 * torch.randn(3, device="cuda", generator=gen)
+            prev = 0.5 * torch.randn((bsz, 3, h // 2, h // 2), device="cuda", generator=gen)
+            u8 = emit == "uint8"
+
+            def call(x=x, w=w, b=b, rgb_w=rgb_w, rgb_b=rgb_b, prev=prev, u8=u8):
+                return pk.packed_conv_rgb(x, w, b, rgb_w, rgb_b, prev, 1.0 if u8 else 0.3,
+                                          emit_uint8=u8, mode="default")
+            flops = 2 * 9 * c * cout * bsz * h * h + 2 * cout * 3 * bsz * h * h
+            nbytes = 4 * bsz * h * h * (c + 3 / 4) + bsz * h * h * 3 * (1 if u8 else 4)
+        else:
+            def call(x=x, w=w, b=b):
+                return pk.packed_conv(x, w, b, mode="default")
+            flops = 2 * 9 * c * cout * bsz * h * h
+            nbytes = 4 * bsz * h * h * (c + cout)
+        with torch.no_grad():
+            y = call()
+            torch.cuda.synchronize()
+            ys = y if isinstance(y, tuple) else (y,)
+            digest = hashlib.sha256()
+            for t in ys:
+                digest.update(t.cpu().numpy().tobytes())
+            if dump is not None:
+                torch.save([t.cpu() for t in ys], dump / f"bf16_{label}.pt")
+            ms = cuda_ms(call, iters=10)
+        bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
         out[label] = {"ms": ms, "bound_ms": bound_ms, "roofline_share": bound_ms / ms,
                       "sha256": digest.hexdigest()}
         del x, y, ys
@@ -281,6 +352,8 @@ def main(argv=None) -> int:
     ap.add_argument("--dump", type=Path, help="save the fp32 kernels' outputs here")
     ap.add_argument("--compare", type=Path, nargs=2, metavar=("A", "B"),
                     help="count differing values between two --dump directories")
+    ap.add_argument("--precision", default="high", choices=["default", "fast", "high", "highest"],
+                    help="the grade of the generate part ('default' is the grade None)")
     args = ap.parse_args(argv)
     if args.compare:
         diffs = compare(*args.compare)
@@ -337,6 +410,9 @@ def main(argv=None) -> int:
     if "fp32" in parts:
         out["fp32"] = bench_fp32(pk, args.dump)
 
+    if "bf16" in parts:
+        out["bf16"] = bench_bf16(pk, args.dump)
+
     if "fused" in parts:
         from probgan_tpu_torch.engine import image as engine_mod
 
@@ -344,7 +420,8 @@ def main(argv=None) -> int:
         out["fused_turns"] = stage_fused_turns(engine_mod, train, ProGANConfig(), gen)
 
     if "generate" in parts:
-        engine = ImageGANEngine(ProGANConfig(), device="cuda", precision="high", seed=0)
+        precision = None if args.precision == "default" else args.precision
+        engine = ImageGANEngine(ProGANConfig(), device="cuda", precision=precision, seed=0)
         images = engine.generate(engine.sample_latents(8))  # warm-up (cuDNN plans)
         if args.dump is not None:
             torch.save([torch.from_numpy(images)], args.dump / "generate_b8.pt")
@@ -355,6 +432,7 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             engine.generate(z)  # returns host numpy: the call has finished
             times.append(time.perf_counter() - t0)
+        out["generate_precision"] = args.precision
         out["generate_img_per_s"] = 8 * len(times) / sum(times)
         out["generate_p50_ms_per_img"] = float(np.median(times)) * 1e3 / 8
         out["generate_call_s"] = times

@@ -1,11 +1,12 @@
 """Where the time of ``ImageGANEngine.generate`` goes on the card.
 
 Profiles three 1024² generate calls at batch 8 (default config, random
-weights from a seed, grade "high") with ``torch.profiler`` and prints the
-device time by part of the path, the device's idle share over the host's
-wall time, and one JSON line:
+weights from a seed, grade "high" unless ``--precision`` names another) with
+``torch.profiler`` and prints the device time by part of the path, the
+device's idle share over the host's wall time, and one JSON line:
 
     python -m probgan_tpu_torch.utils.profile_generate [--trace PATH.json]
+        [--precision default|fast|high|highest]
 
 With ``--first-call`` it instead times single calls (host clock) in the
 steady state, right after ``torch.cuda.empty_cache()`` and right after one
@@ -14,7 +15,8 @@ each took: what a call costs when the caching allocator's pool has changed
 since the last one.
 
 Parts: the late-stage kernels by name (under ``PROBGAN_STAGE_FUSED=1``, read
-at each call, the two stage-fused kernels in place of the three), the cuDNN
+at each call, the two stage-fused kernels in place of the three; at "fast"
+and "default" the three bf16 kernels, ``*_bf16``), the cuDNN
 convolutions of stages 0-6, the copy of the images to the host, other copies,
 and the elementwise rest (parity-conv interleave, epilogues, weight prep).
 Needs a CUDA card.
@@ -33,7 +35,9 @@ import torch
 from probgan_tpu_torch.engine import ImageGANEngine
 from probgan_tpu_torch.models.pro_gan import ProGANConfig
 
-_KERNELS = ("packed_upconv", "packed_conv_rgb", "packed_conv")
+# prefixes after the names that hold them
+_KERNELS = ("packed_upconv_bf16", "packed_conv_rgb_bf16", "packed_conv_bf16", "packed_upconv",
+            "packed_conv_rgb", "packed_conv")
 BATCH = 8
 CALLS = 3
 
@@ -42,7 +46,7 @@ def _part(name: str) -> str:
     fused = re.search(r"fused_kernel<\d+, ?(\d)>", name)  # csrc/fused_ring.cuh: <COUT, TAIL>
     if fused:
         return "packed_upconv_conv" if fused.group(1) == "0" else "packed_upconv_conv_rgb"
-    for k in _KERNELS:  # packed_conv_rgb before its prefix packed_conv
+    for k in _KERNELS:
         if f"{k}_kernel" in name:
             return k
     if "memcpy" in name.lower() and "dtoh" in name.lower().replace(" ", ""):
@@ -87,9 +91,13 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     ap.add_argument("--first-call", action="store_true",
                     help="time single calls after the allocator's pool changed instead")
+    ap.add_argument("--precision", default="high",
+                    choices=["default", "fast", "high", "highest"],
+                    help="the serving grade ('default' is the grade None)")
     args = ap.parse_args(argv)
 
-    engine = ImageGANEngine(ProGANConfig(), device="cuda", precision="high")
+    precision = None if args.precision == "default" else args.precision
+    engine = ImageGANEngine(ProGANConfig(), device="cuda", precision=precision)
     z = engine.sample_latents(BATCH)
     for _ in range(2):  # warm-up: kernel build, cuDNN plans
         engine.generate(z)
@@ -129,7 +137,7 @@ def main(argv=None) -> int:
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {us / CALLS / 1e3:9.3f} ms/call  {name[:110]}")
     print(json.dumps({
-        "batch": BATCH, "calls": CALLS,
+        "batch": BATCH, "calls": CALLS, "precision": args.precision,
         "stage_fused": os.environ.get("PROBGAN_STAGE_FUSED", "0") == "1",
         "wall_ms_per_call": wall_us / CALLS / 1e3,
         "device_busy_ms_per_call": busy_us / CALLS / 1e3,

@@ -175,7 +175,7 @@ def test_packed_path_calls_the_packed_ops(packed_case, monkeypatch):
         calls.append(("pool", epilogue, tuple(x.shape[1:]), w.shape[0])),
         pool(x, w, b, epilogue))[1])
     tpg.discriminator_apply(tparams, torch.from_numpy(img[:1]), tcfg, stage, 1.0,
-                            packed=True)
+                            precision="high", packed=True)
     assert calls == [("conv", "lrelu", (16, 512, 512), 16), ("pool", "lrelu", (16, 512, 512), 32),
                      ("conv", "lrelu", (32, 256, 256), 32), ("pool", "lrelu", (32, 256, 256), 64)]
 
@@ -196,7 +196,24 @@ def test_packed_d_gate_matches_jax():
 
 @pytest.mark.parametrize("grade", [None, "default", "fast"])
 def test_bf16_grades_raise(grade):
-    cfg = tpg.ProGANConfig(**SMALL)
+    """D at the bf16 grades. None and "default" run, packed or not: the
+    packed gate declines them (packed_d_stage_count is 0), so D is unpacked,
+    as in the JAX package. "fast" runs unpacked and raises on the packed path,
+    whose kernel mode "mid" is not ported. The differentiable packed path's
+    bf16 mode raises at every grade."""
+    cfg = tpg.ProGANConfig(**PACKED)
+    assert tpg.packed_d_stage_count(cfg, 6, "high") == 1
     params = tpg.init_discriminator(cfg, 0)
-    with pytest.raises(NotImplementedError, match=repr(grade)):
-        tpg.discriminator_apply(params, torch.zeros(1, 8, 8, 3), cfg, 1, precision=grade)
+    img = torch.from_numpy(_images(2, 256, 9))
+    unpacked = tpg.discriminator_apply(params, img, cfg, 6, 0.5, precision=grade)
+    assert unpacked.shape == (2,) and torch.isfinite(unpacked).all()
+    if grade == "fast":
+        with pytest.raises(NotImplementedError, match="'mid'"):
+            tpg.discriminator_apply(params, img, cfg, 6, 0.5, precision=grade, packed=True)
+    else:
+        assert tpg.packed_d_stage_count(cfg, 6, grade) == 0
+        assert torch.equal(tpg.discriminator_apply(params, img, cfg, 6, 0.5, precision=grade,
+                                                   packed=True), unpacked)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        tpg.discriminator_apply(params, img, cfg, 6, precision=grade, packed=True,
+                                packed_mode="default")

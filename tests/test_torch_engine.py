@@ -44,9 +44,34 @@ def test_engine_generate_cpu_shape_dtype():
 
 
 @pytest.mark.parametrize("grade", [None, "default", "fast"])
-def test_engine_rejects_bf16_grades(grade):
-    with pytest.raises(NotImplementedError, match="bf16"):
-        ImageGANEngine(PACKED, device="cpu", precision=grade)
+def test_engine_rejects_bf16_grades(grade, monkeypatch):
+    """An engine at a bf16 grade serves on the CPU (unpacked there). With its
+    packed path on, as on the card (here through the twins), it renders the
+    late stages in kernel mode "default", and rejects what the port does not
+    have at that grade: PROBGAN_STAGE_FUSED=1 (the stage-fused kernels are
+    fp32 only) and, at "fast", scoring (D's kernel mode "mid")."""
+    engine = ImageGANEngine(PACKED, device="cpu", precision=grade, seed=3)
+    z = engine.sample_latents(1)
+    img = engine.generate(z, stage=6)
+    assert img.dtype == np.uint8 and img.shape == (1, 256, 256, 3)
+    engine.packed = True
+    _, _, psnr = _uint8_psnr(engine.generate(z, stage=6), img)
+    assert psnr > 30.0  # one bf16 pass in the packed stage (~3 significant digits)
+    reals = img.astype(np.float32) / 127.5 - 1.0
+    if grade == "fast":
+        with pytest.raises(NotImplementedError, match="'mid'"):
+            engine.score(reals, stage=6)
+    else:
+        assert np.isfinite(engine.score(reals, stage=6)).all()
+    monkeypatch.setenv("PROBGAN_STAGE_FUSED", "1")
+    with pytest.raises(NotImplementedError, match="B10/B11"):
+        engine.generate(z, stage=6)
+
+
+def _uint8_psnr(a, b):
+    d = a.astype(np.float64) - b.astype(np.float64)
+    mse = float(np.mean(d * d))
+    return np.abs(d).max(), mse, 10 * np.log10(255.0**2 / mse) if mse else float("inf")
 
 
 @pytest.mark.parametrize("spec", ["auto", "cuda", "gpu"])

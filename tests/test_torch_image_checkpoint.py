@@ -205,8 +205,12 @@ def test_generate_images_outputs(tmp_path, capsys):
     assert f"Results saved to: {js}" in capsys.readouterr().out
     with open(js) as f:
         assert json.load(f)["images_shape"] == [1, 32, 32, 3]
+    # the bf16 grades serve too; on the CPU (unpacked, where TF32 does not
+    # exist) they give the "high" images
+    _, high = _cli(capsys, infer, base)
     for grade in ("default", "fast"):
-        with pytest.raises(NotImplementedError, match="bf16"):
-            infer.main(base + ["--precision", grade])
+        _, graded = _cli(capsys, infer, base + ["--precision", grade])
+        assert graded["images_shape"] == [1, 32, 32, 3]
+        assert graded["checksum"] == high["checksum"]
     with pytest.raises(NotImplementedError, match="A11"):
         infer.main(base + ["--mesh", "auto"])

@@ -195,23 +195,51 @@ def test_packed_gate_matches_jax():
 
 
 @pytest.mark.parametrize("grade", [None, "default", "fast"])
-def test_bf16_grades_raise(grade):
-    cfg = tpg.ProGANConfig(**SMALL)
+def test_bf16_grades_raise(grade, monkeypatch):
+    """The bf16 grades run where the port has them, the unpacked path and the
+    packed two-kernel path (its stages in kernel mode "default", here the
+    twins), and raise, naming the ROADMAP item, where it does not: the
+    stage-fused kernels (fp32 only) and the differentiable packed path's bf16
+    mode."""
+    cfg = tpg.ProGANConfig(**PACKED)
+    assert tpg.packed_start_stage(cfg, 6) == 6
     params = tpg.init_generator(cfg, 0)
-    with pytest.raises(NotImplementedError, match=repr(grade)):
-        tpg.generator_apply(params, torch.zeros(1, 16), cfg, 1, precision=grade)
+    z = torch.from_numpy(_rand((1, 16), 3))
+    for packed in (False, True):
+        img = tpg.generator_apply(params, z, cfg, 6, precision=grade, packed=packed)
+        assert img.dtype == torch.uint8 and tuple(img.shape) == (1, 256, 256, 3)
+    monkeypatch.setenv("PROBGAN_STAGE_FUSED", "1")
+    with pytest.raises(NotImplementedError, match="B10/B11"):
+        tpg.generator_apply(params, z, cfg, 6, precision=grade, packed=True)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        tpg.generator_rgb(params, z, cfg, 6, precision=grade, packed_mode="default")
 
 
-def test_fp32_grades_turn_tf32_off():
+def test_fp32_grades_turn_tf32_off(monkeypatch):
+    """Inside a call at an fp32 grade both TF32 switches are off (a spy on
+    F.conv2d reads them at every conv); after the call they are back as they
+    were, whichever they were."""
     cfg = tpg.ProGANConfig(**SMALL)
     params = tpg.init_generator(cfg, 0)
+    seen = []
+    conv2d = torch.nn.functional.conv2d
+
+    def spy(*args, **kwargs):
+        seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", spy)
     saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     try:
-        torch.backends.cudnn.allow_tf32 = True
-        torch.backends.cuda.matmul.allow_tf32 = True
-        tpg.generator_apply(params, torch.zeros(1, 16), cfg, 1, precision="high")
-        assert not torch.backends.cudnn.allow_tf32
-        assert not torch.backends.cuda.matmul.allow_tf32
+        for before in (True, False):
+            for grade in ("high", "highest"):
+                torch.backends.cudnn.allow_tf32 = before
+                torch.backends.cuda.matmul.allow_tf32 = before
+                seen.clear()
+                tpg.generator_apply(params, torch.zeros(1, 16), cfg, 1, precision=grade)
+                assert seen and set(seen) == {(False, False)}
+                assert torch.backends.cudnn.allow_tf32 is before
+                assert torch.backends.cuda.matmul.allow_tf32 is before
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
@@ -263,8 +291,8 @@ def test_fused_uint8_switch_matches_jax(packed_256_case, monkeypatch):
     jcfg, tcfg, jparams, tparams, stage, z = packed_256_case
     emitted = []
     conv_rgb = tpk.packed_conv_rgb
-    monkeypatch.setattr(tpk, "packed_conv_rgb", lambda *a, emit_uint8=False: (
-        emitted.append(emit_uint8), conv_rgb(*a, emit_uint8=emit_uint8))[1])
+    monkeypatch.setattr(tpk, "packed_conv_rgb", lambda *a, emit_uint8=False, **kw: (
+        emitted.append(emit_uint8), conv_rgb(*a, emit_uint8=emit_uint8, **kw))[1])
     zt = torch.from_numpy(z)
     fused = tpg.generator_apply(tparams, zt, tcfg, stage, 0.5, precision="highest",
                                 packed=True).numpy()

@@ -174,9 +174,10 @@ def test_fused_generator_matches_jax(packed_gen, alpha, monkeypatch):
     tcfg, tparams, s0, stage, entry, z, want = packed_gen
     (late, (whole_rgb, whole_u8)) = want[alpha]
     monkeypatch.setenv("PROBGAN_STAGE_FUSED", "1")
-    got = tpg._g_late_packed(tparams, entry, tcfg, s0, stage, alpha).numpy()
+    got = tpg._g_late_packed(tparams, entry, tcfg, s0, stage, alpha, "highest").numpy()
     np.testing.assert_allclose(got, late["rgb"], **TOL)
-    got_u8 = tpg._g_late_packed(tparams, entry, tcfg, s0, stage, alpha, emit="uint8").numpy()
+    got_u8 = tpg._g_late_packed(tparams, entry, tcfg, s0, stage, alpha, "highest",
+                                emit="uint8").numpy()
     _assert_uint8_close(got_u8, late["uint8"])
     got = tpg.generator_rgb(tparams, z, tcfg, stage, alpha, precision="highest",
                             packed=True).numpy()
@@ -214,8 +215,10 @@ def test_stage_fused_route_is_bit_equal(stage, monkeypatch):
     for flag in ("1", "0"):
         monkeypatch.setenv("PROBGAN_STAGE_FUSED", flag)
         before = dict(calls)
-        out[flag] = (tpg.generator_rgb(params, z, cfg, stage, 0.7, packed=True),
-                     tpg.generator_apply(params, z, cfg, stage, 0.7, packed=True))
+        out[flag] = (tpg.generator_rgb(params, z, cfg, stage, 0.7, precision="high",
+                                       packed=True),
+                     tpg.generator_apply(params, z, cfg, stage, 0.7, precision="high",
+                                         packed=True))
         out[flag + "calls"] = {k: calls[k] - before[k] for k in calls}
     assert torch.equal(out["1"][0], out["0"][0]) and torch.equal(out["1"][1], out["0"][1])
     n_early = stage - 6  # non-final packed stages

@@ -197,12 +197,15 @@ def test_init_state_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(packed_train_mode="default"), "bf16"),
+    (dict(packed_train_mode="default", packed_g=True), "bf16"),
     (dict(packed_train_mode="mid", packed_d=True), "bf16"),
-    (dict(dtype=torch.bfloat16), "bf16"),
+    (dict(dtype=torch.bfloat16, packed_d=True), "bf16"),
     (dict(axis_names=("data",)), "axis_names"),
 ])
 def test_unported_train_options_raise(kwargs, match):
+    """What the step does not have yet raises before any work: the packed
+    training paths below fp32 (a bf16 kernel mode or dtype; the unpacked
+    step runs both, tests/test_torch_grades.py) and a data-parallel step."""
     cfg = tpg.ProGANConfig(**SMALL)
     state = ttrain.progan_init_state(0, cfg, device="cpu")
     real, z = torch.zeros(2, 16, 16, 3), torch.zeros(2, 8)
