@@ -23,8 +23,10 @@ runs the plain path. ``--bf16`` trains the unpacked path in bf16 (params,
 Adam and the loss math stay fp32), as the JAX trainer does. Flags that need a
 piece the port does not have yet exit 1 before the first step, naming the
 ROADMAP item: ``--packed_d``/``--packed_g`` with ``--bf16`` or with
-``--packed_mode default|mid``, and ``--fast`` (which implies all three: the
-bf16 backward kernels), ``--mesh`` (A11) and ``--device tpu``. ``--debug`` raises
+``--packed_mode default``, and ``--fast`` (which implies all three: the
+bf16 backward kernels), ``--mesh`` (A11) and ``--device tpu``. With
+``--packed_mode high`` the packed kernels train at fp32, with ``mid`` at the
+2-term bf16 split (forward and backward; the weight gradients fp32). ``--debug`` raises
 FloatingPointError at the first loss that is not finite, naming the stage,
 epoch and step (the JAX package turns on ``jax_debug_nans`` instead).
 
@@ -156,9 +158,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--packed_mode", type=str, default="default",
                         choices=["default", "mid", "high"],
                         help="Grade of the packed training kernels when "
-                        "--packed_d/--packed_g engage: 'high' is fp32; the "
-                        "bf16 grades 'default' and 'mid' exit 1 until "
-                        f"ported ({_BF16_ITEM}). Without them the step runs fp32")
+                        "--packed_d/--packed_g engage: 'high' is fp32, 'mid' the "
+                        "2-term bf16 split (weight gradients fp32); the one-pass "
+                        f"bf16 grade 'default' exits 1 until ported ({_BF16_ITEM}). "
+                        "Without them the step runs fp32")
     parser.add_argument("--fast", action="store_true",
                         help="The JAX package's fast preset (--bf16 --packed_d "
                         f"--packed_g): exits 1 until the bf16 backward lands ({_BF16_ITEM})")
@@ -209,9 +212,9 @@ def _unported(args) -> str | None:
     if args.bf16 and (args.packed_d or args.packed_g):
         return ("--bf16 with --packed_d/--packed_g: the packed training paths take fp32 "
                 f"only, not ported yet ({_BF16_ITEM})")
-    if (args.packed_d or args.packed_g) and args.packed_mode != "high":
-        return (f"--packed_mode {args.packed_mode} is a bf16 grade of the packed "
-                f"kernels, not ported yet ({_BF16_ITEM}); use --packed_mode high")
+    if (args.packed_d or args.packed_g) and args.packed_mode == "default":
+        return ("--packed_mode default is the one-pass bf16 grade of the packed "
+                f"kernels, not ported yet ({_BF16_ITEM}); use --packed_mode high or mid")
     if args.mesh:
         return "--mesh: data-parallel training over several cards is not ported yet (ROADMAP A11)"
     return None

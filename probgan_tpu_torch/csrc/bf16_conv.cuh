@@ -1,38 +1,54 @@
-// The bf16 grade of the late-stage generator kernels: kernel mode "default"
-// of packed_upconv (B1), packed_conv "lrelu_norm" (B2) and packed_conv_rgb
-// (B3), the Pallas kernels' one bf16 pass (probgan_tpu/ops/pallas_packed.py
-// `_dot` with mode "default"): both operands of every dot rounded to bf16 (to
-// nearest even), the products summed in fp32; bias, LeakyReLU(0.2),
-// PixelNorm, the blend and tanh -> uint8 stay fp32.
+// The bf16 grades of the late-stage conv kernels: kernel modes "default"
+// (one bf16 pass) and "mid" (the 2-term split) of packed_upconv (B1),
+// packed_conv (B2), packed_conv_rgb (B3) and packed_convpool (B5), the Pallas
+// kernels' `_dot` (probgan_tpu/ops/pallas_packed.py:85-170). "default"
+// rounds both operands of every dot to bf16 (to nearest even); "mid" rounds
+// the weights alone and splits the activations in two bf16 terms,
+// x_hi = bf16(x), x_lo = bf16(x - x_hi), so that w_hi * x_hi + w_hi * x_lo
+// is w_hi * x to ~2^-16. Products are summed in fp32; bias, LeakyReLU(0.2),
+// PixelNorm, the pool, the blend and tanh -> uint8 stay fp32.
 //
-// Shared by packed_conv_bf16.cu, packed_conv_rgb_bf16.cu and
-// packed_upconv_bf16.cu: an implicit GEMM on mma.sync.m16n8k16 with bf16
-// operands and fp32 accumulators. M = output pixels, N = all Cout (32 or 64,
-// so that PixelNorm stays inside the block), K = taps x input channels.
+// Shared by packed_conv_bf16.cu, packed_convpool_bf16.cu,
+// packed_conv_rgb_bf16.cu and packed_upconv_bf16.cu: an implicit GEMM on
+// mma.sync.m16n8k16 with bf16 operands and fp32 accumulators. M = output
+// pixels, N = a slab of Cout (32 or 64: all Cout where PixelNorm needs it,
+// slabs of 64 for Cout 128), K = taps x input channels x terms.
 //  * A block of 8 warps owns a tile of TH rows x 32 output columns (B1: TH
 //    input rows x 16 input columns of one output row parity, both column
-//    parities), TH = 8 at Cout 64 and 16 at Cout 32. A warp owns TH/8 rows;
-//    each of its rows is two m16 tiles (B2/B3: columns 0-15 and 16-31; B1:
-//    column parity 0 and 1 of 16 input columns) x all Cout/8 n8 tiles: 64
-//    fp32 sums a thread either way.
+//    parities), TH = 8 at a slab of 64 and 16 at 32, and one slab. A warp
+//    owns MT = TH/4 m16 tiles x all slab/8 n8 tiles: 64 fp32 sums a thread.
+//    An m16 tile is one row of 16 columns (kRow16: B2, B3; B1: 16 input
+//    columns of one parity) or, for B5's pool, two rows of 8 columns
+//    (kPool2x8), so that the lane holding pixel g also holds pixel g + 8
+//    below it: a 2x2 window's vertical pair is d[0] + d[2] in one thread,
+//    its horizontal pair one xor shuffle of 4 lanes.
 //  * Input channels go through shared memory kCK = 32 at a time. The block
-//    stages its halo patch, rounding each fp32 value to bf16 as it goes,
-//    into [row][column][channel] order (channels innermost, 40 bf16 a pixel:
-//    80 bytes, 20 words), so that an A fragment register (two channels of one
-//    pixel) is one 32-bit load. The weights come pre-rounded from the wrapper
-//    in the same [tap][Cout][40] order for each chunk of 32 channels, and are
-//    copied as they are with cp.async. Rows of 20 words put the 8 pixels (or
-//    output channels) x 4 channel pairs of a fragment load on 32 distinct
-//    banks; the staging stores use the same map.
-//  * Per chunk, tap and half of the chunk's channels, a warp loads the Cout/8
-//    B fragments once and runs them against each of its m16 tiles.
-//  * Two blocks an SM (78-81 KB of shared memory each, at most 128 registers
-//    a thread): one block's staging overlaps the other's products.
+//    stages its halo patch, rounding (at "mid": splitting) each fp32 value
+//    as it goes, into [row][column][channel] order (channels innermost, 40
+//    bf16 a pixel: 80 bytes, 20 words), so that an A fragment register (two
+//    channels of one pixel) is one 32-bit load. At "mid" the patch is staged
+//    twice, the x_hi plane and the x_lo plane: the split happens once a value
+//    and the main loop reads two planes of one layout. The weights come
+//    pre-rounded from the wrapper in the same [tap][slab][40] order for each
+//    chunk of 32 channels, and are copied as they are with cp.async. Rows of
+//    20 words put the 8 pixels (or output channels) x 4 channel pairs of a
+//    fragment load on 32 distinct banks; the staging stores use the same map.
+//  * Per chunk, tap and half of the chunk's channels, a warp loads the slab/8
+//    B fragments (w_hi) once and runs them against each of its m16 tiles,
+//    the x_hi then the x_lo A fragments: 1 or 2 mma a fragment.
+//  * Shared memory a block: the patch ((TH + 2) x 40 pixels, B1 (TH + 1) x
+//    24) once a term, and one chunk's weights. B2/B3/B5 at a slab of 64:
+//    78,080 bytes at "default", 110,080 at "mid"; at 32: 80,640 and 138,240;
+//    B1: 58,240 and 75,520 (Cout 64), 53,120 and 85,760 (Cout 32). Two blocks
+//    an SM (at most 128 registers a thread) but at "mid" with 32 channels,
+//    one: one block's staging overlaps the other's products.
 //  * Every output is summed in one order (chunks ascending, taps, channel
-//    halves), with no split over K and no atomics: a run gives the bits of
-//    the run before it. bf16 x bf16 products are exact in fp32, so the sums
-//    differ from a plain fp32 conv of the rounded operands only by their
-//    order (and the tensor cores' own rounding of each mma's sum).
+//    halves, terms), with no split over K and no atomics: a run gives the
+//    bits of the run before it, and B5 "mid" sums each pixel as B2 "mid"
+//    does (the m16 layout moves no sum). bf16 x bf16 products are exact in
+//    fp32, so the sums differ from a plain fp32 conv of the rounded (split)
+//    operands only by their order (and the tensor cores' own rounding of
+//    each mma's sum).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -45,6 +61,13 @@ namespace probgan {
 constexpr int kCK = 32;              // input channels a shared-memory chunk
 constexpr int kPadK = kCK + 8;       // bf16 a staged pixel or weight row
 constexpr int kRowWords = kPadK / 2;  // 20 words
+
+// The epilogues, by their codes in ops/packed.py CONV_EPILOGUES.
+enum BfEpilogue { kLreluNorm = 0, kLrelu = 1, kNone = 2 };
+// Where an m16 tile's 16 pixels lie in the output tile: one row of 16
+// columns (pixel p at column p), or two rows of 8 (p at row p / 8, column
+// p % 8), B5's.
+enum MLayout { kRow16 = 0, kPool2x8 = 1 };
 
 // D (16x8, fp32) += A (16x16, bf16, row-major) * B (16x8, bf16, column-major).
 // Fragments (g = lane / 4, t = lane % 4), two bf16 a register, the lower
@@ -69,6 +92,14 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// v as kernel mode "mid" sees it: bf16(v) + bf16(v - bf16(v)), the sum exact
+// in fp32.
+__device__ __forceinline__ float split2(float v) {
+  const float hi = round_bf16(v);
+  return hi + round_bf16(v - hi);
+}
+
+// COUT: the output channels of a block (a slab of Cout).
 template <int COUT>
 struct BfTile {
   static_assert(COUT == 32 || COUT == 64, "the bf16 kernels are built for 32 or 64 channels");
@@ -80,13 +111,16 @@ struct BfTile {
 
 // Stage channels c0 .. c0 + kCK - 1 of image plane `xb` [C][H][W] for the
 // patch rows row0 .. row0 + SR - 1 and columns col0 .. col0 + 8 * NG - 1 into
-// `xs` [SR][8 * NG][kPadK] bf16, zero outside the image. Work item = (patch
-// row, group of 8 columns, group of 8 channels); in a warp lane l takes
-// column l % 8 and channels 2 * (l / 8), + 1 of its group, two coalesced
-// loads and one 32-bit store, on 32 distinct banks.
-template <int SR, int NG>
+// `xs` [NTERM][SR][8 * NG][kPadK] bf16, zero outside the image: the values
+// rounded (NTERM 1) or their two terms, x_hi then x_lo a plane (NTERM 2).
+// Work item = (patch row, group of 8 columns, group of 8 channels); in a warp
+// lane l takes column l % 8 and channels 2 * (l / 8), + 1 of its group, two
+// coalesced loads and one 32-bit store a plane, on 32 distinct banks.
+template <int SR, int NG, int NTERM>
 __device__ __forceinline__ void stage_x(unsigned* __restrict__ xs, const float* __restrict__ xb,
                                         int c0, int H, int W, int row0, int col0) {
+  static_assert(NTERM == 1 || NTERM == 2, "one bf16 pass or the 2-term split");
+  constexpr int kPlane = SR * 8 * NG * kRowWords;
   constexpr int kItems = SR * NG * (kCK / 8);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int pix = lane & 7, cp = lane >> 3;
@@ -104,7 +138,14 @@ __device__ __forceinline__ void stage_x(unsigned* __restrict__ xs, const float* 
       v0 = __ldg(p);
       v1 = __ldg(p + plane);
     }
-    xs[(r * 8 * NG + 8 * j + pix) * kRowWords + 4 * q + cp] = pack_bf16(v0, v1);
+    const int o = (r * 8 * NG + 8 * j + pix) * kRowWords + 4 * q + cp;
+    if constexpr (NTERM == 1) {
+      xs[o] = pack_bf16(v0, v1);
+    } else {  // v - bf16(v) is exact in fp32
+      const float h0 = round_bf16(v0), h1 = round_bf16(v1);
+      xs[o] = pack_bf16(h0, h1);
+      xs[o + kPlane] = pack_bf16(v0 - h0, v1 - h1);
+    }
   }
 }
 
@@ -115,18 +156,23 @@ __device__ __forceinline__ void stage_w(unsigned* ws, const unsigned* __restrict
   for (int e = 4 * threadIdx.x; e < n_words; e += 4 * kThreads) cp_async16(ws + e, src + e, true);
 }
 
-// The products of one chunk for one m16 tile against all NT n8 tiles: `pa`
-// is the tile's first pixel's word in the staged patch (row g = pixel g),
-// `pb` the tap's weights [COUT][kRowWords] in shared memory.
-template <int NT>
-__device__ __forceinline__ void mma_row(float (&acc)[NT][4], const unsigned* pa,
-                                        const unsigned (&b)[NT][2]) {
+// The products of one chunk for one m16 tile against all NT n8 tiles, term
+// by term: `pa` is the tile's pixel 0's word in the x_hi plane of the staged
+// patch, `half` the words from pixel g to pixel g + 8 (8 pixels along a row,
+// or one patch row down), `plane` the words from the x_hi plane to the x_lo
+// plane; `b` the tap's w_hi B fragments.
+template <int NT, int NTERM>
+__device__ __forceinline__ void mma_row(float (&acc)[NT][4], const unsigned* pa, int half,
+                                        int plane, const unsigned (&b)[NT][2]) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const unsigned a[4] = {pa[g * kRowWords + t], pa[(g + 8) * kRowWords + t],
-                         pa[g * kRowWords + t + 4], pa[(g + 8) * kRowWords + t + 4]};
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[nt], a, b[nt][0], b[nt][1]);
+  for (int term = 0; term < NTERM; ++term) {
+    const unsigned* p = pa + term * plane + g * kRowWords + t;
+    const unsigned a[4] = {p[0], p[half], p[4], p[half + 4]};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[nt], a, b[nt][0], b[nt][1]);
+  }
 }
 
 template <int NT>
@@ -171,31 +217,59 @@ __device__ __forceinline__ void bias_lrelu_norm_frag(float (&acc)[NT][4],
     for (int e = 0; e < 4; ++e) acc[nt][e] *= ss[e >> 1];
 }
 
-// B2 and B3: a tile of TH rows x 32 columns, its halo patch (rows y0 - 1 ..
-// y0 + TH, columns x0 - 4 .. x0 + 35, whole groups of 8) and one chunk's
-// weights [9 taps][COUT][kPadK].
-template <int COUT>
+// bias -> LeakyReLU(0.2) (kLrelu) or bias alone (kNone) on one m16 tile's
+// sums, in place; `bias` is the slab's.
+template <int NT, int EPI>
+__device__ __forceinline__ void bias_act_frag(float (&acc)[NT][4], const float* __restrict__ bias) {
+  static_assert(EPI == kLrelu || EPI == kNone, "PixelNorm is bias_lrelu_norm_frag");
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = acc[nt][e] + __ldg(bias + 8 * nt + 2 * t + (e & 1));
+      acc[nt][e] = EPI == kLrelu && v < 0.f ? kSlope * v : v;
+    }
+}
+
+// B2, B3 and B5: a tile of TH rows x 32 columns, its halo patch (rows y0 - 1
+// .. y0 + TH, columns x0 - 4 .. x0 + 35, whole groups of 8) once a term and
+// one chunk's weights [9 taps][COUT][kPadK].
+template <int COUT, int NTERM = 1>
 struct ConvBf16 {
   using T = BfTile<COUT>;
   static constexpr int SR = T::TH + 2;    // patch rows: y0 - 1 .. y0 + TH
   static constexpr int NG = 5;            // patch columns x0 - 4 .. x0 + 35
-  static constexpr int kXWords = SR * 8 * NG * kRowWords;
-  static constexpr int kWWords = 9 * COUT * kRowWords;  // one chunk's weights
-  static constexpr int kBytes = 4 * (kXWords + kWWords);
+  static constexpr int kXWords = SR * 8 * NG * kRowWords;  // one term's plane
+  static constexpr int kWWords = 9 * COUT * kRowWords;     // one chunk's weights
+  static constexpr int kBytes = 4 * (NTERM * kXWords + kWWords);
 };
 
-// B2's and B3's main loop: the tile's sums of a 3x3 SAME conv,
-// acc[m16 tile][n8 tile][4], m16 tile mt = (row rr = mt / 2 of the warp's,
-// column half mt % 2).
-template <int COUT>
+// The output pixel of m16 tile q = warp * MT + mt of a tile, lane row g:
+// kRow16, row q / 2 and columns 16 * (q % 2) + g (pixel g + 8: 8 columns on);
+// kPool2x8, rows 2 * (q / 4) (+ 1 for pixel g + 8) and column 8 * (q % 4) + g.
+template <int LAYOUT>
+__device__ __forceinline__ int mtile_row(int q) {
+  return LAYOUT == kRow16 ? q / 2 : 2 * (q / 4);
+}
+template <int LAYOUT>
+__device__ __forceinline__ int mtile_col(int q) {
+  return LAYOUT == kRow16 ? 16 * (q % 2) : 8 * (q % 4);
+}
+
+// B2's, B3's and B5's main loop: the tile's sums of a 3x3 SAME conv,
+// acc[m16 tile][n8 tile][4], m16 tile mt of the warp at mtile_row/col.
+template <int COUT, int NTERM = 1, int LAYOUT = kRow16>
 __device__ __forceinline__ void conv_bf16_tile(float (&acc)[BfTile<COUT>::MT][BfTile<COUT>::NT][4],
                                                unsigned* smem, const float* __restrict__ x,
                                                const unsigned* __restrict__ wk, int b, int y0,
                                                int x0, int C, int H, int W) {
   using T = BfTile<COUT>;
-  using K = ConvBf16<COUT>;
+  using K = ConvBf16<COUT, NTERM>;
+  // pixel g to pixel g + 8 of an m16 tile, in words of the staged patch
+  constexpr int kHalf = (LAYOUT == kRow16 ? 8 : 8 * K::NG) * kRowWords;
   unsigned* xs = smem;
-  unsigned* ws = smem + K::kXWords;
+  unsigned* ws = smem + NTERM * K::kXWords;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
   for (int mt = 0; mt < T::MT; ++mt)
@@ -207,7 +281,7 @@ __device__ __forceinline__ void conv_bf16_tile(float (&acc)[BfTile<COUT>::MT][Bf
   for (int c0 = 0; c0 < C; c0 += kCK) {
     stage_w(ws, wk + static_cast<size_t>(c0 / kCK) * K::kWWords, K::kWWords);
     cp_async_commit();
-    stage_x<K::SR, K::NG>(xs, xb, c0, H, W, y0 - 1, x0 - 4);
+    stage_x<K::SR, K::NG, NTERM>(xs, xb, c0, H, W, y0 - 1, x0 - 4);
     cp_async_wait(0);
     __syncthreads();
 #pragma unroll 1
@@ -219,11 +293,13 @@ __device__ __forceinline__ void conv_bf16_tile(float (&acc)[BfTile<COUT>::MT][Bf
         load_b<T::NT>(bf, ws + tap * COUT * kRowWords + 8 * kk);
 #pragma unroll
         for (int mt = 0; mt < T::MT; ++mt) {
-          // output row warp * RW + mt / 2 reads patch row + ky; output column
-          // 16 * (mt % 2) + g reads patch column 16 * (mt % 2) + g + kx + 3
-          const int row = warp * T::RW + mt / 2 + ky;
-          const int col = 16 * (mt % 2) + kx + 3;
-          mma_row<T::NT>(acc[mt], xs + (row * 8 * K::NG + col) * kRowWords + 8 * kk, bf);
+          // output row r, column c of the tile reads patch row r + ky, patch
+          // column c + kx + 3
+          const int q = warp * T::MT + mt;
+          const int row = mtile_row<LAYOUT>(q) + ky;
+          const int col = mtile_col<LAYOUT>(q) + kx + 3;
+          mma_row<T::NT, NTERM>(acc[mt], xs + (row * 8 * K::NG + col) * kRowWords + 8 * kk,
+                                kHalf, K::kXWords, bf);
         }
       }
     }

@@ -1,25 +1,29 @@
-// packed_conv_rgb_bf16: kernel mode "default" (one bf16 pass) of the final
-// generator stage's tail:
-//   3x3 SAME conv of bf16-rounded x and weights (fp32 sums) + bias ->
-//   LeakyReLU(0.2) -> PixelNorm -> toRGB of the bf16-rounded features with
-//   bf16-rounded weights (fp32 sums) + bias -> prev + alpha * (rgb - prev),
-//   prev = nearest-2x of rgb_prev -> (uint8) tanh -> rint((t + 1) * 127.5)
-//   -> clip [0, 255]
+// packed_conv_rgb_bf16: kernel modes "default" (one bf16 pass) and "mid" (the
+// 2-term split) of the final generator stage's tail:
+//   3x3 SAME conv of x (rounded to bf16, or at "mid" split as bf16(x) +
+//   bf16(x - bf16(x))) against bf16-rounded weights (fp32 sums) + bias ->
+//   LeakyReLU(0.2) -> PixelNorm -> toRGB of the features (rounded, or split)
+//   with bf16-rounded weights (fp32 sums) + bias -> prev + alpha * (rgb -
+//   prev), prev = nearest-2x of rgb_prev -> (uint8) tanh -> rint((t + 1) *
+//   127.5) -> clip [0, 255]
 // written to NHWC [B][H][W][3]; the final feature map never leaves registers.
 //
-// Replaces probgan_tpu/ops/pallas_packed.py:678 `packed_conv_rgb` at mode
-// "default" (`prep_conv_weights` and the toRGB `_dot` of :712-727, whose both
-// operands that mode rounds), the stage-8 conv2 of the 1024^2 generator at
-// the "fast" and default grades: 32 -> 32 channels at 1024^2, then RGB (64 ->
-// 64 at 512^2 when the generator ends at stage 7).
+// Replaces probgan_tpu/ops/pallas_packed.py:678 `packed_conv_rgb` at modes
+// "default" and "mid" (`prep_conv_weights` and the toRGB `_dot` of
+// :712-727, whose operands those modes round or split as the conv's), the
+// stage-8 conv2 of the 1024^2 generator at the "fast" and default grades,
+// and with the generator's packed mode "mid" or "default+mid": 32 -> 32
+// channels at 1024^2, then RGB (64 -> 64 at 512^2 when the generator ends at
+// stage 7).
 //
 // Bound on the H100: bytes. At batch 2 the conv does 38.7 GFLOP (0.039 ms at
 // 989 TFLOP/s of bf16) and reads 268 MB of fp32 x and writes 6 MB of uint8
-// (0.082 ms at 3.35 TB/s).
+// (0.082 ms at 3.35 TB/s); "mid" runs twice the conv's products (0.078 ms).
 //
 // Design: packed_conv_bf16.cu's tile and main loop (bf16_conv.cuh
 // conv_bf16_tile) and its bias -> LeakyReLU -> PixelNorm on the fragments;
 // then each lane takes the toRGB products of its channels (8 * nt + 2t, + 1)
+// (each feature rounded, or split, in the lane)
 // for its two pixels, the quad sums them by two xor shuffles, and lane t = 0
 // writes pixel g and lane t = 1 pixel g + 8 with conv_tile.cuh
 // rgb_blend_store's blend and denorm.
@@ -27,7 +31,7 @@
 
 namespace probgan {
 
-template <int COUT, bool U8>
+template <int COUT, int NTERM, bool U8>
 __global__ void __launch_bounds__(kThreads, 2)
     packed_conv_rgb_bf16_kernel(const float* __restrict__ x, const unsigned* __restrict__ wk,
                                 const float* __restrict__ bias, const float* __restrict__ rgb_w,
@@ -42,7 +46,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int y0 = (t % tiles_y) * T::TH;
   const int b = t / tiles_y;
   float acc[T::MT][T::NT][4];
-  conv_bf16_tile<COUT>(acc, bf16_smem, x, wk, b, y0, x0, C, H, W);
+  conv_bf16_tile<COUT, NTERM>(acc, bf16_smem, x, wk, b, y0, x0, C, H, W);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -62,7 +66,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int nt = 0; nt < T::NT; ++nt)
 #pragma unroll
           for (int e = 0; e < 2; ++e)  // rgb_w [3][COUT]: bf16 values (the wrapper's) in fp32
-            p = fmaf(round_bf16(acc[mt][nt][2 * h + e]),
+            p = fmaf(NTERM == 1 ? round_bf16(acc[mt][nt][2 * h + e])
+                                : split2(acc[mt][nt][2 * h + e]),
                      __ldg(rgb_w + k * COUT + 8 * nt + 2 * tq + e), p);
         p += __shfl_xor_sync(0xffffffffu, p, 1);
         p += __shfl_xor_sync(0xffffffffu, p, 2);
@@ -88,16 +93,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int COUT, bool U8>
+template <int COUT, int NTERM, bool U8>
 int launch(const float* x, const unsigned* wk, const float* bias, const float* rgb_w,
            const float* rgb_b, const float* prev, float alpha, void* out, int B, int C, int H,
            int W, int smem, cudaStream_t stream) {
-  using K = ConvBf16<COUT>;
+  using K = ConvBf16<COUT, NTERM>;
   const long long n_tiles = static_cast<long long>(B) * (H / BfTile<COUT>::TH) * (W / 32);
   if (B < 1 || C < kCK || C % kCK || H % BfTile<COUT>::TH || W < 32 || W % 32 ||
       n_tiles > 0x7fffffff || smem != K::kBytes)
     return cudaErrorInvalidValue;
-  const auto kernel = packed_conv_rgb_bf16_kernel<COUT, U8>;
+  const auto kernel = packed_conv_rgb_bf16_kernel<COUT, NTERM, U8>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -111,27 +116,29 @@ int launch(const float* x, const unsigned* wk, const float* bias, const float* r
 // x [B][C][H][W] fp32, wk [C/32][9][Cout][40] bf16 (ops/packed.py
 // conv_bf16_weights), bias [Cout], rgb_w [3][Cout] (values rounded to bf16,
 // stored as fp32), rgb_b [3], prev [B][3][H/2][W/2] -> out [B][H][W][3],
-// uint8 if emit_uint8 else fp32 pre-tanh RGB; Cout 32 or 64, C % 32 == 0,
-// H % (8 or 16) == 0, W % 32 == 0; smem the block's dynamic shared memory in
-// bytes (ops/packed.py bf16_conv_bytes, checked against the kernel's).
-// Returns the cudaError_t of the launch (0 = launched).
+// uint8 if emit_uint8 else fp32 pre-tanh RGB; terms 1 ("default") or 2
+// ("mid"); Cout 32 or 64, C % 32 == 0, H % (8 or 16) == 0, W % 32 == 0; smem
+// the block's dynamic shared memory in bytes (ops/packed.py bf16_conv_bytes,
+// checked against the kernel's). Returns the cudaError_t of the launch (0 =
+// launched).
 extern "C" int probgan_packed_conv_rgb_bf16(const float* x, const void* wk, const float* bias,
                                             const float* rgb_w, const float* rgb_b,
                                             const float* prev, float alpha, void* out,
                                             int emit_uint8, int B, int C, int H, int W, int cout,
-                                            int smem, void* stream) {
+                                            int terms, int smem, void* stream) {
   using namespace probgan;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto w = static_cast<const unsigned*>(wk);
-  if (cout == 32)
-    return emit_uint8 ? launch<32, true>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W,
-                                         smem, s)
-                      : launch<32, false>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H,
-                                          W, smem, s);
-  if (cout == 64)
-    return emit_uint8 ? launch<64, true>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W,
-                                         smem, s)
-                      : launch<64, false>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H,
-                                          W, smem, s);
+#define PROBGAN_RGB_LAUNCH(CO, NT, U8) \
+  launch<CO, NT, U8>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W, smem, s)
+  if (terms == 1 && cout == 32)
+    return emit_uint8 ? PROBGAN_RGB_LAUNCH(32, 1, true) : PROBGAN_RGB_LAUNCH(32, 1, false);
+  if (terms == 1 && cout == 64)
+    return emit_uint8 ? PROBGAN_RGB_LAUNCH(64, 1, true) : PROBGAN_RGB_LAUNCH(64, 1, false);
+  if (terms == 2 && cout == 32)
+    return emit_uint8 ? PROBGAN_RGB_LAUNCH(32, 2, true) : PROBGAN_RGB_LAUNCH(32, 2, false);
+  if (terms == 2 && cout == 64)
+    return emit_uint8 ? PROBGAN_RGB_LAUNCH(64, 2, true) : PROBGAN_RGB_LAUNCH(64, 2, false);
+#undef PROBGAN_RGB_LAUNCH
   return cudaErrorInvalidValue;
 }

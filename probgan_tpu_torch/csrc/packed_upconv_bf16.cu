@@ -1,23 +1,29 @@
-// packed_upconv_bf16: kernel mode "default" (one bf16 pass) of packed_upconv's
-// "lrelu_norm" epilogue: nearest-2x upsample -> 3x3 SAME conv as the four
-// parity 2x2 convs of bf16-rounded x and bf16-rounded PRE-SUMMED taps (fp32
-// sums) + bias -> LeakyReLU(0.2) -> PixelNorm in fp32, [B][C][H][W] ->
-// [B][Cout][2H][2W] fp32; optionally also toRGB of the bf16-rounded input
-// with bf16-rounded weights (fp32 sums) + bias at input resolution
+// packed_upconv_bf16: kernel modes "default" (one bf16 pass) and "mid" (the
+// 2-term split) of packed_upconv: nearest-2x upsample -> 3x3 SAME conv as the
+// four parity 2x2 convs of x (rounded to bf16, or at "mid" split as bf16(x) +
+// bf16(x - bf16(x))) against bf16-rounded PRE-SUMMED taps (fp32 sums) + bias
+// -> LeakyReLU(0.2) -> PixelNorm ("lrelu_norm") or LeakyReLU alone ("lrelu",
+// "mid" only: the train step's pre-norm recompute) in fp32, [B][C][H][W] ->
+// [B][Cout][2H][2W] fp32; optionally also toRGB of the input (rounded, or
+// split) with bf16-rounded weights (fp32 sums) + bias at input resolution
 // [B][3][H][W].
 //
-// Replaces probgan_tpu/ops/pallas_packed.py:832 `packed_upconv` at mode
-// "default": the upsample is folded into the per-parity taps before they are
+// Replaces probgan_tpu/ops/pallas_packed.py:832 `packed_upconv` at modes
+// "default" and "mid": the upsample is folded into the per-parity taps before they are
 // rounded (`prep_upconv_weights` :800-830), so the kernel takes
 // bf16(w_a + w_b), not bf16(w_a) + bf16(w_b): the wrapper rounds the taps of
 // ops/fused_upconv.py parity_weights (rows summed first, then columns, the
 // JAX order). Its toRGB (:864, :880) is a mode dot too. It is conv1 of the
 // 1024^2 generator's stages 7 (128 -> 64 channels, 256^2 -> 512^2) and 8
-// (64 -> 32, 512^2 -> 1024^2, with toRGB) at the "fast" and default grades.
+// (64 -> 32, 512^2 -> 1024^2, with toRGB) at the "fast" and default grades;
+// at "mid", the same stages of generate with the generator's packed mode
+// "mid" and of the train step at packed_train_mode "mid" (forward and
+// recompute).
 //
 // Bound on the H100: bytes. At batch 2 stage 7 does 34.4 GFLOP (0.035 ms at
 // 989 TFLOP/s of bf16) and moves 67 MB in and 134 MB out (0.060 ms at 3.35
-// TB/s); stage 8 the same FLOP over 67 + 268 MB (0.100 ms).
+// TB/s); stage 8 the same FLOP over 67 + 268 MB (0.100 ms). "mid" runs twice
+// the products (0.070 ms), still under the bytes.
 //
 // Design (bf16_conv.cuh): a tile is the output rows of ONE parity py under
 // TH input rows (8 at Cout 64, 16 at 32) and 16 input columns, both column
@@ -28,32 +34,33 @@
 // output channel and neighbouring output columns, stored as one float2.
 // Blocks walk the tiles with the parity fastest, so both parities of a patch
 // run at about the same time and share it in L2. The toRGB of the input runs
-// in the py = 0 tiles, one input pixel a thread, from the staged patch.
+// in the py = 0 tiles, one input pixel a thread, from the staged patch (at
+// "mid" x_hi + x_lo, the split value).
 #include "bf16_conv.cuh"
 
 namespace probgan {
 
-template <int COUT>
+template <int COUT, int NTERM>
 struct UpconvBf16 {
   using T = BfTile<COUT>;
   static constexpr int SR = T::TH + 1;   // patch rows: i0 + py - 1 .. i0 + py + TH - 1
   static constexpr int NG = 3;           // patch columns j0 - 4 .. j0 + 19
-  static constexpr int kXWords = SR * 8 * NG * kRowWords;
+  static constexpr int kXWords = SR * 8 * NG * kRowWords;  // one term's plane
   static constexpr int kWWords = 8 * COUT * kRowWords;  // [2 px][4 taps][COUT][kPadK]
-  static constexpr int kBytes = 4 * (kXWords + kWWords);
+  static constexpr int kBytes = 4 * (NTERM * kXWords + kWWords);
 };
 
-template <int COUT>
+template <int COUT, int NTERM, int EPI>
 __global__ void __launch_bounds__(kThreads, 2)
     packed_upconv_bf16_kernel(const float* __restrict__ x, const unsigned* __restrict__ wk,
                               const float* __restrict__ bias, const float* __restrict__ rgb_w,
                               const float* __restrict__ rgb_b, float* __restrict__ y,
                               float* __restrict__ rgb, int C, int H, int W) {
   using T = BfTile<COUT>;
-  using K = UpconvBf16<COUT>;
+  using K = UpconvBf16<COUT, NTERM>;
   extern __shared__ __align__(16) unsigned bf16_smem[];
   unsigned* xs = bf16_smem;
-  unsigned* ws = bf16_smem + K::kXWords;
+  unsigned* ws = bf16_smem + NTERM * K::kXWords;
   const int tiles_x = W / 16, tiles_y = H / T::TH;
   int t = blockIdx.x;
   const int py = t & 1;
@@ -82,7 +89,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int c0 = 0; c0 < C; c0 += kCK) {
     stage_w(ws, wpy + static_cast<size_t>(c0 / kCK) * K::kWWords, K::kWWords);
     cp_async_commit();
-    stage_x<K::SR, K::NG>(xs, xb, c0, H, W, i0 + py - 1, j0 - 4);
+    stage_x<K::SR, K::NG, NTERM>(xs, xb, c0, H, W, i0 + py - 1, j0 - 4);
     cp_async_wait(0);
     __syncthreads();
     if (with_rgb) {
@@ -90,7 +97,10 @@ __global__ void __launch_bounds__(kThreads, 2)
                        ((pr + 1) * 8 * K::NG + pc + 4) * kPadK;
 #pragma unroll 4
       for (int c = 0; c < kCK; ++c) {
-        const float v = __bfloat162float(px[c]);
+        // x_hi, + x_lo from the next plane at "mid": the sum is exact
+        const float v = NTERM == 1 ? __bfloat162float(px[c])
+                                   : __bfloat162float(px[c]) +
+                                         __bfloat162float(px[c + 2 * K::kXWords]);
 #pragma unroll
         for (int k = 0; k < 3; ++k) racc[k] = fmaf(v, __ldg(rgb_w + k * C + c0 + c), racc[k]);
       }
@@ -111,8 +121,9 @@ __global__ void __launch_bounds__(kThreads, 2)
             // patch column g + pxp + dx + 3
             const int row = warp * T::RW + rr + dy;
             const int col = pxp + dx + 3;
-            mma_row<T::NT>(acc[2 * rr + pxp], xs + (row * 8 * K::NG + col) * kRowWords + 8 * kk,
-                           bf);
+            mma_row<T::NT, NTERM>(acc[2 * rr + pxp],
+                                  xs + (row * 8 * K::NG + col) * kRowWords + 8 * kk,
+                                  8 * kRowWords, K::kXWords, bf);
           }
         }
       }
@@ -129,8 +140,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   const size_t plane = static_cast<size_t>(2 * H) * Wo;
 #pragma unroll
   for (int rr = 0; rr < T::RW; ++rr) {
-    bias_lrelu_norm_frag<T::NT>(acc[2 * rr], bias);
-    bias_lrelu_norm_frag<T::NT>(acc[2 * rr + 1], bias);
+    if constexpr (EPI == kLreluNorm) {
+      bias_lrelu_norm_frag<T::NT>(acc[2 * rr], bias);
+      bias_lrelu_norm_frag<T::NT>(acc[2 * rr + 1], bias);
+    } else {
+      bias_act_frag<T::NT, EPI>(acc[2 * rr], bias);
+      bias_act_frag<T::NT, EPI>(acc[2 * rr + 1], bias);
+    }
     float* row = y + static_cast<size_t>(b) * COUT * plane +
                  static_cast<size_t>(2 * (i0 + warp * T::RW + rr) + py) * Wo + 2 * (j0 + g);
 #pragma unroll
@@ -144,16 +160,17 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int COUT>
+template <int COUT, int NTERM, int EPI>
 int launch(const float* x, const unsigned* wk, const float* bias, const float* rgb_w,
            const float* rgb_b, float* y, float* rgb, int B, int C, int H, int W, int smem,
            cudaStream_t stream) {
-  using K = UpconvBf16<COUT>;
+  using K = UpconvBf16<COUT, NTERM>;
   const long long n_tiles = 2LL * B * (H / BfTile<COUT>::TH) * (W / 16);
   if (B < 1 || C < kCK || C % kCK || H % BfTile<COUT>::TH || W < 16 || W % 16 ||
-      n_tiles > 0x7fffffff || smem != K::kBytes || (rgb_w == nullptr) != (rgb == nullptr))
+      n_tiles > 0x7fffffff || smem != K::kBytes || (rgb_w == nullptr) != (rgb == nullptr) ||
+      (EPI != kLreluNorm && rgb_w != nullptr))
     return cudaErrorInvalidValue;
-  const auto kernel = packed_upconv_bf16_kernel<COUT>;
+  const auto kernel = packed_upconv_bf16_kernel<COUT, NTERM, EPI>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -169,17 +186,27 @@ int launch(const float* x, const unsigned* wk, const float* bias, const float* r
 // scaled, rounded to bf16, 8 zeros after each run of 32 input channels),
 // bias [Cout], rgb_w [3][C] (values rounded to bf16, stored as fp32) and
 // rgb_b [3] or both null -> y [B][Cout][2H][2W] and, with rgb_w, rgb
-// [B][3][H][W]; Cout 32 or 64, C % 32 == 0, H % (8 or 16) == 0, W % 16 == 0;
-// smem the block's dynamic shared memory in bytes (ops/packed.py
-// bf16_upconv_bytes, checked against the kernel's). Returns the cudaError_t
-// of the launch (0 = launched).
+// [B][3][H][W]; terms 1 ("default", epilogue 0 only) or 2 ("mid"); epilogue
+// 0 "lrelu_norm" or 1 "lrelu" (no toRGB); Cout 32 or 64, C % 32 == 0,
+// H % (8 or 16) == 0, W % 16 == 0; smem the block's dynamic shared memory in
+// bytes (ops/packed.py bf16_upconv_bytes, checked against the kernel's).
+// Returns the cudaError_t of the launch (0 = launched).
 extern "C" int probgan_packed_upconv_bf16(const float* x, const void* wk, const float* bias,
                                           const float* rgb_w, const float* rgb_b, float* y,
                                           float* rgb, int B, int C, int H, int W, int cout,
-                                          int smem, void* stream) {
+                                          int terms, int epilogue, int smem, void* stream) {
+  using namespace probgan;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto w = static_cast<const unsigned*>(wk);
-  if (cout == 64) return probgan::launch<64>(x, w, bias, rgb_w, rgb_b, y, rgb, B, C, H, W, smem, s);
-  if (cout == 32) return probgan::launch<32>(x, w, bias, rgb_w, rgb_b, y, rgb, B, C, H, W, smem, s);
+#define PROBGAN_UP_LAUNCH(CO, NT, EPI) \
+  launch<CO, NT, EPI>(x, w, bias, rgb_w, rgb_b, y, rgb, B, C, H, W, smem, s)
+  if (cout != 32 && cout != 64) return cudaErrorInvalidValue;
+  if (terms == 1 && epilogue == kLreluNorm)
+    return cout == 64 ? PROBGAN_UP_LAUNCH(64, 1, kLreluNorm) : PROBGAN_UP_LAUNCH(32, 1, kLreluNorm);
+  if (terms == 2 && epilogue == kLreluNorm)
+    return cout == 64 ? PROBGAN_UP_LAUNCH(64, 2, kLreluNorm) : PROBGAN_UP_LAUNCH(32, 2, kLreluNorm);
+  if (terms == 2 && epilogue == kLrelu)
+    return cout == 64 ? PROBGAN_UP_LAUNCH(64, 2, kLrelu) : PROBGAN_UP_LAUNCH(32, 2, kLrelu);
+#undef PROBGAN_UP_LAUNCH
   return cudaErrorInvalidValue;
 }

@@ -68,8 +68,9 @@ def score_fn(d_params: dict, images: torch.Tensor, alpha,
     """Float images [B, R, R, 3] (~[-1, 1]) -> realness logits [B] in
     ``dtype``, on the images' device; with ``packed`` (None:
     ``packed_default`` of that device) the leading discriminator stages run
-    on ops/packed.py at "high" and "highest" (the gate declines None and
-    "default"; "fast" needs D's kernel mode "mid", which raises)."""
+    on ops/packed.py at "high" and "highest" (the fp32 kernels) and "fast"
+    (kernel mode "mid", the 2-term bf16 split); the gate declines None and
+    "default"."""
     if packed is None:
         packed = packed_default(images.device)
     with torch.inference_mode():

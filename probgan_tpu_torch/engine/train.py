@@ -203,12 +203,13 @@ def _progan_loss_fns(g_ref_params, config, stage, alpha, dtype, packed_fake, rem
 
 def _check_step_args(dtype, packed_train_mode, axis_names, packed_d, packed_g) -> str:
     """The step's grade (``_STEP_PRECISION``); raises for what the port does
-    not have yet: the packed training paths below fp32, and ``axis_names``."""
+    not have yet: the packed training paths at "default" or in bf16, and
+    ``axis_names``."""
     if packed_train_mode not in _STEP_PRECISION:
         raise ValueError(f"packed_train_mode {packed_train_mode!r} is not one of "
                          f"{tuple(_STEP_PRECISION)}")
     if packed_d or packed_g:
-        pro_gan.require_fp32_train_mode(packed_train_mode)
+        pro_gan.require_train_mode(packed_train_mode)
         pro_gan.require_fp32_train_dtype(dtype)
     if axis_names is not None:
         raise NotImplementedError(
@@ -289,7 +290,9 @@ def progan_train_step(
     (ops/packed_vjp.py); ``packed_g`` supersedes ``packed_fake``.
     ``packed_train_mode``: the step's grade. With ``packed_d``/``packed_g``
     it is the kernels' grade, of which the port has the fp32 ones ("high",
-    "highest"; "default" and "mid" raise NotImplementedError there). It also
+    "highest") and the 2-term split "mid" (the bf16 kernels forward and
+    backward, the weight gradient fp32 as in the JAX package); "default"
+    raises NotImplementedError there (the bf16 backward). It also
     sets the grade of the unpacked convs and of the fake render
     (``_STEP_PRECISION``): "default" takes TF32, the others fp32.
     ``dtype``: float32, or bfloat16 for the unpacked path (params, Adam and

@@ -86,7 +86,7 @@ class Precision(enum.Enum):
 #   grade             unpacked convs and matmuls   G's packed stages    D's packed stages
 #   None, "default"   TF32 (cuDNN, cuBLAS)         kernel mode          none: the gate
 #                                                  "default"            declines (0)
-#   "fast"            fp32, TF32 off               "default"            "mid": raises
+#   "fast"            fp32, TF32 off               "default"            "mid"
 #   "high","highest"  fp32, TF32 off               fp32 kernels         fp32 kernels
 #
 # TF32 (operands rounded to 10 mantissa bits, fp32 sums) is the card's
@@ -94,8 +94,11 @@ class Precision(enum.Enum):
 # cuBLAS's own ops; HIGH and HIGHEST keep fp32 (TF32 off, today's bits).
 # Kernel mode "default" is the Pallas kernels' one bf16 pass: both operands
 # rounded to bf16 (to nearest even), products summed in fp32, on the tensor
-# cores (ops/packed.py). "fast" is the serving grade above the 50 dB bar: the
-# early stages at HIGH and only G's packed late stages in one bf16 pass.
+# cores (ops/packed.py). Kernel mode "mid" is their 2-term split: the weights
+# rounded to bf16, the activations as bf16(x) + bf16(x - bf16(x)), two bf16
+# products a dot. "fast" is the serving grade above the 50 dB bar: the early
+# stages at HIGH and only the packed late stages in bf16, one pass in G and
+# the split in D.
 _PRECISIONS = {
     None: None,
     "default": Precision.DEFAULT,
@@ -168,20 +171,27 @@ def precision_scope(precision):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def require_fp32_train_mode(packed_mode) -> None:
+# Kernel modes of the differentiable packed paths (the train step's
+# ``packed_train_mode``) and of the kernels' training epilogues: the fp32
+# kernels and the 2-term split "mid", whose backward runs at "mid" too
+# (ops/packed_vjp.py). "default" there is the bf16 backward, not ported yet.
+TRAIN_MODES = ("mid", *FP32_MODES)
+
+
+def require_train_mode(packed_mode) -> None:
     """``packed_mode`` (the differentiable packed path's kernel grade, the
-    train step's ``packed_train_mode``): None or an fp32 mode. The bf16 modes
-    need the backward kernels in bf16, which the port does not have yet."""
-    if packed_mode is None or packed_mode in FP32_MODES:
+    train step's ``packed_train_mode``): None or one of ``TRAIN_MODES``.
+    "default" needs the backward kernels in one bf16 pass, which the port
+    does not have yet."""
+    if packed_mode is None or packed_mode in TRAIN_MODES:
         return
-    if packed_mode in ("default", "mid"):
+    if packed_mode == "default":
         raise NotImplementedError(
-            f"packed_mode {packed_mode!r}: the packed training paths run the fp32 "
-            "kernels only; their bf16 grades need the backward kernels in bf16 "
-            "(ROADMAP B.a.1: B6 'default', B2 'none', B5 'none'); use one of "
-            f"{FP32_MODES}")
+            "packed_mode 'default': the packed training paths' one-bf16-pass grade needs "
+            "the backward kernels in bf16 (ROADMAP B.a.1: B6 'default', B2 'none', "
+            f"B5 'none'); use one of {TRAIN_MODES}")
     raise ValueError(f"packed_mode {packed_mode!r} is not one of "
-                     f"{('default', 'mid', *FP32_MODES)}")
+                     f"{('default', *TRAIN_MODES)}")
 
 
 def require_fp32_train_dtype(dtype) -> None:
@@ -429,12 +439,13 @@ def _g_late_packed(params: dict, x_entry: torch.Tensor, config: ProGANConfig,
 
 
 def _g_rgb_packed_train(params: dict, z: torch.Tensor, config: ProGANConfig,
-                        s0: int, stage: int, alpha, remat: bool) -> torch.Tensor:
+                        s0: int, stage: int, alpha, mode: str, remat: bool) -> torch.Tensor:
     """Differentiable packed generator: stages [s0, stage] run on the kernels
-    through ops/packed_vjp.py (``upconv_lrelu_norm`` / ``conv_lrelu_norm``),
-    forward and backward. toRGB and the progressive blend stay torch ops (1x1
-    convs to 3 channels). The Functions save only their inputs and recompute
-    activations in the backward, so the packed stages take no checkpointing."""
+    through ops/packed_vjp.py (``upconv_lrelu_norm`` / ``conv_lrelu_norm``) at
+    kernel ``mode``, forward and backward. toRGB and the progressive blend stay
+    torch ops (1x1 convs to 3 channels). The Functions save only their inputs
+    and recompute activations in the backward, so the packed stages take no
+    checkpointing."""
     from probgan_tpu_torch.ops import packed_vjp
 
     block_fn = _block_fn(_g_block, remat)
@@ -448,8 +459,8 @@ def _g_rgb_packed_train(params: dict, z: torch.Tensor, config: ProGANConfig,
             prev = x
         block = params["blocks"][s - 1]
         c1, c2 = block["conv1"], block["conv2"]
-        x = packed_vjp.upconv_lrelu_norm(x, eq_scaled_conv_w(c1), c1["b"])
-        x = packed_vjp.conv_lrelu_norm(x, eq_scaled_conv_w(c2), c2["b"])
+        x = packed_vjp.upconv_lrelu_norm(x, eq_scaled_conv_w(c1), c1["b"], mode)
+        x = packed_vjp.conv_lrelu_norm(x, eq_scaled_conv_w(c2), c2["b"], mode)
     rgb = eq_conv(params["to_rgb"][stage], x, gain=1.0)
     rgb_prev = upsample_nearest_2x(eq_conv(params["to_rgb"][stage - 1], prev, gain=1.0))
     rgb = rgb_prev + alpha * (rgb - rgb_prev)
@@ -468,18 +479,20 @@ def generator_rgb(params: dict, z: torch.Tensor, config: ProGANConfig,
     through ops/packed.py at the kernel mode of ``_PACKED_MODES[precision]``:
     the kernels for CUDA tensors, their plain twins for CPU tensors; fp32
     ``dtype`` only (bf16 takes the unpacked path). That path is forward-only:
-    on the card it raises when a gradient is wanted. ``packed_mode`` ("high"
-    or "highest"; the bf16 modes raise) instead selects the DIFFERENTIABLE
-    packed path (``_g_rgb_packed_train``), the train step's configuration.
+    on the card it raises when a gradient is wanted. ``packed_mode`` ("high",
+    "highest" or "mid"; "default" raises) instead selects the DIFFERENTIABLE
+    packed path (``_g_rgb_packed_train``) at that kernel mode, the train
+    step's configuration.
     ``precision``: the grade (see ``_PRECISIONS``). ``remat``: see
     ``generator_features``."""
-    require_fp32_train_mode(packed_mode)
+    require_train_mode(packed_mode)
     with precision_scope(precision):
         if packed_mode is not None and stage > 0:
             s0 = packed_start_stage(config, stage)
             if s0 is not None:
                 require_fp32_train_dtype(dtype)
-                return _g_rgb_packed_train(params, z, config, s0, stage, alpha, remat)
+                return _g_rgb_packed_train(params, z, config, s0, stage, alpha, packed_mode,
+                                           remat)
         s0 = packed_start_stage(config, stage) if packed and dtype == torch.float32 else None
         if s0 is not None:
             x = _g_trunk(params, z, config, s0)
@@ -609,18 +622,17 @@ def _d_early_packed(params: dict, image: torch.Tensor, stage: int, alpha,
     ops/packed_vjp.py: this path serves scoring and the train step's
     discriminator, forward and backward. ``image`` is NCHW; returns NCHW
     features at stage ``stage - n``. The progressive blend sits after the
-    first block, as in the unpacked loop. ``mode``: the kernels' grade; the
-    port's D kernels have the fp32 modes ("high" and "highest" run the same
-    kernels), and "mid" raises."""
-    from probgan_tpu_torch.ops import packed as pk, packed_vjp
+    first block, as in the unpacked loop. ``mode``: the kernels' grade, one
+    of ``TRAIN_MODES`` ("high" and "highest" run the same fp32 kernels, "mid"
+    the 2-term split of the "fast" grade)."""
+    from probgan_tpu_torch.ops import packed_vjp
 
-    pk.check_mode("packed discriminator", mode, FP32_MODES)
     x = _from_rgb(params, image, stage).float().contiguous()
     for s in range(stage, stage - n, -1):
         block = params["blocks"][s - 1]
         c1, c2 = block["conv1"], block["conv2"]
-        x = packed_vjp.conv_lrelu(x, eq_scaled_conv_w(c1), c1["b"])
-        x = packed_vjp.convpool_lrelu(x, eq_scaled_conv_w(c2), c2["b"])
+        x = packed_vjp.conv_lrelu(x, eq_scaled_conv_w(c1), c1["b"], mode)
+        x = packed_vjp.convpool_lrelu(x, eq_scaled_conv_w(c2), c2["b"], mode)
         if s == stage and stage > 0:
             skip = _from_rgb(params, downsample_avg_2x(image), stage - 1)
             x = skip + alpha * (x - skip)
@@ -641,11 +653,11 @@ def discriminator_apply(params: dict, image: torch.Tensor, config: ProGANConfig,
     ``_PACKED_MODES_D[precision]``: the kernels for CUDA tensors, their plain
     twins for CPU tensors; the path is differentiable (ops/packed_vjp.py). The
     gate declines None and "default" (D runs unpacked, as in the JAX
-    package); "fast" maps to mode "mid", which raises. ``packed_mode`` ("high"
-    or "highest"; the train step passes it) makes the packed gate a matter of
+    package); "fast" maps to mode "mid". ``packed_mode`` ("high", "highest"
+    or "mid"; the train step passes it) makes the packed gate a matter of
     shapes alone. ``remat``: see ``generator_features``. ``stddev_axis`` is
     not ported and raises if given."""
-    require_fp32_train_mode(packed_mode)
+    require_train_mode(packed_mode)
     _require_no_stddev_axis(stddev_axis)
     with precision_scope(precision):
         image = image.to(dtype).permute(0, 3, 1, 2).contiguous()

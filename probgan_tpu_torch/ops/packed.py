@@ -35,11 +35,19 @@ fp32 kernels above, with one set of bits. ``packed_upconv``,
 ``packed_conv`` ("lrelu_norm") and ``packed_conv_rgb`` also take "default",
 the JAX kernels' one bf16 pass: both operands of every dot rounded to bf16
 (to nearest even), the products summed in fp32, bias and epilogues in fp32.
-On the card that is a kernel of its own for each (``csrc/*_bf16.cu`` over
-``csrc/bf16_conv.cuh``, bf16 tensor-core products); the twins round the same
-operands and run fp32 convs. "mid" (the 2-term split of D's fast grade)
-raises NotImplementedError; "exact6" and "emulate_bf16" are the TPU kernels'
-test aids and raise ValueError.
+``packed_upconv``, ``packed_conv``, ``packed_conv_rgb`` and
+``packed_convpool`` take "mid" with every epilogue, the 2-term split of the
+"fast" discriminator and of the train step at ``packed_train_mode="mid"``:
+the weights rounded to bf16, the activations split as ``bf16(x) + bf16(x -
+bf16(x))`` (``split2``), so that a dot is the rounded weights times x to
+~2^-16, summed in fp32. On the card each bf16 mode is a kernel of its own
+(``csrc/*_bf16.cu`` over ``csrc/bf16_conv.cuh``, bf16 tensor-core products,
+the two terms two products at "mid"); the twins round or split the same
+operands and run fp32 convs. ``packed_conv_wgrad`` takes "mid" as the
+reference does, at fp32 ("highest"). "default" in the backward's epilogues
+and in ``packed_conv_wgrad`` is the bf16 backward, not ported yet
+(NotImplementedError); "exact6" and "emulate_bf16" are the TPU kernels' test
+aids and raise ValueError.
 
 The six forward kernels record no autograd graph. On the CPU their plain
 twins are ordinary differentiable torch code; on a CUDA tensor a wrapper
@@ -68,6 +76,7 @@ import torch.nn.functional as F
 
 from probgan_tpu_torch.models.pro_gan import (
     FP32_MODES,
+    TRAIN_MODES,
     lrelu,
     pixel_norm,
     to_uint8,
@@ -78,16 +87,22 @@ from probgan_tpu_torch.ops.fused_upconv import parity_conv, parity_weights, upsa
 
 # Launches of each kernel since the last reset_launches(); a wrapper adds one
 # where it launches its kernel and nowhere else.
+# The bf16 modes count apart: "<kernel>_bf16" at "default", "<kernel>_mid" at
+# "mid" (one library, csrc/<kernel>_bf16.cu, serves both).
 launches = {"packed_upconv": 0, "packed_conv": 0, "packed_conv_rgb": 0,
             "packed_convpool": 0, "packed_conv_wgrad": 0, "packed_upconv_conv": 0,
             "packed_upconv_conv_rgb": 0, "packed_upconv_bf16": 0, "packed_conv_bf16": 0,
-            "packed_conv_rgb_bf16": 0}
+            "packed_conv_rgb_bf16": 0, "packed_upconv_mid": 0, "packed_conv_mid": 0,
+            "packed_conv_rgb_mid": 0, "packed_convpool_mid": 0}
 # The same launches by epilogue, "<kernel>[<epilogue>]", for the kernels that
 # have more than one.
 epilogue_launches = {
     "packed_upconv[lrelu_norm]": 0, "packed_upconv[lrelu]": 0,
     "packed_conv[lrelu_norm]": 0, "packed_conv[lrelu]": 0, "packed_conv[none]": 0,
     "packed_convpool[lrelu]": 0, "packed_convpool[none]": 0,
+    "packed_upconv_mid[lrelu_norm]": 0, "packed_upconv_mid[lrelu]": 0,
+    "packed_conv_mid[lrelu_norm]": 0, "packed_conv_mid[lrelu]": 0, "packed_conv_mid[none]": 0,
+    "packed_convpool_mid[lrelu]": 0, "packed_convpool_mid[none]": 0,
 }
 
 _P = ctypes.c_void_p
@@ -102,14 +117,17 @@ _ARGTYPES = {
     "packed_upconv_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_upconv_conv_rgb": [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "packed_upconv_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "packed_conv_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "packed_upconv_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "packed_conv_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv_rgb_bf16": [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _I,
-                             _I, _I, _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _I, _I, _P],
+    "packed_convpool_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
-# Kernel modes: the fp32 kernels serve FP32_MODES; "default" is one bf16 pass
-# (the *_bf16 kernels).
-MODES = ("default", *FP32_MODES)
+# Kernel modes: the fp32 kernels serve FP32_MODES; "default" (one bf16 pass)
+# and "mid" (the 2-term split) the *_bf16 kernels, with this many bf16 terms
+# of the activations.
+MODES = ("default", "mid", *FP32_MODES)
+BF16_TERMS = {"default": 1, "mid": 2}
 # The bf16 kernels (csrc/bf16_conv.cuh): input channels a shared-memory chunk,
 # and bf16 a staged pixel or weight row (the chunk's channels, then 8 zeros).
 BF16_CK, BF16_ROW = 32, 40
@@ -141,16 +159,13 @@ SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED = 232_448, 233_472, 1_024
 FUSED_C1, FUSED_C2, FUSED_STAGES = 8, 16, {64: 3, 32: 4}
 
 
-def check_mode(name: str, mode: str, modes: tuple = MODES) -> bool:
-    """True for a bf16 ``mode`` ("default"), False for an fp32 one; raise
-    for a mode ``name`` does not have: "mid" is not ported yet, "exact6" and
-    "emulate_bf16" are the TPU kernels' test aids."""
+def check_mode(name: str, mode: str, modes: tuple = MODES) -> int:
+    """The bf16 terms of ``mode`` (``BF16_TERMS``: 1 at "default", 2 at
+    "mid"), 0 for an fp32 mode; raise for a mode ``name`` does not have:
+    "default" outside ``modes`` is the bf16 backward, not ported yet, "exact6"
+    and "emulate_bf16" are the TPU kernels' test aids."""
     if mode in modes:
-        return mode == "default"
-    if mode == "mid":
-        raise NotImplementedError(
-            f"{name}: kernel mode 'mid' (the fast grade's discriminator) is not ported "
-            "yet (ROADMAP B.a.1: D's 'mid', B2 'lrelu' and B5)")
+        return BF16_TERMS.get(mode, 0)
     if mode == "default":
         raise NotImplementedError(
             f"{name}: kernel mode 'default' here is the bf16 backward, not ported yet "
@@ -163,8 +178,20 @@ def check_mode(name: str, mode: str, modes: tuple = MODES) -> bool:
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
     """``t`` rounded to bf16 (to nearest even), back in fp32: the operand
-    rounding of kernel mode "default"."""
+    rounding of kernel mode "default", and of the weights at "mid"."""
     return t.to(torch.bfloat16).float()
+
+
+def split2(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as kernel mode "mid" sees an activation: ``bf16(t) + bf16(t -
+    bf16(t))``, the sum exact in fp32 (``t`` to ~2^-16 relative)."""
+    hi = _bf16(t)
+    return hi + _bf16(t - hi)
+
+
+def _operand(t: torch.Tensor, terms: int) -> torch.Tensor:
+    """An activation as a mode with ``terms`` bf16 terms sees it."""
+    return _bf16(t) if terms == 1 else split2(t)
 
 
 def reset_launches() -> None:
@@ -173,11 +200,26 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
-def _launch(name: str, x: torch.Tensor, *args, epilogue: str | None = None) -> None:
+def _launch(name: str, x: torch.Tensor, *args, epilogue: str | None = None,
+            counter: str | None = None) -> None:
+    """Launch kernel ``name``; count it under ``counter`` (default ``name``)
+    and, with ``epilogue``, under "<counter>[<epilogue>]"."""
     _build.launch(name, _ARGTYPES[name], x.device, *args)
-    launches[name] += 1
+    counter = counter or name
+    launches[counter] += 1
     if epilogue is not None:
-        epilogue_launches[f"{name}[{epilogue}]"] += 1
+        epilogue_launches[f"{counter}[{epilogue}]"] += 1
+
+
+def _bf16_launch(name: str, terms: int, x: torch.Tensor, *args,
+                 epilogue: str | None = None) -> None:
+    """Launch the bf16 kernel of ``name`` (csrc/<name>_bf16.cu) with ``terms``
+    bf16 terms: counted as "<name>_bf16" at "default", as "<name>_mid" (by
+    ``epilogue`` too) at "mid"."""
+    if terms == 1:
+        _launch(f"{name}_bf16", x, *args)
+    else:
+        _launch(f"{name}_bf16", x, *args, epilogue=epilogue, counter=f"{name}_mid")
 
 
 def _ptr(t: torch.Tensor | None):
@@ -242,14 +284,18 @@ def _lrelu_norm(x: torch.Tensor) -> torch.Tensor:
 
 def _modes(epilogue: str) -> tuple:
     """The kernel modes of an epilogue: "default" is the forward's
-    ("lrelu_norm") alone; the others serve the training backward, fp32."""
-    return MODES if epilogue == "lrelu_norm" else FP32_MODES
+    ("lrelu_norm") alone; the others serve D and the training backward."""
+    return MODES if epilogue == "lrelu_norm" else TRAIN_MODES
 
 
-def conv_bf16_weights(w: torch.Tensor) -> torch.Tensor:
+def conv_bf16_weights(w: torch.Tensor, slab: int | None = None) -> torch.Tensor:
     """OIHW [Cout, C, 3, 3] -> the bf16 kernels' [C/32][9 taps][Cout][40]
     bf16 (csrc/packed_conv_bf16.cu): rounded to bf16, tap ky * 3 + kx, each
-    run of 32 input channels followed by 8 zeros."""
+    run of 32 input channels followed by 8 zeros. With ``slab`` (the kernels'
+    ``_pool_slab(Cout)``): [Cout/slab][C/32][9][slab][40], one slab's after
+    the other."""
+    if slab is not None:
+        return torch.stack([conv_bf16_weights(ws) for ws in w.split(slab)])
     cout, c = w.shape[:2]
     wt = w.permute(2, 3, 0, 1).reshape(9, cout, c // BF16_CK, BF16_CK).permute(2, 0, 1, 3)
     out = torch.zeros((c // BF16_CK, 9, cout, BF16_ROW), dtype=torch.bfloat16, device=w.device)
@@ -271,23 +317,25 @@ def upconv_bf16_weights(w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def bf16_conv_bytes(cout: int) -> int:
-    """Dynamic shared memory of a packed_conv_bf16 / packed_conv_rgb_bf16
-    block (ConvBf16::kBytes): the bf16 patch, tile rows + 2 x 40 columns x 40,
-    and one chunk's weights, 9 x Cout x 40."""
-    return 2 * BF16_ROW * ((_tile_rows(cout) + 2) * 40 + 9 * cout)
+def bf16_conv_bytes(cout: int, terms: int = 1) -> int:
+    """Dynamic shared memory of a packed_conv_bf16 / packed_conv_rgb_bf16 /
+    packed_convpool_bf16 block (ConvBf16::kBytes) for a slab of
+    ``_pool_slab(cout)`` channels: the bf16 patch, tile rows + 2 x 40 columns
+    x 40, once a term, and one chunk's weights, 9 x slab x 40."""
+    slab = _pool_slab(cout)
+    return 2 * BF16_ROW * (terms * (_tile_rows(slab) + 2) * 40 + 9 * slab)
 
 
-def bf16_upconv_bytes(cout: int) -> int:
+def bf16_upconv_bytes(cout: int, terms: int = 1) -> int:
     """Dynamic shared memory of a packed_upconv_bf16 block (UpconvBf16::
-    kBytes): the bf16 patch, tile rows + 1 x 24 columns x 40, and one
-    parity's chunk of taps, 2 x 4 x Cout x 40."""
-    return 2 * BF16_ROW * ((_tile_rows(cout) + 1) * 24 + 8 * cout)
+    kBytes): the bf16 patch, tile rows + 1 x 24 columns x 40, once a term,
+    and one parity's chunk of taps, 2 x 4 x Cout x 40."""
+    return 2 * BF16_ROW * (terms * (_tile_rows(cout) + 1) * 24 + 8 * cout)
 
 
-def _check_bf16_channels(name: str, x: torch.Tensor) -> None:
+def _check_bf16_channels(name: str, x: torch.Tensor, mode: str) -> None:
     if x.shape[1] % BF16_CK:
-        raise ValueError(f"{name}: mode 'default' takes C % {BF16_CK} == 0, got "
+        raise ValueError(f"{name}: mode {mode!r} takes C % {BF16_CK} == 0, got "
                          f"x {tuple(x.shape)}")
 
 
@@ -319,11 +367,13 @@ def packed_upconv_plain(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm
                         mode="high"):
     """Plain twin of ``packed_upconv``: the four parity convs of
     ops/fused_upconv.py + LeakyReLU (+ PixelNorm); toRGB of ``x`` as a 1x1
-    conv. Mode "default" rounds x, the pre-summed parity taps and ``rgb_w``
-    to bf16 first."""
+    conv. Modes "default" and "mid" round the pre-summed parity taps and
+    ``rgb_w`` to bf16 first, and x ("default") or split it (``split2``,
+    "mid")."""
     _check_upconv_epilogue(epilogue, rgb_w)
-    if check_mode("packed_upconv", mode, _modes(epilogue)):
-        x = _bf16(x)
+    terms = check_mode("packed_upconv", mode, _modes(epilogue))
+    if terms:
+        x = _operand(x, terms)
         y = _epilogue(parity_conv(_bf16(parity_weights(w)), b, x), epilogue)
         rgb_w = None if rgb_w is None else _bf16(rgb_w)
     else:
@@ -340,15 +390,15 @@ def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm", mod
     x [B, C, H, W] fp32, w [Cout, C, 3, 3] eq-LR scaled, b [Cout]
     -> [B, Cout, 2H, 2W]. With ``rgb_w`` [3, C] and ``rgb_b`` [3]
     ("lrelu_norm" only), also returns toRGB(x) [B, 3, H, W] (the ``rgb_prev``
-    of packed_conv_rgb). ``mode``: "high"/"highest" (fp32) or, with
-    "lrelu_norm", "default" (one bf16 pass, ``packed_upconv_bf16`` on the
-    card: C % 32 == 0)."""
+    of packed_conv_rgb). ``mode``: "high"/"highest" (fp32), "mid" (the 2-term
+    split) or, with "lrelu_norm", "default" (one bf16 pass); both bf16 modes
+    are ``packed_upconv_bf16`` on the card (C % 32 == 0)."""
     if x.device.type == "cpu":
         return packed_upconv_plain(x, w, b, rgb_w=rgb_w, rgb_b=rgb_b, epilogue=epilogue,
                                    mode=mode)
     name = "packed_upconv"
     _check_upconv_epilogue(epilogue, rgb_w)
-    bf16 = check_mode(name, mode, _modes(epilogue))
+    terms = check_mode(name, mode, _modes(epilogue))
     _refuse_grad(name, "upconv_lrelu_norm", x, w, b, rgb_w, rgb_b)
     cout = w.shape[0]
     _check_cout(name, cout)
@@ -357,8 +407,8 @@ def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm", mod
     _check(name, x, w.shape[1], _tile_rows(cout), 16, w=w, b=b, rgb_w=rgb_w,
            rgb_b=rgb_b)
     bsz, c, h, wd = x.shape
-    if bf16:
-        _check_bf16_channels(name, x)
+    if terms:
+        _check_bf16_channels(name, x, mode)
         y = torch.empty((bsz, cout, 2 * h, 2 * wd), device=x.device, dtype=x.dtype)
         rgb = None
         if rgb_w is not None:
@@ -366,8 +416,9 @@ def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm", mod
             rgb = torch.empty((bsz, 3, h, wd), device=x.device, dtype=x.dtype)
         # named, so that nothing the kernel reads is freed before it runs
         wk, b = upconv_bf16_weights(w), b.contiguous()
-        _launch("packed_upconv_bf16", x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),
-                _ptr(y), _ptr(rgb), bsz, c, h, wd, cout, bf16_upconv_bytes(cout))
+        _bf16_launch(name, terms, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),
+                     _ptr(y), _ptr(rgb), bsz, c, h, wd, cout, terms, UPCONV_EPILOGUES[epilogue],
+                     bf16_upconv_bytes(cout, terms), epilogue=epilogue)
         return y if rgb is None else (y, rgb)
     wk = upconv_kernel_weights(w)
     b = b.contiguous()
@@ -396,11 +447,12 @@ def _epilogue(y: torch.Tensor, epilogue: str) -> torch.Tensor:
 
 def packed_conv_plain(x, w, b, epilogue="lrelu_norm", mode="high"):
     """Plain twin of ``packed_conv``; mode "default" rounds x and w to bf16
-    first."""
+    first, "mid" rounds w and splits x (``split2``)."""
     if epilogue not in CONV_EPILOGUES:
         raise ValueError(f"packed_conv: epilogue {epilogue!r} not in {tuple(CONV_EPILOGUES)}")
-    if check_mode("packed_conv", mode, _modes(epilogue)):
-        x, w = _bf16(x), _bf16(w)
+    terms = check_mode("packed_conv", mode, _modes(epilogue))
+    if terms:
+        x, w = _operand(x, terms), _bf16(w)
     return _epilogue(F.conv2d(x, w, padding=1) + b[:, None, None], epilogue)
 
 
@@ -501,26 +553,29 @@ def packed_conv(x, w, b, epilogue="lrelu_norm", mode="high"):
     card (each product three TF32 products of the operands' high and low
     parts, within ~1e-6 of the output's largest entry of the fp32 sum) and
     sums every output in a fixed order, so equal inputs give equal bits.
-    ``mode``: "high"/"highest" (fp32) or, with "lrelu_norm", "default" (one
-    bf16 pass, ``packed_conv_bf16`` on the card: C % 32 == 0)."""
+    ``mode``: "high"/"highest" (fp32), "mid" (the 2-term split, every
+    epilogue) or, with "lrelu_norm", "default" (one bf16 pass); both bf16
+    modes are ``packed_conv_bf16`` on the card (C % 32 == 0; Cout in slabs as
+    the fp32 kernels)."""
     if x.device.type == "cpu":
         return packed_conv_plain(x, w, b, epilogue, mode)
     name = "packed_conv"
     if epilogue not in CONV_EPILOGUES:
         raise ValueError(f"{name}: epilogue {epilogue!r} not in {tuple(CONV_EPILOGUES)}")
-    bf16 = check_mode(name, mode, _modes(epilogue))
+    terms = check_mode(name, mode, _modes(epilogue))
     _refuse_grad(name, "conv_lrelu_norm" if epilogue == "lrelu_norm" else "conv_lrelu",
                  x, w, b)
     cout = w.shape[0]
     _check_cout(name, cout, sliced=epilogue != "lrelu_norm")
     _check(name, x, w.shape[1], _tile_rows(_pool_slab(cout)), 32, w=w, b=b)
     bsz, c, h, wd = x.shape
-    if bf16:
-        _check_bf16_channels(name, x)
+    if terms:
+        _check_bf16_channels(name, x, mode)
         y = torch.empty((bsz, cout, h, wd), device=x.device, dtype=x.dtype)
-        wk, b = conv_bf16_weights(w), b.contiguous()
-        _launch("packed_conv_bf16", x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
-                bf16_conv_bytes(cout))
+        wk, b = conv_bf16_weights(w, _pool_slab(cout)), b.contiguous()
+        _bf16_launch(name, terms, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
+                     terms, CONV_EPILOGUES[epilogue], bf16_conv_bytes(cout, terms),
+                     epilogue=epilogue)
         return y
     # one slab for Cout 32 or 64: then this is conv_kernel_weights(w)
     wk = convpool_kernel_weights(w)
@@ -551,27 +606,42 @@ def convpool_kernel_weights(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(cout // ct, ct, c, 3, 3).permute(0, 2, 3, 4, 1).contiguous()
 
 
-def packed_convpool_plain(x, w, b, epilogue="lrelu"):
-    """Plain twin of ``packed_convpool``."""
+def packed_convpool_plain(x, w, b, epilogue="lrelu", mode="high"):
+    """Plain twin of ``packed_convpool``; mode "mid" rounds w and splits x
+    (``split2``) first."""
     if epilogue not in POOL_EPILOGUES:
         raise ValueError(f"packed_convpool: epilogue {epilogue!r} not in {POOL_EPILOGUES}")
+    terms = check_mode("packed_convpool", mode, TRAIN_MODES)
+    if terms:
+        x, w = _operand(x, terms), _bf16(w)
     return F.avg_pool2d(_epilogue(F.conv2d(x, w, padding=1) + b[:, None, None], epilogue), 2)
 
 
-def packed_convpool(x, w, b, epilogue="lrelu"):
+def packed_convpool(x, w, b, epilogue="lrelu", mode="high"):
     """conv3x3 SAME + bias -> LeakyReLU ("lrelu") or nothing ("none") -> 2x2
     mean pool; the activation comes before the pool. x [B, C, H, W] fp32,
-    w [Cout, C, 3, 3] eq-LR scaled, b [Cout] -> [B, Cout, H/2, W/2]."""
+    w [Cout, C, 3, 3] eq-LR scaled, b [Cout] -> [B, Cout, H/2, W/2].
+    ``mode``: "high"/"highest" (fp32) or "mid" (the 2-term split,
+    ``packed_convpool_bf16`` on the card: C % 32 == 0)."""
     if x.device.type == "cpu":
-        return packed_convpool_plain(x, w, b, epilogue)
+        return packed_convpool_plain(x, w, b, epilogue, mode)
     name = "packed_convpool"
     if epilogue not in POOL_EPILOGUES:
         raise ValueError(f"{name}: epilogue {epilogue!r} not in {POOL_EPILOGUES}")
+    terms = check_mode(name, mode, TRAIN_MODES)
     _refuse_grad(name, "convpool_lrelu", x, w, b)
     cout = w.shape[0]
     _check_cout(name, cout, sliced=True)
     _check(name, x, w.shape[1], _tile_rows(_pool_slab(cout)), 32, w=w, b=b)
     bsz, c, h, wd = x.shape
+    if terms:
+        _check_bf16_channels(name, x, mode)
+        y = torch.empty((bsz, cout, h // 2, wd // 2), device=x.device, dtype=x.dtype)
+        wk, b = conv_bf16_weights(w, _pool_slab(cout)), b.contiguous()
+        _bf16_launch(name, terms, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
+                     terms, int(epilogue == "lrelu"), bf16_conv_bytes(cout, terms),
+                     epilogue=epilogue)
+        return y
     wk = convpool_kernel_weights(w)
     b = b.contiguous()
     y = torch.empty((bsz, cout, h // 2, wd // 2), device=x.device, dtype=x.dtype)
@@ -586,13 +656,15 @@ def packed_convpool(x, w, b, epilogue="lrelu"):
 
 def packed_conv_rgb_plain(x, w, b, rgb_w, rgb_b, rgb_prev, alpha, *,
                           emit_uint8=False, mode="high"):
-    """Plain twin of ``packed_conv_rgb``; mode "default" rounds x, w, the
-    PixelNorm'd features and ``rgb_w`` to bf16 before their convs."""
-    bf16 = check_mode("packed_conv_rgb", mode)
-    if bf16:
-        x, w, rgb_w = _bf16(x), _bf16(w), _bf16(rgb_w)
+    """Plain twin of ``packed_conv_rgb``; modes "default" and "mid" round w
+    and ``rgb_w`` to bf16 before their convs, and x and the PixelNorm'd
+    features ("default") or split them (``split2``, "mid")."""
+    terms = check_mode("packed_conv_rgb", mode)
+    if terms:
+        x, w, rgb_w = _operand(x, terms), _bf16(w), _bf16(rgb_w)
     feat = _lrelu_norm(F.conv2d(x, w, padding=1) + b[:, None, None])
-    rgb = F.conv2d(_bf16(feat) if bf16 else feat, rgb_w[:, :, None, None]) + rgb_b[:, None, None]
+    rgb = (F.conv2d(_operand(feat, terms) if terms else feat, rgb_w[:, :, None, None])
+           + rgb_b[:, None, None])
     prev = upsample_nearest_2x(rgb_prev)
     out = (prev + alpha * (rgb - prev)).permute(0, 2, 3, 1)
     return to_uint8(out) if emit_uint8 else out.contiguous()
@@ -610,14 +682,15 @@ def packed_conv_rgb(x, w, b, rgb_w, rgb_b, rgb_prev, alpha, *,
     -> NHWC [B, H, W, 3], uint8 or fp32 pre-tanh RGB. On CUDA, Cout is 32 or
     64 and the kernel runs packed_conv's fp32 ring ("lrelu_norm"'s tiles and
     sums, so the same bits) with the toRGB tail as its epilogue. ``mode``:
-    "high"/"highest" (fp32) or "default" (one bf16 pass, toRGB's dot too;
-    ``packed_conv_rgb_bf16`` on the card: C % 32 == 0)."""
+    "high"/"highest" (fp32), "default" (one bf16 pass) or "mid" (the 2-term
+    split), toRGB's dot too; both bf16 modes are ``packed_conv_rgb_bf16`` on
+    the card (C % 32 == 0)."""
     alpha = float(alpha)
     if x.device.type == "cpu":
         return packed_conv_rgb_plain(x, w, b, rgb_w, rgb_b, rgb_prev, alpha,
                                      emit_uint8=emit_uint8, mode=mode)
     name = "packed_conv_rgb"
-    bf16 = check_mode(name, mode)
+    terms = check_mode(name, mode)
     _refuse_grad(name, "conv_lrelu_norm followed by the toRGB conv and the blend as "
                  "torch ops, as models.pro_gan.generator_rgb(packed_mode=...) does",
                  x, w, b, rgb_w, rgb_b, rgb_prev)
@@ -636,12 +709,12 @@ def packed_conv_rgb(x, w, b, rgb_w, rgb_b, rgb_prev, alpha, *,
     rgb_prev = rgb_prev.contiguous()
     out = torch.empty((bsz, h, wd, 3), device=x.device,
                       dtype=torch.uint8 if emit_uint8 else torch.float32)
-    if bf16:
-        _check_bf16_channels(name, x)
+    if terms:
+        _check_bf16_channels(name, x, mode)
         wk, rgb_w = conv_bf16_weights(w), _bf16(rgb_w.reshape(3, cout)).contiguous()
-        _launch("packed_conv_rgb_bf16", x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),
-                _ptr(rgb_prev), alpha, _ptr(out), int(emit_uint8), bsz, c, h, wd, cout,
-                bf16_conv_bytes(cout))
+        _bf16_launch(name, terms, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),
+                     _ptr(rgb_prev), alpha, _ptr(out), int(emit_uint8), bsz, c, h, wd, cout,
+                     terms, bf16_conv_bytes(cout, terms))
         return out
     wk = conv_kernel_weights(w)
     rgb_w = rgb_w.reshape(3, cout).contiguous()
@@ -665,10 +738,11 @@ def _check_wgrad_shapes(x: torch.Tensor, dpre: torch.Tensor) -> None:
             "[B, C, H, W] and [B, Cout, H, W]")
 
 
-def packed_conv_wgrad_plain(x, dpre):
+def packed_conv_wgrad_plain(x, dpre, mode="highest"):
     """Plain twin of ``packed_conv_wgrad``: for each of the nine taps, the
     product of the shifted zero-padded input with the cotangent, summed over
-    batch and pixels."""
+    batch and pixels, fp32 at every mode it takes."""
+    check_mode("packed_conv_wgrad", mode, TRAIN_MODES)
     _check_wgrad_shapes(x, dpre)
     h, wd = x.shape[2:]
     xp = F.pad(x, (1, 1, 1, 1))
@@ -698,7 +772,7 @@ def wgrad_ksplit(bsz: int, c: int, cout: int, h: int, wd: int) -> int:
     return max(1, min(tiles, blocks // slabs, 65535))
 
 
-def packed_conv_wgrad(x, dpre):
+def packed_conv_wgrad(x, dpre, mode="highest"):
     """Weight gradient of a conv3x3 SAME: x [B, C, H, W] fp32 the conv's
     input, dpre [B, Cout, H, W] the cotangent of its pre-bias output
     -> dW [Cout, C, 3, 3], dW[o, c, ky, kx] = sum over (b, y, x) of
@@ -706,10 +780,14 @@ def packed_conv_wgrad(x, dpre):
     card each product is three TF32 products of the operands' high and low
     parts, within ~1e-6 of dW's largest entry of the fp32 sum. Every sum has a
     fixed order, so equal inputs give equal bits. On CUDA, C and Cout are
-    multiples of 8, H of 8 and W of 32, and x and dpre are 16-byte aligned."""
+    multiples of 8, H of 8 and W of 32, and x and dpre are 16-byte aligned.
+    ``mode``: "mid", "high" and "highest" run this one kernel, as the
+    reference promotes its split modes to HIGHEST; "default" (one bf16 pass,
+    the bf16 backward) is not ported yet and raises."""
     if x.device.type == "cpu":
-        return packed_conv_wgrad_plain(x, dpre)
+        return packed_conv_wgrad_plain(x, dpre, mode)
     name = "packed_conv_wgrad"
+    check_mode(name, mode, TRAIN_MODES)
     _check_wgrad_shapes(x, dpre)
     _refuse_grad(name, "conv_lrelu and its siblings, whose backward is not "
                  "differentiable a second time", x, dpre)

@@ -29,6 +29,16 @@ conv are 3x3 SAME convs:
   its weight gradient correlates the transiently upsampled input with the
   cotangent.
 
+Every Function takes the kernels' ``mode`` ("highest", the default, "high"
+or "mid"; the JAX package's default is "default", whose bf16 backward is not
+ported yet) and runs its forward, every recompute and every input gradient
+at it, as the reference's custom VJPs do: a mask recomputed at another mode
+than the forward's would flip the signs of pre-activations near zero.
+``packed_conv_wgrad`` takes the mode too and runs its fp32 kernel at each
+(the reference promotes its split modes to HIGHEST). At "mid" the recompute
+is ``packed_conv`` "lrelu" at "mid", whose sums equal the forward's
+``packed_convpool`` "mid" bit for bit (one order of sums in both kernels).
+
 The bias gradient and the elementwise masks are torch ops. ``backward`` honours
 ``ctx.needs_input_grad``: no wgrad launch where the weights need no gradient
 (the generator step through the discriminator), no dgrad launch for an input
@@ -84,9 +94,10 @@ def _zero_bias(w: torch.Tensor) -> torch.Tensor:
     return torch.zeros(w.shape[1], device=w.device, dtype=w.dtype)
 
 
-def _conv_grads(ctx, x, w, dpre, pooled_dx: bool = False):
-    """(dx, dw, db) of a conv3x3 SAME + bias with input ``x``, weights ``w``
-    and pre-activation cotangent ``dpre``, each only where it is needed.
+def _conv_grads(ctx, x, w, dpre, mode: str, pooled_dx: bool = False):
+    """(dx, dw, db, None) of a conv3x3 SAME + bias with input ``x``, weights
+    ``w`` and pre-activation cotangent ``dpre``, each only where it is needed,
+    the input gradient at kernel ``mode`` (the trailing None: the mode's).
     ``pooled_dx``: the conv read the nearest-2x upsample of the Function's
     input, so dx is the 2x2 SUM pool of the transposed conv."""
     need_x, need_w, need_b = ctx.needs_input_grad[:3]
@@ -94,98 +105,115 @@ def _conv_grads(ctx, x, w, dpre, pooled_dx: bool = False):
     dx = dw = db = None
     if need_x:
         if pooled_dx:
-            dx = 4.0 * pk.packed_convpool(dpre, _flip_w(w), _zero_bias(w), epilogue="none")
+            dx = 4.0 * pk.packed_convpool(dpre, _flip_w(w), _zero_bias(w), epilogue="none",
+                                          mode=mode)
         else:
-            dx = pk.packed_conv(dpre, _flip_w(w), _zero_bias(w), epilogue="none")
+            dx = pk.packed_conv(dpre, _flip_w(w), _zero_bias(w), epilogue="none", mode=mode)
     if need_w:
-        dw = pk.packed_conv_wgrad(upsample_nearest_2x(x) if pooled_dx else x, dpre)
+        dw = pk.packed_conv_wgrad(upsample_nearest_2x(x) if pooled_dx else x, dpre, mode=mode)
     if need_b:
         db = dpre.sum(dim=(0, 2, 3))
-    return dx, dw, db
+    return dx, dw, db, None
 
 
 class _ConvLrelu(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b):
+    def forward(ctx, x, w, b, mode):
         x = x.contiguous()
-        y = pk.packed_conv(x, w, b, epilogue="lrelu")
+        y = pk.packed_conv(x, w, b, epilogue="lrelu", mode=mode)
         ctx.save_for_backward(x, w, y)
+        ctx.mode = mode
         return y
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         x, w, y = ctx.saved_tensors
-        return _conv_grads(ctx, x, w, _lrelu_bwd(y, g))
+        return _conv_grads(ctx, x, w, _lrelu_bwd(y, g), ctx.mode)
 
 
 class _ConvPoolLrelu(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b):
+    def forward(ctx, x, w, b, mode):
         x = x.contiguous()
         ctx.save_for_backward(x, w, b)
-        return pk.packed_convpool(x, w, b, epilogue="lrelu")
+        ctx.mode = mode
+        return pk.packed_convpool(x, w, b, epilogue="lrelu", mode=mode)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         x, w, b = ctx.saved_tensors
         # The fused kernel never wrote the full-resolution pre-activation:
-        # recompute its lrelu (the same sign) in the forward's own fp32 sums.
-        u = pk.packed_conv(x, w, b, epilogue="lrelu")
-        return _conv_grads(ctx, x, w, _lrelu_bwd(u, _unpool_quarter(g)))
+        # recompute its lrelu (the same sign) in the forward's own sums.
+        u = pk.packed_conv(x, w, b, epilogue="lrelu", mode=ctx.mode)
+        return _conv_grads(ctx, x, w, _lrelu_bwd(u, _unpool_quarter(g)), ctx.mode)
 
 
 class _ConvLreluNorm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b):
+    def forward(ctx, x, w, b, mode):
         x = x.contiguous()
         ctx.save_for_backward(x, w, b)
-        return pk.packed_conv(x, w, b, epilogue="lrelu_norm")
+        ctx.mode = mode
+        return pk.packed_conv(x, w, b, epilogue="lrelu_norm", mode=mode)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         x, w, b = ctx.saved_tensors
         # the post-lrelu, pre-norm tensor; its sign is also the lrelu mask
-        u = pk.packed_conv(x, w, b, epilogue="lrelu")
-        return _conv_grads(ctx, x, w, _lrelu_bwd(u, _pixelnorm_bwd(u, g)))
+        u = pk.packed_conv(x, w, b, epilogue="lrelu", mode=ctx.mode)
+        return _conv_grads(ctx, x, w, _lrelu_bwd(u, _pixelnorm_bwd(u, g)), ctx.mode)
 
 
 class _UpconvLreluNorm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b):
+    def forward(ctx, x, w, b, mode):
         x = x.contiguous()
         ctx.save_for_backward(x, w, b)
-        return pk.packed_upconv(x, w, b)
+        ctx.mode = mode
+        return pk.packed_upconv(x, w, b, mode=mode)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         x, w, b = ctx.saved_tensors
-        u = pk.packed_upconv(x, w, b, epilogue="lrelu")
-        return _conv_grads(ctx, x, w, _lrelu_bwd(u, _pixelnorm_bwd(u, g)), pooled_dx=True)
+        u = pk.packed_upconv(x, w, b, epilogue="lrelu", mode=ctx.mode)
+        return _conv_grads(ctx, x, w, _lrelu_bwd(u, _pixelnorm_bwd(u, g)), ctx.mode,
+                           pooled_dx=True)
 
 
-def conv_lrelu(x, w, b):
+def _check_train_mode(name: str, mode: str) -> None:
+    """Raise for a mode whose backward the port does not have before any
+    kernel runs: "default" (the bf16 backward) and the test aids."""
+    pk.check_mode(name, mode, pk.TRAIN_MODES)
+
+
+def conv_lrelu(x, w, b, mode="highest"):
     """Differentiable ``packed_conv(..., epilogue="lrelu")``: x [B, C, H, W]
-    fp32, w [Cout, C, 3, 3] eq-LR scaled, b [Cout] -> [B, Cout, H, W]."""
-    return _ConvLrelu.apply(x, w, b)
+    fp32, w [Cout, C, 3, 3] eq-LR scaled, b [Cout] -> [B, Cout, H, W], at
+    kernel ``mode`` ("highest"/"high" fp32, or "mid")."""
+    _check_train_mode("conv_lrelu", mode)
+    return _ConvLrelu.apply(x, w, b, mode)
 
 
-def convpool_lrelu(x, w, b):
+def convpool_lrelu(x, w, b, mode="highest"):
     """Differentiable ``packed_convpool``: -> [B, Cout, H/2, W/2]."""
-    return _ConvPoolLrelu.apply(x, w, b)
+    _check_train_mode("convpool_lrelu", mode)
+    return _ConvPoolLrelu.apply(x, w, b, mode)
 
 
-def conv_lrelu_norm(x, w, b):
+def conv_lrelu_norm(x, w, b, mode="highest"):
     """Differentiable ``packed_conv(..., epilogue="lrelu_norm")`` (the
     generator block's second conv): -> [B, Cout, H, W]."""
-    return _ConvLreluNorm.apply(x, w, b)
+    _check_train_mode("conv_lrelu_norm", mode)
+    return _ConvLreluNorm.apply(x, w, b, mode)
 
 
-def upconv_lrelu_norm(x, w, b):
+def upconv_lrelu_norm(x, w, b, mode="highest"):
     """Differentiable ``packed_upconv`` (nearest-2x upsample + conv3x3 + bias
     + LeakyReLU + PixelNorm, the generator block's first conv):
     -> [B, Cout, 2H, 2W]."""
-    return _UpconvLreluNorm.apply(x, w, b)
+    _check_train_mode("upconv_lrelu_norm", mode)
+    return _UpconvLreluNorm.apply(x, w, b, mode)

@@ -21,6 +21,12 @@ one CUDA card, in parts (``--parts``, all by default):
   (stage 7, stage 8 with toRGB), ``packed_conv`` "lrelu_norm" (stage 7) and
   ``packed_conv_rgb`` (stage 8, uint8 and fp32) at batch 2 and 8, the bound
   at the bf16 tensor-core peak;
+- ``mid``: kernel mode "mid" (the 2-term split) of ``packed_upconv``
+  ("lrelu_norm" and "lrelu"), ``packed_conv`` ("lrelu_norm", "lrelu",
+  "none"), ``packed_convpool`` ("lrelu", "none") and ``packed_conv_rgb``
+  at the shapes of ``score`` at "fast", the train step at
+  ``packed_train_mode="mid"`` and ``generate`` with G's packed mode "mid",
+  the bound at the bf16 peak for the two passes' products;
 - ``fused``: the stage-fused kernels B10 ``packed_upconv_conv`` (stage 7)
   and B11 ``packed_upconv_conv_rgb`` (stage 8 uint8 and fp32, stage 7
   uint8) at batch 2 and 8, each beside the two-kernel pair it replaces;
@@ -28,7 +34,7 @@ one CUDA card, in parts (``--parts``, all by default):
   (``progan_train_step`` with ``packed_fake``, stage 8, batch 2) with
   ``PROBGAN_STAGE_FUSED`` 1 and 0 in turns in one process.
 
-``--dump DIR`` saves each ``fp32`` and ``fused`` output, made from fixed
+``--dump DIR`` saves each ``fp32``, ``bf16``, ``mid`` and ``fused`` output, made from fixed
 seeds, to ``DIR/<shape>.pt`` (and with ``rank`` the ``rank_scores_fused``
 matrices, with ``generate`` the first call's images); ``--compare A B`` counts the
 values whose bits differ between two such directories (0 everywhere: the
@@ -57,7 +63,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-PARTS = ("rank", "none", "fp32", "train", "generate", "fused", "bf16")
+PARTS = ("rank", "none", "fp32", "train", "generate", "fused", "bf16", "mid")
 CONV_SHAPES = ((32, 32, 1024), (64, 32, 1024), (64, 64, 512), (128, 64, 512),
                (32, 64, 1024), (64, 128, 512))
 # (label, kernel, epilogue, batch, C, Cout, H, toRGB): the fp32 launches
@@ -105,6 +111,36 @@ BF16_SHAPES = tuple(
         ("packed_conv", "s7", 64, 64, 512, "features"),
         ("packed_conv_rgb", "s8", 32, 32, 1024, "uint8"),
         ("packed_conv_rgb", "s8", 32, 32, 1024, "fp32")))
+# (label, kernel, epilogue, batch, C, Cout, H, emit): the "mid" launches of
+# score at "fast", the train step at "mid" and generate with G's "mid"
+MID_SHAPES = (
+    *((f"upconv_{s}_{epi}_b{bsz}", "packed_upconv", epi, bsz, c, cout, h, emit)
+      for epi, bsz, s, c, cout, h, emit in (
+          ("lrelu_norm", 2, "s7", 128, 64, 256, "features"),
+          ("lrelu_norm", 2, "s8", 64, 32, 512, "features"),
+          ("lrelu_norm", 8, "s8", 64, 32, 512, "rgb"),
+          ("lrelu", 2, "s7", 128, 64, 256, "features"),
+          ("lrelu", 2, "s8", 64, 32, 512, "features"))),
+    *((f"{kernel[7:]}_C{c}_Cout{cout}_{h}_{epi}_b{bsz}", kernel, epi, bsz, c, cout, h,
+       "features")
+      for kernel, epi, bsz, c, cout, h in (
+          ("packed_conv", "lrelu_norm", 2, 32, 32, 1024),
+          ("packed_conv", "lrelu_norm", 8, 64, 64, 512),
+          ("packed_conv", "lrelu", 8, 32, 32, 1024),
+          ("packed_conv", "lrelu", 8, 64, 64, 512),
+          ("packed_conv", "lrelu", 2, 32, 64, 1024),
+          ("packed_conv", "lrelu", 2, 64, 128, 512),
+          ("packed_conv", "none", 2, 32, 32, 1024),
+          ("packed_conv", "none", 2, 64, 32, 1024),
+          ("packed_conv", "none", 2, 64, 64, 512),
+          ("packed_conv", "none", 2, 128, 64, 512),
+          ("packed_convpool", "lrelu", 8, 32, 64, 1024),
+          ("packed_convpool", "lrelu", 8, 64, 128, 512),
+          ("packed_convpool", "none", 2, 32, 64, 1024),
+          ("packed_convpool", "none", 2, 64, 128, 512))),
+    ("conv_rgb_s8_uint8_b8", "packed_conv_rgb", "lrelu_norm", 8, 32, 32, 1024, "uint8"),
+    ("conv_rgb_s8_fp32_b2", "packed_conv_rgb", "lrelu_norm", 2, 32, 32, 1024, "fp32"),
+)
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, CUDA cores
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, tensor cores, dense bf16
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
@@ -221,6 +257,62 @@ def bench_bf16(pk, dump: Path | None) -> dict:
                 torch.save([t.cpu() for t in ys], dump / f"bf16_{label}.pt")
             ms = cuda_ms(call, iters=10)
         bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+        out[label] = {"ms": ms, "bound_ms": bound_ms, "roofline_share": bound_ms / ms,
+                      "sha256": digest.hexdigest()}
+        del x, y, ys
+    return out
+
+
+def bench_mid(pk, dump: Path | None) -> dict:
+    """Kernel mode "mid" at MID_SHAPES: ms, the bound (the larger of the two
+    passes' bf16 FLOP at the tensor cores' peak and the fp32 bytes in and out
+    at the HBM rate) and its share, sha256 of the output's bytes; the outputs
+    saved under ``dump``."""
+    out = {}
+    for i, (label, kernel, epi, bsz, c, cout, h, emit) in enumerate(MID_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(400 + i)
+        x = torch.randn((bsz, c, h, h), device="cuda", generator=gen)
+        w = torch.randn((cout, c, 3, 3), device="cuda", generator=gen) * math.sqrt(2 / (9 * c))
+        b = 0.1 * torch.randn(cout, device="cuda", generator=gen)
+        if kernel == "packed_upconv":
+            kw = {"epilogue": epi}
+            if emit == "rgb":
+                kw.update(rgb_w=torch.randn((3, c), device="cuda", generator=gen) / math.sqrt(c),
+                          rgb_b=0.1 * torch.randn(3, device="cuda", generator=gen))
+
+            def call(x=x, w=w, b=b, kw=kw):
+                return pk.packed_upconv(x, w, b, mode="mid", **kw)
+            flops = 2 * 4 * c * cout * bsz * 4 * h * h
+            nbytes = 4 * bsz * h * h * (c + 4 * cout + (3 if emit == "rgb" else 0))
+        elif kernel == "packed_conv_rgb":
+            rgb_w = torch.randn((3, cout), device="cuda", generator=gen) / math.sqrt(cout)
+            rgb_b = 0.1 * torch.randn(3, device="cuda", generator=gen)
+            prev = 0.5 * torch.randn((bsz, 3, h // 2, h // 2), device="cuda", generator=gen)
+            u8 = emit == "uint8"
+
+            def call(x=x, w=w, b=b, rgb_w=rgb_w, rgb_b=rgb_b, prev=prev, u8=u8):
+                return pk.packed_conv_rgb(x, w, b, rgb_w, rgb_b, prev, 1.0 if u8 else 0.3,
+                                          emit_uint8=u8, mode="mid")
+            flops = 2 * 9 * c * cout * bsz * h * h + 2 * cout * 3 * bsz * h * h
+            nbytes = 4 * bsz * h * h * (c + 3 / 4) + bsz * h * h * 3 * (1 if u8 else 4)
+        else:
+            fn = getattr(pk, kernel)
+
+            def call(x=x, w=w, b=b, fn=fn, epi=epi):
+                return fn(x, w, b, epi, mode="mid")
+            flops = 2 * 9 * c * cout * bsz * h * h
+            nbytes = 4 * bsz * h * h * (c + cout // (4 if kernel == "packed_convpool" else 1))
+        with torch.no_grad():
+            y = call()
+            torch.cuda.synchronize()
+            ys = y if isinstance(y, tuple) else (y,)
+            digest = hashlib.sha256()
+            for t in ys:
+                digest.update(t.cpu().numpy().tobytes())
+            if dump is not None:
+                torch.save([t.cpu() for t in ys], dump / f"mid_{label}.pt")
+            ms = cuda_ms(call, iters=10)
+        bound_ms = max(2 * flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
         out[label] = {"ms": ms, "bound_ms": bound_ms, "roofline_share": bound_ms / ms,
                       "sha256": digest.hexdigest()}
         del x, y, ys
@@ -412,6 +504,9 @@ def main(argv=None) -> int:
 
     if "bf16" in parts:
         out["bf16"] = bench_bf16(pk, args.dump)
+
+    if "mid" in parts:
+        out["mid"] = bench_mid(pk, args.dump)
 
     if "fused" in parts:
         from probgan_tpu_torch.engine import image as engine_mod

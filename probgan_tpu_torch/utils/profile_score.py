@@ -1,15 +1,17 @@
 """Where the time of ``ImageGANEngine.score`` goes on the card.
 
 Profiles three 1024² score calls at batch 8 (default config, random weights
-from a seed, grade "high", images the engine's own generator made) with
+from a seed, the grade ``--precision``, "high" by default, images the
+engine's own generator made) with
 ``torch.profiler`` and prints the device time by part of the path, the
 device's idle share over the host's wall time, the peak device memory of a
 call, and one JSON line:
 
-    python -m probgan_tpu_torch.utils.profile_score [--trace PATH.json]
+    python -m probgan_tpu_torch.utils.profile_score [--precision fast] [--trace PATH.json]
 
 Parts: the two discriminator kernels by name (``packed_conv`` with the
-"lrelu" epilogue, ``packed_convpool``), the cuDNN convolutions (fromRGB and
+"lrelu" epilogue, ``packed_convpool``; at "fast" their kernel mode "mid",
+``packed_conv_bf16``, ``packed_convpool_bf16``), the cuDNN convolutions (fromRGB and
 stages 6-0), the copy of the images to the card, other copies, and the
 elementwise rest (LeakyReLU, pools of the unpacked stages, the layout
 permute, minibatch stddev, weight prep). Needs a CUDA card.
@@ -27,7 +29,7 @@ import torch
 from probgan_tpu_torch.engine import ImageGANEngine
 from probgan_tpu_torch.models.pro_gan import ProGANConfig
 
-_KERNELS = ("packed_convpool", "packed_conv")
+_KERNELS = ("packed_convpool", "packed_conv", "packed_convpool_bf16", "packed_conv_bf16")
 BATCH = 8
 CALLS = 3
 
@@ -48,10 +50,12 @@ def _part(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--precision", default="high", choices=["fast", "high", "highest"],
+                    help="the engine's grade ('fast': D's packed stages at kernel mode 'mid')")
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = ap.parse_args(argv)
 
-    engine = ImageGANEngine(ProGANConfig(), device="cuda", precision="high")
+    engine = ImageGANEngine(ProGANConfig(), device="cuda", precision=args.precision)
     images = engine.generate(engine.sample_latents(BATCH)).astype(np.float32) / 127.5 - 1.0
     for _ in range(2):  # warm-up: kernel build, cuDNN plans
         engine.score(images)
@@ -83,7 +87,8 @@ def main(argv=None) -> int:
         parts[_part(name)] = parts.get(_part(name), 0.0) + us
     busy_us = sum(parts.values())
 
-    print(f"{CALLS} score calls, batch {BATCH}, 1024²: wall {wall_us / 1e3:.3f} ms, "
+    print(f"{CALLS} score calls at {args.precision!r}, batch {BATCH}, 1024²: wall "
+          f"{wall_us / 1e3:.3f} ms, "
           f"device busy {busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f}, "
           f"peak device memory {peak_gb:.3f} GB")
     for part, us in sorted(parts.items(), key=lambda kv: -kv[1]):
@@ -92,7 +97,7 @@ def main(argv=None) -> int:
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {us / CALLS / 1e3:9.3f} ms/call  {name[:110]}")
     print(json.dumps({
-        "batch": BATCH, "calls": CALLS,
+        "batch": BATCH, "calls": CALLS, "precision": args.precision,
         "wall_ms_per_call": wall_us / CALLS / 1e3,
         "device_busy_ms_per_call": busy_us / CALLS / 1e3,
         "idle_share": 1 - busy_us / wall_us,

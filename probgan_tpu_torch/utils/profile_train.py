@@ -2,18 +2,20 @@
 
 Profiles three ``progan_train_step`` calls at 1024², stage 8, batch 2
 (default config, random weights from a seed, ``packed_d = packed_g = True``,
-``remat=True``) with ``torch.profiler``, or with ``--kg`` three
+``remat=True``, ``packed_train_mode`` from ``--packed_mode``, "highest" by
+default) with ``torch.profiler``, or with ``--kg`` three
 ``kg_train_step`` calls at 1,000,000 entities (batch 1,024, corrupted
 negatives, 8,192 sampled-softmax negatives), and prints the device time by
 part of the step, the device's idle share over the host's wall time, the
 host's own largest entries, the peak device memory of a step, and one JSON
 line:
 
-    python -m probgan_tpu_torch.utils.profile_train [--kg] [--trace PATH.json]
+    python -m probgan_tpu_torch.utils.profile_train [--kg] [--packed_mode mid] [--trace PATH.json]
 
 Parts of the image step: the conv kernels by name (``packed_conv_wgrad``
 with its reduction pass, ``packed_conv`` and its 3xTF32 "none" kernel
-``packed_conv[none]``, ``packed_convpool``, ``packed_upconv``), the cuDNN
+``packed_conv[none]``, ``packed_convpool``, ``packed_upconv``, and at
+``--packed_mode mid`` their bf16 kernels ``*_bf16``), the cuDNN
 convolutions and dense products of the unpacked stages (forward, backward
 and the recompute of ``remat``), copies, and the
 elementwise rest (LeakyReLU and PixelNorm and their backward, the masks and
@@ -37,7 +39,8 @@ from probgan_tpu_torch.models.pro_gan import ProGANConfig
 # packed_conv_wgrad and packed_convpool before their prefix packed_conv;
 # packed_conv's "none" epilogue is a kernel of its own (3xTF32)
 _KERNELS = ("packed_conv_wgrad", "packed_convpool", "packed_conv_rgb", "packed_conv_none",
-            "packed_conv", "packed_upconv")
+            "packed_conv", "packed_upconv", "packed_convpool_bf16", "packed_conv_bf16",
+            "packed_upconv_bf16")
 CALLS = 3
 BATCH, STAGE = 2, 8
 KG = dict(num_entities=1_000_000, num_relations=1_000, embed_dim=128, noise_dim=64,
@@ -62,7 +65,7 @@ def _part(name: str) -> str:
     return "elementwise_and_other"
 
 
-def _image_step():
+def _image_step(mode: str):
     cfg = ProGANConfig()
     state = train.progan_init_state(0, cfg, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -72,11 +75,11 @@ def _image_step():
 
     def step(st):
         st, m = train.progan_train_step(st, real, z, 1.0, cfg, STAGE, packed_d=True,
-                                        packed_g=True, remat=True)
+                                        packed_g=True, remat=True, packed_train_mode=mode)
         float(m["g_loss"])  # reads the card: the step has finished
         return st
 
-    return state, step, f"progan_train_step, 1024², stage {STAGE}, batch {BATCH}"
+    return state, step, f"progan_train_step, 1024², stage {STAGE}, batch {BATCH}, {mode}"
 
 
 def _kg_step():
@@ -129,10 +132,12 @@ def parts_of(by_name: dict[str, float]) -> dict[str, float]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kg", action="store_true", help="profile kg_train_step instead")
+    ap.add_argument("--packed_mode", default="highest", choices=["mid", "high", "highest"],
+                    help="packed_train_mode of the image step")
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = ap.parse_args(argv)
 
-    state, step, label = _kg_step() if args.kg else _image_step()
+    state, step, label = _kg_step() if args.kg else _image_step(args.packed_mode)
     for _ in range(2):  # warm-up: kernel build, cuDNN plans
         state = step(state)
     torch.cuda.synchronize()

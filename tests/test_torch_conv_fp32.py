@@ -180,22 +180,26 @@ def test_argtypes_match_the_c_entry_points():
 
 def test_convpool_backward_recomputes_its_mask_with_lrelu(monkeypatch):
     """_ConvPoolLrelu.backward asks packed_conv for epilogue "lrelu" (the
-    fp32 kernel whose sums equal packed_convpool's forward), on the saved
-    input and weights, and "none" only for the input gradient."""
+    kernel whose sums equal packed_convpool's forward, at the forward's
+    mode), on the saved input and weights, and "none" only for the input
+    gradient, at the forward's mode too."""
     calls = []
     real = tpk.packed_conv
 
-    def spy(x, w, b, epilogue="lrelu_norm"):
-        calls.append((epilogue, x, w))
-        return real(x, w, b, epilogue)
+    def spy(x, w, b, epilogue="lrelu_norm", mode="high"):
+        calls.append((epilogue, x, w, mode))
+        return real(x, w, b, epilogue, mode)
 
     monkeypatch.setattr(tpk, "packed_conv", spy)
     g = torch.Generator().manual_seed(5)
     x = torch.randn((2, 8, 8, 16), generator=g, requires_grad=True)
     w = (0.2 * torch.randn((16, 8, 3, 3), generator=g)).requires_grad_(True)
     b = torch.randn(16, generator=g, requires_grad=True)
-    y = packed_vjp.convpool_lrelu(x, w, b)
-    assert calls == []  # the forward is packed_convpool alone
-    y.backward(torch.randn(y.shape, generator=g))
-    assert [c[0] for c in calls] == ["lrelu", "none"]
-    assert torch.equal(calls[0][1], x.detach()) and torch.equal(calls[0][2], w.detach())
+    for mode in ("highest", "mid"):
+        calls.clear()
+        y = packed_vjp.convpool_lrelu(x, w, b, mode)
+        assert calls == []  # the forward is packed_convpool alone
+        y.backward(torch.randn(y.shape, generator=g))
+        assert [c[0] for c in calls] == ["lrelu", "none"]
+        assert torch.equal(calls[0][1], x.detach()) and torch.equal(calls[0][2], w.detach())
+        assert [c[3] for c in calls] == [mode, mode]

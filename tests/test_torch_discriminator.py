@@ -150,6 +150,20 @@ def test_packed_discriminator_matches_jax(packed_case, alpha):
     np.testing.assert_allclose(got, unpacked, **TOL)
 
 
+def test_packed_discriminator_fast_matches_jax(packed_case):
+    """The scoring grade "fast": both packages run D's packed stages in
+    kernel mode "mid" (the weights rounded to bf16, the activations split in
+    two bf16 terms, exact products, fp32 sums in another order): logits
+    within 1e-4 of JAX's largest |logit|, at a fade-in alpha (the blend
+    inside the packed stages)."""
+    jcfg, tcfg, jparams, tparams, stage, img, jitted = packed_case
+    alpha = 0.5
+    want = np.asarray(jitted("fast")(jparams, jnp.asarray(img), jnp.float32(alpha)))
+    got = tpg.discriminator_apply(tparams, torch.from_numpy(img), tcfg, stage, alpha,
+                                  precision="fast", packed=True).numpy()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max(), (got, want)
+
+
 def test_packed_discriminator_near_jax_high_ladder(packed_case):
     """JAX's "high" on the packed D path is a 3-term bf16 split; the port's
     "high" is fp32. They agree to the split's accuracy."""
@@ -162,22 +176,27 @@ def test_packed_discriminator_near_jax_high_ladder(packed_case):
 
 def test_packed_path_calls_the_packed_ops(packed_case, monkeypatch):
     """Two packed stages: two packed_conv "lrelu" and two packed_convpool
-    calls per forward, at the stages' channel counts."""
+    calls per forward, at the stages' channel counts and the grade's kernel
+    mode."""
     from probgan_tpu_torch.ops import packed as tpk
 
     _, tcfg, _, tparams, stage, img, _ = packed_case
     calls = []
     conv, pool = tpk.packed_conv, tpk.packed_convpool
-    monkeypatch.setattr(tpk, "packed_conv", lambda x, w, b, epilogue="lrelu_norm": (
-        calls.append(("conv", epilogue, tuple(x.shape[1:]), w.shape[0])),
-        conv(x, w, b, epilogue))[1])
-    monkeypatch.setattr(tpk, "packed_convpool", lambda x, w, b, epilogue="lrelu": (
-        calls.append(("pool", epilogue, tuple(x.shape[1:]), w.shape[0])),
-        pool(x, w, b, epilogue))[1])
-    tpg.discriminator_apply(tparams, torch.from_numpy(img[:1]), tcfg, stage, 1.0,
-                            precision="high", packed=True)
-    assert calls == [("conv", "lrelu", (16, 512, 512), 16), ("pool", "lrelu", (16, 512, 512), 32),
-                     ("conv", "lrelu", (32, 256, 256), 32), ("pool", "lrelu", (32, 256, 256), 64)]
+    monkeypatch.setattr(tpk, "packed_conv", lambda x, w, b, epilogue="lrelu_norm", **kw: (
+        calls.append(("conv", epilogue, tuple(x.shape[1:]), w.shape[0], kw.get("mode"))),
+        conv(x, w, b, epilogue, **kw))[1])
+    monkeypatch.setattr(tpk, "packed_convpool", lambda x, w, b, epilogue="lrelu", **kw: (
+        calls.append(("pool", epilogue, tuple(x.shape[1:]), w.shape[0], kw.get("mode"))),
+        pool(x, w, b, epilogue, **kw))[1])
+    for precision, mode in (("high", "high"), ("fast", "mid")):
+        calls.clear()
+        tpg.discriminator_apply(tparams, torch.from_numpy(img[:1]), tcfg, stage, 1.0,
+                                precision=precision, packed=True)
+        assert calls == [("conv", "lrelu", (16, 512, 512), 16, mode),
+                         ("pool", "lrelu", (16, 512, 512), 32, mode),
+                         ("conv", "lrelu", (32, 256, 256), 32, mode),
+                         ("pool", "lrelu", (32, 256, 256), 64, mode)]
 
 
 def test_packed_d_gate_matches_jax():
@@ -198,9 +217,10 @@ def test_packed_d_gate_matches_jax():
 def test_bf16_grades_raise(grade):
     """D at the bf16 grades. None and "default" run, packed or not: the
     packed gate declines them (packed_d_stage_count is 0), so D is unpacked,
-    as in the JAX package. "fast" runs unpacked and raises on the packed path,
-    whose kernel mode "mid" is not ported. The differentiable packed path's
-    bf16 mode raises at every grade."""
+    as in the JAX package. "fast" runs unpacked, and packed in kernel mode
+    "mid" (the 2-term split), near the unpacked fp32 logits and not equal to
+    them. The differentiable packed path's one-pass mode "default" raises at
+    every grade (the bf16 backward)."""
     cfg = tpg.ProGANConfig(**PACKED)
     assert tpg.packed_d_stage_count(cfg, 6, "high") == 1
     params = tpg.init_discriminator(cfg, 0)
@@ -208,8 +228,10 @@ def test_bf16_grades_raise(grade):
     unpacked = tpg.discriminator_apply(params, img, cfg, 6, 0.5, precision=grade)
     assert unpacked.shape == (2,) and torch.isfinite(unpacked).all()
     if grade == "fast":
-        with pytest.raises(NotImplementedError, match="'mid'"):
-            tpg.discriminator_apply(params, img, cfg, 6, 0.5, precision=grade, packed=True)
+        assert tpg.packed_d_stage_count(cfg, 6, grade) == 1
+        packed = tpg.discriminator_apply(params, img, cfg, 6, 0.5, precision=grade, packed=True)
+        assert torch.isfinite(packed).all() and not torch.equal(packed, unpacked)
+        np.testing.assert_allclose(packed.numpy(), unpacked.numpy(), rtol=1e-2, atol=1e-2)
     else:
         assert tpg.packed_d_stage_count(cfg, 6, grade) == 0
         assert torch.equal(tpg.discriminator_apply(params, img, cfg, 6, 0.5, precision=grade,

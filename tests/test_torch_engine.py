@@ -49,7 +49,8 @@ def test_engine_rejects_bf16_grades(grade, monkeypatch):
     packed path on, as on the card (here through the twins), it renders the
     late stages in kernel mode "default", and rejects what the port does not
     have at that grade: PROBGAN_STAGE_FUSED=1 (the stage-fused kernels are
-    fp32 only) and, at "fast", scoring (D's kernel mode "mid")."""
+    fp32 only). At "fast" it scores with D's packed stage in kernel mode
+    "mid", near the "high" engine's logits."""
     engine = ImageGANEngine(PACKED, device="cpu", precision=grade, seed=3)
     z = engine.sample_latents(1)
     img = engine.generate(z, stage=6)
@@ -58,11 +59,13 @@ def test_engine_rejects_bf16_grades(grade, monkeypatch):
     _, _, psnr = _uint8_psnr(engine.generate(z, stage=6), img)
     assert psnr > 30.0  # one bf16 pass in the packed stage (~3 significant digits)
     reals = img.astype(np.float32) / 127.5 - 1.0
+    logits = engine.score(reals, stage=6)
+    assert np.isfinite(logits).all()
     if grade == "fast":
-        with pytest.raises(NotImplementedError, match="'mid'"):
-            engine.score(reals, stage=6)
-    else:
-        assert np.isfinite(engine.score(reals, stage=6)).all()
+        high = ImageGANEngine(PACKED, g_params=engine.g_params, d_params=engine.d_params,
+                              device="cpu", precision="high")
+        high.packed = True
+        np.testing.assert_allclose(logits, high.score(reals, stage=6), rtol=1e-2, atol=1e-2)
     monkeypatch.setenv("PROBGAN_STAGE_FUSED", "1")
     with pytest.raises(NotImplementedError, match="B10/B11"):
         engine.generate(z, stage=6)

@@ -153,12 +153,20 @@ def test_conv_rgb_default_twin_matches_pallas_emulate_bf16(emit_uint8, alpha):
 
 
 def test_kernel_modes_the_port_does_not_have_raise():
-    """"mid" waits for a later piece (NotImplementedError naming it); the
-    TPU kernels' test aids are no modes of the port (ValueError); "default"
-    is the forward's epilogue only (the bf16 backward is not ported)."""
+    """The TPU kernels' test aids are no modes of the port (ValueError);
+    "default" is the forward's epilogue only (the bf16 backward is not
+    ported). "mid" (the 2-term split) runs at every epilogue, between
+    "default" and fp32 in accuracy."""
     x, w, b = torch.zeros(1, 8, 16, 32), torch.zeros(8, 8, 3, 3), torch.zeros(8)
-    with pytest.raises(NotImplementedError, match="ROADMAP B.a.1"):
-        tpk.packed_conv(x, w, b, mode="mid")
+    xr, wr = torch.from_numpy(_rand((1, 8, 16, 32), 60)), torch.from_numpy(_rand((8, 8, 3, 3), 61))
+    fp32 = tpk.packed_conv(xr, wr, b, "none")
+    mid_err = (tpk.packed_conv(xr, wr, b, "none", mode="mid") - fp32).abs().max()
+    xb, wb = (t.to(torch.bfloat16).float() for t in (xr, wr))
+    default_err = (tpk.packed_conv(xb, wb, b, "none") - fp32).abs().max()  # one bf16 pass
+    # "mid" drops the weights' rounding alone: x times the rounded weights
+    assert (tpk.packed_conv(xr, wr, b, "none", mode="mid")
+            - tpk.packed_conv(xr, wb, b, "none")).abs().max() < 1e-4 * fp32.abs().max()
+    assert 0 < mid_err < default_err
     for aid in ("exact6", "emulate_bf16"):
         with pytest.raises(ValueError, match="test aid"):
             tpk.packed_upconv(x, w, b, mode=aid)

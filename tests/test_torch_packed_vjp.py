@@ -11,7 +11,8 @@ on the CPU, where every wrapper runs its plain twin.
 - each of the four ``torch.autograd.Function``s: forward and (dx, dw, db)
   against ``jax.vjp`` of the JAX ``custom_vjp`` at mode "highest" and against
   autograd through the plain twin, rtol 5e-4 / atol 5e-5 (the tolerances of
-  tests/test_packed_vjp.py), and ``torch.autograd.gradcheck`` in fp64;
+  tests/test_packed_vjp.py), at mode "mid" against the JAX VJP at "mid", and
+  ``torch.autograd.gradcheck`` in fp64;
 - the rules around them: no wgrad or dgrad where none is asked for, no
   second derivative, and no silent zero gradient from a forward-only kernel.
 """
@@ -159,32 +160,50 @@ def _torch_vjp(fn, x, w, b, cot):
     return (y.detach(), *torch.autograd.grad(y, (x, w, b), cot))
 
 
-@pytest.mark.parametrize("c,cout", [(8, 8), (8, 16)])
-@pytest.mark.parametrize("name", list(_OPS))
-def test_function_matches_jax_vjp_and_twin_autograd(name, c, cout):
-    jax_fn, twin, scale, p_ratio = _OPS[name]
+def _function_vs_jax_vjp(name, c, cout, mode):
+    """The Function's output and (dx, dw, db) at kernel ``mode`` against
+    ``jax.vjp`` of the JAX custom_vjp at the same mode; returns the port's."""
+    jax_fn, _, scale, p_ratio = _OPS[name]
     p, b, h, w = 2, 2, 16, 32
     p_out = int(p * p_ratio)
     x = _rand((b, h, w, c), 30)
     wgt, bias = _rand((3, 3, c, cout), 31, 0.2), _rand((cout,), 32)
     cot = _rand((b, int(h * scale), int(w * scale), cout), 33)
 
-    y_j, vjp_fn = jax.vjp(lambda xp, wg, bi: jax_fn(xp, wg, bi, p, "highest"),
+    y_j, vjp_fn = jax.vjp(lambda xp, wg, bi: jax_fn(xp, wg, bi, p, mode),
                           _phase_blocked(x, p), jnp.asarray(wgt), jnp.asarray(bias))
     dx_j, dw_j, db_j = vjp_fn(_phase_blocked(cot, p_out))
 
     args = (_nchw(x), _oihw(wgt), torch.from_numpy(bias), _nchw(cot))
     before = dict(tpk.launches)
-    y, dx, dw, db = _torch_vjp(getattr(tvjp, name), *args)
+    y, dx, dw, db = _torch_vjp(lambda *a: getattr(tvjp, name)(*a, mode=mode), *args)
     assert tpk.launches == before
     np.testing.assert_allclose(_nhwc(y), np.asarray(pk.packed_rgb_to_nhwc(y_j, p_out)), **TOL)
     np.testing.assert_allclose(_nhwc(dx), np.asarray(pk.packed_rgb_to_nhwc(dx_j, p)),
                                **VJP_TOL)
     np.testing.assert_allclose(_hwio(dw), np.asarray(dw_j), **VJP_TOL)
     np.testing.assert_allclose(db.numpy(), np.asarray(db_j), **VJP_TOL)
+    return args, (y, dx, dw, db)
 
-    for got, want in zip((y, dx, dw, db), _torch_vjp(twin, *args)):
-        np.testing.assert_allclose(got.numpy(), want.numpy(), **VJP_TOL)
+
+@pytest.mark.parametrize("c,cout", [(8, 8), (8, 16)])
+@pytest.mark.parametrize("name", list(_OPS))
+def test_function_matches_jax_vjp_and_twin_autograd(name, c, cout):
+    args, got = _function_vs_jax_vjp(name, c, cout, "highest")
+    for g, want in zip(got, _torch_vjp(_OPS[name][1], *args)):
+        np.testing.assert_allclose(g.numpy(), want.numpy(), **VJP_TOL)
+
+
+@pytest.mark.parametrize("name", list(_OPS))
+def test_function_matches_jax_vjp_at_mid(name):
+    """Kernel mode "mid" (the 2-term split) forward and backward against the
+    JAX custom VJPs at "mid": the recompute and the input gradient at the
+    forward's mode, the weight gradient fp32 (both promote it). Autograd
+    through the twin is no yardstick here: the backward's convs split the
+    cotangent and round the weights, the twin's derivative does neither."""
+    args, (y, dx, _, _) = _function_vs_jax_vjp(name, 8, 16, "mid")
+    fp32 = _torch_vjp(getattr(tvjp, name), *args)  # the fp32 kernels' twins
+    assert not torch.equal(y, fp32[0]) and not torch.equal(dx, fp32[1])
 
 
 @pytest.mark.parametrize("name", list(_OPS))

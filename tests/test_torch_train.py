@@ -198,17 +198,26 @@ def test_init_state_defaults_to_the_card():
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(packed_train_mode="default", packed_g=True), "bf16"),
-    (dict(packed_train_mode="mid", packed_d=True), "bf16"),
+    # kernel mode "mid" is ported: the step runs (the ids of the cases are kept)
+    pytest.param(dict(packed_train_mode="mid", packed_d=True), None, id="kwargs1-bf16"),
     (dict(dtype=torch.bfloat16, packed_d=True), "bf16"),
     (dict(axis_names=("data",)), "axis_names"),
 ])
 def test_unported_train_options_raise(kwargs, match):
     """What the step does not have yet raises before any work: the packed
-    training paths below fp32 (a bf16 kernel mode or dtype; the unpacked
-    step runs both, tests/test_torch_grades.py) and a data-parallel step."""
+    training paths at the one-pass bf16 grade (kernel mode "default" or dtype
+    bf16; the unpacked step runs both, tests/test_torch_grades.py) and a
+    data-parallel step. The 2-term split "mid" runs: at this size no stage is
+    packed, so it is the step at "high" (its grade, fp32), bit for bit."""
     cfg = tpg.ProGANConfig(**SMALL)
     state = ttrain.progan_init_state(0, cfg, device="cpu")
     real, z = torch.zeros(2, 16, 16, 3), torch.zeros(2, 8)
+    if match is None:
+        _, got = ttrain.progan_train_step(state, real, z, 1.0, cfg, 2, **kwargs)
+        _, want = ttrain.progan_train_step(state, real, z, 1.0, cfg, 2,
+                                           **{**kwargs, "packed_train_mode": "high"})
+        assert all(torch.isfinite(v) and torch.equal(v, want[k]) for k, v in got.items())
+        return
     with pytest.raises(NotImplementedError, match=match):
         ttrain.progan_train_step(state, real, z, 1.0, cfg, 2, **kwargs)
     for fn in (tpg.generator_rgb, tpg.discriminator_apply):
