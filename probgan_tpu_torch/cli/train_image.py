@@ -19,14 +19,15 @@ On the card (``--device auto``, the default, or ``cuda``) the D step renders
 its fake batch through the forward-only packed kernels unless
 ``PROBGAN_PACKED=0`` (``engine/image.py:packed_default``); under
 ``PROBGAN_STAGE_FUSED=1`` each packed stage is one kernel. ``--device cpu``
-runs the plain path. ``--bf16`` trains the unpacked path in bf16 (params,
-Adam and the loss math stay fp32), as the JAX trainer does. Flags that need a
-piece the port does not have yet exit 1 before the first step, naming the
-ROADMAP item: ``--packed_d``/``--packed_g`` with ``--bf16`` or with
-``--packed_mode default``, and ``--fast`` (which implies all three: the
-bf16 backward kernels), ``--mesh`` (A11) and ``--device tpu``. With
-``--packed_mode high`` the packed kernels train at fp32, with ``mid`` at the
-2-term bf16 split (forward and backward; the weight gradients fp32). ``--debug`` raises
+runs the plain path. ``--bf16`` trains in bf16 (params, Adam and the loss
+math stay fp32), as the JAX trainer does: the unpacked convs in bf16 and,
+with ``--packed_d``/``--packed_g``, the packed kernels on fp32 casts of the
+activations. The packed kernels train at ``--packed_mode``: ``default`` (the
+default, one bf16 pass forward and backward), ``mid`` (the 2-term bf16
+split; the weight gradients fp32) or ``high`` (fp32). ``--fast`` is the JAX
+trainer's preset, ``--bf16 --packed_d --packed_g``. Flags that need a piece
+the port does not have yet exit 1 before the first step, naming the ROADMAP
+item: ``--mesh`` (A11) and ``--device tpu``. ``--debug`` raises
 FloatingPointError at the first loss that is not finite, naming the stage,
 epoch and step (the JAX package turns on ``jax_debug_nans`` instead).
 
@@ -45,7 +46,6 @@ import time
 import numpy as np
 import torch
 
-_BF16_ITEM = "ROADMAP B.a.1: the bf16 backward, B6 'default', B2 'none', B5 'none'"
 _DEVICE_DATA_LIMIT = 4 * 1024**3  # bytes of uint8 images kept on the card
 
 
@@ -145,9 +145,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Generator EMA decay (0 disables; EMA weights "
                         "are what generate_images serves by default)")
     parser.add_argument("--bf16", action="store_true",
-                        help="Mixed-precision training: the unpacked convs run bfloat16 "
-                        "(params, EMA, optimizer state and loss math stay fp32); with "
-                        f"--packed_d/--packed_g it exits 1 ({_BF16_ITEM})")
+                        help="Mixed-precision training: the convs run bfloat16 (params, "
+                        "EMA, optimizer state and loss math stay fp32; the packed "
+                        "kernels take fp32 casts of the activations)")
     parser.add_argument("--packed_d", action="store_true",
                         help="Run the leading D stages on the packed kernels "
                         "for forward AND backward (ops/packed_vjp.py); only "
@@ -158,13 +158,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--packed_mode", type=str, default="default",
                         choices=["default", "mid", "high"],
                         help="Grade of the packed training kernels when "
-                        "--packed_d/--packed_g engage: 'high' is fp32, 'mid' the "
-                        "2-term bf16 split (weight gradients fp32); the one-pass "
-                        f"bf16 grade 'default' exits 1 until ported ({_BF16_ITEM}). "
-                        "Without them the step runs fp32")
+                        "--packed_d/--packed_g engage: 'default' one bf16 pass "
+                        "(forward and backward, with TF32 for the unpacked convs), "
+                        "'mid' the 2-term bf16 split (weight gradients fp32), 'high' "
+                        "fp32. Without them the step runs fp32")
     parser.add_argument("--fast", action="store_true",
-                        help="The JAX package's fast preset (--bf16 --packed_d "
-                        f"--packed_g): exits 1 until the bf16 backward lands ({_BF16_ITEM})")
+                        help="The measured-fast production training preset of the "
+                        "JAX package: implies --bf16 --packed_d --packed_g")
     parser.add_argument("--r1_gamma", type=float, default=0.0,
                         help="R1 zero-centered gradient penalty on reals "
                         "(gamma/2 * E[||grad_x D||^2]). 0 disables. Applied "
@@ -207,14 +207,6 @@ def _unported(args) -> str | None:
     if args.device == "tpu":
         return ("--device tpu: the port runs on a CUDA card (auto, cuda) or on "
                 "the CPU (cpu)")
-    if args.fast:
-        return f"--fast needs the packed bf16 training grade, not ported yet ({_BF16_ITEM})"
-    if args.bf16 and (args.packed_d or args.packed_g):
-        return ("--bf16 with --packed_d/--packed_g: the packed training paths take fp32 "
-                f"only, not ported yet ({_BF16_ITEM})")
-    if (args.packed_d or args.packed_g) and args.packed_mode == "default":
-        return ("--packed_mode default is the one-pass bf16 grade of the packed "
-                f"kernels, not ported yet ({_BF16_ITEM}); use --packed_mode high or mid")
     if args.mesh:
         return "--mesh: data-parallel training over several cards is not ported yet (ROADMAP A11)"
     return None
@@ -245,6 +237,8 @@ def _check_finite(metrics: dict, stage: int, epoch: int, step: int) -> None:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.fast:
+        args.bf16 = args.packed_d = args.packed_g = True
     if args.grow and not args.resume:
         # Silent-ignore would train the new resolution from scratch.
         print("Error: --grow requires --resume (it extends a saved run's "

@@ -1,21 +1,21 @@
 // packed_conv_bf16: the bf16 kernel modes of packed_conv, 3x3 SAME conv with
-// fp32 sums, fp32 NCHW in and out:
-//  * mode "default" (one bf16 pass: x and weights rounded to bf16), epilogue
-//    "lrelu_norm" (+ bias -> LeakyReLU(0.2) -> PixelNorm);
-//  * mode "mid" (the 2-term split: x as bf16(x) + bf16(x - bf16(x)), weights
-//    rounded), epilogues "lrelu_norm", "lrelu" (+ bias -> LeakyReLU) and
-//    "none" (+ bias).
+// fp32 sums, fp32 NCHW in and out, mode "default" (one bf16 pass: x and
+// weights rounded to bf16) or "mid" (the 2-term split: x as bf16(x) +
+// bf16(x - bf16(x)), weights rounded), each with the epilogues "lrelu_norm"
+// (+ bias -> LeakyReLU(0.2) -> PixelNorm), "lrelu" (+ bias -> LeakyReLU) and
+// "none" (+ bias).
 //
 // Replaces probgan_tpu/ops/pallas_packed.py:382 `packed_conv` at modes
 // "default" and "mid" (`prep_conv_weights` :374, `stack_weights` :122,
 // `_stack_x` :144): "default" is the stage-7 conv2 of the 1024^2 generator
 // at the "fast" and default grades (64 -> 64 at 512^2); "mid" serves the
 // discriminator at the "fast" grade (conv1, "lrelu": 32 -> 32 at 1024^2,
-// 64 -> 64 at 512^2) and the train step at packed_train_mode "mid": the
-// generator's conv2 forward ("lrelu_norm") and its pre-norm recompute
-// ("lrelu"), convpool_lrelu's mask recompute ("lrelu": 32 -> 64 at 1024^2,
-// 64 -> 128 at 512^2) and the input gradients ("none": 32 -> 32 and 64 -> 32
-// at 1024^2, 64 -> 64 and 128 -> 64 at 512^2).
+// 64 -> 64 at 512^2); both serve the train step at packed_train_mode
+// "default" / "mid": the generator's conv2 forward ("lrelu_norm") and its
+// pre-norm recompute ("lrelu"), the discriminator's conv1 ("lrelu"),
+// convpool_lrelu's mask recompute ("lrelu": 32 -> 64 at 1024^2, 64 -> 128 at
+// 512^2) and the input gradients ("none": 32 -> 32 and 64 -> 32 at 1024^2,
+// 64 -> 64 and 128 -> 64 at 512^2).
 //
 // Bound on the H100: bytes. At batch 2, 64 -> 64 at 512^2 does 38.7 GFLOP
 // (0.039 ms at the 989 TFLOP/s of bf16; "mid" runs twice the products,
@@ -110,13 +110,25 @@ int launch_slab(const float* x, const unsigned* wk, const float* bias, float* y,
   return launch<32, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
 }
 
+template <int NTERM>
+int launch_epilogue(const float* x, const unsigned* wk, const float* bias, float* y, int B,
+                    int C, int H, int W, int cout, int epilogue, int smem, cudaStream_t stream) {
+  if (epilogue == kLreluNorm)
+    return launch_slab<NTERM, kLreluNorm>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
+  if (epilogue == kLrelu)
+    return launch_slab<NTERM, kLrelu>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
+  if (epilogue == kNone)
+    return launch_slab<NTERM, kNone>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace probgan
 
 // x [B][C][H][W] fp32, wk [Cout/slab][C/32][9][slab][40] bf16 (ops/packed.py
 // conv_bf16_weights: eq-LR scaled, rounded to bf16, taps ky*3 + kx, 8 zeros
 // after each run of 32 input channels), bias [Cout] -> y [B][Cout][H][W];
-// terms 1 ("default", epilogue 0 only) or 2 ("mid"); epilogue 0 "lrelu_norm"
-// (Cout 32 or 64), 1 "lrelu", 2 "none" (Cout a multiple of 32); C % 32 == 0,
+// terms 1 ("default") or 2 ("mid"); epilogue 0 "lrelu_norm" (Cout 32 or 64),
+// 1 "lrelu", 2 "none" (Cout a multiple of 32); C % 32 == 0,
 // H % (8 or 16) == 0, W % 32 == 0; smem the block's dynamic shared memory in
 // bytes (ops/packed.py bf16_conv_bytes, checked against the kernel's).
 // Returns the cudaError_t of the launch (0 = launched).
@@ -126,13 +138,7 @@ extern "C" int probgan_packed_conv_bf16(const float* x, const void* wk, const fl
   using namespace probgan;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto w = static_cast<const unsigned*>(wk);
-  if (terms == 1 && epilogue == kLreluNorm)
-    return launch_slab<1, kLreluNorm>(x, w, bias, y, B, C, H, W, cout, smem, s);
-  if (terms == 2 && epilogue == kLreluNorm)
-    return launch_slab<2, kLreluNorm>(x, w, bias, y, B, C, H, W, cout, smem, s);
-  if (terms == 2 && epilogue == kLrelu)
-    return launch_slab<2, kLrelu>(x, w, bias, y, B, C, H, W, cout, smem, s);
-  if (terms == 2 && epilogue == kNone)
-    return launch_slab<2, kNone>(x, w, bias, y, B, C, H, W, cout, smem, s);
+  if (terms == 1) return launch_epilogue<1>(x, w, bias, y, B, C, H, W, cout, epilogue, smem, s);
+  if (terms == 2) return launch_epilogue<2>(x, w, bias, y, B, C, H, W, cout, epilogue, smem, s);
   return cudaErrorInvalidValue;
 }

@@ -1,20 +1,20 @@
-// packed_convpool_bf16: kernel mode "mid" (the 2-term split) of
-// packed_convpool: 3x3 SAME conv of x as bf16(x) + bf16(x - bf16(x)) against
-// bf16-rounded weights, fp32 sums, + bias -> LeakyReLU(0.2) ("lrelu") or
-// nothing ("none") -> 2x2 mean pool, fp32 NCHW in and out. Only the pooled
-// tensor is written.
+// packed_convpool_bf16: kernel modes "default" (one bf16 pass) and "mid" (the
+// 2-term split) of packed_convpool: 3x3 SAME conv of x rounded to bf16 (or
+// at "mid" as bf16(x) + bf16(x - bf16(x))) against bf16-rounded weights, fp32
+// sums, + bias -> LeakyReLU(0.2) ("lrelu") or nothing ("none") -> 2x2 mean
+// pool, fp32 NCHW in and out. Only the pooled tensor is written.
 //
-// Replaces probgan_tpu/ops/pallas_packed.py:452 `packed_convpool` at mode
-// "mid" (`prep_conv_weights` :374, `stack_weights` :122, `_stack_x` :144):
-// the discriminator's conv2 + downsample at the "fast" grade and at
-// packed_train_mode "mid" ("lrelu": 32 -> 64 at 1024^2 -> 512^2, 64 -> 128 at
-// 512^2 -> 256^2), and x4 the upconv's input gradient in that train step
-// ("none", the same shapes).
+// Replaces probgan_tpu/ops/pallas_packed.py:452 `packed_convpool` at modes
+// "default" and "mid" (`prep_conv_weights` :374, `stack_weights` :122,
+// `_stack_x` :144): the discriminator's conv2 + downsample at the "fast"
+// grade ("mid") and at packed_train_mode "default" / "mid" ("lrelu": 32 -> 64
+// at 1024^2 -> 512^2, 64 -> 128 at 512^2 -> 256^2), and x4 the upconv's input
+// gradient in that train step ("none", the same shapes).
 //
-// Bound on the H100: operations, nearly a tie. At batch 2, 32 -> 64 at
-// 1024^2 is 77.3 GFLOP a pass, 154.6 at "mid"'s two (0.156 ms at the 989
-// TFLOP/s of bf16), and moves 268 MB of fp32 in and 134 MB out (0.120 ms at
-// 3.35 TB/s).
+// Bound on the H100: at batch 2, 32 -> 64 at 1024^2 is 77.3 GFLOP a pass
+// (0.078 ms at the 989 TFLOP/s of bf16), 154.6 at "mid"'s two (0.156 ms),
+// and moves 268 MB of fp32 in and 134 MB out (0.120 ms at 3.35 TB/s): bytes
+// at "default", operations (nearly a tie) at "mid".
 //
 // Design (bf16_conv.cuh): packed_conv_bf16.cu's tile (8 rows x 32 columns x
 // a slab of 64 channels, slabs fastest) and main loop, with the m16 tiles
@@ -24,8 +24,8 @@
 // shuffle of 4 lanes. The mean is taken rows first, then columns,
 // 0.5 * (0.5 * (a00 + a10) + 0.5 * (a01 + a11)), after the activation, as in
 // packed_convpool.cu. The layout moves no sum: each pixel is summed in
-// packed_conv_bf16's order, so packed_conv "lrelu" at "mid" pooled in this
-// order gives these bits (convpool_lrelu's mask recompute relies on it).
+// packed_conv_bf16's order, so packed_conv "lrelu" at the same mode pooled in
+// this order gives these bits (convpool_lrelu's mask recompute relies on it).
 #include "bf16_conv.cuh"
 
 namespace probgan {
@@ -96,13 +96,13 @@ int launch(const float* x, const unsigned* wk, const float* bias, float* y, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int EPI>
+template <int NTERM, int EPI>
 int launch_slab(const float* x, const unsigned* wk, const float* bias, float* y, int B, int C,
                 int H, int W, int cout, int smem, cudaStream_t stream) {
   if (cout > 0 && cout % 64 == 0)
-    return launch<64, 2, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
+    return launch<64, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
   if (cout > 0 && cout % 32 == 0)
-    return launch<32, 2, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
+    return launch<32, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -110,18 +110,20 @@ int launch_slab(const float* x, const unsigned* wk, const float* bias, float* y,
 
 // x [B][C][H][W] fp32, wk [Cout/slab][C/32][9][slab][40] bf16 (ops/packed.py
 // conv_bf16_weights, packed_conv_bf16's layout; slab 64 where Cout % 64 == 0,
-// else 32), bias [Cout] -> y [B][Cout][H/2][W/2]; terms 2 ("mid"; "default"
-// is not wired: the bf16 backward); act 1 = LeakyReLU(0.2) before the pool,
-// 0 = none; Cout a multiple of 32, C % 32 == 0, H % (8 or 16) == 0,
-// W % 32 == 0; smem the block's dynamic shared memory in bytes (ops/packed.py
-// bf16_conv_bytes). Returns the cudaError_t of the launch (0 = launched).
+// else 32), bias [Cout] -> y [B][Cout][H/2][W/2]; terms 1 ("default") or 2
+// ("mid"); act 1 = LeakyReLU(0.2) before the pool, 0 = none; Cout a multiple
+// of 32, C % 32 == 0, H % (8 or 16) == 0, W % 32 == 0; smem the block's
+// dynamic shared memory in bytes (ops/packed.py bf16_conv_bytes). Returns the
+// cudaError_t of the launch (0 = launched).
 extern "C" int probgan_packed_convpool_bf16(const float* x, const void* wk, const float* bias,
                                             float* y, int B, int C, int H, int W, int cout,
                                             int terms, int act, int smem, void* stream) {
   using namespace probgan;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto w = static_cast<const unsigned*>(wk);
-  if (terms != 2) return cudaErrorInvalidValue;
-  if (act) return launch_slab<kLrelu>(x, w, bias, y, B, C, H, W, cout, smem, s);
-  return launch_slab<kNone>(x, w, bias, y, B, C, H, W, cout, smem, s);
+#define PROBGAN_POOL_LAUNCH(NT, EPI) launch_slab<NT, EPI>(x, w, bias, y, B, C, H, W, cout, smem, s)
+  if (terms == 1) return act ? PROBGAN_POOL_LAUNCH(1, kLrelu) : PROBGAN_POOL_LAUNCH(1, kNone);
+  if (terms == 2) return act ? PROBGAN_POOL_LAUNCH(2, kLrelu) : PROBGAN_POOL_LAUNCH(2, kNone);
+#undef PROBGAN_POOL_LAUNCH
+  return cudaErrorInvalidValue;
 }

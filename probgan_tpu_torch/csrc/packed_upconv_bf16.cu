@@ -2,8 +2,8 @@
 // 2-term split) of packed_upconv: nearest-2x upsample -> 3x3 SAME conv as the
 // four parity 2x2 convs of x (rounded to bf16, or at "mid" split as bf16(x) +
 // bf16(x - bf16(x))) against bf16-rounded PRE-SUMMED taps (fp32 sums) + bias
-// -> LeakyReLU(0.2) -> PixelNorm ("lrelu_norm") or LeakyReLU alone ("lrelu",
-// "mid" only: the train step's pre-norm recompute) in fp32, [B][C][H][W] ->
+// -> LeakyReLU(0.2) -> PixelNorm ("lrelu_norm") or LeakyReLU alone ("lrelu":
+// the train step's pre-norm recompute) in fp32, [B][C][H][W] ->
 // [B][Cout][2H][2W] fp32; optionally also toRGB of the input (rounded, or
 // split) with bf16-rounded weights (fp32 sums) + bias at input resolution
 // [B][3][H][W].
@@ -15,10 +15,10 @@
 // ops/fused_upconv.py parity_weights (rows summed first, then columns, the
 // JAX order). Its toRGB (:864, :880) is a mode dot too. It is conv1 of the
 // 1024^2 generator's stages 7 (128 -> 64 channels, 256^2 -> 512^2) and 8
-// (64 -> 32, 512^2 -> 1024^2, with toRGB) at the "fast" and default grades;
-// at "mid", the same stages of generate with the generator's packed mode
-// "mid" and of the train step at packed_train_mode "mid" (forward and
-// recompute).
+// (64 -> 32, 512^2 -> 1024^2, with toRGB) at the "fast" and default grades
+// and of the train step at packed_train_mode "default" (forward and
+// recompute); at "mid", the same stages of generate with the generator's
+// packed mode "mid" and of the train step at packed_train_mode "mid".
 //
 // Bound on the H100: bytes. At batch 2 stage 7 does 34.4 GFLOP (0.035 ms at
 // 989 TFLOP/s of bf16) and moves 67 MB in and 134 MB out (0.060 ms at 3.35
@@ -186,10 +186,10 @@ int launch(const float* x, const unsigned* wk, const float* bias, const float* r
 // scaled, rounded to bf16, 8 zeros after each run of 32 input channels),
 // bias [Cout], rgb_w [3][C] (values rounded to bf16, stored as fp32) and
 // rgb_b [3] or both null -> y [B][Cout][2H][2W] and, with rgb_w, rgb
-// [B][3][H][W]; terms 1 ("default", epilogue 0 only) or 2 ("mid"); epilogue
-// 0 "lrelu_norm" or 1 "lrelu" (no toRGB); Cout 32 or 64, C % 32 == 0,
-// H % (8 or 16) == 0, W % 16 == 0; smem the block's dynamic shared memory in
-// bytes (ops/packed.py bf16_upconv_bytes, checked against the kernel's).
+// [B][3][H][W]; terms 1 ("default") or 2 ("mid"); epilogue 0 "lrelu_norm" or
+// 1 "lrelu" (no toRGB); Cout 32 or 64, C % 32 == 0, H % (8 or 16) == 0,
+// W % 16 == 0; smem the block's dynamic shared memory in bytes (ops/packed.py
+// bf16_upconv_bytes, checked against the kernel's).
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int probgan_packed_upconv_bf16(const float* x, const void* wk, const float* bias,
                                           const float* rgb_w, const float* rgb_b, float* y,
@@ -198,15 +198,14 @@ extern "C" int probgan_packed_upconv_bf16(const float* x, const void* wk, const 
   using namespace probgan;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto w = static_cast<const unsigned*>(wk);
-#define PROBGAN_UP_LAUNCH(CO, NT, EPI) \
-  launch<CO, NT, EPI>(x, w, bias, rgb_w, rgb_b, y, rgb, B, C, H, W, smem, s)
+#define PROBGAN_UP_LAUNCH(NT, EPI)                                                         \
+  (cout == 64 ? launch<64, NT, EPI>(x, w, bias, rgb_w, rgb_b, y, rgb, B, C, H, W, smem, s) \
+              : launch<32, NT, EPI>(x, w, bias, rgb_w, rgb_b, y, rgb, B, C, H, W, smem, s))
   if (cout != 32 && cout != 64) return cudaErrorInvalidValue;
-  if (terms == 1 && epilogue == kLreluNorm)
-    return cout == 64 ? PROBGAN_UP_LAUNCH(64, 1, kLreluNorm) : PROBGAN_UP_LAUNCH(32, 1, kLreluNorm);
-  if (terms == 2 && epilogue == kLreluNorm)
-    return cout == 64 ? PROBGAN_UP_LAUNCH(64, 2, kLreluNorm) : PROBGAN_UP_LAUNCH(32, 2, kLreluNorm);
-  if (terms == 2 && epilogue == kLrelu)
-    return cout == 64 ? PROBGAN_UP_LAUNCH(64, 2, kLrelu) : PROBGAN_UP_LAUNCH(32, 2, kLrelu);
+  if (terms == 1 && epilogue == kLreluNorm) return PROBGAN_UP_LAUNCH(1, kLreluNorm);
+  if (terms == 1 && epilogue == kLrelu) return PROBGAN_UP_LAUNCH(1, kLrelu);
+  if (terms == 2 && epilogue == kLreluNorm) return PROBGAN_UP_LAUNCH(2, kLreluNorm);
+  if (terms == 2 && epilogue == kLrelu) return PROBGAN_UP_LAUNCH(2, kLrelu);
 #undef PROBGAN_UP_LAUNCH
   return cudaErrorInvalidValue;
 }

@@ -143,7 +143,8 @@ def progan_init_state(generator: torch.Generator | int, config: pro_gan.ProGANCo
 # named by ``packed_train_mode``: "default" (one bf16 pass in the kernels)
 # goes with TF32 (models/pro_gan.py _PRECISIONS: the JAX step runs its XLA
 # convs at that class, Precision.DEFAULT, whatever the mode), the others with
-# fp32. The port's default mode is "highest", so a step is fp32 unless asked.
+# fp32. The default mode is "default", as in the JAX package: a step takes
+# TF32 and the bf16 kernels unless asked for "high" or "highest".
 _STEP_PRECISION = {"default": "default", "mid": "high", "high": "high", "highest": "highest"}
 
 
@@ -201,16 +202,12 @@ def _progan_loss_fns(g_ref_params, config, stage, alpha, dtype, packed_fake, rem
     return d_loss_fn, g_loss_fn
 
 
-def _check_step_args(dtype, packed_train_mode, axis_names, packed_d, packed_g) -> str:
-    """The step's grade (``_STEP_PRECISION``); raises for what the port does
-    not have yet: the packed training paths at "default" or in bf16, and
-    ``axis_names``."""
+def _check_step_args(packed_train_mode, axis_names) -> str:
+    """The step's grade (``_STEP_PRECISION``); raises for a mode the step
+    does not have and for ``axis_names``, which the port does not have yet."""
     if packed_train_mode not in _STEP_PRECISION:
         raise ValueError(f"packed_train_mode {packed_train_mode!r} is not one of "
                          f"{tuple(_STEP_PRECISION)}")
-    if packed_d or packed_g:
-        pro_gan.require_train_mode(packed_train_mode)
-        pro_gan.require_fp32_train_dtype(dtype)
     if axis_names is not None:
         raise NotImplementedError(
             "axis_names (a step inside a data-parallel mesh) waits for the "
@@ -240,13 +237,13 @@ def _g_grads(g_loss_fn, g_params, d_params, z):
 
 def progan_grads(state: ProGANTrainState, real_images, z, alpha, config, stage, *,
                  dtype=torch.float32, packed_fake=False, remat=True, packed_d=False,
-                 packed_g=False, packed_train_mode="highest", r1_gamma=0.0):
+                 packed_g=False, packed_train_mode="default", r1_gamma=0.0):
     """The raw gradients of the two losses ``progan_train_step`` feeds to
     Adam, both at the state's own parameters, as trees: (d_grads, g_grads,
     metrics). For comparing paths (kernels, plain twins, unpacked) where the
     parameters after Adam are the wrong observable: a first Adam update is
     sign-like."""
-    prec = _check_step_args(dtype, packed_train_mode, None, packed_d, packed_g)
+    prec = _check_step_args(packed_train_mode, None)
     d_loss_fn, g_loss_fn = _progan_loss_fns(
         state.g_params, config, stage, alpha, dtype, packed_fake, remat, packed_d, packed_g,
         packed_train_mode, r1_gamma)
@@ -274,7 +271,7 @@ def progan_train_step(
     remat: bool = True,
     packed_d: bool = False,
     packed_g: bool = False,
-    packed_train_mode: str = "highest",
+    packed_train_mode: str = "default",
     axis_names: tuple | None = None,
     r1_gamma: float = 0.0,
 ):
@@ -289,17 +286,19 @@ def progan_train_step(
     run the late stages of D / G on the kernels, forward AND backward
     (ops/packed_vjp.py); ``packed_g`` supersedes ``packed_fake``.
     ``packed_train_mode``: the step's grade. With ``packed_d``/``packed_g``
-    it is the kernels' grade, of which the port has the fp32 ones ("high",
-    "highest") and the 2-term split "mid" (the bf16 kernels forward and
-    backward, the weight gradient fp32 as in the JAX package); "default"
-    raises NotImplementedError there (the bf16 backward). It also
-    sets the grade of the unpacked convs and of the fake render
-    (``_STEP_PRECISION``): "default" takes TF32, the others fp32.
-    ``dtype``: float32, or bfloat16 for the unpacked path (params, Adam and
-    the loss math stay fp32); bf16 with ``packed_d``/``packed_g`` raises.
+    it is the kernels' grade: "default" (the JAX package's default, one bf16
+    pass forward and backward, the weight gradient too), the 2-term split
+    "mid" (the weight gradient fp32, as in the JAX package) or the fp32
+    kernels ("high", "highest"). It also sets the grade of the unpacked convs
+    and of the fake render (``_STEP_PRECISION``): "default" takes TF32, the
+    others fp32.
+    ``dtype``: float32, or bfloat16 (params, Adam and the loss math stay
+    fp32): the unpacked convs run in bf16, and the packed kernels on fp32
+    casts of the bf16 activations, their outputs cast back, as in the JAX
+    package (``--fast`` is bf16 with both packed gates at "default").
     ``remat``: checkpoint each unpacked stage block (models/pro_gan.py); it
     changes no number. ``axis_names`` is not ported and raises if given."""
-    prec = _check_step_args(dtype, packed_train_mode, axis_names, packed_d, packed_g)
+    prec = _check_step_args(packed_train_mode, axis_names)
     opt = progan_optimizer(lr)
     d_loss_fn, g_loss_fn = _progan_loss_fns(
         state.g_params, config, stage, alpha, dtype, packed_fake, remat, packed_d, packed_g,
@@ -332,7 +331,7 @@ def progan_train_step_accum(
     remat: bool = True,
     packed_d: bool = False,
     packed_g: bool = False,
-    packed_train_mode: str = "highest",
+    packed_train_mode: str = "default",
     r1_gamma: float = 0.0,
 ):
     """``progan_train_step`` with gradient accumulation: ``real_images`` is
@@ -343,7 +342,7 @@ def progan_train_step_accum(
     statistics are per MICROBATCH. Both G and D see every microbatch before
     their one update, and the D update still lands before the G gradients are
     taken."""
-    prec = _check_step_args(dtype, packed_train_mode, None, packed_d, packed_g)
+    prec = _check_step_args(packed_train_mode, None)
     opt = progan_optimizer(lr)
     d_loss_fn, g_loss_fn = _progan_loss_fns(
         state.g_params, config, stage, alpha, dtype, packed_fake, remat, packed_d, packed_g,

@@ -20,8 +20,11 @@ Precision grades: ``precision`` is one of None, "default", "fast", "high",
 card is set out in one place, above ``_PRECISIONS``. Every public function
 runs inside ``precision_scope``, which sets PyTorch's two TF32 switches for
 its grade and restores them on exit. ``dtype=torch.bfloat16`` runs the
-unpacked path in bf16 (weights cast to the activations' dtype) and never
-takes the packed path, as in the JAX package.
+unpacked convs in bf16 (weights cast to the activations' dtype); the
+forward-only packed path declines it, as in the JAX package, and the
+differentiable packed path (``packed_mode``) runs its kernels on fp32 casts
+of the bf16 activations, casting their outputs back, as the JAX package's
+does.
 
 ``remat=True`` checkpoints each unpacked stage block with
 ``torch.utils.checkpoint`` (non-reentrant, so a second-order term can pass
@@ -172,35 +175,17 @@ def precision_scope(precision):
 
 
 # Kernel modes of the differentiable packed paths (the train step's
-# ``packed_train_mode``) and of the kernels' training epilogues: the fp32
-# kernels and the 2-term split "mid", whose backward runs at "mid" too
-# (ops/packed_vjp.py). "default" there is the bf16 backward, not ported yet.
-TRAIN_MODES = ("mid", *FP32_MODES)
+# ``packed_train_mode``) and of every kernel: one bf16 pass ("default", the
+# JAX package's training default), the 2-term split "mid" and the fp32
+# kernels; the backward runs at the forward's mode (ops/packed_vjp.py).
+TRAIN_MODES = ("default", "mid", *FP32_MODES)
 
 
 def require_train_mode(packed_mode) -> None:
     """``packed_mode`` (the differentiable packed path's kernel grade, the
-    train step's ``packed_train_mode``): None or one of ``TRAIN_MODES``.
-    "default" needs the backward kernels in one bf16 pass, which the port
-    does not have yet."""
-    if packed_mode is None or packed_mode in TRAIN_MODES:
-        return
-    if packed_mode == "default":
-        raise NotImplementedError(
-            "packed_mode 'default': the packed training paths' one-bf16-pass grade needs "
-            "the backward kernels in bf16 (ROADMAP B.a.1: B6 'default', B2 'none', "
-            f"B5 'none'); use one of {TRAIN_MODES}")
-    raise ValueError(f"packed_mode {packed_mode!r} is not one of "
-                     f"{('default', *TRAIN_MODES)}")
-
-
-def require_fp32_train_dtype(dtype) -> None:
-    """The packed training paths take fp32 activations only."""
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"dtype {dtype} with the packed training paths: they take fp32 only until "
-            "the bf16 backward kernels land (ROADMAP B.a.1: B6 'default', B2 'none', "
-            "B5 'none'); use torch.float32 or the unpacked path")
+    train step's ``packed_train_mode``): None or one of ``TRAIN_MODES``."""
+    if packed_mode is not None and packed_mode not in TRAIN_MODES:
+        raise ValueError(f"packed_mode {packed_mode!r} is not one of {TRAIN_MODES}")
 
 
 def _require_no_stddev_axis(stddev_axis) -> None:
@@ -264,6 +249,13 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     run."""
     b, c, h, w = x.shape
     return x[:, :, :, None, :, None].expand(b, c, h, 2, w, 2).reshape(b, c, 2 * h, 2 * w)
+
+
+def blend(prev: torch.Tensor, x: torch.Tensor, alpha) -> torch.Tensor:
+    """The progressive fade-in ``prev + alpha * (x - prev)`` with ``alpha``
+    rounded to ``x``'s dtype first, as the JAX package rounds it (a bf16
+    step blends with bf16(alpha); fp32 is unchanged)."""
+    return prev + torch.as_tensor(alpha, dtype=x.dtype) * (x - prev)
 
 
 def downsample_avg_2x(x: torch.Tensor) -> torch.Tensor:
@@ -439,17 +431,21 @@ def _g_late_packed(params: dict, x_entry: torch.Tensor, config: ProGANConfig,
 
 
 def _g_rgb_packed_train(params: dict, z: torch.Tensor, config: ProGANConfig,
-                        s0: int, stage: int, alpha, mode: str, remat: bool) -> torch.Tensor:
+                        s0: int, stage: int, alpha, dtype, mode: str,
+                        remat: bool) -> torch.Tensor:
     """Differentiable packed generator: stages [s0, stage] run on the kernels
     through ops/packed_vjp.py (``upconv_lrelu_norm`` / ``conv_lrelu_norm``) at
-    kernel ``mode``, forward and backward. toRGB and the progressive blend stay
-    torch ops (1x1 convs to 3 channels). The Functions save only their inputs
-    and recompute activations in the backward, so the packed stages take no
-    checkpointing."""
+    kernel ``mode``, forward and backward. The trunk before them runs at
+    ``dtype``; the kernels take its features as fp32 and their output is
+    cast back to ``dtype`` for toRGB and the progressive blend, which stay
+    torch ops (1x1 convs to 3 channels), as in the JAX package. The grade of
+    the unpacked convs is the caller's ``precision_scope``. The Functions
+    save only their inputs and recompute activations in the backward, so the
+    packed stages take no checkpointing."""
     from probgan_tpu_torch.ops import packed_vjp
 
     block_fn = _block_fn(_g_block, remat)
-    x = _g_base(params, z, config)
+    x = _g_base(params, z, config, dtype)
     for s in range(1, s0):
         x = block_fn(params["blocks"][s - 1], x)
     x = x.float()
@@ -461,10 +457,10 @@ def _g_rgb_packed_train(params: dict, z: torch.Tensor, config: ProGANConfig,
         c1, c2 = block["conv1"], block["conv2"]
         x = packed_vjp.upconv_lrelu_norm(x, eq_scaled_conv_w(c1), c1["b"], mode)
         x = packed_vjp.conv_lrelu_norm(x, eq_scaled_conv_w(c2), c2["b"], mode)
-    rgb = eq_conv(params["to_rgb"][stage], x, gain=1.0)
-    rgb_prev = upsample_nearest_2x(eq_conv(params["to_rgb"][stage - 1], prev, gain=1.0))
-    rgb = rgb_prev + alpha * (rgb - rgb_prev)
-    return rgb.permute(0, 2, 3, 1).contiguous()
+    rgb = eq_conv(params["to_rgb"][stage], x.to(dtype), gain=1.0)
+    rgb_prev = upsample_nearest_2x(eq_conv(params["to_rgb"][stage - 1], prev.to(dtype),
+                                           gain=1.0))
+    return blend(rgb_prev, rgb, alpha).permute(0, 2, 3, 1).contiguous()
 
 
 def generator_rgb(params: dict, z: torch.Tensor, config: ProGANConfig,
@@ -479,9 +475,9 @@ def generator_rgb(params: dict, z: torch.Tensor, config: ProGANConfig,
     through ops/packed.py at the kernel mode of ``_PACKED_MODES[precision]``:
     the kernels for CUDA tensors, their plain twins for CPU tensors; fp32
     ``dtype`` only (bf16 takes the unpacked path). That path is forward-only:
-    on the card it raises when a gradient is wanted. ``packed_mode`` ("high",
-    "highest" or "mid"; "default" raises) instead selects the DIFFERENTIABLE
-    packed path (``_g_rgb_packed_train``) at that kernel mode, the train
+    on the card it raises when a gradient is wanted. ``packed_mode`` (one of
+    ``TRAIN_MODES``) instead selects the DIFFERENTIABLE packed path
+    (``_g_rgb_packed_train``) at that kernel mode, at any ``dtype``: the train
     step's configuration.
     ``precision``: the grade (see ``_PRECISIONS``). ``remat``: see
     ``generator_features``."""
@@ -490,9 +486,8 @@ def generator_rgb(params: dict, z: torch.Tensor, config: ProGANConfig,
         if packed_mode is not None and stage > 0:
             s0 = packed_start_stage(config, stage)
             if s0 is not None:
-                require_fp32_train_dtype(dtype)
-                return _g_rgb_packed_train(params, z, config, s0, stage, alpha, packed_mode,
-                                           remat)
+                return _g_rgb_packed_train(params, z, config, s0, stage, alpha, dtype,
+                                           packed_mode, remat)
         s0 = packed_start_stage(config, stage) if packed and dtype == torch.float32 else None
         if s0 is not None:
             x = _g_trunk(params, z, config, s0)
@@ -503,7 +498,7 @@ def generator_rgb(params: dict, z: torch.Tensor, config: ProGANConfig,
             rgb_prev = upsample_nearest_2x(
                 eq_conv(params["to_rgb"][stage - 1], prev, gain=1.0)
             )
-            rgb = rgb_prev + alpha * (rgb - rgb_prev)
+            rgb = blend(rgb_prev, rgb, alpha)
         return rgb.permute(0, 2, 3, 1).contiguous()
 
 
@@ -624,7 +619,9 @@ def _d_early_packed(params: dict, image: torch.Tensor, stage: int, alpha,
     features at stage ``stage - n``. The progressive blend sits after the
     first block, as in the unpacked loop. ``mode``: the kernels' grade, one
     of ``TRAIN_MODES`` ("high" and "highest" run the same fp32 kernels, "mid"
-    the 2-term split of the "fast" grade)."""
+    the 2-term split of the "fast" grade, "default" one bf16 pass). The
+    kernels take fromRGB's output as fp32 and return fp32 (the blend with
+    the skip runs in fp32), whatever the image's dtype."""
     from probgan_tpu_torch.ops import packed_vjp
 
     x = _from_rgb(params, image, stage).float().contiguous()
@@ -653,10 +650,12 @@ def discriminator_apply(params: dict, image: torch.Tensor, config: ProGANConfig,
     ``_PACKED_MODES_D[precision]``: the kernels for CUDA tensors, their plain
     twins for CPU tensors; the path is differentiable (ops/packed_vjp.py). The
     gate declines None and "default" (D runs unpacked, as in the JAX
-    package); "fast" maps to mode "mid". ``packed_mode`` ("high", "highest"
-    or "mid"; the train step passes it) makes the packed gate a matter of
-    shapes alone. ``remat``: see ``generator_features``. ``stddev_axis`` is
-    not ported and raises if given."""
+    package); "fast" maps to mode "mid". ``packed_mode`` (one of
+    ``TRAIN_MODES``; the train step passes it) makes the packed gate a matter
+    of shapes alone, at any ``dtype``: the kernels' fp32 output is cast back
+    to ``dtype`` for the stages after them, as in the JAX package.
+    ``remat``: see ``generator_features``. ``stddev_axis`` is not ported and
+    raises if given."""
     require_train_mode(packed_mode)
     _require_no_stddev_axis(stddev_axis)
     with precision_scope(precision):
@@ -669,18 +668,16 @@ def discriminator_apply(params: dict, image: torch.Tensor, config: ProGANConfig,
         elif packed and dtype == torch.float32:
             n = packed_d_stage_count(config, stage, precision)
             mode = _PACKED_MODES_D.get(precision)
-        if n > 0:
-            require_fp32_train_dtype(dtype)
         block_fn = _block_fn(_d_block, remat)
         if n > 0:
-            x = _d_early_packed(params, image, stage, alpha, n, mode)
+            x = _d_early_packed(params, image, stage, alpha, n, mode).to(dtype)
         else:
             x = _from_rgb(params, image, stage)
         for s in range(stage - n, 0, -1):
             x = block_fn(params["blocks"][s - 1], x)
             if s == stage and stage > 0:
                 skip = _from_rgb(params, downsample_avg_2x(image), stage - 1)
-                x = skip + alpha * (x - skip)
+                x = blend(skip, x, alpha)
         x = minibatch_stddev(x)
         x = lrelu(eq_conv(params["final_conv"], x))
         # final_dense's rows are in the JAX layout: the 4x4 map flattened as HWC

@@ -20,7 +20,7 @@ kernels they replace (``probgan_tpu/ops/pallas_packed.py``):
   pooled tensor is written;
 - ``packed_conv_wgrad``: the weight gradient of a conv3x3 from its input and
   the cotangent of its pre-bias output, 3xTF32 on the tensor cores (fp32 by
-  accuracy);
+  accuracy), or one bf16 pass at kernel mode "default";
 - ``packed_upconv_conv``: ``packed_upconv`` then ``packed_conv`` in one
   kernel, a whole non-final generator stage whose conv1 map never reaches
   device memory (opt-in, ``PROBGAN_STAGE_FUSED=1``);
@@ -32,22 +32,21 @@ plain twins are the pairs' twins composed.
 
 Kernel modes (``mode``, the JAX kernels' name): "high" and "highest" run the
 fp32 kernels above, with one set of bits. ``packed_upconv``,
-``packed_conv`` ("lrelu_norm") and ``packed_conv_rgb`` also take "default",
-the JAX kernels' one bf16 pass: both operands of every dot rounded to bf16
-(to nearest even), the products summed in fp32, bias and epilogues in fp32.
-``packed_upconv``, ``packed_conv``, ``packed_conv_rgb`` and
-``packed_convpool`` take "mid" with every epilogue, the 2-term split of the
-"fast" discriminator and of the train step at ``packed_train_mode="mid"``:
-the weights rounded to bf16, the activations split as ``bf16(x) + bf16(x -
-bf16(x))`` (``split2``), so that a dot is the rounded weights times x to
-~2^-16, summed in fp32. On the card each bf16 mode is a kernel of its own
-(``csrc/*_bf16.cu`` over ``csrc/bf16_conv.cuh``, bf16 tensor-core products,
-the two terms two products at "mid"); the twins round or split the same
-operands and run fp32 convs. ``packed_conv_wgrad`` takes "mid" as the
-reference does, at fp32 ("highest"). "default" in the backward's epilogues
-and in ``packed_conv_wgrad`` is the bf16 backward, not ported yet
-(NotImplementedError); "exact6" and "emulate_bf16" are the TPU kernels' test
-aids and raise ValueError.
+``packed_conv``, ``packed_conv_rgb`` and ``packed_convpool`` also take, with
+every epilogue, "default", the JAX kernels' one bf16 pass (the train step's
+default grade and G's at "fast"): both operands of every dot rounded to bf16
+(to nearest even), the products summed in fp32, bias and epilogues in fp32;
+and "mid", the 2-term split of the "fast" discriminator and of the train
+step at ``packed_train_mode="mid"``: the weights rounded to bf16, the
+activations split as ``bf16(x) + bf16(x - bf16(x))`` (``split2``), so that a
+dot is the rounded weights times x to ~2^-16, summed in fp32. On the card
+each bf16 mode is a kernel of its own (``csrc/*_bf16.cu`` over
+``csrc/bf16_conv.cuh``, bf16 tensor-core products, the two terms two
+products at "mid"); the twins round or split the same operands and run fp32
+convs. ``packed_conv_wgrad`` takes "default" (``csrc/packed_conv_wgrad_bf16.cu``,
+both operands rounded) and "mid" as the reference does, at fp32 ("highest").
+"exact6" and "emulate_bf16" are the TPU kernels' test aids and raise
+ValueError.
 
 The six forward kernels record no autograd graph. On the CPU their plain
 twins are ordinary differentiable torch code; on a CUDA tensor a wrapper
@@ -75,7 +74,6 @@ import torch
 import torch.nn.functional as F
 
 from probgan_tpu_torch.models.pro_gan import (
-    FP32_MODES,
     TRAIN_MODES,
     lrelu,
     pixel_norm,
@@ -93,16 +91,16 @@ launches = {"packed_upconv": 0, "packed_conv": 0, "packed_conv_rgb": 0,
             "packed_convpool": 0, "packed_conv_wgrad": 0, "packed_upconv_conv": 0,
             "packed_upconv_conv_rgb": 0, "packed_upconv_bf16": 0, "packed_conv_bf16": 0,
             "packed_conv_rgb_bf16": 0, "packed_upconv_mid": 0, "packed_conv_mid": 0,
-            "packed_conv_rgb_mid": 0, "packed_convpool_mid": 0}
+            "packed_conv_rgb_mid": 0, "packed_convpool_mid": 0, "packed_convpool_bf16": 0,
+            "packed_conv_wgrad_bf16": 0}
 # The same launches by epilogue, "<kernel>[<epilogue>]", for the kernels that
 # have more than one.
 epilogue_launches = {
-    "packed_upconv[lrelu_norm]": 0, "packed_upconv[lrelu]": 0,
-    "packed_conv[lrelu_norm]": 0, "packed_conv[lrelu]": 0, "packed_conv[none]": 0,
-    "packed_convpool[lrelu]": 0, "packed_convpool[none]": 0,
-    "packed_upconv_mid[lrelu_norm]": 0, "packed_upconv_mid[lrelu]": 0,
-    "packed_conv_mid[lrelu_norm]": 0, "packed_conv_mid[lrelu]": 0, "packed_conv_mid[none]": 0,
-    "packed_convpool_mid[lrelu]": 0, "packed_convpool_mid[none]": 0,
+    f"{kernel}{suffix}[{epilogue}]": 0
+    for kernel, epilogues in (("packed_upconv", ("lrelu_norm", "lrelu")),
+                              ("packed_conv", ("lrelu_norm", "lrelu", "none")),
+                              ("packed_convpool", ("lrelu", "none")))
+    for suffix in ("", "_bf16", "_mid") for epilogue in epilogues
 }
 
 _P = ctypes.c_void_p
@@ -122,11 +120,11 @@ _ARGTYPES = {
     "packed_conv_rgb_bf16": [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _I,
                              _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_convpool_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "packed_conv_wgrad_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
-# Kernel modes: the fp32 kernels serve FP32_MODES; "default" (one bf16 pass)
-# and "mid" (the 2-term split) the *_bf16 kernels, with this many bf16 terms
-# of the activations.
-MODES = ("default", "mid", *FP32_MODES)
+# Kernel modes (TRAIN_MODES): the fp32 kernels serve "high" and "highest";
+# "default" (one bf16 pass) and "mid" (the 2-term split) the *_bf16 kernels,
+# with this many bf16 terms of the activations.
 BF16_TERMS = {"default": 1, "mid": 2}
 # The bf16 kernels (csrc/bf16_conv.cuh): input channels a shared-memory chunk,
 # and bf16 a staged pixel or weight row (the chunk's channels, then 8 zeros).
@@ -159,21 +157,16 @@ SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED = 232_448, 233_472, 1_024
 FUSED_C1, FUSED_C2, FUSED_STAGES = 8, 16, {64: 3, 32: 4}
 
 
-def check_mode(name: str, mode: str, modes: tuple = MODES) -> int:
+def check_mode(name: str, mode: str) -> int:
     """The bf16 terms of ``mode`` (``BF16_TERMS``: 1 at "default", 2 at
-    "mid"), 0 for an fp32 mode; raise for a mode ``name`` does not have:
-    "default" outside ``modes`` is the bf16 backward, not ported yet, "exact6"
-    and "emulate_bf16" are the TPU kernels' test aids."""
-    if mode in modes:
+    "mid"), 0 for an fp32 mode; raise ValueError for a mode the port does not
+    have: "exact6" and "emulate_bf16" are the TPU kernels' test aids."""
+    if mode in TRAIN_MODES:
         return BF16_TERMS.get(mode, 0)
-    if mode == "default":
-        raise NotImplementedError(
-            f"{name}: kernel mode 'default' here is the bf16 backward, not ported yet "
-            "(ROADMAP B.a.1: B6 'default', B2 'none', B5 'none')")
     if mode in ("exact6", "emulate_bf16"):
         raise ValueError(f"{name}: mode {mode!r} is a test aid of the TPU kernels, not a "
-                         f"mode of the port's; use one of {modes}")
-    raise ValueError(f"{name}: mode {mode!r} not in {modes}")
+                         f"mode of the port's; use one of {TRAIN_MODES}")
+    raise ValueError(f"{name}: mode {mode!r} not in {TRAIN_MODES}")
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -214,12 +207,10 @@ def _launch(name: str, x: torch.Tensor, *args, epilogue: str | None = None,
 def _bf16_launch(name: str, terms: int, x: torch.Tensor, *args,
                  epilogue: str | None = None) -> None:
     """Launch the bf16 kernel of ``name`` (csrc/<name>_bf16.cu) with ``terms``
-    bf16 terms: counted as "<name>_bf16" at "default", as "<name>_mid" (by
-    ``epilogue`` too) at "mid"."""
-    if terms == 1:
-        _launch(f"{name}_bf16", x, *args)
-    else:
-        _launch(f"{name}_bf16", x, *args, epilogue=epilogue, counter=f"{name}_mid")
+    bf16 terms: counted as "<name>_bf16" at "default", as "<name>_mid" at
+    "mid", and by ``epilogue`` too."""
+    _launch(f"{name}_bf16", x, *args, epilogue=epilogue,
+            counter=f"{name}_bf16" if terms == 1 else f"{name}_mid")
 
 
 def _ptr(t: torch.Tensor | None):
@@ -280,12 +271,6 @@ def _check_cout(name: str, cout: int, sliced: bool = False) -> None:
 
 def _lrelu_norm(x: torch.Tensor) -> torch.Tensor:
     return pixel_norm(lrelu(x))
-
-
-def _modes(epilogue: str) -> tuple:
-    """The kernel modes of an epilogue: "default" is the forward's
-    ("lrelu_norm") alone; the others serve D and the training backward."""
-    return MODES if epilogue == "lrelu_norm" else TRAIN_MODES
 
 
 def conv_bf16_weights(w: torch.Tensor, slab: int | None = None) -> torch.Tensor:
@@ -371,7 +356,7 @@ def packed_upconv_plain(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm
     ``rgb_w`` to bf16 first, and x ("default") or split it (``split2``,
     "mid")."""
     _check_upconv_epilogue(epilogue, rgb_w)
-    terms = check_mode("packed_upconv", mode, _modes(epilogue))
+    terms = check_mode("packed_upconv", mode)
     if terms:
         x = _operand(x, terms)
         y = _epilogue(parity_conv(_bf16(parity_weights(w)), b, x), epilogue)
@@ -390,15 +375,15 @@ def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm", mod
     x [B, C, H, W] fp32, w [Cout, C, 3, 3] eq-LR scaled, b [Cout]
     -> [B, Cout, 2H, 2W]. With ``rgb_w`` [3, C] and ``rgb_b`` [3]
     ("lrelu_norm" only), also returns toRGB(x) [B, 3, H, W] (the ``rgb_prev``
-    of packed_conv_rgb). ``mode``: "high"/"highest" (fp32), "mid" (the 2-term
-    split) or, with "lrelu_norm", "default" (one bf16 pass); both bf16 modes
-    are ``packed_upconv_bf16`` on the card (C % 32 == 0)."""
+    of packed_conv_rgb). ``mode``: "high"/"highest" (fp32), "default" (one
+    bf16 pass) or "mid" (the 2-term split); both bf16 modes are
+    ``packed_upconv_bf16`` on the card (C % 32 == 0)."""
     if x.device.type == "cpu":
         return packed_upconv_plain(x, w, b, rgb_w=rgb_w, rgb_b=rgb_b, epilogue=epilogue,
                                    mode=mode)
     name = "packed_upconv"
     _check_upconv_epilogue(epilogue, rgb_w)
-    terms = check_mode(name, mode, _modes(epilogue))
+    terms = check_mode(name, mode)
     _refuse_grad(name, "upconv_lrelu_norm", x, w, b, rgb_w, rgb_b)
     cout = w.shape[0]
     _check_cout(name, cout)
@@ -450,7 +435,7 @@ def packed_conv_plain(x, w, b, epilogue="lrelu_norm", mode="high"):
     first, "mid" rounds w and splits x (``split2``)."""
     if epilogue not in CONV_EPILOGUES:
         raise ValueError(f"packed_conv: epilogue {epilogue!r} not in {tuple(CONV_EPILOGUES)}")
-    terms = check_mode("packed_conv", mode, _modes(epilogue))
+    terms = check_mode("packed_conv", mode)
     if terms:
         x, w = _operand(x, terms), _bf16(w)
     return _epilogue(F.conv2d(x, w, padding=1) + b[:, None, None], epilogue)
@@ -553,16 +538,16 @@ def packed_conv(x, w, b, epilogue="lrelu_norm", mode="high"):
     card (each product three TF32 products of the operands' high and low
     parts, within ~1e-6 of the output's largest entry of the fp32 sum) and
     sums every output in a fixed order, so equal inputs give equal bits.
-    ``mode``: "high"/"highest" (fp32), "mid" (the 2-term split, every
-    epilogue) or, with "lrelu_norm", "default" (one bf16 pass); both bf16
-    modes are ``packed_conv_bf16`` on the card (C % 32 == 0; Cout in slabs as
-    the fp32 kernels)."""
+    ``mode``: "high"/"highest" (fp32), "default" (one bf16 pass) or "mid"
+    (the 2-term split), every epilogue; both bf16 modes are
+    ``packed_conv_bf16`` on the card (C % 32 == 0; Cout in slabs as the fp32
+    kernels)."""
     if x.device.type == "cpu":
         return packed_conv_plain(x, w, b, epilogue, mode)
     name = "packed_conv"
     if epilogue not in CONV_EPILOGUES:
         raise ValueError(f"{name}: epilogue {epilogue!r} not in {tuple(CONV_EPILOGUES)}")
-    terms = check_mode(name, mode, _modes(epilogue))
+    terms = check_mode(name, mode)
     _refuse_grad(name, "conv_lrelu_norm" if epilogue == "lrelu_norm" else "conv_lrelu",
                  x, w, b)
     cout = w.shape[0]
@@ -607,11 +592,11 @@ def convpool_kernel_weights(w: torch.Tensor) -> torch.Tensor:
 
 
 def packed_convpool_plain(x, w, b, epilogue="lrelu", mode="high"):
-    """Plain twin of ``packed_convpool``; mode "mid" rounds w and splits x
-    (``split2``) first."""
+    """Plain twin of ``packed_convpool``; mode "default" rounds x and w to
+    bf16 first, "mid" rounds w and splits x (``split2``)."""
     if epilogue not in POOL_EPILOGUES:
         raise ValueError(f"packed_convpool: epilogue {epilogue!r} not in {POOL_EPILOGUES}")
-    terms = check_mode("packed_convpool", mode, TRAIN_MODES)
+    terms = check_mode("packed_convpool", mode)
     if terms:
         x, w = _operand(x, terms), _bf16(w)
     return F.avg_pool2d(_epilogue(F.conv2d(x, w, padding=1) + b[:, None, None], epilogue), 2)
@@ -621,14 +606,15 @@ def packed_convpool(x, w, b, epilogue="lrelu", mode="high"):
     """conv3x3 SAME + bias -> LeakyReLU ("lrelu") or nothing ("none") -> 2x2
     mean pool; the activation comes before the pool. x [B, C, H, W] fp32,
     w [Cout, C, 3, 3] eq-LR scaled, b [Cout] -> [B, Cout, H/2, W/2].
-    ``mode``: "high"/"highest" (fp32) or "mid" (the 2-term split,
-    ``packed_convpool_bf16`` on the card: C % 32 == 0)."""
+    ``mode``: "high"/"highest" (fp32), "default" (one bf16 pass) or "mid"
+    (the 2-term split); both bf16 modes are ``packed_convpool_bf16`` on the
+    card (C % 32 == 0)."""
     if x.device.type == "cpu":
         return packed_convpool_plain(x, w, b, epilogue, mode)
     name = "packed_convpool"
     if epilogue not in POOL_EPILOGUES:
         raise ValueError(f"{name}: epilogue {epilogue!r} not in {POOL_EPILOGUES}")
-    terms = check_mode(name, mode, TRAIN_MODES)
+    terms = check_mode(name, mode)
     _refuse_grad(name, "convpool_lrelu", x, w, b)
     cout = w.shape[0]
     _check_cout(name, cout, sliced=True)
@@ -741,8 +727,10 @@ def _check_wgrad_shapes(x: torch.Tensor, dpre: torch.Tensor) -> None:
 def packed_conv_wgrad_plain(x, dpre, mode="highest"):
     """Plain twin of ``packed_conv_wgrad``: for each of the nine taps, the
     product of the shifted zero-padded input with the cotangent, summed over
-    batch and pixels, fp32 at every mode it takes."""
-    check_mode("packed_conv_wgrad", mode, TRAIN_MODES)
+    batch and pixels in fp32; mode "default" rounds x and dpre to bf16 first,
+    the other modes take them as they are."""
+    if check_mode("packed_conv_wgrad", mode) == 1:
+        x, dpre = _bf16(x), _bf16(dpre)
     _check_wgrad_shapes(x, dpre)
     h, wd = x.shape[2:]
     xp = F.pad(x, (1, 1, 1, 1))
@@ -782,12 +770,14 @@ def packed_conv_wgrad(x, dpre, mode="highest"):
     fixed order, so equal inputs give equal bits. On CUDA, C and Cout are
     multiples of 8, H of 8 and W of 32, and x and dpre are 16-byte aligned.
     ``mode``: "mid", "high" and "highest" run this one kernel, as the
-    reference promotes its split modes to HIGHEST; "default" (one bf16 pass,
-    the bf16 backward) is not ported yet and raises."""
+    reference promotes its split modes to HIGHEST; "default" is one bf16 pass,
+    ``packed_conv_wgrad_bf16`` on the card: both operands rounded to bf16 (to
+    nearest even), the products (exact in fp32) summed in fp32 in a fixed
+    order too."""
     if x.device.type == "cpu":
         return packed_conv_wgrad_plain(x, dpre, mode)
     name = "packed_conv_wgrad"
-    check_mode(name, mode, TRAIN_MODES)
+    terms = check_mode(name, mode)
     _check_wgrad_shapes(x, dpre)
     _refuse_grad(name, "conv_lrelu and its siblings, whose backward is not "
                  "differentiable a second time", x, dpre)
@@ -803,8 +793,8 @@ def packed_conv_wgrad(x, dpre, mode="highest"):
     ksplit = wgrad_ksplit(bsz, c, cout, h, wd)
     partials = torch.empty((ksplit, 9, c, cout), device=x.device, dtype=x.dtype)
     dw = torch.empty((cout, c, 3, 3), device=x.device, dtype=x.dtype)
-    _launch(name, x, _ptr(x), _ptr(dpre), _ptr(partials), _ptr(dw), bsz, c, h, wd, cout,
-            o_slab, rows, ksplit)
+    _launch(f"{name}_bf16" if terms == 1 else name, x, _ptr(x), _ptr(dpre), _ptr(partials),
+            _ptr(dw), bsz, c, h, wd, cout, o_slab, rows, ksplit)
     return dw
 
 

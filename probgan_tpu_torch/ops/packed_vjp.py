@@ -14,9 +14,9 @@ conv are 3x3 SAME convs:
   so ``conv_lrelu`` stores no pre-activation;
 - the 2x2 mean pool's transpose is a nearest-2x upsample times 1/4;
 - ``convpool_lrelu`` never wrote its full-resolution pre-activation, so its
-  backward recomputes the mask with one ``epilogue="lrelu"`` forward: the
-  fp32 kernel whose sums equal the forward's bit for bit (the 3xTF32
-  "none" kernel differs from them by ~1e-6 and would flip the mask of
+  backward recomputes the mask with one ``epilogue="lrelu"`` forward at the
+  forward's mode: the kernel whose sums equal the forward's bit for bit (at
+  the fp32 modes, the 3xTF32 "none" kernel differs from them by ~1e-6 and would flip the mask of
   pre-activations that close to zero: 7 to 15 a call at the 1024² train
   step's shapes, each moving dx by ~0.8 |g w|);
 - PixelNorm's backward needs its INPUT: ``conv_lrelu_norm`` and
@@ -29,15 +29,16 @@ conv are 3x3 SAME convs:
   its weight gradient correlates the transiently upsampled input with the
   cotangent.
 
-Every Function takes the kernels' ``mode`` ("highest", the default, "high"
-or "mid"; the JAX package's default is "default", whose bf16 backward is not
-ported yet) and runs its forward, every recompute and every input gradient
-at it, as the reference's custom VJPs do: a mask recomputed at another mode
-than the forward's would flip the signs of pre-activations near zero.
-``packed_conv_wgrad`` takes the mode too and runs its fp32 kernel at each
-(the reference promotes its split modes to HIGHEST). At "mid" the recompute
-is ``packed_conv`` "lrelu" at "mid", whose sums equal the forward's
-``packed_convpool`` "mid" bit for bit (one order of sums in both kernels).
+Every Function takes the kernels' ``mode`` ("default", the default as in the
+JAX package: one bf16 pass; "mid", "high" or "highest") and runs its
+forward, every recompute and every input gradient at it, as the reference's
+custom VJPs do: a mask recomputed at another mode than the forward's would
+flip the signs of pre-activations near zero. ``packed_conv_wgrad`` takes the
+mode too: one bf16 pass at "default", its fp32 kernel at the others (the
+reference promotes its split modes to HIGHEST). At "default" and "mid" the
+recompute is ``packed_conv`` "lrelu" at that mode, whose sums equal the
+forward's ``packed_convpool`` at the same mode bit for bit (one order of sums
+in both kernels).
 
 The bias gradient and the elementwise masks are torch ops. ``backward`` honours
 ``ctx.needs_input_grad``: no wgrad launch where the weights need no gradient
@@ -184,36 +185,31 @@ class _UpconvLreluNorm(torch.autograd.Function):
                            pooled_dx=True)
 
 
-def _check_train_mode(name: str, mode: str) -> None:
-    """Raise for a mode whose backward the port does not have before any
-    kernel runs: "default" (the bf16 backward) and the test aids."""
-    pk.check_mode(name, mode, pk.TRAIN_MODES)
-
-
-def conv_lrelu(x, w, b, mode="highest"):
+def conv_lrelu(x, w, b, mode="default"):
     """Differentiable ``packed_conv(..., epilogue="lrelu")``: x [B, C, H, W]
     fp32, w [Cout, C, 3, 3] eq-LR scaled, b [Cout] -> [B, Cout, H, W], at
-    kernel ``mode`` ("highest"/"high" fp32, or "mid")."""
-    _check_train_mode("conv_lrelu", mode)
+    kernel ``mode`` ("default" one bf16 pass, "mid", or "highest"/"high"
+    fp32). A test aid as ``mode`` raises before any kernel runs."""
+    pk.check_mode("conv_lrelu", mode)
     return _ConvLrelu.apply(x, w, b, mode)
 
 
-def convpool_lrelu(x, w, b, mode="highest"):
+def convpool_lrelu(x, w, b, mode="default"):
     """Differentiable ``packed_convpool``: -> [B, Cout, H/2, W/2]."""
-    _check_train_mode("convpool_lrelu", mode)
+    pk.check_mode("convpool_lrelu", mode)
     return _ConvPoolLrelu.apply(x, w, b, mode)
 
 
-def conv_lrelu_norm(x, w, b, mode="highest"):
+def conv_lrelu_norm(x, w, b, mode="default"):
     """Differentiable ``packed_conv(..., epilogue="lrelu_norm")`` (the
     generator block's second conv): -> [B, Cout, H, W]."""
-    _check_train_mode("conv_lrelu_norm", mode)
+    pk.check_mode("conv_lrelu_norm", mode)
     return _ConvLreluNorm.apply(x, w, b, mode)
 
 
-def upconv_lrelu_norm(x, w, b, mode="highest"):
+def upconv_lrelu_norm(x, w, b, mode="default"):
     """Differentiable ``packed_upconv`` (nearest-2x upsample + conv3x3 + bias
     + LeakyReLU + PixelNorm, the generator block's first conv):
     -> [B, Cout, 2H, 2W]."""
-    _check_train_mode("upconv_lrelu_norm", mode)
+    pk.check_mode("upconv_lrelu_norm", mode)
     return _UpconvLreluNorm.apply(x, w, b, mode)

@@ -12,8 +12,8 @@ one CUDA card, in parts (``--parts``, all by default):
   ``packed_conv_rgb`` (uint8 at alpha 1, fp32 at alpha 0.3) at stage 8
   (32 -> 32 at 1024²) and stage 7 (64 -> 64 at 512²), batch 2 and 8;
 - ``train``: ``progan_train_step`` at 1024², stage 8, batch 2, packed,
-  ``remat``: steps/s and p50 over timed steps (host clock to the metrics on
-  the host);
+  ``remat``, ``packed_train_mode="highest"``: steps/s and p50 over timed
+  steps (host clock to the metrics on the host);
 - ``generate``: ``ImageGANEngine.generate`` at 1024², batch 8, at the grade
   ``--precision`` ("high" by default): img/s and p50 ms per image (host clock
   to the uint8 images on the host);
@@ -27,18 +27,23 @@ one CUDA card, in parts (``--parts``, all by default):
   at the shapes of ``score`` at "fast", the train step at
   ``packed_train_mode="mid"`` and ``generate`` with G's packed mode "mid",
   the bound at the bf16 peak for the two passes' products;
+- ``bwd``: kernel mode "default" of the training backward at the shapes of
+  the train step at ``packed_train_mode="default"`` (batch 2):
+  ``packed_upconv`` "lrelu", ``packed_conv`` "lrelu" and "none",
+  ``packed_convpool`` "lrelu" and "none", and ``packed_conv_wgrad`` at its
+  six shapes beside its fp32 (3xTF32) kernel, the bound at the bf16 peak;
 - ``fused``: the stage-fused kernels B10 ``packed_upconv_conv`` (stage 7)
   and B11 ``packed_upconv_conv_rgb`` (stage 8 uint8 and fp32, stage 7
   uint8) at batch 2 and 8, each beside the two-kernel pair it replaces;
   then ``generate`` (batch 8) and the image trainer CLI's step
-  (``progan_train_step`` with ``packed_fake``, stage 8, batch 2) with
-  ``PROBGAN_STAGE_FUSED`` 1 and 0 in turns in one process.
+  (``progan_train_step`` with ``packed_fake`` at "highest", stage 8, batch
+  2) with ``PROBGAN_STAGE_FUSED`` 1 and 0 in turns in one process.
 
-``--dump DIR`` saves each ``fp32``, ``bf16``, ``mid`` and ``fused`` output, made from fixed
-seeds, to ``DIR/<shape>.pt`` (and with ``rank`` the ``rank_scores_fused``
-matrices, with ``generate`` the first call's images); ``--compare A B`` counts the
-values whose bits differ between two such directories (0 everywhere: the
-same bits).
+``--dump DIR`` saves each ``fp32``, ``bf16``, ``mid``, ``bwd`` and ``fused``
+output, made from fixed seeds, to ``DIR/<shape>.pt`` (and with ``rank`` the
+``rank_scores_fused`` matrices, with ``generate`` the first call's images);
+``--compare A B`` counts the values whose bits differ between two such
+directories (0 everywhere: the same bits).
 
 It calls only public entry points, so the same file times an older tree of
 the package: put that tree first on ``PYTHONPATH`` and run this file by its
@@ -63,7 +68,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-PARTS = ("rank", "none", "fp32", "train", "generate", "fused", "bf16", "mid")
+PARTS = ("rank", "none", "fp32", "train", "generate", "fused", "bf16", "mid", "bwd")
 CONV_SHAPES = ((32, 32, 1024), (64, 32, 1024), (64, 64, 512), (128, 64, 512),
                (32, 64, 1024), (64, 128, 512))
 # (label, kernel, epilogue, batch, C, Cout, H, toRGB): the fp32 launches
@@ -140,6 +145,29 @@ MID_SHAPES = (
           ("packed_convpool", "none", 2, 64, 128, 512))),
     ("conv_rgb_s8_uint8_b8", "packed_conv_rgb", "lrelu_norm", 8, 32, 32, 1024, "uint8"),
     ("conv_rgb_s8_fp32_b2", "packed_conv_rgb", "lrelu_norm", 2, 32, 32, 1024, "fp32"),
+)
+# (label, kernel, epilogue, C, Cout, H): the "default" backward's launches of
+# the train step at packed_train_mode "default", batch 2 (H the input's)
+BWD_SHAPES = (
+    *((f"upconv_{s}_lrelu", "packed_upconv", "lrelu", c, cout, h)
+      for s, c, cout, h in (("s7", 128, 64, 256), ("s8", 64, 32, 512))),
+    *((f"{kernel[7:]}_C{c}_Cout{cout}_{h}_{epi}", kernel, epi, c, cout, h)
+      for kernel, epi, c, cout, h in (
+          ("packed_conv", "lrelu", 32, 32, 1024),
+          ("packed_conv", "lrelu", 64, 64, 512),
+          ("packed_conv", "lrelu", 32, 64, 1024),
+          ("packed_conv", "lrelu", 64, 128, 512),
+          ("packed_conv", "none", 32, 32, 1024),
+          ("packed_conv", "none", 64, 32, 1024),
+          ("packed_conv", "none", 64, 64, 512),
+          ("packed_conv", "none", 128, 64, 512),
+          ("packed_convpool", "lrelu", 32, 64, 1024),
+          ("packed_convpool", "lrelu", 64, 128, 512),
+          ("packed_convpool", "none", 32, 64, 1024),
+          ("packed_convpool", "none", 64, 128, 512))),
+    *((f"wgrad_C{c}_Cout{cout}_{h}", "packed_conv_wgrad", None, c, cout, h)
+      for c, cout, h in ((32, 32, 1024), (32, 64, 1024), (64, 64, 512), (64, 128, 512),
+                         (128, 64, 512), (64, 32, 1024))),
 )
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, CUDA cores
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, tensor cores, dense bf16
@@ -319,6 +347,54 @@ def bench_mid(pk, dump: Path | None) -> dict:
     return out
 
 
+def bench_bwd(pk, dump: Path | None) -> dict:
+    """Kernel mode "default" of the backward at BWD_SHAPES, batch 2: ms, the
+    bound (the larger of the bf16 FLOP at the tensor cores' peak and the
+    fp32 bytes in and out at the HBM rate) and its share, sha256 of the
+    output's bytes, and for the weight gradient the fp32 kernel's ms beside
+    it; the outputs saved under ``dump``."""
+    out = {}
+    bsz = 2
+    for i, (label, kernel, epi, c, cout, h) in enumerate(BWD_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(500 + i)
+        x = torch.randn((bsz, c, h, h), device="cuda", generator=gen)
+        extra = {}
+        if kernel == "packed_conv_wgrad":
+            g = 0.01 * torch.randn((bsz, cout, h, h), device="cuda", generator=gen)
+
+            def call(x=x, g=g):
+                return pk.packed_conv_wgrad(x, g, mode="default")
+            extra["fp32_ms"] = cuda_ms(lambda: pk.packed_conv_wgrad(x, g), iters=10)
+            flops = 2 * 9 * c * cout * bsz * h * h
+            nbytes = 4 * (bsz * h * h * (c + cout) + 9 * c * cout)
+        else:
+            w = torch.randn((cout, c, 3, 3), device="cuda", generator=gen) * math.sqrt(2 / (9 * c))
+            b = 0.1 * torch.randn(cout, device="cuda", generator=gen)
+            fn = getattr(pk, kernel)
+            if kernel == "packed_upconv":
+                def call(x=x, w=w, b=b):
+                    return pk.packed_upconv(x, w, b, epilogue="lrelu", mode="default")
+                flops = 2 * 4 * c * cout * bsz * 4 * h * h
+                nbytes = 4 * bsz * h * h * (c + 4 * cout)
+            else:
+                def call(x=x, w=w, b=b, fn=fn, epi=epi):
+                    return fn(x, w, b, epi, mode="default")
+                flops = 2 * 9 * c * cout * bsz * h * h
+                nbytes = 4 * bsz * h * h * (c + cout // (4 if kernel == "packed_convpool" else 1))
+        with torch.no_grad():
+            y = call()
+            torch.cuda.synchronize()
+            digest = hashlib.sha256(y.cpu().numpy().tobytes())
+            if dump is not None:
+                torch.save([y.cpu()], dump / f"bwd_{label}.pt")
+            ms = cuda_ms(call, iters=10)
+        bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+        out[label] = {"ms": ms, "bound_ms": bound_ms, "roofline_share": bound_ms / ms,
+                      "sha256": digest.hexdigest(), **extra}
+        del x, y
+    return out
+
+
 def bench_fused(pk, dump: Path | None) -> dict:
     """The stage-fused kernels at FUSED_SHAPES beside the pair they replace:
     ms of each, the fp32 bound (conv1 at its 4 pre-summed taps an output,
@@ -400,7 +476,7 @@ def stage_fused_turns(engine_mod, train, cfg, gen, rounds: int = 4) -> dict:
                 engine.generate(z)
                 t1 = time.perf_counter()
                 state, m = train.progan_train_step(state, real, zt, 1.0, cfg, stage,
-                                                   packed_fake=True)
+                                                   packed_fake=True, packed_train_mode="highest")
                 float(m["g_loss"])
                 t2 = time.perf_counter()
                 if r:
@@ -508,6 +584,9 @@ def main(argv=None) -> int:
     if "mid" in parts:
         out["mid"] = bench_mid(pk, args.dump)
 
+    if "bwd" in parts:
+        out["bwd"] = bench_bwd(pk, args.dump)
+
     if "fused" in parts:
         from probgan_tpu_torch.engine import image as engine_mod
 
@@ -543,7 +622,8 @@ def main(argv=None) -> int:
         for i in range(2 + args.steps):
             t0 = time.perf_counter()
             state, m = train.progan_train_step(state, real, z, 1.0, cfg, cfg.num_stages - 1,
-                                               packed_d=True, packed_g=True, remat=True)
+                                               packed_d=True, packed_g=True, remat=True,
+                                               packed_train_mode="highest")
             float(m["g_loss"])  # reads the card: the step has finished
             if i >= 2:
                 times.append(time.perf_counter() - t0)

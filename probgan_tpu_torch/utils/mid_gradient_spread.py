@@ -1,14 +1,20 @@
-"""How far the train step's gradients at kernel mode "mid" lie from fp32.
+"""How far the train step's gradients at a bf16 kernel mode lie from fp32.
 
 For the default 1024² config at stage 8 (both packed gates, ``remat``), the
 raw gradients of the two losses ``progan_train_step`` feeds to Adam
-(``progan_grads``) at ``packed_train_mode="mid"`` and at "high" (the fp32
-kernels), on seeded real images and latents: for each seed, batch and alpha,
+(``progan_grads``) at ``packed_train_mode`` ``--mode`` ("mid" by default, or
+"default") and at "high" (the fp32 kernels), on seeded real images and
+latents: for each seed, batch and alpha,
 the worst cosine and the least and largest norm ratio over the leaves of D
-and of G, weights and biases apart, each with its leaf index. Leaves zero in
-both are skipped. Prints the card's name and power limit and one JSON line:
+and of G, weights and biases apart, each with its leaf index (leaves zero in
+both are skipped); and the same step on the plain twins of the kernels
+(``ops/packed.py``'s ``*_plain``) against the kernels, each network's
+gradients as one vector: relative L2 distance, cosine and the worst leaf's
+largest difference over its largest entry. Prints the card's name and power
+limit and one JSON line:
 
-    python3 -m probgan_tpu_torch.utils.mid_gradient_spread [--seeds 78,79,80] [--batches 2,8]
+    python3 -m probgan_tpu_torch.utils.mid_gradient_spread [--mode default] [--seeds 78,79,80]
+        [--batches 2,8]
 
 Needs a CUDA card.
 """
@@ -19,13 +25,18 @@ import argparse
 import json
 import subprocess
 
+import contextlib
+
 import torch
 
 from probgan_tpu_torch.core.tree import tree_leaves
 from probgan_tpu_torch.engine import train
 from probgan_tpu_torch.models.pro_gan import ProGANConfig
+from probgan_tpu_torch.ops import packed as pk
 
 STAGE = 8
+KERNELS = ("packed_upconv", "packed_conv", "packed_conv_rgb", "packed_convpool",
+           "packed_conv_wgrad")
 
 
 def spread(got, want) -> dict:
@@ -49,11 +60,38 @@ def spread(got, want) -> dict:
     return out
 
 
+def vector(got, want) -> dict:
+    """``got`` against ``want`` as one vector over the leaves: relative L2
+    distance, cosine, and the worst leaf's max difference over its largest
+    entry."""
+    g = torch.cat([a.double().flatten() for a in tree_leaves(got)])
+    w = torch.cat([b.double().flatten() for b in tree_leaves(want)])
+    worst = max(((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(tree_leaves(got), tree_leaves(want)) if b.abs().max() > 0)
+    return {"l2": ((g - w).norm() / w.norm()).item(),
+            "cos": ((g @ w) / (g.norm() * w.norm())).item(), "worst_leaf": worst}
+
+
+@contextlib.contextmanager
+def plain_twins():
+    """Inside, each kernel wrapper of ops/packed.py is its plain twin."""
+    saved = {name: getattr(pk, name) for name in KERNELS}
+    try:
+        for name in KERNELS:
+            setattr(pk, name, getattr(pk, f"{name}_plain"))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(pk, name, fn)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seeds", default="78,79,80,81,82", help="seeds of the images and latents")
     ap.add_argument("--batches", default="2", help="batch sizes")
     ap.add_argument("--alphas", default="0.5,1.0", help="fade-in alphas")
+    ap.add_argument("--mode", default="mid", choices=["mid", "default"],
+                    help="the packed_train_mode held against \"high\"")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("mid_gradient_spread: no CUDA card")
@@ -73,15 +111,20 @@ def main(argv=None) -> int:
                                           device="cuda", generator=gen))
             z = torch.randn((batch, cfg.latent_dim), device="cuda", generator=gen)
             for alpha in map(float, args.alphas.split(",")):
-                mid = train.progan_grads(state, real, z, alpha, cfg, STAGE,
-                                         packed_train_mode="mid", **kw)
+                got = train.progan_grads(state, real, z, alpha, cfg, STAGE,
+                                         packed_train_mode=args.mode, **kw)
                 high = train.progan_grads(state, real, z, alpha, cfg, STAGE,
                                           packed_train_mode="high", **kw)
+                with plain_twins():
+                    twins = train.progan_grads(state, real, z, alpha, cfg, STAGE,
+                                               packed_train_mode=args.mode, **kw)
                 row = {"seed": seed, "batch": batch, "alpha": alpha,
-                       "d": spread(mid[0], high[0]), "g": spread(mid[1], high[1])}
+                       "d": spread(got[0], high[0]), "g": spread(got[1], high[1]),
+                       "vs_twins": {"d": vector(got[0], twins[0]),
+                                    "g": vector(got[1], twins[1])}}
                 print(json.dumps(row), flush=True)
                 rows.append(row)
-                del mid, high
+                del got, high, twins
                 torch.cuda.empty_cache()
     worst = {k: min(min(r[n][k][0] for n in ("d", "g") if k in r[n]) for r in rows)
              for k in ("weight", "bias")}
@@ -89,7 +132,11 @@ def main(argv=None) -> int:
                   max(max(r[n][k][4] for n in ("d", "g") if k in r[n]) for r in rows))
               for k in ("weight", "bias")}
     print(card)
-    print(json.dumps({"card": card, "stage": STAGE, "cases": len(rows), "worst_cos": worst,
+    pairs = [r["vs_twins"][n] for r in rows for n in ("d", "g")]
+    vs_twins = {"l2": max(p["l2"] for p in pairs), "cos": min(p["cos"] for p in pairs),
+                "worst_leaf": max(p["worst_leaf"] for p in pairs)}
+    print(json.dumps({"card": card, "mode": args.mode, "stage": STAGE, "cases": len(rows),
+                      "vs_twins": vs_twins, "worst_cos": worst,
                       "ratio_range": ratios}))
     return 0
 

@@ -3,19 +3,22 @@
 Profiles three ``progan_train_step`` calls at 1024², stage 8, batch 2
 (default config, random weights from a seed, ``packed_d = packed_g = True``,
 ``remat=True``, ``packed_train_mode`` from ``--packed_mode``, "highest" by
-default) with ``torch.profiler``, or with ``--kg`` three
+default, ``dtype`` from ``--dtype``, fp32 by default; ``--packed_mode default
+--dtype bf16`` is the image trainer's ``--fast``) with ``torch.profiler``,
+or with ``--kg`` three
 ``kg_train_step`` calls at 1,000,000 entities (batch 1,024, corrupted
 negatives, 8,192 sampled-softmax negatives), and prints the device time by
 part of the step, the device's idle share over the host's wall time, the
 host's own largest entries, the peak device memory of a step, and one JSON
 line:
 
-    python -m probgan_tpu_torch.utils.profile_train [--kg] [--packed_mode mid] [--trace PATH.json]
+    python -m probgan_tpu_torch.utils.profile_train [--kg] [--packed_mode default] [--dtype bf16]
+        [--trace PATH.json]
 
 Parts of the image step: the conv kernels by name (``packed_conv_wgrad``
 with its reduction pass, ``packed_conv`` and its 3xTF32 "none" kernel
 ``packed_conv[none]``, ``packed_convpool``, ``packed_upconv``, and at
-``--packed_mode mid`` their bf16 kernels ``*_bf16``), the cuDNN
+``--packed_mode default`` or ``mid`` their bf16 kernels ``*_bf16``), the cuDNN
 convolutions and dense products of the unpacked stages (forward, backward
 and the recompute of ``remat``), copies, and the
 elementwise rest (LeakyReLU and PixelNorm and their backward, the masks and
@@ -40,7 +43,7 @@ from probgan_tpu_torch.models.pro_gan import ProGANConfig
 # packed_conv's "none" epilogue is a kernel of its own (3xTF32)
 _KERNELS = ("packed_conv_wgrad", "packed_convpool", "packed_conv_rgb", "packed_conv_none",
             "packed_conv", "packed_upconv", "packed_convpool_bf16", "packed_conv_bf16",
-            "packed_upconv_bf16")
+            "packed_upconv_bf16", "packed_conv_wgrad_bf16")
 CALLS = 3
 BATCH, STAGE = 2, 8
 KG = dict(num_entities=1_000_000, num_relations=1_000, embed_dim=128, noise_dim=64,
@@ -65,7 +68,7 @@ def _part(name: str) -> str:
     return "elementwise_and_other"
 
 
-def _image_step(mode: str):
+def _image_step(mode: str, dtype: torch.dtype):
     cfg = ProGANConfig()
     state = train.progan_init_state(0, cfg, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -74,12 +77,13 @@ def _image_step(mode: str):
     z = torch.randn((BATCH, cfg.latent_dim), device="cuda", generator=gen)
 
     def step(st):
-        st, m = train.progan_train_step(st, real, z, 1.0, cfg, STAGE, packed_d=True,
+        st, m = train.progan_train_step(st, real, z, 1.0, cfg, STAGE, dtype=dtype, packed_d=True,
                                         packed_g=True, remat=True, packed_train_mode=mode)
         float(m["g_loss"])  # reads the card: the step has finished
         return st
 
-    return state, step, f"progan_train_step, 1024², stage {STAGE}, batch {BATCH}, {mode}"
+    return state, step, (f"progan_train_step, 1024², stage {STAGE}, batch {BATCH}, {mode}, "
+                         f"{str(dtype).removeprefix('torch.')}")
 
 
 def _kg_step():
@@ -132,12 +136,16 @@ def parts_of(by_name: dict[str, float]) -> dict[str, float]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kg", action="store_true", help="profile kg_train_step instead")
-    ap.add_argument("--packed_mode", default="highest", choices=["mid", "high", "highest"],
+    ap.add_argument("--packed_mode", default="highest",
+                    choices=["default", "mid", "high", "highest"],
                     help="packed_train_mode of the image step")
+    ap.add_argument("--dtype", default="fp32", choices=["fp32", "bf16"],
+                    help="dtype of the image step")
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = ap.parse_args(argv)
 
-    state, step, label = _kg_step() if args.kg else _image_step(args.packed_mode)
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    state, step, label = _kg_step() if args.kg else _image_step(args.packed_mode, dtype)
     for _ in range(2):  # warm-up: kernel build, cuDNN plans
         state = step(state)
     torch.cuda.synchronize()

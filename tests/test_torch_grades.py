@@ -153,10 +153,10 @@ def test_conv_rgb_default_twin_matches_pallas_emulate_bf16(emit_uint8, alpha):
 
 
 def test_kernel_modes_the_port_does_not_have_raise():
-    """The TPU kernels' test aids are no modes of the port (ValueError);
-    "default" is the forward's epilogue only (the bf16 backward is not
-    ported). "mid" (the 2-term split) runs at every epilogue, between
-    "default" and fp32 in accuracy."""
+    """The TPU kernels' test aids are no modes of the port (ValueError).
+    "default" (one bf16 pass) and "mid" (the 2-term split) run at every
+    epilogue, "mid" between "default" and fp32 in accuracy; "default" is the
+    fp32 conv of the operands rounded to bf16."""
     x, w, b = torch.zeros(1, 8, 16, 32), torch.zeros(8, 8, 3, 3), torch.zeros(8)
     xr, wr = torch.from_numpy(_rand((1, 8, 16, 32), 60)), torch.from_numpy(_rand((8, 8, 3, 3), 61))
     fp32 = tpk.packed_conv(xr, wr, b, "none")
@@ -170,8 +170,8 @@ def test_kernel_modes_the_port_does_not_have_raise():
     for aid in ("exact6", "emulate_bf16"):
         with pytest.raises(ValueError, match="test aid"):
             tpk.packed_upconv(x, w, b, mode=aid)
-    with pytest.raises(NotImplementedError, match="bf16 backward"):
-        tpk.packed_conv(x, w, b, "none", mode="default")
+    assert torch.equal(tpk.packed_conv(xr, wr, b, "none", mode="default"),
+                       tpk.packed_conv(xb, wb, b, "none"))
     assert torch.equal(tpk.packed_conv(x, w, b, mode="high"), tpk.packed_conv(x, w, b,
                                                                                mode="highest"))
 

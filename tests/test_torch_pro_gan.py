@@ -196,11 +196,11 @@ def test_packed_gate_matches_jax():
 
 @pytest.mark.parametrize("grade", [None, "default", "fast"])
 def test_bf16_grades_raise(grade, monkeypatch):
-    """The bf16 grades run where the port has them, the unpacked path and the
+    """The bf16 grades run where the port has them, the unpacked path, the
     packed two-kernel path (its stages in kernel mode "default", here the
-    twins), and raise, naming the ROADMAP item, where it does not: the
-    stage-fused kernels (fp32 only) and the differentiable packed path's bf16
-    mode."""
+    twins) and the differentiable packed path at its bf16 mode "default",
+    and raise, naming the ROADMAP item, where it does not: the stage-fused
+    kernels (fp32 only)."""
     cfg = tpg.ProGANConfig(**PACKED)
     assert tpg.packed_start_stage(cfg, 6) == 6
     params = tpg.init_generator(cfg, 0)
@@ -211,8 +211,9 @@ def test_bf16_grades_raise(grade, monkeypatch):
     monkeypatch.setenv("PROBGAN_STAGE_FUSED", "1")
     with pytest.raises(NotImplementedError, match="B10/B11"):
         tpg.generator_apply(params, z, cfg, 6, precision=grade, packed=True)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tpg.generator_rgb(params, z, cfg, 6, precision=grade, packed_mode="default")
+    monkeypatch.delenv("PROBGAN_STAGE_FUSED")
+    rgb = tpg.generator_rgb(params, z, cfg, 6, precision=grade, packed_mode="default")
+    assert tuple(rgb.shape) == (1, 256, 256, 3) and torch.isfinite(rgb).all()
 
 
 def test_fp32_grades_turn_tf32_off(monkeypatch):

@@ -43,9 +43,6 @@ KEPT = {
     ("generate_fn", "packed"): (None, False),
     ("score_fn", "packed"): (None, False),
     ("latent_walk_fn", "packed"): (None, False),
-    # the packed training paths have the fp32 kernel grades only
-    ("progan_train_step", "packed_train_mode"): ("highest", "default"),
-    ("progan_train_step_accum", "packed_train_mode"): ("highest", "default"),
 }
 
 

@@ -106,18 +106,20 @@ def test_progan_train_step_matches_jax(packed):
 def test_progan_packed_paths_agree_and_packed_fake_runs_no_backward():
     """packed_d + packed_g, packed_fake alone and the unpacked step compute
     the same losses and gradients (rtol 1e-4; 1e-3 of a leaf's max), and
-    ``progan_grads`` returns what the step feeds to Adam."""
+    ``progan_grads`` returns what the step feeds to Adam. All at the fp32
+    grade "highest"."""
     stage, cfg = 6, tpg.ProGANConfig(**PACKED)
     _, state = _both_states(PACKED, seed=1)
     real, z = torch.from_numpy(_rand((2, 256, 256, 3), 22)), torch.from_numpy(_rand((2, 8), 23))
-    d_ref, g_ref, m_ref = ttrain.progan_grads(state, real, z, 0.7, cfg, stage)
+    fp32 = dict(packed_train_mode="highest")
+    d_ref, g_ref, m_ref = ttrain.progan_grads(state, real, z, 0.7, cfg, stage, **fp32)
     for kw in (dict(packed_d=True, packed_g=True), dict(packed_fake=True)):
-        d_got, g_got, m = ttrain.progan_grads(state, real, z, 0.7, cfg, stage, **kw)
+        d_got, g_got, m = ttrain.progan_grads(state, real, z, 0.7, cfg, stage, **kw, **fp32)
         _assert_metrics(m, m_ref)
         _assert_grads(d_got, d_ref)
         _assert_grads(g_got, g_ref)
     after, m = ttrain.progan_train_step(state, real, z, 0.7, cfg, stage, lr=LR,
-                                        packed_d=True, packed_g=True)
+                                        packed_d=True, packed_g=True, **fp32)
     np.testing.assert_allclose(float(m["d_loss"]), float(m_ref["d_loss"]), rtol=1e-4)
     _assert_grads(after.d_opt[0].mu, d_ref)  # b1 = 0: mu is the gradient
 
@@ -196,33 +198,40 @@ def test_init_state_defaults_to_the_card():
     assert ttrain.kg_optimizer().b1 == 0.9
 
 
+# the packed training modes and bf16 are ported: those cases run (their ids
+# are kept); the reference against which each is held bit for bit
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(packed_train_mode="default", packed_g=True), "bf16"),
-    # kernel mode "mid" is ported: the step runs (the ids of the cases are kept)
-    pytest.param(dict(packed_train_mode="mid", packed_d=True), None, id="kwargs1-bf16"),
-    (dict(dtype=torch.bfloat16, packed_d=True), "bf16"),
+    pytest.param(dict(packed_train_mode="default", packed_g=True), dict(packed_train_mode="high"),
+                 id="kwargs0-bf16"),
+    pytest.param(dict(packed_train_mode="mid", packed_d=True), dict(packed_train_mode="high"),
+                 id="kwargs1-bf16"),
+    pytest.param(dict(dtype=torch.bfloat16, packed_d=True), dict(packed_d=False),
+                 id="kwargs2-bf16"),
     (dict(axis_names=("data",)), "axis_names"),
 ])
 def test_unported_train_options_raise(kwargs, match):
-    """What the step does not have yet raises before any work: the packed
-    training paths at the one-pass bf16 grade (kernel mode "default" or dtype
-    bf16; the unpacked step runs both, tests/test_torch_grades.py) and a
-    data-parallel step. The 2-term split "mid" runs: at this size no stage is
-    packed, so it is the step at "high" (its grade, fp32), bit for bit."""
+    """What the step does not have yet raises before any work: a
+    data-parallel step. The packed training paths run at every kernel mode
+    and at dtype bf16: at this size no stage is packed, so a step at "mid"
+    or "default" is the step at "high" (on the CPU, where TF32 is no grade),
+    and bf16 with the packed gate the unpacked bf16 step, bit for bit; so
+    are the differentiable G and D at ``packed_mode="default"`` the unpacked
+    ones."""
     cfg = tpg.ProGANConfig(**SMALL)
     state = ttrain.progan_init_state(0, cfg, device="cpu")
     real, z = torch.zeros(2, 16, 16, 3), torch.zeros(2, 8)
-    if match is None:
+    if isinstance(match, dict):
         _, got = ttrain.progan_train_step(state, real, z, 1.0, cfg, 2, **kwargs)
-        _, want = ttrain.progan_train_step(state, real, z, 1.0, cfg, 2,
-                                           **{**kwargs, "packed_train_mode": "high"})
+        _, want = ttrain.progan_train_step(state, real, z, 1.0, cfg, 2, **{**kwargs, **match})
         assert all(torch.isfinite(v) and torch.equal(v, want[k]) for k, v in got.items())
+        img = tpg.generator_rgb(state.g_params, z, cfg, 2, packed_mode="default")
+        assert torch.equal(img, tpg.generator_rgb(state.g_params, z, cfg, 2))
+        assert torch.equal(tpg.discriminator_apply(state.d_params, img, cfg, 2, packed=True,
+                                                   packed_mode="default"),
+                           tpg.discriminator_apply(state.d_params, img, cfg, 2))
         return
     with pytest.raises(NotImplementedError, match=match):
         ttrain.progan_train_step(state, real, z, 1.0, cfg, 2, **kwargs)
-    for fn in (tpg.generator_rgb, tpg.discriminator_apply):
-        with pytest.raises(NotImplementedError, match="bf16"):
-            fn(state.g_params, z, cfg, 2, packed_mode="default")
 
 
 # ---------------------------------------------------------------------------
