@@ -240,7 +240,26 @@ Phases (any failure exits non-zero and prints no result line):
     ``--fast`` math), "highest" after them bit-equal to the first; the image
     trainer CLI with ``--fast`` at 1024² (phase 11's images and batch, one
     epoch a stage): seconds per stage, the checkpoint loaded by the port;
-15. the last lines: the card's name and power limit, one JSON line with each
+15. kernel modes "default" and "mid" of the stage-fused kernels
+    (``csrc/fused_bf16.cuh``): B10 at stage 7 and B11 at stage 8 (uint8 at
+    alpha 1, fp32 at alpha 0.3), at stage 7 (uint8) and at stage 8 uint8
+    batch 8, each mode: 0 values differing from the bf16 pair at the mode,
+    two runs bit-equal, within 1e-5 of the twin's largest entry on all but
+    1% of values and 2e-2 on the rest (a conv1 value the twin sums in another
+    order may round to the other bf16 neighbour before conv2; uint8 on 0.5%
+    of bytes, >= 60 dB), conv1 pixels a conv2 output counted by the kernel, timed
+    beside the pair, cuDNN on bf16 tensors with the epilogues and the bf16
+    bound; under ``PROBGAN_STAGE_FUSED=1`` ``generate`` at 1024² b8 at
+    "fast", None, G's "mid" and "default+mid" (one launch a call of each
+    fused kernel at the grade's modes, none of the pair, images equal to the
+    two-kernel engine's, >= 50 dB against "high" at "fast", img/s and p50 of
+    both), ``latent_walk`` at "fast" (frames equal), ``--task
+    generate_images --precision fast`` (the checksum without the variable)
+    and ``progan_train_step`` at stage 8, batch 2, ``packed_fake``,
+    ``packed_d``, ``packed_train_mode="default"`` (the fake render on B10/B11
+    "default", no pair kernel; losses and the state after two steps equal,
+    bit for bit, to the steps without the variable);
+16. the last lines: the card's name and power limit, one JSON line with each
     kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -295,7 +314,9 @@ STEP_LAUNCHES = {"packed_upconv": 6, "packed_conv": 32, "packed_conv_rgb": 0,
                  "packed_upconv_conv_rgb": 0, "packed_upconv_bf16": 0, "packed_conv_bf16": 0,
                  "packed_conv_rgb_bf16": 0, "packed_upconv_mid": 0, "packed_conv_mid": 0,
                  "packed_conv_rgb_mid": 0, "packed_convpool_mid": 0, "packed_convpool_bf16": 0,
-                 "packed_conv_wgrad_bf16": 0}
+                 "packed_conv_wgrad_bf16": 0, "packed_upconv_conv_bf16": 0,
+                 "packed_upconv_conv_mid": 0, "packed_upconv_conv_rgb_bf16": 0,
+                 "packed_upconv_conv_rgb_mid": 0}
 STEP_EPILOGUE_LAUNCHES = {
     "packed_upconv[lrelu_norm]": 4, "packed_upconv[lrelu]": 2,
     "packed_conv[lrelu_norm]": 4, "packed_conv[lrelu]": 14, "packed_conv[none]": 14,
@@ -3620,6 +3641,355 @@ def phase_fast_cli(pk, cli_train, image_checkpoint_mod, tree_mod) -> dict:
             "losses": [(m["d_loss"], m["g_loss"]) for m in metrics]}
 
 
+# Phase 15: kernel modes "default" and "mid" of the stage-fused kernels B10
+# and B11 (csrc/fused_bf16.cuh). Each must equal the bf16 pair at its mode
+# bit for bit. Its twin composes the pair's twins, whose conv1 sums in
+# another order; a conv1 value within that noise of a bf16 rounding
+# boundary then rounds the other way before conv2 (a flip that phases 12-13
+# never meet: there the second kernel reads the first one's bits), so fp32
+# outputs are held to GRADE_REL of the largest entry on all but
+# GRADE_FLIP_SHARE of values and GRADE_FLIP_REL on the rest. A flip moves
+# conv2's sums, PixelNorm's and the rounded features that toRGB reads, so a
+# uint8 pixel can move by more than one level where it lands (2 levels on
+# 0.033% of bytes, 83 dB, at "default" stage 8 on an H100): uint8 outputs
+# are held to UINT8_MAX_FLIP_SHARE of bytes apart and FUSED_BF16_PSNR_DB.
+# The bound counts the products of every bf16 pass at the bf16 peak.
+FUSED_BF16_PSNR_DB = 60.0
+FUSED_BF16_MODES = ("default", "mid")
+FUSED_BF16_CALLS = 3  # timed generate calls a grade and variable
+FUSED_BF16_WALK_FRAMES = 16
+# one generate call's launches under the variable, by G's packed mode
+FUSED_BF16_PER_CALL = {
+    "default": {"packed_upconv_conv_bf16": 1, "packed_upconv_conv_rgb_bf16": 1},
+    "mid": {"packed_upconv_conv_mid": 1, "packed_upconv_conv_rgb_mid": 1},
+    "default+mid": {"packed_upconv_conv_bf16": 1, "packed_upconv_conv_rgb_mid": 1},
+}
+FUSED_TRAIN_STEPS = 2
+
+
+def phase_fused_bf16_kernels(pk, pro_gan) -> tuple[list[dict], dict]:
+    """B10 and B11 at "default" and "mid" at the 1024² generator's shapes
+    against their twins, the bf16 pair on the card (bit for bit) and
+    themselves (two runs), timed beside the pair, cuDNN in bf16 and the
+    bound; the conv1 pixels a conv2 output that the kernel stores, counted
+    (``_tally``)."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    dev = "cuda"
+
+    def feats(*shape):
+        return pro_gan.pixel_norm(torch.randn(shape, device=dev, generator=gen))
+
+    def conv_w(cout, cin, k=3, gain=math.sqrt(2.0)):
+        w = torch.randn((cout, cin, k, k), device=dev, generator=gen)
+        return w * (gain / math.sqrt(cin * k * k))
+
+    def bias(n):
+        return 0.1 * torch.randn(n, device=dev, generator=gen)
+
+    bf = torch.bfloat16
+
+    def lrelu_norm(t):
+        return pro_gan.pixel_norm(pro_gan.lrelu(t.float()))
+
+    def stage_library(x, w1, b1, w2, b2):  # cuDNN on bf16 tensors, the upsampled input
+        up = F.interpolate(x.to(bf), scale_factor=2.0, mode="nearest")
+        f1 = lrelu_norm(F.conv2d(up, w1.to(bf), b1.to(bf), padding=1))
+        return lrelu_norm(F.conv2d(f1.to(bf), w2.to(bf), b2.to(bf), padding=1))
+
+    def counted(fn, n_out):
+        """conv1 pixels the kernel stores a conv2 output, from its tally."""
+        tally = torch.zeros(1, dtype=torch.int64, device=dev)
+        fn(tally)
+        return tally.item() / n_out
+
+    B = BATCH_KERNELS
+    rows, conv1_counted = [], {}
+    for mode in FUSED_BF16_MODES:
+        passes = pk.BF16_TERMS[mode]
+        c, cout, h = 128, 64, 256
+        x, w1, b1, w2, b2 = feats(B, c, h, h), conv_w(cout, c), bias(cout), conv_w(cout, cout), \
+            bias(cout)
+        args = (x, w1, b1, w2, b2)
+        label = f"packed_upconv_conv[{mode},stage7]"
+        got = pk.packed_upconv_conv(*args, mode=mode)
+        check_two_runs(label, got, pk.packed_upconv_conv(*args, mode=mode))
+        pair = pk.packed_conv(pk.packed_upconv(x, w1, b1, mode=mode), w2, b2, mode=mode)
+        n_diff = differing_bits(got, pair)
+        err = check_rel(label, got, pk.packed_upconv_conv_plain(*args, mode=mode), flips=True)
+        print(f"  {label}: {err:.3g} of the largest entry off its twin, values differing from "
+              f"the bf16 pair {n_diff}")
+        if n_diff:
+            raise AssertionError(f"{label}: not bit-equal to the bf16 pair")
+        del got, pair
+        pixels = B * 4 * h * h
+        conv1_counted[label] = counted(
+            lambda t: pk.packed_upconv_conv(*args, mode=mode, _tally=t), pixels)
+        rows.append((f"packed_upconv_conv[{mode}]", "packed_upconv_conv_bf16",
+                     "probgan_tpu/ops/pallas_packed.py:973", [{
+                         "call": "stage7", "shape_in": [B, c, h, h], "max_abs_err": err,
+                         "differing_vs_pair": n_diff, "bit_equal_runs": True,
+                         "conv1_per_output": conv1_counted[label],
+                         "ms": cuda_ms(lambda: pk.packed_upconv_conv(*args, mode=mode)),
+                         "pair_ms": cuda_ms(lambda: pk.packed_conv(
+                             pk.packed_upconv(x, w1, b1, mode=mode), w2, b2, mode=mode)),
+                         "plain_ms": cuda_ms(lambda: pk.packed_upconv_conv_plain(*args,
+                                                                                 mode=mode)),
+                         "library_ms": cuda_ms(lambda: stage_library(*args)),
+                         # conv1 at 4 pre-summed taps an output, conv2 at 9, each pass
+                         "flops": passes * (2 * 4 * c * cout * pixels
+                                            + 2 * 9 * cout * cout * pixels),
+                         "bytes": 4 * (B * c * h * h + cout * pixels + 2 * cout)
+                         + 2 * (16 * c * cout + 9 * cout * cout),
+                         "peak_flops": PEAK_BF16_FLOPS}]))
+        del args, x
+
+        calls = []
+        for call, bsz, c, cout, h, alpha, u8 in (("stage8", B, 64, 32, 512, 1.0, True),
+                                                 ("stage8_fp32", B, 64, 32, 512, 0.3, False),
+                                                 ("stage7", B, 128, 64, 256, 1.0, True),
+                                                 ("stage8_b8", 8, 64, 32, 512, 1.0, True)):
+            x, w1, b1, w2, b2 = (feats(bsz, c, h, h), conv_w(cout, c), bias(cout),
+                                 conv_w(cout, cout), bias(cout))
+            rgb_w, rgb_b = conv_w(3, cout, 1, 1.0).reshape(3, cout), bias(3)
+            prev_w, prev_b = conv_w(3, c, 1, 1.0).reshape(3, c), bias(3)
+            args = (x, w1, b1, w2, b2, rgb_w, rgb_b, prev_w, prev_b, alpha)
+            label = f"packed_upconv_conv_rgb[{mode},{call}]"
+
+            def fused(tally=None, args=args, u8=u8):
+                return pk.packed_upconv_conv_rgb(*args, emit_uint8=u8, mode=mode, _tally=tally)
+
+            def two_kernels(x=x, w1=w1, b1=b1, w2=w2, b2=b2, rgb_w=rgb_w, rgb_b=rgb_b,
+                            prev_w=prev_w, prev_b=prev_b, alpha=alpha, u8=u8):
+                f, rp = pk.packed_upconv(x, w1, b1, rgb_w=prev_w, rgb_b=prev_b, mode=mode)
+                return pk.packed_conv_rgb(f, w2, b2, rgb_w, rgb_b, rp, alpha, emit_uint8=u8,
+                                          mode=mode)
+
+            def library(x=x, w1=w1, b1=b1, w2=w2, b2=b2, rgb_w=rgb_w, rgb_b=rgb_b,
+                        prev_w=prev_w, prev_b=prev_b, alpha=alpha, u8=u8):
+                feat = stage_library(x, w1, b1, w2, b2)
+                rgb = F.conv2d(feat.to(bf), rgb_w.to(bf)[:, :, None, None], rgb_b.to(bf)).float()
+                prev = F.interpolate(F.conv2d(x.to(bf), prev_w.to(bf)[:, :, None, None],
+                                              prev_b.to(bf)).float(),
+                                     scale_factor=2.0, mode="nearest")
+                out = (prev + alpha * (rgb - prev)).permute(0, 2, 3, 1)
+                return pro_gan.to_uint8(out) if u8 else out.contiguous()
+
+            got, pair = fused(), two_kernels()
+            again = fused()
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{label}: two runs on one input differ")
+            n_diff = int((got != pair).sum().item()) if u8 else differing_bits(got, pair)
+            want = pk.packed_upconv_conv_rgb_plain(*args, emit_uint8=u8, mode=mode)
+            if u8:
+                if got.dtype != torch.uint8 or tuple(got.shape) != (bsz, 2 * h, 2 * h, 3):
+                    raise AssertionError(f"{label} returned {got.dtype} {tuple(got.shape)}")
+                worst, share, psnr = uint8_agreement(got.cpu().numpy(), want.cpu().numpy())
+                print(f"  {label} uint8 vs twin: max |diff| {worst}, differing bytes "
+                      f"{share:.6%}, PSNR {psnr:.2f} dB")
+                if share > UINT8_MAX_FLIP_SHARE or psnr < FUSED_BF16_PSNR_DB:
+                    raise AssertionError(f"{label}: uint8 vs twin beyond {UINT8_MAX_FLIP_SHARE:.2%}"
+                                         f" of bytes or below {FUSED_BF16_PSNR_DB} dB")
+                err = float(worst)
+            else:
+                err = check_rel(label, got, want, flips=True)
+            print(f"  {label}: max err vs twin {err:.3g}, values differing from the bf16 "
+                  f"pair {n_diff}")
+            if n_diff:
+                raise AssertionError(f"{label}: not bit-equal to the bf16 pair")
+            del got, pair, again, want
+            pixels = bsz * 4 * h * h
+            conv1_counted[label] = counted(fused, pixels)
+            calls.append({
+                "call": call, "shape_in": [bsz, c, h, h], "emit_uint8": u8, "alpha": alpha,
+                "max_abs_err": err, "differing_vs_pair": n_diff, "bit_equal_runs": True,
+                "conv1_per_output": conv1_counted[label],
+                "ms": cuda_ms(fused), "pair_ms": cuda_ms(two_kernels),
+                "plain_ms": cuda_ms(lambda args=args, u8=u8: pk.packed_upconv_conv_rgb_plain(
+                    *args, emit_uint8=u8, mode=mode)),
+                "library_ms": cuda_ms(library),
+                # conv1, conv2 and both toRGBs, each pass
+                "flops": passes * (2 * 4 * c * cout * pixels + 2 * 9 * cout * cout * pixels
+                                   + 2 * cout * 3 * pixels + 2 * c * 3 * bsz * h * h),
+                "bytes": 4 * (bsz * c * h * h + 2 * cout + 3 * cout + 3 * c + 6)
+                + 2 * (16 * c * cout + 9 * cout * cout) + pixels * 3 * (1 if u8 else 4),
+                "peak_flops": PEAK_BF16_FLOPS,
+            })
+            del args, x, fused, two_kernels, library
+        rows.append((f"packed_upconv_conv_rgb[{mode}]", "packed_upconv_conv_rgb_bf16",
+                     "probgan_tpu/ops/pallas_packed.py:1058", calls))
+    entries = assemble_conv_rows(rows, B)
+    for e in entries:
+        for k in e["calls"]:
+            print(f"  {e['name']}[{k['call']}]: {k['ms']:.3f} ms against the bf16 pair's "
+                  f"{k['pair_ms']:.3f} ms ({k['ms'] / k['pair_ms']:.2f}x), "
+                  f"{k['roofline_share']:.0%} of the bound")
+    print("  conv1 pixels a conv2 output, counted by the kernels: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in conv1_counted.items()))
+    return entries
+
+
+def phase_fused_bf16_path(pk, pro_gan, engine_mod, cli_infer, image_checkpoint_mod,
+                          make_image_checkpoint, train_mod, tree_mod) -> tuple[dict, dict]:
+    """Under PROBGAN_STAGE_FUSED=1 at the bf16 grades: ``generate`` (batch 8,
+    1024²) at "fast", None, G's "mid" and "default+mid" beside the two-kernel
+    engine, ``latent_walk`` at "fast", the CLI's ``generate_images --precision
+    fast`` and the train step's fake render at packed_train_mode "default"."""
+    cfg = pro_gan.ProGANConfig()
+    stage = cfg.num_stages - 1
+    first = engine_mod.ImageGANEngine(cfg, device="cuda", precision="high", seed=0)
+    latents = [first.sample_latents(BATCH_MAIN) for _ in range(FUSED_BF16_CALLS)]
+    high = first.generate(latents[0])
+    pair_kernels = [f"{k}{suffix}" for k in UNFUSED_KERNELS for suffix in ("", "_bf16", "_mid")]
+    path, counts = {"batch": BATCH_MAIN, "calls": FUSED_BF16_CALLS}, {}
+    saved = pro_gan._PACKED_MODES["fast"]
+    try:
+        for label, grade, mode in (("fast", "fast", "default"), ("None", None, "default"),
+                                   ("fast mid", "fast", "mid"),
+                                   ("fast default+mid", "fast", "default+mid")):
+            pro_gan._PACKED_MODES["fast"] = mode if grade == "fast" else saved
+            engine = engine_mod.ImageGANEngine(cfg, g_params=first.g_params,
+                                               d_params=first.d_params, device="cuda",
+                                               precision=grade)
+            runs = {}
+            for flag in ("1", "0"):
+                with env(PROBGAN_STAGE_FUSED=flag):
+                    engine.generate(latents[0])  # warm-up
+                    torch.cuda.synchronize()
+                    pk.reset_launches()
+                    times, images = [], []
+                    for z in latents:
+                        t0 = time.perf_counter()
+                        images.append(engine.generate(z))
+                        times.append(time.perf_counter() - t0)
+                    runs[flag] = (times, images, dict(pk.launches))
+            want = {k: 0 for k in pk.launches}
+            want.update({k: n * FUSED_BF16_CALLS for k, n in FUSED_BF16_PER_CALL[mode].items()})
+            if runs["1"][2] != want:
+                raise AssertionError(f"generate at {label} under PROBGAN_STAGE_FUSED=1 launched "
+                                     f"{runs['1'][2]}, expected {want}")
+            if not all(np.array_equal(a, b) for a, b in zip(runs["1"][1], runs["0"][1])):
+                raise AssertionError(f"generate at {label}: the stage-fused images are not the "
+                                     "two-kernel ones")
+            _, share, psnr = uint8_agreement(runs["1"][1][0], high)
+            if grade == "fast" and psnr < PSNR_FLOOR_DB:
+                raise AssertionError(f"generate at {label}: PSNR {psnr:.2f} dB < "
+                                     f"{PSNR_FLOOR_DB} dB against \"high\"")
+            if label in ("fast", "fast mid"):
+                counts.update({k.replace("_bf16", "[default]").replace("_mid", "[mid]"): v
+                               for k, v in runs["1"][2].items() if v})
+            entry = {"psnr_vs_high_db": finite_or_none(psnr), "differing_bytes_vs_high": share,
+                     "launches": {k: v for k, v in runs["1"][2].items() if v},
+                     "images_equal_two_kernel": True}
+            for flag, name in (("1", "stage_fused"), ("0", "two_kernel")):
+                times = runs[flag][0]
+                per_img = sorted(t / BATCH_MAIN * 1e3 for t in times)
+                entry[name] = {"img_per_s": BATCH_MAIN * len(times) / sum(times),
+                               "p50_ms_per_img": float(np.median(per_img)), "batch_s": times}
+            path[f"generate {label}"] = entry
+            print(f"  generate at {label}: stage-fused {entry['stage_fused']['img_per_s']:.3f} "
+                  f"img/s (p50 {entry['stage_fused']['p50_ms_per_img']:.3f} ms/img), two-kernel "
+                  f"{entry['two_kernel']['img_per_s']:.3f} img/s (p50 "
+                  f"{entry['two_kernel']['p50_ms_per_img']:.3f}); images equal; PSNR "
+                  f"{psnr:.2f} dB vs \"high\"; launches {entry['launches']}")
+            del engine, runs
+    finally:
+        pro_gan._PACKED_MODES["fast"] = saved
+
+    # -- latent_walk at "fast": frames equal with and without the variable
+    engine = engine_mod.ImageGANEngine(cfg, g_params=first.g_params, d_params=first.d_params,
+                                       device="cuda", precision="fast")
+    z0, z1 = latents[0][0], latents[0][1]
+    walks = {}
+    for flag in ("1", "0"):
+        with env(PROBGAN_STAGE_FUSED=flag):
+            pk.reset_launches()
+            t0 = time.perf_counter()
+            walks[flag] = engine.latent_walk(z0, z1, frames=FUSED_BF16_WALK_FRAMES)
+            walks[flag + "s"] = time.perf_counter() - t0
+            walks[flag + "launches"] = dict(pk.launches)
+    chunks = -(-FUSED_BF16_WALK_FRAMES // engine_mod.WALK_CHUNK)
+    if (walks["1launches"]["packed_upconv_conv_rgb_bf16"] != chunks
+            or any(walks["1launches"][k] for k in pair_kernels)
+            or not np.array_equal(walks["1"], walks["0"])):
+        raise AssertionError(f"latent_walk at \"fast\" under the variable: launches "
+                             f"{walks['1launches']}, frames equal to the two-kernel walk: "
+                             f"{np.array_equal(walks['1'], walks['0'])}")
+    path["latent_walk fast"] = {"frames": FUSED_BF16_WALK_FRAMES, "frames_equal": True,
+                                "frames_per_s_stage_fused": FUSED_BF16_WALK_FRAMES / walks["1s"],
+                                "frames_per_s_two_kernel": FUSED_BF16_WALK_FRAMES / walks["0s"]}
+    print(f"  latent_walk at \"fast\", {FUSED_BF16_WALK_FRAMES} frames: equal with and "
+          f"without the variable ({FUSED_BF16_WALK_FRAMES / walks['1s']:.2f} / "
+          f"{FUSED_BF16_WALK_FRAMES / walks['0s']:.2f} frames/s)")
+    del engine, walks, first
+
+    # -- the CLI's generate_images at --precision fast, from a seeded checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "image_checkpoint.msgpack")
+        image_checkpoint_mod.save_image_checkpoint(ckpt, cfg,
+                                                   **make_image_checkpoint(cfg, seed=1, ema=True))
+        served = {}
+        for flag in ("1", "0"):
+            with env(PROBGAN_STAGE_FUSED=flag):
+                pk.reset_launches()
+                served[flag] = checksum_of_generate_images(cli_infer, ckpt, 2, "--precision",
+                                                           "fast")
+                served[flag + "launches"] = dict(pk.launches)
+    if (served["1"]["checksum"] != served["0"]["checksum"]
+            or served["1launches"]["packed_upconv_conv_rgb_bf16"] < 1
+            or any(served["1launches"][k] for k in pair_kernels)):
+        raise AssertionError(f"generate_images --precision fast: {served}")
+    path["cli_generate_images_fast"] = {"checksum": served["1"]["checksum"],
+                                        "checksum_equal_unfused": True}
+    print(f"  --task generate_images --precision fast: checksum {served['1']['checksum']} with "
+          "and without the variable")
+
+    # -- the train step's fake render at packed_train_mode "default"
+    state = train_mod.progan_init_state(0, cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    real = torch.tanh(torch.randn((TRAIN_BATCH, cfg.resolution, cfg.resolution, 3),
+                                  device="cuda", generator=gen))
+    zs = [torch.randn((TRAIN_BATCH, cfg.latent_dim), device="cuda", generator=gen)
+          for _ in range(FUSED_TRAIN_STEPS)]
+    kw = dict(packed_fake=True, packed_d=True, packed_train_mode="default")
+    steps = {}
+    for flag in ("1", "0"):
+        # cuDNN's deterministic algorithms: the two runs differ only in the
+        # fake render's kernels
+        with env(PROBGAN_STAGE_FUSED=flag), deterministic_cudnn():
+            s = state
+            pk.reset_launches()
+            metrics = []
+            for z in zs:
+                s, m = train_mod.progan_train_step(s, real, z, 0.5, cfg, TRAIN_STAGE, **kw)
+                metrics.append({k: float(v) for k, v in m.items()})
+            steps[flag] = (s, metrics, dict(pk.launches), dict(pk.epilogue_launches))
+    launched, epi = steps["1"][2], steps["1"][3]
+    n = FUSED_TRAIN_STEPS
+    if (launched["packed_upconv_conv_bf16"] != n or launched["packed_upconv_conv_rgb_bf16"] != n
+            or launched["packed_upconv_bf16"] or launched["packed_conv_rgb_bf16"]
+            or epi["packed_conv_bf16[lrelu_norm]"]
+            or any(launched[k] for k in ("packed_upconv_conv", "packed_upconv_conv_rgb",
+                                         "packed_upconv_conv_mid", "packed_upconv_conv_rgb_mid"))):
+        raise AssertionError(f"the train step's fake render under the variable launched "
+                             f"{launched}, {epi}")
+    if steps["1"][1] != steps["0"][1]:
+        raise AssertionError(f"train step losses: {steps['1'][1]} vs {steps['0'][1]}")
+    leaves = tree_mod.tree_leaves
+    for field in ("g_params", "d_params", "g_opt", "d_opt", "g_ema"):
+        a, b = leaves(getattr(steps["1"][0], field)), leaves(getattr(steps["0"][0], field))
+        if len(a) != len(b) or not all(torch.equal(torch.as_tensor(u), torch.as_tensor(v))
+                                       for u, v in zip(a, b)):
+            raise AssertionError(f"train state {field} after {n} steps differs with the variable")
+    path["train_step_default"] = {
+        "steps": n, "metrics": steps["1"][1], "state_equal_unfused": True,
+        "launches": {k: v for k, v in launched.items() if v}}
+    print(f"  progan_train_step at \"default\" with packed_fake and packed_d, {n} steps: "
+          f"losses and state equal with and without the variable, launches "
+          f"{path['train_step_default']['launches']}")
+    return counts, path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3753,6 +4123,19 @@ def main() -> int:
     counts.update({k: train_default_counts[k] for k in (
         "packed_upconv_bf16[lrelu]", "packed_conv_bf16[lrelu]", "packed_conv_bf16[none]",
         "packed_convpool_bf16[lrelu]", "packed_convpool_bf16[none]", "packed_conv_wgrad_bf16")})
+    torch.cuda.empty_cache()
+
+    print("phase 15: kernel modes \"default\" and \"mid\" of the stage-fused kernels B10/B11 "
+          "vs their twins and the bf16 pair; under PROBGAN_STAGE_FUSED=1 generate at "
+          "\"fast\", None, \"mid\" and \"default+mid\", latent_walk, generate_images and the "
+          "train step at \"default\"")
+    kernels += phase_fused_bf16_kernels(pk, pro_gan)
+    torch.cuda.empty_cache()
+    fused_bf16_counts, fused_bf16 = phase_fused_bf16_path(
+        pk, pro_gan, engine_mod, cli_infer, image_checkpoint_mod, make_image_checkpoint,
+        train_mod, tree_mod)
+    # the entries' launches: generate's at "fast" ("default") and G's "mid"
+    counts.update(fused_bf16_counts)
     for k in kernels:
         k["launches"] = counts[k["name"]]
         if k["launches"] < 1:
@@ -3764,7 +4147,7 @@ def main() -> int:
                       "grades": grades, "mid": {"score": score_mid, "train": train_mid,
                                                 "generate": gen_mid},
                       "default_backward": {"train": train_default, "fast_cli": fast_cli},
-                      "card": card},
+                      "fused_bf16": fused_bf16, "card": card},
                      allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -395,17 +395,12 @@ def _g_late_packed(params: dict, x_entry: torch.Tensor, config: ProGANConfig,
     reaches device memory either; the bits are the two-kernel path's. The
     variable is read at each call (the JAX package reads it once, when the
     function is traced). The two-kernel path stays the default, as in JAX.
-    The stage-fused kernels have the fp32 modes only: a bf16 mode raises."""
+    The fused kernels take each stage's mode as the pair does."""
     from probgan_tpu_torch.ops import packed as pk
 
     mode = _PACKED_MODES[precision]
     base_mode, final_mode = mode.split("+") if "+" in mode else (mode, mode)
     stage_fused = os.environ.get("PROBGAN_STAGE_FUSED", "0") == "1"
-    if stage_fused and not {base_mode, final_mode} <= set(FP32_MODES):
-        raise NotImplementedError(
-            f"PROBGAN_STAGE_FUSED=1 at kernel mode {mode!r} (precision {precision!r}): "
-            "the stage-fused kernels run the fp32 modes only (ROADMAP B.a.1: B10/B11 "
-            "in 'default'); unset PROBGAN_STAGE_FUSED or use precision 'high'")
     x = x_entry.float().contiguous()
     for s in range(s0, stage + 1):
         m = final_mode if s == stage else base_mode
@@ -417,13 +412,14 @@ def _g_late_packed(params: dict, x_entry: torch.Tensor, config: ProGANConfig,
             if stage_fused:
                 return pk.packed_upconv_conv_rgb(
                     x, w1, c1["b"], w2, c2["b"], _rgb_w(to_rgb), to_rgb["b"],
-                    _rgb_w(prev_rgb), prev_rgb["b"], alpha, emit_uint8=emit == "uint8")
+                    _rgb_w(prev_rgb), prev_rgb["b"], alpha, emit_uint8=emit == "uint8",
+                    mode=m)
             feats, rgb_prev = pk.packed_upconv(x, w1, c1["b"], rgb_w=_rgb_w(prev_rgb),
                                                rgb_b=prev_rgb["b"], mode=m)
             return pk.packed_conv_rgb(feats, w2, c2["b"], _rgb_w(to_rgb), to_rgb["b"],
                                       rgb_prev, alpha, emit_uint8=emit == "uint8", mode=m)
         if stage_fused:
-            x = pk.packed_upconv_conv(x, w1, c1["b"], w2, c2["b"])
+            x = pk.packed_upconv_conv(x, w1, c1["b"], w2, c2["b"], mode=m)
         else:
             x = pk.packed_conv(pk.packed_upconv(x, w1, c1["b"], mode=m), w2, c2["b"],
                                mode=m)

@@ -27,7 +27,8 @@ KERNELS = ("packed_upconv", "packed_conv", "packed_conv_rgb", "packed_convpool",
            "packed_conv_wgrad", "packed_upconv_conv", "packed_upconv_conv_rgb",
            "denorm_uint8", "rank_topk", "rank_scores", "rank_topk_bf16",
            "packed_upconv_bf16", "packed_conv_bf16", "packed_conv_rgb_bf16",
-           "packed_convpool_bf16", "packed_conv_wgrad_bf16")
+           "packed_convpool_bf16", "packed_conv_wgrad_bf16", "packed_upconv_conv_bf16",
+           "packed_upconv_conv_rgb_bf16")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -27,13 +27,14 @@ kernels they replace (``probgan_tpu/ops/pallas_packed.py``):
 - ``packed_upconv_conv_rgb``: ``packed_upconv`` with the toRGB of its input
   then ``packed_conv_rgb`` in one kernel, the whole final stage (opt-in).
 
-The two stage-fused kernels give the bits of the pair they replace: their
-plain twins are the pairs' twins composed.
+The two stage-fused kernels give the bits of the pair they replace, at
+each kernel mode: their plain twins are the pairs' twins composed.
 
 Kernel modes (``mode``, the JAX kernels' name): "high" and "highest" run the
 fp32 kernels above, with one set of bits. ``packed_upconv``,
-``packed_conv``, ``packed_conv_rgb`` and ``packed_convpool`` also take, with
-every epilogue, "default", the JAX kernels' one bf16 pass (the train step's
+``packed_conv``, ``packed_conv_rgb``, ``packed_convpool`` and the two
+stage-fused kernels also take, with every epilogue, "default", the JAX
+kernels' one bf16 pass (the train step's
 default grade and G's at "fast"): both operands of every dot rounded to bf16
 (to nearest even), the products summed in fp32, bias and epilogues in fp32;
 and "mid", the 2-term split of the "fast" discriminator and of the train
@@ -41,10 +42,11 @@ step at ``packed_train_mode="mid"``: the weights rounded to bf16, the
 activations split as ``bf16(x) + bf16(x - bf16(x))`` (``split2``), so that a
 dot is the rounded weights times x to ~2^-16, summed in fp32. On the card
 each bf16 mode is a kernel of its own (``csrc/*_bf16.cu`` over
-``csrc/bf16_conv.cuh``, bf16 tensor-core products, the two terms two
-products at "mid"); the twins round or split the same operands and run fp32
-convs. ``packed_conv_wgrad`` takes "default" (``csrc/packed_conv_wgrad_bf16.cu``,
-both operands rounded) and "mid" as the reference does, at fp32 ("highest").
+``csrc/bf16_conv.cuh``, and for the stage-fused pair ``csrc/fused_bf16.cuh``;
+bf16 tensor-core products, the two terms two products at "mid"); the twins
+round or split the same operands and run fp32 convs. ``packed_conv_wgrad``
+takes "default" (``csrc/packed_conv_wgrad_bf16.cu``, both operands rounded)
+and "mid" as the reference does, at fp32 ("highest").
 "exact6" and "emulate_bf16" are the TPU kernels' test aids and raise
 ValueError.
 
@@ -92,7 +94,9 @@ launches = {"packed_upconv": 0, "packed_conv": 0, "packed_conv_rgb": 0,
             "packed_upconv_conv_rgb": 0, "packed_upconv_bf16": 0, "packed_conv_bf16": 0,
             "packed_conv_rgb_bf16": 0, "packed_upconv_mid": 0, "packed_conv_mid": 0,
             "packed_conv_rgb_mid": 0, "packed_convpool_mid": 0, "packed_convpool_bf16": 0,
-            "packed_conv_wgrad_bf16": 0}
+            "packed_conv_wgrad_bf16": 0, "packed_upconv_conv_bf16": 0,
+            "packed_upconv_conv_mid": 0, "packed_upconv_conv_rgb_bf16": 0,
+            "packed_upconv_conv_rgb_mid": 0}
 # The same launches by epilogue, "<kernel>[<epilogue>]", for the kernels that
 # have more than one.
 epilogue_launches = {
@@ -121,6 +125,9 @@ _ARGTYPES = {
                              _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_convpool_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv_wgrad_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "packed_upconv_conv_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "packed_upconv_conv_rgb_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _I,
+                                    _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 # Kernel modes (TRAIN_MODES): the fp32 kernels serve "high" and "highest";
 # "default" (one bf16 pass) and "mid" (the 2-term split) the *_bf16 kernels,
@@ -802,17 +809,22 @@ def packed_conv_wgrad(x, dpre, mode="highest"):
 # packed_upconv_conv, packed_upconv_conv_rgb: one kernel per stage
 # ---------------------------------------------------------------------------
 
-def packed_upconv_conv_plain(x, w1, b1, w2, b2):
-    """Plain twin of ``packed_upconv_conv``: the pair's twins composed."""
-    return packed_conv_plain(packed_upconv_plain(x, w1, b1), w2, b2)
+def packed_upconv_conv_plain(x, w1, b1, w2, b2, *, mode="high"):
+    """Plain twin of ``packed_upconv_conv``: the pair's twins composed at
+    ``mode``."""
+    check_mode("packed_upconv_conv", mode)
+    return packed_conv_plain(packed_upconv_plain(x, w1, b1, mode=mode), w2, b2, mode=mode)
 
 
 def packed_upconv_conv_rgb_plain(x, w1, b1, w2, b2, rgb_w, rgb_b, prev_rgb_w, prev_rgb_b,
-                                 alpha, *, emit_uint8=False):
-    """Plain twin of ``packed_upconv_conv_rgb``: the pair's twins composed."""
-    feats, rgb_prev = packed_upconv_plain(x, w1, b1, rgb_w=prev_rgb_w, rgb_b=prev_rgb_b)
+                                 alpha, *, emit_uint8=False, mode="high"):
+    """Plain twin of ``packed_upconv_conv_rgb``: the pair's twins composed at
+    ``mode``."""
+    check_mode("packed_upconv_conv_rgb", mode)
+    feats, rgb_prev = packed_upconv_plain(x, w1, b1, rgb_w=prev_rgb_w, rgb_b=prev_rgb_b,
+                                          mode=mode)
     return packed_conv_rgb_plain(feats, w2, b2, rgb_w, rgb_b, rgb_prev, alpha,
-                                 emit_uint8=emit_uint8)
+                                 emit_uint8=emit_uint8, mode=mode)
 
 
 def fused_tiling(cout: int) -> tuple[int, int]:
@@ -895,6 +907,23 @@ def fused_ring_bytes(cout: int, rgb: bool) -> int:
     return 4 * (FUSED_STAGES[cout] * stage + cout * (rows + 2) * (cols + 4) + prev)
 
 
+def fused_bf16_bytes(cout: int, terms: int, rgb: bool) -> int:
+    """Dynamic shared memory of a stage-fused block at a bf16 mode
+    (csrc/fused_bf16.cuh FusedBf16::kBytes), 2 x 40 bytes a bf16 pixel or
+    weight row: the larger of conv1's staging (its input, tile rows / 2 + 2
+    x 24 pixels once a term, and both row parities' taps, 2 x 8 x Cout) and
+    one chunk of conv2's weights (9 x Cout), which share one region; conv1's
+    map, Cout / 32 chunks of (tile rows + 2) x 34 pixels once a term; the
+    previous stage's RGB under the tile, 3 x tile rows / 2 x 16 floats
+    (``rgb``)."""
+    rows = _tile_rows(cout)
+    conv1 = terms * (rows // 2 + 2) * 24 + 2 * 8 * cout
+    conv2 = 9 * cout
+    fmap = terms * (cout // BF16_CK) * (rows + 2) * 34
+    prev = 4 * 3 * (rows // 2) * 16 if rgb else 0
+    return 2 * BF16_ROW * (max(conv1, conv2) + fmap) + prev
+
+
 def _stage_fused_checks(name: str, x, w1, w2, **params) -> int:
     """The stage-fused kernels' shape rules: conv1 C -> Cout, conv2 Cout ->
     Cout with Cout 32 or 64; input rows a multiple of half the conv2 tile's
@@ -907,22 +936,62 @@ def _stage_fused_checks(name: str, x, w1, w2, **params) -> int:
     return cout
 
 
-def packed_upconv_conv(x, w1, b1, w2, b2):
+def _fused_bf16_launch(name: str, mode: str, x, w1, b1, w2, b2, out, *rgb_args,
+                       tally: torch.Tensor | None = None) -> None:
+    """Launch the bf16 kernel of stage-fused ``name`` (csrc/<name>_bf16.cu)
+    at ``mode`` ("default" or "mid"): the pair's bf16 weight layouts,
+    counted as "<name>_bf16" or "<name>_mid". ``rgb_args``: B11's toRGB
+    weights (rounded to bf16 here) and biases, alpha and emit_uint8.
+    ``tally`` (int64 [1] on x's device), when given, gains the conv1 pixels
+    the blocks store."""
+    _check_bf16_channels(name, x, mode)
+    if tally is not None and (tally.dtype != torch.int64 or tally.device != x.device
+                              or tally.numel() < 1):
+        raise ValueError(f"{name}: _tally must be an int64 tensor on {x.device}")
+    terms = BF16_TERMS[mode]
+    bsz, c, h, wd = x.shape
+    cout = w1.shape[0]
+    # named, so that nothing the kernel reads is freed before it runs
+    wk1, wk2 = upconv_bf16_weights(w1), conv_bf16_weights(w2)
+    b1, b2 = b1.contiguous(), b2.contiguous()
+    ptrs = [_ptr(x), _ptr(wk1), _ptr(b1), _ptr(wk2), _ptr(b2)]
+    if rgb_args:
+        rgb_w, rgb_b, prev_w, prev_b, alpha, emit_uint8 = rgb_args
+        rgb_w, prev_w = _bf16(rgb_w.reshape(3, cout)).contiguous(), _bf16(
+            prev_w.reshape(3, c)).contiguous()
+        rgb_b, prev_b = rgb_b.contiguous(), prev_b.contiguous()
+        ptrs += [_ptr(rgb_w), _ptr(rgb_b), _ptr(prev_w), _ptr(prev_b), alpha, _ptr(out),
+                 int(emit_uint8)]
+    else:
+        ptrs.append(_ptr(out))
+    _bf16_launch(name, terms, x, *ptrs, _ptr(tally), bsz, c, h, wd, cout, terms,
+                 fused_bf16_bytes(cout, terms, rgb=bool(rgb_args)))
+
+
+def packed_upconv_conv(x, w1, b1, w2, b2, *, mode="high", _tally=None):
     """One whole non-final generator stage in one kernel: nearest-2x upsample
     -> conv3x3 + b1 -> LeakyReLU -> PixelNorm -> conv3x3 + b2 -> LeakyReLU ->
     PixelNorm. x [B, C, H, W] fp32, w1 [Cout, C, 3, 3] and w2 [Cout, Cout, 3,
     3] eq-LR scaled -> [B, Cout, 2H, 2W], equal bit for bit to
-    ``packed_conv(packed_upconv(x, w1, b1), w2, b2)`` on the card. On CUDA,
-    Cout is 32 or 64."""
+    ``packed_conv(packed_upconv(x, w1, b1, mode=mode), w2, b2, mode=mode)`` on
+    the card. On CUDA, Cout is 32 or 64. ``mode``: "high"/"highest" (the fp32
+    ring, csrc/fused_ring.cuh), "default" (one bf16 pass) or "mid" (the 2-term
+    split), both ``packed_upconv_conv_bf16`` on the card (C % 32 == 0).
+    ``_tally`` (int64 [1] on the card, bf16 modes): gains the conv1 pixels
+    the kernel stores, for the utilities that count them."""
     if x.device.type == "cpu":
-        return packed_upconv_conv_plain(x, w1, b1, w2, b2)
+        return packed_upconv_conv_plain(x, w1, b1, w2, b2, mode=mode)
     name = "packed_upconv_conv"
+    terms = check_mode(name, mode)
     _refuse_grad(name, "upconv_lrelu_norm followed by conv_lrelu_norm", x, w1, b1, w2, b2)
     cout = _stage_fused_checks(name, x, w1, w2, b1=b1, b2=b2)
     bsz, c, h, wd = x.shape
+    y = torch.empty((bsz, cout, 2 * h, 2 * wd), device=x.device, dtype=x.dtype)
+    if terms:
+        _fused_bf16_launch(name, mode, x, w1, b1, w2, b2, y, tally=_tally)
+        return y
     wk1, wk2 = upconv_kernel_weights(w1), conv_kernel_weights(w2)
     b1, b2 = b1.contiguous(), b2.contiguous()
-    y = torch.empty((bsz, cout, 2 * h, 2 * wd), device=x.device, dtype=x.dtype)
     x = _aligned16(x)
     split = fused_split(bsz, cout, h, wd, _sms(x.device))
     _launch(name, x, _ptr(x), _ptr(wk1), _ptr(b1), _ptr(wk2), _ptr(b2), _ptr(y), bsz, c, h,
@@ -931,32 +1000,40 @@ def packed_upconv_conv(x, w1, b1, w2, b2):
 
 
 def packed_upconv_conv_rgb(x, w1, b1, w2, b2, rgb_w, rgb_b, prev_rgb_w, prev_rgb_b, alpha, *,
-                           emit_uint8=False):
+                           emit_uint8=False, mode="high", _tally=None):
     """The whole final generator stage in one kernel: ``packed_upconv_conv``'s
     chain -> toRGB (``rgb_w`` [3, Cout], ``rgb_b`` [3]) -> ``prev + alpha *
     (rgb - prev)``, prev the nearest-2x of toRGB_{s-1}(x) (``prev_rgb_w``
     [3, C], ``prev_rgb_b`` [3]) -> (tanh -> round half to even((t+1)*127.5)
     -> clip -> uint8 when ``emit_uint8``). x [B, C, H, W] fp32 -> NHWC
     [B, 2H, 2W, 3], uint8 or fp32 pre-tanh RGB, equal bit for bit to
-    ``packed_upconv(x, w1, b1, rgb_w=prev_rgb_w, rgb_b=prev_rgb_b)`` then
-    ``packed_conv_rgb`` of its two outputs on the card."""
+    ``packed_upconv(x, w1, b1, rgb_w=prev_rgb_w, rgb_b=prev_rgb_b, mode=mode)``
+    then ``packed_conv_rgb(..., mode=mode)`` of its two outputs on the card.
+    ``mode`` and ``_tally`` as ``packed_upconv_conv`` takes them (the bf16
+    modes: ``packed_upconv_conv_rgb_bf16``, both toRGB dots at the mode)."""
     alpha = float(alpha)
     if x.device.type == "cpu":
         return packed_upconv_conv_rgb_plain(x, w1, b1, w2, b2, rgb_w, rgb_b, prev_rgb_w,
-                                            prev_rgb_b, alpha, emit_uint8=emit_uint8)
+                                            prev_rgb_b, alpha, emit_uint8=emit_uint8,
+                                            mode=mode)
     name = "packed_upconv_conv_rgb"
+    terms = check_mode(name, mode)
     _refuse_grad(name, "upconv_lrelu_norm and conv_lrelu_norm followed by the toRGB convs "
                  "and the blend as torch ops, as models.pro_gan.generator_rgb(packed_mode=...) "
                  "does", x, w1, b1, w2, b2, rgb_w, rgb_b, prev_rgb_w, prev_rgb_b)
     cout = _stage_fused_checks(name, x, w1, w2, b1=b1, b2=b2, rgb_w=rgb_w, rgb_b=rgb_b,
                                prev_rgb_w=prev_rgb_w, prev_rgb_b=prev_rgb_b)
     bsz, c, h, wd = x.shape
+    out = torch.empty((bsz, 2 * h, 2 * wd, 3), device=x.device,
+                      dtype=torch.uint8 if emit_uint8 else torch.float32)
+    if terms:
+        _fused_bf16_launch(name, mode, x, w1, b1, w2, b2, out, rgb_w, rgb_b, prev_rgb_w,
+                           prev_rgb_b, alpha, emit_uint8, tally=_tally)
+        return out
     wk1, wk2 = upconv_kernel_weights(w1), conv_kernel_weights(w2)
     b1, b2 = b1.contiguous(), b2.contiguous()
     rgb_w, rgb_b = rgb_w.reshape(3, cout).contiguous(), rgb_b.contiguous()
     prev_rgb_w, prev_rgb_b = prev_rgb_w.reshape(3, c).contiguous(), prev_rgb_b.contiguous()
-    out = torch.empty((bsz, 2 * h, 2 * wd, 3), device=x.device,
-                      dtype=torch.uint8 if emit_uint8 else torch.float32)
     x = _aligned16(x)
     split = fused_split(bsz, cout, h, wd, _sms(x.device))
     _launch(name, x, _ptr(x), _ptr(wk1), _ptr(b1), _ptr(wk2), _ptr(b2), _ptr(rgb_w),

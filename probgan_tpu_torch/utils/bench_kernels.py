@@ -34,10 +34,12 @@ one CUDA card, in parts (``--parts``, all by default):
   six shapes beside its fp32 (3xTF32) kernel, the bound at the bf16 peak;
 - ``fused``: the stage-fused kernels B10 ``packed_upconv_conv`` (stage 7)
   and B11 ``packed_upconv_conv_rgb`` (stage 8 uint8 and fp32, stage 7
-  uint8) at batch 2 and 8, each beside the two-kernel pair it replaces;
-  then ``generate`` (batch 8) and the image trainer CLI's step
-  (``progan_train_step`` with ``packed_fake`` at "highest", stage 8, batch
-  2) with ``PROBGAN_STAGE_FUSED`` 1 and 0 in turns in one process.
+  uint8) at batch 2 and 8, each beside the two-kernel pair it replaces at
+  its kernel mode: "high" (the fp32 ring), and "default" and "mid" where the
+  tree's wrappers take ``mode``; then ``generate`` (batch 8) at "high" and
+  "fast" and the image trainer CLI's step (``progan_train_step`` with
+  ``packed_fake`` at "highest", stage 8, batch 2) with
+  ``PROBGAN_STAGE_FUSED`` 1 and 0 in turns in one process.
 
 ``--dump DIR`` saves each ``fp32``, ``bf16``, ``mid``, ``bwd`` and ``fused``
 output, made from fixed seeds, to ``DIR/<shape>.pt`` (and with ``rank`` the
@@ -58,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import math
 import os
@@ -396,11 +399,25 @@ def bench_bwd(pk, dump: Path | None) -> dict:
 
 
 def bench_fused(pk, dump: Path | None) -> dict:
-    """The stage-fused kernels at FUSED_SHAPES beside the pair they replace:
-    ms of each, the fp32 bound (conv1 at its 4 pre-summed taps an output,
-    conv2 at 9, the toRGBs), shares, the kernel's time over the pair's, and
-    the conv1 pixels a conv2 output where the tree's tiling helper gives
-    them; the kernel's output saved under ``dump``."""
+    """The stage-fused kernels at FUSED_SHAPES beside the pair they replace,
+    at each kernel mode the tree's wrappers take ("high"; "default" and
+    "mid" once they take ``mode``, labelled "<shape>_<mode>"): ms of each,
+    the bound (conv1 at its 4 pre-summed taps an output, conv2 at 9, the
+    toRGBs; fp32 at "high", the bf16 peak for each bf16 pass), shares, the
+    kernel's time over the pair's, and at "high" the conv1 pixels a conv2
+    output where the tree's tiling helper gives them; the kernel's output
+    saved under ``dump``."""
+    bf16 = "mode" in inspect.signature(pk.packed_upconv_conv).parameters
+    out = {}
+    for mode in ("high", "default", "mid") if bf16 else ("high",):
+        for label, row in _bench_fused_mode(pk, dump, mode).items():
+            out[label if mode == "high" else f"{label}_{mode}"] = row
+    return out
+
+
+def _bench_fused_mode(pk, dump: Path | None, mode: str) -> dict:
+    kw = {} if mode == "high" else {"mode": mode}
+    passes = {"high": 0, "default": 1, "mid": 2}[mode]
     out = {}
     for i, (label, kind, bsz, c, cout, h, emit) in enumerate(FUSED_SHAPES):
         gen = torch.Generator(device="cuda").manual_seed(200 + i)
@@ -414,10 +431,10 @@ def bench_fused(pk, dump: Path | None) -> dict:
         flops = 2 * 4 * c * cout * pixels + 2 * 9 * cout * cout * pixels
         if kind == "upconv_conv":
             def call(x=x, w1=w1, b1=b1, w2=w2, b2=b2):
-                return pk.packed_upconv_conv(x, w1, b1, w2, b2)
+                return pk.packed_upconv_conv(x, w1, b1, w2, b2, **kw)
 
             def pair(x=x, w1=w1, b1=b1, w2=w2, b2=b2):
-                return pk.packed_conv(pk.packed_upconv(x, w1, b1), w2, b2)
+                return pk.packed_conv(pk.packed_upconv(x, w1, b1, **kw), w2, b2, **kw)
         else:
             rgb_w = torch.randn((3, cout), device="cuda", generator=gen) / math.sqrt(cout)
             prev_w = torch.randn((3, c), device="cuda", generator=gen) / math.sqrt(c)
@@ -429,25 +446,27 @@ def bench_fused(pk, dump: Path | None) -> dict:
             def call(x=x, w1=w1, b1=b1, w2=w2, b2=b2, rgb_w=rgb_w, rgb_b=rgb_b, prev_w=prev_w,
                      prev_b=prev_b, u8=u8, alpha=alpha):
                 return pk.packed_upconv_conv_rgb(x, w1, b1, w2, b2, rgb_w, rgb_b, prev_w, prev_b,
-                                                 alpha, emit_uint8=u8)
+                                                 alpha, emit_uint8=u8, **kw)
 
             def pair(x=x, w1=w1, b1=b1, w2=w2, b2=b2, rgb_w=rgb_w, rgb_b=rgb_b, prev_w=prev_w,
                      prev_b=prev_b, u8=u8, alpha=alpha):
-                f, rp = pk.packed_upconv(x, w1, b1, rgb_w=prev_w, rgb_b=prev_b)
-                return pk.packed_conv_rgb(f, w2, b2, rgb_w, rgb_b, rp, alpha, emit_uint8=u8)
+                f, rp = pk.packed_upconv(x, w1, b1, rgb_w=prev_w, rgb_b=prev_b, **kw)
+                return pk.packed_conv_rgb(f, w2, b2, rgb_w, rgb_b, rp, alpha, emit_uint8=u8, **kw)
         with torch.no_grad():
             y = call()
             torch.cuda.synchronize()
             digest = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()
             if dump is not None:
-                torch.save([y.cpu()], dump / f"fused_{label}.pt")
+                suffix = "" if mode == "high" else f"_{mode}"
+                torch.save([y.cpu()], dump / f"fused_{label}{suffix}.pt")
             del y
             ms, pair_ms = cuda_ms(call, iters=10), cuda_ms(pair, iters=10)
-        bound_ms = flops / PEAK_FP32_FLOPS * 1e3
+        bound_ms = (flops / PEAK_FP32_FLOPS if mode == "high"
+                    else passes * flops / PEAK_BF16_FLOPS) * 1e3
         row = {"ms": ms, "pair_ms": pair_ms, "over_pair": ms / pair_ms, "bound_ms": bound_ms,
                "roofline_share": bound_ms / ms, "pair_roofline_share": bound_ms / pair_ms,
                "sha256": digest}
-        if hasattr(pk, "fused_split"):  # from the tiling; not measured
+        if mode == "high" and hasattr(pk, "fused_split"):  # from the tiling; not measured
             sms = torch.cuda.get_device_properties(x.device).multi_processor_count
             row["conv1_per_output_tiling"] = pk.fused_conv1_per_output(bsz, cout, h, h, sms)
         out[label] = row
@@ -456,22 +475,33 @@ def bench_fused(pk, dump: Path | None) -> dict:
 
 
 def stage_fused_turns(engine_mod, train, cfg, gen, rounds: int = 4) -> dict:
-    """``generate`` (batch 8) and the image trainer's step (stage 8, batch 2,
-    ``packed_fake`` as the CLI passes it) with PROBGAN_STAGE_FUSED 1 and 0 in
-    turns: img/s and steps/s of each (host clock to a result on the host)."""
+    """``generate`` (batch 8) at "high" and "fast" and the image trainer's
+    step (stage 8, batch 2, ``packed_fake`` as the CLI passes it) with
+    PROBGAN_STAGE_FUSED 1 and 0 in turns: img/s and steps/s of each (host
+    clock to a result on the host); "fast" only where the tree's stage-fused
+    kernels take a bf16 mode."""
+    from probgan_tpu_torch.ops import packed as pk
+
+    with_fast = "mode" in inspect.signature(pk.packed_upconv_conv).parameters
     engine = engine_mod.ImageGANEngine(cfg, device="cuda", precision="high", seed=0)
+    fast = engine_mod.ImageGANEngine(cfg, g_params=engine.g_params, d_params=engine.d_params,
+                                     device="cuda", precision="fast")
     z = engine.sample_latents(8)
     state = train.progan_init_state(0, cfg, device="cuda")
     real = torch.tanh(torch.randn((2, cfg.resolution, cfg.resolution, 3), device="cuda",
                                   generator=gen))
     zt = torch.randn((2, cfg.latent_dim), device="cuda", generator=gen)
     stage = cfg.num_stages - 1
-    times = {"1": {"generate": [], "step": []}, "0": {"generate": [], "step": []}}
+    times = {flag: {"generate": [], "generate_fast": [], "step": []} for flag in ("1", "0")}
     before = os.environ.get("PROBGAN_STAGE_FUSED")
     try:
         for r in range(rounds + 1):  # round 0 warms both up
             for flag in ("1", "0") if r % 2 else ("0", "1"):
                 os.environ["PROBGAN_STAGE_FUSED"] = flag
+                t0 = time.perf_counter()
+                if with_fast:
+                    fast.generate(z)
+                t_fast = time.perf_counter() - t0
                 t0 = time.perf_counter()
                 engine.generate(z)
                 t1 = time.perf_counter()
@@ -479,7 +509,8 @@ def stage_fused_turns(engine_mod, train, cfg, gen, rounds: int = 4) -> dict:
                                                    packed_fake=True, packed_train_mode="highest")
                 float(m["g_loss"])
                 t2 = time.perf_counter()
-                if r:
+                if r and with_fast:
+                    times[flag]["generate_fast"].append(t_fast)
                     times[flag]["generate"].append(t1 - t0)
                     times[flag]["step"].append(t2 - t1)
     finally:
@@ -489,6 +520,8 @@ def stage_fused_turns(engine_mod, train, cfg, gen, rounds: int = 4) -> dict:
             os.environ["PROBGAN_STAGE_FUSED"] = before
     return {("stage_fused" if flag == "1" else "two_kernel"): {
         "generate_img_per_s": 8 * len(t["generate"]) / sum(t["generate"]),
+        "generate_fast_img_per_s": (8 * len(t["generate_fast"]) / sum(t["generate_fast"])
+                                    if with_fast else None),
         "train_steps_per_s": len(t["step"]) / sum(t["step"]),
         "generate_call_s": t["generate"], "train_step_s": t["step"]}
         for flag, t in times.items()}

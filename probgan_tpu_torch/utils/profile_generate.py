@@ -16,7 +16,8 @@ since the last one.
 
 Parts: the late-stage kernels by name (under ``PROBGAN_STAGE_FUSED=1``, read
 at each call, the two stage-fused kernels in place of the three; at "fast"
-and "default" the three bf16 kernels, ``*_bf16``), the cuDNN
+and "default" the three bf16 kernels, ``*_bf16``, or the two stage-fused
+ones, ``packed_upconv_conv_bf16`` and ``packed_upconv_conv_rgb_bf16``), the cuDNN
 convolutions of stages 0-6, the copy of the images to the host, other copies,
 and the elementwise rest (parity-conv interleave, epilogues, weight prep).
 Needs a CUDA card.
@@ -46,6 +47,11 @@ def _part(name: str) -> str:
     fused = re.search(r"fused_kernel<\d+, ?(\d)>", name)  # csrc/fused_ring.cuh: <COUT, TAIL>
     if fused:
         return "packed_upconv_conv" if fused.group(1) == "0" else "packed_upconv_conv_rgb"
+    # csrc/fused_bf16.cuh: <COUT, NTERM, TAIL>
+    fused = re.search(r"fused_bf16_kernel<\d+, ?(\d), ?(\d)>", name)
+    if fused:
+        kernel = "packed_upconv_conv" if fused.group(2) == "0" else "packed_upconv_conv_rgb"
+        return f"{kernel}_{'bf16' if fused.group(1) == '1' else 'mid'}"
     for k in _KERNELS:
         if f"{k}_kernel" in name:
             return k

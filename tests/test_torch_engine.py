@@ -47,16 +47,17 @@ def test_engine_generate_cpu_shape_dtype():
 def test_engine_rejects_bf16_grades(grade, monkeypatch):
     """An engine at a bf16 grade serves on the CPU (unpacked there). With its
     packed path on, as on the card (here through the twins), it renders the
-    late stages in kernel mode "default", and rejects what the port does not
-    have at that grade: PROBGAN_STAGE_FUSED=1 (the stage-fused kernels are
-    fp32 only). At "fast" it scores with D's packed stage in kernel mode
+    late stages in kernel mode "default", under PROBGAN_STAGE_FUSED=1 too
+    (which raised before the stage-fused kernels had the bf16 modes: now the
+    same images). At "fast" it scores with D's packed stage in kernel mode
     "mid", near the "high" engine's logits."""
     engine = ImageGANEngine(PACKED, device="cpu", precision=grade, seed=3)
     z = engine.sample_latents(1)
     img = engine.generate(z, stage=6)
     assert img.dtype == np.uint8 and img.shape == (1, 256, 256, 3)
     engine.packed = True
-    _, _, psnr = _uint8_psnr(engine.generate(z, stage=6), img)
+    packed = engine.generate(z, stage=6)
+    _, _, psnr = _uint8_psnr(packed, img)
     assert psnr > 30.0  # one bf16 pass in the packed stage (~3 significant digits)
     reals = img.astype(np.float32) / 127.5 - 1.0
     logits = engine.score(reals, stage=6)
@@ -67,8 +68,7 @@ def test_engine_rejects_bf16_grades(grade, monkeypatch):
         high.packed = True
         np.testing.assert_allclose(logits, high.score(reals, stage=6), rtol=1e-2, atol=1e-2)
     monkeypatch.setenv("PROBGAN_STAGE_FUSED", "1")
-    with pytest.raises(NotImplementedError, match="B10/B11"):
-        engine.generate(z, stage=6)
+    np.testing.assert_array_equal(engine.generate(z, stage=6), packed)
 
 
 def _uint8_psnr(a, b):
@@ -132,6 +132,22 @@ def test_import_leaves_jax_out():
                  "core.tree", "utils.profile_train", "cli.train", "cli.train_image",
                  "native"):
         assert f"probgan_tpu_torch.{name}" in modules
+
+
+def test_kernel_sources_are_the_build_list():
+    """Every CUDA source of the port is a kernel that ops/_build.py builds (or
+    the clock-split probe, utils/conv_clock_split.py's), the stage-fused
+    bf16 kernels among them, and the headers they include are the port's
+    own: no source reaches outside csrc/."""
+    from probgan_tpu_torch.ops import _build
+
+    sources = {p.stem for p in (PORT / "csrc").glob("*.cu")}
+    assert sources == set(_build.KERNELS) | {"conv_clock_split"}
+    assert {"packed_upconv_conv_bf16", "packed_upconv_conv_rgb_bf16"} <= set(_build.KERNELS)
+    include = re.compile(r'^#include\s+"([^"]+)"', re.MULTILINE)
+    for src in (PORT / "csrc").iterdir():
+        for name in include.findall(src.read_text()):
+            assert (PORT / "csrc" / name).is_file(), (src.name, name)
 
 
 def test_sources_import_no_jax_and_no_jax_package():

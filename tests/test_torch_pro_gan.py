@@ -196,11 +196,11 @@ def test_packed_gate_matches_jax():
 
 @pytest.mark.parametrize("grade", [None, "default", "fast"])
 def test_bf16_grades_raise(grade, monkeypatch):
-    """The bf16 grades run where the port has them, the unpacked path, the
-    packed two-kernel path (its stages in kernel mode "default", here the
-    twins) and the differentiable packed path at its bf16 mode "default",
-    and raise, naming the ROADMAP item, where it does not: the stage-fused
-    kernels (fp32 only)."""
+    """The bf16 grades run on every path the port has: the unpacked path,
+    the packed two-kernel path (its stages in kernel mode "default", here the
+    twins), the stage-fused path (PROBGAN_STAGE_FUSED=1, which raised before
+    B10/B11 had the bf16 modes: the same images as the two-kernel path) and
+    the differentiable packed path at its bf16 mode "default"."""
     cfg = tpg.ProGANConfig(**PACKED)
     assert tpg.packed_start_stage(cfg, 6) == 6
     params = tpg.init_generator(cfg, 0)
@@ -209,8 +209,7 @@ def test_bf16_grades_raise(grade, monkeypatch):
         img = tpg.generator_apply(params, z, cfg, 6, precision=grade, packed=packed)
         assert img.dtype == torch.uint8 and tuple(img.shape) == (1, 256, 256, 3)
     monkeypatch.setenv("PROBGAN_STAGE_FUSED", "1")
-    with pytest.raises(NotImplementedError, match="B10/B11"):
-        tpg.generator_apply(params, z, cfg, 6, precision=grade, packed=True)
+    assert torch.equal(tpg.generator_apply(params, z, cfg, 6, precision=grade, packed=True), img)
     monkeypatch.delenv("PROBGAN_STAGE_FUSED")
     rgb = tpg.generator_rgb(params, z, cfg, 6, precision=grade, packed_mode="default")
     assert tuple(rgb.shape) == (1, 256, 256, 3) and torch.isfinite(rgb).all()

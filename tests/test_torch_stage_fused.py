@@ -29,6 +29,19 @@ from probgan_tpu_torch.ops import packed as tpk
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 UINT8_MAX_SHARE = 0.005
+# At the bf16 grades (kernel mode "default" against JAX's "emulate_bf16"),
+# a value the two packages sum in another order can round to the other bf16
+# neighbour, and the RGB then moves by |w| x one bf16 step of it: fp32 RGB is
+# held to its fp32 bound on all but BF16_FLIP_SHARE of values and to
+# BF16_FLIP_ATOL on the rest (tests/test_torch_grades.py's B3 bound; the
+# packed stages alone reached 0.06% and 6.7e-3 here, the whole generator,
+# whose stage-5 features already differ by fp32 reassociation, 1.4% and
+# 3.2e-2). The whole generator's uint8 images may then differ by more than
+# one level where such a flip lands: they are held as tests/test_torch_mid.py
+# holds a bf16 mix, >= BF16_PSNR_DB with at most BF16_UINT8_SHARE of bytes
+# apart (reached: 3 levels at most, 0.25% of bytes).
+BF16_FLIP_SHARE, BF16_FLIP_ATOL = 0.02, 5e-2
+BF16_PSNR_DB, BF16_UINT8_SHARE = 60.0, 0.01
 # The packed-gate config of tests/test_pallas_packed.py: stages 6-7 packed.
 PACKED = dict(resolution=512, latent_dim=16, fmap_base=512, fmap_max=64)
 FUSED = ("packed_upconv_conv", "packed_upconv_conv_rgb")
@@ -127,9 +140,11 @@ def test_upconv_conv_rgb_twin_matches_pallas(rgb_case, alpha, emit_uint8):
 def packed_gen():
     """JAX and port generators on the same numpy weights at the packed-gate
     config (the weights and latent of tests/test_torch_pro_gan.py's packed
-    slice test), and JAX's fused results with PROBGAN_STAGE_FUSED=1 set while
-    they trace (JAX reads it at trace time): the packed stages alone from the
-    same stage-5 features, and the whole generator."""
+    slice test), and JAX's fused results by grade with PROBGAN_STAGE_FUSED=1
+    set while they trace (JAX reads it at trace time): the packed stages
+    alone from the same stage-5 features, and the whole generator. At the
+    bf16 grades JAX's kernel mode is set to "emulate_bf16" while it traces
+    (its own "default" is exact fp32 on the CPU, no model of the pass)."""
     jcfg, tcfg = jpg.ProGANConfig(**PACKED), tpg.ProGANConfig(**PACKED)
     shapes = jax.eval_shape(lambda k: jpg.init_generator(k, jcfg), jax.random.key(0))
     rng = np.random.RandomState(0)
@@ -140,51 +155,81 @@ def packed_gen():
     s0 = jpg.packed_start_stage(jcfg, stage)
     z = _rand((1, 16), 1)
     entry = np.asarray(jpg.pixel_norm(_rand((1, 128, 128, jcfg.nf(s0 - 1)), 2)))
-    kw = dict(config=jcfg, stage=stage, precision="highest", packed=True)
-    # jitted with alpha traced: one trace (with the variable set) serves both
-    late_fns = {emit: jax.jit(lambda p, x, a, emit=emit: jpg._g_late_packed(
-        p, x, jcfg, s0, stage, a, "highest", emit=emit)) for emit in ("rgb", "uint8")}
-    rgb_fn = jax.jit(lambda p, z, a: jpg.generator_rgb(p, z, alpha=a, **kw))
-    u8_fn = jax.jit(lambda p, z, a: jpg.generator_apply(p, z, alpha=a, **kw))
-    mp = pytest.MonkeyPatch()
-    mp.setenv("PROBGAN_STAGE_FUSED", "1")
-    try:
-        want = {}
-        for alpha in (1.0, 0.5):
-            a = jnp.float32(alpha)
-            late = {emit: np.asarray(fn(jparams, jnp.asarray(entry), a))
-                    for emit, fn in late_fns.items()}
-            whole = (np.asarray(rgb_fn(jparams, jnp.asarray(z), a)),
-                     np.asarray(u8_fn(jparams, jnp.asarray(z), a)))
-            want[alpha] = late, whole
-    finally:
-        mp.undo()
+    want = {}
+
+    def jax_fused(grade):
+        """{alpha: (late {"rgb", "uint8"}, (whole rgb, whole uint8))} at
+        ``grade``, one jit with alpha traced."""
+        if grade in want:
+            return want[grade]
+        kw = dict(config=jcfg, stage=stage, precision=grade, packed=True)
+
+        def outputs(p, x, zz, a):
+            return (jpg._g_late_packed(p, x, jcfg, s0, stage, a, grade, emit="rgb"),
+                    jpg._g_late_packed(p, x, jcfg, s0, stage, a, grade, emit="uint8"),
+                    jpg.generator_rgb(p, zz, alpha=a, **kw),
+                    jpg.generator_apply(p, zz, alpha=a, **kw))
+
+        fn = jax.jit(outputs)
+        mp = pytest.MonkeyPatch()
+        mp.setenv("PROBGAN_STAGE_FUSED", "1")
+        if grade not in ("high", "highest"):
+            mp.setitem(jpg._PACKED_MODES, grade, "emulate_bf16")
+        try:
+            want[grade] = {}
+            for alpha in (1.0, 0.5):
+                late_rgb, late_u8, rgb, u8 = (np.asarray(o) for o in fn(
+                    jparams, jnp.asarray(entry), jnp.asarray(z), jnp.float32(alpha)))
+                want[grade][alpha] = {"rgb": late_rgb, "uint8": late_u8}, (rgb, u8)
+        finally:
+            mp.undo()
+        return want[grade]
+
     return (tcfg, convert_generator_params(jparams), s0, stage, _nchw(entry),
-            torch.from_numpy(z), want)
+            torch.from_numpy(z), jax_fused)
 
 
 @pytest.mark.parametrize("alpha", [1.0, 0.5])
-def test_fused_generator_matches_jax(packed_gen, alpha, monkeypatch):
+@pytest.mark.parametrize("grade", ["highest", "fast", None])
+def test_fused_generator_matches_jax(packed_gen, grade, alpha, monkeypatch):
     """Under PROBGAN_STAGE_FUSED=1, the port on the CPU against JAX's fused
-    path. The packed stages from the same stage-5 features: fp32 within
-    2e-5, uint8 within +-1 on 0.5% of bytes. The whole generator_rgb /
-    generator_apply(packed=True): its stages 0-5 run XLA's convs in JAX and
-    torch's in the port, so it is held to the bound of the unfused packed
-    slice in tests/test_torch_pro_gan.py (2e-4) on the same weights."""
-    tcfg, tparams, s0, stage, entry, z, want = packed_gen
-    (late, (whole_rgb, whole_u8)) = want[alpha]
+    path at each grade. The packed stages from the same stage-5 features:
+    fp32 within 2e-5, uint8 within +-1 on 0.5% of bytes. The whole
+    generator_rgb / generator_apply(packed=True): its stages 0-5 run XLA's
+    convs in JAX and torch's in the port, so it is held to the bound of the
+    unfused packed slice in tests/test_torch_pro_gan.py (2e-4) on the same
+    weights. At the bf16 grades ("fast" and None) the RGB is held to those
+    bounds on all but BF16_FLIP_SHARE of values, the whole generator's uint8
+    images by BF16_PSNR_DB and BF16_UINT8_SHARE (see their note)."""
+    tcfg, tparams, s0, stage, entry, z, jax_fused = packed_gen
+    late, (whole_rgb, whole_u8) = jax_fused(grade)[alpha]
+    bf16 = grade not in ("high", "highest")
     monkeypatch.setenv("PROBGAN_STAGE_FUSED", "1")
-    got = tpg._g_late_packed(tparams, entry, tcfg, s0, stage, alpha, "highest").numpy()
-    np.testing.assert_allclose(got, late["rgb"], **TOL)
-    got_u8 = tpg._g_late_packed(tparams, entry, tcfg, s0, stage, alpha, "highest",
+
+    def assert_rgb(got, want, tol):
+        if not bf16:
+            np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+            return
+        d = np.abs(got - want)
+        beyond = np.mean(d > tol + tol * np.abs(want))
+        assert beyond <= BF16_FLIP_SHARE and d.max() <= BF16_FLIP_ATOL, (beyond, d.max())
+
+    got = tpg._g_late_packed(tparams, entry, tcfg, s0, stage, alpha, grade).numpy()
+    assert_rgb(got, late["rgb"], TOL["atol"])
+    got_u8 = tpg._g_late_packed(tparams, entry, tcfg, s0, stage, alpha, grade,
                                 emit="uint8").numpy()
     _assert_uint8_close(got_u8, late["uint8"])
-    got = tpg.generator_rgb(tparams, z, tcfg, stage, alpha, precision="highest",
+    got = tpg.generator_rgb(tparams, z, tcfg, stage, alpha, precision=grade,
                             packed=True).numpy()
-    np.testing.assert_allclose(got, whole_rgb, rtol=2e-4, atol=2e-4)
-    got_u8 = tpg.generator_apply(tparams, z, tcfg, stage, alpha, precision="highest",
+    assert_rgb(got, whole_rgb, 2e-4)
+    got_u8 = tpg.generator_apply(tparams, z, tcfg, stage, alpha, precision=grade,
                                  packed=True).numpy()
-    _assert_uint8_close(got_u8, whole_u8)
+    if not bf16:
+        _assert_uint8_close(got_u8, whole_u8)
+        return
+    d = got_u8.astype(np.float64) - whole_u8
+    assert np.mean(d != 0) <= BF16_UINT8_SHARE, np.mean(d != 0)
+    assert 10 * np.log10(255.0**2 / max(np.mean(d**2), 1e-12)) >= BF16_PSNR_DB
 
 
 def _spy(monkeypatch):
@@ -201,11 +246,13 @@ def _spy(monkeypatch):
     return calls
 
 
+@pytest.mark.parametrize("grade", ["high", "fast", None])
 @pytest.mark.parametrize("stage", [6, 7])
-def test_stage_fused_route_is_bit_equal(stage, monkeypatch):
+def test_stage_fused_route_is_bit_equal(stage, grade, monkeypatch):
     """"1" and "0" give equal bits on the CPU; "1" calls the fused pair, "0"
     the unfused kernels. At stage 6 (s0 == stage) the fused path is B11
-    alone; at stage 7 B10 then B11. The variable is read at each call."""
+    alone; at stage 7 B10 then B11. The variable is read at each call. At
+    the bf16 grades too: "1" no longer raises there."""
     cfg = tpg.ProGANConfig(**PACKED)
     assert tpg.packed_start_stage(cfg, 7) == 6
     params = tpg.init_generator(cfg, 3)
@@ -215,9 +262,9 @@ def test_stage_fused_route_is_bit_equal(stage, monkeypatch):
     for flag in ("1", "0"):
         monkeypatch.setenv("PROBGAN_STAGE_FUSED", flag)
         before = dict(calls)
-        out[flag] = (tpg.generator_rgb(params, z, cfg, stage, 0.7, precision="high",
+        out[flag] = (tpg.generator_rgb(params, z, cfg, stage, 0.7, precision=grade,
                                        packed=True),
-                     tpg.generator_apply(params, z, cfg, stage, 0.7, precision="high",
+                     tpg.generator_apply(params, z, cfg, stage, 0.7, precision=grade,
                                          packed=True))
         out[flag + "calls"] = {k: calls[k] - before[k] for k in calls}
     assert torch.equal(out["1"][0], out["0"][0]) and torch.equal(out["1"][1], out["0"][1])
