@@ -259,7 +259,26 @@ Phases (any failure exits non-zero and prints no result line):
     ``packed_d``, ``packed_train_mode="default"`` (the fake render on B10/B11
     "default", no pair kernel; losses and the state after two steps equal,
     bit for bit, to the steps without the variable);
-16. the last lines: the card's name and power limit, one JSON line with each
+16. the narrow generator N (``ProGANConfig(resolution=1024, latent_dim=128,
+    fmap_base=2048, fmap_max=256)``: nf 256 ... 128, 64, 32, 16, 8, packed
+    stages 6-8 in G and D), seeded weights: ``packed_upconv`` 32 -> 16 and
+    16 -> 8 (with toRGB; "lrelu_norm" and "lrelu"), ``packed_conv``
+    "lrelu_norm" 16 -> 16 and 8 -> 8 and "lrelu" 8 -> 8 and 16 -> 16,
+    ``packed_conv_rgb`` 8 -> 8 (uint8 and fp32) and ``packed_convpool``
+    8 -> 16 and 16 -> 32 at batch 8, each at "high", "default" and "mid"
+    against its twin to the bound phases 2-4, 12 and 13 hold that kernel to,
+    two runs bit-equal, ``packed_conv`` "lrelu" pooled in B5's order equal to
+    ``packed_convpool`` bit for bit, timed beside the bound and F.conv2d with
+    the epilogue; ``generate`` at N, batch 8, at "high", "fast", None and G's
+    "mid" (the launches a call at 16 and 8 channels, ``ops/packed.py``
+    ``narrow_launches``; "high" within +-1 on 0.5% of bytes and >= 50 dB of
+    the unpacked path; the PSNR of "fast" against "high" is a reading;
+    img/s, p50), ``latent_walk`` (frames equal to ``generate``'s) and
+    ``score`` at "high" and "fast" (launches, logits within 1e-4 of the
+    twins', scores/s, p50); Cout 4, a PixelNorm Cout of 24, "none" and the
+    stage-fused kernels at 16 channels and the packed train step at N raise
+    ValueError on the card;
+17. the last lines: the card's name and power limit, one JSON line with each
     kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -3990,6 +4009,416 @@ def phase_fused_bf16_path(pk, pro_gan, engine_mod, cli_infer, image_checkpoint_m
     return counts, path
 
 
+# Phase 16: the narrow generator N (fmap_base 2048, fmap_max 256 at 1024²,
+# the trainer CLIs' flags; nf 256, 256, 256, 256, 128, 64, 32, 16, 8), whose
+# packed stages 6-8 take the kernels at 16 and 8 channels: B1 32 -> 16 and
+# 16 -> 8 (with the toRGB of its 16-channel input), B2 "lrelu_norm" 16 -> 16,
+# B3 8 -> 8 in G; B2 "lrelu" 8 -> 8 and 16 -> 16, B5 8 -> 16 and 16 -> 32 in
+# D. The kernels alone at N's batch-8 shapes against their twins at each
+# kernel mode, to the bounds phases 2-4 (fp32), 12 ("default") and 13
+# ("mid") hold the same kernel to; then generate, latent_walk and score at N.
+NARROW_CONFIG = {"resolution": 1024, "latent_dim": 128, "fmap_base": 2048, "fmap_max": 256}
+NARROW_CALLS = 3  # timed generate and score calls a grade
+NARROW_MODES = ("high", "default", "mid")
+# (kernel, epilogue or emit, C, Cout, H): B1's H is its input's
+NARROW_CASES = (
+    ("packed_upconv", "lrelu_norm", 32, 16, 256), ("packed_upconv", "lrelu_norm+rgb", 16, 8, 512),
+    ("packed_upconv", "lrelu", 32, 16, 256), ("packed_upconv", "lrelu", 16, 8, 512),
+    ("packed_conv", "lrelu_norm", 16, 16, 512), ("packed_conv", "lrelu_norm", 8, 8, 1024),
+    ("packed_conv", "lrelu", 8, 8, 1024), ("packed_conv", "lrelu", 16, 16, 512),
+    ("packed_conv_rgb", "uint8", 8, 8, 1024), ("packed_conv_rgb", "fp32", 8, 8, 1024),
+    ("packed_convpool", "lrelu", 8, 16, 1024), ("packed_convpool", "lrelu", 16, 32, 512),
+)
+NARROW_SOURCES = {"packed_upconv": "probgan_tpu/ops/pallas_packed.py:832",
+                  "packed_conv": "probgan_tpu/ops/pallas_packed.py:382",
+                  "packed_conv_rgb": "probgan_tpu/ops/pallas_packed.py:678",
+                  "packed_convpool": "probgan_tpu/ops/pallas_packed.py:452"}
+# generate's and score's launches a call at N at a slab below 32 channels
+# (ops/packed.py narrow_launches), by the kernels' counter
+NARROW_GENERATE = {"packed_upconv[cout16]": 1, "packed_upconv[cout8]": 1,
+                   "packed_conv[cout16]": 1, "packed_conv_rgb[cout8]": 1}
+NARROW_SCORE = {"packed_conv[cout8]": 1, "packed_conv[cout16]": 1,
+                "packed_convpool[cout16]": 1}
+# all of generate's and score's packed launches a call at N (stages 6-8)
+NARROW_GENERATE_ALL = {"packed_upconv": 3, "packed_conv": 2, "packed_conv_rgb": 1}
+NARROW_SCORE_ALL = {"packed_conv": 3, "packed_convpool": 3}
+
+
+def _counter(kernel: str, mode: str) -> str:
+    return kernel + {"high": "", "default": "_bf16", "mid": "_mid"}[mode]
+
+
+def _narrow(counts: dict, mode: str) -> dict:
+    """NARROW_GENERATE / NARROW_SCORE at ``mode``'s counters."""
+    out = {}
+    for key, n in counts.items():
+        kernel, slab = key.split("[")
+        out[f"{_counter(kernel, mode)}[{slab}"] = n
+    return out
+
+
+def phase_narrow_kernels(pk, pro_gan) -> tuple[list[dict], dict]:
+    """B1, B2, B3 and B5 at 16 and 8 channels (and C 8 and 16) at N's batch-8
+    shapes, at "high" (the fp32 kernels), "default" and "mid", against their
+    twins: fp32 to atol = rtol = 1e-4 and uint8 +-1 on 0.5% of bytes
+    (phases 2-4), "default" and "mid" to GRADE_REL of the largest entry (B3's
+    fp32 RGB at "default" on all but GRADE_FLIP_SHARE of values; uint8 on
+    0.5% / MID_UINT8_FLIP_SHARE of bytes; phases 12 and 13); two runs
+    bit-equal; packed_conv "lrelu" pooled in B5's order equal to B5 bit for
+    bit. Timed beside the bound and F.conv2d with the torch epilogue (fp32,
+    TF32 off; bf16 tensors at "default"; the bf16-rounded weights at "mid")."""
+    gen = torch.Generator(device="cuda").manual_seed(1515)
+    dev = "cuda"
+    bf = torch.bfloat16
+    B = BATCH_MAIN
+
+    def feats(*shape):
+        return pro_gan.pixel_norm(torch.randn(shape, device=dev, generator=gen))
+
+    def conv_w(cout, cin, k=3, gain=math.sqrt(2.0)):
+        w = torch.randn((cout, cin, k, k), device=dev, generator=gen)
+        return w * (gain / math.sqrt(cin * k * k))
+
+    def bias(n):
+        return 0.1 * torch.randn(n, device=dev, generator=gen)
+
+    def epi(t, epilogue):
+        t = t.float()
+        if epilogue == "lrelu_norm":
+            return pro_gan.pixel_norm(pro_gan.lrelu(t))
+        return pro_gan.lrelu(t)
+
+    def lib_operands(mode, *ts):
+        """The library call's operands: fp32, bf16 tensors ("default"), or
+        the weights (the last) rounded to bf16 ("mid")."""
+        if mode == "default":
+            return [t.to(bf) for t in ts]
+        if mode == "mid":
+            return [*ts[:-1], pk._bf16(ts[-1])]
+        return list(ts)
+
+    def check(label, mode, got, want, uint8=False, rgb_fp32=False):
+        if uint8:
+            share = MID_UINT8_FLIP_SHARE if mode == "mid" else UINT8_MAX_FLIP_SHARE
+            worst, _, psnr = check_uint8(label, got.cpu().numpy(), want.cpu().numpy(), share)
+            return float(worst), {"psnr_db": finite_or_none(psnr)}
+        if mode == "high":
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+            return (got - want).abs().max().item(), {}
+        return check_rel(label, got, want, flips=rgb_fp32 and mode == "default"), {}
+
+    rows, pool_equal = {}, {}
+    for mode in NARROW_MODES:
+        peak = PEAK_FP32_FLOPS if mode == "high" else PEAK_BF16_FLOPS
+        passes = MID_PASSES if mode == "mid" else 1
+        wbytes = 4 if mode == "high" else 2  # a weight as the kernel reads it
+        for kernel, form, c, cout, h in NARROW_CASES:
+            label = f"{kernel}[{mode},{form},{c}->{cout}@{h}]"
+            x, w, b = feats(B, c, h, h), conv_w(cout, c), bias(cout)
+            if kernel == "packed_upconv":
+                kw = {"epilogue": form.split("+")[0], "mode": mode}
+                if form.endswith("+rgb"):
+                    kw.update(rgb_w=conv_w(3, c, 1, 1.0).reshape(3, c), rgb_b=bias(3))
+
+                def fn(x=x, w=w, b=b, kw=kw):
+                    return pk.packed_upconv(x, w, b, **kw)
+
+                def plain(x=x, w=w, b=b, kw=kw):
+                    return pk.packed_upconv_plain(x, w, b, **kw)
+
+                def library(x=x, w=w, b=b, kw=kw, mode=mode):
+                    xl, bl, wl = lib_operands(mode, x, b, w)
+                    y = epi(F.conv2d(F.interpolate(xl, scale_factor=2.0, mode="nearest"), wl,
+                                     bl, padding=1), kw["epilogue"])
+                    if "rgb_w" in kw:
+                        xr, br, wr = lib_operands(mode, x, kw["rgb_b"], kw["rgb_w"])
+                        return y, F.conv2d(xr, wr[:, :, None, None], br)
+                    return y
+
+                rgb = "rgb_w" in kw
+                flops = 2 * 4 * c * cout * B * 4 * h * h + (2 * c * 3 * B * h * h if rgb else 0)
+                nbytes = (4 * (B * c * h * h + B * cout * 4 * h * h + cout
+                               + ((3 * c + 3 + B * 3 * h * h) if rgb else 0))
+                          + wbytes * (9 if mode == "high" else 16) * c * cout)
+            elif kernel == "packed_conv_rgb":
+                u8 = form == "uint8"
+                alpha = 1.0 if u8 else 0.3
+                rgb_w, rgb_b = conv_w(3, cout, 1, 1.0).reshape(3, cout), bias(3)
+                prev = 0.5 * torch.randn((B, 3, h // 2, h // 2), device=dev, generator=gen)
+                args = (x, w, b, rgb_w, rgb_b, prev)
+
+                def fn(args=args, alpha=alpha, u8=u8, mode=mode):
+                    return pk.packed_conv_rgb(*args, alpha, emit_uint8=u8, mode=mode)
+
+                def plain(args=args, alpha=alpha, u8=u8, mode=mode):
+                    return pk.packed_conv_rgb_plain(*args, alpha, emit_uint8=u8, mode=mode)
+
+                def library(args=args, alpha=alpha, u8=u8, mode=mode):
+                    x, w, b, rgb_w, rgb_b, prev = args
+                    xl, bl, wl = lib_operands(mode, x, b, w)
+                    feat = epi(F.conv2d(xl, wl, bl, padding=1), "lrelu_norm")
+                    fl, rbl, rwl = lib_operands(mode, feat, rgb_b, rgb_w)
+                    rgb = F.conv2d(fl, rwl[:, :, None, None], rbl).float()
+                    up = F.interpolate(prev, scale_factor=2.0, mode="nearest")
+                    out = (up + alpha * (rgb - up)).permute(0, 2, 3, 1)
+                    return pro_gan.to_uint8(out) if u8 else out.contiguous()
+
+                flops = 2 * 9 * c * cout * B * h * h + 2 * cout * 3 * B * h * h
+                nbytes = (4 * (B * c * h * h + cout + 3 * cout + 3 + B * 3 * (h // 2) ** 2)
+                          + wbytes * 9 * c * cout + B * h * h * 3 * (1 if u8 else 4))
+            else:
+                pool = kernel == "packed_convpool"
+                kfn, pfn = getattr(pk, kernel), getattr(pk, f"{kernel}_plain")
+
+                def fn(x=x, w=w, b=b, kfn=kfn, form=form, mode=mode):
+                    return kfn(x, w, b, form, mode=mode)
+
+                def plain(x=x, w=w, b=b, pfn=pfn, form=form, mode=mode):
+                    return pfn(x, w, b, form, mode=mode)
+
+                def library(x=x, w=w, b=b, form=form, pool=pool, mode=mode):
+                    xl, bl, wl = lib_operands(mode, x, b, w)
+                    y = epi(F.conv2d(xl, wl, bl, padding=1), form)
+                    return F.avg_pool2d(y, 2) if pool else y
+
+                flops = 2 * 9 * c * cout * B * h * h
+                nbytes = (4 * (B * c * h * h + B * cout * h * h // (4 if pool else 1) + cout)
+                          + wbytes * 9 * c * cout)
+            got = fn()
+            again = fn()
+            if got.dtype == torch.uint8 if torch.is_tensor(got) else False:
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{label}: two runs on one input differ")
+            else:
+                check_two_runs(label, got, again)
+            del again
+            want = plain()
+            got_t, want_t = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            err, extra = 0.0, {}
+            for g, t in zip(got_t, want_t):
+                e, more = check(label, mode, g, t, uint8=g.dtype == torch.uint8,
+                                rgb_fp32=kernel == "packed_conv_rgb")
+                err, extra = max(err, e), {**extra, **more}
+            if kernel == "packed_convpool":
+                n = differing_bits(pool_in_b5_order(pk.packed_conv(x, w, b, "lrelu", mode=mode)),
+                                   got)
+                pool_equal[label] = n
+                print(f"  {label}: packed_conv 'lrelu' pooled in B5's order, {n} values differ")
+                if n:
+                    raise AssertionError(f"{label}: packed_conv 'lrelu' pooled is not "
+                                         "packed_convpool 'lrelu' bit for bit")
+            entry = f"{_counter(kernel, mode)}[narrow]"
+            source = kernel + ("" if mode == "high" else "_bf16")
+            rows.setdefault(entry, (source, NARROW_SOURCES[kernel], []))[2].append({
+                "call": f"{form} {c}->{cout}@{h}", "shape_in": [B, c, h, h],
+                "max_abs_err": err, "bit_equal_runs": True, **extra,
+                "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
+                "flops": flops, "op_flops": passes * flops, "bytes": nbytes, "peak_flops": peak,
+            })
+            del x, got, want, got_t, want_t
+        torch.cuda.empty_cache()
+    entries = assemble_conv_rows([(name, src, rep, calls)
+                                  for name, (src, rep, calls) in rows.items()], B)
+    return entries, {"conv_lrelu_pooled_differing_values": pool_equal}
+
+
+def phase_narrow_refusals(pk, pro_gan, train_mod) -> dict:
+    """What the card still refuses at N's widths, each a ValueError that
+    names the Cout (and ROADMAP.md where a kernel is still to come): Cout 4,
+    a PixelNorm Cout outside {8, 16, 32, 64}, the stage-fused kernels at 16
+    channels, "none" at slabs of 16 and 8, each before any launch; and the
+    train step at N (stage 7) with both packed gates, whose forward runs on
+    the kernels and whose backward needs "none" there."""
+    dev = "cuda"
+    x16 = torch.randn((1, 16, 32, 32), device=dev)
+    x8 = torch.randn((1, 8, 16, 32), device=dev)
+    w = {n: torch.randn((n, 16, 3, 3), device=dev) for n in (4, 16, 24)}
+    b = {n: torch.zeros(n, device=dev) for n in (4, 16, 24)}
+    cases = {
+        "packed_conv Cout 4": (lambda: pk.packed_conv(x16, w[4], b[4], "lrelu"), "Cout=4"),
+        "packed_convpool Cout 4": (lambda: pk.packed_convpool(x16, w[4], b[4]), "Cout=4"),
+        "packed_upconv Cout 4": (lambda: pk.packed_upconv(x16, w[4], b[4]), "Cout=4"),
+        "packed_conv lrelu_norm Cout 24": (
+            lambda: pk.packed_conv(x16, w[24], b[24], "lrelu_norm"), "Cout=24"),
+        "packed_conv_rgb Cout 24": (
+            lambda: pk.packed_conv_rgb(x16, w[24], b[24], torch.zeros((3, 24), device=dev),
+                                       torch.zeros(3, device=dev),
+                                       torch.zeros((1, 3, 16, 16), device=dev), 1.0), "Cout=24"),
+        "packed_conv none Cout 16": (
+            lambda: pk.packed_conv(x16, w[16], b[16], "none"), "ROADMAP.md"),
+        "packed_convpool none Cout 16": (
+            lambda: pk.packed_convpool(x16, w[16], b[16], "none", mode="default"), "ROADMAP.md"),
+        "packed_upconv_conv Cout 16": (
+            lambda: pk.packed_upconv_conv(x8, torch.randn((16, 8, 3, 3), device=dev), b[16],
+                                          torch.randn((16, 16, 3, 3), device=dev), b[16]),
+            "ROADMAP.md"),
+    }
+    cfg = pro_gan.ProGANConfig(**NARROW_CONFIG)
+    state = train_mod.progan_init_state(0, cfg, device=dev)
+    # stage 7 (512²): G's packed stages 6-7 end at 16 channels, D's start there
+    real = torch.zeros((2, 512, 512, 3), device=dev)
+    z = torch.randn((2, cfg.latent_dim), device=dev)
+    cases["progan_train_step at N, stage 7, packed"] = (
+        lambda: train_mod.progan_train_step(state, real, z, 1.0, cfg, 7, packed_d=True,
+                                            packed_g=True, packed_train_mode="highest"),
+        "ROADMAP.md")
+    out = {}
+    pk.reset_launches()
+    for label, (call, needle) in cases.items():
+        try:
+            call()
+        except ValueError as e:
+            if needle not in str(e):
+                raise AssertionError(f"{label}: raised {e!r} without {needle!r}") from e
+            out[label] = str(e)
+            print(f"  {label}: ValueError: {e}")
+        else:
+            raise AssertionError(f"{label}: the card took it")
+    launched = {k: v for k, v in pk.narrow_launches.items() if v}
+    print(f"  narrow launches during the refusals (the train step's forward): {launched}")
+    del state
+    return out
+
+
+def phase_narrow_path(pk, pro_gan, engine_mod) -> tuple[dict, dict]:
+    """generate at N, batch 8, at "high", "fast", None and G's "mid"
+    (``_PACKED_MODES["fast"]`` patched inside, as phase 13): the packed
+    launches a call (NARROW_GENERATE_ALL, NARROW_GENERATE at the grade's
+    counters), img/s and p50; "high" against the unpacked path on the card
+    (+-1 on at most 0.5% of bytes, >= 50 dB), the PSNR of each grade
+    against "high" (a reading: the 50 dB sweep of the reference covered the
+    default widths only). latent_walk of 12 frames at "high": the frames of
+    generate on the same latents, bit for bit. score at "high" and "fast":
+    its launches a call, logits within LOGIT_TOL of the twins', scores/s and
+    p50."""
+    cfg = pro_gan.ProGANConfig(**NARROW_CONFIG)
+    stage = cfg.num_stages - 1
+    if ([cfg.nf(s) for s in range(cfg.num_stages)] != [256, 256, 256, 256, 128, 64, 32, 16, 8]
+            or pro_gan.packed_start_stage(cfg, stage) != 6
+            or any(pro_gan.packed_d_stage_count(cfg, stage, g) != 3
+                   for g in ("high", "fast", "highest"))):
+        raise AssertionError("N's widths or packed gates are not stages 6-8")
+    first = engine_mod.ImageGANEngine(cfg, device="cuda", precision="high", seed=15)
+    latents = [first.sample_latents(BATCH_MAIN) for _ in range(NARROW_CALLS)]
+    path, images, counts = {"config": NARROW_CONFIG, "batch": BATCH_MAIN,
+                            "calls": NARROW_CALLS}, {}, {}
+    saved = pro_gan._PACKED_MODES["fast"]
+    try:
+        for label, grade, kmode in (("high", "high", "high"), ("fast", "fast", "default"),
+                                    ("None", None, "default"), ("fast mid", "fast", "mid")):
+            pro_gan._PACKED_MODES["fast"] = "mid" if label == "fast mid" else saved
+            engine = engine_mod.ImageGANEngine(cfg, g_params=first.g_params,
+                                               d_params=first.d_params, device="cuda",
+                                               precision=grade)
+            engine.generate(latents[0])  # warm-up (cuDNN plans)
+            torch.cuda.synchronize()
+            pk.reset_launches()
+            times = []
+            for z in latents:
+                t0 = time.perf_counter()
+                img = engine.generate(z)
+                times.append(time.perf_counter() - t0)
+            want = {k: 0 for k in pk.launches}
+            want.update({_counter(k, kmode): n * NARROW_CALLS
+                         for k, n in NARROW_GENERATE_ALL.items()})
+            want_narrow = {k: n * NARROW_CALLS for k, n in _narrow(NARROW_GENERATE, kmode).items()}
+            if dict(pk.launches) != want or dict(pk.narrow_launches) != want_narrow:
+                raise AssertionError(f"generate at N, {label}: launched {pk.launches}, "
+                                     f"{pk.narrow_launches}; expected {want}, {want_narrow}")
+            for k, n in pk.narrow_launches.items():
+                counts[k] = counts.get(k, 0) + n
+            images[label] = img
+            _, share, psnr = uint8_agreement(img, images["high"])
+            per_img_ms = sorted(t / BATCH_MAIN * 1e3 for t in times)
+            path[f"generate {label}"] = {
+                "img_per_s": BATCH_MAIN * NARROW_CALLS / sum(times),
+                "p50_ms_per_img": float(np.median(per_img_ms)), "batch_s": times,
+                "psnr_vs_high_db": finite_or_none(psnr), "differing_bytes_vs_high": share,
+                "narrow_launches": dict(pk.narrow_launches),
+            }
+            print(f"  generate at N, {label}: {BATCH_MAIN * NARROW_CALLS / sum(times):.3f} "
+                  f"img/s, p50 {float(np.median(per_img_ms)):.3f} ms/img, PSNR {psnr:.2f} dB vs "
+                  f"\"high\", narrow launches {dict(pk.narrow_launches)}")
+            del engine
+    finally:
+        pro_gan._PACKED_MODES["fast"] = saved
+
+    # "high" against the unpacked path on the card (the last batch)
+    unpacked = engine_mod.generate_fn(first.g_params, latents[-1], 1.0, cfg, stage,
+                                      precision="high", packed=False).cpu().numpy()
+    worst, share, psnr = check_uint8("generate at N, \"high\" vs unpacked", images["high"],
+                                     unpacked)
+    if psnr < PSNR_FLOOR_DB:
+        raise AssertionError(f"generate at N, \"high\": PSNR {psnr:.2f} dB < {PSNR_FLOOR_DB} dB "
+                             "against the unpacked path")
+    path["high_vs_unpacked"] = {"max_abs_diff": worst, "differing_bytes": share,
+                                "psnr_db": finite_or_none(psnr)}
+    path["fast_psnr_vs_high_db"] = path["generate fast"]["psnr_vs_high_db"]
+    path["fast_reaches_50_db"] = (path["fast_psnr_vs_high_db"] is None
+                                  or path["fast_psnr_vs_high_db"] >= PSNR_FLOOR_DB)
+
+    # latent_walk at "high": 12 frames, two chunks (the second padded)
+    z0, z1 = latents[0][0], latents[0][1]
+    frames = first.latent_walk(z0, z1, frames=12)
+    t = torch.linspace(0.0, 1.0, 12, dtype=z0.dtype, device=z0.device)[:, None]
+    z = torch.nn.functional.pad(z0[None, :] * (1.0 - t) + z1[None, :] * t, (0, 0, 0, 4))
+    direct = np.concatenate([first.generate(zc) for zc in z.split(8)])[:12]
+    if not np.array_equal(frames, direct):
+        raise AssertionError("latent_walk at N: frames differ from generate on their latents")
+    path["latent_walk_frames_equal_generate"] = True
+    print("  latent_walk at N, 12 frames: equal to generate on the same latents, bit for bit")
+
+    # score at "high" and "fast" (D's "mid") on the "high" images
+    reals = torch.as_tensor(images["high"], device="cuda").float() / 127.5 - 1.0
+    for grade, kmode in (("high", "high"), ("fast", "mid")):
+        engine = engine_mod.ImageGANEngine(cfg, g_params=first.g_params, d_params=first.d_params,
+                                           device="cuda", precision=grade)
+        engine.score(reals)  # warm-up
+        torch.cuda.synchronize()
+        pk.reset_launches()
+        times, logits = [], None
+        for _ in range(NARROW_CALLS):
+            t0 = time.perf_counter()
+            logits = engine.score(reals)
+            times.append(time.perf_counter() - t0)
+        want = {k: 0 for k in pk.launches}
+        want.update({_counter(k, kmode): n * NARROW_CALLS for k, n in NARROW_SCORE_ALL.items()})
+        want_narrow = {k: n * NARROW_CALLS for k, n in _narrow(NARROW_SCORE, kmode).items()}
+        if dict(pk.launches) != want or dict(pk.narrow_launches) != want_narrow:
+            raise AssertionError(f"score at N, {grade}: launched {pk.launches}, "
+                                 f"{pk.narrow_launches}; expected {want}, {want_narrow}")
+        for k, n in pk.narrow_launches.items():
+            counts[k] = counts.get(k, 0) + n
+        with swap_in_plain_twins(pk, ["packed_conv", "packed_convpool"]):
+            twins = engine.score(reals)
+        err = check_logits(f"score at N, {grade}, vs the twins", logits, twins)
+        per_call_ms = sorted(t * 1e3 for t in times)
+        path[f"score {grade}"] = {
+            "scores_per_s": BATCH_MAIN * NARROW_CALLS / sum(times),
+            "p50_ms_per_call": float(np.median(per_call_ms)), "call_s": times,
+            "logits_vs_twins_max_abs_diff": err, "narrow_launches": dict(pk.narrow_launches),
+        }
+        print(f"  score at N, {grade}: {BATCH_MAIN * NARROW_CALLS / sum(times):.3f} scores/s, "
+              f"p50 {float(np.median(per_call_ms)):.3f} ms a call of {BATCH_MAIN}")
+        del engine
+    del first
+    # each entry's launches: its counter's narrow launches in these runs
+    entry_counts = {}
+    for key, n in counts.items():
+        name = key.split("[")[0] + "[narrow]"
+        entry_counts[name] = entry_counts.get(name, 0) + n
+    return entry_counts, path
+
+
+_T0 = time.perf_counter()
+
+
+def phase_line(text: str) -> None:
+    """A phase's heading, with the seconds since the script started."""
+    print(f"{text} [{time.perf_counter() - _T0:.1f} s]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4019,7 +4448,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    print("phase 1: build")
+    phase_line("phase 1: build")
     t0 = time.perf_counter()
     logs = _build.build(ptxas_info=True)
     print(f"  built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
@@ -4028,19 +4457,19 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  [{name}] {line.strip()}")
 
-    print("phase 2: generator kernels vs plain twins (batch 2, main-path shapes)")
+    phase_line("phase 2: generator kernels vs plain twins (batch 2, main-path shapes)")
     kernels = phase_kernels(pk, pro_gan)
     torch.cuda.empty_cache()
 
-    print("phase 3: main path, ImageGANEngine.generate at 1024²")
+    phase_line("phase 3: main path, ImageGANEngine.generate at 1024²")
     counts, main = phase_main_path(pk, pro_gan, engine_mod)
     torch.cuda.empty_cache()
 
-    print("phase 4: discriminator and denorm kernels vs plain twins (path I's shapes)")
+    phase_line("phase 4: discriminator and denorm kernels vs plain twins (path I's shapes)")
     kernels += phase_d_kernels(pk, image_ops, pro_gan)
     torch.cuda.empty_cache()
 
-    print("phase 5: path I, ImageGANEngine.score / latent_walk / use_pallas / "
+    phase_line("phase 5: path I, ImageGANEngine.score / latent_walk / use_pallas / "
           "generate_images from a checkpoint at 1024²")
     score_counts, score_path = phase_score_path(
         pk, image_ops, pro_gan, engine_mod, image_checkpoint_mod, cli_infer,
@@ -4048,22 +4477,22 @@ def main() -> int:
     counts.update(score_counts)
     torch.cuda.empty_cache()
 
-    print(f"phase 6: rank kernels vs plain twins (N = {KG_ENTITIES:,}, D = {KG_DIM})")
+    phase_line(f"phase 6: rank kernels vs plain twins (N = {KG_ENTITIES:,}, D = {KG_DIM})")
     kernels += phase_rank_kernels(rf, rank_ops)
     torch.cuda.empty_cache()
 
-    print(f"phase 7: KG path and path II (PROBGAN_BF16_RANK=1), InferenceEngine at "
+    phase_line(f"phase 7: KG path and path II (PROBGAN_BF16_RANK=1), InferenceEngine at "
           f"N = {KG_ENTITIES:,}")
     kg_counts, kg = phase_kg_path(rf, inference_mod, checkpoint_mod, cli_infer,
                                   make_kg_checkpoint)
     counts.update(kg_counts)
     torch.cuda.empty_cache()
 
-    print("phase 8: training kernels vs plain twins (batch 2, the 1024² train step's shapes)")
+    phase_line("phase 8: training kernels vs plain twins (batch 2, the 1024² train step's shapes)")
     kernels += phase_train_kernels(pk, packed_vjp, pro_gan)
     torch.cuda.empty_cache()
 
-    print("phase 9: path III, progan_train_step at 1024² and kg_train_step at "
+    phase_line("phase 9: path III, progan_train_step at 1024² and kg_train_step at "
           f"N = {KG_ENTITIES:,}")
     train_counts, train = phase_train_path(pk, pro_gan, train_mod, train_state_mod, tree_mod)
     # the earlier paths' entries keep the counts of their own runs
@@ -4072,12 +4501,12 @@ def main() -> int:
         counts[name] = train_counts[name]
     torch.cuda.empty_cache()
 
-    print("phase 10: stage-fused generator kernels vs plain twins and the two-kernel pair "
+    phase_line("phase 10: stage-fused generator kernels vs plain twins and the two-kernel pair "
           "(batch 2, the 1024² generator's shapes)")
     kernels += phase_fused_kernels(pk, pro_gan)
     torch.cuda.empty_cache()
 
-    print("phase 11: path IV under PROBGAN_STAGE_FUSED=1: generate, latent_walk and "
+    phase_line("phase 11: path IV under PROBGAN_STAGE_FUSED=1: generate, latent_walk and "
           f"PROBGAN_PACKED=0 at 1024², the image trainer CLI at 1024², the KG trainer CLI at "
           f"N = {KG_ENTITIES:,}")
     fused_counts, fused_path = phase_fused_path(pk, rf, pro_gan, engine_mod, cli_infer,
@@ -4085,7 +4514,7 @@ def main() -> int:
     counts.update(fused_counts)
     torch.cuda.empty_cache()
 
-    print("phase 12: the grades: kernel mode \"default\" of B1, B2 and B3 vs their bf16 twins "
+    phase_line("phase 12: the grades: kernel mode \"default\" of B1, B2 and B3 vs their bf16 twins "
           "(batch 2); generate at 1024² at \"high\", \"fast\", None and bf16; score at None")
     kernels += phase_grades_kernels(pk, pro_gan)
     torch.cuda.empty_cache()
@@ -4093,7 +4522,7 @@ def main() -> int:
     counts.update(grade_counts)
     torch.cuda.empty_cache()
 
-    print("phase 13: kernel mode \"mid\" of B1, B2, B3 and B5 vs their twins; score at "
+    phase_line("phase 13: kernel mode \"mid\" of B1, B2, B3 and B5 vs their twins; score at "
           "\"fast\", progan_train_step at packed_train_mode \"mid\" and generate at G's "
           "\"mid\" and \"default+mid\" at 1024²")
     kernels += phase_mid_kernels(pk, pro_gan)
@@ -4111,7 +4540,7 @@ def main() -> int:
         counts[k] = score_mid_counts[k]
     torch.cuda.empty_cache()
 
-    print("phase 14: kernel mode \"default\" of the backward (B1 \"lrelu\", B2 \"lrelu\"/"
+    phase_line("phase 14: kernel mode \"default\" of the backward (B1 \"lrelu\", B2 \"lrelu\"/"
           "\"none\", B5, B6) vs their twins; progan_train_step at packed_train_mode "
           "\"default\" and dtype bf16 at 1024²; the image trainer CLI with --fast")
     kernels += phase_default_kernels(pk, packed_vjp, pro_gan)
@@ -4125,7 +4554,7 @@ def main() -> int:
         "packed_convpool_bf16[lrelu]", "packed_convpool_bf16[none]", "packed_conv_wgrad_bf16")})
     torch.cuda.empty_cache()
 
-    print("phase 15: kernel modes \"default\" and \"mid\" of the stage-fused kernels B10/B11 "
+    phase_line("phase 15: kernel modes \"default\" and \"mid\" of the stage-fused kernels B10/B11 "
           "vs their twins and the bf16 pair; under PROBGAN_STAGE_FUSED=1 generate at "
           "\"fast\", None, \"mid\" and \"default+mid\", latent_walk, generate_images and the "
           "train step at \"default\"")
@@ -4136,18 +4565,36 @@ def main() -> int:
         train_mod, tree_mod)
     # the entries' launches: generate's at "fast" ("default") and G's "mid"
     counts.update(fused_bf16_counts)
+    torch.cuda.empty_cache()
+
+    phase_line("phase 16: the narrow generator N (fmap_base 2048, fmap_max 256 at 1024²): B1, "
+          "B2, B3 and B5 at 16 and 8 channels vs their twins at \"high\", \"default\" and "
+          "\"mid\"; generate at \"high\", \"fast\", None and G's \"mid\", latent_walk, "
+          "score at \"high\" and \"fast\"; what the card still refuses at N")
+    narrow_kernels, narrow = phase_narrow_kernels(pk, pro_gan)
+    torch.cuda.empty_cache()
+    narrow_counts, narrow_path = phase_narrow_path(pk, pro_gan, engine_mod)
+    narrow["path"] = narrow_path
+    torch.cuda.empty_cache()
+    narrow["refusals"] = phase_narrow_refusals(pk, pro_gan, train_mod)
+    # an instantiation no serving path at N launches (B5 at "default": the
+    # discriminator gate declines that grade) stays out of the kernels line
+    narrow["off_path_kernels"] = [k for k in narrow_kernels if k["name"] not in narrow_counts]
+    kernels += [k for k in narrow_kernels if k["name"] in narrow_counts]
+    counts.update(narrow_counts)
     for k in kernels:
         k["launches"] = counts[k["name"]]
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on its main path")
 
+    phase_line("phases 1-16 done:")
     print(card_line())
     print(json.dumps({"kernels": kernels, "main_path": main, "score_path": score_path,
                       "kg_path": kg, "train_path": train, "fused_path": fused_path,
                       "grades": grades, "mid": {"score": score_mid, "train": train_mid,
                                                 "generate": gen_mid},
                       "default_backward": {"train": train_default, "fast_cli": fast_cli},
-                      "fused_bf16": fused_bf16, "card": card},
+                      "fused_bf16": fused_bf16, "narrow": narrow, "card": card},
                      allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,6 +42,14 @@
 //    B1: 58,240 and 75,520 (Cout 64), 53,120 and 85,760 (Cout 32). Two blocks
 //    an SM (at most 128 registers a thread) but at "mid" with 32 channels,
 //    one: one block's staging overlaps the other's products.
+//  * Narrow slabs: at 16 and 8 channels (fmap_base 2048 at 1024²: 16 and 8
+//    channels at 512² and 1024²) the tile keeps the 32-channel geometry
+//    (16 rows, MT = 4 m16 tiles a warp) with NT = 2 or 1 n8 tiles: 32 or 16
+//    sums a thread. Input C is any multiple of 8: the last chunk of C % 32
+//    channels is staged with zeros past C (its weights are zero there too,
+//    from the wrapper) and at 16 or fewer runs one k16 half, so C = 16 is one
+//    k16 step and C = 8 one step half zeros. Zero products change no fp32
+//    sum, and a chunk of 32 channels is staged and summed as before.
 //  * Every output is summed in one order (chunks ascending, taps, channel
 //    halves, terms), with no split over K and no atomics: a run gives the
 //    bits of the run before it, and B5 "mid" sums each pixel as B2 "mid"
@@ -102,7 +110,8 @@ __device__ __forceinline__ float split2(float v) {
 // COUT: the output channels of a block (a slab of Cout).
 template <int COUT>
 struct BfTile {
-  static_assert(COUT == 32 || COUT == 64, "the bf16 kernels are built for 32 or 64 channels");
+  static_assert(COUT == 8 || COUT == 16 || COUT == 32 || COUT == 64,
+                "the bf16 kernels are built for 8, 16, 32 or 64 channels");
   static constexpr int TH = COUT == 64 ? 8 : 16;  // rows a tile (B1: input rows)
   static constexpr int RW = TH / 8;               // rows a warp
   static constexpr int MT = 2 * RW;               // m16 tiles a warp
@@ -115,25 +124,30 @@ struct BfTile {
 // rounded (NTERM 1) or their two terms, x_hi then x_lo a plane (NTERM 2).
 // Work item = (patch row, group of 8 columns, group of 8 channels); in a warp
 // lane l takes column l % 8 and channels 2 * (l / 8), + 1 of its group, two
-// coalesced loads and one 32-bit store a plane, on 32 distinct banks.
-template <int SR, int NG, int NTERM>
+// coalesced loads and one 32-bit store a plane, on 32 distinct banks. The
+// last chunk of a C that is no multiple of 32 has c_left < kCK channels: its
+// groups past them are staged as zeros, and only the NQ groups of the k16
+// halves that the mma reads (the first half alone at c_left <= 16).
+template <int SR, int NG, int NTERM, int NQ = kCK / 8>
 __device__ __forceinline__ void stage_x(unsigned* __restrict__ xs, const float* __restrict__ xb,
-                                        int c0, int H, int W, int row0, int col0) {
+                                        int c0, int H, int W, int row0, int col0,
+                                        int c_left = kCK) {
   static_assert(NTERM == 1 || NTERM == 2, "one bf16 pass or the 2-term split");
+  static_assert(NQ == 2 || NQ == 4, "one or both k16 halves of a chunk");
   constexpr int kPlane = SR * 8 * NG * kRowWords;
-  constexpr int kItems = SR * NG * (kCK / 8);
+  constexpr int kItems = SR * NG * NQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int pix = lane & 7, cp = lane >> 3;
   const size_t plane = static_cast<size_t>(H) * W;
   for (int it = warp; it < kItems; it += kThreads / 32) {
-    const int q = it % (kCK / 8);
-    const int rj = it / (kCK / 8);
+    const int q = it % NQ;
+    const int rj = it / NQ;
     const int j = rj % NG;
     const int r = rj / NG;
     const int gy = row0 + r, gx = col0 + 8 * j + pix;
     const int c = c0 + 8 * q + 2 * cp;
     float v0 = 0.f, v1 = 0.f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+    if (8 * q < c_left && gy >= 0 && gy < H && gx >= 0 && gx < W) {
       const float* p = xb + c * plane + static_cast<size_t>(gy) * W + gx;
       v0 = __ldg(p);
       v1 = __ldg(p + plane);
@@ -257,6 +271,25 @@ __device__ __forceinline__ int mtile_col(int q) {
   return LAYOUT == kRow16 ? 16 * (q % 2) : 8 * (q % 4);
 }
 
+// The chunks of C input channels: C / kCK, and one more, partial, where C %
+// kCK != 0 (the weights' [chunk] dimension, ops/packed.py conv_bf16_weights).
+__device__ __forceinline__ int bf16_chunks(int C) { return (C + kCK - 1) / kCK; }
+
+// stage_x for the chunk at c0 of C channels: the whole chunk, or the groups
+// of the last, partial one.
+template <int SR, int NG, int NTERM>
+__device__ __forceinline__ void stage_chunk(unsigned* __restrict__ xs,
+                                            const float* __restrict__ xb, int c0, int C, int H,
+                                            int W, int row0, int col0) {
+  const int c_left = C - c0;
+  if (c_left >= kCK)
+    stage_x<SR, NG, NTERM>(xs, xb, c0, H, W, row0, col0);
+  else if (c_left > kCK / 2)
+    stage_x<SR, NG, NTERM, 4>(xs, xb, c0, H, W, row0, col0, c_left);
+  else
+    stage_x<SR, NG, NTERM, 2>(xs, xb, c0, H, W, row0, col0, c_left);
+}
+
 // B2's, B3's and B5's main loop: the tile's sums of a 3x3 SAME conv,
 // acc[m16 tile][n8 tile][4], m16 tile mt of the warp at mtile_row/col.
 template <int COUT, int NTERM = 1, int LAYOUT = kRow16>
@@ -281,14 +314,16 @@ __device__ __forceinline__ void conv_bf16_tile(float (&acc)[BfTile<COUT>::MT][Bf
   for (int c0 = 0; c0 < C; c0 += kCK) {
     stage_w(ws, wk + static_cast<size_t>(c0 / kCK) * K::kWWords, K::kWWords);
     cp_async_commit();
-    stage_x<K::SR, K::NG, NTERM>(xs, xb, c0, H, W, y0 - 1, x0 - 4);
+    stage_chunk<K::SR, K::NG, NTERM>(xs, xb, c0, C, H, W, y0 - 1, x0 - 4);
     cp_async_wait(0);
     __syncthreads();
+    const int halves = C - c0 > kCK / 2 ? 2 : 1;  // block-uniform
 #pragma unroll 1
     for (int tap = 0; tap < 9; ++tap) {
       const int ky = tap / 3, kx = tap % 3;
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) {  // channels 16 * kk .. + 15 of the chunk
+        if (kk >= halves) break;
         unsigned bf[T::NT][2];
         load_b<T::NT>(bf, ws + tap * COUT * kRowWords + 8 * kk);
 #pragma unroll

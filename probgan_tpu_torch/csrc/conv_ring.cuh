@@ -44,7 +44,10 @@
 //   B1 Cout 32: x 16 ch x 17 rows x 48 + w 16 x 8 x 32  = 17,152 a stage
 // times 3 stages x 4 B: 195,072 / 207,360 / 139,776 / 205,824 B, each under
 // the 232,448 B a block may have; a second block (plus the 1 KB the card
-// reserves for each) would not fit, so the design is one block an SM.
+// reserves for each) would not fit, so the design is one block an SM. At
+// Cout 16 and 8 (blocks of 128 and 64 threads on the 32-channel tile, 8
+// input channels a stage) a ring is 82,944 to 90,624 B and two blocks share
+// an SM (ops/packed.py ring_blocks_per_sm).
 //
 // The walk is generic over the tile (ring_walk takes the tile's copies,
 // FMAs and epilogue from a struct): fused_ring.cuh's stage-fused tiles walk
@@ -57,13 +60,13 @@
 namespace probgan {
 
 // One thread's share of a stage's patch copies: N 16-byte chunks of the
-// [CC][SH][XW] patch, chunk idx = threadIdx.x + k * kThreads in
+// [CC][SH][XW] patch, chunk idx = threadIdx.x + k * THREADS in
 // (channel, row, chunk) order. meta packs the chunk's shared-memory offset
 // (bits 0-15), its patch row (16-21), its chunk in the row (22-25) and its
 // channel (26-30), worked out once; -1 marks no copy. A step adds the
 // chunk's global offset, channel * H * W + row * W + 4 * chunk, to the
 // patch's corner.
-template <int CC, int N>
+template <int CC, int N, int THREADS = kThreads>
 struct RingCopies {
   int meta[N];
 
@@ -74,7 +77,7 @@ struct RingCopies {
                   "the fields of meta");
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-      const int idx = threadIdx.x + k * kThreads;
+      const int idx = threadIdx.x + k * THREADS;
       const int ch = idx % kChunks;
       const int rc = idx / kChunks;
       const int r = rc % SH;
@@ -112,12 +115,12 @@ struct RingCopies {
 
 // 4 * N4 floats of weights, contiguous in global and in shared memory, 16
 // bytes a copy; the first `valid_n` floats are copied, the rest zeroed.
-template <int N4>
+template <int N4, int THREADS = kThreads>
 __device__ __forceinline__ void ring_copy_weights(float* ws, const float* __restrict__ src,
                                                   const float* __restrict__ any, int valid_n) {
 #pragma unroll
-  for (int k = 0; k < (N4 + kThreads - 1) / kThreads; ++k) {
-    const int e = threadIdx.x + k * kThreads;
+  for (int k = 0; k < (N4 + THREADS - 1) / THREADS; ++k) {
+    const int e = threadIdx.x + k * THREADS;
     if (e < N4) {
       const bool valid = 4 * e < valid_n;
       cp_async16(ws + 4 * e, valid ? src + 4 * e : any, valid);
@@ -203,7 +206,9 @@ __device__ __forceinline__ void ring_walk(Conv& cv, float* smem, int n_tiles, Cl
 // so the thread's 10 input columns sit at 8*(pg%4) + 3 .. + 12: one scalar,
 // two aligned float4 and one scalar read. Rows 44 floats apart (12 mod 32):
 // at Cout 32 a warp spans two rows, whose float4 reads then fall on disjoint
-// banks.
+// banks. A stage holds 16 input channels at 32 and 64 output channels and 8
+// at 16 and 8 (ring_cc in ops/packed.py), whose blocks of 128 and 64
+// threads keep the 32-channel patch: 89,856 and 82,944 B, two blocks an SM.
 template <int COUT, bool NORM>
 struct ConvRing {
   using T = Tile<COUT>;
@@ -211,14 +216,14 @@ struct ConvRing {
   static constexpr int XW = T::TW + 8;
   static constexpr int SW = 44;
   static constexpr int XC = SH * SW;          // floats of one channel's patch
-  static constexpr int kCC = 16;              // input channels a stage
+  static constexpr int kCC = COUT >= 32 ? 16 : 8;  // input channels a stage
   static constexpr int kStages = 3;
   static constexpr int kAcc = kTM, kPhases = 1;
   static constexpr int kX = kCC * XC;
   static constexpr int kWc = 9 * COUT;        // weights of one input channel
   static constexpr int kStage = kX + kCC * kWc;
   static constexpr int kBytes = static_cast<int>(sizeof(float)) * kStages * kStage;
-  static constexpr int kXPer = (kCC * SH * (XW / 4) + kThreads - 1) / kThreads;
+  static constexpr int kXPer = (kCC * SH * (XW / 4) + T::THREADS - 1) / T::THREADS;
   static_assert(kX % 4 == 0 && kStage % 4 == 0, "16-byte aligned stage parts");
 
   const float* x;
@@ -226,7 +231,7 @@ struct ConvRing {
   const float* bias;
   float* y;
   int C, H, W, n_slabs, tiles_x, tiles_y, n_chunks, cg, pg;
-  RingCopies<kCC, kXPer> copies;
+  RingCopies<kCC, kXPer, T::THREADS> copies;
 
   __device__ __forceinline__ ConvRing(const float* x_, const float* w_, const float* b_,
                                       float* y_, int C_, int H_, int W_, int n_slabs_)
@@ -255,8 +260,8 @@ struct ConvRing {
         (static_cast<long long>(b) * C + c0) * H * W + static_cast<long long>(y0 - 1) * W + x0 - 4;
     copies.template issue<XW / 4>(stage, x, corner, y0 - 1, H, W, x0 > 0, x0 + T::TW < W,
                                  C - c0);
-    ring_copy_weights<kCC * kWc / 4>(stage + kX, w + (static_cast<size_t>(slab) * C + c0) * kWc,
-                                     w, (C - c0) * kWc);
+    ring_copy_weights<kCC * kWc / 4, T::THREADS>(
+        stage + kX, w + (static_cast<size_t>(slab) * C + c0) * kWc, w, (C - c0) * kWc);
   }
 
   // Channels [c_begin, c_begin + 8) of the stage, in conv3x3_rows' order.
@@ -357,8 +362,11 @@ struct ConvRgbRing : ConvRing<COUT, true> {
 // output columns 2*j0 + 8*(pg%4) + 0..7 (acc[2q + px]). Staged rows i0+py-1
 // .. i0+py+TH-1; patch column q holds input column j0-4+q, so the thread's 6
 // input columns sit at 4*(pg%4) + 3 .. + 8: one scalar, one aligned float4
-// and one scalar read. Rows 24 floats apart at Cout 64, 48 at Cout 32 (16 mod
-// 32: the warp's two rows on disjoint banks).
+// and one scalar read. Rows 24 floats apart at Cout 64, 48 at Cout 32 and
+// below (16 mod 32: the warp's two rows on disjoint banks). At Cout 16 and 8
+// a stage holds 8 input channels (90,624 and 84,480 B, two blocks an SM), and
+// a thread of their 128- and 64-thread blocks takes the toRGB of 2 and 4
+// input pixels.
 //
 // A 128-bit weight read from shared memory feeds 32 FMAs here (B2: 64), and
 // such a read keeps the shared-memory pipe 4 cycles a warp: per channel and
@@ -373,16 +381,20 @@ struct UpconvRing {
   static constexpr int TJ = T::TW / 2;    // input columns a tile: 16
   static constexpr int SH = TH + 1;
   static constexpr int XW = TJ + 8;
-  static constexpr int SW = COUT == 32 ? 48 : 24;
+  static constexpr int SW = COUT == 64 ? 24 : 48;
   static constexpr int XC = SH * SW;
-  static constexpr int kCC = 16;          // input channels a stage
+  static constexpr int kCC = COUT >= 32 ? 16 : 8;  // input channels a stage
   static constexpr int kStages = 3;
   static constexpr int kAcc = kTM, kPhases = 1;
   static constexpr int kX = kCC * XC;
   static constexpr int kWc = 8 * COUT;    // one parity's pre-summed taps of a channel
   static constexpr int kStage = kX + kCC * kWc;
   static constexpr int kBytes = static_cast<int>(sizeof(float)) * kStages * kStage;
-  static constexpr int kXPer = (kCC * SH * (XW / 4) + kThreads - 1) / kThreads;
+  static constexpr int kXPer = (kCC * SH * (XW / 4) + T::THREADS - 1) / T::THREADS;
+  // input pixels of a tile's toRGB a thread takes: 1, or all of them in
+  // turn at 16 and 8 channels (2 and 4)
+  static constexpr int kRgbPer = (TH * TJ + T::THREADS - 1) / T::THREADS;
+  static_assert(kRgbPer == 1 || kRgbPer * T::THREADS == TH * TJ, "whole toRGB pixels a thread");
   static_assert(kX % 4 == 0 && kStage % 4 == 0, "16-byte aligned stage parts");
 
   const float* x;
@@ -393,8 +405,8 @@ struct UpconvRing {
   float* y;
   float* rgb;
   int C, H, W, tiles_x, tiles_y, n_chunks, cg, pg;
-  float racc[3];
-  RingCopies<kCC, kXPer> copies;
+  float racc[kRgbPer][3];
+  RingCopies<kCC, kXPer, T::THREADS> copies;
 
   __device__ __forceinline__ UpconvRing(const float* x_, const float* wk_, const float* b_,
                                         const float* rgb_w_, const float* rgb_b_, float* y_,
@@ -417,7 +429,8 @@ struct UpconvRing {
   }
 
   // toRGB of the input: the py = 0 tiles own input rows i0..i0+TH-1 (staged
-  // rows 1..TH), one input pixel per thread.
+  // rows 1..TH), one input pixel per thread (threads past TH * TJ none), or
+  // kRgbPer: pixel p = threadIdx.x + q * THREADS, row p / TJ, column p % TJ.
   __device__ __forceinline__ bool rgb_lane(int py) const {
     return rgb_w != nullptr && py == 0 && static_cast<int>(threadIdx.x) < TH * TJ;
   }
@@ -430,8 +443,8 @@ struct UpconvRing {
     const long long corner =
         (static_cast<long long>(b) * C + c0) * H * W + static_cast<long long>(row) * W + j0 - 4;
     copies.template issue<XW / 4>(stage, x, corner, row, H, W, j0 > 0, j0 + TJ < W, C - c0);
-    ring_copy_weights<kCC * kWc / 4>(stage + kX, wk + (static_cast<size_t>(py) * C + c0) * kWc,
-                                     wk, (C - c0) * kWc);
+    ring_copy_weights<kCC * kWc / 4, T::THREADS>(
+        stage + kX, wk + (static_cast<size_t>(py) * C + c0) * kWc, wk, (C - c0) * kWc);
   }
 
   // Channels [c_begin, c_begin + 8) of the stage, in packed_upconv's order:
@@ -441,13 +454,17 @@ struct UpconvRing {
                                             bool with_rgb, float (&acc)[kTM][kTN]) {
     const int pgx = pg % 4;
     const int r = pg / 4;
-    const int pr = threadIdx.x / TJ, pc = threadIdx.x % TJ;
 #pragma unroll 2
     for (int c = c_begin; c < c_begin + 8; ++c) {
       if (with_rgb) {
-        const float v = xs[c * XC + (pr + 1) * SW + pc + 4];
 #pragma unroll
-        for (int k = 0; k < 3; ++k) racc[k] = fmaf(v, __ldg(rgb_w + k * C + c0 + c), racc[k]);
+        for (int q = 0; q < kRgbPer; ++q) {
+          const int p = threadIdx.x + q * T::THREADS;
+          const float v = xs[c * XC + (p / TJ + 1) * SW + p % TJ + 4];
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            racc[q][k] = fmaf(v, __ldg(rgb_w + k * C + c0 + c), racc[q][k]);
+        }
       }
 #pragma unroll
       for (int dy = 0; dy < 2; ++dy) {
@@ -472,7 +489,10 @@ struct UpconvRing {
 
   __device__ __forceinline__ void compute(const float* stage, int t, int chunk,
                                           float (&acc)[kTM][kTN]) {
-    if (chunk == 0) racc[0] = racc[1] = racc[2] = 0.f;
+    if (chunk == 0) {
+#pragma unroll
+      for (int q = 0; q < kRgbPer; ++q) racc[q][0] = racc[q][1] = racc[q][2] = 0.f;
+    }
     const bool with_rgb = rgb_lane(t & 1);
     const int c0 = chunk * kCC;
 #pragma unroll
@@ -484,11 +504,14 @@ struct UpconvRing {
     int b, i0, j0, py;
     tile_of(t, b, i0, j0, py);
     if (rgb_lane(py)) {
-      const int pr = threadIdx.x / TJ, pc = threadIdx.x % TJ;
 #pragma unroll
-      for (int k = 0; k < 3; ++k)
-        rgb[((static_cast<size_t>(b) * 3 + k) * H + i0 + pr) * W + j0 + pc] =
-            racc[k] + __ldg(rgb_b + k);
+      for (int q = 0; q < kRgbPer; ++q) {
+        const int p = threadIdx.x + q * T::THREADS;
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          rgb[((static_cast<size_t>(b) * 3 + k) * H + i0 + p / TJ) * W + j0 + p % TJ] =
+              racc[q][k] + __ldg(rgb_b + k);
+      }
     }
     if constexpr (NORM)
       bias_lrelu_norm<COUT>(acc, bias, cg);

@@ -8,14 +8,17 @@
 // final stage's toRGB -> blend -> uint8 tail.
 //
 // Every kernel is an implicit GEMM on the CUDA cores in fp32: M = output
-// pixels, N = output channels (32 or 64), K = taps x input channels. A block
-// of 256 threads owns a tile of output pixels and ALL output channels, so
-// PixelNorm (a mean over channels) never leaves the block: a thread holds
-// 8 pixels x 8 channels in registers, and the COUT/8 lanes that share a
-// pixel group are neighbours in one warp and reduce sum(x^2) with xor
-// shuffles. In conv3x3_accumulate input channels stream through shared
-// memory 8 at a time, with the matching weight slab beside them (the full
-// weights, up to 512 KB, do not fit in a block's 227 KB); conv_ring.cuh is
+// pixels, N = output channels (8, 16, 32 or 64), K = taps x input channels.
+// A block owns a tile of output pixels and ALL output channels, so PixelNorm
+// (a mean over channels) never leaves the block: a thread holds 8 pixels x 8
+// channels in registers, and the COUT/8 lanes that share a pixel group are
+// neighbours in one warp and reduce sum(x^2) with xor shuffles. A block is
+// 256 threads at 32 and 64 channels; at 16 and 8 it keeps the 32-channel
+// tile's 64 pixel groups (16 x 32 pixels) with 128 and 64 threads, so that
+// its halo patch stays the size of the 32-channel one. In
+// conv3x3_accumulate input channels stream through shared memory 8 at a
+// time, with the matching weight slab beside them (the full weights, up to
+// 512 KB, do not fit in a block's 227 KB); conv_ring.cuh is
 // the pipelined form of the same loop, with the same bits.
 #pragma once
 
@@ -23,7 +26,7 @@
 
 namespace probgan {
 
-constexpr int kThreads = 256;  // threads per block
+constexpr int kThreads = 256;  // threads per block at 32 and 64 channels
 constexpr int kCC = 8;         // input channels staged per shared-memory step
 constexpr int kTM = 8;         // output pixels per thread, contiguous in a row
 constexpr int kTN = 8;         // output channels per thread
@@ -52,11 +55,13 @@ struct SplitClock {
 
 template <int COUT>
 struct Tile {
-  static_assert(COUT == 32 || COUT == 64, "kernels are built for 32 or 64 output channels");
-  static constexpr int NCG = COUT / kTN;      // lanes sharing one pixel group: 4 or 8
-  static constexpr int NPG = kThreads / NCG;  // pixel groups per block: 64 or 32
-  static constexpr int TW = 4 * kTM;          // output columns per block (4 groups across)
-  static constexpr int TH = NPG / 4;          // output rows per block: 16 or 8
+  static_assert(COUT == 8 || COUT == 16 || COUT == 32 || COUT == 64,
+                "kernels are built for 8, 16, 32 or 64 output channels");
+  static constexpr int NCG = COUT / kTN;            // lanes sharing one pixel group: 1 to 8
+  static constexpr int NPG = COUT == 64 ? 32 : 64;  // pixel groups per block
+  static constexpr int THREADS = NPG * NCG;         // 64, 128, 256 or 256
+  static constexpr int TW = 4 * kTM;                // output columns per block (4 groups across)
+  static constexpr int TH = NPG / 4;                // output rows per block: 16, or 8 at 64
 };
 
 // Output channel of a lane's n-th accumulator: two runs of 4, at 4*cg and
@@ -80,9 +85,9 @@ __device__ __forceinline__ void fma8(float (&a)[kTN], float v, const float4& w0,
   a[7] = fmaf(v, w1.w, a[7]);
 }
 
-// Sum over the NCG lanes of a pixel group. Every lane adds the same two
-// operands at every level (a + b == b + a in IEEE), so all lanes get the
-// same bits.
+// Sum over the NCG lanes of a pixel group (none to add at NCG = 1). Every
+// lane adds the same two operands at every level (a + b == b + a in IEEE),
+// so all lanes get the same bits.
 template <int COUT>
 __device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
@@ -224,7 +229,7 @@ __device__ __forceinline__ void conv3x3_accumulate(const float* __restrict__ xb,
   const int pg = tid / T::NCG;
 
   for (int c0 = 0; c0 < C; c0 += kCC) {
-    for (int e = tid; e < kCC * SH * PW; e += kThreads) {
+    for (int e = tid; e < kCC * SH * PW; e += T::THREADS) {
       const int col = e % PW;
       const int t = e / PW;
       const int r = t % SH;
@@ -237,7 +242,7 @@ __device__ __forceinline__ void conv3x3_accumulate(const float* __restrict__ xb,
     }
     const float4* wsrc = reinterpret_cast<const float4*>(w + static_cast<size_t>(c0) * 9 * COUT);
     float4* wdst = reinterpret_cast<float4*>(&ws[0][0][0]);
-    for (int e = tid; e < kCC * 9 * COUT / 4; e += kThreads) wdst[e] = __ldg(wsrc + e);
+    for (int e = tid; e < kCC * 9 * COUT / 4; e += T::THREADS) wdst[e] = __ldg(wsrc + e);
     __syncthreads();
     if (clk) clk->lap(kLapWait);
 

@@ -21,8 +21,13 @@
 // 0.577 ms for the 38.7 GFLOP shapes at batch 2 (32 -> 32 at 1024^2,
 // 64 -> 64 at 512^2), 1.154 ms for the 77.3 GFLOP ones (the recompute's
 // 32 -> 64 at 1024^2, 64 -> 128 at 512^2) at 67 TFLOP/s, against 0.08-0.24
-// ms of bytes. Without PixelNorm the walk takes slabs of 64 or 32 output
-// channels, so "lrelu" takes any Cout % 32 == 0.
+// ms of bytes. Without PixelNorm the walk takes slabs of 64, 32, 16 or 8
+// output channels (the largest that divides Cout), so "lrelu" takes any
+// Cout % 8 == 0; "lrelu_norm" takes Cout 8, 16, 32 or 64 in one slab. At 16
+// and 8 (the narrow generators' late stages, e.g. fmap_base 2048 at 1024²:
+// 16 -> 16 at 512², 8 -> 8 at 1024²) a block is 128 or 64 threads on the
+// 32-channel tile (conv_tile.cuh Tile), 8 input channels a ring stage, two
+// blocks an SM.
 //
 // What held the old loop (conv3x3_accumulate, which this kernel ran
 // before the ring) at 41-54% of that
@@ -87,7 +92,7 @@ enum Epilogue { kLreluNorm = 0, kLrelu = 1, kNone = 2 };
 // ---------------------------------------------------------------------------
 
 template <int COUT, bool NORM>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Tile<COUT>::THREADS, 1)
     packed_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
                        const float* __restrict__ bias, float* __restrict__ y, int C, int H,
                        int W, int n_slabs, int n_tiles) {
@@ -112,8 +117,8 @@ int launch_ring(const float* x, const float* w, const float* bias, float* y, int
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<n_blocks, kThreads, smem, stream>>>(x, w, bias, y, C, H, W, n_slabs,
-                                               static_cast<int>(n_tiles));
+  kernel<<<n_blocks, Tile<COUT>::THREADS, smem, stream>>>(x, w, bias, y, C, H, W, n_slabs,
+                                                          static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -341,12 +346,13 @@ int launch_none(const float* x, const float* wk, const float* bias, float* y, in
 
 }  // namespace probgan
 
-// x [B][C][H][W], w [Cout/CT][C][3][3][CT] (eq-LR scaled; CT = 64 when Cout is
-// a multiple of 64, else 32: for Cout 32 or 64 that is [C][3][3][Cout]),
-// bias [Cout] -> y [B][Cout][H][W]; epilogue 0 = lrelu_norm (Cout 32 or 64
-// only), 1 = lrelu, 2 = none. Every epilogue takes the tiling the caller
-// picked (ops/packed.py:conv_tiling): o_slab 64 with rows 8 (Cout % 64 == 0)
-// or o_slab 32 with rows 16, CT == o_slab, and n_blocks persistent blocks;
+// x [B][C][H][W], w [Cout/CT][C][3][3][CT] (eq-LR scaled; CT the largest of
+// 64, 32, 16 and 8 that divides Cout: for Cout 8, 16, 32 or 64 that is
+// [C][3][3][Cout]), bias [Cout] -> y [B][Cout][H][W]; epilogue 0 =
+// lrelu_norm (Cout 8, 16, 32 or 64 only), 1 = lrelu, 2 = none (CT 32 or 64
+// only). Every epilogue takes the tiling the caller picked
+// (ops/packed.py:conv_tiling): o_slab = CT with rows 8 at 64 and 16 below,
+// and n_blocks persistent blocks;
 // "lrelu_norm" and "lrelu" also the ring's dynamic shared memory in bytes
 // (ops/packed.py:conv_ring_bytes, checked against the kernel's); x and w
 // 16-byte aligned. Returns the cudaError_t of the launch (0 = launched).
@@ -354,18 +360,25 @@ extern "C" int probgan_packed_conv(const float* x, const float* w, const float* 
                                    int B, int C, int H, int W, int cout, int epilogue,
                                    int o_slab, int rows, int n_blocks, int smem, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  const bool wide = o_slab == 64 && rows == 8 && cout % 64 == 0;
-  const bool narrow = o_slab == 32 && rows == 16 && cout % 64 != 0;
-  if (B < 1 || C < 8 || C % 8 || cout < 32 || cout % 32 || W < probgan::kNoneTW ||
-      W % probgan::kNoneTW || H < rows || n_blocks < 1 || !(wide || narrow))
+  if (cout < 8 || cout % 8) return cudaErrorInvalidValue;
+  const int slab = cout % 64 == 0 ? 64 : cout % 32 == 0 ? 32 : cout % 16 == 0 ? 16 : 8;
+  if (B < 1 || C < 8 || C % 8 || W < probgan::kNoneTW || W % probgan::kNoneTW || H < rows ||
+      n_blocks < 1 || o_slab != slab || rows != (slab == 64 ? 8 : 16))
     return cudaErrorInvalidValue;
-  if (epilogue == probgan::kNone)
-    return wide ? probgan::launch_none<64>(x, w, bias, y, B, C, H, W, cout, n_blocks, s)
-                : probgan::launch_none<32>(x, w, bias, y, B, C, H, W, cout, n_blocks, s);
+  if (epilogue == probgan::kNone) {
+    if (slab == 64) return probgan::launch_none<64>(x, w, bias, y, B, C, H, W, cout, n_blocks, s);
+    if (slab == 32) return probgan::launch_none<32>(x, w, bias, y, B, C, H, W, cout, n_blocks, s);
+    return cudaErrorInvalidValue;  // slabs of 16 and 8: not built (ROADMAP.md)
+  }
   if (epilogue != probgan::kLreluNorm && epilogue != probgan::kLrelu)
     return cudaErrorInvalidValue;
-  return wide ? probgan::launch_ring<64>(x, w, bias, y, B, C, H, W, cout, epilogue, n_blocks,
-                                         smem, s)
-              : probgan::launch_ring<32>(x, w, bias, y, B, C, H, W, cout, epilogue, n_blocks,
-                                         smem, s);
+#define PROBGAN_RING(CT) \
+  probgan::launch_ring<CT>(x, w, bias, y, B, C, H, W, cout, epilogue, n_blocks, smem, s)
+  switch (slab) {
+    case 64: return PROBGAN_RING(64);
+    case 32: return PROBGAN_RING(32);
+    case 16: return PROBGAN_RING(16);
+    default: return PROBGAN_RING(8);
+  }
+#undef PROBGAN_RING
 }

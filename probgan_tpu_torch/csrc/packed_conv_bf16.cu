@@ -31,7 +31,10 @@
 // tiles x eight n8 tiles. The epilogue runs on the mma fragments: the 4 lanes
 // of a quad hold all channels of two pixels and reduce PixelNorm's sum by two
 // xor shuffles; the stores of a warp fill whole 32-byte sectors (8
-// neighbouring pixels of 4 channels).
+// neighbouring pixels of 4 channels). Slabs of 16 and 8 channels (a narrow
+// generator's late stages: 16 -> 16 at 512², 8 -> 8 at 1024²) keep the
+// 16-row tile with two or one n8 tiles a warp; C % 32 != 0 ends in a partial
+// chunk (bf16_conv.cuh).
 #include "bf16_conv.cuh"
 
 namespace probgan {
@@ -54,8 +57,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int b = t / tiles_y;
   float acc[T::MT][T::NT][4];
   conv_bf16_tile<COUT, NTERM>(acc, bf16_smem, x,
-                              wk + static_cast<size_t>(slab) * (C / kCK) * K::kWWords, b, y0,
-                              x0, C, H, W);
+                              wk + static_cast<size_t>(slab) * bf16_chunks(C) * K::kWWords, b,
+                              y0, x0, C, H, W);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -87,7 +90,7 @@ int launch(const float* x, const unsigned* wk, const float* bias, float* y, int 
   const int n_slabs = cout / COUT;
   const long long n_tiles =
       static_cast<long long>(B) * (H / BfTile<COUT>::TH) * (W / 32) * n_slabs;
-  if (B < 1 || C < kCK || C % kCK || H % BfTile<COUT>::TH || W < 32 || W % 32 ||
+  if (B < 1 || C < 8 || C % 8 || H % BfTile<COUT>::TH || W < 32 || W % 32 ||
       cout % COUT || n_tiles > 0x7fffffff || smem != K::kBytes)
     return cudaErrorInvalidValue;
   const auto kernel = packed_conv_bf16_kernel<COUT, NTERM, EPI>;
@@ -99,15 +102,24 @@ int launch(const float* x, const unsigned* wk, const float* bias, float* y, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-// A slab of 64 channels where Cout % 64 == 0, else 32 (ops/packed.py
-// _pool_slab); PixelNorm needs all Cout in one slab.
+// A slab of the largest of 64, 32, 16 and 8 channels that divides Cout
+// (ops/packed.py _pool_slab); PixelNorm needs all Cout in one slab. "none"
+// at slabs of 16 and 8 is not built (ROADMAP.md).
 template <int NTERM, int EPI>
 int launch_slab(const float* x, const unsigned* wk, const float* bias, float* y, int B, int C,
                 int H, int W, int cout, int smem, cudaStream_t stream) {
-  if (cout <= 0 || cout % 32 || (EPI == kLreluNorm && cout != 32 && cout != 64))
+  if (cout <= 0 || cout % 8 ||
+      (EPI == kLreluNorm && cout != 8 && cout != 16 && cout != 32 && cout != 64))
     return cudaErrorInvalidValue;
   if (cout % 64 == 0) return launch<64, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
-  return launch<32, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
+  if (cout % 32 == 0) return launch<32, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
+  if constexpr (EPI == kNone) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (cout % 16 == 0)
+      return launch<16, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
+    return launch<8, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
+  }
 }
 
 template <int NTERM>
@@ -124,12 +136,13 @@ int launch_epilogue(const float* x, const unsigned* wk, const float* bias, float
 
 }  // namespace probgan
 
-// x [B][C][H][W] fp32, wk [Cout/slab][C/32][9][slab][40] bf16 (ops/packed.py
-// conv_bf16_weights: eq-LR scaled, rounded to bf16, taps ky*3 + kx, 8 zeros
-// after each run of 32 input channels), bias [Cout] -> y [B][Cout][H][W];
-// terms 1 ("default") or 2 ("mid"); epilogue 0 "lrelu_norm" (Cout 32 or 64),
-// 1 "lrelu", 2 "none" (Cout a multiple of 32); C % 32 == 0,
-// H % (8 or 16) == 0, W % 32 == 0; smem the block's dynamic shared memory in
+// x [B][C][H][W] fp32, wk [Cout/slab][ceil(C/32)][9][slab][40] bf16
+// (ops/packed.py conv_bf16_weights: eq-LR scaled, rounded to bf16, taps
+// ky*3 + kx, 8 zeros after each run of 32 input channels, zeros past C),
+// bias [Cout] -> y [B][Cout][H][W]; terms 1 ("default") or 2 ("mid");
+// epilogue 0 "lrelu_norm" (Cout 8, 16, 32 or 64), 1 "lrelu" (Cout a
+// multiple of 8), 2 "none" (Cout a multiple of 32); C % 8 == 0,
+// H % (8 at a slab of 64, else 16) == 0, W % 32 == 0; smem the block's dynamic shared memory in
 // bytes (ops/packed.py bf16_conv_bytes, checked against the kernel's).
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int probgan_packed_conv_bf16(const float* x, const void* wk, const float* bias,

@@ -26,12 +26,17 @@
 // values per pixel. Every value keeps its fmaf chain in (input channel, ky,
 // kx) order and the lane -> channel map, so the outputs have the bits of the
 // synchronous loop (conv_tile.cuh conv3x3_accumulate) this kernel ran before.
+//
+// Cout 16 and 8 (a narrow generator's last stage, e.g. fmap_base 2048 at
+// 1024²: 8 -> 8 at 1024²) run the same ring on blocks of 128 and 64 threads
+// over the 32-channel tile, 8 input channels a stage, two blocks an SM; a
+// pixel group is 2 lanes or 1, so toRGB's dot takes one shuffle or none.
 #include "conv_ring.cuh"
 
 namespace probgan {
 
 template <int COUT, bool U8>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Tile<COUT>::THREADS, 1)
     packed_conv_rgb_kernel(const float* __restrict__ x, const float* __restrict__ w,
                            const float* __restrict__ bias, const float* __restrict__ rgb_w,
                            const float* __restrict__ rgb_b, const float* __restrict__ prev,
@@ -57,14 +62,14 @@ int launch(const float* x, const float* w, const float* bias, const float* rgb_w
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<n_blocks, kThreads, smem, stream>>>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, C,
-                                               H, W, static_cast<int>(n_tiles));
+  kernel<<<n_blocks, T::THREADS, smem, stream>>>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, C,
+                                                 H, W, static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace probgan
 
-// x [B][C][H][W] (16-byte aligned), w [C][3][3][Cout], bias [Cout],
+// x [B][C][H][W] (16-byte aligned), w [C][3][3][Cout] (Cout 8, 16, 32 or 64), bias [Cout],
 // rgb_w [3][Cout], rgb_b [3], prev [B][3][H/2][W/2] -> out [B][H][W][3],
 // uint8 if emit_uint8 else fp32 pre-tanh RGB; n_blocks persistent blocks
 // (ops/packed.py:persistent_blocks) and the ring's dynamic shared memory in
@@ -77,15 +82,18 @@ extern "C" int probgan_packed_conv_rgb(const float* x, const float* w, const flo
                                        int n_blocks, int smem, void* stream) {
   using namespace probgan;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (cout == 32)
-    return emit_uint8 ? launch<32, true>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W,
-                                         n_blocks, smem, s)
-                      : launch<32, false>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H,
-                                          W, n_blocks, smem, s);
-  if (cout == 64)
-    return emit_uint8 ? launch<64, true>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W,
-                                         n_blocks, smem, s)
-                      : launch<64, false>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H,
-                                          W, n_blocks, smem, s);
-  return cudaErrorInvalidValue;
+#define PROBGAN_RGB(CO)                                                                      \
+  (emit_uint8                                                                                \
+       ? launch<CO, true>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W, n_blocks,  \
+                          smem, s)                                                           \
+       : launch<CO, false>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W, n_blocks, \
+                           smem, s))
+  switch (cout) {
+    case 8: return PROBGAN_RGB(8);
+    case 16: return PROBGAN_RGB(16);
+    case 32: return PROBGAN_RGB(32);
+    case 64: return PROBGAN_RGB(64);
+    default: return cudaErrorInvalidValue;
+  }
+#undef PROBGAN_RGB
 }

@@ -99,7 +99,7 @@ int launch(const float* x, const unsigned* wk, const float* bias, const float* r
            int W, int smem, cudaStream_t stream) {
   using K = ConvBf16<COUT, NTERM>;
   const long long n_tiles = static_cast<long long>(B) * (H / BfTile<COUT>::TH) * (W / 32);
-  if (B < 1 || C < kCK || C % kCK || H % BfTile<COUT>::TH || W < 32 || W % 32 ||
+  if (B < 1 || C < 8 || C % 8 || H % BfTile<COUT>::TH || W < 32 || W % 32 ||
       n_tiles > 0x7fffffff || smem != K::kBytes)
     return cudaErrorInvalidValue;
   const auto kernel = packed_conv_rgb_bf16_kernel<COUT, NTERM, U8>;
@@ -113,11 +113,12 @@ int launch(const float* x, const unsigned* wk, const float* bias, const float* r
 
 }  // namespace probgan
 
-// x [B][C][H][W] fp32, wk [C/32][9][Cout][40] bf16 (ops/packed.py
+// x [B][C][H][W] fp32, wk [ceil(C/32)][9][Cout][40] bf16 (ops/packed.py
 // conv_bf16_weights), bias [Cout], rgb_w [3][Cout] (values rounded to bf16,
 // stored as fp32), rgb_b [3], prev [B][3][H/2][W/2] -> out [B][H][W][3],
 // uint8 if emit_uint8 else fp32 pre-tanh RGB; terms 1 ("default") or 2
-// ("mid"); Cout 32 or 64, C % 32 == 0, H % (8 or 16) == 0, W % 32 == 0; smem
+// ("mid"); Cout 8, 16, 32 or 64, C % 8 == 0, H % (8 at Cout 64, else 16) == 0,
+// W % 32 == 0; smem
 // the block's dynamic shared memory in bytes (ops/packed.py bf16_conv_bytes,
 // checked against the kernel's). Returns the cudaError_t of the launch (0 =
 // launched).
@@ -131,14 +132,18 @@ extern "C" int probgan_packed_conv_rgb_bf16(const float* x, const void* wk, cons
   const auto w = static_cast<const unsigned*>(wk);
 #define PROBGAN_RGB_LAUNCH(CO, NT, U8) \
   launch<CO, NT, U8>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W, smem, s)
-  if (terms == 1 && cout == 32)
-    return emit_uint8 ? PROBGAN_RGB_LAUNCH(32, 1, true) : PROBGAN_RGB_LAUNCH(32, 1, false);
-  if (terms == 1 && cout == 64)
-    return emit_uint8 ? PROBGAN_RGB_LAUNCH(64, 1, true) : PROBGAN_RGB_LAUNCH(64, 1, false);
-  if (terms == 2 && cout == 32)
-    return emit_uint8 ? PROBGAN_RGB_LAUNCH(32, 2, true) : PROBGAN_RGB_LAUNCH(32, 2, false);
-  if (terms == 2 && cout == 64)
-    return emit_uint8 ? PROBGAN_RGB_LAUNCH(64, 2, true) : PROBGAN_RGB_LAUNCH(64, 2, false);
+#define PROBGAN_RGB_COUT(CO)                                                        \
+  if (cout == CO) {                                                                 \
+    if (terms == 1)                                                                 \
+      return emit_uint8 ? PROBGAN_RGB_LAUNCH(CO, 1, true) : PROBGAN_RGB_LAUNCH(CO, 1, false); \
+    if (terms == 2)                                                                 \
+      return emit_uint8 ? PROBGAN_RGB_LAUNCH(CO, 2, true) : PROBGAN_RGB_LAUNCH(CO, 2, false); \
+  }
+  PROBGAN_RGB_COUT(8)
+  PROBGAN_RGB_COUT(16)
+  PROBGAN_RGB_COUT(32)
+  PROBGAN_RGB_COUT(64)
+#undef PROBGAN_RGB_COUT
 #undef PROBGAN_RGB_LAUNCH
   return cudaErrorInvalidValue;
 }

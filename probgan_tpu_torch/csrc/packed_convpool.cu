@@ -17,8 +17,10 @@
 //
 // Design. The implicit GEMM of conv_tile.cuh with two changes. (1) There is
 // no PixelNorm, so a block need not own every output channel: the grid's z
-// dimension walks (image, slab of CT = 64 or 32 output channels), which
-// covers Cout = 128 with the 8 x 8 register tile unchanged; the wrapper
+// dimension walks (image, slab of CT = 64, 32, 16 or 8 output channels, the
+// largest that divides Cout), which covers Cout = 128 with the 8 x 8 register
+// tile unchanged, and the narrow discriminators' 8 -> 16 at 1024² and
+// 16 -> 32 at 512² (fmap_base 2048) on blocks of 128 and 64 threads; the wrapper
 // lays the weights out slab by slab so that a block's weights stay one
 // contiguous stream. (2) A thread's 8 pixels are a 2 x 4 patch (the POOL map
 // of conv3x3_accumulate), two whole pooling windows, so the pool is four
@@ -30,7 +32,7 @@
 namespace probgan {
 
 template <int CT, bool ACT>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(Tile<CT>::THREADS, 2)
     packed_convpool_kernel(const float* __restrict__ x, const float* __restrict__ w,
                            const float* __restrict__ bias, float* __restrict__ y, int C, int H,
                            int W, int n_slabs) {
@@ -71,19 +73,21 @@ int launch(const float* x, const float* w, const float* bias, float* y, int B, i
   const dim3 grid(W / T::TW, H / T::TH, B * n_slabs);
   if (grid.z > 65535u) return cudaErrorInvalidValue;
   if (act)
-    packed_convpool_kernel<CT, true><<<grid, kThreads, 0, stream>>>(x, w, bias, y, C, H, W,
-                                                                     n_slabs);
+    packed_convpool_kernel<CT, true><<<grid, T::THREADS, 0, stream>>>(x, w, bias, y, C, H, W,
+                                                                       n_slabs);
+  else if constexpr (CT >= 32)
+    packed_convpool_kernel<CT, false><<<grid, T::THREADS, 0, stream>>>(x, w, bias, y, C, H, W,
+                                                                        n_slabs);
   else
-    packed_convpool_kernel<CT, false><<<grid, kThreads, 0, stream>>>(x, w, bias, y, C, H, W,
-                                                                      n_slabs);
+    return cudaErrorInvalidValue;  // "none" at slabs of 16 and 8: not built (ROADMAP.md)
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace probgan
 
-// x [B][C][H][W], w [Cout/CT][C][3][3][CT] (eq-LR scaled, CT = 64 when Cout is
-// a multiple of 64, else 32), bias [Cout] -> y [B][Cout][H/2][W/2];
-// act 1 = LeakyReLU(0.2) before the pool, 0 = none.
+// x [B][C][H][W], w [Cout/CT][C][3][3][CT] (eq-LR scaled, CT the largest of 64,
+// 32, 16 and 8 that divides Cout), bias [Cout] -> y [B][Cout][H/2][W/2];
+// act 1 = LeakyReLU(0.2) before the pool, 0 = none (CT 32 or 64).
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int probgan_packed_convpool(const float* x, const float* w, const float* bias,
                                        float* y, int B, int C, int H, int W, int cout, int act,
@@ -93,5 +97,9 @@ extern "C" int probgan_packed_convpool(const float* x, const float* w, const flo
     return probgan::launch<64>(x, w, bias, y, B, C, H, W, cout, act, s);
   if (cout > 0 && cout % 32 == 0)
     return probgan::launch<32>(x, w, bias, y, B, C, H, W, cout, act, s);
+  if (cout > 0 && cout % 16 == 0)
+    return probgan::launch<16>(x, w, bias, y, B, C, H, W, cout, act, s);
+  if (cout > 0 && cout % 8 == 0)
+    return probgan::launch<8>(x, w, bias, y, B, C, H, W, cout, act, s);
   return cudaErrorInvalidValue;
 }

@@ -48,8 +48,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int b = t / tiles_y;
   float acc[T::MT][T::NT][4];
   conv_bf16_tile<COUT, NTERM, kPool2x8>(
-      acc, bf16_smem, x, wk + static_cast<size_t>(slab) * (C / kCK) * K::kWWords, b, y0, x0, C,
-      H, W);
+      acc, bf16_smem, x, wk + static_cast<size_t>(slab) * bf16_chunks(C) * K::kWWords, b, y0,
+      x0, C, H, W);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -84,7 +84,7 @@ int launch(const float* x, const unsigned* wk, const float* bias, float* y, int 
   const int n_slabs = cout / COUT;
   const long long n_tiles =
       static_cast<long long>(B) * (H / BfTile<COUT>::TH) * (W / 32) * n_slabs;
-  if (B < 1 || C < kCK || C % kCK || H % BfTile<COUT>::TH || W < 32 || W % 32 ||
+  if (B < 1 || C < 8 || C % 8 || H % BfTile<COUT>::TH || W < 32 || W % 32 ||
       cout % COUT || n_tiles > 0x7fffffff || smem != K::kBytes)
     return cudaErrorInvalidValue;
   const auto kernel = packed_convpool_bf16_kernel<COUT, NTERM, EPI>;
@@ -103,16 +103,24 @@ int launch_slab(const float* x, const unsigned* wk, const float* bias, float* y,
     return launch<64, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
   if (cout > 0 && cout % 32 == 0)
     return launch<32, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
+  if constexpr (EPI == kLrelu) {  // "none" at slabs of 16 and 8: not built (ROADMAP.md)
+    if (cout > 0 && cout % 16 == 0)
+      return launch<16, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
+    if (cout > 0 && cout % 8 == 0)
+      return launch<8, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
+  }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace probgan
 
-// x [B][C][H][W] fp32, wk [Cout/slab][C/32][9][slab][40] bf16 (ops/packed.py
-// conv_bf16_weights, packed_conv_bf16's layout; slab 64 where Cout % 64 == 0,
-// else 32), bias [Cout] -> y [B][Cout][H/2][W/2]; terms 1 ("default") or 2
-// ("mid"); act 1 = LeakyReLU(0.2) before the pool, 0 = none; Cout a multiple
-// of 32, C % 32 == 0, H % (8 or 16) == 0, W % 32 == 0; smem the block's
+// x [B][C][H][W] fp32, wk [Cout/slab][ceil(C/32)][9][slab][40] bf16
+// (ops/packed.py conv_bf16_weights, packed_conv_bf16's layout; slab the
+// largest of 64, 32, 16 and 8 that divides Cout), bias [Cout] -> y
+// [B][Cout][H/2][W/2]; terms 1 ("default") or 2 ("mid"); act 1 =
+// LeakyReLU(0.2) before the pool, 0 = none (slabs of 32 and 64); Cout a
+// multiple of 8, C % 8 == 0, H % (8 at a slab of 64, else 16) == 0,
+// W % 32 == 0; smem the block's
 // dynamic shared memory in bytes (ops/packed.py bf16_conv_bytes). Returns the
 // cudaError_t of the launch (0 = launched).
 extern "C" int probgan_packed_convpool_bf16(const float* x, const void* wk, const float* bias,

@@ -39,6 +39,11 @@
 // This loop: 43-47% at batch 2, 50% (stage 7) at batch 8; what still holds
 // it is in conv_ring.cuh's UpconvRing note.
 //
+// Cout 16 and 8 (a narrow generator's stages, e.g. fmap_base 2048 at 1024²:
+// 32 -> 16 from 256², 16 -> 8 from 512² with the toRGB of its input) run the
+// same ring on blocks of 128 and 64 threads under 16 input rows, 8 input
+// channels a stage, two blocks an SM (conv_ring.cuh UpconvRing).
+//
 // Every output value keeps its one fp32 accumulator fed by fmaf in the order
 // (input channel, dy, dx) and the epilogues of conv_tile.cuh: the bits of
 // the previous loop, which the stage-fused kernels (fused_ring.cuh) equal.
@@ -47,7 +52,7 @@
 namespace probgan {
 
 template <int COUT, bool NORM>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Tile<COUT>::THREADS, 1)
     packed_upconv_kernel(const float* __restrict__ x, const float* __restrict__ wk,
                          const float* __restrict__ bias, const float* __restrict__ rgb_w,
                          const float* __restrict__ rgb_b, float* __restrict__ y,
@@ -73,14 +78,15 @@ int launch(const float* x, const float* wk, const float* bias, const float* rgb_
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<n_blocks, kThreads, smem, stream>>>(x, wk, bias, rgb_w, rgb_b, y, rgb, C, H, W,
-                                               static_cast<int>(n_tiles));
+  kernel<<<n_blocks, Tile<COUT>::THREADS, smem, stream>>>(x, wk, bias, rgb_w, rgb_b, y, rgb, C,
+                                                          H, W, static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace probgan
 
-// x [B][C][H][W], wk [2][C][2][2][2][Cout] (pre-summed, eq-LR scaled),
+// x [B][C][H][W], wk [2][C][2][2][2][Cout] (pre-summed, eq-LR scaled; Cout 8,
+// 16, 32 or 64),
 // bias [Cout], rgb_w [3][C] and rgb_b [3] or both null -> y [B][Cout][2H][2W]
 // and, when rgb_w is given, rgb [B][3][H][W]; epilogue 0 = lrelu_norm,
 // 1 = lrelu; n_blocks persistent blocks and the ring's dynamic shared memory
@@ -92,11 +98,14 @@ extern "C" int probgan_packed_upconv(const float* x, const float* wk, const floa
                                      float* rgb, int B, int C, int H, int W, int cout,
                                      int epilogue, int n_blocks, int smem, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (cout == 64)
-    return probgan::launch<64>(x, wk, bias, rgb_w, rgb_b, y, rgb, B, C, H, W, epilogue,
-                               n_blocks, smem, s);
-  if (cout == 32)
-    return probgan::launch<32>(x, wk, bias, rgb_w, rgb_b, y, rgb, B, C, H, W, epilogue,
-                               n_blocks, smem, s);
-  return cudaErrorInvalidValue;
+#define PROBGAN_UP(CO) \
+  probgan::launch<CO>(x, wk, bias, rgb_w, rgb_b, y, rgb, B, C, H, W, epilogue, n_blocks, smem, s)
+  switch (cout) {
+    case 8: return PROBGAN_UP(8);
+    case 16: return PROBGAN_UP(16);
+    case 32: return PROBGAN_UP(32);
+    case 64: return PROBGAN_UP(64);
+    default: return cudaErrorInvalidValue;
+  }
+#undef PROBGAN_UP
 }

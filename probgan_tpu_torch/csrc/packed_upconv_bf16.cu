@@ -35,7 +35,10 @@
 // Blocks walk the tiles with the parity fastest, so both parities of a patch
 // run at about the same time and share it in L2. The toRGB of the input runs
 // in the py = 0 tiles, one input pixel a thread, from the staged patch (at
-// "mid" x_hi + x_lo, the split value).
+// "mid" x_hi + x_lo, the split value). Cout 16 and 8 (a narrow generator:
+// 32 -> 16 from 256², 16 -> 8 from 512² with toRGB) keep the 16-row tile
+// with two or one n8 tiles; C 16 is one k16 step a tap, and the toRGB sums
+// only the chunk's C - c0 channels.
 #include "bf16_conv.cuh"
 
 namespace probgan {
@@ -85,18 +88,20 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
   const float* xb = x + static_cast<size_t>(b) * C * H * W;
-  const unsigned* wpy = wk + static_cast<size_t>(py) * (C / kCK) * K::kWWords;
+  const unsigned* wpy = wk + static_cast<size_t>(py) * bf16_chunks(C) * K::kWWords;
   for (int c0 = 0; c0 < C; c0 += kCK) {
     stage_w(ws, wpy + static_cast<size_t>(c0 / kCK) * K::kWWords, K::kWWords);
     cp_async_commit();
-    stage_x<K::SR, K::NG, NTERM>(xs, xb, c0, H, W, i0 + py - 1, j0 - 4);
+    stage_chunk<K::SR, K::NG, NTERM>(xs, xb, c0, C, H, W, i0 + py - 1, j0 - 4);
     cp_async_wait(0);
     __syncthreads();
+    const int c_n = min(kCK, C - c0);            // the chunk's channels
+    const int halves = c_n > kCK / 2 ? 2 : 1;  // block-uniform
     if (with_rgb) {
       const auto* px = reinterpret_cast<const __nv_bfloat16*>(xs) +
                        ((pr + 1) * 8 * K::NG + pc + 4) * kPadK;
 #pragma unroll 4
-      for (int c = 0; c < kCK; ++c) {
+      for (int c = 0; c < c_n; ++c) {
         // x_hi, + x_lo from the next plane at "mid": the sum is exact
         const float v = NTERM == 1 ? __bfloat162float(px[c])
                                    : __bfloat162float(px[c]) +
@@ -110,6 +115,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int dy = tap >> 1, dx = tap & 1;
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) {  // channels 16 * kk .. + 15 of the chunk
+        if (kk >= halves) break;
 #pragma unroll
         for (int pxp = 0; pxp < 2; ++pxp) {
           unsigned bf[T::NT][2];
@@ -166,7 +172,7 @@ int launch(const float* x, const unsigned* wk, const float* bias, const float* r
            cudaStream_t stream) {
   using K = UpconvBf16<COUT, NTERM>;
   const long long n_tiles = 2LL * B * (H / BfTile<COUT>::TH) * (W / 16);
-  if (B < 1 || C < kCK || C % kCK || H % BfTile<COUT>::TH || W < 16 || W % 16 ||
+  if (B < 1 || C < 8 || C % 8 || H % BfTile<COUT>::TH || W < 16 || W % 16 ||
       n_tiles > 0x7fffffff || smem != K::kBytes || (rgb_w == nullptr) != (rgb == nullptr) ||
       (EPI != kLreluNorm && rgb_w != nullptr))
     return cudaErrorInvalidValue;
@@ -181,15 +187,16 @@ int launch(const float* x, const unsigned* wk, const float* bias, const float* r
 
 }  // namespace probgan
 
-// x [B][C][H][W] fp32, wk [2 py][C/32][2 px][4 (dy, dx)][Cout][40] bf16
+// x [B][C][H][W] fp32, wk [2 py][ceil(C/32)][2 px][4 (dy, dx)][Cout][40] bf16
 // (ops/packed.py upconv_bf16_weights: the pre-summed parity taps, eq-LR
-// scaled, rounded to bf16, 8 zeros after each run of 32 input channels),
+// scaled, rounded to bf16, 8 zeros after each run of 32 input channels,
+// zeros past C),
 // bias [Cout], rgb_w [3][C] (values rounded to bf16, stored as fp32) and
 // rgb_b [3] or both null -> y [B][Cout][2H][2W] and, with rgb_w, rgb
 // [B][3][H][W]; terms 1 ("default") or 2 ("mid"); epilogue 0 "lrelu_norm" or
-// 1 "lrelu" (no toRGB); Cout 32 or 64, C % 32 == 0, H % (8 or 16) == 0,
-// W % 16 == 0; smem the block's dynamic shared memory in bytes (ops/packed.py
-// bf16_upconv_bytes, checked against the kernel's).
+// 1 "lrelu" (no toRGB); Cout 8, 16, 32 or 64, C % 8 == 0, H % (8 at Cout 64,
+// else 16) == 0, W % 16 == 0; smem the block's dynamic shared memory in
+// bytes (ops/packed.py bf16_upconv_bytes, checked against the kernel's).
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int probgan_packed_upconv_bf16(const float* x, const void* wk, const float* bias,
                                           const float* rgb_w, const float* rgb_b, float* y,
@@ -198,14 +205,19 @@ extern "C" int probgan_packed_upconv_bf16(const float* x, const void* wk, const 
   using namespace probgan;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto w = static_cast<const unsigned*>(wk);
-#define PROBGAN_UP_LAUNCH(NT, EPI)                                                         \
-  (cout == 64 ? launch<64, NT, EPI>(x, w, bias, rgb_w, rgb_b, y, rgb, B, C, H, W, smem, s) \
-              : launch<32, NT, EPI>(x, w, bias, rgb_w, rgb_b, y, rgb, B, C, H, W, smem, s))
-  if (cout != 32 && cout != 64) return cudaErrorInvalidValue;
+#define PROBGAN_UP_COUT(CO, NT, EPI) \
+  launch<CO, NT, EPI>(x, w, bias, rgb_w, rgb_b, y, rgb, B, C, H, W, smem, s)
+#define PROBGAN_UP_LAUNCH(NT, EPI)                                 \
+  (cout == 64   ? PROBGAN_UP_COUT(64, NT, EPI)                     \
+   : cout == 32 ? PROBGAN_UP_COUT(32, NT, EPI)                     \
+   : cout == 16 ? PROBGAN_UP_COUT(16, NT, EPI)                     \
+                : PROBGAN_UP_COUT(8, NT, EPI))
+  if (cout != 8 && cout != 16 && cout != 32 && cout != 64) return cudaErrorInvalidValue;
   if (terms == 1 && epilogue == kLreluNorm) return PROBGAN_UP_LAUNCH(1, kLreluNorm);
   if (terms == 1 && epilogue == kLrelu) return PROBGAN_UP_LAUNCH(1, kLrelu);
   if (terms == 2 && epilogue == kLreluNorm) return PROBGAN_UP_LAUNCH(2, kLreluNorm);
   if (terms == 2 && epilogue == kLrelu) return PROBGAN_UP_LAUNCH(2, kLrelu);
 #undef PROBGAN_UP_LAUNCH
+#undef PROBGAN_UP_COUT
   return cudaErrorInvalidValue;
 }

@@ -61,6 +61,16 @@ The TPU kernels' phase-blocked layout, revolving DMAs and bf16 K-stacking are
 not ported: these take plain dense NCHW fp32 tensors and OIHW weights with the
 equalized-LR scale already applied.
 
+Channel counts on the card: ``packed_upconv``, ``packed_conv``
+"lrelu_norm" and ``packed_conv_rgb`` (PixelNorm: every output channel in one
+block) take Cout 8, 16, 32 or 64; ``packed_conv`` "lrelu" and
+``packed_convpool`` "lrelu" any Cout that is a multiple of 8, in slabs of 64,
+32, 16 or 8 (the largest that divides it); input C is any multiple of 8 at
+every mode. The narrow slabs (16 and 8) are a narrow generator's late
+stages, e.g. fmap_base 2048 at 1024². Still to come (ROADMAP.md): "none" at
+slabs of 16 and 8 (the training backward's input gradients), the stage-fused
+kernels below 32 channels, and Cout below 8.
+
 Each kernel has a wrapper (checks device, dtype, shape and contiguity,
 allocates outputs with ``torch.empty`` and launches on the current stream), a
 plain PyTorch twin of the same function (``*_plain``), and a launch count in
@@ -97,6 +107,10 @@ launches = {"packed_upconv": 0, "packed_conv": 0, "packed_conv_rgb": 0,
             "packed_conv_wgrad_bf16": 0, "packed_upconv_conv_bf16": 0,
             "packed_upconv_conv_mid": 0, "packed_upconv_conv_rgb_bf16": 0,
             "packed_upconv_conv_rgb_mid": 0}
+# The launches at a narrow slab, "<counter>[cout<slab>]" (slab 16 or 8, the
+# instantiations of csrc/conv_tile.cuh Tile and bf16_conv.cuh BfTile below
+# 32 channels), filled as they happen.
+narrow_launches: dict[str, int] = {}
 # The same launches by epilogue, "<kernel>[<epilogue>]", for the kernels that
 # have more than one.
 epilogue_launches = {
@@ -136,11 +150,15 @@ BF16_TERMS = {"default": 1, "mid": 2}
 # The bf16 kernels (csrc/bf16_conv.cuh): input channels a shared-memory chunk,
 # and bf16 a staged pixel or weight row (the chunk's channels, then 8 zeros).
 BF16_CK, BF16_ROW = 32, 40
-# Output channel counts the kernels are instantiated for (csrc/conv_tile.cuh).
-# PixelNorm needs every channel in one block, so "lrelu_norm" takes only
-# these; without it packed_conv and packed_convpool tile Cout in slabs of 64
-# (or 32) and take any multiple of 32.
-SUPPORTED_COUT = (32, 64)
+# Output channel counts the kernels are instantiated for (csrc/conv_tile.cuh
+# Tile, csrc/bf16_conv.cuh BfTile). PixelNorm needs every channel in one
+# block, so "lrelu_norm" and packed_conv_rgb take only these; without it
+# packed_conv and packed_convpool tile Cout in slabs of 64, 32, 16 or 8 (the
+# largest that divides it) and take any multiple of 8. "none" takes slabs of
+# 64 and 32 alone, and the stage-fused kernels Cout 32 and 64.
+SUPPORTED_COUT = (8, 16, 32, 64)
+WIDE_COUT = (32, 64)
+NARROW_TODO = "not ported yet (ROADMAP.md, B.a.2)"
 # packed_conv's epilogues, by their code in csrc/packed_conv.cu.
 CONV_EPILOGUES = {"lrelu_norm": 0, "lrelu": 1, "none": 2}
 UPCONV_EPILOGUES = {"lrelu_norm": 0, "lrelu": 1}
@@ -153,8 +171,9 @@ POOL_EPILOGUES = ("lrelu", "none")
 WGRAD_BLOCKS = 132
 # The pipelined fp32 main loop of packed_conv's "lrelu"/"lrelu_norm", of
 # packed_conv_rgb and of packed_upconv (csrc/conv_ring.cuh): input channels a
-# ring stage, stages, and the persistent blocks an SM that its shared memory
-# allows.
+# ring stage (``ring_cc``: RING_CC at 32 and 64 output channels, 8 below),
+# stages, and the persistent blocks an SM of the wide rings (the narrow
+# ones fit two: ``ring_blocks_per_sm``).
 RING_CC, RING_STAGES, RING_BLOCKS_PER_SM = 16, 3, 1
 # A block's share of an H100 multiprocessor's shared memory, and what the
 # card reserves for each resident block.
@@ -198,26 +217,32 @@ def reset_launches() -> None:
     for counts in (launches, epilogue_launches):
         for name in counts:
             counts[name] = 0
+    narrow_launches.clear()
 
 
 def _launch(name: str, x: torch.Tensor, *args, epilogue: str | None = None,
-            counter: str | None = None) -> None:
-    """Launch kernel ``name``; count it under ``counter`` (default ``name``)
-    and, with ``epilogue``, under "<counter>[<epilogue>]"."""
+            counter: str | None = None, slab: int | None = None) -> None:
+    """Launch kernel ``name``; count it under ``counter`` (default ``name``),
+    with ``epilogue`` under "<counter>[<epilogue>]" too, and at a ``slab``
+    below 32 channels under "<counter>[cout<slab>]" in ``narrow_launches``."""
     _build.launch(name, _ARGTYPES[name], x.device, *args)
     counter = counter or name
     launches[counter] += 1
     if epilogue is not None:
         epilogue_launches[f"{counter}[{epilogue}]"] += 1
+    if slab is not None and slab < 32:
+        key = f"{counter}[cout{slab}]"
+        narrow_launches[key] = narrow_launches.get(key, 0) + 1
 
 
 def _bf16_launch(name: str, terms: int, x: torch.Tensor, *args,
-                 epilogue: str | None = None) -> None:
+                 epilogue: str | None = None, slab: int | None = None) -> None:
     """Launch the bf16 kernel of ``name`` (csrc/<name>_bf16.cu) with ``terms``
     bf16 terms: counted as "<name>_bf16" at "default", as "<name>_mid" at
-    "mid", and by ``epilogue`` too."""
+    "mid", and by ``epilogue`` and ``slab`` too."""
+    by_slab = {} if slab is None else {"slab": slab}
     _launch(f"{name}_bf16", x, *args, epilogue=epilogue,
-            counter=f"{name}_bf16" if terms == 1 else f"{name}_mid")
+            counter=f"{name}_bf16" if terms == 1 else f"{name}_mid", **by_slab)
 
 
 def _ptr(t: torch.Tensor | None):
@@ -263,31 +288,66 @@ def _check(name: str, x: torch.Tensor, cin: int, h_mult: int,
 
 
 def _tile_rows(cout: int) -> int:
-    """Output rows of one kernel block (csrc/conv_tile.cuh Tile::TH)."""
-    return 16 if cout == 32 else 8
+    """Output rows of one kernel block at a slab of ``cout`` channels
+    (csrc/conv_tile.cuh Tile::TH, csrc/bf16_conv.cuh BfTile::TH): 8 at 64,
+    16 at 32, 16 and 8."""
+    return 8 if cout == 64 else 16
 
 
-def _check_cout(name: str, cout: int, sliced: bool = False) -> None:
-    """``sliced``: the kernel tiles Cout in slabs and takes any multiple of 32."""
+def _check_cout(name: str, cout: int, sliced: bool = False,
+                supported: tuple[int, ...] = SUPPORTED_COUT) -> None:
+    """``sliced``: the kernel tiles Cout in slabs and takes any multiple of 8;
+    else Cout is one of ``supported``."""
+    if 0 < cout < 8:
+        raise ValueError(f"{name}: Cout={cout} below 8 is {NARROW_TODO}")
     if sliced:
-        if cout <= 0 or cout % 32:
-            raise ValueError(f"{name}: Cout={cout} must be a multiple of 32")
-    elif cout not in SUPPORTED_COUT:
-        raise ValueError(f"{name}: Cout={cout} not in {SUPPORTED_COUT}")
+        if cout <= 0 or cout % 8:
+            raise ValueError(f"{name}: Cout={cout} must be a multiple of 8")
+    elif cout not in supported:
+        raise ValueError(f"{name}: Cout={cout} not in {supported}"
+                         + (f"; Cout {cout} here is {NARROW_TODO}" if cout in SUPPORTED_COUT
+                            else ""))
+
+
+def _check_none_slab(name: str, cout: int) -> None:
+    """The "none" epilogues (the training backward's input gradients) run in
+    slabs of 64 and 32 output channels alone."""
+    if _pool_slab(cout) < 32:
+        raise ValueError(f'{name}: epilogue "none" at Cout={cout} (a slab of '
+                         f'{_pool_slab(cout)} channels) is {NARROW_TODO}')
 
 
 def _lrelu_norm(x: torch.Tensor) -> torch.Tensor:
     return pixel_norm(lrelu(x))
 
 
+def bf16_chunks(c: int) -> int:
+    """Shared-memory chunks of ``c`` input channels in the bf16 kernels
+    (csrc/bf16_conv.cuh bf16_chunks): c / 32, and one more, partial, where
+    c % 32 != 0."""
+    return -(-c // BF16_CK)
+
+
+def _pad_channels(w: torch.Tensor, dim: int) -> torch.Tensor:
+    """``w`` with zeros past its input channels (dimension ``dim``) up to
+    whole chunks of BF16_CK: the partial chunk's weights."""
+    pad = bf16_chunks(w.shape[dim]) * BF16_CK - w.shape[dim]
+    if not pad:
+        return w
+    shape = list(w.shape)
+    shape[dim] = pad
+    return torch.cat([w, w.new_zeros(shape)], dim=dim)
+
+
 def conv_bf16_weights(w: torch.Tensor, slab: int | None = None) -> torch.Tensor:
-    """OIHW [Cout, C, 3, 3] -> the bf16 kernels' [C/32][9 taps][Cout][40]
-    bf16 (csrc/packed_conv_bf16.cu): rounded to bf16, tap ky * 3 + kx, each
-    run of 32 input channels followed by 8 zeros. With ``slab`` (the kernels'
-    ``_pool_slab(Cout)``): [Cout/slab][C/32][9][slab][40], one slab's after
-    the other."""
+    """OIHW [Cout, C, 3, 3] -> the bf16 kernels' [ceil(C/32)][9 taps][Cout]
+    [40] bf16 (csrc/packed_conv_bf16.cu): rounded to bf16, tap ky * 3 + kx,
+    each run of 32 input channels followed by 8 zeros, and zeros past C in
+    the last run. With ``slab`` (the kernels' ``_pool_slab(Cout)``):
+    [Cout/slab][ceil(C/32)][9][slab][40], one slab's after the other."""
     if slab is not None:
         return torch.stack([conv_bf16_weights(ws) for ws in w.split(slab)])
+    w = _pad_channels(w, 1)
     cout, c = w.shape[:2]
     wt = w.permute(2, 3, 0, 1).reshape(9, cout, c // BF16_CK, BF16_CK).permute(2, 0, 1, 3)
     out = torch.zeros((c // BF16_CK, 9, cout, BF16_ROW), dtype=torch.bfloat16, device=w.device)
@@ -296,12 +356,14 @@ def conv_bf16_weights(w: torch.Tensor, slab: int | None = None) -> torch.Tensor:
 
 
 def upconv_bf16_weights(w: torch.Tensor) -> torch.Tensor:
-    """OIHW [Cout, C, 3, 3] -> packed_upconv_bf16's [2 py][C/32][2 px]
+    """OIHW [Cout, C, 3, 3] -> packed_upconv_bf16's [2 py][ceil(C/32)][2 px]
     [4 taps (dy, dx)][Cout][40] bf16: the pre-summed parity taps of
     ``parity_weights`` (summed in fp32, then rounded to bf16), each run of 32
-    input channels followed by 8 zeros."""
-    cout, c = w.shape[:2]
-    wp = parity_weights(w).permute(0, 1, 4, 5, 2, 3)  # [py, px, dy, dx, Cout, C]
+    input channels followed by 8 zeros, and zeros past C in the last run."""
+    cout = w.shape[0]
+    # [py, px, dy, dx, Cout, C], C padded to whole chunks
+    wp = _pad_channels(parity_weights(w), 3).permute(0, 1, 4, 5, 2, 3)
+    c = wp.shape[-1]
     wp = wp.reshape(2, 2, 4, cout, c // BF16_CK, BF16_CK).permute(0, 4, 1, 2, 3, 5)
     out = torch.zeros((2, c // BF16_CK, 2, 4, cout, BF16_ROW), dtype=torch.bfloat16,
                       device=w.device)
@@ -325,10 +387,11 @@ def bf16_upconv_bytes(cout: int, terms: int = 1) -> int:
     return 2 * BF16_ROW * (terms * (_tile_rows(cout) + 1) * 24 + 8 * cout)
 
 
-def _check_bf16_channels(name: str, x: torch.Tensor, mode: str) -> None:
+def _check_fused_bf16_channels(name: str, x: torch.Tensor, mode: str) -> None:
+    """The stage-fused bf16 kernels (csrc/fused_bf16.cuh) take C % 32 == 0."""
     if x.shape[1] % BF16_CK:
         raise ValueError(f"{name}: mode {mode!r} takes C % {BF16_CK} == 0, got "
-                         f"x {tuple(x.shape)}")
+                         f"x {tuple(x.shape)}; other C is {NARROW_TODO}")
 
 
 def upconv_kernel_weights(w: torch.Tensor) -> torch.Tensor:
@@ -382,9 +445,10 @@ def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm", mod
     x [B, C, H, W] fp32, w [Cout, C, 3, 3] eq-LR scaled, b [Cout]
     -> [B, Cout, 2H, 2W]. With ``rgb_w`` [3, C] and ``rgb_b`` [3]
     ("lrelu_norm" only), also returns toRGB(x) [B, 3, H, W] (the ``rgb_prev``
-    of packed_conv_rgb). ``mode``: "high"/"highest" (fp32), "default" (one
-    bf16 pass) or "mid" (the 2-term split); both bf16 modes are
-    ``packed_upconv_bf16`` on the card (C % 32 == 0)."""
+    of packed_conv_rgb). On CUDA, Cout is 8, 16, 32 or 64 and C a multiple
+    of 8. ``mode``: "high"/"highest" (fp32), "default" (one bf16 pass) or
+    "mid" (the 2-term split); both bf16 modes are ``packed_upconv_bf16`` on
+    the card."""
     if x.device.type == "cpu":
         return packed_upconv_plain(x, w, b, rgb_w=rgb_w, rgb_b=rgb_b, epilogue=epilogue,
                                    mode=mode)
@@ -400,7 +464,6 @@ def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm", mod
            rgb_b=rgb_b)
     bsz, c, h, wd = x.shape
     if terms:
-        _check_bf16_channels(name, x, mode)
         y = torch.empty((bsz, cout, 2 * h, 2 * wd), device=x.device, dtype=x.dtype)
         rgb = None
         if rgb_w is not None:
@@ -410,7 +473,7 @@ def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm", mod
         wk, b = upconv_bf16_weights(w), b.contiguous()
         _bf16_launch(name, terms, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),
                      _ptr(y), _ptr(rgb), bsz, c, h, wd, cout, terms, UPCONV_EPILOGUES[epilogue],
-                     bf16_upconv_bytes(cout, terms), epilogue=epilogue)
+                     bf16_upconv_bytes(cout, terms), epilogue=epilogue, slab=cout)
         return y if rgb is None else (y, rgb)
     wk = upconv_kernel_weights(w)
     b = b.contiguous()
@@ -420,10 +483,12 @@ def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm", mod
         rgb_w, rgb_b = rgb_w.reshape(3, c).contiguous(), rgb_b.contiguous()
         rgb = torch.empty((bsz, 3, h, wd), device=x.device, dtype=x.dtype)
     x = _aligned16(x)
-    blocks = persistent_blocks(upconv_tile_count(bsz, cout, h, wd), _sms(x.device))
+    smem = upconv_ring_bytes(cout)
+    blocks = persistent_blocks(upconv_tile_count(bsz, cout, h, wd), _sms(x.device),
+                               ring_blocks_per_sm(smem))
     _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),
             _ptr(y), _ptr(rgb), bsz, c, h, wd, cout, UPCONV_EPILOGUES[epilogue],
-            blocks, upconv_ring_bytes(cout), epilogue=epilogue)
+            blocks, smem, epilogue=epilogue, slab=cout)
     return y if rgb is None else (y, rgb)
 
 
@@ -450,11 +515,12 @@ def packed_conv_plain(x, w, b, epilogue="lrelu_norm", mode="high"):
 
 def conv_tiling(cout: int) -> tuple[int, int]:
     """(output channels per tile, tile rows) of both csrc/packed_conv.cu
-    kernels, which launch the tiling they are given: Cout % 64 == 0 takes
-    64-channel slabs with 8-row tiles, any other Cout 32-channel slabs with
-    16-row tiles; the tiles are 32 columns wide. The slab is
-    ``_pool_slab(cout)``, the layout of ``convpool_kernel_weights``."""
-    return (64, 8) if cout % 64 == 0 else (32, 16)
+    kernels, which launch the tiling they are given: slabs of
+    ``_pool_slab(cout)`` channels (64, 32, 16 or 8; "none" takes 64 and 32
+    alone), the layout of ``convpool_kernel_weights``, with 8-row tiles at 64
+    and 16-row tiles below; the tiles are 32 columns wide."""
+    slab = _pool_slab(cout)
+    return slab, _tile_rows(slab)
 
 
 def conv_tile_count(bsz: int, cout: int, h: int, wd: int) -> int:
@@ -475,27 +541,43 @@ def conv_tile_origin(t: int, cout: int, h: int, wd: int) -> tuple[int, int, int,
     return b, ty * rows, tx * 32, slab * o_slab
 
 
-def persistent_blocks(n_tiles: int, sms: int) -> int:
-    """Persistent blocks of a walk over ``n_tiles``: one an SM (the "none"
-    kernel's ring takes ~190 KB, the fp32 ring ~200 KB), block k walking
-    tiles k, k + blocks, ..."""
-    return max(1, min(n_tiles, RING_BLOCKS_PER_SM * sms))
+def persistent_blocks(n_tiles: int, sms: int, per_sm: int = RING_BLOCKS_PER_SM) -> int:
+    """Persistent blocks of a walk over ``n_tiles``: ``per_sm`` an SM (one
+    for the "none" kernel's ring, ~190 KB, and the wide fp32 rings, ~200 KB;
+    ``ring_blocks_per_sm`` of a ring's bytes), block k walking tiles k,
+    k + blocks, ..."""
+    return max(1, min(n_tiles, per_sm * sms))
+
+
+def ring_blocks_per_sm(smem: int) -> int:
+    """Blocks of a fp32 ring of ``smem`` bytes that one H100 multiprocessor
+    holds (SMEM_PER_SM, SMEM_RESERVED a block): 1 for the rings at 32 and 64
+    channels, 2 for those at 16 and 8."""
+    return max(1, SMEM_PER_SM // (smem + SMEM_RESERVED))
+
+
+def ring_cc(cout: int) -> int:
+    """Input channels a stage of the fp32 ring at a slab of ``cout`` output
+    channels (csrc/conv_ring.cuh ConvRing::kCC, UpconvRing::kCC): RING_CC at
+    32 and 64, 8 at 16 and 8, whose smaller blocks (128 and 64 threads) keep
+    the 32-channel tile."""
+    return RING_CC if cout >= 32 else 8
 
 
 def conv_ring_bytes(cout: int) -> int:
     """Dynamic shared memory of packed_conv's fp32 ring and of packed_conv_rgb
     (csrc/conv_ring.cuh ConvRing::kBytes, which ConvRgbRing keeps):
-    RING_STAGES stages of RING_CC input channels, each the channel's halo
+    RING_STAGES stages of ``ring_cc`` input channels, each the channel's halo
     patch (tile rows + 2, 40 columns in rows of 44 floats) and its 9 x slab
     weights."""
     o_slab, rows = conv_tiling(cout)
-    return 4 * RING_STAGES * RING_CC * ((rows + 2) * 44 + 9 * o_slab)
+    return 4 * RING_STAGES * ring_cc(o_slab) * ((rows + 2) * 44 + 9 * o_slab)
 
 
 def upconv_tiling(cout: int) -> tuple[int, int]:
     """(input rows, input columns) under one tile of packed_upconv: one
     output row parity of them, all Cout channels (csrc/conv_ring.cuh
-    UpconvRing): 8 x 16 at Cout 64, 16 x 16 at 32."""
+    UpconvRing): 8 x 16 at Cout 64, 16 x 16 at 32, 16 and 8."""
     return _tile_rows(cout), 16
 
 
@@ -520,11 +602,12 @@ def upconv_tile_origin(t: int, cout: int, h: int, wd: int) -> tuple[int, int, in
 
 def upconv_ring_bytes(cout: int) -> int:
     """Dynamic shared memory of packed_upconv's ring (UpconvRing::kBytes):
-    RING_STAGES stages of RING_CC input channels, each the channel's staged
-    rows (tile rows + 1, 24 columns in rows of 24 floats at Cout 64, 48 at
-    Cout 32) and one parity's 8 x Cout pre-summed taps."""
+    RING_STAGES stages of ``ring_cc`` input channels, each the channel's
+    staged rows (tile rows + 1, 24 columns in rows of 24 floats at Cout 64,
+    48 below) and one parity's 8 x Cout pre-summed taps."""
     rows, _ = upconv_tiling(cout)
-    return 4 * RING_STAGES * RING_CC * ((rows + 1) * (24 if cout == 64 else 48) + 8 * cout)
+    return 4 * RING_STAGES * ring_cc(cout) * ((rows + 1) * (24 if cout == 64 else 48)
+                                              + 8 * cout)
 
 
 def _sms(device: torch.device) -> int:
@@ -540,15 +623,15 @@ def _aligned16(x: torch.Tensor) -> torch.Tensor:
 def packed_conv(x, w, b, epilogue="lrelu_norm", mode="high"):
     """conv3x3 SAME + bias -> epilogue ("lrelu_norm": LeakyReLU -> PixelNorm;
     "lrelu": LeakyReLU; "none"): x [B, C, H, W] fp32, w [Cout, C, 3, 3] eq-LR
-    scaled, b [Cout] -> [B, Cout, H, W]. On CUDA, Cout is 32 or 64 with
-    "lrelu_norm" and any multiple of 32 otherwise. "none" is 3xTF32 on the
-    card (each product three TF32 products of the operands' high and low
-    parts, within ~1e-6 of the output's largest entry of the fp32 sum) and
-    sums every output in a fixed order, so equal inputs give equal bits.
+    scaled, b [Cout] -> [B, Cout, H, W]. On CUDA, Cout is 8, 16, 32 or 64
+    with "lrelu_norm", any multiple of 8 with "lrelu" and of 32 with "none",
+    and C a multiple of 8. "none" is 3xTF32 on the card (each product three
+    TF32 products of the operands' high and low parts, within ~1e-6 of the
+    output's largest entry of the fp32 sum) and sums every output in a fixed
+    order, so equal inputs give equal bits.
     ``mode``: "high"/"highest" (fp32), "default" (one bf16 pass) or "mid"
     (the 2-term split), every epilogue; both bf16 modes are
-    ``packed_conv_bf16`` on the card (C % 32 == 0; Cout in slabs as the fp32
-    kernels)."""
+    ``packed_conv_bf16`` on the card (Cout in slabs as the fp32 kernels)."""
     if x.device.type == "cpu":
         return packed_conv_plain(x, w, b, epilogue, mode)
     name = "packed_conv"
@@ -559,25 +642,32 @@ def packed_conv(x, w, b, epilogue="lrelu_norm", mode="high"):
                  x, w, b)
     cout = w.shape[0]
     _check_cout(name, cout, sliced=epilogue != "lrelu_norm")
-    _check(name, x, w.shape[1], _tile_rows(_pool_slab(cout)), 32, w=w, b=b)
+    if epilogue == "none":
+        _check_none_slab(name, cout)
+    slab = _pool_slab(cout)
+    _check(name, x, w.shape[1], _tile_rows(slab), 32, w=w, b=b)
     bsz, c, h, wd = x.shape
     if terms:
-        _check_bf16_channels(name, x, mode)
         y = torch.empty((bsz, cout, h, wd), device=x.device, dtype=x.dtype)
-        wk, b = conv_bf16_weights(w, _pool_slab(cout)), b.contiguous()
+        wk, b = conv_bf16_weights(w, slab), b.contiguous()
         _bf16_launch(name, terms, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
                      terms, CONV_EPILOGUES[epilogue], bf16_conv_bytes(cout, terms),
-                     epilogue=epilogue)
+                     epilogue=epilogue, slab=slab)
         return y
-    # one slab for Cout 32 or 64: then this is conv_kernel_weights(w)
+    # one slab for Cout 8, 16, 32 or 64: then this is conv_kernel_weights(w)
     wk = convpool_kernel_weights(w)
     b = b.contiguous()
     y = torch.empty((bsz, cout, h, wd), device=x.device, dtype=x.dtype)
     x = _aligned16(x)
-    blocks = persistent_blocks(conv_tile_count(bsz, cout, h, wd), _sms(x.device))
-    smem = 0 if epilogue == "none" else conv_ring_bytes(cout)  # "none" sizes its own
+    if epilogue == "none":  # sizes its own ring: one block an SM
+        smem, per_sm = 0, RING_BLOCKS_PER_SM
+    else:
+        smem = conv_ring_bytes(cout)
+        per_sm = ring_blocks_per_sm(smem)
+    blocks = persistent_blocks(conv_tile_count(bsz, cout, h, wd), _sms(x.device), per_sm)
     _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
-            CONV_EPILOGUES[epilogue], *conv_tiling(cout), blocks, smem, epilogue=epilogue)
+            CONV_EPILOGUES[epilogue], *conv_tiling(cout), blocks, smem, epilogue=epilogue,
+            slab=slab)
     return y
 
 
@@ -586,8 +676,12 @@ def packed_conv(x, w, b, epilogue="lrelu_norm", mode="high"):
 # ---------------------------------------------------------------------------
 
 def _pool_slab(cout: int) -> int:
-    """Output channels one kernel block owns (csrc/packed_convpool.cu CT)."""
-    return 64 if cout % 64 == 0 else 32
+    """Output channels one kernel block owns (csrc/packed_convpool.cu CT):
+    the largest of 64, 32, 16 and 8 that divides Cout."""
+    for slab in (64, 32, 16):
+        if cout % slab == 0:
+            return slab
+    return 8
 
 
 def convpool_kernel_weights(w: torch.Tensor) -> torch.Tensor:
@@ -613,9 +707,10 @@ def packed_convpool(x, w, b, epilogue="lrelu", mode="high"):
     """conv3x3 SAME + bias -> LeakyReLU ("lrelu") or nothing ("none") -> 2x2
     mean pool; the activation comes before the pool. x [B, C, H, W] fp32,
     w [Cout, C, 3, 3] eq-LR scaled, b [Cout] -> [B, Cout, H/2, W/2].
+    On CUDA, Cout is a multiple of 8 ("lrelu") or of 32 ("none") and C of 8.
     ``mode``: "high"/"highest" (fp32), "default" (one bf16 pass) or "mid"
     (the 2-term split); both bf16 modes are ``packed_convpool_bf16`` on the
-    card (C % 32 == 0)."""
+    card."""
     if x.device.type == "cpu":
         return packed_convpool_plain(x, w, b, epilogue, mode)
     name = "packed_convpool"
@@ -625,21 +720,23 @@ def packed_convpool(x, w, b, epilogue="lrelu", mode="high"):
     _refuse_grad(name, "convpool_lrelu", x, w, b)
     cout = w.shape[0]
     _check_cout(name, cout, sliced=True)
-    _check(name, x, w.shape[1], _tile_rows(_pool_slab(cout)), 32, w=w, b=b)
+    if epilogue == "none":
+        _check_none_slab(name, cout)
+    slab = _pool_slab(cout)
+    _check(name, x, w.shape[1], _tile_rows(slab), 32, w=w, b=b)
     bsz, c, h, wd = x.shape
     if terms:
-        _check_bf16_channels(name, x, mode)
         y = torch.empty((bsz, cout, h // 2, wd // 2), device=x.device, dtype=x.dtype)
-        wk, b = conv_bf16_weights(w, _pool_slab(cout)), b.contiguous()
+        wk, b = conv_bf16_weights(w, slab), b.contiguous()
         _bf16_launch(name, terms, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
                      terms, int(epilogue == "lrelu"), bf16_conv_bytes(cout, terms),
-                     epilogue=epilogue)
+                     epilogue=epilogue, slab=slab)
         return y
     wk = convpool_kernel_weights(w)
     b = b.contiguous()
     y = torch.empty((bsz, cout, h // 2, wd // 2), device=x.device, dtype=x.dtype)
     _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
-            int(epilogue == "lrelu"), epilogue=epilogue)
+            int(epilogue == "lrelu"), epilogue=epilogue, slab=slab)
     return y
 
 
@@ -672,12 +769,13 @@ def packed_conv_rgb(x, w, b, rgb_w, rgb_b, rgb_prev, alpha, *,
 
     x [B, C, H, W] fp32, w [Cout, C, 3, 3], b [Cout], rgb_w [3, Cout],
     rgb_b [3], rgb_prev [B, 3, H/2, W/2], alpha a runtime scalar
-    -> NHWC [B, H, W, 3], uint8 or fp32 pre-tanh RGB. On CUDA, Cout is 32 or
-    64 and the kernel runs packed_conv's fp32 ring ("lrelu_norm"'s tiles and
+    -> NHWC [B, H, W, 3], uint8 or fp32 pre-tanh RGB. On CUDA, Cout is 8,
+    16, 32 or 64, C a multiple of 8, and the kernel runs packed_conv's fp32
+    ring ("lrelu_norm"'s tiles and
     sums, so the same bits) with the toRGB tail as its epilogue. ``mode``:
     "high"/"highest" (fp32), "default" (one bf16 pass) or "mid" (the 2-term
     split), toRGB's dot too; both bf16 modes are ``packed_conv_rgb_bf16`` on
-    the card (C % 32 == 0)."""
+    the card."""
     alpha = float(alpha)
     if x.device.type == "cpu":
         return packed_conv_rgb_plain(x, w, b, rgb_w, rgb_b, rgb_prev, alpha,
@@ -703,19 +801,20 @@ def packed_conv_rgb(x, w, b, rgb_w, rgb_b, rgb_prev, alpha, *,
     out = torch.empty((bsz, h, wd, 3), device=x.device,
                       dtype=torch.uint8 if emit_uint8 else torch.float32)
     if terms:
-        _check_bf16_channels(name, x, mode)
         wk, rgb_w = conv_bf16_weights(w), _bf16(rgb_w.reshape(3, cout)).contiguous()
         _bf16_launch(name, terms, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),
                      _ptr(rgb_prev), alpha, _ptr(out), int(emit_uint8), bsz, c, h, wd, cout,
-                     terms, bf16_conv_bytes(cout, terms))
+                     terms, bf16_conv_bytes(cout, terms), slab=cout)
         return out
     wk = conv_kernel_weights(w)
     rgb_w = rgb_w.reshape(3, cout).contiguous()
     x = _aligned16(x)
-    blocks = persistent_blocks(conv_tile_count(bsz, cout, h, wd), _sms(x.device))
+    smem = conv_ring_bytes(cout)
+    blocks = persistent_blocks(conv_tile_count(bsz, cout, h, wd), _sms(x.device),
+                               ring_blocks_per_sm(smem))
     _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),
             _ptr(rgb_prev), alpha, _ptr(out), int(emit_uint8), bsz, c, h, wd,
-            cout, blocks, conv_ring_bytes(cout))
+            cout, blocks, smem, slab=cout)
     return out
 
 
@@ -926,10 +1025,11 @@ def fused_bf16_bytes(cout: int, terms: int, rgb: bool) -> int:
 
 def _stage_fused_checks(name: str, x, w1, w2, **params) -> int:
     """The stage-fused kernels' shape rules: conv1 C -> Cout, conv2 Cout ->
-    Cout with Cout 32 or 64; input rows a multiple of half the conv2 tile's
-    rows, columns of 16. Returns Cout."""
+    Cout with Cout 32 or 64 (16 and 8 are not ported yet: ROADMAP.md); input
+    rows a multiple of half the conv2 tile's rows, columns of 16. Returns
+    Cout."""
     cout = w1.shape[0]
-    _check_cout(name, cout)
+    _check_cout(name, cout, supported=WIDE_COUT)
     if tuple(w2.shape) != (cout, cout, 3, 3):
         raise ValueError(f"{name}: w2 {tuple(w2.shape)} must be {(cout, cout, 3, 3)}")
     _check(name, x, w1.shape[1], _tile_rows(cout) // 2, 16, w1=w1, w2=w2, **params)
@@ -944,7 +1044,7 @@ def _fused_bf16_launch(name: str, mode: str, x, w1, b1, w2, b2, out, *rgb_args,
     weights (rounded to bf16 here) and biases, alpha and emit_uint8.
     ``tally`` (int64 [1] on x's device), when given, gains the conv1 pixels
     the blocks store."""
-    _check_bf16_channels(name, x, mode)
+    _check_fused_bf16_channels(name, x, mode)
     if tally is not None and (tally.dtype != torch.int64 or tally.device != x.device
                               or tally.numel() < 1):
         raise ValueError(f"{name}: _tally must be an int64 tensor on {x.device}")

@@ -39,10 +39,17 @@ one CUDA card, in parts (``--parts``, all by default):
   tree's wrappers take ``mode``; then ``generate`` (batch 8) at "high" and
   "fast" and the image trainer CLI's step (``progan_train_step`` with
   ``packed_fake`` at "highest", stage 8, batch 2) with
-  ``PROBGAN_STAGE_FUSED`` 1 and 0 in turns in one process.
+  ``PROBGAN_STAGE_FUSED`` 1 and 0 in turns in one process;
+- ``narrow``: the kernels at 16 and 8 channels of the narrow 1024² generator
+  (fmap_base 2048, fmap_max 256; packed stages 6-8): ``packed_upconv``
+  32 -> 16 and 16 -> 8 (with toRGB), ``packed_conv`` "lrelu_norm" 16 -> 16
+  and "lrelu" 8 -> 8 and 16 -> 16, ``packed_conv_rgb`` 8 -> 8 (uint8) and
+  ``packed_convpool`` 8 -> 16 and 16 -> 32, at batch 2 and 8, each at "high",
+  "default" and "mid", beside ``F.conv2d`` with the torch epilogue (fp32 with
+  TF32 off; on bf16 tensors at "default"; the bf16-rounded weights at "mid").
 
-``--dump DIR`` saves each ``fp32``, ``bf16``, ``mid``, ``bwd`` and ``fused``
-output, made from fixed seeds, to ``DIR/<shape>.pt`` (and with ``rank`` the
+``--dump DIR`` saves each ``fp32``, ``bf16``, ``mid``, ``bwd``, ``fused`` and
+``narrow`` output, made from fixed seeds, to ``DIR/<shape>.pt`` (and with ``rank`` the
 ``rank_scores_fused`` matrices, with ``generate`` the first call's images);
 ``--compare A B`` counts the values whose bits differ between two such
 directories (0 everywhere: the same bits).
@@ -71,7 +78,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-PARTS = ("rank", "none", "fp32", "train", "generate", "fused", "bf16", "mid", "bwd")
+PARTS = ("rank", "none", "fp32", "train", "generate", "fused", "bf16", "mid", "bwd", "narrow")
 CONV_SHAPES = ((32, 32, 1024), (64, 32, 1024), (64, 64, 512), (128, 64, 512),
                (32, 64, 1024), (64, 128, 512))
 # (label, kernel, epilogue, batch, C, Cout, H, toRGB): the fp32 launches
@@ -171,6 +178,14 @@ BWD_SHAPES = (
     *((f"wgrad_C{c}_Cout{cout}_{h}", "packed_conv_wgrad", None, c, cout, h)
       for c, cout, h in ((32, 32, 1024), (32, 64, 1024), (64, 64, 512), (64, 128, 512),
                          (128, 64, 512), (64, 32, 1024))),
+)
+# (kernel, epilogue or emit, C, Cout, H): the narrow generator's launches at
+# 16 and 8 channels (H: B1's input), at batch 2 and 8 and each kernel mode
+NARROW_SHAPES = (
+    ("packed_upconv", "lrelu_norm", 32, 16, 256), ("packed_upconv", "rgb", 16, 8, 512),
+    ("packed_conv", "lrelu_norm", 16, 16, 512), ("packed_conv", "lrelu", 8, 8, 1024),
+    ("packed_conv", "lrelu", 16, 16, 512), ("packed_conv_rgb", "uint8", 8, 8, 1024),
+    ("packed_convpool", "lrelu", 8, 16, 1024), ("packed_convpool", "lrelu", 16, 32, 512),
 )
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, CUDA cores
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, tensor cores, dense bf16
@@ -347,6 +362,96 @@ def bench_mid(pk, dump: Path | None) -> dict:
         out[label] = {"ms": ms, "bound_ms": bound_ms, "roofline_share": bound_ms / ms,
                       "sha256": digest.hexdigest()}
         del x, y, ys
+    return out
+
+
+def bench_narrow(pk, dump: Path | None) -> dict:
+    """NARROW_SHAPES at batch 2 and 8, kernel modes "high", "default" and
+    "mid": ms, cuDNN's ms (``F.conv2d`` + the torch epilogue), the bound (the
+    larger of the FLOP at the mode's peak, "mid"'s two passes, and the bytes
+    in and out at the HBM rate) and its share, sha256 of the output's bytes;
+    the outputs saved under ``dump``."""
+    import torch.nn.functional as F
+
+    from probgan_tpu_torch.models import pro_gan
+
+    def lrelu_norm(t):
+        return pro_gan.pixel_norm(pro_gan.lrelu(t.float()))
+
+    out = {}
+    for i, (bsz, mode, (kernel, epi, c, cout, h)) in enumerate(
+            (b, m, s) for b in (2, 8) for m in ("high", "default", "mid") for s in NARROW_SHAPES):
+        label = f"{kernel[7:]}_{epi}_C{c}_Cout{cout}_{h}_{mode}_b{bsz}"
+        gen = torch.Generator(device="cuda").manual_seed(500 + i)
+        x = torch.randn((bsz, c, h, h), device="cuda", generator=gen)
+        w = torch.randn((cout, c, 3, 3), device="cuda", generator=gen) * math.sqrt(2 / (9 * c))
+        b = 0.1 * torch.randn(cout, device="cuda", generator=gen)
+        lib_dtype = torch.bfloat16 if mode == "default" else torch.float32
+        xl, bl = x.to(lib_dtype), b.to(lib_dtype)
+        wl = w.to(torch.bfloat16).to(lib_dtype) if mode != "high" else w
+        if kernel == "packed_upconv":
+            kw = {}
+            if epi == "rgb":
+                kw = {"rgb_w": torch.randn((3, c), device="cuda", generator=gen) / math.sqrt(c),
+                      "rgb_b": 0.1 * torch.randn(3, device="cuda", generator=gen)}
+
+            def call(x=x, w=w, b=b, kw=kw, mode=mode):
+                return pk.packed_upconv(x, w, b, mode=mode, **kw)
+
+            def library(xl=xl, wl=wl, bl=bl, kw=kw):
+                y = lrelu_norm(F.conv2d(F.interpolate(xl, scale_factor=2.0), wl, bl, padding=1))
+                if kw:
+                    return y, F.conv2d(xl, kw["rgb_w"].to(xl.dtype)[:, :, None, None],
+                                       kw["rgb_b"].to(xl.dtype))
+                return y
+            flops = 2 * 4 * c * cout * bsz * 4 * h * h
+            nbytes = 4 * bsz * h * h * (c + 4 * cout + (3 if kw else 0))
+        elif kernel == "packed_conv_rgb":
+            rgb_w = torch.randn((3, cout), device="cuda", generator=gen) / math.sqrt(cout)
+            rgb_b = 0.1 * torch.randn(3, device="cuda", generator=gen)
+            prev = 0.5 * torch.randn((bsz, 3, h // 2, h // 2), device="cuda", generator=gen)
+
+            def call(x=x, w=w, b=b, rgb_w=rgb_w, rgb_b=rgb_b, prev=prev, mode=mode):
+                return pk.packed_conv_rgb(x, w, b, rgb_w, rgb_b, prev, 1.0, emit_uint8=True,
+                                          mode=mode)
+
+            def library(xl=xl, wl=wl, bl=bl, rgb_w=rgb_w, rgb_b=rgb_b, prev=prev):
+                feat = lrelu_norm(F.conv2d(xl, wl, bl, padding=1)).to(xl.dtype)
+                rgb = F.conv2d(feat, rgb_w.to(xl.dtype)[:, :, None, None],
+                               rgb_b.to(xl.dtype)).float()
+                up = F.interpolate(prev, scale_factor=2.0)
+                return pro_gan.to_uint8((up + (rgb - up)).permute(0, 2, 3, 1))
+            flops = 2 * 9 * c * cout * bsz * h * h + 2 * cout * 3 * bsz * h * h
+            nbytes = 4 * bsz * h * h * (c + 3 / 4) + bsz * h * h * 3
+        else:
+            fn, pool = getattr(pk, kernel), kernel == "packed_convpool"
+
+            def call(x=x, w=w, b=b, fn=fn, epi=epi, mode=mode):
+                return fn(x, w, b, epi, mode=mode)
+
+            def library(xl=xl, wl=wl, bl=bl, epi=epi, pool=pool):
+                y = F.conv2d(xl, wl, bl, padding=1)
+                y = lrelu_norm(y) if epi == "lrelu_norm" else pro_gan.lrelu(y)
+                return F.avg_pool2d(y, 2) if pool else y
+            flops = 2 * 9 * c * cout * bsz * h * h
+            nbytes = 4 * bsz * h * h * (c + cout // (4 if pool else 1))
+        with torch.no_grad():
+            y = call()
+            torch.cuda.synchronize()
+            ys = y if isinstance(y, tuple) else (y,)
+            digest = hashlib.sha256()
+            for t in ys:
+                digest.update(t.cpu().numpy().tobytes())
+            if dump is not None:
+                torch.save([t.cpu() for t in ys], dump / f"narrow_{label}.pt")
+            ms = cuda_ms(call, iters=10)
+            lib_ms = cuda_ms(library, iters=10)
+        peak, passes = ((PEAK_FP32_FLOPS, 1) if mode == "high"
+                        else (PEAK_BF16_FLOPS, 2 if mode == "mid" else 1))
+        bound_ms = max(passes * flops / peak, nbytes / PEAK_HBM_BYTES) * 1e3
+        out[label] = {"ms": ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+                      "roofline_share": bound_ms / ms, "sha256": digest.hexdigest()}
+        del x, y, ys, xl
     return out
 
 
@@ -619,6 +724,9 @@ def main(argv=None) -> int:
 
     if "bwd" in parts:
         out["bwd"] = bench_bwd(pk, args.dump)
+
+    if "narrow" in parts:
+        out["narrow"] = bench_narrow(pk, args.dump)
 
     if "fused" in parts:
         from probgan_tpu_torch.engine import image as engine_mod

@@ -6,7 +6,11 @@ weights from a seed, grade "high" unless ``--precision`` names another) with
 device's idle share over the host's wall time, and one JSON line:
 
     python -m probgan_tpu_torch.utils.profile_generate [--trace PATH.json]
-        [--precision default|fast|high|highest]
+        [--precision default|fast|high|highest] [--fmap_base N --fmap_max M]
+
+``--fmap_base`` / ``--fmap_max`` (the trainer CLIs' flags) profile another
+1024² generator: ``--fmap_base 2048 --fmap_max 256`` is the narrow one whose
+packed stages 6-8 run the kernels at 32, 16 and 8 channels.
 
 With ``--first-call`` it instead times single calls (host clock) in the
 steady state, right after ``torch.cuda.empty_cache()`` and right after one
@@ -18,7 +22,7 @@ Parts: the late-stage kernels by name (under ``PROBGAN_STAGE_FUSED=1``, read
 at each call, the two stage-fused kernels in place of the three; at "fast"
 and "default" the three bf16 kernels, ``*_bf16``, or the two stage-fused
 ones, ``packed_upconv_conv_bf16`` and ``packed_upconv_conv_rgb_bf16``), the cuDNN
-convolutions of stages 0-6, the copy of the images to the host, other copies,
+convolutions of the stages before the packed ones, the copy of the images to the host, other copies,
 and the elementwise rest (parity-conv interleave, epilogues, weight prep).
 Needs a CUDA card.
 """
@@ -34,7 +38,7 @@ import time
 import torch
 
 from probgan_tpu_torch.engine import ImageGANEngine
-from probgan_tpu_torch.models.pro_gan import ProGANConfig
+from probgan_tpu_torch.models.pro_gan import ProGANConfig, packed_start_stage
 
 # prefixes after the names that hold them
 _KERNELS = ("packed_upconv_bf16", "packed_conv_rgb_bf16", "packed_conv_bf16", "packed_upconv",
@@ -43,7 +47,9 @@ BATCH = 8
 CALLS = 3
 
 
-def _part(name: str) -> str:
+def _part(name: str, cudnn: str = "cudnn_conv_stages_0_6") -> str:
+    """The part of the path a device entry belongs to; ``cudnn`` names the
+    cuDNN convolutions of the stages before the packed ones."""
     fused = re.search(r"fused_kernel<\d+, ?(\d)>", name)  # csrc/fused_ring.cuh: <COUT, TAIL>
     if fused:
         return "packed_upconv_conv" if fused.group(1) == "0" else "packed_upconv_conv_rgb"
@@ -61,7 +67,7 @@ def _part(name: str) -> str:
         return "other_copies"
     low = name.lower()
     if any(s in low for s in ("conv", "gemm", "xmma", "cudnn", "implicit")):
-        return "cudnn_conv_stages_0_6"
+        return cudnn
     return "elementwise_and_other"
 
 
@@ -100,10 +106,17 @@ def main(argv=None) -> int:
     ap.add_argument("--precision", default="high",
                     choices=["default", "fast", "high", "highest"],
                     help="the serving grade ('default' is the grade None)")
+    ap.add_argument("--fmap_base", type=int, default=None, help="the config's fmap_base")
+    ap.add_argument("--fmap_max", type=int, default=None, help="the config's fmap_max")
     args = ap.parse_args(argv)
 
     precision = None if args.precision == "default" else args.precision
-    engine = ImageGANEngine(ProGANConfig(), device="cuda", precision=precision)
+    widths = {k: v for k, v in (("fmap_base", args.fmap_base), ("fmap_max", args.fmap_max))
+              if v is not None}
+    cfg = ProGANConfig(**widths)
+    s0 = packed_start_stage(cfg, cfg.num_stages - 1)
+    cudnn = "cudnn_conv_stages_0_6" if s0 is None else f"cudnn_conv_stages_0_{s0 - 1}"
+    engine = ImageGANEngine(cfg, device="cuda", precision=precision)
     z = engine.sample_latents(BATCH)
     for _ in range(2):  # warm-up: kernel build, cuDNN plans
         engine.generate(z)
@@ -131,7 +144,8 @@ def main(argv=None) -> int:
         return 1
     parts: dict[str, float] = {}
     for name, us in by_name.items():
-        parts[_part(name)] = parts.get(_part(name), 0.0) + us
+        part = _part(name, cudnn)
+        parts[part] = parts.get(part, 0.0) + us
     busy_us = sum(parts.values())
 
     print(f"{CALLS} generate calls, batch {BATCH}, 1024²: wall "
@@ -144,6 +158,7 @@ def main(argv=None) -> int:
         print(f"  {us / CALLS / 1e3:9.3f} ms/call  {name[:110]}")
     print(json.dumps({
         "batch": BATCH, "calls": CALLS, "precision": args.precision,
+        "fmap_base": cfg.fmap_base, "fmap_max": cfg.fmap_max, "packed_from_stage": s0,
         "stage_fused": os.environ.get("PROBGAN_STAGE_FUSED", "0") == "1",
         "wall_ms_per_call": wall_us / CALLS / 1e3,
         "device_busy_ms_per_call": busy_us / CALLS / 1e3,
