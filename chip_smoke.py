@@ -275,10 +275,30 @@ Phases (any failure exits non-zero and prints no result line):
     the unpacked path; the PSNR of "fast" against "high" is a reading;
     img/s, p50), ``latent_walk`` (frames equal to ``generate``'s) and
     ``score`` at "high" and "fast" (launches, logits within 1e-4 of the
-    twins', scores/s, p50); Cout 4, a PixelNorm Cout of 24, "none" and the
-    stage-fused kernels at 16 channels and the packed train step at N raise
-    ValueError on the card;
-17. the last lines: the card's name and power limit, one JSON line with each
+    twins', scores/s, p50); Cout 4 (with "none" too), a PixelNorm Cout of 24
+    and the stage-fused kernels at 16 channels raise ValueError on the card;
+17. the narrow backward at N: ``packed_conv`` "none" 8 -> 8 and 16 -> 8 at
+    1024², 16 -> 16 and 32 -> 16 at 512² (slabs of 8 and 16) and
+    ``packed_convpool`` "none" 8 -> 16 at 1024² (and 8 -> 8, a slab of 8 on
+    no path at N), batch 2, at "high", "default" and "mid", against their
+    twins (fp32 "none" within 1e-5 of the largest entry, B5 1e-4; "default"
+    4e-6, "mid" 1e-5), two runs bit-equal, timed beside the bound and
+    F.conv2d on the flipped, transposed weights (+ avg_pool2d);
+    ``packed_conv_wgrad`` at N's nine distinct weight-gradient shapes, fp32
+    and "default", within 1e-5; the four Functions at N's shapes on the
+    kernels against the same Functions on the twins at "highest", "mid" and
+    "default"; ``progan_train_step`` at N, stage 8, batch 2, both packed
+    gates, ``remat``, at "highest", "mid", "default" and dtype bf16: the
+    launches a step (phase 9's x 3/2, 18 wgrad; "none" at slabs of 16 and 8
+    by slab; nothing at another mode), the gradients against the twins to
+    phase 9's, 13's and 14's bounds, steps/s, p50 and peak memory, "highest"
+    after the bf16 steps bit-equal to the first, the train state saved and
+    resumed (bit-equal, the next step within 6e-4); the image trainer CLI
+    with ``--fast --fmap_base 2048 --fmap_max 256`` (stages 0-7 at 512², a
+    child at 1024² killed after its mid-stage save at stage 8, ``--resume``
+    to the end): the bf16 training kernels alone, finite losses, seconds per
+    stage, the checkpoint loaded at N;
+18. the last lines: the card's name and power limit, one JSON line with each
     kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -4223,13 +4243,12 @@ def phase_narrow_kernels(pk, pro_gan) -> tuple[list[dict], dict]:
     return entries, {"conv_lrelu_pooled_differing_values": pool_equal}
 
 
-def phase_narrow_refusals(pk, pro_gan, train_mod) -> dict:
+def phase_narrow_refusals(pk) -> dict:
     """What the card still refuses at N's widths, each a ValueError that
-    names the Cout (and ROADMAP.md where a kernel is still to come): Cout 4,
-    a PixelNorm Cout outside {8, 16, 32, 64}, the stage-fused kernels at 16
-    channels, "none" at slabs of 16 and 8, each before any launch; and the
-    train step at N (stage 7) with both packed gates, whose forward runs on
-    the kernels and whose backward needs "none" there."""
+    names the Cout (and ROADMAP.md where a kernel is still to come), before
+    any launch: Cout 4 (at "none" too), a PixelNorm Cout outside {8, 16, 32,
+    64}, the stage-fused kernels at 16 channels. "none" at slabs of 16 and 8
+    and the packed train step at N run: phase 17."""
     dev = "cuda"
     x16 = torch.randn((1, 16, 32, 32), device=dev)
     x8 = torch.randn((1, 8, 16, 32), device=dev)
@@ -4237,7 +4256,10 @@ def phase_narrow_refusals(pk, pro_gan, train_mod) -> dict:
     b = {n: torch.zeros(n, device=dev) for n in (4, 16, 24)}
     cases = {
         "packed_conv Cout 4": (lambda: pk.packed_conv(x16, w[4], b[4], "lrelu"), "Cout=4"),
+        "packed_conv none Cout 4": (lambda: pk.packed_conv(x16, w[4], b[4], "none"), "Cout=4"),
         "packed_convpool Cout 4": (lambda: pk.packed_convpool(x16, w[4], b[4]), "Cout=4"),
+        "packed_convpool none Cout 4": (
+            lambda: pk.packed_convpool(x16, w[4], b[4], "none", mode="default"), "Cout=4"),
         "packed_upconv Cout 4": (lambda: pk.packed_upconv(x16, w[4], b[4]), "Cout=4"),
         "packed_conv lrelu_norm Cout 24": (
             lambda: pk.packed_conv(x16, w[24], b[24], "lrelu_norm"), "Cout=24"),
@@ -4245,24 +4267,11 @@ def phase_narrow_refusals(pk, pro_gan, train_mod) -> dict:
             lambda: pk.packed_conv_rgb(x16, w[24], b[24], torch.zeros((3, 24), device=dev),
                                        torch.zeros(3, device=dev),
                                        torch.zeros((1, 3, 16, 16), device=dev), 1.0), "Cout=24"),
-        "packed_conv none Cout 16": (
-            lambda: pk.packed_conv(x16, w[16], b[16], "none"), "ROADMAP.md"),
-        "packed_convpool none Cout 16": (
-            lambda: pk.packed_convpool(x16, w[16], b[16], "none", mode="default"), "ROADMAP.md"),
         "packed_upconv_conv Cout 16": (
             lambda: pk.packed_upconv_conv(x8, torch.randn((16, 8, 3, 3), device=dev), b[16],
                                           torch.randn((16, 16, 3, 3), device=dev), b[16]),
             "ROADMAP.md"),
     }
-    cfg = pro_gan.ProGANConfig(**NARROW_CONFIG)
-    state = train_mod.progan_init_state(0, cfg, device=dev)
-    # stage 7 (512²): G's packed stages 6-7 end at 16 channels, D's start there
-    real = torch.zeros((2, 512, 512, 3), device=dev)
-    z = torch.randn((2, cfg.latent_dim), device=dev)
-    cases["progan_train_step at N, stage 7, packed"] = (
-        lambda: train_mod.progan_train_step(state, real, z, 1.0, cfg, 7, packed_d=True,
-                                            packed_g=True, packed_train_mode="highest"),
-        "ROADMAP.md")
     out = {}
     pk.reset_launches()
     for label, (call, needle) in cases.items():
@@ -4275,9 +4284,8 @@ def phase_narrow_refusals(pk, pro_gan, train_mod) -> dict:
             print(f"  {label}: ValueError: {e}")
         else:
             raise AssertionError(f"{label}: the card took it")
-    launched = {k: v for k, v in pk.narrow_launches.items() if v}
-    print(f"  narrow launches during the refusals (the train step's forward): {launched}")
-    del state
+    if any(pk.launches.values()):
+        raise AssertionError(f"a refused call launched {dict(pk.launches)}")
     return out
 
 
@@ -4409,6 +4417,496 @@ def phase_narrow_path(pk, pro_gan, engine_mod) -> tuple[dict, dict]:
         name = key.split("[")[0] + "[narrow]"
         entry_counts[name] = entry_counts.get(name, 0) + n
     return entry_counts, path
+
+
+# Phase 17: the narrow backward at N. N's training backward at stage 8 runs
+# the input gradients ("none") at slabs of 16 and 8: B2 8 -> 8 and 16 -> 8 at
+# 1024², 16 -> 16 and 32 -> 16 at 512² (conv_lrelu's, conv_lrelu_norm's and
+# convpool_lrelu's), B5 8 -> 16 at 1024² (the stage-8 upconv's); B6 at N's
+# twelve weight-gradient convs. Each kernel against its twin at "high",
+# "default" and "mid" to the bounds phases 8 (fp32: B2 NONE_REL, B5 1e-4, B6
+# WGRAD_REL), 14 ("default": DEFAULT_BWD_REL) and 13 ("mid": GRADE_REL) hold
+# at the default widths; then the train step at N and the image trainer's
+# --fast at N.
+NARROW_BWD_MODES = ("high", "default", "mid")
+# (kernel, C, Cout, H) at batch 2; B5 at a slab of 8 (8 -> 8) is on no path
+# at N, built and held all the same
+NARROW_NONE_CASES = (
+    ("packed_conv", 8, 8, 1024), ("packed_conv", 16, 8, 1024),
+    ("packed_conv", 16, 16, 512), ("packed_conv", 32, 16, 512),
+    ("packed_convpool", 8, 16, 1024), ("packed_convpool", 8, 8, 1024),
+)
+# N's twelve weight-gradient convs (C, Cout, H): G's (8, 8), (16 upsampled,
+# 8) at 1024², (16, 16), (32 up, 16) at 512², (32, 32), (64 up, 32) at 256²;
+# D's (8, 8), (8, 16), (16, 16), (16, 32), (32, 32), (32, 64); nine distinct
+NARROW_WGRAD_SHAPES = ((8, 8, 1024), (16, 8, 1024), (8, 16, 1024), (16, 16, 512),
+                       (32, 16, 512), (16, 32, 512), (32, 32, 256), (64, 32, 256),
+                       (32, 64, 256))
+# Launches of one progan_train_step at N, stage 8, both packed gates: three
+# packed stages a network where the default config has two, so
+# STEP_EPILOGUE_LAUNCHES x 3/2 at the step's counters and 18 weight
+# gradients; by slab below 32 (narrow_launches): B1 at 16 and 8 (G's two
+# forwards and the pre-norm recompute), B2 at 16 (G's stage-7 conv2 3 + its
+# input gradient 1, D's stage-7 conv1 3 forwards + 3 input gradients,
+# stage-7 convpool's input gradient 3, stage-8 convpool's mask recompute 3)
+# and 8 (G's stage-8 conv2 3 + 1, D's stage-8 conv1 3 + 3, stage-8
+# convpool's input gradient 3), B5 at 16 (D's stage-8 convpool 3, G's
+# stage-8 upconv's input gradient 1)
+NARROW_STEP_EPILOGUE = {k: v * 3 // 2 for k, v in STEP_EPILOGUE_LAUNCHES.items()}
+NARROW_STEP_WGRAD = 18
+NARROW_STEP_NARROW = {"packed_upconv[cout16]": 3, "packed_upconv[cout8]": 3,
+                      "packed_conv[cout16]": 16, "packed_conv[cout8]": 13,
+                      "packed_convpool[cout16]": 4}
+# ... of which "none" (the input gradients), by (kernel, slab)
+NARROW_STEP_NONE = {("packed_conv", 8): 7, ("packed_conv", 16): 7, ("packed_convpool", 16): 1}
+NARROW_TIMED_STEPS = 3
+NARROW_STEP_SUFFIX = {"highest": "", "mid": "_mid", "default": "_bf16"}
+# the Functions at N's narrow shapes: (name, C, Cout, H, input PixelNorm'd)
+NARROW_FUNCTIONS = (("conv_lrelu", 8, 8, 1024, False), ("convpool_lrelu", 8, 16, 1024, False),
+                    ("conv_lrelu_norm", 16, 16, 512, True),
+                    ("upconv_lrelu_norm", 16, 8, 512, True))
+
+
+def phase_narrow_bwd_kernels(pk, packed_vjp, pro_gan) -> tuple[list[dict], dict]:
+    """B2 and B5 "none" at slabs of 16 and 8 and B6 at N's shapes (batch 2)
+    against their twins at each kernel mode, two runs bit-equal, timed beside
+    the bound and the library call (F.conv2d on the flipped, transposed
+    weights, with avg_pool2d for B5; fp32 with TF32 off, bf16 tensors at
+    "default", the bf16-rounded weights at "mid"; conv2d_weight for B6); the
+    four Functions at N's shapes on the kernels against the same Functions on
+    the twins at "highest" (GRAD_REL), "mid" and "default" (DEFAULT_FN_REL,
+    dx with DEFAULT_FN_FLIP_SHARE: a mask the two sums set apart moves a
+    weight gradient summed over 2 million pixels by ~1e-3 of its largest
+    entry)."""
+    gen = torch.Generator(device="cuda").manual_seed(1717)
+    dev, bf, B = "cuda", torch.bfloat16, TRAIN_BATCH
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    def conv_w(cout, cin):
+        return randn(cout, cin, 3, 3) * math.sqrt(2.0 / (9 * cin))
+
+    rows = {}
+    for mode in NARROW_BWD_MODES:
+        terms = pk.BF16_TERMS.get(mode, 0)
+        for kernel, c, cout, h in NARROW_NONE_CASES:
+            pool = kernel == "packed_convpool"
+            slab = pk._pool_slab(cout)
+            label = f"{kernel}[{mode},none,{c}->{cout}@{h}]"
+            x, w, b = randn(B, c, h, h), conv_w(cout, c), torch.zeros(cout, device=dev)
+            kfn, pfn = getattr(pk, kernel), getattr(pk, f"{kernel}_plain")
+
+            def fn(x=x, w=w, b=b, kfn=kfn, mode=mode):
+                return kfn(x, w, b, "none", mode=mode)
+
+            def plain(x=x, w=w, b=b, pfn=pfn, mode=mode):
+                return pfn(x, w, b, "none", mode=mode)
+
+            def library(x=x, w=w, pool=pool, mode=mode):
+                xl, wl = ((x.to(bf), w.to(bf)) if mode == "default"
+                          else (x, pk._bf16(w)) if mode == "mid" else (x, w))
+                y = F.conv2d(xl, wl, padding=1).float()
+                return F.avg_pool2d(y, 2) if pool else y
+
+            got = fn()
+            check_two_runs(label, got, fn())
+            want = plain()
+            if mode != "high":
+                err = check_rel(label, got, want,
+                                rel=DEFAULT_BWD_REL if mode == "default" else GRADE_REL)
+            elif pool:
+                torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+                err = (got - want).abs().max().item()
+            else:
+                err = scaled_err(label, got, want, NONE_REL)
+            flops = 2 * 9 * c * cout * B * h * h
+            nbytes = (4 * (B * c * h * h + B * cout * h * h // (4 if pool else 1))
+                      + (4 if mode == "high" else 2) * 9 * c * cout)
+            if mode == "high":  # 3xTF32 (B2) or fp32 FMAs (B5)
+                peak, op_flops = (PEAK_FP32_FLOPS, flops) if pool else (PEAK_TF32_FLOPS,
+                                                                         3 * flops)
+            else:
+                peak, op_flops = PEAK_BF16_FLOPS, terms * flops
+            entry = f"{_counter(kernel, mode)}[none,{f'cout{slab}' if pool else 'narrow'}]"
+            source = kernel + ("" if mode == "high" else "_bf16")
+            rows.setdefault(entry, (source, NARROW_SOURCES[kernel], []))[2].append({
+                "call": f"C{c}->Cout{cout}@{h}", "shape_in": [B, c, h, h], "slab": slab,
+                "max_abs_err": err, "max_abs_err_share_of_largest": err / want.abs().max().item(),
+                "bit_equal_runs": True, "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain),
+                "library_ms": cuda_ms(library), "flops": flops, "op_flops": op_flops,
+                "bytes": nbytes, "peak_flops": peak,
+            })
+            del x, got, want
+        torch.cuda.empty_cache()
+
+    for mode in ("high", "default"):
+        calls = []
+        for c, cout, h in NARROW_WGRAD_SHAPES:
+            label = f"packed_conv_wgrad[{mode},{c}->{cout}@{h}]"
+            x, g = pro_gan.lrelu(randn(B, c, h, h)), 0.01 * randn(B, cout, h, h)
+            got = pk.packed_conv_wgrad(x, g, mode=mode)
+            again = pk.packed_conv_wgrad(x, g, mode=mode)
+            torch.cuda.synchronize()
+            if tuple(got.shape) != (cout, c, 3, 3) or differing_bits(got, again):
+                raise AssertionError(f"{label}: wrong shape, or two runs differ")
+            want = pk.packed_conv_wgrad_plain(x, g, mode=mode)
+            err = check_rel(label, got, want, rel=WGRAD_REL)
+
+            def library(x=x, g=g, c=c, cout=cout, mode=mode):
+                if mode == "default":
+                    x, g = x.to(bf), g.to(bf)
+                return torch.nn.grad.conv2d_weight(x, (cout, c, 3, 3), g, padding=1)
+
+            flops = 2 * 9 * c * cout * B * h * h
+            calls.append({
+                "call": f"C{c}->Cout{cout}@{h}", "shape_in": [B, c, h, h], "max_abs_err": err,
+                "max_abs_err_share_of_largest": err / want.abs().max().item(),
+                "bit_equal_runs": True,
+                "ms": cuda_ms(lambda x=x, g=g, mode=mode: pk.packed_conv_wgrad(x, g, mode=mode)),
+                "plain_ms": cuda_ms(lambda x=x, g=g, mode=mode:
+                                    pk.packed_conv_wgrad_plain(x, g, mode=mode), iters=3,
+                                    warmup=1),
+                "library_ms": cuda_ms(library), "flops": flops,
+                "op_flops": 3 * flops if mode == "high" else flops,
+                "bytes": 4 * (B * h * h * (c + cout) + 9 * c * cout),
+                "peak_flops": PEAK_TF32_FLOPS if mode == "high" else PEAK_BF16_FLOPS,
+            })
+            del x, g, got, again, want
+        name = "packed_conv_wgrad" + ("_bf16" if mode == "default" else "")
+        rows[f"{name}[narrow]"] = (name, "probgan_tpu/ops/pallas_packed.py:558", calls)
+
+    # the four Functions at N's narrow shapes, forward and backward, on the
+    # kernels against the same Functions on the twins
+    def vjp(fn, x, w, b, cot, mode):
+        x, w, b = (t.clone().requires_grad_(True) for t in (x, w, b))
+        y = fn(x, w, b, mode=mode)
+        return (y.detach(), *torch.autograd.grad(y, (x, w, b), cot))
+
+    fn_errs = {}
+    for mode in ("highest", "mid", "default"):
+        for name, c, cout, h, norm_in in NARROW_FUNCTIONS:
+            x = randn(B, c, h, h)
+            x = pro_gan.pixel_norm(x) if norm_in else pro_gan.lrelu(x)
+            w, b = conv_w(cout, c), 0.1 * randn(cout)
+            fn = getattr(packed_vjp, name)
+            with torch.no_grad():
+                cot = torch.randn(fn(x, w, b, mode=mode).shape, device=dev, generator=gen)
+            pk.reset_launches()
+            got = vjp(fn, x, w, b, cot, mode)
+            launched = {k: v for k, v in pk.narrow_launches.items() if v}
+            with swap_in_plain_twins(pk, PACKED_KERNELS):
+                want = vjp(fn, x, w, b, cot, mode)
+            # at the bf16 grades the kernel and the twin sum each
+            # pre-activation in other orders, so a LeakyReLU mask can differ
+            # where one lies that close to zero: phase 14's bounds
+            rel = GRAD_REL if mode == "highest" else DEFAULT_FN_REL
+            flips = int(((got[0] >= 0) != (want[0] >= 0)).sum().item())
+            fn_errs[f"{name}[{mode}]"] = errs = [
+                check_rel(f"packed_vjp.{name}[{mode}] {part} vs the twins", g, t,
+                          flips=part == "dx", rel=rel, flip_share=DEFAULT_FN_FLIP_SHARE,
+                          flip_rel=DEFAULT_FN_FLIP_REL)
+                for part, g, t in zip(("y", "dx", "dw", "db"), got, want)]
+            print(f"  packed_vjp.{name}[{mode}] C{c}->Cout{cout}@{h} vs the same Function on "
+                  f"the twins: y {errs[0]:.3g}  dx {errs[1]:.3g}  dw {errs[2]:.3g}  db "
+                  f"{errs[3]:.3g} of the largest entry; output signs differing {flips}; "
+                  f"narrow launches {launched}")
+            del x, cot, got, want
+    pk.reset_launches()
+    entries = assemble_conv_rows([(name, src, rep, calls)
+                                  for name, (src, rep, calls) in rows.items()], B)
+    return entries, {"functions_vs_twins_y_dx_dw_db": fn_errs}
+
+
+@contextlib.contextmanager
+def narrow_none_spy(pk, seen: dict):
+    """Inside, packed_conv's and packed_convpool's "none" calls at a slab
+    below 32 are counted in ``seen`` by (kernel, slab)."""
+    real = {name: getattr(pk, name) for name in ("packed_conv", "packed_convpool")}
+
+    def spy_of(name):
+        def spy(x, w, b, *args, **kwargs):
+            epilogue = kwargs.get("epilogue", args[0] if args else None)
+            slab = pk._pool_slab(w.shape[0])
+            if epilogue == "none" and slab < 32:
+                seen[(name, slab)] = seen.get((name, slab), 0) + 1
+            return real[name](x, w, b, *args, **kwargs)
+        return spy
+
+    try:
+        for name in real:
+            setattr(pk, name, spy_of(name))
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(pk, name, fn)
+
+
+def narrow_step_launches(pk, mode: str, steps: int = 1) -> tuple[dict, dict]:
+    """``steps`` N train steps' launches at packed_train_mode ``mode``: the
+    counters with their epilogues, and narrow_launches."""
+    sfx = NARROW_STEP_SUFFIX[mode]
+    want = {k: 0 for k in (*pk.launches, *pk.epilogue_launches)}
+    for key, n in NARROW_STEP_EPILOGUE.items():
+        kernel, epilogue = key.split("[")
+        want[kernel + sfx] += n * steps
+        want[f"{kernel}{sfx}[{epilogue}"] = n * steps
+    want["packed_conv_wgrad_bf16" if mode == "default" else "packed_conv_wgrad"] = (
+        NARROW_STEP_WGRAD * steps)
+    narrow = {}
+    for key, n in NARROW_STEP_NARROW.items():
+        kernel, slab = key.split("[")
+        narrow[f"{kernel}{sfx}[{slab}"] = n * steps
+    return want, narrow
+
+
+def check_step_launches(pk, label: str, mode: str, steps: int = 1) -> None:
+    want, narrow = narrow_step_launches(pk, mode, steps)
+    got = {**pk.launches, **pk.epilogue_launches}
+    if got != want or {k: v for k, v in pk.narrow_launches.items() if v} != narrow:
+        raise AssertionError(f"{label}: launched {got}, narrow {dict(pk.narrow_launches)}; "
+                             f"expected {want}, narrow {narrow}")
+
+
+def phase_narrow_train(pk, pro_gan, train_mod, train_state_mod, tree_mod) -> tuple[dict, dict]:
+    """progan_train_step at N, 1024², stage 8, batch 2, packed_d, packed_g,
+    remat, at packed_train_mode "highest", "mid" and "default" and at dtype
+    bf16 (the --fast math): the launches a step (NARROW_STEP_*: "none" at 16
+    and 8 counted, no launch at another mode); the raw gradients on the
+    kernels against the plain twins to the bounds of phases 9 ("highest"),
+    13 ("mid") and 14 ("default"); timed steps (steps/s, p50, peak memory);
+    "highest" after the bf16 steps bit-equal to the first; the train state
+    saved, loaded back bit-equal and the resumed next step within phase 9's
+    bound."""
+    tree_leaves = tree_mod.tree_leaves
+    cfg = pro_gan.ProGANConfig(**NARROW_CONFIG)
+    stage, B, alpha = TRAIN_STAGE, TRAIN_BATCH, 0.5
+    kw = dict(packed_d=True, packed_g=True, remat=True)
+    if (pro_gan.packed_start_stage(cfg, stage) != 6
+            or pro_gan.packed_d_stage_count(cfg, stage, "highest") != 3):
+        raise AssertionError("N's packed training stages are not 6-8")
+    state = train_mod.progan_init_state(0, cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1718)
+    real = torch.tanh(torch.randn((B, cfg.resolution, cfg.resolution, 3), device="cuda",
+                                  generator=gen))
+    z = torch.randn((B, cfg.latent_dim), device="cuda", generator=gen)
+    out = {"config": NARROW_CONFIG, "batch": B, "stage": stage, "remat": True, "alpha": alpha,
+           "launches_per_step": {m: [{k: v for k, v in counts.items() if v}
+                                     for counts in narrow_step_launches(pk, m)]
+                                 for m in NARROW_STEP_SUFFIX}}
+
+    # -- the gradients on the kernels against the plain twins, each mode
+    vs_twins, first_high = {}, None
+    for mode in ("highest", "mid", "default"):
+        pk.reset_launches()
+        with deterministic_cudnn():
+            d_k, g_k, m_k = train_mod.progan_grads(state, real, z, alpha, cfg, stage,
+                                                   packed_train_mode=mode, **kw)
+        check_step_launches(pk, f"progan_grads at N, {mode}", mode)
+        if mode == "highest":
+            first_high = (d_k, g_k)
+        with swap_in_plain_twins(pk, PACKED_KERNELS):
+            d_t, g_t, m_t = train_mod.progan_grads(state, real, z, alpha, cfg, stage,
+                                                   packed_train_mode=mode, **kw)
+        if mode == "default":
+            check_metrics("step at N, \"default\", vs the plain twins", m_k, m_t, STEP_LOSS_RTOL,
+                          DEFAULT_LOGIT_ATOL)
+            rec = {"d": vector_agreement(d_k, d_t, tree_leaves),
+                   "g": vector_agreement(g_k, g_t, tree_leaves)}
+            for net, v in rec.items():
+                if not (v["l2"] <= DEFAULT_GRAD_L2 and v["cos"] >= DEFAULT_GRAD_COS):
+                    raise AssertionError(f"{net} gradients at N, \"default\", vs the twins: {v} "
+                                         f"(bounds L2 {DEFAULT_GRAD_L2}, cos {DEFAULT_GRAD_COS})")
+            text = (f"relative L2 {rec['d']['l2']:.3g} / {rec['g']['l2']:.3g}, cos "
+                    f"{rec['d']['cos']:.6f} / {rec['g']['cos']:.6f}")
+        else:
+            check_metrics(f"step at N, {mode}, vs the plain twins", m_k, m_t, STEP_LOSS_RTOL)
+            rec = {"d": tree_rel_errs(f"D gradients at N, {mode}, vs the twins", d_k, d_t,
+                                      tree_leaves, STEP_GRAD_REL),
+                   "g": tree_rel_errs(f"G gradients at N, {mode}, vs the twins", g_k, g_t,
+                                      tree_leaves, STEP_GRAD_REL)}
+            text = f"worst leaf {rec['d']:.3g} / {rec['g']:.3g} of its largest entry"
+        rec["metrics"] = {k: float(v) for k, v in m_k.items()}
+        vs_twins[mode] = rec
+        print(f"  progan_grads at N, {mode}: D / G gradients vs the plain twins {text}; "
+              f"losses within rtol {STEP_LOSS_RTOL:g}; launches and narrow launches as "
+              "expected")
+        del d_t, g_t, d_k, g_k
+    out["vs_twins"] = vs_twins
+    torch.cuda.empty_cache()
+
+    # -- timed steps at each grade, "none" at 16 and 8 counted by slab
+    counts, runs, st_high = {}, {}, None
+    for label, mode, dtype in (("highest", "highest", torch.float32),
+                               ("mid", "mid", torch.float32),
+                               ("default", "default", torch.float32),
+                               ("default bf16", "default", torch.bfloat16)):
+        st, _ = train_mod.progan_train_step(state, real, z, alpha, cfg, stage, dtype=dtype,
+                                            packed_train_mode=mode, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pk.reset_launches()
+        none_seen, times, losses = {}, [], []
+        with narrow_none_spy(pk, none_seen):
+            for i in range(NARROW_TIMED_STEPS):
+                t0 = time.perf_counter()
+                st, m = train_mod.progan_train_step(st, real, z, 0.5 if i % 2 == 0 else 1.0, cfg,
+                                                    stage, dtype=dtype, packed_train_mode=mode,
+                                                    **kw)
+                losses.append({k: float(v) for k, v in m.items()})  # reads the card
+                times.append(time.perf_counter() - t0)
+        check_step_launches(pk, f"the train steps at N, {label}", mode, NARROW_TIMED_STEPS)
+        if none_seen != {k: n * NARROW_TIMED_STEPS for k, n in NARROW_STEP_NONE.items()}:
+            raise AssertionError(f"\"none\" at slabs below 32 at N, {label}: {none_seen}")
+        if not all(math.isfinite(v) for m in losses for v in m.values()):
+            raise AssertionError(f"a train step at N, {label}, is not finite: {losses}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        per_step_ms = sorted(t * 1e3 for t in times)
+        runs[label] = {"steps_per_s": NARROW_TIMED_STEPS / sum(times), "step_s": times,
+                       "p50_ms_per_step": float(np.median(per_step_ms)), "losses": losses,
+                       "peak_memory_gb": peak_gb,
+                       "none_launches_by_slab": {f"{k}[cout{s}]": n
+                                                 for (k, s), n in none_seen.items()}}
+        sfx = NARROW_STEP_SUFFIX[mode]
+        if dtype == torch.float32:
+            for kernel, slab in ((k, s) for k, s in NARROW_STEP_NONE):
+                tag = "narrow" if kernel == "packed_conv" else f"cout{slab}"
+                name = f"{kernel}{sfx}[none,{tag}]"
+                counts[name] = counts.get(name, 0) + none_seen[(kernel, slab)]
+            wgrad = "packed_conv_wgrad_bf16" if mode == "default" else "packed_conv_wgrad"
+            if mode != "mid":
+                counts[f"{wgrad}[narrow]"] = pk.launches[wgrad]
+            if mode == "default":  # B5 "default" at 16 channels (phase 16's entry)
+                counts["packed_convpool_bf16[narrow]"] = pk.narrow_launches[
+                    "packed_convpool_bf16[cout16]"]
+        print(f"  progan_train_step at N, {label}: {NARROW_TIMED_STEPS / sum(times):.3f} steps/s, "
+              f"p50 {float(np.median(per_step_ms)):.1f} ms, peak {peak_gb:.2f} GB; \"none\" at "
+              f"16/8 a step {NARROW_STEP_NONE}, narrow launches "
+              f"{ {k: v for k, v in pk.narrow_launches.items() if v} }")
+        if label == "highest":
+            st_high = st
+        else:
+            del st
+        torch.cuda.empty_cache()
+    out["runs"] = runs
+
+    with deterministic_cudnn():
+        again = train_mod.progan_grads(state, real, z, alpha, cfg, stage,
+                                       packed_train_mode="highest", **kw)
+    if any(not torch.equal(a, b) for a, b in zip(tree_leaves(again[:2]),
+                                                 tree_leaves(first_high))):
+        raise AssertionError("\"highest\" at N after the bf16 steps is not the first "
+                             "\"highest\", bit for bit")
+    out["highest_after_bf16_bit_equal"] = True
+    print("  \"highest\" at N after \"mid\", \"default\" and bf16: bit-equal to the first")
+    del again, first_high
+
+    # -- the train state: save, load, the next step against the uninterrupted run
+    def step(stt):
+        return train_mod.progan_train_step(stt, real, z, 1.0, cfg, stage,
+                                           packed_train_mode="highest", **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train_state.msgpack")
+        train_state_mod.save_train_state(path, st_high, {"step": NARROW_TIMED_STEPS + 1})
+        size_mb = os.path.getsize(path) / 1e6
+        template = train_mod.progan_init_state(1, cfg, device="cuda")
+        resumed, meta = train_state_mod.load_train_state(path, template)
+    if meta != {"step": NARROW_TIMED_STEPS + 1} or not all(
+            torch.equal(a, b) and a.device == b.device
+            for a, b in zip(tree_leaves(resumed), tree_leaves(st_high))):
+        raise AssertionError("the train state at N did not come back bit for bit")
+    with deterministic_cudnn():
+        next_a, m_a = step(st_high)
+        next_b, m_b = step(resumed)
+    check_metrics("the resumed step at N vs the uninterrupted one", m_b, m_a, 1e-6)
+    resume_diff = max((a - b).abs().max().item()
+                      for a, b in zip(tree_leaves(next_b), tree_leaves(next_a)))
+    if resume_diff > 0.6e-3:
+        raise AssertionError(f"the resumed run at N differs by {resume_diff:.3g}")
+    out.update({"train_state_mb": size_mb, "resume_max_abs_diff": resume_diff})
+    print(f"  train state at N: {size_mb:.1f} MB written and read back bit-equal; the resumed "
+          f"next step differs by {resume_diff:.3g} at most (0 = bit-equal)")
+    del template, resumed, next_a, next_b, st_high, state
+    return counts, out
+
+
+def phase_narrow_cli(pk, cli_train, image_checkpoint_mod, tree_mod) -> dict:
+    """The image trainer CLI with --fast at N (--fmap_base 2048 --fmap_max
+    256) on phase 11's schedule (TRAINER_EPOCHS a stage: stage 8 needs a
+    second epoch to save mid-stage): stages 0-7 at --resolution 512 in
+    process; --resume --grow to 1024² in a child killed after its mid-stage
+    save; --resume to the end in process. Stages 6-8 on the bf16 kernels and
+    no other packed kernel, "none" at 16 and 8 among them; finite losses; the
+    checkpoint loads in the port at N. Seconds per stage from metrics.jsonl."""
+    common = ["--synthetic", str(TRAINER_IMAGES), "--batch_size", str(TRAINER_BATCH),
+              "--epochs_per_stage", str(TRAINER_EPOCHS), "--device", "cuda", "--fast",
+              "--fmap_base", str(NARROW_CONFIG["fmap_base"]),
+              "--fmap_max", str(NARROW_CONFIG["fmap_max"])]
+    legs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "narrow")
+
+        def in_process(leg, args, expect):
+            pk.reset_launches()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli_train.main(["--model", "image", *common, *args, "--output_dir", out_dir])
+            if rc != 0 or expect not in out.getvalue():
+                raise AssertionError(f"image trainer --fast at N ({leg}) exited {rc}, lacks "
+                                     f"{expect!r}:\n{out.getvalue()}")
+            legs[leg] = {"s": time.perf_counter() - t0, "launches": dict(pk.launches),
+                         "narrow_launches": {k: v for k, v in pk.narrow_launches.items() if v},
+                         "none_launches": {k: v for k, v in pk.epilogue_launches.items()
+                                           if v and "[none]" in k}}
+
+        in_process("stages 0-7", ["--resolution", "512", "--checkpoint_minutes", "0"],
+                   "Stage 7 (512²)")
+        torch.cuda.empty_cache()  # room for the child on the card
+        child_s = run_until_mid_stage_save(
+            ["--model", "image", *common, "--resolution", "1024", "--resume", "--grow",
+             "--checkpoint_minutes", "1e-9", "--verbose", "--output_dir", out_dir])
+        in_process("stage 8", ["--resolution", "1024", "--resume"],
+                   f"Resumed mid-stage 8 (next: epoch 2/{TRAINER_EPOCHS})")
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        cfg, g_params, d_params = image_checkpoint_mod.load_image_checkpoint(
+            os.path.join(out_dir, "image_checkpoint.msgpack"))
+    for leg, rec in legs.items():
+        launched = rec["launches"]
+        if any(launched[k] < 1 for k in BF16_TRAIN_KERNELS) or any(
+                n for k, n in launched.items() if k not in BF16_TRAIN_KERNELS):
+            raise AssertionError(f"--fast at N ({leg}) launched {launched}: expected the bf16 "
+                                 "training kernels and no other packed kernel")
+    late = legs["stage 8"]
+    if not (late["narrow_launches"].get("packed_conv_bf16[cout8]", 0) >= 1
+            and late["narrow_launches"].get("packed_convpool_bf16[cout16]", 0) >= 1
+            and late["none_launches"].get("packed_conv_bf16[none]", 0) >= 1):
+        raise AssertionError(f"--fast at N, stage 8: narrow launches {late}")
+    if [(m["stage"], m["epoch"]) for m in metrics] != [
+            (s, e) for s in range(9) for e in range(1, TRAINER_EPOCHS + 1)]:
+        raise AssertionError(f"--fast at N, metrics.jsonl: {metrics}")
+    if any(not (math.isfinite(m["d_loss"]) and math.isfinite(m["g_loss"])) for m in metrics):
+        raise AssertionError(f"--fast at N: losses not finite: {metrics}")
+    if (cfg.resolution, cfg.fmap_base, cfg.fmap_max) != (1024, 2048, 256) or not d_params or not all(
+            torch.isfinite(t).all() for t in tree_mod.tree_leaves(g_params)):
+        raise AssertionError("--fast at N wrote a checkpoint the port does not load as trained")
+    stage_s = {}
+    for m in metrics:
+        stage_s[m["stage"]] = stage_s.get(m["stage"], 0.0) + m["seconds"]
+    print(f"  image trainer CLI --fast at N ({TRAINER_IMAGES} images, batch {TRAINER_BATCH}, "
+          f"{TRAINER_EPOCHS} epochs a stage; stages 0-7 at 512², a child killed after its "
+          f"mid-stage save at stage 8, --resume): seconds per stage "
+          f"{', '.join(f'{k}: {v:.4f}' for k, v in stage_s.items())}; legs "
+          f"{ {k: round(v['s'], 1) for k, v in legs.items()} } s, child {child_s:.1f} s; "
+          f"stage 8 launches {late['launches']}, narrow {late['narrow_launches']}; the "
+          "checkpoint loads at N")
+    return {"images": TRAINER_IMAGES, "batch": TRAINER_BATCH, "epochs_per_stage": TRAINER_EPOCHS,
+            "seconds_per_stage": stage_s, "leg_s": {k: v["s"] for k, v in legs.items()},
+            "child_s_to_mid_stage_save": child_s, "legs": legs,
+            "losses": [(m["d_loss"], m["g_loss"]) for m in metrics]}
 
 
 _T0 = time.perf_counter()
@@ -4576,25 +5074,42 @@ def main() -> int:
     narrow_counts, narrow_path = phase_narrow_path(pk, pro_gan, engine_mod)
     narrow["path"] = narrow_path
     torch.cuda.empty_cache()
-    narrow["refusals"] = phase_narrow_refusals(pk, pro_gan, train_mod)
-    # an instantiation no serving path at N launches (B5 at "default": the
-    # discriminator gate declines that grade) stays out of the kernels line
-    narrow["off_path_kernels"] = [k for k in narrow_kernels if k["name"] not in narrow_counts]
-    kernels += [k for k in narrow_kernels if k["name"] in narrow_counts]
+    narrow["refusals"] = phase_narrow_refusals(pk)
+    torch.cuda.empty_cache()
+
+    phase_line("phase 17: the narrow backward at N: B2 and B5 \"none\" at slabs of 16 and 8 and "
+               "B6 at N's shapes vs their twins at \"high\", \"default\" and \"mid\", the four "
+               "Functions; progan_train_step at N at \"highest\", \"mid\", \"default\" and "
+               "bf16, save and resume; the image trainer CLI with --fast at N")
+    narrow_bwd_kernels, narrow_bwd = phase_narrow_bwd_kernels(pk, packed_vjp, pro_gan)
+    torch.cuda.empty_cache()
+    narrow_bwd_counts, narrow_bwd["train"] = phase_narrow_train(pk, pro_gan, train_mod,
+                                                                train_state_mod, tree_mod)
+    torch.cuda.empty_cache()
+    narrow_bwd["trainer_cli"] = phase_narrow_cli(pk, cli_train, image_checkpoint_mod, tree_mod)
+    # each entry's launches: phase 16's serving runs, the N train step's for
+    # the backward's entries and B5 "default" at 16 channels; an
+    # instantiation no path at N launches (B5 at "default" serving, B5
+    # "none" at a slab of 8) stays out of the kernels line
     counts.update(narrow_counts)
+    counts.update(narrow_bwd_counts)
+    narrow_all = narrow_kernels + narrow_bwd_kernels
+    narrow["off_path_kernels"] = [k for k in narrow_all if k["name"] not in counts]
+    kernels += [k for k in narrow_all if k["name"] in counts]
     for k in kernels:
         k["launches"] = counts[k["name"]]
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on its main path")
 
-    phase_line("phases 1-16 done:")
+    phase_line("phase 18: phases 1-17 done; the kernels line and the result:")
     print(card_line())
     print(json.dumps({"kernels": kernels, "main_path": main, "score_path": score_path,
                       "kg_path": kg, "train_path": train, "fused_path": fused_path,
                       "grades": grades, "mid": {"score": score_mid, "train": train_mid,
                                                 "generate": gen_mid},
                       "default_backward": {"train": train_default, "fast_cli": fast_cli},
-                      "fused_bf16": fused_bf16, "narrow": narrow, "card": card},
+                      "fused_bf16": fused_bf16, "narrow": narrow,
+                      "narrow_backward": narrow_bwd, "card": card},
                      allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

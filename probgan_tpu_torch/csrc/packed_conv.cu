@@ -8,7 +8,10 @@
 // the conv1 of the discriminator's two first blocks (32 -> 32 at 1024^2,
 // 64 -> 64 at 512^2, "lrelu") and, with "none", the 20 launches of a train
 // step at batch 2: (C, Cout, H) = (32, 32, 1024) x4, (32, 64, 1024) x3,
-// (64, 32, 1024) x3, (64, 64, 512) x4, (64, 128, 512) x3, (128, 64, 512) x3.
+// (64, 32, 1024) x3, (64, 64, 512) x4, (64, 128, 512) x3, (128, 64, 512) x3;
+// in the narrow generator's step (fmap_base 2048 at 1024^2) also the input
+// gradients at 16 and 8 output channels: (8, 8, 1024), (16, 8, 1024),
+// (16, 16, 512), (32, 16, 512).
 //
 // Two kernels behind one entry.
 //
@@ -53,9 +56,18 @@
 // image, N = a slab of NS output channels, K = 9 x C; no im2col reaches
 // device memory.
 //  * Tilings, as the caller picks them (ops/packed.py:conv_tiling): NS = 64,
-//    TR = 8 for Cout % 64 == 0, else NS = 32, TR = 16. Either way 8 warps,
-//    each owning 4 tile rows x 16 columns (one m16 tile a row) x 32 output
-//    channels (four n8 tiles): 64 fp32 sums a thread.
+//    TR = 8 for Cout % 64 == 0, else NS = 32, 16 or 8 (the largest that
+//    divides Cout), TR = 16. Always 8 warps, each owning 4 tile rows x 16
+//    columns (one m16 tile a row) x 32 output channels (four n8 tiles; 64
+//    fp32 sums a thread) at NS = 64 and 32, x the slab's 16 or 8 (two n8
+//    tiles or one) below. The narrow slabs keep the 16 x 32-pixel tile and
+//    its 256 threads rather than fewer threads on fewer pixels: at 16 and 8
+//    output channels the staged x patch, (TR + 2) x 40 floats a channel
+//    against 9 x NS of weights, is most of a stage, and a tile's pixels are
+//    what that staging buys. They are bound by bytes (e.g. 8 -> 8 at 1024^2,
+//    batch 2: 134 MB, 0.040 ms at 3.35 TB/s, against 7.2 GFLOP of TF32,
+//    0.015 ms). C = 8 stages one k8 group of data and one of zeros; the
+//    block skips the second (the `break` below).
 //  * A persistent block walks tiles blockIdx.x, + gridDim.x, ..., and each
 //    tile's input channels 16 at a time, through one ring of 3 shared-memory
 //    stages filled by cp.async (16 bytes, .cg): x [16][TR+2][40] (the halo
@@ -72,8 +84,12 @@
 //  * The tensor cores round each mma's sum toward zero: a part of one group
 //    of 8 input channels (27 mma per sum) is added into the fp32 sums with a
 //    rounded add, which bounds the bias by the part's size.
+//  * Dynamic shared memory, 3 stages (ops/packed.py:none_ring_bytes passes
+//    it, launch_none checks it): 190,464 B at NS = 64, 196,608 at 32,
+//    168,960 at 16 and 153,600 at 8, one block an SM at every slab.
 //  * Bank-conflict-free fragment loads: x channel planes are (TR+2)*40 + 8
-//    floats apart and weight rows 9*NS + 8, 24 and 8 mod 32 words.
+//    floats apart and weight rows 9*NS + 8 (9*NS at NS = 8), 24 and 8 or 24
+//    mod 32 words.
 //  * The epilogue adds the bias and stores NCHW straight from the fragments:
 //    each store of a warp fills four whole 32-byte sectors.
 //  * Every output is summed in one fixed order (input channels ascending,
@@ -134,12 +150,15 @@ constexpr int kNoneStages = 3;
 
 template <int NS>
 struct NoneTile {
-  static_assert(NS == 32 || NS == 64, "the none kernel is built for slabs of 32 or 64");
-  static constexpr int WN = NS / 32;                   // warps across the slab's channels
+  static_assert(NS == 8 || NS == 16 || NS == 32 || NS == 64,
+                "the none kernel is built for slabs of 8, 16, 32 or 64");
+  static constexpr int WN = NS == 64 ? 2 : 1;          // warps across the slab's channels
+  static constexpr int NT = (NS == 64 ? 32 : NS) / 8;  // n8 tiles a warp: 4, 4, 2, 1
   static constexpr int WR = 4 / WN;                    // warps down the tile's rows
-  static constexpr int TR = 4 * WR;                    // tile rows: 8 or 16
+  static constexpr int TR = 4 * WR;                    // tile rows: 8 at 64, else 16
   static constexpr int kXs = (TR + 2) * kNoneXW + 8;   // x channel stride, 24 mod 32
-  static constexpr int kWs = 9 * NS + 8;               // weight row stride, 8 mod 32
+  // weight row stride, 8 or 24 mod 32 (9 * NS is 0, 16 or 8 mod 32)
+  static constexpr int kWs = 9 * NS + ((9 * NS) % 32 == 8 ? 0 : 8);
   static constexpr int kStage = kNoneCS * (kXs + kWs);  // floats
 };
 
@@ -230,7 +249,7 @@ __global__ void __launch_bounds__(kNoneThreads, 1)
 
   // acc: the tile's sums; part: the last group of 8 input channels' (see
   // tf32x3.cuh: the tensor cores round each mma's sum toward zero).
-  float acc[4][4][4], part[4][4][4];
+  float acc[4][T::NT][4], part[4][T::NT][4];
   for (int it = 0; it < n_steps; ++it) {
     cp_async_wait(kNoneStages - 2);
     // Step `it` has landed for every thread, and the stage of step it - 1
@@ -244,7 +263,7 @@ __global__ void __launch_bounds__(kNoneThreads, 1)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
+        for (int nt = 0; nt < T::NT; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[r][nt][e] = part[r][nt][e] = 0.f;
     }
@@ -271,24 +290,24 @@ __global__ void __launch_bounds__(kNoneThreads, 1)
         }
 #pragma unroll
         for (int ky = 0; ky < 3; ++ky) {
-          unsigned bh[4][2], bl[4][2];
+          unsigned bh[T::NT][2], bl[T::NT][2];
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
+          for (int nt = 0; nt < T::NT; ++nt) {
             const float* q = pb + kg * 8 * T::kWs + (ky * 3 + kx) * NS + nt * 8;
             split_tf32(q[0], bh[nt][0], bl[nt][0]);
             split_tf32(q[4 * T::kWs], bh[nt][1], bl[nt][1]);
           }
           // the three terms, small first, each over the warp's 16 sums
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
+          for (int nt = 0; nt < T::NT; ++nt)
 #pragma unroll
             for (int r = 0; r < 4; ++r) mma_tf32(part[r][nt], al[r + ky], bh[nt][0], bh[nt][1]);
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
+          for (int nt = 0; nt < T::NT; ++nt)
 #pragma unroll
             for (int r = 0; r < 4; ++r) mma_tf32(part[r][nt], ah[r + ky], bl[nt][0], bl[nt][1]);
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
+          for (int nt = 0; nt < T::NT; ++nt)
 #pragma unroll
             for (int r = 0; r < 4; ++r) mma_tf32(part[r][nt], ah[r + ky], bh[nt][0], bh[nt][1]);
         }
@@ -296,7 +315,7 @@ __global__ void __launch_bounds__(kNoneThreads, 1)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
+        for (int nt = 0; nt < T::NT; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             acc[r][nt][e] += part[r][nt][e];
@@ -311,7 +330,7 @@ __global__ void __launch_bounds__(kNoneThreads, 1)
       none_tile(blockIdx.x + (it / n_chunks) * gridDim.x, gm, T::TR, b, y0, x0, slab);
       const size_t plane = static_cast<size_t>(H) * W;
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
+      for (int nt = 0; nt < T::NT; ++nt) {
         const int o = slab * NS + 32 * wn + 8 * nt + 2 * tig;
         const float b0 = __ldg(bias + o), b1 = __ldg(bias + o + 1);
 #pragma unroll
@@ -331,10 +350,11 @@ __global__ void __launch_bounds__(kNoneThreads, 1)
 
 template <int NS>
 int launch_none(const float* x, const float* wk, const float* bias, float* y, int B, int C,
-                int H, int W, int cout, int n_blocks, cudaStream_t stream) {
+                int H, int W, int cout, int n_blocks, int smem_bytes, cudaStream_t stream) {
   using T = NoneTile<NS>;
-  if (H % T::TR || cout % NS) return cudaErrorInvalidValue;
   const size_t smem = kNoneStages * T::kStage * sizeof(float);
+  if (H % T::TR || cout % NS || static_cast<size_t>(smem_bytes) != smem)
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(packed_conv_none_kernel<NS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -349,13 +369,14 @@ int launch_none(const float* x, const float* wk, const float* bias, float* y, in
 // x [B][C][H][W], w [Cout/CT][C][3][3][CT] (eq-LR scaled; CT the largest of
 // 64, 32, 16 and 8 that divides Cout: for Cout 8, 16, 32 or 64 that is
 // [C][3][3][Cout]), bias [Cout] -> y [B][Cout][H][W]; epilogue 0 =
-// lrelu_norm (Cout 8, 16, 32 or 64 only), 1 = lrelu, 2 = none (CT 32 or 64
-// only). Every epilogue takes the tiling the caller picked
+// lrelu_norm (Cout 8, 16, 32 or 64 only), 1 = lrelu, 2 = none (any Cout
+// % 8 == 0, as lrelu). Every epilogue takes the tiling the caller picked
 // (ops/packed.py:conv_tiling): o_slab = CT with rows 8 at 64 and 16 below,
-// and n_blocks persistent blocks;
-// "lrelu_norm" and "lrelu" also the ring's dynamic shared memory in bytes
-// (ops/packed.py:conv_ring_bytes, checked against the kernel's); x and w
-// 16-byte aligned. Returns the cudaError_t of the launch (0 = launched).
+// and n_blocks persistent blocks, and the dynamic shared memory in bytes,
+// checked against the kernel's: the ring's for "lrelu_norm" and "lrelu"
+// (ops/packed.py:conv_ring_bytes), the "none" kernel's for "none"
+// (ops/packed.py:none_ring_bytes); x and w 16-byte aligned. Returns the
+// cudaError_t of the launch (0 = launched).
 extern "C" int probgan_packed_conv(const float* x, const float* w, const float* bias, float* y,
                                    int B, int C, int H, int W, int cout, int epilogue,
                                    int o_slab, int rows, int n_blocks, int smem, void* stream) {
@@ -366,9 +387,15 @@ extern "C" int probgan_packed_conv(const float* x, const float* w, const float* 
       n_blocks < 1 || o_slab != slab || rows != (slab == 64 ? 8 : 16))
     return cudaErrorInvalidValue;
   if (epilogue == probgan::kNone) {
-    if (slab == 64) return probgan::launch_none<64>(x, w, bias, y, B, C, H, W, cout, n_blocks, s);
-    if (slab == 32) return probgan::launch_none<32>(x, w, bias, y, B, C, H, W, cout, n_blocks, s);
-    return cudaErrorInvalidValue;  // slabs of 16 and 8: not built (ROADMAP.md)
+#define PROBGAN_NONE(NS) \
+  probgan::launch_none<NS>(x, w, bias, y, B, C, H, W, cout, n_blocks, smem, s)
+    switch (slab) {
+      case 64: return PROBGAN_NONE(64);
+      case 32: return PROBGAN_NONE(32);
+      case 16: return PROBGAN_NONE(16);
+      default: return PROBGAN_NONE(8);
+    }
+#undef PROBGAN_NONE
   }
   if (epilogue != probgan::kLreluNorm && epilogue != probgan::kLrelu)
     return cudaErrorInvalidValue;

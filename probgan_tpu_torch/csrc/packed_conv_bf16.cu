@@ -32,9 +32,11 @@
 // of a quad hold all channels of two pixels and reduce PixelNorm's sum by two
 // xor shuffles; the stores of a warp fill whole 32-byte sectors (8
 // neighbouring pixels of 4 channels). Slabs of 16 and 8 channels (a narrow
-// generator's late stages: 16 -> 16 at 512², 8 -> 8 at 1024²) keep the
-// 16-row tile with two or one n8 tiles a warp; C % 32 != 0 ends in a partial
-// chunk (bf16_conv.cuh).
+// generator's late stages: 16 -> 16 at 512², 8 -> 8 at 1024², and their
+// training backward's input gradients, "none" 8 -> 8 and 16 -> 8 at 1024²,
+// 16 -> 16 and 32 -> 16 at 512²) keep the 16-row tile with two or one n8
+// tiles a warp, at every epilogue; C % 32 != 0 ends in a partial chunk
+// (bf16_conv.cuh).
 #include "bf16_conv.cuh"
 
 namespace probgan {
@@ -103,8 +105,7 @@ int launch(const float* x, const unsigned* wk, const float* bias, float* y, int 
 }
 
 // A slab of the largest of 64, 32, 16 and 8 channels that divides Cout
-// (ops/packed.py _pool_slab); PixelNorm needs all Cout in one slab. "none"
-// at slabs of 16 and 8 is not built (ROADMAP.md).
+// (ops/packed.py _pool_slab); PixelNorm needs all Cout in one slab.
 template <int NTERM, int EPI>
 int launch_slab(const float* x, const unsigned* wk, const float* bias, float* y, int B, int C,
                 int H, int W, int cout, int smem, cudaStream_t stream) {
@@ -113,13 +114,8 @@ int launch_slab(const float* x, const unsigned* wk, const float* bias, float* y,
     return cudaErrorInvalidValue;
   if (cout % 64 == 0) return launch<64, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
   if (cout % 32 == 0) return launch<32, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
-  if constexpr (EPI == kNone) {
-    return cudaErrorInvalidValue;
-  } else {
-    if (cout % 16 == 0)
-      return launch<16, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
-    return launch<8, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
-  }
+  if (cout % 16 == 0) return launch<16, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
+  return launch<8, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
 }
 
 template <int NTERM>
@@ -141,7 +137,7 @@ int launch_epilogue(const float* x, const unsigned* wk, const float* bias, float
 // ky*3 + kx, 8 zeros after each run of 32 input channels, zeros past C),
 // bias [Cout] -> y [B][Cout][H][W]; terms 1 ("default") or 2 ("mid");
 // epilogue 0 "lrelu_norm" (Cout 8, 16, 32 or 64), 1 "lrelu" (Cout a
-// multiple of 8), 2 "none" (Cout a multiple of 32); C % 8 == 0,
+// multiple of 8), 2 "none" (Cout a multiple of 8); C % 8 == 0,
 // H % (8 at a slab of 64, else 16) == 0, W % 32 == 0; smem the block's dynamic shared memory in
 // bytes (ops/packed.py bf16_conv_bytes, checked against the kernel's).
 // Returns the cudaError_t of the launch (0 = launched).

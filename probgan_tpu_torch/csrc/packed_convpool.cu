@@ -6,7 +6,10 @@
 // downsample of the discriminator's two first blocks at 1024^2: 32 -> 64
 // channels at 1024^2 -> 512^2, and 64 -> 128 at 512^2 -> 256^2. With the
 // epilogue "none" it is the mean-pooled conv that the upconv's input gradient
-// needs.
+// needs: 32 -> 64 at 1024^2 and 64 -> 128 at 512^2 in the 1024^2 train step,
+// and at the narrow generator's (fmap_base 2048) 8 -> 16 at 1024^2 and
+// 16 -> 32 at 512^2, on the blocks of 128 threads at a slab of 16 (and of 64
+// at a slab of 8, which that step does not reach).
 //
 // Bound on the H100: operations. Per image the stage-8 call does
 // 2*9*32*64*1024^2 = 38.7 GFLOP and moves 134 MB in + 67 MB out: ~190 FLOP
@@ -75,11 +78,9 @@ int launch(const float* x, const float* w, const float* bias, float* y, int B, i
   if (act)
     packed_convpool_kernel<CT, true><<<grid, T::THREADS, 0, stream>>>(x, w, bias, y, C, H, W,
                                                                        n_slabs);
-  else if constexpr (CT >= 32)
+  else
     packed_convpool_kernel<CT, false><<<grid, T::THREADS, 0, stream>>>(x, w, bias, y, C, H, W,
                                                                         n_slabs);
-  else
-    return cudaErrorInvalidValue;  // "none" at slabs of 16 and 8: not built (ROADMAP.md)
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -87,7 +88,7 @@ int launch(const float* x, const float* w, const float* bias, float* y, int B, i
 
 // x [B][C][H][W], w [Cout/CT][C][3][3][CT] (eq-LR scaled, CT the largest of 64,
 // 32, 16 and 8 that divides Cout), bias [Cout] -> y [B][Cout][H/2][W/2];
-// act 1 = LeakyReLU(0.2) before the pool, 0 = none (CT 32 or 64).
+// act 1 = LeakyReLU(0.2) before the pool, 0 = none.
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int probgan_packed_convpool(const float* x, const float* w, const float* bias,
                                        float* y, int B, int C, int H, int W, int cout, int act,

@@ -9,7 +9,8 @@
 // `_stack_x` :144): the discriminator's conv2 + downsample at the "fast"
 // grade ("mid") and at packed_train_mode "default" / "mid" ("lrelu": 32 -> 64
 // at 1024^2 -> 512^2, 64 -> 128 at 512^2 -> 256^2), and x4 the upconv's input
-// gradient in that train step ("none", the same shapes).
+// gradient in that train step ("none", the same shapes; in the narrow
+// generator's step, fmap_base 2048, also 8 -> 16 at 1024^2, a slab of 16).
 //
 // Bound on the H100: at batch 2, 32 -> 64 at 1024^2 is 77.3 GFLOP a pass
 // (0.078 ms at the 989 TFLOP/s of bf16), 154.6 at "mid"'s two (0.156 ms),
@@ -103,12 +104,10 @@ int launch_slab(const float* x, const unsigned* wk, const float* bias, float* y,
     return launch<64, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
   if (cout > 0 && cout % 32 == 0)
     return launch<32, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
-  if constexpr (EPI == kLrelu) {  // "none" at slabs of 16 and 8: not built (ROADMAP.md)
-    if (cout > 0 && cout % 16 == 0)
-      return launch<16, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
-    if (cout > 0 && cout % 8 == 0)
-      return launch<8, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
-  }
+  if (cout > 0 && cout % 16 == 0)
+    return launch<16, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
+  if (cout > 0 && cout % 8 == 0)
+    return launch<8, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -118,7 +117,7 @@ int launch_slab(const float* x, const unsigned* wk, const float* bias, float* y,
 // (ops/packed.py conv_bf16_weights, packed_conv_bf16's layout; slab the
 // largest of 64, 32, 16 and 8 that divides Cout), bias [Cout] -> y
 // [B][Cout][H/2][W/2]; terms 1 ("default") or 2 ("mid"); act 1 =
-// LeakyReLU(0.2) before the pool, 0 = none (slabs of 32 and 64); Cout a
+// LeakyReLU(0.2) before the pool, 0 = none; Cout a
 // multiple of 8, C % 8 == 0, H % (8 at a slab of 64, else 16) == 0,
 // W % 32 == 0; smem the block's
 // dynamic shared memory in bytes (ops/packed.py bf16_conv_bytes). Returns the

@@ -297,6 +297,9 @@ class InferenceEngine:
         bucket = _bucket(n)
         heads = _pad_ids([p[0] for p in head_relation_pairs], bucket)
         rels = _pad_ids([p[1] for p in head_relation_pairs], bucket)
+        # top_k 0 gives empty rankings, as the reference's top_k does: the
+        # ranking runs at k 1 (the same noise drawn) and is cut to none
+        k = top_k or 1
         with task_trace("predict_tails"), torch.inference_mode():
             top_scores, top_indices = _predict_tails_fn(
                 self.generator_params,
@@ -306,13 +309,13 @@ class InferenceEngine:
                 self._place(heads),
                 self._place(rels),
                 self._noise(bucket, "predict_tails"),
-                top_k,
+                k,
                 self.num_entities,
                 self._use_pallas,
                 self.entity_norm_bf16,
             )
-            top_scores = top_scores.cpu().numpy()
-            top_indices = top_indices.cpu().numpy()
+            top_scores = top_scores[:, :top_k].cpu().numpy()
+            top_indices = top_indices[:, :top_k].cpu().numpy()
 
         results: Dict[str, Any] = {
             "predictions": top_indices[:n].tolist(),
@@ -483,7 +486,7 @@ class InferenceEngine:
                 self.node_emb,
                 self._rel_table_padded,
                 self._place(pair_arr),
-                k,
+                k or 1,  # top_k 0: no relation listed, as the reference
                 self.num_relations,
             )
             top_logits = top_logits.cpu().numpy()

@@ -8,6 +8,18 @@ so a reference ``.pt``'s ``generator`` / ``discriminator`` state dicts load
 with ``load_state_dict(strict=True)``. They compute what the functions in
 ``models/kg_gan.py`` compute (the engine's path) on the transposed weights.
 
+- ``load_state_dict`` takes the flat torch form (``fcN.weight`` /
+  ``fcN.bias``) or the nested ``{fcN: {w [in, out], b}}`` form of
+  ``core/checkpoint.py`` and the KG functions, numpy arrays or tensors; a
+  strict load raises ``StateDictMismatch`` (a ``ValueError``, as the
+  reference raises, and a ``RuntimeError``, as ``nn.Module`` raises) for
+  missing or unexpected keys ("state dict mismatch") and wrong shapes
+  ("size mismatch").
+- ``to("auto" | "cuda" | "gpu" | "cpu")`` resolves the name through
+  ``core/device.py`` (``auto`` is the card, and raises without one); any
+  other argument goes to ``nn.Module.to``.
+- Inputs may be tensors on any device, numpy arrays or lists: each goes
+  through ``torch.as_tensor`` onto the module's device.
 - ``gen(h_emb [B,D], r_emb [B,D]) -> t_emb [B,D]`` draws its noise from the
   module's own ``torch.Generator`` (seeded at construction, so a given call
   sequence is deterministic); pass ``z=`` to make the noise explicit.
@@ -17,13 +29,25 @@ with ``load_state_dict(strict=True)``. They compute what the functions in
 
 from __future__ import annotations
 
+from typing import Any
+
 import torch
 import torch.nn as nn
 
+from probgan_tpu_torch.core.checkpoint import params_to_torch_state
+from probgan_tpu_torch.core.device import resolve_device
 from probgan_tpu_torch.models.kg_gan import LRELU_SLOPE
 from probgan_tpu_torch.ops.rank import full_fp32_matmul
 
-__all__ = ["ModularGenerator", "ModularDiscriminator"]
+__all__ = ["ModularGenerator", "ModularDiscriminator", "StateDictMismatch"]
+
+# The device names of the reference's --device that core/device.py resolves.
+_DEVICE_NAMES = ("auto", "cuda", "gpu", "cpu")
+
+
+class StateDictMismatch(ValueError, RuntimeError):
+    """A strict ``load_state_dict`` refused the state: the reference raises
+    ``ValueError``, ``nn.Module`` raises ``RuntimeError``; this is both."""
 
 
 class _MLP(nn.Module):
@@ -46,6 +70,47 @@ class _MLP(nn.Module):
         with full_fp32_matmul():
             return self.fc3(self.act(self.fc2(self.act(self.fc1(x)))))
 
+    def _in(self, x: Any, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """``x`` (tensor, numpy array or list) as a tensor on the module's
+        device, in the weights' dtype unless ``dtype`` is given."""
+        w = self.fc1.weight
+        return torch.as_tensor(x, dtype=dtype or w.dtype, device=w.device)
+
+    def load_state_dict(self, state_dict: dict, strict: bool = True, assign: bool = False):
+        """Load the flat torch form or the nested ``{fcN: {w, b}}`` form,
+        numpy arrays or tensors (weights ``[in, out]`` in the nested form,
+        as ``core/checkpoint.py`` and ``models/kg_gan.py`` hold them)."""
+        if state_dict and all(isinstance(v, dict) for v in state_dict.values()):
+            state_dict = params_to_torch_state(state_dict)
+        flat = {k: torch.as_tensor(v) for k, v in state_dict.items()}
+        if strict:
+            want = {k: tuple(v.shape) for k, v in self.state_dict().items()}
+            got = {k: tuple(v.shape) for k, v in flat.items()}
+            if want.keys() != got.keys():
+                raise StateDictMismatch(
+                    f"state dict mismatch: missing={sorted(want.keys() - got.keys())} "
+                    f"unexpected={sorted(got.keys() - want.keys())}")
+            bad = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
+            if bad:
+                raise StateDictMismatch(
+                    "state dict size mismatch (got != expected): "
+                    + ", ".join(f"{k}: {g} != {w}" for k, (g, w) in sorted(bad.items())))
+        return super().load_state_dict(flat, strict=strict, assign=assign)
+
+    def to(self, *args, **kwargs):
+        """``to("auto" | "cuda" | "gpu" | "cpu")`` (the reference's device
+        names, ``auto`` when no argument is given) through
+        ``core/device.py``; anything else as ``nn.Module.to``."""
+        if not args and not kwargs:
+            args = ("auto",)
+        device = args[0] if args else kwargs.get("device")
+        if isinstance(device, str) and device.lower() in _DEVICE_NAMES:
+            if args:
+                args = (resolve_device(device), *args[1:])
+            else:
+                kwargs["device"] = resolve_device(device)
+        return super().to(*args, **kwargs)
+
 
 class ModularGenerator(_MLP):
     """``gen(h_emb, r_emb) -> t_emb`` with internally sampled noise."""
@@ -55,16 +120,15 @@ class ModularGenerator(_MLP):
         super().__init__((2 * d + z, 2 * d, 2 * d, d),
                          torch.Generator().manual_seed(int(seed) + 1))
         self.embed_dim, self.noise_dim = d, z
-        # The noise is drawn on the CPU generator and moved to the inputs'
+        # The noise is drawn on the CPU generator and moved to the module's
         # device, so its bits do not depend on where the module lives.
         self._noise_gen = torch.Generator().manual_seed(int(seed))
 
-    def forward(self, h_emb: torch.Tensor, r_emb: torch.Tensor,
-                z: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, h_emb, r_emb, z=None) -> torch.Tensor:
+        h, r = self._in(h_emb), self._in(r_emb)
         if z is None:
-            z = torch.randn((h_emb.shape[0], self.noise_dim),
-                            generator=self._noise_gen).to(h_emb.device)
-        return self._mlp(torch.cat([h_emb, r_emb, z], dim=-1))
+            z = torch.randn((h.shape[0], self.noise_dim), generator=self._noise_gen)
+        return self._mlp(torch.cat([h, r, self._in(z)], dim=-1))
 
 
 class ModularDiscriminator(_MLP):
@@ -77,16 +141,16 @@ class ModularDiscriminator(_MLP):
                          torch.Generator().manual_seed(int(seed) + 2))
         self.embed_dim, self.hidden_dim = d, hdim
 
-    def forward(self, h_emb: torch.Tensor, r_emb: torch.Tensor,
-                t_emb: torch.Tensor) -> torch.Tensor:
-        return self._mlp(torch.cat([h_emb, r_emb, t_emb], dim=-1))[..., 0]
+    def forward(self, h_emb, r_emb, t_emb) -> torch.Tensor:
+        return self._mlp(torch.cat([self._in(h_emb), self._in(r_emb), self._in(t_emb)],
+                                   dim=-1))[..., 0]
 
     def score_triplets(self, node_emb, rel_emb, triplets) -> tuple[torch.Tensor, torch.Tensor]:
         """(node_emb [N,D], rel_emb [R,D] or {'weight': [R,D]}, triplets
         [B,3] int) -> (logits [B], probs [B])."""
         if isinstance(rel_emb, dict):
             rel_emb = rel_emb["weight"]
-        triplets = torch.as_tensor(triplets, dtype=torch.int64, device=node_emb.device)
-        logits = self(node_emb[triplets[:, 0]], rel_emb[triplets[:, 1]],
-                      node_emb[triplets[:, 2]])
+        node, rel = self._in(node_emb), self._in(rel_emb)
+        triplets = self._in(triplets, torch.int64)
+        logits = self(node[triplets[:, 0]], rel[triplets[:, 1]], node[triplets[:, 2]])
         return logits, torch.sigmoid(logits)

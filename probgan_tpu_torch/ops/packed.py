@@ -66,10 +66,11 @@ Channel counts on the card: ``packed_upconv``, ``packed_conv``
 block) take Cout 8, 16, 32 or 64; ``packed_conv`` "lrelu" and
 ``packed_convpool`` "lrelu" any Cout that is a multiple of 8, in slabs of 64,
 32, 16 or 8 (the largest that divides it); input C is any multiple of 8 at
-every mode. The narrow slabs (16 and 8) are a narrow generator's late
-stages, e.g. fmap_base 2048 at 1024². Still to come (ROADMAP.md): "none" at
-slabs of 16 and 8 (the training backward's input gradients), the stage-fused
-kernels below 32 channels, and Cout below 8.
+every mode; the "none" epilogues (the training backward's input
+gradients) take any multiple of 8 too. The narrow slabs (16 and 8) are a
+narrow generator's late stages, forward and backward, e.g. fmap_base 2048 at
+1024². Still to come (ROADMAP.md): the stage-fused kernels below 32
+channels, and Cout below 8.
 
 Each kernel has a wrapper (checks device, dtype, shape and contiguity,
 allocates outputs with ``torch.empty`` and launches on the current stream), a
@@ -154,8 +155,8 @@ BF16_CK, BF16_ROW = 32, 40
 # Tile, csrc/bf16_conv.cuh BfTile). PixelNorm needs every channel in one
 # block, so "lrelu_norm" and packed_conv_rgb take only these; without it
 # packed_conv and packed_convpool tile Cout in slabs of 64, 32, 16 or 8 (the
-# largest that divides it) and take any multiple of 8. "none" takes slabs of
-# 64 and 32 alone, and the stage-fused kernels Cout 32 and 64.
+# largest that divides it) and take any multiple of 8, at every epilogue; the
+# stage-fused kernels take Cout 32 and 64.
 SUPPORTED_COUT = (8, 16, 32, 64)
 WIDE_COUT = (32, 64)
 NARROW_TODO = "not ported yet (ROADMAP.md, B.a.2)"
@@ -307,14 +308,6 @@ def _check_cout(name: str, cout: int, sliced: bool = False,
         raise ValueError(f"{name}: Cout={cout} not in {supported}"
                          + (f"; Cout {cout} here is {NARROW_TODO}" if cout in SUPPORTED_COUT
                             else ""))
-
-
-def _check_none_slab(name: str, cout: int) -> None:
-    """The "none" epilogues (the training backward's input gradients) run in
-    slabs of 64 and 32 output channels alone."""
-    if _pool_slab(cout) < 32:
-        raise ValueError(f'{name}: epilogue "none" at Cout={cout} (a slab of '
-                         f'{_pool_slab(cout)} channels) is {NARROW_TODO}')
 
 
 def _lrelu_norm(x: torch.Tensor) -> torch.Tensor:
@@ -516,9 +509,9 @@ def packed_conv_plain(x, w, b, epilogue="lrelu_norm", mode="high"):
 def conv_tiling(cout: int) -> tuple[int, int]:
     """(output channels per tile, tile rows) of both csrc/packed_conv.cu
     kernels, which launch the tiling they are given: slabs of
-    ``_pool_slab(cout)`` channels (64, 32, 16 or 8; "none" takes 64 and 32
-    alone), the layout of ``convpool_kernel_weights``, with 8-row tiles at 64
-    and 16-row tiles below; the tiles are 32 columns wide."""
+    ``_pool_slab(cout)`` channels (64, 32, 16 or 8), the layout of
+    ``convpool_kernel_weights``, with 8-row tiles at 64 and 16-row tiles
+    below; the tiles are 32 columns wide."""
     slab = _pool_slab(cout)
     return slab, _tile_rows(slab)
 
@@ -543,7 +536,8 @@ def conv_tile_origin(t: int, cout: int, h: int, wd: int) -> tuple[int, int, int,
 
 def persistent_blocks(n_tiles: int, sms: int, per_sm: int = RING_BLOCKS_PER_SM) -> int:
     """Persistent blocks of a walk over ``n_tiles``: ``per_sm`` an SM (one
-    for the "none" kernel's ring, ~190 KB, and the wide fp32 rings, ~200 KB;
+    for the "none" kernel's ring, 150-190 KB at every slab, and the wide
+    fp32 rings, ~200 KB;
     ``ring_blocks_per_sm`` of a ring's bytes), block k walking tiles k,
     k + blocks, ..."""
     return max(1, min(n_tiles, per_sm * sms))
@@ -572,6 +566,16 @@ def conv_ring_bytes(cout: int) -> int:
     weights."""
     o_slab, rows = conv_tiling(cout)
     return 4 * RING_STAGES * ring_cc(o_slab) * ((rows + 2) * 44 + 9 * o_slab)
+
+
+def none_ring_bytes(cout: int) -> int:
+    """Dynamic shared memory of packed_conv's "none" kernel (csrc/packed_conv.cu
+    NoneTile::kStage x 3 stages): 16 input channels a stage, each the halo
+    patch (tile rows + 2, 40 columns, + 8 floats) and the slab's 9 x slab
+    weights, padded to 8 or 24 floats mod 32 (no padding at a slab of 8)."""
+    o_slab, rows = conv_tiling(cout)
+    wrow = 9 * o_slab + (0 if (9 * o_slab) % 32 == 8 else 8)
+    return 4 * 3 * 16 * ((rows + 2) * 40 + 8 + wrow)
 
 
 def upconv_tiling(cout: int) -> tuple[int, int]:
@@ -624,8 +628,8 @@ def packed_conv(x, w, b, epilogue="lrelu_norm", mode="high"):
     """conv3x3 SAME + bias -> epilogue ("lrelu_norm": LeakyReLU -> PixelNorm;
     "lrelu": LeakyReLU; "none"): x [B, C, H, W] fp32, w [Cout, C, 3, 3] eq-LR
     scaled, b [Cout] -> [B, Cout, H, W]. On CUDA, Cout is 8, 16, 32 or 64
-    with "lrelu_norm", any multiple of 8 with "lrelu" and of 32 with "none",
-    and C a multiple of 8. "none" is 3xTF32 on the card (each product three
+    with "lrelu_norm", any multiple of 8 with "lrelu" and "none", and C a
+    multiple of 8. "none" is 3xTF32 on the card (each product three
     TF32 products of the operands' high and low parts, within ~1e-6 of the
     output's largest entry of the fp32 sum) and sums every output in a fixed
     order, so equal inputs give equal bits.
@@ -642,8 +646,6 @@ def packed_conv(x, w, b, epilogue="lrelu_norm", mode="high"):
                  x, w, b)
     cout = w.shape[0]
     _check_cout(name, cout, sliced=epilogue != "lrelu_norm")
-    if epilogue == "none":
-        _check_none_slab(name, cout)
     slab = _pool_slab(cout)
     _check(name, x, w.shape[1], _tile_rows(slab), 32, w=w, b=b)
     bsz, c, h, wd = x.shape
@@ -659,12 +661,9 @@ def packed_conv(x, w, b, epilogue="lrelu_norm", mode="high"):
     b = b.contiguous()
     y = torch.empty((bsz, cout, h, wd), device=x.device, dtype=x.dtype)
     x = _aligned16(x)
-    if epilogue == "none":  # sizes its own ring: one block an SM
-        smem, per_sm = 0, RING_BLOCKS_PER_SM
-    else:
-        smem = conv_ring_bytes(cout)
-        per_sm = ring_blocks_per_sm(smem)
-    blocks = persistent_blocks(conv_tile_count(bsz, cout, h, wd), _sms(x.device), per_sm)
+    smem = none_ring_bytes(cout) if epilogue == "none" else conv_ring_bytes(cout)
+    blocks = persistent_blocks(conv_tile_count(bsz, cout, h, wd), _sms(x.device),
+                               ring_blocks_per_sm(smem))
     _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
             CONV_EPILOGUES[epilogue], *conv_tiling(cout), blocks, smem, epilogue=epilogue,
             slab=slab)
@@ -707,7 +706,7 @@ def packed_convpool(x, w, b, epilogue="lrelu", mode="high"):
     """conv3x3 SAME + bias -> LeakyReLU ("lrelu") or nothing ("none") -> 2x2
     mean pool; the activation comes before the pool. x [B, C, H, W] fp32,
     w [Cout, C, 3, 3] eq-LR scaled, b [Cout] -> [B, Cout, H/2, W/2].
-    On CUDA, Cout is a multiple of 8 ("lrelu") or of 32 ("none") and C of 8.
+    On CUDA, Cout and C are multiples of 8, at both epilogues.
     ``mode``: "high"/"highest" (fp32), "default" (one bf16 pass) or "mid"
     (the 2-term split); both bf16 modes are ``packed_convpool_bf16`` on the
     card."""
@@ -720,8 +719,6 @@ def packed_convpool(x, w, b, epilogue="lrelu", mode="high"):
     _refuse_grad(name, "convpool_lrelu", x, w, b)
     cout = w.shape[0]
     _check_cout(name, cout, sliced=True)
-    if epilogue == "none":
-        _check_none_slab(name, cout)
     slab = _pool_slab(cout)
     _check(name, x, w.shape[1], _tile_rows(slab), 32, w=w, b=b)
     bsz, c, h, wd = x.shape

@@ -48,8 +48,8 @@ one CUDA card, in parts (``--parts``, all by default):
   "default" and "mid", beside ``F.conv2d`` with the torch epilogue (fp32 with
   TF32 off; on bf16 tensors at "default"; the bf16-rounded weights at "mid").
 
-``--dump DIR`` saves each ``fp32``, ``bf16``, ``mid``, ``bwd``, ``fused`` and
-``narrow`` output, made from fixed seeds, to ``DIR/<shape>.pt`` (and with ``rank`` the
+``--dump DIR`` saves each ``none``, ``fp32``, ``bf16``, ``mid``, ``bwd``,
+``fused`` and ``narrow`` output, made from fixed seeds, to ``DIR/<shape>.pt`` (and with ``rank`` the
 ``rank_scores_fused`` matrices, with ``generate`` the first call's images);
 ``--compare A B`` counts the values whose bits differ between two such
 directories (0 everywhere: the same bits).
@@ -709,6 +709,9 @@ def main(argv=None) -> int:
                 w = torch.randn((cout, c, 3, 3), device="cuda", generator=gen) * math.sqrt(
                     2 / (9 * c))
                 b = 0.1 * torch.randn(cout, device="cuda", generator=gen)
+                if args.dump is not None:
+                    torch.save([pk.packed_conv(x, w, b, epilogue="none").cpu()],
+                               args.dump / f"none_C{c}_Cout{cout}_{h}.pt")
                 out["none_ms"][f"C{c}->Cout{cout}@{h}"] = cuda_ms(
                     lambda: pk.packed_conv(x, w, b, epilogue="none"), iters=10)
                 del x

@@ -4,7 +4,9 @@ Profiles three ``progan_train_step`` calls at 1024², stage 8, batch 2
 (default config, random weights from a seed, ``packed_d = packed_g = True``,
 ``remat=True``, ``packed_train_mode`` from ``--packed_mode``, "highest" by
 default, ``dtype`` from ``--dtype``, fp32 by default; ``--packed_mode default
---dtype bf16`` is the image trainer's ``--fast``) with ``torch.profiler``,
+--dtype bf16`` is the image trainer's ``--fast``; ``--fmap_base 2048
+--fmap_max 256``, the trainer CLIs' flags, profile the narrow 1024²
+generator N instead, packed stages 6-8) with ``torch.profiler``,
 or with ``--kg`` three
 ``kg_train_step`` calls at 1,000,000 entities (batch 1,024, corrupted
 negatives, 8,192 sampled-softmax negatives), and prints the device time by
@@ -13,7 +15,7 @@ host's own largest entries, the peak device memory of a step, and one JSON
 line:
 
     python -m probgan_tpu_torch.utils.profile_train [--kg] [--packed_mode default] [--dtype bf16]
-        [--trace PATH.json]
+        [--fmap_base N --fmap_max M] [--trace PATH.json]
 
 Parts of the image step: the conv kernels by name (``packed_conv_wgrad``
 with its reduction pass, ``packed_conv`` and its 3xTF32 "none" kernel
@@ -68,8 +70,8 @@ def _part(name: str) -> str:
     return "elementwise_and_other"
 
 
-def _image_step(mode: str, dtype: torch.dtype):
-    cfg = ProGANConfig()
+def _image_step(mode: str, dtype: torch.dtype, widths: dict):
+    cfg = ProGANConfig(**widths)
     state = train.progan_init_state(0, cfg, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
     real = torch.tanh(torch.randn((BATCH, cfg.resolution, cfg.resolution, 3), device="cuda",
@@ -82,7 +84,8 @@ def _image_step(mode: str, dtype: torch.dtype):
         float(m["g_loss"])  # reads the card: the step has finished
         return st
 
-    return state, step, (f"progan_train_step, 1024², stage {STAGE}, batch {BATCH}, {mode}, "
+    return state, step, (f"progan_train_step, 1024², fmap_base {cfg.fmap_base}, fmap_max "
+                         f"{cfg.fmap_max}, stage {STAGE}, batch {BATCH}, {mode}, "
                          f"{str(dtype).removeprefix('torch.')}")
 
 
@@ -141,11 +144,16 @@ def main(argv=None) -> int:
                     help="packed_train_mode of the image step")
     ap.add_argument("--dtype", default="fp32", choices=["fp32", "bf16"],
                     help="dtype of the image step")
+    ap.add_argument("--fmap_base", type=int, default=None, help="the config's fmap_base")
+    ap.add_argument("--fmap_max", type=int, default=None, help="the config's fmap_max")
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = ap.parse_args(argv)
 
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    state, step, label = _kg_step() if args.kg else _image_step(args.packed_mode, dtype)
+    widths = {k: v for k, v in (("fmap_base", args.fmap_base), ("fmap_max", args.fmap_max))
+              if v is not None}
+    state, step, label = (_kg_step() if args.kg
+                          else _image_step(args.packed_mode, dtype, widths))
     for _ in range(2):  # warm-up: kernel build, cuDNN plans
         state = step(state)
     torch.cuda.synchronize()

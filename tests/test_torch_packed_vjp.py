@@ -302,19 +302,20 @@ def test_forward_kernels_refuse_to_swallow_gradients(kernel):
 
 def test_packed_conv_takes_wide_outputs_without_pixelnorm():
     """The discriminator's 64 -> 128 conv is recomputed by convpool_lrelu's
-    backward: "lrelu" takes any multiple of 8 output channels in slabs,
-    "none" any multiple of 32, "lrelu_norm" (every channel in one block)
-    only 8, 16, 32 or 64."""
+    backward: "lrelu" and "none" take any multiple of 8 output channels in
+    slabs (the largest of 64, 32, 16 and 8 that divides it), "lrelu_norm"
+    (every channel in one block) only 8, 16, 32 or 64."""
     tpk._check_cout("packed_conv", 128, sliced=True)
     tpk._check_cout("packed_conv", 96, sliced=True)
     tpk._check_cout("packed_conv", 48, sliced=True)
     for bad, sliced in ((128, False), (48, False), (12, True), (4, True), (0, True)):
         with pytest.raises(ValueError, match="Cout"):
             tpk._check_cout("packed_conv", bad, sliced=sliced)
-    for bad in (48, 16, 8):
-        with pytest.raises(ValueError, match="ROADMAP.md"):
-            tpk._check_none_slab("packed_conv", bad)
-    tpk._check_none_slab("packed_conv", 96)
+    # "none" has no check of its own: the slabs of "lrelu" at every Cout
+    assert not hasattr(tpk, "_check_none_slab")
+    assert [tpk.conv_tiling(c)[0] for c in (96, 48, 16, 8, 24)] == [32, 16, 16, 8, 8]
+    for cout in (48, 16, 8):
+        tpk._check_cout("packed_conv", cout, sliced=True)
     # one slab: the sliced weight layout is packed_conv's own
     w = torch.randn(64, 8, 3, 3)
     assert torch.equal(tpk.convpool_kernel_weights(w)[0], tpk.conv_kernel_weights(w))
