@@ -275,8 +275,9 @@ Phases (any failure exits non-zero and prints no result line):
     the unpacked path; the PSNR of "fast" against "high" is a reading;
     img/s, p50), ``latent_walk`` (frames equal to ``generate``'s) and
     ``score`` at "high" and "fast" (launches, logits within 1e-4 of the
-    twins', scores/s, p50); Cout 4 (with "none" too), a PixelNorm Cout of 24
-    and the stage-fused kernels at 16 channels raise ValueError on the card;
+    twins', scores/s, p50); Cout 4 (with "none" too, and in the stage-fused
+    ``packed_upconv_conv``) and a PixelNorm Cout of 24 raise ValueError on
+    the card, and ``packed_upconv_conv`` at 16 channels launches;
 17. the narrow backward at N: ``packed_conv`` "none" 8 -> 8 and 16 -> 8 at
     1024², 16 -> 16 and 32 -> 16 at 512² (slabs of 8 and 16) and
     ``packed_convpool`` "none" 8 -> 16 at 1024² (and 8 -> 8, a slab of 8 on
@@ -298,7 +299,27 @@ Phases (any failure exits non-zero and prints no result line):
     child at 1024² killed after its mid-stage save at stage 8, ``--resume``
     to the end): the bf16 training kernels alone, finite losses, seconds per
     stage, the checkpoint loaded at N;
-18. the last lines: the card's name and power limit, one JSON line with each
+18. the stage-fused kernels at N: ``packed_upconv_conv`` 32 -> 16 at 256²
+    and ``packed_upconv_conv_rgb`` 16 -> 8 at 512² (N's stages 7 and 8;
+    uint8 at batch 2 and 8, fp32 at batch 2), ``packed_upconv_conv_rgb``
+    32 -> 16 (``latent_walk`` at stage 7) and ``packed_upconv_conv`` 16 -> 8
+    (on no path at N) at batch 8, each at "high", "default" and "mid": 0
+    values differing from the two-kernel pair at the mode, two runs
+    bit-equal, the twin within 1e-5 ("high"; uint8 +-1 on 0.5% of bytes) or
+    phase 15's bounds, timed beside the pair, the bound and F.conv2d chains;
+    with ``PROBGAN_STAGE_FUSED`` at 1 and at 0, ``generate`` at N, batch 8,
+    at "high", "fast", None, G's "mid" and "default+mid" (two B10 and one
+    B11 launch a call, none of the pair, images equal, img/s and p50 of
+    both), ``latent_walk`` at stage 7 at "high", "fast" and G's "mid" (B11 at
+    16 channels, frames equal), ``--task generate_images --precision fast``
+    from a seeded N checkpoint (checksums equal), ``progan_train_step`` at
+    N, stage 8, batch 2, ``remat``, at "default" and "highest" with both
+    packed gates (G's differentiable path renders the fake batch: the same
+    launches either way) and with ``packed_fake`` and ``packed_d`` (the
+    fake batch on B10/B11 at 32, 16 and 8 channels): losses and the state
+    after two steps equal bit for bit; the image trainer CLI with ``--fast``
+    at N, one epoch a stage at 1024², seconds per stage either way;
+19. the last lines: the card's name and power limit, one JSON line with each
     kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -4246,9 +4267,10 @@ def phase_narrow_kernels(pk, pro_gan) -> tuple[list[dict], dict]:
 def phase_narrow_refusals(pk) -> dict:
     """What the card still refuses at N's widths, each a ValueError that
     names the Cout (and ROADMAP.md where a kernel is still to come), before
-    any launch: Cout 4 (at "none" too), a PixelNorm Cout outside {8, 16, 32,
-    64}, the stage-fused kernels at 16 channels. "none" at slabs of 16 and 8
-    and the packed train step at N run: phase 17."""
+    any launch: Cout 4 (at "none" too, and in the stage-fused B10), a
+    PixelNorm Cout outside {8, 16, 32, 64}. "none" at slabs of 16 and 8 and
+    the packed train step at N run: phase 17; B10 at 16 channels, refused
+    before this slice, launches now (phase 18 holds its bits)."""
     dev = "cuda"
     x16 = torch.randn((1, 16, 32, 32), device=dev)
     x8 = torch.randn((1, 8, 16, 32), device=dev)
@@ -4267,9 +4289,9 @@ def phase_narrow_refusals(pk) -> dict:
             lambda: pk.packed_conv_rgb(x16, w[24], b[24], torch.zeros((3, 24), device=dev),
                                        torch.zeros(3, device=dev),
                                        torch.zeros((1, 3, 16, 16), device=dev), 1.0), "Cout=24"),
-        "packed_upconv_conv Cout 16": (
-            lambda: pk.packed_upconv_conv(x8, torch.randn((16, 8, 3, 3), device=dev), b[16],
-                                          torch.randn((16, 16, 3, 3), device=dev), b[16]),
+        "packed_upconv_conv Cout 4": (
+            lambda: pk.packed_upconv_conv(x8, torch.randn((4, 8, 3, 3), device=dev), b[4],
+                                          torch.randn((4, 4, 3, 3), device=dev), b[4]),
             "ROADMAP.md"),
     }
     out = {}
@@ -4286,6 +4308,17 @@ def phase_narrow_refusals(pk) -> dict:
             raise AssertionError(f"{label}: the card took it")
     if any(pk.launches.values()):
         raise AssertionError(f"a refused call launched {dict(pk.launches)}")
+    y = pk.packed_upconv_conv(x8, torch.randn((16, 8, 3, 3), device=dev), b[16],
+                              torch.randn((16, 16, 3, 3), device=dev), b[16])
+    torch.cuda.synchronize()
+    if (pk.launches["packed_upconv_conv"] != 1 or tuple(y.shape) != (1, 16, 32, 64)
+            or not torch.isfinite(y).all()):
+        raise AssertionError(f"packed_upconv_conv at Cout 16: {dict(pk.launches)}, "
+                             f"{tuple(y.shape)}")
+    out["packed_upconv_conv Cout 16 launches"] = dict(pk.narrow_launches)
+    print(f"  packed_upconv_conv Cout 16 (refused before B.a.2.2): launched, "
+          f"{dict(pk.narrow_launches)}")
+    pk.reset_launches()
     return out
 
 
@@ -4909,6 +4942,458 @@ def phase_narrow_cli(pk, cli_train, image_checkpoint_mod, tree_mod) -> dict:
             "losses": [(m["d_loss"], m["g_loss"]) for m in metrics]}
 
 
+# Phase 18: the stage-fused kernels at N. Under PROBGAN_STAGE_FUSED=1 N's
+# packed stages 6-8 run B10 at 32 channels (64 -> 32), B10 at 16 (32 -> 16)
+# and B11 at 8 (16 -> 8); latent_walk at stage 7 ends on B11 at 16. Each
+# narrow instantiation against the two-kernel pair at its mode (0 values
+# differing), its twin (phase 10's and 15's bounds) and itself (two runs),
+# timed beside the pair, the bound and F.conv2d chains; then N's entry
+# points with the variable at 1 and at 0.
+NARROW_FUSED_MODES = ("high", "default", "mid")
+# (kernel, C, Cout, input H, batch, emit_uint8): B10 32 -> 16 at 256² and B11
+# 16 -> 8 at 512² (N's stages 7 and 8) at batch 2 and 8, B11 fp32 out at
+# batch 2; B11 32 -> 16 (latent_walk at stage 7) and B10 16 -> 8 (on no path
+# at N: its stage 8 is always the final one) at batch 8
+NARROW_FUSED_CASES = (
+    ("packed_upconv_conv", 32, 16, 256, 2, None), ("packed_upconv_conv", 32, 16, 256, 8, None),
+    ("packed_upconv_conv_rgb", 16, 8, 512, 2, True),
+    ("packed_upconv_conv_rgb", 16, 8, 512, 2, False),
+    ("packed_upconv_conv_rgb", 16, 8, 512, 8, True),
+    ("packed_upconv_conv_rgb", 32, 16, 256, 8, True), ("packed_upconv_conv", 16, 8, 512, 8, None),
+)
+FUSED_SOURCES = {"packed_upconv_conv": "probgan_tpu/ops/pallas_packed.py:973",
+                 "packed_upconv_conv_rgb": "probgan_tpu/ops/pallas_packed.py:1058"}
+# one generate call's launches at N under the variable, by G's packed mode:
+# every packed stage fused, no kernel of the pair
+NARROW_FUSED_PER_CALL = {
+    "high": {"packed_upconv_conv": 2, "packed_upconv_conv_rgb": 1},
+    "default": {"packed_upconv_conv_bf16": 2, "packed_upconv_conv_rgb_bf16": 1},
+    "mid": {"packed_upconv_conv_mid": 2, "packed_upconv_conv_rgb_mid": 1},
+    "default+mid": {"packed_upconv_conv_bf16": 2, "packed_upconv_conv_rgb_mid": 1},
+}
+NARROW_FUSED_WALK_FRAMES = 12  # two chunks, the second padded
+NARROW_FUSED_TRAIN_STEPS = 2
+
+
+def phase_narrow_fused_kernels(pk, pro_gan) -> tuple[list[dict], dict]:
+    """B10 and B11 at 16 and 8 channels (NARROW_FUSED_CASES) at "high",
+    "default" and "mid": 0 values differing from the pair at the mode (B1
+    then B2 "lrelu_norm", or B1 with toRGB then B3), two runs bit-equal, the
+    twin within FUSED_ATOL ("high"; uint8 +-1 on 0.5% of bytes) or phase
+    15's bounds (bf16 modes); timed beside the pair, the bound and F.conv2d
+    chains (fp32 with TF32 off; bf16 tensors at "default"; the weights
+    rounded to bf16 at "mid", as phase 16 times them)."""
+    gen = torch.Generator(device="cuda").manual_seed(1717)
+    dev = "cuda"
+    bf = torch.bfloat16
+
+    def feats(*shape):
+        return pro_gan.pixel_norm(torch.randn(shape, device=dev, generator=gen))
+
+    def conv_w(cout, cin, k=3, gain=math.sqrt(2.0)):
+        w = torch.randn((cout, cin, k, k), device=dev, generator=gen)
+        return w * (gain / math.sqrt(cin * k * k))
+
+    def bias(n):
+        return 0.1 * torch.randn(n, device=dev, generator=gen)
+
+    def lib(mode, *ts):
+        """The library call's operands: fp32, bf16 tensors ("default"), or
+        the weights (the last) rounded to bf16 ("mid")."""
+        if mode == "default":
+            return [t.to(bf) for t in ts]
+        if mode == "mid":
+            return [*ts[:-1], pk._bf16(ts[-1])]
+        return list(ts)
+
+    def lrelu_norm(t):
+        return pro_gan.pixel_norm(pro_gan.lrelu(t.float()))
+
+    def conv(mode, x, w, b, padding=1):
+        xl, bl, wl = lib(mode, x, b, w)
+        return F.conv2d(xl, wl, bl, padding=padding)
+
+    def stage_library(mode, x, w1, b1, w2, b2):
+        up = F.interpolate(x, scale_factor=2.0, mode="nearest")
+        return lrelu_norm(conv(mode, lrelu_norm(conv(mode, up, w1, b1)), w2, b2))
+
+    rows, printed = {}, []
+    for mode in NARROW_FUSED_MODES:
+        terms = pk.BF16_TERMS.get(mode, 0)
+        passes, peak = max(terms, 1), PEAK_BF16_FLOPS if terms else PEAK_FP32_FLOPS
+        wbytes = 2 if terms else 4  # a weight as the kernel reads it
+        for kernel, c, cout, h, bsz, u8 in NARROW_FUSED_CASES:
+            rgb = u8 is not None
+            form = "" if not rgb else (",uint8" if u8 else ",fp32")
+            label = f"{_counter(kernel, mode)}[{c}->{cout}@{h},b{bsz}{form}]"
+            x, w1, b1, w2, b2 = (feats(bsz, c, h, h), conv_w(cout, c), bias(cout),
+                                 conv_w(cout, cout), bias(cout))
+            if rgb:
+                alpha = 1.0 if u8 else 0.3
+                rgb_w, rgb_b = conv_w(3, cout, 1, 1.0).reshape(3, cout), bias(3)
+                prev_w, prev_b = conv_w(3, c, 1, 1.0).reshape(3, c), bias(3)
+                args = (x, w1, b1, w2, b2, rgb_w, rgb_b, prev_w, prev_b, alpha)
+
+                def fused(args=args, u8=u8, mode=mode):
+                    return pk.packed_upconv_conv_rgb(*args, emit_uint8=u8, mode=mode)
+
+                def plain(args=args, u8=u8, mode=mode):
+                    return pk.packed_upconv_conv_rgb_plain(*args, emit_uint8=u8, mode=mode)
+
+                def pair(args=args, u8=u8, mode=mode):
+                    x, w1, b1, w2, b2, rgb_w, rgb_b, prev_w, prev_b, alpha = args
+                    f, rp = pk.packed_upconv(x, w1, b1, rgb_w=prev_w, rgb_b=prev_b, mode=mode)
+                    return pk.packed_conv_rgb(f, w2, b2, rgb_w, rgb_b, rp, alpha, emit_uint8=u8,
+                                              mode=mode)
+
+                def library(args=args, u8=u8, mode=mode):
+                    x, w1, b1, w2, b2, rgb_w, rgb_b, prev_w, prev_b, alpha = args
+                    feat = stage_library(mode, x, w1, b1, w2, b2)
+                    out_rgb = conv(mode, feat, rgb_w[:, :, None, None], rgb_b, 0).float()
+                    prev = F.interpolate(conv(mode, x, prev_w[:, :, None, None], prev_b,
+                                              0).float(), scale_factor=2.0, mode="nearest")
+                    out = (prev + alpha * (out_rgb - prev)).permute(0, 2, 3, 1)
+                    return pro_gan.to_uint8(out) if u8 else out.contiguous()
+            else:
+                args = (x, w1, b1, w2, b2)
+
+                def fused(args=args, mode=mode):
+                    return pk.packed_upconv_conv(*args, mode=mode)
+
+                def plain(args=args, mode=mode):
+                    return pk.packed_upconv_conv_plain(*args, mode=mode)
+
+                def pair(args=args, mode=mode):
+                    x, w1, b1, w2, b2 = args
+                    return pk.packed_conv(pk.packed_upconv(x, w1, b1, mode=mode), w2, b2,
+                                          mode=mode)
+
+                def library(args=args, mode=mode):
+                    return stage_library(mode, *args)
+
+            got, again, two = fused(), fused(), pair()
+            torch.cuda.synchronize()
+            if got.dtype == torch.uint8:
+                runs = int((got != again).sum().item())
+                n_diff = int((got != two).sum().item())
+            else:
+                runs, n_diff = differing_bits(got, again), differing_bits(got, two)
+            if runs:
+                raise AssertionError(f"{label}: two runs on one input differ")
+            want = plain()
+            extra = {}
+            if got.dtype == torch.uint8:
+                worst, share, psnr = uint8_agreement(got.cpu().numpy(), want.cpu().numpy())
+                print(f"  {label} uint8 vs twin: max |diff| {worst}, differing bytes "
+                      f"{share:.6%}, PSNR {psnr:.2f} dB")
+                if terms:
+                    if share > UINT8_MAX_FLIP_SHARE or psnr < FUSED_BF16_PSNR_DB:
+                        raise AssertionError(f"{label}: uint8 vs twin beyond "
+                                             f"{UINT8_MAX_FLIP_SHARE:.2%} of bytes or below "
+                                             f"{FUSED_BF16_PSNR_DB} dB")
+                elif worst > 1 or share > UINT8_MAX_FLIP_SHARE:
+                    raise AssertionError(f"{label}: uint8 vs twin beyond +-1 on "
+                                         f"{UINT8_MAX_FLIP_SHARE:.2%} of bytes")
+                err, extra = float(worst), {"psnr_db": finite_or_none(psnr)}
+            elif terms:
+                err = check_rel(label, got, want, flips=True)
+            else:
+                err = (got - want).abs().max().item()
+                if err > FUSED_ATOL:
+                    raise AssertionError(f"{label}: {err:.3g} off its twin")
+            print(f"  {label}: max err vs twin {err:.3g}, values differing from the pair "
+                  f"{n_diff}, two runs bit-equal")
+            if n_diff:
+                raise AssertionError(f"{label}: not bit-equal to the pair at its mode")
+            del got, again, two, want
+            pixels = bsz * 4 * h * h
+            flops = 2 * 4 * c * cout * pixels + 2 * 9 * cout * cout * pixels
+            nbytes = 4 * (bsz * c * h * h + 2 * cout) + wbytes * (16 * c * cout + 9 * cout * cout)
+            if rgb:  # both toRGBs; the RGB out
+                flops += 2 * cout * 3 * pixels + 2 * c * 3 * bsz * h * h
+                nbytes += 4 * (3 * cout + 3 * c + 6) + pixels * 3 * (1 if u8 else 4)
+            else:
+                nbytes += 4 * cout * pixels
+            call = {"call": f"{c}->{cout}@{h} b{bsz}{form.replace(',', ' ')}",
+                    "shape_in": [bsz, c, h, h], "max_abs_err": err, "differing_vs_pair": n_diff,
+                    "bit_equal_runs": True, **extra,
+                    "ms": cuda_ms(fused), "pair_ms": cuda_ms(pair), "plain_ms": cuda_ms(plain),
+                    "library_ms": cuda_ms(library), "flops": flops, "op_flops": passes * flops,
+                    "bytes": nbytes, "peak_flops": peak}
+            name = f"{_counter(kernel, mode)}[cout{cout}]"
+            source = kernel + ("_bf16" if terms else "")
+            rows.setdefault(name, (source, FUSED_SOURCES[kernel], []))[2].append(call)
+            printed.append((name, call))
+            del x, args, fused, plain, pair, library
+        torch.cuda.empty_cache()
+    entries = assemble_conv_rows([(name, src, rep, calls)
+                                  for name, (src, rep, calls) in rows.items()], BATCH_MAIN)
+    for name, k in printed:
+        print(f"  {name}[{k['call']}]: {k['ms']:.3f} ms against the pair's {k['pair_ms']:.3f} ms "
+              f"({k['ms'] / k['pair_ms']:.2f}x), {k['roofline_share']:.0%} of the bound "
+              f"({k['bound_ms']:.3f} ms, {k['bound_by']})")
+    return entries, {"cases": len(printed)}
+
+
+def phase_narrow_fused_path(pk, pro_gan, engine_mod, cli_infer, cli_train,
+                            image_checkpoint_mod, make_image_checkpoint, train_mod,
+                            tree_mod) -> tuple[dict, dict]:
+    """N's entry points with PROBGAN_STAGE_FUSED at 1 and at 0: generate
+    (batch 8) at "high", "fast", None, G's "mid" and "default+mid", images
+    equal, every packed stage on B10/B11 (NARROW_FUSED_PER_CALL, no kernel
+    of the pair), img/s; latent_walk at stage 7 at "high", "fast" and G's
+    "mid" (B11 at 16), frames equal; the CLI's generate_images --precision
+    fast, checksums equal; progan_train_step at N (stage 8, batch 2, remat)
+    at "default" and "highest" with both packed gates (G's differentiable
+    packed path renders the fake batch and supersedes packed_fake: the
+    variable launches nothing) and with packed_fake and packed_d (the fake
+    batch on B10/B11), losses and state bit-equal; the image trainer's
+    --fast at N, one epoch a stage, seconds per stage with the variable at 1
+    and at 0."""
+    cfg = pro_gan.ProGANConfig(**NARROW_CONFIG)
+    stage = cfg.num_stages - 1
+    pair_kernels = [f"{k}{sfx}" for k in UNFUSED_KERNELS for sfx in ("", "_bf16", "_mid")]
+    first = engine_mod.ImageGANEngine(cfg, device="cuda", precision="high", seed=18)
+    latents = [first.sample_latents(BATCH_MAIN) for _ in range(NARROW_CALLS)]
+    path, counts = {"config": NARROW_CONFIG, "batch": BATCH_MAIN, "calls": NARROW_CALLS}, {}
+
+    def add_counts(narrow):
+        for k, n in narrow.items():
+            counts[k] = counts.get(k, 0) + n
+
+    saved = pro_gan._PACKED_MODES["fast"]
+    try:
+        for label, grade, mode in (("high", "high", "high"), ("fast", "fast", "default"),
+                                   ("None", None, "default"), ("fast mid", "fast", "mid"),
+                                   ("fast default+mid", "fast", "default+mid")):
+            pro_gan._PACKED_MODES["fast"] = mode if grade == "fast" else saved
+            engine = engine_mod.ImageGANEngine(cfg, g_params=first.g_params,
+                                               d_params=first.d_params, device="cuda",
+                                               precision=grade)
+            runs = {}
+            for flag in ("1", "0"):
+                with env(PROBGAN_STAGE_FUSED=flag):
+                    engine.generate(latents[0])  # warm-up
+                    torch.cuda.synchronize()
+                    pk.reset_launches()
+                    times, images = [], []
+                    for z in latents:
+                        t0 = time.perf_counter()
+                        images.append(engine.generate(z))
+                        times.append(time.perf_counter() - t0)
+                    runs[flag] = (times, images, dict(pk.launches), dict(pk.narrow_launches))
+            want = {k: 0 for k in pk.launches}
+            want.update({k: n * NARROW_CALLS for k, n in NARROW_FUSED_PER_CALL[mode].items()})
+            b10, b11 = (k for k in NARROW_FUSED_PER_CALL[mode])
+            want_narrow = {f"{b10}[cout16]": NARROW_CALLS, f"{b11}[cout8]": NARROW_CALLS}
+            if runs["1"][2] != want or runs["1"][3] != want_narrow:
+                raise AssertionError(f"generate at N, {label}, under PROBGAN_STAGE_FUSED=1 "
+                                     f"launched {runs['1'][2]}, {runs['1'][3]}; expected "
+                                     f"{want}, {want_narrow}")
+            if not all(np.array_equal(a, b) for a, b in zip(runs["1"][1], runs["0"][1])):
+                raise AssertionError(f"generate at N, {label}: the stage-fused images are not "
+                                     "the two-kernel ones")
+            add_counts(runs["1"][3])
+            entry = {"launches": {k: v for k, v in runs["1"][2].items() if v},
+                     "narrow_launches": runs["1"][3],
+                     "two_kernel_launches": {k: v for k, v in runs["0"][2].items() if v},
+                     "images_equal_two_kernel": True}
+            for flag, name in (("1", "stage_fused"), ("0", "two_kernel")):
+                times = runs[flag][0]
+                per_img = sorted(t / BATCH_MAIN * 1e3 for t in times)
+                entry[name] = {"img_per_s": BATCH_MAIN * len(times) / sum(times),
+                               "p50_ms_per_img": float(np.median(per_img)), "batch_s": times}
+            path[f"generate {label}"] = entry
+            print(f"  generate at N, {label}: stage-fused {entry['stage_fused']['img_per_s']:.3f} "
+                  f"img/s (p50 {entry['stage_fused']['p50_ms_per_img']:.3f} ms/img), two-kernel "
+                  f"{entry['two_kernel']['img_per_s']:.3f} img/s (p50 "
+                  f"{entry['two_kernel']['p50_ms_per_img']:.3f}); images equal; launches "
+                  f"{entry['launches']}, narrow {entry['narrow_launches']}")
+            del engine, runs
+
+        # -- latent_walk at stage 7: B11 at 16 channels, one launch a chunk
+        z0, z1 = latents[0][0], latents[0][1]
+        chunks = -(-NARROW_FUSED_WALK_FRAMES // engine_mod.WALK_CHUNK)
+        for label, grade, mode in (("high", "high", "high"), ("fast", "fast", "default"),
+                                   ("fast mid", "fast", "mid")):
+            pro_gan._PACKED_MODES["fast"] = mode if grade == "fast" else saved
+            engine = engine_mod.ImageGANEngine(cfg, g_params=first.g_params,
+                                               d_params=first.d_params, device="cuda",
+                                               precision=grade)
+            walks = {}
+            for flag in ("1", "0"):
+                with env(PROBGAN_STAGE_FUSED=flag):
+                    engine.latent_walk(z0, z1, frames=4, stage=7)  # warm-up
+                    torch.cuda.synchronize()
+                    pk.reset_launches()
+                    t0 = time.perf_counter()
+                    frames = engine.latent_walk(z0, z1, frames=NARROW_FUSED_WALK_FRAMES, stage=7)
+                    walks[flag] = (frames, time.perf_counter() - t0, dict(pk.launches),
+                                   dict(pk.narrow_launches))
+            b10, b11 = (k for k in NARROW_FUSED_PER_CALL[mode])
+            want = {k: 0 for k in pk.launches}
+            want.update({b10: chunks, b11: chunks})  # stage 6 at 32, stage 7 at 16
+            want_narrow = {f"{b11}[cout16]": chunks}
+            if (walks["1"][2] != want or walks["1"][3] != want_narrow
+                    or walks["1"][0].shape != (NARROW_FUSED_WALK_FRAMES, 512, 512, 3)
+                    or not np.array_equal(walks["1"][0], walks["0"][0])):
+                raise AssertionError(f"latent_walk at N, stage 7, {label}: launched "
+                                     f"{walks['1'][2]}, {walks['1'][3]} (expected {want}, "
+                                     f"{want_narrow}); frames equal to the two-kernel walk: "
+                                     f"{np.array_equal(walks['1'][0], walks['0'][0])}")
+            add_counts(walks["1"][3])
+            path[f"latent_walk stage 7 {label}"] = {
+                "frames": NARROW_FUSED_WALK_FRAMES, "frames_equal_two_kernel": True,
+                "narrow_launches": walks["1"][3],
+                "frames_per_s_stage_fused": NARROW_FUSED_WALK_FRAMES / walks["1"][1],
+                "frames_per_s_two_kernel": NARROW_FUSED_WALK_FRAMES / walks["0"][1]}
+            print(f"  latent_walk at N, stage 7, {label}, {NARROW_FUSED_WALK_FRAMES} frames: "
+                  f"equal with and without the variable "
+                  f"({NARROW_FUSED_WALK_FRAMES / walks['1'][1]:.2f} / "
+                  f"{NARROW_FUSED_WALK_FRAMES / walks['0'][1]:.2f} frames/s), narrow launches "
+                  f"{walks['1'][3]}")
+            del engine, walks
+    finally:
+        pro_gan._PACKED_MODES["fast"] = saved
+    del first
+
+    # -- the CLI's generate_images at --precision fast, from a seeded N checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "image_checkpoint.msgpack")
+        image_checkpoint_mod.save_image_checkpoint(ckpt, cfg,
+                                                   **make_image_checkpoint(cfg, seed=2, ema=True))
+        served = {}
+        for flag in ("1", "0"):
+            with env(PROBGAN_STAGE_FUSED=flag):
+                pk.reset_launches()
+                served[flag] = checksum_of_generate_images(cli_infer, ckpt, 2, "--precision",
+                                                           "fast")
+                served[flag + "launches"] = dict(pk.launches)
+                served[flag + "narrow"] = dict(pk.narrow_launches)
+    if (served["1"]["checksum"] != served["0"]["checksum"]
+            or served["1launches"]["packed_upconv_conv_bf16"] < 1
+            or served["1launches"]["packed_upconv_conv_rgb_bf16"] < 1
+            or any(served["1launches"][k] for k in pair_kernels)
+            or served["1narrow"].get("packed_upconv_conv_rgb_bf16[cout8]", 0) < 1):
+        raise AssertionError(f"generate_images at N --precision fast: {served}")
+    path["cli_generate_images_fast"] = {"checksum": served["1"]["checksum"],
+                                        "checksum_equal_unfused": True,
+                                        "narrow_launches": served["1narrow"]}
+    print(f"  --task generate_images at N --precision fast: checksum {served['1']['checksum']} "
+          f"with and without the variable; narrow launches {served['1narrow']}")
+
+    # -- progan_train_step at N: both gates, and the fake render on B10/B11
+    state = train_mod.progan_init_state(0, cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1818)
+    real = torch.tanh(torch.randn((TRAIN_BATCH, cfg.resolution, cfg.resolution, 3),
+                                  device="cuda", generator=gen))
+    zs = [torch.randn((TRAIN_BATCH, cfg.latent_dim), device="cuda", generator=gen)
+          for _ in range(NARROW_FUSED_TRAIN_STEPS)]
+    leaves = tree_mod.tree_leaves
+    n = NARROW_FUSED_TRAIN_STEPS
+    train = {}
+    for gates, gkw in (("both gates", dict(packed_d=True, packed_g=True)),
+                       ("packed_fake, packed_d", dict(packed_d=True))):
+        for mode in ("default", "highest"):
+            label = f"{gates}, {mode}"
+            steps = {}
+            for flag in ("1", "0"):
+                with env(PROBGAN_STAGE_FUSED=flag), deterministic_cudnn():
+                    s = state
+                    pk.reset_launches()
+                    metrics, times = [], []
+                    for z in zs:
+                        t0 = time.perf_counter()
+                        s, m = train_mod.progan_train_step(
+                            s, real, z, 0.5, cfg, TRAIN_STAGE, packed_fake=True, remat=True,
+                            packed_train_mode=mode, **gkw)
+                        metrics.append({k: float(v) for k, v in m.items()})
+                        times.append(time.perf_counter() - t0)
+                    steps[flag] = (s, metrics, dict(pk.launches), dict(pk.narrow_launches),
+                                   dict(pk.epilogue_launches), times)
+            launched, narrow, epi = steps["1"][2], steps["1"][3], steps["1"][4]
+            sfx = "_bf16" if mode == "default" else ""
+            fused = {f"packed_upconv_conv{sfx}": 2 * n, f"packed_upconv_conv_rgb{sfx}": n}
+            if "packed_g" in gkw:  # G's differentiable path renders the fake batch
+                ok = (launched == steps["0"][2] and narrow == steps["0"][3]
+                      and not any(launched[k] for k in (*fused, *FUSED_KERNELS)))
+            else:
+                ok = (all(launched[k] == v for k, v in fused.items())
+                      and narrow.get(f"packed_upconv_conv{sfx}[cout16]") == n
+                      and narrow.get(f"packed_upconv_conv_rgb{sfx}[cout8]") == n
+                      and not launched[f"packed_upconv{sfx}"]
+                      and not launched[f"packed_conv_rgb{sfx}"]
+                      and not epi[f"packed_conv{sfx}[lrelu_norm]"])
+                add_counts({k: v for k, v in narrow.items() if "upconv_conv" in k})
+            if not ok:
+                raise AssertionError(f"progan_train_step at N, {label}, under the variable "
+                                     f"launched {launched}, {narrow}, {epi}")
+            if steps["1"][1] != steps["0"][1]:
+                raise AssertionError(f"train step at N, {label}: losses {steps['1'][1]} vs "
+                                     f"{steps['0'][1]}")
+            for field in ("g_params", "d_params", "g_opt", "d_opt", "g_ema"):
+                a, b = leaves(getattr(steps["1"][0], field)), leaves(getattr(steps["0"][0], field))
+                if len(a) != len(b) or not all(torch.equal(torch.as_tensor(u), torch.as_tensor(v))
+                                               for u, v in zip(a, b)):
+                    raise AssertionError(f"train state {field} at N, {label}, after {n} steps "
+                                         "differs with the variable")
+            train[label] = {"steps": n, "metrics": steps["1"][1], "state_equal_unfused": True,
+                            "launches": {k: v for k, v in launched.items() if v},
+                            "narrow_launches": narrow,
+                            "step_s": {"stage_fused": steps["1"][5], "two_kernel": steps["0"][5]}}
+            print(f"  progan_train_step at N, {label}, {n} steps: losses and state equal with "
+                  f"and without the variable; launches {train[label]['launches']}, narrow "
+                  f"{narrow}")
+            del steps
+    path["train_step"] = train
+    del state, real
+    torch.cuda.empty_cache()
+
+    # -- the image trainer's --fast at N, one epoch a stage, with the variable at 1 and 0
+    common = ["--model", "image", "--synthetic", str(TRAINER_IMAGES), "--batch_size",
+              str(TRAINER_BATCH), "--epochs_per_stage", "1", "--device", "cuda", "--fast",
+              "--resolution", str(NARROW_CONFIG["resolution"]),
+              "--fmap_base", str(NARROW_CONFIG["fmap_base"]),
+              "--fmap_max", str(NARROW_CONFIG["fmap_max"]), "--checkpoint_minutes", "0"]
+    legs = {}
+    for flag in ("1", "0"):
+        with tempfile.TemporaryDirectory() as tmp, env(PROBGAN_STAGE_FUSED=flag):
+            pk.reset_launches()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli_train.main([*common, "--output_dir", tmp])
+            wall = time.perf_counter() - t0
+            if rc != 0 or "Stage 8 (1024²)" not in out.getvalue():
+                raise AssertionError(f"image trainer --fast at N, variable {flag}, exited {rc}:"
+                                     f"\n{out.getvalue()}")
+            with open(os.path.join(tmp, "metrics.jsonl")) as f:
+                metrics = [json.loads(line) for line in f]
+        stage_s = {}
+        for m in metrics:
+            stage_s[m["stage"]] = stage_s.get(m["stage"], 0.0) + m["seconds"]
+        if [m["stage"] for m in metrics] != list(range(9)) or any(
+                not (math.isfinite(m["d_loss"]) and math.isfinite(m["g_loss"])) for m in metrics):
+            raise AssertionError(f"image trainer --fast at N, variable {flag}: {metrics}")
+        legs[flag] = {"s": wall, "seconds_per_stage": stage_s,
+                      "launches": {k: v for k, v in pk.launches.items() if v},
+                      "losses": [(m["d_loss"], m["g_loss"]) for m in metrics]}
+    if legs["1"]["launches"] != legs["0"]["launches"] or any(
+            legs["1"]["launches"].get(k) for k in FUSED_KERNELS):
+        raise AssertionError(f"--fast at N: launches with the variable {legs['1']['launches']}, "
+                             f"without {legs['0']['launches']}")
+    path["trainer_cli_fast"] = {"images": TRAINER_IMAGES, "batch": TRAINER_BATCH,
+                                "epochs_per_stage": 1, "stage_fused": legs["1"],
+                                "two_kernel": legs["0"]}
+    for flag, name in (("1", "with"), ("0", "without")):
+        print(f"  image trainer CLI --fast at N, 1 epoch a stage, {name} the variable: "
+              f"{legs[flag]['s']:.1f} s, seconds per stage "
+              f"{', '.join(f'{k}: {v:.4f}' for k, v in legs[flag]['seconds_per_stage'].items())}")
+    print(f"  --fast launches the same kernels with and without the variable (G's "
+          f"differentiable packed path renders the fake batch): {legs['1']['launches']}")
+    return counts, path
+
+
 _T0 = time.perf_counter()
 
 
@@ -5096,12 +5581,32 @@ def main() -> int:
     narrow_all = narrow_kernels + narrow_bwd_kernels
     narrow["off_path_kernels"] = [k for k in narrow_all if k["name"] not in counts]
     kernels += [k for k in narrow_all if k["name"] in counts]
+    torch.cuda.empty_cache()
+
+    phase_line("phase 18: the stage-fused kernels at N: B10 and B11 at 16 and 8 channels vs "
+               "the pair, their twins and themselves at \"high\", \"default\" and \"mid\"; "
+               "under PROBGAN_STAGE_FUSED=1 and =0 generate at \"high\", \"fast\", None, "
+               "G's \"mid\" and \"default+mid\", latent_walk at stage 7, generate_images, "
+               "progan_train_step at \"default\" and \"highest\" and the image trainer's "
+               "--fast at N")
+    fused_narrow_kernels, fused_narrow = phase_narrow_fused_kernels(pk, pro_gan)
+    torch.cuda.empty_cache()
+    fused_narrow_counts, fused_narrow["path"] = phase_narrow_fused_path(
+        pk, pro_gan, engine_mod, cli_infer, cli_train, image_checkpoint_mod,
+        make_image_checkpoint, train_mod, tree_mod)
+    # each entry's launches: its width's narrow launches over the path's runs;
+    # B10 at 8 channels is on no path at N (its stage 8 is always the final one)
+    counts.update(fused_narrow_counts)
+    fused_narrow["off_path_kernels"] = [k for k in fused_narrow_kernels
+                                        if k["name"] not in counts]
+    kernels += [k for k in fused_narrow_kernels if k["name"] in counts]
     for k in kernels:
         k["launches"] = counts[k["name"]]
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on its main path")
+    torch.cuda.empty_cache()
 
-    phase_line("phase 18: phases 1-17 done; the kernels line and the result:")
+    phase_line("phase 19: phases 1-18 done; the kernels line and the result:")
     print(card_line())
     print(json.dumps({"kernels": kernels, "main_path": main, "score_path": score_path,
                       "kg_path": kg, "train_path": train, "fused_path": fused_path,
@@ -5109,7 +5614,8 @@ def main() -> int:
                                                 "generate": gen_mid},
                       "default_backward": {"train": train_default, "fast_cli": fast_cli},
                       "fused_bf16": fused_bf16, "narrow": narrow,
-                      "narrow_backward": narrow_bwd, "card": card},
+                      "narrow_backward": narrow_bwd, "narrow_fused": fused_narrow,
+                      "card": card},
                      allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,8 +27,8 @@
 // ("mid" runs twice the products, 0.148 ms), above the 0.060 ms of bytes.
 //
 // The design, simple first: one block a conv2 tile of TH x 32 outputs and
-// all COUT channels (BfTile: TH = 8 at 64 channels, 16 at 32), no carry
-// between tiles.
+// all COUT channels (BfTile: TH = 8 at 64 channels, 16 at 32, 16 and 8), no
+// carry between tiles.
 //  * conv1 computes the tile's whole halo: conv1 rows y0-1 .. y0+TH and
 //    columns x0-1 .. x0+32, a "map" of (TH+2) x 34 pixels. By output parity
 //    class (py, px) that is TH/2 + 1 class rows of 17 class columns each:
@@ -48,11 +48,23 @@
 //    (its input patch, TH/2 + 2 rows x 24 columns x 20 words, once a term,
 //    and both row parities' taps of a chunk, 2 x 8 x COUT x 20) and one
 //    chunk of conv2's weights (9 x COUT x 20), which share one region; the
-//    map, NTERM x COUT/32 x (TH+2) x 34 x 20, in bf16_conv.cuh's [row]
+//    map, NTERM x ceil(COUT/32) x (TH+2) x 34 x 20, in bf16_conv.cuh's [row]
 //    [column][channel] layout, so that conv2's A fragments load as B2's do;
 //    B11's previous RGB, 3 x TH/2 x 16 floats. In bytes (B10 the same less
 //    the RGB): Cout 64 148,608 ("default") and 214,528 ("mid"); Cout 32
-//    110,656 and 178,816 (ops/packed.py fused_bf16_bytes). One block an SM.
+//    110,656 and 178,816; Cout 16 90,176 and 158,336; Cout 8
+//    79,936 and 148,096 (ops/packed.py fused_bf16_bytes). One block an SM
+//    at 64 and 32 channels ("mid"), up to two below.
+//  * Narrow stages (16 and 8 channels, a narrow generator's: C 32 -> 16,
+//    C 16 -> 8): the block keeps its 8 warps and the 16-row tile with NT = 2
+//    or 1 n8 tiles, as B1/B2/B3 do at these widths. The map is one partial
+//    chunk of 32 channels, of which conv2 reads the first k16 half only, as
+//    B2 reads a 16- or 8-channel input; at 8 channels the half's channels
+//    8..15 are zero words, written once. conv1's input C is any multiple of
+//    8: its last chunk of C % 32 channels is staged with zeros past C
+//    (stage_chunk, weights zero there too) and at 16 or fewer runs one k16
+//    half, and the previous RGB sums the chunk's C - c0 channels: B1's K
+//    order and mma grouping at every width.
 //  * Staging is synchronous, as in the pair: cp.async of the weights beside
 //    the input's rounding stores, one barrier, the products, one barrier.
 //    conv2's first chunk of weights is copied under conv1's epilogue.
@@ -68,7 +80,8 @@ template <int COUT, int NTERM, int TAIL>
 struct FusedBf16 {
   using T = BfTile<COUT>;
   static constexpr int TH = T::TH;            // conv2 tile: TH x 32
-  static constexpr int NCH = COUT / kCK;      // chunks of the map's channels
+  static constexpr int NCH = (COUT + kCK - 1) / kCK;  // chunks of the map's channels
+  static constexpr int HALVES2 = COUT > kCK / 2 ? 2 : 1;  // k16 halves conv2 reads a chunk
   static constexpr int MR = TH + 2;           // map rows: conv1 rows y0-1 .. y0+TH
   static constexpr int MW = 34;               // map columns: conv1 columns x0-1 .. x0+32
   static constexpr int kMapChunk = MR * MW * kRowWords;
@@ -156,6 +169,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int pr = threadIdx.x / 16, pc = threadIdx.x % 16;
   float racc[3] = {0.f, 0.f, 0.f};
 
+  if constexpr (COUT == 8) {
+    // channels 8..15 of the map's k16 half, which conv2 reads: zero (its
+    // weights there are zero too), in every pixel and term, never written again
+    for (int e = threadIdx.x; e < NTERM * K::MR * K::MW; e += kThreads)
+      *reinterpret_cast<uint4*>(map + e * kRowWords + 4) = make_uint4(0u, 0u, 0u, 0u);
+  }
+
   float acc1[NPW][NT][4];
 #pragma unroll
   for (int u = 0; u < NPW; ++u)
@@ -164,21 +184,23 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc1[u][nt][e] = 0.f;
   const float* xb = x + static_cast<size_t>(b) * C * H * W;
-  const int n_chunks = C / kCK;
+  const int n_chunks = bf16_chunks(C);
   for (int c0 = 0; c0 < C; c0 += kCK) {
     const int k = c0 / kCK;
     stage_w(ws1, wk1 + static_cast<size_t>(k) * K::kW1Words, K::kW1Words);  // py = 0
     stage_w(ws1 + K::kW1Words, wk1 + static_cast<size_t>(n_chunks + k) * K::kW1Words,
             K::kW1Words);  // py = 1
     cp_async_commit();
-    stage_x<K::SR, K::NG, NTERM>(xs, xb, c0, H, W, y0 / 2 - 1, x0 / 2 - 4);
+    stage_chunk<K::SR, K::NG, NTERM>(xs, xb, c0, C, H, W, y0 / 2 - 1, x0 / 2 - 4);
     cp_async_wait(0);
     __syncthreads();
+    const int c_n = min(kCK, C - c0);          // the chunk's channels
+    const int halves = c_n > kCK / 2 ? 2 : 1;  // block-uniform
     if (rgb_lane) {
       const auto* pv = reinterpret_cast<const __nv_bfloat16*>(xs) +
                        ((pr + 1) * K::PW + pc + 4) * kPadK;
 #pragma unroll 4
-      for (int c = 0; c < kCK; ++c) {
+      for (int c = 0; c < c_n; ++c) {
         // x_hi, + x_lo from the next plane at "mid": the sum is exact
         const float v = NTERM == 1 ? __bfloat162float(pv[c])
                                    : __bfloat162float(pv[c]) +
@@ -193,6 +215,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int shift = ((tap >> 1) * K::PW + (tap & 1)) * kRowWords;  // (dy, dx)
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) {  // channels 16 * kk .. + 15 of the chunk
+        if (kk >= halves) break;
         unsigned bf[NT][2];
         load_b<NT>(bf, wcls + tap * COUT * kRowWords + 8 * kk);
 #pragma unroll
@@ -266,7 +289,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int tap = 0; tap < 9; ++tap) {
       const int ky = tap / 3, kx = tap % 3;
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
+      for (int kk = 0; kk < K::HALVES2; ++kk) {
         unsigned bf[NT][2];
         load_b<NT>(bf, ws2 + tap * COUT * kRowWords + 8 * kk);
 #pragma unroll
@@ -354,7 +377,7 @@ int launch_fused_bf16(const float* x, const unsigned* wk1, const float* b1, cons
                       cudaStream_t stream) {
   using K = FusedBf16<COUT, NTERM, TAIL>;
   const long long n_tiles = static_cast<long long>(B) * (2LL * H / K::TH) * (2LL * W / 32);
-  if (B < 1 || C < kCK || C % kCK || H < 1 || (2 * H) % K::TH || W < 16 || W % 16 ||
+  if (B < 1 || C < 8 || C % 8 || H < 1 || (2 * H) % K::TH || W < 16 || W % 16 ||
       n_tiles > 0x7fffffff || smem != K::kBytes ||
       (TAIL != kBfFeatures && (rgb_w == nullptr || prev_w == nullptr)))
     return cudaErrorInvalidValue;
@@ -367,7 +390,7 @@ int launch_fused_bf16(const float* x, const unsigned* wk1, const float* b1, cons
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiation for a (Cout, terms) pair: Cout 32 or 64, terms 1 or 2.
+// The instantiation for a (Cout, terms) pair: Cout 8, 16, 32 or 64, terms 1 or 2.
 template <int TAIL>
 int launch_fused_bf16_any(const float* x, const unsigned* wk1, const float* b1,
                           const unsigned* wk2, const float* b2, const float* rgb_w,
@@ -381,6 +404,10 @@ int launch_fused_bf16_any(const float* x, const unsigned* wk1, const float* b1,
   if (cout == 64 && terms == 2) return PROBGAN_FUSED_BF16(64, 2);
   if (cout == 32 && terms == 1) return PROBGAN_FUSED_BF16(32, 1);
   if (cout == 32 && terms == 2) return PROBGAN_FUSED_BF16(32, 2);
+  if (cout == 16 && terms == 1) return PROBGAN_FUSED_BF16(16, 1);
+  if (cout == 16 && terms == 2) return PROBGAN_FUSED_BF16(16, 2);
+  if (cout == 8 && terms == 1) return PROBGAN_FUSED_BF16(8, 1);
+  if (cout == 8 && terms == 2) return PROBGAN_FUSED_BF16(8, 2);
 #undef PROBGAN_FUSED_BF16
   return cudaErrorInvalidValue;
 }

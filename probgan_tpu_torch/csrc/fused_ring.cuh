@@ -22,8 +22,10 @@
 // at 32); and a grid of blocks started cold, one tile each.
 //
 // The design:
-//  * Persistent blocks (one an SM) walk conv2 tiles of TH x 32 outputs, all
-//    COUT channels (Tile<COUT>: TH = 8 at 64 channels, 16 at 32), through
+//  * Persistent blocks (one an SM at 32 and 64 channels) walk conv2 tiles
+//    of TH x 32 outputs, all COUT channels (Tile<COUT>: TH = 8 at 64
+//    channels, 16 at 32, 16 and 8; blocks of 256 threads at 32 and 64, of
+//    128 and 64 at 16 and 8, two and three blocks an SM), through
 //    conv_ring.cuh's ring_walk in two phases a tile: conv1 into "mid"
 //    ((TH+2) x 34 conv1 pixels, all channels, conv3x3's patch layout), then
 //    conv2 over mid.
@@ -46,7 +48,7 @@
 //    the tile (y0/2-1 .. y0/2+TH/2, 24 columns in whole 16-byte chunks,
 //    zero-filled outside the image, RingCopies) and both row parities'
 //    pre-summed taps; phase 2 stages kC2 = 16 channels of conv2's weights
-//    (its input, mid, is already in shared memory). The ring issues steps
+//    (8 at Cout 8; its input, mid, is already in shared memory). The ring issues steps
 //    kStages - 1 ahead whatever their phase, so the next tile's first
 //    phase-1 copies are in flight while this tile's conv2 and epilogue run.
 //
@@ -67,6 +69,18 @@
 // rows first): both warps then hold PMAX = 11 (64 channels) or 10 (32)
 // pixels, which fit the 255 registers of one block an SM without spills.
 //
+// At 16 and 8 channels (a narrow generator's stages, e.g. fmap_base 2048 at
+// 1024²) the block keeps the 32-channel tile, 64 pixel groups, on NCG = 2 or
+// 1 lanes a group: a class's 16 groups are 32 or 16 lanes, one warp or half
+// of one. So that a warp's groups still hold half rows of one length, warp
+// w takes half w % 2 of the class rows of 2 (NCG 2) or all 4 (NCG 1)
+// classes; a quarter warp, which a 128-bit shared-memory read serves at
+// once, stays inside one class (one tap row, broadcast) and reads its input
+// segments from 8 distinct rows (SW = 28 apart: distinct banks). A value's
+// products keep their order (input channel, dy, dx), and PixelNorm reduces
+// over the NCG lanes of a group (group_sum) as in B1 at these widths. The
+// previous RGB's 128 input pixels take 1 or 2 a thread.
+//
 // Tried on the card and not kept (utils/bench_kernels.py; PERF.md): one
 // scalar read a pixel and tap (36 a channel) with both warps of a scheduler
 // on half rows of one length, 1-4% slower at batch 8; the channel loop
@@ -76,13 +90,16 @@
 //
 // Shared memory a block (floats): mid COUT x (TH+2) x 36, the previous RGB
 // 3 x TH/2 x 16 (B11), and kStages stages of max(phase 1: 8 x (TH/2+2) x 28
-// input + 2 x 8 x 8 x COUT taps, phase 2: 16 x 9 x COUT):
+// input + 2 x 8 x 8 x COUT taps, phase 2: kC2 x 9 x COUT):
 //   Cout 64, 3 stages: 23,040 + 192 + 3 x 9,536 = 51,840 floats, 207,360 B
 //   Cout 32, 4 stages: 20,736 + 384 + 4 x 6,336 = 46,464 floats, 185,856 B
-// (B10 the same less the previous RGB: 206,592 / 184,320 B), under the
-// 232,448 B a block may have; one block an SM (ops/packed.py
-// fused_ring_bytes). 16 channels a phase-1 step at 64 channels would leave
-// room for one stage only.
+//   Cout 16, 4 stages: 10,368 + 384 + 4 x 4,288 = 27,904 floats, 111,616 B
+//   Cout 8,  4 stages:  5,184 + 384 + 4 x 3,264 = 18,624 floats,  74,496 B
+// (B10 the same less the previous RGB: 206,592 / 184,320 / 110,080 /
+// 72,960 B), under the 232,448 B a block may have; one block an SM at 64
+// and 32 channels, two at 16 and three at 8 (ops/packed.py fused_ring_bytes,
+// fused_split). 16 channels a phase-1 step at 64 channels would leave room
+// for one stage only.
 #pragma once
 
 #include "conv_ring.cuh"
@@ -105,6 +122,7 @@ struct FusedRing {
   static constexpr bool RGB = TAIL != kFeatures;
   static constexpr int TH = T::TH, TW = T::TW;  // conv2 tile: TH x 32
   static constexpr int NCG = T::NCG;
+  static constexpr int THREADS = T::THREADS;    // 256, or 128 and 64 at 16 and 8
   static constexpr int MH = Patch<COUT>::SH;    // mid rows: conv1 rows y0-1 .. y0+TH
   static constexpr int MW = Patch<COUT>::SW;    // mid row stride, column 0 = x0-1
   static constexpr int MID = COUT * MH * MW;
@@ -117,7 +135,7 @@ struct FusedRing {
   static constexpr int PMAX = NMAIN + E0;       // pixels a lane holds: 11 or 10
   static_assert(G == 2 * R && (CC - NMAIN) + E1 == PMAX, "both warps of a class hold PMAX");
   static constexpr int kC1 = 8;                 // input channels a phase-1 step
-  static constexpr int kC2 = 16;                // conv2 input channels a phase-2 step
+  static constexpr int kC2 = COUT < 16 ? COUT : 16;  // conv2 input channels a phase-2 step
   static constexpr int IH = R + 2;              // staged input rows: y0/2-1 .. y0/2+R
   static constexpr int XW = TW / 2 + 8;         // staged columns j0-4 .. j0+19
   static constexpr int SW = 28;                 // their row stride
@@ -130,9 +148,12 @@ struct FusedRing {
   static constexpr int PREV = RGB ? 3 * R * (TW / 2) : 0;
   static constexpr int kBytes = static_cast<int>(sizeof(float)) * (kStages * kStage + MID + PREV);
   static constexpr int kAcc = PMAX, kPhases = 2;
-  static constexpr int kXPer = (kC1 * IH * (XW / 4) + kThreads - 1) / kThreads;
+  static constexpr int kXPer = (kC1 * IH * (XW / 4) + THREADS - 1) / THREADS;
+  // input pixels of the tile's previous RGB a thread takes: 1, or 2 at 8 channels
+  static constexpr int kPrevPer = (R * (TW / 2) + THREADS - 1) / THREADS;
   static_assert(kX % 4 == 0 && kStage % 4 == 0 && MID % 4 == 0, "16-byte aligned parts");
-  static_assert(R * (TW / 2) <= kThreads, "one thread per input pixel of the tile");
+  static_assert(kPrevPer == 1 || kPrevPer * THREADS == R * (TW / 2),
+                "whole previous-RGB pixels a thread");
 
   const float* x;
   const float* wk1;
@@ -152,8 +173,8 @@ struct FusedRing {
   int seg;        // the staged input under its half row: patch row a, column bq0 + 3
   int row0[E1];   // and under its row-0 pixels: column bq + 3 of patch row 0
   bool prev_lane;
-  float racc[3];
-  RingCopies<kC1, kXPer> copies;
+  float racc[kPrevPer][3];
+  RingCopies<kC1, kXPer, THREADS> copies;
   Tally& tally;
 
   // x [B][C][H][W]; wk1 [2 py][C][2 px][2 dy][2 dx][COUT] (packed_upconv.cu's
@@ -172,9 +193,20 @@ struct FusedRing {
         per_block(per_block_), extra_blocks(extra_), n_chunks(C_ / kC1 + COUT / kC2),
         n_chunks1(C_ / kC1), cg(threadIdx.x % NCG), pg(threadIdx.x / NCG), tally(tally_) {
     copies.template init<IH, XW, SW>();
-    // Warps w and w + 4 share a scheduler: the upper four take the other
-    // half rows of their classes, so that each scheduler issues 9 + 8 pixels.
-    const int cls = pg / G, g = (pg % G) ^ (cls >= 2 ? R : 0);
+    int cls, g;
+    if constexpr (NCG >= 4) {
+      // Warps w and w + 4 share a scheduler: the upper four take the other
+      // half rows of their classes, so that each scheduler issues 9 + 8 pixels.
+      cls = pg / G;
+      g = (pg % G) ^ (cls >= 2 ? R : 0);
+    } else {
+      // A warp's 32 / NCG groups: half w % 2 of the class rows of 32 / NCG / R
+      // classes, R groups (class rows 1 .. R) a class.
+      constexpr int kGroupsPerWarp = 32 / NCG;
+      const int w = pg / kGroupsPerWarp, within = pg % kGroupsPerWarp;
+      cls = (w >> 1) * (kGroupsPerWarp / R) + within / R;
+      g = (w & 1) * R + within % R;
+    }
     py = cls >> 1;
     px = cls & 1;
     const int half = g / R;
@@ -188,7 +220,7 @@ struct FusedRing {
     seg = a * SW + bq0 + 3;
 #pragma unroll
     for (int e = 0; e < E1; ++e) row0[e] = min(gx + G * e, CC - 1) + 3;
-    prev_lane = RGB && static_cast<int>(threadIdx.x) < R * (TW / 2);
+    prev_lane = RGB && static_cast<int>(threadIdx.x) < R * (TW / 2);  // all at 16 and 8
   }
 
   // Tile t of ring_walk (blockIdx.x + k * gridDim.x) is the block's k-th
@@ -210,7 +242,8 @@ struct FusedRing {
   __device__ __forceinline__ void issue(float* stage, int t, int chunk) const {
     if (chunk >= n_chunks1) {  // phase 2: conv2's taps
       const int c0 = (chunk - n_chunks1) * kC2;
-      ring_copy_weights<kW2 / 4>(stage, w2 + static_cast<size_t>(c0) * 9 * COUT, w2, kW2);
+      ring_copy_weights<kW2 / 4, THREADS>(stage, w2 + static_cast<size_t>(c0) * 9 * COUT, w2,
+                                          kW2);
       return;
     }
     int b, y0, x0;
@@ -223,8 +256,8 @@ struct FusedRing {
     copies.template issue<XW / 4>(stage, x, corner, row, H, W, j0 > 0, j0 + TW / 2 < W, C - c0);
 #pragma unroll
     for (int p = 0; p < 2; ++p)
-      ring_copy_weights<kW1 / 4>(stage + kX + p * kW1,
-                                 wk1 + (static_cast<size_t>(p) * C + c0) * 8 * COUT, wk1, kW1);
+      ring_copy_weights<kW1 / 4, THREADS>(
+          stage + kX + p * kW1, wk1 + (static_cast<size_t>(p) * C + c0) * 8 * COUT, wk1, kW1);
   }
 
   // conv1's FMAs of one staged step, in packed_upconv's order: per channel
@@ -238,14 +271,18 @@ struct FusedRing {
                                              const float* __restrict__ ws, int c0,
                                              float (&acc)[PMAX][kTN]) {
     static_assert((NM == NMAIN || NM == CC - NMAIN) && NM + NE <= PMAX, "a half row");
-    const int pr = threadIdx.x / (TW / 2), pc = threadIdx.x % (TW / 2);
 #pragma unroll 1
     for (int c = 0; c < kC1; ++c) {
       const float* xc = xs + c * XC;
       if (prev_lane) {
-        const float v = xc[(pr + 1) * SW + pc + 4];
 #pragma unroll
-        for (int k = 0; k < 3; ++k) racc[k] = fmaf(v, __ldg(prev_w + k * C + c0 + c), racc[k]);
+        for (int q = 0; q < kPrevPer; ++q) {
+          const int p = threadIdx.x + q * THREADS;
+          const float v = xc[(p / (TW / 2) + 1) * SW + p % (TW / 2) + 4];
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            racc[q][k] = fmaf(v, __ldg(prev_w + k * C + c0 + c), racc[q][k]);
+        }
       }
 #pragma unroll
       for (int dy = 0; dy < 2; ++dy) {
@@ -293,7 +330,10 @@ struct FusedRing {
     int b, y0, x0;
     bool first;
     tile_of(t, b, y0, x0, first);
-    if (chunk == 0) racc[0] = racc[1] = racc[2] = 0.f;
+    if (chunk == 0) {
+#pragma unroll
+      for (int q = 0; q < kPrevPer; ++q) racc[q][0] = racc[q][1] = racc[q][2] = 0.f;
+    }
     const float* ws = stage + kX;
     const int c0 = chunk * kC1;
     if (n_main == NMAIN) {  // warp-uniform pixel counts
@@ -318,7 +358,7 @@ struct FusedRing {
     tally.tile(t, b, y0, x0, first);
     bias_lrelu_norm<COUT, PMAX>(acc, b1, cg);
     if (!first) {  // carry conv1 rows y0-1, y0 down from the tile above
-      for (int e = threadIdx.x; e < COUT * 2 * MW; e += kThreads) {
+      for (int e = threadIdx.x; e < COUT * 2 * MW; e += THREADS) {
         const int q = e % MW, rc = e / MW;
         float* plane = mid + (rc / 2) * MH * MW;
         plane[(rc % 2) * MW + q] = plane[(TH + rc % 2) * MW + q];
@@ -330,9 +370,12 @@ struct FusedRing {
     else
       store_mid<CC - NMAIN>(acc, y0, x0, first);
     if (prev_lane) {
-      const int pr = threadIdx.x / (TW / 2), pc = threadIdx.x % (TW / 2);
 #pragma unroll
-      for (int k = 0; k < 3; ++k) prev_s[(k * R + pr) * (TW / 2) + pc] = racc[k] + __ldg(prev_b + k);
+      for (int q = 0; q < kPrevPer; ++q) {
+        const int p = threadIdx.x + q * THREADS;  // row p / 16, column p % 16 of the tile's
+#pragma unroll
+        for (int k = 0; k < 3; ++k) prev_s[k * R * (TW / 2) + p] = racc[q][k] + __ldg(prev_b + k);
+      }
     }
   }
 
@@ -395,7 +438,7 @@ __device__ __forceinline__ void fused_walk(const float* x, const float* wk1, con
 }
 
 template <int COUT, int TAIL>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Tile<COUT>::THREADS, 1)
     fused_kernel(const float* __restrict__ x, const float* __restrict__ wk1,
                  const float* __restrict__ b1, const float* __restrict__ w2,
                  const float* __restrict__ b2, const float* __restrict__ rgb_w,
@@ -449,9 +492,9 @@ int launch_fused(const float* x, const float* wk1, const float* b1, const float*
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<n_blocks, kThreads, smem, stream>>>(x, wk1, b1, w2, b2, rgb_w, rgb_b, prev_w, prev_b,
-                                               alpha, y, C, H, W, static_cast<int>(n_tiles),
-                                               per_block, extra);
+  kernel<<<n_blocks, Tile<COUT>::THREADS, smem, stream>>>(
+      x, wk1, b1, w2, b2, rgb_w, rgb_b, prev_w, prev_b, alpha, y, C, H, W,
+      static_cast<int>(n_tiles), per_block, extra);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,7 +9,8 @@
 //
 // Replaces probgan_tpu/ops/pallas_packed.py:973 `packed_upconv_conv`, the
 // stage-7 block of the 1024^2 generator under PROBGAN_STAGE_FUSED=1
-// (128 -> 64 -> 64 channels, 256^2 -> 512^2).
+// (128 -> 64 -> 64 channels, 256^2 -> 512^2), and of a narrow generator
+// (fmap_base 2048: 64 -> 32 at stage 6, 32 -> 16 at stage 7).
 //
 // Bound on the H100: operations. Per image conv1 does 2*4*128*64*512^2 =
 // 17.2 GFLOP and conv2 2*9*64*64*512^2 = 19.3 GFLOP, and the kernel moves
@@ -25,18 +26,22 @@
 // -> y [B][Cout][2H][2W]; n_blocks persistent blocks over ranges of
 // per_block tiles (one more for the first `extra`) and the dynamic shared
 // memory in bytes (ops/packed.py fused_split, fused_ring_bytes, checked
-// against the kernel's). Returns the cudaError_t of the launch.
+// against the kernel's); Cout 8, 16, 32 or 64. Returns the cudaError_t of
+// the launch.
 extern "C" int probgan_packed_upconv_conv(const float* x, const float* wk1, const float* b1,
                                           const float* w2, const float* b2, float* y, int B,
                                           int C, int H, int W, int cout, int n_blocks,
                                           int per_block, int extra, int smem, void* stream) {
   using namespace probgan;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (cout == 64)
-    return launch_fused<64, kFeatures>(x, wk1, b1, w2, b2, nullptr, nullptr, nullptr, nullptr,
+#define PROBGAN_FUSED(CO)                                                                    \
+  if (cout == CO)                                                                            \
+    return launch_fused<CO, kFeatures>(x, wk1, b1, w2, b2, nullptr, nullptr, nullptr, nullptr, \
                                        0.f, y, B, C, H, W, n_blocks, per_block, extra, smem, s);
-  if (cout == 32)
-    return launch_fused<32, kFeatures>(x, wk1, b1, w2, b2, nullptr, nullptr, nullptr, nullptr,
-                                       0.f, y, B, C, H, W, n_blocks, per_block, extra, smem, s);
+  PROBGAN_FUSED(64)
+  PROBGAN_FUSED(32)
+  PROBGAN_FUSED(16)
+  PROBGAN_FUSED(8)
+#undef PROBGAN_FUSED
   return cudaErrorInvalidValue;
 }

@@ -10,18 +10,19 @@
 // Replaces probgan_tpu/ops/pallas_packed.py:973 `packed_upconv_conv` at modes
 // "default" and "mid": the stage-7 block of the 1024^2 generator under
 // PROBGAN_STAGE_FUSED=1 (128 -> 64 -> 64 channels, 256^2 -> 512^2) at the
-// "fast" and default grades (G's "mid" and "default+mid" at "mid").
+// "fast" and default grades (G's "mid" and "default+mid" at "mid"), and of
+// a narrow generator (fmap_base 2048: 64 -> 32 at stage 6, 32 -> 16 at 7).
 //
 // Bound on the H100: operations, 0.074 ms at batch 2 at 989 TFLOP/s of bf16
 // ("mid" 0.148 ms), above the bytes (101 MB a image in and out, 0.060 ms).
 #include "fused_bf16.cuh"
 
-// x [B][C][H][W] fp32, wk1 [2 py][C/32][2 px][4 (dy, dx)][Cout][40] bf16
-// (ops/packed.py upconv_bf16_weights), b1 [Cout], wk2 [Cout/32][9][Cout][40]
+// x [B][C][H][W] fp32, wk1 [2 py][ceil(C/32)][2 px][4 (dy, dx)][Cout][40] bf16
+// (ops/packed.py upconv_bf16_weights), b1 [Cout], wk2 [ceil(Cout/32)][9][Cout][40]
 // bf16 (conv_bf16_weights), b2 [Cout] -> y [B][Cout][2H][2W]; tally, when not
-// null, gains the conv1 pixels the blocks store into their maps; Cout 32 or
-// 64, terms 1 ("default") or 2 ("mid"), C % 32 == 0, 2H % (8 or 16) == 0,
-// W % 16 == 0; smem the block's dynamic shared memory in bytes
+// null, gains the conv1 pixels the blocks store into their maps; Cout 8, 16,
+// 32 or 64, terms 1 ("default") or 2 ("mid"), C % 8 == 0, 2H % (8 at Cout 64,
+// else 16) == 0, W % 16 == 0; smem the block's dynamic shared memory in bytes
 // (ops/packed.py fused_bf16_bytes, checked against the kernel's). Returns the
 // cudaError_t of the launch (0 = launched).
 extern "C" int probgan_packed_upconv_conv_bf16(const float* x, const void* wk1, const float* b1,

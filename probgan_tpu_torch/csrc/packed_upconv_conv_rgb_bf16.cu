@@ -14,7 +14,8 @@
 // modes "default" and "mid": the final stage of the generator under
 // PROBGAN_STAGE_FUSED=1 at the "fast" and default grades, stage 8 of the
 // 1024^2 config (64 -> 32 -> 32 channels, 512^2 -> 1024^2), or stage 7 when it
-// is the last one rendered (128 -> 64 -> 64, 256^2 -> 512^2).
+// is the last one rendered (128 -> 64 -> 64, 256^2 -> 512^2); of a narrow
+// generator (fmap_base 2048) 16 -> 8 at stage 8, 32 -> 16 at stage 7.
 //
 // Bound on the H100: operations. Per image at stage 8 conv1 does
 // 2*4*64*32*1024^2 = 17.2 GFLOP, conv2 2*9*32*32*1024^2 = 19.3 GFLOP and the

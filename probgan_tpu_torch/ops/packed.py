@@ -67,10 +67,10 @@ block) take Cout 8, 16, 32 or 64; ``packed_conv`` "lrelu" and
 ``packed_convpool`` "lrelu" any Cout that is a multiple of 8, in slabs of 64,
 32, 16 or 8 (the largest that divides it); input C is any multiple of 8 at
 every mode; the "none" epilogues (the training backward's input
-gradients) take any multiple of 8 too. The narrow slabs (16 and 8) are a
+gradients) take any multiple of 8 too; the stage-fused kernels take Cout 8,
+16, 32 or 64 and C % 8 at every mode. The narrow slabs (16 and 8) are a
 narrow generator's late stages, forward and backward, e.g. fmap_base 2048 at
-1024². Still to come (ROADMAP.md): the stage-fused kernels below 32
-channels, and Cout below 8.
+1024². Still to come (ROADMAP.md): Cout below 8.
 
 Each kernel has a wrapper (checks device, dtype, shape and contiguity,
 allocates outputs with ``torch.empty`` and launches on the current stream), a
@@ -156,10 +156,9 @@ BF16_CK, BF16_ROW = 32, 40
 # block, so "lrelu_norm" and packed_conv_rgb take only these; without it
 # packed_conv and packed_convpool tile Cout in slabs of 64, 32, 16 or 8 (the
 # largest that divides it) and take any multiple of 8, at every epilogue; the
-# stage-fused kernels take Cout 32 and 64.
+# stage-fused kernels take these too.
 SUPPORTED_COUT = (8, 16, 32, 64)
-WIDE_COUT = (32, 64)
-NARROW_TODO = "not ported yet (ROADMAP.md, B.a.2)"
+NARROW_TODO = "not ported yet (ROADMAP.md, B.a.2.3)"
 # packed_conv's epilogues, by their code in csrc/packed_conv.cu.
 CONV_EPILOGUES = {"lrelu_norm": 0, "lrelu": 1, "none": 2}
 UPCONV_EPILOGUES = {"lrelu_norm": 0, "lrelu": 1}
@@ -180,8 +179,9 @@ RING_CC, RING_STAGES, RING_BLOCKS_PER_SM = 16, 3, 1
 # card reserves for each resident block.
 SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED = 232_448, 233_472, 1_024
 # The stage-fused kernels' ring (csrc/fused_ring.cuh): input channels a conv1
-# step, conv2 input channels a conv2 step, and stages by Cout.
-FUSED_C1, FUSED_C2, FUSED_STAGES = 8, 16, {64: 3, 32: 4}
+# step, conv2 input channels a conv2 step (Cout itself below it:
+# ``fused_c2``), and stages by Cout.
+FUSED_C1, FUSED_C2, FUSED_STAGES = 8, 16, {64: 3, 32: 4, 16: 4, 8: 4}
 
 
 def check_mode(name: str, mode: str) -> int:
@@ -381,10 +381,10 @@ def bf16_upconv_bytes(cout: int, terms: int = 1) -> int:
 
 
 def _check_fused_bf16_channels(name: str, x: torch.Tensor, mode: str) -> None:
-    """The stage-fused bf16 kernels (csrc/fused_bf16.cuh) take C % 32 == 0."""
-    if x.shape[1] % BF16_CK:
-        raise ValueError(f"{name}: mode {mode!r} takes C % {BF16_CK} == 0, got "
-                         f"x {tuple(x.shape)}; other C is {NARROW_TODO}")
+    """The stage-fused bf16 kernels (csrc/fused_bf16.cuh) take C % 8 == 0: a
+    last chunk of C % 32 channels is staged with zeros past C."""
+    if x.shape[1] % 8:
+        raise ValueError(f"{name}: mode {mode!r} takes C % 8 == 0, got x {tuple(x.shape)}")
 
 
 def upconv_kernel_weights(w: torch.Tensor) -> torch.Tensor:
@@ -926,7 +926,7 @@ def packed_upconv_conv_rgb_plain(x, w1, b1, w2, b2, rgb_w, rgb_b, prev_rgb_w, pr
 def fused_tiling(cout: int) -> tuple[int, int]:
     """(output rows, output columns) of one conv2 tile of the stage-fused
     kernels, all Cout channels (csrc/conv_tile.cuh Tile): 8 x 32 at Cout 64,
-    16 x 32 at 32."""
+    16 x 32 at 32, 16 and 8."""
     return _tile_rows(cout), 32
 
 
@@ -936,17 +936,27 @@ def fused_tile_count(bsz: int, cout: int, h: int, wd: int) -> int:
     return bsz * (2 * h // rows) * (2 * wd // cols)
 
 
+def fused_blocks_per_sm(cout: int) -> int:
+    """Persistent stage-fused blocks an H100 multiprocessor holds at ``cout``
+    channels, from the larger of the two kernels' bytes (B11's,
+    ``fused_ring_bytes``; B10's give the same count): 1 at 64 and 32, 2 at
+    16 (128-thread blocks), 3 at 8 (64 threads)."""
+    return ring_blocks_per_sm(fused_ring_bytes(cout, rgb=True))
+
+
 def fused_split(bsz: int, cout: int, h: int, wd: int, sms: int) -> tuple[int, int, int]:
     """(blocks, per_block, extra): the split of the stage-fused walk that the
     wrappers pass to the kernels, whose C entries check it
-    (csrc/fused_ring.cuh fused_checked_tiles). One persistent block an SM;
-    the walk's order (images, 32-column strips, tile rows down a strip) cut
-    into the blocks' contiguous ranges, per_block tiles each and one more for
-    the first ``extra`` blocks. A run, whose first tile computes conv1's
-    whole halo and whose later tiles carry its two top rows from the tile
-    above, is the part of a range inside one strip of one image."""
+    (csrc/fused_ring.cuh fused_checked_tiles). ``fused_blocks_per_sm``
+    persistent blocks an SM; the walk's order (images, 32-column strips, tile
+    rows down a strip) cut into the blocks' contiguous ranges, per_block
+    tiles each and one more for the first ``extra`` blocks. A run, whose
+    first tile computes conv1's whole halo and whose later tiles carry its
+    two top rows from the tile above, is the part of a range inside one
+    strip of one image. Neither a tile's sums nor the bits depend on the
+    split."""
     n = fused_tile_count(bsz, cout, h, wd)
-    blocks = persistent_blocks(n, sms)
+    blocks = persistent_blocks(n, sms, fused_blocks_per_sm(cout))
     return (blocks, *divmod(n, blocks))
 
 
@@ -989,16 +999,22 @@ def fused_conv1_per_output(bsz: int, cout: int, h: int, wd: int, sms: int) -> fl
     return (cols + 2) * (rows * n + 2 * len(runs)) / (rows * cols * n)
 
 
+def fused_c2(cout: int) -> int:
+    """conv2 input channels a conv2 step of the stage-fused ring
+    (FusedRing::kC2): FUSED_C2, or Cout below it (8)."""
+    return min(FUSED_C2, cout)
+
+
 def fused_ring_bytes(cout: int, rgb: bool) -> int:
     """Dynamic shared memory of a stage-fused block (FusedRing::kBytes):
     FUSED_STAGES stages, each the larger of a conv1 step (FUSED_C1 channels of
     tile rows / 2 + 2 input rows in rows of 28 floats, and both row parities'
-    8 x Cout pre-summed taps) and a conv2 step (FUSED_C2 x 9 x Cout taps);
-    conv1's map, Cout x (tile rows + 2) x 36; the previous stage's RGB under
-    the tile, 3 x tile rows / 2 x 16 (``rgb``)."""
+    8 x Cout pre-summed taps) and a conv2 step (``fused_c2`` x 9 x Cout
+    taps); conv1's map, Cout x (tile rows + 2) x 36; the previous stage's RGB
+    under the tile, 3 x tile rows / 2 x 16 (``rgb``)."""
     rows, cols = fused_tiling(cout)
     stage = max(FUSED_C1 * (rows // 2 + 2) * 28 + 2 * FUSED_C1 * 8 * cout,
-                FUSED_C2 * 9 * cout)
+                fused_c2(cout) * 9 * cout)
     prev = 3 * (rows // 2) * (cols // 2) if rgb else 0
     return 4 * (FUSED_STAGES[cout] * stage + cout * (rows + 2) * (cols + 4) + prev)
 
@@ -1009,24 +1025,24 @@ def fused_bf16_bytes(cout: int, terms: int, rgb: bool) -> int:
     weight row: the larger of conv1's staging (its input, tile rows / 2 + 2
     x 24 pixels once a term, and both row parities' taps, 2 x 8 x Cout) and
     one chunk of conv2's weights (9 x Cout), which share one region; conv1's
-    map, Cout / 32 chunks of (tile rows + 2) x 34 pixels once a term; the
-    previous stage's RGB under the tile, 3 x tile rows / 2 x 16 floats
-    (``rgb``)."""
+    map, ``bf16_chunks(cout)`` chunks of (tile rows + 2) x 34 pixels once a
+    term (one, partial, at 16 and 8); the previous stage's RGB under the
+    tile, 3 x tile rows / 2 x 16 floats (``rgb``)."""
     rows = _tile_rows(cout)
     conv1 = terms * (rows // 2 + 2) * 24 + 2 * 8 * cout
     conv2 = 9 * cout
-    fmap = terms * (cout // BF16_CK) * (rows + 2) * 34
+    fmap = terms * bf16_chunks(cout) * (rows + 2) * 34
     prev = 4 * 3 * (rows // 2) * 16 if rgb else 0
     return 2 * BF16_ROW * (max(conv1, conv2) + fmap) + prev
 
 
 def _stage_fused_checks(name: str, x, w1, w2, **params) -> int:
     """The stage-fused kernels' shape rules: conv1 C -> Cout, conv2 Cout ->
-    Cout with Cout 32 or 64 (16 and 8 are not ported yet: ROADMAP.md); input
-    rows a multiple of half the conv2 tile's rows, columns of 16. Returns
-    Cout."""
+    Cout with Cout 8, 16, 32 or 64 (below 8 is not ported yet: ROADMAP.md);
+    C % 8; input rows a multiple of half the conv2 tile's rows, columns of
+    16. Returns Cout."""
     cout = w1.shape[0]
-    _check_cout(name, cout, supported=WIDE_COUT)
+    _check_cout(name, cout)
     if tuple(w2.shape) != (cout, cout, 3, 3):
         raise ValueError(f"{name}: w2 {tuple(w2.shape)} must be {(cout, cout, 3, 3)}")
     _check(name, x, w1.shape[1], _tile_rows(cout) // 2, 16, w1=w1, w2=w2, **params)
@@ -1062,7 +1078,7 @@ def _fused_bf16_launch(name: str, mode: str, x, w1, b1, w2, b2, out, *rgb_args,
     else:
         ptrs.append(_ptr(out))
     _bf16_launch(name, terms, x, *ptrs, _ptr(tally), bsz, c, h, wd, cout, terms,
-                 fused_bf16_bytes(cout, terms, rgb=bool(rgb_args)))
+                 fused_bf16_bytes(cout, terms, rgb=bool(rgb_args)), slab=cout)
 
 
 def packed_upconv_conv(x, w1, b1, w2, b2, *, mode="high", _tally=None):
@@ -1071,9 +1087,10 @@ def packed_upconv_conv(x, w1, b1, w2, b2, *, mode="high", _tally=None):
     PixelNorm. x [B, C, H, W] fp32, w1 [Cout, C, 3, 3] and w2 [Cout, Cout, 3,
     3] eq-LR scaled -> [B, Cout, 2H, 2W], equal bit for bit to
     ``packed_conv(packed_upconv(x, w1, b1, mode=mode), w2, b2, mode=mode)`` on
-    the card. On CUDA, Cout is 32 or 64. ``mode``: "high"/"highest" (the fp32
-    ring, csrc/fused_ring.cuh), "default" (one bf16 pass) or "mid" (the 2-term
-    split), both ``packed_upconv_conv_bf16`` on the card (C % 32 == 0).
+    the card. On CUDA, Cout is 8, 16, 32 or 64 and C % 8 == 0. ``mode``:
+    "high"/"highest" (the fp32 ring, csrc/fused_ring.cuh), "default" (one
+    bf16 pass) or "mid" (the 2-term split), both ``packed_upconv_conv_bf16``
+    on the card.
     ``_tally`` (int64 [1] on the card, bf16 modes): gains the conv1 pixels
     the kernel stores, for the utilities that count them."""
     if x.device.type == "cpu":
@@ -1092,7 +1109,7 @@ def packed_upconv_conv(x, w1, b1, w2, b2, *, mode="high", _tally=None):
     x = _aligned16(x)
     split = fused_split(bsz, cout, h, wd, _sms(x.device))
     _launch(name, x, _ptr(x), _ptr(wk1), _ptr(b1), _ptr(wk2), _ptr(b2), _ptr(y), bsz, c, h,
-            wd, cout, *split, fused_ring_bytes(cout, rgb=False))
+            wd, cout, *split, fused_ring_bytes(cout, rgb=False), slab=cout)
     return y
 
 
@@ -1135,5 +1152,5 @@ def packed_upconv_conv_rgb(x, w1, b1, w2, b2, rgb_w, rgb_b, prev_rgb_w, prev_rgb
     split = fused_split(bsz, cout, h, wd, _sms(x.device))
     _launch(name, x, _ptr(x), _ptr(wk1), _ptr(b1), _ptr(wk2), _ptr(b2), _ptr(rgb_w),
             _ptr(rgb_b), _ptr(prev_rgb_w), _ptr(prev_rgb_b), alpha, _ptr(out), int(emit_uint8),
-            bsz, c, h, wd, cout, *split, fused_ring_bytes(cout, rgb=True))
+            bsz, c, h, wd, cout, *split, fused_ring_bytes(cout, rgb=True), slab=cout)
     return out

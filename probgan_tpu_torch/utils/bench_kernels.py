@@ -34,9 +34,11 @@ one CUDA card, in parts (``--parts``, all by default):
   six shapes beside its fp32 (3xTF32) kernel, the bound at the bf16 peak;
 - ``fused``: the stage-fused kernels B10 ``packed_upconv_conv`` (stage 7)
   and B11 ``packed_upconv_conv_rgb`` (stage 8 uint8 and fp32, stage 7
-  uint8) at batch 2 and 8, each beside the two-kernel pair it replaces at
-  its kernel mode: "high" (the fp32 ring), and "default" and "mid" where the
-  tree's wrappers take ``mode``; then ``generate`` (batch 8) at "high" and
+  uint8) at batch 2 and 8, and at the narrow generator N's shapes (B10
+  32 -> 16, B11 16 -> 8 uint8 and fp32, B11 32 -> 16) where the tree takes
+  them, each beside the two-kernel pair it replaces at its kernel mode:
+  "high" (the fp32 ring), and "default" and "mid" where the tree's
+  wrappers take ``mode``; then ``generate`` (batch 8) at "high" and
   "fast" and the image trainer CLI's step (``progan_train_step`` with
   ``packed_fake`` at "highest", stage 8, batch 2) with
   ``PROBGAN_STAGE_FUSED`` 1 and 0 in turns in one process;
@@ -107,15 +109,23 @@ FP32_SHAPES = (
     ("conv_rgb_s7_fp32_b8", "packed_conv_rgb", "fp32", 8, 64, 64, 512, True),
 )
 # (label, kernel, batch, C, Cout, input H, emit): the stage-fused launches
-# at 1024² ("features": B10; "uint8" / "fp32": B11 at alpha 1 / 0.3)
+# at 1024² ("features": B10; "uint8" / "fp32": B11 at alpha 1 / 0.3); then
+# the narrow generator N's (fmap_base 2048, fmap_max 256), labelled "n7" /
+# "n8": B10 32 -> 16 and B11 16 -> 8 (stages 7 and 8), B11 32 -> 16
+# (latent_walk at stage 7), timed where the tree's stage-fused kernels take
+# 16 and 8 channels
 FUSED_SHAPES = tuple(
     (f"{kind}_{stage}_{emit}_b{bsz}", kind, bsz, c, cout, h, emit)
+    for shapes in ((("upconv_conv", "s7", 128, 64, 256, "features"),
+                    ("upconv_conv_rgb", "s8", 64, 32, 512, "uint8"),
+                    ("upconv_conv_rgb", "s8", 64, 32, 512, "fp32"),
+                    ("upconv_conv_rgb", "s7", 128, 64, 256, "uint8")),
+                   (("upconv_conv", "n7", 32, 16, 256, "features"),
+                    ("upconv_conv_rgb", "n8", 16, 8, 512, "uint8"),
+                    ("upconv_conv_rgb", "n8", 16, 8, 512, "fp32"),
+                    ("upconv_conv_rgb", "n7", 32, 16, 256, "uint8")))
     for bsz in (2, 8)
-    for kind, stage, c, cout, h, emit in (
-        ("upconv_conv", "s7", 128, 64, 256, "features"),
-        ("upconv_conv_rgb", "s8", 64, 32, 512, "uint8"),
-        ("upconv_conv_rgb", "s8", 64, 32, 512, "fp32"),
-        ("upconv_conv_rgb", "s7", 128, 64, 256, "uint8")))
+    for kind, stage, c, cout, h, emit in shapes)
 # (label, kernel, batch, C, Cout, H, emit): the bf16 launches of "fast" generate
 BF16_SHAPES = tuple(
     (f"{kernel}_{stage}_{emit}_b{bsz}", kernel, bsz, c, cout, h, emit)
@@ -523,8 +533,11 @@ def bench_fused(pk, dump: Path | None) -> dict:
 def _bench_fused_mode(pk, dump: Path | None, mode: str) -> dict:
     kw = {} if mode == "high" else {"mode": mode}
     passes = {"high": 0, "default": 1, "mid": 2}[mode]
+    narrow = 16 in getattr(pk, "FUSED_STAGES", {})  # the tree takes 16 and 8 channels
     out = {}
     for i, (label, kind, bsz, c, cout, h, emit) in enumerate(FUSED_SHAPES):
+        if cout < 32 and not narrow:
+            continue
         gen = torch.Generator(device="cuda").manual_seed(200 + i)
         x = torch.randn((bsz, c, h, h), device="cuda", generator=gen)
         w1 = torch.randn((cout, c, 3, 3), device="cuda", generator=gen) * math.sqrt(2 / (9 * c))

@@ -9,7 +9,8 @@ Python (ops/packed.py): the split of the tiles into the blocks' ranges
 (checked against the kernel's own constant at launch). Here the wrappers
 must pass those; the walk must visit every conv2 tile of every image
 exactly once, ragged counts included; no run may cross an image or a strip;
-the bytes must fit one block an SM as the source note states; and the conv1
+the bytes must fit the blocks an SM that the split assumes (one at 32 and 64
+channels, two at 16, three at 8) as the source note states; and the conv1
 pixels computed per conv2 output must stay near the 34/32 of the halo
 columns. chip_smoke.py holds the kernels' outputs to the pair's, bit for
 bit, and utils/conv_clock_split.py the walk the card takes to
@@ -28,8 +29,11 @@ H100_SMS = 132
 
 # (batch, C, Cout, input H = W): the stage-fused launches at 1024²: B10 at
 # stage 7 and B11 at stage 8 (and at stage 7 when it is the last stage), at
-# generate's batch and the kernels' test batch
-PATH_SHAPES = [(2, 128, 64, 256), (8, 128, 64, 256), (2, 64, 32, 512), (8, 64, 32, 512)]
+# generate's batch and the kernels' test batch; then the narrow generator N's
+# (fmap_base 2048): B10 32 -> 16 at stage 7 (B11 there in latent_walk) and
+# B11 16 -> 8 at stage 8
+PATH_SHAPES = [(2, 128, 64, 256), (8, 128, 64, 256), (2, 64, 32, 512), (8, 64, 32, 512),
+               (2, 32, 16, 256), (8, 32, 16, 256), (2, 16, 8, 512), (8, 16, 8, 512)]
 
 
 def _walk(bsz, cout, h, wd, sms):
@@ -47,7 +51,9 @@ def _walk(bsz, cout, h, wd, sms):
 
 @pytest.mark.parametrize("bsz,cout,h,wd,sms", [
     (1, 64, 4, 16, 1), (3, 64, 12, 48, 5), (2, 32, 24, 32, 7), (3, 32, 8, 16, 2),
-    (1, 64, 100, 128, H100_SMS), (3, 64, 256, 256, H100_SMS), (2, 32, 40, 80, 11)])
+    (1, 64, 100, 128, H100_SMS), (3, 64, 256, 256, H100_SMS), (2, 32, 40, 80, 11),
+    (2, 16, 24, 32, 7), (3, 8, 8, 16, 2), (3, 16, 200, 256, H100_SMS),
+    (1, 8, 40, 80, 11)])
 def test_fused_walk_covers_every_tile_once(bsz, cout, h, wd, sms):
     """Small shapes with tile counts that no block count divides, and the
     ragged stage-7 cases of chip_smoke.py (batch 3; 200 x 256 below): every
@@ -65,8 +71,8 @@ def test_fused_walk_covers_every_tile_once(bsz, cout, h, wd, sms):
         (n - k + blocks - 1) // blocks for k in range(blocks)]
 
 
-@pytest.mark.parametrize("bsz,cout,h,wd", [(3, 64, 200, 256), (2, 32, 40, 80), *[
-    (b, cout, h, h) for b, _, cout, h in PATH_SHAPES]])
+@pytest.mark.parametrize("bsz,cout,h,wd", [(3, 64, 200, 256), (2, 32, 40, 80), (3, 8, 200, 256),
+                                            *[(b, cout, h, h) for b, _, cout, h in PATH_SHAPES]])
 def test_fused_runs_stay_in_one_strip(bsz, cout, h, wd):
     """A tile that carries rows from the one before it in its block's walk
     lies right below it, in the same strip of the same image; a block's first
@@ -88,20 +94,29 @@ def test_fused_runs_stay_in_one_strip(bsz, cout, h, wd):
         assert got == runs[blk]
 
 
-@pytest.mark.parametrize("cout,rgb,want", [(64, False, 206_592), (64, True, 207_360),
-                                           (32, False, 184_320), (32, True, 185_856)])
-def test_fused_ring_fits_one_block_an_sm(cout, rgb, want):
+@pytest.mark.parametrize("cout,rgb,want,per_sm", [
+    (64, False, 206_592, 1), (64, True, 207_360, 1), (32, False, 184_320, 1),
+    (32, True, 185_856, 1), (16, False, 110_080, 2), (16, True, 111_616, 2),
+    (8, False, 72_960, 3), (8, True, 74_496, 3)])
+def test_fused_ring_fits_one_block_an_sm(cout, rgb, want, per_sm):
     """The bytes the wrappers pass (and the kernels check against
-    FusedRing::kBytes): under a block's 232,448, one block an SM and not two;
-    the source note's arithmetic names the same figure."""
+    FusedRing::kBytes): under a block's 232,448, and the blocks an SM that
+    fused_split assumes fit (one at 64 and 32 channels, two at 16, three at
+    8) and one more would not; the source note's arithmetic names the same
+    figure."""
     got = tpk.fused_ring_bytes(cout, rgb)
     assert got == want
     per_block = got + tpk.SMEM_RESERVED
-    assert got <= tpk.SMEM_PER_BLOCK and 2 * per_block > tpk.SMEM_PER_SM
+    assert tpk.fused_blocks_per_sm(cout) == per_sm
+    assert got <= tpk.SMEM_PER_BLOCK and per_sm * per_block <= tpk.SMEM_PER_SM
+    assert (per_sm + 1) * per_block > tpk.SMEM_PER_SM
     src = (CSRC / "fused_ring.cuh").read_text()
     assert f"{want:,}" in src
-    assert f"kStages = COUT == 64 ? {tpk.FUSED_STAGES[64]} : {tpk.FUSED_STAGES[32]};" in src
-    assert f"kC1 = {tpk.FUSED_C1};" in src and f"kC2 = {tpk.FUSED_C2};" in src
+    below = tpk.FUSED_STAGES[32 if cout == 64 else cout]  # the stages of every Cout below 64
+    assert f"kStages = COUT == 64 ? {tpk.FUSED_STAGES[64]} : {below};" in src
+    assert f"kC1 = {tpk.FUSED_C1};" in src
+    assert f"kC2 = COUT < {tpk.FUSED_C2} ? COUT : {tpk.FUSED_C2};" in src
+    assert tpk.fused_c2(cout) == min(tpk.FUSED_C2, cout)
 
 
 @pytest.mark.parametrize("bsz,c,cout,h", PATH_SHAPES)
@@ -123,11 +138,13 @@ def test_fused_wrappers_pass_the_split_and_bytes(bsz, c, cout, h, wd, rgb, monke
     """What a wrapper hands its C entry (on meta tensors, the device check
     and the launch replaced by a recorder): the blocks, per_block and extra
     of fused_split for the card's SMs, then fused_ring_bytes, in the places
-    of the entry's argument list."""
+    of the entry's argument list; the launch is counted by its width (its
+    ``slab``, kept in narrow_launches below 32 channels)."""
     launched = []
     monkeypatch.setattr(tpk, "_check", lambda *a, **k: None)
     monkeypatch.setattr(tpk, "_sms", lambda device: H100_SMS)
-    monkeypatch.setattr(tpk, "_launch", lambda name, x, *args: launched.append((name, args)))
+    monkeypatch.setattr(tpk, "_launch",
+                        lambda name, x, *args, **kw: launched.append((name, args, kw)))
 
     def meta(*shape):
         return torch.empty(shape, device="meta")
@@ -142,8 +159,9 @@ def test_fused_wrappers_pass_the_split_and_bytes(bsz, c, cout, h, wd, rgb, monke
             out = tpk.packed_upconv_conv(x, w1, b, w2, b)
     name = "packed_upconv_conv_rgb" if rgb else "packed_upconv_conv"
     assert out.shape == ((bsz, 2 * h, 2 * wd, 3) if rgb else (bsz, cout, 2 * h, 2 * wd))
-    assert [n for n, _ in launched] == [name]
+    assert [n for n, _, _ in launched] == [name]
     args = launched[0][1]
+    assert launched[0][2] == {"slab": cout}
     assert len(args) + 1 == len(tpk._ARGTYPES[name])  # the stream follows
     assert args[-9:] == (bsz, c, h, wd, cout, *tpk.fused_split(bsz, cout, h, wd, H100_SMS),
                          tpk.fused_ring_bytes(cout, rgb))

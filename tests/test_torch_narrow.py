@@ -20,10 +20,11 @@ against the JAX package on the same numpy inputs.
   card): the bf16 weight layouts with zeros past C, the shared-memory bytes
   against the kernels' own arithmetic (csrc/conv_ring.cuh,
   csrc/bf16_conv.cuh), two ring blocks an SM, the launches counted under
-  ``narrow_launches``; Cout 4 (at every epilogue, "none" too), a PixelNorm
-  Cout of 24 and the stage-fused kernels at 16 raise ValueError before any
-  launch ("none" at slabs of 16 and 8 is held in
-  tests/test_torch_narrow_backward.py).
+  ``narrow_launches``; Cout 4 (at every epilogue, "none" and the
+  stage-fused kernels too) and a PixelNorm Cout of 24 raise ValueError
+  before any launch ("none" at slabs of 16 and 8 is held in
+  tests/test_torch_narrow_backward.py, the stage-fused kernels at 16 and 8
+  in tests/test_torch_stage_fused_narrow.py).
 """
 
 import jax.numpy as jnp
@@ -239,8 +240,8 @@ def test_narrow_wrappers_launch_the_narrow_kernels(recorded):
      "ROADMAP.md"),
     (lambda: tpk.packed_convpool(_meta(1, 16, 16, 32), _meta(4, 16, 3, 3), _meta(4), "none",
                                  mode="mid"), "ROADMAP.md"),
-    (lambda: tpk.packed_upconv_conv(_meta(1, 8, 8, 16), _meta(16, 8, 3, 3), _meta(16),
-                                    _meta(16, 16, 3, 3), _meta(16)), "ROADMAP.md"),
+    (lambda: tpk.packed_upconv_conv(_meta(1, 8, 8, 16), _meta(4, 8, 3, 3), _meta(4),
+                                    _meta(4, 4, 3, 3), _meta(4)), "ROADMAP.md"),
 ])
 def test_narrow_wrappers_refuse_what_is_not_ported(recorded, call, match):
     with torch.no_grad(), pytest.raises(ValueError, match=match):

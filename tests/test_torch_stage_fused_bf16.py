@@ -26,6 +26,8 @@ JAX's is in tests/test_torch_stage_fused.py. On the card the kernels must
 equal the bf16 pair bit for bit; chip_smoke.py phase 15 checks that.
 """
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -155,14 +157,23 @@ def test_unknown_modes_raise(mode):
 def test_fused_bf16_bytes_fit_one_block():
     """fused_bf16_bytes, the kernel's FusedBf16::kBytes (csrc/fused_bf16.cuh):
     at "mid" with 64 channels conv1's staging and conv2's weights share one
-    region, or the block would not fit the 232,448 bytes it may have."""
+    region, or the block would not fit the 232,448 bytes it may have. At 16
+    and 8 channels the map is one partial chunk of 32 channels; the figures
+    are the ones the source note states."""
     got = {(cout, terms, rgb): tpk.fused_bf16_bytes(cout, terms, rgb)
-           for cout in (64, 32) for terms in (1, 2) for rgb in (False, True)}
+           for cout in (64, 32, 16, 8) for terms in (1, 2) for rgb in (False, True)}
     assert got == {(64, 1, False): 147_840, (64, 1, True): 148_608,
                    (64, 2, False): 213_760, (64, 2, True): 214_528,
                    (32, 1, False): 109_120, (32, 1, True): 110_656,
-                   (32, 2, False): 177_280, (32, 2, True): 178_816}
+                   (32, 2, False): 177_280, (32, 2, True): 178_816,
+                   (16, 1, False): 88_640, (16, 1, True): 90_176,
+                   (16, 2, False): 156_800, (16, 2, True): 158_336,
+                   (8, 1, False): 78_400, (8, 1, True): 79_936,
+                   (8, 2, False): 146_560, (8, 2, True): 148_096}
     assert max(got.values()) <= tpk.SMEM_PER_BLOCK
+    src = (Path(tpk.__file__).resolve().parent.parent / "csrc" / "fused_bf16.cuh").read_text()
+    for cout in (16, 8):
+        assert f"{got[(cout, 1, True)]:,} and {got[(cout, 2, True)]:,}" in src
     # conv1's staging alone at Cout 64 "mid": input planes and both parities' taps
     assert 2 * tpk.BF16_ROW * (2 * 6 * 24 + 2 * 8 * 64) == 104_960
 
@@ -172,9 +183,12 @@ def _record_launches(monkeypatch):
     ``_launch`` does; returns the list of (kernel, counter, args)."""
     launched = []
 
-    def launch(name, x, *args, epilogue=None, counter=None):
+    def launch(name, x, *args, epilogue=None, counter=None, slab=None):
         launched.append((name, counter or name, args))
         tpk.launches[counter or name] += 1
+        if slab is not None and slab < 32:
+            key = f"{counter or name}[cout{slab}]"
+            tpk.narrow_launches[key] = tpk.narrow_launches.get(key, 0) + 1
 
     monkeypatch.setattr(tpk, "_check", lambda *a, **k: None)
     monkeypatch.setattr(tpk, "_launch", launch)
@@ -247,7 +261,9 @@ def test_stage_fused_bf16_route_on_the_card(grade, mode, monkeypatch):
 def test_fused_bf16_wrapper_arguments(monkeypatch):
     """What B11's bf16 wrapper hands its launch (meta stands in for the
     card): alpha, emit_uint8, no tally, then the shapes, the terms and the
-    bytes; B10 on a tensor with C % 32 != 0 raises before any launch."""
+    bytes; B10 on a tensor with C % 8 != 0 raises before any launch (C % 32
+    is no longer needed: a last chunk of C % 32 channels is staged with
+    zeros)."""
     captured = []
     monkeypatch.setattr(tpk, "_check", lambda *a, **k: None)
     monkeypatch.setattr(tpk, "_bf16_launch",
@@ -265,7 +281,7 @@ def test_fused_bf16_wrapper_arguments(monkeypatch):
     assert (name, terms) == ("packed_upconv_conv_rgb", 2)
     assert args[9] == 0.5 and args[11] == 0 and args[12] is None  # alpha, fp32 out, tally
     assert args[13:] == (1, 64, 8, 16, 32, 2, tpk.fused_bf16_bytes(32, 2, True))
-    with pytest.raises(ValueError, match="C % 32"):
-        tpk.packed_upconv_conv(meta(1, 8, 8, 16), meta(32, 8, 3, 3), meta(32),
+    with pytest.raises(ValueError, match="C % 8"):
+        tpk.packed_upconv_conv(meta(1, 12, 8, 16), meta(32, 12, 3, 3), meta(32),
                                meta(32, 32, 3, 3), meta(32), mode="default")
     assert len(captured) == 1
