@@ -9,7 +9,11 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the build of every kernel from ``probgan_tpu_torch/csrc`` with nvcc
-   (one process per source, all at once), with ptxas's register report;
+   (one process per source, all at once), with ptxas's register report; the
+   pipelined bf16 loop of B1/B2 (``csrc/bf16_ring.cuh``) as compiled: its
+   stages, bytes a block and resident blocks an SM at each width and term
+   count (equal to ``ops/packed.py``'s figures: one block an SM), and the
+   two kernels' registers and spill bytes;
 2. each late-stage generator kernel at the shapes the 1024² generator gives
    it (batch 2), held against its plain PyTorch twin on the card with TF32
    off: fp32 outputs to atol = rtol = 1e-4, uint8 outputs within +-1 on at
@@ -500,6 +504,40 @@ def pool_in_b5_order(y: torch.Tensor) -> torch.Tensor:
     a00, a01 = y[..., 0::2, 0::2], y[..., 0::2, 1::2]
     a10, a11 = y[..., 1::2, 0::2], y[..., 1::2, 1::2]
     return 0.5 * (0.5 * (a00 + a10) + 0.5 * (a01 + a11))
+
+
+def bf16_ring_line(pk, logs: dict) -> dict:
+    """The bf16 ring of B1 and B2 as the card's libraries were compiled:
+    (stages, bytes a block, blocks an SM) at each width and term count, held
+    to ops/packed.py's stages and bytes and to one block an SM; and the most
+    registers and spill bytes of the two kernels' instantiations (ptxas)."""
+    out = {}
+    for name, ring_bytes in (("packed_conv", pk.bf16_ring_bytes),
+                             ("packed_upconv", pk.bf16_upconv_ring_bytes)):
+        geo = {}
+        for width in (64, 32, 16, 8):
+            for terms in (1, 2):
+                stages, nbytes, per_sm = pk.bf16_ring_geometry(name, width, terms)
+                if (stages, nbytes, per_sm) != (pk.BF16_RING_STAGES[name], ring_bytes(width), 1):
+                    raise AssertionError(
+                        f"{name}_bf16 at {width}, terms {terms}: compiled with {stages} "
+                        f"stages, {nbytes} B a block, {per_sm} blocks an SM; ops/packed.py "
+                        f"says {pk.BF16_RING_STAGES[name]}, {ring_bytes(width)}, 1")
+                geo[f"{width}x{terms}"] = {"stages": stages, "bytes": nbytes,
+                                           "blocks_per_sm": per_sm}
+        regs = [int(t.split("Used ")[1].split()[0])
+                for t in logs.get(f"{name}_bf16", "").splitlines() if "Used " in t]
+        spills = [int(t.split("bytes spill stores")[0].split(",")[-1])
+                  for t in logs.get(f"{name}_bf16", "").splitlines() if "spill stores" in t]
+        out[name] = {"geometry": geo, "max_registers": max(regs, default=None),
+                     "spill_store_bytes": sum(spills) if spills else None}
+    print("  bf16 ring (csrc/bf16_ring.cuh) as compiled: " + "; ".join(
+        f"{name} {next(iter(v['geometry'].values()))['stages']} stages, "
+        + ", ".join(f"{w[:-2]} channels {g['bytes']:,} B" for w, g in v["geometry"].items()
+                    if w.endswith("x1"))
+        + f" a block, 1 block an SM, <= {v['max_registers']} registers, "
+        f"{v['spill_store_bytes']} B spilled" for name, v in out.items()))
+    return out
 
 
 def phase_kernels(pk, pro_gan) -> list[dict]:
@@ -5439,6 +5477,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  [{name}] {line.strip()}")
+    bf16_ring = bf16_ring_line(pk, logs)
 
     phase_line("phase 2: generator kernels vs plain twins (batch 2, main-path shapes)")
     kernels = phase_kernels(pk, pro_gan)
@@ -5615,7 +5654,7 @@ def main() -> int:
                       "default_backward": {"train": train_default, "fast_cli": fast_cli},
                       "fused_bf16": fused_bf16, "narrow": narrow,
                       "narrow_backward": narrow_bwd, "narrow_fused": fused_narrow,
-                      "card": card},
+                      "bf16_ring": bf16_ring, "card": card},
                      allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

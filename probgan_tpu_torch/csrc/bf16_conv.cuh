@@ -8,8 +8,11 @@
 // is w_hi * x to ~2^-16. Products are summed in fp32; bias, LeakyReLU(0.2),
 // PixelNorm, the pool, the blend and tanh -> uint8 stay fp32.
 //
-// Shared by packed_conv_bf16.cu, packed_convpool_bf16.cu,
-// packed_conv_rgb_bf16.cu and packed_upconv_bf16.cu: an implicit GEMM on
+// The tile, fragments, rounding and epilogues of every bf16 kernel, and the
+// synchronous main loop (conv_bf16_tile) of packed_conv_rgb_bf16.cu and
+// packed_convpool_bf16.cu; packed_conv_bf16.cu and packed_upconv_bf16.cu run
+// the pipelined ring of bf16_ring.cuh over the same tiles and in the same
+// order of sums, fused_bf16.cuh the stage-fused pair. An implicit GEMM on
 // mma.sync.m16n8k16 with bf16 operands and fp32 accumulators. M = output
 // pixels, N = a slab of Cout (32 or 64: all Cout where PixelNorm needs it,
 // slabs of 64 for Cout 128), K = taps x input channels x terms.
@@ -36,12 +39,11 @@
 //  * Per chunk, tap and half of the chunk's channels, a warp loads the slab/8
 //    B fragments (w_hi) once and runs them against each of its m16 tiles,
 //    the x_hi then the x_lo A fragments: 1 or 2 mma a fragment.
-//  * Shared memory a block: the patch ((TH + 2) x 40 pixels, B1 (TH + 1) x
-//    24) once a term, and one chunk's weights. B2/B3/B5 at a slab of 64:
-//    78,080 bytes at "default", 110,080 at "mid"; at 32: 80,640 and 138,240;
-//    B1: 58,240 and 75,520 (Cout 64), 53,120 and 85,760 (Cout 32). Two blocks
-//    an SM (at most 128 registers a thread) but at "mid" with 32 channels,
-//    one: one block's staging overlaps the other's products.
+//  * Shared memory a block of conv_bf16_tile: the patch ((TH + 2) x 40
+//    pixels) once a term, and one chunk's weights. At a slab of 64: 78,080
+//    bytes at "default", 110,080 at "mid"; at 32: 80,640 and 138,240. Two
+//    blocks an SM (at most 128 registers a thread) but at "mid" with 32
+//    channels, one: one block's staging overlaps the other's products.
 //  * Narrow slabs: at 16 and 8 channels (fmap_base 2048 at 1024²: 16 and 8
 //    channels at 512² and 1024²) the tile keeps the 32-channel geometry
 //    (16 rows, MT = 4 m16 tiles a warp) with NT = 2 or 1 n8 tiles: 32 or 16

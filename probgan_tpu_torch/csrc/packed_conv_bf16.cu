@@ -23,131 +23,141 @@
 // TB/s): ~144 FLOP a byte a pass, under the ~295 where the tensor cores
 // would become the limit.
 //
-// Design (bf16_conv.cuh): one block a tile of 8 rows x 32 columns x a slab of
-// 64 channels (16 rows at 32), the slab fastest in the walk so that the slabs
-// of a tile run together and share its patch in L2; the patch of 10 x 40
-// pixels (one plane a term) and the chunk's 9 x slab x 32 weights in shared
-// memory as bf16, 32 input channels a chunk; each warp one row of two m16
-// tiles x eight n8 tiles. The epilogue runs on the mma fragments: the 4 lanes
-// of a quad hold all channels of two pixels and reduce PixelNorm's sum by two
-// xor shuffles; the stores of a warp fill whole 32-byte sectors (8
+// Design (bf16_ring.cuh, redesigned from bf16_conv.cuh's synchronous loop
+// with the same bits): persistent blocks, one an SM, walk tiles of 8 rows x
+// 32 columns x a slab of 64 channels (16 rows at 32, 16 and 8), the slab
+// fastest so that the slabs of a tile run side by side and share its patch
+// in L2; each tile's input channels stream 32 at a time through a ring of
+// two shared-memory stages (the fp32 patch of 10 x 40 pixels, 18 x 40 at
+// the narrower slabs, and the chunk's 9 x slab x 32 bf16 weights), filled by
+// cp.async while the products of the stage before run; the activations are
+// rounded (at "mid" split) as the A fragments are loaded. Each warp owns
+// one row of two m16 tiles x eight n8 tiles (two rows of them x 4, 2 or 1
+// n8 tiles below 64). The epilogue runs on the mma fragments: the 4 lanes
+// of a quad hold all channels of two pixels and reduce PixelNorm's sum by
+// two xor shuffles; the stores of a warp fill whole 32-byte sectors (8
 // neighbouring pixels of 4 channels). Slabs of 16 and 8 channels (a narrow
 // generator's late stages: 16 -> 16 at 512², 8 -> 8 at 1024², and their
 // training backward's input gradients, "none" 8 -> 8 and 16 -> 8 at 1024²,
 // 16 -> 16 and 32 -> 16 at 512²) keep the 16-row tile with two or one n8
-// tiles a warp, at every epilogue; C % 32 != 0 ends in a partial chunk
-// (bf16_conv.cuh).
-#include "bf16_conv.cuh"
+// tiles a warp, at every epilogue; C % 32 != 0 ends in a partial chunk,
+// staged with zeros past C.
+#include "bf16_ring.cuh"
 
 namespace probgan {
 
 template <int COUT, int NTERM, int EPI>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, 1)
     packed_conv_bf16_kernel(const float* __restrict__ x, const unsigned* __restrict__ wk,
                             const float* __restrict__ bias, float* __restrict__ y, int C, int H,
-                            int W, int n_slabs) {
-  using T = BfTile<COUT>;
-  using K = ConvBf16<COUT, NTERM>;
-  extern __shared__ __align__(16) unsigned bf16_smem[];
-  const int tiles_x = W / 32, tiles_y = H / T::TH;
-  int t = blockIdx.x;
-  const int slab = t % n_slabs;
-  t /= n_slabs;
-  const int x0 = (t % tiles_x) * 32;
-  t /= tiles_x;
-  const int y0 = (t % tiles_y) * T::TH;
-  const int b = t / tiles_y;
-  float acc[T::MT][T::NT][4];
-  conv_bf16_tile<COUT, NTERM>(acc, bf16_smem, x,
-                              wk + static_cast<size_t>(slab) * bf16_chunks(C) * K::kWWords, b,
-                              y0, x0, C, H, W);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const size_t plane = static_cast<size_t>(H) * W;
-  const float* bs = bias + slab * COUT;
-#pragma unroll
-  for (int mt = 0; mt < T::MT; ++mt) {
-    if constexpr (EPI == kLreluNorm)
-      bias_lrelu_norm_frag<T::NT>(acc[mt], bs);
-    else
-      bias_act_frag<T::NT, EPI>(acc[mt], bs);
-    float* row = y + (static_cast<size_t>(b) * n_slabs + slab) * COUT * plane +
-                 static_cast<size_t>(y0 + warp * T::RW + mt / 2) * W + x0 + 16 * (mt % 2) + g;
-#pragma unroll
-    for (int nt = 0; nt < T::NT; ++nt) {
-      float* p = row + static_cast<size_t>(8 * nt + 2 * tq) * plane;
-      p[0] = acc[mt][nt][0];
-      p[plane] = acc[mt][nt][1];
-      p[8] = acc[mt][nt][2];
-      p[plane + 8] = acc[mt][nt][3];
-    }
-  }
+                            int W, int n_slabs, int n_tiles) {
+  extern __shared__ __align__(16) float bf16_ring_smem[];
+  ConvBf16Ring<COUT, NTERM, EPI> cv(x, wk, bias, y, C, H, W, n_slabs);
+  bf16_ring_walk(cv, bf16_ring_smem, n_tiles);
 }
 
 template <int COUT, int NTERM, int EPI>
 int launch(const float* x, const unsigned* wk, const float* bias, float* y, int B, int C, int H,
-           int W, int cout, int smem, cudaStream_t stream) {
-  using K = ConvBf16<COUT, NTERM>;
+           int W, int cout, int blocks, int smem, cudaStream_t stream) {
+  using K = ConvBf16Ring<COUT, NTERM, EPI>;
   const int n_slabs = cout / COUT;
   const long long n_tiles =
       static_cast<long long>(B) * (H / BfTile<COUT>::TH) * (W / 32) * n_slabs;
   if (B < 1 || C < 8 || C % 8 || H % BfTile<COUT>::TH || W < 32 || W % 32 ||
-      cout % COUT || n_tiles > 0x7fffffff || smem != K::kBytes)
+      cout % COUT || n_tiles > 0x7fffffff || blocks < 1 || blocks > n_tiles ||
+      smem != K::kBytes || reinterpret_cast<size_t>(x) % 16)
     return cudaErrorInvalidValue;
   const auto kernel = packed_conv_bf16_kernel<COUT, NTERM, EPI>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(n_tiles), kThreads, smem, stream>>>(x, wk, bias, y, C, H, W,
-                                                                      n_slabs);
+  kernel<<<blocks, kThreads, smem, stream>>>(x, wk, bias, y, C, H, W, n_slabs,
+                                             static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The geometry the ring was compiled with at a slab of COUT channels:
+// {stages, bytes a block, blocks an SM at those bytes}.
+template <int COUT, int NTERM>
+int geometry(int* out) {
+  using K = ConvBf16Ring<COUT, NTERM, kLrelu>;
+  const auto kernel = packed_conv_bf16_kernel<COUT, NTERM, kLrelu>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K::kBytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, kernel, kThreads, K::kBytes);
+  out[0] = K::kStages;
+  out[1] = K::kBytes;
+  return static_cast<int>(err);
 }
 
 // A slab of the largest of 64, 32, 16 and 8 channels that divides Cout
 // (ops/packed.py _pool_slab); PixelNorm needs all Cout in one slab.
 template <int NTERM, int EPI>
 int launch_slab(const float* x, const unsigned* wk, const float* bias, float* y, int B, int C,
-                int H, int W, int cout, int smem, cudaStream_t stream) {
+                int H, int W, int cout, int blocks, int smem, cudaStream_t stream) {
   if (cout <= 0 || cout % 8 ||
       (EPI == kLreluNorm && cout != 8 && cout != 16 && cout != 32 && cout != 64))
     return cudaErrorInvalidValue;
-  if (cout % 64 == 0) return launch<64, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
-  if (cout % 32 == 0) return launch<32, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
-  if (cout % 16 == 0) return launch<16, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
-  return launch<8, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
+  if (cout % 64 == 0)
+    return launch<64, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, blocks, smem, stream);
+  if (cout % 32 == 0)
+    return launch<32, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, blocks, smem, stream);
+  if (cout % 16 == 0)
+    return launch<16, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, blocks, smem, stream);
+  return launch<8, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, blocks, smem, stream);
 }
 
 template <int NTERM>
 int launch_epilogue(const float* x, const unsigned* wk, const float* bias, float* y, int B,
-                    int C, int H, int W, int cout, int epilogue, int smem, cudaStream_t stream) {
+                    int C, int H, int W, int cout, int epilogue, int blocks, int smem,
+                    cudaStream_t stream) {
   if (epilogue == kLreluNorm)
-    return launch_slab<NTERM, kLreluNorm>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
+    return launch_slab<NTERM, kLreluNorm>(x, wk, bias, y, B, C, H, W, cout, blocks, smem, stream);
   if (epilogue == kLrelu)
-    return launch_slab<NTERM, kLrelu>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
+    return launch_slab<NTERM, kLrelu>(x, wk, bias, y, B, C, H, W, cout, blocks, smem, stream);
   if (epilogue == kNone)
-    return launch_slab<NTERM, kNone>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
+    return launch_slab<NTERM, kNone>(x, wk, bias, y, B, C, H, W, cout, blocks, smem, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace probgan
 
-// x [B][C][H][W] fp32, wk [Cout/slab][ceil(C/32)][9][slab][40] bf16
-// (ops/packed.py conv_bf16_weights: eq-LR scaled, rounded to bf16, taps
+// x [B][C][H][W] fp32, 16-byte aligned, wk [Cout/slab][ceil(C/32)][9][slab][40]
+// bf16 (ops/packed.py conv_bf16_weights: eq-LR scaled, rounded to bf16, taps
 // ky*3 + kx, 8 zeros after each run of 32 input channels, zeros past C),
 // bias [Cout] -> y [B][Cout][H][W]; terms 1 ("default") or 2 ("mid");
 // epilogue 0 "lrelu_norm" (Cout 8, 16, 32 or 64), 1 "lrelu" (Cout a
 // multiple of 8), 2 "none" (Cout a multiple of 8); C % 8 == 0,
-// H % (8 at a slab of 64, else 16) == 0, W % 32 == 0; smem the block's dynamic shared memory in
-// bytes (ops/packed.py bf16_conv_bytes, checked against the kernel's).
-// Returns the cudaError_t of the launch (0 = launched).
+// H % (8 at a slab of 64, else 16) == 0, W % 32 == 0; blocks the persistent
+// blocks (1 .. tiles; ops/packed.py persistent_blocks), smem the block's
+// dynamic shared memory in bytes (ops/packed.py bf16_ring_bytes, checked
+// against the kernel's). Returns the cudaError_t of the launch (0 = launched).
 extern "C" int probgan_packed_conv_bf16(const float* x, const void* wk, const float* bias,
                                         float* y, int B, int C, int H, int W, int cout,
-                                        int terms, int epilogue, int smem, void* stream) {
+                                        int terms, int epilogue, int blocks, int smem,
+                                        void* stream) {
   using namespace probgan;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto w = static_cast<const unsigned*>(wk);
-  if (terms == 1) return launch_epilogue<1>(x, w, bias, y, B, C, H, W, cout, epilogue, smem, s);
-  if (terms == 2) return launch_epilogue<2>(x, w, bias, y, B, C, H, W, cout, epilogue, smem, s);
+  if (terms == 1)
+    return launch_epilogue<1>(x, w, bias, y, B, C, H, W, cout, epilogue, blocks, smem, s);
+  if (terms == 2)
+    return launch_epilogue<2>(x, w, bias, y, B, C, H, W, cout, epilogue, blocks, smem, s);
+  return cudaErrorInvalidValue;
+}
+
+// out[3] = {stages, bytes a block, blocks an SM} of the ring at a slab of
+// `slab` channels (8, 16, 32 or 64) and `terms` terms, as compiled.
+extern "C" int probgan_packed_conv_bf16_geometry(int slab, int terms, int* out) {
+  using namespace probgan;
+#define PROBGAN_GEOMETRY(S) \
+  if (slab == S) return terms == 1 ? geometry<S, 1>(out) : geometry<S, 2>(out);
+  if (terms != 1 && terms != 2) return cudaErrorInvalidValue;
+  PROBGAN_GEOMETRY(64)
+  PROBGAN_GEOMETRY(32)
+  PROBGAN_GEOMETRY(16)
+  PROBGAN_GEOMETRY(8)
+#undef PROBGAN_GEOMETRY
   return cudaErrorInvalidValue;
 }

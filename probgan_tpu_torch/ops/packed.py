@@ -41,8 +41,10 @@ and "mid", the 2-term split of the "fast" discriminator and of the train
 step at ``packed_train_mode="mid"``: the weights rounded to bf16, the
 activations split as ``bf16(x) + bf16(x - bf16(x))`` (``split2``), so that a
 dot is the rounded weights times x to ~2^-16, summed in fp32. On the card
-each bf16 mode is a kernel of its own (``csrc/*_bf16.cu`` over
-``csrc/bf16_conv.cuh``, and for the stage-fused pair ``csrc/fused_bf16.cuh``;
+each bf16 mode is a kernel of its own (``csrc/*_bf16.cu``: ``packed_upconv``
+and ``packed_conv`` over the pipelined ring of ``csrc/bf16_ring.cuh``, the
+others over ``csrc/bf16_conv.cuh``, and for the stage-fused pair
+``csrc/fused_bf16.cuh``;
 bf16 tensor-core products, the two terms two products at "mid"); the twins
 round or split the same operands and run fp32 convs. ``packed_conv_wgrad``
 takes "default" (``csrc/packed_conv_wgrad_bf16.cu``, both operands rounded)
@@ -134,8 +136,9 @@ _ARGTYPES = {
     "packed_upconv_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_upconv_conv_rgb": [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "packed_upconv_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "packed_conv_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "packed_upconv_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _P],
+    "packed_conv_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv_rgb_bf16": [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _I,
                              _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_convpool_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -151,6 +154,10 @@ BF16_TERMS = {"default": 1, "mid": 2}
 # The bf16 kernels (csrc/bf16_conv.cuh): input channels a shared-memory chunk,
 # and bf16 a staged pixel or weight row (the chunk's channels, then 8 zeros).
 BF16_CK, BF16_ROW = 32, 40
+# The pipelined bf16 ring of packed_conv and packed_upconv (csrc/bf16_ring.cuh):
+# stages, and floats a row of a stage's fp32 patch, of each.
+BF16_RING_STAGES = {"packed_conv": 2, "packed_upconv": 3}
+BF16_RING_ROW = {"packed_conv": 40, "packed_upconv": 24}
 # Output channel counts the kernels are instantiated for (csrc/conv_tile.cuh
 # Tile, csrc/bf16_conv.cuh BfTile). PixelNorm needs every channel in one
 # block, so "lrelu_norm" and packed_conv_rgb take only these; without it
@@ -365,19 +372,51 @@ def upconv_bf16_weights(w: torch.Tensor) -> torch.Tensor:
 
 
 def bf16_conv_bytes(cout: int, terms: int = 1) -> int:
-    """Dynamic shared memory of a packed_conv_bf16 / packed_conv_rgb_bf16 /
-    packed_convpool_bf16 block (ConvBf16::kBytes) for a slab of
+    """Dynamic shared memory of a packed_conv_rgb_bf16 / packed_convpool_bf16
+    block (ConvBf16::kBytes) for a slab of
     ``_pool_slab(cout)`` channels: the bf16 patch, tile rows + 2 x 40 columns
     x 40, once a term, and one chunk's weights, 9 x slab x 40."""
     slab = _pool_slab(cout)
     return 2 * BF16_ROW * (terms * (_tile_rows(slab) + 2) * 40 + 9 * slab)
 
 
-def bf16_upconv_bytes(cout: int, terms: int = 1) -> int:
-    """Dynamic shared memory of a packed_upconv_bf16 block (UpconvBf16::
-    kBytes): the bf16 patch, tile rows + 1 x 24 columns x 40, once a term,
-    and one parity's chunk of taps, 2 x 4 x Cout x 40."""
-    return 2 * BF16_ROW * (terms * (_tile_rows(cout) + 1) * 24 + 8 * cout)
+def _bf16_ring_bytes(name: str, rows: int, taps: int) -> int:
+    stage = BF16_CK * (rows * BF16_RING_ROW[name] + 4) + taps * BF16_ROW // 2
+    return 4 * BF16_RING_STAGES[name] * stage
+
+
+def bf16_ring_bytes(cout: int) -> int:
+    """Dynamic shared memory of a packed_conv_bf16 block (csrc/bf16_ring.cuh
+    ConvBf16Ring::kBytes) at a slab of ``_pool_slab(cout)`` channels, the same
+    at both term counts: 2 stages of one 32-channel chunk, each its fp32 halo
+    patch (tile rows + 2 rows of 40 floats, 4 more a channel) and its 9 x
+    slab x 40 bf16 weights."""
+    slab = _pool_slab(cout)
+    return _bf16_ring_bytes("packed_conv", _tile_rows(slab) + 2, 9 * slab)
+
+
+def bf16_upconv_ring_bytes(cout: int) -> int:
+    """Dynamic shared memory of a packed_upconv_bf16 block (csrc/bf16_ring.cuh
+    UpconvBf16Ring::kBytes), the same at both term counts: 3 stages of one
+    32-channel chunk, each its fp32 patch (tile rows + 1 rows of 24 floats, 4
+    more a channel) and one parity's 2 x 4 x Cout x 40 bf16 taps."""
+    return _bf16_ring_bytes("packed_upconv", _tile_rows(cout) + 1, 8 * cout)
+
+
+def bf16_ring_geometry(name: str, cout: int, terms: int) -> tuple[int, int, int]:
+    """(stages, bytes a block, resident blocks an SM) of the bf16 ring of
+    ``name`` ("packed_conv" at a slab of ``cout`` channels, "packed_upconv"
+    at Cout ``cout``) as the card's library was compiled: the C entry
+    probgan_<name>_bf16_geometry of csrc/<name>_bf16.cu. Builds the library
+    if needed; on the card only."""
+    lib = _build.load(f"{name}_bf16")
+    fn = getattr(lib, f"probgan_{name}_bf16_geometry")
+    fn.argtypes, fn.restype = [_I, _I, ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    err = fn(cout, terms, out)
+    if err:
+        raise RuntimeError(f"{name}_bf16 geometry: CUDA error {err}")
+    return tuple(out)
 
 
 def _check_fused_bf16_channels(name: str, x: torch.Tensor, mode: str) -> None:
@@ -463,10 +502,13 @@ def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm", mod
             rgb_w, rgb_b = _bf16(rgb_w.reshape(3, c)).contiguous(), rgb_b.contiguous()
             rgb = torch.empty((bsz, 3, h, wd), device=x.device, dtype=x.dtype)
         # named, so that nothing the kernel reads is freed before it runs
-        wk, b = upconv_bf16_weights(w), b.contiguous()
+        wk, b, x = upconv_bf16_weights(w), b.contiguous(), _aligned16(x)
+        smem = bf16_upconv_ring_bytes(cout)
+        blocks = persistent_blocks(upconv_tile_count(bsz, cout, h, wd), _sms(x.device),
+                                   ring_blocks_per_sm(smem))
         _bf16_launch(name, terms, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),
                      _ptr(y), _ptr(rgb), bsz, c, h, wd, cout, terms, UPCONV_EPILOGUES[epilogue],
-                     bf16_upconv_bytes(cout, terms), epilogue=epilogue, slab=cout)
+                     blocks, smem, epilogue=epilogue, slab=cout)
         return y if rgb is None else (y, rgb)
     wk = upconv_kernel_weights(w)
     b = b.contiguous()
@@ -651,10 +693,13 @@ def packed_conv(x, w, b, epilogue="lrelu_norm", mode="high"):
     bsz, c, h, wd = x.shape
     if terms:
         y = torch.empty((bsz, cout, h, wd), device=x.device, dtype=x.dtype)
-        wk, b = conv_bf16_weights(w, slab), b.contiguous()
+        wk, b, x = conv_bf16_weights(w, slab), b.contiguous(), _aligned16(x)
+        smem = bf16_ring_bytes(cout)
+        blocks = persistent_blocks(conv_tile_count(bsz, cout, h, wd), _sms(x.device),
+                                   ring_blocks_per_sm(smem))
         _bf16_launch(name, terms, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
-                     terms, CONV_EPILOGUES[epilogue], bf16_conv_bytes(cout, terms),
-                     epilogue=epilogue, slab=slab)
+                     terms, CONV_EPILOGUES[epilogue], blocks, smem, epilogue=epilogue,
+                     slab=slab)
         return y
     # one slab for Cout 8, 16, 32 or 64: then this is conv_kernel_weights(w)
     wk = convpool_kernel_weights(w)

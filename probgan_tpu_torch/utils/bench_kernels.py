@@ -46,9 +46,17 @@ one CUDA card, in parts (``--parts``, all by default):
   (fmap_base 2048, fmap_max 256; packed stages 6-8): ``packed_upconv``
   32 -> 16 and 16 -> 8 (with toRGB), ``packed_conv`` "lrelu_norm" 16 -> 16
   and "lrelu" 8 -> 8 and 16 -> 16, ``packed_conv_rgb`` 8 -> 8 (uint8) and
-  ``packed_convpool`` 8 -> 16 and 16 -> 32, at batch 2 and 8, each at "high",
+  ``packed_convpool`` 8 -> 16 and 16 -> 32, and ``packed_conv`` "none" at
+  its four shapes in N's train step, at batch 2 and 8, each at "high",
   "default" and "mid", beside ``F.conv2d`` with the torch epilogue (fp32 with
   TF32 off; on bf16 tensors at "default"; the bf16-rounded weights at "mid").
+
+Each B1 ``packed_upconv`` and B2 ``packed_conv`` row of ``bf16``, ``mid``,
+``bwd`` and ``narrow`` also gives ``alone_ms``, the kernel launch alone (the
+wrapper's bf16 weights prepared once, outside the timed window: one call
+records the C launch and keeps what it was handed alive, then only that
+launch is timed), and ``library_ms``, ``F.conv2d`` with the torch epilogue
+on bf16 tensors at "default" and with the bf16-rounded weights at "mid".
 
 ``--dump DIR`` saves each ``none``, ``fp32``, ``bf16``, ``mid``, ``bwd``,
 ``fused`` and ``narrow`` output, made from fixed seeds, to ``DIR/<shape>.pt`` (and with ``rank`` the
@@ -190,12 +198,15 @@ BWD_SHAPES = (
                          (128, 64, 512), (64, 32, 1024))),
 )
 # (kernel, epilogue or emit, C, Cout, H): the narrow generator's launches at
-# 16 and 8 channels (H: B1's input), at batch 2 and 8 and each kernel mode
+# 16 and 8 channels (H: B1's input), its train step's input gradients ("none")
+# last, at batch 2 and 8 and each kernel mode
 NARROW_SHAPES = (
     ("packed_upconv", "lrelu_norm", 32, 16, 256), ("packed_upconv", "rgb", 16, 8, 512),
     ("packed_conv", "lrelu_norm", 16, 16, 512), ("packed_conv", "lrelu", 8, 8, 1024),
     ("packed_conv", "lrelu", 16, 16, 512), ("packed_conv_rgb", "uint8", 8, 8, 1024),
     ("packed_convpool", "lrelu", 8, 16, 1024), ("packed_convpool", "lrelu", 16, 32, 512),
+    ("packed_conv", "none", 8, 8, 1024), ("packed_conv", "none", 16, 8, 1024),
+    ("packed_conv", "none", 16, 16, 512), ("packed_conv", "none", 32, 16, 512),
 )
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, CUDA cores
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, tensor cores, dense bf16
@@ -213,6 +224,83 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def alone_ms(pk, call, iters: int = 10) -> float:
+    """ms of the kernel launches that one ``call`` of a wrapper makes, timed
+    alone: the call runs once with ``_build.launch`` recording its arguments
+    and with the bf16 weights (``conv_bf16_weights``, ``upconv_bf16_weights``,
+    ``_bf16``) it hands the kernel kept alive; then only the recorded
+    launches run in the timed window. Works on any tree whose wrappers launch
+    through ``_build.launch``."""
+    from probgan_tpu_torch.ops import _build
+
+    real = _build.launch
+    recorded, kept = [], []
+    patched = {n: getattr(pk, n) for n in ("conv_bf16_weights", "upconv_bf16_weights", "_bf16")}
+
+    def keep(fn):
+        def kept_fn(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            kept.append(out)
+            return out
+        return kept_fn
+
+    def record(*args):
+        recorded.append(args)
+        real(*args)
+    try:
+        _build.launch = record
+        for n, fn in patched.items():
+            setattr(pk, n, keep(fn))
+        with torch.no_grad():
+            kept.append(call())
+    finally:
+        _build.launch = real
+        for n, fn in patched.items():
+            setattr(pk, n, fn)
+    assert recorded, "the call launched no kernel"
+
+    def replay():
+        for args in recorded:
+            real(*args)
+    return cuda_ms(replay, iters=iters)
+
+
+def conv_library(kernel: str, epi: str, mode: str, x, w, b, rgb_w=None, rgb_b=None):
+    """One cuDNN ``F.conv2d`` (after a nearest-2x upsample for B1) with the
+    torch epilogue, the function of ``kernel`` at the bf16 ``mode``: bf16
+    tensors at "default", the bf16-rounded weights in fp32 (TF32 off) at
+    "mid"; with ``rgb_w`` also B1's toRGB of the input."""
+    import torch.nn.functional as F
+
+    from probgan_tpu_torch.models import pro_gan
+
+    dtype = torch.bfloat16 if mode == "default" else torch.float32
+    xl, bl, wl = x.to(dtype), b.to(dtype), w.to(torch.bfloat16).to(dtype)
+
+    def act(y):
+        if epi == "lrelu_norm":
+            return pro_gan.pixel_norm(pro_gan.lrelu(y.float()))
+        return pro_gan.lrelu(y) if epi == "lrelu" else y
+
+    def library():
+        src = F.interpolate(xl, scale_factor=2.0) if kernel == "packed_upconv" else xl
+        y = act(F.conv2d(src, wl, bl, padding=1))
+        if rgb_w is None:
+            return y
+        return y, F.conv2d(xl, rgb_w.to(dtype)[:, :, None, None], rgb_b.to(dtype))
+    return library
+
+
+def b1_b2_extra(pk, kernel: str, epi: str, mode: str, call, x, w, b, rgb_w=None,
+                rgb_b=None) -> dict:
+    """``alone_ms`` and ``library_ms`` of a B1 / B2 row at a bf16 mode."""
+    if kernel not in ("packed_upconv", "packed_conv"):
+        return {}
+    library = conv_library(kernel, epi, mode, x, w, b, rgb_w, rgb_b)
+    with torch.no_grad():
+        return {"alone_ms": alone_ms(pk, call), "library_ms": cuda_ms(library, iters=10)}
 
 
 def bench_fp32(pk, dump: Path | None) -> dict:
@@ -312,9 +400,11 @@ def bench_bf16(pk, dump: Path | None) -> dict:
             if dump is not None:
                 torch.save([t.cpu() for t in ys], dump / f"bf16_{label}.pt")
             ms = cuda_ms(call, iters=10)
+        rgb = kw if kernel == "packed_upconv" else {}
+        extra = b1_b2_extra(pk, kernel, "lrelu_norm", "default", call, x, w, b, **rgb)
         bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
         out[label] = {"ms": ms, "bound_ms": bound_ms, "roofline_share": bound_ms / ms,
-                      "sha256": digest.hexdigest()}
+                      "sha256": digest.hexdigest(), **extra}
         del x, y, ys
     return out
 
@@ -368,9 +458,12 @@ def bench_mid(pk, dump: Path | None) -> dict:
             if dump is not None:
                 torch.save([t.cpu() for t in ys], dump / f"mid_{label}.pt")
             ms = cuda_ms(call, iters=10)
+        rgb = ({k: v for k, v in kw.items() if k.startswith("rgb")}
+               if kernel == "packed_upconv" else {})
+        extra = b1_b2_extra(pk, kernel, epi, "mid", call, x, w, b, **rgb)
         bound_ms = max(2 * flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
         out[label] = {"ms": ms, "bound_ms": bound_ms, "roofline_share": bound_ms / ms,
-                      "sha256": digest.hexdigest()}
+                      "sha256": digest.hexdigest(), **extra}
         del x, y, ys
     return out
 
@@ -441,7 +534,8 @@ def bench_narrow(pk, dump: Path | None) -> dict:
 
             def library(xl=xl, wl=wl, bl=bl, epi=epi, pool=pool):
                 y = F.conv2d(xl, wl, bl, padding=1)
-                y = lrelu_norm(y) if epi == "lrelu_norm" else pro_gan.lrelu(y)
+                if epi != "none":
+                    y = lrelu_norm(y) if epi == "lrelu_norm" else pro_gan.lrelu(y)
                 return F.avg_pool2d(y, 2) if pool else y
             flops = 2 * 9 * c * cout * bsz * h * h
             nbytes = 4 * bsz * h * h * (c + cout // (4 if pool else 1))
@@ -456,11 +550,13 @@ def bench_narrow(pk, dump: Path | None) -> dict:
                 torch.save([t.cpu() for t in ys], dump / f"narrow_{label}.pt")
             ms = cuda_ms(call, iters=10)
             lib_ms = cuda_ms(library, iters=10)
+        extra = ({"alone_ms": alone_ms(pk, call)}
+                 if mode != "high" and kernel in ("packed_upconv", "packed_conv") else {})
         peak, passes = ((PEAK_FP32_FLOPS, 1) if mode == "high"
                         else (PEAK_BF16_FLOPS, 2 if mode == "mid" else 1))
         bound_ms = max(passes * flops / peak, nbytes / PEAK_HBM_BYTES) * 1e3
         out[label] = {"ms": ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-                      "roofline_share": bound_ms / ms, "sha256": digest.hexdigest()}
+                      "roofline_share": bound_ms / ms, "sha256": digest.hexdigest(), **extra}
         del x, y, ys, xl
     return out
 
@@ -506,6 +602,8 @@ def bench_bwd(pk, dump: Path | None) -> dict:
             if dump is not None:
                 torch.save([y.cpu()], dump / f"bwd_{label}.pt")
             ms = cuda_ms(call, iters=10)
+        if kernel != "packed_conv_wgrad":
+            extra.update(b1_b2_extra(pk, kernel, epi, "default", call, x, w, b))
         bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
         out[label] = {"ms": ms, "bound_ms": bound_ms, "roofline_share": bound_ms / ms,
                       "sha256": digest.hexdigest(), **extra}

@@ -181,9 +181,10 @@ def test_bf16_weight_layouts_and_shared_memory():
     (csrc/packed_conv_bf16.cu, packed_upconv_bf16.cu): word pairs of bf16
     [C/32][tap][Cout][40] with the 8 pad entries zero, the upconv's taps
     pre-summed in fp32 and then rounded; the shared memory the wrappers pass
-    is the kernels' (ConvBf16 / UpconvBf16::kBytes, worked from bf16_conv.cuh:
-    (TH + 2) x 40 and (TH + 1) x 24 patch pixels of 80 bytes, Cout x 9 or 8
-    taps of 80 bytes)."""
+    is the kernels' (ConvBf16::kBytes of B3/B5, worked from bf16_conv.cuh:
+    (TH + 2) x 40 patch pixels of 80 bytes, Cout x 9 taps of 80 bytes; and
+    the rings of B2/B1, bf16_ring.cuh ConvBf16Ring / UpconvBf16Ring::kBytes,
+    the figures its note states)."""
     cout, c = 8, 64
     w = torch.from_numpy(_rand((cout, c, 3, 3), 40))
     got = tpk.conv_bf16_weights(w).float()
@@ -197,7 +198,8 @@ def test_bf16_weight_layouts_and_shared_memory():
             torch.bfloat16).float()
     assert not up[..., 32:].any() and tuple(up.shape) == (2, 2, 2, 4, cout, 40)
     assert [tpk.bf16_conv_bytes(co) for co in (64, 32)] == [78_080, 80_640]
-    assert [tpk.bf16_upconv_bytes(co) for co in (64, 32)] == [58_240, 53_120]
+    assert [tpk.bf16_ring_bytes(co) for co in (64, 32)] == [195_584, 231_424]
+    assert [tpk.bf16_upconv_ring_bytes(co) for co in (64, 32)] == [207_360, 219_648]
 
 
 # -- the "fast" grade end to end ---------------------------------------------

@@ -219,7 +219,7 @@ def test_narrow_wrappers_launch_the_narrow_kernels(recorded):
     assert conv[-6:] == (16, 0, 16, 16, 264, tpk.conv_ring_bytes(16))
     assert rgb[-2:] == (264, tpk.conv_ring_bytes(8))
     bf16 = recorded[-1][1]
-    assert bf16[-4:] == (16, 1, 0, tpk.bf16_upconv_bytes(16, 1))
+    assert bf16[-5:] == (16, 1, 0, 132, tpk.bf16_upconv_ring_bytes(16))
     assert tpk.narrow_launches == {
         "packed_upconv[cout8]": 1, "packed_conv[cout16]": 1, "packed_conv_rgb[cout8]": 1,
         "packed_convpool[cout16]": 1, "packed_conv_mid[cout8]": 1,
@@ -253,8 +253,9 @@ def test_narrow_layouts_and_shared_memory():
     """The bf16 weights of C 8 and 16: one chunk, the channels past C zero;
     a chunk of 32 is laid out as before. The bytes the wrappers pass are the
     kernels' (ConvRing / UpconvRing::kBytes: 3 stages of 8 channels, 16-row
-    tiles, the figures csrc/conv_ring.cuh states; ConvBf16 / UpconvBf16::
-    kBytes at 16 rows); the narrow rings fit two blocks an SM."""
+    tiles, the figures csrc/conv_ring.cuh states; ConvBf16::kBytes at 16
+    rows; the bf16 rings of B1 and B2, bf16_ring.cuh, at 16 rows); the narrow
+    fp32 rings fit two blocks an SM."""
     w = torch.randn(8, 16, 3, 3)
     cw = tpk.conv_bf16_weights(w).float()
     assert tuple(cw.shape) == (1, 9, 8, 40) and not cw[..., 16:].any()
@@ -278,8 +279,8 @@ def test_narrow_layouts_and_shared_memory():
         for terms in (1, 2):
             assert tpk.bf16_conv_bytes(cout, terms) == 4 * (terms * 18 * 8 * 5 * 20
                                                             + 9 * cout * 20)
-            assert tpk.bf16_upconv_bytes(cout, terms) == 4 * (terms * 17 * 8 * 3 * 20
-                                                              + 8 * cout * 20)
+        assert tpk.bf16_upconv_ring_bytes(cout) == 4 * 3 * (32 * (17 * 24 + 4) + 8 * cout * 20)
+        assert tpk.bf16_ring_bytes(cout) == 4 * 2 * (32 * (18 * 40 + 4) + 9 * cout * 20)
     assert [tpk.ring_blocks_per_sm(tpk.conv_ring_bytes(c)) for c in (32, 64)] == [1, 1]
     assert [tpk.conv_tiling(c) for c in (8, 16, 24, 48, 96)] == [(8, 16), (16, 16), (8, 16),
                                                                 (16, 16), (32, 16)]

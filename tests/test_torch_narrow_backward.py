@@ -146,10 +146,12 @@ def test_none_wrappers_hand_the_kernels_the_narrow_slabs(recorded, mode):
         slab = min(cout, 16)
         x, wk = args[0], args[1]
         assert tuple(x.shape) == (2, c, h, h) and args[4:9] == (2, c, h, h, cout)
-        if terms:  # (..., cout, terms, epilogue or act, smem)
+        if terms and kernel == "packed_conv":  # (..., cout, terms, epilogue, blocks, smem)
             assert tuple(wk.shape) == (cout // slab, 1, 9, slab, tpk.BF16_ROW)
-            assert args[9:] == (terms, 2 if kernel == "packed_conv" else 0,
-                                tpk.bf16_conv_bytes(cout, terms))
+            assert args[9:] == (terms, 2, 132, tpk.bf16_ring_bytes(cout))
+        elif terms:  # (..., cout, terms, act, smem)
+            assert tuple(wk.shape) == (cout // slab, 1, 9, slab, tpk.BF16_ROW)
+            assert args[9:] == (terms, 0, tpk.bf16_conv_bytes(cout, terms))
         elif kernel == "packed_conv":  # (..., epilogue, o_slab, rows, blocks, smem)
             assert tuple(wk.shape) == (cout // slab, c, 3, 3, slab)
             assert args[9:] == (2, slab, 16, 132, tpk.none_ring_bytes(cout))
