@@ -10,10 +10,11 @@ Phases (any failure exits non-zero and prints no result line):
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the build of every kernel from ``probgan_tpu_torch/csrc`` with nvcc
    (one process per source, all at once), with ptxas's register report; the
-   pipelined bf16 loop of B1/B2 (``csrc/bf16_ring.cuh``) as compiled: its
+   pipelined bf16 loop of B1/B2/B5 (``csrc/bf16_ring.cuh``) as compiled: its
    stages, bytes a block and resident blocks an SM at each width and term
    count (equal to ``ops/packed.py``'s figures: one block an SM), and the
-   two kernels' registers and spill bytes;
+   three kernels' registers and spill bytes, with B5's fp32 ring's
+   (``ConvPoolRing``) beside them;
 2. each late-stage generator kernel at the shapes the 1024² generator gives
    it (batch 2), held against its plain PyTorch twin on the card with TF32
    off: fp32 outputs to atol = rtol = 1e-4, uint8 outputs within +-1 on at
@@ -506,13 +507,24 @@ def pool_in_b5_order(y: torch.Tensor) -> torch.Tensor:
     return 0.5 * (0.5 * (a00 + a10) + 0.5 * (a01 + a11))
 
 
+def ptxas_most(log: str) -> tuple[int | None, int | None]:
+    """The most registers a thread and the spill-store bytes in all of one
+    library's instantiations, from its ``nvcc -Xptxas -v`` log."""
+    regs = [int(t.split("Used ")[1].split()[0]) for t in log.splitlines() if "Used " in t]
+    spills = [int(t.split("bytes spill stores")[0].split(",")[-1])
+              for t in log.splitlines() if "spill stores" in t]
+    return max(regs, default=None), sum(spills) if spills else None
+
+
 def bf16_ring_line(pk, logs: dict) -> dict:
-    """The bf16 ring of B1 and B2 as the card's libraries were compiled:
+    """The bf16 ring of B1, B2 and B5 as the card's libraries were compiled:
     (stages, bytes a block, blocks an SM) at each width and term count, held
     to ops/packed.py's stages and bytes and to one block an SM; and the most
-    registers and spill bytes of the two kernels' instantiations (ptxas)."""
+    registers and spill bytes of each kernel's instantiations (ptxas), B5's
+    fp32 ring (csrc/packed_convpool.cu) beside them."""
     out = {}
     for name, ring_bytes in (("packed_conv", pk.bf16_ring_bytes),
+                             ("packed_convpool", pk.bf16_ring_bytes),
                              ("packed_upconv", pk.bf16_upconv_ring_bytes)):
         geo = {}
         for width in (64, 32, 16, 8):
@@ -525,18 +537,22 @@ def bf16_ring_line(pk, logs: dict) -> dict:
                         f"says {pk.BF16_RING_STAGES[name]}, {ring_bytes(width)}, 1")
                 geo[f"{width}x{terms}"] = {"stages": stages, "bytes": nbytes,
                                            "blocks_per_sm": per_sm}
-        regs = [int(t.split("Used ")[1].split()[0])
-                for t in logs.get(f"{name}_bf16", "").splitlines() if "Used " in t]
-        spills = [int(t.split("bytes spill stores")[0].split(",")[-1])
-                  for t in logs.get(f"{name}_bf16", "").splitlines() if "spill stores" in t]
-        out[name] = {"geometry": geo, "max_registers": max(regs, default=None),
-                     "spill_store_bytes": sum(spills) if spills else None}
+        regs, spills = ptxas_most(logs.get(f"{name}_bf16", ""))
+        out[name] = {"geometry": geo, "max_registers": regs, "spill_store_bytes": spills}
     print("  bf16 ring (csrc/bf16_ring.cuh) as compiled: " + "; ".join(
         f"{name} {next(iter(v['geometry'].values()))['stages']} stages, "
         + ", ".join(f"{w[:-2]} channels {g['bytes']:,} B" for w, g in v["geometry"].items()
                     if w.endswith("x1"))
         + f" a block, 1 block an SM, <= {v['max_registers']} registers, "
         f"{v['spill_store_bytes']} B spilled" for name, v in out.items()))
+    regs, spills = ptxas_most(logs.get("packed_convpool", ""))
+    out["packed_convpool_fp32"] = {
+        "bytes": {cout: pk.conv_ring_bytes(cout) for cout in (64, 32, 16, 8)},
+        "blocks_per_sm": {cout: pk.ring_blocks_per_sm(pk.conv_ring_bytes(cout))
+                          for cout in (64, 32, 16, 8)},
+        "max_registers": regs, "spill_store_bytes": spills}
+    print(f"  packed_convpool on the fp32 ring (csrc/conv_ring.cuh ConvPoolRing): "
+          f"<= {regs} registers, {spills} B spilled")
     return out
 
 

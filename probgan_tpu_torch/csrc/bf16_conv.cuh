@@ -9,8 +9,8 @@
 // PixelNorm, the pool, the blend and tanh -> uint8 stay fp32.
 //
 // The tile, fragments, rounding and epilogues of every bf16 kernel, and the
-// synchronous main loop (conv_bf16_tile) of packed_conv_rgb_bf16.cu and
-// packed_convpool_bf16.cu; packed_conv_bf16.cu and packed_upconv_bf16.cu run
+// synchronous main loop (conv_bf16_tile) of packed_conv_rgb_bf16.cu;
+// packed_conv_bf16.cu, packed_convpool_bf16.cu and packed_upconv_bf16.cu run
 // the pipelined ring of bf16_ring.cuh over the same tiles and in the same
 // order of sums, fused_bf16.cuh the stage-fused pair. An implicit GEMM on
 // mma.sync.m16n8k16 with bf16 operands and fp32 accumulators. M = output
@@ -21,10 +21,11 @@
 //    parities), TH = 8 at a slab of 64 and 16 at 32, and one slab. A warp
 //    owns MT = TH/4 m16 tiles x all slab/8 n8 tiles: 64 fp32 sums a thread.
 //    An m16 tile is one row of 16 columns (kRow16: B2, B3; B1: 16 input
-//    columns of one parity) or, for B5's pool, two rows of 8 columns
-//    (kPool2x8), so that the lane holding pixel g also holds pixel g + 8
-//    below it: a 2x2 window's vertical pair is d[0] + d[2] in one thread,
-//    its horizontal pair one xor shuffle of 4 lanes.
+//    columns of one parity) or, for B5's pool (bf16_ring.cuh
+//    ConvPoolBf16Ring), two rows of 8 columns (kPool2x8), so that the lane
+//    holding pixel g also holds pixel g + 8 below it: a 2x2 window's
+//    vertical pair is d[0] + d[2] in one thread, its horizontal pair one xor
+//    shuffle of 4 lanes.
 //  * Input channels go through shared memory kCK = 32 at a time. The block
 //    stages its halo patch, rounding (at "mid": splitting) each fp32 value
 //    as it goes, into [row][column][channel] order (channels innermost, 40
@@ -39,7 +40,7 @@
 //  * Per chunk, tap and half of the chunk's channels, a warp loads the slab/8
 //    B fragments (w_hi) once and runs them against each of its m16 tiles,
 //    the x_hi then the x_lo A fragments: 1 or 2 mma a fragment.
-//  * Shared memory a block of conv_bf16_tile: the patch ((TH + 2) x 40
+//  * Shared memory a block of conv_bf16_tile (B3): the patch ((TH + 2) x 40
 //    pixels) once a term, and one chunk's weights. At a slab of 64: 78,080
 //    bytes at "default", 110,080 at "mid"; at 32: 80,640 and 138,240. Two
 //    blocks an SM (at most 128 registers a thread) but at "mid" with 32
@@ -248,7 +249,7 @@ __device__ __forceinline__ void bias_act_frag(float (&acc)[NT][4], const float* 
     }
 }
 
-// B2, B3 and B5: a tile of TH rows x 32 columns, its halo patch (rows y0 - 1
+// B3: a tile of TH rows x 32 columns, its halo patch (rows y0 - 1
 // .. y0 + TH, columns x0 - 4 .. x0 + 35, whole groups of 8) once a term and
 // one chunk's weights [9 taps][COUT][kPadK].
 template <int COUT, int NTERM = 1>
@@ -292,17 +293,16 @@ __device__ __forceinline__ void stage_chunk(unsigned* __restrict__ xs,
     stage_x<SR, NG, NTERM, 2>(xs, xb, c0, H, W, row0, col0, c_left);
 }
 
-// B2's, B3's and B5's main loop: the tile's sums of a 3x3 SAME conv,
-// acc[m16 tile][n8 tile][4], m16 tile mt of the warp at mtile_row/col.
-template <int COUT, int NTERM = 1, int LAYOUT = kRow16>
+// B3's main loop: the tile's sums of a 3x3 SAME conv, acc[m16 tile][n8
+// tile][4], m16 tile mt of the warp at mtile_row/col (kRow16).
+template <int COUT, int NTERM = 1>
 __device__ __forceinline__ void conv_bf16_tile(float (&acc)[BfTile<COUT>::MT][BfTile<COUT>::NT][4],
                                                unsigned* smem, const float* __restrict__ x,
                                                const unsigned* __restrict__ wk, int b, int y0,
                                                int x0, int C, int H, int W) {
   using T = BfTile<COUT>;
   using K = ConvBf16<COUT, NTERM>;
-  // pixel g to pixel g + 8 of an m16 tile, in words of the staged patch
-  constexpr int kHalf = (LAYOUT == kRow16 ? 8 : 8 * K::NG) * kRowWords;
+  constexpr int kHalf = 8 * kRowWords;  // pixel g to pixel g + 8, in words of the patch
   unsigned* xs = smem;
   unsigned* ws = smem + NTERM * K::kXWords;
   const int warp = threadIdx.x >> 5;
@@ -333,8 +333,8 @@ __device__ __forceinline__ void conv_bf16_tile(float (&acc)[BfTile<COUT>::MT][Bf
           // output row r, column c of the tile reads patch row r + ky, patch
           // column c + kx + 3
           const int q = warp * T::MT + mt;
-          const int row = mtile_row<LAYOUT>(q) + ky;
-          const int col = mtile_col<LAYOUT>(q) + kx + 3;
+          const int row = mtile_row<kRow16>(q) + ky;
+          const int col = mtile_col<kRow16>(q) + kx + 3;
           mma_row<T::NT, NTERM>(acc[mt], xs + (row * 8 * K::NG + col) * kRowWords + 8 * kk,
                                 kHalf, K::kXWords, bf);
         }

@@ -1,16 +1,18 @@
 // The pipelined main loop of the bf16 kernel modes of packed_conv (B2,
-// packed_conv_bf16.cu) and packed_upconv (B1, packed_upconv_bf16.cu):
-// "default" (one bf16 pass) and "mid" (the 2-term split). A persistent block
-// walks output tiles, and each tile's input channels stream through a ring of
-// shared-memory stages, one chunk of 32 channels a stage, filled by cp.async
-// while the tensor cores run an earlier stage's products.
+// packed_conv_bf16.cu), packed_convpool (B5, packed_convpool_bf16.cu: B2's
+// ring with the pool's m16 layout and epilogue) and packed_upconv (B1,
+// packed_upconv_bf16.cu): "default" (one bf16 pass) and "mid" (the 2-term
+// split). A persistent block walks output tiles, and each tile's input
+// channels stream through a ring of shared-memory stages, one chunk of 32
+// channels a stage, filled by cp.async while the tensor cores run an earlier
+// stage's products.
 //
 // What it keeps from bf16_conv.cuh's synchronous loop (conv_bf16_tile, which
-// B3 and B5 still run), so that every output has that loop's bits: the tile
+// B3 still runs), so that every output has that loop's bits: the tile
 // (BfTile: TH x 32 outputs of one slab; B1: TH input rows x 16 input columns
-// of one output-row parity, both column parities), the warps' m16 and n8
-// tiles, the wrapper's pre-rounded weight layouts, and the order of the
-// mma.sync.m16n8k16 steps onto each accumulator: chunks of 32 input channels
+// of one output-row parity, both column parities), the warps' m16 (B5's
+// kPool2x8) and n8 tiles, the wrapper's pre-rounded weight layouts, and the
+// order of the mma.sync.m16n8k16 steps onto each accumulator: chunks of 32 input channels
 // ascending, then taps (B1: its parity's 4 pre-summed taps), then the
 // chunk's two k16 halves, then the terms (x_hi, then x_lo), with channel
 // 16 * half + k of the chunk at K position k. A chunk is the unit whose taps
@@ -36,7 +38,7 @@
 //    distinct A fragment of a chunk once (taps that read the same pixels
 //    share it), which moves no product: an accumulator's order stays.
 //  * Persistent blocks, one an SM (ops/packed.py persistent_blocks): block k
-//    walks tiles k, k + blocks, ... in the fp32 ring's order (B2: slab
+//    walks tiles k, k + blocks, ... in the fp32 ring's order (B2, B5: slab
 //    fastest, B1: parity fastest), and the ring runs through its tiles
 //    without a break: chunk k + 1's copies are in flight while chunk k's
 //    products run, and the next tile's first chunk is copied during the last
@@ -54,15 +56,15 @@
 // products (measured: PERF.md §6), as the copies' L2 bytes bound the
 // ring; the two overlap only in part in one block of 8 warps.
 //
-// Shared memory a block (32-bit words; rows of 40 floats for B2, 24 for B1):
-//   B2 slab 64: x 32 ch x (10 x 40 + 4) + w 9 x 64 x 20 = 24,448 a stage
-//   B2 slab 32: x 32 ch x (18 x 40 + 4) + w 9 x 32 x 20 = 28,928 a stage
-//   B2 slab 16, 8: x 32 ch x 724 + w 9 x 16 (8) x 20 = 26,048, 24,608
+// Shared memory a block (32-bit words; rows of 40 floats for B2, B5, 24 for B1):
+//   B2, B5 slab 64: x 32 ch x (10 x 40 + 4) + w 9 x 64 x 20 = 24,448 a stage
+//   B2, B5 slab 32: x 32 ch x (18 x 40 + 4) + w 9 x 32 x 20 = 28,928 a stage
+//   B2, B5 slab 16, 8: x 32 ch x 724 + w 9 x 16 (8) x 20 = 26,048, 24,608
 //   B1 Cout 64: x 32 ch x (9 x 24 + 4) + w 8 x 64 x 20 = 17,280 a stage
 //   B1 Cout 32, 16, 8: x 32 ch x (17 x 24 + 4) + w 8 x Cout x 20 = 18,304,
 //   15,744, 14,464
-// B2 in 2 stages: 195,584 / 231,424 / 208,384 / 196,864 B; B1 in 3 stages:
-// 207,360 / 219,648 / 188,928 / 173,568 B (ops/packed.py bf16_ring_bytes,
+// B2 and B5 in 2 stages: 195,584 / 231,424 / 208,384 / 196,864 B; B1 in 3
+// stages: 207,360 / 219,648 / 188,928 / 173,568 B (ops/packed.py bf16_ring_bytes,
 // bf16_upconv_ring_bytes; the kernels refuse another figure). Each is under
 // a block's 232,448 and too large for a second block in an SM's 233,472 (1 KB
 // reserved a block), so one block of 8 warps an SM, which may take up to 255
@@ -235,6 +237,20 @@ __device__ __forceinline__ void bf16_ring_walk(Conv& cv, float* smem, int n_tile
   cp_async_wait(0);
 }
 
+// The geometry a ring kernel was compiled with, for the C entries
+// probgan_<name>_bf16_geometry: {stages, bytes a block, blocks an SM at those
+// bytes}.
+template <class Ring, class Kernel>
+int ring_geometry(Kernel kernel, int* out) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring::kBytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, kernel, kThreads, Ring::kBytes);
+  out[0] = Ring::kStages;
+  out[1] = Ring::kBytes;
+  return static_cast<int>(err);
+}
+
 // ---------------------------------------------------------------------------
 // B2: 3x3 SAME conv + bias -> "lrelu_norm" / "lrelu" / "none", over slabs
 // ---------------------------------------------------------------------------
@@ -343,6 +359,92 @@ struct ConvBf16Ring {
         p[plane] = acc[mt][nt][1];
         p[8] = acc[mt][nt][2];
         p[plane + 8] = acc[mt][nt][3];
+      }
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// B5: 3x3 SAME conv + bias -> "lrelu" / "none" -> 2x2 mean pool, over slabs
+// ---------------------------------------------------------------------------
+
+// ConvBf16Ring's tiles, walk, copies, stages, bytes, fragments and order of
+// mma steps; only the m16 layout and the epilogue differ. Warp w's m16 tile
+// mt, q = w * MT + mt, is two rows of 8 columns (bf16_conv.cuh kPool2x8):
+// pixel g at row y0 + 2 * (q / 4), column x0 + 8 * (q % 4) + g, pixel g + 8
+// one row below it, XW words on in the patch (frag_a's `half`). The 32 lanes' words of a
+// fragment load are still 2t * CS + g apart, on 32 banks. So the lane
+// holding pixel g holds the pixel below it in d[2], d[3]: a 2x2 window's
+// vertical mean is one add in a thread and its horizontal mean one xor
+// shuffle of 4 lanes (pixel g ^ 1). The mean is taken rows first, then
+// columns, 0.5 * (0.5 * (a00 + a10) + 0.5 * (a01 + a11)), after the
+// activation, as in packed_convpool.cu; the layout moves no sum, so
+// packed_conv "lrelu" at the same mode pooled in this order gives these
+// bits (convpool_lrelu's mask recompute relies on it). compute is B2's with
+// the layout's rows, columns and `half`: one compute for both layouts
+// (mtile_row / mtile_col in B2's too) ran B2 at a slab of 8 at "mid" 12-16%
+// slower, with the same bits (measured: PERF.md §6).
+template <int COUT, int NTERM, int EPI>
+struct ConvPoolBf16Ring : ConvBf16Ring<COUT, NTERM, EPI> {
+  static_assert(EPI == kLrelu || EPI == kNone, "B5's epilogues");
+  using Base = ConvBf16Ring<COUT, NTERM, EPI>;
+  static constexpr int MT = Base::MT, NT = Base::NT, XW = Base::XW, CS = Base::CS;
+  using Base::Base;
+
+  __device__ __forceinline__ void compute(const float* stage, int, int chunk,
+                                          float (&acc)[MT][NT][4]) const {
+    const unsigned* ws = reinterpret_cast<const unsigned*>(stage + Base::kX);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int halves = this->C - chunk * kCK > kCK / 2 ? 2 : 1;  // block-uniform
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ky = tap / 3, kx = tap % 3;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {  // channels 16 * kk .. + 15 of the chunk
+        if (kk >= halves) break;
+        unsigned bf[NT][2];
+        ldmatrix_b<NT>(bf, ws + tap * COUT * kRowWords + 8 * kk);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          // output row r, column c of the tile reads patch row r + ky, patch
+          // column c + kx + 3
+          const int q = warp * MT + mt;
+          const int row = mtile_row<kPool2x8>(q) + ky;
+          const int col = mtile_col<kPool2x8>(q) + kx + 3 + g;
+          unsigned a[NTERM][4];
+          frag_a<NTERM, CS>(a, stage + (16 * kk + 2 * t) * CS + row * XW + col, XW);
+          mma_frag<NT, NTERM>(acc[mt], a, bf);
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void finish(int tile, float (&acc)[MT][NT][4]) const {
+    int b, y0, x0, slab;  // pooled: rows y0 / 2 .. + TH / 2, columns x0 / 2 .. + 15
+    this->tile_of(tile, b, y0, x0, slab);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, tq = lane & 3;
+    const int Hp = this->H / 2, Wp = this->W / 2;
+    const size_t plane = static_cast<size_t>(Hp) * Wp;
+    const int odd = g & 1;  // even lanes store channel 2 tq, odd ones 2 tq + 1
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      bias_act_frag<NT, EPI>(acc[mt], this->bias + slab * COUT);
+      // rows y0 + 2 (q / 4), + 1 and columns x0 + 8 (q % 4) + g pool into
+      // row y0 / 2 + q / 4, column x0 / 2 + 4 (q % 4) + g / 2
+      const int q = warp * MT + mt;
+      float* row = this->y + (static_cast<size_t>(b) * this->n_slabs + slab) * COUT * plane +
+                   static_cast<size_t>(y0 / 2 + q / 4) * Wp + x0 / 2 + 4 * (q % 4) + g / 2;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        // channels 8 nt + 2 tq (+ 1): the column's two rows, then the column g ^ 1
+        // of the same window (a + b == b + a: both lanes get the same bits)
+        const float v0 = 0.5f * (acc[mt][nt][0] + acc[mt][nt][2]);
+        const float v1 = 0.5f * (acc[mt][nt][1] + acc[mt][nt][3]);
+        const float p0 = 0.5f * (v0 + __shfl_xor_sync(0xffffffffu, v0, 4));
+        const float p1 = 0.5f * (v1 + __shfl_xor_sync(0xffffffffu, v1, 4));
+        row[static_cast<size_t>(8 * nt + 2 * tq + odd) * plane] = odd ? p1 : p0;
       }
     }
   }

@@ -34,9 +34,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int y0 = blockIdx.y * T::TH;
   const int x0 = blockIdx.x * T::TW;
   float acc[kTM][kTN] = {};
-  conv3x3_accumulate<COUT, false, SplitClock>(x + static_cast<size_t>(b) * C * H * W,
-                                              w + static_cast<size_t>(slab) * C * 9 * COUT, C,
-                                              H, W, y0, x0, acc, &clk);
+  conv3x3_accumulate<COUT, SplitClock>(x + static_cast<size_t>(b) * C * H * W,
+                                       w + static_cast<size_t>(slab) * C * 9 * COUT, C, H, W,
+                                       y0, x0, acc, &clk);
   const int cg = threadIdx.x % T::NCG;
   const int pg = threadIdx.x / T::NCG;
   bias_act<COUT, true>(acc, bias + slab * COUT, cg);

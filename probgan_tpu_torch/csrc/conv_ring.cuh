@@ -1,14 +1,15 @@
 // The pipelined fp32 main loop of packed_conv.cu's "lrelu" / "lrelu_norm"
 // kernel (B2), of packed_conv_rgb.cu (B3, B2 "lrelu_norm" with the final
-// stage's toRGB tail) and of packed_upconv.cu (B1): a persistent block walks
-// output tiles, and its input channels stream through a ring of
-// shared-memory stages filled by cp.async while the FMAs of an earlier stage
-// run.
+// stage's toRGB tail), of packed_convpool.cu (B5, B2's tiles with a 2 x 4
+// pixel map and the 2x2 mean pool) and of packed_upconv.cu (B1): a
+// persistent block walks output tiles, and its input channels stream through
+// a ring of shared-memory stages filled by cp.async while the FMAs of an
+// earlier stage run.
 //
 // What it keeps from conv_tile.cuh, so that every output has the bits of the
-// loop it replaces (conv3x3_accumulate, and B1's own loop before it): the
-// block of 256 threads owns a tile of output pixels and ALL output channels
-// of its slab; a thread holds 8 pixels x 8 channels (Tile<COUT>, channel_of),
+// loop it replaces (conv3x3_accumulate, its pool map for B5, and B1's own
+// loop before it): the block of 256 threads owns a tile of output pixels and
+// ALL output channels of its slab; a thread holds 8 pixels x 8 channels (Tile<COUT>, channel_of),
 // the COUT/8 lanes of a pixel group are neighbours in one warp, and every
 // value takes its products in one fp32 accumulator fed by fmaf in the order
 // (input channel, ky, kx) (B1: input channel, dy, dx of its parity's
@@ -38,8 +39,8 @@
 //
 // Shared memory a block (floats; rows padded so that the lanes of a warp hit
 // distinct banks in the thread's aligned float4 read of the patch):
-//   B2, B3 Cout 64: x 16 ch x 10 rows x 44 + w 16 x 9 x 64  = 16,256 a stage
-//   B2, B3 Cout 32: x 16 ch x 18 rows x 44 + w 16 x 9 x 32  = 17,280 a stage
+//   B2, B3, B5 Cout 64: x 16 ch x 10 rows x 44 + w 16 x 9 x 64  = 16,256 a stage
+//   B2, B3, B5 Cout 32: x 16 ch x 18 rows x 44 + w 16 x 9 x 32  = 17,280 a stage
 //   B1 Cout 64: x 16 ch x  9 rows x 24 + w 16 x 8 x 64  = 11,648 a stage
 //   B1 Cout 32: x 16 ch x 17 rows x 48 + w 16 x 8 x 32  = 17,152 a stage
 // times 3 stages x 4 B: 195,072 / 207,360 / 139,776 / 205,824 B, each under
@@ -308,6 +309,93 @@ struct ConvRing {
     store_rows<COUT>(y + (static_cast<size_t>(b) * n_slabs + slab) * COUT * plane +
                          static_cast<size_t>(y0 + pg / 4) * W + x0 + (pg % 4) * kTM,
                      acc, cg, plane);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// B5: 3x3 SAME conv + bias -> "lrelu" / "none" -> 2x2 mean pool, over slabs
+// of COUT
+// ---------------------------------------------------------------------------
+
+// ConvRing<COUT, false>'s tiles, walk, copies, stages and bytes (every slab
+// width); what differs is the thread's pixels and the epilogue. A thread's 8
+// pixels are a 2 x 4 patch, two whole pooling windows: rows y0 + py + r,
+// columns x0 + px + j (acc[4 * r + j]), py = 2 * (pg / 8), px = 4 * (pg % 8).
+// Its input rows are patch rows py .. py + 3, its 6 input columns patch
+// columns px + 3 .. px + 8: one scalar, one aligned float4 and one scalar
+// read a row. In a warp the float4 reads of one patch row are contiguous
+// (4, 8, 16 or 32 pixel groups of a row side by side), and the warp's rows at
+// Cout 16 and 8 (2 and 4 of them, 2 patch rows = 88 words = 24 mod 32
+// apart) each take a 128-byte span: as few wavefronts as the bytes need.
+// The scalar reads of those rows fall on the same 8 banks (px + 3 is 3 mod
+// 4, rows 0 mod 8 words apart): 2- and 4-way at Cout 16 and 8, none at 32
+// and 64. Every value takes its products in one accumulator in the order
+// (input channel, ky, kx), ConvRing::channels8's and the old loop's, so B5
+// keeps its bits, and B2 "lrelu" pooled in the order below equals B5
+// "lrelu". The epilogue: bias_act, then 0.5 * (0.5 * (a00 + a10) + 0.5 *
+// (a01 + a11)) in registers, one float2 (the thread's two windows) a channel.
+template <int COUT, bool ACT>
+struct ConvPoolRing : ConvRing<COUT, false> {
+  using Base = ConvRing<COUT, false>;
+  using Base::Base;
+
+  __device__ __forceinline__ void pool8(const float* __restrict__ xs,
+                                        const float* __restrict__ ws, int c_begin,
+                                        float (&acc)[kTM][kTN]) const {
+    constexpr int NCG = Tile<COUT>::NCG, XC = Base::XC, SW = Base::SW;
+    const int px = (this->pg % 8) * 4;
+    const int py = (this->pg / 8) * 2;
+    const int cg = this->cg;
+#pragma unroll 2
+    for (int c = c_begin; c < c_begin + 8; ++c) {
+      float xin[4][6];  // input rows py-1 .. py+2 of the tile, columns px-1 .. px+4
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float* src = xs + c * XC + (py + r) * SW + px + 3;
+        const float4 a = *reinterpret_cast<const float4*>(src + 1);
+        xin[r][0] = src[0], xin[r][1] = a.x, xin[r][2] = a.y, xin[r][3] = a.z;
+        xin[r][4] = a.w, xin[r][5] = src[5];
+      }
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          const float* wrow = ws + (c * 9 + ky * 3 + kx) * COUT;
+          const float4 w0 = reinterpret_cast<const float4*>(wrow)[cg];
+          const float4 w1 = reinterpret_cast<const float4*>(wrow)[NCG + cg];
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) fma8(acc[4 * r + j], xin[r + ky][j + kx], w0, w1);
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void compute(const float* stage, int, int chunk,
+                                          float (&acc)[kTM][kTN]) const {
+#pragma unroll
+    for (int g = 0; g < Base::kCC; g += 8)  // block-uniform: channels past C are zero
+      if (g == 0 || this->C - chunk * Base::kCC > g) pool8(stage, stage + Base::kX, g, acc);
+  }
+
+  __device__ __forceinline__ void finish(int t, float (&acc)[kTM][kTN]) const {
+    int b, y0, x0, slab;
+    this->tile_of(t, b, y0, x0, slab);
+    bias_act<COUT, ACT>(acc, this->bias + slab * COUT, this->cg);
+    // pooled pixel (y0/2 + pg/8, x0/2 + 2*(pg%8) + j), j = 0, 1
+    const int pg = this->pg, Hp = this->H / 2, Wp = this->W / 2;
+    const size_t plane = static_cast<size_t>(Hp) * Wp;
+    float* out = this->y + (static_cast<size_t>(b) * this->n_slabs + slab) * COUT * plane +
+                 static_cast<size_t>(y0 / 2 + pg / 8) * Wp + x0 / 2 + 2 * (pg % 8);
+#pragma unroll
+    for (int n = 0; n < kTN; ++n) {
+      float2 v;
+      v.x = 0.5f * (0.5f * (acc[0][n] + acc[4][n]) + 0.5f * (acc[1][n] + acc[5][n]));
+      v.y = 0.5f * (0.5f * (acc[2][n] + acc[6][n]) + 0.5f * (acc[3][n] + acc[7][n]));
+      *reinterpret_cast<float2*>(out + static_cast<size_t>(channel_of<COUT>(this->cg, n)) *
+                                           plane) = v;
+    }
   }
 };
 

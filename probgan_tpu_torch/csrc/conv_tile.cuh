@@ -1,11 +1,11 @@
-// Shared pieces of the late-stage conv kernels (packed_convpool.cu, and
-// through conv_ring.cuh packed_conv.cu's fp32 epilogues, packed_conv_rgb.cu,
+// Shared pieces of the late-stage conv kernels (through conv_ring.cuh
+// packed_conv.cu's fp32 epilogues, packed_conv_rgb.cu, packed_convpool.cu,
 // packed_upconv.cu and the stage-fused pair over fused_ring.cuh): tile
 // geometry, the per-thread channel map, the fused bias -> LeakyReLU(0.2) ->
 // PixelNorm epilogue, its PixelNorm-free forms for the discriminator, the
-// synchronous 3x3 SAME conv main loop (packed_convpool and the clock-split
-// probe; conv3x3_rows also serves the stage-fused kernels' conv2) and the
-// final stage's toRGB -> blend -> uint8 tail.
+// synchronous 3x3 SAME conv main loop (the clock-split probe's baseline;
+// conv3x3_rows also serves the stage-fused kernels' conv2) and the final
+// stage's toRGB -> blend -> uint8 tail.
 //
 // Every kernel is an implicit GEMM on the CUDA cores in fp32: M = output
 // pixels, N = output channels (8, 16, 32 or 64), K = taps x input channels.
@@ -204,14 +204,8 @@ __device__ __forceinline__ void conv3x3_rows(const float (*__restrict__ xs)[Patc
 // channels of the (TH+2) x (TW+2) halo patch, zero outside the image, and
 // their weights.
 //
-// With POOL the thread's 8 pixels are a 2 x 4 patch instead, so that whole
-// 2x2 pooling windows stay in one thread's registers: rows y0 + 2*(pg/8) + r,
-// columns x0 + 4*(pg%8) + j, held as acc[4*r + j]. A weight row is loaded
-// once and used for both output rows, so the FMAs per shared-memory load are
-// the same as in the row form.
-//
 // `clk` (the probe's) is read after each step's staging and after its FMAs.
-template <int COUT, bool POOL = false, class Clock = NoClock>
+template <int COUT, class Clock = NoClock>
 __device__ __forceinline__ void conv3x3_accumulate(const float* __restrict__ xb,
                                                    const float* __restrict__ w, int C,
                                                    int H, int W, int y0, int x0,
@@ -246,37 +240,7 @@ __device__ __forceinline__ void conv3x3_accumulate(const float* __restrict__ xb,
     __syncthreads();
     if (clk) clk->lap(kLapWait);
 
-    if constexpr (POOL) {
-      const int px = (pg % 8) * 4;
-      const int py = (pg / 8) * 2;
-#pragma unroll 2
-      for (int c = 0; c < kCC; ++c) {
-        float xin[4][6];  // input rows py..py+3 of the patch, columns px..px+5
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float* src = &xs[c][py + r][px];
-          const float4 a = reinterpret_cast<const float4*>(src)[0];
-          const float2 d = reinterpret_cast<const float2*>(src)[2];
-          xin[r][0] = a.x, xin[r][1] = a.y, xin[r][2] = a.z, xin[r][3] = a.w;
-          xin[r][4] = d.x, xin[r][5] = d.y;
-        }
-#pragma unroll
-        for (int ky = 0; ky < 3; ++ky) {
-#pragma unroll
-          for (int kx = 0; kx < 3; ++kx) {
-            const float* wrow = &ws[c][ky * 3 + kx][0];
-            const float4 w0 = reinterpret_cast<const float4*>(wrow)[cg];
-            const float4 w1 = reinterpret_cast<const float4*>(wrow)[T::NCG + cg];
-#pragma unroll
-            for (int r = 0; r < 2; ++r)
-#pragma unroll
-              for (int j = 0; j < 4; ++j) fma8(acc[4 * r + j], xin[r + ky][j + kx], w0, w1);
-          }
-        }
-      }
-    } else {
-      conv3x3_rows<COUT>(xs, ws, cg, pg, acc);
-    }
+    conv3x3_rows<COUT>(xs, ws, cg, pg, acc);
     __syncthreads();
     if (clk) clk->lap(kLapFma);
   }

@@ -17,10 +17,11 @@
 //
 // "lrelu_norm" and "lrelu": fp32 FMAs on the CUDA cores, one fp32
 // accumulator a value fed by fmaf in the order (input channel, ky, kx): the
-// bits of conv_tile.cuh's conv3x3_accumulate, which packed_convpool (B5)
-// still runs, so B2 "lrelu" pooled in B5's order equals B5 "lrelu"; the
-// stage-fused kernels (fused_ring.cuh) keep these bits too, so B10/B11 equal
-// the pair (chip_smoke.py holds both bit for bit). Bound on the H100: operations, 2 * 9 * C * Cout FLOP a pixel:
+// bits of conv_tile.cuh's conv3x3_accumulate, which packed_convpool (B5,
+// conv_ring.cuh ConvPoolRing) keeps too, so B2 "lrelu" pooled in B5's order
+// equals B5 "lrelu"; the stage-fused kernels (fused_ring.cuh) keep these
+// bits too, so B10/B11 equal the pair (chip_smoke.py holds both bit for
+// bit). Bound on the H100: operations, 2 * 9 * C * Cout FLOP a pixel:
 // 0.577 ms for the 38.7 GFLOP shapes at batch 2 (32 -> 32 at 1024^2,
 // 64 -> 64 at 512^2), 1.154 ms for the 77.3 GFLOP ones (the recompute's
 // 32 -> 64 at 1024^2, 64 -> 128 at 512^2) at 67 TFLOP/s, against 0.08-0.24

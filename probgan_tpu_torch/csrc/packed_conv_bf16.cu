@@ -80,15 +80,8 @@ int launch(const float* x, const unsigned* wk, const float* bias, float* y, int 
 // {stages, bytes a block, blocks an SM at those bytes}.
 template <int COUT, int NTERM>
 int geometry(int* out) {
-  using K = ConvBf16Ring<COUT, NTERM, kLrelu>;
-  const auto kernel = packed_conv_bf16_kernel<COUT, NTERM, kLrelu>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K::kBytes);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, kernel, kThreads, K::kBytes);
-  out[0] = K::kStages;
-  out[1] = K::kBytes;
-  return static_cast<int>(err);
+  return ring_geometry<ConvBf16Ring<COUT, NTERM, kLrelu>>(
+      packed_conv_bf16_kernel<COUT, NTERM, kLrelu>, out);
 }
 
 // A slab of the largest of 64, 32, 16 and 8 channels that divides Cout

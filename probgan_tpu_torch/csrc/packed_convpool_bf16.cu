@@ -17,120 +17,116 @@
 // and moves 268 MB of fp32 in and 134 MB out (0.120 ms at 3.35 TB/s): bytes
 // at "default", operations (nearly a tie) at "mid".
 //
-// Design (bf16_conv.cuh): packed_conv_bf16.cu's tile (8 rows x 32 columns x
-// a slab of 64 channels, slabs fastest) and main loop, with the m16 tiles
-// laid over two rows of 8 columns (kPool2x8): the lane that holds pixel g of
-// a row holds pixel g of the row below in d[2], d[3], so a 2x2 window's
-// vertical mean is one add in a thread and its horizontal mean one xor
-// shuffle of 4 lanes. The mean is taken rows first, then columns,
+// Design (bf16_ring.cuh ConvPoolBf16Ring, on packed_conv_bf16's ring):
+// packed_conv_bf16.cu's tile (8 rows x 32 columns x a slab of 64 channels,
+// 16 rows at 32, 16 and 8, slabs fastest), persistent blocks (one an SM)
+// and its ring of two stages of 32 input channels (the fp32 patch, rounded
+// or split as the A fragments are loaded, and the chunk's bf16 weights),
+// filled by cp.async while the products of the stage before run, with the
+// m16 tiles laid over two rows of 8 columns (kPool2x8): the lane that holds
+// pixel g of a row holds pixel g of the row below in d[2], d[3], so a 2x2
+// window's vertical mean is one add in a thread and its horizontal mean one
+// xor shuffle of 4 lanes. The mean is taken rows first, then columns,
 // 0.5 * (0.5 * (a00 + a10) + 0.5 * (a01 + a11)), after the activation, as in
 // packed_convpool.cu. The layout moves no sum: each pixel is summed in
-// packed_conv_bf16's order, so packed_conv "lrelu" at the same mode pooled in
-// this order gives these bits (convpool_lrelu's mask recompute relies on it).
-#include "bf16_conv.cuh"
+// packed_conv_bf16's order (chunks, taps, k16 halves, terms), the order of
+// bf16_conv.cuh's synchronous loop (one block a tile, one cp.async stage
+// then its products) that this kernel ran before, so its bits stay, and
+// packed_conv "lrelu" at the same mode pooled in this order gives these bits
+// (convpool_lrelu's mask recompute relies on it).
+#include "bf16_ring.cuh"
 
 namespace probgan {
 
 template <int COUT, int NTERM, int EPI>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, 1)
     packed_convpool_bf16_kernel(const float* __restrict__ x, const unsigned* __restrict__ wk,
                                 const float* __restrict__ bias, float* __restrict__ y, int C,
-                                int H, int W, int n_slabs) {
-  using T = BfTile<COUT>;
-  using K = ConvBf16<COUT, NTERM>;
-  extern __shared__ __align__(16) unsigned bf16_smem[];
-  const int tiles_x = W / 32, tiles_y = H / T::TH;
-  int t = blockIdx.x;
-  const int slab = t % n_slabs;
-  t /= n_slabs;
-  const int x0 = (t % tiles_x) * 32;
-  t /= tiles_x;
-  const int y0 = (t % tiles_y) * T::TH;
-  const int b = t / tiles_y;
-  float acc[T::MT][T::NT][4];
-  conv_bf16_tile<COUT, NTERM, kPool2x8>(
-      acc, bf16_smem, x, wk + static_cast<size_t>(slab) * bf16_chunks(C) * K::kWWords, b, y0,
-      x0, C, H, W);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int Hp = H / 2, Wp = W / 2;
-  const size_t plane = static_cast<size_t>(Hp) * Wp;
-  const int odd = g & 1;  // even lanes store channel 2 tq, odd ones 2 tq + 1
-#pragma unroll
-  for (int mt = 0; mt < T::MT; ++mt) {
-    bias_act_frag<T::NT, EPI>(acc[mt], bias + slab * COUT);
-    // rows y0 + 2 (q / 4), + 1 and columns x0 + 8 (q % 4) + g pool into
-    // row y0 / 2 + q / 4, column x0 / 2 + 4 (q % 4) + g / 2
-    const int q = warp * T::MT + mt;
-    float* row = y + (static_cast<size_t>(b) * n_slabs + slab) * COUT * plane +
-                 static_cast<size_t>(y0 / 2 + q / 4) * Wp + x0 / 2 + 4 * (q % 4) + g / 2;
-#pragma unroll
-    for (int nt = 0; nt < T::NT; ++nt) {
-      // channels 8 nt + 2 tq (+ 1): the column's two rows, then the column g ^ 1
-      // of the same window (a + b == b + a: both lanes get the same bits)
-      const float v0 = 0.5f * (acc[mt][nt][0] + acc[mt][nt][2]);
-      const float v1 = 0.5f * (acc[mt][nt][1] + acc[mt][nt][3]);
-      const float p0 = 0.5f * (v0 + __shfl_xor_sync(0xffffffffu, v0, 4));
-      const float p1 = 0.5f * (v1 + __shfl_xor_sync(0xffffffffu, v1, 4));
-      row[static_cast<size_t>(8 * nt + 2 * tq + odd) * plane] = odd ? p1 : p0;
-    }
-  }
+                                int H, int W, int n_slabs, int n_tiles) {
+  extern __shared__ __align__(16) float bf16_ring_smem[];
+  ConvPoolBf16Ring<COUT, NTERM, EPI> cv(x, wk, bias, y, C, H, W, n_slabs);
+  bf16_ring_walk(cv, bf16_ring_smem, n_tiles);
 }
 
 template <int COUT, int NTERM, int EPI>
 int launch(const float* x, const unsigned* wk, const float* bias, float* y, int B, int C, int H,
-           int W, int cout, int smem, cudaStream_t stream) {
-  using K = ConvBf16<COUT, NTERM>;
+           int W, int cout, int blocks, int smem, cudaStream_t stream) {
+  using K = ConvPoolBf16Ring<COUT, NTERM, EPI>;
   const int n_slabs = cout / COUT;
   const long long n_tiles =
       static_cast<long long>(B) * (H / BfTile<COUT>::TH) * (W / 32) * n_slabs;
-  if (B < 1 || C < 8 || C % 8 || H % BfTile<COUT>::TH || W < 32 || W % 32 ||
-      cout % COUT || n_tiles > 0x7fffffff || smem != K::kBytes)
+  if (B < 1 || C < 8 || C % 8 || H < BfTile<COUT>::TH || H % BfTile<COUT>::TH || W < 32 ||
+      W % 32 || cout % COUT || n_tiles > 0x7fffffff || blocks < 1 || blocks > n_tiles ||
+      smem != K::kBytes || reinterpret_cast<size_t>(x) % 16)
     return cudaErrorInvalidValue;
   const auto kernel = packed_convpool_bf16_kernel<COUT, NTERM, EPI>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(n_tiles), kThreads, smem, stream>>>(x, wk, bias, y, C, H, W,
-                                                                      n_slabs);
+  kernel<<<blocks, kThreads, smem, stream>>>(x, wk, bias, y, C, H, W, n_slabs,
+                                             static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The geometry the ring was compiled with at a slab of COUT channels:
+// {stages, bytes a block, blocks an SM at those bytes}.
+template <int COUT, int NTERM>
+int geometry(int* out) {
+  return ring_geometry<ConvPoolBf16Ring<COUT, NTERM, kLrelu>>(
+      packed_convpool_bf16_kernel<COUT, NTERM, kLrelu>, out);
 }
 
 template <int NTERM, int EPI>
 int launch_slab(const float* x, const unsigned* wk, const float* bias, float* y, int B, int C,
-                int H, int W, int cout, int smem, cudaStream_t stream) {
-  if (cout > 0 && cout % 64 == 0)
-    return launch<64, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
-  if (cout > 0 && cout % 32 == 0)
-    return launch<32, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
-  if (cout > 0 && cout % 16 == 0)
-    return launch<16, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
-  if (cout > 0 && cout % 8 == 0)
-    return launch<8, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, smem, stream);
+                int H, int W, int cout, int blocks, int smem, cudaStream_t stream) {
+#define PROBGAN_POOL_SLAB(S) \
+  launch<S, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, blocks, smem, stream)
+  if (cout > 0 && cout % 64 == 0) return PROBGAN_POOL_SLAB(64);
+  if (cout > 0 && cout % 32 == 0) return PROBGAN_POOL_SLAB(32);
+  if (cout > 0 && cout % 16 == 0) return PROBGAN_POOL_SLAB(16);
+  if (cout > 0 && cout % 8 == 0) return PROBGAN_POOL_SLAB(8);
+#undef PROBGAN_POOL_SLAB
   return cudaErrorInvalidValue;
 }
 
 }  // namespace probgan
 
-// x [B][C][H][W] fp32, wk [Cout/slab][ceil(C/32)][9][slab][40] bf16
-// (ops/packed.py conv_bf16_weights, packed_conv_bf16's layout; slab the
-// largest of 64, 32, 16 and 8 that divides Cout), bias [Cout] -> y
+// x [B][C][H][W] fp32, 16-byte aligned, wk [Cout/slab][ceil(C/32)][9][slab]
+// [40] bf16 (ops/packed.py conv_bf16_weights, packed_conv_bf16's layout;
+// slab the largest of 64, 32, 16 and 8 that divides Cout), bias [Cout] -> y
 // [B][Cout][H/2][W/2]; terms 1 ("default") or 2 ("mid"); act 1 =
-// LeakyReLU(0.2) before the pool, 0 = none; Cout a
-// multiple of 8, C % 8 == 0, H % (8 at a slab of 64, else 16) == 0,
-// W % 32 == 0; smem the block's
-// dynamic shared memory in bytes (ops/packed.py bf16_conv_bytes). Returns the
-// cudaError_t of the launch (0 = launched).
+// LeakyReLU(0.2) before the pool, 0 = none; Cout a multiple of 8,
+// C % 8 == 0, H % (8 at a slab of 64, else 16) == 0, W % 32 == 0; blocks the
+// persistent blocks (1 .. tiles; ops/packed.py persistent_blocks), smem the
+// block's dynamic shared memory in bytes (ops/packed.py bf16_ring_bytes,
+// checked against the ring's). Returns the cudaError_t of the launch
+// (0 = launched).
 extern "C" int probgan_packed_convpool_bf16(const float* x, const void* wk, const float* bias,
                                             float* y, int B, int C, int H, int W, int cout,
-                                            int terms, int act, int smem, void* stream) {
+                                            int terms, int act, int blocks, int smem,
+                                            void* stream) {
   using namespace probgan;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto w = static_cast<const unsigned*>(wk);
-#define PROBGAN_POOL_LAUNCH(NT, EPI) launch_slab<NT, EPI>(x, w, bias, y, B, C, H, W, cout, smem, s)
+#define PROBGAN_POOL_LAUNCH(NT, EPI) \
+  launch_slab<NT, EPI>(x, w, bias, y, B, C, H, W, cout, blocks, smem, s)
   if (terms == 1) return act ? PROBGAN_POOL_LAUNCH(1, kLrelu) : PROBGAN_POOL_LAUNCH(1, kNone);
   if (terms == 2) return act ? PROBGAN_POOL_LAUNCH(2, kLrelu) : PROBGAN_POOL_LAUNCH(2, kNone);
 #undef PROBGAN_POOL_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
+// out[3] = {stages, bytes a block, blocks an SM} of the ring at a slab of
+// `slab` channels (8, 16, 32 or 64) and `terms` terms, as compiled.
+extern "C" int probgan_packed_convpool_bf16_geometry(int slab, int terms, int* out) {
+  using namespace probgan;
+#define PROBGAN_GEOMETRY(S) \
+  if (slab == S) return terms == 1 ? geometry<S, 1>(out) : geometry<S, 2>(out);
+  if (terms != 1 && terms != 2) return cudaErrorInvalidValue;
+  PROBGAN_GEOMETRY(64)
+  PROBGAN_GEOMETRY(32)
+  PROBGAN_GEOMETRY(16)
+  PROBGAN_GEOMETRY(8)
+#undef PROBGAN_GEOMETRY
   return cudaErrorInvalidValue;
 }

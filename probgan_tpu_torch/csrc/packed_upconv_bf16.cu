@@ -83,15 +83,8 @@ int launch(const float* x, const unsigned* wk, const float* bias, const float* r
 // block, blocks an SM at those bytes}.
 template <int COUT, int NTERM>
 int geometry(int* out) {
-  using K = UpconvBf16Ring<COUT, NTERM, kLreluNorm>;
-  const auto kernel = packed_upconv_bf16_kernel<COUT, NTERM, kLreluNorm>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K::kBytes);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, kernel, kThreads, K::kBytes);
-  out[0] = K::kStages;
-  out[1] = K::kBytes;
-  return static_cast<int>(err);
+  return ring_geometry<UpconvBf16Ring<COUT, NTERM, kLreluNorm>>(
+      packed_upconv_bf16_kernel<COUT, NTERM, kLreluNorm>, out);
 }
 
 }  // namespace probgan

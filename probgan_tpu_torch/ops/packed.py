@@ -130,7 +130,7 @@ _ARGTYPES = {
     "packed_upconv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "packed_convpool": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "packed_convpool": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv_rgb": [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _I,
                         _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_upconv_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -141,7 +141,7 @@ _ARGTYPES = {
     "packed_conv_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv_rgb_bf16": [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _I,
                              _I, _I, _I, _I, _I, _I, _I, _P],
-    "packed_convpool_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "packed_convpool_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv_wgrad_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_upconv_conv_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_upconv_conv_rgb_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _I,
@@ -154,9 +154,10 @@ BF16_TERMS = {"default": 1, "mid": 2}
 # The bf16 kernels (csrc/bf16_conv.cuh): input channels a shared-memory chunk,
 # and bf16 a staged pixel or weight row (the chunk's channels, then 8 zeros).
 BF16_CK, BF16_ROW = 32, 40
-# The pipelined bf16 ring of packed_conv and packed_upconv (csrc/bf16_ring.cuh):
-# stages, and floats a row of a stage's fp32 patch, of each.
-BF16_RING_STAGES = {"packed_conv": 2, "packed_upconv": 3}
+# The pipelined bf16 ring of packed_conv (and of packed_convpool, which keeps
+# its stages and bytes) and packed_upconv (csrc/bf16_ring.cuh): stages, and
+# floats a row of a stage's fp32 patch, of each.
+BF16_RING_STAGES = {"packed_conv": 2, "packed_convpool": 2, "packed_upconv": 3}
 BF16_RING_ROW = {"packed_conv": 40, "packed_upconv": 24}
 # Output channel counts the kernels are instantiated for (csrc/conv_tile.cuh
 # Tile, csrc/bf16_conv.cuh BfTile). PixelNorm needs every channel in one
@@ -177,10 +178,10 @@ POOL_EPILOGUES = ("lrelu", "none")
 # same anywhere.
 WGRAD_BLOCKS = 132
 # The pipelined fp32 main loop of packed_conv's "lrelu"/"lrelu_norm", of
-# packed_conv_rgb and of packed_upconv (csrc/conv_ring.cuh): input channels a
-# ring stage (``ring_cc``: RING_CC at 32 and 64 output channels, 8 below),
-# stages, and the persistent blocks an SM of the wide rings (the narrow
-# ones fit two: ``ring_blocks_per_sm``).
+# packed_conv_rgb, packed_convpool and packed_upconv (csrc/conv_ring.cuh):
+# input channels a ring stage (``ring_cc``: RING_CC at 32 and 64 output
+# channels, 8 below), stages, and the persistent blocks an SM of the wide
+# rings (the narrow ones fit two: ``ring_blocks_per_sm``).
 RING_CC, RING_STAGES, RING_BLOCKS_PER_SM = 16, 3, 1
 # A block's share of an H100 multiprocessor's shared memory, and what the
 # card reserves for each resident block.
@@ -372,10 +373,10 @@ def upconv_bf16_weights(w: torch.Tensor) -> torch.Tensor:
 
 
 def bf16_conv_bytes(cout: int, terms: int = 1) -> int:
-    """Dynamic shared memory of a packed_conv_rgb_bf16 / packed_convpool_bf16
-    block (ConvBf16::kBytes) for a slab of
-    ``_pool_slab(cout)`` channels: the bf16 patch, tile rows + 2 x 40 columns
-    x 40, once a term, and one chunk's weights, 9 x slab x 40."""
+    """Dynamic shared memory of a packed_conv_rgb_bf16 block
+    (ConvBf16::kBytes) for a slab of ``_pool_slab(cout)`` channels: the bf16
+    patch, tile rows + 2 x 40 columns x 40, once a term, and one chunk's
+    weights, 9 x slab x 40."""
     slab = _pool_slab(cout)
     return 2 * BF16_ROW * (terms * (_tile_rows(slab) + 2) * 40 + 9 * slab)
 
@@ -386,11 +387,12 @@ def _bf16_ring_bytes(name: str, rows: int, taps: int) -> int:
 
 
 def bf16_ring_bytes(cout: int) -> int:
-    """Dynamic shared memory of a packed_conv_bf16 block (csrc/bf16_ring.cuh
-    ConvBf16Ring::kBytes) at a slab of ``_pool_slab(cout)`` channels, the same
-    at both term counts: 2 stages of one 32-channel chunk, each its fp32 halo
-    patch (tile rows + 2 rows of 40 floats, 4 more a channel) and its 9 x
-    slab x 40 bf16 weights."""
+    """Dynamic shared memory of a packed_conv_bf16 and a packed_convpool_bf16
+    block (csrc/bf16_ring.cuh ConvBf16Ring::kBytes, which ConvPoolBf16Ring
+    keeps) at a slab of ``_pool_slab(cout)`` channels, the same at both term
+    counts: 2 stages of one 32-channel chunk, each its fp32 halo patch (tile
+    rows + 2 rows of 40 floats, 4 more a channel) and its 9 x slab x 40 bf16
+    weights."""
     slab = _pool_slab(cout)
     return _bf16_ring_bytes("packed_conv", _tile_rows(slab) + 2, 9 * slab)
 
@@ -405,10 +407,10 @@ def bf16_upconv_ring_bytes(cout: int) -> int:
 
 def bf16_ring_geometry(name: str, cout: int, terms: int) -> tuple[int, int, int]:
     """(stages, bytes a block, resident blocks an SM) of the bf16 ring of
-    ``name`` ("packed_conv" at a slab of ``cout`` channels, "packed_upconv"
-    at Cout ``cout``) as the card's library was compiled: the C entry
-    probgan_<name>_bf16_geometry of csrc/<name>_bf16.cu. Builds the library
-    if needed; on the card only."""
+    ``name`` ("packed_conv" and "packed_convpool" at a slab of ``cout``
+    channels, "packed_upconv" at Cout ``cout``) as the card's library was
+    compiled: the C entry probgan_<name>_bf16_geometry of
+    csrc/<name>_bf16.cu. Builds the library if needed; on the card only."""
     lib = _build.load(f"{name}_bf16")
     fn = getattr(lib, f"probgan_{name}_bf16_geometry")
     fn.argtypes, fn.restype = [_I, _I, ctypes.POINTER(ctypes.c_int)], ctypes.c_int
@@ -601,8 +603,9 @@ def ring_cc(cout: int) -> int:
 
 
 def conv_ring_bytes(cout: int) -> int:
-    """Dynamic shared memory of packed_conv's fp32 ring and of packed_conv_rgb
-    (csrc/conv_ring.cuh ConvRing::kBytes, which ConvRgbRing keeps):
+    """Dynamic shared memory of packed_conv's fp32 ring, of packed_conv_rgb
+    and of packed_convpool (csrc/conv_ring.cuh ConvRing::kBytes, which
+    ConvRgbRing and ConvPoolRing keep):
     RING_STAGES stages of ``ring_cc`` input channels, each the channel's halo
     patch (tile rows + 2, 40 columns in rows of 44 floats) and its 9 x slab
     weights."""
@@ -751,7 +754,9 @@ def packed_convpool(x, w, b, epilogue="lrelu", mode="high"):
     """conv3x3 SAME + bias -> LeakyReLU ("lrelu") or nothing ("none") -> 2x2
     mean pool; the activation comes before the pool. x [B, C, H, W] fp32,
     w [Cout, C, 3, 3] eq-LR scaled, b [Cout] -> [B, Cout, H/2, W/2].
-    On CUDA, Cout and C are multiples of 8, at both epilogues.
+    On CUDA, Cout and C are multiples of 8, at both epilogues; the kernels
+    walk packed_conv's tiles (``conv_tile_count``) on its rings, in
+    persistent blocks.
     ``mode``: "high"/"highest" (fp32), "default" (one bf16 pass) or "mid"
     (the 2-term split); both bf16 modes are ``packed_convpool_bf16`` on the
     card."""
@@ -767,18 +772,21 @@ def packed_convpool(x, w, b, epilogue="lrelu", mode="high"):
     slab = _pool_slab(cout)
     _check(name, x, w.shape[1], _tile_rows(slab), 32, w=w, b=b)
     bsz, c, h, wd = x.shape
+    y = torch.empty((bsz, cout, h // 2, wd // 2), device=x.device, dtype=x.dtype)
+    # named, so that nothing the kernel reads is freed before it runs
+    b, x = b.contiguous(), _aligned16(x)
+    smem = bf16_ring_bytes(cout) if terms else conv_ring_bytes(cout)
+    blocks = persistent_blocks(conv_tile_count(bsz, cout, h, wd), _sms(x.device),
+                               ring_blocks_per_sm(smem))
+    act = int(epilogue == "lrelu")
     if terms:
-        y = torch.empty((bsz, cout, h // 2, wd // 2), device=x.device, dtype=x.dtype)
-        wk, b = conv_bf16_weights(w, slab), b.contiguous()
+        wk = conv_bf16_weights(w, slab)
         _bf16_launch(name, terms, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
-                     terms, int(epilogue == "lrelu"), bf16_conv_bytes(cout, terms),
-                     epilogue=epilogue, slab=slab)
+                     terms, act, blocks, smem, epilogue=epilogue, slab=slab)
         return y
     wk = convpool_kernel_weights(w)
-    b = b.contiguous()
-    y = torch.empty((bsz, cout, h // 2, wd // 2), device=x.device, dtype=x.dtype)
-    _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
-            int(epilogue == "lrelu"), epilogue=epilogue, slab=slab)
+    _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout, act, blocks,
+            smem, epilogue=epilogue, slab=slab)
     return y
 
 

@@ -42,6 +42,16 @@ one CUDA card, in parts (``--parts``, all by default):
   "fast" and the image trainer CLI's step (``progan_train_step`` with
   ``packed_fake`` at "highest", stage 8, batch 2) with
   ``PROBGAN_STAGE_FUSED`` 1 and 0 in turns in one process;
+- ``convpool``: B5 ``packed_convpool`` at every kernel mode ("high",
+  "default", "mid"), epilogue and slab width it runs: ``score``'s 32 -> 64
+  at 1024² and 64 -> 128 at 512² (batch 8, "lrelu"), the 1024² train step's
+  (batch 2, "lrelu" and "none"), the narrow generator N's 8 -> 16 at 1024²
+  and 16 -> 32 at 512² (batch 8 and 2, "lrelu"; "none" 8 -> 16 at batch 2),
+  8 -> 8 at 1024² (a slab of 8, "none") and a ragged 24 -> 40 at 64² (a
+  partial chunk of input channels, 5 slabs of 8), each with ``alone_ms``
+  and ``library_ms`` (below; at "high" cuDNN in fp32 with TF32 off), and
+  ``b2_ms`` / ``b2_alone_ms``: B2 ``packed_conv`` "lrelu" at the same conv
+  and mode, the same ring and products without the pool;
 - ``narrow``: the kernels at 16 and 8 channels of the narrow 1024² generator
   (fmap_base 2048, fmap_max 256; packed stages 6-8): ``packed_upconv``
   32 -> 16 and 16 -> 8 (with toRGB), ``packed_conv`` "lrelu_norm" 16 -> 16
@@ -51,16 +61,18 @@ one CUDA card, in parts (``--parts``, all by default):
   "default" and "mid", beside ``F.conv2d`` with the torch epilogue (fp32 with
   TF32 off; on bf16 tensors at "default"; the bf16-rounded weights at "mid").
 
-Each B1 ``packed_upconv`` and B2 ``packed_conv`` row of ``bf16``, ``mid``,
-``bwd`` and ``narrow`` also gives ``alone_ms``, the kernel launch alone (the
-wrapper's bf16 weights prepared once, outside the timed window: one call
-records the C launch and keeps what it was handed alive, then only that
-launch is timed), and ``library_ms``, ``F.conv2d`` with the torch epilogue
-on bf16 tensors at "default" and with the bf16-rounded weights at "mid".
+Each B1 ``packed_upconv``, B2 ``packed_conv`` and B5 ``packed_convpool``
+row of ``bf16``, ``mid``, ``bwd`` and ``narrow`` also gives ``alone_ms``,
+the kernel launch alone (the wrapper's weights prepared once, outside the
+timed window: one call records the C launch and keeps what it was handed
+alive, then only that launch is timed), and ``library_ms``, ``F.conv2d``
+with the torch epilogue (and B5's ``F.avg_pool2d``) on bf16 tensors at
+"default" and with the bf16-rounded weights at "mid".
 
 ``--dump DIR`` saves each ``none``, ``fp32``, ``bf16``, ``mid``, ``bwd``,
-``fused`` and ``narrow`` output, made from fixed seeds, to ``DIR/<shape>.pt`` (and with ``rank`` the
-``rank_scores_fused`` matrices, with ``generate`` the first call's images);
+``fused``, ``convpool`` and ``narrow`` output, made from fixed seeds, to
+``DIR/<shape>.pt`` (and with ``rank`` the ``rank_scores_fused`` matrices,
+with ``generate`` the first call's images);
 ``--compare A B`` counts the values whose bits differ between two such
 directories (0 everywhere: the same bits).
 
@@ -88,7 +100,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-PARTS = ("rank", "none", "fp32", "train", "generate", "fused", "bf16", "mid", "bwd", "narrow")
+PARTS = ("rank", "none", "fp32", "train", "generate", "fused", "bf16", "mid", "bwd", "narrow",
+         "convpool")
 CONV_SHAPES = ((32, 32, 1024), (64, 32, 1024), (64, 64, 512), (128, 64, 512),
                (32, 64, 1024), (64, 128, 512))
 # (label, kernel, epilogue, batch, C, Cout, H, toRGB): the fp32 launches
@@ -208,6 +221,16 @@ NARROW_SHAPES = (
     ("packed_conv", "none", 8, 8, 1024), ("packed_conv", "none", 16, 8, 1024),
     ("packed_conv", "none", 16, 16, 512), ("packed_conv", "none", 32, 16, 512),
 )
+# (epilogue, batch, C, Cout, H): B5's launches, each at "high", "default"
+# and "mid": score's, the train step's, N's, a slab of 8, a ragged case
+CONVPOOL_SHAPES = (
+    ("lrelu", 8, 32, 64, 1024), ("lrelu", 8, 64, 128, 512),
+    ("lrelu", 2, 32, 64, 1024), ("lrelu", 2, 64, 128, 512),
+    ("none", 2, 32, 64, 1024), ("none", 2, 64, 128, 512),
+    ("lrelu", 8, 8, 16, 1024), ("lrelu", 8, 16, 32, 512),
+    ("lrelu", 2, 8, 16, 1024), ("lrelu", 2, 16, 32, 512), ("none", 2, 8, 16, 1024),
+    ("none", 2, 8, 8, 1024), ("lrelu", 2, 24, 40, 64), ("none", 2, 24, 40, 64),
+)
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, CUDA cores
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, tensor cores, dense bf16
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
@@ -237,7 +260,8 @@ def alone_ms(pk, call, iters: int = 10) -> float:
 
     real = _build.launch
     recorded, kept = [], []
-    patched = {n: getattr(pk, n) for n in ("conv_bf16_weights", "upconv_bf16_weights", "_bf16")}
+    patched = {n: getattr(pk, n) for n in ("conv_bf16_weights", "upconv_bf16_weights", "_bf16",
+                                           "convpool_kernel_weights")}
 
     def keep(fn):
         def kept_fn(*args, **kwargs):
@@ -269,15 +293,17 @@ def alone_ms(pk, call, iters: int = 10) -> float:
 
 def conv_library(kernel: str, epi: str, mode: str, x, w, b, rgb_w=None, rgb_b=None):
     """One cuDNN ``F.conv2d`` (after a nearest-2x upsample for B1) with the
-    torch epilogue, the function of ``kernel`` at the bf16 ``mode``: bf16
-    tensors at "default", the bf16-rounded weights in fp32 (TF32 off) at
-    "mid"; with ``rgb_w`` also B1's toRGB of the input."""
+    torch epilogue (and B5's 2x2 mean), the function of ``kernel`` at
+    ``mode``: bf16 tensors at "default", the bf16-rounded weights in fp32
+    (TF32 off) at "mid", fp32 at "high"; with ``rgb_w`` also B1's toRGB of
+    the input."""
     import torch.nn.functional as F
 
     from probgan_tpu_torch.models import pro_gan
 
     dtype = torch.bfloat16 if mode == "default" else torch.float32
-    xl, bl, wl = x.to(dtype), b.to(dtype), w.to(torch.bfloat16).to(dtype)
+    xl, bl = x.to(dtype), b.to(dtype)
+    wl = w if mode == "high" else w.to(torch.bfloat16).to(dtype)
 
     def act(y):
         if epi == "lrelu_norm":
@@ -287,16 +313,18 @@ def conv_library(kernel: str, epi: str, mode: str, x, w, b, rgb_w=None, rgb_b=No
     def library():
         src = F.interpolate(xl, scale_factor=2.0) if kernel == "packed_upconv" else xl
         y = act(F.conv2d(src, wl, bl, padding=1))
+        if kernel == "packed_convpool":
+            y = F.avg_pool2d(y, 2)
         if rgb_w is None:
             return y
         return y, F.conv2d(xl, rgb_w.to(dtype)[:, :, None, None], rgb_b.to(dtype))
     return library
 
 
-def b1_b2_extra(pk, kernel: str, epi: str, mode: str, call, x, w, b, rgb_w=None,
+def alone_and_library(pk, kernel: str, epi: str, mode: str, call, x, w, b, rgb_w=None,
                 rgb_b=None) -> dict:
-    """``alone_ms`` and ``library_ms`` of a B1 / B2 row at a bf16 mode."""
-    if kernel not in ("packed_upconv", "packed_conv"):
+    """``alone_ms`` and ``library_ms`` of a B1 / B2 / B5 row."""
+    if kernel not in ("packed_upconv", "packed_conv", "packed_convpool"):
         return {}
     library = conv_library(kernel, epi, mode, x, w, b, rgb_w, rgb_b)
     with torch.no_grad():
@@ -401,7 +429,7 @@ def bench_bf16(pk, dump: Path | None) -> dict:
                 torch.save([t.cpu() for t in ys], dump / f"bf16_{label}.pt")
             ms = cuda_ms(call, iters=10)
         rgb = kw if kernel == "packed_upconv" else {}
-        extra = b1_b2_extra(pk, kernel, "lrelu_norm", "default", call, x, w, b, **rgb)
+        extra = alone_and_library(pk, kernel, "lrelu_norm", "default", call, x, w, b, **rgb)
         bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
         out[label] = {"ms": ms, "bound_ms": bound_ms, "roofline_share": bound_ms / ms,
                       "sha256": digest.hexdigest(), **extra}
@@ -460,7 +488,7 @@ def bench_mid(pk, dump: Path | None) -> dict:
             ms = cuda_ms(call, iters=10)
         rgb = ({k: v for k, v in kw.items() if k.startswith("rgb")}
                if kernel == "packed_upconv" else {})
-        extra = b1_b2_extra(pk, kernel, epi, "mid", call, x, w, b, **rgb)
+        extra = alone_and_library(pk, kernel, epi, "mid", call, x, w, b, **rgb)
         bound_ms = max(2 * flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
         out[label] = {"ms": ms, "bound_ms": bound_ms, "roofline_share": bound_ms / ms,
                       "sha256": digest.hexdigest(), **extra}
@@ -551,13 +579,55 @@ def bench_narrow(pk, dump: Path | None) -> dict:
             ms = cuda_ms(call, iters=10)
             lib_ms = cuda_ms(library, iters=10)
         extra = ({"alone_ms": alone_ms(pk, call)}
-                 if mode != "high" and kernel in ("packed_upconv", "packed_conv") else {})
+                 if (mode != "high" and kernel in ("packed_upconv", "packed_conv")
+                     or kernel == "packed_convpool") else {})
         peak, passes = ((PEAK_FP32_FLOPS, 1) if mode == "high"
                         else (PEAK_BF16_FLOPS, 2 if mode == "mid" else 1))
         bound_ms = max(passes * flops / peak, nbytes / PEAK_HBM_BYTES) * 1e3
         out[label] = {"ms": ms, "library_ms": lib_ms, "bound_ms": bound_ms,
                       "roofline_share": bound_ms / ms, "sha256": digest.hexdigest(), **extra}
         del x, y, ys, xl
+    return out
+
+
+def bench_convpool(pk, dump: Path | None) -> dict:
+    """B5 at CONVPOOL_SHAPES, kernel modes "high", "default" and "mid": ms,
+    ``alone_ms``, cuDNN's ms, the bound (the larger of the FLOP at the mode's
+    peak, "mid"'s two passes, and the fp32 bytes in and out at the HBM rate)
+    and its share, sha256 of the output's bytes; the outputs saved under
+    ``dump``."""
+    out = {}
+    for i, (mode, (epi, bsz, c, cout, h)) in enumerate(
+            (m, s) for m in ("high", "default", "mid") for s in CONVPOOL_SHAPES):
+        label = f"convpool_{epi}_C{c}_Cout{cout}_{h}_{mode}_b{bsz}"
+        gen = torch.Generator(device="cuda").manual_seed(700 + i)
+        x = torch.randn((bsz, c, h, h), device="cuda", generator=gen)
+        w = torch.randn((cout, c, 3, 3), device="cuda", generator=gen) * math.sqrt(2 / (9 * c))
+        b = 0.1 * torch.randn(cout, device="cuda", generator=gen)
+
+        def call(x=x, w=w, b=b, epi=epi, mode=mode):
+            return pk.packed_convpool(x, w, b, epi, mode=mode)
+        with torch.no_grad():
+            y = call()
+            torch.cuda.synchronize()
+            digest = hashlib.sha256(y.cpu().numpy().tobytes())
+            if dump is not None:
+                torch.save([y.cpu()], dump / f"{label}.pt")
+            ms = cuda_ms(call, iters=10)
+        extra = alone_and_library(pk, "packed_convpool", epi, mode, call, x, w, b)
+
+        def b2(x=x, w=w, b=b, mode=mode):
+            return pk.packed_conv(x, w, b, "lrelu", mode=mode)
+        with torch.no_grad():
+            extra.update(b2_ms=cuda_ms(b2, iters=10), b2_alone_ms=alone_ms(pk, b2))
+        flops = 2 * 9 * c * cout * bsz * h * h
+        nbytes = 4 * bsz * h * h * (c + cout / 4)
+        peak, passes = ((PEAK_FP32_FLOPS, 1) if mode == "high"
+                        else (PEAK_BF16_FLOPS, 2 if mode == "mid" else 1))
+        bound_ms = max(passes * flops / peak, nbytes / PEAK_HBM_BYTES) * 1e3
+        out[label] = {"ms": ms, "bound_ms": bound_ms, "roofline_share": bound_ms / ms,
+                      "sha256": digest.hexdigest(), **extra}
+        del x, y
     return out
 
 
@@ -603,7 +673,7 @@ def bench_bwd(pk, dump: Path | None) -> dict:
                 torch.save([y.cpu()], dump / f"bwd_{label}.pt")
             ms = cuda_ms(call, iters=10)
         if kernel != "packed_conv_wgrad":
-            extra.update(b1_b2_extra(pk, kernel, epi, "default", call, x, w, b))
+            extra.update(alone_and_library(pk, kernel, epi, "default", call, x, w, b))
         bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
         out[label] = {"ms": ms, "bound_ms": bound_ms, "roofline_share": bound_ms / ms,
                       "sha256": digest.hexdigest(), **extra}
@@ -841,6 +911,9 @@ def main(argv=None) -> int:
 
     if "narrow" in parts:
         out["narrow"] = bench_narrow(pk, args.dump)
+
+    if "convpool" in parts:
+        out["convpool"] = bench_convpool(pk, args.dump)
 
     if "fused" in parts:
         from probgan_tpu_torch.engine import image as engine_mod

@@ -1,6 +1,6 @@
-"""Where the time of the pipelined bf16 loop of B1 ``packed_upconv`` and B2
-``packed_conv`` (``csrc/bf16_ring.cuh``, kernel modes "default" and "mid")
-goes, by ablation on one CUDA card.
+"""Where the time of the pipelined bf16 loop of B1 ``packed_upconv``, B2
+``packed_conv`` and B5 ``packed_convpool`` (``csrc/bf16_ring.cuh``, kernel
+modes "default" and "mid") goes, by ablation on one CUDA card.
 
 Each variant is a copy of ``csrc/`` with parts of the loop switched off by a
 text edit of ``bf16_ring.cuh``, built with the port's nvcc flags into a
@@ -19,8 +19,8 @@ real kernel (recorded from one wrapper call; the weights prepared once):
 
 The outputs of the variants are wrong by design; only their times mean
 anything. CUDA events, mean of 20 launches after 3 warm-ups, at the main
-paths' shapes at batch 8. Prints the card's name and power limit and one
-JSON line::
+paths' shapes at batch 8 (B5 at ``score``'s "mid" shapes). Prints the
+card's name and power limit and one JSON line::
 
     python3 -m probgan_tpu_torch.utils.bf16_ring_ablation [--variants all,copies]
 """
@@ -49,10 +49,12 @@ _NO_STORES = ("    float s_ = 0.f;  // read every sum, store nothing\n"
               "    if (s_ != 1.2345e-30f) return;\n")
 _FINISH_B2 = _FINISH.replace("COORDS", "y0, x0, slab")
 _FINISH_B1 = _FINISH.replace("COORDS", "i0, j0, py")
+_FINISH_B5 = _FINISH.replace(
+    "COORDS;\n", "y0, x0, slab;  // pooled: rows y0 / 2 .. + TH / 2, columns x0 / 2 .. + 15\n")
 _EDITS = {
     "no_products": [(_WALK_COMPUTE, "")],
     "no_copies": [(_WALK_COPY, "")],
-    "no_stores": [(_FINISH_B2, _FINISH_B2 + _NO_STORES), (_FINISH_B1, _FINISH_B1 + _NO_STORES)],
+    "no_stores": [(f, f + _NO_STORES) for f in (_FINISH_B2, _FINISH_B1, _FINISH_B5)],
 }
 _EDITS["products"] = _EDITS["no_copies"] + _EDITS["no_stores"]
 _EDITS["copies"] = _EDITS["no_products"] + _EDITS["no_stores"]
@@ -68,7 +70,10 @@ CASES = (
     ("B1 64->32@512 default toRGB", "packed_upconv", 64, 32, 512, "default", "lrelu_norm",
      True),
     ("B1 16->8@512 default toRGB", "packed_upconv", 16, 8, 512, "default", "lrelu_norm", True),
+    ("B5 32->64@1024 mid lrelu", "packed_convpool", 32, 64, 1024, "mid", "lrelu", False),
+    ("B5 64->128@512 mid lrelu", "packed_convpool", 64, 128, 512, "mid", "lrelu", False),
 )
+LIBRARIES = ("packed_conv_bf16", "packed_upconv_bf16", "packed_convpool_bf16")
 
 
 def build_variants(names, root: Path) -> dict:
@@ -87,7 +92,7 @@ def build_variants(names, root: Path) -> dict:
                 raise RuntimeError(f"{v}: the edit's anchor is not in bf16_ring.cuh once: {old!r}")
             src = src.replace(old, new)
         ring.write_text(src)
-        for lib in ("packed_conv_bf16", "packed_upconv_bf16"):
+        for lib in LIBRARIES:
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-o", str(d / f"{lib}.so"),
                    str(d / f"{lib}.cu")]
             procs[(v, lib)] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -159,9 +164,9 @@ def main(argv=None) -> int:
             kw = {"rgb_w": torch.randn((3, c), device="cuda", generator=gen) / math.sqrt(c),
                   "rgb_b": 0.1 * torch.randn(3, device="cuda", generator=gen)} if rgb else {}
             rgb_w = pk._bf16(kw["rgb_w"]).contiguous() if rgb else None
-            if kernel == "packed_conv":
-                def call():
-                    return pk.packed_conv(x, w, b, epi, mode=mode)
+            if kernel in ("packed_conv", "packed_convpool"):
+                def call(fn=getattr(pk, kernel)):
+                    return fn(x, w, b, epi, mode=mode)
             else:
                 def call():
                     return pk.packed_upconv(x, w, b, epilogue=epi, mode=mode, **kw)

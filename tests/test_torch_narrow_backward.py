@@ -149,14 +149,15 @@ def test_none_wrappers_hand_the_kernels_the_narrow_slabs(recorded, mode):
         if terms and kernel == "packed_conv":  # (..., cout, terms, epilogue, blocks, smem)
             assert tuple(wk.shape) == (cout // slab, 1, 9, slab, tpk.BF16_ROW)
             assert args[9:] == (terms, 2, 132, tpk.bf16_ring_bytes(cout))
-        elif terms:  # (..., cout, terms, act, smem)
+        elif terms:  # (..., cout, terms, act, blocks, smem): B2's bf16 ring
             assert tuple(wk.shape) == (cout // slab, 1, 9, slab, tpk.BF16_ROW)
-            assert args[9:] == (terms, 0, tpk.bf16_conv_bytes(cout, terms))
+            assert args[9:] == (terms, 0, 132, tpk.bf16_ring_bytes(cout))
         elif kernel == "packed_conv":  # (..., epilogue, o_slab, rows, blocks, smem)
             assert tuple(wk.shape) == (cout // slab, c, 3, 3, slab)
             assert args[9:] == (2, slab, 16, 132, tpk.none_ring_bytes(cout))
-        else:  # (..., cout, act)
-            assert tuple(wk.shape) == (cout // slab, c, 3, 3, slab) and args[9:] == (0,)
+        else:  # (..., cout, act, blocks, smem): the fp32 ring, two blocks an SM
+            assert tuple(wk.shape) == (cout // slab, c, 3, 3, slab)
+            assert args[9:] == (0, 264, tpk.conv_ring_bytes(cout))
     assert tpk.narrow_launches == {f"packed_conv{suffix}[cout8]": 2,
                                    f"packed_conv{suffix}[cout16]": 2,
                                    f"packed_convpool{suffix}[cout16]": 1,
