@@ -9,10 +9,11 @@
 // PixelNorm, the pool, the blend and tanh -> uint8 stay fp32.
 //
 // The tile, fragments, rounding and epilogues of every bf16 kernel, and the
-// synchronous main loop (conv_bf16_tile) of packed_conv_rgb_bf16.cu;
-// packed_conv_bf16.cu, packed_convpool_bf16.cu and packed_upconv_bf16.cu run
-// the pipelined ring of bf16_ring.cuh over the same tiles and in the same
-// order of sums, fused_bf16.cuh the stage-fused pair. An implicit GEMM on
+// bf16 staging of the stage-fused pair (fused_bf16.cuh: stage_chunk's
+// rounded, or split, patch in shared memory, read by mma_row);
+// packed_conv_bf16.cu, packed_conv_rgb_bf16.cu, packed_convpool_bf16.cu and
+// packed_upconv_bf16.cu run the pipelined ring of bf16_ring.cuh over these
+// tiles, in the order of sums that header fixes. An implicit GEMM on
 // mma.sync.m16n8k16 with bf16 operands and fp32 accumulators. M = output
 // pixels, N = a slab of Cout (32 or 64: all Cout where PixelNorm needs it,
 // slabs of 64 for Cout 128), K = taps x input channels x terms.
@@ -26,11 +27,13 @@
 //    holding pixel g also holds pixel g + 8 below it: a 2x2 window's
 //    vertical pair is d[0] + d[2] in one thread, its horizontal pair one xor
 //    shuffle of 4 lanes.
-//  * Input channels go through shared memory kCK = 32 at a time. The block
-//    stages its halo patch, rounding (at "mid": splitting) each fp32 value
-//    as it goes, into [row][column][channel] order (channels innermost, 40
-//    bf16 a pixel: 80 bytes, 20 words), so that an A fragment register (two
-//    channels of one pixel) is one 32-bit load. At "mid" the patch is staged
+//  * Input channels go through shared memory kCK = 32 at a time. The rings
+//    stage the fp32 patch and round as the fragments load (bf16_ring.cuh);
+//    the stage-fused pair's block (stage_x) stages its halo patch, rounding
+//    (at "mid": splitting) each fp32 value as it goes, into
+//    [row][column][channel] order (channels innermost, 40 bf16 a pixel: 80
+//    bytes, 20 words), so that an A fragment register (two channels of one
+//    pixel) is one 32-bit load. At "mid" the patch is staged
 //    twice, the x_hi plane and the x_lo plane: the split happens once a value
 //    and the main loop reads two planes of one layout. The weights come
 //    pre-rounded from the wrapper in the same [tap][slab][40] order for each
@@ -40,11 +43,8 @@
 //  * Per chunk, tap and half of the chunk's channels, a warp loads the slab/8
 //    B fragments (w_hi) once and runs them against each of its m16 tiles,
 //    the x_hi then the x_lo A fragments: 1 or 2 mma a fragment.
-//  * Shared memory a block of conv_bf16_tile (B3): the patch ((TH + 2) x 40
-//    pixels) once a term, and one chunk's weights. At a slab of 64: 78,080
-//    bytes at "default", 110,080 at "mid"; at 32: 80,640 and 138,240. Two
-//    blocks an SM (at most 128 registers a thread) but at "mid" with 32
-//    channels, one: one block's staging overlaps the other's products.
+//  * Shared memory a block: bf16_ring.cuh states the rings' (B1, B2, B3,
+//    B5), fused_bf16.cuh the stage-fused pair's.
 //  * Narrow slabs: at 16 and 8 channels (fmap_base 2048 at 1024²: 16 and 8
 //    channels at 512² and 1024²) the tile keeps the 32-channel geometry
 //    (16 rows, MT = 4 m16 tiles a warp) with NT = 2 or 1 n8 tiles: 32 or 16
@@ -249,19 +249,6 @@ __device__ __forceinline__ void bias_act_frag(float (&acc)[NT][4], const float* 
     }
 }
 
-// B3: a tile of TH rows x 32 columns, its halo patch (rows y0 - 1
-// .. y0 + TH, columns x0 - 4 .. x0 + 35, whole groups of 8) once a term and
-// one chunk's weights [9 taps][COUT][kPadK].
-template <int COUT, int NTERM = 1>
-struct ConvBf16 {
-  using T = BfTile<COUT>;
-  static constexpr int SR = T::TH + 2;    // patch rows: y0 - 1 .. y0 + TH
-  static constexpr int NG = 5;            // patch columns x0 - 4 .. x0 + 35
-  static constexpr int kXWords = SR * 8 * NG * kRowWords;  // one term's plane
-  static constexpr int kWWords = 9 * COUT * kRowWords;     // one chunk's weights
-  static constexpr int kBytes = 4 * (NTERM * kXWords + kWWords);
-};
-
 // The output pixel of m16 tile q = warp * MT + mt of a tile, lane row g:
 // kRow16, row q / 2 and columns 16 * (q % 2) + g (pixel g + 8: 8 columns on);
 // kPool2x8, rows 2 * (q / 4) (+ 1 for pixel g + 8) and column 8 * (q % 4) + g.
@@ -291,57 +278,6 @@ __device__ __forceinline__ void stage_chunk(unsigned* __restrict__ xs,
     stage_x<SR, NG, NTERM, 4>(xs, xb, c0, H, W, row0, col0, c_left);
   else
     stage_x<SR, NG, NTERM, 2>(xs, xb, c0, H, W, row0, col0, c_left);
-}
-
-// B3's main loop: the tile's sums of a 3x3 SAME conv, acc[m16 tile][n8
-// tile][4], m16 tile mt of the warp at mtile_row/col (kRow16).
-template <int COUT, int NTERM = 1>
-__device__ __forceinline__ void conv_bf16_tile(float (&acc)[BfTile<COUT>::MT][BfTile<COUT>::NT][4],
-                                               unsigned* smem, const float* __restrict__ x,
-                                               const unsigned* __restrict__ wk, int b, int y0,
-                                               int x0, int C, int H, int W) {
-  using T = BfTile<COUT>;
-  using K = ConvBf16<COUT, NTERM>;
-  constexpr int kHalf = 8 * kRowWords;  // pixel g to pixel g + 8, in words of the patch
-  unsigned* xs = smem;
-  unsigned* ws = smem + NTERM * K::kXWords;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int mt = 0; mt < T::MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < T::NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  const float* xb = x + static_cast<size_t>(b) * C * H * W;
-  for (int c0 = 0; c0 < C; c0 += kCK) {
-    stage_w(ws, wk + static_cast<size_t>(c0 / kCK) * K::kWWords, K::kWWords);
-    cp_async_commit();
-    stage_chunk<K::SR, K::NG, NTERM>(xs, xb, c0, C, H, W, y0 - 1, x0 - 4);
-    cp_async_wait(0);
-    __syncthreads();
-    const int halves = C - c0 > kCK / 2 ? 2 : 1;  // block-uniform
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int ky = tap / 3, kx = tap % 3;
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {  // channels 16 * kk .. + 15 of the chunk
-        if (kk >= halves) break;
-        unsigned bf[T::NT][2];
-        load_b<T::NT>(bf, ws + tap * COUT * kRowWords + 8 * kk);
-#pragma unroll
-        for (int mt = 0; mt < T::MT; ++mt) {
-          // output row r, column c of the tile reads patch row r + ky, patch
-          // column c + kx + 3
-          const int q = warp * T::MT + mt;
-          const int row = mtile_row<kRow16>(q) + ky;
-          const int col = mtile_col<kRow16>(q) + kx + 3;
-          mma_row<T::NT, NTERM>(acc[mt], xs + (row * 8 * K::NG + col) * kRowWords + 8 * kk,
-                                kHalf, K::kXWords, bf);
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with the chunk before it is replaced
-  }
 }
 
 }  // namespace probgan

@@ -1,28 +1,32 @@
 // The pipelined main loop of the bf16 kernel modes of packed_conv (B2,
 // packed_conv_bf16.cu), packed_convpool (B5, packed_convpool_bf16.cu: B2's
-// ring with the pool's m16 layout and epilogue) and packed_upconv (B1,
-// packed_upconv_bf16.cu): "default" (one bf16 pass) and "mid" (the 2-term
-// split). A persistent block walks output tiles, and each tile's input
-// channels stream through a ring of shared-memory stages, one chunk of 32
-// channels a stage, filled by cp.async while the tensor cores run an earlier
-// stage's products.
+// ring with the pool's m16 layout and epilogue), packed_conv_rgb (B3,
+// packed_conv_rgb_bf16.cu: B2's ring at one slab of all Cout with the toRGB
+// tail as its epilogue) and packed_upconv (B1, packed_upconv_bf16.cu):
+// "default" (one bf16 pass) and "mid" (the 2-term split). A persistent block
+// walks output tiles, and each tile's input channels stream through a ring
+// of shared-memory stages, one chunk of 32 channels a stage, filled by
+// cp.async while the tensor cores run an earlier stage's products.
 //
-// What it keeps from bf16_conv.cuh's synchronous loop (conv_bf16_tile, which
-// B3 still runs), so that every output has that loop's bits: the tile
-// (BfTile: TH x 32 outputs of one slab; B1: TH input rows x 16 input columns
-// of one output-row parity, both column parities), the warps' m16 (B5's
-// kPool2x8) and n8 tiles, the wrapper's pre-rounded weight layouts, and the
-// order of the mma.sync.m16n8k16 steps onto each accumulator: chunks of 32 input channels
-// ascending, then taps (B1: its parity's 4 pre-summed taps), then the
-// chunk's two k16 halves, then the terms (x_hi, then x_lo), with channel
-// 16 * half + k of the chunk at K position k. A chunk is the unit whose taps
-// run in sequence, so a stage holds a whole one. Each activation is rounded
-// from the same fp32 value by the same instruction: x_hi = bf16(x)
-// (cvt.rn.bf16x2.f32), x_lo = bf16(x - x_hi), exact differences. The
-// epilogues are bias_lrelu_norm_frag and bias_act_frag on the fragments, and
-// B1's toRGB sums the chunk's rounded (split) channels in ascending order.
+// The order of sums, the rule every kernel on this ring keeps so that its
+// outputs stay bit-equal from one commit to the next (and B3's features
+// equal B2 "lrelu_norm"'s, B5's pool B2 "lrelu"'s pooled): the tile (BfTile:
+// TH x 32 outputs of one slab; B1: TH input rows x 16 input columns of one
+// output-row parity, both column parities),
+// the warps' m16 (B5's kPool2x8) and n8 tiles, the wrapper's pre-rounded
+// weight layouts, and the order of the mma.sync.m16n8k16 steps onto each
+// accumulator: chunks of 32 input channels ascending, then taps (B1: its
+// parity's 4 pre-summed taps), then the chunk's two k16 halves, then the
+// terms (x_hi, then x_lo), with channel 16 * half + k of the chunk at K
+// position k. A chunk is the unit whose taps run in sequence, so a stage
+// holds a whole one. Each activation is rounded from the same fp32 value by
+// the same instruction: x_hi = bf16(x) (cvt.rn.bf16x2.f32), x_lo = bf16(x -
+// x_hi), exact differences. The epilogues are bias_lrelu_norm_frag and
+// bias_act_frag on the fragments; B1's toRGB sums the chunk's rounded
+// (split) channels in ascending order, B3's each lane's rounded (split)
+// features over its n8 tiles, then the quad by two xor shuffles.
 //
-// What it changes:
+// Around that order, free to change:
 //  * A stage holds the tile's halo patch of one chunk in fp32, laid out as
 //    device memory holds it: [channel][row][column], copied in 16-byte
 //    cp.async pieces of 4 columns (a patch row spans whole pieces, x0 - 4 ..
@@ -39,10 +43,11 @@
 //    share it), which moves no product: an accumulator's order stays.
 //  * Persistent blocks, one an SM (ops/packed.py persistent_blocks): block k
 //    walks tiles k, k + blocks, ... in the fp32 ring's order (B2, B5: slab
-//    fastest, B1: parity fastest), and the ring runs through its tiles
-//    without a break: chunk k + 1's copies are in flight while chunk k's
-//    products run, and the next tile's first chunk is copied during the last
-//    chunk's products and the epilogue and stores. One __syncthreads a stage.
+//    fastest, B3: one slab, B1: parity fastest), and the ring runs through
+//    its tiles without a break: chunk k + 1's copies are in flight while
+//    chunk k's products run, and the next tile's first chunk is copied
+//    during the last chunk's products and the epilogue and stores. One
+//    __syncthreads a stage.
 //
 // Why fp32 in the ring and not a bf16 patch converted in shared memory (read
 // then by ldmatrix): that needs a double-buffered bf16 plane once a term
@@ -56,14 +61,16 @@
 // products (measured: PERF.md §6), as the copies' L2 bytes bound the
 // ring; the two overlap only in part in one block of 8 warps.
 //
-// Shared memory a block (32-bit words; rows of 40 floats for B2, B5, 24 for B1):
+// Shared memory a block (32-bit words; rows of 40 floats for B2, B3, B5, 24
+// for B1):
 //   B2, B5 slab 64: x 32 ch x (10 x 40 + 4) + w 9 x 64 x 20 = 24,448 a stage
 //   B2, B5 slab 32: x 32 ch x (18 x 40 + 4) + w 9 x 32 x 20 = 28,928 a stage
 //   B2, B5 slab 16, 8: x 32 ch x 724 + w 9 x 16 (8) x 20 = 26,048, 24,608
 //   B1 Cout 64: x 32 ch x (9 x 24 + 4) + w 8 x 64 x 20 = 17,280 a stage
 //   B1 Cout 32, 16, 8: x 32 ch x (17 x 24 + 4) + w 8 x Cout x 20 = 18,304,
 //   15,744, 14,464
-// B2 and B5 in 2 stages: 195,584 / 231,424 / 208,384 / 196,864 B; B1 in 3
+// B2, B5 and B3 (one slab of all Cout: B2's bytes at that slab) in 2 stages:
+// 195,584 / 231,424 / 208,384 / 196,864 B at 64 / 32 / 16 / 8; B1 in 3
 // stages: 207,360 / 219,648 / 188,928 / 173,568 B (ops/packed.py bf16_ring_bytes,
 // bf16_upconv_ring_bytes; the kernels refuse another figure). Each is under
 // a block's 232,448 and too large for a second block in an SM's 233,472 (1 KB
@@ -445,6 +452,105 @@ struct ConvPoolBf16Ring : ConvBf16Ring<COUT, NTERM, EPI> {
         const float p0 = 0.5f * (v0 + __shfl_xor_sync(0xffffffffu, v0, 4));
         const float p1 = 0.5f * (v1 + __shfl_xor_sync(0xffffffffu, v1, 4));
         row[static_cast<size_t>(8 * nt + 2 * tq + odd) * plane] = odd ? p1 : p0;
+      }
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// B3: 3x3 SAME conv + bias -> LeakyReLU -> PixelNorm -> toRGB -> the blend
+// with the nearest-2x of the previous RGB (-> tanh -> uint8), NHWC out
+// ---------------------------------------------------------------------------
+
+// ConvBf16Ring<COUT, NTERM, kLreluNorm> at one slab of all COUT channels:
+// its tiles, walk, copies, stages, bytes, fragments and compute, so each
+// feature has B2 "lrelu_norm"'s bits; only the epilogue differs, and the
+// features never leave the registers. finish: bias_lrelu_norm_frag, then
+// each lane's toRGB products of its channels 8 nt + 2 tq (+ 1) for its two
+// pixels, each feature rounded (at "mid" split) in the lane, summed over nt,
+// then e; the quad's sum by xor shuffles of 1, then 2; lane tq = 0 writes
+// pixel g and lane 1 pixel g + 8: prev + alpha * ((rgb + rgb_b) - prev), prev
+// the nearest-2x of the previous RGB, then at U8 tanh -> rint((t + 1) *
+// 127.5) -> clip [0, 255] -> uint8 (conv_tile.cuh rgb_blend_store's
+// arithmetic). It runs while the next tile's first chunk is in flight, with
+// no other work beside it in the SM, so its latencies add up: the lane's
+// prev values of all m16 tiles are loaded first, and every tile's RGB is
+// summed before the first store (a load after a store waits for it: the
+// members carry no __restrict__).
+template <int COUT, int NTERM, bool U8>
+struct ConvRgbBf16Ring : ConvBf16Ring<COUT, NTERM, kLreluNorm> {
+  using Base = ConvBf16Ring<COUT, NTERM, kLreluNorm>;
+  using T = typename Base::T;
+  static constexpr int MT = Base::MT, NT = Base::NT;
+
+  const float* rgb_w;  // [3][COUT]: bf16 values (the wrapper's) in fp32
+  const float* rgb_b;  // [3]
+  const float* prev;   // [B][3][H/2][W/2]
+  float alpha;
+  void* out;           // [B][H][W][3], uint8 at U8, else fp32
+
+  __device__ __forceinline__ ConvRgbBf16Ring(const float* x_, const unsigned* wk_,
+                                             const float* b_, const float* rgb_w_,
+                                             const float* rgb_b_, const float* prev_,
+                                             float alpha_, void* out_, int C_, int H_, int W_)
+      : Base(x_, wk_, b_, nullptr, C_, H_, W_, 1), rgb_w(rgb_w_), rgb_b(rgb_b_), prev(prev_),
+        alpha(alpha_), out(out_) {}
+
+  __device__ __forceinline__ void finish(int tile, float (&acc)[MT][NT][4]) const {
+    int b, y0, x0, slab;  // slab 0: all COUT channels
+    this->tile_of(tile, b, y0, x0, slab);
+    const int H = this->H, W = this->W;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, tq = lane & 3;
+    const int Hp = H / 2, Wp = W / 2;
+    const float* pv = prev + static_cast<size_t>(b) * 3 * Hp * Wp;
+    // m16 tile mt's pixel of lane tq < 2: pixel g (tq 0) or g + 8 (tq 1)
+    auto gy = [&](int mt) { return y0 + warp * T::RW + mt / 2; };
+    auto gx = [&](int mt) { return x0 + 16 * (mt % 2) + g + 8 * tq; };
+    float pk[MT][3];
+    if (tq < 2) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          pk[mt][k] = __ldg(pv + (static_cast<size_t>(k) * Hp + gy(mt) / 2) * Wp + gx(mt) / 2);
+    }
+    float rgb[MT][3];  // the lane's pixel's (tq < 2)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      bias_lrelu_norm_frag<NT>(acc[mt], this->bias);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)  // pixel g, pixel g + 8
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          float p = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              p = fmaf(NTERM == 1 ? round_bf16(acc[mt][nt][2 * h + e])
+                                  : split2(acc[mt][nt][2 * h + e]),
+                       __ldg(rgb_w + k * COUT + 8 * nt + 2 * tq + e), p);
+          p += __shfl_xor_sync(0xffffffffu, p, 1);
+          p += __shfl_xor_sync(0xffffffffu, p, 2);
+          if (h == 0 || tq == 1) rgb[mt][k] = p;
+        }
+    }
+    if (tq >= 2) return;
+    const float rb[3] = {__ldg(rgb_b), __ldg(rgb_b + 1), __ldg(rgb_b + 2)};
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const size_t o = ((static_cast<size_t>(b) * H + gy(mt)) * W + gx(mt)) * 3;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float v = pk[mt][k] + alpha * ((rgb[mt][k] + rb[k]) - pk[mt][k]);
+        if constexpr (U8) {
+          const float th = tanhf(v);
+          const float q = fminf(fmaxf(rintf((th + 1.0f) * 127.5f), 0.f), 255.f);
+          static_cast<unsigned char*>(out)[o + k] = static_cast<unsigned char>(q);
+        } else {
+          static_cast<float*>(out)[o + k] = v;
+        }
       }
     }
   }

@@ -23,9 +23,9 @@
 // TB/s): ~144 FLOP a byte a pass, under the ~295 where the tensor cores
 // would become the limit.
 //
-// Design (bf16_ring.cuh, redesigned from bf16_conv.cuh's synchronous loop
-// with the same bits): persistent blocks, one an SM, walk tiles of 8 rows x
-// 32 columns x a slab of 64 channels (16 rows at 32, 16 and 8), the slab
+// Design (bf16_ring.cuh ConvBf16Ring): persistent blocks, one an SM, walk
+// tiles of 8 rows x 32 columns x a slab of 64 channels (16 rows at 32, 16
+// and 8), the slab
 // fastest so that the slabs of a tile run side by side and share its patch
 // in L2; each tile's input channels stream 32 at a time through a ring of
 // two shared-memory stages (the fp32 patch of 10 x 40 pixels, 18 x 40 at

@@ -14,129 +14,100 @@
 // stage-8 conv2 of the 1024^2 generator at the "fast" and default grades,
 // and with the generator's packed mode "mid" or "default+mid": 32 -> 32
 // channels at 1024^2, then RGB (64 -> 64 at 512^2 when the generator ends at
-// stage 7).
+// stage 7; 8 -> 8 at 1024^2 and 16 -> 16 at 512^2 in the narrow generator,
+// fmap_base 2048).
 //
 // Bound on the H100: bytes. At batch 2 the conv does 38.7 GFLOP (0.039 ms at
 // 989 TFLOP/s of bf16) and reads 268 MB of fp32 x and writes 6 MB of uint8
 // (0.082 ms at 3.35 TB/s); "mid" runs twice the conv's products (0.078 ms).
 //
-// Design: packed_conv_bf16.cu's tile and main loop (bf16_conv.cuh
-// conv_bf16_tile) and its bias -> LeakyReLU -> PixelNorm on the fragments;
-// then each lane takes the toRGB products of its channels (8 * nt + 2t, + 1)
-// (each feature rounded, or split, in the lane)
-// for its two pixels, the quad sums them by two xor shuffles, and lane t = 0
-// writes pixel g and lane t = 1 pixel g + 8 with conv_tile.cuh
-// rgb_blend_store's blend and denorm.
-#include "bf16_conv.cuh"
+// Design (bf16_ring.cuh ConvRgbBf16Ring, on packed_conv_bf16's ring):
+// persistent blocks, one an SM, walk packed_conv's tiles of 8 rows x 32
+// columns at 64 channels (16 rows at 32, 16 and 8), all Cout in one slab;
+// each tile's input channels stream 32 at a time through a ring of two
+// shared-memory stages (the fp32 halo patch and the chunk's bf16 weights),
+// filled by cp.async while the products of the stage before run, the
+// activations rounded (at "mid" split) as the A fragments are loaded: B2
+// "lrelu_norm"'s ring, sums and order, so each feature has its bits. The
+// epilogue runs on the mma fragments while the next tile's first chunk is
+// in flight: bias -> LeakyReLU -> PixelNorm (the quad's two xor shuffles),
+// then each lane the toRGB products of its channels (8 * nt + 2t, + 1) for
+// its two pixels, each feature rounded (or split) in the lane, the quad's
+// sum by two xor shuffles, and lane t = 0 writes pixel g and lane t = 1
+// pixel g + 8 with conv_tile.cuh rgb_blend_store's blend and denorm; the
+// lane's prev values are loaded first and the stores come after every m16
+// tile's sums (bf16_ring.cuh: the tail is latency-bound). Every sum keeps
+// the order bf16_ring.cuh fixes.
+#include "bf16_ring.cuh"
 
 namespace probgan {
 
 template <int COUT, int NTERM, bool U8>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, 1)
     packed_conv_rgb_bf16_kernel(const float* __restrict__ x, const unsigned* __restrict__ wk,
                                 const float* __restrict__ bias, const float* __restrict__ rgb_w,
                                 const float* __restrict__ rgb_b, const float* __restrict__ prev,
-                                float alpha, void* __restrict__ out, int C, int H, int W) {
-  using T = BfTile<COUT>;
-  extern __shared__ __align__(16) unsigned bf16_smem[];
-  const int tiles_x = W / 32, tiles_y = H / T::TH;
-  int t = blockIdx.x;
-  const int x0 = (t % tiles_x) * 32;
-  t /= tiles_x;
-  const int y0 = (t % tiles_y) * T::TH;
-  const int b = t / tiles_y;
-  float acc[T::MT][T::NT][4];
-  conv_bf16_tile<COUT, NTERM>(acc, bf16_smem, x, wk, b, y0, x0, C, H, W);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const float rb[3] = {__ldg(rgb_b), __ldg(rgb_b + 1), __ldg(rgb_b + 2)};
-  const int Hp = H / 2, Wp = W / 2;
-  const float* pv = prev + static_cast<size_t>(b) * 3 * Hp * Wp;
-#pragma unroll
-  for (int mt = 0; mt < T::MT; ++mt) {
-    bias_lrelu_norm_frag<T::NT>(acc[mt], bias);
-    float rgb[2][3];  // pixel g, pixel g + 8
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        float p = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < T::NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)  // rgb_w [3][COUT]: bf16 values (the wrapper's) in fp32
-            p = fmaf(NTERM == 1 ? round_bf16(acc[mt][nt][2 * h + e])
-                                : split2(acc[mt][nt][2 * h + e]),
-                     __ldg(rgb_w + k * COUT + 8 * nt + 2 * tq + e), p);
-        p += __shfl_xor_sync(0xffffffffu, p, 1);
-        p += __shfl_xor_sync(0xffffffffu, p, 2);
-        rgb[h][k] = p;
-      }
-    if (tq < 2) {
-      const int gy = y0 + warp * T::RW + mt / 2;
-      const int gx = x0 + 16 * (mt % 2) + g + 8 * tq;
-      const size_t o = ((static_cast<size_t>(b) * H + gy) * W + gx) * 3;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float pk = __ldg(pv + (static_cast<size_t>(k) * Hp + gy / 2) * Wp + gx / 2);
-        const float v = pk + alpha * ((rgb[tq][k] + rb[k]) - pk);
-        if constexpr (U8) {
-          const float th = tanhf(v);
-          const float q = fminf(fmaxf(rintf((th + 1.0f) * 127.5f), 0.f), 255.f);
-          static_cast<unsigned char*>(out)[o + k] = static_cast<unsigned char>(q);
-        } else {
-          static_cast<float*>(out)[o + k] = v;
-        }
-      }
-    }
-  }
+                                float alpha, void* __restrict__ out, int C, int H, int W,
+                                int n_tiles) {
+  extern __shared__ __align__(16) float bf16_ring_smem[];
+  ConvRgbBf16Ring<COUT, NTERM, U8> cv(x, wk, bias, rgb_w, rgb_b, prev, alpha, out, C, H, W);
+  bf16_ring_walk(cv, bf16_ring_smem, n_tiles);
 }
 
 template <int COUT, int NTERM, bool U8>
 int launch(const float* x, const unsigned* wk, const float* bias, const float* rgb_w,
            const float* rgb_b, const float* prev, float alpha, void* out, int B, int C, int H,
-           int W, int smem, cudaStream_t stream) {
-  using K = ConvBf16<COUT, NTERM>;
+           int W, int blocks, int smem, cudaStream_t stream) {
+  using K = ConvRgbBf16Ring<COUT, NTERM, U8>;
   const long long n_tiles = static_cast<long long>(B) * (H / BfTile<COUT>::TH) * (W / 32);
   if (B < 1 || C < 8 || C % 8 || H % BfTile<COUT>::TH || W < 32 || W % 32 ||
-      n_tiles > 0x7fffffff || smem != K::kBytes)
+      n_tiles > 0x7fffffff || blocks < 1 || blocks > n_tiles || smem != K::kBytes ||
+      reinterpret_cast<size_t>(x) % 16)
     return cudaErrorInvalidValue;
   const auto kernel = packed_conv_rgb_bf16_kernel<COUT, NTERM, U8>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(n_tiles), kThreads, smem, stream>>>(
-      x, wk, bias, rgb_w, rgb_b, prev, alpha, out, C, H, W);
+  kernel<<<blocks, kThreads, smem, stream>>>(x, wk, bias, rgb_w, rgb_b, prev, alpha, out, C, H,
+                                             W, static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The geometry the ring was compiled with at Cout COUT: {stages, bytes a
+// block, blocks an SM at those bytes}.
+template <int COUT, int NTERM>
+int geometry(int* out) {
+  return ring_geometry<ConvRgbBf16Ring<COUT, NTERM, true>>(
+      packed_conv_rgb_bf16_kernel<COUT, NTERM, true>, out);
 }
 
 }  // namespace probgan
 
-// x [B][C][H][W] fp32, wk [ceil(C/32)][9][Cout][40] bf16 (ops/packed.py
-// conv_bf16_weights), bias [Cout], rgb_w [3][Cout] (values rounded to bf16,
-// stored as fp32), rgb_b [3], prev [B][3][H/2][W/2] -> out [B][H][W][3],
-// uint8 if emit_uint8 else fp32 pre-tanh RGB; terms 1 ("default") or 2
-// ("mid"); Cout 8, 16, 32 or 64, C % 8 == 0, H % (8 at Cout 64, else 16) == 0,
-// W % 32 == 0; smem
-// the block's dynamic shared memory in bytes (ops/packed.py bf16_conv_bytes,
-// checked against the kernel's). Returns the cudaError_t of the launch (0 =
+// x [B][C][H][W] fp32, 16-byte aligned, wk [ceil(C/32)][9][Cout][40] bf16
+// (ops/packed.py conv_bf16_weights: packed_conv_bf16's layout at one slab),
+// bias [Cout], rgb_w [3][Cout] (values rounded to bf16, stored as fp32),
+// rgb_b [3], prev [B][3][H/2][W/2] -> out [B][H][W][3], uint8 if emit_uint8
+// else fp32 pre-tanh RGB; terms 1 ("default") or 2 ("mid"); Cout 8, 16, 32
+// or 64, C % 8 == 0, H % (8 at Cout 64, else 16) == 0, W % 32 == 0; blocks
+// the persistent blocks (1 .. tiles; ops/packed.py persistent_blocks), smem
+// the block's dynamic shared memory in bytes (ops/packed.py bf16_ring_bytes,
+// checked against the ring's). Returns the cudaError_t of the launch (0 =
 // launched).
 extern "C" int probgan_packed_conv_rgb_bf16(const float* x, const void* wk, const float* bias,
                                             const float* rgb_w, const float* rgb_b,
                                             const float* prev, float alpha, void* out,
                                             int emit_uint8, int B, int C, int H, int W, int cout,
-                                            int terms, int smem, void* stream) {
+                                            int terms, int blocks, int smem, void* stream) {
   using namespace probgan;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto w = static_cast<const unsigned*>(wk);
 #define PROBGAN_RGB_LAUNCH(CO, NT, U8) \
-  launch<CO, NT, U8>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W, smem, s)
-#define PROBGAN_RGB_COUT(CO)                                                        \
-  if (cout == CO) {                                                                 \
-    if (terms == 1)                                                                 \
+  launch<CO, NT, U8>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W, blocks, smem, s)
+#define PROBGAN_RGB_COUT(CO)                                                                  \
+  if (cout == CO) {                                                                           \
+    if (terms == 1)                                                                           \
       return emit_uint8 ? PROBGAN_RGB_LAUNCH(CO, 1, true) : PROBGAN_RGB_LAUNCH(CO, 1, false); \
-    if (terms == 2)                                                                 \
+    if (terms == 2)                                                                           \
       return emit_uint8 ? PROBGAN_RGB_LAUNCH(CO, 2, true) : PROBGAN_RGB_LAUNCH(CO, 2, false); \
   }
   PROBGAN_RGB_COUT(8)
@@ -145,5 +116,20 @@ extern "C" int probgan_packed_conv_rgb_bf16(const float* x, const void* wk, cons
   PROBGAN_RGB_COUT(64)
 #undef PROBGAN_RGB_COUT
 #undef PROBGAN_RGB_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
+// out[3] = {stages, bytes a block, blocks an SM} of the ring at Cout `cout`
+// (8, 16, 32 or 64) and `terms` terms, as compiled.
+extern "C" int probgan_packed_conv_rgb_bf16_geometry(int cout, int terms, int* out) {
+  using namespace probgan;
+#define PROBGAN_GEOMETRY(S) \
+  if (cout == S) return terms == 1 ? geometry<S, 1>(out) : geometry<S, 2>(out);
+  if (terms != 1 && terms != 2) return cudaErrorInvalidValue;
+  PROBGAN_GEOMETRY(64)
+  PROBGAN_GEOMETRY(32)
+  PROBGAN_GEOMETRY(16)
+  PROBGAN_GEOMETRY(8)
+#undef PROBGAN_GEOMETRY
   return cudaErrorInvalidValue;
 }

@@ -29,11 +29,10 @@
 // xor shuffle of 4 lanes. The mean is taken rows first, then columns,
 // 0.5 * (0.5 * (a00 + a10) + 0.5 * (a01 + a11)), after the activation, as in
 // packed_convpool.cu. The layout moves no sum: each pixel is summed in
-// packed_conv_bf16's order (chunks, taps, k16 halves, terms), the order of
-// bf16_conv.cuh's synchronous loop (one block a tile, one cp.async stage
-// then its products) that this kernel ran before, so its bits stay, and
-// packed_conv "lrelu" at the same mode pooled in this order gives these bits
-// (convpool_lrelu's mask recompute relies on it).
+// packed_conv_bf16's order (chunks, taps, k16 halves, terms), the order
+// bf16_ring.cuh fixes, and packed_conv "lrelu" at the same mode pooled in
+// this order gives these bits (convpool_lrelu's mask recompute relies on
+// it).
 #include "bf16_ring.cuh"
 
 namespace probgan {

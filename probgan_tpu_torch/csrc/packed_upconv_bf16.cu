@@ -25,10 +25,10 @@
 // TB/s); stage 8 the same FLOP over 67 + 268 MB (0.100 ms). "mid" runs twice
 // the products (0.070 ms), still under the bytes.
 //
-// Design (bf16_ring.cuh, redesigned from bf16_conv.cuh's synchronous loop
-// with the same bits): a tile is the output rows of ONE parity py under TH
-// input rows (8 at Cout 64, 16 below) and 16 input columns, both column
-// parities, all Cout; persistent blocks, one an SM, walk the tiles with the
+// Design (bf16_ring.cuh UpconvBf16Ring): a tile is the output rows of ONE
+// parity py under TH input rows (8 at Cout 64, 16 below) and 16 input
+// columns, both column parities, all Cout; persistent blocks, one an SM,
+// walk the tiles with the
 // parity fastest, so both parities of a patch run side by side and share it
 // in L2. Each tile's input channels stream 32 at a time through a ring of
 // three shared-memory stages (the fp32 patch of TH + 1 rows x 24 columns and

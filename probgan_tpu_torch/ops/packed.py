@@ -140,7 +140,7 @@ _ARGTYPES = {
                            _P],
     "packed_conv_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv_rgb_bf16": [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _I,
-                             _I, _I, _I, _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_convpool_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_conv_wgrad_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_upconv_conv_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -154,10 +154,12 @@ BF16_TERMS = {"default": 1, "mid": 2}
 # The bf16 kernels (csrc/bf16_conv.cuh): input channels a shared-memory chunk,
 # and bf16 a staged pixel or weight row (the chunk's channels, then 8 zeros).
 BF16_CK, BF16_ROW = 32, 40
-# The pipelined bf16 ring of packed_conv (and of packed_convpool, which keeps
-# its stages and bytes) and packed_upconv (csrc/bf16_ring.cuh): stages, and
-# floats a row of a stage's fp32 patch, of each.
-BF16_RING_STAGES = {"packed_conv": 2, "packed_convpool": 2, "packed_upconv": 3}
+# The pipelined bf16 ring of packed_conv (and of packed_convpool and
+# packed_conv_rgb, which keep its stages and bytes) and packed_upconv
+# (csrc/bf16_ring.cuh): stages, and floats a row of a stage's fp32 patch, of
+# each.
+BF16_RING_STAGES = {"packed_conv": 2, "packed_convpool": 2, "packed_conv_rgb": 2,
+                    "packed_upconv": 3}
 BF16_RING_ROW = {"packed_conv": 40, "packed_upconv": 24}
 # Output channel counts the kernels are instantiated for (csrc/conv_tile.cuh
 # Tile, csrc/bf16_conv.cuh BfTile). PixelNorm needs every channel in one
@@ -372,24 +374,16 @@ def upconv_bf16_weights(w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def bf16_conv_bytes(cout: int, terms: int = 1) -> int:
-    """Dynamic shared memory of a packed_conv_rgb_bf16 block
-    (ConvBf16::kBytes) for a slab of ``_pool_slab(cout)`` channels: the bf16
-    patch, tile rows + 2 x 40 columns x 40, once a term, and one chunk's
-    weights, 9 x slab x 40."""
-    slab = _pool_slab(cout)
-    return 2 * BF16_ROW * (terms * (_tile_rows(slab) + 2) * 40 + 9 * slab)
-
-
 def _bf16_ring_bytes(name: str, rows: int, taps: int) -> int:
     stage = BF16_CK * (rows * BF16_RING_ROW[name] + 4) + taps * BF16_ROW // 2
     return 4 * BF16_RING_STAGES[name] * stage
 
 
 def bf16_ring_bytes(cout: int) -> int:
-    """Dynamic shared memory of a packed_conv_bf16 and a packed_convpool_bf16
-    block (csrc/bf16_ring.cuh ConvBf16Ring::kBytes, which ConvPoolBf16Ring
-    keeps) at a slab of ``_pool_slab(cout)`` channels, the same at both term
+    """Dynamic shared memory of a packed_conv_bf16, a packed_convpool_bf16
+    and a packed_conv_rgb_bf16 block (csrc/bf16_ring.cuh
+    ConvBf16Ring::kBytes, which ConvPoolBf16Ring and ConvRgbBf16Ring keep) at
+    a slab of ``_pool_slab(cout)`` channels (B3: all Cout), the same at both term
     counts: 2 stages of one 32-channel chunk, each its fp32 halo patch (tile
     rows + 2 rows of 40 floats, 4 more a channel) and its 9 x slab x 40 bf16
     weights."""
@@ -408,8 +402,8 @@ def bf16_upconv_ring_bytes(cout: int) -> int:
 def bf16_ring_geometry(name: str, cout: int, terms: int) -> tuple[int, int, int]:
     """(stages, bytes a block, resident blocks an SM) of the bf16 ring of
     ``name`` ("packed_conv" and "packed_convpool" at a slab of ``cout``
-    channels, "packed_upconv" at Cout ``cout``) as the card's library was
-    compiled: the C entry probgan_<name>_bf16_geometry of
+    channels, "packed_conv_rgb" and "packed_upconv" at Cout ``cout``) as the
+    card's library was compiled: the C entry probgan_<name>_bf16_geometry of
     csrc/<name>_bf16.cu. Builds the library if needed; on the card only."""
     lib = _build.load(f"{name}_bf16")
     fn = getattr(lib, f"probgan_{name}_bf16_geometry")
@@ -820,12 +814,12 @@ def packed_conv_rgb(x, w, b, rgb_w, rgb_b, rgb_prev, alpha, *,
     x [B, C, H, W] fp32, w [Cout, C, 3, 3], b [Cout], rgb_w [3, Cout],
     rgb_b [3], rgb_prev [B, 3, H/2, W/2], alpha a runtime scalar
     -> NHWC [B, H, W, 3], uint8 or fp32 pre-tanh RGB. On CUDA, Cout is 8,
-    16, 32 or 64, C a multiple of 8, and the kernel runs packed_conv's fp32
-    ring ("lrelu_norm"'s tiles and
-    sums, so the same bits) with the toRGB tail as its epilogue. ``mode``:
-    "high"/"highest" (fp32), "default" (one bf16 pass) or "mid" (the 2-term
-    split), toRGB's dot too; both bf16 modes are ``packed_conv_rgb_bf16`` on
-    the card."""
+    16, 32 or 64, C a multiple of 8, and the kernel runs packed_conv's ring
+    ("lrelu_norm"'s tiles and sums, so the same bits) with the toRGB tail as
+    its epilogue. ``mode``: "high"/"highest" (fp32, the fp32 ring),
+    "default" (one bf16 pass) or "mid" (the 2-term split), toRGB's dot too;
+    both bf16 modes are ``packed_conv_rgb_bf16`` on the card (the bf16 ring,
+    one slab of all Cout)."""
     alpha = float(alpha)
     if x.device.type == "cpu":
         return packed_conv_rgb_plain(x, w, b, rgb_w, rgb_b, rgb_prev, alpha,
@@ -852,9 +846,13 @@ def packed_conv_rgb(x, w, b, rgb_w, rgb_b, rgb_prev, alpha, *,
                       dtype=torch.uint8 if emit_uint8 else torch.float32)
     if terms:
         wk, rgb_w = conv_bf16_weights(w), _bf16(rgb_w.reshape(3, cout)).contiguous()
+        x = _aligned16(x)
+        smem = bf16_ring_bytes(cout)
+        blocks = persistent_blocks(conv_tile_count(bsz, cout, h, wd), _sms(x.device),
+                                   ring_blocks_per_sm(smem))
         _bf16_launch(name, terms, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),
                      _ptr(rgb_prev), alpha, _ptr(out), int(emit_uint8), bsz, c, h, wd, cout,
-                     terms, bf16_conv_bytes(cout, terms), slab=cout)
+                     terms, blocks, smem, slab=cout)
         return out
     wk = conv_kernel_weights(w)
     rgb_w = rgb_w.reshape(3, cout).contiguous()

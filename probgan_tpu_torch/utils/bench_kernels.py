@@ -52,6 +52,16 @@ one CUDA card, in parts (``--parts``, all by default):
   and ``library_ms`` (below; at "high" cuDNN in fp32 with TF32 off), and
   ``b2_ms`` / ``b2_alone_ms``: B2 ``packed_conv`` "lrelu" at the same conv
   and mode, the same ring and products without the pool;
+- ``rgb``: B3 ``packed_conv_rgb`` at every kernel mode ("high", "default",
+  "mid"), uint8 (alpha 1) and fp32 (alpha 0.3), at ``generate``'s
+  32 -> 32 at 1024² (stage 8) and 64 -> 64 at 512² (stage 7), the narrow
+  generator N's 8 -> 8 at 1024² and 16 -> 16 at 512², and a ragged 40 -> 32
+  at 64² (a partial chunk of input channels), batch 2 and 8, each with
+  ``alone_ms`` and ``library_ms`` (cuDNN ``F.conv2d`` with the torch
+  epilogue, toRGB, blend and denorm: bf16 tensors at "default", the
+  bf16-rounded weights at "mid", fp32 with TF32 off at "high"), and
+  ``b2_ms`` / ``b2_alone_ms``: B2 ``packed_conv`` "lrelu" at the same conv
+  and mode, the same ring and products without the toRGB tail;
 - ``narrow``: the kernels at 16 and 8 channels of the narrow 1024² generator
   (fmap_base 2048, fmap_max 256; packed stages 6-8): ``packed_upconv``
   32 -> 16 and 16 -> 8 (with toRGB), ``packed_conv`` "lrelu_norm" 16 -> 16
@@ -70,7 +80,7 @@ with the torch epilogue (and B5's ``F.avg_pool2d``) on bf16 tensors at
 "default" and with the bf16-rounded weights at "mid".
 
 ``--dump DIR`` saves each ``none``, ``fp32``, ``bf16``, ``mid``, ``bwd``,
-``fused``, ``convpool`` and ``narrow`` output, made from fixed seeds, to
+``fused``, ``convpool``, ``rgb`` and ``narrow`` output, made from fixed seeds, to
 ``DIR/<shape>.pt`` (and with ``rank`` the ``rank_scores_fused`` matrices,
 with ``generate`` the first call's images);
 ``--compare A B`` counts the values whose bits differ between two such
@@ -101,7 +111,7 @@ import numpy as np
 import torch
 
 PARTS = ("rank", "none", "fp32", "train", "generate", "fused", "bf16", "mid", "bwd", "narrow",
-         "convpool")
+         "convpool", "rgb")
 CONV_SHAPES = ((32, 32, 1024), (64, 32, 1024), (64, 64, 512), (128, 64, 512),
                (32, 64, 1024), (64, 128, 512))
 # (label, kernel, epilogue, batch, C, Cout, H, toRGB): the fp32 launches
@@ -231,6 +241,11 @@ CONVPOOL_SHAPES = (
     ("lrelu", 2, 8, 16, 1024), ("lrelu", 2, 16, 32, 512), ("none", 2, 8, 16, 1024),
     ("none", 2, 8, 8, 1024), ("lrelu", 2, 24, 40, 64), ("none", 2, 24, 40, 64),
 )
+# (batch, C, Cout, H): B3's launches, each at "high", "default" and "mid",
+# uint8 and fp32: generate's stages 8 and 7, N's, a ragged C
+RGB_SHAPES = tuple((bsz, *s) for bsz in (2, 8)
+                   for s in ((32, 32, 1024), (64, 64, 512), (8, 8, 1024), (16, 16, 512),
+                             (40, 32, 64)))
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, CUDA cores
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, tensor cores, dense bf16
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
@@ -252,16 +267,17 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def alone_ms(pk, call, iters: int = 10) -> float:
     """ms of the kernel launches that one ``call`` of a wrapper makes, timed
     alone: the call runs once with ``_build.launch`` recording its arguments
-    and with the bf16 weights (``conv_bf16_weights``, ``upconv_bf16_weights``,
-    ``_bf16``) it hands the kernel kept alive; then only the recorded
-    launches run in the timed window. Works on any tree whose wrappers launch
-    through ``_build.launch``."""
+    and with the weights (``conv_bf16_weights``, ``upconv_bf16_weights``,
+    ``_bf16``, ``convpool_kernel_weights``, ``conv_kernel_weights``) it hands
+    the kernel kept alive; then only the recorded launches run in the timed
+    window. Works on any tree whose wrappers launch through
+    ``_build.launch``."""
     from probgan_tpu_torch.ops import _build
 
     real = _build.launch
     recorded, kept = [], []
     patched = {n: getattr(pk, n) for n in ("conv_bf16_weights", "upconv_bf16_weights", "_bf16",
-                                           "convpool_kernel_weights")}
+                                           "convpool_kernel_weights", "conv_kernel_weights")}
 
     def keep(fn):
         def kept_fn(*args, **kwargs):
@@ -631,6 +647,78 @@ def bench_convpool(pk, dump: Path | None) -> dict:
     return out
 
 
+def rgb_library(mode: str, x, w, b, rgb_w, rgb_b, prev, alpha: float, u8: bool):
+    """B3's function as cuDNN and torch ops: ``F.conv2d`` + LeakyReLU +
+    PixelNorm, the toRGB ``F.conv2d`` of the features, the blend with the
+    nearest-2x of ``prev`` (and tanh -> uint8): bf16 tensors at "default",
+    the bf16-rounded weights in fp32 at "mid", fp32 at "high"."""
+    import torch.nn.functional as F
+
+    from probgan_tpu_torch.models import pro_gan
+
+    dtype = torch.bfloat16 if mode == "default" else torch.float32
+    xl, bl, rbl = x.to(dtype), b.to(dtype), rgb_b.to(dtype)
+    wl, rwl = ((w, rgb_w) if mode == "high"
+               else (t.to(torch.bfloat16).to(dtype) for t in (w, rgb_w)))
+
+    def library():
+        feat = pro_gan.pixel_norm(pro_gan.lrelu(F.conv2d(xl, wl, bl, padding=1).float()))
+        rgb = F.conv2d(feat.to(dtype), rwl[:, :, None, None], rbl).float()
+        up = F.interpolate(prev, scale_factor=2.0)
+        out = (up + alpha * (rgb - up)).permute(0, 2, 3, 1)
+        return pro_gan.to_uint8(out) if u8 else out.contiguous()
+    return library
+
+
+def bench_rgb(pk, dump: Path | None) -> dict:
+    """B3 at RGB_SHAPES, kernel modes "high", "default" and "mid", uint8 and
+    fp32: ms, ``alone_ms``, cuDNN's ms (``rgb_library``), the bound (the
+    larger of the FLOP at the mode's peak, "mid"'s two passes, and the bytes
+    in and out at the HBM rate) and its share, B2 "lrelu" at the same conv
+    and mode (``b2_ms``, ``b2_alone_ms``), sha256 of the output's bytes; the
+    outputs saved under ``dump``."""
+    out = {}
+    for i, (mode, u8, (bsz, c, cout, h)) in enumerate(
+            (m, u, s) for m in ("high", "default", "mid") for u in (True, False)
+            for s in RGB_SHAPES):
+        label = f"rgb_{'uint8' if u8 else 'fp32'}_C{c}_Cout{cout}_{h}_{mode}_b{bsz}"
+        gen = torch.Generator(device="cuda").manual_seed(800 + i)
+        x = torch.randn((bsz, c, h, h), device="cuda", generator=gen)
+        w = torch.randn((cout, c, 3, 3), device="cuda", generator=gen) * math.sqrt(2 / (9 * c))
+        b = 0.1 * torch.randn(cout, device="cuda", generator=gen)
+        rgb_w = torch.randn((3, cout), device="cuda", generator=gen) / math.sqrt(cout)
+        rgb_b = 0.1 * torch.randn(3, device="cuda", generator=gen)
+        prev = 0.5 * torch.randn((bsz, 3, h // 2, h // 2), device="cuda", generator=gen)
+        alpha = 1.0 if u8 else 0.3
+
+        def call(x=x, w=w, b=b, rgb_w=rgb_w, rgb_b=rgb_b, prev=prev, alpha=alpha, u8=u8,
+                 mode=mode):
+            return pk.packed_conv_rgb(x, w, b, rgb_w, rgb_b, prev, alpha, emit_uint8=u8,
+                                      mode=mode)
+
+        def b2(x=x, w=w, b=b, mode=mode):
+            return pk.packed_conv(x, w, b, "lrelu", mode=mode)
+        library = rgb_library(mode, x, w, b, rgb_w, rgb_b, prev, alpha, u8)
+        with torch.no_grad():
+            y = call()
+            torch.cuda.synchronize()
+            digest = hashlib.sha256(y.cpu().numpy().tobytes())
+            if dump is not None:
+                torch.save([y.cpu()], dump / f"{label}.pt")
+            ms = cuda_ms(call, iters=10)
+            extra = {"alone_ms": alone_ms(pk, call), "library_ms": cuda_ms(library, iters=10),
+                     "b2_ms": cuda_ms(b2, iters=10), "b2_alone_ms": alone_ms(pk, b2)}
+        flops = 2 * 9 * c * cout * bsz * h * h + 2 * cout * 3 * bsz * h * h
+        nbytes = 4 * bsz * h * h * (c + 3 / 4) + bsz * h * h * 3 * (1 if u8 else 4)
+        peak, passes = ((PEAK_FP32_FLOPS, 1) if mode == "high"
+                        else (PEAK_BF16_FLOPS, 2 if mode == "mid" else 1))
+        bound_ms = max(passes * flops / peak, nbytes / PEAK_HBM_BYTES) * 1e3
+        out[label] = {"ms": ms, "bound_ms": bound_ms, "roofline_share": bound_ms / ms,
+                      "sha256": digest.hexdigest(), **extra}
+        del x, y
+    return out
+
+
 def bench_bwd(pk, dump: Path | None) -> dict:
     """Kernel mode "default" of the backward at BWD_SHAPES, batch 2: ms, the
     bound (the larger of the bf16 FLOP at the tensor cores' peak and the
@@ -914,6 +1002,9 @@ def main(argv=None) -> int:
 
     if "convpool" in parts:
         out["convpool"] = bench_convpool(pk, args.dump)
+
+    if "rgb" in parts:
+        out["rgb"] = bench_rgb(pk, args.dump)
 
     if "fused" in parts:
         from probgan_tpu_torch.engine import image as engine_mod

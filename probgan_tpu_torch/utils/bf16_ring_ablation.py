@@ -1,6 +1,7 @@
 """Where the time of the pipelined bf16 loop of B1 ``packed_upconv``, B2
-``packed_conv`` and B5 ``packed_convpool`` (``csrc/bf16_ring.cuh``, kernel
-modes "default" and "mid") goes, by ablation on one CUDA card.
+``packed_conv``, B3 ``packed_conv_rgb`` and B5 ``packed_convpool``
+(``csrc/bf16_ring.cuh``, kernel modes "default" and "mid") goes, by ablation
+on one CUDA card.
 
 Each variant is a copy of ``csrc/`` with parts of the loop switched off by a
 text edit of ``bf16_ring.cuh``, built with the port's nvcc flags into a
@@ -19,8 +20,9 @@ real kernel (recorded from one wrapper call; the weights prepared once):
 
 The outputs of the variants are wrong by design; only their times mean
 anything. CUDA events, mean of 20 launches after 3 warm-ups, at the main
-paths' shapes at batch 8 (B5 at ``score``'s "mid" shapes). Prints the
-card's name and power limit and one JSON line::
+paths' shapes at batch 8 (B5 at ``score``'s "mid" shapes; B3 uint8 at
+``generate``'s stage 8, the generator's packed mode "mid" and "fast").
+Prints the card's name and power limit and one JSON line::
 
     python3 -m probgan_tpu_torch.utils.bf16_ring_ablation [--variants all,copies]
 """
@@ -51,16 +53,18 @@ _FINISH_B2 = _FINISH.replace("COORDS", "y0, x0, slab")
 _FINISH_B1 = _FINISH.replace("COORDS", "i0, j0, py")
 _FINISH_B5 = _FINISH.replace(
     "COORDS;\n", "y0, x0, slab;  // pooled: rows y0 / 2 .. + TH / 2, columns x0 / 2 .. + 15\n")
+_FINISH_B3 = _FINISH.replace("COORDS;\n", "y0, x0, slab;  // slab 0: all COUT channels\n")
 _EDITS = {
     "no_products": [(_WALK_COMPUTE, "")],
     "no_copies": [(_WALK_COPY, "")],
-    "no_stores": [(f, f + _NO_STORES) for f in (_FINISH_B2, _FINISH_B1, _FINISH_B5)],
+    "no_stores": [(f, f + _NO_STORES) for f in (_FINISH_B2, _FINISH_B1, _FINISH_B5, _FINISH_B3)],
 }
 _EDITS["products"] = _EDITS["no_copies"] + _EDITS["no_stores"]
 _EDITS["copies"] = _EDITS["no_products"] + _EDITS["no_stores"]
 _EDITS["stores"] = _EDITS["no_products"] + _EDITS["no_copies"]
 VARIANTS = ("all", *_EDITS)
-# (label, kernel, C, Cout, input H, mode, epilogue, toRGB), batch 8
+# (label, kernel, C, Cout, input H, mode, epilogue, toRGB), batch 8; B3's
+# "epilogue" is its output, uint8 at alpha 1
 CASES = (
     ("B2 64->64@512 default", "packed_conv", 64, 64, 512, "default", "lrelu_norm", False),
     ("B2 64->64@512 mid lrelu", "packed_conv", 64, 64, 512, "mid", "lrelu", False),
@@ -72,8 +76,11 @@ CASES = (
     ("B1 16->8@512 default toRGB", "packed_upconv", 16, 8, 512, "default", "lrelu_norm", True),
     ("B5 32->64@1024 mid lrelu", "packed_convpool", 32, 64, 1024, "mid", "lrelu", False),
     ("B5 64->128@512 mid lrelu", "packed_convpool", 64, 128, 512, "mid", "lrelu", False),
+    ("B3 32->32@1024 mid uint8", "packed_conv_rgb", 32, 32, 1024, "mid", "uint8", True),
+    ("B3 32->32@1024 default uint8", "packed_conv_rgb", 32, 32, 1024, "default", "uint8", True),
 )
-LIBRARIES = ("packed_conv_bf16", "packed_upconv_bf16", "packed_convpool_bf16")
+LIBRARIES = ("packed_conv_bf16", "packed_upconv_bf16", "packed_convpool_bf16",
+             "packed_conv_rgb_bf16")
 
 
 def build_variants(names, root: Path) -> dict:
@@ -161,12 +168,20 @@ def main(argv=None) -> int:
             x = torch.randn((8, c, h, h), device="cuda", generator=gen)
             w = torch.randn((cout, c, 3, 3), device="cuda", generator=gen) * math.sqrt(2 / (9 * c))
             b = 0.1 * torch.randn(cout, device="cuda", generator=gen)
-            kw = {"rgb_w": torch.randn((3, c), device="cuda", generator=gen) / math.sqrt(c),
+            rgb_in = c if kernel == "packed_upconv" else cout  # B1: toRGB of its input
+            kw = {"rgb_w": torch.randn((3, rgb_in), device="cuda", generator=gen)
+                  / math.sqrt(rgb_in),
                   "rgb_b": 0.1 * torch.randn(3, device="cuda", generator=gen)} if rgb else {}
             rgb_w = pk._bf16(kw["rgb_w"]).contiguous() if rgb else None
             if kernel in ("packed_conv", "packed_convpool"):
                 def call(fn=getattr(pk, kernel)):
                     return fn(x, w, b, epi, mode=mode)
+            elif kernel == "packed_conv_rgb":
+                prev = 0.5 * torch.randn((8, 3, h // 2, h // 2), device="cuda", generator=gen)
+
+                def call(prev=prev):
+                    return pk.packed_conv_rgb(x, w, b, kw["rgb_w"], kw["rgb_b"], prev, 1.0,
+                                              emit_uint8=True, mode=mode)
             else:
                 def call():
                     return pk.packed_upconv(x, w, b, epilogue=epi, mode=mode, **kw)

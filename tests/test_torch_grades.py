@@ -51,6 +51,10 @@ from probgan_tpu_torch.engine import train as ttrain
 from probgan_tpu_torch.engine.image import ImageGANEngine
 from probgan_tpu_torch.models import pro_gan as tpg
 from probgan_tpu_torch.ops import packed as tpk
+from tests.test_torch_bf16_ring import (  # noqa: F401 (recorded: the wrappers on meta tensors)
+    _meta,
+    recorded,
+)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 SMALL = dict(resolution=32, latent_dim=8, fmap_base=64, fmap_max=16)
@@ -176,15 +180,14 @@ def test_kernel_modes_the_port_does_not_have_raise():
                                                                                mode="highest"))
 
 
-def test_bf16_weight_layouts_and_shared_memory():
+def test_bf16_weight_layouts_and_shared_memory(recorded):
     """The layouts the bf16 kernels read, by their index formulas
     (csrc/packed_conv_bf16.cu, packed_upconv_bf16.cu): word pairs of bf16
     [C/32][tap][Cout][40] with the 8 pad entries zero, the upconv's taps
     pre-summed in fp32 and then rounded; the shared memory the wrappers pass
-    is the kernels' (ConvBf16::kBytes of B3/B5, worked from bf16_conv.cuh:
-    (TH + 2) x 40 patch pixels of 80 bytes, Cout x 9 taps of 80 bytes; and
-    the rings of B2/B1, bf16_ring.cuh ConvBf16Ring / UpconvBf16Ring::kBytes,
-    the figures its note states)."""
+    is the kernels' (the rings of B2/B3/B5 and B1, bf16_ring.cuh
+    ConvBf16Ring / UpconvBf16Ring::kBytes, the figures its note states: B3's
+    wrapper launches B2's ring bytes at one slab of all Cout)."""
     cout, c = 8, 64
     w = torch.from_numpy(_rand((cout, c, 3, 3), 40))
     got = tpk.conv_bf16_weights(w).float()
@@ -197,7 +200,13 @@ def test_bf16_weight_layouts_and_shared_memory():
         assert up[py, ci // 32, px, dy * 2 + dx, o, ci % 32] == par[py, px, o, ci, dy, dx].to(
             torch.bfloat16).float()
     assert not up[..., 32:].any() and tuple(up.shape) == (2, 2, 2, 4, cout, 40)
-    assert [tpk.bf16_conv_bytes(co) for co in (64, 32)] == [78_080, 80_640]
+    with torch.no_grad():
+        for co in (64, 32):
+            tpk.packed_conv_rgb(_meta(2, co, 64, 64), _meta(co, co, 3, 3), _meta(co),
+                                _meta(3, co), _meta(3), _meta(2, 3, 32, 32), 1.0,
+                                emit_uint8=True, mode="default")
+    assert [(name, args[-1]) for name, args in recorded] == [
+        ("packed_conv_rgb_bf16", tpk.bf16_ring_bytes(co)) for co in (64, 32)]
     assert [tpk.bf16_ring_bytes(co) for co in (64, 32)] == [195_584, 231_424]
     assert [tpk.bf16_upconv_ring_bytes(co) for co in (64, 32)] == [207_360, 219_648]
 

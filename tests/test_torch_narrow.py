@@ -19,7 +19,7 @@ against the JAX package on the same numpy inputs.
 - What the CUDA wrappers hand the kernels at these widths (meta tensors, no
   card): the bf16 weight layouts with zeros past C, the shared-memory bytes
   against the kernels' own arithmetic (csrc/conv_ring.cuh,
-  csrc/bf16_conv.cuh), two ring blocks an SM, the launches counted under
+  csrc/bf16_ring.cuh), two ring blocks an SM, the launches counted under
   ``narrow_launches``; Cout 4 (at every epilogue, "none" and the
   stage-fused kernels too) and a PixelNorm Cout of 24 raise ValueError
   before any launch ("none" at slabs of 16 and 8 is held in
@@ -209,22 +209,28 @@ def test_narrow_wrappers_launch_the_narrow_kernels(recorded):
                         mode="mid")
         tpk.packed_upconv(_meta(8, 32, 256, 256), _meta(16, 32, 3, 3), _meta(16),
                           mode="default")
+        tpk.packed_conv_rgb(_meta(8, 8, 1024, 1024), _meta(8, 8, 3, 3), _meta(8), _meta(3, 8),
+                            _meta(3), _meta(8, 3, 512, 512), 1.0, emit_uint8=True, mode="mid")
     names = [n for n, _ in recorded]
     assert names == ["packed_upconv", "packed_conv", "packed_conv_rgb", "packed_convpool",
-                     "packed_convpool", "packed_conv_bf16", "packed_upconv_bf16"]
+                     "packed_convpool", "packed_conv_bf16", "packed_upconv_bf16",
+                     "packed_conv_rgb_bf16"]
     up, conv, rgb = (args for _, args in recorded[:3])
     # packed_upconv: (..., cout, epilogue, blocks, smem); 2 x 32 x 32 x 8 tiles
     assert up[-4:] == (8, 0, 264, tpk.upconv_ring_bytes(8))
     # packed_conv: (..., cout, epilogue, o_slab, rows, blocks, smem)
     assert conv[-6:] == (16, 0, 16, 16, 264, tpk.conv_ring_bytes(16))
     assert rgb[-2:] == (264, tpk.conv_ring_bytes(8))
-    bf16 = recorded[-1][1]
+    bf16 = recorded[6][1]
     assert bf16[-5:] == (16, 1, 0, 132, tpk.bf16_upconv_ring_bytes(16))
+    # packed_conv_rgb_bf16: (..., cout, terms, blocks, smem) on B2's ring
+    assert recorded[7][1][-4:] == (8, 2, 132, tpk.bf16_ring_bytes(8))
     assert tpk.narrow_launches == {
         "packed_upconv[cout8]": 1, "packed_conv[cout16]": 1, "packed_conv_rgb[cout8]": 1,
         "packed_convpool[cout16]": 1, "packed_conv_mid[cout8]": 1,
-        "packed_upconv_bf16[cout16]": 1}
+        "packed_upconv_bf16[cout16]": 1, "packed_conv_rgb_mid[cout8]": 1}
     assert tpk.launches["packed_convpool"] == 2 and tpk.launches["packed_conv_mid"] == 1
+    assert tpk.launches["packed_conv_rgb_mid"] == 1
 
 
 @pytest.mark.parametrize("call,match", [
@@ -249,13 +255,13 @@ def test_narrow_wrappers_refuse_what_is_not_ported(recorded, call, match):
     assert not recorded
 
 
-def test_narrow_layouts_and_shared_memory():
+def test_narrow_layouts_and_shared_memory(recorded):
     """The bf16 weights of C 8 and 16: one chunk, the channels past C zero;
     a chunk of 32 is laid out as before. The bytes the wrappers pass are the
     kernels' (ConvRing / UpconvRing::kBytes: 3 stages of 8 channels, 16-row
-    tiles, the figures csrc/conv_ring.cuh states; ConvBf16::kBytes at 16
-    rows; the bf16 rings of B1 and B2, bf16_ring.cuh, at 16 rows); the narrow
-    fp32 rings fit two blocks an SM."""
+    tiles, the figures csrc/conv_ring.cuh states; the bf16 rings of B1 and
+    of B2, bf16_ring.cuh, at 16 rows, B2's launched by B3's wrapper at one
+    slab of all Cout); the narrow fp32 rings fit two blocks an SM."""
     w = torch.randn(8, 16, 3, 3)
     cw = tpk.conv_bf16_weights(w).float()
     assert tuple(cw.shape) == (1, 9, 8, 40) and not cw[..., 16:].any()
@@ -276,9 +282,12 @@ def test_narrow_layouts_and_shared_memory():
         for smem in (conv, upconv):
             assert tpk.ring_blocks_per_sm(smem) == 2
             assert 2 * (smem + tpk.SMEM_RESERVED) <= tpk.SMEM_PER_SM
-        for terms in (1, 2):
-            assert tpk.bf16_conv_bytes(cout, terms) == 4 * (terms * 18 * 8 * 5 * 20
-                                                            + 9 * cout * 20)
+        with torch.no_grad():
+            tpk.packed_conv_rgb(_meta(2, cout, 64, 64), _meta(cout, cout, 3, 3), _meta(cout),
+                                _meta(3, cout), _meta(3), _meta(2, 3, 32, 32), 1.0,
+                                emit_uint8=True, mode="default")
+        assert recorded[-1][0] == "packed_conv_rgb_bf16"
+        assert recorded[-1][1][-1] == tpk.bf16_ring_bytes(cout)
         assert tpk.bf16_upconv_ring_bytes(cout) == 4 * 3 * (32 * (17 * 24 + 4) + 8 * cout * 20)
         assert tpk.bf16_ring_bytes(cout) == 4 * 2 * (32 * (18 * 40 + 4) + 9 * cout * 20)
     assert [tpk.ring_blocks_per_sm(tpk.conv_ring_bytes(c)) for c in (32, 64)] == [1, 1]
