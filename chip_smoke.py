@@ -330,7 +330,29 @@ Phases (any failure exits non-zero and prints no result line):
     fake batch on B10/B11 at 32, 16 and 8 channels): losses and the state
     after two steps equal bit for bit; the image trainer CLI with ``--fast``
     at N, one epoch a stage at 1024², seconds per stage either way;
-19. the last lines: the card's name and power limit, one JSON line with each
+19. entity-table tensor parallelism (``parallel/``): B4 ``rank_topk_local``
+    on one shard of the TP path (500,000 x 128 of the 1,000,000-row table)
+    at B 64 and 8, k 1, 10, 16, nvalid 0, 1, k - 1, k and the shard's rows:
+    values and ids bit-equal to B7's scores (``normalize=False``) masked
+    past nvalid and the stable top k, the fillers -inf with id 0; against
+    the plain twin finite values within 2e-6, ids equal but for near-ties;
+    no launch at nvalid 0; timed as the wrapper, the launch alone and the
+    wrapper's host issue time. Then two ranks on cuda:0 in a gloo group
+    (NCCL refuses two ranks a card), spawned after phase 1's build:
+    ``InferenceEngine(path, mesh="auto")`` on seeded checkpoints of
+    1,000,000 and 1,000,003 entities (D 128): ``predict_tails`` on 64 pairs
+    and ``find_similar_entities`` at top_k 10 (one B4 a rank and call) and
+    20 (one B7), and on a 9-entity KG at top_k 5 (the last shard ranks at
+    nvalid 4 < k 5): ids equal to the one-process engine's on the card,
+    values within 1e-6, the launches a call; queries/s, p50 and p10-p90 of
+    both at N over 50 calls, and on rank 0 the p50 of two parts of the TP
+    call, ``sharded_rank_topk`` and its broadcast and gathers alone
+    (recorded only: the ranks share one card). Then ``python -m
+    torch.distributed.run --nproc-per-node 2 -m probgan_tpu_torch.cli.infer
+    --mesh auto`` (``PROBGAN_DIST_BACKEND=gloo``) on the 1,000,003-entity
+    checkpoint, predict_tails and similar_entities: the JSON written once,
+    equal to the one-process CLI's by the same rule;
+20. the last lines: the card's name and power limit, one JSON line with each
     kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -440,6 +462,14 @@ UNFUSED_KERNELS = ("packed_upconv", "packed_conv", "packed_conv_rgb")
 TRAINER_IMAGES, TRAINER_BATCH, TRAINER_EPOCHS = 4, 2, 2
 KG_CLI_TRIPLETS, KG_CLI_EPOCHS = 10_000, 2
 CHILD_TIMEOUT_S = 300  # the trainer's child process, to its mid-stage save
+# The tensor-parallel phase: two ranks on one card through gloo.
+TP_RANKS = 2  # ranks of the TP phase, both on cuda:0 (NCCL refuses two ranks a card)
+TP_SHARD_ROWS = KG_ENTITIES // TP_RANKS  # a shard of the 1,000,000-row table
+TP_UNEVEN = KG_ENTITIES + 3  # 1,000,003 rows: the last shard one row short
+TP_SMALL = 9  # a 9-entity KG: shards of 5, the last at nvalid 4 < k 5
+TP_TIMEOUT_S = 600  # a rank's collectives, and the CLI's torchrun
+TP_VALUE_ATOL = 1e-6  # tests/test_parallel.py's bound on values
+TP_CALLS = 50  # timed predict_tails calls of the TP phase, and of each of its parts
 
 
 def card_line() -> str:
@@ -461,6 +491,21 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Host wall time a call to issue ``fn``'s work, with no synchronization
+    in the loop: where it comes near ``cuda_ms`` of the same calls, the card
+    waits on the host."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed * 1e3 / iters
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
@@ -5570,6 +5615,375 @@ def phase_narrow_fused_path(pk, pro_gan, engine_mod, cli_infer, cli_train,
 _T0 = time.perf_counter()
 
 
+def phase_local_kernels(rf, rank_ops) -> dict:
+    """B4 ``rank_topk_local`` on one shard of the TP path (500,000 x 128) at
+    B 8 and 64, k 1, 10, 16 and nvalid 0, 1, k - 1, k and the shard's rows:
+    values and ids bit-equal to B7's scores of the same queries (launched
+    with ``normalize=False``) masked past nvalid, the stable top k and the
+    fillers' ids 0, which is the kernel's contract on its own product; and
+    held to the plain twin (``rank_topk_local_plain``, torch.matmul with
+    TF32 off, another order of sums): finite values within RANK_ATOL, -inf
+    and id 0 at the same places, ids equal but for near-ties. nvalid 0
+    launches nothing."""
+    gen = torch.Generator(device="cuda").manual_seed(2121)
+    rows, d = TP_SHARD_ROWS, KG_DIM
+    shard = rank_ops.l2_normalize(torch.randn((rows, d), device="cuda", generator=gen))
+    calls, launched_below_k = [], 0
+    for b in (KG_BATCH, 8):
+        q = rank_ops.l2_normalize(torch.randn((b, d), device="cuda", generator=gen))
+        scores = torch.empty((b, rows), device="cuda")
+        rf.launch_rank_scores(q, shard, scores, normalize=False)
+        for kk in (1, KG_TOP_K, 16):
+            for nvalid in sorted({0, 1, max(kk - 1, 1), kk, rows}):
+                label = f"B{b},k{kk},nvalid{nvalid}"
+                before = rf.launches["rank_topk"]
+                v, i = rf.rank_topk_local(q, shard, kk, nvalid)
+                launched = rf.launches["rank_topk"] - before
+                masked = torch.where(torch.arange(rows, device="cuda") < nvalid, scores,
+                                     float("-inf"))
+                ev, ei = rank_ops.top_k_lowest_index(masked, kk)
+                ei[:, nvalid:] = 0
+                tv, ti = rf.rank_topk_local_plain(q, shard, kk, nvalid)
+                torch.cuda.synchronize()
+                if launched != (1 if nvalid else 0):
+                    raise AssertionError(f"rank_topk_local[{label}]: {launched} launches")
+                if differing_bits(v, ev) or not torch.equal(i, ei):
+                    raise AssertionError(f"rank_topk_local[{label}]: not bit-equal to B7's "
+                                         "scores masked and the stable top k")
+                m = min(kk, nvalid)
+                if not (torch.isinf(v[:, m:]).all() and (i[:, m:] == 0).all()
+                        and torch.equal(torch.isinf(v), torch.isinf(tv))
+                        and torch.equal(ti[:, m:], i[:, m:])):
+                    raise AssertionError(f"rank_topk_local[{label}]: fillers differ from "
+                                         "-inf with id 0 or from the twin's")
+                err = (v[:, :m] - tv[:, :m]).abs().max().item() if m else 0.0
+                if err > RANK_ATOL:
+                    raise AssertionError(f"rank_topk_local[{label}]: values differ from the "
+                                         f"plain twin by {err:.3g}")
+                swapped = 0
+                for qq, j in (i[:, :m] != ti[:, :m]).nonzero().tolist():
+                    swapped += 1
+                    if (i[qq, j] not in ti[qq, :m]
+                            and v[qq, j].item() - v[qq, m - 1].item() > RANK_ATOL):
+                        raise AssertionError(f"rank_topk_local[{label}]: query {qq} place "
+                                             f"{j}: id {i[qq, j].item()} is not the twin's")
+                launched_below_k += int(0 < nvalid < kk)
+                flops = 2.0 * b * nvalid * d
+                nbytes = 4.0 * (b * d + nvalid * d) + b * kk * (4 + 8)
+                bound_ms, bound_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+                calls.append({
+                    "call": label, "shape_in": [b, d], "rows": rows, "nvalid": nvalid,
+                    "k": kk, "launches_in_call": launched, "max_abs_err": err,
+                    "positions_with_another_id_vs_plain": swapped,
+                    "ms": cuda_ms(lambda: rf.rank_topk_local(q, shard, kk, nvalid)),
+                    # the launch alone (no merge), and the wrapper's host time
+                    "kernel_only_ms": (cuda_ms(lambda: rf.topk_candidates(q, shard, kk, nvalid,
+                                                                          False))
+                                       if nvalid else None),
+                    "host_ms": host_ms(lambda: rf.rank_topk_local(q, shard, kk, nvalid)),
+                    "plain_ms": cuda_ms(lambda: rf.rank_topk_local_plain(q, shard, kk, nvalid),
+                                        iters=3, warmup=1),
+                    "library_ms": (cuda_ms(lambda: torch.topk(
+                        torch.matmul(q, shard[:nvalid].T), kk)) if nvalid >= kk else None),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                })
+                c = calls[-1]
+                alone = (f"{c['kernel_only_ms']:.3f}" if c["kernel_only_ms"] is not None
+                         else "none")
+                print(f"  rank_topk_local[{label}]: bit-equal to B7 + the stable top k; vs "
+                      f"the twin {err:.3g}, {swapped} near-tie swaps; {launched} launch, "
+                      f"kernel {c['ms']:.3f} ms (launch alone {alone}, host {c['host_ms']:.3f})"
+                      f"  plain {c['plain_ms']:.3f} ms  bound {bound_ms:.4f} ms ({bound_by})")
+        del scores
+    head = next(c for c in calls if c["call"] == f"B{KG_BATCH},k{KG_TOP_K},nvalid{rows}")
+    del shard
+    return {
+        "name": "rank_topk_local", "route": "cuda", "source": "probgan_tpu_torch/csrc/rank_topk.cu",
+        "replaces": "probgan_tpu/ops/pallas_rank.py:398", "launches": 0,
+        "max_abs_err": max(c["max_abs_err"] for c in calls), "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "batch": KG_BATCH, "calls_below_k_launched": launched_below_k, "calls": calls,
+    }
+
+
+def tp_rank(rank: int, world: int, work: str, cases: list) -> None:
+    """One rank of the TP phase (a child process on cuda:0): joins the gloo
+    group, serves each case's checkpoint with ``InferenceEngine(mesh="auto")``
+    and writes what it got and the kernels it launched to ``work``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from probgan_tpu_torch.engine import inference as inference_mod
+    from probgan_tpu_torch.ops import rank_fused as rf
+
+    dist.init_process_group("gloo", init_method=f"file://{work}/rendezvous", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    out = {}
+    for case in cases:
+        with contextlib.redirect_stdout(io.StringIO()):
+            engine = inference_mod.InferenceEngine(case["path"], device="cuda", seed=0,
+                                                   mesh="auto")
+        seen = []
+        local = rf.rank_topk_local
+
+        def spy(q, shard, k, nvalid, **kwargs):
+            seen.append([k, nvalid])
+            return local(q, shard, k, nvalid, **kwargs)
+
+        rf.rank_topk_local = spy
+        rf.reset_launches()  # the TP path's run: the counts of this case's calls
+        results, launches = [], []
+        with contextlib.redirect_stdout(io.StringIO()):
+            for task, top_k in case["calls"]:
+                before = dict(rf.launches)
+                if task == "predict_tails":
+                    results.append(engine.predict_tails(case["pairs"], top_k=top_k,
+                                                        return_scores=True))
+                else:
+                    results.append(engine.find_similar_entities(case["entities"], top_k=top_k))
+                launches.append({name: rf.launches[name] - before[name] for name in before})
+        counts = dict(rf.launches)
+        rf.rank_topk_local = local
+        times, parts = [], {}
+        if case.get("timed"):
+            from probgan_tpu_torch.parallel import sharded_rank as sr
+
+            # the whole call, then its parts: the sharded rank of a query
+            # already on the card, and its broadcast and two gathers alone
+            group, dev = engine.mesh.get_group("model"), engine.device
+            tp = dist.get_world_size(group)
+            q = torch.randn((KG_BATCH, KG_DIM), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(0))
+            v = torch.zeros((KG_BATCH, KG_TOP_K), device=dev)
+            i = torch.zeros((KG_BATCH, KG_TOP_K), dtype=torch.int64, device=dev)
+            steps = {
+                "predict_tails": lambda: engine.predict_tails(case["pairs"], top_k=KG_TOP_K,
+                                                              return_scores=True),
+                "sharded_rank_topk": lambda: sr.sharded_rank_topk(
+                    q, engine.entity_norm_sharded, KG_TOP_K, engine.mesh,
+                    num_entities=engine.num_entities),
+                "broadcast_and_gathers": lambda: (sr._same_query(q, group),
+                                                  sr._all_gather(v, group, tp),
+                                                  sr._all_gather(i, group, tp)),
+            }
+            with contextlib.redirect_stdout(io.StringIO()):
+                for part, fn in steps.items():
+                    parts[part] = []
+                    for _ in range(TP_CALLS):
+                        dist.barrier()
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        fn()
+                        torch.cuda.synchronize()
+                        parts[part].append(time.perf_counter() - t0)
+            times = parts.pop("predict_tails")
+        out[case["name"]] = {
+            "device": engine.get_model_info()["device"], "card": str(engine.device),
+            "shard_rows": engine.entity_norm_sharded.shape[0], "results": results,
+            "launches_by_call": launches, "counts": counts, "local_calls": seen,
+            "call_s": times, "part_s": parts,
+        }
+        del engine
+        torch.cuda.empty_cache()
+    with open(f"{work}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_tp_path(rf, inference_mod, checkpoint_mod, cli_infer,
+                  make_kg_checkpoint) -> tuple[dict, dict]:
+    """Entity-table TP on one card: two ranks through gloo serve seeded C17
+    checkpoints of 1,000,000 and 1,000,003 entities (D 128) and of 9 entities
+    with ``InferenceEngine(mesh="auto")``; predict_tails and
+    find_similar_entities at top_k 10 (B4 ``rank_topk_local`` a shard) and 20
+    (B7 masked), the 9-entity KG at top_k 5 (its last shard at nvalid 4 <
+    k 5). Ids equal to the one-process engine's on the card, values within
+    1e-6; queries/s of both over TP_CALLS calls and the p50 of two parts of
+    the TP call (two ranks share one card: for the record).
+    Then the CLI under ``torch.distributed.run --nproc-per-node 2 --mesh
+    auto`` against the one-process CLI's JSON, by the same rule."""
+    import torch.multiprocessing as mp
+
+    rng = np.random.default_rng(21)
+    pairs = [[int(h), int(r)] for h, r in zip(rng.integers(0, KG_ENTITIES, KG_BATCH),
+                                              rng.integers(0, KG_RELATIONS, KG_BATCH))]
+    entities = [0, 7, 123_456, 499_999, 500_000, 500_001, KG_ENTITIES - 1]
+    big_calls = [["predict_tails", KG_TOP_K], ["predict_tails", 20],
+                 ["similar_entities", KG_TOP_K], ["similar_entities", 20]]
+    quiet = io.StringIO()
+    with tempfile.TemporaryDirectory() as work:
+        cases = []
+        for name, n, rels in (("N1000000", KG_ENTITIES, KG_RELATIONS),
+                              ("N1000003", TP_UNEVEN, KG_RELATIONS), ("N9", TP_SMALL, 5)):
+            path = os.path.join(work, f"{name}.pt")
+            checkpoint_mod.save_checkpoint(path, make_kg_checkpoint(
+                n, rels, KG_DIM, KG_NOISE, KG_HIDDEN, seed=0))
+            small = n == TP_SMALL
+            cases.append({
+                "name": name, "path": path, "n": n, "timed": n == KG_ENTITIES,
+                "pairs": [[h % n, r % rels] for h, r in pairs],
+                "entities": sorted({e % n for e in entities} | ({n - 1} if not small else {8})),
+                "calls": ([["predict_tails", 5], ["similar_entities", 5]] if small
+                          else big_calls),
+            })
+        # the one-process engine on the card: the reference, and its queries/s
+        want, one_card_s = {}, []
+        for case in cases:
+            with contextlib.redirect_stdout(quiet):
+                engine = inference_mod.InferenceEngine(case["path"], device="cuda", seed=0)
+                want[case["name"]] = [
+                    engine.predict_tails(case["pairs"], top_k=k, return_scores=True)
+                    if task == "predict_tails" else
+                    engine.find_similar_entities(case["entities"], top_k=k)
+                    for task, k in case["calls"]]
+                if case["timed"]:
+                    for _ in range(TP_CALLS):
+                        t0 = time.perf_counter()
+                        engine.predict_tails(case["pairs"], top_k=KG_TOP_K,
+                                             return_scores=True)
+                        one_card_s.append(time.perf_counter() - t0)
+            del engine
+            torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        mp.spawn(tp_rank, args=(TP_RANKS, work, cases), nprocs=TP_RANKS, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(TP_RANKS):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+
+        counts = {"rank_topk": 0, "rank_scores": 0, "rank_topk_bf16": 0}
+        max_err, below_k = 0.0, []
+        for case in cases:
+            name = case["name"]
+            local_n = -(-case["n"] // TP_RANKS)
+            for r, got in enumerate(ranks):
+                res = got[name]
+                if res["device"] != f"mesh(data=1,model={TP_RANKS})" or res["card"] != "cuda:0":
+                    raise AssertionError(f"TP[{name}] rank {r}: {res['device']} on {res['card']}")
+                if res["shard_rows"] != local_n:
+                    raise AssertionError(f"TP[{name}] rank {r}: shard of {res['shard_rows']} rows")
+                nvalid = min(max(case["n"] - r * local_n, 0), local_n)
+                for (task, k), got_res, want_res, launched in zip(
+                        case["calls"], res["results"], want[name], res["launches_by_call"]):
+                    label = f"TP[{name}] rank {r} {task} top_k {k}"
+                    k_rank = k if task == "predict_tails" else min(k + 1, case["n"])
+                    kernel = "rank_topk" if k_rank <= rf.MAX_K else "rank_scores"
+                    if launched != {**{n_: 0 for n_ in counts}, kernel: 1}:
+                        raise AssertionError(f"{label}: launches {launched}, expected one "
+                                             f"{kernel}")
+                    if task == "predict_tails":
+                        got_pairs = [(got_res["predictions"], got_res["scores"])]
+                        want_pairs = [(want_res["predictions"], want_res["scores"])]
+                    else:
+                        got_pairs = [([e["similar_entities"]], [e["similarity_scores"]])
+                                     for e in got_res["similar_entities"]]
+                        want_pairs = [([e["similar_entities"]], [e["similarity_scores"]])
+                                      for e in want_res["similar_entities"]]
+                    for (gi, gv), (wi, wv) in zip(got_pairs, want_pairs):
+                        if gi != wi:
+                            raise AssertionError(f"{label}: ids differ from the one-process "
+                                                 "engine's")
+                        err = float(np.abs(np.asarray(gv) - np.asarray(wv)).max())
+                        if not err <= TP_VALUE_ATOL:
+                            raise AssertionError(f"{label}: values differ by {err:.3g}")
+                        max_err = max(max_err, err)
+                    if kernel == "rank_topk" and [min(k_rank, local_n), nvalid] not in res[
+                            "local_calls"]:
+                        raise AssertionError(f"{label}: no rank_topk_local call at nvalid "
+                                             f"{nvalid}: {res['local_calls']}")
+                below_k += [c for c in res["local_calls"] if c[1] < c[0]]
+                for n_ in counts:
+                    counts[n_] += res["counts"][n_]
+        if not below_k:
+            raise AssertionError("TP: no shard ranked at nvalid below k")
+        tp_s = ranks[0]["N1000000"]["call_s"]
+        part_p50 = {part: float(np.median(ts) * 1e3)
+                    for part, ts in ranks[0]["N1000000"]["part_s"].items()}
+        print(f"  {TP_RANKS} ranks on one card (gloo), {len(cases)} checkpoints "
+              f"(N {', '.join(str(c['n']) for c in cases)}): ids equal to the one-process "
+              f"engine's, values within {max_err:.3g} (bound {TP_VALUE_ATOL:g}); rank_topk_local "
+              f"below k at (k, nvalid) {below_k}; launches {counts}; spawn to end "
+              f"{spawn_s:.1f} s")
+        tp = {
+            "ranks": TP_RANKS, "backend": "gloo", "entities": [c["n"] for c in cases],
+            "max_abs_value_diff_vs_one_process": max_err, "local_calls_below_k": below_k,
+            "launches": counts, "spawn_to_end_s": spawn_s,
+            "queries_per_s": KG_BATCH * TP_CALLS / sum(tp_s), "call_s": tp_s,
+            "p50_ms_per_call": float(np.median([t * 1e3 for t in tp_s])),
+            "p10_p90_ms_per_call": [float(np.percentile(tp_s, q) * 1e3) for q in (10, 90)],
+            "part_p50_ms": part_p50,
+            "one_process_queries_per_s": KG_BATCH * TP_CALLS / sum(one_card_s),
+            "one_process_p50_ms_per_call": float(np.median([t * 1e3 for t in one_card_s])),
+            "one_process_p10_p90_ms_per_call": [float(np.percentile(one_card_s, q) * 1e3)
+                                                for q in (10, 90)],
+        }
+        print(f"  predict_tails at N = {KG_ENTITIES:,}, {KG_BATCH} pairs, top_k {KG_TOP_K}, "
+              f"{TP_CALLS} calls: {TP_RANKS} ranks {tp['queries_per_s']:.1f} queries/s (p50 "
+              f"{tp['p50_ms_per_call']:.3f} ms, p10-p90 "
+              f"{tp['p10_p90_ms_per_call'][0]:.3f}-{tp['p10_p90_ms_per_call'][1]:.3f}), one "
+              f"process {tp['one_process_queries_per_s']:.1f} queries/s (p50 "
+              f"{tp['one_process_p50_ms_per_call']:.3f} ms, p10-p90 "
+              f"{tp['one_process_p10_p90_ms_per_call'][0]:.3f}-"
+              f"{tp['one_process_p10_p90_ms_per_call'][1]:.3f}); rank 0's parts, p50: "
+              + ", ".join(f"{part} {ms:.3f} ms" for part, ms in part_p50.items())
+              + "; two ranks share one card: for the record only")
+
+        # the CLI under torch.distributed.run against the CLI in this process
+        cli = {}
+        case = cases[1]  # the uneven table
+        for task, extra in (("predict_tails", ["--input_pairs", json.dumps(case["pairs"][:8])]),
+                            ("similar_entities",
+                             ["--input_entities", json.dumps(case["entities"])])):
+            argv = ["--checkpoint_path", case["path"], "--task", task, "--top_k",
+                    str(KG_TOP_K), "--device", "cuda", *extra]
+            one = os.path.join(work, f"cli_one_{task}.json")
+            with contextlib.redirect_stdout(quiet):
+                cli_infer.main(argv + ["--output_file", one])
+            two = os.path.join(work, f"cli_tp_{task}.json")
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+                 str(TP_RANKS), "--master-addr", "127.0.0.1", "--master-port",
+                 str(_free_port()), "-m", "probgan_tpu_torch.cli.infer", *argv,
+                 "--mesh", "auto", "--output_file", two],
+                cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                text=True, timeout=TP_TIMEOUT_S,
+                env={**os.environ, "PROBGAN_DIST_BACKEND": "gloo"})
+            if run.returncode != 0:
+                raise AssertionError(f"torchrun {task}: exit {run.returncode}\n"
+                                     f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+            if run.stdout.count("Results saved to") != 1:
+                raise AssertionError(f"torchrun {task}: the result was not written once:\n"
+                                     f"{run.stdout[-3000:]}")
+            with open(one) as f:
+                want_json = json.load(f)
+            with open(two) as f:
+                got_json = json.load(f)
+            assert_close_tree(f"CLI {task} --mesh auto vs one process", got_json, want_json,
+                              TP_VALUE_ATOL)
+            cli[task] = {"seconds": time.perf_counter() - t0, "json_equal": got_json == want_json}
+            print(f"  torchrun --nproc-per-node {TP_RANKS} cli.infer --task {task} --mesh "
+                  f"auto (N {case['n']:,}): the one-process JSON (ids equal, floats within "
+                  f"{TP_VALUE_ATOL:g}; equal as JSON: {cli[task]['json_equal']}), "
+                  f"{cli[task]['seconds']:.1f} s")
+        tp["cli"] = cli
+    return {"rank_topk_local": counts["rank_topk"]}, tp
+
+
 def phase_line(text: str) -> None:
     """A phase's heading, with the seconds since the script started."""
     print(f"{text} [{time.perf_counter() - _T0:.1f} s]")
@@ -5774,13 +6188,24 @@ def main() -> int:
     fused_narrow["off_path_kernels"] = [k for k in fused_narrow_kernels
                                         if k["name"] not in counts]
     kernels += [k for k in fused_narrow_kernels if k["name"] in counts]
+    torch.cuda.empty_cache()
+
+    phase_line(f"phase 19: entity-table TP: B4 rank_topk_local at nvalid 0 to a shard's "
+               f"rows vs its twin; {TP_RANKS} ranks on one card (gloo) serving "
+               f"InferenceEngine(mesh=\"auto\") at N = {KG_ENTITIES:,}, {TP_UNEVEN:,} and "
+               f"{TP_SMALL}; the CLI under torch.distributed.run --mesh auto")
+    kernels.append(phase_local_kernels(rf, rank_ops))
+    torch.cuda.empty_cache()
+    tp_counts, tp_path = phase_tp_path(rf, inference_mod, checkpoint_mod, cli_infer,
+                                       make_kg_checkpoint)
+    counts.update(tp_counts)
     for k in kernels:
         k["launches"] = counts[k["name"]]
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on its main path")
     torch.cuda.empty_cache()
 
-    phase_line("phase 19: phases 1-18 done; the kernels line and the result:")
+    phase_line("phase 20: phases 1-19 done; the kernels line and the result:")
     print(card_line())
     print(json.dumps({"kernels": kernels, "main_path": main, "score_path": score_path,
                       "kg_path": kg, "train_path": train, "fused_path": fused_path,
@@ -5789,7 +6214,7 @@ def main() -> int:
                       "default_backward": {"train": train_default, "fast_cli": fast_cli},
                       "fused_bf16": fused_bf16, "narrow": narrow,
                       "narrow_backward": narrow_bwd, "narrow_fused": fused_narrow,
-                      "bf16_ring": bf16_ring, "card": card},
+                      "tp_path": tp_path, "bf16_ring": bf16_ring, "card": card},
                      allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,15 +10,27 @@ and raises without one (pass ``cpu`` for the plain CPU path).
 ``--task generate_images`` serves an image-GAN checkpoint
 (``core/image_checkpoint.py``; ``utils/demo_checkpoint.py --image`` writes a
 seeded one).
+
+``--mesh auto`` (or a device count) ranks against the entity table
+row-sharded over a launched world of processes, one a device:
+
+    torchrun --nproc-per-node N -m probgan_tpu_torch.cli.infer \
+        --checkpoint_path CKPT --task predict_tails ... --mesh auto
+
+Every rank runs the task; only world rank 0 prints and writes
+``--output_file``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 
 from probgan_tpu_torch.cli.repl import interactive_mode
 from probgan_tpu_torch.engine import InferenceEngine
+from probgan_tpu_torch.parallel.mesh import world_rank
 from probgan_tpu_torch.utils.profiling import maybe_profile
 
 TASKS = (
@@ -132,8 +144,11 @@ def build_parser() -> argparse.ArgumentParser:
         "--mesh",
         type=str,
         default="",
-        help="Multi-device mesh. Only the one-device values ('' or '1') are "
-        "ported; anything else raises NotImplementedError",
+        help="Multi-device mesh: 'auto' (the whole launched world, one process "
+        "a device: torchrun --nproc-per-node N) or a device count. "
+        "predict_tails/similar_entities rank against the entity table sharded "
+        "over the mesh's model axis, with the one-device results; "
+        "generate_images over a mesh is not ported yet (ROADMAP A2.2)",
     )
     return parser
 
@@ -226,10 +241,19 @@ def run_task(engine: InferenceEngine, args: argparse.Namespace):
 
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
+    if world_rank() == 0:
+        _main(args)
+    else:  # a launched world's other ranks run the task and say nothing
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+            _main(args, write=False)
 
+
+def _main(args: argparse.Namespace, write: bool = True) -> None:
     if args.task == "generate_images":
         with maybe_profile(args.profile_dir):
             results = run_generate_images(args)
+        if not write:
+            return
         if results.get("images_file"):
             print(f"Images saved to: {results['images_file']}")
             print(json.dumps(results, indent=2))
@@ -252,7 +276,7 @@ def main(argv: list[str] | None = None) -> None:
     with maybe_profile(args.profile_dir):
         results = run_task(engine, args)
 
-    if results:
+    if results and write:
         if args.output_file:
             with open(args.output_file, "w") as f:
                 json.dump(results, f, indent=2)

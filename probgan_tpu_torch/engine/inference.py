@@ -22,8 +22,15 @@ the environment when the engine is built, the kernels on, and a table of at
 least ``rank_fused.BF16_MIN_N`` entities, the engine also caches a bf16 copy
 of the normalized table and the top_k <= 16 path streams that copy
 (``rank_topk_bf16``: the stream, then an exact fp32 rescore of k + 16
-candidates); opt-in, as in the JAX package. There is one device: a ``mesh``
-is not ported yet.
+candidates); opt-in, as in the JAX package.
+
+With a ``mesh`` (``parallel/mesh.py``: a launched world of processes, one a
+device) the normalized table is row-sharded over the mesh's ``model`` axis
+at load, and ``predict_tails`` and ``find_similar_entities`` rank through
+``parallel/sharded_rank.py`` (B4 ``rank_topk_local`` a shard, B7 above
+top_k 16; the plain twins on the CPU) with the one-device results; the bf16
+stream is not used there, as in the JAX package. The other tasks run
+replicated on every rank.
 """
 
 from __future__ import annotations
@@ -41,6 +48,8 @@ from probgan_tpu_torch.core.rng import RngStream
 from probgan_tpu_torch.models import kg_gan
 from probgan_tpu_torch.ops import rank as rank_ops
 from probgan_tpu_torch.ops import rank_fused
+from probgan_tpu_torch.parallel.mesh import axis_size, rank_device, resolve_mesh
+from probgan_tpu_torch.parallel.sharded_rank import shard_entity_table, sharded_rank_topk
 from probgan_tpu_torch.utils.profiling import task_trace
 
 _REL_CHUNK = 256   # relations scored per step in analyze_relations
@@ -62,17 +71,16 @@ def _rank_scores(pred: torch.Tensor, entity_norm: torch.Tensor,
 def _rank_topk(pred: torch.Tensor, entity_norm: torch.Tensor, k: int,
                num_entities: int, table_bf16: torch.Tensor | None = None,
                use_pallas: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused rank + top-k where ``use_pallas`` and the kernel's bound on k
-    allow (the [B, N] scores never reach device memory); otherwise the
-    two-step score + top-k path. The same (values, ids) either way, lowest id
+    """The fused path's route with ``use_pallas`` (``rank_fused.rank_topk``:
+    one fused rank + top-k within the kernel's bound on k, the [B, N] scores
+    never in device memory, else the scores and the stable top k); otherwise
+    the plain score + top-k. The same (values, ids) either way, lowest id
     first among ties. ``table_bf16``: the engine's cached bf16 copy of the
     table; the fused path then streams it and rescores its candidates in
     fp32."""
-    if use_pallas and rank_fused.supports_topk(tuple(pred.shape), entity_norm.shape[0], k):
-        return rank_fused.rank_topk_fused(pred, entity_norm, k, num_entities,
-                                          table_bf16=table_bf16)
-    scores = _rank_scores(pred, entity_norm, num_entities, use_pallas)
-    return rank_ops.top_k_lowest_index(scores, k)
+    if use_pallas:
+        return rank_fused.rank_topk(pred, entity_norm, k, num_entities, table_bf16=table_bf16)
+    return rank_ops.top_k_lowest_index(_rank_scores(pred, entity_norm, num_entities, False), k)
 
 
 def _bucket(n: int, minimum: int = 8) -> int:
@@ -105,11 +113,10 @@ def _check_ids(ids, bound: int, kind: str) -> None:
 # task functions (pure: tensors in, tensors out, on the inputs' device)
 # ---------------------------------------------------------------------------
 
-def _predict_tails_fn(g_params, node_emb, entity_norm, rel_table, heads, rels, z,
-                      top_k, num_entities, use_pallas=True, table_bf16=None):
-    """gather -> G fwd -> fused rank -> top-k."""
+def _predict_tails_fn(g_params, node_emb, rel_table, heads, rels, z, top_k, rank):
+    """gather -> G fwd -> ``rank`` (the engine's: fused rank -> top-k)."""
     pred = kg_gan.generator_apply(g_params, node_emb[heads], rel_table[rels], z)
-    return _rank_topk(pred, entity_norm, top_k, num_entities, table_bf16, use_pallas)
+    return rank(pred, top_k)
 
 
 def _generator_scores_fn(g_params, node_emb, rel_table, triplets, z):
@@ -125,14 +132,12 @@ def _discriminator_scores_fn(d_params, node_emb, rel_table, triplets):
     return kg_gan.discriminator_score_triplets(d_params, node_emb, rel_table, triplets)
 
 
-def _similar_entities_fn(entity_norm, queries, k_query, num_entities,
-                         use_pallas=True, table_bf16=None):
+def _similar_entities_fn(entity_norm, queries, k_query, rank):
     """Rows of the cached normalized table vs the whole table; k_query =
     min(top_k + 1, N) candidates so the caller can drop the query itself.
     The rows are normalized once more inside the rank kernel, as in the JAX
     package: its scores contain that second normalization."""
-    return _rank_topk(entity_norm[queries], entity_norm, k_query, num_entities,
-                      table_bf16, use_pallas)
+    return rank(entity_norm[queries], k_query)
 
 
 def _analyze_relations_fn(d_params, node_emb, rel_table_padded, pairs, top_k,
@@ -179,23 +184,29 @@ class InferenceEngine:
         one) or "cpu" (plain twins). ``use_pallas``: rank through the fused
         kernels (True) or the plain ops (False); None means True unless
         ``PROBGAN_PALLAS_RANK=0``. ``mesh``: None, "" or 1 for the one
-        device; the row-sharded table over several cards is not ported yet
-        (ROADMAP A11) and raises NotImplementedError."""
-        if mesh not in (None, "", 1, "1"):
-            raise NotImplementedError(
-                f"mesh={mesh!r}: the sharded forms of predict_tails and "
-                "find_similar_entities are not ported yet (ROADMAP A11)"
-            )
+        device; "auto" for the whole launched world, a device count, or a
+        prebuilt DeviceMesh (``parallel/mesh.py``; a mesh that cannot be had
+        raises). With a mesh each rank serves from its own device (card
+        ``local_rank % device_count``), predict_tails and
+        find_similar_entities rank against the table row-sharded over the
+        ``model`` axis, whatever ``use_pallas`` says, as in the JAX package."""
         if use_pallas is None:
             use_pallas = os.environ.get("PROBGAN_PALLAS_RANK", "1") != "0"
         self._use_pallas = bool(use_pallas)
         self.device = resolve_device(device)
+        self.mesh = resolve_mesh(mesh, device_type=self.device.type)
+        if self.mesh is not None:
+            self.device = rank_device(self.device.type)
         self.checkpoint_path = checkpoint_path
         self._rng = RngStream(seed)
 
         print("Loading Prot-B-GAN inference system...")
         print(f"Checkpoint: {checkpoint_path}")
-        print(f"Device: {device_str(self.device)}")
+        if self.mesh is not None:
+            print(f"Device: mesh of {self.mesh.size()} (data={axis_size(self.mesh, 'data')}, "
+                  f"model={axis_size(self.mesh, 'model')})")
+        else:
+            print(f"Device: {device_str(self.device)}")
 
         self._load_checkpoint()
 
@@ -240,12 +251,29 @@ class InferenceEngine:
             self.entity_norm_bf16 = None
             if (
                 self._use_pallas
+                and self.mesh is None
                 and os.environ.get("PROBGAN_BF16_RANK", "0") == "1"
                 and self.num_entities >= rank_fused.BF16_MIN_N
                 and rank_fused.supports_topk_bf16(
                     (1, self.entity_norm.shape[1]), self.num_entities, 1)
             ):
                 self.entity_norm_bf16 = self.entity_norm.to(torch.bfloat16)
+
+            # The rank of predict_tails and find_similar_entities, chosen
+            # once: the whole table on this device or, with a mesh, this
+            # rank's rows of it zero-padded to a multiple of the model axis
+            # (the pad rows are masked out by the true entity count).
+            if self.mesh is None:
+                def rank(queries, k):
+                    return _rank_topk(queries, self.entity_norm, k, self.num_entities,
+                                      self.entity_norm_bf16, self._use_pallas)
+            else:
+                self.entity_norm_sharded = shard_entity_table(self.entity_norm, self.mesh)
+
+                def rank(queries, k):
+                    return sharded_rank_topk(queries, self.entity_norm_sharded, k, self.mesh,
+                                             num_entities=self.num_entities)
+            self._rank = rank
 
             # Pre-pad the relation table for the chunked analyze loop.
             r_pad = -(-self.num_relations // _REL_CHUNK) * _REL_CHUNK
@@ -304,15 +332,12 @@ class InferenceEngine:
             top_scores, top_indices = _predict_tails_fn(
                 self.generator_params,
                 self.node_emb,
-                self.entity_norm,
                 self.rel_table,
                 self._place(heads),
                 self._place(rels),
                 self._noise(bucket, "predict_tails"),
                 k,
-                self.num_entities,
-                self._use_pallas,
-                self.entity_norm_bf16,
+                self._rank,
             )
             top_scores = top_scores[:, :top_k].cpu().numpy()
             top_indices = top_indices[:, :top_k].cpu().numpy()
@@ -419,13 +444,7 @@ class InferenceEngine:
         k_query = min(top_k + 1, self.num_entities)
         with task_trace("similar_entities"), torch.inference_mode():
             top_scores, top_indices = _similar_entities_fn(
-                self.entity_norm,
-                self._place(queries),
-                k_query,
-                self.num_entities,
-                self._use_pallas,
-                self.entity_norm_bf16,
-            )
+                self.entity_norm, self._place(queries), k_query, self._rank)
             top_scores = top_scores.cpu().numpy()
             top_indices = top_indices.cpu().numpy()
 
@@ -521,7 +540,13 @@ class InferenceEngine:
         return results
 
     def get_model_info(self) -> Dict[str, Any]:
-        """Static model card."""
+        """Static model card. With a mesh, ``device`` gives the mesh's shape
+        instead of one device."""
+        if self.mesh is not None:
+            device = (f"mesh(data={axis_size(self.mesh, 'data')},"
+                      f"model={axis_size(self.mesh, 'model')})")
+        else:
+            device = device_str(self.device)
         return {
             "model_architecture": {
                 "embedding_dim": self.embed_dim,
@@ -535,5 +560,5 @@ class InferenceEngine:
                 "best_epoch": self.best_epoch,
             },
             "checkpoint_path": self.checkpoint_path,
-            "device": device_str(self.device),
+            "device": device,
         }

@@ -24,16 +24,20 @@ the Pallas kernels they replace:
   path;
 - ``rank_topk_local(pred_norm, table_norm_shard, k, nvalid)``: the same for
   queries that are already normalized, with local row ids (the per-shard
-  form of a row-sharded table);
+  form of a row-sharded table, ``parallel/sharded_rank.py``). It takes any
+  ``nvalid`` from 0 to the shard's rows: where fewer than k rows are valid,
+  the places past ``nvalid`` hold -inf with id 0, as the JAX kernel gives;
 - ``rank_scores_fused(pred, table_norm)``: normalize + all cosine scores
-  [B, N], the path for k > 16, with the same 3xTF32 products.
+  [B, N], the path for k > 16, with the same 3xTF32 products;
+- ``rank_topk(pred, table_norm, k, nvalid)``: the route over the three, for
+  the engine's whole table and for a shard of it.
 
-Results are what ``lax.top_k(scores[:, :nvalid], k)`` returns: descending
-values and, among equal values, ascending ids. The kernel sums the D terms
-of a dot in another order than ``torch.matmul``, so values differ from the
-plain twins by about 1 ulp (compare at atol 2e-6) and two distinct rows
-within that of each other may swap; bit-equal scores (duplicate rows)
-always come in ascending id.
+Results are what ``lax.top_k(where(iota < nvalid, scores, -inf), k)``
+returns: descending values and, among equal values, ascending ids. The
+kernel sums the D terms of a dot in another order than ``torch.matmul``, so
+values differ from the plain twins by about 1 ulp (compare at atol 2e-6) and
+two distinct rows within that of each other may swap; bit-equal scores
+(duplicate rows) always come in ascending id.
 
 Each wrapper checks dtype, shape, contiguity and alignment and raises
 ``ValueError`` on what the kernels do not take (any B >= 1, any number of
@@ -145,9 +149,20 @@ def _check_k(name: str, k: int, nvalid: int, n_rows: int) -> None:
         )
 
 
+def _check_local_k(name: str, k: int, nvalid: int, n_rows: int) -> None:
+    """A shard's bounds: k up to its rows, any nvalid from 0 to its rows."""
+    if not 1 <= k <= min(MAX_K, n_rows):
+        raise ValueError(f"{name}: k={k} must be in 1..min({MAX_K}, rows={n_rows})")
+    if not 0 <= nvalid <= n_rows:
+        raise ValueError(f"{name}: need 0 <= nvalid <= table rows, got nvalid={nvalid}, "
+                         f"rows={n_rows}")
+
+
 def tile_runs(n_rows: int, tile_rows: int, max_blocks: int) -> tuple[int, int]:
     """(tiles per block, blocks) that cover ``n_rows`` in contiguous runs of
     ``tile_rows``-row tiles, at most ``max_blocks`` blocks and none empty."""
+    if n_rows < 1:
+        raise ValueError(f"tile_runs: no rows to cover (n_rows={n_rows})")
     n_tiles = -(-n_rows // tile_rows)
     tiles_per_block = -(-n_tiles // min(n_tiles, max_blocks))
     return tiles_per_block, -(-n_tiles // tiles_per_block)
@@ -371,24 +386,73 @@ def rank_topk_fused(pred: torch.Tensor, table_norm: torch.Tensor, k: int,
     return _topk_cuda(pred, table_norm, k, num_entities, normalize=True)
 
 
-def rank_topk_local_plain(pred_norm, table_norm_shard, k, nvalid):
-    """Plain twin of ``rank_topk_local``."""
-    return top_k_lowest_index(cosine_scores(pred_norm, table_norm_shard)[:, :nvalid], k)
+def _filler_ids(ids: torch.Tensor, nvalid: int) -> torch.Tensor:
+    """Set the ids of the places past ``nvalid`` (the -inf fillers) to 0, as
+    the JAX kernel leaves them."""
+    if nvalid < ids.shape[1]:
+        ids[:, nvalid:] = 0
+    return ids
+
+
+def rank_topk_local_plain(pred_norm, table_norm_shard, k, nvalid, *, normalize=False):
+    """Plain twin of ``rank_topk_local``: rows at or past ``nvalid`` masked to
+    -inf, the stable top k, the fillers' ids set to 0."""
+    query = l2_normalize(pred_norm) if normalize else pred_norm
+    scores = cosine_scores(query, table_norm_shard)
+    rows = torch.arange(scores.shape[1], device=scores.device)
+    values, ids = top_k_lowest_index(torch.where(rows < nvalid, scores, float("-inf")), k)
+    return values, _filler_ids(ids, nvalid)
 
 
 def rank_topk_local(pred_norm: torch.Tensor, table_norm_shard: torch.Tensor, k: int,
-                    nvalid: int) -> tuple[torch.Tensor, torch.Tensor]:
+                    nvalid: int, *, normalize: bool = False,
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-shard fused rank + top-k: queries arrive already normalized (every
     shard must consume identical query bits) and are not normalized again;
-    ``nvalid`` is the shard's count of real rows. Returns (values [B, k],
-    local row ids [B, k] int64)."""
+    ``nvalid`` is the shard's count of real rows, any from 0 to its rows
+    (the last shard of an uneven table holds fewer than k, a shard of
+    padding none). Returns (values [B, k], local row ids [B, k] int64): the
+    first min(k, nvalid) places are those of the masked scores; the rest
+    are -inf with id 0, as the JAX kernel gives. At ``nvalid`` 0 there is
+    nothing to rank: the fillers come back with no launch.
+
+    ``normalize=True`` takes raw queries and normalizes them as
+    ``rank_topk_fused`` does (in the kernel on the card), so a shard's
+    scores are the one-card engine's bit for bit."""
     name = "rank_topk_local"
     nvalid = int(nvalid)
     _check(name, pred_norm, table_norm_shard)
-    _check_k(name, k, nvalid, table_norm_shard.shape[0])
+    _check_local_k(name, k, nvalid, table_norm_shard.shape[0])
     if pred_norm.device.type == "cpu":
-        return rank_topk_local_plain(pred_norm, table_norm_shard, k, nvalid)
-    return _topk_cuda(pred_norm, table_norm_shard, k, nvalid, normalize=False)
+        return rank_topk_local_plain(pred_norm, table_norm_shard, k, nvalid,
+                                     normalize=normalize)
+    if nvalid == 0:
+        b = pred_norm.shape[0]
+        return (torch.full((b, k), float("-inf"), device=pred_norm.device),
+                torch.zeros((b, k), dtype=torch.int64, device=pred_norm.device))
+    values, ids = _topk_cuda(pred_norm, table_norm_shard, k, nvalid, normalize=normalize)
+    return values, _filler_ids(ids, nvalid)
+
+
+def rank_topk(pred: torch.Tensor, table_norm: torch.Tensor, k: int, nvalid: int, *,
+              table_bf16: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B, D] raw predictions x pre-normalized table -> the top k (values,
+    ids) over rows below ``nvalid``: the route of the whole table on one
+    device and of a shard of it alike. Within B4's bound on k
+    (``supports_topk``) one fused rank + top-k: ``rank_topk_local``
+    normalizing the queries in the kernel, or the bf16 stream with
+    ``table_bf16``; above it B7's scores masked to -inf and the stable top k.
+    The plain twins on the CPU. Where ``nvalid`` < k the places past it hold
+    -inf."""
+    if supports_topk(tuple(pred.shape), table_norm.shape[0], k):
+        if table_bf16 is not None:
+            return rank_topk_fused(pred, table_norm, k, nvalid, table_bf16=table_bf16)
+        return rank_topk_local(pred, table_norm, k, nvalid, normalize=True)
+    scores = rank_scores_fused(pred, table_norm)
+    if nvalid < scores.shape[1]:
+        rows = torch.arange(scores.shape[1], device=scores.device)
+        scores = torch.where(rows < nvalid, scores, float("-inf"))
+    return top_k_lowest_index(scores, k)
 
 
 # ---------------------------------------------------------------------------

@@ -266,8 +266,15 @@ def test_cpu_engine_launches_no_kernel(engine):
 
 @pytest.mark.parametrize("mesh", [4, "auto", "2"])
 def test_mesh_is_not_ported(native_ckpt_path, mesh):
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        InferenceEngine(native_ckpt_path, device="cpu", mesh=mesh)
+    """Outside a launched world: a device count raises, naming how to launch
+    one (no fallback to one device); "auto" is the world of one, the one
+    device. tests/test_torch_parallel.py drives the mesh over four ranks."""
+    if mesh == "auto":
+        engine = InferenceEngine(native_ckpt_path, device="cpu", mesh=mesh)
+        assert engine.mesh is None and engine.get_model_info()["device"] == "cpu:0"
+    else:
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node"):
+            InferenceEngine(native_ckpt_path, device="cpu", mesh=mesh)
 
 
 @pytest.mark.parametrize("mesh", [None, "", 1])
@@ -300,8 +307,9 @@ def test_bf16_rank_engine_serves_the_fp32_ids(tmp_path, monkeypatch):
     """At BF16_MIN_N entities the switch, read when the engine is built,
     caches a bf16 copy of the normalized table; predict_tails and
     find_similar_entities then go through rank_topk_fused(table_bf16=...) and
-    return the fp32 engine's ids (scores to 2e-6). Above k = 16 the two-step
-    path is taken as before."""
+    return the fp32 engine's ids (scores to 2e-6); the fp32 engine's go
+    through rank_topk_local(normalize=True), the same fp32 B4 launch. Above
+    k = 16 the two-step path is taken as before."""
     from probgan_tpu_torch.core.checkpoint import save_checkpoint
     from probgan_tpu_torch.utils.demo_checkpoint import make_kg_checkpoint
 
@@ -321,9 +329,11 @@ def test_bf16_rank_engine_serves_the_fp32_ids(tmp_path, monkeypatch):
     assert torch.equal(bf16, engine.entity_norm.to(torch.bfloat16))
 
     seen = []
-    fused = rank_fused.rank_topk_fused
+    fused, local = rank_fused.rank_topk_fused, rank_fused.rank_topk_local
     monkeypatch.setattr(rank_fused, "rank_topk_fused", lambda *a, table_bf16=None: (
         seen.append(table_bf16), fused(*a, table_bf16=table_bf16))[1])
+    monkeypatch.setattr(rank_fused, "rank_topk_local", lambda *a, normalize: (
+        seen.append(None) if normalize else None, local(*a, normalize=normalize))[1])
     pairs = [(0, 1), (n - 1, 4), (12345, 0)]
     got = engine.predict_tails(pairs, top_k=10, return_scores=True)
     want = plain.predict_tails(pairs, top_k=10, return_scores=True)
