@@ -11,8 +11,10 @@ and raises without one (pass ``cpu`` for the plain CPU path).
 (``core/image_checkpoint.py``; ``utils/demo_checkpoint.py --image`` writes a
 seeded one).
 
-``--mesh auto`` (or a device count) ranks against the entity table
-row-sharded over a launched world of processes, one a device:
+``--mesh auto`` (or a device count) runs over a launched world of
+processes, one a device: ``predict_tails`` / ``similar_entities`` rank
+against the entity table row-sharded over the mesh, ``generate_images``
+splits its latents over the ranks (data parallelism):
 
     torchrun --nproc-per-node N -m probgan_tpu_torch.cli.infer \
         --checkpoint_path CKPT --task predict_tails ... --mesh auto
@@ -148,15 +150,16 @@ def build_parser() -> argparse.ArgumentParser:
         "a device: torchrun --nproc-per-node N) or a device count. "
         "predict_tails/similar_entities rank against the entity table sharded "
         "over the mesh's model axis, with the one-device results; "
-        "generate_images over a mesh is not ported yet (ROADMAP A2.2)",
+        "generate_images splits its latents over every rank of the mesh",
     )
     return parser
 
 
-def run_generate_images(args: argparse.Namespace):
+def run_generate_images(args: argparse.Namespace, write: bool = True):
     """Image-synthesis task on an image-GAN checkpoint. The JSON result
     carries shape/checksum metadata; pass an ``--output_file`` ending in .npz
-    to also save the raw uint8 images."""
+    to also save the raw uint8 images (unless ``write`` is False: a mesh's
+    other ranks)."""
     import numpy as np
 
     from probgan_tpu_torch.core.image_checkpoint import load_image_checkpoint
@@ -179,7 +182,7 @@ def run_generate_images(args: argparse.Namespace):
     images = engine.generate(z, stage=stage, alpha=args.alpha)
 
     npz_path = ""
-    if args.output_file.endswith(".npz"):
+    if write and args.output_file.endswith(".npz"):
         np.savez_compressed(args.output_file, images=images)
         npz_path = args.output_file
 
@@ -251,7 +254,7 @@ def main(argv: list[str] | None = None) -> None:
 def _main(args: argparse.Namespace, write: bool = True) -> None:
     if args.task == "generate_images":
         with maybe_profile(args.profile_dir):
-            results = run_generate_images(args)
+            results = run_generate_images(args, write)
         if not write:
             return
         if results.get("images_file"):

@@ -22,9 +22,10 @@ like the JAX trainer's ``fold_in(key(seed), g)`` and ``key(seed + 1)`` with
 the port's own bits; a test replays the JAX draws through them and starts
 from the JAX state through ``init_state``. ``metrics.jsonl`` holds the JAX
 CLI's keys; its ``seconds`` are not rounded. On the card by default;
-``--device cpu`` asks for the plain path. ``--mesh`` (ROADMAP A11) and
-``--device tpu`` exit 1. ``--debug`` raises FloatingPointError at the first
-loss that is not finite, naming the epoch and step.
+``--device cpu`` asks for the plain path. ``--mesh`` (the row-sharded
+tables of ROADMAP A2.3) and ``--device tpu`` exit 1. ``--debug`` raises
+FloatingPointError at the first loss that is not finite, naming the epoch
+and step.
 """
 
 from __future__ import annotations
@@ -181,8 +182,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="auto/cuda: the first CUDA card (an error without "
                              "one); cpu: the plain path; tpu exits 1")
     parser.add_argument("--mesh", type=str, default="",
-                        help="Multi-device training: not ported yet, exits 1 "
-                             "(ROADMAP A11)")
+                        help="Multi-device training with the entity table "
+                             "row-sharded: not ported yet, exits 1 (ROADMAP A2.3)")
     return parser
 
 
@@ -238,7 +239,8 @@ def main(argv: list[str] | None = None) -> int:
         print("Error: --device tpu: the port runs on a CUDA card (auto, cuda) or on the CPU (cpu)")
         return 1
     if args.mesh:
-        print("Error: --mesh: multi-device training is not ported yet (ROADMAP A11)")
+        print("Error: --mesh: KG training with the entity table row-sharded over a mesh "
+              "is not ported yet (ROADMAP A2.3)")
         return 1
 
     from probgan_tpu_torch import native

@@ -25,11 +25,22 @@ with ``--packed_d``/``--packed_g``, the packed kernels on fp32 casts of the
 activations. The packed kernels train at ``--packed_mode``: ``default`` (the
 default, one bf16 pass forward and backward), ``mid`` (the 2-term bf16
 split; the weight gradients fp32) or ``high`` (fp32). ``--fast`` is the JAX
-trainer's preset, ``--bf16 --packed_d --packed_g``. Flags that need a piece
-the port does not have yet exit 1 before the first step, naming the ROADMAP
-item: ``--mesh`` (A11) and ``--device tpu``. ``--debug`` raises
+trainer's preset, ``--bf16 --packed_d --packed_g``. ``--device tpu`` exits 1
+before the first step. ``--debug`` raises
 FloatingPointError at the first loss that is not finite, naming the stage,
 epoch and step (the JAX package turns on ``jax_debug_nans`` instead).
+
+``--mesh auto`` (or a device count) trains data-parallel over a launched
+world of processes, one a device (``parallel/dp_train.py``):
+
+    torchrun --nproc-per-node N -m probgan_tpu_torch.cli.train_image ... --mesh auto
+
+The state is replicated from world rank 0 after init and after a resume's
+load; every rank draws the same global batch and latents from the same seeds
+and steps on its rows, the gradients averaged over the ranks, so the run is
+the one-device run on the same batches. ``--batch_size`` must be a multiple
+of the mesh size, and ``--grad_accum`` does not compose with ``--mesh``.
+Only world rank 0 prints and writes files.
 
 The latents of each step come from ``draw_latents``, keyed by (seed + 1,
 stage, epoch, step) as the JAX trainer's ``fold_in`` is, but with the port's
@@ -39,6 +50,7 @@ own bits; the data shuffle and the flips are the same numpy stream in both.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -196,19 +208,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "'host' is the numpy pipeline. Falls back to host "
                         "when the raw dataset exceeds 4 GB.")
     parser.add_argument("--mesh", type=str, default="",
-                        help="Data-parallel training over several cards: not "
-                        "ported yet, exits 1 (ROADMAP A11)")
+                        help="Data-parallel training over a launched world of "
+                        "processes, one a device (torchrun --nproc-per-node N): "
+                        "'auto' (the whole world) or a device count. The state "
+                        "replicates, the batch splits over the ranks, the "
+                        "gradients average over them, so --fast composes. "
+                        "--batch_size must divide the device count. The math is "
+                        "the one-device training on the same global batch "
+                        "(parallel/dp_train.py), so checkpoints and --resume "
+                        "pass between the two")
     return parser
 
 
 def _unported(args) -> str | None:
-    """The message for a flag that needs a piece the port does not have yet,
-    or None."""
+    """The message for a flag that needs a piece the port does not have, or
+    None."""
     if args.device == "tpu":
         return ("--device tpu: the port runs on a CUDA card (auto, cuda) or on "
                 "the CPU (cpu)")
-    if args.mesh:
-        return "--mesh: data-parallel training over several cards is not ported yet (ROADMAP A11)"
     return None
 
 
@@ -236,6 +253,17 @@ def _check_finite(metrics: dict, stage: int, epoch: int, step: int) -> None:
 
 
 def main(argv: list[str] | None = None) -> int:
+    """The trainer; in a launched world only world rank 0 prints and writes
+    files, the other ranks train beside it in silence."""
+    from probgan_tpu_torch.parallel.mesh import world_rank
+
+    if world_rank() == 0:
+        return _main(argv)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        return _main(argv, write=False)
+
+
+def _main(argv: list[str] | None, write: bool = True) -> int:
     args = build_parser().parse_args(argv)
     if args.fast:
         args.bf16 = args.packed_d = args.packed_g = True
@@ -255,10 +283,25 @@ def main(argv: list[str] | None = None) -> int:
     from probgan_tpu_torch.engine import train as train_engine
     from probgan_tpu_torch.engine.image import packed_default
     from probgan_tpu_torch.models import pro_gan
+    from probgan_tpu_torch.parallel.mesh import rank_device, resolve_mesh
 
     device = resolve_device(args.device)
     print("Prot-B-GAN image training...")
     print(f"Device: {device_str(device)}")
+
+    mesh = resolve_mesh(args.mesh, device_type=device.type) if args.mesh else None
+    if mesh is not None:
+        if args.batch_size % mesh.size() != 0:
+            print(f"Error: --batch_size {args.batch_size} must be divisible "
+                  f"by the mesh's {mesh.size()} devices")
+            return 1
+        if args.grad_accum > 1:
+            print("Error: --grad_accum and --mesh are not composable yet; "
+                  "use a larger per-device batch on the mesh instead")
+            return 1
+        print(f"Mesh: {mesh.size()} devices "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} — data-parallel training")
+        device = rank_device(device.type)
 
     if args.synthetic > 0:
         raw = synthetic_images(args.synthetic, args.resolution, args.seed)
@@ -290,9 +333,17 @@ def main(argv: list[str] | None = None) -> int:
         fmap_base=args.fmap_base,
         fmap_max=args.fmap_max,
     )
-    state = init_state(args.seed, config, args.lr, device.type)
+    if mesh is not None:
+        # drawn on the CPU (the bits do not depend on the device), then
+        # replicated onto each rank's own device from world rank 0
+        from probgan_tpu_torch.parallel.dp_train import dp_progan_train_step, replicate_state
 
-    os.makedirs(args.output_dir, exist_ok=True)
+        state = replicate_state(mesh, init_state(args.seed, config, args.lr, "cpu"))
+    else:
+        state = init_state(args.seed, config, args.lr, device.type)
+
+    if write:
+        os.makedirs(args.output_dir, exist_ok=True)
     ckpt_path = os.path.join(args.output_dir, "image_checkpoint.msgpack")
     train_state_path = os.path.join(args.output_dir, "train_state.msgpack")
     start_stage = 0
@@ -309,6 +360,8 @@ def main(argv: list[str] | None = None) -> int:
             train_state_path, state, alias_missing={"g_ema": "g_params"},
             grow=args.grow,
         )
+        if mesh is not None:
+            state = replicate_state(mesh, state)
         history = {k: list(v) for k, v in meta["history"].items()}
         # Files from before mid-stage saves carry no "epoch": the save
         # happened at a stage boundary, i.e. the stage is complete.
@@ -357,7 +410,8 @@ def main(argv: list[str] | None = None) -> int:
         packed_train_mode=args.packed_mode if args.packed_d or args.packed_g else "highest",
     )
 
-    metrics_log = open(os.path.join(args.output_dir, "metrics.jsonl"), "a" if args.resume else "w")
+    metrics_log = (open(os.path.join(args.output_dir, "metrics.jsonl"), "a" if args.resume else "w")
+                   if write else open(os.devnull, "w"))
     try:
         for stage in range(start_stage, config.num_stages):
             res = pro_gan.stage_resolution(stage)
@@ -395,7 +449,12 @@ def main(argv: list[str] | None = None) -> int:
                         else 0.0
                     )
                     opt_steps += 1
-                    if accum > 1:
+                    if mesh is not None:
+                        state, metrics = dp_progan_train_step(
+                            mesh, state, batch, z, alpha, config, stage, args.lr,
+                            r1_gamma=r1_now, **step_kwargs,
+                        )
+                    elif accum > 1:
                         state, metrics = train_engine.progan_train_step_accum(
                             state, batch.reshape(accum, args.batch_size, *batch.shape[1:]),
                             z.reshape(accum, args.batch_size, -1), alpha, config, stage,
@@ -432,7 +491,7 @@ def main(argv: list[str] | None = None) -> int:
                 }) + "\n")
                 metrics_log.flush()
                 mid_stage = epoch + 1 < args.epochs_per_stage
-                if (args.checkpoint_minutes > 0 and mid_stage
+                if (write and args.checkpoint_minutes > 0 and mid_stage
                         and time.time() - last_save > args.checkpoint_minutes * 60):
                     save_train_state(train_state_path, state, {
                         "stage": stage, "epoch": epoch + 1, "history": history,
@@ -441,14 +500,15 @@ def main(argv: list[str] | None = None) -> int:
                     if args.verbose:
                         print(f"  mid-stage train state saved (epoch {epoch + 1})")
 
-            save_image_checkpoint(
-                ckpt_path, config, state.g_params, state.d_params,
-                training_history=history,
-                g_ema=state.g_ema if args.ema_beta > 0 else None,
-            )
-            save_train_state(train_state_path, state, {
-                "stage": stage, "epoch": args.epochs_per_stage, "history": history,
-            })
+            if write:
+                save_image_checkpoint(
+                    ckpt_path, config, state.g_params, state.d_params,
+                    training_history=history,
+                    g_ema=state.g_ema if args.ema_beta > 0 else None,
+                )
+                save_train_state(train_state_path, state, {
+                    "stage": stage, "epoch": args.epochs_per_stage, "history": history,
+                })
             last_save = time.time()
             if args.verbose:
                 print(f"  checkpoint saved to {ckpt_path}")

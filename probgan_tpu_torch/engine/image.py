@@ -10,7 +10,10 @@ stage as one kernel (models/pro_gan.py ``_g_late_packed``). On the packed
 path the final tanh -> uint8 denorm is fused into the generator's last kernel
 by default; ``use_pallas=True`` (or ``PROBGAN_PALLAS_UINT8=1``, the JAX
 package's names for the switch) renders fp32 RGB instead and runs the
-separate denorm kernel of ops/image.py over it. There is no mesh (one card).
+separate denorm kernel of ops/image.py over it. With a mesh (a launched
+world of processes, ``parallel/mesh.py``) each rank serves from its own device
+and ``generate``, ``score`` and ``latent_walk`` split their batch over the
+ranks (``parallel/sharded_image.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from probgan_tpu_torch.core.device import resolve_device
 from probgan_tpu_torch.core.rng import RngStream
 from probgan_tpu_torch.models import pro_gan
 from probgan_tpu_torch.ops import image as image_ops
+from probgan_tpu_torch.parallel.mesh import rank_device, resolve_mesh
 from probgan_tpu_torch.utils.profiling import task_trace
 
 WALK_CHUNK = 8  # frames rendered per generator batch in a latent walk
@@ -127,17 +131,21 @@ class ImageGANEngine:
         core/convert.py for JAX trees); None initializes from ``seed``.
         ``use_pallas``: run the separate denorm kernel instead of the fused
         uint8 epilogue; None reads ``PROBGAN_PALLAS_UINT8`` ("1" = on).
-        ``mesh``: None, "" or 1 for the one device; data-parallel generation
-        and scoring over several cards are not ported yet (ROADMAP A11) and
-        raise NotImplementedError."""
-        if mesh not in (None, "", 1, "1"):
-            raise NotImplementedError(
-                f"mesh={mesh!r}: data-parallel generate/score over several "
-                "cards is not ported yet (ROADMAP A11)"
-            )
+        ``mesh``: None, "" or 1 for the one device; "auto" for the whole
+        launched world, a device count, or a prebuilt DeviceMesh
+        (``parallel/mesh.py``; a mesh that cannot be had raises). With a mesh
+        each rank serves from its own device (card ``local_rank %
+        device_count``), the params replicated from the mesh's first rank,
+        and ``generate``, ``score`` and ``latent_walk`` split their batch
+        over the ranks (``parallel/sharded_image.py``); every rank returns
+        the whole result. ``use_pallas`` does not apply there, as in the JAX
+        package."""
         pro_gan.resolve_precision(precision)  # an unknown grade raises here
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = resolve_mesh(mesh, device_type=self.device.type)
+        if self.mesh is not None:
+            self.device = rank_device(self.device.type)
         self.dtype = dtype
         self.precision = precision
         if use_pallas is None:
@@ -154,8 +162,15 @@ class ImageGANEngine:
             d_params = pro_gan.init_discriminator(
                 config, self._rng.next_generator("init_discriminator")
             )
-        self.g_params = to_device(g_params, self.device)
-        self.d_params = to_device(d_params, self.device)
+        if self.mesh is not None:
+            # replicated ONCE: every call then uses the rank's own copy
+            from probgan_tpu_torch.parallel.sharded_image import replicate_params
+
+            self.g_params = replicate_params(self.mesh, g_params)
+            self.d_params = replicate_params(self.mesh, d_params)
+        else:
+            self.g_params = to_device(g_params, self.device)
+            self.d_params = to_device(d_params, self.device)
 
     @property
     def final_stage(self) -> int:
@@ -175,6 +190,9 @@ class ImageGANEngine:
         if stage is None:
             stage = self.final_stage
         z = self._place(latents)
+        if self.mesh is not None:
+            with task_trace("generate_images"):
+                return self._dp_generate(z, stage, alpha)
         with task_trace("generate_images"):
             img = generate_fn(self.g_params, z, alpha, self.config, stage, self.dtype,
                               self.use_pallas, self.precision, self.packed)
@@ -187,6 +205,17 @@ class ImageGANEngine:
         the logits a function of the whole batch."""
         if stage is None:
             stage = self.final_stage
+        if self.mesh is not None and len(images) % self.mesh.size() == 0:
+            from probgan_tpu_torch.parallel.sharded_image import dp_score
+
+            with task_trace("score_images"):
+                # dp_score moves only this rank's rows to its device
+                logits = dp_score(self.mesh, self.d_params,
+                                  torch.as_tensor(images, dtype=torch.float32), self.config,
+                                  stage, alpha, self.dtype, self.precision, packed=self.packed)
+                return logits.float().cpu().numpy()
+        # one device, or a batch that does not divide the mesh (minibatch
+        # stddev forbids padding): every rank scores the whole batch
         x = self._place(images)
         with task_trace("score_images"):
             logits = score_fn(self.d_params, x, alpha, self.config, stage, self.dtype,
@@ -200,8 +229,25 @@ class ImageGANEngine:
         if stage is None:
             stage = self.final_stage
         z0, z1 = self._place(z0), self._place(z1)
+        if self.mesh is not None:
+            # latent_walk_fn's latents, bit for bit, rendered over the ranks
+            t = torch.linspace(0.0, 1.0, frames, dtype=z0.dtype, device=z0.device)[:, None]
+            z = z0[None, :] * (1.0 - t) + z1[None, :] * t
+            with task_trace("latent_walk"):
+                return self._dp_generate(z, stage, alpha)
         with task_trace("latent_walk"):
             img = latent_walk_fn(self.g_params, z0, z1, alpha, self.config, stage,
                                  frames, self.dtype, self.use_pallas, self.precision,
                                  packed=self.packed)
             return img.cpu().numpy()
+
+    def _dp_generate(self, z: torch.Tensor, stage: int, alpha: float) -> np.ndarray:
+        """``dp_generate`` of ``z`` zero-padded to a multiple of the mesh
+        size, the padding's images cut."""
+        from probgan_tpu_torch.parallel.sharded_image import dp_generate
+
+        n = z.shape[0]
+        z = torch.nn.functional.pad(z, (0, 0, 0, (-n) % self.mesh.size()))
+        img = dp_generate(self.mesh, self.g_params, z, self.config, stage, alpha, self.dtype,
+                          self.precision, packed=self.packed)
+        return img[:n].cpu().numpy()

@@ -27,6 +27,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from probgan_tpu_torch.core.device import resolve_device
@@ -149,7 +150,7 @@ _STEP_PRECISION = {"default": "default", "mid": "high", "high": "high", "highest
 
 
 def _progan_loss_fns(g_ref_params, config, stage, alpha, dtype, packed_fake, remat,
-                     packed_d, packed_g, packed_train_mode, r1_gamma=0.0):
+                     packed_d, packed_g, packed_train_mode, axis_names=None, r1_gamma=0.0):
     """The two loss closures both step variants differentiate.
 
     ``d_loss_fn(d_params, real, z)``: non-saturating D loss; the fake batch
@@ -162,7 +163,11 @@ def _progan_loss_fns(g_ref_params, config, stage, alpha, dtype, packed_fake, rem
     d_params is a second-order use of D, which the kernels' Functions do not
     support (their backward is not itself differentiable), so the penalty
     always evaluates D through the unpacked path; the main loss terms keep
-    whatever path was configured."""
+    whatever path was configured.
+
+    ``axis_names``: the process group over which the batch is split, or
+    None; every discriminator pass (the R1 penalty's too) takes its
+    minibatch-stddev statistics over the whole batch."""
     d_mode = packed_train_mode if packed_d else None
     g_mode = packed_train_mode if packed_g else None
     prec = _STEP_PRECISION[packed_train_mode]
@@ -170,7 +175,7 @@ def _progan_loss_fns(g_ref_params, config, stage, alpha, dtype, packed_fake, rem
     def r1_penalty(d_params, real_images):
         imgs = real_images.detach().float().requires_grad_(True)
         logits = pro_gan.discriminator_apply(d_params, imgs, config, stage, alpha, dtype,
-                                             prec, remat=remat)
+                                             prec, remat=remat, stddev_axis=axis_names)
         (g,) = torch.autograd.grad(logits.float().sum(), imgs, create_graph=True)
         return g.square().sum(dim=(1, 2, 3)).mean()
 
@@ -182,10 +187,10 @@ def _progan_loss_fns(g_ref_params, config, stage, alpha, dtype, packed_fake, rem
         # in bf16 and the loss math in fp32, as in the JAX step.
         real_logits = pro_gan.discriminator_apply(
             d_params, real_images, config, stage, alpha, dtype, prec, remat=remat,
-            packed=packed_d, packed_mode=d_mode).float()
+            packed=packed_d, stddev_axis=axis_names, packed_mode=d_mode).float()
         fake_logits = pro_gan.discriminator_apply(
             d_params, fake, config, stage, alpha, dtype, prec, remat=remat, packed=packed_d,
-            packed_mode=d_mode).float()
+            stddev_axis=axis_names, packed_mode=d_mode).float()
         loss = F.softplus(-real_logits).mean() + F.softplus(fake_logits).mean()
         if r1_gamma > 0.0:
             loss = loss + 0.5 * r1_gamma * r1_penalty(d_params, real_images)
@@ -196,7 +201,7 @@ def _progan_loss_fns(g_ref_params, config, stage, alpha, dtype, packed_fake, rem
                                      remat=remat, packed_mode=g_mode)
         fake_logits = pro_gan.discriminator_apply(
             d_params, fake, config, stage, alpha, dtype, prec, remat=remat, packed=packed_d,
-            packed_mode=d_mode).float()
+            stddev_axis=axis_names, packed_mode=d_mode).float()
         return F.softplus(-fake_logits).mean()
 
     return d_loss_fn, g_loss_fn
@@ -204,15 +209,29 @@ def _progan_loss_fns(g_ref_params, config, stage, alpha, dtype, packed_fake, rem
 
 def _check_step_args(packed_train_mode, axis_names) -> str:
     """The step's grade (``_STEP_PRECISION``); raises for a mode the step
-    does not have and for ``axis_names``, which the port does not have yet."""
+    does not have and for ``axis_names`` that is not a process group."""
     if packed_train_mode not in _STEP_PRECISION:
         raise ValueError(f"packed_train_mode {packed_train_mode!r} is not one of "
                          f"{tuple(_STEP_PRECISION)}")
-    if axis_names is not None:
-        raise NotImplementedError(
-            "axis_names (a step inside a data-parallel mesh) waits for the "
-            "multi-device forms (ROADMAP A2)")
+    if axis_names is not None and not isinstance(axis_names, dist.ProcessGroup):
+        raise TypeError(f"axis_names must be a torch.distributed process group "
+                        f"(parallel/mesh.py:mesh_group), not {axis_names!r}")
     return _STEP_PRECISION[packed_train_mode]
+
+
+def _mean_over_ranks(group, leaves: list, scalars: tuple) -> tuple[list, tuple]:
+    """(leaves, scalars) averaged over ``group``'s ranks through ONE sum
+    all-reduce of one flat fp32 buffer, then / the group's size: JAX's
+    ``pmean`` of a tree. With equal shares of the batch on every rank, the
+    mean of the ranks' gradients is the gradient of the whole batch's loss."""
+    sizes = [t.numel() for t in leaves]
+    flat = torch.cat([t.reshape(-1).float() for t in leaves]
+                     + [torch.stack([s.float() for s in scalars])])
+    dist.all_reduce(flat, group=group)
+    flat = flat / dist.get_world_size(group)
+    parts = flat.split(sizes + [len(scalars)])
+    return ([p.view_as(t).to(t.dtype) for p, t in zip(parts, leaves)],
+            tuple(parts[-1].unbind()))
 
 
 def _ema(g_ema, g_params, ema_beta: float):
@@ -246,7 +265,7 @@ def progan_grads(state: ProGANTrainState, real_images, z, alpha, config, stage, 
     prec = _check_step_args(packed_train_mode, None)
     d_loss_fn, g_loss_fn = _progan_loss_fns(
         state.g_params, config, stage, alpha, dtype, packed_fake, remat, packed_d, packed_g,
-        packed_train_mode, r1_gamma)
+        packed_train_mode, r1_gamma=r1_gamma)
     with pro_gan.precision_scope(prec):  # the backward's convs too
         d_grads, (d_loss, real_mean, fake_mean) = _d_grads(
             d_loss_fn, state.d_params, real_images, z)
@@ -272,7 +291,7 @@ def progan_train_step(
     packed_d: bool = False,
     packed_g: bool = False,
     packed_train_mode: str = "default",
-    axis_names: tuple | None = None,
+    axis_names: dist.ProcessGroup | None = None,
     r1_gamma: float = 0.0,
 ):
     """One non-saturating G/D step at (stage, alpha). ``real_images`` are
@@ -297,18 +316,30 @@ def progan_train_step(
     casts of the bf16 activations, their outputs cast back, as in the JAX
     package (``--fast`` is bf16 with both packed gates at "default").
     ``remat``: checkpoint each unpacked stage block (models/pro_gan.py); it
-    changes no number. ``axis_names`` is not ported and raises if given."""
+    changes no number.
+    ``axis_names``: the process group over which the batch is split when
+    this step runs on one rank of a data-parallel mesh
+    (parallel/dp_train.py), else None. The discriminator's minibatch-stddev
+    statistics are then taken over the whole batch, and the gradients and
+    the four metrics are averaged over the ranks (one all-reduce a network):
+    with equal shares that is the gradient of the whole batch's loss, so
+    every rank takes the same Adam update and the parameters stay
+    replicated with no broadcast."""
     prec = _check_step_args(packed_train_mode, axis_names)
     opt = progan_optimizer(lr)
     d_loss_fn, g_loss_fn = _progan_loss_fns(
         state.g_params, config, stage, alpha, dtype, packed_fake, remat, packed_d, packed_g,
-        packed_train_mode, r1_gamma)
+        packed_train_mode, axis_names, r1_gamma)
 
     with pro_gan.precision_scope(prec):  # the backward's convs too
-        d_grads, (d_loss, real_mean, fake_mean) = _d_grads(
-            d_loss_fn, state.d_params, real_images, z)
+        d_grads, d_values = _d_grads(d_loss_fn, state.d_params, real_images, z)
+        if axis_names is not None:
+            d_grads, d_values = _mean_over_ranks(axis_names, d_grads, d_values)
+        d_loss, real_mean, fake_mean = d_values
         d_params, d_opt = adam_update(opt, state.d_params, d_grads, state.d_opt)
         g_grads, g_loss = _g_grads(g_loss_fn, state.g_params, d_params, z)
+        if axis_names is not None:
+            g_grads, (g_loss,) = _mean_over_ranks(axis_names, g_grads, (g_loss,))
         g_params, g_opt = adam_update(opt, state.g_params, g_grads, state.g_opt)
 
     metrics = {"d_loss": d_loss, "g_loss": g_loss, "real_logit": real_mean,
@@ -346,7 +377,7 @@ def progan_train_step_accum(
     opt = progan_optimizer(lr)
     d_loss_fn, g_loss_fn = _progan_loss_fns(
         state.g_params, config, stage, alpha, dtype, packed_fake, remat, packed_d, packed_g,
-        packed_train_mode, r1_gamma)
+        packed_train_mode, r1_gamma=r1_gamma)
     n_accum = real_images.shape[0]
     inv = 1.0 / n_accum
 

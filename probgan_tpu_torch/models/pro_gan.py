@@ -12,8 +12,10 @@ latents ``[B, L]`` in, ``generator_rgb`` -> ``[B, R, R, 3]`` fp32 and
 ``generator_apply`` -> ``[B, R, R, 3]`` uint8, both NHWC;
 ``discriminator_apply`` takes ``[B, R, R, 3]`` float images and returns
 logits ``[B]``. The public functions take the JAX functions' parameters,
-in their order and with their defaults; ``stddev_axis`` (a batch sharded over
-a mesh) raises NotImplementedError when given.
+in their order and with their defaults; where the JAX functions take a
+tuple of mesh axes (``minibatch_stddev``'s ``axis_name``,
+``discriminator_apply``'s ``stddev_axis``), the port takes the process group
+of those ranks (``parallel/mesh.py:mesh_group``).
 
 Precision grades: ``precision`` is one of None, "default", "fast", "high",
 "highest" (``_PRECISIONS``, ``resolve_precision``); what each means on the
@@ -46,6 +48,7 @@ import math
 import os
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -186,13 +189,6 @@ def require_train_mode(packed_mode) -> None:
     train step's ``packed_train_mode``): None or one of ``TRAIN_MODES``."""
     if packed_mode is not None and packed_mode not in TRAIN_MODES:
         raise ValueError(f"packed_mode {packed_mode!r} is not one of {TRAIN_MODES}")
-
-
-def _require_no_stddev_axis(stddev_axis) -> None:
-    if stddev_axis is not None:
-        raise NotImplementedError(
-            "stddev_axis (a batch sharded over a mesh) waits for the multi-device "
-            "forms (ROADMAP A2)")
 
 
 def _block_fn(fn, remat: bool):
@@ -559,12 +555,42 @@ def init_discriminator(config: ProGANConfig,
     }
 
 
-def minibatch_stddev(x: torch.Tensor) -> torch.Tensor:
+class _MeanOverRanks(torch.autograd.Function):
+    """The mean of a tensor over the ranks of a process group (a sum
+    all-reduce over the group, then / its size: JAX's ``pmean``), on every
+    rank. Its backward is the same mean of the cotangents, through this
+    Function again, so a second-order use (the R1 penalty's gradient of a
+    gradient) differentiates it too. Every rank must run the forward and
+    the backward of the same graph, in the same order."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _MeanOverRanks.apply(grad, ctx.group), None
+
+
+def minibatch_stddev(x: torch.Tensor, axis_name=None) -> torch.Tensor:
     """Append one channel (NCHW: at dim 1) holding the batch-wide mean
     feature stddev. A batch statistic: the logits of a batch are not those of
-    its images scored one by one."""
+    its images scored one by one.
+
+    ``axis_name``: the process group over which the batch is split (each
+    rank holds an equal share), or None. With a group, the mean over the
+    whole batch is taken first, then the variance about it, each averaged
+    over the ranks in JAX's order: the one-process statistics up to the
+    order of float sums, and differentiable (``_MeanOverRanks``)."""
     mean = x.mean(dim=0, keepdim=True)
+    if axis_name is not None:
+        mean = _MeanOverRanks.apply(mean, axis_name)
     var = torch.square(x - mean).mean(dim=0, keepdim=True)
+    if axis_name is not None:
+        var = _MeanOverRanks.apply(var, axis_name)
     stddev = torch.sqrt(var + 1e-8).mean()
     feat = stddev.expand(x.shape[0], 1, x.shape[2], x.shape[3])
     return torch.cat([x, feat], dim=1)
@@ -635,7 +661,7 @@ def _d_early_packed(params: dict, image: torch.Tensor, stage: int, alpha,
 def discriminator_apply(params: dict, image: torch.Tensor, config: ProGANConfig,
                         stage: int, alpha: float = 1.0, dtype=torch.float32,
                         precision=None, remat: bool = False, packed: bool = False,
-                        stddev_axis: str | None = None,
+                        stddev_axis=None,
                         packed_mode: str | None = None) -> torch.Tensor:
     """Image [B, R, R, 3] (NHWC float, roughly [-1, 1]) -> realness logit
     [B], in ``dtype``. Mirrors the generator's progressive blend: after the
@@ -650,10 +676,10 @@ def discriminator_apply(params: dict, image: torch.Tensor, config: ProGANConfig,
     ``TRAIN_MODES``; the train step passes it) makes the packed gate a matter
     of shapes alone, at any ``dtype``: the kernels' fp32 output is cast back
     to ``dtype`` for the stages after them, as in the JAX package.
-    ``remat``: see ``generator_features``. ``stddev_axis`` is not ported and
-    raises if given."""
+    ``remat``: see ``generator_features``. ``stddev_axis``: the process
+    group over which the batch is split (``minibatch_stddev``'s
+    ``axis_name``), or None."""
     require_train_mode(packed_mode)
-    _require_no_stddev_axis(stddev_axis)
     with precision_scope(precision):
         image = image.to(dtype).permute(0, 3, 1, 2).contiguous()
         n, mode = 0, packed_mode
@@ -674,7 +700,7 @@ def discriminator_apply(params: dict, image: torch.Tensor, config: ProGANConfig,
             if s == stage and stage > 0:
                 skip = _from_rgb(params, downsample_avg_2x(image), stage - 1)
                 x = blend(skip, x, alpha)
-        x = minibatch_stddev(x)
+        x = minibatch_stddev(x, axis_name=stddev_axis)
         x = lrelu(eq_conv(params["final_conv"], x))
         # final_dense's rows are in the JAX layout: the 4x4 map flattened as HWC
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)

@@ -21,6 +21,7 @@ On CUDA each rank uses card ``local_rank % device_count``.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
@@ -75,6 +76,21 @@ def rank_device(device_type: str) -> torch.device:
     if device_type == "cuda":
         return torch.device("cuda", _local_rank() % torch.cuda.device_count())
     return torch.device(device_type)
+
+
+@functools.lru_cache(maxsize=None)
+def mesh_group(mesh: DeviceMesh) -> dist.ProcessGroup:
+    """The process group over all of ``mesh``'s ranks, whatever its axes:
+    the counterpart of the JAX package's tuple of every mesh axis, over
+    which the data-parallel paths split a batch. Made once a mesh. A mesh
+    over the whole launched world (every mesh ``make_mesh`` builds) gets the
+    default group itself, so no group is created; another gets
+    ``dist.new_group`` of its ranks in row-major order, which every rank of
+    the default group must call together."""
+    ranks = mesh.mesh.flatten().tolist()
+    if ranks == list(range(dist.get_world_size())):
+        return dist.group.WORLD
+    return dist.new_group(ranks)
 
 
 def axis_size(mesh: DeviceMesh, axis: str) -> int:

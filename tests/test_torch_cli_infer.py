@@ -98,8 +98,8 @@ def test_missing_checkpoint_errors():
 
 def test_generate_images_is_not_ported(native_ckpt_path):
     """The task is ported now (tests/test_torch_image_checkpoint.py drives it
-    on an image checkpoint); what still raises is a KG checkpoint, with the
-    JAX CLI's error, and a mesh, which names its ROADMAP item."""
+    on an image checkpoint, tests/test_torch_dp.py over a mesh); what still
+    raises is a KG checkpoint, with the JAX CLI's error."""
     argv = ["--checkpoint_path", native_ckpt_path, "--task", "generate_images",
             "--device", "cpu"]
     with pytest.raises(ValueError) as theirs:

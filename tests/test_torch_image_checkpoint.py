@@ -212,5 +212,9 @@ def test_generate_images_outputs(tmp_path, capsys):
         _, graded = _cli(capsys, infer, base + ["--precision", grade])
         assert graded["images_shape"] == [1, 32, 32, 3]
         assert graded["checksum"] == high["checksum"]
-    with pytest.raises(NotImplementedError, match="A11"):
-        infer.main(base + ["--mesh", "auto"])
+    # --mesh auto outside a launched world serves on the one device; a count
+    # that no world gives raises (over four ranks: tests/test_torch_dp.py)
+    _, meshed = _cli(capsys, infer, base + ["--mesh", "auto"])
+    assert meshed == high
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+        infer.main(base + ["--mesh", "2"])

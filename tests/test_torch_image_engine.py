@@ -134,6 +134,9 @@ def test_engine_seeds_both_networks_and_rejects_a_mesh():
     other = ImageGANEngine(cfg, device="cpu", seed=6)
     assert not torch.equal(a.d_params["final_dense"]["w"], other.d_params["final_dense"]["w"])
     assert a.d_params["from_rgb"][3]["w"].shape == (8, 3, 1, 1)
-    with pytest.raises(NotImplementedError, match="A11"):
-        ImageGANEngine(cfg, device="cpu", mesh="auto")
+    # a mesh outside a launched world: "auto" is the one device, a count
+    # that no world gives raises (the mesh paths: tests/test_torch_dp.py)
+    assert ImageGANEngine(cfg, device="cpu", mesh="auto").mesh is None
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+        ImageGANEngine(cfg, device="cpu", mesh="2")
     assert ImageGANEngine(cfg, device="cpu", mesh="").device.type == "cpu"

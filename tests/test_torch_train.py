@@ -210,8 +210,9 @@ def test_init_state_defaults_to_the_card():
     (dict(axis_names=("data",)), "axis_names"),
 ])
 def test_unported_train_options_raise(kwargs, match):
-    """What the step does not have yet raises before any work: a
-    data-parallel step. The packed training paths run at every kernel mode
+    """What the step cannot take raises before any work: ``axis_names`` that
+    is not a process group (JAX's tuple of mesh axes; a group's step:
+    tests/test_torch_dp.py). The packed training paths run at every kernel mode
     and at dtype bf16: at this size no stage is packed, so a step at "mid"
     or "default" is the step at "high" (on the CPU, where TF32 is no grade),
     and bf16 with the packed gate the unpacked bf16 step, bit for bit; so
@@ -230,8 +231,29 @@ def test_unported_train_options_raise(kwargs, match):
                                                    packed_mode="default"),
                            tpg.discriminator_apply(state.d_params, img, cfg, 2))
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(TypeError, match=match):
         ttrain.progan_train_step(state, real, z, 1.0, cfg, 2, **kwargs)
+
+
+def test_step_in_a_group_of_one_is_the_plain_step(tmp_path):
+    """``axis_names`` a gloo group of one process: the minibatch stddev's and
+    the gradients' means over one rank change no bit, with R1 too."""
+    import torch.distributed as dist
+
+    cfg = tpg.ProGANConfig(**SMALL)
+    state = ttrain.progan_init_state(0, cfg, device="cpu")
+    real, z = torch.from_numpy(_rand((4, 16, 16, 3), 30)), torch.from_numpy(_rand((4, 8), 31))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+                            world_size=1)
+    try:
+        for r1 in (0.0, 10.0):
+            got, gm = ttrain.progan_train_step(state, real, z, 0.7, cfg, 2, r1_gamma=r1,
+                                               axis_names=dist.group.WORLD)
+            want, wm = ttrain.progan_train_step(state, real, z, 0.7, cfg, 2, r1_gamma=r1)
+            assert all(torch.equal(gm[k], wm[k]) for k in METRICS)
+            assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
