@@ -378,7 +378,26 @@ Phases (any failure exits non-zero and prints no result line):
     generate_images --mesh auto`` (written once, the one-process CLI's
     images by the same rule) and ``cli.train_image --mesh auto`` (2 steps,
     one ``metrics.jsonl``, losses within 1e-5 of the one-process run);
-21. the last lines: the card's name and power limit, one JSON line with each
+21. the KG train state row-sharded (``parallel/dp_train.py``
+    ``shard_kg_state``, ``parallel/sharded_kg.py``): ``torch.distributed.run
+    --nproc-per-node 2 -m probgan_tpu_torch.cli.train --mesh auto`` on a
+    seeded dataset of 4,096 triplets at N = 1,000,003, 1 epoch and a
+    ``--resume`` to 2, against the one-process CLI (one rank 0 printing, the
+    same files, losses within 1e-5, the same Hit@10), its checkpoint served
+    by the one-process CLI; then two ranks on cuda:0 through gloo, mesh
+    (1, 2): 3 ``kg_train_step`` at N = 1,000,003 (batch 64, corrupted
+    negatives, 8,192 sampled ones colliding with true tails) and one
+    full-softmax step at N = 50,001, each against the one-process step on
+    the card at the same state, batch and noise (losses within 1e-5, every
+    leaf of the state, the moments too, by JAX's packed rule at "highest",
+    the replicas equal), ``kg_eval_hits`` over 512 triplets at k 10 and
+    N / 10 equal to the one-process values, the lookups' collective and a
+    bare all-reduce of its bytes timed alone, and ``cli.infer --task
+    predict_tails --mesh auto`` on the mesh-trained checkpoint (B4
+    ``rank_topk_local`` once a rank, the one-process CLI's JSON); then four
+    ranks, mesh (2, 2), one step at N = 100,003 by the same rules. Step
+    times of both recorded only: the ranks share one card;
+22. the last lines: the card's name and power limit, one JSON line with each
     kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -538,6 +557,32 @@ DP_ALLREDUCE_CALLS = 5
 DP_CLI_IMAGES = 3  # padded to 4
 DP_TRAIN_CLI = ["--synthetic", "2", "--resolution", "8", "--latent_dim", "8", "--fmap_base",
                 "32", "--fmap_max", "8", "--epochs_per_stage", "1", "--batch_size", "2"]
+# The KG TP phase: the KG state row-sharded over ranks on one card through
+# gloo, each mesh step held to the one-process step (parallel/dp_train.py).
+KG_TP_SEED = 23
+KG_TP_STEPS = 3  # sampled-softmax steps at N = TP_UNEVEN on the (1, 2) mesh
+KG_TP_DP_RANKS = 4  # the (2, 2) mesh: the data axis too
+KG_TP_LOSS_ATOL = 1e-5  # the step is fp32 (TF32 off): DP_LOSS_ATOL at "highest"
+KG_TP_LOOKUP_CALLS = 20  # timed lookups and bare all_reduces
+# The (1, 2) sampled steps take every row from its owner and sum nothing over
+# "model" but zeros, so the one-process state comes back bit for bit: held
+# to 1e-6, not to the packed rule's Adam flips. Adam's update does not change
+# when a gradient is scaled, so a table gradient tp times too large shows
+# only in the moments: each is held relative to its leaf's largest entry
+# (the first moment is 0.1 g after one step), in every case.
+KG_TP_EXACT_ATOL = 1e-6
+KG_TP_MOMENT_REL = 1e-4
+# The card memory a rank of the (1, 2) mesh may take over the steps at
+# N = TP_UNEVEN, as a share of the one-process steps' peak (the table and its
+# moments dominate both: ~1 / tp), and what gathering the state back to rank
+# 0 may add to a rank's card (the chunks go through the host over gloo).
+KG_TP_PEAK_SHARE = 0.75
+KG_TP_GATHER_EXTRA_BYTES = 64 << 20
+KG_TP_SCALE = {
+    "n": TP_UNEVEN, "full_n": 50_001, "dp_n": 100_003, "relations": KG_RELATIONS,
+    "dim": KG_DIM, "noise": KG_NOISE, "hidden": KG_HIDDEN, "batch": KG_BATCH,
+    "ce": KG_CE_NEGATIVES, "eval": 512, "cli_triplets": 4_096, "cli_batch": KG_TRAIN_BATCH,
+}
 # The kernels each rank must launch in the DP phase's calls on the card.
 DP_SERVING_KERNELS = {
     "high": {"generate8": ("packed_upconv", "packed_conv", "packed_conv_rgb"),
@@ -5882,13 +5927,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def torchrun(module: str, argv: list[str]) -> tuple[subprocess.CompletedProcess, float]:
-    """``python -m torch.distributed.run --nproc-per-node 2 -m module`` with
-    gloo (the two ranks share the card), from the repository's root: the run
+def torchrun(module: str, argv: list[str],
+             nproc: int = TP_RANKS) -> tuple[subprocess.CompletedProcess, float]:
+    """``python -m torch.distributed.run --nproc-per-node <nproc> -m module``
+    with gloo (the ranks share the card), from the repository's root: the run
     and its seconds; a failed run raises."""
     t0 = time.perf_counter()
     run = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc),
          "--master-addr", "127.0.0.1", "--master-port", str(_free_port()), "-m", module,
          *argv], cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
         text=True, timeout=TP_TIMEOUT_S, env={**os.environ, "PROBGAN_DIST_BACKEND": "gloo"})
@@ -6533,6 +6579,445 @@ def phase_dp_path(pk, pro_gan, engine_mod, train_mod, tree_mod, image_checkpoint
     return dp
 
 
+# Phase 21: the KG train state row-sharded over "model" and its batch split
+# over "data" (parallel/dp_train.py, parallel/sharded_kg.py): ranks on cuda:0
+# through gloo, each step held on rank 0 to the one-process step on the card
+# at the same state, batch and noise.
+def kg_tp_inputs(scale: dict, n: int, steps: int, seed: int) -> dict:
+    """Each step's global batch (triplets with ids repeated within the batch
+    and the table's last row as a true tail, corrupted negatives, sampled
+    ids of which four collide with true tails, noise) and an eval batch,
+    numpy from a seed: the same on every rank."""
+    rng = np.random.default_rng(seed)
+    b, rels, noise = scale["batch"], scale["relations"], scale["noise"]
+
+    def triplets(m):
+        return np.stack([rng.integers(0, n, m), rng.integers(0, rels, m),
+                         rng.integers(0, n, m)], axis=1)
+
+    out = {"steps": []}
+    for _ in range(steps):
+        trip = triplets(b)
+        trip[1, 0] = trip[0, 0]
+        trip[2, 2] = trip[3, 2] = n - 1
+        ce = rng.integers(0, n, scale["ce"])
+        ce[:4] = trip[:4, 2]
+        out["steps"].append({
+            "triplets": trip, "ce": ce, "z": rng.standard_normal((b, noise)).astype(np.float32),
+            "negatives": np.stack([rng.integers(0, n, b), rng.integers(0, rels, b)], axis=1)})
+    out["eval"] = {"triplets": triplets(scale["eval"]),
+                   "z": rng.standard_normal((scale["eval"], noise)).astype(np.float32)}
+    return out
+
+
+def kg_eval_ks(n: int) -> tuple[int, int]:
+    """The Hit@k of the eval: the trainer's k = 10, and k = N / 10, where a
+    random state's hit rate is ~10%, so that the ranks' counts are held
+    where they decide something."""
+    return KG_TOP_K, n // 10
+
+
+def kg_replicas_equal(mesh, state, tree_mod) -> bool:
+    """Whether the ranks that should hold the same bits do: the replicated
+    leaves across "model", and every leaf of the rank's part across "data"
+    (one broadcast a group from its first rank)."""
+    import torch.distributed as dist
+
+    table = {id(state.node_emb), id(state.g_opt[0].mu[1]), id(state.g_opt[0].nu[1])}
+    leaves = [t for t in tree_mod.tree_leaves(state) if t.dim()]  # Adam's counts: 0-d
+    same = True
+    for axis, part in (("model", [t for t in leaves if id(t) not in table]), ("data", leaves)):
+        group = mesh.get_group(axis)
+        if dist.get_world_size(group) == 1:
+            continue
+        mine = torch.cat([t.reshape(-1) for t in part])
+        ref = mine.clone()
+        dist.broadcast(ref, src=dist.get_global_rank(group, 0), group=group)
+        same = same and torch.equal(mine, ref)
+    return same
+
+
+def moment_rule(label: str, got, want, tree_mod, errors: list) -> float:
+    """Every Adam moment leaf of a KG state against the one-process one,
+    its largest difference over its largest |entry| (KG_TP_MOMENT_REL):
+    the worst such ratio; what breaks it is added to ``errors``."""
+    worst = 0.0
+    for opt in ("g_opt", "d_opt"):
+        for m in ("mu", "nu"):
+            for a, b in zip(tree_mod.tree_leaves(getattr(getattr(got, opt)[0], m)),
+                            tree_mod.tree_leaves(getattr(getattr(want, opt)[0], m))):
+                diff = float((a.double() - b.double()).abs().max())
+                scale = float(b.abs().max())
+                worst = max(worst, diff / scale if scale else diff)
+    if worst > KG_TP_MOMENT_REL:
+        errors.append(f"{label}: an Adam moment {worst:.3g} of its leaf's largest entry off "
+                      f"(bound {KG_TP_MOMENT_REL:g})")
+    return worst
+
+
+def kg_tp_reference(train_mod, tree_mod, state0, steps: list, use_ce: bool, full, ev,
+                    got: dict, label: str, dev, sync, exact: bool) -> dict:
+    """The one-process steps on ``dev`` from ``state0`` on the same batches
+    and noise, against the mesh's (``got``'s metrics, ``full`` its state
+    gathered back to this rank's host): losses within KG_TP_LOSS_ATOL, the
+    state by ``packed_rule`` at JAX's "highest" share (``exact``: every
+    element within KG_TP_EXACT_ATOL) and its Adam moments by
+    ``moment_rule``; the card memory the one-process steps took at their
+    peak; the one-process Hit@10 of the gathered state. Errors are
+    returned, not raised: rank 0 reports them."""
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    ref = tree_mod.tree_map(lambda t: t if t.dim() == 0 else t.to(dev), state0)
+    metrics, step_s = [], []
+    for s in steps:
+        kw = dict(negatives=s["negatives"].to(dev), z=s["z"].to(dev),
+                  ce_negatives=s["ce"].to(dev) if use_ce else None)
+        trip = s["triplets"].to(dev)
+        sync()
+        t0 = time.perf_counter()
+        ref, m = train_mod.kg_train_step(ref, trip, **kw)
+        metrics.append({k: float(v) for k, v in m.items()})
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    full = tree_mod.tree_map(lambda t: t if t.dim() == 0 else t.to(dev), full)
+    errors = []
+    loss_diff = max(abs(a[k] - b[k]) for a, b in zip(got["metrics"], metrics)
+                    for k in ("d_loss", "g_loss"))
+    if loss_diff > KG_TP_LOSS_ATOL:
+        errors.append(f"{label}: losses {got['metrics']} vs one process {metrics}")
+    rule = packed_rule(f"{label} state", full, ref, tree_mod, DP_LOOSE_SHARE["highest"], errors)
+    if exact and rule["max_abs_diff"] > KG_TP_EXACT_ATOL:
+        errors.append(f"{label}: state max |diff| {rule['max_abs_diff']:.3g} (bound "
+                      f"{KG_TP_EXACT_ATOL:g}: the rows come from their owners)")
+    out = {"one_process_metrics": metrics, "one_process_step_s": step_s,
+           "max_loss_diff": loss_diff, "errors": errors, "state_vs_one_process": rule,
+           "moments_vs_one_process": moment_rule(f"{label} moments", full, ref, tree_mod,
+                                                 errors),
+           "one_process_peak_bytes": peak}
+    if ev is not None:
+        out["one_process_hits"] = {str(k): float(train_mod.kg_eval_hits(
+            full.g_params, full.node_emb, full.rel_emb, ev["triplets"], ev["z"], k))
+            for k in kg_eval_ks(full.node_emb.shape[0])}
+    return out
+
+
+def kg_tp_rank(rank: int, world: int, work: str, spec: dict) -> None:
+    """One rank of the KG TP phase (a child process on cuda:0): joins the
+    gloo group, trains each case on a (world / tp, tp) mesh from the state
+    every rank draws from one seed, evaluates, times the lookups' collective,
+    serves a checkpoint with ``cli.infer --mesh auto`` (the rank kernels'
+    launches counted from 0 just before it) and writes what it got to
+    ``work``; rank 0 also runs the one-process reference."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from probgan_tpu_torch.cli import infer as cli_infer
+    from probgan_tpu_torch.core import tree as tree_mod
+    from probgan_tpu_torch.engine import train as train_mod
+    from probgan_tpu_torch.ops import rank_fused as rf
+    from probgan_tpu_torch.parallel import make_mesh
+    from probgan_tpu_torch.parallel.dp_train import (
+        gather_kg_state,
+        kg_batch_sharding,
+        shard_kg_state,
+    )
+    from probgan_tpu_torch.parallel.mesh import axis_size, rank_device
+    from probgan_tpu_torch.parallel.sharded_kg import kg_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{work}/rendezvous", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device, scale = spec["device"], spec["scale"]
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def peak_since_reset() -> int | None:
+        """The card memory this rank's process has held at its peak since the
+        last reset (the ranks share the card; each has its own allocator)."""
+        if device != "cuda":
+            return None
+        peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        return peak
+
+    mesh = make_mesh(world, model_parallelism=spec["tp"], device_type=device)
+    dev = rank_device(device)
+    rows_of = kg_batch_sharding(mesh)
+    dp, data_rank = axis_size(mesh, "data"), mesh.get_local_rank("data")
+    out = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "card": str(dev), "cases": {}}
+    for case in spec["cases"]:
+        n, label = case["n"], case["label"]
+        data = kg_tp_inputs(scale, n, case["steps"], KG_TP_SEED + n)
+        steps = [{k: torch.from_numpy(v) for k, v in s.items()} for s in data["steps"]]
+        state0 = train_mod.kg_init_state(KG_TP_SEED, n, scale["relations"], scale["dim"],
+                                         scale["noise"], scale["hidden"], device="cpu")
+        kg = kg_mesh(mesh, n)
+        peak_since_reset()
+        st = shard_kg_state(mesh, state0)
+        got = {"metrics": [], "step_s": [], "shard_rows": st.node_emb.shape[0],
+               "exact": case.get("exact", False), "memory": case.get("memory", False)}
+        for s in steps:
+            kw = dict(negatives=rows_of(s["negatives"]), z=s["z"],
+                      ce_negatives=s["ce"].to(dev) if case["ce"] else None)
+            trip = rows_of(s["triplets"])
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            st, m = train_mod.kg_train_step(st, trip, mesh=kg, **kw)
+            got["metrics"].append({k: float(v) for k, v in m.items()})
+            got["step_s"].append(time.perf_counter() - t0)
+        got["peak_bytes_steps"] = peak_since_reset()
+        got["replicas_equal"] = kg_replicas_equal(mesh, st, tree_mod)
+        if case.get("timed"):
+            # the lookup of a step's rows alone (the batch's heads, the sampled
+            # ids), and a bare all_reduce of the same bytes
+            got["lookup_p50_ms"] = {}
+            for name, ids in (("batch", trip[:, 0]), ("sampled", steps[-1]["ce"].to(dev))):
+                raw = torch.zeros((len(ids), scale["dim"]), device=dev)
+                lookup_s = timed_s(lambda ids=ids: kg.take(st.node_emb, ids), KG_TP_LOOKUP_CALLS,
+                                   sync, dist.barrier)
+                reduce_s = timed_s(lambda raw=raw: dist.all_reduce(raw, group=kg.model),
+                                   KG_TP_LOOKUP_CALLS, sync, dist.barrier)
+                got["lookup_p50_ms"][name] = {
+                    "rows": len(ids), "bytes": 4 * raw.numel(),
+                    "lookup": float(np.median(lookup_s) * 1e3),
+                    "all_reduce_alone": float(np.median(reduce_s) * 1e3)}
+        ev = None
+        if case["eval"]:
+            ev = {k: torch.from_numpy(v).to(dev) for k, v in data["eval"].items()}
+            mine = [torch.tensor_split(ev[k], dp)[data_rank] for k in ("triplets", "z")]
+            got["hits"] = {str(k): float(train_mod.kg_eval_hits(
+                st.g_params, st.node_emb, st.rel_emb, *mine, k, mesh=kg))
+                for k in kg_eval_ks(n)}
+        sync()
+        peak_since_reset()
+        held = torch.cuda.memory_allocated(dev) if device == "cuda" else 0
+        full = gather_kg_state(kg, st)
+        sync()
+        got["gather_extra_bytes"] = None if device != "cuda" else peak_since_reset() - held
+        got["gathered_on_this_rank"] = full is not None
+        del st
+        if rank == 0:
+            got.update(kg_tp_reference(train_mod, tree_mod, state0, steps, case["ce"], full, ev,
+                                       got, label, dev, sync, got["exact"]))
+        del full, state0
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+        out["cases"][label] = got
+    if spec.get("serve"):
+        rf.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_infer.main(spec["serve"])
+        out["serve_launches"] = dict(rf.launches)
+    with open(f"{work}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_kg_tp_path(rf, cli_train, cli_infer, device: str = "cuda",
+                     scale: dict | None = None) -> tuple[dict, dict]:
+    """The KG train state row-sharded on one card, ranks through gloo. (a)
+    The trainer CLI at N = 1,000,003 on a seeded dataset: one process in this
+    process, then ``torch.distributed.run --nproc-per-node 2 -m
+    probgan_tpu_torch.cli.train --mesh auto``, 1 epoch and a ``--resume`` to
+    2 each: one rank 0 printing, the same files, losses within 1e-5 and the
+    same Hit@10; the mesh run's checkpoint served by the one-process CLI.
+    (b) Two ranks, mesh (1, 2): 3 ``kg_train_step`` with 8,192 sampled
+    negatives at N = 1,000,003 (shards of 500,002 and 500,001 rows), one
+    full-softmax step at N = 50,001, each against the one-process step on
+    the card (losses within 1e-5, the state by JAX's packed rule, at
+    N = 1,000,003 within 1e-6, each Adam moment within 1e-4 of its leaf's
+    largest entry, the replicas equal; each rank's card memory at the peak
+    of the steps at most 0.75 of one process's at N = 1,000,003, and
+    ``gather_kg_state`` bringing the state to rank 0's host alone, adding
+    at most 64 MiB on a card), ``kg_eval_hits`` over 512 triplets at k 10
+    and N / 10 equal to the one-process values on the same state, the
+    lookups' collective timed alone, and ``cli.infer --mesh auto`` serving
+    (a)'s checkpoint: B4 ``rank_topk_local`` launched on each rank, the
+    one-process CLI's JSON.
+    (c) Four ranks, mesh (2, 2): one step at N = 100,003 by the same rules.
+    Step times are recorded only: the ranks share one card."""
+    import torch.multiprocessing as mp
+
+    scale = {**KG_TP_SCALE, **(scale or {})}
+    n, rels = scale["n"], scale["relations"]
+    quiet = io.StringIO()
+    kg_tp = {"backend": "gloo"}
+    with tempfile.TemporaryDirectory() as work:
+        # (a) the trainer CLI, one process and two ranks
+        data = os.path.join(work, "data")
+        os.makedirs(data)
+        rng = np.random.default_rng(KG_TP_SEED)
+        t = scale["cli_triplets"]
+        trip = np.stack([rng.integers(0, n, t), rng.integers(0, rels, t),
+                         rng.integers(0, n, t)], axis=1)
+        trip[0] = (n - 1, rels - 1, 0)  # pins N and the relation count
+        np.savetxt(os.path.join(data, "train.txt"), trip, fmt="%d", delimiter="\t")
+        common = ["--data_root", data, "--batch_size", str(scale["cli_batch"]), "--embed_dim",
+                  str(scale["dim"]), "--noise_dim", str(scale["noise"]), "--hidden_dim",
+                  str(scale["hidden"]), "--device", device, "--seed", "3"]
+        dirs = {name: os.path.join(work, name) for name in ("one", "mesh")}
+        runs = (["--epochs", "1"], ["--epochs", "2", "--resume"])
+        with contextlib.redirect_stdout(quiet):
+            for extra in runs:
+                if cli_train.main(common + ["--output_dir", dirs["one"], *extra]) != 0:
+                    raise AssertionError(f"the one-process KG trainer {extra} failed")
+        cli_s = []
+        for extra in runs:
+            run, seconds = torchrun("probgan_tpu_torch.cli.train", common + [
+                "--mesh", "auto", "--output_dir", dirs["mesh"], *extra])
+            if (run.stdout.count("Training complete!") != 1
+                    or "Mesh: 2 devices {'data': 1, 'model': 2}" not in run.stdout):
+                raise AssertionError(f"torchrun cli.train {extra}: not one rank 0 on a (1, 2) "
+                                     f"mesh:\n{run.stdout[-3000:]}")
+            cli_s.append(seconds)
+        lines = {}
+        for name, path in dirs.items():
+            with open(os.path.join(path, "metrics.jsonl")) as f:
+                lines[name] = [json.loads(x) for x in f]
+        if not [m["epoch"] for m in lines["mesh"]] == [m["epoch"] for m in lines["one"]] == [1, 2]:
+            raise AssertionError(f"KG trainer --mesh metrics.jsonl: {lines}")
+        loss_diff = max(abs(a[k] - b[k]) for a, b in zip(lines["mesh"], lines["one"])
+                        for k in ("d_loss", "g_loss"))
+        if (loss_diff > KG_TP_LOSS_ATOL or [m["val_hit10"] for m in lines["mesh"]]
+                != [m["val_hit10"] for m in lines["one"]]):
+            raise AssertionError(f"KG trainer --mesh against one process: {lines}")
+        if sorted(os.listdir(dirs["mesh"])) != sorted(os.listdir(dirs["one"])):
+            raise AssertionError(f"KG trainer --mesh wrote {sorted(os.listdir(dirs['mesh']))}")
+        kg_tp["cli_train"] = {
+            "entities": n, "triplets": t, "batch": scale["cli_batch"], "torchrun_s": cli_s,
+            "max_loss_diff": loss_diff, "epoch_s_mesh": [m["seconds"] for m in lines["mesh"]],
+            "epoch_s_one_process": [m["seconds"] for m in lines["one"]]}
+        print(f"  torchrun --nproc-per-node 2 cli.train --mesh auto at N = {n:,} ({t:,} "
+              f"triplets, batch {scale['cli_batch']}), 1 epoch then --resume to 2: one rank 0, "
+              f"the one-process files, losses within {loss_diff:.3g} (bound "
+              f"{KG_TP_LOSS_ATOL:g}), Hit@10 equal; {cli_s[0]:.1f} s and {cli_s[1]:.1f} s")
+        pairs = [[int(h), int(r)] for h, r in zip(rng.integers(0, n, 8), rng.integers(0, rels, 8))]
+        serve = ["--checkpoint_path", os.path.join(dirs["mesh"], "best_checkpoint.pt"), "--task",
+                 "predict_tails", "--input_pairs", json.dumps(pairs), "--top_k", str(KG_TOP_K),
+                 "--device", device]
+        one_json, mesh_json = (os.path.join(work, f"serve_{k}.json") for k in ("one", "mesh"))
+        with contextlib.redirect_stdout(quiet):
+            cli_infer.main(serve + ["--output_file", one_json])
+
+        # (b) two ranks, (1, 2); (c) four ranks, (2, 2)
+        specs = {
+            "tp": (TP_RANKS, {
+                "device": device, "scale": scale, "tp": TP_RANKS,
+                "serve": serve + ["--mesh", "auto", "--output_file", mesh_json],
+                "cases": [{"label": f"N{n}", "n": n, "steps": KG_TP_STEPS, "ce": True,
+                           "eval": True, "timed": True, "exact": True, "memory": True},
+                          {"label": f"N{scale['full_n']}_full", "n": scale["full_n"],
+                           "steps": 1, "ce": False, "eval": False}]}),
+            "dp": (KG_TP_DP_RANKS, {
+                "device": device, "scale": scale, "tp": 2,
+                "cases": [{"label": f"N{scale['dp_n']}_dp", "n": scale["dp_n"], "steps": 1,
+                           "ce": True, "eval": False}]}),
+        }
+        ranks, errors = {}, []
+        for name, (world, spec) in specs.items():
+            sub = os.path.join(work, name)
+            os.makedirs(sub)
+            t0 = time.perf_counter()
+            mp.spawn(kg_tp_rank, args=(world, sub, spec), nprocs=world, join=True)
+            kg_tp[f"{name}_spawn_to_end_s"] = time.perf_counter() - t0
+            ranks[name] = []
+            for r in range(world):
+                with open(os.path.join(sub, f"rank{r}.json")) as f:
+                    ranks[name].append(json.load(f))
+        for name, got in ranks.items():
+            first = got[0]
+            for label, res in first["cases"].items():
+                errors += res["errors"]
+                for r, other in enumerate(got):
+                    o = other["cases"][label]
+                    if not o["replicas_equal"] or o["metrics"] != res["metrics"] or o.get(
+                            "hits") != res.get("hits"):
+                        raise AssertionError(f"KG TP {label} rank {r}: the replicas, metrics or "
+                                             "Hit@10 differ from rank 0's")
+                if "hits" in res and res["hits"] != res["one_process_hits"]:
+                    errors.append(f"KG TP {label}: Hit@10 {res['hits']} vs one process "
+                                  f"{res['one_process_hits']}")
+                peaks = [g["cases"][label]["peak_bytes_steps"] for g in got]
+                extra = [g["cases"][label]["gather_extra_bytes"] for g in got]
+                one_peak = res["one_process_peak_bytes"]
+                if [g["cases"][label]["gathered_on_this_rank"] for g in got] != [
+                        r == 0 for r in range(len(got))]:
+                    errors.append(f"KG TP {label}: the gathered state is not on rank 0 alone")
+                if device == "cuda":
+                    if any(x > KG_TP_GATHER_EXTRA_BYTES for x in extra):
+                        errors.append(f"KG TP {label}: gathering the state added {extra} bytes "
+                                      f"on the ranks' card (bound {KG_TP_GATHER_EXTRA_BYTES})")
+                    shares = [p / one_peak for p in peaks]
+                    if res["memory"] and max(shares) > KG_TP_PEAK_SHARE:
+                        errors.append(f"KG TP {label}: a rank's peak over the steps {shares} of "
+                                      f"the one-process steps' (bound {KG_TP_PEAK_SHARE:g})")
+                rule = res["state_vs_one_process"]
+                mesh_p50 = float(np.median(res["step_s"]) * 1e3)
+                one_p50 = float(np.median(res["one_process_step_s"]) * 1e3)
+                kg_tp[label] = {
+                    "mesh": first["mesh"], "shard_rows": [g["cases"][label]["shard_rows"]
+                                                          for g in got],
+                    "metrics": res["metrics"], "one_process_metrics": res["one_process_metrics"],
+                    "max_loss_diff": res["max_loss_diff"], "state_vs_one_process": rule,
+                    "step_s": res["step_s"], "one_process_step_s": res["one_process_step_s"],
+                    "steps_per_s": len(res["step_s"]) / sum(res["step_s"]),
+                    "one_process_steps_per_s": (len(res["one_process_step_s"])
+                                                / sum(res["one_process_step_s"])),
+                    "hits": res.get("hits"), "one_process_hits": res.get("one_process_hits"),
+                    "lookup_p50_ms": res.get("lookup_p50_ms"),
+                    "moments_vs_one_process": res["moments_vs_one_process"],
+                    "peak_bytes_steps_by_rank": peaks, "one_process_peak_bytes": one_peak,
+                    "gather_extra_bytes_by_rank": extra}
+                print(f"  {label} on mesh {first['mesh']} ({len(got)} ranks on one card, gloo), "
+                      f"{len(res['step_s'])} step(s): losses within {res['max_loss_diff']:.3g} of "
+                      f"one process (bound {KG_TP_LOSS_ATOL:g}), state max |diff| "
+                      f"{rule['max_abs_diff']:.3g} (bound "
+                      f"{KG_TP_EXACT_ATOL if res['exact'] else DP_MAX_DIFF:g}), past the tight "
+                      f"bound {rule['loose_share']:.3g} (bound {DP_LOOSE_SHARE['highest']:g}), "
+                      f"moments {res['moments_vs_one_process']:.3g} of their largest entries "
+                      f"(bound {KG_TP_MOMENT_REL:g}), replicas equal; step p50 {mesh_p50:.1f} ms "
+                      f"(one process {one_p50:.1f} ms)"
+                      + (f"; Hit@k over {scale['eval']} triplets at k = " + ", ".join(
+                          f"{k}: {v:.4f}" for k, v in res["hits"].items())
+                         + ", equal to one process's" if "hits" in res else ""))
+                if res.get("lookup_p50_ms"):
+                    print("  the lookups' collective alone (rank 0, p50 of "
+                          f"{KG_TP_LOOKUP_CALLS}): " + ", ".join(
+                              f"{k} {v['rows']} rows {v['lookup']:.3f} ms (a bare all_reduce of "
+                              f"its {v['bytes'] / 1e6:.2f} MB {v['all_reduce_alone']:.3f} ms)"
+                              for k, v in res["lookup_p50_ms"].items()))
+                if device == "cuda":
+                    print(f"  card memory at the peak of the steps by rank "
+                          f"{[round(p / 2**20, 1) for p in peaks]} MiB, one process "
+                          f"{one_peak / 2**20:.1f} MiB (share {max(peaks) / one_peak:.3f}"
+                          + (f", bound {KG_TP_PEAK_SHARE:g}" if res["memory"] else "")
+                          + f"); gathering the state to rank 0 added "
+                          f"{[round(x / 2**20, 1) for x in extra]} MiB on the card (bound "
+                          f"{KG_TP_GATHER_EXTRA_BYTES / 2**20:g})")
+        if errors:
+            raise AssertionError("; ".join(errors))
+
+        launches = [g["serve_launches"] for g in ranks["tp"]]
+        if device == "cuda" and any(c["rank_topk"] != 1 for c in launches):
+            raise AssertionError(f"cli.infer --mesh auto: rank_topk launches {launches}, one a "
+                                 "rank expected")
+        with open(one_json) as f:
+            want_json = json.load(f)
+        with open(mesh_json) as f:
+            got_json = json.load(f)
+        assert_close_tree("cli.infer --mesh auto on the mesh-trained checkpoint vs one process",
+                          got_json, want_json, TP_VALUE_ATOL)
+        kg_tp["serve"] = {"launches_by_rank": launches, "json_equal": got_json == want_json}
+        print(f"  cli.infer --task predict_tails --mesh auto on the mesh-trained checkpoint: "
+              f"rank_topk_local launches by rank {[c['rank_topk'] for c in launches]}, the "
+              f"one-process CLI's JSON (ids equal, floats within {TP_VALUE_ATOL:g}; equal as "
+              f"JSON: {kg_tp['serve']['json_equal']})")
+    return {"rank_topk_local": sum(c["rank_topk"] for c in launches)}, kg_tp
+
+
 def phase_line(text: str) -> None:
     """A phase's heading, with the seconds since the script started."""
     print(f"{text} [{time.perf_counter() - _T0:.1f} s]")
@@ -6764,7 +7249,20 @@ def main() -> int:
                             cli_infer, cli_train_image, make_image_checkpoint)
     torch.cuda.empty_cache()
 
-    phase_line("phase 21: phases 1-20 done; the kernels line and the result:")
+    phase_line(f"phase 21: the KG train state row-sharded: the trainer CLI under "
+               f"torch.distributed.run --mesh auto at N = {TP_UNEVEN:,}; {TP_RANKS} ranks on one "
+               f"card (gloo), mesh (1, 2): kg_train_step at N = {TP_UNEVEN:,} and "
+               f"{KG_TP_SCALE['full_n']:,} (full softmax), kg_eval_hits, cli.infer --mesh auto "
+               f"on the trained checkpoint; {KG_TP_DP_RANKS} ranks, mesh (2, 2): a step at "
+               f"N = {KG_TP_SCALE['dp_n']:,}")
+    kg_tp_counts, kg_tp_path = phase_kg_tp_path(rf, cli_train, cli_infer)
+    entry = next(k for k in kernels if k["name"] == "rank_topk_local")
+    entry["launches_kg_tp_serving"] = kg_tp_counts["rank_topk_local"]
+    if entry["launches_kg_tp_serving"] < 1:
+        raise AssertionError("rank_topk_local was not launched serving the mesh-trained KG")
+    torch.cuda.empty_cache()
+
+    phase_line("phase 22: phases 1-21 done; the kernels line and the result:")
     print(card_line())
     print(json.dumps({"kernels": kernels, "main_path": main, "score_path": score_path,
                       "kg_path": kg, "train_path": train, "fused_path": fused_path,
@@ -6773,7 +7271,8 @@ def main() -> int:
                       "default_backward": {"train": train_default, "fast_cli": fast_cli},
                       "fused_bf16": fused_bf16, "narrow": narrow,
                       "narrow_backward": narrow_bwd, "narrow_fused": fused_narrow,
-                      "tp_path": tp_path, "dp_path": dp_path, "bf16_ring": bf16_ring,
+                      "tp_path": tp_path, "dp_path": dp_path, "kg_tp_path": kg_tp_path,
+                      "bf16_ring": bf16_ring,
                       "card": card},
                      allow_nan=False))
     print(json.dumps({"ok": True, "device": {

@@ -22,15 +22,31 @@ like the JAX trainer's ``fold_in(key(seed), g)`` and ``key(seed + 1)`` with
 the port's own bits; a test replays the JAX draws through them and starts
 from the JAX state through ``init_state``. ``metrics.jsonl`` holds the JAX
 CLI's keys; its ``seconds`` are not rounded. On the card by default;
-``--device cpu`` asks for the plain path. ``--mesh`` (the row-sharded
-tables of ROADMAP A2.3) and ``--device tpu`` exit 1. ``--debug`` raises
-FloatingPointError at the first loss that is not finite, naming the epoch
-and step.
+``--device cpu`` asks for the plain path. ``--device tpu`` exits 1.
+``--debug`` raises FloatingPointError at the first loss that is not finite,
+naming the epoch and step.
+
+``--mesh auto`` (or a device count) trains over a launched world of
+processes, one a device (``parallel/dp_train.py``):
+
+    torchrun --nproc-per-node N -m probgan_tpu_torch.cli.train ... --mesh auto
+
+The entity table and its Adam moments are row-sharded over the mesh's
+"model" axis after init and after a resume's load, each step's batch and
+corrupted negatives split over "data" (``--batch_size`` must be a multiple
+of the data axis), the sampled negatives and the noise are the same on
+every rank, and the eval runs over the sharded table. Only world rank 0
+prints and writes files; it saves the state gathered back to its host
+(``gather_kg_state``: no rank holds more of the table on its card than its
+shard), so the files are the one-process trainer's and pass both ways
+between mesh and one-process runs. A count that no launched world gives
+exits 1.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -182,8 +198,13 @@ def build_parser() -> argparse.ArgumentParser:
                         help="auto/cuda: the first CUDA card (an error without "
                              "one); cpu: the plain path; tpu exits 1")
     parser.add_argument("--mesh", type=str, default="",
-                        help="Multi-device training with the entity table "
-                             "row-sharded: not ported yet, exits 1 (ROADMAP A2.3)")
+                        help="Training over a launched world of processes, one "
+                             "a device (torchrun --nproc-per-node N): 'auto' "
+                             "(the whole world) or a device count. The entity "
+                             "table and its Adam moments row-shard over the "
+                             "mesh's model axis, batches split over its data "
+                             "axis (parallel/dp_train.shard_kg_state); rank 0 "
+                             "writes the one-process trainer's files")
     return parser
 
 
@@ -225,6 +246,8 @@ def _prune_metrics(metrics_path: str, start_epoch: int) -> None:
 
 
 def main(argv: list[str] | None = None) -> int:
+    """The trainer; in a launched world only world rank 0 prints and writes
+    files, the other ranks train beside it in silence."""
     import sys
 
     raw_argv = sys.argv[1:] if argv is None else list(argv)
@@ -234,13 +257,18 @@ def main(argv: list[str] | None = None) -> int:
 
         return image_main(filtered)
 
-    args = build_parser().parse_args(raw_argv)
+    from probgan_tpu_torch.parallel.mesh import world_rank
+
+    if world_rank() == 0:
+        return _main(raw_argv)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        return _main(raw_argv, write=False)
+
+
+def _main(argv: list[str], write: bool = True) -> int:
+    args = build_parser().parse_args(argv)
     if args.device == "tpu":
         print("Error: --device tpu: the port runs on a CUDA card (auto, cuda) or on the CPU (cpu)")
-        return 1
-    if args.mesh:
-        print("Error: --mesh: KG training with the entity table row-sharded over a mesh "
-              "is not ported yet (ROADMAP A2.3)")
         return 1
 
     from probgan_tpu_torch import native
@@ -248,11 +276,28 @@ def main(argv: list[str] | None = None) -> int:
     from probgan_tpu_torch.core.device import device_str, resolve_device
     from probgan_tpu_torch.core.train_state import load_train_state, save_train_state
     from probgan_tpu_torch.engine import train as train_engine
+    from probgan_tpu_torch.parallel.mesh import axis_size, rank_device, resolve_mesh
 
+    mesh = None
+    if args.mesh:
+        try:
+            mesh = resolve_mesh(args.mesh, device_type="cpu" if args.device == "cpu" else "cuda")
+        except ValueError as err:
+            print(f"Error: --mesh {args.mesh}: {err}")
+            return 1
     device = resolve_device(args.device)
     print("Prot-B-GAN training...")
     print(f"Data root: {args.data_root}")
     print(f"Device: {device_str(device)}")
+    if mesh is not None:
+        dp, data_rank = axis_size(mesh, "data"), mesh.get_local_rank("data")
+        if args.batch_size % dp != 0:
+            print(f"Error: --batch_size {args.batch_size} must be divisible by the mesh's "
+                  f"data axis of {dp} devices")
+            return 1
+        print(f"Mesh: {mesh.size()} devices {dict(zip(mesh.mesh_dim_names, mesh.shape))} — "
+              "entity-table TP + batch DP")
+        device = rank_device(device.type)
 
     train, valid, num_entities, num_relations, vocab = load_triplets(
         args.data_root, args.debug
@@ -269,11 +314,15 @@ def main(argv: list[str] | None = None) -> int:
     print(f"  - Train triplets: {len(train):,}")
     print(f"  - Valid triplets: {len(valid):,}")
 
+    # on a mesh: drawn (or loaded) on the CPU, then each rank's part placed
+    # on its own device
     state = init_state(args.seed, num_entities, num_relations, args.embed_dim,
-                       args.noise_dim, args.hidden_dim, args.lr, device.type)
+                       args.noise_dim, args.hidden_dim, args.lr,
+                       "cpu" if mesh is not None else device.type)
     history: dict[str, list] = {"val_hit10": [], "d_loss": [], "g_loss": []}
     best_hit10, best_epoch, start_epoch = 0.0, 0, 0
-    os.makedirs(args.output_dir, exist_ok=True)
+    if write:
+        os.makedirs(args.output_dir, exist_ok=True)
     train_state_path = os.path.join(args.output_dir, "train_state.msgpack")
     if args.resume and os.path.exists(train_state_path):
         state, meta = load_train_state(train_state_path, state)
@@ -283,9 +332,21 @@ def main(argv: list[str] | None = None) -> int:
         start_epoch = int(meta["epoch"])
         print(f"Resumed from epoch {start_epoch} "
               f"(best Hit@10 {best_hit10:.4f} at epoch {best_epoch})")
+    kg = None  # on a mesh, the step's view of it (parallel/sharded_kg.py:KGMesh)
+    if mesh is not None:
+        from probgan_tpu_torch.parallel.dp_train import (
+            gather_kg_state,
+            kg_batch_sharding,
+            shard_kg_state,
+        )
+        from probgan_tpu_torch.parallel.sharded_kg import kg_mesh
+
+        state = shard_kg_state(mesh, state)
+        batch_rows = kg_batch_sharding(mesh)
+        kg = kg_mesh(mesh, num_entities)
     # One JSON line per epoch behind the reference-style prints.
     metrics_path = os.path.join(args.output_dir, "metrics.jsonl")
-    if args.resume and os.path.exists(metrics_path):
+    if write and args.resume and os.path.exists(metrics_path):
         _prune_metrics(metrics_path, start_epoch)
     ckpt_ext = ".pt" if args.checkpoint_format == "torch" else ".msgpack"
     ckpt_path = os.path.join(args.output_dir, f"best_checkpoint{ckpt_ext}")
@@ -318,8 +379,15 @@ def main(argv: list[str] | None = None) -> int:
     def on_device(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a.astype(np.int64)).to(device)
 
+    def batch_on_device(a: np.ndarray) -> torch.Tensor:
+        """A step's batch rows: on a mesh, this rank's share along "data"."""
+        if mesh is None:
+            return on_device(a)
+        return batch_rows(torch.from_numpy(a.astype(np.int64)))
+
     steps_per_epoch = max(1, len(train) // args.batch_size)
-    metrics_log = open(metrics_path, "a" if args.resume else "w")
+    metrics_log = (open(metrics_path, "a" if args.resume else "w") if write
+                   else open(os.devnull, "w"))
     try:
         for epoch in range(start_epoch + 1, args.epochs + 1):
             t0 = time.time()
@@ -328,13 +396,13 @@ def main(argv: list[str] | None = None) -> int:
             epoch_d = epoch_g = 0.0  # device tensors after the first step
             for step in range(steps_per_epoch):
                 idx = perm[step * args.batch_size : (step + 1) * args.batch_size]
-                batch = on_device(train[idx])
+                batch = batch_on_device(train[idx])
                 # Global-step key: unique for every (epoch, step).
                 global_step = (epoch - 1) * steps_per_epoch + step
                 nb = len(idx)
                 z = draw_noise(args.seed, global_step, nb, args.noise_dim)
                 # Host-sampled corrupted tails + relations for the discriminator.
-                negatives = on_device(np.stack([
+                negatives = batch_on_device(np.stack([
                     native.sample_negatives(nb, num_entities, 2 * global_step),
                     native.sample_negatives(nb, num_relations, 2 * global_step + 1),
                 ], axis=1))
@@ -345,6 +413,7 @@ def main(argv: list[str] | None = None) -> int:
                     state, batch, lr=args.lr, cosine_weight=args.cosine_weight,
                     ce_weight=args.ce_weight, adv_weight=args.adv_weight,
                     negatives=negatives, ce_negatives=ce_ids, z=z,
+                    mesh=kg,
                 )
                 if args.debug:
                     for name in ("d_loss", "g_loss"):
@@ -365,16 +434,22 @@ def main(argv: list[str] | None = None) -> int:
             epoch_d = float(epoch_d)
             epoch_g = float(epoch_g)
             # Chunked eval: one unchunked call holds a [num_valid, num_entities]
-            # score matrix; the chunk keeps it at ~2 GB.
+            # score matrix; the chunk keeps it at ~2 GB. On a mesh each rank
+            # ranks its share of a chunk along "data" against its rows; the
+            # fraction is the whole chunk's.
             hits, seen = 0.0, 0
             eval_bs = max(64, min(4096, (1 << 29) // max(num_entities, 1)))
             for off in range(0, len(valid), eval_bs):
                 vb = valid_dev[off : off + eval_bs]
                 zb = z_eval[off : off + eval_bs]
+                n = len(vb)
+                if mesh is not None:
+                    vb, zb = (torch.tensor_split(x, dp)[data_rank] for x in (vb, zb))
                 frac = float(train_engine.kg_eval_hits(
-                    state.g_params, state.node_emb, state.rel_emb, vb, zb, 10))
-                hits += frac * len(vb)
-                seen += len(vb)
+                    state.g_params, state.node_emb, state.rel_emb, vb, zb, 10,
+                    mesh=kg))
+                hits += frac * n
+                seen += n
             hit10 = hits / max(seen, 1)
             history["val_hit10"].append(hit10)
             history["d_loss"].append(epoch_d / steps_per_epoch)
@@ -394,22 +469,28 @@ def main(argv: list[str] | None = None) -> int:
             }) + "\n")
             metrics_log.flush()
 
+            # on a mesh rank 0's model group sends rank 0 the table's rows and
+            # rank 0 writes; the other ranks get None
+            whole = state if mesh is None else gather_kg_state(kg, state)
             if hit10 >= best_hit10:
                 best_hit10, best_epoch = hit10, epoch
-                save_checkpoint(ckpt_path, checkpoint_dict(state, best_hit10, best_epoch))
+                if write:
+                    save_checkpoint(ckpt_path, checkpoint_dict(whole, best_hit10, best_epoch))
                 if args.verbose:
                     print(f"  new best; checkpoint saved to {ckpt_path}")
 
-            save_train_state(train_state_path, state, {
-                "epoch": epoch,
-                "best_hit10": best_hit10,
-                "best_epoch": best_epoch,
-                "history": history,
-            })
+            if write:
+                save_train_state(train_state_path, whole, {
+                    "epoch": epoch,
+                    "best_hit10": best_hit10,
+                    "best_epoch": best_epoch,
+                    "history": history,
+                })
+            del whole  # on a mesh: the gathered copy, on rank 0's host
 
     finally:
         metrics_log.close()
-    if vocab is not None:
+    if write and vocab is not None:
         with open(os.path.join(args.output_dir, "vocab.json"), "w") as f:
             json.dump(vocab, f)
 

@@ -443,6 +443,10 @@ def kg_init_state(generator: torch.Generator | int, num_entities: int, num_relat
 _CE_TEMPERATURE = 0.1
 
 
+def _take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return table[ids]
+
+
 def _rank_ce(pred: torch.Tensor, node_emb: torch.Tensor, t_idx: torch.Tensor) -> torch.Tensor:
     """Full-softmax cross-entropy of temperature-scaled cosine logits against
     the true tail: the differentiable surrogate of Hit@k ranking."""
@@ -453,14 +457,15 @@ def _rank_ce(pred: torch.Tensor, node_emb: torch.Tensor, t_idx: torch.Tensor) ->
 
 
 def _sampled_rank_ce(pred: torch.Tensor, node_emb: torch.Tensor, t_idx: torch.Tensor,
-                     neg_ids: torch.Tensor) -> torch.Tensor:
+                     neg_ids: torch.Tensor, take=_take) -> torch.Tensor:
     """Sampled-softmax ranking cross-entropy: the full [B, N] logit matrix is
     O(B*N) per step; here the softmax runs over {true tail} U {S shared
     sampled negatives}. Negatives that collide with a row's true tail are
-    masked so the label class is unique."""
+    masked so the label class is unique. ``take(table, ids)`` looks the rows
+    up (on a mesh, the row-sharded table's lookup)."""
     pred_n = rank_ops.l2_normalize(pred)
-    true_emb = rank_ops.l2_normalize(node_emb[t_idx])    # [B, D]
-    neg_emb = rank_ops.l2_normalize(node_emb[neg_ids])   # [S, D]
+    true_emb = rank_ops.l2_normalize(take(node_emb, t_idx))    # [B, D]
+    neg_emb = rank_ops.l2_normalize(take(node_emb, neg_ids))   # [S, D]
     true_logit = (pred_n * true_emb).sum(dim=1, keepdim=True)
     neg_logits = rank_ops.cosine_scores(pred_n, neg_emb)  # [B, S]
     collide = neg_ids[None, :] == t_idx[:, None]
@@ -480,6 +485,7 @@ def kg_train_step(
     negatives: torch.Tensor | None = None,     # [B, 2] (corrupt tail, corrupt rel)
     ce_negatives: torch.Tensor | None = None,  # [S] sampled-softmax entity ids
     z: torch.Tensor | None = None,
+    mesh=None,
 ):
     """One adversarial step on a batch of positive triplets.
 
@@ -495,67 +501,117 @@ def kg_train_step(
     The generator's noise [B, noise_dim] is ``z`` when given (a test replays
     the JAX package's draw this way), else a standard-normal draw from
     ``generator``: a ``torch.Generator`` (drawn on its own device) or the
-    port's ``RngStream`` (task "kg_train")."""
+    port's ``RngStream`` (task "kg_train").
+
+    ``mesh``: the run's ``parallel/sharded_kg.py:KGMesh`` (``kg_mesh``: a
+    (data, model) ``DeviceMesh`` over a launched world and the table's row
+    count), with ``state`` this rank's part of a row-sharded state
+    (``parallel/dp_train.py:shard_kg_state``). ``triplets`` and
+    ``negatives`` are then this rank's rows of the global batch along
+    "data" (``dp_train.kg_batch_sharding``), ``ce_negatives`` the whole set
+    and ``z`` the global batch's noise (or drawn for it from ``generator``,
+    the same on every rank), of which the step takes this rank's rows. The
+    rows come from their owners, each loss term is the mean over the global
+    batch (the ranks' means averaged over "data": equal shares), and the
+    gradients of the replicated leaves and of the table shard are averaged
+    over "data", one all-reduce of one flat buffer a network, with the
+    metrics. Adam then runs on every rank's leaves, the shard's rows
+    included: dense, as optax's. Returns this rank's new state and the
+    global batch's metrics, the same on every rank."""
     opt = kg_optimizer(lr)
     device = state.node_emb.device
     noise_dim = kg_gan.generator_dims(state.g_params)[1]
+    if mesh is not None:
+        mesh.require_shard(state.node_emb)
+    take = _take if mesh is None else mesh.take
+    ranks = 1 if mesh is None else mesh.dp
     if z is None:
-        shape = (triplets.shape[0], noise_dim)
+        shape = (triplets.shape[0] * ranks, noise_dim)
         if isinstance(generator, RngStream):
             z = generator.normal("kg_train", shape)
         elif generator is not None:
             z = torch.randn(shape, generator=generator, device=generator.device)
         else:
             raise ValueError("kg_train_step needs a generator or z")
+    if mesh is not None:
+        b = triplets.shape[0]
+        if z.shape[0] != b * ranks:
+            raise ValueError(f"z has {z.shape[0]} rows; the global batch {b} x {ranks} "
+                             "data ranks")
+        z = z[mesh.data_rank * b:(mesh.data_rank + 1) * b]
     z = z.to(device=device, dtype=torch.float32)
     h_idx, r_idx, t_idx = triplets[:, 0], triplets[:, 1], triplets[:, 2]
 
     # --- D step (tables frozen) ---
     d_req = _trainable(state.d_params)
-    h, r, t = state.node_emb[h_idx], state.rel_emb[r_idx], state.node_emb[t_idx]
+    h, r, t = take(state.node_emb, h_idx), state.rel_emb[r_idx], take(state.node_emb, t_idx)
     with torch.no_grad():
         fake_t = kg_gan.generator_apply(state.g_params, h, r, z)
     real_logits = kg_gan.discriminator_apply(d_req, h, r, t)
     fake_logits = kg_gan.discriminator_apply(d_req, h, r, fake_t)
     neg_terms = [F.softplus(fake_logits).mean()]
     if negatives is not None:
-        t_neg = state.node_emb[negatives[:, 0]]
+        t_neg = take(state.node_emb, negatives[:, 0])
         r_neg = state.rel_emb[negatives[:, 1]]
         neg_terms.append(F.softplus(kg_gan.discriminator_apply(d_req, h, r, t_neg)).mean())
         neg_terms.append(F.softplus(kg_gan.discriminator_apply(d_req, h, r_neg, t)).mean())
     d_loss = F.softplus(-real_logits).mean() + torch.stack(neg_terms).mean()
-    d_params, d_opt = adam_update(opt, state.d_params, _grads(d_loss, d_req), state.d_opt)
+    d_grads = _grads(d_loss, d_req)
+    d_values = (d_loss.detach(), real_logits.mean().detach(), fake_logits.mean().detach())
+    if ranks > 1:
+        d_grads, d_values = _mean_over_ranks(mesh.data, d_grads, d_values)
+    d_params, d_opt = adam_update(opt, state.d_params, d_grads, state.d_opt)
 
     # --- G + tables step ---
     g_and_tables = (state.g_params, state.node_emb, state.rel_emb)
     g_req, node_emb, rel_emb = req = _trainable(g_and_tables)
-    h, r, t = node_emb[h_idx], rel_emb[r_idx], node_emb[t_idx]
+    h, r, t = take(node_emb, h_idx), rel_emb[r_idx], take(node_emb, t_idx)
     fake_t = kg_gan.generator_apply(g_req, h, r, z)
     adv = F.softplus(-kg_gan.discriminator_apply(d_params, h, r, fake_t)).mean()
     cos = rank_ops.cosine_similarity(fake_t, t).mean()
     if ce_negatives is not None:
-        ce = _sampled_rank_ce(fake_t, node_emb, t_idx, ce_negatives)
-    else:
+        ce = _sampled_rank_ce(fake_t, node_emb, t_idx, ce_negatives, take)
+    elif mesh is None:
         ce = _rank_ce(fake_t, node_emb, t_idx)
+    else:
+        ce = mesh.rank_ce(fake_t, node_emb, t_idx, _CE_TEMPERATURE)
     # adv is down-weighted by default: the ranking cross-entropy is the
     # quality-bearing objective.
     g_loss = adv_weight * adv - cosine_weight * cos + ce_weight * ce
-    (g_params, node_emb, rel_emb), g_opt = adam_update(
-        opt, g_and_tables, _grads(g_loss, req), state.g_opt)
+    g_grads = _grads(g_loss, req)
+    g_values = (g_loss.detach(), cos.detach())
+    if ranks > 1:
+        g_grads, g_values = _mean_over_ranks(mesh.data, g_grads, g_values)
+    (g_params, node_emb, rel_emb), g_opt = adam_update(opt, g_and_tables, g_grads, state.g_opt)
 
-    metrics = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
-               "real_logit": real_logits.mean().detach(),
-               "fake_logit": fake_logits.mean().detach(), "gen_cosine": cos.detach()}
+    metrics = {"d_loss": d_values[0], "g_loss": g_values[0], "real_logit": d_values[1],
+               "fake_logit": d_values[2], "gen_cosine": g_values[1]}
     return KGTrainState(node_emb, rel_emb, g_params, d_params, g_opt, d_opt), metrics
 
 
 @torch.no_grad()
-def kg_eval_hits(g_params, node_emb, rel_emb, triplets, z, k: int = 10) -> torch.Tensor:
+def kg_eval_hits(g_params, node_emb, rel_emb, triplets, z, k: int = 10,
+                 mesh=None) -> torch.Tensor:
     """Hit@k of the true tail under generator cosine ranking.
-    Rank = 1 + #entities scoring strictly higher than the true tail."""
-    h = node_emb[triplets[:, 0]]
+    Rank = 1 + #entities scoring strictly higher than the true tail.
+
+    ``mesh`` (the run's ``parallel/sharded_kg.py:KGMesh``): ``node_emb`` is
+    this rank's row shard (``parallel/dp_train.py:shard_kg_state``),
+    ``triplets`` and ``z`` this rank's rows of the batch along "data", in
+    any share. Each rank counts the entities above the true tail in its
+    valid rows, the counts are summed over "model" and the hits and rows
+    over "data": the whole batch's Hit@k, on every rank."""
+    if mesh is not None:
+        mesh.require_shard(node_emb)
+    take = _take if mesh is None else mesh.take
+    h = take(node_emb, triplets[:, 0])
     r = rel_emb[triplets[:, 1]]
     pred = kg_gan.generator_apply(g_params, h, r, z)
+    if mesh is not None:
+        above = mesh.count_above(pred, node_emb, triplets[:, 2])
+        counts = torch.stack([(above < k).sum(), torch.tensor(len(triplets), device=pred.device)])
+        dist.all_reduce(counts, group=mesh.data)
+        return counts[0].float() / counts[1].float()
     sims = rank_ops.cosine_scores(rank_ops.l2_normalize(pred),
                                   rank_ops.l2_normalize(node_emb))  # [B, N]
     true_sim = sims.gather(1, triplets[:, 2:3])

@@ -17,6 +17,8 @@ normalizes them in its rank kernel: the one-device scores, bit for bit.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -34,18 +36,33 @@ def _axis(mesh: DeviceMesh, axis: str) -> tuple[int, int, dist.ProcessGroup]:
     return axis_size(mesh, axis), mesh.get_local_rank(axis), mesh.get_group(axis)
 
 
+class RowShard(NamedTuple):
+    """Where this rank's rows of an [N, D] table lie."""
+
+    num_entities: int  # N, the true row count
+    local_n: int       # ceil(N / tp): rows a shard holds, the last one padded
+    nvalid: int        # this shard's rows of the table: clip(N - offset, 0, local_n)
+    offset: int        # the global id of the shard's row 0
+
+
+def row_shard(mesh: DeviceMesh, num_entities: int, axis: str = "model") -> RowShard:
+    """This rank's ``RowShard`` of a ``num_entities``-row table over ``axis``."""
+    tp, r, _ = _axis(mesh, axis)
+    local_n = -(-num_entities // tp)
+    offset = r * local_n
+    return RowShard(num_entities, local_n, min(max(num_entities - offset, 0), local_n), offset)
+
+
 def shard_entity_table(table: torch.Tensor, mesh: DeviceMesh,
                        axis: str = "model") -> torch.Tensor:
-    """This rank's rows of the [N, D] table zero-padded to a multiple of the
-    axis size: ``[ceil(N / tp), D]``, a copy of its own on the table's
+    """This rank's rows of the [N, ...] table zero-padded to a multiple of
+    the axis size: ``[ceil(N / tp), ...]``, a copy of its own on the table's
     device. Pass the true N as ``num_entities`` to ``sharded_rank_topk`` so
     pad rows are masked out of rankings."""
-    tp, r, _ = _axis(mesh, axis)
-    n, d = table.shape
-    local_n = -(-n // tp)
-    lo, hi = min(r * local_n, n), min((r + 1) * local_n, n)
-    shard = torch.zeros((local_n, d), dtype=table.dtype, device=table.device)
-    shard[:hi - lo] = table[lo:hi]
+    rows = row_shard(mesh, table.shape[0], axis)
+    shard = torch.zeros((rows.local_n, *table.shape[1:]), dtype=table.dtype,
+                        device=table.device)
+    shard[:rows.nvalid] = table[rows.offset:rows.offset + rows.nvalid]
     return shard
 
 
@@ -99,15 +116,15 @@ def sharded_rank_topk(
         ValueError: k outside 1..num_entities, as the one-device rank does
             (a -inf filler would otherwise come back as a result).
     """
-    tp, r, group = _axis(mesh, axis)
+    tp, _, group = _axis(mesh, axis)
     local_n = table_shard.shape[0]
     n = local_n * tp if num_entities is None else int(num_entities)
     if not 1 <= k <= n:
         raise ValueError(f"sharded_rank_topk: k={k} must be in 1..num_entities={n}")
     k_local = min(k, local_n)
-    nvalid = min(max(n - r * local_n, 0), local_n)
-    v, i = rank_fused.rank_topk(_same_query(query, group), table_shard, k_local, nvalid)
-    i = i + r * local_n  # local -> global entity ids
+    rows = row_shard(mesh, n, axis)
+    v, i = rank_fused.rank_topk(_same_query(query, group), table_shard, k_local, rows.nvalid)
+    i = i + rows.offset  # local -> global entity ids
     if k_local < k:  # a small shard: pad its candidates (they sort last, never win)
         v = F.pad(v, (0, k - k_local), value=float("-inf"))
         i = F.pad(i, (0, k - k_local), value=_INT32_MAX)

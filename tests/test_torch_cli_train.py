@@ -166,7 +166,8 @@ def test_kg_trainer_errors(tmp_path, capsys):
     for flags in (["--mesh", "2"], ["--device", "tpu"]):
         assert ttrain_cli.main(["--data_root", str(tmp_path), *flags]) == 1
         out = capsys.readouterr().out
-        assert out.startswith("Error:") and ("A2.3" in out or "CUDA card" in out)
+        assert out.startswith("Error:") and ("torchrun --nproc-per-node 2" in out
+                                             or "CUDA card" in out)
 
 
 def test_kg_trainer_resume_prunes_metrics(kg_data, tmp_path, capsys):
