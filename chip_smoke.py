@@ -286,9 +286,10 @@ Phases (any failure exits non-zero and prints no result line):
     the unpacked path; the PSNR of "fast" against "high" is a reading;
     img/s, p50), ``latent_walk`` (frames equal to ``generate``'s) and
     ``score`` at "high" and "fast" (launches, logits within 1e-4 of the
-    twins', scores/s, p50); Cout 4 (with "none" too, and in the stage-fused
-    ``packed_upconv_conv``) and a PixelNorm Cout of 24 raise ValueError on
-    the card, and ``packed_upconv_conv`` at 16 channels launches;
+    twins', scores/s, p50); Cout 4 in B2 "lrelu" and "none", B5, B1
+    "lrelu" and the stage-fused ``packed_upconv_conv``, and Cout 24 in
+    ``packed_upconv_conv_rgb``, raise ValueError on the card naming
+    ROADMAP.md B.a.2.4, and ``packed_upconv_conv`` at 16 channels launches;
 17. the narrow backward at N: ``packed_conv`` "none" 8 -> 8 and 16 -> 8 at
     1024², 16 -> 16 and 32 -> 16 at 512² (slabs of 8 and 16) and
     ``packed_convpool`` "none" 8 -> 16 at 1024² (and 8 -> 8, a slab of 8 on
@@ -397,7 +398,24 @@ Phases (any failure exits non-zero and prints no result line):
     ``rank_topk_local`` once a rank, the one-process CLI's JSON); then four
     ranks, mesh (2, 2), one step at N = 100,003 by the same rules. Step
     times of both recorded only: the ranks share one card;
-22. the last lines: the card's name and power limit, one JSON line with each
+22. the serving path's PixelNorm kernels at any width up to 64 (ROADMAP.md
+    B.a.2.3): B1 "lrelu_norm" (with and without the toRGB of its input), B2
+    "lrelu_norm" and B3 (fp32 and uint8) at every new (C, Cout) of the 1024²
+    generators T (fmap_base 1024: stages 6-8 at 16, 8, 4 channels), T2 (512:
+    8, 4, 2) and O (3072: 48, 24, 12), batch 2 and 8, at "high", "default"
+    and "mid", against their twins by phase 16's rules, two runs bit-equal,
+    timed beside the bound and cuDNN with the torch epilogue (entries
+    "<counter>[any_width]"); ``generate`` at T and O, batch 8, at "high"
+    (+-1 on at most 0.5% of bytes of the unpacked path), "fast" (>= 50 dB
+    against "high") and G's "mid", the launches a call by the true Cout,
+    img/s and p50; ``latent_walk`` at T (the frames of ``generate``); under
+    ``PROBGAN_STAGE_FUSED=1`` ``generate`` at T raises before any launch,
+    naming B.a.2.4; the image trainer CLI at 512², fmap_base 512, fmap_max 64
+    (the JAX tests' configuration) trains stages 0-7, the D step's fakes of
+    stage 7 through B1 8 -> 4 and B3 4 -> 4, and writes a checkpoint the port
+    loads. ``python3 chip_smoke.py --phase 22`` runs phase 1 and this phase
+    alone and prints its kernels line;
+23. the last lines: the card's name and power limit, one JSON line with each
     kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -2922,6 +2940,35 @@ def check_rel(label: str, got: torch.Tensor, want: torch.Tensor, flips: bool = F
     return err
 
 
+def check_pixelnorm(label: str, got: torch.Tensor, want: torch.Tensor, pre: torch.Tensor,
+                    rel: float, spread: float = 1.0, flips: bool = False,
+                    nhwc: bool = False) -> float:
+    """A PixelNorm output against its twin, pixel by pixel. PixelNorm divides
+    each pixel's pre-norm sums ``pre`` ([B, C, H, W], the twin's LeakyReLU
+    output) by their RMS r; the kernel's sums differ from the twin's by
+    their order, and at few channels r can be small (2 channels both near 0),
+    so that difference grows by 1/r. Each value is held to ``rel`` x (the
+    largest |want| + the largest |pre| x ``spread`` / r at its pixel):
+    ``spread`` 1 for the features, for B3's RGB (``nhwc``) the largest sum
+    of |rgb_w| over the channels. With ``flips`` GRADE_FLIP_SHARE of the values
+    may reach GRADE_FLIP_REL of the largest |want| (B3 at "default", as
+    check_rel). Returns the largest |got - want|."""
+    r = torch.sqrt(pre.square().mean(dim=1, keepdim=True) + 1e-8)
+    if nhwc:
+        r = r.permute(0, 2, 3, 1)
+    scale = want.abs().max().item()
+    limit = rel * (scale + pre.abs().max().item() * spread / r)
+    d = (got - want).abs()
+    beyond = (d > limit).float().mean().item()
+    worst = (d / limit).max().item()
+    print(f"  {label}: {d.max().item() / scale:.3g} of the largest entry, {worst:.3g} of the "
+          f"pixel's bound at most, {beyond:.4%} of values past it")
+    if (beyond > 0 and not flips) or beyond > GRADE_FLIP_SHARE or d.max() > GRADE_FLIP_REL * scale:
+        raise AssertionError(f"{label}: {beyond:.4%} of values past rel {rel:g} of the pixel's "
+                             f"bound (the largest {worst:.3g} of it)")
+    return d.max().item()
+
+
 def phase_grades_kernels(pk, pro_gan) -> list[dict]:
     """B1, B2 "lrelu_norm" and B3 in kernel mode "default" at the main path's
     shapes (batch 2) against their bf16 twins, two runs bit-equal, timed beside
@@ -4423,7 +4470,10 @@ def _narrow(counts: dict, mode: str) -> dict:
     return out
 
 
-def phase_narrow_kernels(pk, pro_gan) -> tuple[list[dict], dict]:
+def phase_narrow_kernels(pk, pro_gan, cases=NARROW_CASES, batches=(BATCH_MAIN,),
+                         seed: int = 1515, tag: str = "narrow", witness_couts=(16,),
+                         iters: int = 10, pixel_rel: dict | None = None
+                         ) -> tuple[list[dict], dict]:
     """B1, B2, B3 and B5 at 16 and 8 channels (and C 8 and 16) at N's batch-8
     shapes, at "high" (the fp32 kernels), "default" and "mid", against their
     twins: fp32 to atol = rtol = 1e-4 and uint8 +-1 on 0.5% of bytes
@@ -4434,11 +4484,15 @@ def phase_narrow_kernels(pk, pro_gan) -> tuple[list[dict], dict]:
     witnessed as a bf16 rounding flip, b3_flip_witness); two runs
     bit-equal; packed_conv "lrelu" pooled in B5's order equal to B5 bit for
     bit. Timed beside the bound and F.conv2d with the torch epilogue (fp32,
-    TF32 off; bf16 tensors at "default"; the bf16-rounded weights at "mid")."""
-    gen = torch.Generator(device="cuda").manual_seed(1515)
+    TF32 off; bf16 tensors at "default"; the bf16-rounded weights at "mid").
+    Phase 22 runs the same checks on its own ``cases`` at ``batches``, its
+    entries named "<counter>[<tag>]", the witness at every Cout in
+    ``witness_couts``, each time the mean of ``iters`` calls, and with
+    ``pixel_rel`` ({mode: rel}) holds the fp32 PixelNorm outputs (B1's and
+    B2's features, B3's fp32 RGB) by check_pixelnorm instead."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     bf = torch.bfloat16
-    B = BATCH_MAIN
 
     def feats(*shape):
         return pro_gan.pixel_norm(torch.randn(shape, device=dev, generator=gen))
@@ -4465,7 +4519,11 @@ def phase_narrow_kernels(pk, pro_gan) -> tuple[list[dict], dict]:
             return [*ts[:-1], pk._bf16(ts[-1])]
         return list(ts)
 
-    def check(label, mode, got, want, uint8=False, b3=False, flip_args=None):
+    def check(label, mode, got, want, uint8=False, b3=False, flip_args=None, pre=None,
+              spread=1.0):
+        if pre is not None and not uint8:
+            return check_pixelnorm(label, got, want, pre, pixel_rel[mode], spread,
+                                   flips=b3 and mode == "default", nhwc=b3), {}
         if uint8 and flip_args is not None:
             # B3's features are rounded to bf16 for toRGB; where one sits on a
             # rounding boundary the twin rounds it the other way (the fp32
@@ -4490,130 +4548,143 @@ def phase_narrow_kernels(pk, pro_gan) -> tuple[list[dict], dict]:
         return check_rel(label, got, want, flips=b3 and mode == "default"), {}
 
     rows, pool_equal = {}, {}
-    for mode in NARROW_MODES:
+    for mode, (kernel, form, c, cout, h), B in (
+            (m, case, b) for m in NARROW_MODES for case in cases for b in batches):
         peak = PEAK_FP32_FLOPS if mode == "high" else PEAK_BF16_FLOPS
         passes = MID_PASSES if mode == "mid" else 1
         wbytes = 4 if mode == "high" else 2  # a weight as the kernel reads it
-        for kernel, form, c, cout, h in NARROW_CASES:
-            label = f"{kernel}[{mode},{form},{c}->{cout}@{h}]"
-            x, w, b = feats(B, c, h, h), conv_w(cout, c), bias(cout)
-            if kernel == "packed_upconv":
-                kw = {"epilogue": form.split("+")[0], "mode": mode}
-                if form.endswith("+rgb"):
-                    kw.update(rgb_w=conv_w(3, c, 1, 1.0).reshape(3, c), rgb_b=bias(3))
+        at = "" if len(batches) == 1 else f" b{B}"
+        label = f"{kernel}[{mode},{form},{c}->{cout}@{h}{at}]"
+        x, w, b = feats(B, c, h, h), conv_w(cout, c), bias(cout)
+        if kernel == "packed_upconv":
+            kw = {"epilogue": form.split("+")[0], "mode": mode}
+            if form.endswith("+rgb"):
+                kw.update(rgb_w=conv_w(3, c, 1, 1.0).reshape(3, c), rgb_b=bias(3))
 
-                def fn(x=x, w=w, b=b, kw=kw):
-                    return pk.packed_upconv(x, w, b, **kw)
+            def fn(x=x, w=w, b=b, kw=kw):
+                return pk.packed_upconv(x, w, b, **kw)
 
-                def plain(x=x, w=w, b=b, kw=kw):
-                    return pk.packed_upconv_plain(x, w, b, **kw)
+            def plain(x=x, w=w, b=b, kw=kw):
+                return pk.packed_upconv_plain(x, w, b, **kw)
 
-                def library(x=x, w=w, b=b, kw=kw, mode=mode):
-                    xl, bl, wl = lib_operands(mode, x, b, w)
-                    y = epi(F.conv2d(F.interpolate(xl, scale_factor=2.0, mode="nearest"), wl,
-                                     bl, padding=1), kw["epilogue"])
-                    if "rgb_w" in kw:
-                        xr, br, wr = lib_operands(mode, x, kw["rgb_b"], kw["rgb_w"])
-                        return y, F.conv2d(xr, wr[:, :, None, None], br)
-                    return y
+            def library(x=x, w=w, b=b, kw=kw, mode=mode):
+                xl, bl, wl = lib_operands(mode, x, b, w)
+                y = epi(F.conv2d(F.interpolate(xl, scale_factor=2.0, mode="nearest"), wl,
+                                 bl, padding=1), kw["epilogue"])
+                if "rgb_w" in kw:
+                    xr, br, wr = lib_operands(mode, x, kw["rgb_b"], kw["rgb_w"])
+                    return y, F.conv2d(xr, wr[:, :, None, None], br)
+                return y
 
-                rgb = "rgb_w" in kw
-                flops = 2 * 4 * c * cout * B * 4 * h * h + (2 * c * 3 * B * h * h if rgb else 0)
-                nbytes = (4 * (B * c * h * h + B * cout * 4 * h * h + cout
-                               + ((3 * c + 3 + B * 3 * h * h) if rgb else 0))
-                          + wbytes * (9 if mode == "high" else 16) * c * cout)
-            elif kernel == "packed_conv_rgb":
-                u8 = form == "uint8"
-                alpha = 1.0 if u8 else 0.3
-                rgb_w, rgb_b = conv_w(3, cout, 1, 1.0).reshape(3, cout), bias(3)
-                prev = 0.5 * torch.randn((B, 3, h // 2, h // 2), device=dev, generator=gen)
-                args = (x, w, b, rgb_w, rgb_b, prev)
+            rgb = "rgb_w" in kw
+            flops = 2 * 4 * c * cout * B * 4 * h * h + (2 * c * 3 * B * h * h if rgb else 0)
+            nbytes = (4 * (B * c * h * h + B * cout * 4 * h * h + cout
+                           + ((3 * c + 3 + B * 3 * h * h) if rgb else 0))
+                      + wbytes * (9 if mode == "high" else 16) * c * cout)
+        elif kernel == "packed_conv_rgb":
+            u8 = form == "uint8"
+            alpha = 1.0 if u8 else 0.3
+            rgb_w, rgb_b = conv_w(3, cout, 1, 1.0).reshape(3, cout), bias(3)
+            prev = 0.5 * torch.randn((B, 3, h // 2, h // 2), device=dev, generator=gen)
+            args = (x, w, b, rgb_w, rgb_b, prev)
 
-                def fn(args=args, alpha=alpha, u8=u8, mode=mode):
-                    return pk.packed_conv_rgb(*args, alpha, emit_uint8=u8, mode=mode)
+            def fn(args=args, alpha=alpha, u8=u8, mode=mode):
+                return pk.packed_conv_rgb(*args, alpha, emit_uint8=u8, mode=mode)
 
-                def plain(args=args, alpha=alpha, u8=u8, mode=mode):
-                    return pk.packed_conv_rgb_plain(*args, alpha, emit_uint8=u8, mode=mode)
+            def plain(args=args, alpha=alpha, u8=u8, mode=mode):
+                return pk.packed_conv_rgb_plain(*args, alpha, emit_uint8=u8, mode=mode)
 
-                def library(args=args, alpha=alpha, u8=u8, mode=mode):
-                    x, w, b, rgb_w, rgb_b, prev = args
-                    xl, bl, wl = lib_operands(mode, x, b, w)
-                    feat = epi(F.conv2d(xl, wl, bl, padding=1), "lrelu_norm")
-                    fl, rbl, rwl = lib_operands(mode, feat, rgb_b, rgb_w)
-                    rgb = F.conv2d(fl, rwl[:, :, None, None], rbl).float()
-                    up = F.interpolate(prev, scale_factor=2.0, mode="nearest")
-                    out = (up + alpha * (rgb - up)).permute(0, 2, 3, 1)
-                    return pro_gan.to_uint8(out) if u8 else out.contiguous()
+            def library(args=args, alpha=alpha, u8=u8, mode=mode):
+                x, w, b, rgb_w, rgb_b, prev = args
+                xl, bl, wl = lib_operands(mode, x, b, w)
+                feat = epi(F.conv2d(xl, wl, bl, padding=1), "lrelu_norm")
+                fl, rbl, rwl = lib_operands(mode, feat, rgb_b, rgb_w)
+                rgb = F.conv2d(fl, rwl[:, :, None, None], rbl).float()
+                up = F.interpolate(prev, scale_factor=2.0, mode="nearest")
+                out = (up + alpha * (rgb - up)).permute(0, 2, 3, 1)
+                return pro_gan.to_uint8(out) if u8 else out.contiguous()
 
-                flops = 2 * 9 * c * cout * B * h * h + 2 * cout * 3 * B * h * h
-                nbytes = (4 * (B * c * h * h + cout + 3 * cout + 3 + B * 3 * (h // 2) ** 2)
-                          + wbytes * 9 * c * cout + B * h * h * 3 * (1 if u8 else 4))
-            else:
-                pool = kernel == "packed_convpool"
-                kfn, pfn = getattr(pk, kernel), getattr(pk, f"{kernel}_plain")
+            flops = 2 * 9 * c * cout * B * h * h + 2 * cout * 3 * B * h * h
+            nbytes = (4 * (B * c * h * h + cout + 3 * cout + 3 + B * 3 * (h // 2) ** 2)
+                      + wbytes * 9 * c * cout + B * h * h * 3 * (1 if u8 else 4))
+        else:
+            pool = kernel == "packed_convpool"
+            kfn, pfn = getattr(pk, kernel), getattr(pk, f"{kernel}_plain")
 
-                def fn(x=x, w=w, b=b, kfn=kfn, form=form, mode=mode):
-                    return kfn(x, w, b, form, mode=mode)
+            def fn(x=x, w=w, b=b, kfn=kfn, form=form, mode=mode):
+                return kfn(x, w, b, form, mode=mode)
 
-                def plain(x=x, w=w, b=b, pfn=pfn, form=form, mode=mode):
-                    return pfn(x, w, b, form, mode=mode)
+            def plain(x=x, w=w, b=b, pfn=pfn, form=form, mode=mode):
+                return pfn(x, w, b, form, mode=mode)
 
-                def library(x=x, w=w, b=b, form=form, pool=pool, mode=mode):
-                    xl, bl, wl = lib_operands(mode, x, b, w)
-                    y = epi(F.conv2d(xl, wl, bl, padding=1), form)
-                    return F.avg_pool2d(y, 2) if pool else y
+            def library(x=x, w=w, b=b, form=form, pool=pool, mode=mode):
+                xl, bl, wl = lib_operands(mode, x, b, w)
+                y = epi(F.conv2d(xl, wl, bl, padding=1), form)
+                return F.avg_pool2d(y, 2) if pool else y
 
-                flops = 2 * 9 * c * cout * B * h * h
-                nbytes = (4 * (B * c * h * h + B * cout * h * h // (4 if pool else 1) + cout)
-                          + wbytes * 9 * c * cout)
-            got = fn()
-            again = fn()
-            if got.dtype == torch.uint8 if torch.is_tensor(got) else False:
-                torch.cuda.synchronize()
-                if not torch.equal(got, again):
-                    raise AssertionError(f"{label}: two runs on one input differ")
-            else:
-                check_two_runs(label, got, again)
-            del again
-            want = plain()
-            got_t, want_t = (got, want) if isinstance(got, tuple) else ((got,), (want,))
-            err, extra = 0.0, {}
-            for g, t in zip(got_t, want_t):
-                e, more = check(label, mode, g, t, uint8=g.dtype == torch.uint8,
-                                b3=kernel == "packed_conv_rgb",
-                                flip_args=(args, alpha) if (kernel, mode, cout) == (
-                                    "packed_conv_rgb", "default", 16) else None)
-                err, extra = max(err, e), {**extra, **more}
-            if kernel == "packed_convpool":
-                n = differing_bits(pool_in_b5_order(pk.packed_conv(x, w, b, "lrelu", mode=mode)),
-                                   got)
-                pool_equal[label] = n
-                print(f"  {label}: packed_conv 'lrelu' pooled in B5's order, {n} values differ")
-                if n:
-                    raise AssertionError(f"{label}: packed_conv 'lrelu' pooled is not "
-                                         "packed_convpool 'lrelu' bit for bit")
-            entry = f"{_counter(kernel, mode)}[narrow]"
-            source = kernel + ("" if mode == "high" else "_bf16")
-            rows.setdefault(entry, (source, NARROW_SOURCES[kernel], []))[2].append({
-                "call": f"{form} {c}->{cout}@{h}", "shape_in": [B, c, h, h],
-                "max_abs_err": err, "bit_equal_runs": True, **extra,
-                "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
-                "flops": flops, "op_flops": passes * flops, "bytes": nbytes, "peak_flops": peak,
-            })
-            del x, got, want, got_t, want_t
+            flops = 2 * 9 * c * cout * B * h * h
+            nbytes = (4 * (B * c * h * h + B * cout * h * h // (4 if pool else 1) + cout)
+                      + wbytes * 9 * c * cout)
+        got = fn()
+        again = fn()
+        if got.dtype == torch.uint8 if torch.is_tensor(got) else False:
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{label}: two runs on one input differ")
+        else:
+            check_two_runs(label, got, again)
+        del again
+        want = plain()
+        got_t, want_t = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        err, extra = 0.0, {}
+        pre, spread = None, 1.0
+        if pixel_rel is not None and kernel != "packed_convpool":
+            # the twin's pre-norm sums, for check_pixelnorm
+            pre = (pk.packed_upconv_plain(x, w, b, epilogue="lrelu", mode=mode)
+                   if kernel == "packed_upconv" else pk.packed_conv_plain(x, w, b, "lrelu", mode))
+            if kernel == "packed_conv_rgb":
+                spread = args[3].abs().sum(dim=1).max().item()
+        for i, (g, t) in enumerate(zip(got_t, want_t)):
+            e, more = check(label, mode, g, t, uint8=g.dtype == torch.uint8,
+                            b3=kernel == "packed_conv_rgb",
+                            flip_args=(args, alpha) if (kernel, mode) == (
+                                "packed_conv_rgb", "default") and cout in witness_couts
+                            else None, pre=pre if i == 0 else None, spread=spread)
+            err, extra = max(err, e), {**extra, **more}
+        del pre
+        if kernel == "packed_convpool":
+            n = differing_bits(pool_in_b5_order(pk.packed_conv(x, w, b, "lrelu", mode=mode)),
+                               got)
+            pool_equal[label] = n
+            print(f"  {label}: packed_conv 'lrelu' pooled in B5's order, {n} values differ")
+            if n:
+                raise AssertionError(f"{label}: packed_conv 'lrelu' pooled is not "
+                                     "packed_convpool 'lrelu' bit for bit")
+        entry = f"{_counter(kernel, mode)}[{tag}]"
+        source = kernel + ("" if mode == "high" else "_bf16")
+        rows.setdefault(entry, (source, NARROW_SOURCES[kernel], []))[2].append({
+            "call": f"{form} {c}->{cout}@{h}{at}", "shape_in": [B, c, h, h],
+            "max_abs_err": err, "bit_equal_runs": True, **extra,
+            "ms": cuda_ms(fn, iters), "plain_ms": cuda_ms(plain, iters),
+            "library_ms": cuda_ms(library, iters),
+            "flops": flops, "op_flops": passes * flops, "bytes": nbytes, "peak_flops": peak,
+        })
+        del x, got, want, got_t, want_t
         torch.cuda.empty_cache()
     entries = assemble_conv_rows([(name, src, rep, calls)
-                                  for name, (src, rep, calls) in rows.items()], B)
+                                  for name, (src, rep, calls) in rows.items()], batches[-1])
     return entries, {"conv_lrelu_pooled_differing_values": pool_equal}
 
 
 def phase_narrow_refusals(pk) -> dict:
     """What the card still refuses at N's widths, each a ValueError that
-    names the Cout (and ROADMAP.md where a kernel is still to come), before
-    any launch: Cout 4 (at "none" too, and in the stage-fused B10), a
-    PixelNorm Cout outside {8, 16, 32, 64}. "none" at slabs of 16 and 8 and
-    the packed train step at N run: phase 17; B10 at 16 channels, refused
-    before this slice, launches now (phase 18 holds its bits)."""
+    names the Cout and ROADMAP.md B.a.2.4, before any launch: Cout 4 in B2
+    "lrelu" and "none", B5 and B1 "lrelu", and in the stage-fused B10 and
+    B11 (Cout 24 too). "none" at slabs of 16 and 8 and the packed train step
+    at N run: phase 17; B10 at 16 channels, refused before B.a.2.2, launches
+    now (phase 18 holds its bits); B1 "lrelu_norm" at Cout 4 and the
+    PixelNorm B2 and B3 at Cout 24, refused before B.a.2.3, launch now
+    (phase 22 holds them)."""
     dev = "cuda"
     x16 = torch.randn((1, 16, 32, 32), device=dev)
     x8 = torch.randn((1, 8, 16, 32), device=dev)
@@ -4625,17 +4696,17 @@ def phase_narrow_refusals(pk) -> dict:
         "packed_convpool Cout 4": (lambda: pk.packed_convpool(x16, w[4], b[4]), "Cout=4"),
         "packed_convpool none Cout 4": (
             lambda: pk.packed_convpool(x16, w[4], b[4], "none", mode="default"), "Cout=4"),
-        "packed_upconv Cout 4": (lambda: pk.packed_upconv(x16, w[4], b[4]), "Cout=4"),
-        "packed_conv lrelu_norm Cout 24": (
-            lambda: pk.packed_conv(x16, w[24], b[24], "lrelu_norm"), "Cout=24"),
-        "packed_conv_rgb Cout 24": (
-            lambda: pk.packed_conv_rgb(x16, w[24], b[24], torch.zeros((3, 24), device=dev),
-                                       torch.zeros(3, device=dev),
-                                       torch.zeros((1, 3, 16, 16), device=dev), 1.0), "Cout=24"),
+        "packed_upconv lrelu Cout 4": (
+            lambda: pk.packed_upconv(x16, w[4], b[4], epilogue="lrelu"), "Cout=4"),
         "packed_upconv_conv Cout 4": (
             lambda: pk.packed_upconv_conv(x8, torch.randn((4, 8, 3, 3), device=dev), b[4],
                                           torch.randn((4, 4, 3, 3), device=dev), b[4]),
-            "ROADMAP.md"),
+            "Cout=4"),
+        "packed_upconv_conv_rgb Cout 24": (
+            lambda: pk.packed_upconv_conv_rgb(
+                x16, w[24], b[24], torch.randn((24, 24, 3, 3), device=dev), b[24],
+                torch.zeros((3, 24), device=dev), torch.zeros(3, device=dev),
+                torch.zeros((3, 16), device=dev), torch.zeros(3, device=dev), 1.0), "Cout=24"),
     }
     out = {}
     pk.reset_launches()
@@ -4643,8 +4714,9 @@ def phase_narrow_refusals(pk) -> dict:
         try:
             call()
         except ValueError as e:
-            if needle not in str(e):
-                raise AssertionError(f"{label}: raised {e!r} without {needle!r}") from e
+            if needle not in str(e) or "ROADMAP.md, B.a.2.4" not in str(e):
+                raise AssertionError(f"{label}: raised {e!r} without {needle!r} and "
+                                     "ROADMAP.md, B.a.2.4") from e
             out[label] = str(e)
             print(f"  {label}: ValueError: {e}")
         else:
@@ -7018,12 +7090,269 @@ def phase_kg_tp_path(rf, cli_train, cli_infer, device: str = "cuda",
     return {"rank_topk_local": sum(c["rank_topk"] for c in launches)}, kg_tp
 
 
+# Phase 22: the serving path's PixelNorm kernels at any width up to 64
+# (ROADMAP.md B.a.2.3): B1 "lrelu_norm", B2 "lrelu_norm" and B3 at the Cout
+# (and C) of generators whose last stages are narrower than 8 channels or no
+# power of two, at 1024² with ProGANConfig()'s latent_dim 512 and fmap_max
+# 512: T (fmap_base 1024, stages 6-8 at 16, 8, 4 channels), T2 (512: 8, 4, 2)
+# and O (3072: 48, 24, 12). Each width runs on the tile just above it, its
+# weights zero-padded by the wrapper.
+ANY_WIDTH_CONFIGS = {"T": 1024, "T2": 512, "O": 3072}
+ANY_WIDTH_NF = {"T": [16, 8, 4], "T2": [8, 4, 2], "O": [48, 24, 12]}  # stages 6-8
+ANY_WIDTH_COUTS = (2, 4, 12, 24, 48)  # the widths no kernel took before
+# (kernel, epilogue or emit, C, Cout, H) of every new width of T, T2 and O
+# (B1's H is its input's), each at batch 2 and 8
+ANY_WIDTH_CASES = (
+    ("packed_upconv", "lrelu_norm+rgb", 8, 4, 512),  # T, stage 8
+    ("packed_upconv", "lrelu_norm", 8, 4, 256),  # T2, stage 7
+    ("packed_upconv", "lrelu_norm+rgb", 4, 2, 512),  # T2, stage 8
+    ("packed_upconv", "lrelu_norm", 96, 48, 128),  # O, stage 6
+    ("packed_upconv", "lrelu_norm", 48, 24, 256),  # O, stage 7
+    ("packed_upconv", "lrelu_norm+rgb", 24, 12, 512),  # O, stage 8
+    ("packed_conv", "lrelu_norm", 4, 4, 512),  # T2, stage 7
+    ("packed_conv", "lrelu_norm", 48, 48, 256),  # O, stage 6
+    ("packed_conv", "lrelu_norm", 24, 24, 512),  # O, stage 7
+    ("packed_conv_rgb", "uint8", 4, 4, 1024), ("packed_conv_rgb", "fp32", 4, 4, 1024),  # T
+    ("packed_conv_rgb", "uint8", 2, 2, 1024), ("packed_conv_rgb", "fp32", 2, 2, 1024),  # T2
+    ("packed_conv_rgb", "uint8", 12, 12, 1024),  # O
+    ("packed_conv_rgb", "fp32", 12, 12, 1024),
+)
+ANY_WIDTH_ITERS = 5  # timed calls of each kernel, twin and library call
+# check_pixelnorm's rel by kernel mode: phases 2-4's 1e-4 at "high", the CPU
+# tests' 2e-5 at the bf16 modes (tests/test_torch_grades.py, test_torch_mid.py)
+ANY_WIDTH_PIXEL_REL = {"high": 1e-4, "default": 2e-5, "mid": 2e-5}
+ANY_WIDTH_GENERATE = ("T", "O")
+ANY_WIDTH_CALLS = 2  # timed generate calls a grade
+ANY_WIDTH_WALK_FRAMES = 8  # one chunk of the walk
+# generate's packed launches a call at T and O (stages 6-8), and those at
+# this item's widths (ops/packed.py narrow_launches, by the true Cout)
+ANY_WIDTH_GENERATE_ALL = {"packed_upconv": 3, "packed_conv": 2, "packed_conv_rgb": 1}
+ANY_WIDTH_GENERATE_NEW = {
+    "T": {"packed_upconv[cout4]": 1, "packed_conv_rgb[cout4]": 1},
+    "O": {"packed_upconv[cout48]": 1, "packed_conv[cout48]": 1, "packed_upconv[cout24]": 1,
+          "packed_conv[cout24]": 1, "packed_upconv[cout12]": 1, "packed_conv_rgb[cout12]": 1},
+}
+# the JAX tests' own configuration at 512² (tests/test_pallas_packed.py),
+# whose stage 7 is B1 8 -> 4 then B3 4 -> 4: the D step's fakes go through
+# them (packed_fake, on by default on the card); 2 steps a stage
+ANY_WIDTH_TRAINER = ["--model", "image", "--synthetic", "4", "--batch_size", "2",
+                     "--epochs_per_stage", "1", "--resolution", "512", "--fmap_base", "512",
+                     "--fmap_max", "64", "--checkpoint_minutes", "0", "--device", "cuda"]
+
+
+def any_width_entry_counts(narrow: dict) -> dict:
+    """narrow_launches at this item's widths, summed by phase 22's entry
+    ("<counter>[any_width]")."""
+    out = {}
+    for key, n in narrow.items():
+        counter, width = key[:-1].split("[cout")
+        if int(width) in ANY_WIDTH_COUTS:
+            out[f"{counter}[any_width]"] = out.get(f"{counter}[any_width]", 0) + n
+    return out
+
+
+def phase_any_width_kernels(pk, pro_gan) -> tuple[list[dict], dict]:
+    """B1 "lrelu_norm" (with and without toRGB), B2 "lrelu_norm" and B3 (fp32
+    and uint8) at every new (C, Cout) of T, T2 and O, at batch 2 and 8, at
+    "high", "default" and "mid", against their twins: the fp32 PixelNorm
+    outputs pixel by pixel (check_pixelnorm, ANY_WIDTH_PIXEL_REL; at 2 and 4
+    channels a pixel's RMS can be small enough that the sums' order moves
+    its values past a bound taken of the largest entry: 1.33e-5 of it at
+    4 -> 2, b2, "default", on an H100), B1's toRGB by phase 16's rules
+    (1e-4 / GRADE_REL of the largest entry), uint8 +-1 on 0.5% of bytes,
+    MID_UINT8_FLIP_SHARE at "mid", and at "default" up to 2 levels, each byte
+    past +-1 witnessed as a bf16 rounding flip; two runs bit-equal; timed
+    beside the bound and F.conv2d with the torch epilogue."""
+    return phase_narrow_kernels(pk, pro_gan, cases=ANY_WIDTH_CASES,
+                                batches=(BATCH_KERNELS, BATCH_MAIN), seed=2424, tag="any_width",
+                                witness_couts=ANY_WIDTH_COUTS, iters=ANY_WIDTH_ITERS,
+                                pixel_rel=ANY_WIDTH_PIXEL_REL)
+
+
+def phase_any_width_path(pk, pro_gan, engine_mod, cli_train,
+                         image_checkpoint_mod, tree_mod) -> tuple[dict, dict]:
+    """generate at T and O, batch 8, at "high", "fast" and G's "mid" (the
+    packed launches a call, by width too, img/s and p50); "high" against the
+    unpacked path on the card (+-1 on at most 0.5% of bytes, >= 50 dB), each
+    grade's PSNR against "high" (>= 50 dB at "fast"). latent_walk of 8 frames
+    at T: generate on the same latents, bit for bit. Under
+    PROBGAN_STAGE_FUSED=1 generate at T raises before any launch, naming
+    ROADMAP.md B.a.2.4. The image trainer CLI at 512², fmap_base 512,
+    fmap_max 64: stages 0-7, the D step's fakes of stage 7 through B1 8 -> 4
+    and B3 4 -> 4, finite losses, a checkpoint the port loads."""
+    path, counts = {}, {}
+    saved = pro_gan._PACKED_MODES["fast"]
+    for name in ANY_WIDTH_GENERATE:
+        cfg = pro_gan.ProGANConfig(resolution=1024, fmap_base=ANY_WIDTH_CONFIGS[name])
+        stage = cfg.num_stages - 1
+        if ([cfg.nf(s) for s in (6, 7, 8)] != ANY_WIDTH_NF[name]
+                or pro_gan.packed_start_stage(cfg, stage) != 6):
+            raise AssertionError(f"{name}: stages 6-8 are not {ANY_WIDTH_NF[name]} on the kernels")
+        first = engine_mod.ImageGANEngine(cfg, device="cuda", precision="high", seed=22)
+        latents = [first.sample_latents(BATCH_MAIN) for _ in range(ANY_WIDTH_CALLS)]
+        images, out = {}, {"fmap_base": ANY_WIDTH_CONFIGS[name], "widths_6_8": ANY_WIDTH_NF[name]}
+        try:
+            for label, grade, kmode in (("high", "high", "high"), ("fast", "fast", "default"),
+                                        ("fast mid", "fast", "mid")):
+                pro_gan._PACKED_MODES["fast"] = "mid" if label == "fast mid" else saved
+                engine = engine_mod.ImageGANEngine(cfg, g_params=first.g_params,
+                                                   d_params=first.d_params, device="cuda",
+                                                   precision=grade)
+                engine.generate(latents[0])  # warm-up (cuDNN plans)
+                torch.cuda.synchronize()
+                pk.reset_launches()
+                times = []
+                for z in latents:
+                    t0 = time.perf_counter()
+                    img = engine.generate(z)
+                    times.append(time.perf_counter() - t0)
+                want = {k: 0 for k in pk.launches}
+                want.update({_counter(k, kmode): n * ANY_WIDTH_CALLS
+                             for k, n in ANY_WIDTH_GENERATE_ALL.items()})
+                got_new = {k: n for k, n in pk.narrow_launches.items()
+                           if int(k[:-1].split("[cout")[1]) in ANY_WIDTH_COUTS}
+                want_new = {k: n * ANY_WIDTH_CALLS
+                            for k, n in _narrow(ANY_WIDTH_GENERATE_NEW[name], kmode).items()}
+                if dict(pk.launches) != want or got_new != want_new:
+                    raise AssertionError(f"generate at {name}, {label}: launched {pk.launches}, "
+                                         f"{pk.narrow_launches}; expected {want}, {want_new}")
+                for k, n in any_width_entry_counts(pk.narrow_launches).items():
+                    counts[k] = counts.get(k, 0) + n
+                images[label] = img
+                _, share, psnr = uint8_agreement(img, images["high"])
+                per_img_ms = sorted(t / BATCH_MAIN * 1e3 for t in times)
+                out[f"generate {label}"] = {
+                    "img_per_s": BATCH_MAIN * ANY_WIDTH_CALLS / sum(times),
+                    "p50_ms_per_img": float(np.median(per_img_ms)), "batch_s": times,
+                    "psnr_vs_high_db": finite_or_none(psnr), "differing_bytes_vs_high": share,
+                    "narrow_launches": dict(pk.narrow_launches),
+                }
+                print(f"  generate at {name}, {label}: "
+                      f"{BATCH_MAIN * ANY_WIDTH_CALLS / sum(times):.3f} img/s, p50 "
+                      f"{float(np.median(per_img_ms)):.3f} ms/img, PSNR {psnr:.2f} dB vs "
+                      f"\"high\", narrow launches {dict(pk.narrow_launches)}")
+                if label == "fast" and psnr < PSNR_FLOOR_DB:
+                    raise AssertionError(f"generate at {name}, \"fast\": PSNR {psnr:.2f} dB < "
+                                         f"{PSNR_FLOOR_DB} dB against \"high\"")
+                del engine
+        finally:
+            pro_gan._PACKED_MODES["fast"] = saved
+        # "high" against the unpacked path on the card (the last batch)
+        unpacked = engine_mod.generate_fn(first.g_params, latents[-1], 1.0, cfg, stage,
+                                          precision="high", packed=False).cpu().numpy()
+        worst, share, psnr = check_uint8(f"generate at {name}, \"high\" vs unpacked",
+                                         images["high"], unpacked)
+        if psnr < PSNR_FLOOR_DB:
+            raise AssertionError(f"generate at {name}, \"high\": PSNR {psnr:.2f} dB < "
+                                 f"{PSNR_FLOOR_DB} dB against the unpacked path")
+        out["high_vs_unpacked"] = {"max_abs_diff": worst, "differing_bytes": share,
+                                   "psnr_db": finite_or_none(psnr)}
+        if name == "T":
+            # latent_walk at "high": one chunk, the frames of generate
+            z0, z1 = latents[0][0], latents[0][1]
+            frames = first.latent_walk(z0, z1, frames=ANY_WIDTH_WALK_FRAMES)
+            t = torch.linspace(0.0, 1.0, ANY_WIDTH_WALK_FRAMES, dtype=z0.dtype,
+                               device=z0.device)[:, None]
+            direct = first.generate(z0[None, :] * (1.0 - t) + z1[None, :] * t)
+            if not np.array_equal(frames, direct):
+                raise AssertionError("latent_walk at T: frames differ from generate on their "
+                                     "latents")
+            out["latent_walk_frames_equal_generate"] = True
+            print(f"  latent_walk at T, {ANY_WIDTH_WALK_FRAMES} frames: equal to generate on "
+                  "the same latents, bit for bit")
+            # the stage-fused kernels keep Cout 8-64 from C % 8: refused up front
+            pk.reset_launches()
+            with env(PROBGAN_STAGE_FUSED="1"):
+                try:
+                    first.generate(latents[0])
+                except ValueError as e:
+                    if "ROADMAP.md, B.a.2.4" not in str(e):
+                        raise AssertionError(f"PROBGAN_STAGE_FUSED=1 at T raised {e!r}") from e
+                    out["stage_fused_refusal"] = str(e)
+                    print(f"  generate at T under PROBGAN_STAGE_FUSED=1: ValueError: {e}")
+                else:
+                    raise AssertionError("PROBGAN_STAGE_FUSED=1 at T: the card took it")
+            if any(pk.launches.values()):
+                raise AssertionError(f"the refused stage-fused call launched {dict(pk.launches)}")
+        path[name] = out
+        del first
+        torch.cuda.empty_cache()
+
+    # the image trainer at the JAX tests' 512² configuration
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "any_width")
+        pk.reset_launches()
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = cli_train.main([*ANY_WIDTH_TRAINER, "--output_dir", out_dir])
+        wall_s = time.perf_counter() - t0
+        if rc != 0 or "Training complete!" not in log.getvalue():
+            raise AssertionError(f"image trainer at fmap_base 512 exited {rc}:\n{log.getvalue()}")
+        narrow = dict(pk.narrow_launches)
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        cfg, g_params, d_params = image_checkpoint_mod.load_image_checkpoint(
+            os.path.join(out_dir, "image_checkpoint.msgpack"))
+    def launched(kernel, cout):  # at any kernel mode
+        return sum(n for k, n in narrow.items()
+                   if k.split("[")[0].removesuffix("_bf16").removesuffix("_mid") == kernel
+                   and k.endswith(f"[cout{cout}]"))
+
+    if launched("packed_upconv", 4) < 1 or launched("packed_conv_rgb", 4) < 1:
+        raise AssertionError(f"the trainer's stage 7 did not run B1 8 -> 4 and B3 4 -> 4: "
+                             f"{narrow}")
+    if ([m["stage"] for m in metrics] != list(range(8)) or any(
+            not (math.isfinite(m["d_loss"]) and math.isfinite(m["g_loss"])) for m in metrics)):
+        raise AssertionError(f"image trainer at fmap_base 512: metrics {metrics}")
+    if (cfg.resolution != 512 or cfg.nf(7) != 4 or not d_params
+            or not all(torch.isfinite(t).all() for t in tree_mod.tree_leaves(g_params))):
+        raise AssertionError("image trainer at fmap_base 512 wrote a checkpoint the port does "
+                             "not load as trained")
+    stage_s = {m["stage"]: m["seconds"] for m in metrics}
+    path["trainer"] = {"argv": ANY_WIDTH_TRAINER, "seconds_per_stage": stage_s, "wall_s": wall_s,
+                       "narrow_launches": narrow,
+                       "losses": [(m["d_loss"], m["g_loss"]) for m in metrics]}
+    print(f"  image trainer CLI at 512², fmap_base 512, fmap_max 64: stages 0-7 in "
+          f"{wall_s:.1f} s, seconds per stage "
+          f"{', '.join(f'{k}: {v:.4f}' for k, v in stage_s.items())}; narrow launches "
+          f"{narrow}; the checkpoint loads in the port")
+    return counts, path
+
+
 def phase_line(text: str) -> None:
     """A phase's heading, with the seconds since the script started."""
     print(f"{text} [{time.perf_counter() - _T0:.1f} s]")
 
 
+def phase_any_width(pk, pro_gan, engine_mod, cli_train, image_checkpoint_mod,
+                    tree_mod) -> tuple[list[dict], dict]:
+    """Phase 22 whole: the kernels at the new widths, then the path, each
+    kernel entry's launches those of the path's generate calls."""
+    entries, out = phase_any_width_kernels(pk, pro_gan)
+    torch.cuda.empty_cache()
+    counts, out["path"] = phase_any_width_path(pk, pro_gan, engine_mod, cli_train,
+                                               image_checkpoint_mod, tree_mod)
+    for k in entries:
+        k["launches"] = counts.get(k["name"], 0)
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']} was not launched on its main path")
+    torch.cuda.empty_cache()
+    return entries, out
+
+
+ANY_WIDTH_HEADING = ("phase 22: any width up to 64: B1 \"lrelu_norm\", B2 \"lrelu_norm\" and B3 "
+                     "at the new widths of T, T2 and O (fmap_base 1024, 512, 3072 at 1024²) vs "
+                     "their twins at \"high\", \"default\" and \"mid\", batch 2 and 8; "
+                     "generate at T and O at \"high\", \"fast\" and G's \"mid\", latent_walk, "
+                     "the stage-fused refusal, the image trainer at 512² / fmap_base 512")
+
+
 def main() -> int:
+    args = sys.argv[1:]
+    if args not in ([], ["--phase", "22"]):
+        print("usage: python3 chip_smoke.py [--phase 22]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -7061,6 +7390,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  [{name}] {line.strip()}")
     bf16_ring = bf16_ring_line(pk, logs)
+    if args:  # phase 22 alone, after the build
+        phase_line(ANY_WIDTH_HEADING)
+        any_width_kernels, any_width = phase_any_width(pk, pro_gan, engine_mod, cli_train,
+                                                       image_checkpoint_mod, tree_mod)
+        print(card_line())
+        print(json.dumps({"kernels": any_width_kernels, "any_width": any_width, "card": card},
+                         allow_nan=False))
+        return 0
 
     phase_line("phase 2: generator kernels vs plain twins (batch 2, main-path shapes)")
     kernels = phase_kernels(pk, pro_gan)
@@ -7262,7 +7599,12 @@ def main() -> int:
         raise AssertionError("rank_topk_local was not launched serving the mesh-trained KG")
     torch.cuda.empty_cache()
 
-    phase_line("phase 22: phases 1-21 done; the kernels line and the result:")
+    phase_line(ANY_WIDTH_HEADING)
+    any_width_kernels, any_width = phase_any_width(pk, pro_gan, engine_mod, cli_train,
+                                                   image_checkpoint_mod, tree_mod)
+    kernels += any_width_kernels
+
+    phase_line("phase 23: phases 1-22 done; the kernels line and the result:")
     print(card_line())
     print(json.dumps({"kernels": kernels, "main_path": main, "score_path": score_path,
                       "kg_path": kg, "train_path": train, "fused_path": fused_path,
@@ -7272,7 +7614,7 @@ def main() -> int:
                       "fused_bf16": fused_bf16, "narrow": narrow,
                       "narrow_backward": narrow_bwd, "narrow_fused": fused_narrow,
                       "tp_path": tp_path, "dp_path": dp_path, "kg_tp_path": kg_tp_path,
-                      "bf16_ring": bf16_ring,
+                      "any_width": any_width, "bf16_ring": bf16_ring,
                       "card": card},
                      allow_nan=False))
     print(json.dumps({"ok": True, "device": {

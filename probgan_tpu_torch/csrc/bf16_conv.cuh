@@ -53,6 +53,11 @@
 //    from the wrapper) and at 16 or fewer runs one k16 half, so C = 16 is one
 //    k16 step and C = 8 one step half zeros. Zero products change no fp32
 //    sum, and a chunk of 32 channels is staged and summed as before.
+//  * Any width up to 64 (B1 "lrelu_norm", B2 "lrelu_norm", B3): a Cout
+//    between the tiles runs on the one above it (1-8 on 8, ... 33-64 on
+//    64) with the wrapper's zero-padded weights and bias, and C is any
+//    count >= 1 (the zero-fill above); PixelNorm divides by the true Cout
+//    (bias_lrelu_norm_frag's inv_n) and the rings store only its channels.
 //  * Every output is summed in one order (chunks ascending, taps, channel
 //    halves, terms), with no split over K and no atomics: a run gives the
 //    bits of the run before it, and B5 "mid" sums each pixel as B2 "mid"
@@ -206,10 +211,12 @@ __device__ __forceinline__ void load_b(unsigned (&b)[NT][2], const unsigned* pb)
 // bias -> lrelu(0.2) -> x * 1/sqrt(mean_c(x^2) + 1e-8) on one m16 tile's
 // sums, in place (conv_tile.cuh bias_lrelu_norm's arithmetic): pixel g holds
 // e = 0, 1 of every n8 tile, pixel g + 8 e = 2, 3, channel 8 * nt + 2t + e % 2;
-// the 4 lanes of a quad hold all COUT channels of its two pixels.
+// the 4 lanes of a quad hold all COUT channels of its two pixels, the mean
+// the sum times inv_n, 1 / the true channel count (zeros past it).
 template <int NT>
 __device__ __forceinline__ void bias_lrelu_norm_frag(float (&acc)[NT][4],
-                                                     const float* __restrict__ bias) {
+                                                     const float* __restrict__ bias,
+                                                     float inv_n = 1.0f / (8 * NT)) {
   const int t = threadIdx.x & 3;
   float ss[2] = {0.f, 0.f};
 #pragma unroll
@@ -226,7 +233,7 @@ __device__ __forceinline__ void bias_lrelu_norm_frag(float (&acc)[NT][4],
     // every lane adds the same two operands at each level: one result
     ss[h] += __shfl_xor_sync(0xffffffffu, ss[h], 1);
     ss[h] += __shfl_xor_sync(0xffffffffu, ss[h], 2);
-    ss[h] = 1.0f / sqrtf(ss[h] / static_cast<float>(8 * NT) + kEps);
+    ss[h] = 1.0f / sqrtf(ss[h] * inv_n + kEps);
   }
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)

@@ -77,6 +77,12 @@
 // reserved a block), so one block of 8 warps an SM, which may take up to 255
 // registers a thread. A stage of B2 at a slab of 64 is 97,792 B: a third
 // stage would not fit.
+//
+// Any width up to 64 (B1 "lrelu_norm", B2 "lrelu_norm", B3, bf16_conv.cuh):
+// the ring of the tile just above Cout, its bytes and order of sums; `cout`
+// bounds PixelNorm's mean and the stores, and B1's toRGB reads rgb_w in
+// rows of C rounded up to 4 (the wrapper's zeros past C), so that its float4
+// reads stay aligned and inside the row at any C.
 #pragma once
 
 #include "bf16_conv.cuh"
@@ -285,13 +291,18 @@ struct ConvBf16Ring {
   const unsigned* wk;
   const float* bias;
   float* y;
-  int C, H, W, n_slabs, tiles_x, tiles_y, n_chunks;
+  // cout: the output channels (n_slabs x COUT, or at kLreluNorm any count up
+  // to COUT on one slab)
+  int C, H, W, n_slabs, cout, tiles_x, tiles_y, n_chunks;
+  float inv_cout;  // PixelNorm's 1 / cout
   PatchCopies<SR, XW, CS> copies;
 
   __device__ __forceinline__ ConvBf16Ring(const float* x_, const unsigned* wk_, const float* b_,
-                                          float* y_, int C_, int H_, int W_, int n_slabs_)
+                                          float* y_, int C_, int H_, int W_, int n_slabs_,
+                                          int cout_ = -1)
       : x(x_), wk(wk_), bias(b_), y(y_), C(C_), H(H_), W(W_), n_slabs(n_slabs_),
-        tiles_x(W_ / 32), tiles_y(H_ / T::TH), n_chunks(bf16_chunks(C_)) {
+        cout(cout_ < 0 ? n_slabs_ * COUT : cout_), tiles_x(W_ / 32), tiles_y(H_ / T::TH),
+        n_chunks(bf16_chunks(C_)), inv_cout(1.0f / static_cast<float>(cout)) {
     copies.init();
   }
 
@@ -351,21 +362,27 @@ struct ConvBf16Ring {
     const int g = lane >> 2, tq = lane & 3;
     const size_t plane = static_cast<size_t>(H) * W;
     const float* bs = bias + slab * COUT;
+    const int c_left = cout - slab * COUT;  // the slab's channels to store
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       if constexpr (EPI == kLreluNorm)
-        bias_lrelu_norm_frag<NT>(acc[mt], bs);
+        bias_lrelu_norm_frag<NT>(acc[mt], bs, inv_cout);
       else
         bias_act_frag<NT, EPI>(acc[mt], bs);
-      float* row = y + (static_cast<size_t>(b) * n_slabs + slab) * COUT * plane +
+      float* row = y + (static_cast<size_t>(b) * cout + slab * COUT) * plane +
                    static_cast<size_t>(y0 + warp * T::RW + mt / 2) * W + x0 + 16 * (mt % 2) + g;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        float* p = row + static_cast<size_t>(8 * nt + 2 * tq) * plane;
-        p[0] = acc[mt][nt][0];
-        p[plane] = acc[mt][nt][1];
-        p[8] = acc[mt][nt][2];
-        p[plane + 8] = acc[mt][nt][3];
+        const int o = 8 * nt + 2 * tq;
+        float* p = row + static_cast<size_t>(o) * plane;
+        if (o < c_left) {
+          p[0] = acc[mt][nt][0];
+          p[8] = acc[mt][nt][2];
+        }
+        if (o + 1 < c_left) {
+          p[plane] = acc[mt][nt][1];
+          p[plane + 8] = acc[mt][nt][3];
+        }
       }
     }
   }
@@ -483,7 +500,7 @@ struct ConvRgbBf16Ring : ConvBf16Ring<COUT, NTERM, kLreluNorm> {
   using T = typename Base::T;
   static constexpr int MT = Base::MT, NT = Base::NT;
 
-  const float* rgb_w;  // [3][COUT]: bf16 values (the wrapper's) in fp32
+  const float* rgb_w;  // [3][COUT]: bf16 values (the wrapper's) in fp32, zeros past cout
   const float* rgb_b;  // [3]
   const float* prev;   // [B][3][H/2][W/2]
   float alpha;
@@ -492,9 +509,10 @@ struct ConvRgbBf16Ring : ConvBf16Ring<COUT, NTERM, kLreluNorm> {
   __device__ __forceinline__ ConvRgbBf16Ring(const float* x_, const unsigned* wk_,
                                              const float* b_, const float* rgb_w_,
                                              const float* rgb_b_, const float* prev_,
-                                             float alpha_, void* out_, int C_, int H_, int W_)
-      : Base(x_, wk_, b_, nullptr, C_, H_, W_, 1), rgb_w(rgb_w_), rgb_b(rgb_b_), prev(prev_),
-        alpha(alpha_), out(out_) {}
+                                             float alpha_, void* out_, int C_, int H_, int W_,
+                                             int cout_)
+      : Base(x_, wk_, b_, nullptr, C_, H_, W_, 1, cout_), rgb_w(rgb_w_), rgb_b(rgb_b_),
+        prev(prev_), alpha(alpha_), out(out_) {}
 
   __device__ __forceinline__ void finish(int tile, float (&acc)[MT][NT][4]) const {
     int b, y0, x0, slab;  // slab 0: all COUT channels
@@ -518,7 +536,7 @@ struct ConvRgbBf16Ring : ConvBf16Ring<COUT, NTERM, kLreluNorm> {
     float rgb[MT][3];  // the lane's pixel's (tq < 2)
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-      bias_lrelu_norm_frag<NT>(acc[mt], this->bias);
+      bias_lrelu_norm_frag<NT>(acc[mt], this->bias, this->inv_cout);
 #pragma unroll
       for (int h = 0; h < 2; ++h)  // pixel g, pixel g + 8
 #pragma unroll
@@ -589,16 +607,18 @@ struct UpconvBf16Ring {
   const float* rgb_b;
   float* y;
   float* rgb;
-  int C, H, W, tiles_x, tiles_y, n_chunks;
+  int C, H, W, cout, tiles_x, tiles_y, n_chunks;  // cout: up to COUT
+  float inv_cout;  // PixelNorm's 1 / cout
   float racc[3];
   PatchCopies<SR, XW, CS> copies;
 
   __device__ __forceinline__ UpconvBf16Ring(const float* x_, const unsigned* wk_,
                                             const float* b_, const float* rgb_w_,
                                             const float* rgb_b_, float* y_, float* rgb_, int C_,
-                                            int H_, int W_)
+                                            int H_, int W_, int cout_)
       : x(x_), wk(wk_), bias(b_), rgb_w(rgb_w_), rgb_b(rgb_b_), y(y_), rgb(rgb_), C(C_), H(H_),
-        W(W_), tiles_x(W_ / 16), tiles_y(H_ / T::TH), n_chunks(bf16_chunks(C_)) {
+        W(W_), cout(cout_), tiles_x(W_ / 16), tiles_y(H_ / T::TH), n_chunks(bf16_chunks(C_)),
+        inv_cout(1.0f / static_cast<float>(cout_)) {
     copies.init();
   }
 
@@ -639,13 +659,14 @@ struct UpconvBf16Ring {
     if (rgb_lane(tile & 1)) {
       // input row i0 + pr is patch row pr + 1, column j0 + pc patch column pc + 4
       const float* px = stage + (threadIdx.x / 16 + 1) * XW + threadIdx.x % 16 + 4;
+      const int row = (C + 3) & ~3;  // rgb_w's row: C rounded up to 4, zeros past C
 #pragma unroll 2
-      for (int c = 0; c < c_n; c += 4) {  // c_n % 8 == 0; rgb_w 16-byte aligned rows
+      for (int c = 0; c < c_n; c += 4) {  // rgb_w 16-byte aligned rows; zeros past C
         float w4[3][4];
 #pragma unroll
         for (int k = 0; k < 3; ++k)
           *reinterpret_cast<float4*>(w4[k]) =
-              __ldg(reinterpret_cast<const float4*>(rgb_w + k * C + c0 + c));
+              __ldg(reinterpret_cast<const float4*>(rgb_w + k * row + c0 + c));
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           // the value the mma reads: x_hi, or x_hi + x_lo (exact) at "mid"
@@ -712,20 +733,22 @@ struct UpconvBf16Ring {
 #pragma unroll
     for (int rr = 0; rr < T::RW; ++rr) {
       if constexpr (EPI == kLreluNorm) {
-        bias_lrelu_norm_frag<NT>(acc[2 * rr], bias);
-        bias_lrelu_norm_frag<NT>(acc[2 * rr + 1], bias);
+        bias_lrelu_norm_frag<NT>(acc[2 * rr], bias, inv_cout);
+        bias_lrelu_norm_frag<NT>(acc[2 * rr + 1], bias, inv_cout);
       } else {
         bias_act_frag<NT, EPI>(acc[2 * rr], bias);
         bias_act_frag<NT, EPI>(acc[2 * rr + 1], bias);
       }
-      float* row = y + static_cast<size_t>(b) * COUT * plane +
+      float* row = y + static_cast<size_t>(b) * cout * plane +
                    static_cast<size_t>(2 * (i0 + warp * T::RW + rr) + py) * Wo + 2 * (j0 + g);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           // channel 8 * nt + 2 * tq + e % 2; pixel g (e < 2) or g + 8
-          float* p = row + static_cast<size_t>(8 * nt + 2 * tq + (e & 1)) * plane + (e >> 1) * 16;
+          const int o = 8 * nt + 2 * tq + (e & 1);
+          if (o >= cout) continue;
+          float* p = row + static_cast<size_t>(o) * plane + (e >> 1) * 16;
           *reinterpret_cast<float2*>(p) = make_float2(acc[2 * rr][nt][e], acc[2 * rr + 1][nt][e]);
         }
     }

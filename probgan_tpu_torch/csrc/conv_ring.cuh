@@ -50,6 +50,14 @@
 // input channels a stage) a ring is 82,944 to 90,624 B and two blocks share
 // an SM (ops/packed.py ring_blocks_per_sm).
 //
+// Any width up to 64 (B1 "lrelu_norm", B2 "lrelu_norm", B3): a Cout between
+// the tiles runs on the one above it (conv_tile.cuh), with the weights,
+// bias and toRGB weights zero-padded by the wrapper and `cout` the true
+// count: PixelNorm's mean and the stores take only it. Input channels past
+// C (any C >= 1) are zero in the patch (the copies' zero-fill) and in the
+// weights (ring_copy_weights copies only the chunk's C - c0 rows), so they
+// add exact zeros; B1's toRGB reads no weight past C.
+//
 // The walk is generic over the tile (ring_walk takes the tile's copies,
 // FMAs and epilogue from a struct): fused_ring.cuh's stage-fused tiles walk
 // it in two phases.
@@ -231,14 +239,19 @@ struct ConvRing {
   const float* w;
   const float* bias;
   float* y;
-  int C, H, W, n_slabs, tiles_x, tiles_y, n_chunks, cg, pg;
+  // cout: the output channels (n_slabs x COUT, or at NORM any count up to
+  // COUT on one slab)
+  int C, H, W, n_slabs, cout, tiles_x, tiles_y, n_chunks, cg, pg;
+  float inv_cout;  // PixelNorm's 1 / cout
   RingCopies<kCC, kXPer, T::THREADS> copies;
 
   __device__ __forceinline__ ConvRing(const float* x_, const float* w_, const float* b_,
-                                      float* y_, int C_, int H_, int W_, int n_slabs_)
+                                      float* y_, int C_, int H_, int W_, int n_slabs_,
+                                      int cout_ = -1)
       : x(x_), w(w_), bias(b_), y(y_), C(C_), H(H_), W(W_), n_slabs(n_slabs_),
-        tiles_x(W_ / T::TW), tiles_y(H_ / T::TH), n_chunks((C_ + kCC - 1) / kCC),
-        cg(threadIdx.x % T::NCG), pg(threadIdx.x / T::NCG) {
+        cout(cout_ < 0 ? n_slabs_ * COUT : cout_), tiles_x(W_ / T::TW), tiles_y(H_ / T::TH),
+        n_chunks((C_ + kCC - 1) / kCC), cg(threadIdx.x % T::NCG), pg(threadIdx.x / T::NCG),
+        inv_cout(1.0f / static_cast<float>(cout)) {
     copies.template init<SH, XW, SW>();
   }
 
@@ -302,13 +315,13 @@ struct ConvRing {
     int b, y0, x0, slab;
     tile_of(t, b, y0, x0, slab);
     if constexpr (NORM)
-      bias_lrelu_norm<COUT>(acc, bias, cg);
+      bias_lrelu_norm<COUT>(acc, bias, cg, inv_cout);
     else
       bias_act<COUT, true>(acc, bias + slab * COUT, cg);
     const size_t plane = static_cast<size_t>(H) * W;
-    store_rows<COUT>(y + (static_cast<size_t>(b) * n_slabs + slab) * COUT * plane +
+    store_rows<COUT>(y + (static_cast<size_t>(b) * cout + slab * COUT) * plane +
                          static_cast<size_t>(y0 + pg / 4) * W + x0 + (pg % 4) * kTM,
-                     acc, cg, plane);
+                     acc, cg, plane, cout - slab * COUT);
   }
 };
 
@@ -404,7 +417,7 @@ struct ConvPoolRing : ConvRing<COUT, false> {
 // (-> uint8), NHWC
 // ---------------------------------------------------------------------------
 
-// ConvRing<COUT, true>'s tiles, copies and FMAs (one slab: Cout 32 or 64);
+// ConvRing<COUT, true>'s tiles, copies and FMAs (one slab of all Cout);
 // only the epilogue differs: bias_lrelu_norm, then conv_tile.cuh's
 // rgb_blend_store, which reduces the toRGB dot across the lanes of a pixel
 // group by shuffles and writes 3 values a pixel. `prev` [B][3][H/2][W/2] is
@@ -421,14 +434,14 @@ struct ConvRgbRing : ConvRing<COUT, true> {
   __device__ __forceinline__ ConvRgbRing(const float* x_, const float* w_, const float* b_,
                                          const float* rgb_w_, const float* rgb_b_,
                                          const float* prev_, float alpha_, void* out_, int C_,
-                                         int H_, int W_)
-      : Base(x_, w_, b_, nullptr, C_, H_, W_, 1), rgb_w(rgb_w_), rgb_b(rgb_b_), prev(prev_),
-        alpha(alpha_), out(out_) {}
+                                         int H_, int W_, int cout_)
+      : Base(x_, w_, b_, nullptr, C_, H_, W_, 1, cout_), rgb_w(rgb_w_), rgb_b(rgb_b_),
+        prev(prev_), alpha(alpha_), out(out_) {}
 
   __device__ __forceinline__ void finish(int t, float (&acc)[kTM][kTN]) const {
     int b, y0, x0, slab;
     this->tile_of(t, b, y0, x0, slab);
-    bias_lrelu_norm<COUT>(acc, this->bias, this->cg);
+    bias_lrelu_norm<COUT>(acc, this->bias, this->cg, this->inv_cout);
     const int H = this->H, W = this->W, Hp = H / 2, Wp = W / 2;
     const float* pv = prev + static_cast<size_t>(b) * 3 * Hp * Wp;
     rgb_blend_store<COUT, U8>(acc, rgb_w, rgb_b, alpha, out, this->cg, b, y0 + this->pg / 4,
@@ -492,16 +505,18 @@ struct UpconvRing {
   const float* rgb_b;
   float* y;
   float* rgb;
-  int C, H, W, tiles_x, tiles_y, n_chunks, cg, pg;
+  int C, H, W, cout, tiles_x, tiles_y, n_chunks, cg, pg;  // cout: up to COUT
+  float inv_cout;  // PixelNorm's 1 / cout
   float racc[kRgbPer][3];
   RingCopies<kCC, kXPer, T::THREADS> copies;
 
   __device__ __forceinline__ UpconvRing(const float* x_, const float* wk_, const float* b_,
                                         const float* rgb_w_, const float* rgb_b_, float* y_,
-                                        float* rgb_, int C_, int H_, int W_)
+                                        float* rgb_, int C_, int H_, int W_, int cout_)
       : x(x_), wk(wk_), bias(b_), rgb_w(rgb_w_), rgb_b(rgb_b_), y(y_), rgb(rgb_), C(C_), H(H_),
-        W(W_), tiles_x(W_ / TJ), tiles_y(H_ / TH), n_chunks((C_ + kCC - 1) / kCC),
-        cg(threadIdx.x % T::NCG), pg(threadIdx.x / T::NCG) {
+        W(W_), cout(cout_), tiles_x(W_ / TJ), tiles_y(H_ / TH), n_chunks((C_ + kCC - 1) / kCC),
+        cg(threadIdx.x % T::NCG), pg(threadIdx.x / T::NCG),
+        inv_cout(1.0f / static_cast<float>(cout_)) {
     copies.template init<SH, XW, SW>();
   }
 
@@ -536,7 +551,8 @@ struct UpconvRing {
   }
 
   // Channels [c_begin, c_begin + 8) of the stage, in packed_upconv's order:
-  // per channel the toRGB product, then (dy, px, dx, q).
+  // per channel the toRGB product (channels below C: rgb_w is [3][C]), then
+  // (dy, px, dx, q).
   __device__ __forceinline__ void channels8(const float* __restrict__ xs,
                                             const float* __restrict__ ws, int c_begin, int c0,
                                             bool with_rgb, float (&acc)[kTM][kTN]) {
@@ -544,7 +560,7 @@ struct UpconvRing {
     const int r = pg / 4;
 #pragma unroll 2
     for (int c = c_begin; c < c_begin + 8; ++c) {
-      if (with_rgb) {
+      if (with_rgb && c0 + c < C) {
 #pragma unroll
         for (int q = 0; q < kRgbPer; ++q) {
           const int p = threadIdx.x + q * T::THREADS;
@@ -602,14 +618,14 @@ struct UpconvRing {
       }
     }
     if constexpr (NORM)
-      bias_lrelu_norm<COUT>(acc, bias, cg);
+      bias_lrelu_norm<COUT>(acc, bias, cg, inv_cout);
     else
       bias_act<COUT, true>(acc, bias, cg);
     const int Wo = 2 * W;
     const size_t plane = static_cast<size_t>(2 * H) * Wo;
-    store_rows<COUT>(y + static_cast<size_t>(b) * COUT * plane +
+    store_rows<COUT>(y + static_cast<size_t>(b) * cout * plane +
                          static_cast<size_t>(2 * (i0 + pg / 4) + py) * Wo + 2 * j0 + (pg % 4) * kTM,
-                     acc, cg, plane);
+                     acc, cg, plane, cout);
   }
 };
 

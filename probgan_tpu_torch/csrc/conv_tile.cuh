@@ -9,6 +9,12 @@
 //
 // Every kernel is an implicit GEMM on the CUDA cores in fp32: M = output
 // pixels, N = output channels (8, 16, 32 or 64), K = taps x input channels.
+// A PixelNorm kernel of the serving path (B1 "lrelu_norm", B2 "lrelu_norm",
+// B3) takes any Cout from 1 to 64 on the tile just above it (1-8 on 8, 9-16
+// on 16, 17-32 on 32, 33-64 on 64): the wrapper pads the weights, bias and
+// toRGB weights with zeros to the tile's width, the padded channels' sums
+// are 0 (lrelu(0) = 0 adds 0 to the sum of squares), PixelNorm divides by
+// the true Cout (`inv_n` = 1 / Cout) and only channels below it are stored.
 // A block owns a tile of output pixels and ALL output channels, so PixelNorm
 // (a mean over channels) never leaves the block: a thread holds 8 pixels x 8
 // channels in registers, and the COUT/8 lanes that share a pixel group are
@@ -98,10 +104,13 @@ __device__ __forceinline__ float group_sum(float v) {
 
 // bias -> lrelu(0.2) -> x * 1/sqrt(mean_c(x^2) + 1e-8), in place, for the
 // first N of a thread's M pixel rows (the stage-fused kernels hold more rows
-// than the kTM of a conv tile: their conv1 share).
+// than the kTM of a conv tile: their conv1 share). The mean is the sum
+// times inv_n, 1 / the true channel count (COUT, or fewer with zeros past
+// them): at a power of two an exact product, a division's bits.
 template <int COUT, int M = kTM, int N = M>
 __device__ __forceinline__ void bias_lrelu_norm(float (&acc)[M][kTN],
-                                                const float* __restrict__ bias, int cg) {
+                                                const float* __restrict__ bias, int cg,
+                                                float inv_n = 1.0f / COUT) {
   static_assert(N <= M, "rows held");
   float bch[kTN];
 #pragma unroll
@@ -117,7 +126,7 @@ __device__ __forceinline__ void bias_lrelu_norm(float (&acc)[M][kTN],
       ss += v * v;
     }
     ss = group_sum<COUT>(ss);
-    const float s = 1.0f / sqrtf(ss / static_cast<float>(COUT) + kEps);
+    const float s = 1.0f / sqrtf(ss * inv_n + kEps);
 #pragma unroll
     for (int n = 0; n < kTN; ++n) acc[m][n] *= s;
   }
@@ -140,13 +149,15 @@ __device__ __forceinline__ void bias_act(float (&acc)[kTM][kTN], const float* __
 }
 
 // Store a thread's 8 pixels x 8 channels (the first kTM rows of acc) into
-// NCHW; `y` points at channel 0 of the thread's first pixel, `plane` = H*W.
+// NCHW, the channels below `cout` (the tile's padded ones are not stored);
+// `y` points at channel 0 of the thread's first pixel, `plane` = H*W.
 // Rows are 32-byte aligned because the tile's columns start at multiples of 8.
 template <int COUT, int M>
 __device__ __forceinline__ void store_rows(float* __restrict__ y, const float (&acc)[M][kTN],
-                                           int cg, size_t plane) {
+                                           int cg, size_t plane, int cout = COUT) {
 #pragma unroll
   for (int n = 0; n < kTN; ++n) {
+    if (channel_of<COUT>(cg, n) >= cout) continue;
     float* p = y + static_cast<size_t>(channel_of<COUT>(cg, n)) * plane;
     reinterpret_cast<float4*>(p)[0] = make_float4(acc[0][n], acc[1][n], acc[2][n], acc[3][n]);
     reinterpret_cast<float4*>(p)[1] = make_float4(acc[4][n], acc[5][n], acc[6][n], acc[7][n]);

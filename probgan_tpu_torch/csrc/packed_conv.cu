@@ -31,7 +31,10 @@
 // and 8 (the narrow generators' late stages, e.g. fmap_base 2048 at 1024²:
 // 16 -> 16 at 512², 8 -> 8 at 1024²) a block is 128 or 64 threads on the
 // 32-channel tile (conv_tile.cuh Tile), 8 input channels a ring stage, two
-// blocks an SM.
+// blocks an SM. "lrelu_norm" also takes any Cout from 1 to 64 and any C >= 1
+// (the generators of fmap_base 512, 1024 or 3072: 4 -> 4, 24 -> 24,
+// 48 -> 48) on the tile just above Cout, the wrapper's weights and bias
+// zero-padded to it; PixelNorm's mean and the stores take the true Cout.
 //
 // What held the old loop (conv3x3_accumulate, which this kernel ran
 // before the ring) at 41-54% of that
@@ -112,9 +115,9 @@ template <int COUT, bool NORM>
 __global__ void __launch_bounds__(Tile<COUT>::THREADS, 1)
     packed_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
                        const float* __restrict__ bias, float* __restrict__ y, int C, int H,
-                       int W, int n_slabs, int n_tiles) {
+                       int W, int n_slabs, int cout, int n_tiles) {
   extern __shared__ __align__(16) float ring_smem[];
-  ConvRing<COUT, NORM> cv(x, w, bias, y, C, H, W, n_slabs);
+  ConvRing<COUT, NORM> cv(x, w, bias, y, C, H, W, n_slabs, cout);
   NoClock clk;
   ring_walk(cv, ring_smem, n_tiles, clk);
 }
@@ -123,18 +126,19 @@ template <int COUT>
 int launch_ring(const float* x, const float* w, const float* bias, float* y, int B, int C, int H,
                 int W, int cout, int epilogue, int n_blocks, int smem, cudaStream_t stream) {
   using Ring = ConvRing<COUT, true>;
-  const int n_slabs = cout / COUT;
+  // "lrelu_norm": one slab of up to COUT channels; "lrelu": slabs of COUT
+  const int n_slabs = epilogue == kLreluNorm ? 1 : cout / COUT;
   const long long n_tiles = static_cast<long long>(B) * (H / Tile<COUT>::TH) *
                             (W / Tile<COUT>::TW) * n_slabs;
   if (H % Tile<COUT>::TH || n_tiles > 0x7fffffff || smem != Ring::kBytes ||
-      (epilogue == kLreluNorm && n_slabs != 1))
+      (epilogue == kLreluNorm && cout > COUT) || (epilogue != kLreluNorm && cout % COUT))
     return cudaErrorInvalidValue;
   const auto kernel = epilogue == kLreluNorm ? packed_conv_kernel<COUT, true>
                                              : packed_conv_kernel<COUT, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<n_blocks, Tile<COUT>::THREADS, smem, stream>>>(x, w, bias, y, C, H, W, n_slabs,
+  kernel<<<n_blocks, Tile<COUT>::THREADS, smem, stream>>>(x, w, bias, y, C, H, W, n_slabs, cout,
                                                           static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
@@ -370,8 +374,10 @@ int launch_none(const float* x, const float* wk, const float* bias, float* y, in
 // x [B][C][H][W], w [Cout/CT][C][3][3][CT] (eq-LR scaled; CT the largest of
 // 64, 32, 16 and 8 that divides Cout: for Cout 8, 16, 32 or 64 that is
 // [C][3][3][Cout]), bias [Cout] -> y [B][Cout][H][W]; epilogue 0 =
-// lrelu_norm (Cout 8, 16, 32 or 64 only), 1 = lrelu, 2 = none (any Cout
-// % 8 == 0, as lrelu). Every epilogue takes the tiling the caller picked
+// lrelu_norm (Cout 1 to 64 in one slab: CT the least of 8, 16, 32 and 64 at
+// or above it, w [C][3][3][CT] and bias [CT] zero-padded past Cout; any
+// C >= 1), 1 = lrelu, 2 = none (any Cout % 8 == 0 and C % 8 == 0). Every
+// epilogue takes the tiling the caller picked
 // (ops/packed.py:conv_tiling): o_slab = CT with rows 8 at 64 and 16 below,
 // and n_blocks persistent blocks, and the dynamic shared memory in bytes,
 // checked against the kernel's: the ring's for "lrelu_norm" and "lrelu"
@@ -382,10 +388,12 @@ extern "C" int probgan_packed_conv(const float* x, const float* w, const float* 
                                    int B, int C, int H, int W, int cout, int epilogue,
                                    int o_slab, int rows, int n_blocks, int smem, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (cout < 8 || cout % 8) return cudaErrorInvalidValue;
-  const int slab = cout % 64 == 0 ? 64 : cout % 32 == 0 ? 32 : cout % 16 == 0 ? 16 : 8;
-  if (B < 1 || C < 8 || C % 8 || W < probgan::kNoneTW || W % probgan::kNoneTW || H < rows ||
-      n_blocks < 1 || o_slab != slab || rows != (slab == 64 ? 8 : 16))
+  const bool norm = epilogue == probgan::kLreluNorm;
+  if (norm ? cout < 1 || cout > 64 : cout < 8 || cout % 8) return cudaErrorInvalidValue;
+  const int slab = norm ? (cout <= 8 ? 8 : cout <= 16 ? 16 : cout <= 32 ? 32 : 64)
+                        : cout % 64 == 0 ? 64 : cout % 32 == 0 ? 32 : cout % 16 == 0 ? 16 : 8;
+  if (B < 1 || C < 1 || (!norm && C % 8) || W < probgan::kNoneTW || W % probgan::kNoneTW ||
+      H < rows || n_blocks < 1 || o_slab != slab || rows != (slab == 64 ? 8 : 16))
     return cudaErrorInvalidValue;
   if (epilogue == probgan::kNone) {
 #define PROBGAN_NONE(NS) \

@@ -41,7 +41,10 @@
 // training backward's input gradients, "none" 8 -> 8 and 16 -> 8 at 1024²,
 // 16 -> 16 and 32 -> 16 at 512²) keep the 16-row tile with two or one n8
 // tiles a warp, at every epilogue; C % 32 != 0 ends in a partial chunk,
-// staged with zeros past C.
+// staged with zeros past C. "lrelu_norm" takes any Cout from 1 to 64 and any
+// C >= 1 (4 -> 4, 24 -> 24, 48 -> 48 in the generators of fmap_base 512 and
+// 3072) on the tile just above Cout, the wrapper's weights and bias
+// zero-padded to it (bf16_ring.cuh).
 #include "bf16_ring.cuh"
 
 namespace probgan {
@@ -50,9 +53,9 @@ template <int COUT, int NTERM, int EPI>
 __global__ void __launch_bounds__(kThreads, 1)
     packed_conv_bf16_kernel(const float* __restrict__ x, const unsigned* __restrict__ wk,
                             const float* __restrict__ bias, float* __restrict__ y, int C, int H,
-                            int W, int n_slabs, int n_tiles) {
+                            int W, int n_slabs, int cout, int n_tiles) {
   extern __shared__ __align__(16) float bf16_ring_smem[];
-  ConvBf16Ring<COUT, NTERM, EPI> cv(x, wk, bias, y, C, H, W, n_slabs);
+  ConvBf16Ring<COUT, NTERM, EPI> cv(x, wk, bias, y, C, H, W, n_slabs, cout);
   bf16_ring_walk(cv, bf16_ring_smem, n_tiles);
 }
 
@@ -60,18 +63,21 @@ template <int COUT, int NTERM, int EPI>
 int launch(const float* x, const unsigned* wk, const float* bias, float* y, int B, int C, int H,
            int W, int cout, int blocks, int smem, cudaStream_t stream) {
   using K = ConvBf16Ring<COUT, NTERM, EPI>;
-  const int n_slabs = cout / COUT;
+  // "lrelu_norm": one slab of up to COUT channels, any C >= 1
+  constexpr bool kAnyWidth = EPI == kLreluNorm;
+  const int n_slabs = kAnyWidth ? 1 : cout / COUT;
   const long long n_tiles =
       static_cast<long long>(B) * (H / BfTile<COUT>::TH) * (W / 32) * n_slabs;
-  if (B < 1 || C < 8 || C % 8 || H % BfTile<COUT>::TH || W < 32 || W % 32 ||
-      cout % COUT || n_tiles > 0x7fffffff || blocks < 1 || blocks > n_tiles ||
+  if (B < 1 || C < 1 || (!kAnyWidth && C % 8) || H % BfTile<COUT>::TH || W < 32 || W % 32 ||
+      (kAnyWidth ? cout < 1 || cout > COUT : cout % COUT != 0) || n_tiles > 0x7fffffff ||
+      blocks < 1 || blocks > n_tiles ||
       smem != K::kBytes || reinterpret_cast<size_t>(x) % 16)
     return cudaErrorInvalidValue;
   const auto kernel = packed_conv_bf16_kernel<COUT, NTERM, EPI>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<blocks, kThreads, smem, stream>>>(x, wk, bias, y, C, H, W, n_slabs,
+  kernel<<<blocks, kThreads, smem, stream>>>(x, wk, bias, y, C, H, W, n_slabs, cout,
                                              static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
@@ -85,13 +91,22 @@ int geometry(int* out) {
 }
 
 // A slab of the largest of 64, 32, 16 and 8 channels that divides Cout
-// (ops/packed.py _pool_slab); PixelNorm needs all Cout in one slab.
+// (ops/packed.py _pool_slab); PixelNorm needs all Cout in one slab, the
+// least of them at or above Cout (ops/packed.py norm_tile).
 template <int NTERM, int EPI>
 int launch_slab(const float* x, const unsigned* wk, const float* bias, float* y, int B, int C,
                 int H, int W, int cout, int blocks, int smem, cudaStream_t stream) {
-  if (cout <= 0 || cout % 8 ||
-      (EPI == kLreluNorm && cout != 8 && cout != 16 && cout != 32 && cout != 64))
-    return cudaErrorInvalidValue;
+  if constexpr (EPI == kLreluNorm) {
+    if (cout < 1 || cout > 64) return cudaErrorInvalidValue;
+    if (cout > 32) return launch<64, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, blocks, smem,
+                                                 stream);
+    if (cout > 16) return launch<32, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, blocks, smem,
+                                                 stream);
+    if (cout > 8) return launch<16, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, blocks, smem,
+                                                stream);
+    return launch<8, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, blocks, smem, stream);
+  }
+  if (cout <= 0 || cout % 8) return cudaErrorInvalidValue;
   if (cout % 64 == 0)
     return launch<64, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, blocks, smem, stream);
   if (cout % 32 == 0)
@@ -120,8 +135,10 @@ int launch_epilogue(const float* x, const unsigned* wk, const float* bias, float
 // bf16 (ops/packed.py conv_bf16_weights: eq-LR scaled, rounded to bf16, taps
 // ky*3 + kx, 8 zeros after each run of 32 input channels, zeros past C),
 // bias [Cout] -> y [B][Cout][H][W]; terms 1 ("default") or 2 ("mid");
-// epilogue 0 "lrelu_norm" (Cout 8, 16, 32 or 64), 1 "lrelu" (Cout a
-// multiple of 8), 2 "none" (Cout a multiple of 8); C % 8 == 0,
+// epilogue 0 "lrelu_norm" (Cout 1 to 64, any C >= 1: one slab, the least of
+// 8, 16, 32 and 64 at or above Cout, wk and bias zero-padded to it), 1
+// "lrelu" (Cout a multiple of 8), 2 "none" (Cout a multiple of 8), these
+// two at C % 8 == 0,
 // H % (8 at a slab of 64, else 16) == 0, W % 32 == 0; blocks the persistent
 // blocks (1 .. tiles; ops/packed.py persistent_blocks), smem the block's
 // dynamic shared memory in bytes (ops/packed.py bf16_ring_bytes, checked

@@ -31,6 +31,11 @@
 // 1024²: 8 -> 8 at 1024²) run the same ring on blocks of 128 and 64 threads
 // over the 32-channel tile, 8 input channels a stage, two blocks an SM; a
 // pixel group is 2 lanes or 1, so toRGB's dot takes one shuffle or none.
+// Any Cout from 1 to 64 and C >= 1 (4 -> 4 and 2 -> 2 at 1024² for
+// fmap_base 1024 and 512, 12 -> 12 for 3072) run on the tile just above
+// Cout, the weights, bias and toRGB weights zero-padded by the wrapper: the
+// padded features are 0 and add 0 to toRGB's dot; PixelNorm divides by the
+// true Cout (conv_tile.cuh).
 #include "conv_ring.cuh"
 
 namespace probgan {
@@ -41,9 +46,9 @@ __global__ void __launch_bounds__(Tile<COUT>::THREADS, 1)
                            const float* __restrict__ bias, const float* __restrict__ rgb_w,
                            const float* __restrict__ rgb_b, const float* __restrict__ prev,
                            float alpha, void* __restrict__ out, int C, int H, int W,
-                           int n_tiles) {
+                           int cout, int n_tiles) {
   extern __shared__ __align__(16) float ring_smem[];
-  ConvRgbRing<COUT, U8> cv(x, w, bias, rgb_w, rgb_b, prev, alpha, out, C, H, W);
+  ConvRgbRing<COUT, U8> cv(x, w, bias, rgb_w, rgb_b, prev, alpha, out, C, H, W, cout);
   NoClock clk;
   ring_walk(cv, ring_smem, n_tiles, clk);
 }
@@ -51,11 +56,11 @@ __global__ void __launch_bounds__(Tile<COUT>::THREADS, 1)
 template <int COUT, bool U8>
 int launch(const float* x, const float* w, const float* bias, const float* rgb_w,
            const float* rgb_b, const float* prev, float alpha, void* out, int B, int C, int H,
-           int W, int n_blocks, int smem, cudaStream_t stream) {
+           int W, int cout, int n_blocks, int smem, cudaStream_t stream) {
   using T = Tile<COUT>;
   using Ring = ConvRgbRing<COUT, U8>;
   const long long n_tiles = static_cast<long long>(B) * (H / T::TH) * (W / T::TW);
-  if (B < 1 || C < 8 || C % 8 || W % T::TW || H % T::TH || n_tiles < 1 ||
+  if (B < 1 || C < 1 || cout < 1 || cout > COUT || W % T::TW || H % T::TH || n_tiles < 1 ||
       n_tiles > 0x7fffffff || n_blocks < 1 || smem != Ring::kBytes)
     return cudaErrorInvalidValue;
   const auto kernel = packed_conv_rgb_kernel<COUT, U8>;
@@ -63,14 +68,15 @@ int launch(const float* x, const float* w, const float* bias, const float* rgb_w
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<n_blocks, T::THREADS, smem, stream>>>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, C,
-                                                 H, W, static_cast<int>(n_tiles));
+                                                 H, W, cout, static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace probgan
 
-// x [B][C][H][W] (16-byte aligned), w [C][3][3][Cout] (Cout 8, 16, 32 or 64), bias [Cout],
-// rgb_w [3][Cout], rgb_b [3], prev [B][3][H/2][W/2] -> out [B][H][W][3],
+// x [B][C][H][W] (16-byte aligned, C >= 1), w [C][3][3][T], bias [T], rgb_w
+// [3][T] (T the least of 8, 16, 32 and 64 at or above Cout, 1 to 64; zeros
+// past Cout), rgb_b [3], prev [B][3][H/2][W/2] -> out [B][H][W][3],
 // uint8 if emit_uint8 else fp32 pre-tanh RGB; n_blocks persistent blocks
 // (ops/packed.py:persistent_blocks) and the ring's dynamic shared memory in
 // bytes (ops/packed.py:conv_ring_bytes, checked against the kernel's).
@@ -84,16 +90,14 @@ extern "C" int probgan_packed_conv_rgb(const float* x, const float* w, const flo
   const auto s = static_cast<cudaStream_t>(stream);
 #define PROBGAN_RGB(CO)                                                                      \
   (emit_uint8                                                                                \
-       ? launch<CO, true>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W, n_blocks,  \
-                          smem, s)                                                           \
-       : launch<CO, false>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W, n_blocks, \
-                           smem, s))
-  switch (cout) {
-    case 8: return PROBGAN_RGB(8);
-    case 16: return PROBGAN_RGB(16);
-    case 32: return PROBGAN_RGB(32);
-    case 64: return PROBGAN_RGB(64);
-    default: return cudaErrorInvalidValue;
-  }
+       ? launch<CO, true>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W, cout,      \
+                          n_blocks, smem, s)                                                 \
+       : launch<CO, false>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W, cout,     \
+                           n_blocks, smem, s))
+  if (cout < 1 || cout > 64) return cudaErrorInvalidValue;
+  if (cout <= 8) return PROBGAN_RGB(8);
+  if (cout <= 16) return PROBGAN_RGB(16);
+  if (cout <= 32) return PROBGAN_RGB(32);
+  return PROBGAN_RGB(64);
 #undef PROBGAN_RGB
 }

@@ -37,7 +37,10 @@
 // pixel g + 8 with conv_tile.cuh rgb_blend_store's blend and denorm; the
 // lane's prev values are loaded first and the stores come after every m16
 // tile's sums (bf16_ring.cuh: the tail is latency-bound). Every sum keeps
-// the order bf16_ring.cuh fixes.
+// the order bf16_ring.cuh fixes. Any Cout from 1 to 64 and any C >= 1
+// (4 -> 4 and 2 -> 2 at 1024² for fmap_base 1024 and 512, 12 -> 12 for
+// 3072) run on the tile just above Cout, the weights, bias and toRGB weights
+// zero-padded by the wrapper; PixelNorm divides by the true Cout.
 #include "bf16_ring.cuh"
 
 namespace probgan {
@@ -48,19 +51,20 @@ __global__ void __launch_bounds__(kThreads, 1)
                                 const float* __restrict__ bias, const float* __restrict__ rgb_w,
                                 const float* __restrict__ rgb_b, const float* __restrict__ prev,
                                 float alpha, void* __restrict__ out, int C, int H, int W,
-                                int n_tiles) {
+                                int cout, int n_tiles) {
   extern __shared__ __align__(16) float bf16_ring_smem[];
-  ConvRgbBf16Ring<COUT, NTERM, U8> cv(x, wk, bias, rgb_w, rgb_b, prev, alpha, out, C, H, W);
+  ConvRgbBf16Ring<COUT, NTERM, U8> cv(x, wk, bias, rgb_w, rgb_b, prev, alpha, out, C, H, W,
+                                      cout);
   bf16_ring_walk(cv, bf16_ring_smem, n_tiles);
 }
 
 template <int COUT, int NTERM, bool U8>
 int launch(const float* x, const unsigned* wk, const float* bias, const float* rgb_w,
            const float* rgb_b, const float* prev, float alpha, void* out, int B, int C, int H,
-           int W, int blocks, int smem, cudaStream_t stream) {
+           int W, int cout, int blocks, int smem, cudaStream_t stream) {
   using K = ConvRgbBf16Ring<COUT, NTERM, U8>;
   const long long n_tiles = static_cast<long long>(B) * (H / BfTile<COUT>::TH) * (W / 32);
-  if (B < 1 || C < 8 || C % 8 || H % BfTile<COUT>::TH || W < 32 || W % 32 ||
+  if (B < 1 || C < 1 || cout < 1 || cout > COUT || H % BfTile<COUT>::TH || W < 32 || W % 32 ||
       n_tiles > 0x7fffffff || blocks < 1 || blocks > n_tiles || smem != K::kBytes ||
       reinterpret_cast<size_t>(x) % 16)
     return cudaErrorInvalidValue;
@@ -69,7 +73,7 @@ int launch(const float* x, const unsigned* wk, const float* bias, const float* r
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<blocks, kThreads, smem, stream>>>(x, wk, bias, rgb_w, rgb_b, prev, alpha, out, C, H,
-                                             W, static_cast<int>(n_tiles));
+                                             W, cout, static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -83,12 +87,13 @@ int geometry(int* out) {
 
 }  // namespace probgan
 
-// x [B][C][H][W] fp32, 16-byte aligned, wk [ceil(C/32)][9][Cout][40] bf16
+// x [B][C][H][W] fp32, 16-byte aligned, wk [ceil(C/32)][9][T][40] bf16
 // (ops/packed.py conv_bf16_weights: packed_conv_bf16's layout at one slab),
-// bias [Cout], rgb_w [3][Cout] (values rounded to bf16, stored as fp32),
+// bias [T], rgb_w [3][T] (values rounded to bf16, stored as fp32), T the
+// least of 8, 16, 32 and 64 at or above Cout (1 to 64), zeros past Cout;
 // rgb_b [3], prev [B][3][H/2][W/2] -> out [B][H][W][3], uint8 if emit_uint8
-// else fp32 pre-tanh RGB; terms 1 ("default") or 2 ("mid"); Cout 8, 16, 32
-// or 64, C % 8 == 0, H % (8 at Cout 64, else 16) == 0, W % 32 == 0; blocks
+// else fp32 pre-tanh RGB; terms 1 ("default") or 2 ("mid"); C >= 1,
+// H % (8 at T 64, else 16) == 0, W % 32 == 0; blocks
 // the persistent blocks (1 .. tiles; ops/packed.py persistent_blocks), smem
 // the block's dynamic shared memory in bytes (ops/packed.py bf16_ring_bytes,
 // checked against the ring's). Returns the cudaError_t of the launch (0 =
@@ -102,18 +107,19 @@ extern "C" int probgan_packed_conv_rgb_bf16(const float* x, const void* wk, cons
   const auto s = static_cast<cudaStream_t>(stream);
   const auto w = static_cast<const unsigned*>(wk);
 #define PROBGAN_RGB_LAUNCH(CO, NT, U8) \
-  launch<CO, NT, U8>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W, blocks, smem, s)
+  launch<CO, NT, U8>(x, w, bias, rgb_w, rgb_b, prev, alpha, out, B, C, H, W, cout, blocks, smem, s)
 #define PROBGAN_RGB_COUT(CO)                                                                  \
-  if (cout == CO) {                                                                           \
+  if (cout > CO / 2 || CO == 8) {  /* the least tile at or above cout */                     \
     if (terms == 1)                                                                           \
       return emit_uint8 ? PROBGAN_RGB_LAUNCH(CO, 1, true) : PROBGAN_RGB_LAUNCH(CO, 1, false); \
     if (terms == 2)                                                                           \
       return emit_uint8 ? PROBGAN_RGB_LAUNCH(CO, 2, true) : PROBGAN_RGB_LAUNCH(CO, 2, false); \
   }
-  PROBGAN_RGB_COUT(8)
-  PROBGAN_RGB_COUT(16)
-  PROBGAN_RGB_COUT(32)
+  if (cout < 1 || cout > 64) return cudaErrorInvalidValue;
   PROBGAN_RGB_COUT(64)
+  PROBGAN_RGB_COUT(32)
+  PROBGAN_RGB_COUT(16)
+  PROBGAN_RGB_COUT(8)
 #undef PROBGAN_RGB_COUT
 #undef PROBGAN_RGB_LAUNCH
   return cudaErrorInvalidValue;

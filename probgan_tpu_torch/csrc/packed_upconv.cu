@@ -44,6 +44,14 @@
 // same ring on blocks of 128 and 64 threads under 16 input rows, 8 input
 // channels a stage, two blocks an SM (conv_ring.cuh UpconvRing).
 //
+// "lrelu_norm" at any Cout from 1 to 64 and any C >= 1 (a generator whose
+// last stages are narrower than 8 or no power of two: fmap_base 512 or 1024
+// at 1024² ends 8 -> 4 or 4 -> 2, fmap_base 3072 runs 96 -> 48, 48 -> 24,
+// 24 -> 12) runs on the tile of the width just above Cout, with the
+// wrapper's zero-padded taps and bias; PixelNorm divides by the true Cout
+// and only its channels are stored (conv_tile.cuh). "lrelu" (the training
+// recompute) keeps Cout 8, 16, 32 or 64 and C % 8 == 0.
+//
 // Every output value keeps its one fp32 accumulator fed by fmaf in the order
 // (input channel, dy, dx) and the epilogues of conv_tile.cuh: the bits of
 // the previous loop, which the stage-fused kernels (fused_ring.cuh) equal.
@@ -56,20 +64,25 @@ __global__ void __launch_bounds__(Tile<COUT>::THREADS, 1)
     packed_upconv_kernel(const float* __restrict__ x, const float* __restrict__ wk,
                          const float* __restrict__ bias, const float* __restrict__ rgb_w,
                          const float* __restrict__ rgb_b, float* __restrict__ y,
-                         float* __restrict__ rgb, int C, int H, int W, int n_tiles) {
+                         float* __restrict__ rgb, int C, int H, int W, int cout,
+                         int n_tiles) {
   extern __shared__ __align__(16) float ring_smem[];
-  UpconvRing<COUT, NORM> cv(x, wk, bias, rgb_w, rgb_b, y, rgb, C, H, W);
+  UpconvRing<COUT, NORM> cv(x, wk, bias, rgb_w, rgb_b, y, rgb, C, H, W, cout);
   NoClock clk;
   ring_walk(cv, ring_smem, n_tiles, clk);
 }
 
 template <int COUT>
 int launch(const float* x, const float* wk, const float* bias, const float* rgb_w,
-           const float* rgb_b, float* y, float* rgb, int B, int C, int H, int W, int epilogue,
-           int n_blocks, int smem, cudaStream_t stream) {
+           const float* rgb_b, float* y, float* rgb, int B, int C, int H, int W, int cout,
+           int epilogue, int n_blocks, int smem, cudaStream_t stream) {
   using Ring = UpconvRing<COUT, true>;
   const long long n_tiles = 2LL * B * (H / Ring::TH) * (W / Ring::TJ);
-  if (B < 1 || C < 8 || C % 8 || W % Ring::TJ || H % Ring::TH || n_tiles < 1 ||
+  // "lrelu_norm": any C >= 1 and Cout up to the tile's; "lrelu": the tile's
+  // Cout and C % 8 == 0
+  const bool any_width = epilogue == 0;
+  if (B < 1 || C < 1 || (!any_width && C % 8) || cout < 1 || cout > COUT ||
+      (!any_width && cout != COUT) || W % Ring::TJ || H % Ring::TH || n_tiles < 1 ||
       n_tiles > 0x7fffffff || n_blocks < 1 || smem != Ring::kBytes ||
       (epilogue != 0 && epilogue != 1))
     return cudaErrorInvalidValue;
@@ -79,17 +92,18 @@ int launch(const float* x, const float* wk, const float* bias, const float* rgb_
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<n_blocks, Tile<COUT>::THREADS, smem, stream>>>(x, wk, bias, rgb_w, rgb_b, y, rgb, C,
-                                                          H, W, static_cast<int>(n_tiles));
+                                                          H, W, cout, static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace probgan
 
-// x [B][C][H][W], wk [2][C][2][2][2][Cout] (pre-summed, eq-LR scaled; Cout 8,
-// 16, 32 or 64),
-// bias [Cout], rgb_w [3][C] and rgb_b [3] or both null -> y [B][Cout][2H][2W]
-// and, when rgb_w is given, rgb [B][3][H][W]; epilogue 0 = lrelu_norm,
-// 1 = lrelu; n_blocks persistent blocks and the ring's dynamic shared memory
+// x [B][C][H][W], wk [2][C][2][2][2][T] (pre-summed, eq-LR scaled, zeros past
+// Cout), bias [T] (zeros past Cout), rgb_w [3][C] and rgb_b [3] or both null
+// -> y [B][Cout][2H][2W] and, when rgb_w is given, rgb [B][3][H][W]; T the
+// tile's width, the least of 8, 16, 32 and 64 at or above Cout; epilogue 0 =
+// lrelu_norm (Cout 1 to 64, C >= 1), 1 = lrelu (Cout 8, 16, 32 or 64,
+// C % 8 == 0); n_blocks persistent blocks and the ring's dynamic shared memory
 // in bytes (ops/packed.py:upconv_ring_bytes, checked against the kernel's);
 // x and wk 16-byte aligned. Returns the cudaError_t of the launch (0 =
 // launched).
@@ -99,13 +113,12 @@ extern "C" int probgan_packed_upconv(const float* x, const float* wk, const floa
                                      int epilogue, int n_blocks, int smem, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
 #define PROBGAN_UP(CO) \
-  probgan::launch<CO>(x, wk, bias, rgb_w, rgb_b, y, rgb, B, C, H, W, epilogue, n_blocks, smem, s)
-  switch (cout) {
-    case 8: return PROBGAN_UP(8);
-    case 16: return PROBGAN_UP(16);
-    case 32: return PROBGAN_UP(32);
-    case 64: return PROBGAN_UP(64);
-    default: return cudaErrorInvalidValue;
-  }
+  probgan::launch<CO>(x, wk, bias, rgb_w, rgb_b, y, rgb, B, C, H, W, cout, epilogue, n_blocks, \
+                      smem, s)
+  if (cout < 1 || cout > 64) return cudaErrorInvalidValue;
+  if (cout <= 8) return PROBGAN_UP(8);
+  if (cout <= 16) return PROBGAN_UP(16);
+  if (cout <= 32) return PROBGAN_UP(32);
+  return PROBGAN_UP(64);
 #undef PROBGAN_UP
 }

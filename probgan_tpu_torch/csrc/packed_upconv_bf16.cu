@@ -43,6 +43,10 @@
 // Cout 16 and 8 (a narrow generator: 32 -> 16 from 256², 16 -> 8 from 512²
 // with toRGB) keep the 16-row tile with two or one n8 tiles; C 16 is one
 // k16 step a tap, and the toRGB sums only the chunk's C - c0 channels.
+// "lrelu_norm" takes any Cout from 1 to 64 and any C >= 1 (8 -> 4, 4 -> 2,
+// 96 -> 48, 48 -> 24, 24 -> 12 in the generators of fmap_base 1024, 512 and
+// 3072) on the tile just above Cout, with the wrapper's zero-padded taps and
+// bias (bf16_ring.cuh); "lrelu" keeps Cout 8, 16, 32 or 64 and C % 8 == 0.
 #include "bf16_ring.cuh"
 
 namespace probgan {
@@ -52,19 +56,22 @@ __global__ void __launch_bounds__(kThreads, 1)
     packed_upconv_bf16_kernel(const float* __restrict__ x, const unsigned* __restrict__ wk,
                               const float* __restrict__ bias, const float* __restrict__ rgb_w,
                               const float* __restrict__ rgb_b, float* __restrict__ y,
-                              float* __restrict__ rgb, int C, int H, int W, int n_tiles) {
+                              float* __restrict__ rgb, int C, int H, int W, int cout,
+                              int n_tiles) {
   extern __shared__ __align__(16) float bf16_ring_smem[];
-  UpconvBf16Ring<COUT, NTERM, EPI> cv(x, wk, bias, rgb_w, rgb_b, y, rgb, C, H, W);
+  UpconvBf16Ring<COUT, NTERM, EPI> cv(x, wk, bias, rgb_w, rgb_b, y, rgb, C, H, W, cout);
   bf16_ring_walk(cv, bf16_ring_smem, n_tiles);
 }
 
 template <int COUT, int NTERM, int EPI>
 int launch(const float* x, const unsigned* wk, const float* bias, const float* rgb_w,
-           const float* rgb_b, float* y, float* rgb, int B, int C, int H, int W, int blocks,
-           int smem, cudaStream_t stream) {
+           const float* rgb_b, float* y, float* rgb, int B, int C, int H, int W, int cout,
+           int blocks, int smem, cudaStream_t stream) {
   using K = UpconvBf16Ring<COUT, NTERM, EPI>;
   const long long n_tiles = 2LL * B * (H / BfTile<COUT>::TH) * (W / 16);
-  if (B < 1 || C < 8 || C % 8 || H % BfTile<COUT>::TH || W < 16 || W % 16 ||
+  constexpr bool kAnyWidth = EPI == kLreluNorm;
+  if (B < 1 || C < 1 || (!kAnyWidth && C % 8) || cout < 1 || cout > COUT ||
+      (!kAnyWidth && cout != COUT) || H % BfTile<COUT>::TH || W < 16 || W % 16 ||
       n_tiles > 0x7fffffff || blocks < 1 || blocks > n_tiles || smem != K::kBytes ||
       reinterpret_cast<size_t>(x) % 16 || reinterpret_cast<size_t>(rgb_w) % 16 ||
       (rgb_w == nullptr) != (rgb == nullptr) ||
@@ -74,7 +81,7 @@ int launch(const float* x, const unsigned* wk, const float* bias, const float* r
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<blocks, kThreads, smem, stream>>>(x, wk, bias, rgb_w, rgb_b, y, rgb, C, H, W,
+  kernel<<<blocks, kThreads, smem, stream>>>(x, wk, bias, rgb_w, rgb_b, y, rgb, C, H, W, cout,
                                              static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
@@ -89,15 +96,17 @@ int geometry(int* out) {
 
 }  // namespace probgan
 
-// x [B][C][H][W] fp32, wk [2 py][ceil(C/32)][2 px][4 (dy, dx)][Cout][40] bf16
+// x [B][C][H][W] fp32, wk [2 py][ceil(C/32)][2 px][4 (dy, dx)][T][40] bf16
 // (ops/packed.py upconv_bf16_weights: the pre-summed parity taps, eq-LR
 // scaled, rounded to bf16, 8 zeros after each run of 32 input channels,
-// zeros past C), bias [Cout], rgb_w [3][C] (values rounded to bf16, stored
-// as fp32, 16-byte aligned) and rgb_b [3] or both null -> y [B][Cout][2H][2W]
-// and, with rgb_w, rgb [B][3][H][W]; terms 1 ("default") or 2 ("mid");
-// epilogue 0 "lrelu_norm" or 1 "lrelu" (no toRGB); Cout 8, 16, 32 or 64,
-// C % 8 == 0, H % (8 at Cout 64, else 16) == 0, W % 16 == 0, x 16-byte
-// aligned; blocks the persistent
+// zeros past C and past Cout), bias [T] (zeros past Cout), rgb_w [3][C4]
+// (C rounded up to 4, zeros past C; values rounded to bf16, stored as fp32,
+// 16-byte aligned) and rgb_b [3] or
+// both null -> y [B][Cout][2H][2W] and, with rgb_w, rgb [B][3][H][W]; T the
+// least of 8, 16, 32 and 64 at or above Cout; terms 1 ("default") or 2
+// ("mid"); epilogue 0 "lrelu_norm" (Cout 1 to 64, C >= 1) or 1 "lrelu" (no
+// toRGB; Cout 8, 16, 32 or 64, C % 8 == 0); H % (8 at T 64, else 16) == 0,
+// W % 16 == 0, x 16-byte aligned; blocks the persistent
 // blocks (1 .. tiles; ops/packed.py persistent_blocks), smem the block's
 // dynamic shared memory in bytes (ops/packed.py bf16_upconv_ring_bytes,
 // checked against the kernel's). Returns the cudaError_t of the launch (0 =
@@ -111,13 +120,13 @@ extern "C" int probgan_packed_upconv_bf16(const float* x, const void* wk, const 
   const auto s = static_cast<cudaStream_t>(stream);
   const auto w = static_cast<const unsigned*>(wk);
 #define PROBGAN_UP_COUT(CO, NT, EPI) \
-  launch<CO, NT, EPI>(x, w, bias, rgb_w, rgb_b, y, rgb, B, C, H, W, blocks, smem, s)
+  launch<CO, NT, EPI>(x, w, bias, rgb_w, rgb_b, y, rgb, B, C, H, W, cout, blocks, smem, s)
 #define PROBGAN_UP_LAUNCH(NT, EPI)                                 \
-  (cout == 64   ? PROBGAN_UP_COUT(64, NT, EPI)                     \
-   : cout == 32 ? PROBGAN_UP_COUT(32, NT, EPI)                     \
-   : cout == 16 ? PROBGAN_UP_COUT(16, NT, EPI)                     \
-                : PROBGAN_UP_COUT(8, NT, EPI))
-  if (cout != 8 && cout != 16 && cout != 32 && cout != 64) return cudaErrorInvalidValue;
+  (cout > 32   ? PROBGAN_UP_COUT(64, NT, EPI)                      \
+   : cout > 16 ? PROBGAN_UP_COUT(32, NT, EPI)                      \
+   : cout > 8  ? PROBGAN_UP_COUT(16, NT, EPI)                      \
+               : PROBGAN_UP_COUT(8, NT, EPI))
+  if (cout < 1 || cout > 64) return cudaErrorInvalidValue;
   if (terms == 1 && epilogue == kLreluNorm) return PROBGAN_UP_LAUNCH(1, kLreluNorm);
   if (terms == 1 && epilogue == kLrelu) return PROBGAN_UP_LAUNCH(1, kLrelu);
   if (terms == 2 && epilogue == kLreluNorm) return PROBGAN_UP_LAUNCH(2, kLreluNorm);

@@ -63,16 +63,24 @@ The TPU kernels' phase-blocked layout, revolving DMAs and bf16 K-stacking are
 not ported: these take plain dense NCHW fp32 tensors and OIHW weights with the
 equalized-LR scale already applied.
 
-Channel counts on the card: ``packed_upconv``, ``packed_conv``
-"lrelu_norm" and ``packed_conv_rgb`` (PixelNorm: every output channel in one
-block) take Cout 8, 16, 32 or 64; ``packed_conv`` "lrelu" and
-``packed_convpool`` "lrelu" any Cout that is a multiple of 8, in slabs of 64,
-32, 16 or 8 (the largest that divides it); input C is any multiple of 8 at
-every mode; the "none" epilogues (the training backward's input
-gradients) take any multiple of 8 too; the stage-fused kernels take Cout 8,
-16, 32 or 64 and C % 8 at every mode. The narrow slabs (16 and 8) are a
-narrow generator's late stages, forward and backward, e.g. fmap_base 2048 at
-1024². Still to come (ROADMAP.md): Cout below 8.
+Channel counts on the card, at every mode: the serving path's PixelNorm
+kernels, ``packed_upconv`` "lrelu_norm" (with or without toRGB),
+``packed_conv`` "lrelu_norm" and ``packed_conv_rgb`` (fp32 RGB and uint8),
+take any Cout from 1 to 64 and any C >= 1: every output channel in one
+block, on the tile of the least of 8, 16, 32 and 64 at or above Cout
+(``norm_tile``), the weights, bias and toRGB weights zero-padded to it by
+the wrapper (no activation is padded), so that generators whose last stages
+are 4 or 2 channels wide (fmap_base 1024 or 512 at 1024²) or no power of two
+(fmap_base 3072: 48, 24, 12) serve on the card. ``packed_upconv`` "lrelu"
+takes Cout 8, 16, 32 or 64; ``packed_conv`` "lrelu" and "none" and
+``packed_convpool`` any Cout that is a multiple of 8, in slabs of 64, 32,
+16 or 8 (the largest that divides it); these, ``packed_conv_wgrad`` and the
+stage-fused kernels (Cout 8, 16, 32 or 64) take C % 8 == 0. The narrow slabs
+(16 and 8) are a narrow generator's late stages, forward and backward, e.g.
+fmap_base 2048 at 1024². Still to come (ROADMAP.md, B.a.2.4): the others at
+any width, so the training backward and the stage-fused kernels too, and
+PixelNorm above 64 channels; the wrappers raise ValueError before any launch
+there.
 
 Each kernel has a wrapper (checks device, dtype, shape and contiguity,
 allocates outputs with ``torch.empty`` and launches on the current stream), a
@@ -112,7 +120,8 @@ launches = {"packed_upconv": 0, "packed_conv": 0, "packed_conv_rgb": 0,
             "packed_upconv_conv_rgb_mid": 0}
 # The launches at a narrow slab, "<counter>[cout<slab>]" (slab 16 or 8, the
 # instantiations of csrc/conv_tile.cuh Tile and bf16_conv.cuh BfTile below
-# 32 channels), filled as they happen.
+# 32 channels), and at a Cout that is no tile's width (2, 4, 12, 24, 48, ...,
+# run on the tile above it: "<counter>[cout<Cout>]"), filled as they happen.
 narrow_launches: dict[str, int] = {}
 # The same launches by epilogue, "<kernel>[<epilogue>]", for the kernels that
 # have more than one.
@@ -168,7 +177,11 @@ BF16_RING_ROW = {"packed_conv": 40, "packed_upconv": 24}
 # largest that divides it) and take any multiple of 8, at every epilogue; the
 # stage-fused kernels take these too.
 SUPPORTED_COUT = (8, 16, 32, 64)
-NARROW_TODO = "not ported yet (ROADMAP.md, B.a.2.3)"
+# The serving path's PixelNorm kernels (B1 "lrelu_norm", B2 "lrelu_norm", B3)
+# take any Cout up to the widest tile, on the tile just above it
+# (``norm_tile``), and any C >= 1.
+ANY_WIDTH_MAX = SUPPORTED_COUT[-1]
+NARROW_TODO = "not ported yet (ROADMAP.md, B.a.2.4)"
 # packed_conv's epilogues, by their code in csrc/packed_conv.cu.
 CONV_EPILOGUES = {"lrelu_norm": 0, "lrelu": 1, "none": 2}
 UPCONV_EPILOGUES = {"lrelu_norm": 0, "lrelu": 1}
@@ -235,13 +248,14 @@ def _launch(name: str, x: torch.Tensor, *args, epilogue: str | None = None,
             counter: str | None = None, slab: int | None = None) -> None:
     """Launch kernel ``name``; count it under ``counter`` (default ``name``),
     with ``epilogue`` under "<counter>[<epilogue>]" too, and at a ``slab``
-    below 32 channels under "<counter>[cout<slab>]" in ``narrow_launches``."""
+    below 32 channels, or a Cout that is no tile's width, under
+    "<counter>[cout<slab>]" in ``narrow_launches``."""
     _build.launch(name, _ARGTYPES[name], x.device, *args)
     counter = counter or name
     launches[counter] += 1
     if epilogue is not None:
         epilogue_launches[f"{counter}[{epilogue}]"] += 1
-    if slab is not None and slab < 32:
+    if slab is not None and (slab < 32 or slab not in SUPPORTED_COUT):
         key = f"{counter}[cout{slab}]"
         narrow_launches[key] = narrow_launches.get(key, 0) + 1
 
@@ -274,9 +288,10 @@ def _refuse_grad(name: str, instead: str, *tensors: torch.Tensor | None) -> None
 
 
 def _check(name: str, x: torch.Tensor, cin: int, h_mult: int,
-           w_mult: int, **params: torch.Tensor | None) -> None:
+           w_mult: int, any_c: bool = False, **params: torch.Tensor | None) -> None:
     """Raise unless ``x`` is a contiguous fp32 NCHW CUDA tensor the kernel
-    takes and every parameter lies on its device in fp32."""
+    takes (C a multiple of 8, or with ``any_c`` any C >= 1) and every
+    parameter lies on its device in fp32."""
     if x.device.type != "cuda":
         raise RuntimeError(
             f"{name}: tensors on {x.device.type!r} are not supported; the "
@@ -288,10 +303,11 @@ def _check(name: str, x: torch.Tensor, cin: int, h_mult: int,
             f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}"
         )
     _, c, h, w = x.shape
-    if c != cin or c % 8 or h % h_mult or w % w_mult:
+    if c != cin or c < 1 or (c % 8 and not any_c) or h % h_mult or w % w_mult:
         raise ValueError(
-            f"{name}: x {tuple(x.shape)} needs C == {cin} and a "
-            f"multiple of 8, H % {h_mult} == 0, W % {w_mult} == 0"
+            f"{name}: x {tuple(x.shape)} needs C == {cin}"
+            + ("" if any_c else f" and a multiple of 8 (another C is {NARROW_TODO})")
+            + f", H % {h_mult} == 0, W % {w_mult} == 0"
         )
     for pname, p in params.items():
         if p is not None and (p.device != x.device or p.dtype != torch.float32):
@@ -306,18 +322,62 @@ def _tile_rows(cout: int) -> int:
 
 
 def _check_cout(name: str, cout: int, sliced: bool = False,
-                supported: tuple[int, ...] = SUPPORTED_COUT) -> None:
-    """``sliced``: the kernel tiles Cout in slabs and takes any multiple of 8;
-    else Cout is one of ``supported``."""
+                supported: tuple[int, ...] = SUPPORTED_COUT, any_width: bool = False) -> None:
+    """``any_width``: a serving PixelNorm kernel, any Cout from 1 to
+    ANY_WIDTH_MAX; ``sliced``: the kernel tiles Cout in slabs and takes any
+    multiple of 8; else Cout is one of ``supported``. What is refused names
+    the ROADMAP.md item that would port it."""
+    if any_width:
+        if not 0 < cout <= ANY_WIDTH_MAX:
+            raise ValueError(f"{name}: Cout={cout} not in 1..{ANY_WIDTH_MAX}; PixelNorm above "
+                             f"{ANY_WIDTH_MAX} channels is {NARROW_TODO}")
+        return
     if 0 < cout < 8:
         raise ValueError(f"{name}: Cout={cout} below 8 is {NARROW_TODO}")
     if sliced:
         if cout <= 0 or cout % 8:
-            raise ValueError(f"{name}: Cout={cout} must be a multiple of 8")
+            raise ValueError(f"{name}: Cout={cout} must be a multiple of 8"
+                             + (f"; Cout {cout} here is {NARROW_TODO}" if cout > 0 else ""))
     elif cout not in supported:
-        raise ValueError(f"{name}: Cout={cout} not in {supported}"
-                         + (f"; Cout {cout} here is {NARROW_TODO}" if cout in SUPPORTED_COUT
-                            else ""))
+        raise ValueError(f"{name}: Cout={cout} not in {supported}; Cout {cout} here is "
+                         f"{NARROW_TODO}")
+
+
+def norm_tile(cout: int) -> int:
+    """The output channels of the tile a serving PixelNorm kernel runs Cout
+    ``cout`` (1 to ANY_WIDTH_MAX) on: the least of SUPPORTED_COUT at or above
+    it (1-8 on 8, 9-16 on 16, 17-32 on 32, 33-64 on 64)."""
+    return next(t for t in SUPPORTED_COUT if t >= cout)
+
+
+def pad_cout(t: torch.Tensor, tile: int, dim: int = 0) -> torch.Tensor:
+    """``t`` with zeros past its channels (dimension ``dim``) up to ``tile``:
+    the weights, bias or toRGB weights of a Cout that is no tile's width
+    (the padded channels' sums are 0, add 0 to PixelNorm's sum of squares and
+    to toRGB's dot, and are not stored), or the bf16 B1's toRGB weights in
+    rows of C rounded up to 4. ``t`` itself where it has that size already."""
+    pad = tile - t.shape[dim]
+    if not pad:
+        return t
+    shape = list(t.shape)
+    shape[dim] = pad
+    return torch.cat([t, t.new_zeros(shape)], dim=dim)
+
+
+def check_stage_widths(name: str, x: torch.Tensor, widths) -> None:
+    """Raise ValueError before any launch where a generator stage of (C,
+    Cout) in ``widths`` would reach, on the card, a kernel that does not take
+    it yet: the stage-fused kernels and the packed train step's backward
+    (``packed_upconv`` "lrelu", ``packed_conv`` "lrelu"/"none",
+    ``packed_convpool`` "none", ``packed_conv_wgrad``) take Cout 8, 16, 32 or
+    64 and C % 8 == 0 (ROADMAP.md, B.a.2.4). Nothing on the CPU, where the
+    twins take every width."""
+    if x.device.type == "cpu":
+        return
+    for c, cout in widths:
+        if cout not in SUPPORTED_COUT or c % 8:
+            raise ValueError(f"{name}: a stage of {c} -> {cout} channels on the card is "
+                             f"{NARROW_TODO}")
 
 
 def _lrelu_norm(x: torch.Tensor) -> torch.Tensor:
@@ -473,10 +533,12 @@ def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm", mod
     x [B, C, H, W] fp32, w [Cout, C, 3, 3] eq-LR scaled, b [Cout]
     -> [B, Cout, 2H, 2W]. With ``rgb_w`` [3, C] and ``rgb_b`` [3]
     ("lrelu_norm" only), also returns toRGB(x) [B, 3, H, W] (the ``rgb_prev``
-    of packed_conv_rgb). On CUDA, Cout is 8, 16, 32 or 64 and C a multiple
-    of 8. ``mode``: "high"/"highest" (fp32), "default" (one bf16 pass) or
-    "mid" (the 2-term split); both bf16 modes are ``packed_upconv_bf16`` on
-    the card."""
+    of packed_conv_rgb). On CUDA, "lrelu_norm" takes any Cout from 1 to 64
+    and any C >= 1 (on ``norm_tile(Cout)``'s tile, the taps and bias
+    zero-padded to it); "lrelu" Cout 8, 16, 32 or 64 and C a multiple of 8.
+    ``mode``: "high"/"highest" (fp32), "default" (one bf16 pass) or "mid"
+    (the 2-term split); both bf16 modes are ``packed_upconv_bf16`` on the
+    card."""
     if x.device.type == "cpu":
         return packed_upconv_plain(x, w, b, rgb_w=rgb_w, rgb_b=rgb_b, epilogue=epilogue,
                                    mode=mode)
@@ -485,22 +547,27 @@ def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm", mod
     terms = check_mode(name, mode)
     _refuse_grad(name, "upconv_lrelu_norm", x, w, b, rgb_w, rgb_b)
     cout = w.shape[0]
-    _check_cout(name, cout)
+    norm = epilogue == "lrelu_norm"
+    _check_cout(name, cout, any_width=norm)
     if (rgb_w is None) != (rgb_b is None):
         raise ValueError(f"{name}: rgb_w and rgb_b go together")
-    _check(name, x, w.shape[1], _tile_rows(cout), 16, w=w, b=b, rgb_w=rgb_w,
+    tile = norm_tile(cout)  # Cout itself at 8, 16, 32 and 64
+    _check(name, x, w.shape[1], _tile_rows(tile), 16, any_c=norm, w=w, b=b, rgb_w=rgb_w,
            rgb_b=rgb_b)
+    w, b = pad_cout(w, tile), pad_cout(b, tile)
     bsz, c, h, wd = x.shape
     if terms:
         y = torch.empty((bsz, cout, 2 * h, 2 * wd), device=x.device, dtype=x.dtype)
         rgb = None
         if rgb_w is not None:
-            rgb_w, rgb_b = _bf16(rgb_w.reshape(3, c)).contiguous(), rgb_b.contiguous()
+            # rows of C rounded up to 4 (the kernel's float4 reads), zeros past C
+            rgb_w = _bf16(pad_cout(rgb_w.reshape(3, c), -(-c // 4) * 4, 1)).contiguous()
+            rgb_b = rgb_b.contiguous()
             rgb = torch.empty((bsz, 3, h, wd), device=x.device, dtype=x.dtype)
         # named, so that nothing the kernel reads is freed before it runs
         wk, b, x = upconv_bf16_weights(w), b.contiguous(), _aligned16(x)
-        smem = bf16_upconv_ring_bytes(cout)
-        blocks = persistent_blocks(upconv_tile_count(bsz, cout, h, wd), _sms(x.device),
+        smem = bf16_upconv_ring_bytes(tile)
+        blocks = persistent_blocks(upconv_tile_count(bsz, tile, h, wd), _sms(x.device),
                                    ring_blocks_per_sm(smem))
         _bf16_launch(name, terms, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),
                      _ptr(y), _ptr(rgb), bsz, c, h, wd, cout, terms, UPCONV_EPILOGUES[epilogue],
@@ -514,8 +581,8 @@ def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm", mod
         rgb_w, rgb_b = rgb_w.reshape(3, c).contiguous(), rgb_b.contiguous()
         rgb = torch.empty((bsz, 3, h, wd), device=x.device, dtype=x.dtype)
     x = _aligned16(x)
-    smem = upconv_ring_bytes(cout)
-    blocks = persistent_blocks(upconv_tile_count(bsz, cout, h, wd), _sms(x.device),
+    smem = upconv_ring_bytes(tile)
+    blocks = persistent_blocks(upconv_tile_count(bsz, tile, h, wd), _sms(x.device),
                                ring_blocks_per_sm(smem))
     _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),
             _ptr(y), _ptr(rgb), bsz, c, h, wd, cout, UPCONV_EPILOGUES[epilogue],
@@ -666,12 +733,13 @@ def _aligned16(x: torch.Tensor) -> torch.Tensor:
 def packed_conv(x, w, b, epilogue="lrelu_norm", mode="high"):
     """conv3x3 SAME + bias -> epilogue ("lrelu_norm": LeakyReLU -> PixelNorm;
     "lrelu": LeakyReLU; "none"): x [B, C, H, W] fp32, w [Cout, C, 3, 3] eq-LR
-    scaled, b [Cout] -> [B, Cout, H, W]. On CUDA, Cout is 8, 16, 32 or 64
-    with "lrelu_norm", any multiple of 8 with "lrelu" and "none", and C a
-    multiple of 8. "none" is 3xTF32 on the card (each product three
-    TF32 products of the operands' high and low parts, within ~1e-6 of the
-    output's largest entry of the fp32 sum) and sums every output in a fixed
-    order, so equal inputs give equal bits.
+    scaled, b [Cout] -> [B, Cout, H, W]. On CUDA, "lrelu_norm" takes any
+    Cout from 1 to 64 and any C >= 1 (one slab, ``norm_tile(Cout)``'s, the
+    weights and bias zero-padded to it); "lrelu" and "none" any Cout that is
+    a multiple of 8 and C a multiple of 8. "none" is 3xTF32 on the card
+    (each product three TF32 products of the operands' high and low parts,
+    within ~1e-6 of the output's largest entry of the fp32 sum) and sums
+    every output in a fixed order, so equal inputs give equal bits.
     ``mode``: "high"/"highest" (fp32), "default" (one bf16 pass) or "mid"
     (the 2-term split), every epilogue; both bf16 modes are
     ``packed_conv_bf16`` on the card (Cout in slabs as the fp32 kernels)."""
@@ -684,31 +752,37 @@ def packed_conv(x, w, b, epilogue="lrelu_norm", mode="high"):
     _refuse_grad(name, "conv_lrelu_norm" if epilogue == "lrelu_norm" else "conv_lrelu",
                  x, w, b)
     cout = w.shape[0]
-    _check_cout(name, cout, sliced=epilogue != "lrelu_norm")
-    slab = _pool_slab(cout)
-    _check(name, x, w.shape[1], _tile_rows(slab), 32, w=w, b=b)
+    norm = epilogue == "lrelu_norm"
+    _check_cout(name, cout, sliced=not norm, any_width=norm)
+    # "lrelu_norm": one slab, the tile just above Cout (Cout itself at 8, 16,
+    # 32 and 64), the weights and bias padded to it; else slabs of Cout
+    slab = norm_tile(cout) if norm else _pool_slab(cout)
+    walk = slab if norm else cout  # the Cout the tiling's walk sees
+    _check(name, x, w.shape[1], _tile_rows(slab), 32, any_c=norm, w=w, b=b)
+    if norm:
+        w, b = pad_cout(w, slab), pad_cout(b, slab)
     bsz, c, h, wd = x.shape
     if terms:
         y = torch.empty((bsz, cout, h, wd), device=x.device, dtype=x.dtype)
         wk, b, x = conv_bf16_weights(w, slab), b.contiguous(), _aligned16(x)
-        smem = bf16_ring_bytes(cout)
-        blocks = persistent_blocks(conv_tile_count(bsz, cout, h, wd), _sms(x.device),
+        smem = bf16_ring_bytes(walk)
+        blocks = persistent_blocks(conv_tile_count(bsz, walk, h, wd), _sms(x.device),
                                    ring_blocks_per_sm(smem))
         _bf16_launch(name, terms, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
                      terms, CONV_EPILOGUES[epilogue], blocks, smem, epilogue=epilogue,
-                     slab=slab)
+                     slab=cout if norm else slab)
         return y
     # one slab for Cout 8, 16, 32 or 64: then this is conv_kernel_weights(w)
     wk = convpool_kernel_weights(w)
     b = b.contiguous()
     y = torch.empty((bsz, cout, h, wd), device=x.device, dtype=x.dtype)
     x = _aligned16(x)
-    smem = none_ring_bytes(cout) if epilogue == "none" else conv_ring_bytes(cout)
-    blocks = persistent_blocks(conv_tile_count(bsz, cout, h, wd), _sms(x.device),
+    smem = none_ring_bytes(cout) if epilogue == "none" else conv_ring_bytes(walk)
+    blocks = persistent_blocks(conv_tile_count(bsz, walk, h, wd), _sms(x.device),
                                ring_blocks_per_sm(smem))
     _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
-            CONV_EPILOGUES[epilogue], *conv_tiling(cout), blocks, smem, epilogue=epilogue,
-            slab=slab)
+            CONV_EPILOGUES[epilogue], *conv_tiling(walk), blocks, smem, epilogue=epilogue,
+            slab=cout if norm else slab)
     return y
 
 
@@ -813,8 +887,9 @@ def packed_conv_rgb(x, w, b, rgb_w, rgb_b, rgb_prev, alpha, *,
 
     x [B, C, H, W] fp32, w [Cout, C, 3, 3], b [Cout], rgb_w [3, Cout],
     rgb_b [3], rgb_prev [B, 3, H/2, W/2], alpha a runtime scalar
-    -> NHWC [B, H, W, 3], uint8 or fp32 pre-tanh RGB. On CUDA, Cout is 8,
-    16, 32 or 64, C a multiple of 8, and the kernel runs packed_conv's ring
+    -> NHWC [B, H, W, 3], uint8 or fp32 pre-tanh RGB. On CUDA, Cout is any
+    count from 1 to 64 and C any count >= 1 (``norm_tile(Cout)``'s tile, w,
+    b and rgb_w zero-padded to it), and the kernel runs packed_conv's ring
     ("lrelu_norm"'s tiles and sums, so the same bits) with the toRGB tail as
     its epilogue. ``mode``: "high"/"highest" (fp32, the fp32 ring),
     "default" (one bf16 pass) or "mid" (the 2-term split), toRGB's dot too;
@@ -830,8 +905,9 @@ def packed_conv_rgb(x, w, b, rgb_w, rgb_b, rgb_prev, alpha, *,
                  "torch ops, as models.pro_gan.generator_rgb(packed_mode=...) does",
                  x, w, b, rgb_w, rgb_b, rgb_prev)
     cout = w.shape[0]
-    _check_cout(name, cout)
-    _check(name, x, w.shape[1], _tile_rows(cout), 32, w=w, b=b, rgb_w=rgb_w,
+    _check_cout(name, cout, any_width=True)
+    tile = norm_tile(cout)  # Cout itself at 8, 16, 32 and 64
+    _check(name, x, w.shape[1], _tile_rows(tile), 32, any_c=True, w=w, b=b, rgb_w=rgb_w,
            rgb_b=rgb_b, rgb_prev=rgb_prev)
     bsz, c, h, wd = x.shape
     if tuple(rgb_prev.shape) != (bsz, 3, h // 2, wd // 2):
@@ -839,26 +915,27 @@ def packed_conv_rgb(x, w, b, rgb_w, rgb_b, rgb_prev, alpha, *,
             f"{name}: rgb_prev {tuple(rgb_prev.shape)} must be "
             f"{(bsz, 3, h // 2, wd // 2)}"
         )
+    w, b, rgb_w = pad_cout(w, tile), pad_cout(b, tile), pad_cout(rgb_w.reshape(3, cout), tile, 1)
     b = b.contiguous()
     rgb_b = rgb_b.contiguous()
     rgb_prev = rgb_prev.contiguous()
     out = torch.empty((bsz, h, wd, 3), device=x.device,
                       dtype=torch.uint8 if emit_uint8 else torch.float32)
     if terms:
-        wk, rgb_w = conv_bf16_weights(w), _bf16(rgb_w.reshape(3, cout)).contiguous()
+        wk, rgb_w = conv_bf16_weights(w), _bf16(rgb_w).contiguous()
         x = _aligned16(x)
-        smem = bf16_ring_bytes(cout)
-        blocks = persistent_blocks(conv_tile_count(bsz, cout, h, wd), _sms(x.device),
+        smem = bf16_ring_bytes(tile)
+        blocks = persistent_blocks(conv_tile_count(bsz, tile, h, wd), _sms(x.device),
                                    ring_blocks_per_sm(smem))
         _bf16_launch(name, terms, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),
                      _ptr(rgb_prev), alpha, _ptr(out), int(emit_uint8), bsz, c, h, wd, cout,
                      terms, blocks, smem, slab=cout)
         return out
     wk = conv_kernel_weights(w)
-    rgb_w = rgb_w.reshape(3, cout).contiguous()
+    rgb_w = rgb_w.contiguous()
     x = _aligned16(x)
-    smem = conv_ring_bytes(cout)
-    blocks = persistent_blocks(conv_tile_count(bsz, cout, h, wd), _sms(x.device),
+    smem = conv_ring_bytes(tile)
+    blocks = persistent_blocks(conv_tile_count(bsz, tile, h, wd), _sms(x.device),
                                ring_blocks_per_sm(smem))
     _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(rgb_w), _ptr(rgb_b),
             _ptr(rgb_prev), alpha, _ptr(out), int(emit_uint8), bsz, c, h, wd,

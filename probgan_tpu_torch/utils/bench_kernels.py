@@ -69,7 +69,16 @@ one CUDA card, in parts (``--parts``, all by default):
   ``packed_convpool`` 8 -> 16 and 16 -> 32, and ``packed_conv`` "none" at
   its four shapes in N's train step, at batch 2 and 8, each at "high",
   "default" and "mid", beside ``F.conv2d`` with the torch epilogue (fp32 with
-  TF32 off; on bf16 tensors at "default"; the bf16-rounded weights at "mid").
+  TF32 off; on bf16 tensors at "default"; the bf16-rounded weights at "mid");
+- ``any_width``: the serving path's PixelNorm kernels at the widths of the
+  1024² generators of fmap_base 1024, 512 and 3072 (ROADMAP.md B.a.2.3):
+  ``packed_upconv`` "lrelu_norm" 8 -> 4, 4 -> 2, 24 -> 12 (with toRGB),
+  8 -> 4, 96 -> 48, 48 -> 24, ``packed_conv`` "lrelu_norm" 4 -> 4, 48 -> 48,
+  24 -> 24 and ``packed_conv_rgb`` 4 -> 4, 2 -> 2, 12 -> 12 (uint8 and
+  fp32), and ``packed_conv`` "lrelu_norm" 8 -> 8 at 1024² (the narrow
+  generator N's stage-8 shape), at batch 2 and 8, each at "high", "default"
+  and "mid": ms, ``alone_ms``, the plain twin's ms, cuDNN's ms (the torch
+  epilogue, toRGB, blend and denorm beside it) and the bound.
 
 Each B1 ``packed_upconv``, B2 ``packed_conv`` and B5 ``packed_convpool``
 row of ``bf16``, ``mid``, ``bwd`` and ``narrow`` also gives ``alone_ms``,
@@ -111,7 +120,7 @@ import numpy as np
 import torch
 
 PARTS = ("rank", "none", "fp32", "train", "generate", "fused", "bf16", "mid", "bwd", "narrow",
-         "convpool", "rgb")
+         "convpool", "rgb", "any_width")
 CONV_SHAPES = ((32, 32, 1024), (64, 32, 1024), (64, 64, 512), (128, 64, 512),
                (32, 64, 1024), (64, 128, 512))
 # (label, kernel, epilogue, batch, C, Cout, H, toRGB): the fp32 launches
@@ -241,6 +250,19 @@ CONVPOOL_SHAPES = (
     ("lrelu", 2, 8, 16, 1024), ("lrelu", 2, 16, 32, 512), ("none", 2, 8, 16, 1024),
     ("none", 2, 8, 8, 1024), ("lrelu", 2, 24, 40, 64), ("none", 2, 24, 40, 64),
 )
+# (kernel, epilogue or emit, C, Cout, H): the launches of generate at the
+# widths of T, T2 and O (fmap_base 1024, 512, 3072 at 1024²; B1's H its
+# input's), then B2 "lrelu_norm" 8 -> 8 at 1024²; at batch 2 and 8, each mode
+ANY_WIDTH_SHAPES = (
+    ("packed_upconv", "rgb", 8, 4, 512), ("packed_upconv", "lrelu_norm", 8, 4, 256),
+    ("packed_upconv", "rgb", 4, 2, 512), ("packed_upconv", "lrelu_norm", 96, 48, 128),
+    ("packed_upconv", "lrelu_norm", 48, 24, 256), ("packed_upconv", "rgb", 24, 12, 512),
+    ("packed_conv", "lrelu_norm", 4, 4, 512), ("packed_conv", "lrelu_norm", 48, 48, 256),
+    ("packed_conv", "lrelu_norm", 24, 24, 512), ("packed_conv_rgb", "uint8", 4, 4, 1024),
+    ("packed_conv_rgb", "fp32", 4, 4, 1024), ("packed_conv_rgb", "uint8", 2, 2, 1024),
+    ("packed_conv_rgb", "fp32", 2, 2, 1024), ("packed_conv_rgb", "uint8", 12, 12, 1024),
+    ("packed_conv_rgb", "fp32", 12, 12, 1024), ("packed_conv", "lrelu_norm", 8, 8, 1024),
+)
 # (batch, C, Cout, H): B3's launches, each at "high", "default" and "mid",
 # uint8 and fp32: generate's stages 8 and 7, N's, a ragged C
 RGB_SHAPES = tuple((bsz, *s) for bsz in (2, 8)
@@ -268,8 +290,9 @@ def alone_ms(pk, call, iters: int = 10) -> float:
     """ms of the kernel launches that one ``call`` of a wrapper makes, timed
     alone: the call runs once with ``_build.launch`` recording its arguments
     and with the weights (``conv_bf16_weights``, ``upconv_bf16_weights``,
-    ``_bf16``, ``convpool_kernel_weights``, ``conv_kernel_weights``) it hands
-    the kernel kept alive; then only the recorded launches run in the timed
+    ``_bf16``, ``convpool_kernel_weights``, ``conv_kernel_weights``,
+    ``upconv_kernel_weights`` and, where the tree has it, the zero padding of
+    ``pad_cout``) it hands the kernel kept alive; then only the recorded launches run in the timed
     window. Works on any tree whose wrappers launch through
     ``_build.launch``."""
     from probgan_tpu_torch.ops import _build
@@ -277,7 +300,9 @@ def alone_ms(pk, call, iters: int = 10) -> float:
     real = _build.launch
     recorded, kept = [], []
     patched = {n: getattr(pk, n) for n in ("conv_bf16_weights", "upconv_bf16_weights", "_bf16",
-                                           "convpool_kernel_weights", "conv_kernel_weights")}
+                                           "convpool_kernel_weights", "conv_kernel_weights",
+                                           "pad_cout", "upconv_kernel_weights")
+               if hasattr(pk, n)}
 
     def keep(fn):
         def kept_fn(*args, **kwargs):
@@ -602,6 +627,102 @@ def bench_narrow(pk, dump: Path | None) -> dict:
         bound_ms = max(passes * flops / peak, nbytes / PEAK_HBM_BYTES) * 1e3
         out[label] = {"ms": ms, "library_ms": lib_ms, "bound_ms": bound_ms,
                       "roofline_share": bound_ms / ms, "sha256": digest.hexdigest(), **extra}
+        del x, y, ys, xl
+    return out
+
+
+def bench_any_width(pk, dump: Path | None) -> dict:
+    """ANY_WIDTH_SHAPES at batch 2 and 8, kernel modes "high", "default" and
+    "mid": ms, ``alone_ms``, the plain twin's ms (``plain_ms``), cuDNN's ms
+    (``narrow``'s library calls at the true Cout; B3's ``rgb_library``), the
+    bound (the FLOP and bytes of the true widths) and its share, sha256 of
+    the output's bytes; the outputs saved under ``dump``."""
+    import torch.nn.functional as F
+
+    from probgan_tpu_torch.models import pro_gan
+
+    def lrelu_norm(t):
+        return pro_gan.pixel_norm(pro_gan.lrelu(t.float()))
+
+    out = {}
+    for i, (bsz, mode, (kernel, epi, c, cout, h)) in enumerate(
+            (b, m, s) for b in (2, 8) for m in ("high", "default", "mid")
+            for s in ANY_WIDTH_SHAPES):
+        label = f"{kernel[7:]}_{epi}_C{c}_Cout{cout}_{h}_{mode}_b{bsz}"
+        gen = torch.Generator(device="cuda").manual_seed(2400 + i)
+        x = torch.randn((bsz, c, h, h), device="cuda", generator=gen)
+        w = torch.randn((cout, c, 3, 3), device="cuda", generator=gen) * math.sqrt(2 / (9 * c))
+        b = 0.1 * torch.randn(cout, device="cuda", generator=gen)
+        lib_dtype = torch.bfloat16 if mode == "default" else torch.float32
+        xl, bl = x.to(lib_dtype), b.to(lib_dtype)
+        wl = w.to(torch.bfloat16).to(lib_dtype) if mode != "high" else w
+        wbytes = 4 if mode == "high" else 2  # a weight as the kernel reads it
+        if kernel == "packed_upconv":
+            kw = {}
+            if epi == "rgb":
+                kw = {"rgb_w": torch.randn((3, c), device="cuda", generator=gen) / math.sqrt(c),
+                      "rgb_b": 0.1 * torch.randn(3, device="cuda", generator=gen)}
+
+            def call(x=x, w=w, b=b, kw=kw, mode=mode):
+                return pk.packed_upconv(x, w, b, mode=mode, **kw)
+
+            def plain(x=x, w=w, b=b, kw=kw, mode=mode):
+                return pk.packed_upconv_plain(x, w, b, mode=mode, **kw)
+
+            def library(xl=xl, wl=wl, bl=bl, kw=kw):
+                y = lrelu_norm(F.conv2d(F.interpolate(xl, scale_factor=2.0), wl, bl, padding=1))
+                if kw:
+                    return y, F.conv2d(xl, kw["rgb_w"].to(xl.dtype)[:, :, None, None],
+                                       kw["rgb_b"].to(xl.dtype))
+                return y
+            flops = 2 * 4 * c * cout * bsz * 4 * h * h + (2 * c * 3 * bsz * h * h if kw else 0)
+            nbytes = (4 * (bsz * h * h * (c + 4 * cout + (3 if kw else 0)) + cout)
+                      + wbytes * (9 if mode == "high" else 16) * c * cout)
+        elif kernel == "packed_conv_rgb":
+            u8 = epi == "uint8"
+            alpha = 1.0 if u8 else 0.3
+            rgb_w = torch.randn((3, cout), device="cuda", generator=gen) / math.sqrt(cout)
+            rgb_b = 0.1 * torch.randn(3, device="cuda", generator=gen)
+            prev = 0.5 * torch.randn((bsz, 3, h // 2, h // 2), device="cuda", generator=gen)
+            args = (x, w, b, rgb_w, rgb_b, prev, alpha)
+
+            def call(args=args, u8=u8, mode=mode):
+                return pk.packed_conv_rgb(*args, emit_uint8=u8, mode=mode)
+
+            def plain(args=args, u8=u8, mode=mode):
+                return pk.packed_conv_rgb_plain(*args, emit_uint8=u8, mode=mode)
+            library = rgb_library(mode, x, w, b, rgb_w, rgb_b, prev, alpha, u8)
+            flops = 2 * 9 * c * cout * bsz * h * h + 2 * cout * 3 * bsz * h * h
+            nbytes = (4 * bsz * h * h * (c + 3 / 4) + bsz * h * h * 3 * (1 if u8 else 4)
+                      + wbytes * 9 * c * cout + 4 * (4 * cout + 3))
+        else:
+            def call(x=x, w=w, b=b, mode=mode):
+                return pk.packed_conv(x, w, b, "lrelu_norm", mode=mode)
+
+            def plain(x=x, w=w, b=b, mode=mode):
+                return pk.packed_conv_plain(x, w, b, "lrelu_norm", mode=mode)
+
+            def library(xl=xl, wl=wl, bl=bl):
+                return lrelu_norm(F.conv2d(xl, wl, bl, padding=1))
+            flops = 2 * 9 * c * cout * bsz * h * h
+            nbytes = 4 * (bsz * h * h * (c + cout) + cout) + wbytes * 9 * c * cout
+        with torch.no_grad():
+            y = call()
+            torch.cuda.synchronize()
+            ys = y if isinstance(y, tuple) else (y,)
+            digest = hashlib.sha256()
+            for t in ys:
+                digest.update(t.cpu().numpy().tobytes())
+            if dump is not None:
+                torch.save([t.cpu() for t in ys], dump / f"any_width_{label}.pt")
+            ms = cuda_ms(call, iters=10)
+            extra = {"alone_ms": alone_ms(pk, call), "plain_ms": cuda_ms(plain, iters=5),
+                     "library_ms": cuda_ms(library, iters=10)}
+        peak, passes = ((PEAK_FP32_FLOPS, 1) if mode == "high"
+                        else (PEAK_BF16_FLOPS, 2 if mode == "mid" else 1))
+        bound_ms = max(passes * flops / peak, nbytes / PEAK_HBM_BYTES) * 1e3
+        out[label] = {"ms": ms, "bound_ms": bound_ms, "roofline_share": bound_ms / ms,
+                      "sha256": digest.hexdigest(), **extra}
         del x, y, ys, xl
     return out
 
@@ -1005,6 +1126,9 @@ def main(argv=None) -> int:
 
     if "rgb" in parts:
         out["rgb"] = bench_rgb(pk, args.dump)
+
+    if "any_width" in parts:
+        out["any_width"] = bench_any_width(pk, args.dump)
 
     if "fused" in parts:
         from probgan_tpu_torch.engine import image as engine_mod

@@ -20,11 +20,15 @@ against the JAX package on the same numpy inputs.
   card): the bf16 weight layouts with zeros past C, the shared-memory bytes
   against the kernels' own arithmetic (csrc/conv_ring.cuh,
   csrc/bf16_ring.cuh), two ring blocks an SM, the launches counted under
-  ``narrow_launches``; Cout 4 (at every epilogue, "none" and the
-  stage-fused kernels too) and a PixelNorm Cout of 24 raise ValueError
-  before any launch ("none" at slabs of 16 and 8 is held in
+  ``narrow_launches``; what still raises ValueError before any launch,
+  naming ROADMAP.md B.a.2.4: Cout 4 in B2 "lrelu"/"none", B5 and B1
+  "lrelu", Cout 24 and 4 in the stage-fused B10, PixelNorm at 128
+  channels and B1 "lrelu" at Cout 12. B1 "lrelu_norm" at Cout 4 and B2
+  "lrelu_norm" at Cout 24, refused before B.a.2.3, launch now (on the tiles
+  of 8 and 32; tests/test_torch_any_width.py holds them at every width of
+  that item). "none" at slabs of 16 and 8 is held in
   tests/test_torch_narrow_backward.py, the stage-fused kernels at 16 and 8
-  in tests/test_torch_stage_fused_narrow.py).
+  in tests/test_torch_stage_fused_narrow.py.
 """
 
 import jax.numpy as jnp
@@ -238,9 +242,11 @@ def test_narrow_wrappers_launch_the_narrow_kernels(recorded):
      "Cout=4 below 8"),
     (lambda: tpk.packed_convpool(_meta(1, 16, 16, 32), _meta(4, 16, 3, 3), _meta(4)),
      "Cout=4 below 8"),
-    (lambda: tpk.packed_upconv(_meta(1, 16, 16, 16), _meta(4, 16, 3, 3), _meta(4)),
+    (lambda: tpk.packed_upconv(_meta(1, 16, 16, 16), _meta(4, 16, 3, 3), _meta(4),
+                               epilogue="lrelu"),
      "Cout=4 below 8"),
-    (lambda: tpk.packed_conv(_meta(1, 16, 16, 32), _meta(24, 16, 3, 3), _meta(24)),
+    (lambda: tpk.packed_upconv_conv(_meta(1, 16, 8, 16), _meta(24, 16, 3, 3), _meta(24),
+                                    _meta(24, 24, 3, 3), _meta(24)),
      r"Cout=24 not in \(8, 16, 32, 64\)"),
     (lambda: tpk.packed_conv(_meta(1, 16, 16, 32), _meta(4, 16, 3, 3), _meta(4), "none"),
      "ROADMAP.md"),
@@ -248,11 +254,39 @@ def test_narrow_wrappers_launch_the_narrow_kernels(recorded):
                                  mode="mid"), "ROADMAP.md"),
     (lambda: tpk.packed_upconv_conv(_meta(1, 8, 8, 16), _meta(4, 8, 3, 3), _meta(4),
                                     _meta(4, 4, 3, 3), _meta(4)), "ROADMAP.md"),
+    (lambda: tpk.packed_conv(_meta(1, 16, 8, 32), _meta(128, 16, 3, 3), _meta(128)),
+     "PixelNorm above 64"),
+    (lambda: tpk.packed_upconv(_meta(1, 16, 16, 16), _meta(12, 16, 3, 3), _meta(12),
+                               epilogue="lrelu"), "Cout=12 not in"),
 ])
 def test_narrow_wrappers_refuse_what_is_not_ported(recorded, call, match):
-    with torch.no_grad(), pytest.raises(ValueError, match=match):
+    """Each refusal raises before any launch and names B.a.2.4."""
+    with torch.no_grad(), pytest.raises(ValueError, match=match) as refused:
         call()
+    assert "ROADMAP.md, B.a.2.4" in str(refused.value)
     assert not recorded
+
+
+@pytest.mark.parametrize("call,cout,tile,key", [
+    (lambda: tpk.packed_upconv(_meta(1, 16, 16, 16), _meta(4, 16, 3, 3), _meta(4)),
+     4, 8, "packed_upconv[cout4]"),
+    (lambda: tpk.packed_conv(_meta(1, 16, 16, 32), _meta(24, 16, 3, 3), _meta(24)),
+     24, 32, "packed_conv[cout24]"),
+])
+def test_narrow_wrappers_launch_what_was_refused(recorded, call, cout, tile, key):
+    """B1 "lrelu_norm" at Cout 4 and B2 "lrelu_norm" at Cout 24 (refused
+    before B.a.2.3) launch on the tile above Cout with the true Cout, counted
+    under narrow_launches by it."""
+    with torch.no_grad():
+        y = call()
+    assert y.shape[1] == cout
+    ((name, args),) = recorded
+    assert name in ("packed_upconv", "packed_conv")
+    if name == "packed_upconv":  # (..., cout, epilogue, blocks, smem)
+        assert args[-4:-2] == (cout, 0) and args[-1] == tpk.upconv_ring_bytes(tile)
+    else:  # (..., cout, epilogue, o_slab, rows, blocks, smem)
+        assert args[-6:-2] == (cout, 0, tile, 16) and args[-1] == tpk.conv_ring_bytes(tile)
+    assert tpk.narrow_launches == {key: 1}
 
 
 def test_narrow_layouts_and_shared_memory(recorded):
