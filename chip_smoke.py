@@ -286,10 +286,12 @@ Phases (any failure exits non-zero and prints no result line):
     the unpacked path; the PSNR of "fast" against "high" is a reading;
     img/s, p50), ``latent_walk`` (frames equal to ``generate``'s) and
     ``score`` at "high" and "fast" (launches, logits within 1e-4 of the
-    twins', scores/s, p50); Cout 4 in B2 "lrelu" and "none", B5, B1
-    "lrelu" and the stage-fused ``packed_upconv_conv``, and Cout 24 in
-    ``packed_upconv_conv_rgb``, raise ValueError on the card naming
-    ROADMAP.md B.a.2.4, and ``packed_upconv_conv`` at 16 channels launches;
+    twins', scores/s, p50); Cout 4 in the stage-fused
+    ``packed_upconv_conv`` and Cout 24 in ``packed_upconv_conv_rgb`` raise
+    ValueError on the card naming ROADMAP.md B.a.2.4, and
+    ``packed_upconv_conv`` at 16 channels launches (Cout 4 in B2 "lrelu"
+    and "none", B5 and B1 "lrelu", refused before the training half of
+    B.a.2.4, launch in phase 23);
 17. the narrow backward at N: ``packed_conv`` "none" 8 -> 8 and 16 -> 8 at
     1024², 16 -> 16 and 32 -> 16 at 512² (slabs of 8 and 16) and
     ``packed_convpool`` "none" 8 -> 16 at 1024² (and 8 -> 8, a slab of 8 on
@@ -415,7 +417,28 @@ Phases (any failure exits non-zero and prints no result line):
     stage 7 through B1 8 -> 4 and B3 4 -> 4, and writes a checkpoint the port
     loads. ``python3 chip_smoke.py --phase 22`` runs phase 1 and this phase
     alone and prints its kernels line;
-23. the last lines: the card's name and power limit, one JSON line with each
+23. the training backward at any width (the training half of ROADMAP.md
+    B.a.2.4): B1 "lrelu", B2 "lrelu" and "none", B5 "none" (and "lrelu",
+    D's, on no path at these widths) and B6 at every (C, Cout) of T, T2 and
+    O's packed train step that the card refused before, batch 2, at "high",
+    "default" and "mid" (B6 fp32 and "default"), against their twins by
+    phase 17's bounds, two runs bit-equal, timed beside the bound and the
+    library call (entries "<counter>[<epilogue>,any_width]"); the
+    recompute's bits at O's 48 and 24 and T's 4 ("lrelu" on its slab equal
+    to "lrelu" on the forward's tile, its sign mask to the "lrelu_norm"
+    forward's: 0 values differing); the four Functions at the new pairs on
+    the kernels against the same Functions on the twins; ``progan_train_step
+    (packed_g=True, packed_d=True)`` at T, T2 and O, 1024², stage 8, batch 2,
+    remat, at "highest", "default" with dtype bf16 and (O) "mid": the
+    launches a step at the new widths, finite losses, the gradients against
+    the same step on the twins by phases 9, 13 and 14 beside the step's
+    spread against itself (cuDNN deterministic on and off), steps/s, p50 and
+    peak memory; the image trainer CLI at 512², fmap_base 512, fmap_max 64
+    with ``--fast`` and with ``--packed_g --packed_mode high`` (stage 7's G
+    backward at 8 -> 4), a checkpoint the port loads; under
+    ``PROBGAN_STAGE_FUSED=1`` ``generate`` at T raises before any launch.
+    ``python3 chip_smoke.py --phase 23`` runs phase 1 and this phase alone;
+24. the last lines: the card's name and power limit, one JSON line with each
     kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -4678,33 +4701,27 @@ def phase_narrow_kernels(pk, pro_gan, cases=NARROW_CASES, batches=(BATCH_MAIN,),
 
 def phase_narrow_refusals(pk) -> dict:
     """What the card still refuses at N's widths, each a ValueError that
-    names the Cout and ROADMAP.md B.a.2.4, before any launch: Cout 4 in B2
-    "lrelu" and "none", B5 and B1 "lrelu", and in the stage-fused B10 and
-    B11 (Cout 24 too). "none" at slabs of 16 and 8 and the packed train step
-    at N run: phase 17; B10 at 16 channels, refused before B.a.2.2, launches
-    now (phase 18 holds its bits); B1 "lrelu_norm" at Cout 4 and the
-    PixelNorm B2 and B3 at Cout 24, refused before B.a.2.3, launch now
-    (phase 22 holds them)."""
+    names the Cout and ROADMAP.md B.a.2.4, before any launch: Cout 4 in the
+    stage-fused B10 and Cout 24 in B11. "none" at slabs of 16 and 8 and the
+    packed train step at N run: phase 17; B10 at 16 channels, refused before
+    B.a.2.2, launches now (phase 18 holds its bits); B1 "lrelu_norm" at Cout
+    4 and the PixelNorm B2 and B3 at Cout 24, refused before B.a.2.3, launch
+    now (phase 22 holds them); Cout 4 in B2 "lrelu" and "none", B5 and B1
+    "lrelu", refused before the training half of B.a.2.4, launch now (phase
+    23 holds them)."""
     dev = "cuda"
     x16 = torch.randn((1, 16, 32, 32), device=dev)
     x8 = torch.randn((1, 8, 16, 32), device=dev)
-    w = {n: torch.randn((n, 16, 3, 3), device=dev) for n in (4, 16, 24)}
+    w24 = torch.randn((24, 16, 3, 3), device=dev)
     b = {n: torch.zeros(n, device=dev) for n in (4, 16, 24)}
     cases = {
-        "packed_conv Cout 4": (lambda: pk.packed_conv(x16, w[4], b[4], "lrelu"), "Cout=4"),
-        "packed_conv none Cout 4": (lambda: pk.packed_conv(x16, w[4], b[4], "none"), "Cout=4"),
-        "packed_convpool Cout 4": (lambda: pk.packed_convpool(x16, w[4], b[4]), "Cout=4"),
-        "packed_convpool none Cout 4": (
-            lambda: pk.packed_convpool(x16, w[4], b[4], "none", mode="default"), "Cout=4"),
-        "packed_upconv lrelu Cout 4": (
-            lambda: pk.packed_upconv(x16, w[4], b[4], epilogue="lrelu"), "Cout=4"),
         "packed_upconv_conv Cout 4": (
             lambda: pk.packed_upconv_conv(x8, torch.randn((4, 8, 3, 3), device=dev), b[4],
                                           torch.randn((4, 4, 3, 3), device=dev), b[4]),
             "Cout=4"),
         "packed_upconv_conv_rgb Cout 24": (
             lambda: pk.packed_upconv_conv_rgb(
-                x16, w[24], b[24], torch.randn((24, 24, 3, 3), device=dev), b[24],
+                x16, w24, b[24], torch.randn((24, 24, 3, 3), device=dev), b[24],
                 torch.zeros((3, 24), device=dev), torch.zeros(3, device=dev),
                 torch.zeros((3, 16), device=dev), torch.zeros(3, device=dev), 1.0), "Cout=24"),
     }
@@ -7320,6 +7337,561 @@ def phase_any_width_path(pk, pro_gan, engine_mod, cli_train,
     return counts, path
 
 
+# Phase 23: the training half of B.a.2.4: the packed train step's backward
+# at the widths of T, T2 and O (phase 22's generators), whose packed stages
+# 6-8 run B1 "lrelu" (the pre-norm recompute), B2 "lrelu" (the recompute)
+# and "none" (conv2's input gradient), B5 "none" (the upconv's input
+# gradient) and B6 (both weight gradients) at a Cout of 2, 4 or 12 or an
+# input C that is no multiple of 8; B1 "lrelu" also at 48 and 24 (O's
+# stages 6 and 7), on the tile of the forward's "lrelu_norm". The sliced
+# kernels run the slab of Cout rounded up to 8, the weights zero-padded.
+ANY_BWD_MODES = ("high", "default", "mid")
+# (kernel, epilogue, C, Cout, H) of every call the card refused before this
+# item at T, T2 and O, batch 2 (B1's H is its input's; B5's C its input's,
+# the cotangent's channels, and its Cout the upconv's input channels)
+ANY_BWD_CASES = (
+    ("packed_upconv", "lrelu", 8, 4, 512),  # T, stage 8
+    ("packed_upconv", "lrelu", 8, 4, 256),  # T2, stage 7
+    ("packed_upconv", "lrelu", 4, 2, 512),  # T2, stage 8
+    ("packed_upconv", "lrelu", 96, 48, 128),  # O, stage 6
+    ("packed_upconv", "lrelu", 48, 24, 256),  # O, stage 7
+    ("packed_upconv", "lrelu", 24, 12, 512),  # O, stage 8
+    ("packed_conv", "lrelu", 4, 4, 1024), ("packed_conv", "none", 4, 4, 1024),  # T, stage 8
+    ("packed_conv", "lrelu", 4, 4, 512), ("packed_conv", "none", 4, 4, 512),  # T2, stage 7
+    ("packed_conv", "lrelu", 2, 2, 1024), ("packed_conv", "none", 2, 2, 1024),  # T2, stage 8
+    ("packed_conv", "lrelu", 12, 12, 1024), ("packed_conv", "none", 12, 12, 1024),  # O, stage 8
+    ("packed_convpool", "none", 4, 8, 1024),  # T, stage 8
+    ("packed_convpool", "none", 4, 8, 512),  # T2, stage 7
+    ("packed_convpool", "none", 2, 4, 1024),  # T2, stage 8
+    ("packed_convpool", "none", 12, 24, 1024),  # O, stage 8
+    # B5 "lrelu" (D's conv2): the same kernel, on no path at these widths
+    ("packed_convpool", "lrelu", 4, 4, 1024), ("packed_convpool", "lrelu", 12, 12, 1024),
+)
+# B6's (C, Cout, H) of the same steps: each stage's (C upsampled, Cout) and
+# (Cout, Cout)
+ANY_BWD_WGRAD = ((8, 4, 1024), (4, 4, 1024), (8, 4, 512), (4, 4, 512), (4, 2, 1024),
+                 (2, 2, 1024), (24, 12, 1024), (12, 12, 1024))
+# "lrelu" recompute against the "lrelu_norm" forward: (C, Cout, H)
+ANY_BWD_RECOMPUTE = ((48, 48, 256), (24, 24, 512), (4, 4, 1024))
+# the four Functions at the new pairs: (name, C, Cout, H, input PixelNorm'd)
+ANY_BWD_FUNCTIONS = (("upconv_lrelu_norm", 8, 4, 512, True), ("conv_lrelu_norm", 4, 4, 1024, True),
+                     ("upconv_lrelu_norm", 4, 2, 512, True), ("conv_lrelu_norm", 2, 2, 1024, True),
+                     ("upconv_lrelu_norm", 24, 12, 512, True),
+                     ("conv_lrelu_norm", 12, 12, 1024, True),
+                     ("conv_lrelu", 12, 12, 1024, False), ("convpool_lrelu", 4, 4, 1024, False))
+ANY_BWD_ITERS = 5
+ANY_BWD_TIMED_STEPS = 3
+ANY_BWD_STEP_MODES = {"T": ("highest", "default"), "T2": ("highest", "default"),
+                      "O": ("highest", "default", "mid")}
+ANY_BWD_TRAINER = ["--synthetic", "4", "--batch_size", "2", "--epochs_per_stage", "1",
+                   "--resolution", "512", "--fmap_base", "512", "--fmap_max", "64",
+                   "--checkpoint_minutes", "0", "--device", "cuda"]
+
+
+def any_width_bwd_key(pk, kernel: str, epilogue, c: int, cout: int):
+    """"<kernel>[<epilogue>]" (B6: "packed_conv_wgrad") of a backward call
+    that the card took only since this item, else None: B1 "lrelu" at a
+    Cout that is no tile's width, B2 "lrelu"/"none", B5 and B6 at a C or
+    Cout that is no multiple of 8."""
+    if kernel == "packed_upconv":
+        new = epilogue == "lrelu" and cout not in pk.SUPPORTED_COUT
+    else:
+        new = epilogue != "lrelu_norm" and (c % 8 or cout % 8)
+    if not new:
+        return None
+    return kernel if epilogue is None else f"{kernel}[{epilogue}]"
+
+
+def any_width_bwd_kind(entry: str) -> str:
+    """An entry's kernel and epilogue at any mode: "packed_conv[none]", or
+    "packed_conv_wgrad"."""
+    base, _, rest = entry.partition("[")
+    base = base.removesuffix("_bf16").removesuffix("_mid")
+    return base if base == "packed_conv_wgrad" else f"{base}[{rest.split(',')[0]}]"
+
+
+@contextlib.contextmanager
+def any_width_bwd_spy(pk, seen: dict):
+    """Inside, each call of B1 "lrelu", B2, B5 and B6 that launches at a
+    width the card took only since this item is counted in ``seen`` by
+    (entry name at the call's mode, (C, Cout))."""
+    names = ("packed_upconv", "packed_conv", "packed_convpool", "packed_conv_wgrad")
+    real = {name: getattr(pk, name) for name in names}
+
+    defaults = {"packed_upconv": "lrelu_norm", "packed_conv": "lrelu_norm",
+                "packed_convpool": "lrelu", "packed_conv_wgrad": None}
+
+    def spy_of(name):
+        def spy(x, w, *args, **kwargs):
+            out = real[name](x, w, *args, **kwargs)
+            if name == "packed_conv_wgrad":  # (x, dpre, mode)
+                cout, mode = w.shape[1], kwargs.get("mode", args[0] if args else "highest")
+                epilogue = None
+            else:  # (x, w, b, epilogue, mode)
+                cout, mode = w.shape[0], kwargs.get("mode", "high")
+                epilogue = kwargs.get("epilogue", args[1] if len(args) > 1 else defaults[name])
+            kind = any_width_bwd_key(pk, name, epilogue, x.shape[1], cout)
+            if kind is not None:
+                key = (any_width_bwd_entry(kind, mode), (x.shape[1], cout))
+                seen[key] = seen.get(key, 0) + 1
+            return out
+        return spy
+
+    try:
+        for name in names:
+            setattr(pk, name, spy_of(name))
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(pk, name, fn)
+
+
+def any_width_bwd_entry(kernel: str, mode: str) -> str:
+    """The kernels line's entry of a call at ``mode`` ("high"/"highest",
+    "default", "mid"): "<counter>[<epilogue>,any_width]"; B6 at "mid" runs
+    its fp32 kernel."""
+    base, _, epi = kernel.partition("[")
+    kmode = {"highest": "high", "high": "high"}.get(mode, mode)
+    if base == "packed_conv_wgrad":
+        return f"{base}{'_bf16' if kmode == 'default' else ''}[any_width]"
+    return f"{_counter(base, kmode)}[{epi.rstrip(']')},any_width]"
+
+
+def phase_any_width_bwd_kernels(pk, packed_vjp, pro_gan) -> tuple[list[dict], dict]:
+    """B1 "lrelu", B2 "lrelu" and "none", B5 "none" (and "lrelu") and B6 at
+    every (C, Cout) of T, T2 and O's backward that the card refused before,
+    batch 2, at "high", "default" and "mid" (B6: its fp32 kernel and
+    "default") against their twins by phase 17's bounds: fp32 "none"
+    NONE_REL of the largest entry, the fp32 rings ("lrelu", B5) 1e-4,
+    "default" DEFAULT_BWD_REL, "mid" GRADE_REL, B6 WGRAD_REL; two runs
+    bit-equal; each timed beside the bound and the library call (F.conv2d
+    with the torch epilogue, after a nearest-2x upsample for B1, with
+    avg_pool2d for B5; conv2d_weight for B6). The recompute's bits: at
+    O's 48 -> 48 and 24 -> 24 and T's 4 -> 4, "lrelu" on its slab against
+    "lrelu" on the forward's tile (0 values differing), its sign mask
+    against the "lrelu_norm" forward's (0), and pixel_norm of it against
+    that forward. The four Functions at the new pairs on the kernels against
+    the same Functions on the twins at "highest", "mid" and "default"."""
+    gen = torch.Generator(device="cuda").manual_seed(2525)
+    dev, bf, B = "cuda", torch.bfloat16, TRAIN_BATCH
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    def conv_w(cout, cin):
+        return randn(cout, cin, 3, 3) * math.sqrt(2.0 / (9 * cin))
+
+    def lib_operands(mode, x, w):
+        if mode == "default":
+            return x.to(bf), w.to(bf)
+        return (x, pk._bf16(w)) if mode == "mid" else (x, w)
+
+    rows = {}
+    for mode in ANY_BWD_MODES:
+        terms = pk.BF16_TERMS.get(mode, 0)
+        for kernel, epi, c, cout, h in ANY_BWD_CASES:
+            pool, up = kernel == "packed_convpool", kernel == "packed_upconv"
+            label = f"{kernel}[{mode},{epi},{c}->{cout}@{h}]"
+            x = randn(B, c, h, h)
+            x = pro_gan.pixel_norm(x) if up else x
+            w = conv_w(cout, c)
+            b = 0.1 * randn(cout) if epi == "lrelu" else torch.zeros(cout, device=dev)
+            kfn, pfn = getattr(pk, kernel), getattr(pk, f"{kernel}_plain")
+            kw = {"epilogue": epi, "mode": mode}
+
+            def fn(x=x, w=w, b=b, kfn=kfn, kw=kw):
+                return kfn(x, w, b, **kw)
+
+            def plain(x=x, w=w, b=b, pfn=pfn, kw=kw):
+                return pfn(x, w, b, **kw)
+
+            def library(x=x, w=w, b=b, pool=pool, up=up, epi=epi, mode=mode):
+                xl, wl = lib_operands(mode, x, w)
+                if up:
+                    xl = F.interpolate(xl, scale_factor=2.0, mode="nearest")
+                y = F.conv2d(xl, wl, b.to(xl.dtype), padding=1).float()
+                y = pro_gan.lrelu(y) if epi == "lrelu" else y
+                return F.avg_pool2d(y, 2) if pool else y
+
+            pk.reset_launches()
+            got = fn()
+            launched = {k: v for k, v in pk.narrow_launches.items() if v}
+            check_two_runs(label, got, fn())
+            want = plain()
+            if tuple(got.shape) != tuple(want.shape) or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{label}: {tuple(got.shape)} vs {tuple(want.shape)}, or "
+                                     "not finite")
+            if mode == "default":
+                err = check_rel(label, got, want, rel=DEFAULT_BWD_REL)
+            elif mode == "mid":
+                err = check_rel(label, got, want, rel=GRADE_REL)
+            elif epi == "none" and not pool:  # the 3xTF32 kernel
+                err = scaled_err(label, got, want, NONE_REL)
+            else:  # the fp32 rings
+                torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+                err = (got - want).abs().max().item()
+            if up:
+                flops = 2 * 4 * c * cout * B * 4 * h * h
+                nbytes = 4 * (B * c * h * h + B * cout * 4 * h * h + cout) + (
+                    4 if mode == "high" else 2) * 16 * c * cout
+            else:
+                flops = 2 * 9 * c * cout * B * h * h
+                nbytes = (4 * (B * c * h * h + B * cout * h * h // (4 if pool else 1) + cout)
+                          + (4 if mode == "high" else 2) * 9 * c * cout)
+            if mode != "high":
+                peak, op_flops = PEAK_BF16_FLOPS, terms * flops
+            elif epi == "none" and not pool:
+                peak, op_flops = PEAK_TF32_FLOPS, 3 * flops
+            else:
+                peak, op_flops = PEAK_FP32_FLOPS, flops
+            entry = any_width_bwd_entry(f"{kernel}[{epi}]", mode)
+            source = kernel + ("" if mode == "high" else "_bf16")
+            rows.setdefault(entry, (source, NARROW_SOURCES[kernel], []))[2].append({
+                "call": f"{epi} C{c}->Cout{cout}@{h}", "shape_in": [B, c, h, h],
+                "max_abs_err": err, "max_abs_err_share_of_largest": err / want.abs().max().item(),
+                "bit_equal_runs": True, "narrow_launches": launched,
+                "ms": cuda_ms(fn, ANY_BWD_ITERS), "plain_ms": cuda_ms(plain, ANY_BWD_ITERS),
+                "library_ms": cuda_ms(library, ANY_BWD_ITERS), "flops": flops,
+                "op_flops": op_flops, "bytes": nbytes, "peak_flops": peak,
+            })
+            del x, got, want
+        torch.cuda.empty_cache()
+
+    for mode in ("high", "default"):
+        for c, cout, h in ANY_BWD_WGRAD:
+            label = f"packed_conv_wgrad[{mode},{c}->{cout}@{h}]"
+            x, g = pro_gan.lrelu(randn(B, c, h, h)), 0.01 * randn(B, cout, h, h)
+            pk.reset_launches()
+            got = pk.packed_conv_wgrad(x, g, mode=mode)
+            launched = {k: v for k, v in pk.narrow_launches.items() if v}
+            again = pk.packed_conv_wgrad(x, g, mode=mode)
+            torch.cuda.synchronize()
+            if tuple(got.shape) != (cout, c, 3, 3) or differing_bits(got, again):
+                raise AssertionError(f"{label}: wrong shape, or two runs differ")
+            want = pk.packed_conv_wgrad_plain(x, g, mode=mode)
+            err = check_rel(label, got, want, rel=WGRAD_REL)
+
+            def library(x=x, g=g, c=c, cout=cout, mode=mode):
+                if mode == "default":
+                    x, g = x.to(bf), g.to(bf)
+                return torch.nn.grad.conv2d_weight(x, (cout, c, 3, 3), g, padding=1)
+
+            flops = 2 * 9 * c * cout * B * h * h
+            entry = any_width_bwd_entry("packed_conv_wgrad", mode)
+            rows.setdefault(entry, (entry.split("[")[0], "probgan_tpu/ops/pallas_packed.py:558",
+                                    []))[2].append({
+                "call": f"C{c}->Cout{cout}@{h}", "shape_in": [B, c, h, h], "max_abs_err": err,
+                "max_abs_err_share_of_largest": err / want.abs().max().item(),
+                "bit_equal_runs": True, "narrow_launches": launched,
+                "ms": cuda_ms(lambda x=x, g=g, mode=mode: pk.packed_conv_wgrad(x, g, mode=mode),
+                              ANY_BWD_ITERS),
+                "plain_ms": cuda_ms(lambda x=x, g=g, mode=mode:
+                                    pk.packed_conv_wgrad_plain(x, g, mode=mode), iters=2,
+                                    warmup=1),
+                "library_ms": cuda_ms(library, ANY_BWD_ITERS), "flops": flops,
+                "op_flops": 3 * flops if mode == "high" else flops,
+                "bytes": 4 * (B * h * h * (c + cout) + 9 * c * cout),
+                "peak_flops": PEAK_TF32_FLOPS if mode == "high" else PEAK_BF16_FLOPS,
+            })
+            del x, g, got, again, want
+    torch.cuda.empty_cache()
+
+    # -- the recompute's bits: "lrelu" on its slab vs the forward's tile
+    recompute = {}
+    for mode in ANY_BWD_MODES:
+        for c, cout, h in ANY_BWD_RECOMPUTE:
+            x = pro_gan.pixel_norm(randn(B, c, h, h))
+            w, b = conv_w(cout, c), 0.1 * randn(cout)
+            fwd = pk.packed_conv(x, w, b, "lrelu_norm", mode=mode)
+            u = pk.packed_conv(x, w, b, "lrelu", mode=mode)
+            tile = pk.norm_tile(cout)
+            u_tile = pk.packed_conv(x, pk.pad_cout(w, tile), pk.pad_cout(b, tile), "lrelu",
+                                    mode=mode)[:, :cout]
+            torch.cuda.synchronize()
+            rec = {"slab": pk._pool_slab(pk.sliced_cout(cout)), "forward_tile": tile,
+                   "slab_vs_tile_differing": differing_bits(u, u_tile.contiguous()),
+                   "sign_mask_differing": int(((u >= 0) != (fwd >= 0)).sum().item()),
+                   "pixel_norm_vs_forward_differing": differing_bits(pro_gan.pixel_norm(u), fwd),
+                   "pixel_norm_vs_forward_rel": ((pro_gan.pixel_norm(u) - fwd).abs().max()
+                                                 / fwd.abs().max()).item()}
+            recompute[f"{mode},{c}->{cout}@{h}"] = rec
+            print(f"  recompute packed_conv[{mode},lrelu] {c}->{cout}@{h} on a slab of "
+                  f"{rec['slab']} vs the forward's tile of {tile}: {rec['slab_vs_tile_differing']} "
+                  f"values differ; sign mask vs the lrelu_norm forward: "
+                  f"{rec['sign_mask_differing']} differ; torch pixel_norm of it vs the forward: "
+                  f"{rec['pixel_norm_vs_forward_rel']:.3g} of the largest entry "
+                  f"({rec['pixel_norm_vs_forward_differing']} values' bits differ: another "
+                  "order of the sum of squares)")
+            if rec["slab_vs_tile_differing"] or rec["sign_mask_differing"]:
+                raise AssertionError(f"recompute at {mode}, {c}->{cout}@{h}: {rec}")
+            if rec["pixel_norm_vs_forward_rel"] > (1e-4 if mode == "high" else GRADE_REL):
+                raise AssertionError(f"recompute at {mode}, {c}->{cout}@{h}: pixel_norm of it "
+                                     f"is not the forward: {rec}")
+            del x, fwd, u, u_tile
+    torch.cuda.empty_cache()
+
+    # -- the four Functions at the new pairs, kernels vs twins
+    def vjp(fn, x, w, b, cot, mode):
+        x, w, b = (t.clone().requires_grad_(True) for t in (x, w, b))
+        y = fn(x, w, b, mode=mode)
+        return (y.detach(), *torch.autograd.grad(y, (x, w, b), cot))
+
+    fn_errs = {}
+    for mode in ("highest", "mid", "default"):
+        for name, c, cout, h, norm_in in ANY_BWD_FUNCTIONS:
+            x = randn(B, c, h, h)
+            x = pro_gan.pixel_norm(x) if norm_in else pro_gan.lrelu(x)
+            w, b = conv_w(cout, c), 0.1 * randn(cout)
+            fn = getattr(packed_vjp, name)
+            with torch.no_grad():
+                cot = torch.randn(fn(x, w, b, mode=mode).shape, device=dev, generator=gen)
+            pk.reset_launches()
+            got = vjp(fn, x, w, b, cot, mode)
+            launched = {k: v for k, v in pk.narrow_launches.items() if v}
+            with swap_in_plain_twins(pk, PACKED_KERNELS):
+                want = vjp(fn, x, w, b, cot, mode)
+            rel = GRAD_REL if mode == "highest" else DEFAULT_FN_REL
+            flips = int(((got[0] >= 0) != (want[0] >= 0)).sum().item())
+            fn_errs[f"{name}[{mode}] {c}->{cout}@{h}"] = errs = [
+                check_rel(f"packed_vjp.{name}[{mode}] {c}->{cout} {part} vs the twins", g, t,
+                          flips=part == "dx", rel=rel, flip_share=DEFAULT_FN_FLIP_SHARE,
+                          flip_rel=DEFAULT_FN_FLIP_REL)
+                for part, g, t in zip(("y", "dx", "dw", "db"), got, want)]
+            print(f"  packed_vjp.{name}[{mode}] C{c}->Cout{cout}@{h} vs the same Function on "
+                  f"the twins: y {errs[0]:.3g}  dx {errs[1]:.3g}  dw {errs[2]:.3g}  db "
+                  f"{errs[3]:.3g} of the largest entry; output signs differing {flips}; "
+                  f"narrow launches {launched}")
+            del x, cot, got, want
+    pk.reset_launches()
+    torch.cuda.empty_cache()
+    entries = assemble_conv_rows([(name, src, rep, calls)
+                                  for name, (src, rep, calls) in rows.items()], B)
+    return entries, {"recompute": recompute, "functions_vs_twins_y_dx_dw_db": fn_errs}
+
+
+def phase_any_width_train(pk, pro_gan, train_mod, tree_mod) -> tuple[dict, dict]:
+    """progan_train_step(packed_g=True, packed_d=True) at T, T2 and O, 1024²,
+    stage 8, batch 2, remat: at "highest" and at "default" with dtype bf16,
+    and at "mid" at O. Each run: the launches a step (the counters, and the
+    calls the card took only since this item by entry and (C, Cout)); the
+    raw gradients on the kernels against the same step on the plain twins
+    by phases 9 and 13 (every leaf within STEP_GRAD_REL of its largest
+    entry) and 14 ("default": relative L2 DEFAULT_GRAD_L2, cosine
+    DEFAULT_GRAD_COS), beside the step's spread against itself (cuDNN
+    deterministic on and off); finite losses; steps/s, p50 and peak memory
+    over ANY_BWD_TIMED_STEPS steps."""
+    tree_leaves = tree_mod.tree_leaves
+    B, stage, alpha = TRAIN_BATCH, TRAIN_STAGE, 0.5
+    kw = dict(packed_d=True, packed_g=True, remat=True)
+    counts, out = {}, {}
+    for name, modes in ANY_BWD_STEP_MODES.items():
+        cfg = pro_gan.ProGANConfig(resolution=1024, fmap_base=ANY_WIDTH_CONFIGS[name])
+        if ([cfg.nf(s) for s in (6, 7, 8)] != ANY_WIDTH_NF[name]
+                or pro_gan.packed_start_stage(cfg, stage) != 6):
+            raise AssertionError(f"{name}: stages 6-8 are not {ANY_WIDTH_NF[name]} on the kernels")
+        state = train_mod.progan_init_state(0, cfg, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(2323)
+        real = torch.tanh(torch.randn((B, 1024, 1024, 3), device="cuda", generator=gen))
+        z = torch.randn((B, cfg.latent_dim), device="cuda", generator=gen)
+        rec = {"fmap_base": ANY_WIDTH_CONFIGS[name], "widths_6_8": ANY_WIDTH_NF[name],
+               "packed_d_stages": pro_gan.packed_d_stage_count(cfg, stage, "highest")}
+        for mode in modes:
+            dtype = torch.bfloat16 if mode == "default" else torch.float32
+            # -- the gradients on the kernels against the twins, and the spread
+            seen = {}
+            pk.reset_launches()
+            with deterministic_cudnn(), any_width_bwd_spy(pk, seen):
+                d_k, g_k, m_k = train_mod.progan_grads(state, real, z, alpha, cfg, stage,
+                                                       packed_train_mode=mode, **kw)
+            step_counts = {k: v for k, v in {**pk.launches, **pk.epilogue_launches}.items() if v}
+            step_narrow = {k: v for k, v in pk.narrow_launches.items() if v}
+            d_s, g_s, _ = train_mod.progan_grads(state, real, z, alpha, cfg, stage,
+                                                 packed_train_mode=mode, **kw)
+            with swap_in_plain_twins(pk, PACKED_KERNELS):
+                d_t, g_t, m_t = train_mod.progan_grads(state, real, z, alpha, cfg, stage,
+                                                       packed_train_mode=mode, **kw)
+            spread = {"d": vector_agreement(d_s, d_k, tree_leaves),
+                      "g": vector_agreement(g_s, g_k, tree_leaves)}
+            if not seen:
+                raise AssertionError(f"the step at {name}, {mode}: no call at this item's widths")
+            if mode == "default":
+                check_metrics(f"step at {name}, \"default\", vs the plain twins", m_k, m_t,
+                              STEP_LOSS_RTOL, DEFAULT_LOGIT_ATOL)
+                vs = {"d": vector_agreement(d_k, d_t, tree_leaves),
+                      "g": vector_agreement(g_k, g_t, tree_leaves)}
+                text = (f"relative L2 {vs['d']['l2']:.3g} / {vs['g']['l2']:.3g}, cos "
+                        f"{vs['d']['cos']:.6f} / {vs['g']['cos']:.6f}")
+                failed = [net for net, v in vs.items()
+                          if not (v["l2"] <= DEFAULT_GRAD_L2 and v["cos"] >= DEFAULT_GRAD_COS)]
+            else:
+                check_metrics(f"step at {name}, {mode}, vs the plain twins", m_k, m_t,
+                              STEP_LOSS_RTOL)
+                vs = {"d": vector_agreement(d_k, d_t, tree_leaves),
+                      "g": vector_agreement(g_k, g_t, tree_leaves)}
+                text = (f"worst leaf {vs['d']['worst_leaf']:.3g} / {vs['g']['worst_leaf']:.3g} "
+                        "of its largest entry")
+                failed = [net for net, v in vs.items() if v["worst_leaf"] > STEP_GRAD_REL]
+            print(f"  progan_grads at {name}, {mode}: D / G gradients on the kernels vs the "
+                  f"plain twins {text}; the kernels' step against itself with cuDNN "
+                  f"deterministic off: worst leaf {spread['d']['worst_leaf']:.3g} / "
+                  f"{spread['g']['worst_leaf']:.3g}, relative L2 {spread['d']['l2']:.3g} / "
+                  f"{spread['g']['l2']:.3g}; calls at this item's widths "
+                  f"{ {f'{k[0]} {k[1]}': v for k, v in seen.items()} }")
+            if failed:
+                raise AssertionError(f"gradients at {name}, {mode}, vs the twins: {vs} (the "
+                                     f"kernels' own spread {spread})")
+            del d_k, g_k, d_s, g_s, d_t, g_t
+            torch.cuda.empty_cache()
+            # -- timed steps
+            st, _ = train_mod.progan_train_step(state, real, z, alpha, cfg, stage, dtype=dtype,
+                                                packed_train_mode=mode, **kw)
+            torch.cuda.synchronize()
+            del st
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            pk.reset_launches()
+            timed_seen, times, losses = {}, [], []
+            st = state
+            with any_width_bwd_spy(pk, timed_seen):
+                for i in range(ANY_BWD_TIMED_STEPS):
+                    t0 = time.perf_counter()
+                    st, m = train_mod.progan_train_step(st, real, z, 0.5 if i % 2 == 0 else 1.0,
+                                                        cfg, stage, dtype=dtype,
+                                                        packed_train_mode=mode, **kw)
+                    losses.append({k: float(v) for k, v in m.items()})  # reads the card
+                    times.append(time.perf_counter() - t0)
+            if not all(math.isfinite(v) for m in losses for v in m.values()):
+                raise AssertionError(f"a train step at {name}, {mode}, is not finite: {losses}")
+            if timed_seen != {k: v * ANY_BWD_TIMED_STEPS for k, v in seen.items()}:
+                raise AssertionError(f"the timed steps at {name}, {mode} launched {timed_seen} "
+                                     f"at this item's widths; one step {seen}")
+            for (entry, _), n in timed_seen.items():
+                counts[entry] = counts.get(entry, 0) + n
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            per_step_ms = sorted(t * 1e3 for t in times)
+            rec[f"{mode} {'bf16' if dtype == torch.bfloat16 else 'fp32'}"] = {
+                "steps_per_s": ANY_BWD_TIMED_STEPS / sum(times), "step_s": times,
+                "p50_ms_per_step": float(np.median(per_step_ms)), "peak_memory_gb": peak_gb,
+                "losses": losses, "launches_per_step": step_counts,
+                "narrow_launches_per_step": step_narrow,
+                "new_width_calls_per_step": {f"{k[0]} {k[1]}": v for k, v in seen.items()},
+                "vs_twins": vs, "spread_cudnn_deterministic_off": spread,
+            }
+            print(f"  progan_train_step at {name}, {mode}, "
+                  f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}: "
+                  f"{ANY_BWD_TIMED_STEPS / sum(times):.3f} steps/s, p50 "
+                  f"{float(np.median(per_step_ms)):.1f} ms, peak {peak_gb:.2f} GB; launches a "
+                  f"step {step_counts}; narrow {step_narrow}")
+            del st
+            torch.cuda.empty_cache()
+        out[name] = rec
+        del state, real
+        torch.cuda.empty_cache()
+    return counts, out
+
+
+def phase_any_width_trainer(pk, cli_train_image, image_checkpoint_mod, tree_mod) -> dict:
+    """The image trainer CLI at 512², fmap_base 512, fmap_max 64 (stage 7:
+    8 -> 4), with --fast (bf16 kernels, "default") and then with --packed_g
+    --packed_mode high (fp32): stages 0-7, stage 7's G backward through B1
+    "lrelu" 8 -> 4, B5 "none" 4 -> 8, B2 "lrelu" and "none" 4 -> 4 and B6;
+    each run ends, its losses are finite and its checkpoint loads in the
+    port."""
+    out = {}
+    for label, extra in (("--fast", ["--fast"]),
+                         ("--packed_g high", ["--packed_g", "--packed_mode", "high"])):
+        with tempfile.TemporaryDirectory() as tmp:
+            out_dir = os.path.join(tmp, "any_width_bwd")
+            pk.reset_launches()
+            seen, log = {}, io.StringIO()
+            t0 = time.perf_counter()
+            with any_width_bwd_spy(pk, seen), contextlib.redirect_stdout(log):
+                rc = cli_train_image.main([*ANY_BWD_TRAINER, *extra, "--output_dir", out_dir])
+            wall_s = time.perf_counter() - t0
+            if rc != 0 or "Training complete!" not in log.getvalue():
+                raise AssertionError(f"image trainer {label} at fmap_base 512 exited {rc}:\n"
+                                     f"{log.getvalue()}")
+            with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+                metrics = [json.loads(line) for line in f]
+            cfg, g_params, d_params = image_checkpoint_mod.load_image_checkpoint(
+                os.path.join(out_dir, "image_checkpoint.msgpack"))
+        calls = {f"{k[0]} {k[1]}": v for k, v in seen.items()}
+        kinds = {any_width_bwd_kind(entry) for entry, _ in seen}
+        want_kinds = {"packed_upconv[lrelu]", "packed_conv[lrelu]", "packed_conv[none]",
+                      "packed_convpool[none]", "packed_conv_wgrad"}
+        if not want_kinds <= kinds:
+            raise AssertionError(f"image trainer {label}: stage 7's backward did not reach "
+                                 f"{want_kinds - kinds} at 8 -> 4: {calls}")
+        if ([m["stage"] for m in metrics] != list(range(8)) or any(
+                not (math.isfinite(m["d_loss"]) and math.isfinite(m["g_loss"]))
+                for m in metrics)):
+            raise AssertionError(f"image trainer {label} at fmap_base 512: metrics {metrics}")
+        if (cfg.resolution != 512 or cfg.nf(7) != 4 or not d_params
+                or not all(torch.isfinite(t).all() for t in tree_mod.tree_leaves(g_params))):
+            raise AssertionError(f"image trainer {label} at fmap_base 512 wrote a checkpoint "
+                                 "the port does not load as trained")
+        stage_s = {m["stage"]: m["seconds"] for m in metrics}
+        out[label] = {"argv": [*ANY_BWD_TRAINER, *extra], "wall_s": wall_s,
+                      "seconds_per_stage": stage_s, "new_width_calls": calls,
+                      "losses": [(m["d_loss"], m["g_loss"]) for m in metrics]}
+        print(f"  image trainer CLI {label} at 512², fmap_base 512, fmap_max 64: stages 0-7 "
+              f"in {wall_s:.1f} s (stage 7 {stage_s[7]:.3f} s); calls at this item's widths "
+              f"{calls}; finite losses; the checkpoint loads in the port")
+    return out
+
+
+def phase_any_width_bwd(pk, packed_vjp, pro_gan, engine_mod, train_mod, cli_train_image,
+                        image_checkpoint_mod, tree_mod) -> tuple[list[dict], dict]:
+    """Phase 23 whole: the kernels, the recompute and the Functions at the
+    new widths, then the train step at T, T2 and O and the trainer CLI; each
+    kernel entry's launches those of the timed train steps; an entry that no
+    step launches (B5 "lrelu", D's, at these widths) stays out of the
+    kernels line, under "off_path_kernels". Last, what stays refused:
+    generate at T under PROBGAN_STAGE_FUSED=1 raises before any launch,
+    naming B.a.2.4."""
+    entries, out = phase_any_width_bwd_kernels(pk, packed_vjp, pro_gan)
+    counts, out["train"] = phase_any_width_train(pk, pro_gan, train_mod, tree_mod)
+    out["trainer_cli"] = phase_any_width_trainer(pk, cli_train_image, image_checkpoint_mod,
+                                                 tree_mod)
+    for k in entries:
+        k["launches"] = counts.get(k["name"], 0)
+    out["off_path_kernels"] = [k for k in entries if not k["launches"]]
+    entries = [k for k in entries if k["launches"]]
+    need = {any_width_bwd_entry(f"{kernel}[{epi}]", mode) for mode in ANY_BWD_MODES
+            for kernel, epi, *_ in ANY_BWD_CASES if epi != "lrelu" or kernel != "packed_convpool"}
+    need |= {any_width_bwd_entry("packed_conv_wgrad", m) for m in ("high", "default")}
+    missing = need - {k["name"] for k in entries}
+    if missing:
+        raise AssertionError(f"{sorted(missing)} were not launched on their main path")
+    # the stage-fused kernels keep Cout 8-64 from C % 8: refused up front
+    cfg = pro_gan.ProGANConfig(resolution=1024, fmap_base=ANY_WIDTH_CONFIGS["T"])
+    engine = engine_mod.ImageGANEngine(cfg, device="cuda", precision="high", seed=23)
+    z = engine.sample_latents(2)
+    pk.reset_launches()
+    with env(PROBGAN_STAGE_FUSED="1"):
+        try:
+            engine.generate(z)
+        except ValueError as e:
+            if "ROADMAP.md, B.a.2.4" not in str(e):
+                raise AssertionError(f"PROBGAN_STAGE_FUSED=1 at T raised {e!r}") from e
+            out["stage_fused_refusal"] = str(e)
+            print(f"  generate at T under PROBGAN_STAGE_FUSED=1: ValueError: {e}")
+        else:
+            raise AssertionError("PROBGAN_STAGE_FUSED=1 at T: the card took it")
+    if any(pk.launches.values()):
+        raise AssertionError(f"the refused stage-fused call launched {dict(pk.launches)}")
+    del engine
+    torch.cuda.empty_cache()
+    return entries, out
+
+
+ANY_BWD_HEADING = ("phase 23: any-width backward: B1 \"lrelu\", B2 \"lrelu\"/\"none\", B5 and B6 at "
+                   "the new widths of T, T2 and O vs their twins at \"high\", \"default\" and "
+                   "\"mid\", the recompute's bits, the four Functions; progan_train_step at T, "
+                   "T2 and O (\"highest\", \"default\" bf16, \"mid\" at O); the image trainer "
+                   "at 512² / fmap_base 512 with --fast and --packed_g; the stage-fused refusal")
+
+
 def phase_line(text: str) -> None:
     """A phase's heading, with the seconds since the script started."""
     print(f"{text} [{time.perf_counter() - _T0:.1f} s]")
@@ -7350,14 +7922,15 @@ ANY_WIDTH_HEADING = ("phase 22: any width up to 64: B1 \"lrelu_norm\", B2 \"lrel
 
 def main() -> int:
     args = sys.argv[1:]
-    if args not in ([], ["--phase", "22"]):
-        print("usage: python3 chip_smoke.py [--phase 22]", file=sys.stderr)
+    if args not in ([], ["--phase", "22"], ["--phase", "23"]):
+        print("usage: python3 chip_smoke.py [--phase 22 | --phase 23]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     from probgan_tpu_torch.cli import infer as cli_infer
     from probgan_tpu_torch.cli import train as cli_train
+    from probgan_tpu_torch.cli import train_image as cli_train_image
     from probgan_tpu_torch.core import checkpoint as checkpoint_mod
     from probgan_tpu_torch.core import image_checkpoint as image_checkpoint_mod
     from probgan_tpu_torch.core import train_state as train_state_mod
@@ -7390,6 +7963,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  [{name}] {line.strip()}")
     bf16_ring = bf16_ring_line(pk, logs)
+    if args == ["--phase", "23"]:  # phase 23 alone, after the build
+        phase_line(ANY_BWD_HEADING)
+        any_bwd_kernels, any_bwd = phase_any_width_bwd(
+            pk, packed_vjp, pro_gan, engine_mod, train_mod, cli_train_image,
+            image_checkpoint_mod, tree_mod)
+        print(card_line())
+        print(json.dumps({"kernels": any_bwd_kernels, "any_width_backward": any_bwd,
+                          "card": card}, allow_nan=False))
+        return 0
     if args:  # phase 22 alone, after the build
         phase_line(ANY_WIDTH_HEADING)
         any_width_kernels, any_width = phase_any_width(pk, pro_gan, engine_mod, cli_train,
@@ -7580,8 +8162,6 @@ def main() -> int:
                "(gloo) serving ImageGANEngine(mesh=\"auto\") at 1024² at \"high\" and "
                "\"fast\", dp_progan_train_step at \"default\" and \"highest\", and the CLIs "
                "under torch.distributed.run --mesh auto")
-    from probgan_tpu_torch.cli import train_image as cli_train_image
-
     dp_path = phase_dp_path(pk, pro_gan, engine_mod, train_mod, tree_mod, image_checkpoint_mod,
                             cli_infer, cli_train_image, make_image_checkpoint)
     torch.cuda.empty_cache()
@@ -7603,8 +8183,15 @@ def main() -> int:
     any_width_kernels, any_width = phase_any_width(pk, pro_gan, engine_mod, cli_train,
                                                    image_checkpoint_mod, tree_mod)
     kernels += any_width_kernels
+    torch.cuda.empty_cache()
 
-    phase_line("phase 23: phases 1-22 done; the kernels line and the result:")
+    phase_line(ANY_BWD_HEADING)
+    any_bwd_kernels, any_bwd = phase_any_width_bwd(pk, packed_vjp, pro_gan, engine_mod,
+                                                   train_mod, cli_train_image,
+                                                   image_checkpoint_mod, tree_mod)
+    kernels += any_bwd_kernels
+
+    phase_line("phase 24: phases 1-23 done; the kernels line and the result:")
     print(card_line())
     print(json.dumps({"kernels": kernels, "main_path": main, "score_path": score_path,
                       "kg_path": kg, "train_path": train, "fused_path": fused_path,
@@ -7614,7 +8201,8 @@ def main() -> int:
                       "fused_bf16": fused_bf16, "narrow": narrow,
                       "narrow_backward": narrow_bwd, "narrow_fused": fused_narrow,
                       "tp_path": tp_path, "dp_path": dp_path, "kg_tp_path": kg_tp_path,
-                      "any_width": any_width, "bf16_ring": bf16_ring,
+                      "any_width": any_width, "any_width_backward": any_bwd,
+                      "bf16_ring": bf16_ring,
                       "card": card},
                      allow_nan=False))
     print(json.dumps({"ok": True, "device": {

@@ -78,11 +78,16 @@
 // registers a thread. A stage of B2 at a slab of 64 is 97,792 B: a third
 // stage would not fit.
 //
-// Any width up to 64 (B1 "lrelu_norm", B2 "lrelu_norm", B3, bf16_conv.cuh):
+// Any width up to 64 (B1, B2 "lrelu_norm", B3, bf16_conv.cuh):
 // the ring of the tile just above Cout, its bytes and order of sums; `cout`
 // bounds PixelNorm's mean and the stores, and B1's toRGB reads rgb_w in
 // rows of C rounded up to 4 (the wrapper's zeros past C), so that its float4
-// reads stay aligned and inside the row at any C.
+// reads stay aligned and inside the row at any C. Any Cout at all (B2
+// "lrelu" and "none", B5): the slabs of Cout rounded up to a multiple of 8,
+// the last one's padded channels not stored. The order of sums above is
+// each accumulator's whatever the slab or tile, so B2 "lrelu" at a slab of
+// 16 gives B2 "lrelu_norm"'s pre-activations on the tile of 64 bit for bit
+// (the training backward's recompute at Cout 48).
 #pragma once
 
 #include "bf16_conv.cuh"
@@ -291,8 +296,8 @@ struct ConvBf16Ring {
   const unsigned* wk;
   const float* bias;
   float* y;
-  // cout: the output channels (n_slabs x COUT, or at kLreluNorm any count up
-  // to COUT on one slab)
+  // cout: the output channels, stored (at kLreluNorm up to COUT on one slab;
+  // else up to n_slabs x COUT, the last slab's channels past it padded)
   int C, H, W, n_slabs, cout, tiles_x, tiles_y, n_chunks;
   float inv_cout;  // PixelNorm's 1 / cout
   PatchCopies<SR, XW, CS> copies;
@@ -407,7 +412,9 @@ struct ConvBf16Ring {
 // bits (convpool_lrelu's mask recompute relies on it). compute is B2's with
 // the layout's rows, columns and `half`: one compute for both layouts
 // (mtile_row / mtile_col in B2's too) ran B2 at a slab of 8 at "mid" 12-16%
-// slower, with the same bits (measured: PERF.md §6).
+// slower, with the same bits (measured: PERF.md §6). A last slab padded
+// past a Cout that is no multiple of 8 stores only the channels below Cout
+// (after the shuffles, which every lane takes part in).
 template <int COUT, int NTERM, int EPI>
 struct ConvPoolBf16Ring : ConvBf16Ring<COUT, NTERM, EPI> {
   static_assert(EPI == kLrelu || EPI == kNone, "B5's epilogues");
@@ -452,13 +459,14 @@ struct ConvPoolBf16Ring : ConvBf16Ring<COUT, NTERM, EPI> {
     const int Hp = this->H / 2, Wp = this->W / 2;
     const size_t plane = static_cast<size_t>(Hp) * Wp;
     const int odd = g & 1;  // even lanes store channel 2 tq, odd ones 2 tq + 1
+    const int c_left = this->cout - slab * COUT;  // the slab's channels to store
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       bias_act_frag<NT, EPI>(acc[mt], this->bias + slab * COUT);
       // rows y0 + 2 (q / 4), + 1 and columns x0 + 8 (q % 4) + g pool into
       // row y0 / 2 + q / 4, column x0 / 2 + 4 (q % 4) + g / 2
       const int q = warp * MT + mt;
-      float* row = this->y + (static_cast<size_t>(b) * this->n_slabs + slab) * COUT * plane +
+      float* row = this->y + (static_cast<size_t>(b) * this->cout + slab * COUT) * plane +
                    static_cast<size_t>(y0 / 2 + q / 4) * Wp + x0 / 2 + 4 * (q % 4) + g / 2;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
@@ -468,7 +476,8 @@ struct ConvPoolBf16Ring : ConvBf16Ring<COUT, NTERM, EPI> {
         const float v1 = 0.5f * (acc[mt][nt][1] + acc[mt][nt][3]);
         const float p0 = 0.5f * (v0 + __shfl_xor_sync(0xffffffffu, v0, 4));
         const float p1 = 0.5f * (v1 + __shfl_xor_sync(0xffffffffu, v1, 4));
-        row[static_cast<size_t>(8 * nt + 2 * tq + odd) * plane] = odd ? p1 : p0;
+        if (8 * nt + 2 * tq + odd < c_left)
+          row[static_cast<size_t>(8 * nt + 2 * tq + odd) * plane] = odd ? p1 : p0;
       }
     }
   }

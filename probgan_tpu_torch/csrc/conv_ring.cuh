@@ -50,10 +50,15 @@
 // input channels a stage) a ring is 82,944 to 90,624 B and two blocks share
 // an SM (ops/packed.py ring_blocks_per_sm).
 //
-// Any width up to 64 (B1 "lrelu_norm", B2 "lrelu_norm", B3): a Cout between
+// Any width up to 64 (B1, B2 "lrelu_norm", B3): a Cout between
 // the tiles runs on the one above it (conv_tile.cuh), with the weights,
 // bias and toRGB weights zero-padded by the wrapper and `cout` the true
-// count: PixelNorm's mean and the stores take only it. Input channels past
+// count: PixelNorm's mean and the stores take only it. Any Cout at all (B2
+// "lrelu", B5): slabs of Cout rounded up to a multiple of 8, the last
+// one's padded channels computed and not stored. Every value keeps its one
+// accumulator and its order of FMAs whatever the tile or slab, so B2
+// "lrelu" at a slab of 16 gives the pre-activations of B2 "lrelu_norm" on
+// the tile of 64 bit for bit (the backward's recompute of Cout 48). Input channels past
 // C (any C >= 1) are zero in the patch (the copies' zero-fill) and in the
 // weights (ring_copy_weights copies only the chunk's C - c0 rows), so they
 // add exact zeros; B1's toRGB reads no weight past C.
@@ -239,8 +244,8 @@ struct ConvRing {
   const float* w;
   const float* bias;
   float* y;
-  // cout: the output channels (n_slabs x COUT, or at NORM any count up to
-  // COUT on one slab)
+  // cout: the output channels, stored (at NORM up to COUT on one slab; else
+  // up to n_slabs x COUT, the last slab's channels past it padded)
   int C, H, W, n_slabs, cout, tiles_x, tiles_y, n_chunks, cg, pg;
   float inv_cout;  // PixelNorm's 1 / cout
   RingCopies<kCC, kXPer, T::THREADS> copies;
@@ -346,7 +351,9 @@ struct ConvRing {
 // (input channel, ky, kx), ConvRing::channels8's and the old loop's, so B5
 // keeps its bits, and B2 "lrelu" pooled in the order below equals B5
 // "lrelu". The epilogue: bias_act, then 0.5 * (0.5 * (a00 + a10) + 0.5 *
-// (a01 + a11)) in registers, one float2 (the thread's two windows) a channel.
+// (a01 + a11)) in registers, one float2 (the thread's two windows) a
+// channel, for the channels below the true Cout (a last slab padded past a
+// Cout that is no multiple of 8 stores only those).
 template <int COUT, bool ACT>
 struct ConvPoolRing : ConvRing<COUT, false> {
   using Base = ConvRing<COUT, false>;
@@ -399,10 +406,12 @@ struct ConvPoolRing : ConvRing<COUT, false> {
     // pooled pixel (y0/2 + pg/8, x0/2 + 2*(pg%8) + j), j = 0, 1
     const int pg = this->pg, Hp = this->H / 2, Wp = this->W / 2;
     const size_t plane = static_cast<size_t>(Hp) * Wp;
-    float* out = this->y + (static_cast<size_t>(b) * this->n_slabs + slab) * COUT * plane +
+    float* out = this->y + (static_cast<size_t>(b) * this->cout + slab * COUT) * plane +
                  static_cast<size_t>(y0 / 2 + pg / 8) * Wp + x0 / 2 + 2 * (pg % 8);
+    const int c_left = this->cout - slab * COUT;  // the slab's channels to store
 #pragma unroll
     for (int n = 0; n < kTN; ++n) {
+      if (channel_of<COUT>(this->cg, n) >= c_left) continue;
       float2 v;
       v.x = 0.5f * (0.5f * (acc[0][n] + acc[4][n]) + 0.5f * (acc[1][n] + acc[5][n]));
       v.y = 0.5f * (0.5f * (acc[2][n] + acc[6][n]) + 0.5f * (acc[3][n] + acc[7][n]));

@@ -26,8 +26,12 @@
 // 64 -> 64 at 512^2), 1.154 ms for the 77.3 GFLOP ones (the recompute's
 // 32 -> 64 at 1024^2, 64 -> 128 at 512^2) at 67 TFLOP/s, against 0.08-0.24
 // ms of bytes. Without PixelNorm the walk takes slabs of 64, 32, 16 or 8
-// output channels (the largest that divides Cout), so "lrelu" takes any
-// Cout % 8 == 0; "lrelu_norm" takes Cout 8, 16, 32 or 64 in one slab. At 16
+// output channels (the largest that divides Cout rounded up to a multiple
+// of 8), so "lrelu" takes any Cout >= 1 and any C >= 1: the generators of
+// fmap_base 512, 1024 and 3072 recompute 4 -> 4, 2 -> 2 and 12 -> 12 in
+// their training backward, the last slab's weights and bias zero-padded by
+// the wrapper and only the channels below Cout stored. "lrelu_norm" takes
+// Cout 8, 16, 32 or 64 in one slab. At 16
 // and 8 (the narrow generators' late stages, e.g. fmap_base 2048 at 1024²:
 // 16 -> 16 at 512², 8 -> 8 at 1024²) a block is 128 or 64 threads on the
 // 32-channel tile (conv_tile.cuh Tile), 8 input channels a ring stage, two
@@ -64,8 +68,15 @@
 //    divides Cout), TR = 16. Always 8 warps, each owning 4 tile rows x 16
 //    columns (one m16 tile a row) x 32 output channels (four n8 tiles; 64
 //    fp32 sums a thread) at NS = 64 and 32, x the slab's 16 or 8 (two n8
-//    tiles or one) below. The narrow slabs keep the 16 x 32-pixel tile and
-//    its 256 threads rather than fewer threads on fewer pixels: at 16 and 8
+//    tiles or one) below. A Cout that is no multiple of 8 (the input
+//    gradients 4 -> 4, 2 -> 2 and 12 -> 12 of the generators of fmap_base
+//    1024, 512 and 3072) takes the slabs of Cout rounded up to 8, the
+//    wrapper's weights and bias zero-padded to them; the epilogue stores
+//    only the channels below Cout. Any C >= 1: channels past C are
+//    zero-filled by the copies in x and in the weights alike, so a partial
+//    k8 group multiplies zeros by zeros (never by stale shared memory).
+//    The narrow slabs keep the 16 x 32-pixel tile and its 256 threads
+//    rather than fewer threads on fewer pixels: at 16 and 8
 //    output channels the staged x patch, (TR + 2) x 40 floats a channel
 //    against 9 x NS of weights, is most of a stage, and a tile's pixels are
 //    what that staging buys. They are bound by bytes (e.g. 8 -> 8 at 1024^2,
@@ -126,12 +137,14 @@ template <int COUT>
 int launch_ring(const float* x, const float* w, const float* bias, float* y, int B, int C, int H,
                 int W, int cout, int epilogue, int n_blocks, int smem, cudaStream_t stream) {
   using Ring = ConvRing<COUT, true>;
-  // "lrelu_norm": one slab of up to COUT channels; "lrelu": slabs of COUT
-  const int n_slabs = epilogue == kLreluNorm ? 1 : cout / COUT;
+  // "lrelu_norm": one slab of up to COUT channels; "lrelu": slabs of COUT,
+  // the last one's channels past Cout zero-padded by the wrapper and not
+  // stored
+  const int n_slabs = epilogue == kLreluNorm ? 1 : (cout + COUT - 1) / COUT;
   const long long n_tiles = static_cast<long long>(B) * (H / Tile<COUT>::TH) *
                             (W / Tile<COUT>::TW) * n_slabs;
   if (H % Tile<COUT>::TH || n_tiles > 0x7fffffff || smem != Ring::kBytes ||
-      (epilogue == kLreluNorm && cout > COUT) || (epilogue != kLreluNorm && cout % COUT))
+      (epilogue == kLreluNorm && cout > COUT))
     return cudaErrorInvalidValue;
   const auto kernel = epilogue == kLreluNorm ? packed_conv_kernel<COUT, true>
                                              : packed_conv_kernel<COUT, false>;
@@ -232,7 +245,7 @@ __global__ void __launch_bounds__(kNoneThreads, 1)
   const int wc = warp & 1;                  // tile columns 16*wc .. +16
   const int wn = (warp >> 1) % T::WN;       // slab channels 32*wn .. +32
   const int wr = warp / (2 * T::WN);        // tile rows 4*wr .. +4
-  const NoneGeom gm{W / kNoneTW, H / T::TR, cout / NS};
+  const NoneGeom gm{W / kNoneTW, H / T::TR, (cout + NS - 1) / NS};
   const int n_tiles = B * gm.tiles_y * gm.tiles_x * gm.n_slabs;
   const int n_chunks = (C + kNoneCS - 1) / kNoneCS;
   const int my_tiles =
@@ -342,10 +355,14 @@ __global__ void __launch_bounds__(kNoneThreads, 1)
         for (int r = 0; r < 4; ++r) {
           float* p = y + (static_cast<size_t>(b) * cout + o) * plane +
                      static_cast<size_t>(y0 + 4 * wr + r) * W + x0 + 16 * wc + g;
-          p[0] = acc[r][nt][0] + b0;
-          p[plane] = acc[r][nt][1] + b1;
-          p[8] = acc[r][nt][2] + b0;
-          p[plane + 8] = acc[r][nt][3] + b1;
+          if (o < cout) {  // the padded channels of a last slab are not stored
+            p[0] = acc[r][nt][0] + b0;
+            p[8] = acc[r][nt][2] + b0;
+          }
+          if (o + 1 < cout) {
+            p[plane] = acc[r][nt][1] + b1;
+            p[plane + 8] = acc[r][nt][3] + b1;
+          }
         }
       }
     }
@@ -358,7 +375,7 @@ int launch_none(const float* x, const float* wk, const float* bias, float* y, in
                 int H, int W, int cout, int n_blocks, int smem_bytes, cudaStream_t stream) {
   using T = NoneTile<NS>;
   const size_t smem = kNoneStages * T::kStage * sizeof(float);
-  if (H % T::TR || cout % NS || static_cast<size_t>(smem_bytes) != smem)
+  if (H % T::TR || static_cast<size_t>(smem_bytes) != smem)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(packed_conv_none_kernel<NS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -375,9 +392,11 @@ int launch_none(const float* x, const float* wk, const float* bias, float* y, in
 // 64, 32, 16 and 8 that divides Cout: for Cout 8, 16, 32 or 64 that is
 // [C][3][3][Cout]), bias [Cout] -> y [B][Cout][H][W]; epilogue 0 =
 // lrelu_norm (Cout 1 to 64 in one slab: CT the least of 8, 16, 32 and 64 at
-// or above it, w [C][3][3][CT] and bias [CT] zero-padded past Cout; any
-// C >= 1), 1 = lrelu, 2 = none (any Cout % 8 == 0 and C % 8 == 0). Every
-// epilogue takes the tiling the caller picked
+// or above it, w [C][3][3][CT] and bias [CT] zero-padded past Cout), 1 =
+// lrelu, 2 = none (any Cout >= 1: CT the largest of 64, 32, 16 and 8 that
+// divides C8, Cout rounded up to a multiple of 8, w [C8/CT][C][3][3][CT] and
+// bias [C8] zero-padded past Cout), every epilogue at any C >= 1; y holds
+// the true Cout channels. Every epilogue takes the tiling the caller picked
 // (ops/packed.py:conv_tiling): o_slab = CT with rows 8 at 64 and 16 below,
 // and n_blocks persistent blocks, and the dynamic shared memory in bytes,
 // checked against the kernel's: the ring's for "lrelu_norm" and "lrelu"
@@ -389,10 +408,11 @@ extern "C" int probgan_packed_conv(const float* x, const float* w, const float* 
                                    int o_slab, int rows, int n_blocks, int smem, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const bool norm = epilogue == probgan::kLreluNorm;
-  if (norm ? cout < 1 || cout > 64 : cout < 8 || cout % 8) return cudaErrorInvalidValue;
+  if (cout < 1 || (norm && cout > 64)) return cudaErrorInvalidValue;
+  const int c8 = (cout + 7) / 8 * 8;  // the padded Cout a sliced walk tiles
   const int slab = norm ? (cout <= 8 ? 8 : cout <= 16 ? 16 : cout <= 32 ? 32 : 64)
-                        : cout % 64 == 0 ? 64 : cout % 32 == 0 ? 32 : cout % 16 == 0 ? 16 : 8;
-  if (B < 1 || C < 1 || (!norm && C % 8) || W < probgan::kNoneTW || W % probgan::kNoneTW ||
+                        : c8 % 64 == 0 ? 64 : c8 % 32 == 0 ? 32 : c8 % 16 == 0 ? 16 : 8;
+  if (B < 1 || C < 1 || W < probgan::kNoneTW || W % probgan::kNoneTW ||
       H < rows || n_blocks < 1 || o_slab != slab || rows != (slab == 64 ? 8 : 16))
     return cudaErrorInvalidValue;
   if (epilogue == probgan::kNone) {

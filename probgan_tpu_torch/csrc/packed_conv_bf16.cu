@@ -44,7 +44,11 @@
 // staged with zeros past C. "lrelu_norm" takes any Cout from 1 to 64 and any
 // C >= 1 (4 -> 4, 24 -> 24, 48 -> 48 in the generators of fmap_base 512 and
 // 3072) on the tile just above Cout, the wrapper's weights and bias
-// zero-padded to it (bf16_ring.cuh).
+// zero-padded to it (bf16_ring.cuh); "lrelu" and "none" take any Cout >= 1
+// and any C >= 1 (the training backward of those generators: the recompute
+// and input gradient 4 -> 4, 2 -> 2, 12 -> 12) on the slabs of Cout rounded
+// up to a multiple of 8, zero-padded the same way, storing only the
+// channels below Cout.
 #include "bf16_ring.cuh"
 
 namespace probgan {
@@ -63,13 +67,14 @@ template <int COUT, int NTERM, int EPI>
 int launch(const float* x, const unsigned* wk, const float* bias, float* y, int B, int C, int H,
            int W, int cout, int blocks, int smem, cudaStream_t stream) {
   using K = ConvBf16Ring<COUT, NTERM, EPI>;
-  // "lrelu_norm": one slab of up to COUT channels, any C >= 1
-  constexpr bool kAnyWidth = EPI == kLreluNorm;
-  const int n_slabs = kAnyWidth ? 1 : cout / COUT;
+  // "lrelu_norm": one slab of up to COUT channels; "lrelu" and "none": slabs
+  // of COUT, the last one's channels past Cout zero-padded by the wrapper
+  // and not stored. Any C >= 1.
+  const int n_slabs = EPI == kLreluNorm ? 1 : (cout + COUT - 1) / COUT;
   const long long n_tiles =
       static_cast<long long>(B) * (H / BfTile<COUT>::TH) * (W / 32) * n_slabs;
-  if (B < 1 || C < 1 || (!kAnyWidth && C % 8) || H % BfTile<COUT>::TH || W < 32 || W % 32 ||
-      (kAnyWidth ? cout < 1 || cout > COUT : cout % COUT != 0) || n_tiles > 0x7fffffff ||
+  if (B < 1 || C < 1 || H % BfTile<COUT>::TH || W < 32 || W % 32 || cout < 1 ||
+      (EPI == kLreluNorm && cout > COUT) || n_tiles > 0x7fffffff ||
       blocks < 1 || blocks > n_tiles ||
       smem != K::kBytes || reinterpret_cast<size_t>(x) % 16)
     return cudaErrorInvalidValue;
@@ -91,8 +96,9 @@ int geometry(int* out) {
 }
 
 // A slab of the largest of 64, 32, 16 and 8 channels that divides Cout
-// (ops/packed.py _pool_slab); PixelNorm needs all Cout in one slab, the
-// least of them at or above Cout (ops/packed.py norm_tile).
+// rounded up to a multiple of 8 (ops/packed.py _pool_slab of it); PixelNorm
+// needs all Cout in one slab, the least of them at or above Cout
+// (ops/packed.py norm_tile).
 template <int NTERM, int EPI>
 int launch_slab(const float* x, const unsigned* wk, const float* bias, float* y, int B, int C,
                 int H, int W, int cout, int blocks, int smem, cudaStream_t stream) {
@@ -106,12 +112,13 @@ int launch_slab(const float* x, const unsigned* wk, const float* bias, float* y,
                                                 stream);
     return launch<8, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, blocks, smem, stream);
   }
-  if (cout <= 0 || cout % 8) return cudaErrorInvalidValue;
-  if (cout % 64 == 0)
+  if (cout <= 0) return cudaErrorInvalidValue;
+  const int c8 = (cout + 7) / 8 * 8;
+  if (c8 % 64 == 0)
     return launch<64, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, blocks, smem, stream);
-  if (cout % 32 == 0)
+  if (c8 % 32 == 0)
     return launch<32, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, blocks, smem, stream);
-  if (cout % 16 == 0)
+  if (c8 % 16 == 0)
     return launch<16, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, blocks, smem, stream);
   return launch<8, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, blocks, smem, stream);
 }
@@ -137,8 +144,8 @@ int launch_epilogue(const float* x, const unsigned* wk, const float* bias, float
 // bias [Cout] -> y [B][Cout][H][W]; terms 1 ("default") or 2 ("mid");
 // epilogue 0 "lrelu_norm" (Cout 1 to 64, any C >= 1: one slab, the least of
 // 8, 16, 32 and 64 at or above Cout, wk and bias zero-padded to it), 1
-// "lrelu" (Cout a multiple of 8), 2 "none" (Cout a multiple of 8), these
-// two at C % 8 == 0,
+// "lrelu" or 2 "none" (any Cout >= 1: slabs of Cout rounded up to a
+// multiple of 8, wk and bias zero-padded to it; y holds the true Cout),
 // H % (8 at a slab of 64, else 16) == 0, W % 32 == 0; blocks the persistent
 // blocks (1 .. tiles; ops/packed.py persistent_blocks), smem the block's
 // dynamic shared memory in bytes (ops/packed.py bf16_ring_bytes, checked

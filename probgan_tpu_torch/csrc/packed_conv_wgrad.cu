@@ -52,7 +52,13 @@
 // Tilings, as the caller picks them: O_S = 64, TR = 4 (8 warps, 195 KB of
 // shared memory, one block per SM) for Cout % 64 == 0; otherwise O_S = 32,
 // TR = 2 (4 warps, 89 KB, two per SM). Channels past C or Cout are staged as
-// zeros and never written.
+// zeros and never written, so any C >= 1 and Cout >= 1 run: the generators
+// of fmap_base 1024, 512 and 3072 train stages of 8 -> 4, 4 -> 2 and
+// 24 -> 12 (dW (4, 8), (4, 4), (2, 4), (2, 2), (12, 24), (12, 12)) on the
+// 32-channel tiling, a warp whose 8 input channels or 32 output channels
+// lie wholly past them skipping its products. The split over blocks
+// (ops/packed.py wgrad_ksplit) and with it dW's bits depend only on the
+// shapes.
 // `wgmma` is a later step: its shared-memory descriptors want aligned tiles,
 // and the kx shift of the taps breaks that alignment.
 #include "async_copy.cuh"
@@ -283,7 +289,7 @@ int launch_wgrad(const float* x, const float* dpre, float* partials, int B, int 
 }  // namespace probgan
 
 // x [B][C][H][W], dpre [B][Cout][H][W], scratch partials [ksplit][9][C][Cout]
-// -> dw [Cout][C][3][3]. C % 8 == 0, Cout % 8 == 0, H % 8 == 0, W % 32 == 0,
+// -> dw [Cout][C][3][3]. Any C >= 1 and Cout >= 1, H % 8 == 0, W % 32 == 0,
 // x and dpre 16-byte aligned, 1 <= ksplit <= 65535. The caller picks the
 // tiling (ops/packed.py:wgrad_tiling) and sizes ksplit for it: o_slab 64 with
 // rows 4 (Cout % 64 == 0), or o_slab 32 with rows 2; any other pair is refused.
@@ -294,7 +300,7 @@ extern "C" int probgan_packed_conv_wgrad(const float* x, const float* dpre, floa
   using namespace probgan;
   const bool wide = o_slab == 64 && rows == 4 && cout % 64 == 0;
   const bool narrow = o_slab == 32 && rows == 2;
-  if (B < 1 || C < 8 || C % 8 || cout < 8 || cout % 8 || H < 8 || H % 8 || W < kWgTW ||
+  if (B < 1 || C < 1 || cout < 1 || H < 8 || H % 8 || W < kWgTW ||
       W % kWgTW || ksplit < 1 || ksplit > 65535 || !(wide || narrow))
     return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);

@@ -267,8 +267,10 @@ int launch_wgrad_bf16(const float* x, const float* dpre, float* partials, int B,
 }  // namespace probgan
 
 // x [B][C][H][W], dpre [B][Cout][H][W], scratch partials [ksplit][9][C][Cout]
-// -> dw [Cout][C][3][3], the operands rounded to bf16. C % 8 == 0, Cout % 8 ==
-// 0, H % 8 == 0, W % 32 == 0, x and dpre 16-byte aligned, 1 <= ksplit <=
+// -> dw [Cout][C][3][3], the operands rounded to bf16. Any C >= 1 and Cout >=
+// 1 (channels past them staged as zeros and not written, as in
+// packed_conv_wgrad.cu), H % 8 == 0, W % 32 == 0, x and dpre 16-byte
+// aligned, 1 <= ksplit <=
 // 65535. The caller picks the tiling (ops/packed.py:wgrad_tiling) and sizes
 // ksplit for it: o_slab 64 with rows 4 (Cout % 64 == 0), or o_slab 32 with
 // rows 2; any other pair is refused. Returns the cudaError_t of the launches
@@ -280,7 +282,7 @@ extern "C" int probgan_packed_conv_wgrad_bf16(const float* x, const float* dpre,
   using namespace probgan;
   const bool wide = o_slab == 64 && rows == 4 && cout % 64 == 0;
   const bool narrow = o_slab == 32 && rows == 2;
-  if (B < 1 || C < 8 || C % 8 || cout < 8 || cout % 8 || H < 8 || H % 8 || W < kWbTW ||
+  if (B < 1 || C < 1 || cout < 1 || H < 8 || H % 8 || W < kWbTW ||
       W % kWbTW || ksplit < 1 || ksplit > 65535 || !(wide || narrow))
     return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);

@@ -38,6 +38,13 @@
 // synchronous loop this kernel ran before (8 channels staged with plain
 // loads between two barriers, two blocks an SM, one a tile), and of
 // packed_conv "lrelu" pooled in this order.
+//
+// Any Cout >= 1 and any C >= 1 (the upconv's input gradient of the
+// generators of fmap_base 1024, 512 and 3072: in 4 out 8, in 2 out 4, in 12
+// out 24): the slabs of Cout rounded up to a multiple of 8, the wrapper's
+// weights and bias zero-padded past Cout, and only the channels below Cout
+// stored; input channels past C are zero in the patch and the weights
+// (conv_ring.cuh), so they add exact zeros.
 #include "conv_ring.cuh"
 
 namespace probgan {
@@ -46,9 +53,9 @@ template <int CT, bool ACT>
 __global__ void __launch_bounds__(Tile<CT>::THREADS, 1)
     packed_convpool_kernel(const float* __restrict__ x, const float* __restrict__ w,
                            const float* __restrict__ bias, float* __restrict__ y, int C, int H,
-                           int W, int n_slabs, int n_tiles) {
+                           int W, int n_slabs, int cout, int n_tiles) {
   extern __shared__ __align__(16) float ring_smem[];
-  ConvPoolRing<CT, ACT> cv(x, w, bias, y, C, H, W, n_slabs);
+  ConvPoolRing<CT, ACT> cv(x, w, bias, y, C, H, W, n_slabs, cout);
   NoClock clk;
   ring_walk(cv, ring_smem, n_tiles, clk);
 }
@@ -57,9 +64,9 @@ template <int CT>
 int launch(const float* x, const float* w, const float* bias, float* y, int B, int C, int H,
            int W, int cout, int act, int blocks, int smem, cudaStream_t stream) {
   using T = Tile<CT>;
-  const int n_slabs = cout / CT;
+  const int n_slabs = (cout + CT - 1) / CT;  // the last one's channels past Cout padded
   const long long n_tiles = static_cast<long long>(B) * (H / T::TH) * (W / T::TW) * n_slabs;
-  if (B < 1 || C < 8 || C % 8 || H < T::TH || H % T::TH || W < T::TW || W % T::TW ||
+  if (B < 1 || C < 1 || H < T::TH || H % T::TH || W < T::TW || W % T::TW ||
       n_tiles > 0x7fffffff || blocks < 1 || blocks > n_tiles ||
       smem != ConvPoolRing<CT, true>::kBytes || reinterpret_cast<size_t>(x) % 16)
     return cudaErrorInvalidValue;
@@ -67,17 +74,19 @@ int launch(const float* x, const float* w, const float* bias, float* y, int B, i
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<blocks, T::THREADS, smem, stream>>>(x, w, bias, y, C, H, W, n_slabs,
+  kernel<<<blocks, T::THREADS, smem, stream>>>(x, w, bias, y, C, H, W, n_slabs, cout,
                                                static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace probgan
 
-// x [B][C][H][W] 16-byte aligned, w [Cout/CT][C][3][3][CT] (eq-LR scaled, CT
-// the largest of 64, 32, 16 and 8 that divides Cout), bias [Cout] ->
+// x [B][C][H][W] 16-byte aligned, w [C8/CT][C][3][3][CT] (eq-LR scaled; C8
+// Cout rounded up to a multiple of 8, CT the largest of 64, 32, 16 and 8
+// that divides it, zeros past Cout), bias [C8] (zeros past Cout) ->
 // y [B][Cout][H/2][W/2]; act 1 = LeakyReLU(0.2) before the pool, 0 = none;
-// C % 8 == 0, H % (8 at a slab of 64, else 16) == 0, W % 32 == 0; blocks the
+// any Cout >= 1 and C >= 1, H % (8 at a slab of 64, else 16) == 0,
+// W % 32 == 0; blocks the
 // persistent blocks (1 .. tiles; ops/packed.py persistent_blocks), smem the
 // block's dynamic shared memory in bytes (ops/packed.py conv_ring_bytes,
 // checked against the ring's). Returns the cudaError_t of the launch
@@ -87,10 +96,11 @@ extern "C" int probgan_packed_convpool(const float* x, const float* w, const flo
                                        int blocks, int smem, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
 #define PROBGAN_POOL(CT) probgan::launch<CT>(x, w, bias, y, B, C, H, W, cout, act, blocks, smem, s)
-  if (cout > 0 && cout % 64 == 0) return PROBGAN_POOL(64);
-  if (cout > 0 && cout % 32 == 0) return PROBGAN_POOL(32);
-  if (cout > 0 && cout % 16 == 0) return PROBGAN_POOL(16);
-  if (cout > 0 && cout % 8 == 0) return PROBGAN_POOL(8);
+  if (cout < 1) return cudaErrorInvalidValue;
+  const int c8 = (cout + 7) / 8 * 8;
+  if (c8 % 64 == 0) return PROBGAN_POOL(64);
+  if (c8 % 32 == 0) return PROBGAN_POOL(32);
+  if (c8 % 16 == 0) return PROBGAN_POOL(16);
+  return PROBGAN_POOL(8);
 #undef PROBGAN_POOL
-  return cudaErrorInvalidValue;
 }

@@ -32,7 +32,11 @@
 // packed_conv_bf16's order (chunks, taps, k16 halves, terms), the order
 // bf16_ring.cuh fixes, and packed_conv "lrelu" at the same mode pooled in
 // this order gives these bits (convpool_lrelu's mask recompute relies on
-// it).
+// it). Any Cout >= 1 and C >= 1 (the upconv's input gradient of the
+// generators of fmap_base 1024, 512 and 3072: in 4 out 8, in 2 out 4, in 12
+// out 24): the slabs of Cout rounded up to a multiple of 8, the wrapper's
+// weights and bias zero-padded, only the channels below Cout stored; a
+// partial chunk's channels past C are zero in the patch and the weights.
 #include "bf16_ring.cuh"
 
 namespace probgan {
@@ -41,9 +45,9 @@ template <int COUT, int NTERM, int EPI>
 __global__ void __launch_bounds__(kThreads, 1)
     packed_convpool_bf16_kernel(const float* __restrict__ x, const unsigned* __restrict__ wk,
                                 const float* __restrict__ bias, float* __restrict__ y, int C,
-                                int H, int W, int n_slabs, int n_tiles) {
+                                int H, int W, int n_slabs, int cout, int n_tiles) {
   extern __shared__ __align__(16) float bf16_ring_smem[];
-  ConvPoolBf16Ring<COUT, NTERM, EPI> cv(x, wk, bias, y, C, H, W, n_slabs);
+  ConvPoolBf16Ring<COUT, NTERM, EPI> cv(x, wk, bias, y, C, H, W, n_slabs, cout);
   bf16_ring_walk(cv, bf16_ring_smem, n_tiles);
 }
 
@@ -51,18 +55,18 @@ template <int COUT, int NTERM, int EPI>
 int launch(const float* x, const unsigned* wk, const float* bias, float* y, int B, int C, int H,
            int W, int cout, int blocks, int smem, cudaStream_t stream) {
   using K = ConvPoolBf16Ring<COUT, NTERM, EPI>;
-  const int n_slabs = cout / COUT;
+  const int n_slabs = (cout + COUT - 1) / COUT;  // the last one's channels past Cout padded
   const long long n_tiles =
       static_cast<long long>(B) * (H / BfTile<COUT>::TH) * (W / 32) * n_slabs;
-  if (B < 1 || C < 8 || C % 8 || H < BfTile<COUT>::TH || H % BfTile<COUT>::TH || W < 32 ||
-      W % 32 || cout % COUT || n_tiles > 0x7fffffff || blocks < 1 || blocks > n_tiles ||
+  if (B < 1 || C < 1 || cout < 1 || H < BfTile<COUT>::TH || H % BfTile<COUT>::TH || W < 32 ||
+      W % 32 || n_tiles > 0x7fffffff || blocks < 1 || blocks > n_tiles ||
       smem != K::kBytes || reinterpret_cast<size_t>(x) % 16)
     return cudaErrorInvalidValue;
   const auto kernel = packed_convpool_bf16_kernel<COUT, NTERM, EPI>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<blocks, kThreads, smem, stream>>>(x, wk, bias, y, C, H, W, n_slabs,
+  kernel<<<blocks, kThreads, smem, stream>>>(x, wk, bias, y, C, H, W, n_slabs, cout,
                                              static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
@@ -80,22 +84,24 @@ int launch_slab(const float* x, const unsigned* wk, const float* bias, float* y,
                 int H, int W, int cout, int blocks, int smem, cudaStream_t stream) {
 #define PROBGAN_POOL_SLAB(S) \
   launch<S, NTERM, EPI>(x, wk, bias, y, B, C, H, W, cout, blocks, smem, stream)
-  if (cout > 0 && cout % 64 == 0) return PROBGAN_POOL_SLAB(64);
-  if (cout > 0 && cout % 32 == 0) return PROBGAN_POOL_SLAB(32);
-  if (cout > 0 && cout % 16 == 0) return PROBGAN_POOL_SLAB(16);
-  if (cout > 0 && cout % 8 == 0) return PROBGAN_POOL_SLAB(8);
+  if (cout < 1) return cudaErrorInvalidValue;
+  const int c8 = (cout + 7) / 8 * 8;  // slabs of Cout rounded up to a multiple of 8
+  if (c8 % 64 == 0) return PROBGAN_POOL_SLAB(64);
+  if (c8 % 32 == 0) return PROBGAN_POOL_SLAB(32);
+  if (c8 % 16 == 0) return PROBGAN_POOL_SLAB(16);
+  return PROBGAN_POOL_SLAB(8);
 #undef PROBGAN_POOL_SLAB
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace probgan
 
-// x [B][C][H][W] fp32, 16-byte aligned, wk [Cout/slab][ceil(C/32)][9][slab]
-// [40] bf16 (ops/packed.py conv_bf16_weights, packed_conv_bf16's layout;
-// slab the largest of 64, 32, 16 and 8 that divides Cout), bias [Cout] -> y
-// [B][Cout][H/2][W/2]; terms 1 ("default") or 2 ("mid"); act 1 =
-// LeakyReLU(0.2) before the pool, 0 = none; Cout a multiple of 8,
-// C % 8 == 0, H % (8 at a slab of 64, else 16) == 0, W % 32 == 0; blocks the
+// x [B][C][H][W] fp32, 16-byte aligned, wk [C8/slab][ceil(C/32)][9][slab]
+// [40] bf16 (ops/packed.py conv_bf16_weights, packed_conv_bf16's layout; C8
+// Cout rounded up to a multiple of 8, slab the largest of 64, 32, 16 and 8
+// that divides it, zeros past Cout and past C), bias [C8] (zeros past Cout)
+// -> y [B][Cout][H/2][W/2]; terms 1 ("default") or 2 ("mid"); act 1 =
+// LeakyReLU(0.2) before the pool, 0 = none; any Cout >= 1 and C >= 1,
+// H % (8 at a slab of 64, else 16) == 0, W % 32 == 0; blocks the
 // persistent blocks (1 .. tiles; ops/packed.py persistent_blocks), smem the
 // block's dynamic shared memory in bytes (ops/packed.py bf16_ring_bytes,
 // checked against the ring's). Returns the cudaError_t of the launch

@@ -50,7 +50,9 @@
 // 24 -> 12) runs on the tile of the width just above Cout, with the
 // wrapper's zero-padded taps and bias; PixelNorm divides by the true Cout
 // and only its channels are stored (conv_tile.cuh). "lrelu" (the training
-// recompute) keeps Cout 8, 16, 32 or 64 and C % 8 == 0.
+// backward's recompute of those generators' stages) takes the same widths
+// on the same tiles: the pre-activations of "lrelu_norm" bit for bit, one
+// kernel with another epilogue.
 //
 // Every output value keeps its one fp32 accumulator fed by fmaf in the order
 // (input channel, dy, dx) and the epilogues of conv_tile.cuh: the bits of
@@ -78,11 +80,8 @@ int launch(const float* x, const float* wk, const float* bias, const float* rgb_
            int epilogue, int n_blocks, int smem, cudaStream_t stream) {
   using Ring = UpconvRing<COUT, true>;
   const long long n_tiles = 2LL * B * (H / Ring::TH) * (W / Ring::TJ);
-  // "lrelu_norm": any C >= 1 and Cout up to the tile's; "lrelu": the tile's
-  // Cout and C % 8 == 0
-  const bool any_width = epilogue == 0;
-  if (B < 1 || C < 1 || (!any_width && C % 8) || cout < 1 || cout > COUT ||
-      (!any_width && cout != COUT) || W % Ring::TJ || H % Ring::TH || n_tiles < 1 ||
+  // both epilogues: any C >= 1 and Cout up to the tile's
+  if (B < 1 || C < 1 || cout < 1 || cout > COUT || W % Ring::TJ || H % Ring::TH || n_tiles < 1 ||
       n_tiles > 0x7fffffff || n_blocks < 1 || smem != Ring::kBytes ||
       (epilogue != 0 && epilogue != 1))
     return cudaErrorInvalidValue;
@@ -102,8 +101,8 @@ int launch(const float* x, const float* wk, const float* bias, const float* rgb_
 // Cout), bias [T] (zeros past Cout), rgb_w [3][C] and rgb_b [3] or both null
 // -> y [B][Cout][2H][2W] and, when rgb_w is given, rgb [B][3][H][W]; T the
 // tile's width, the least of 8, 16, 32 and 64 at or above Cout; epilogue 0 =
-// lrelu_norm (Cout 1 to 64, C >= 1), 1 = lrelu (Cout 8, 16, 32 or 64,
-// C % 8 == 0); n_blocks persistent blocks and the ring's dynamic shared memory
+// lrelu_norm, 1 = lrelu, both at Cout 1 to 64 and C >= 1 (toRGB with
+// lrelu_norm only); n_blocks persistent blocks and the ring's dynamic shared memory
 // in bytes (ops/packed.py:upconv_ring_bytes, checked against the kernel's);
 // x and wk 16-byte aligned. Returns the cudaError_t of the launch (0 =
 // launched).

@@ -46,7 +46,9 @@
 // "lrelu_norm" takes any Cout from 1 to 64 and any C >= 1 (8 -> 4, 4 -> 2,
 // 96 -> 48, 48 -> 24, 24 -> 12 in the generators of fmap_base 1024, 512 and
 // 3072) on the tile just above Cout, with the wrapper's zero-padded taps and
-// bias (bf16_ring.cuh); "lrelu" keeps Cout 8, 16, 32 or 64 and C % 8 == 0.
+// bias (bf16_ring.cuh); "lrelu" (the training backward's recompute) takes
+// the same widths on the same tiles: "lrelu_norm"'s pre-activations bit for
+// bit.
 #include "bf16_ring.cuh"
 
 namespace probgan {
@@ -69,9 +71,7 @@ int launch(const float* x, const unsigned* wk, const float* bias, const float* r
            int blocks, int smem, cudaStream_t stream) {
   using K = UpconvBf16Ring<COUT, NTERM, EPI>;
   const long long n_tiles = 2LL * B * (H / BfTile<COUT>::TH) * (W / 16);
-  constexpr bool kAnyWidth = EPI == kLreluNorm;
-  if (B < 1 || C < 1 || (!kAnyWidth && C % 8) || cout < 1 || cout > COUT ||
-      (!kAnyWidth && cout != COUT) || H % BfTile<COUT>::TH || W < 16 || W % 16 ||
+  if (B < 1 || C < 1 || cout < 1 || cout > COUT || H % BfTile<COUT>::TH || W < 16 || W % 16 ||
       n_tiles > 0x7fffffff || blocks < 1 || blocks > n_tiles || smem != K::kBytes ||
       reinterpret_cast<size_t>(x) % 16 || reinterpret_cast<size_t>(rgb_w) % 16 ||
       (rgb_w == nullptr) != (rgb == nullptr) ||
@@ -104,8 +104,8 @@ int geometry(int* out) {
 // 16-byte aligned) and rgb_b [3] or
 // both null -> y [B][Cout][2H][2W] and, with rgb_w, rgb [B][3][H][W]; T the
 // least of 8, 16, 32 and 64 at or above Cout; terms 1 ("default") or 2
-// ("mid"); epilogue 0 "lrelu_norm" (Cout 1 to 64, C >= 1) or 1 "lrelu" (no
-// toRGB; Cout 8, 16, 32 or 64, C % 8 == 0); H % (8 at T 64, else 16) == 0,
+// ("mid"); epilogue 0 "lrelu_norm" or 1 "lrelu" (no toRGB), both at Cout 1
+// to 64 and C >= 1; H % (8 at T 64, else 16) == 0,
 // W % 16 == 0, x 16-byte aligned; blocks the persistent
 // blocks (1 .. tiles; ops/packed.py persistent_blocks), smem the block's
 // dynamic shared memory in bytes (ops/packed.py bf16_upconv_ring_bytes,

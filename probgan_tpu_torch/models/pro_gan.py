@@ -394,7 +394,7 @@ def _g_late_packed(params: dict, x_entry: torch.Tensor, config: ProGANConfig,
     The fused kernels take each stage's mode as the pair does. On the card
     they take stages of 8, 16, 32 or 64 channels from C % 8 == 0: any other
     width raises before the first launch (ROADMAP.md, B.a.2.4), where the
-    two-kernel path takes any width up to 64."""
+    two-kernel path (and the packed train step) takes any width up to 64."""
     from probgan_tpu_torch.ops import packed as pk
 
     mode = _PACKED_MODES[precision]
@@ -439,14 +439,11 @@ def _g_rgb_packed_train(params: dict, z: torch.Tensor, config: ProGANConfig,
     torch ops (1x1 convs to 3 channels), as in the JAX package. The grade of
     the unpacked convs is the caller's ``precision_scope``. The Functions
     save only their inputs and recompute activations in the backward, so the
-    packed stages take no checkpointing. On the card the backward's kernels
-    take stages of 8, 16, 32 or 64 channels from C % 8 == 0: any other width
-    raises before the first launch (ROADMAP.md, B.a.2.4)."""
-    from probgan_tpu_torch.ops import packed as pk
+    packed stages take no checkpointing. On the card the kernels, forward
+    and backward, take every stage width the packed gate admits (up to 64
+    channels)."""
     from probgan_tpu_torch.ops import packed_vjp
 
-    pk.check_stage_widths("the packed train step (packed_g)", z,
-                          [(config.nf(s - 1), config.nf(s)) for s in range(s0, stage + 1)])
     block_fn = _block_fn(_g_block, remat)
     x = _g_base(params, z, config, dtype)
     for s in range(1, s0):

@@ -71,16 +71,21 @@ block, on the tile of the least of 8, 16, 32 and 64 at or above Cout
 (``norm_tile``), the weights, bias and toRGB weights zero-padded to it by
 the wrapper (no activation is padded), so that generators whose last stages
 are 4 or 2 channels wide (fmap_base 1024 or 512 at 1024²) or no power of two
-(fmap_base 3072: 48, 24, 12) serve on the card. ``packed_upconv`` "lrelu"
-takes Cout 8, 16, 32 or 64; ``packed_conv`` "lrelu" and "none" and
-``packed_convpool`` any Cout that is a multiple of 8, in slabs of 64, 32,
-16 or 8 (the largest that divides it); these, ``packed_conv_wgrad`` and the
-stage-fused kernels (Cout 8, 16, 32 or 64) take C % 8 == 0. The narrow slabs
-(16 and 8) are a narrow generator's late stages, forward and backward, e.g.
-fmap_base 2048 at 1024². Still to come (ROADMAP.md, B.a.2.4): the others at
-any width, so the training backward and the stage-fused kernels too, and
-PixelNorm above 64 channels; the wrappers raise ValueError before any launch
-there.
+(fmap_base 3072: 48, 24, 12) serve on the card. The training backward's
+kernels take those generators' widths too, so that the packed train step
+trains them: ``packed_upconv`` "lrelu" any Cout from 1 to 64 on
+``norm_tile(Cout)``'s tile ("lrelu_norm"'s, so the recompute's
+pre-activations are the forward's bits); ``packed_conv`` "lrelu" and "none"
+and ``packed_convpool`` any Cout >= 1, in slabs of 64, 32, 16 or 8 (the
+largest that divides Cout rounded up to a multiple of 8, the weights and
+bias zero-padded to it, only the true Cout stored); ``packed_conv_wgrad``
+any Cout >= 1; all of these any C >= 1. No activation is padded: x, the
+cotangents and the outputs keep their true channel counts. The narrow
+slabs (16 and 8) are a narrow generator's late stages, forward and
+backward, e.g. fmap_base 2048 at 1024². Still to come (ROADMAP.md,
+B.a.2.4): the stage-fused kernels at any width (they take Cout 8, 16, 32
+or 64 and C % 8 == 0) and PixelNorm above 64 channels; the wrappers raise
+ValueError before any launch there.
 
 Each kernel has a wrapper (checks device, dtype, shape and contiguity,
 allocates outputs with ``torch.empty`` and launches on the current stream), a
@@ -121,7 +126,9 @@ launches = {"packed_upconv": 0, "packed_conv": 0, "packed_conv_rgb": 0,
 # The launches at a narrow slab, "<counter>[cout<slab>]" (slab 16 or 8, the
 # instantiations of csrc/conv_tile.cuh Tile and bf16_conv.cuh BfTile below
 # 32 channels), and at a Cout that is no tile's width (2, 4, 12, 24, 48, ...,
-# run on the tile above it: "<counter>[cout<Cout>]"), filled as they happen.
+# run on the tile above it: "<counter>[cout<Cout>]"; for the sliced kernels
+# and packed_conv_wgrad, a Cout that is no multiple of 8), filled as they
+# happen.
 narrow_launches: dict[str, int] = {}
 # The same launches by epilogue, "<kernel>[<epilogue>]", for the kernels that
 # have more than one.
@@ -288,10 +295,10 @@ def _refuse_grad(name: str, instead: str, *tensors: torch.Tensor | None) -> None
 
 
 def _check(name: str, x: torch.Tensor, cin: int, h_mult: int,
-           w_mult: int, any_c: bool = False, **params: torch.Tensor | None) -> None:
+           w_mult: int, c8: bool = False, **params: torch.Tensor | None) -> None:
     """Raise unless ``x`` is a contiguous fp32 NCHW CUDA tensor the kernel
-    takes (C a multiple of 8, or with ``any_c`` any C >= 1) and every
-    parameter lies on its device in fp32."""
+    takes (any C >= 1; with ``c8``, the stage-fused kernels', C a multiple
+    of 8) and every parameter lies on its device in fp32."""
     if x.device.type != "cuda":
         raise RuntimeError(
             f"{name}: tensors on {x.device.type!r} are not supported; the "
@@ -303,10 +310,10 @@ def _check(name: str, x: torch.Tensor, cin: int, h_mult: int,
             f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}"
         )
     _, c, h, w = x.shape
-    if c != cin or c < 1 or (c % 8 and not any_c) or h % h_mult or w % w_mult:
+    if c != cin or c < 1 or (c % 8 and c8) or h % h_mult or w % w_mult:
         raise ValueError(
             f"{name}: x {tuple(x.shape)} needs C == {cin}"
-            + ("" if any_c else f" and a multiple of 8 (another C is {NARROW_TODO})")
+            + (f" and a multiple of 8 (another C is {NARROW_TODO})" if c8 else "")
             + f", H % {h_mult} == 0, W % {w_mult} == 0"
         )
     for pname, p in params.items():
@@ -323,24 +330,33 @@ def _tile_rows(cout: int) -> int:
 
 def _check_cout(name: str, cout: int, sliced: bool = False,
                 supported: tuple[int, ...] = SUPPORTED_COUT, any_width: bool = False) -> None:
-    """``any_width``: a serving PixelNorm kernel, any Cout from 1 to
+    """``any_width``: a kernel that holds every output channel in one block
+    (``packed_upconv``, the PixelNorm epilogues), any Cout from 1 to
     ANY_WIDTH_MAX; ``sliced``: the kernel tiles Cout in slabs and takes any
-    multiple of 8; else Cout is one of ``supported``. What is refused names
-    the ROADMAP.md item that would port it."""
+    Cout >= 1; else Cout is one of ``supported``. What is refused names the
+    ROADMAP.md item that would port it."""
     if any_width:
         if not 0 < cout <= ANY_WIDTH_MAX:
             raise ValueError(f"{name}: Cout={cout} not in 1..{ANY_WIDTH_MAX}; PixelNorm above "
                              f"{ANY_WIDTH_MAX} channels is {NARROW_TODO}")
         return
+    if sliced:
+        if cout < 1:
+            raise ValueError(f"{name}: Cout={cout} must be at least 1")
+        return
     if 0 < cout < 8:
         raise ValueError(f"{name}: Cout={cout} below 8 is {NARROW_TODO}")
-    if sliced:
-        if cout <= 0 or cout % 8:
-            raise ValueError(f"{name}: Cout={cout} must be a multiple of 8"
-                             + (f"; Cout {cout} here is {NARROW_TODO}" if cout > 0 else ""))
-    elif cout not in supported:
+    if cout not in supported:
         raise ValueError(f"{name}: Cout={cout} not in {supported}; Cout {cout} here is "
                          f"{NARROW_TODO}")
+
+
+def sliced_cout(cout: int) -> int:
+    """The Cout a sliced kernel (``packed_conv`` "lrelu"/"none",
+    ``packed_convpool``) walks: ``cout`` rounded up to a multiple of 8, in
+    slabs of ``_pool_slab`` of it; the wrapper zero-pads the weights and bias
+    to it and the kernel stores only the true Cout."""
+    return -(-cout // 8) * 8
 
 
 def norm_tile(cout: int) -> int:
@@ -366,12 +382,10 @@ def pad_cout(t: torch.Tensor, tile: int, dim: int = 0) -> torch.Tensor:
 
 def check_stage_widths(name: str, x: torch.Tensor, widths) -> None:
     """Raise ValueError before any launch where a generator stage of (C,
-    Cout) in ``widths`` would reach, on the card, a kernel that does not take
-    it yet: the stage-fused kernels and the packed train step's backward
-    (``packed_upconv`` "lrelu", ``packed_conv`` "lrelu"/"none",
-    ``packed_convpool`` "none", ``packed_conv_wgrad``) take Cout 8, 16, 32 or
-    64 and C % 8 == 0 (ROADMAP.md, B.a.2.4). Nothing on the CPU, where the
-    twins take every width."""
+    Cout) in ``widths`` would reach, on the card, a stage-fused kernel that
+    does not take it yet: they take Cout 8, 16, 32 or 64 and C % 8 == 0
+    (ROADMAP.md, B.a.2.4). Nothing on the CPU, where the twins take every
+    width."""
     if x.device.type == "cpu":
         return
     for c, cout in widths:
@@ -533,9 +547,10 @@ def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm", mod
     x [B, C, H, W] fp32, w [Cout, C, 3, 3] eq-LR scaled, b [Cout]
     -> [B, Cout, 2H, 2W]. With ``rgb_w`` [3, C] and ``rgb_b`` [3]
     ("lrelu_norm" only), also returns toRGB(x) [B, 3, H, W] (the ``rgb_prev``
-    of packed_conv_rgb). On CUDA, "lrelu_norm" takes any Cout from 1 to 64
+    of packed_conv_rgb). On CUDA, both epilogues take any Cout from 1 to 64
     and any C >= 1 (on ``norm_tile(Cout)``'s tile, the taps and bias
-    zero-padded to it); "lrelu" Cout 8, 16, 32 or 64 and C a multiple of 8.
+    zero-padded to it), so "lrelu", the backward's recompute, sums each
+    value as "lrelu_norm" does.
     ``mode``: "high"/"highest" (fp32), "default" (one bf16 pass) or "mid"
     (the 2-term split); both bf16 modes are ``packed_upconv_bf16`` on the
     card."""
@@ -547,12 +562,11 @@ def packed_upconv(x, w, b, *, rgb_w=None, rgb_b=None, epilogue="lrelu_norm", mod
     terms = check_mode(name, mode)
     _refuse_grad(name, "upconv_lrelu_norm", x, w, b, rgb_w, rgb_b)
     cout = w.shape[0]
-    norm = epilogue == "lrelu_norm"
-    _check_cout(name, cout, any_width=norm)
+    _check_cout(name, cout, any_width=True)
     if (rgb_w is None) != (rgb_b is None):
         raise ValueError(f"{name}: rgb_w and rgb_b go together")
     tile = norm_tile(cout)  # Cout itself at 8, 16, 32 and 64
-    _check(name, x, w.shape[1], _tile_rows(tile), 16, any_c=norm, w=w, b=b, rgb_w=rgb_w,
+    _check(name, x, w.shape[1], _tile_rows(tile), 16, w=w, b=b, rgb_w=rgb_w,
            rgb_b=rgb_b)
     w, b = pad_cout(w, tile), pad_cout(b, tile)
     bsz, c, h, wd = x.shape
@@ -735,8 +749,9 @@ def packed_conv(x, w, b, epilogue="lrelu_norm", mode="high"):
     "lrelu": LeakyReLU; "none"): x [B, C, H, W] fp32, w [Cout, C, 3, 3] eq-LR
     scaled, b [Cout] -> [B, Cout, H, W]. On CUDA, "lrelu_norm" takes any
     Cout from 1 to 64 and any C >= 1 (one slab, ``norm_tile(Cout)``'s, the
-    weights and bias zero-padded to it); "lrelu" and "none" any Cout that is
-    a multiple of 8 and C a multiple of 8. "none" is 3xTF32 on the card
+    weights and bias zero-padded to it); "lrelu" and "none" any Cout >= 1
+    (slabs of ``sliced_cout(Cout)``, the weights and bias zero-padded to
+    it), every epilogue any C >= 1. "none" is 3xTF32 on the card
     (each product three TF32 products of the operands' high and low parts,
     within ~1e-6 of the output's largest entry of the fp32 sum) and sums
     every output in a fixed order, so equal inputs give equal bits.
@@ -755,12 +770,14 @@ def packed_conv(x, w, b, epilogue="lrelu_norm", mode="high"):
     norm = epilogue == "lrelu_norm"
     _check_cout(name, cout, sliced=not norm, any_width=norm)
     # "lrelu_norm": one slab, the tile just above Cout (Cout itself at 8, 16,
-    # 32 and 64), the weights and bias padded to it; else slabs of Cout
-    slab = norm_tile(cout) if norm else _pool_slab(cout)
-    walk = slab if norm else cout  # the Cout the tiling's walk sees
-    _check(name, x, w.shape[1], _tile_rows(slab), 32, any_c=norm, w=w, b=b)
-    if norm:
-        w, b = pad_cout(w, slab), pad_cout(b, slab)
+    # 32 and 64); else slabs of Cout rounded up to a multiple of 8. The
+    # weights and bias are padded to the Cout the tiling's walk sees.
+    walk = norm_tile(cout) if norm else sliced_cout(cout)
+    slab = walk if norm else _pool_slab(walk)
+    _check(name, x, w.shape[1], _tile_rows(slab), 32, w=w, b=b)
+    w, b = pad_cout(w, walk), pad_cout(b, walk)
+    # counted by the true Cout where it is no tile's width, else by the slab
+    key = cout if norm or cout % 8 else slab
     bsz, c, h, wd = x.shape
     if terms:
         y = torch.empty((bsz, cout, h, wd), device=x.device, dtype=x.dtype)
@@ -769,20 +786,19 @@ def packed_conv(x, w, b, epilogue="lrelu_norm", mode="high"):
         blocks = persistent_blocks(conv_tile_count(bsz, walk, h, wd), _sms(x.device),
                                    ring_blocks_per_sm(smem))
         _bf16_launch(name, terms, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
-                     terms, CONV_EPILOGUES[epilogue], blocks, smem, epilogue=epilogue,
-                     slab=cout if norm else slab)
+                     terms, CONV_EPILOGUES[epilogue], blocks, smem, epilogue=epilogue, slab=key)
         return y
     # one slab for Cout 8, 16, 32 or 64: then this is conv_kernel_weights(w)
     wk = convpool_kernel_weights(w)
     b = b.contiguous()
     y = torch.empty((bsz, cout, h, wd), device=x.device, dtype=x.dtype)
     x = _aligned16(x)
-    smem = none_ring_bytes(cout) if epilogue == "none" else conv_ring_bytes(walk)
+    smem = none_ring_bytes(walk) if epilogue == "none" else conv_ring_bytes(walk)
     blocks = persistent_blocks(conv_tile_count(bsz, walk, h, wd), _sms(x.device),
                                ring_blocks_per_sm(smem))
     _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
             CONV_EPILOGUES[epilogue], *conv_tiling(walk), blocks, smem, epilogue=epilogue,
-            slab=cout if norm else slab)
+            slab=key)
     return y
 
 
@@ -822,9 +838,10 @@ def packed_convpool(x, w, b, epilogue="lrelu", mode="high"):
     """conv3x3 SAME + bias -> LeakyReLU ("lrelu") or nothing ("none") -> 2x2
     mean pool; the activation comes before the pool. x [B, C, H, W] fp32,
     w [Cout, C, 3, 3] eq-LR scaled, b [Cout] -> [B, Cout, H/2, W/2].
-    On CUDA, Cout and C are multiples of 8, at both epilogues; the kernels
-    walk packed_conv's tiles (``conv_tile_count``) on its rings, in
-    persistent blocks.
+    On CUDA, any Cout >= 1 and any C >= 1, at both epilogues (slabs of
+    ``sliced_cout(Cout)``, the weights and bias zero-padded to it, only the
+    true Cout stored); the kernels walk packed_conv's tiles
+    (``conv_tile_count``) on its rings, in persistent blocks.
     ``mode``: "high"/"highest" (fp32), "default" (one bf16 pass) or "mid"
     (the 2-term split); both bf16 modes are ``packed_convpool_bf16`` on the
     card."""
@@ -837,24 +854,27 @@ def packed_convpool(x, w, b, epilogue="lrelu", mode="high"):
     _refuse_grad(name, "convpool_lrelu", x, w, b)
     cout = w.shape[0]
     _check_cout(name, cout, sliced=True)
-    slab = _pool_slab(cout)
+    walk = sliced_cout(cout)
+    slab = _pool_slab(walk)
     _check(name, x, w.shape[1], _tile_rows(slab), 32, w=w, b=b)
+    w, b = pad_cout(w, walk), pad_cout(b, walk)
+    key = cout if cout % 8 else slab  # counted as packed_conv counts it
     bsz, c, h, wd = x.shape
     y = torch.empty((bsz, cout, h // 2, wd // 2), device=x.device, dtype=x.dtype)
     # named, so that nothing the kernel reads is freed before it runs
     b, x = b.contiguous(), _aligned16(x)
-    smem = bf16_ring_bytes(cout) if terms else conv_ring_bytes(cout)
-    blocks = persistent_blocks(conv_tile_count(bsz, cout, h, wd), _sms(x.device),
+    smem = bf16_ring_bytes(walk) if terms else conv_ring_bytes(walk)
+    blocks = persistent_blocks(conv_tile_count(bsz, walk, h, wd), _sms(x.device),
                                ring_blocks_per_sm(smem))
     act = int(epilogue == "lrelu")
     if terms:
         wk = conv_bf16_weights(w, slab)
         _bf16_launch(name, terms, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout,
-                     terms, act, blocks, smem, epilogue=epilogue, slab=slab)
+                     terms, act, blocks, smem, epilogue=epilogue, slab=key)
         return y
     wk = convpool_kernel_weights(w)
     _launch(name, x, _ptr(x), _ptr(wk), _ptr(b), _ptr(y), bsz, c, h, wd, cout, act, blocks,
-            smem, epilogue=epilogue, slab=slab)
+            smem, epilogue=epilogue, slab=key)
     return y
 
 
@@ -907,7 +927,7 @@ def packed_conv_rgb(x, w, b, rgb_w, rgb_b, rgb_prev, alpha, *,
     cout = w.shape[0]
     _check_cout(name, cout, any_width=True)
     tile = norm_tile(cout)  # Cout itself at 8, 16, 32 and 64
-    _check(name, x, w.shape[1], _tile_rows(tile), 32, any_c=True, w=w, b=b, rgb_w=rgb_w,
+    _check(name, x, w.shape[1], _tile_rows(tile), 32, w=w, b=b, rgb_w=rgb_w,
            rgb_b=rgb_b, rgb_prev=rgb_prev)
     bsz, c, h, wd = x.shape
     if tuple(rgb_prev.shape) != (bsz, 3, h // 2, wd // 2):
@@ -998,8 +1018,9 @@ def packed_conv_wgrad(x, dpre, mode="highest"):
     x_pad[b, c, y+ky-1, x+kx-1] * dpre[b, o, y, x]. fp32 by accuracy: on the
     card each product is three TF32 products of the operands' high and low
     parts, within ~1e-6 of dW's largest entry of the fp32 sum. Every sum has a
-    fixed order, so equal inputs give equal bits. On CUDA, C and Cout are
-    multiples of 8, H of 8 and W of 32, and x and dpre are 16-byte aligned.
+    fixed order, so equal inputs give equal bits. On CUDA, any C >= 1 and
+    Cout >= 1 (channels past them staged as zeros, not written), H a
+    multiple of 8 and W of 32, and x and dpre 16-byte aligned.
     ``mode``: "mid", "high" and "highest" run this one kernel, as the
     reference promotes its split modes to HIGHEST; "default" is one bf16 pass,
     ``packed_conv_wgrad_bf16`` on the card: both operands rounded to bf16 (to
@@ -1015,9 +1036,9 @@ def packed_conv_wgrad(x, dpre, mode="highest"):
     _check(name, x, x.shape[1], 8, 32, dpre=dpre)
     bsz, c, h, wd = x.shape
     cout = dpre.shape[1]
-    if cout % 8 or not dpre.is_contiguous():
+    if cout < 1 or not dpre.is_contiguous():
         raise ValueError(f"{name}: dpre {tuple(dpre.shape)} must be contiguous with "
-                         "Cout a multiple of 8")
+                         "Cout >= 1")
     if x.data_ptr() % 16 or dpre.data_ptr() % 16:  # the kernel copies 16 bytes at a time
         raise ValueError(f"{name}: x and dpre must be 16-byte aligned")
     o_slab, rows, _ = wgrad_tiling(cout)
@@ -1025,7 +1046,8 @@ def packed_conv_wgrad(x, dpre, mode="highest"):
     partials = torch.empty((ksplit, 9, c, cout), device=x.device, dtype=x.dtype)
     dw = torch.empty((cout, c, 3, 3), device=x.device, dtype=x.dtype)
     _launch(f"{name}_bf16" if terms == 1 else name, x, _ptr(x), _ptr(dpre), _ptr(partials),
-            _ptr(dw), bsz, c, h, wd, cout, o_slab, rows, ksplit)
+            _ptr(dw), bsz, c, h, wd, cout, o_slab, rows, ksplit,
+            slab=cout if cout % 8 else None)
     return dw
 
 
@@ -1173,7 +1195,7 @@ def _stage_fused_checks(name: str, x, w1, w2, **params) -> int:
     _check_cout(name, cout)
     if tuple(w2.shape) != (cout, cout, 3, 3):
         raise ValueError(f"{name}: w2 {tuple(w2.shape)} must be {(cout, cout, 3, 3)}")
-    _check(name, x, w1.shape[1], _tile_rows(cout) // 2, 16, w1=w1, w2=w2, **params)
+    _check(name, x, w1.shape[1], _tile_rows(cout) // 2, 16, c8=True, w1=w1, w2=w2, **params)
     return cout
 
 

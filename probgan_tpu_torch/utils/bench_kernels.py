@@ -845,7 +845,8 @@ def bench_bwd(pk, dump: Path | None) -> dict:
     bound (the larger of the bf16 FLOP at the tensor cores' peak and the
     fp32 bytes in and out at the HBM rate) and its share, sha256 of the
     output's bytes, and for the weight gradient the fp32 kernel's ms beside
-    it; the outputs saved under ``dump``."""
+    it; the outputs saved under ``dump`` (the weight gradient's at both
+    kernels, "default" then fp32)."""
     out = {}
     bsz = 2
     for i, (label, kernel, epi, c, cout, h) in enumerate(BWD_SHAPES):
@@ -879,7 +880,8 @@ def bench_bwd(pk, dump: Path | None) -> dict:
             torch.cuda.synchronize()
             digest = hashlib.sha256(y.cpu().numpy().tobytes())
             if dump is not None:
-                torch.save([y.cpu()], dump / f"bwd_{label}.pt")
+                ys = [y] + ([pk.packed_conv_wgrad(x, g)] if kernel == "packed_conv_wgrad" else [])
+                torch.save([t.cpu() for t in ys], dump / f"bwd_{label}.pt")
             ms = cuda_ms(call, iters=10)
         if kernel != "packed_conv_wgrad":
             extra.update(alone_and_library(pk, kernel, epi, "default", call, x, w, b))

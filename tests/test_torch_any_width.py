@@ -28,9 +28,15 @@ channels; C 4 and 12 too), on the CPU, against the JAX package.
   toRGB weights zero-padded to it, B1's toRGB weights as they are, the true
   C and Cout, the shared-memory bytes against the kernels' own arithmetic
   (csrc/conv_ring.cuh, csrc/bf16_ring.cuh), the launches counted under
-  ``narrow_launches`` by the true Cout; and what still raises before any
-  launch, naming ROADMAP.md B.a.2.4.
-On the card chip_smoke.py phase 22 holds the kernels against these twins.
+  ``narrow_launches`` by the true Cout; the training backward's kernels at
+  widths they refused before the training half of B.a.2.4 (B2 "lrelu"
+  and "none", B5, B1 "lrelu"), launched; and what still raises before any
+  launch, naming ROADMAP.md B.a.2.4: the stage-fused kernels at these
+  widths and PixelNorm above 64 channels. On the card, T, T2 and O's
+  packed stages run the packed train step's G forward and backward, and
+  refuse PROBGAN_STAGE_FUSED=1 up front.
+On the card chip_smoke.py phase 22 holds the kernels against these twins,
+phase 23 the backward's (tests/test_torch_any_width_backward.py on the CPU).
 """
 
 import jax
@@ -42,6 +48,7 @@ import torch
 from probgan_tpu.models import pro_gan as jpg
 from probgan_tpu.ops import pallas_packed as pk
 from probgan_tpu_torch.core.convert import convert_generator_params
+from probgan_tpu_torch.core.tree import tree_map
 from probgan_tpu_torch.models import pro_gan as tpg
 from probgan_tpu_torch.ops import packed as tpk
 from tests.test_torch_narrow import JAX_MODE, TOL, _check
@@ -345,15 +352,31 @@ def test_wrappers_pad_to_the_tile_and_pass_the_true_widths(recorded, mode):
         8, 8, 8, 8, 16, 16, 16, 32, 32, 32, 64, 64, 64]
 
 
-@pytest.mark.parametrize("call,needle", [
+@pytest.mark.parametrize("call,cout,key", [
     (lambda: tpk.packed_conv(_meta(1, 16, 16, 32), _meta(12, 16, 3, 3), _meta(12), "lrelu"),
-     "Cout=12"),
+     12, "packed_conv[cout12]"),
     (lambda: tpk.packed_conv(_meta(1, 16, 16, 32), _meta(4, 16, 3, 3), _meta(4), "none",
-                             mode="default"), "Cout=4"),
+                             mode="default"), 4, "packed_conv_bf16[cout4]"),
     (lambda: tpk.packed_convpool(_meta(1, 16, 16, 32), _meta(12, 16, 3, 3), _meta(12),
-                                 mode="mid"), "Cout=12"),
+                                 mode="mid"), 12, "packed_convpool_mid[cout12]"),
     (lambda: tpk.packed_upconv(_meta(1, 8, 16, 16), _meta(4, 8, 3, 3), _meta(4),
-                               epilogue="lrelu", mode="default"), "Cout=4"),
+                               epilogue="lrelu", mode="default"), 4, "packed_upconv_bf16[cout4]"),
+])
+def test_what_the_training_half_of_b_a_2_4_took_launches(recorded, call, cout, key):
+    """Refused before the training half of B.a.2.4: one launch each with the
+    true Cout, the weights and bias zero-padded to the slab or tile, counted
+    under narrow_launches by the true Cout."""
+    with torch.no_grad():
+        y = call()
+    ((name, args),) = recorded
+    assert y.shape[1] == cout and name == key.split("[")[0].replace("_mid", "_bf16")
+    at = 11 if name.startswith("packed_upconv") else 8  # the Cout argument
+    assert args[at] == cout and args[2].shape[0] == (
+        tpk.norm_tile(cout) if name.startswith("packed_upconv") else tpk.sliced_cout(cout))
+    assert tpk.narrow_launches == {key: 1}
+
+
+@pytest.mark.parametrize("call,needle", [
     (lambda: tpk.packed_upconv_conv(_meta(1, 8, 8, 16), _meta(4, 8, 3, 3), _meta(4),
                                     _meta(4, 4, 3, 3), _meta(4), mode="mid"), "Cout=4"),
     (lambda: tpk.packed_upconv_conv_rgb(_meta(1, 48, 8, 16), _meta(24, 48, 3, 3), _meta(24),
@@ -374,12 +397,14 @@ def test_what_b_a_2_4_keeps_raises_before_any_launch(recorded, call, needle):
 
 @pytest.mark.parametrize("name", sorted(CARD_CONFIGS))
 def test_card_routes_refuse_the_item_s_widths_up_front(recorded, name, monkeypatch):
-    """On the card, T, T2 and O's stages 6-8 under PROBGAN_STAGE_FUSED=1 and
-    the packed train step's G (packed_g) raise before the first launch,
-    naming B.a.2.4 (the stage-fused kernels and the backward take Cout 8,
-    16, 32 and 64 from C % 8 == 0); without the variable the two-kernel
-    path launches 3 B1, 2 B2 and 1 B3, counted by the true Cout where it is
-    no tile's width."""
+    """On the card, T, T2 and O's stages 6-8 under PROBGAN_STAGE_FUSED=1
+    raise before the first launch, naming B.a.2.4 (the stage-fused kernels
+    take Cout 8, 16, 32 and 64 from C % 8 == 0); without the variable the
+    two-kernel path launches 3 B1, 2 B2 and 1 B3, counted by the true Cout
+    where it is no tile's width. The packed train step's G (packed_g) runs
+    its three stages forward and backward: per stage B1 and B2
+    "lrelu_norm", then B2 "lrelu" and "none", B6, B1 "lrelu", B5 "none" and
+    B6."""
     cfg = tpg.ProGANConfig(resolution=1024, fmap_base=CARD_CONFIGS[name])
     stage = cfg.num_stages - 1
     s0 = tpg.packed_start_stage(cfg, stage)
@@ -393,9 +418,6 @@ def test_card_routes_refuse_the_item_s_widths_up_front(recorded, name, monkeypat
     monkeypatch.setenv("PROBGAN_STAGE_FUSED", "1")
     with torch.no_grad(), pytest.raises(ValueError, match="B.a.2.4"):
         tpg._g_late_packed(params, x, cfg, s0, stage, 1.0, "high", emit="uint8")
-    with pytest.raises(ValueError, match="B.a.2.4"):
-        tpg._g_rgb_packed_train(params, _meta(2, cfg.latent_dim), cfg, s0, stage, 1.0,
-                                torch.float32, "default", remat=False)
     assert not recorded
     monkeypatch.setenv("PROBGAN_STAGE_FUSED", "0")
     with torch.no_grad():
@@ -411,3 +433,20 @@ def test_card_routes_refuse_the_item_s_widths_up_front(recorded, name, monkeypat
         if cout < 32 or cout not in tpk.SUPPORTED_COUT:
             want[f"{kernel}[cout{cout}]"] = want.get(f"{kernel}[cout{cout}]", 0) + 1
     assert tpk.narrow_launches == want
+
+    # the packed train step's G on the kernels, forward and backward
+    g = tree_map(lambda t: t.to("meta").requires_grad_(True),
+                 tpg.init_generator(cfg, 0))
+    recorded.clear()
+    tpk.reset_launches()
+    rgb = tpg._g_rgb_packed_train(g, _meta(2, cfg.latent_dim), cfg, s0, stage, 1.0,
+                                  torch.float32, "default", remat=False)
+    assert tuple(rgb.shape) == (2, 1024, 1024, 3)
+    rgb.sum().backward()
+    stage_calls = ["packed_upconv_bf16", "packed_conv_bf16"] * 3
+    backward = ["packed_conv_bf16", "packed_conv_bf16", "packed_conv_wgrad_bf16",
+                "packed_upconv_bf16", "packed_convpool_bf16", "packed_conv_wgrad_bf16"] * 3
+    assert [n for n, _ in recorded] == stage_calls + backward
+    assert all(leaf.grad is not None and leaf.grad.shape == leaf.shape
+               for block in g["blocks"][s0 - 1:] for conv in block.values()
+               for leaf in conv.values())

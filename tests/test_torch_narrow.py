@@ -21,12 +21,14 @@ against the JAX package on the same numpy inputs.
   against the kernels' own arithmetic (csrc/conv_ring.cuh,
   csrc/bf16_ring.cuh), two ring blocks an SM, the launches counted under
   ``narrow_launches``; what still raises ValueError before any launch,
-  naming ROADMAP.md B.a.2.4: Cout 4 in B2 "lrelu"/"none", B5 and B1
-  "lrelu", Cout 24 and 4 in the stage-fused B10, PixelNorm at 128
-  channels and B1 "lrelu" at Cout 12. B1 "lrelu_norm" at Cout 4 and B2
+  naming ROADMAP.md B.a.2.4: Cout 24 and 4 in the stage-fused B10 and
+  PixelNorm at 128 channels. B1 "lrelu_norm" at Cout 4 and B2
   "lrelu_norm" at Cout 24, refused before B.a.2.3, launch now (on the tiles
   of 8 and 32; tests/test_torch_any_width.py holds them at every width of
-  that item). "none" at slabs of 16 and 8 is held in
+  that item), and so do Cout 4 in B2 "lrelu"/"none", B5 and B1 "lrelu" and
+  B1 "lrelu" at Cout 12, refused before the training half of B.a.2.4
+  (tests/test_torch_any_width_backward.py holds them at every width of the
+  generators it trains). "none" at slabs of 16 and 8 is held in
   tests/test_torch_narrow_backward.py, the stage-fused kernels at 16 and 8
   in tests/test_torch_stage_fused_narrow.py.
 """
@@ -238,26 +240,13 @@ def test_narrow_wrappers_launch_the_narrow_kernels(recorded):
 
 
 @pytest.mark.parametrize("call,match", [
-    (lambda: tpk.packed_conv(_meta(1, 16, 16, 32), _meta(4, 16, 3, 3), _meta(4), "lrelu"),
-     "Cout=4 below 8"),
-    (lambda: tpk.packed_convpool(_meta(1, 16, 16, 32), _meta(4, 16, 3, 3), _meta(4)),
-     "Cout=4 below 8"),
-    (lambda: tpk.packed_upconv(_meta(1, 16, 16, 16), _meta(4, 16, 3, 3), _meta(4),
-                               epilogue="lrelu"),
-     "Cout=4 below 8"),
     (lambda: tpk.packed_upconv_conv(_meta(1, 16, 8, 16), _meta(24, 16, 3, 3), _meta(24),
                                     _meta(24, 24, 3, 3), _meta(24)),
      r"Cout=24 not in \(8, 16, 32, 64\)"),
-    (lambda: tpk.packed_conv(_meta(1, 16, 16, 32), _meta(4, 16, 3, 3), _meta(4), "none"),
-     "ROADMAP.md"),
-    (lambda: tpk.packed_convpool(_meta(1, 16, 16, 32), _meta(4, 16, 3, 3), _meta(4), "none",
-                                 mode="mid"), "ROADMAP.md"),
     (lambda: tpk.packed_upconv_conv(_meta(1, 8, 8, 16), _meta(4, 8, 3, 3), _meta(4),
                                     _meta(4, 4, 3, 3), _meta(4)), "ROADMAP.md"),
     (lambda: tpk.packed_conv(_meta(1, 16, 8, 32), _meta(128, 16, 3, 3), _meta(128)),
      "PixelNorm above 64"),
-    (lambda: tpk.packed_upconv(_meta(1, 16, 16, 16), _meta(12, 16, 3, 3), _meta(12),
-                               epilogue="lrelu"), "Cout=12 not in"),
 ])
 def test_narrow_wrappers_refuse_what_is_not_ported(recorded, call, match):
     """Each refusal raises before any launch and names B.a.2.4."""
@@ -272,20 +261,45 @@ def test_narrow_wrappers_refuse_what_is_not_ported(recorded, call, match):
      4, 8, "packed_upconv[cout4]"),
     (lambda: tpk.packed_conv(_meta(1, 16, 16, 32), _meta(24, 16, 3, 3), _meta(24)),
      24, 32, "packed_conv[cout24]"),
+    # refused before the training half of B.a.2.4: the sliced kernels on the
+    # slab of Cout rounded up to 8, B1 "lrelu" on the tile above Cout
+    (lambda: tpk.packed_conv(_meta(1, 16, 16, 32), _meta(4, 16, 3, 3), _meta(4), "lrelu"),
+     4, 8, "packed_conv[cout4]"),
+    (lambda: tpk.packed_convpool(_meta(1, 16, 16, 32), _meta(4, 16, 3, 3), _meta(4)),
+     4, 8, "packed_convpool[cout4]"),
+    (lambda: tpk.packed_upconv(_meta(1, 16, 16, 16), _meta(4, 16, 3, 3), _meta(4),
+                               epilogue="lrelu"),
+     4, 8, "packed_upconv[cout4]"),
+    (lambda: tpk.packed_conv(_meta(1, 16, 16, 32), _meta(4, 16, 3, 3), _meta(4), "none"),
+     4, 8, "packed_conv[cout4]"),
+    (lambda: tpk.packed_convpool(_meta(1, 16, 16, 32), _meta(4, 16, 3, 3), _meta(4), "none",
+                                 mode="mid"), 4, 8, "packed_convpool_mid[cout4]"),
+    (lambda: tpk.packed_upconv(_meta(1, 16, 16, 16), _meta(12, 16, 3, 3), _meta(12),
+                               epilogue="lrelu"), 12, 16, "packed_upconv[cout12]"),
 ])
 def test_narrow_wrappers_launch_what_was_refused(recorded, call, cout, tile, key):
     """B1 "lrelu_norm" at Cout 4 and B2 "lrelu_norm" at Cout 24 (refused
-    before B.a.2.3) launch on the tile above Cout with the true Cout, counted
-    under narrow_launches by it."""
+    before B.a.2.3), and Cout 4 in B2 "lrelu"/"none", B5 and B1 "lrelu" and
+    B1 "lrelu" at Cout 12 (refused before the training half of B.a.2.4),
+    launch on the tile or slab ``tile`` with the true Cout, counted under
+    narrow_launches by it."""
     with torch.no_grad():
         y = call()
     assert y.shape[1] == cout
     ((name, args),) = recorded
-    assert name in ("packed_upconv", "packed_conv")
+    assert name.removesuffix("_bf16") in ("packed_upconv", "packed_conv", "packed_convpool")
+    epilogue = {"packed_upconv": tpk.UPCONV_EPILOGUES, "packed_conv": tpk.CONV_EPILOGUES}
     if name == "packed_upconv":  # (..., cout, epilogue, blocks, smem)
-        assert args[-4:-2] == (cout, 0) and args[-1] == tpk.upconv_ring_bytes(tile)
-    else:  # (..., cout, epilogue, o_slab, rows, blocks, smem)
-        assert args[-6:-2] == (cout, 0, tile, 16) and args[-1] == tpk.conv_ring_bytes(tile)
+        assert args[-4] == cout and args[-3] in epilogue[name].values()
+        assert args[-1] == tpk.upconv_ring_bytes(tile)
+    elif name == "packed_conv":  # (..., cout, epilogue, o_slab, rows, blocks, smem)
+        assert args[-6] == cout and args[-4:-2] == (tile, 16)
+        assert args[-1] == (tpk.none_ring_bytes(tile) if args[-5] == 2
+                            else tpk.conv_ring_bytes(tile))
+    elif name == "packed_convpool":  # (..., cout, act, blocks, smem)
+        assert args[-4] == cout and args[-1] == tpk.conv_ring_bytes(tile)
+    else:  # packed_convpool_bf16 (..., cout, terms, act, blocks, smem)
+        assert args[-5] == cout and args[-1] == tpk.bf16_ring_bytes(tile)
     assert tpk.narrow_launches == {key: 1}
 
 

@@ -302,13 +302,14 @@ def test_forward_kernels_refuse_to_swallow_gradients(kernel):
 
 def test_packed_conv_takes_wide_outputs_without_pixelnorm():
     """The discriminator's 64 -> 128 conv is recomputed by convpool_lrelu's
-    backward: "lrelu" and "none" take any multiple of 8 output channels in
-    slabs (the largest of 64, 32, 16 and 8 that divides it), "lrelu_norm"
-    (every channel in one block) only 8, 16, 32 or 64."""
-    tpk._check_cout("packed_conv", 128, sliced=True)
-    tpk._check_cout("packed_conv", 96, sliced=True)
-    tpk._check_cout("packed_conv", 48, sliced=True)
-    for bad, sliced in ((128, False), (48, False), (12, True), (4, True), (0, True)):
+    backward: "lrelu" and "none" take any output channel count in slabs (the
+    largest of 64, 32, 16 and 8 that divides it rounded up to a multiple of
+    8: 12 and 4 on slabs of 16 and 8), the fixed-tile check (the stage-fused
+    kernels') only 8, 16, 32 or 64."""
+    for cout in (128, 96, 48, 12, 4):
+        tpk._check_cout("packed_conv", cout, sliced=True)
+    assert [tpk._pool_slab(tpk.sliced_cout(c)) for c in (12, 4, 2)] == [16, 8, 8]
+    for bad, sliced in ((128, False), (48, False), (12, False), (0, True)):
         with pytest.raises(ValueError, match="Cout"):
             tpk._check_cout("packed_conv", bad, sliced=sliced)
     # "none" has no check of its own: the slabs of "lrelu" at every Cout
